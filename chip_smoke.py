@@ -1,26 +1,39 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA card: builds the kernels, holds
 each against its plain PyTorch version, drives the N=20 TFIM energy path
-through the public ``Circuit`` API and times it.
+and its training step through the public ``Circuit`` API and times them.
 
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero; nothing is caught):
-  1. build the kernels from ``tensorcircuit_ng_tpu_torch/core/csrc`` (nvcc,
-     into ``build/kernels/``); print the build time and the card's name and
-     power limit;
+  1. build the kernels from ``tensorcircuit_ng_tpu_torch/core/csrc`` (one
+     nvcc for each source, all at once, into ``build/kernels/``); print the
+     build time and the card's name and power limit;
   2. kernel parity on the card at the n=20 shapes: K1 ``zzrx_fwd`` with and
-     without the lane matrix, K2 ``grand_zzrx_fwd`` at L=4, each against
-     its plain version on the same CUDA inputs;
-  3. the main path: ``Circuit(20)`` h_layer + 4 zzrx_layer +
+     without the lane matrix, K2 ``grand_zzrx_fwd`` at L=4, K3
+     ``zzrx_bwd`` with and without the lane matrix (and with it at n=22,
+     the shape the training path gives K3), K4 ``grand_zzrx_bwd`` at L=4
+     and L=3 (twice: the two results must be equal bit for bit), each
+     against its plain version on the same CUDA inputs, with unitary
+     rx-kron outer and lane matrices;
+  3. the forward path: ``Circuit(20)`` h_layer + 4 zzrx_layer +
      ``expectation_zzx_energy`` for 5 seeded parameter sets (and the state
      of the first), then L=3 once (K1 through the circuit), with the launch
      counts reset just before and read just after; energies against the
      port's CPU path, the state's norm against 1;
-  4. timings (CUDA events, after warm-up; each kernel and its plain
-     version over 3 rounds of 20 medians, reported as median and spread);
-  5. a torch.profiler window over 10 L=4 evaluations: device busy share
-     and device time by kernel name.
+  4. the training path, the main path of the training slice: 5 SGD steps
+     ``p <- p - 0.01 dE/dp`` (``torch.autograd.grad``) at n=20, L=4 from
+     the benchmark's seeded parameters, then one step at n=20, L=3 (K1
+     forward + K4 backward) and one at n=22, L=4 (K1 forward, K3 backward
+     with the lane matrix), with the launch counts reset just before and
+     read just after; energies and gradients against the same steps on the
+     port's CPU path;
+  5. timings (CUDA events, after warm-up): the evaluation and the training
+     step (median of 20), each kernel and its plain version at its path's
+     shape (K3 at n=22, the others at n=20) over 3 rounds of 20 medians,
+     reported as median and spread;
+  6. torch.profiler windows over 10 L=4 evaluations and 10 L=4 training
+     steps: device busy share and device time by kernel name.
 
 Prints the kernels JSON line, then the card's name and power limit, then
 ``{"ok": true, "device": {...}}`` as the last line.  Needs no network and
@@ -40,6 +53,8 @@ import numpy as np
 
 N = 20
 L = 4
+#: the training path's width past the grand path (K3 through _adjoint_chain)
+N22 = 22
 SEEDS = 5
 PAIRS = [(i, i + 1) for i in range(N - 1)]
 #: kernel vs plain version, both float32 on the card: relative Frobenius
@@ -49,6 +64,12 @@ KERNEL_RTOL = 1e-5
 #: energy on the card vs the port's CPU path (E ~ -19, float32 sums over
 #: 2^20 amplitudes in another order)
 ENERGY_ATOL = 1e-4
+#: gradient on the card vs the port's CPU path, max abs over the (L, 2, n)
+#: grid (entries up to ~1; each a float32 sum over 2^20 amplitudes a layer)
+GRAD_ATOL = 1e-4
+#: the training step: SGD rate and number of steps at n=20, L=4
+LR = 0.01
+STEPS = 5
 NORM_ATOL = 1e-5
 #: the card's peaks for the bound (NVIDIA H100 SXM data sheet)
 PEAK_BYTES_PER_S = 3.35e12
@@ -136,6 +157,35 @@ def _k1_work(r, npairs, nkernel, lane):
     return nbytes, flops
 
 
+def _k3_work(r, npairs, nkernel, lane):
+    """(bytes, flops) K3 must move and compute: y and ct in, ds out (and the
+    lane planes in, dM out); per amplitude 20 flops a butterfly stage (the
+    un-apply, the ct walk, the two dθ sums), 4 a pair + 9 for the zz stage
+    (exponent, dzz sum, phase walk) and, with the lane matrix, three complex
+    128-deep products (un-lane, ct walk, dM): 3·8·128."""
+    amps = r * 128
+    nbytes = 6 * 4 * amps + 4 * (4 * npairs + 2 * nkernel)
+    flops = amps * (20 * nkernel + 4 * npairs + 9)
+    if lane:
+        nbytes += 4 * 4 * 128 * 128
+        flops += amps * 3 * 8 * 128
+    return nbytes, flops
+
+
+def _k4_work(r, npairs, nkernel, nouter, L):
+    """(bytes, flops) of K4: L layers of K3 with the lane matrix plus, a
+    layer, the outer walk (8·D flops an amplitude) and dθ_outer (4 an outer
+    qubit); the L residuals and the seed in, ds out, the outer and lane
+    matrices in and the dM planes out."""
+    amps = r * 128
+    d = 2**nouter
+    _, f3 = _k3_work(r, npairs, nkernel, True)
+    nbytes = 4 * 4 * amps + L * 2 * 4 * amps
+    nbytes += L * (4 * 4 * 128 * 128 + 2 * 4 * d * d + 4 * (4 * npairs + 2 * nkernel + nouter))
+    flops = L * (f3 + amps * (8 * d + 4 * nouter))
+    return nbytes, flops
+
+
 def _bound_ms(nbytes, flops):
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_F32_FLOPS * 1e3
@@ -185,11 +235,35 @@ def main() -> int:
     psi /= np.linalg.norm(psi)
     sr, si = tct.convert.planes(psi, dev)
     zz = torch.as_tensor(rng.normal(size=(L, N - 1)) * 0.4, dtype=torch.float32, device=dev)
+    # unitary rx krons: the backward kernels rebuild states by un-application
     rx = torch.as_tensor(rng.normal(size=(L, N)) * 0.4, dtype=torch.float32, device=dev)
     mor, moi = kst._rx_kron_planes(rx[:, :nouter])
     mlr, mli = kst._lane_kron_planes_T(rx[:, nrow:])
     thk = rx[:, nouter:nrow].contiguous()
     pairs = tuple(PAIRS)
+    with torch.no_grad():
+        # backward inputs: the forward's residuals and a seeded cotangent
+        ksr, ksi, _, _ = kg.grand_zzrx_fwd(pairs, N, zz, thk, sr, si, mor, moi, mlr, mli)
+    ctr, cti = tct.convert.planes(rng.normal(size=2**N) + 1j * rng.normal(size=2**N), dev)
+    ctr, cti = ctr / 2 ** (N / 2), cti / 2 ** (N / 2)
+    k4 = {nl: (pairs, N, zz[:nl], thk[:nl], ksr[:nl], ksi[:nl], ctr, cti,
+               mor[:nl], moi[:nl], mlr[:nl], mli[:nl]) for nl in (L, 3)}
+    # K3's main-path shape: the n=22 step (nrow=15, past the grand path)
+    # takes K3 with the lane matrix once a layer, on a K1-fused residual
+    nrow22, nkernel22, nouter22, _ = kst._shapes(N22)
+    r22 = 2**nrow22
+    pairs22 = tuple((i, i + 1) for i in range(N22 - 1))
+    psi22 = rng.normal(size=2**N22) + 1j * rng.normal(size=2**N22)
+    s22r, s22i = tct.convert.planes(psi22 / np.linalg.norm(psi22), dev)
+    zz22 = torch.as_tensor(rng.normal(size=N22 - 1) * 0.4, dtype=torch.float32, device=dev)
+    rx22 = torch.as_tensor(rng.normal(size=(1, N22)) * 0.4, dtype=torch.float32, device=dev)
+    ml22r, ml22i = (m[0] for m in kst._lane_kron_planes_T(rx22[:, nrow22:]))
+    th22 = rx22[0, nouter22:nrow22].contiguous()
+    with torch.no_grad():
+        k22r, k22i = krl.zzrx_fwd(pairs22, N22, zz22, th22, s22r, s22i, ml22r, ml22i)
+    c22r, c22i = tct.convert.planes(rng.normal(size=2**N22) + 1j * rng.normal(size=2**N22), dev)
+    c22r, c22i = c22r / 2 ** (N22 / 2), c22i / 2 ** (N22 / 2)
+    k3_22 = (pairs22, N22, zz22, th22, k22r, k22i, c22r, c22i, ml22r, ml22i)
     cases = {
         "zzrx_fwd": [
             ("no lane", lambda: krl.zzrx_fwd(pairs, N, zz[0], thk[0], sr, si),
@@ -201,6 +275,18 @@ def main() -> int:
             (f"L={L}", lambda: kg.grand_zzrx_fwd(pairs, N, zz, thk, sr, si, mor, moi, mlr, mli),
              lambda: kg.grand_zzrx_fwd_plain(pairs, N, zz, thk, sr, si, mor, moi, mlr, mli)),
         ],
+        "zzrx_bwd": [
+            ("no lane", lambda: krl.zzrx_bwd(pairs, N, zz[0], thk[0], ksr[0], ksi[0], ctr, cti),
+             lambda: krl.zzrx_bwd_plain(pairs, N, zz[0], thk[0], ksr[0], ksi[0], ctr, cti)),
+            ("lane", lambda: krl.zzrx_bwd(pairs, N, zz[0], thk[0], ksr[0], ksi[0], ctr, cti, mlr[0], mli[0]),
+             lambda: krl.zzrx_bwd_plain(pairs, N, zz[0], thk[0], ksr[0], ksi[0], ctr, cti, mlr[0], mli[0])),
+            (f"lane n={N22}", lambda: krl.zzrx_bwd(*k3_22), lambda: krl.zzrx_bwd_plain(*k3_22)),
+        ],
+        "grand_zzrx_bwd": [
+            (f"L={nl}", lambda nl=nl: kg.grand_zzrx_bwd(*k4[nl]),
+             lambda nl=nl: kg.grand_zzrx_bwd_plain(*k4[nl]))
+            for nl in (L, 3)
+        ],
     }
     max_err = {}
     with torch.no_grad():
@@ -208,25 +294,33 @@ def main() -> int:
             max_err[kname] = 0.0
             for label, kern, plain in variants:
                 got = kern()
+                again = kern() if kname == "grand_zzrx_bwd" else got
                 torch.cuda.synchronize()
                 want = plain()
-                for i, (a, b) in enumerate(zip(got, want)):
+                if len(got) != len(want):
+                    _fail(f"{kname} [{label}] returns {len(got)} outputs, its plain version {len(want)}")
+                for i, (a, a2, b) in enumerate(zip(got, again, want)):
                     diff, scale, rel = _errors(a, b)
-                    ok = rel <= KERNEL_RTOL and diff <= KERNEL_RTOL * scale
-                    print(f"parity {kname} [{label}] out{i}: max_abs {diff:.3e} "
+                    ok = a.shape == b.shape and rel <= KERNEL_RTOL and diff <= KERNEL_RTOL * scale
+                    print(f"parity {kname} [{label}] out{i} {tuple(a.shape)}: max_abs {diff:.3e} "
                           f"(max|plain| {scale:.3e}), rel_frob {rel:.3e}, "
                           f"tol {KERNEL_RTOL:g} -> {'ok' if ok else 'FAIL'}")
                     if not ok:
                         _fail(f"{kname} [{label}] disagrees with its plain version")
+                    if not torch.equal(a, a2):
+                        _fail(f"{kname} [{label}] out{i} differs between two runs")
                     max_err[kname] = max(max_err[kname], diff)
+                if kname == "grand_zzrx_bwd":
+                    print(f"parity {kname} [{label}]: two runs equal bit for bit")
 
-    # ---- 3. the main path through the public API -------------------------
-    def circuit_energy(params, nl, device):
-        c = tct.Circuit(N, device=device)
+    # ---- 3. the forward path through the public API ----------------------
+    def circuit_energy(params, nl, device, n=N):
+        pp = [(i, i + 1) for i in range(n - 1)]
+        c = tct.Circuit(n, device=device)
         c.h_layer()
         for l in range(nl):
-            c.zzrx_layer(PAIRS, params[l, 0, : N - 1], params[l, 1])
-        return c, c.expectation_zzx_energy(PAIRS, 1.0, -1.0)
+            c.zzrx_layer(pp, params[l, 0, : n - 1], params[l, 1])
+        return c, c.expectation_zzx_energy(pp, 1.0, -1.0)
 
     prng = np.random.default_rng(42)
     grids = [prng.normal(size=(L, 2, N)) * 0.1 for _ in range(SEEDS)]
@@ -243,9 +337,9 @@ def main() -> int:
         _, e3 = circuit_energy(tct.convert.params(grid3, dev), 3, "cuda")
         torch.cuda.synchronize()
     launches = {"zzrx_fwd": krl.zzrx_fwd.launches, "grand_zzrx_fwd": kg.grand_zzrx_fwd.launches}
-    print(f"main path launches: {launches}")
+    print(f"forward path launches: {launches}")
     if launches["grand_zzrx_fwd"] < SEEDS or launches["zzrx_fwd"] < 3:
-        _fail(f"the main path did not go through the kernels: {launches}")
+        _fail(f"the forward path did not go through the kernels: {launches}")
     with torch.no_grad():
         for i, g in enumerate(grids + [grid3]):
             nl = g.shape[0]
@@ -259,55 +353,133 @@ def main() -> int:
         _fail(f"state norm {norm0.item()}")
     print(f"state norm {norm0.item():.7f} (tol {NORM_ATOL:g})")
 
-    # ---- 4. timings --------------------------------------------------------
+    # ---- 4. the training path through the public API ---------------------
+    def value_and_grad(p, nl, device, n=N):
+        _, e = circuit_energy(p, nl, device, n)
+        (g,) = torch.autograd.grad(e, p)
+        return e, g
+
+    def sgd(p, g):
+        with torch.no_grad():
+            p.sub_(LR * g)
+
+    train = [  # (label, n, L, steps, parameters from the benchmark's seed)
+        (f"n={N} L={L}", N, L, STEPS, np.random.default_rng(42).normal(size=(L, 2, N)) * 0.1),
+        (f"n={N} L=3", N, 3, 1, np.random.default_rng(43).normal(size=(3, 2, N)) * 0.1),
+        (f"n={N22} L={L}", N22, L, 1, np.random.default_rng(44).normal(size=(L, 2, N22)) * 0.1),
+    ]
+    counters = (krl.zzrx_fwd, kg.grand_zzrx_fwd, krl.zzrx_bwd, kg.grand_zzrx_bwd)
+    for k in counters:
+        k.launches = 0
+    card_steps = []
+    for label, n, nl, steps, g0 in train:
+        p = tct.convert.params(g0, dev).requires_grad_()
+        for _ in range(steps):
+            e, g = value_and_grad(p, nl, "cuda", n)
+            card_steps.append((e.item(), g.cpu().numpy()))
+            sgd(p, g)
+    torch.cuda.synchronize()
+    train_launches = {k.__name__: k.launches for k in counters}
+    print(f"training path launches: {train_launches}")
+    if train_launches["grand_zzrx_bwd"] < STEPS + 1 or train_launches["zzrx_bwd"] < L:
+        _fail(f"the training path did not go through the backward kernels: {train_launches}")
+    i = 0
+    for label, n, nl, steps, g0 in train:
+        p = tct.convert.params(g0, "cpu").requires_grad_()
+        for step in range(steps):
+            e, g = value_and_grad(p, nl, "cpu", n)
+            e_card, g_card = card_steps[i]
+            i += 1
+            de = abs(e_card - e.item())
+            dg = float(np.abs(g_card - g.numpy()).max())
+            print(f"training {label} step {step}: E card {e_card:.7f} cpu {e.item():.7f} |dE| {de:.2e} "
+                  f"(tol {ENERGY_ATOL:g}); max|dgrad| {dg:.2e} of max|grad| "
+                  f"{float(np.abs(g.numpy()).max()):.3e} (tol {GRAD_ATOL:g})")
+            if not (np.isfinite(e_card) and np.all(np.isfinite(g_card)) and g_card.shape == (nl, 2, n)):
+                _fail(f"training {label}: non-finite or misshapen result")
+            if de > ENERGY_ATOL or dg > GRAD_ATOL:
+                _fail(f"training {label} step {step} on the card disagrees with the CPU path")
+            sgd(p, g)
+    if not card_steps[STEPS - 1][0] < card_steps[0][0]:
+        _fail("5 SGD steps did not lower the energy")
+
+    # ---- 5. timings --------------------------------------------------------
     p4 = tct.convert.params(grids[0], dev)
     p3 = tct.convert.params(grid3, dev)
+    pt = tct.convert.params(grids[0], dev).requires_grad_()
+
+    def train_step():
+        e, g = value_and_grad(pt, L, "cuda")
+        sgd(pt, g)
+        return e.item()
+
+    step_ms = _time_ms(train_step, inner=1)
     with torch.no_grad():
         # one evaluation ends in ``.item()``, which waits for the card
         e4_ms = _time_ms(lambda: circuit_energy(p4, L, "cuda")[1].item(), inner=1)
         e3_ms = _time_ms(lambda: circuit_energy(p3, 3, "cuda")[1].item(), inner=1)
-        k1 = cases["zzrx_fwd"][1]
-        k2 = cases["grand_zzrx_fwd"][0]
-        k1_t, k1_plain_t = _time_rounds(k1[1]), _time_rounds(k1[2])
-        k2_t, k2_plain_t = _time_rounds(k2[1]), _time_rounds(k2[2])
-    k1_ms, k1_plain, k2_ms, k2_plain = k1_t[0], k1_plain_t[0], k2_t[0], k2_plain_t[0]
-    for name, t, tp in (("zzrx_fwd", k1_t, k1_plain_t), ("grand_zzrx_fwd", k2_t, k2_plain_t)):
-        print(f"kernel {name} over 3 rounds, {card}: median {t[0]:.4f} ms "
+        timed = {  # the main-path variant of each kernel, at its path's shape
+            "zzrx_fwd": cases["zzrx_fwd"][1],
+            "grand_zzrx_fwd": cases["grand_zzrx_fwd"][0],
+            "zzrx_bwd": cases["zzrx_bwd"][2],
+            "grand_zzrx_bwd": cases["grand_zzrx_bwd"][0],
+        }
+        times = {k: (_time_rounds(v[1]), _time_rounds(v[2])) for k, v in timed.items()}
+    for name, (t, tp) in times.items():
+        print(f"kernel {name} [{timed[name][0]}] over 3 rounds, {card}: median {t[0]:.4f} ms "
               f"(min {t[1]:.4f}, max {t[2]:.4f}); plain median {tp[0]:.4f} ms "
               f"(min {tp[1]:.4f}, max {tp[2]:.4f})")
     print(f"energy evaluation (CUDA events, ends in .item()), {card}: "
           f"L={L} {e4_ms:.3f} ms, L=3 {e3_ms:.3f} ms (median of 20)")
+    print(f"training step n={N} L={L} (value, grad, SGD update; CUDA events, ends in .item()), "
+          f"{card}: {step_ms:.3f} ms (median of 20)")
     b1, f1 = _k1_work(r, len(PAIRS), nkernel, True)
     b2 = 4 * 4 * r * 128 + L * 2 * 4 * r * 128 + L * (2 * 4 * 128 * 128 + 2 * 4 * 2**(2 * nouter))
     f2 = L * (f1 + r * 128 * 8 * 2**nouter)
-    bound1, by1 = _bound_ms(b1, f1)
-    bound2, by2 = _bound_ms(b2, f2)
-    kernels_line = {"kernels": [
-        {"name": "zzrx_fwd", "route": "cuda",
-         "source": "tensorcircuit_ng_tpu_torch/core/csrc/zzrx_fwd.cu",
-         "replaces": "tensorcircuit_ng_tpu/core/kernels_rowlayer.py:1208",
-         "launches": launches["zzrx_fwd"], "max_abs_err": max_err["zzrx_fwd"],
-         "ms": k1_ms, "plain_ms": k1_plain, "bound_ms": bound1, "bound_by": by1,
-         "library_ms": None},
-        {"name": "grand_zzrx_fwd", "route": "cuda",
-         "source": "tensorcircuit_ng_tpu_torch/core/csrc/zzrx_fwd.cu",
-         "replaces": "tensorcircuit_ng_tpu/core/kernels_grand.py:147",
-         "launches": launches["grand_zzrx_fwd"], "max_abs_err": max_err["grand_zzrx_fwd"],
-         "ms": k2_ms, "plain_ms": k2_plain, "bound_ms": bound2, "bound_by": by2,
-         "library_ms": None},
-    ]}
+    work = {
+        "zzrx_fwd": (b1, f1),
+        "grand_zzrx_fwd": (b2, f2),
+        "zzrx_bwd": _k3_work(r22, len(pairs22), nkernel22, True),
+        "grand_zzrx_bwd": _k4_work(r, len(PAIRS), nkernel, nouter, L),
+    }
+    replaces = {
+        "zzrx_fwd": "tensorcircuit_ng_tpu/core/kernels_rowlayer.py:1208",
+        "grand_zzrx_fwd": "tensorcircuit_ng_tpu/core/kernels_grand.py:147",
+        "zzrx_bwd": "tensorcircuit_ng_tpu/core/kernels_rowlayer.py:1276",
+        "grand_zzrx_bwd": "tensorcircuit_ng_tpu/core/kernels_grand.py:392",
+    }
+    # each kernel's launches on its path: the forward path for K1/K2, the
+    # training path for K3/K4
+    path_launches = {**launches, "zzrx_bwd": train_launches["zzrx_bwd"],
+                     "grand_zzrx_bwd": train_launches["grand_zzrx_bwd"]}
+    kernels_line = {"kernels": []}
+    for name in timed:
+        bound, by = _bound_ms(*work[name])
+        kernels_line["kernels"].append({
+            "name": name, "route": "cuda",
+            "source": f"tensorcircuit_ng_tpu_torch/core/csrc/{name.replace('grand_', '')}.cu",
+            "replaces": replaces[name], "launches": path_launches[name],
+            "max_abs_err": max_err[name], "ms": times[name][0][0], "plain_ms": times[name][1][0],
+            "bound_ms": bound, "bound_by": by, "library_ms": None,
+        })
     for k in kernels_line["kernels"]:
-        print(f"kernel {k['name']} (n={N}), {card}: {k['ms']:.4f} ms, plain {k['plain_ms']:.4f} ms, "
+        n_path = N22 if k["name"] == "zzrx_bwd" else N
+        print(f"kernel {k['name']} (n={n_path}), {card}: {k['ms']:.4f} ms, plain {k['plain_ms']:.4f} ms, "
               f"bound {k['bound_ms']:.4f} ms ({k['bound_by']}), launches {k['launches']}")
 
-    # ---- 5. where the time of one evaluation goes -------------------------
+    # ---- 6. where the time of an evaluation and of a step goes -----------
     with torch.no_grad():
-        host, busy, by_kernel = _profile(lambda: circuit_energy(p4, L, "cuda")[1].item())
-    print(f"profile L={L} evaluation (torch.profiler, 10 runs), {card}: host {host:.3f} ms "
-          f"under the profiler, device busy {busy:.3f} ms ({100 * busy / host:.1f} % of it; "
-          f"{100 * busy / e4_ms:.1f} % of the unprofiled {e4_ms:.3f} ms), {len(by_kernel)} kernel names")
-    for name, ms, count in by_kernel[:8]:
-        print(f"  device {ms:.4f} ms x{count:g}/eval  {name[:90]}")
+        prof_eval = _profile(lambda: circuit_energy(p4, L, "cuda")[1].item())
+    prof_step = _profile(train_step)
+    for what, unprofiled, (host, busy, by_kernel) in (
+        ("evaluation", e4_ms, prof_eval), ("training step", step_ms, prof_step)
+    ):
+        print(f"profile L={L} {what} (torch.profiler, 10 runs), {card}: host {host:.3f} ms "
+              f"under the profiler, device busy {busy:.3f} ms ({100 * busy / host:.1f} % of it; "
+              f"{100 * busy / unprofiled:.1f} % of the unprofiled {unprofiled:.3f} ms), "
+              f"{len(by_kernel)} kernel names")
+        for name, ms, count in by_kernel[:12]:
+            print(f"  device {ms:.4f} ms x{count:g}/run  {name[:90]}")
     print(json.dumps(kernels_line))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -27,7 +27,10 @@ __all__ = ["SOURCES", "BUILD_DIR", "build_all", "library", "build_log", "check"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 #: kernel sources, by library name
-SOURCES: Dict[str, Path] = {"zzrx_fwd": _CSRC / "zzrx_fwd.cu"}
+SOURCES: Dict[str, Path] = {
+    "zzrx_fwd": _CSRC / "zzrx_fwd.cu",
+    "zzrx_bwd": _CSRC / "zzrx_bwd.cu",
+}
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -36,8 +39,9 @@ NVCC_FLAGS = [
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-#: C signatures: name -> argtypes (every entry point returns a cudaError_t;
-#: each library also exports ``tcng_error_string``)
+#: C signatures: name -> argtypes (every entry point returns a cudaError_t,
+#: except those named in ``_RESTYPES``; each library also exports
+#: ``tcng_error_string``)
 _SIGNATURES = {
     "zzrx_fwd": {
         "tcng_zzrx_fwd": [_P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _I, _P],
@@ -45,7 +49,18 @@ _SIGNATURES = {
             _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _P, _P, _P, _P, _I, _P,
         ],
     },
+    "zzrx_bwd": {
+        "tcng_zzrx_bwd_scratch": [_I, _I, _I, _I],
+        "tcng_zzrx_bwd": [
+            _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _P, _I, _P,
+        ],
+        "tcng_grand_zzrx_bwd": [
+            _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _P, _P, _P, _P,
+            _P, _I, _P,
+        ],
+    },
 }
+_RESTYPES = {"tcng_zzrx_bwd_scratch": ctypes.c_long}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 
@@ -109,7 +124,7 @@ def library(name: str) -> ctypes.CDLL:
         for fn, argtypes in _SIGNATURES[name].items():
             f = getattr(lib, fn)
             f.argtypes = argtypes
-            f.restype = ctypes.c_int
+            f.restype = _RESTYPES.get(fn, ctypes.c_int)
         lib.tcng_error_string.argtypes = [ctypes.c_int]
         lib.tcng_error_string.restype = ctypes.c_char_p
         _libs[name] = lib

@@ -1,0 +1,614 @@
+// Backward zzrx kernels for Hopper (sm_90a): the adjoint of one TFIM layer
+// (K3) and of the whole L-layer stack (K4), on the (r, 128) float32 plane
+// pair of a complex64 statevector.  Layout index = row * 128 + lane; qubit
+// q is bit n-1-q of the flat index.
+//
+// Conventions (those of the JAX package): cotangent planes are
+// (dL/dyr, -dL/dyi), the non-conjugating complex cotangent, and walk by the
+// TRANSPOSE of each map; the lane matrix cotangent planes are
+// (dL/dmr, -dL/dmi).  Gates are unitary, so the backward rebuilds every
+// intermediate state from the layer's output by un-application.
+//
+// K3 tcng_zzrx_bwd replaces kernels_rowlayer._pallas_zzrx_bwd
+//    (_zzrx_bwd_kernel, _lane_bwd_prologue).  From the layer output y
+//    (post-lane when the lane matrix M is given) and the cotangent ct:
+//      psi = y @ conj(M)^T;  dM += psi^T ct;  ct <- ct @ M^T      (lane)
+//      per kernel row bit, in reverse: un-apply rx from psi, take dth_q,
+//      walk ct through rx^T                                         (rx)
+//      dzz_k = 1/2 sum h (1 - 2 xor_k), h = ct_r z_i + ct_i z_r;
+//      ct <- ct * phase                                             (zz)
+//    and returns ds = ct, dzz (npairs), dth (nkernel) and dM.
+// K4 tcng_grand_zzrx_bwd replaces kernels_grand.grand_zzrx_bwd
+//    (_grand_bwd_kernel): the L layers in reverse; each is the outer
+//    transpose walk w = mo^T ct across the D = 2^nouter row blocks with
+//    dth_outer[q] = 1/2 sum_m sum (w_r[m] k_i[m^dq] + w_i[m] k_r[m^dq])
+//    against the residual k = ks[l] (valid because mo is an rx kron), then
+//    K3's adjoint with the lane matrix on w.
+//
+// Design.  As in the forward (zzrx_fwd.cu), a TPU block of 2^10 rows x 128
+// lanes does not fit a CTA, so a layer runs as passes over the state, which
+// at n = 20 (4 planes of 4 MB between passes) stay in the 50 MB L2:
+//   lane pass (lane_bwd_kernel): 16 rows x 128 lanes a CTA; both complex
+//     right-products by M^T (the un-lane of y and the ct walk) share the
+//     M chunks streamed through shared memory;
+//   dM pass (dm_partial_kernel): a 32 x 128 slab of dM over a chunk of rows
+//     a CTA, one partial per chunk;
+//   row pass (zzrx_bwd_row_kernel): all rows of a block for a few lanes a
+//     CTA, psi and ct both in shared memory (128 KB), the nkernel
+//     butterflies in place on both, then the phase walk and dzz;
+//   outer pass (outer_bwd_kernel<D>, K4 only): one thread per in-block
+//     position holds its D elements in registers.
+// Sums over the whole state (dM, dzz, dth, dth_outer) are written as one
+// partial per CTA (block sums in a fixed shuffle-tree order) and reduced by
+// colsum_kernel in a fixed order: no float atomics, so two runs give the
+// same gradient bit for bit.  K4 is one C entry point that launches the
+// stage kernels for each layer in order on the caller's stream (the outer
+// stage is a grid-wide dependency).
+// Bound at n = 20: operations.  The lane stage is three complex 128-deep
+// products per amplitude (un-lane, ct walk, dM), 3 * 8 * 128 flops, about
+// 3.2 GFLOP a layer against 67 TFLOP/s float32 outside the tensor cores;
+// the state moves ~25 MB a layer.  Plain f32 FMAs, no fast-math.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int LANES = 128;
+constexpr int MM = LANES * LANES;
+constexpr int THREADS = 256;
+constexpr int NWARPS = THREADS / 32;
+// row pass tile: RB * TL complex elements of psi and of ct (4 planes, 128 KB)
+constexpr int TILE_ELEMS = 8192;
+// lane pass: 16 rows a CTA, 8 warps x 2 rows, 4 columns a thread
+constexpr int L_ROWS = 16;
+constexpr int KC = 8;
+// dM pass: 32 rows of dM (8 warps x 4) a CTA
+constexpr int DM_SLAB = 32;
+// outer pass: D <= 16 (nouter <= 4)
+constexpr int MAX_NOUTER = 4;
+
+// Sum of v over the block, valid in thread 0: a warp xor-butterfly, then
+// the warp sums in order (a fixed order, so the result is reproducible).
+// Every thread must call it; it contains two barriers.
+__device__ float block_sum(float v, float* red) {
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  float t = 0.f;
+  if (threadIdx.x == 0)
+    for (int w = 0; w < NWARPS; ++w) t += red[w];
+  __syncthreads();
+  return t;
+}
+
+// psi = y @ conj(M)^T and w = ct @ M^T on 16-row tiles.
+__global__ void __launch_bounds__(THREADS)
+lane_bwd_kernel(const float* yr, const float* yi, const float* cr,
+                const float* ci, float* pr, float* pi, float* wr, float* wi,
+                const float* __restrict__ mr, const float* __restrict__ mi,
+                int ni) {
+  __shared__ float ys_r[L_ROWS][LANES], ys_i[L_ROWS][LANES];
+  __shared__ float cs_r[L_ROWS][LANES], cs_i[L_ROWS][LANES];
+  __shared__ float ms_r[KC][LANES + 1], ms_i[KC][LANES + 1];
+  const long row0 = static_cast<long>(blockIdx.x) * ni;
+  for (int e = threadIdx.x; e < ni * LANES; e += THREADS) {
+    const int lr = e / LANES, c = e % LANES;
+    const long off = (row0 + lr) * LANES + c;
+    ys_r[lr][c] = yr[off];
+    ys_i[lr][c] = yi[off];
+    cs_r[lr][c] = cr[off];
+    cs_i[lr][c] = ci[off];
+  }
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  float p_r[2][4], p_i[2][4], w_r[2][4], w_i[2][4];
+#pragma unroll
+  for (int a = 0; a < 2; ++a)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) p_r[a][q] = p_i[a][q] = w_r[a][q] = w_i[a][q] = 0.f;
+  for (int kc = 0; kc < LANES; kc += KC) {
+    __syncthreads();  // tiles loaded / previous chunk consumed
+    // ms[kk][c] = M[c][kc + kk]: the chunk of M^T
+    for (int e = threadIdx.x; e < KC * LANES; e += THREADS) {
+      const int c = e / KC, kk = e % KC;
+      ms_r[kk][c] = mr[c * LANES + kc + kk];
+      ms_i[kk][c] = mi[c * LANES + kc + kk];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < KC; ++kk) {
+      float m_r[4], m_i[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        m_r[q] = ms_r[kk][lane + 32 * q];
+        m_i[q] = ms_i[kk][lane + 32 * q];
+      }
+#pragma unroll
+      for (int a = 0; a < 2; ++a) {
+        const int lr = warp * 2 + a;  // rows >= ni read unused smem
+        const float y_r = ys_r[lr][kc + kk], y_i = ys_i[lr][kc + kk];
+        const float c_r = cs_r[lr][kc + kk], c_i = cs_i[lr][kc + kk];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          p_r[a][q] += y_r * m_r[q] + y_i * m_i[q];
+          p_i[a][q] += y_i * m_r[q] - y_r * m_i[q];
+          w_r[a][q] += c_r * m_r[q] - c_i * m_i[q];
+          w_i[a][q] += c_r * m_i[q] + c_i * m_r[q];
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int a = 0; a < 2; ++a) {
+    const int lr = warp * 2 + a;
+    if (lr >= ni) continue;
+    const long base = (row0 + lr) * LANES;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int c = lane + 32 * q;
+      pr[base + c] = p_r[a][q];
+      pi[base + c] = p_i[a][q];
+      wr[base + c] = w_r[a][q];
+      wi[base + c] = w_i[a][q];
+    }
+  }
+}
+
+// part[chunk] = (re, im) of sum over the chunk's rows of psi[row]^T ct[row]
+// for the dM rows [32 * blockIdx.x, +32): the non-conjugating product.
+__global__ void __launch_bounds__(THREADS)
+dm_partial_kernel(const float* pr, const float* pi, const float* cr,
+                  const float* ci, float* part, int ch) {
+  __shared__ float ps_r[KC][DM_SLAB], ps_i[KC][DM_SLAB];
+  __shared__ float cs_r[KC][LANES], cs_i[KC][LANES];
+  const int a0 = blockIdx.x * DM_SLAB;
+  const long row0 = static_cast<long>(blockIdx.y) * ch;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  float acc_r[4][4], acc_i[4][4];
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc_r[a][q] = acc_i[a][q] = 0.f;
+  for (int k0 = 0; k0 < ch; k0 += KC) {
+    const int kn = ch - k0 < KC ? ch - k0 : KC;
+    __syncthreads();
+    for (int e = threadIdx.x; e < KC * DM_SLAB; e += THREADS) {
+      const int kk = e / DM_SLAB, a = e % DM_SLAB;
+      const long off = (row0 + k0 + kk) * LANES + a0 + a;
+      ps_r[kk][a] = kk < kn ? pr[off] : 0.f;
+      ps_i[kk][a] = kk < kn ? pi[off] : 0.f;
+    }
+    for (int e = threadIdx.x; e < KC * LANES; e += THREADS) {
+      const int kk = e / LANES, b = e % LANES;
+      const long off = (row0 + k0 + kk) * LANES + b;
+      cs_r[kk][b] = kk < kn ? cr[off] : 0.f;
+      cs_i[kk][b] = kk < kn ? ci[off] : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < KC; ++kk) {
+      float c_r[4], c_i[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        c_r[q] = cs_r[kk][lane + 32 * q];
+        c_i[q] = cs_i[kk][lane + 32 * q];
+      }
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        const float p_r = ps_r[kk][warp * 4 + a], p_i = ps_i[kk][warp * 4 + a];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          acc_r[a][q] += p_r * c_r[q] - p_i * c_i[q];
+          acc_i[a][q] += p_r * c_i[q] + p_i * c_r[q];
+        }
+      }
+    }
+  }
+  float* out = part + static_cast<long>(blockIdx.y) * 2 * MM;
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const int row = a0 + warp * 4 + a;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      out[row * LANES + lane + 32 * q] = acc_r[a][q];
+      out[MM + row * LANES + lane + 32 * q] = acc_i[a][q];
+    }
+  }
+}
+
+// out[(j / inner) * ostride + j % inner] = sum over b < nb, in order, of
+// part[b * ncols + j].
+__global__ void colsum_kernel(const float* part, int nb, int ncols, float* out,
+                              int inner, long ostride) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= ncols) return;
+  float s = 0.f;
+  for (int b = 0; b < nb; ++b) s += part[static_cast<long>(b) * ncols + j];
+  out[static_cast<long>(j / inner) * ostride + j % inner] = s;
+}
+
+// The rx and zz adjoint of one layer on an RB x TL tile (all rows of a
+// block, TL lanes) of psi (pre-lane state) and ct.  Writes ds and one
+// partial a CTA: part[blk] = (dzz[0..npairs), dth[0..nkernel)).
+__global__ void __launch_bounds__(THREADS)
+zzrx_bwd_row_kernel(const float* psr, const float* psi, const float* ctr,
+                    const float* cti, float* dsr, float* dsi, float* part,
+                    const float* __restrict__ zzth,
+                    const int* __restrict__ shifts, int npairs,
+                    const float* __restrict__ th, int nkernel, int ltl) {
+  extern __shared__ float smem[];
+  const int tl = 1 << ltl;
+  const int rb = 1 << nkernel;
+  const int elems = rb << ltl;
+  float* tr = smem;
+  float* ti = tr + elems;
+  float* cr = ti + elems;
+  float* ci = cr + elems;
+  float* red = ci + elems;
+  float* zth = red + NWARPS;
+  int* sh = reinterpret_cast<int*>(zth + npairs);
+  for (int k = threadIdx.x; k < npairs; k += blockDim.x) {
+    zth[k] = zzth[k];
+    sh[2 * k] = shifts[2 * k];
+    sh[2 * k + 1] = shifts[2 * k + 1];
+  }
+  const int tiles = LANES >> ltl;
+  const long j = blockIdx.x / tiles;  // row block
+  const int lane0 = (blockIdx.x % tiles) << ltl;
+  float* mypart = part + static_cast<long>(blockIdx.x) * (npairs + nkernel);
+  for (int e = threadIdx.x; e < elems; e += blockDim.x) {
+    const long off = (j * rb + (e >> ltl)) * LANES + lane0 + (e & (tl - 1));
+    tr[e] = psr[off];
+    ti[e] = psi[off];
+    cr[e] = ctr[off];
+    ci[e] = cti[off];
+  }
+  __syncthreads();
+  // rx, last kernel bit first: un-apply [[c, -i s], [-i s, c]] from psi
+  // (the butterfly with +s), take dth, walk ct through the transpose
+  const int half = elems >> 1;
+  for (int ql = nkernel - 1; ql >= 0; --ql) {
+    const int ls = nkernel - 1 - ql;  // log2 of the row stride
+    float sn, c;
+    sincosf(0.5f * th[ql], &sn, &c);
+    float s1 = 0.f, s2 = 0.f;
+    for (int p = threadIdx.x; p < half; p += blockDim.x) {
+      const int pr = p >> ltl;
+      const int l = p & (tl - 1);
+      const int lo = ((pr >> ls) << (ls + 1)) | (pr & ((1 << ls) - 1));
+      const int elo = (lo << ltl) | l;
+      const int ehi = elo + (1 << (ls + ltl));
+      const float ar = tr[elo], ai = ti[elo], br = tr[ehi], bi = ti[ehi];
+      const float nar = c * ar - sn * bi, nai = c * ai + sn * br;
+      const float nbr = c * br - sn * ai, nbi = c * bi + sn * ar;
+      tr[elo] = nar;
+      ti[elo] = nai;
+      tr[ehi] = nbr;
+      ti[ehi] = nbi;
+      const float xr = cr[elo], xi = ci[elo], zr = cr[ehi], zi = ci[ehi];
+      s1 += xr * nar - xi * nai + zr * nbr - zi * nbi;
+      s2 += zr * nai + zi * nar + xr * nbi + xi * nbr;
+      cr[elo] = c * xr + sn * zi;
+      ci[elo] = c * xi - sn * zr;
+      cr[ehi] = c * zr + sn * xi;
+      ci[ehi] = c * zi - sn * xr;
+    }
+    // the block sums are also the barrier between stages
+    s1 = block_sum(s1, red);
+    s2 = block_sum(s2, red);
+    if (threadIdx.x == 0) mypart[npairs + ql] = -0.5f * sn * s1 + 0.5f * c * s2;
+  }
+  // zz: ds = ct * e^{-i expo/2} (a diagonal map is its own transpose);
+  // h = ct_r z_i + ct_i z_r replaces psi's real plane for the dzz sums
+  for (int e = threadIdx.x; e < elems; e += blockDim.x) {
+    const long off = (j * rb + (e >> ltl)) * LANES + lane0 + (e & (tl - 1));
+    const unsigned idx = static_cast<unsigned>(off);
+    float expo = 0.f;
+    for (int k = 0; k < npairs; ++k) {
+      const unsigned x = ((idx >> sh[2 * k]) ^ (idx >> sh[2 * k + 1])) & 1u;
+      expo += zth[k] * (1.f - 2.f * static_cast<float>(x));
+    }
+    float s, cc;
+    sincosf(0.5f * expo, &s, &cc);
+    const float xr = cr[e], xi = ci[e];
+    tr[e] = xr * ti[e] + xi * tr[e];
+    dsr[off] = cc * xr + s * xi;
+    dsi[off] = cc * xi - s * xr;
+  }
+  __syncthreads();
+  for (int k = 0; k < npairs; ++k) {
+    float acc = 0.f;
+    for (int e = threadIdx.x; e < elems; e += blockDim.x) {
+      const long off = (j * rb + (e >> ltl)) * LANES + lane0 + (e & (tl - 1));
+      const unsigned idx = static_cast<unsigned>(off);
+      const unsigned x = ((idx >> sh[2 * k]) ^ (idx >> sh[2 * k + 1])) & 1u;
+      acc += tr[e] * (1.f - 2.f * static_cast<float>(x));
+    }
+    acc = block_sum(acc, red);
+    if (threadIdx.x == 0) mypart[k] = 0.5f * acc;
+  }
+}
+
+// K4's outer stage on one in-block position p a thread: w[m] = sum_k
+// mo[k][m] ct[k] over the D row blocks (may run in place: a thread reads
+// all its D elements before it writes), and the partial dth_outer.
+template <int D>
+__global__ void __launch_bounds__(THREADS)
+outer_bwd_kernel(const float* cr, const float* ci, float* wr, float* wi,
+                 const float* ksr, const float* ksi,
+                 const float* __restrict__ mor, const float* __restrict__ moi,
+                 long be, float* part) {
+  constexpr int NO = D == 2 ? 1 : D == 4 ? 2 : D == 8 ? 3 : 4;
+  __shared__ float m_r[D * D], m_i[D * D];
+  __shared__ float red[NWARPS];
+  for (int e = threadIdx.x; e < D * D; e += blockDim.x) {
+    m_r[e] = mor[e];
+    m_i[e] = moi[e];
+  }
+  __syncthreads();
+  const long p = static_cast<long>(blockIdx.x) * THREADS + threadIdx.x;
+  float acc[NO];
+#pragma unroll
+  for (int q = 0; q < NO; ++q) acc[q] = 0.f;
+  if (p < be) {
+    float x_r[D], x_i[D], w_r[D], w_i[D];
+#pragma unroll
+    for (int k = 0; k < D; ++k) {
+      x_r[k] = cr[k * be + p];
+      x_i[k] = ci[k * be + p];
+    }
+#pragma unroll
+    for (int m = 0; m < D; ++m) {
+      float sr = 0.f, si = 0.f;
+#pragma unroll
+      for (int k = 0; k < D; ++k) {
+        sr += m_r[k * D + m] * x_r[k] - m_i[k * D + m] * x_i[k];
+        si += m_r[k * D + m] * x_i[k] + m_i[k * D + m] * x_r[k];
+      }
+      w_r[m] = sr;
+      w_i[m] = si;
+    }
+#pragma unroll
+    for (int m = 0; m < D; ++m) {
+      wr[m * be + p] = w_r[m];
+      wi[m * be + p] = w_i[m];
+    }
+#pragma unroll
+    for (int k = 0; k < D; ++k) {  // now the residual k = ks[l]
+      x_r[k] = ksr[k * be + p];
+      x_i[k] = ksi[k * be + p];
+    }
+#pragma unroll
+    for (int q = 0; q < NO; ++q) {
+      const int dq = D >> (q + 1);
+#pragma unroll
+      for (int m = 0; m < D; ++m)
+        acc[q] += w_r[m] * x_i[m ^ dq] + w_i[m] * x_r[m ^ dq];
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < NO; ++q) {
+    const float s = block_sum(acc[q], red);
+    if (threadIdx.x == 0) part[static_cast<long>(blockIdx.x) * NO + q] = 0.5f * s;
+  }
+}
+
+int ilog2(int v) {
+  int l = 0;
+  while ((1 << l) < v) ++l;
+  return l;
+}
+
+struct Plan {
+  int r, rb, ltl, grid_row, ch, nchunks, grid_outer;
+  size_t row_smem;
+};
+
+Plan make_plan(int r, int nkernel, int npairs) {
+  Plan p;
+  p.r = r;
+  p.rb = 1 << nkernel;
+  int tl = TILE_ELEMS / p.rb;
+  if (tl > LANES) tl = LANES;
+  if (tl < 1) tl = 1;
+  p.ltl = ilog2(tl);
+  p.grid_row = (r / p.rb) * (LANES / tl);
+  p.row_smem = sizeof(float) * (4 * static_cast<size_t>(p.rb) * tl + NWARPS + npairs) +
+               sizeof(int) * 2 * npairs;
+  p.ch = r < 256 ? r : 256;
+  if (p.ch < r / 32) p.ch = r / 32;  // at most 32 dM partials
+  p.nchunks = r / p.ch;
+  p.grid_outer = static_cast<int>((static_cast<long>(p.rb) * LANES + THREADS - 1) / THREADS);
+  return p;
+}
+
+struct Scratch {
+  float *part_row, *part_outer, *part_dm, *pr, *pi, *wr, *wi;
+};
+
+// mode 0: K3 without lane, 1: K3 with lane, 2: K4.  Returns the floats
+// needed; fills s when base is given.
+size_t layout(const Plan& p, int npairs, int nkernel, int mode, float* base,
+              Scratch* s) {
+  const size_t plane = static_cast<size_t>(p.r) * LANES;
+  size_t sizes[7] = {
+      static_cast<size_t>(p.grid_row) * (npairs + nkernel),
+      mode == 2 ? static_cast<size_t>(p.grid_outer) * MAX_NOUTER : 0,
+      mode ? static_cast<size_t>(p.nchunks) * 2 * MM : 0,
+      mode ? plane : 0, mode ? plane : 0, mode ? plane : 0, mode ? plane : 0,
+  };
+  size_t off = 0;
+  float* ptrs[7];
+  for (int i = 0; i < 7; ++i) {
+    ptrs[i] = base ? base + off : nullptr;
+    off += sizes[i];
+  }
+  if (s) {
+    s->part_row = ptrs[0];
+    s->part_outer = ptrs[1];
+    s->part_dm = ptrs[2];
+    s->pr = ptrs[3];
+    s->pi = ptrs[4];
+    s->wr = ptrs[5];
+    s->wi = ptrs[6];
+  }
+  return off;
+}
+
+cudaError_t colsum(const float* part, int nb, int ncols, float* out, int inner,
+                   long ostride, cudaStream_t st) {
+  colsum_kernel<<<(ncols + THREADS - 1) / THREADS, THREADS, 0, st>>>(
+      part, nb, ncols, out, inner, ostride);
+  return cudaGetLastError();
+}
+
+// Lane stage of the adjoint: s.pr/pi <- y @ conj(M)^T, s.wr/wi <- ct @ M^T,
+// dm planes (dm_out, dm_out + dm_stride) <- psi^T ct.
+cudaError_t lane_stage(const Plan& p, const float* yr, const float* yi,
+                       const float* ctr, const float* cti, const float* mr,
+                       const float* mi, const Scratch& s, float* dm_out,
+                       long dm_stride, cudaStream_t st) {
+  const int ni = p.r < L_ROWS ? p.r : L_ROWS;
+  lane_bwd_kernel<<<p.r / ni, THREADS, 0, st>>>(yr, yi, ctr, cti, s.pr, s.pi,
+                                                s.wr, s.wi, mr, mi, ni);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  dm_partial_kernel<<<dim3(LANES / DM_SLAB, p.nchunks), THREADS, 0, st>>>(
+      s.pr, s.pi, ctr, cti, s.part_dm, p.ch);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return colsum(s.part_dm, p.nchunks, 2 * MM, dm_out, MM, dm_stride, st);
+}
+
+// Row stage: ds <- rx and zz adjoint of (psi, ct); grads[0..npairs+nkernel)
+// <- (dzz, dth).
+cudaError_t row_stage(const Plan& p, const float* psr, const float* psi,
+                      const float* ctr, const float* cti, float* dsr,
+                      float* dsi, const Scratch& s, float* grads,
+                      const float* zzth, const int* shifts, int npairs,
+                      const float* th, int nkernel, cudaStream_t st) {
+  cudaError_t err = cudaFuncSetAttribute(
+      zzrx_bwd_row_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(p.row_smem));
+  if (err != cudaSuccess) return err;
+  zzrx_bwd_row_kernel<<<p.grid_row, THREADS, p.row_smem, st>>>(
+      psr, psi, ctr, cti, dsr, dsi, s.part_row, zzth, shifts, npairs, th,
+      nkernel, p.ltl);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int w = npairs + nkernel;
+  return colsum(s.part_row, p.grid_row, w, grads, w, 0, st);
+}
+
+cudaError_t outer_stage(int d, const Plan& p, const float* cr, const float* ci,
+                        float* wr, float* wi, const float* ksr,
+                        const float* ksi, const float* mor, const float* moi,
+                        float* part, cudaStream_t st) {
+  const long be = static_cast<long>(p.rb) * LANES;
+  switch (d) {
+    case 2:
+      outer_bwd_kernel<2><<<p.grid_outer, THREADS, 0, st>>>(cr, ci, wr, wi, ksr, ksi, mor, moi, be, part);
+      break;
+    case 4:
+      outer_bwd_kernel<4><<<p.grid_outer, THREADS, 0, st>>>(cr, ci, wr, wi, ksr, ksi, mor, moi, be, part);
+      break;
+    case 8:
+      outer_bwd_kernel<8><<<p.grid_outer, THREADS, 0, st>>>(cr, ci, wr, wi, ksr, ksi, mor, moi, be, part);
+      break;
+    case 16:
+      outer_bwd_kernel<16><<<p.grid_outer, THREADS, 0, st>>>(cr, ci, wr, wi, ksr, ksi, mor, moi, be, part);
+      break;
+    default:
+      return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+const char* tcng_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+// Floats of scratch that tcng_zzrx_bwd (mode 0: no lane matrix, 1: with
+// it) or tcng_grand_zzrx_bwd (mode 2) needs for these shapes.
+long tcng_zzrx_bwd_scratch(int r, int nkernel, int npairs, int mode) {
+  const Plan p = make_plan(r, nkernel, npairs);
+  return static_cast<long>(layout(p, npairs, nkernel, mode, nullptr, nullptr));
+}
+
+// K3.  yr/yi: the layer's (r, 128) output planes (post-lane when mr is
+// given); ctr/cti: cotangent planes; dsr/dsi: (r, 128) output; grads:
+// (npairs + nkernel) = (dzz, dth); dm: (2, 128, 128) = (dmr, dmi) or null
+// without lane; zzth (npairs); shifts (npairs, 2) = (n-1-a, n-1-b); th
+// (nkernel); mr/mi (128, 128) lane planes or null; scratch of
+// tcng_zzrx_bwd_scratch floats.  Returns the first CUDA error, 0 on success.
+int tcng_zzrx_bwd(const float* yr, const float* yi, const float* ctr,
+                  const float* cti, float* dsr, float* dsi, float* grads,
+                  float* dm, const float* zzth, const int* shifts, int npairs,
+                  const float* th, int nkernel, const float* mr,
+                  const float* mi, float* scratch, int r, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Plan p = make_plan(r, nkernel, npairs);
+  Scratch s;
+  layout(p, npairs, nkernel, mr ? 1 : 0, scratch, &s);
+  const float *psr = yr, *psi = yi, *cr = ctr, *ci = cti;
+  if (mr != nullptr) {
+    cudaError_t err = lane_stage(p, yr, yi, ctr, cti, mr, mi, s, dm, MM, st);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    psr = s.pr;
+    psi = s.pi;
+    cr = s.wr;
+    ci = s.wi;
+  }
+  return static_cast<int>(row_stage(p, psr, psi, cr, ci, dsr, dsi, s, grads,
+                                    zzth, shifts, npairs, th, nkernel, st));
+}
+
+// K4.  ksr/ksi (L, r, 128) post-lane, pre-outer residuals; ctr/cti (r, 128)
+// seed cotangent; dsr/dsi (r, 128) output (also the walked cotangent
+// between layers); grads (L, npairs + nkernel + nouter) = (dzz, dth,
+// dth_outer) a layer; dm (2, L, 128, 128) = (dmr, dmi); zzth (L, npairs);
+// th (L, nkernel); mor/moi (L, D, D) outer rx krons with D = r >> nkernel
+// in {2, 4, 8, 16}; mlr/mli (L, 128, 128) unitary lane planes.
+int tcng_grand_zzrx_bwd(const float* ksr, const float* ksi, const float* ctr,
+                        const float* cti, float* dsr, float* dsi, float* grads,
+                        float* dm, const float* zzth, const int* shifts,
+                        int npairs, const float* th, int nkernel, int L,
+                        const float* mor, const float* moi, const float* mlr,
+                        const float* mli, float* scratch, int r, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Plan p = make_plan(r, nkernel, npairs);
+  const int d = r / p.rb;
+  if (d < 2 || d > (1 << MAX_NOUTER)) return static_cast<int>(cudaErrorInvalidValue);
+  const int nouter = ilog2(d);
+  const int w = npairs + nkernel + nouter;
+  const size_t plane = static_cast<size_t>(r) * LANES;
+  Scratch s;
+  layout(p, npairs, nkernel, 2, scratch, &s);
+  for (int l = L - 1; l >= 0; --l) {
+    const float* kr = ksr + l * plane;
+    const float* ki = ksi + l * plane;
+    cudaError_t err = outer_stage(
+        d, p, l == L - 1 ? ctr : dsr, l == L - 1 ? cti : dsi, dsr, dsi, kr, ki,
+        mor + l * d * d, moi + l * d * d, s.part_outer, st);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    err = colsum(s.part_outer, p.grid_outer, nouter, grads + l * w + npairs + nkernel,
+                 nouter, 0, st);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    err = lane_stage(p, kr, ki, dsr, dsi, mlr + static_cast<size_t>(l) * MM,
+                     mli + static_cast<size_t>(l) * MM, s, dm + static_cast<size_t>(l) * MM,
+                     static_cast<long>(L) * MM, st);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    err = row_stage(p, s.pr, s.pi, s.wr, s.wi, dsr, dsi, s, grads + l * w,
+                    zzth + l * npairs, shifts, npairs, th + l * nkernel, nkernel, st);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;
+}
+
+}  // extern "C"

@@ -1,10 +1,12 @@
-"""Dispatch layer of the fused TFIM path (forward).
+"""Dispatch layer of the fused TFIM path.
 
 Counterpart of ``tensorcircuit_ng_tpu/core/kernels.py:203-504``.  The
 shape conditions are the JAX package's, so every shape takes the
 counterpart of the kernel JAX takes there; the JAX condition "on a TPU"
 becomes "the state tensor is on CUDA".  On a CPU state the port takes the
-JAX package's CPU branch: plain torch, differentiable by autograd.
+JAX package's CPU branch: the plain versions of the kernels.  Every entry
+point differentiates end to end: the gradients go through the autograd
+boundaries of ``kernels_stack`` and ``kernels_rowlayer.zzrx_row_layer``.
 """
 
 from __future__ import annotations

@@ -1,5 +1,5 @@
 """L stacked zzrx layers threading float32 planes, plus the fused Ising
-energy readout (forward).
+energy readout, with their hand-walked adjoint.
 
 Counterpart of ``tensorcircuit_ng_tpu/core/kernels_stack.py``.  Layer
 structure (n qubits, layout index = row * 128 + lane, nrow = n - 7 row
@@ -13,10 +13,22 @@ On a CUDA state the lane matmul rides inside kernel K1 (``FUSE_LANE``
 topology; the residual ``ks[l]`` is then the post-lane state, since outer
 and lane act on disjoint axes), and an even number of layers with
 1 <= nouter and nrow <= ``MAX_GRAND_ROW_QUBITS`` runs as ONE call of kernel
-K2 (``kernels_grand.grand_zzrx_fwd``).  On a CPU state every stage is
-plain torch (the JAX package's CPU branch) and differentiates by autograd.
+K2 (``kernels_grand.grand_zzrx_fwd``).  On a CPU state the matrix-level
+boundaries take the JAX package's CPU branch (unfused, plain versions).
 The per-layer outer and unfused lane matmuls are plain ``torch.matmul``, as
 the JAX package leaves them to XLA.
+
+The JAX custom VJPs become ``torch.autograd.Function``s with the same
+inputs and gradients: ``zzrx_stack_core`` and ``zzrx_stack_energy``
+(matrix level; the backward walks :func:`_adjoint_chain`, K3 once a layer
+on a CUDA state, and returns matrix cotangents that autograd chains to the
+angles through the kron builders) and ``zzrx_stack_energy_theta`` (angle
+level, always the fused topology; the backward is K4, then the lane chain
+dM -> dθ_lane by ``torch.autograd.grad`` through the lane kron builder).
+At every boundary torch's gradient of a complex tensor is the conjugate of
+the JAX cotangent the kernels take and return.  The residuals live on the
+autograd node, so when autograd records nothing (``torch.no_grad``, or no
+input that requires grad) they are freed as the call returns.
 """
 
 from __future__ import annotations
@@ -82,41 +94,35 @@ def _theta_kron_mats(n: int, rx_thetas: torch.Tensor):
     return mout, mlane
 
 
-def _outer_apply(mor, moi, xr, xi):
-    """Planes <- complex left-matmul by mo on the leading (D) axis."""
-    d = mor.shape[0]
-    fr = xr.reshape(d, -1)
-    fi = xi.reshape(d, -1)
-    yr = mor @ fr - moi @ fi
-    yi = mor @ fi + moi @ fr
-    return yr.reshape(xr.shape), yi.reshape(xi.shape)
-
-
+_outer_apply = krl._outer_apply
+_outer_walk = krl._outer_walk
 _lane_apply = krl._lane_apply
+_lane_walk = krl._lane_walk
 
 
 def _planes(z: torch.Tensor):
     return z.real.to(torch.float32).contiguous(), z.imag.to(torch.float32).contiguous()
 
 
-def _stack_fwd_impl(pairs, n, state2d, zz_thetas, rx_kernel_thetas, mout, mlane):
-    """Returns ``(yr, yi, ks, fused)``: output planes, the per-layer
-    residual planes and whether the lane matmul rode inside the kernel."""
+def _stack_fwd_impl(pairs, n, state2d, zz_thetas, rx_kernel_thetas, mo, ml, fused):
+    """Returns ``(yr, yi, ksr, ksi)``: the output planes and the per-layer
+    residual planes ``(ksr[l], ksi[l])`` (K2's (L, r, 128) outputs, or
+    tuples of L planes).  ``mo``/``ml`` are the (real, imag) float32 planes
+    of the outer and lane matrices.  ``fused``: the lane matmul rides inside
+    the kernel (the residual is then the post-lane state)."""
     nrow, nkernel, nouter, nlane = _shapes(n)
-    r, lanes = state2d.shape
     L = zz_thetas.shape[0]
-    fused = state2d.is_cuda
     sr, si = _planes(state2d)
-    mor, moi = _planes(mout)
-    mlr, mli = _planes(mlane)
+    mor, moi = mo
+    mlr, mli = ml
     zz_thetas = zz_thetas.to(torch.float32)
     rx_kernel_thetas = rx_kernel_thetas.to(torch.float32)
     if fused and nouter >= 1 and L % 2 == 0 and nrow <= MAX_GRAND_ROW_QUBITS:
         ksr, ksi, yr, yi = kg.grand_zzrx_fwd(
             pairs, n, zz_thetas, rx_kernel_thetas, sr, si, mor, moi, mlr, mli
         )
-        return yr, yi, tuple((ksr[l], ksi[l]) for l in range(L)), fused
-    ks = []
+        return yr, yi, ksr, ksi
+    ksr, ksi = [], []
     for l in range(L):
         if fused:
             sr, si = krl.zzrx_fwd(
@@ -124,7 +130,8 @@ def _stack_fwd_impl(pairs, n, state2d, zz_thetas, rx_kernel_thetas, mout, mlane)
             )
         else:
             sr, si = krl.zzrx_fwd(pairs, n, zz_thetas[l], rx_kernel_thetas[l], sr, si)
-        ks.append((sr, si))
+        ksr.append(sr)
+        ksi.append(si)
         if nouter:
             sr, si = _outer_apply(mor[l], moi[l], sr, si)
         else:
@@ -133,7 +140,106 @@ def _stack_fwd_impl(pairs, n, state2d, zz_thetas, rx_kernel_thetas, mout, mlane)
             sr, si = ar * sr - ai * si, ar * si + ai * sr
         if not fused:
             sr, si = _lane_apply(mlr[l], mli[l], sr, si)
-    return sr, si, tuple(ks), fused
+    return sr, si, tuple(ksr), tuple(ksi)
+
+
+def _adjoint_chain(pairs, n, ksr, ksi, zz_thetas, rx_kernel_thetas, mout, mlane, cr, ci, fused):
+    """Walk the L-layer adjoint from the output cotangent planes
+    ``(cr, ci) = (dL/dyr, -dL/dyi)``.
+
+    Returns ``(dsr, dsi, dzz, dth, (dmor, dmoi), (dmlr, dmli))``, every
+    complex cotangent as planes in the same convention.  ``fused`` is the
+    forward's topology: fused residuals are post-lane and pre-outer,
+    unfused ones the kernel's output before the outer and lane matmuls.
+    """
+    nrow, nkernel, nouter, nlane = _shapes(n)
+    L = zz_thetas.shape[0]
+    d = 2**nouter
+    mor, moi = _planes(mout)
+    mlr, mli = _planes(mlane)
+    zz_thetas = zz_thetas.to(torch.float32)
+    rx_kernel_thetas = rx_kernel_thetas.to(torch.float32)
+    dzz, dth, dmo, dml = [], [], [], []
+    for l in range(L - 1, -1, -1):
+        kr, ki = ksr[l], ksi[l]
+        if not fused:
+            # lane stage x' = o @ m with o = outer(k) recomputed: dm = o^T ct
+            if nouter:
+                o_r, o_i = _outer_apply(mor[l], moi[l], kr, ki)
+            else:
+                ar, ai = mor[l, 0, 0], moi[l, 0, 0]
+                o_r, o_i = ar * kr - ai * ki, ar * ki + ai * kr
+            dml.append((o_r.T @ cr - o_i.T @ ci, o_r.T @ ci + o_i.T @ cr))
+            cr, ci = _lane_walk(mlr[l], mli[l], cr, ci)
+        if nouter:
+            # outer stage o = mo @ k: dmo = ct @ k^T over the flattened rows
+            fc_r, fc_i = cr.reshape(d, -1), ci.reshape(d, -1)
+            fk_r, fk_i = kr.reshape(d, -1), ki.reshape(d, -1)
+            dmo.append((fc_r @ fk_r.T - fc_i @ fk_i.T, fc_r @ fk_i.T + fc_i @ fk_r.T))
+            cr, ci = _outer_walk(mor[l], moi[l], cr, ci)
+        else:
+            # o = a k for the complex scalar a: g_a = sum g_o k, g_k = a g_o
+            ar, ai = mor[l, 0, 0], moi[l, 0, 0]
+            gar = torch.sum(cr * kr) - torch.sum(ci * ki)
+            gai = torch.sum(cr * ki) + torch.sum(ci * kr)
+            dmo.append((gar.reshape(1, 1), gai.reshape(1, 1)))
+            cr, ci = ar * cr - ai * ci, ar * ci + ai * cr
+        if fused:
+            cr, ci, dz, dt, gmr, gmi = krl.zzrx_bwd(
+                pairs, n, zz_thetas[l], rx_kernel_thetas[l], kr, ki, cr, ci, mlr[l], mli[l]
+            )
+            dml.append((gmr, gmi))
+        else:
+            cr, ci, dz, dt = krl.zzrx_bwd(
+                pairs, n, zz_thetas[l], rx_kernel_thetas[l], kr, ki, cr, ci
+            )
+        dzz.append(dz)
+        dth.append(dt)
+
+    def stack(xs):
+        return torch.stack(xs[::-1])
+
+    return (
+        cr, ci, stack(dzz), stack(dth),
+        (stack([x[0] for x in dmo]), stack([x[1] for x in dmo])),
+        (stack([x[0] for x in dml]), stack([x[1] for x in dml])),
+    )
+
+
+def _matrix_grads(ctx, zz_thetas, rx_kernel_thetas, mout, mlane, cr, ci):
+    """torch gradients of (state2d, zz, rx_kernel, mout, mlane) of a
+    matrix-level boundary from its output cotangent planes."""
+    dsr, dsi, dzz, dth, dmo, dml = _adjoint_chain(
+        ctx.pairs, ctx.n, *ctx.ks, zz_thetas, rx_kernel_thetas, mout, mlane, cr, ci, ctx.fused
+    )
+    return (
+        krl.grad_of_planes(dsr, dsi).to(ctx.state_dtype),
+        dzz.to(zz_thetas.dtype),
+        dth.to(rx_kernel_thetas.dtype),
+        krl.grad_of_planes(*dmo).to(mout.dtype),
+        krl.grad_of_planes(*dml).to(mlane.dtype),
+    )
+
+
+class _StackCore(torch.autograd.Function):
+    """Counterpart of the JAX ``zzrx_stack_core`` custom VJP."""
+
+    @staticmethod
+    def forward(ctx, pairs, n, state2d, zz_thetas, rx_kernel_thetas, mout, mlane):
+        fused = state2d.is_cuda
+        yr, yi, ksr, ksi = _stack_fwd_impl(
+            pairs, n, state2d, zz_thetas, rx_kernel_thetas, _planes(mout), _planes(mlane), fused
+        )
+        # the residuals are intermediates (neither inputs nor outputs)
+        ctx.pairs, ctx.n, ctx.fused, ctx.ks = pairs, n, fused, (ksr, ksi)
+        ctx.state_dtype = state2d.dtype
+        ctx.save_for_backward(zz_thetas, rx_kernel_thetas, mout, mlane)
+        return torch.complex(yr, yi).to(state2d.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        cr, ci = krl.conj_planes(g)
+        return (None, None) + _matrix_grads(ctx, *ctx.saved_tensors, cr, ci)
 
 
 def zzrx_stack_core(pairs, n, state2d, zz_thetas, rx_kernel_thetas, mout, mlane):
@@ -142,12 +248,12 @@ def zzrx_stack_core(pairs, n, state2d, zz_thetas, rx_kernel_thetas, mout, mlane)
     ``state2d`` (2^nrow, 128) complex64; ``zz_thetas`` (L, npairs);
     ``rx_kernel_thetas`` (L, nkernel); ``mout`` (L, D, D) complex left-mul
     matrices on the top nouter row bits; ``mlane`` (L, 128, 128) complex
-    right-mul matrices on the lane bits (the fused path requires them
-    unitary, as the JAX package does)."""
-    yr, yi, _, _ = _stack_fwd_impl(
-        pairs, n, state2d, zz_thetas, rx_kernel_thetas, mout, mlane
-    )
-    return torch.complex(yr, yi).to(state2d.dtype)
+    right-mul matrices on the lane bits.  On a CUDA state the lane matmul
+    rides inside the kernels, and then ``mlane`` must be unitary, as in the
+    JAX package.  Differentiable in every tensor: the backward walks
+    :func:`_adjoint_chain` (K3 on a CUDA state)."""
+    pairs = tuple((int(a), int(b)) for a, b in pairs)
+    return _StackCore.apply(pairs, n, state2d, zz_thetas, rx_kernel_thetas, mout, mlane)
 
 
 def _np_kron_all(ms):
@@ -240,34 +346,96 @@ def _readout_energy(sr, si, n, spec):
     return torch.sum(sr * br) + torch.sum(si * bi), br, bi
 
 
-def _stack_energy_fwd(pairs, n, state2d, zz_thetas, rx_kernel_thetas, mout, mlane, spec):
-    """Returns ``(e, (ks, br, bi))``: the energy and what the backward of
-    the JAX package saves (the per-layer residuals and readout seeds)."""
-    yr, yi, ks, _ = _stack_fwd_impl(
-        pairs, n, state2d, zz_thetas, rx_kernel_thetas, mout, mlane
-    )
-    e, br, bi = _readout_energy(yr, yi, n, spec)
-    return e, (ks, br, bi)
+class _StackEnergy(torch.autograd.Function):
+    """Counterpart of the JAX ``zzrx_stack_energy`` custom VJP: the
+    readout's seed planes ``(br, bi)`` are saved in the forward, so its
+    backward is one scale, ``ct = (2 g br, -2 g bi)``."""
+
+    @staticmethod
+    def forward(ctx, pairs, n, state2d, zz_thetas, rx_kernel_thetas, mout, mlane, spec):
+        fused = state2d.is_cuda
+        yr, yi, ksr, ksi = _stack_fwd_impl(
+            pairs, n, state2d, zz_thetas, rx_kernel_thetas, _planes(mout), _planes(mlane), fused
+        )
+        e, br, bi = _readout_energy(yr, yi, n, spec)
+        ctx.pairs, ctx.n, ctx.fused, ctx.ks = pairs, n, fused, (ksr, ksi)
+        ctx.state_dtype = state2d.dtype
+        ctx.seeds = (br, bi)
+        ctx.save_for_backward(zz_thetas, rx_kernel_thetas, mout, mlane)
+        return e
+
+    @staticmethod
+    def backward(ctx, g):
+        s = 2.0 * g.to(torch.float32)
+        br, bi = ctx.seeds
+        return (None, None) + _matrix_grads(ctx, *ctx.saved_tensors, s * br, -s * bi) + (None,)
 
 
 def zzrx_stack_energy(
     pairs, n, state2d, zz_thetas, rx_kernel_thetas, mout, mlane, spec=((), ())
 ) -> torch.Tensor:
     """Real float32 ⟨H⟩ after L stacked zzrx layers, for the readout
-    ``spec = (diag_terms, x_terms)``: H = Σ w_s Π_{q∈s} Z_q + Σ w_q X_q."""
-    return _stack_energy_fwd(
-        pairs, n, state2d, zz_thetas, rx_kernel_thetas, mout, mlane, spec
-    )[0]
+    ``spec = (diag_terms, x_terms)``: H = Σ w_s Π_{q∈s} Z_q + Σ w_q X_q.
+    Matrix-level boundary: differentiable in every tensor, the matrix
+    cotangents chained to the angles by autograd outside."""
+    pairs = tuple((int(a), int(b)) for a, b in pairs)
+    return _StackEnergy.apply(pairs, n, state2d, zz_thetas, rx_kernel_thetas, mout, mlane, spec)
+
+
+class _StackEnergyTheta(torch.autograd.Function):
+    """Counterpart of the JAX ``zzrx_stack_energy_theta`` custom VJP: the
+    backward is K4 (:func:`kernels_grand.grand_zzrx_bwd`), then the lane
+    chain dM -> dθ_lane through the kron builder."""
+
+    @staticmethod
+    def forward(ctx, pairs, n, state2d, zz_thetas, rx_thetas, spec):
+        nrow, nkernel, nouter, nlane = _shapes(n)
+        th = rx_thetas.detach().to(torch.float32)
+        mo = _rx_kron_planes(th[:, :nouter])
+        ml = _lane_kron_planes_T(th[:, nrow:])
+        # always the fused topology (the JAX package asserts it here)
+        yr, yi, ksr, ksi = _stack_fwd_impl(
+            pairs, n, state2d, zz_thetas, th[:, nouter:nrow], mo, ml, True
+        )
+        e, br, bi = _readout_energy(yr, yi, n, spec)
+        ctx.pairs, ctx.n, ctx.ks, ctx.seeds = pairs, n, (ksr, ksi), (br, bi)
+        ctx.mats = mo + ml
+        ctx.state_dtype = state2d.dtype
+        ctx.save_for_backward(zz_thetas, rx_thetas)
+        return e
+
+    @staticmethod
+    def backward(ctx, g):
+        zz_thetas, rx_thetas = ctx.saved_tensors
+        n = ctx.n
+        nrow, nkernel, nouter, nlane = _shapes(n)
+        s = 2.0 * g.to(torch.float32)
+        br, bi = ctx.seeds
+        th = rx_thetas.detach().to(torch.float32)
+        # the forward's outer and lane planes
+        mor, moi, mlr, mli = ctx.mats
+        # K2's residuals come stacked; per-layer K1 ones (odd L) are stacked here
+        ksr, ksi = (k if torch.is_tensor(k) else torch.stack(k) for k in ctx.ks)
+        dsr, dsi, dzz, dthk, dtho, dmlr, dmli = kg.grand_zzrx_bwd(
+            ctx.pairs, n, zz_thetas, th[:, nouter:nrow].contiguous(),
+            ksr, ksi, s * br, -s * bi, mor, moi, mlr, mli,
+        )
+        # lane chain: the kernel's dM planes are (dL/dmr, -dL/dmi)
+        with torch.enable_grad():
+            thl = th[:, nrow:].detach().requires_grad_()
+            lr, li = _lane_kron_planes_T(thl)
+            (dthl,) = torch.autograd.grad((lr, li), thl, (dmlr, -dmli))
+        dth = torch.cat([dtho, dthk, dthl], dim=1).to(rx_thetas.dtype)
+        grad_state = krl.grad_of_planes(dsr, dsi).to(ctx.state_dtype)
+        return None, None, grad_state, dzz.to(zz_thetas.dtype), dth, None
 
 
 def zzrx_stack_energy_theta(pairs, n, state2d, zz_thetas, rx_thetas, spec=((), ())):
     """Real float32 ⟨H⟩ after L stacked zzrx layers, angle-level boundary.
 
     ``rx_thetas`` is the full (L, n) angle grid (outer + kernel + lane
-    qubits); the outer and lane matrices are built here.  The JAX package
-    attaches the grand backward kernel at this boundary."""
-    nrow, nkernel, nouter, nlane = _shapes(n)
-    mout, mlane = _theta_kron_mats(n, rx_thetas)
-    return _stack_energy_fwd(
-        pairs, n, state2d, zz_thetas, rx_thetas[:, nouter:nrow], mout, mlane, spec
-    )[0]
+    qubits); the outer and lane matrices are built here.  Needs
+    1 <= nouter <= 4.  Always the fused topology, on a CPU state too
+    (through the plain versions); the backward is K4."""
+    pairs = tuple((int(a), int(b)) for a, b in pairs)
+    return _StackEnergyTheta.apply(pairs, n, state2d, zz_thetas, rx_thetas, spec)

@@ -9,9 +9,14 @@ float32 planes for complex64 n > 7, the per-layer path otherwise.
 Tolerances (complex64): both sides sum in float32 in another order.  The
 energy is a sum of ~2n terms of size <= 1, so an absolute 2e-5 * n; the
 state is a unit vector, so its difference in 2-norm within 2e-6.  complex128
-keeps the dense formulation in float64 on both sides: 1e-10.
+keeps the dense formulation in float64 on both sides: 1e-10.  Gradients
+(``torch.autograd.grad`` against ``jax.value_and_grad``) within 1e-5 at
+n <= 12, the JAX package's own bound; at n=20 within 1e-4, as each entry
+is a float32 sum over 2^20 amplitudes per layer, taken in another order.
 """
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -85,12 +90,75 @@ def test_complex128_matches_jax():
 
 
 def test_cpu_circuit_launches_no_kernel():
-    kernels_rowlayer.zzrx_fwd.launches = 0
-    kernels_grand.grand_zzrx_fwd.launches = 0
+    counters = (
+        kernels_rowlayer.zzrx_fwd, kernels_grand.grand_zzrx_fwd,
+        kernels_rowlayer.zzrx_bwd, kernels_grand.grand_zzrx_bwd,
+    )
+    for c in counters:
+        c.launches = 0
     for L in (3, 4):
         _both(20, L, False, (1.0, -1.0), seed=L)
-    assert kernels_rowlayer.zzrx_fwd.launches == 0
-    assert kernels_grand.grand_zzrx_fwd.launches == 0
+    _value_and_grad(tct, 12, 4, _pairs(12, False), _grid(12, 4, 1), (1.0, -1.0))
+    assert [c.launches for c in counters] == [0, 0, 0, 0]
+
+
+def _value_and_grad(mod, n, L, pairs, grid, weights):
+    """Energy and its gradient in the (L, 2, n) grid, either package."""
+    kw = {} if mod is tc else {"device": "cpu"}
+
+    def energy(p):
+        return _build(mod, n, L, pairs, p, **kw).expectation_zzx_energy(pairs, *weights)
+
+    if mod is tc:
+        v, g = jax.jit(jax.value_and_grad(energy))(jnp.asarray(grid, jnp.float32))
+        return float(v), np.asarray(g)
+    p = convert.params(grid, "cpu").requires_grad_()
+    e = energy(p)
+    (g,) = torch.autograd.grad(e, p)
+    return e.item(), g.numpy()
+
+
+@pytest.mark.parametrize(
+    "n,L,periodic,weights",
+    [
+        (8, 3, False, (1.0, -1.0)),  # nouter 0
+        (8, 4, True, (0.7, -1.3)),
+        (12, 3, True, (0.7, -1.3)),
+        (12, 4, False, (1.0, -1.0)),
+        (20, 4, False, (1.0, -1.0)),  # the benchmark step: nouter 3
+        (20, 3, False, (1.0, -1.0)),
+    ],
+)
+def test_value_and_grad_match_jax(n, L, periodic, weights):
+    """The training step's value and gradient: the port's CPU path (the
+    matrix-level boundary, its backward through the plain K3) against
+    ``jax.value_and_grad`` of the JAX package's CPU path."""
+    pairs = _pairs(n, periodic)
+    grid = _grid(n, L, seed=200 + n + L)
+    ej, gj = _value_and_grad(tc, n, L, pairs, grid, weights)
+    et, gt = _value_and_grad(tct, n, L, pairs, grid, weights)
+    assert gt.shape == gj.shape == (L, 2, n)
+    assert abs(et - ej) <= 2e-5 * n
+    np.testing.assert_allclose(gt, gj, rtol=0, atol=1e-5 if n <= 12 else 1e-4)
+
+
+def test_grad_keeps_parameter_leaf():
+    """A parameter that requires grad reaches the circuit uncopied and in
+    its dtype, and an SGD step through it lowers the energy."""
+    n, L = 9, 2
+    pairs = _pairs(n, False)
+    p = convert.params(_grid(n, L, 5), "cpu").requires_grad_()
+    c = tct.Circuit(n, device="cpu")
+    assert c._param(p).data_ptr() == p.data_ptr() and c._param(p).dtype == p.dtype
+    e0, g = None, None
+    for _ in range(3):
+        e = _build(tct, n, L, pairs, p, device="cpu").expectation_zzx_energy(pairs, 1.0, -1.0)
+        (g,) = torch.autograd.grad(e, p)
+        if e0 is not None:
+            assert e.item() < e0
+        e0 = e.item()
+        with torch.no_grad():
+            p -= 0.05 * g
 
 
 def test_mixed_qir_matches_jax():

@@ -11,6 +11,9 @@ the circuit on the card (through the kernels) against the circuit on the CPU
 (plain versions).  Tolerance: both sides compute in float32 with sums in
 another order; amplitudes are O(2^-n/2), so an absolute 2e-6 on a state of
 norm 1; the energy, a sum of ~2n terms of size <= 1, within 2e-5 * n.
+Gradients are float32 sums over the whole state: each within ``GRAD_RTOL``
+of its largest entry (about 100 float32 ulps); a circuit gradient within
+1e-4, as in ``tests/test_torch_circuit.py`` at n=20.
 """
 
 import numpy as np
@@ -21,10 +24,12 @@ import tensorcircuit_ng_tpu_torch as tct
 from tensorcircuit_ng_tpu_torch import convert
 from tensorcircuit_ng_tpu_torch.core import kernels_grand as kg
 from tensorcircuit_ng_tpu_torch.core import kernels_rowlayer as krl
+from tensorcircuit_ng_tpu_torch.core import kernels_stack as kst
 
 pytestmark = pytest.mark.cuda
 
 ATOL = 2e-6
+GRAD_RTOL = 1e-5
 
 
 @pytest.fixture
@@ -139,3 +144,142 @@ def test_circuit_on_card_matches_cpu(cuda, n, L, kernel):
     e_cpu, s_cpu = run("cpu")
     assert abs(e_card - e_cpu) <= 2e-5 * n
     assert np.linalg.norm(s_card - s_cpu) <= 2e-6
+
+
+def _unitary_inputs(n, nkernel, L, npairs, seed, dev):
+    """Residual and cotangent planes, angles, and the rx-kron outer and
+    lane planes the backward kernels require (unitary)."""
+    rng = np.random.default_rng(seed)
+    r = 2**n // 128
+    planes = [convert.params(rng.normal(size=(L, r, 128)) / 2 ** (n / 2), dev) for _ in range(2)]
+    planes += [convert.params(rng.normal(size=(r, 128)) / 2 ** (n / 2), dev) for _ in range(2)]
+    rx = convert.params(rng.normal(size=(L, n)) * 0.5, dev)
+    nrow = n - 7
+    nouter = nrow - nkernel
+    mats = [*kst._rx_kron_planes(rx[:, :nouter]), *kst._lane_kron_planes_T(rx[:, nrow:])]
+    zz = convert.params(rng.normal(size=(L, npairs)) * 0.5, dev)
+    return planes, zz, rx[:, nouter:nrow].contiguous(), mats
+
+
+def _close(got, want):
+    torch.testing.assert_close(got, want, rtol=0, atol=GRAD_RTOL * want.abs().max().item())
+
+
+@pytest.mark.parametrize(
+    "n,nkernel,pairs,lane",
+    [
+        (10, 1, "chain", False), (12, 3, "long", True), (17, 10, "chain", False),
+        (20, 10, "open", True), (22, 10, "open", True),
+    ],
+)
+def test_zzrx_bwd_kernel_matches_plain(cuda, n, nkernel, pairs, lane):
+    pairs = _pairs(n, pairs)
+    (ksr, ksi, ctr, cti), zz, th, mats = _unitary_inputs(n, nkernel, 1, len(pairs), n, cuda)
+    m = (mats[2][0], mats[3][0]) if lane else ()
+    krl.zzrx_bwd.launches = 0
+    got = krl.zzrx_bwd(pairs, n, zz[0], th[0], ksr[0], ksi[0], ctr, cti, *m)
+    torch.cuda.synchronize()
+    assert krl.zzrx_bwd.launches == 1
+    want = krl.zzrx_bwd_plain(pairs, n, zz[0], th[0], ksr[0], ksi[0], ctr, cti, *m)
+    assert len(got) == len(want) == (6 if lane else 4)
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.is_cuda and g.shape == w.shape
+        if i < 2:
+            torch.testing.assert_close(g, w, atol=ATOL, rtol=0)
+        else:
+            _close(g, w)
+
+
+@pytest.mark.parametrize(
+    "n,nkernel,L,pairs", [(10, 1, 2, "chain"), (12, 3, 3, "long"), (18, 10, 3, "open"), (20, 10, 4, "open")]
+)
+def test_grand_zzrx_bwd_kernel_matches_plain(cuda, n, nkernel, L, pairs):
+    """K4 against its plain version, and bit for bit against itself."""
+    pairs = _pairs(n, pairs)
+    planes, zz, th, mats = _unitary_inputs(n, nkernel, L, len(pairs), n + L, cuda)
+    args = (pairs, n, zz, th, *planes, *mats)
+    kg.grand_zzrx_bwd.launches = 0
+    got = kg.grand_zzrx_bwd(*args)
+    again = kg.grand_zzrx_bwd(*args)
+    torch.cuda.synchronize()
+    assert kg.grand_zzrx_bwd.launches == 2
+    want = kg.grand_zzrx_bwd_plain(*args)
+    # (dsr, dsi, dzz, dth, dtho, dmlr, dmli)
+    for i, (g, g2, w) in enumerate(zip(got, again, want)):
+        assert g.shape == w.shape and torch.equal(g, g2)
+        if i < 2:
+            torch.testing.assert_close(g, w, atol=ATOL, rtol=0)
+        else:
+            _close(g, w)
+
+
+@pytest.mark.parametrize(
+    "n,L,kernel",
+    [(12, 4, "zzrx_bwd"), (20, 4, "grand_zzrx_bwd"), (20, 3, "grand_zzrx_bwd"), (22, 4, "zzrx_bwd")],
+)
+def test_circuit_gradient_on_card_matches_cpu(cuda, n, L, kernel):
+    """value and gradient of the TFIM energy through ``Circuit`` on the card
+    (K3 per layer at n=12 and n=22, K4 at n=20) against the CPU path."""
+    pairs = _pairs(n, "open")
+    grid = np.random.default_rng(n + L).normal(size=(L, 2, n)) * 0.1
+    counter = {"zzrx_bwd": krl.zzrx_bwd, "grand_zzrx_bwd": kg.grand_zzrx_bwd}[kernel]
+
+    def run(dev):
+        p = convert.params(grid, dev).requires_grad_()
+        c = tct.Circuit(n, device=dev)
+        c.h_layer()
+        for l in range(L):
+            c.zzrx_layer(pairs, p[l, 0, : n - 1], p[l, 1])
+        e = c.expectation_zzx_energy(pairs, 1.0, -1.0)
+        (g,) = torch.autograd.grad(e, p)
+        assert g.device == p.device
+        return e.item(), convert.to_numpy(g)
+
+    counter.launches = 0
+    e_card, g_card = run(cuda)
+    assert counter.launches == (1 if kernel == "grand_zzrx_bwd" else L)
+    e_cpu, g_cpu = run("cpu")
+    assert abs(e_card - e_cpu) <= 2e-5 * n
+    np.testing.assert_allclose(g_card, g_cpu, rtol=0, atol=1e-4)
+
+
+def test_zzrx_row_layer_gradient_on_card(cuda):
+    """``zzrx_row_layer`` on the card (K1 forward, K3 backward without the
+    lane matrix) against the CPU path, for the loss Re Σ w·y."""
+    n, nkernel = 14, 7
+    pairs = _pairs(n, "long")
+    rng = np.random.default_rng(3)
+    psi = (rng.normal(size=(2**n // 128, 128)) + 1j * rng.normal(size=(2**n // 128, 128))) / 2 ** (n / 2)
+    w = rng.normal(size=psi.shape) + 1j * rng.normal(size=psi.shape)
+    zz = rng.normal(size=len(pairs)) * 0.5
+    th = rng.normal(size=nkernel) * 0.5
+
+    def run(dev):
+        ts = [convert.state(psi, dev).reshape(psi.shape).requires_grad_(),
+              convert.params(zz, dev).requires_grad_(), convert.params(th, dev).requires_grad_()]
+        y = krl.zzrx_row_layer(pairs, n, *ts)
+        v = torch.real(torch.sum(convert.state(w, dev).reshape(psi.shape) * y))
+        return [g.cpu() for g in torch.autograd.grad(v, ts)]
+
+    krl.zzrx_bwd.launches = 0
+    got = run(cuda)
+    assert krl.zzrx_bwd.launches == 1
+    for g, w_ in zip(got, run("cpu")):
+        _close(g, w_)
+
+
+def test_backward_wrappers_check_their_inputs(cuda):
+    n, pairs = 12, _pairs(12, "chain")
+    (ksr, ksi, ctr, cti), zz, th, mats = _unitary_inputs(n, 3, 2, len(pairs), 1, cuda)
+    with pytest.raises(ValueError, match="float32"):
+        krl.zzrx_bwd(pairs, n, zz[0], th[0], ksr[0], ksi[0], ctr.double(), cti)
+    with pytest.raises(ValueError, match="contiguous"):
+        krl.zzrx_bwd(pairs, n, zz[0], th[0], ksr[0], ksi[0], ctr.t().contiguous().t(), cti)
+    with pytest.raises(ValueError, match="zzth shape"):
+        krl.zzrx_bwd(pairs, n, zz[0, :-1], th[0], ksr[0], ksi[0], ctr, cti)
+    with pytest.raises(ValueError, match="plane shape"):
+        kg.grand_zzrx_bwd(pairs, n, zz, th, ksr[:1], ksi[:1], ctr, cti, *mats)
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        # D = 32 outer blocks: above the kernel's outer stage
+        d32 = torch.eye(32, device=cuda).expand(2, 32, 32).contiguous()
+        kg.grand_zzrx_bwd(pairs, n, zz, th[:, :0], ksr, ksi, ctr, cti, d32, d32, *mats[2:])

@@ -1,8 +1,11 @@
 """The port's kernel modules against the JAX package's Pallas kernels.
 
-The plain versions of K1 (``kernels_rowlayer.zzrx_fwd``) and K2
-(``kernels_grand.grand_zzrx_fwd``) are held against the JAX Pallas kernels
-run in interpret mode on the CPU, on the same numpy-seeded inputs.  The
+The plain versions of K1 (``kernels_rowlayer.zzrx_fwd``), K2
+(``kernels_grand.grand_zzrx_fwd``), K3 (``kernels_rowlayer.zzrx_bwd``) and
+K4 (``kernels_grand.grand_zzrx_bwd``) are held against the JAX Pallas
+kernels run in interpret mode on the CPU, on the same numpy-seeded inputs;
+so are the autograd boundaries of ``kernels_stack`` and
+``kernels_rowlayer.zzrx_row_layer`` against the JAX custom VJPs.  The
 kernels themselves run only on a CUDA card: ``tests/test_torch_cuda.py``
 holds them against their plain versions there and skips without a card
 (``chip_smoke.py`` does the same at n=20).  Here a CPU tensor must route
@@ -11,11 +14,16 @@ to the plain version and launch nothing.
 Tolerance: both sides compute in float32, in another order (the Pallas zz
 exponent is a sign-matrix dot, the rx a roll butterfly, the torch side an
 elementwise sum and an einsum); amplitudes are O(1/sqrt(2^n)), so an
-absolute 2e-6 is ~100 float32 ulps of the largest amplitude.
+absolute 2e-6 is ~100 float32 ulps of the largest amplitude.  Gradients are
+sums over the whole state in float32, in another order on each side: they
+are held within ``GRAD_RTOL`` = 1e-5 of the largest entry of the output
+they belong to (about 100 float32 ulps), the JAX package's own gradient
+bound at these sizes.
 """
 
 import numpy as np
 import pytest
+import jax
 import jax.numpy as jnp
 import torch
 
@@ -30,6 +38,14 @@ from tensorcircuit_ng_tpu_torch.core import kernels_rowlayer as krl
 from tensorcircuit_ng_tpu_torch.core import kernels_stack as kst
 
 ATOL = 2e-6
+GRAD_RTOL = 1e-5
+
+
+def _close(got, want, rtol=GRAD_RTOL):
+    """Within ``rtol`` of the largest |want| (see the module notes)."""
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.shape == want.shape, (got.shape, want.shape)
+    np.testing.assert_allclose(got, want, rtol=0, atol=rtol * max(np.abs(want).max(), 1e-30))
 
 
 def _interpret(fn):
@@ -160,3 +176,244 @@ def test_rx_kron_planes_match_jax():
         np.testing.assert_allclose(lr[l].numpy(), np.asarray(jr), atol=1e-7)
         np.testing.assert_allclose(li[l].numpy(), np.asarray(ji), atol=1e-7)
 
+
+
+def _rx_krons(n, nkernel, L, rng):
+    """Unitary outer and lane rx-kron planes (numpy float32) of seeded
+    angles: the backward kernels rebuild states by un-application."""
+    nrow = n - 7
+    nouter = nrow - nkernel
+    th = torch.as_tensor(rng.normal(size=(L, n)) * 0.5, dtype=torch.float32)
+    mor, moi = kst._rx_kron_planes(th[:, :nouter])
+    mlr, mli = kst._lane_kron_planes_T(th[:, nrow:])
+    return [t.numpy() for t in (mor, moi, mlr, mli)]
+
+
+def _bwd_planes(n, L, rng):
+    """Random (non-normalized) residual and cotangent planes."""
+    r = 2**n // 128
+    draw = lambda *shape: (rng.normal(size=shape) / np.sqrt(2**n)).astype(np.float32)
+    return draw(L, r, 128), draw(L, r, 128), draw(r, 128), draw(r, 128)
+
+
+@pytest.mark.parametrize(
+    "n,nkernel,pairs,lane",
+    [
+        (10, 1, "chain", False),
+        (10, 3, "long", True),
+        (11, 2, "long", False),
+        (12, 3, "chain", True),
+        (12, 5, "long", True),
+    ],
+)
+def test_zzrx_bwd_plain_matches_pallas(n, nkernel, pairs, lane):
+    """K3's plain version vs ``_pallas_zzrx_bwd`` in interpret mode: ds
+    within ATOL, dzz, dth and dM within GRAD_RTOL of their largest entry."""
+    pairs = _chain(n) if pairs == "chain" else _long_range(n)
+    rng = np.random.default_rng(40 + n + nkernel)
+    ksr, ksi, ctr, cti = _bwd_planes(n, 1, rng)
+    zz = (rng.normal(size=len(pairs)) * 0.5).astype(np.float32)
+    th = (rng.normal(size=nkernel) * 0.5).astype(np.float32)
+    mats = _rx_krons(n, nkernel, 1, rng)[2:] if lane else []
+    jargs = [jnp.asarray(a) for a in (zz, th, ksr[0], ksi[0], ctr, cti, *(m[0] for m in mats))]
+    want = _interpret(lambda: jkrl._pallas_zzrx_bwd(pairs, n, *jargs))
+    got = krl.zzrx_bwd_plain(pairs, n, *(torch.as_tensor(np.array(a)) for a in jargs))
+    assert len(got) == len(want) == (6 if lane else 4)
+    for i, (g, w) in enumerate(zip(got, want)):
+        if i < 2:
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=ATOL)
+        else:
+            _close(g.numpy(), w)
+
+
+@pytest.mark.parametrize(
+    "n,nkernel,L,pairs",
+    [
+        (10, 1, 2, "chain"),  # nrow 3: D = 4 blocks of RB = 2 rows
+        (10, 1, 3, "long"),
+        (12, 3, 2, "long"),  # nrow 5: D = 4 blocks of RB = 8 rows
+        (12, 3, 3, "chain"),
+    ],
+)
+def test_grand_zzrx_bwd_plain_matches_pallas(n, nkernel, L, pairs):
+    """K4's plain version vs ``kernels_grand.grand_zzrx_bwd`` in interpret
+    mode, on rx-kron outer and lane planes: ds within ATOL, every gradient
+    within GRAD_RTOL of its largest entry."""
+    pairs = _chain(n) if pairs == "chain" else _long_range(n)
+    rng = np.random.default_rng(7 * n + L)
+    ksr, ksi, ctr, cti = _bwd_planes(n, L, rng)
+    zz = (rng.normal(size=(L, len(pairs))) * 0.5).astype(np.float32)
+    th = (rng.normal(size=(L, nkernel)) * 0.5).astype(np.float32)
+    args = (zz, th, ksr, ksi, ctr, cti, *_rx_krons(n, nkernel, L, rng))
+    want = _interpret(lambda: jkg.grand_zzrx_bwd(pairs, n, *(jnp.asarray(a) for a in args)))
+    got = kg.grand_zzrx_bwd_plain(pairs, n, *(torch.as_tensor(a) for a in args))
+    # (dsr, dsi, dzz, dth, dtho, dmlr, dmli) in both
+    for i, (g, w) in enumerate(zip(got, want)):
+        if i < 2:
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=ATOL)
+        else:
+            _close(g.numpy(), w)
+
+
+def _spec(n, pairs):
+    return jkernels.ising_readout_spec(
+        n, zz_terms=[(a, b, 0.7) for a, b in pairs], x_terms=[(q, -1.3) for q in range(n)]
+    )
+
+
+@pytest.mark.parametrize("kq,L", [(1, 2), (2, 3)])
+def test_theta_boundary_matches_jax(monkeypatch, kq, L):
+    """``zzrx_stack_energy_theta`` value and gradients (state, zz, all rx
+    angles) on the CPU, which runs the fused topology through the plain
+    K1/K2 and K4 as the card does, vs the JAX boundary in interpret mode.
+    n=10 with 1 or 2 kernel qubits: nouter 2 or 1; L=2 takes K2 forward,
+    L=3 per-layer K1.  Energy within 2e-5 * n, the gradients within
+    GRAD_RTOL of their largest entry; the complex state gradient is
+    compared as JAX's convention, the conjugate of torch's."""
+    monkeypatch.setattr(jkrl, "MAX_KERNEL_QUBITS_ZZRX", kq)
+    monkeypatch.setattr(krl, "MAX_KERNEL_QUBITS_ZZRX", kq)
+    n = 10
+    pairs = _chain(n)
+    spec = _spec(n, pairs)
+    rng = np.random.default_rng(L)
+    psi = rng.normal(size=2**n) + 1j * rng.normal(size=2**n)
+    s2 = (psi / np.linalg.norm(psi)).reshape(-1, 128).astype(np.complex64)
+    zz = (rng.normal(size=(L, n)) * 0.4).astype(np.float32)
+    rx = (rng.normal(size=(L, n)) * 0.4).astype(np.float32)
+    fj = lambda s, z, r: jkst.zzrx_stack_energy_theta(pairs, n, s, z, r, spec)
+    vj, gj = _interpret(
+        lambda: jax.jit(jax.value_and_grad(fj, argnums=(0, 1, 2)))(
+            jnp.asarray(s2), jnp.asarray(zz), jnp.asarray(rx)
+        )
+    )
+    ts, tz, tr = (torch.tensor(a, requires_grad=True) for a in (s2, zz, rx))
+    e = kst.zzrx_stack_energy_theta(pairs, n, ts, tz, tr, spec)
+    gs, gz, gr = torch.autograd.grad(e, (ts, tz, tr))
+    assert abs(e.item() - float(vj)) <= 2e-5 * n
+    _close(np.conj(gs.numpy()), gj[0])
+    _close(gz.numpy(), gj[1])
+    _close(gr.numpy(), gj[2])
+
+
+def _matrix_inputs(n, nouter, L, npairs, seed):
+    """State, angles and general complex outer/lane matrices (the CPU
+    branches of both packages assume nothing of them), plus a complex
+    weight for the loss Re Σ w·y."""
+    rng = np.random.default_rng(seed)
+    c = lambda *shape: (rng.normal(size=shape) + 1j * rng.normal(size=shape)).astype(np.complex64)
+    d = 2**nouter
+    return {
+        "state": c(2**n // 128, 128) / np.float32(np.sqrt(2**n)),
+        "zz": (rng.normal(size=(L, npairs)) * 0.5).astype(np.float32),
+        "th": (rng.normal(size=(L, n - 7 - nouter)) * 0.5).astype(np.float32),
+        "mout": c(L, d, d) / np.float32(np.sqrt(2 * d)),
+        "mlane": c(L, 128, 128) / np.float32(16),
+        "w": c(2**n // 128, 128),
+    }
+
+
+@pytest.mark.parametrize("boundary", ["core", "energy"])
+@pytest.mark.parametrize("n,kq,L", [(9, 10, 2), (12, 3, 3)])
+def test_matrix_boundaries_match_jax(monkeypatch, boundary, n, kq, L):
+    """``zzrx_stack_core`` (loss Re Σ w·y) and ``zzrx_stack_energy``:
+    gradients in the state, both angle sets and the complex outer and lane
+    matrices vs the JAX custom VJPs on their CPU branch.  Every complex
+    gradient is held against JAX's as its conjugate (JAX's cotangent of a
+    complex leaf is non-conjugating).  n=9: nouter 0 (the (1, 1) outer
+    scalar); n=12 with 3 kernel qubits: nouter 2.  Within GRAD_RTOL of the
+    largest entry of each gradient."""
+    monkeypatch.setattr(jkrl, "MAX_KERNEL_QUBITS_ZZRX", kq)
+    monkeypatch.setattr(krl, "MAX_KERNEL_QUBITS_ZZRX", kq)
+    nouter = max(0, n - 7 - kq)
+    pairs = _long_range(n)
+    x = _matrix_inputs(n, nouter, L, len(pairs), seed=n + L)
+    names = ("state", "zz", "th", "mout", "mlane")
+    spec = _spec(n, pairs)
+    if boundary == "core":
+        w = jnp.asarray(x["w"])
+        fj = lambda *a: jnp.real(jnp.sum(w * jkst.zzrx_stack_core(pairs, n, *a)))
+    else:
+        fj = lambda *a: jkst.zzrx_stack_energy(pairs, n, *a, spec)
+    vj, gj = jax.jit(jax.value_and_grad(fj, argnums=tuple(range(5))))(*(jnp.asarray(x[k]) for k in names))
+    ts = [torch.tensor(x[k], requires_grad=True) for k in names]
+    if boundary == "core":
+        v = torch.real(torch.sum(torch.as_tensor(x["w"]) * kst.zzrx_stack_core(pairs, n, *ts)))
+    else:
+        v = kst.zzrx_stack_energy(pairs, n, *ts, spec)
+    gt = torch.autograd.grad(v, ts)
+    assert abs(v.item() - float(vj)) <= 2e-5 * n
+    for k, g, w in zip(names, gt, gj):
+        got = g.numpy()
+        _close(np.conj(got) if np.iscomplexobj(got) else got, w)
+
+
+@pytest.mark.parametrize("n,nkernel", [(9, 2), (10, 3)])
+def test_zzrx_row_layer_grads_match_jax(n, nkernel):
+    """``zzrx_row_layer`` (K1 forward, K3 backward without lane, through
+    their plain versions) vs the JAX custom VJP's CPU branch, for the loss
+    Re Σ w·y: state gradient (as JAX's conjugate), dzz and dθ within
+    GRAD_RTOL of their largest entry."""
+    pairs = _long_range(n)
+    rng = np.random.default_rng(n * nkernel)
+    x = _matrix_inputs(n, 0, 1, len(pairs), seed=n + nkernel)
+    th = (rng.normal(size=nkernel) * 0.5).astype(np.float32)
+    w = jnp.asarray(x["w"])
+    fj = lambda s, z, t: jnp.real(jnp.sum(w * jkrl.zzrx_row_layer(pairs, n, s, z, t)))
+    gj = jax.jit(jax.grad(fj, argnums=(0, 1, 2)))(
+        jnp.asarray(x["state"]), jnp.asarray(x["zz"][0]), jnp.asarray(th)
+    )
+    ts = [torch.tensor(a, requires_grad=True) for a in (x["state"], x["zz"][0], th)]
+    v = torch.real(torch.sum(torch.as_tensor(x["w"]) * krl.zzrx_row_layer(pairs, n, *ts)))
+    gs, gz, gt = torch.autograd.grad(v, ts)
+    _close(np.conj(gs.numpy()), gj[0])
+    _close(gz.numpy(), gj[1])
+    _close(gt.numpy(), gj[2])
+
+
+def test_cpu_tensors_route_backward_to_plain_versions():
+    """On CPU tensors the K3/K4 wrappers run their plain versions, bit for
+    bit, and launch nothing."""
+    n, nkernel, L = 10, 1, 2
+    pairs = _chain(n)
+    rng = np.random.default_rng(6)
+    ksr, ksi, ctr, cti = (torch.as_tensor(a) for a in _bwd_planes(n, L, rng))
+    zz = torch.as_tensor(rng.normal(size=(L, n)), dtype=torch.float32)
+    th = torch.as_tensor(rng.normal(size=(L, nkernel)), dtype=torch.float32)
+    mats = [torch.as_tensor(a) for a in _rx_krons(n, nkernel, L, rng)]
+    krl.zzrx_bwd.launches = 0
+    kg.grand_zzrx_bwd.launches = 0
+    k3 = krl.zzrx_bwd(pairs, n, zz[0], th[0], ksr[0], ksi[0], ctr, cti, mats[2][0], mats[3][0])
+    k3_plain = krl.zzrx_bwd_plain(pairs, n, zz[0], th[0], ksr[0], ksi[0], ctr, cti, mats[2][0], mats[3][0])
+    k4 = kg.grand_zzrx_bwd(pairs, n, zz, th, ksr, ksi, ctr, cti, *mats)
+    k4_plain = kg.grand_zzrx_bwd_plain(pairs, n, zz, th, ksr, ksi, ctr, cti, *mats)
+    assert krl.zzrx_bwd.launches == 0 and kg.grand_zzrx_bwd.launches == 0
+    for a, b in zip(k3 + k4, k3_plain + k4_plain):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("entry", ["fused_zzrx_layer", "fused_zzrx_multilayer"])
+def test_fused_entry_points_grads_match_jax(entry):
+    """The dispatch entry points differentiate end to end: gradients of the
+    loss Re Σ w·ψ in the state and both angle sets vs the JAX package's
+    CPU path (n=10: nouter 0, a row layer and the lane kron per layer, or
+    the matrix-level stack).  Within GRAD_RTOL of their largest entry."""
+    from tensorcircuit_ng_tpu_torch.core import kernels as tk
+
+    n, L = 10, 2
+    pairs = _long_range(n)
+    rng = np.random.default_rng(17)
+    psi = (rng.normal(size=2**n) + 1j * rng.normal(size=2**n)).astype(np.complex64) / np.float32(32)
+    w = (rng.normal(size=2**n) + 1j * rng.normal(size=2**n)).astype(np.complex64)
+    zz = (rng.normal(size=(L, len(pairs))) * 0.5).astype(np.float32)
+    rx = (rng.normal(size=(L, n)) * 0.5).astype(np.float32)
+    if entry == "fused_zzrx_layer":
+        zz, rx = zz[0], rx[0]
+    jw = jnp.asarray(w)
+    fj = lambda s, z, r: jnp.real(jnp.sum(jw * getattr(jkernels, entry)(s, pairs, z, r)))
+    gj = jax.jit(jax.grad(fj, argnums=(0, 1, 2)))(jnp.asarray(psi), jnp.asarray(zz), jnp.asarray(rx))
+    ts = [torch.tensor(a, requires_grad=True) for a in (psi, zz, rx)]
+    v = torch.real(torch.sum(torch.as_tensor(w) * getattr(tk, entry)(ts[0], pairs, ts[1], ts[2])))
+    gs, gz, gr = torch.autograd.grad(v, ts)
+    _close(np.conj(gs.numpy()), gj[0])
+    _close(gz.numpy(), gj[1])
+    _close(gr.numpy(), gj[2])

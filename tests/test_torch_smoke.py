@@ -104,6 +104,14 @@ def test_kernel_wrappers_refuse_other_devices():
         kernels_grand.grand_zzrx_fwd(
             ((0, 1),), 10, torch.zeros((2, 1)), torch.zeros((2, 2)), sr, sr, m, m, lane, lane
         )
+    with pytest.raises(ValueError, match="no kernel"):
+        kernels_rowlayer.zzrx_bwd(((0, 1),), 10, torch.zeros(1), th, sr, sr, sr, sr)
+    ks = torch.empty((2, 8, 128), device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        kernels_grand.grand_zzrx_bwd(
+            ((0, 1),), 10, torch.zeros((2, 1)), torch.zeros((2, 1)), ks, ks, sr, sr,
+            m, m, lane, lane,
+        )
 
 
 def test_h_layer_on_inputs_needs_unported_kernel():
