@@ -33,7 +33,20 @@ Phases (any failure exits non-zero; nothing is caught):
      shape (K3 at n=22, the others at n=20) over 3 rounds of 20 medians,
      reported as median and spread;
   6. torch.profiler windows over 10 L=4 evaluations and 10 L=4 training
-     steps: device busy share and device time by kernel name.
+     steps: device busy share and device time by kernel name;
+  7. the TEBD path, the main path of the TEBD slice: ``ParallelTEBD(60, 64,
+     initial="neel")`` on the card for 10 trotter steps with the gate
+     stacks of ``bench.py``'s TEBD workload, the launch counts reset just
+     before and read just after (K5 must run twice a step); <Z_i> on all
+     60 sites, lambda at bond 30 and the norm against the same steps on the
+     port's CPU path in complex128, with the complex64 CPU Gram run's
+     errors printed beside them; then K5 ``jacobi_svd`` against its plain
+     version on the card: the path's own B=30 and B=29 thetas, random,
+     decaying, rank-deficient and degenerate 128x128 batches of 30 and a
+     (30, 128, 80) panel with V, the random batch without; K5 equal to
+     itself over two runs; the trotter step timed (CUDA events), K5, its
+     plain version and ``torch.linalg.svd`` timed on the B=30 thetas, and a
+     torch.profiler window over 3 steps.
 
 Prints the kernels JSON line, then the card's name and power limit, then
 ``{"ok": true, "device": {...}}`` as the last line.  Needs no network and
@@ -74,6 +87,37 @@ NORM_ATOL = 1e-5
 #: the card's peaks for the bound (NVIDIA H100 SXM data sheet)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+#: the TEBD path: bench.py's TEBD workload, 10 trotter steps
+TEBD_N, TEBD_CHI, TEBD_STEPS, TEBD_SWEEPS = 60, 64, 10, 10
+#: card (float32 K5 Jacobi) vs the port's CPU path in complex128: max |d<Z_i>|
+#: over the 60 sites, max |d lambda| at bond 30, and |psi|^2 - 1 (the float32
+#: Jacobi with the INV_S_REL floor tracks float64; the complex64 Gram path
+#: does not)
+TEBD_ATOL = 1e-4
+#: K5 vs its plain version, both float32 on the card, per matrix (s_max its
+#: largest singular value); the levels quoted are this script's output on
+#: an H100:
+#: - s within 1e-5 s_max (the same rounds, sums in another order; <= 2.9e-6);
+SVD_S_TOL = 1e-5
+#: - reconstruction |u diag(s) vh - a|_F / |a|_F <= 1e-4: the algorithm itself,
+#:   the plain version, reaches 1.3-2.7e-5 on the random, decaying,
+#:   rank-deficient and degenerate batches after 1,270 rounds of float32
+#:   rotations, so 1e-5 would fail the plain version too;
+SVD_REC_TOL = 1e-4
+#: - u columns and vh rows elementwise, where the gap of s_j to its
+#:   neighbours (and to 0) exceeds 1e-3 s_max, within 2e-5 s_max / gap_j: a
+#:   backward error of 1e-5 s_max on each side moves a singular vector by at
+#:   most that over its gap.  Compared after aligning the phase of each pair
+#:   (u_j, vh_j), a gauge that the iteration fixes from rounding-level
+#:   inputs, so that K5 and its plain version may pick different phases;
+SVD_GAP = 1e-3
+SVD_VEC_TOL = 2e-5
+#: - max |(u^H u - I)_jk| over columns with s > 1e-6 s_max <= 5e-3: about
+#:   2e-7 on the thetas and the random batch, but 10 sweeps, the JAX
+#:   package's fixed count, leave the degenerate batch (clusters of 32 equal
+#:   s) and some decaying matrices unconverged: the plain version itself
+#:   stays at 9.2e-4 and 1.2e-4 there.
+SVD_ORTH_TOL = 5e-3
 
 
 def _fail(msg: str) -> None:
@@ -89,11 +133,11 @@ def _errors(a, b):
     return diff, scale, rel
 
 
-def _time_ms(fn, reps: int = 20, inner: int = 5) -> float:
+def _time_ms(fn, reps: int = 20, inner: int = 5, warmup: int = 3) -> float:
     """Median over ``reps`` of CUDA-event time per call of ``inner`` calls."""
     import torch
 
-    for _ in range(3):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     times = []
@@ -192,8 +236,88 @@ def _bound_ms(nbytes, flops):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def _k5_work(b, n, m, sweeps):
+    """(bytes, flops) K5 with V must move and compute: A's planes in and out
+    and V's planes out; per pair and round 36·m flops on A (16 for the four
+    column sums, 20 for the rotation) and 20·n on V."""
+    nbytes = 4 * 4 * b * n * m + 2 * 4 * b * n * n
+    flops = b * (n // 2) * sweeps * (n - 1) * (36 * m + 20 * n)
+    return nbytes, flops
+
+
+def _svd_batches(rng, b=30, n=128):
+    """K5's parity batches beside the path's thetas: (label, (b, m, k)
+    complex numpy), spectra that 10 sweeps converge."""
+
+    def g(*shape):
+        return rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
+
+    def with_spectrum(s, m, k):
+        q1 = np.linalg.qr(g(b, m, k))[0]
+        q2 = np.linalg.qr(g(b, k, k))[0]
+        return (q1 * s[None, None, :]) @ q2
+
+    return [
+        ("random", g(b, n, n)),
+        ("decaying", with_spectrum(np.exp(-np.linspace(0, 4, n)), n, n)),
+        ("rank-deficient", with_spectrum(
+            np.where(np.arange(n) < 21, np.exp(-np.linspace(0, 5, n)), 0.0), n, n)),
+        ("degenerate", with_spectrum(np.repeat([1.0, 0.5, 0.25, 0.1], n // 4), n, n)),
+        (f"panel {n}x80", with_spectrum(np.exp(-np.linspace(0, 4, 80)), n, 80)),
+    ]
+
+
+def _svd_checks(a, got, want):
+    """K5's (u, s, vh) on ``a`` against its plain version's, in complex128:
+    (ds / s_max, reconstruction, the plain version's reconstruction, the
+    largest |d vector| * gap / s_max over separated columns, how many,
+    orthogonality, max |ds|); see the SVD_* tolerances."""
+    import torch
+
+    c128 = torch.complex128
+    a = a.to(c128)
+    u, vh, up, vhp = (x.to(c128) for x in (got[0], got[2], want[0], want[2]))
+    s, sp = got[1].double(), want[1].double()
+    smax = sp[..., :1]
+
+    def rec(u, s, vh):
+        r = u * s[..., None, :].to(c128) @ vh - a
+        return (torch.linalg.matrix_norm(r) / torch.linalg.matrix_norm(a)).max().item()
+
+    nxt = torch.cat([sp[..., 1:], torch.zeros_like(smax)], -1)
+    prv = torch.cat([torch.full_like(smax, float("inf")), sp[..., :-1]], -1)
+    gap = torch.minimum(prv - sp, sp - nxt)
+    sep = gap > SVD_GAP * smax
+    ph = (up.conj() * u).sum(-2)
+    ph = ph / ph.abs().clamp_min(1e-30)  # the gauge phase of each pair
+    du = (u * ph.conj()[..., None, :] - up).abs().amax(-2)
+    dv = (vh * ph[..., :, None] - vhp).abs().amax(-1)
+    vec = torch.where(sep, torch.maximum(du, dv) * gap / smax, torch.zeros_like(du)).max().item()
+    keep = s > 1e-6 * s[..., :1]
+    eye = torch.eye(u.shape[-1], dtype=c128, device=u.device)
+    uhu = (u.conj().transpose(-1, -2) @ u - eye).abs()
+    orth = torch.where(keep[..., :, None] & keep[..., None, :], uhu, torch.zeros_like(uhu)).max().item()
+    ds = (s - sp).abs()
+    return (ds / smax).max().item(), rec(u, s, vh), rec(up, sp, vhp), vec, int(sep.sum()), orth, ds.max().item()
+
+
+def _mps_norm(eng) -> float:
+    """<psi|psi> of a ParallelTEBD state by transfer matrices (the padded
+    edge bonds use slot 0 only)."""
+    import torch
+
+    ts = eng.to_mps_tensors()
+    env = torch.ones((1, 1), dtype=ts[0].dtype, device=ts[0].device)
+    for i, t in enumerate(ts):
+        t = t[:1] if i == 0 else t
+        env = torch.einsum("ab,adc,bde->ce", env, t.conj(), t)
+    return env[0, 0].real.item()
+
+
 def main() -> int:
     import torch
+
+    t_start = time.time()
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -480,6 +604,133 @@ def main() -> int:
               f"{len(by_kernel)} kernel names")
         for name, ms, count in by_kernel[:12]:
             print(f"  device {ms:.4f} ms x{count:g}/run  {name[:90]}")
+
+    # ---- 7. the TEBD path through the public API ------------------------
+    import scipy.linalg
+    from tensorcircuit_ng_tpu_torch.core import kernels_jacobi as kj
+
+    px = np.array([[0, 1], [1, 0.0]])
+    pz = np.diag([1.0, -1.0])
+    hb = -np.kron(pz, pz) - 0.5 * (np.kron(px, np.eye(2)) + np.kron(np.eye(2), px))
+    gate = scipy.linalg.expm(-0.05j * hb).astype(np.complex64)  # bench.py's gate
+    even = np.stack([gate] * len(range(0, TEBD_N - 1, 2)))
+    odd = np.stack([gate] * len(range(1, TEBD_N - 1, 2)))
+    mid = TEBD_N // 2
+
+    def tebd_run(device, dtype="complex64"):
+        eng = tct.ParallelTEBD(TEBD_N, TEBD_CHI, initial="neel", dtype=dtype, device=device)
+        for _ in range(TEBD_STEPS):
+            eng.trotter_step(even, odd)
+        return eng
+
+    def observables(eng):
+        zs = np.array([eng.expectation_single(pz, i).real.item() for i in range(TEBD_N)])
+        return zs, eng.lambdas[mid].double().cpu().numpy(), _mps_norm(eng)
+
+    all_counters = counters + (kj.jacobi_rotations,)
+    for k in all_counters:
+        k.launches = 0
+    with torch.no_grad():
+        eng_card = tebd_run("cuda")
+        torch.cuda.synchronize()
+    tebd_launches = {k.__name__: k.launches for k in all_counters}
+    print(f"TEBD path launches ({TEBD_STEPS} trotter steps): {tebd_launches}")
+    if tebd_launches["jacobi_rotations"] != 2 * TEBD_STEPS:
+        _fail(f"the TEBD path did not run K5 twice a step: {tebd_launches}")
+    with torch.no_grad():
+        on_card = observables(eng_card)
+        ref = observables(tebd_run("cpu", "complex128"))
+        gram32 = observables(tebd_run("cpu", "complex64"))
+    for label, (zs, lam, nrm) in (("card (K5 Jacobi, float32)", on_card),
+                                  ("CPU Gram complex64, contrast", gram32)):
+        dz = float(np.abs(zs - ref[0]).max())
+        dl = float(np.abs(lam - ref[1]).max())
+        print(f"TEBD n={TEBD_N} chi={TEBD_CHI} {TEBD_STEPS} steps, {label} vs CPU complex128: "
+              f"max|d<Z_i>| {dz:.3e}, max|d lambda_{mid}| {dl:.3e}, |psi|^2 {nrm:.7f} "
+              f"(CPU complex128 {ref[2]:.7f})")
+        if label.startswith("card"):
+            if not (np.all(np.isfinite(zs)) and np.all(np.isfinite(lam)) and zs.shape == (TEBD_N,)):
+                _fail("TEBD on the card: non-finite or misshapen observables")
+            if dz > TEBD_ATOL or dl > TEBD_ATOL or abs(nrm - 1.0) > TEBD_ATOL:
+                _fail(f"TEBD on the card disagrees with the complex128 CPU path (tol {TEBD_ATOL:g})")
+    print(f"TEBD tolerance {TEBD_ATOL:g} on <Z_i>, lambda_{mid} and |psi|^2 - 1")
+
+    with torch.no_grad(), tct.config.full_float32():
+        th_even = eng_card._layer_thetas(even, 0)[0]
+        th_odd = eng_card._layer_thetas(odd, 1)[0]
+    batches = [("path thetas B=30", th_even, True), ("path thetas B=29", th_odd, True)]
+    batches += [(label, torch.as_tensor(a.astype(np.complex64), device=dev), True)
+                for label, a in _svd_batches(np.random.default_rng(11))]
+    # without V, vh = S^-1 U^H A amplifies U's noise columns by 1/s: a
+    # full-rank batch (on the rank-deficient thetas the plain version itself
+    # reconstructs to 0.18 only)
+    batches.append(("random, no V", batches[2][1], False))
+    k5_err = 0.0
+    with torch.no_grad():
+        for label, a, with_v in batches:
+            got = kj.jacobi_svd_nodiff(a, TEBD_SWEEPS, with_v)
+            torch.cuda.synchronize()
+            want = kj.jacobi_svd_nodiff(a, TEBD_SWEEPS, with_v, rotations=kj.jacobi_rotations_plain)
+            ds, rec, rec_plain, vec, nsep, orth, ds_abs = _svd_checks(a, got, want)
+            orth_plain = _svd_checks(a, want, want)[5]
+            ok = (ds <= SVD_S_TOL and rec <= SVD_REC_TOL and vec <= SVD_VEC_TOL
+                  and orth <= SVD_ORTH_TOL and got[0].shape == want[0].shape)
+            print(f"parity jacobi_svd [{label}] {tuple(a.shape)}: max|ds|/s_max {ds:.2e} (tol {SVD_S_TOL:g}), "
+                  f"rec {rec:.2e} (plain {rec_plain:.2e}, tol {SVD_REC_TOL:g}), vectors on {nsep} "
+                  f"separated columns {vec:.2e} s_max/gap (tol {SVD_VEC_TOL:g}), "
+                  f"|u^H u - I| {orth:.2e} (plain {orth_plain:.2e}, tol {SVD_ORTH_TOL:g}) "
+                  f"-> {'ok' if ok else 'FAIL'}")
+            if not ok:
+                _fail(f"jacobi_svd [{label}] disagrees with its plain version")
+            k5_err = max(k5_err, ds_abs)
+        at = th_even.transpose(-1, -2)
+        ar, ai = at.real.contiguous(), at.imag.contiguous()
+        once = kj.jacobi_rotations(ar, ai, TEBD_SWEEPS, True)
+        again = kj.jacobi_rotations(ar, ai, TEBD_SWEEPS, True)
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip(once, again)):
+            _fail("jacobi_svd differs between two runs")
+        print("parity jacobi_svd [path thetas B=30]: two runs equal bit for bit")
+
+        g0, l0 = eng_card.gammas.clone(), eng_card.lambdas.clone()
+
+        def tebd_steps():
+            eng = tct.ParallelTEBD.from_state(g0, l0)
+            for _ in range(TEBD_STEPS):
+                eng.trotter_step(even, odd)
+            return eng.lambdas[mid, 0].item()
+
+        tebd_ms = _time_ms(tebd_steps, reps=5, inner=1) / TEBD_STEPS
+        k5_t = _time_rounds(lambda: kj.jacobi_rotations(ar, ai, TEBD_SWEEPS, True))
+        plain_reps = 3
+        k5_plain = _time_ms(lambda: kj.jacobi_rotations_plain(ar, ai, TEBD_SWEEPS, True),
+                            reps=plain_reps, inner=1, warmup=1)
+        k5_lib = _time_ms(lambda: torch.linalg.svd(th_even, full_matrices=False), reps=10, inner=1)
+        eng_p = tct.ParallelTEBD.from_state(g0, l0)
+        prof_tebd = _profile(lambda: (eng_p.trotter_step(even, odd), eng_p.lambdas[mid, 0].item()), reps=3)
+    print(f"TEBD trotter step n={TEBD_N} chi={TEBD_CHI} (even + odd layer; CUDA events over "
+          f"{TEBD_STEPS} steps ending in .item(), median of 5), {card}: {tebd_ms:.3f} ms")
+    print(f"kernel jacobi_svd [B=30 path thetas, with V] over 3 rounds, {card}: median {k5_t[0]:.4f} ms "
+          f"(min {k5_t[1]:.4f}, max {k5_t[2]:.4f}); plain median of {plain_reps} calls {k5_plain:.2f} ms; "
+          f"torch.linalg.svd {k5_lib:.4f} ms (median of 10)")
+    host, busy, by_kernel = prof_tebd
+    print(f"profile TEBD trotter step (torch.profiler, 3 steps), {card}: host {host:.3f} ms under the "
+          f"profiler, device busy {busy:.3f} ms ({100 * busy / host:.1f} % of it; "
+          f"{100 * busy / tebd_ms:.1f} % of the unprofiled {tebd_ms:.3f} ms), {len(by_kernel)} kernel names")
+    for name, ms, count in by_kernel[:12]:
+        print(f"  device {ms:.4f} ms x{count:g}/run  {name[:90]}")
+    bound, by = _bound_ms(*_k5_work(th_even.shape[0], 128, 128, TEBD_SWEEPS))
+    kernels_line["kernels"].append({
+        "name": "jacobi_svd", "route": "cuda",
+        "source": "tensorcircuit_ng_tpu_torch/core/csrc/jacobi_svd.cu",
+        "replaces": "tensorcircuit_ng_tpu/core/kernels_jacobi.py:416",
+        "launches": tebd_launches["jacobi_rotations"], "max_abs_err": k5_err,
+        "ms": k5_t[0], "plain_ms": k5_plain, "bound_ms": bound, "bound_by": by, "library_ms": k5_lib,
+    })
+    print(f"kernel jacobi_svd (B=30, 128x128, {TEBD_SWEEPS} sweeps, with V), {card}: {k5_t[0]:.4f} ms, "
+          f"plain {k5_plain:.2f} ms, bound {bound:.4f} ms ({by}), torch.linalg.svd {k5_lib:.4f} ms, "
+          f"launches {tebd_launches['jacobi_rotations']}")
+    print(f"smoke total: {time.time() - t_start:.1f} s")
     print(json.dumps(kernels_line))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -11,7 +11,8 @@ object: used as a context manager it restores the previous value on exit.
 
 from __future__ import annotations
 
-from typing import Any, Optional, Union
+import contextlib
+from typing import Any, Iterator, Optional, Union
 
 import numpy as np
 import torch
@@ -24,6 +25,7 @@ __all__ = [
     "set_device",
     "get_device",
     "resolve_device",
+    "full_float32",
 ]
 
 _COMPLEX_TO_REAL = {"complex64": "float32", "complex128": "float64"}
@@ -107,6 +109,18 @@ def set_device(device: Union[str, torch.device] = "cuda") -> _Scope:
 
 def get_device() -> str:
     return _device
+
+
+@contextlib.contextmanager
+def full_float32() -> Iterator[None]:
+    """Float32 and complex64 matmuls in full float32 (no TF32) inside the
+    scope, whatever the caller set; the previous setting is restored."""
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(prev)
 
 
 def resolve_device(device: Union[None, str, torch.device] = None) -> torch.device:

@@ -10,7 +10,9 @@ entry point of the port, these put their tensors on the default device
 - :func:`state` — a flat complex state, and :func:`planes` its ``(r, 128)``
   float32 (real, imag) planes in the kernels' layout;
 - :func:`readout_spec` — an Ising readout spec ``(diag_terms, x_terms)``
-  with plain ints and floats, hashable as the port's readout caches need.
+  with plain ints and floats, hashable as the port's readout caches need;
+- :func:`tebd_state` — a ``ParallelTEBD`` engine's Vidal tensors, for
+  ``ParallelTEBD.from_state``.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ import torch
 
 from .config import resolve_device
 
-__all__ = ["params", "state", "planes", "readout_spec", "to_numpy"]
+__all__ = ["params", "state", "planes", "readout_spec", "tebd_state", "to_numpy"]
 
 _LANES = 128
 Device = Union[None, str, torch.device]
@@ -56,6 +58,15 @@ def readout_spec(spec: Any) -> Tuple[Any, Any]:
         tuple((tuple(int(q) for q in qs), float(w)) for qs, w in diag),
         tuple((int(q), float(w)) for q, w in xs),
     )
+
+
+def tebd_state(gammas: Any, lambdas: Any, device: Device = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A JAX engine's ``(n, χ, d, χ)`` complex Γ (its dtype kept) and
+    ``(n+1, χ)`` λ (float32, as the engines keep it) on ``device``."""
+    device = resolve_device(device)
+    g = torch.as_tensor(np.ascontiguousarray(np.asarray(gammas)), device=device)
+    lam = torch.as_tensor(np.asarray(lambdas, dtype=np.float32), device=device)
+    return g, lam
 
 
 def to_numpy(t: Any) -> np.ndarray:

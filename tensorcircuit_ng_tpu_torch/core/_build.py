@@ -30,6 +30,7 @@ _CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES: Dict[str, Path] = {
     "zzrx_fwd": _CSRC / "zzrx_fwd.cu",
     "zzrx_bwd": _CSRC / "zzrx_bwd.cu",
+    "jacobi_svd": _CSRC / "jacobi_svd.cu",
 }
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = [
@@ -58,6 +59,9 @@ _SIGNATURES = {
             _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _P, _P, _P, _P,
             _P, _I, _P,
         ],
+    },
+    "jacobi_svd": {
+        "tcng_jacobi_svd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     },
 }
 _RESTYPES = {"tcng_zzrx_bwd_scratch": ctypes.c_long}

@@ -1,0 +1,381 @@
+"""AD-safe linear algebra primitives, in plain torch.
+
+Counterpart of ``tensorcircuit_ng_tpu/core/linalg.py``: SVD, QR, RQ and
+eigh with gradients that stay finite at degenerate singular values and
+repeated eigenvalues (regularized inverse spacings; complex SVD adjoint per
+arXiv:1909.02659), the Gram-eigh SVD of the TEBD truncation, an XLA-style
+one-sided Jacobi SVD, a static-rank truncated SVD and LOBPCG.
+
+Conjugation: the JAX package's adjoints are derived for the
+``dL = Re tr(g^H dA)`` form and conjugate JAX's cotangent in and the result
+out to reach it.  Torch's complex gradient already has that form, so each
+``backward`` here calls the same body without the two conjugations; a
+complex gradient here is the conjugate of the JAX package's.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+__all__ = [
+    "adaware_svd",
+    "gram_svd",
+    "jacobi_svd",
+    "adaware_qr",
+    "adaware_rq",
+    "adaware_eigh",
+    "truncated_svd",
+    "lobpcg",
+    "USE_GRAM_SVD",
+]
+
+_EPS_DEFAULT = 1e-12
+
+
+def _safe_inverse(x: torch.Tensor, eps: float = _EPS_DEFAULT) -> torch.Tensor:
+    return x / (x * x + eps)
+
+
+def _H(x: torch.Tensor) -> torch.Tensor:
+    return x.conj().transpose(-1, -2)
+
+
+def _eye(k: int, like: torch.Tensor) -> torch.Tensor:
+    return torch.eye(k, dtype=like.dtype, device=like.device)
+
+
+def _zeros_if_none(g: Optional[torch.Tensor], like: torch.Tensor) -> torch.Tensor:
+    return torch.zeros_like(like) if g is None else g
+
+
+# ---------------------------------------------------------------- SVD
+
+
+def _svd_bwd_conjconv(a, u, s, vh, du, ds, dvh):
+    """SVD adjoint in the ``dL = Re tr(g^H dA)`` form (torch's gradient)."""
+    dtype = a.dtype
+    m, n = a.shape[-2], a.shape[-1]
+    k = s.shape[-1]
+    v = _H(vh)
+    dv = _H(dvh)
+
+    s_c = s.to(dtype)
+    s2 = s * s
+    # F[i, j] = 1 / (s_j^2 - s_i^2), zero diagonal (regularized)
+    eye_k = _eye(k, a)
+    f = _safe_inverse(s2[..., None, :] - s2[..., :, None]).to(dtype) * (1.0 - eye_k)
+
+    sigma_mat = eye_k * s_c[..., None, :]
+    s_inv = _safe_inverse(s).to(dtype)
+    sigma_inv_mat = eye_k * s_inv[..., None, :]
+
+    da = u @ (eye_k * ds.to(dtype)[..., None, :]) @ vh
+
+    uhdu = _H(u) @ du
+    u_term = (f * (uhdu - _H(uhdu))) @ sigma_mat
+    if m > k:
+        proj_u = _eye(m, a) - u @ _H(u)
+        da = da + proj_u @ du @ sigma_inv_mat @ vh
+    da = da + u @ u_term @ vh
+
+    vhdv = vh @ dv
+    v_term = sigma_mat @ (f * (vhdv - _H(vhdv)))
+    if n > k:
+        proj_v = _eye(n, a) - v @ _H(v)
+        da = da + u @ sigma_inv_mat @ _H(dv) @ proj_v
+    da = da + u @ v_term @ vh
+
+    if a.is_complex():
+        # diagonal gauge (phase) correction, split symmetrically between U and
+        # V (arXiv:1909.02659): i*Im(diag(U^H gU) - diag(V^H gV)) / (2 s)
+        gu_diag = torch.diagonal(uhdu, dim1=-2, dim2=-1)
+        gv_diag = torch.diagonal(vhdv, dim1=-2, dim2=-1)
+        imag_corr = ((gu_diag - gu_diag.conj()) - (gv_diag - gv_diag.conj())) / 4.0 * s_inv
+        da = da + u @ (eye_k * imag_corr[..., None, :]) @ vh
+    return da
+
+
+class _SVDAdjoint(torch.autograd.Function):
+    """An SVD forward ``impl`` with the degenerate-safe adjoint."""
+
+    @staticmethod
+    def forward(ctx, a, impl):
+        u, s, vh = impl(a)
+        ctx.save_for_backward(a, u, s, vh)
+        return u, s, vh
+
+    @staticmethod
+    def backward(ctx, du, ds, dvh):
+        a, u, s, vh = ctx.saved_tensors
+        da = _svd_bwd_conjconv(
+            a, u, s, vh, _zeros_if_none(du, u), _zeros_if_none(ds, s), _zeros_if_none(dvh, vh)
+        )
+        return da, None
+
+
+def _exact_svd(a):
+    return torch.linalg.svd(a, full_matrices=False)
+
+
+def adaware_svd(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Reduced SVD ``a = u @ diag(s) @ vh`` with degenerate-safe gradients."""
+    return _SVDAdjoint.apply(a, _exact_svd)
+
+
+def _eigh_ftz(g: torch.Tensor):
+    """``torch.linalg.eigh`` with denormals flushed to zero on the CPU, as
+    XLA computes the JAX package's eigh there: MKL's complex64 eigh fails or
+    returns NaN eigenvectors on the Gram matrices of rank-deficient TEBD
+    thetas unless it does.  The flag is process state and is set back off
+    after the call."""
+    if g.device.type != "cpu":
+        return torch.linalg.eigh(g)
+    torch.set_flush_denormal(True)
+    try:
+        return torch.linalg.eigh(g)
+    finally:
+        torch.set_flush_denormal(False)
+
+
+def _gram_svd_impl(a):
+    m, n = a.shape[-2], a.shape[-1]
+    eps = 1e-30
+    if n <= m:
+        evals, v = _eigh_ftz(_H(a) @ a)  # ascending
+        evals = torch.flip(evals, (-1,))
+        v = torch.flip(v, (-1,))
+        s = torch.sqrt(torch.clamp(evals.real, min=0.0))
+        u = (a @ v) * _safe_inverse(s + eps)[..., None, :].to(a.dtype)
+        return u, s, _H(v).resolve_conj()
+    evals, u = _eigh_ftz(a @ _H(a))
+    evals = torch.flip(evals, (-1,))
+    u = torch.flip(u, (-1,))
+    s = torch.sqrt(torch.clamp(evals.real, min=0.0))
+    vh = _H((_H(a) @ u) * _safe_inverse(s + eps)[..., None, :].to(a.dtype))
+    return u, s, vh.resolve_conj()
+
+
+def gram_svd(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Reduced SVD via eigh of the smaller-side Gram matrix.
+
+    Singular values below ~sqrt(eps)·s_max lose relative accuracy, the tail
+    that bond truncation discards; the backward is the degenerate-safe SVD
+    adjoint, which needs only a consistent (u, s, vh) triple.
+    """
+    return _SVDAdjoint.apply(a, _gram_svd_impl)
+
+
+#: route truncated_svd through the Gram-eigh SVD.  None = auto: Gram on a
+#: CUDA tensor (as the JAX package takes it on the TPU), exact SVD
+#: otherwise.  True/False force.
+USE_GRAM_SVD: Optional[bool] = None
+
+
+# ------------------------------------------------------- one-sided Jacobi
+
+
+def _jacobi_svd_impl(a: torch.Tensor, sweeps: int = 10):
+    """Batched one-sided (Hestenes) Jacobi SVD in plain tensor ops.
+
+    Pairs slot i with slot n-1-i (a round-robin tournament, not the
+    Brent-Luk pairing of ``kernels_jacobi``); requires n even.  Returns the
+    full (u, s, vh) with s descending.
+    """
+    m, n = a.shape[-2], a.shape[-1]
+    if n % 2:
+        raise ValueError("jacobi_svd: trailing dimension must be even")
+    h = n // 2
+    tiny = 1e-30
+    x = a
+    v = _eye(n, a).expand(a.shape[:-2] + (n, n))
+    for _ in range(sweeps * (n - 1)):
+        # pair slot i with slot n-1-i: left half vs reversed right half
+        xl, xr = x[..., :h], torch.flip(x[..., h:], (-1,))
+        vl, vr = v[..., :h], torch.flip(v[..., h:], (-1,))
+        app = torch.sum(torch.abs(xl) ** 2, dim=-2)
+        aqq = torch.sum(torch.abs(xr) ** 2, dim=-2)
+        apq = torch.sum(xl.conj() * xr, dim=-2)
+        mod = torch.abs(apq)
+        phase = apq / (mod + tiny).to(a.dtype)  # e^{i phi}
+        tau = (aqq - app) / (2.0 * mod + tiny)
+        t = torch.sign(tau) / (torch.abs(tau) + torch.sqrt(1.0 + tau * tau))
+        c = 1.0 / torch.sqrt(1.0 + t * t)
+        s = c * t
+        # skip negligible rotations (keeps zero columns fixed)
+        skip = mod <= 1e-12 * torch.sqrt(app * aqq) + tiny
+        c = torch.where(skip, 1.0, c)
+        s = torch.where(skip, 0.0, s)
+        cc = c[..., None, :].to(a.dtype)
+        ss = s[..., None, :].to(a.dtype)
+        ph = phase[..., None, :]
+        #   p' = c p - s e^{-i phi} q ;  q' = s e^{i phi} p + c q
+        xl2 = cc * xl - ss * ph.conj() * xr
+        xr2 = ss * ph * xl + cc * xr
+        vl2 = cc * vl - ss * ph.conj() * vr
+        vr2 = ss * ph * vl + cc * vr
+        x = torch.cat([xl2, torch.flip(xr2, (-1,))], dim=-1)
+        v = torch.cat([vl2, torch.flip(vr2, (-1,))], dim=-1)
+        # round-robin advance: slot 0 fixed, slots 1..n-1 cycle by one
+        x = torch.cat([x[..., :1], x[..., -1:], x[..., 1:-1]], dim=-1)
+        v = torch.cat([v[..., :1], v[..., -1:], v[..., 1:-1]], dim=-1)
+    s = torch.sqrt(torch.sum(torch.abs(x) ** 2, dim=-2))
+    order = torch.argsort(-s, dim=-1, stable=True)
+    s = torch.take_along_dim(s, order, dim=-1)
+    x = torch.take_along_dim(x, order[..., None, :], dim=-1)
+    v = torch.take_along_dim(v, order[..., None, :], dim=-1)
+    u = x * _safe_inverse(s + tiny)[..., None, :].to(a.dtype)
+    return u, s, _H(v).resolve_conj()
+
+
+def jacobi_svd(a: torch.Tensor, sweeps: int = 10) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One-sided Jacobi SVD (see :func:`_jacobi_svd_impl`); SVD adjoint."""
+    return _SVDAdjoint.apply(a, lambda x: _jacobi_svd_impl(x, sweeps))
+
+
+# ---------------------------------------------------------------- QR / RQ
+
+
+def _copyltu(m: torch.Tensor) -> torch.Tensor:
+    """Lower triangle (incl. diag) plus conj-transpose of strictly-lower."""
+    return torch.tril(m) + _H(torch.tril(m, -1))
+
+
+def _tri_solve_rh(x: torch.Tensor, r: torch.Tensor, eps: float = 1e-10) -> torch.Tensor:
+    """``x @ r^{-H}`` by a triangular solve (r upper triangular); diagonal
+    entries of r below ``eps`` are bumped to ``eps`` so rank-deficient
+    inputs keep finite gradients."""
+    k = r.shape[-1]
+    diag = torch.diagonal(r, dim1=-2, dim2=-1)
+    bump = torch.where(diag.abs() < eps, torch.full_like(diag, eps), torch.zeros_like(diag))
+    r = r + _eye(k, r) * bump[..., None, :]
+    # y = x r^{-H}  <=>  r y^H = x^H  with r upper triangular
+    yh = torch.linalg.solve_triangular(r, _H(x), upper=True)
+    return _H(yh)
+
+
+def _qr_square_bwd(q, r, dq, dr):
+    """QR adjoint for m >= n, in the dL = Re tr(g^H dA) form."""
+    qdq = _H(q) @ dq
+    qdq_skew = qdq - _H(qdq)
+    rdr = r @ _H(dr)
+    rdr_skew = rdr - _H(rdr)
+    tril = torch.tril(qdq_skew + rdr_skew)
+    grad_a = q @ (dr + _tri_solve_rh(tril, r))
+    grad_b = _tri_solve_rh(dq - q @ qdq, r)
+    ret = grad_a + grad_b
+    if q.is_complex():
+        # imaginary-diagonal gauge correction (cf. TF's QrGrad complex case)
+        m_diag = torch.diagonal(rdr - _H(qdq), dim1=-2, dim2=-1)
+        corr = 1j * m_diag.imag
+        ret = ret + _tri_solve_rh(q @ (_eye(r.shape[-1], q) * corr.conj()[..., None, :]), r)
+    return ret
+
+
+class _QR(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, a):
+        q, r = torch.linalg.qr(a, mode="reduced")
+        ctx.save_for_backward(a, q, r)
+        return q, r
+
+    @staticmethod
+    def backward(ctx, dq, dr):
+        a, q, r = ctx.saved_tensors
+        dq, dr = _zeros_if_none(dq, q), _zeros_if_none(dr, r)
+        m, n = a.shape[-2], a.shape[-1]
+        if m >= n:
+            return _qr_square_bwd(q, r, dq, dr)
+        # wide: a = [x | y], x = q u, y = q v
+        y = a[..., :, m:]
+        u = r[..., :, :m]
+        du = dr[..., :, :m]
+        dv = dr[..., :, m:]
+        dy = q @ dv
+        dq_eff = dq + y @ _H(dv)
+        dx = _qr_square_bwd(q, u, dq_eff, du)
+        return torch.cat([dx, dy], dim=-1)
+
+
+def adaware_qr(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Reduced QR with gradients defined for tall and wide matrices."""
+    return _QR.apply(a)
+
+
+def adaware_rq(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """RQ decomposition ``a = r @ q`` built from QR of the flipped matrix."""
+    q, r = adaware_qr(torch.flip(a, (-2, -1)).transpose(-1, -2))
+    rr = torch.flip(r.transpose(-1, -2), (-2, -1))
+    qq = torch.flip(q.transpose(-1, -2), (-2, -1))
+    return rr, qq
+
+
+# ---------------------------------------------------------------- eigh
+
+
+class _Eigh(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, a):
+        e, v = torch.linalg.eigh(a)
+        ctx.save_for_backward(e, v)
+        return e, v
+
+    @staticmethod
+    def backward(ctx, de, dv):
+        e, v = ctx.saved_tensors
+        de, dv = _zeros_if_none(de, e), _zeros_if_none(dv, v)
+        k = e.shape[-1]
+        eye_k = _eye(k, v)
+        f = _safe_inverse(e[..., None, :] - e[..., :, None]).to(v.dtype) * (1.0 - eye_k)
+        mid = eye_k * de.to(v.dtype)[..., None, :] + f * (_H(v) @ dv)
+        return v @ mid @ _H(v)
+
+
+def adaware_eigh(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Hermitian eigendecomposition with degenerate-safe gradients."""
+    return _Eigh.apply(a)
+
+
+# ---------------------------------------------------------------- truncation
+
+
+def truncated_svd(
+    a: torch.Tensor,
+    max_singular_values: int,
+    max_truncation_err: float = 0.0,
+    relative: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Truncated SVD with a static output rank: ``(u, s, vh, mask)``, the
+    entries past the effective rank zeroed by the boolean ``mask``."""
+    use_gram = USE_GRAM_SVD if USE_GRAM_SVD is not None else a.is_cuda
+    u, s, vh = (gram_svd if use_gram else adaware_svd)(a)
+    k = min(max_singular_values, s.shape[-1])
+    u = u[..., :, :k]
+    s_k = s[..., :k]
+    vh = vh[..., :k, :]
+    if max_truncation_err > 0.0:
+        # discarded weight if we keep indices < i:  sqrt(sum_{j>=i} s_j^2)
+        tail = torch.sqrt(torch.flip(torch.cumsum(torch.flip(s * s, (-1,)), dim=-1), (-1,)))
+        bound = max_truncation_err * (s[..., :1] if relative else 1.0)
+        keep = tail > bound  # keep s_i while the remaining weight is above bound
+        keep[..., 0] = True
+        mask = keep[..., :k]
+    else:
+        mask = torch.ones(s_k.shape, dtype=torch.bool, device=s.device)
+    s_k = torch.where(mask, s_k, torch.zeros_like(s_k))
+    u = torch.where(mask[..., None, :], u, torch.zeros_like(u))
+    vh = torch.where(mask[..., :, None], vh, torch.zeros_like(vh))
+    return u, s_k, vh, mask
+
+
+def lobpcg(a: torch.Tensor, k: int = 1, x0=None, maxiter: int = 100, tol: float = 0.0):
+    """Smallest-eigenpair LOBPCG on a dense real symmetric matrix:
+    ``(eigenvalues (k,), eigenvectors (n, k))``.  Without ``x0`` the start
+    block is Gaussian from a fixed seed (not the JAX package's numbers)."""
+    n = a.shape[-1]
+    if x0 is None:
+        gen = torch.Generator(device=a.device).manual_seed(0)
+        x0 = torch.randn((n, k), generator=gen, dtype=a.dtype, device=a.device)
+    e, v = torch.lobpcg(a, k=k, X=x0, niter=maxiter, tol=tol or None, largest=False)
+    return e, v

@@ -13,7 +13,10 @@ another order; amplitudes are O(2^-n/2), so an absolute 2e-6 on a state of
 norm 1; the energy, a sum of ~2n terms of size <= 1, within 2e-5 * n.
 Gradients are float32 sums over the whole state: each within ``GRAD_RTOL``
 of its largest entry (about 100 float32 ulps); a circuit gradient within
-1e-4, as in ``tests/test_torch_circuit.py`` at n=20.
+1e-4, as in ``tests/test_torch_circuit.py`` at n=20.  K5 (``jacobi_svd``) is
+held to ``chip_smoke.py``'s SVD tolerances, which state their reasons, and
+``ParallelTEBD`` on the card (float32 Jacobi) to the CPU path in complex128
+within 1e-4, as ``chip_smoke.py`` holds it at n=60.
 """
 
 import numpy as np
@@ -21,8 +24,10 @@ import pytest
 import torch
 
 import tensorcircuit_ng_tpu_torch as tct
+from chip_smoke import SVD_ORTH_TOL, SVD_REC_TOL, SVD_S_TOL, SVD_VEC_TOL, _svd_batches, _svd_checks
 from tensorcircuit_ng_tpu_torch import convert
 from tensorcircuit_ng_tpu_torch.core import kernels_grand as kg
+from tensorcircuit_ng_tpu_torch.core import kernels_jacobi as kj
 from tensorcircuit_ng_tpu_torch.core import kernels_rowlayer as krl
 from tensorcircuit_ng_tpu_torch.core import kernels_stack as kst
 
@@ -283,3 +288,65 @@ def test_backward_wrappers_check_their_inputs(cuda):
         # D = 32 outer blocks: above the kernel's outer stage
         d32 = torch.eye(32, device=cuda).expand(2, 32, 32).contiguous()
         kg.grand_zzrx_bwd(pairs, n, zz, th[:, :0], ksr, ksi, ctr, cti, d32, d32, *mats[2:])
+
+
+@pytest.mark.parametrize(
+    "kind,b,with_v",
+    [("random", 30, True), ("decaying", 29, True), ("rank-deficient", 30, True),
+     ("degenerate", 29, True), ("panel 128x80", 30, True), ("decaying", 30, False)],
+)
+def test_jacobi_svd_kernel_matches_plain(cuda, kind, b, with_v):
+    """K5 through ``jacobi_svd_nodiff`` against its plain version on the same
+    CUDA inputs, and bit for bit against itself."""
+    a = dict(_svd_batches(np.random.default_rng(b), b=b))[kind]
+    a = torch.as_tensor(a.astype(np.complex64), device=cuda)
+    kj.jacobi_rotations.launches = 0
+    got = kj.jacobi_svd_nodiff(a, 10, with_v)
+    again = kj.jacobi_svd_nodiff(a, 10, with_v)
+    torch.cuda.synchronize()
+    assert kj.jacobi_rotations.launches == 2
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    want = kj.jacobi_svd_nodiff(a, 10, with_v, rotations=kj.jacobi_rotations_plain)
+    ds, rec, _, vec, _, orth, _ = _svd_checks(a, got, want)
+    assert ds <= SVD_S_TOL and rec <= SVD_REC_TOL and vec <= SVD_VEC_TOL and orth <= SVD_ORTH_TOL
+
+
+def test_jacobi_wrapper_checks_its_inputs(cuda):
+    x = torch.zeros((2, 16, 32), device=cuda)
+    with pytest.raises(ValueError, match="float32"):
+        kj.jacobi_rotations(x.double(), x, 10, True)
+    with pytest.raises(ValueError, match="contiguous"):
+        kj.jacobi_rotations(x.transpose(1, 2).contiguous().transpose(1, 2), x, 10, True)
+    with pytest.raises(ValueError, match="unsupported shape"):
+        y = torch.zeros((2, 15, 32), device=cuda)
+        kj.jacobi_rotations(y, y, 10, False)
+    with pytest.raises(ValueError, match="unsupported shape"):
+        y = torch.zeros((2, 16, 512), device=cuda)
+        kj.jacobi_rotations(y, y, 10, False)
+
+
+@pytest.mark.parametrize("n,chi,steps", [(12, 16, 6), (60, 64, 3)])
+def test_tebd_on_card_matches_cpu_complex128(cuda, n, chi, steps):
+    """``ParallelTEBD`` on the card (K5 twice a step) against the port's CPU
+    path in complex128: <Z_i> on every site and lambda on every bond."""
+    import scipy.linalg
+
+    x = np.array([[0, 1], [1, 0.0]])
+    z = np.diag([1.0, -1.0])
+    h = -np.kron(z, z) - 0.5 * (np.kron(x, np.eye(2)) + np.kron(np.eye(2), x))
+    gate = scipy.linalg.expm(-0.05j * h).astype(np.complex64)
+
+    def run(dev, dtype):
+        eng = tct.ParallelTEBD(n, chi, initial="neel", dtype=dtype, device=dev)
+        for _ in range(steps):
+            eng.trotter_step(gate)
+        zs = np.array([eng.expectation_single(z, i).real.item() for i in range(n)])
+        return zs, convert.to_numpy(eng.lambdas)
+
+    kj.jacobi_rotations.launches = 0
+    with torch.no_grad():
+        z_card, lam_card = run(cuda, "complex64")
+    assert kj.jacobi_rotations.launches == 2 * steps
+    z_cpu, lam_cpu = run("cpu", "complex128")
+    np.testing.assert_allclose(z_card, z_cpu, rtol=0, atol=1e-4)
+    np.testing.assert_allclose(lam_card, lam_cpu, rtol=0, atol=1e-4)

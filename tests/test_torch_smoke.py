@@ -12,7 +12,7 @@ import pytest
 import torch
 
 import tensorcircuit_ng_tpu_torch as tct
-from tensorcircuit_ng_tpu_torch.core import kernels_grand, kernels_rowlayer
+from tensorcircuit_ng_tpu_torch.core import kernels_grand, kernels_jacobi, kernels_rowlayer
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "tensorcircuit_ng_tpu_torch"
@@ -23,7 +23,8 @@ def test_import_leaves_jax_out():
     code = (
         "import sys\n"
         "import tensorcircuit_ng_tpu_torch\n"
-        "from tensorcircuit_ng_tpu_torch.core import kernels, kernels_stack, _build\n"
+        "from tensorcircuit_ng_tpu_torch.core import kernels, kernels_stack, kernels_jacobi, linalg, _build\n"
+        "from tensorcircuit_ng_tpu_torch.models import tebd\n"
         "from tensorcircuit_ng_tpu_torch import convert\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'tensorcircuit_ng_tpu' or m.startswith('tensorcircuit_ng_tpu.'))\n"
@@ -65,6 +66,31 @@ def test_cuda_default_without_card_raises(monkeypatch):
             tct.Circuit(4)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tct.Circuit(4, device="cuda")
+
+
+def test_tebd_default_without_card_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with tct.set_device("cuda"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tct.ParallelTEBD(6, 4, initial="neel")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tct.ParallelTEBD(6, 4, device="cuda")
+    with tct.set_device("cpu"):
+        assert tct.ParallelTEBD(6, 4).gammas.device == torch.device("cpu")
+
+
+def test_tebd_state_defaults_to_card(monkeypatch):
+    """``convert.tebd_state``, like the other converters, runs on the card
+    unless asked."""
+    g, lam = tct.ParallelTEBD.initial_tensors(4, 2)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with tct.set_device("cuda"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tct.convert.tebd_state(g, lam)
+    with tct.set_device("cpu"):
+        tg, tlam = tct.convert.tebd_state(g, lam)
+    assert tg.device == tlam.device == torch.device("cpu")
+    assert tg.dtype == torch.complex64 and tlam.dtype == torch.float32
 
 
 @pytest.mark.parametrize("fn", ["params", "state", "planes"])
@@ -112,6 +138,9 @@ def test_kernel_wrappers_refuse_other_devices():
             ((0, 1),), 10, torch.zeros((2, 1)), torch.zeros((2, 1)), ks, ks, sr, sr,
             m, m, lane, lane,
         )
+    planes = torch.empty((2, 16, 16), device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        kernels_jacobi.jacobi_rotations(planes, planes, 10, True)
 
 
 def test_h_layer_on_inputs_needs_unported_kernel():
