@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA card: builds the kernels, holds
 each against its plain PyTorch version, drives the N=20 TFIM energy path
-and its training step through the public ``Circuit`` API and times them.
+and its training step, the n=60 TEBD path and the n=20 HEA training step
+through the public API, and times them.
 
     python3 chip_smoke.py
 
@@ -29,9 +30,9 @@ Phases (any failure exits non-zero; nothing is caught):
      read just after; energies and gradients against the same steps on the
      port's CPU path;
   5. timings (CUDA events, after warm-up): the evaluation and the training
-     step (median of 20), each kernel and its plain version at its path's
-     shape (K3 at n=22, the others at n=20) over 3 rounds of 20 medians,
-     reported as median and spread;
+     step (median of 20), each kernel at its path's shape (K3 at n=22, the
+     others at n=20) over 3 rounds of 20 medians and its plain version over
+     3 rounds of 5 single calls, reported as median and spread;
   6. torch.profiler windows over 10 L=4 evaluations and 10 L=4 training
      steps: device busy share and device time by kernel name;
   7. the TEBD path, the main path of the TEBD slice: ``ParallelTEBD(60, 64,
@@ -46,7 +47,16 @@ Phases (any failure exits non-zero; nothing is caught):
      (30, 128, 80) panel with V, the random batch without; K5 equal to
      itself over two runs; the trotter step timed (CUDA events), K5, its
      plain version and ``torch.linalg.svd`` timed on the B=30 thetas, and a
-     torch.profiler window over 3 steps.
+     torch.profiler window over 3 steps;
+  8. the HEA path, the main path of the single-qubit-layer slice: K6
+     ``row_fwd`` and K7 ``row_bwd`` with and without the lane matrix and K8
+     ``row_bwd_const`` against their plain versions at n=20 (nkernel=11,
+     r=8192; distinct unitary gates, K7 twice, equal bit for bit); 5 SGD
+     steps of :func:`hea_energy` at n=20, L=4 on the card, the launch
+     counts reset just before and read just after (K6 9, K7 8 and K8 1 a
+     step), energies and gradients against the same steps on the port's CPU
+     path; the step timed (CUDA events) and profiled, each kernel and its
+     plain version timed at the path's shape over 3 rounds.
 
 Prints the kernels JSON line, then the card's name and power limit, then
 ``{"ok": true, "device": {...}}`` as the last line.  Needs no network and
@@ -120,6 +130,25 @@ SVD_VEC_TOL = 2e-5
 SVD_ORTH_TOL = 5e-3
 
 
+def hea_energy(mod, n, w, **kw):
+    """The hardware-efficient-ansatz VQE energy, written against the public
+    ``Circuit`` API that the port shares with the JAX package (``mod`` is
+    either; the CPU tests pass both): h_layer (folded on |0...0>), then for
+    each of the L rows of ``w`` (L, 2, n) an ry_layer, a CNOT ladder and an
+    rz_layer, a final h_layer (a constant layer, not folded), and the
+    open-chain TFIM energy ZZ - X."""
+    pairs = [(q, q + 1) for q in range(n - 1)]
+    c = mod.Circuit(n, **kw)
+    c.h_layer()
+    for l in range(w.shape[0]):
+        c.ry_layer(w[l, 0])
+        for q in range(n - 1):
+            c.cnot(q, q + 1)
+        c.rz_layer(w[l, 1])
+    c.h_layer()
+    return c.expectation_zzx_energy(pairs, 1.0, -1.0)
+
+
 def _fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
@@ -153,10 +182,15 @@ def _time_ms(fn, reps: int = 20, inner: int = 5, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def _time_rounds(fn, rounds: int = 3):
+def _time_rounds(fn, rounds: int = 3, **kw):
     """(median, min, max) of :func:`_time_ms` over ``rounds`` rounds."""
-    ts = [_time_ms(fn) for _ in range(rounds)]
+    ts = [_time_ms(fn, **kw) for _ in range(rounds)]
     return statistics.median(ts), min(ts), max(ts)
+
+
+#: a plain version is timed over fewer calls (median of 5 single calls a
+#: round): it is a yardstick of what the kernel replaces, not a metric
+PLAIN_TIMING = {"reps": 5, "inner": 1, "warmup": 1}
 
 
 def _profile(fn, reps: int = 10):
@@ -314,6 +348,191 @@ def _mps_norm(eng) -> float:
     return env[0, 0].real.item()
 
 
+def _check_parity(cases, twice=()):
+    """Each kernel variant of ``cases`` ({name: [(label, kernel, plain)]})
+    against its plain version on the same CUDA inputs, output by output
+    (``KERNEL_RTOL``); the kernels named in ``twice`` run twice and must
+    agree bit for bit.  Returns the largest max-abs error of each kernel."""
+    import torch
+
+    max_err = {}
+    with torch.no_grad():
+        for kname, variants in cases.items():
+            max_err[kname] = 0.0
+            for label, kern, plain in variants:
+                got = kern()
+                again = kern() if kname in twice else got
+                torch.cuda.synchronize()
+                want = plain()
+                if len(got) != len(want):
+                    _fail(f"{kname} [{label}] returns {len(got)} outputs, its plain version {len(want)}")
+                for i, (a, a2, b) in enumerate(zip(got, again, want)):
+                    diff, scale, rel = _errors(a, b)
+                    ok = a.shape == b.shape and rel <= KERNEL_RTOL and diff <= KERNEL_RTOL * scale
+                    print(f"parity {kname} [{label}] out{i} {tuple(a.shape)}: max_abs {diff:.3e} "
+                          f"(max|plain| {scale:.3e}), rel_frob {rel:.3e}, "
+                          f"tol {KERNEL_RTOL:g} -> {'ok' if ok else 'FAIL'}")
+                    if not ok:
+                        _fail(f"{kname} [{label}] disagrees with its plain version")
+                    if not torch.equal(a, a2):
+                        _fail(f"{kname} [{label}] out{i} differs between two runs")
+                    max_err[kname] = max(max_err[kname], diff)
+                if kname in twice:
+                    print(f"parity {kname} [{label}]: two runs equal bit for bit")
+    return max_err
+
+
+def _row_work(r, nkernel, kind, lane=False):
+    """(bytes, flops) of a row kernel: K6 ("fwd") and K8 ("const") read two
+    state planes and write two, 14 flops an amplitude a gate (two complex
+    products and a sum); K7 ("bwd") reads y and ct and writes ds, 44 flops
+    an amplitude a gate (the un-apply, the four dg sums, the ct walk), and
+    writes dg; with the lane matrix, its planes in and one complex
+    128-deep product an amplitude (K6) or three (K7: un-lane, ct walk, dM)
+    with dM out."""
+    amps = r * 128
+    gates = 2 * 4 * 4 * nkernel
+    if kind == "bwd":
+        nbytes, flops = 6 * 4 * amps + 2 * gates, 44 * nkernel * amps
+    else:
+        nbytes, flops = 4 * 4 * amps + gates, 14 * nkernel * amps
+    if lane:
+        k = 3 if kind == "bwd" else 1
+        nbytes += (2 if kind == "bwd" else 1) * 2 * 4 * 128 * 128
+        flops += k * 8 * 128 * amps
+    return nbytes, flops
+
+
+def _hea_phase(tct, krl, dev, card):
+    """Phase 8, the HEA path (the main path of the single-qubit-layer
+    slice): K6/K7/K8 against their plain versions at the n=20 shapes, 5 SGD
+    steps of :func:`hea_energy` at n=20, L=4 on the card against the CPU
+    path with the launches of each kernel read, the step timed and
+    profiled, each kernel timed at its path shape.  Returns the kernels
+    line's entries."""
+    import torch
+
+    nrow = N - 7
+    nkernel = min(nrow, krl.MAX_KERNEL_QUBITS)
+    r = 2**nrow
+    rng = np.random.default_rng(17)
+
+    def unitaries(k, dim):
+        a = rng.normal(size=(k, dim, dim)) + 1j * rng.normal(size=(k, dim, dim))
+        return np.linalg.qr(a)[0]
+
+    def unit_planes():
+        z = rng.normal(size=2**N) + 1j * rng.normal(size=2**N)
+        return tct.convert.planes(z / np.linalg.norm(z), dev)
+
+    # distinct unitary gates on every kernel qubit and a unitary lane
+    # matrix: the backward rebuilds states by un-application
+    g = unitaries(nkernel, 2).reshape(nkernel, 4)
+    gr, gi = (torch.as_tensor(x, dtype=torch.float32, device=dev).contiguous() for x in (g.real, g.imag))
+    m = unitaries(1, 128)[0]
+    mr, mi = (torch.as_tensor(x, dtype=torch.float32, device=dev).contiguous() for x in (m.real, m.imag))
+    sr, si = unit_planes()
+    ctr, cti = unit_planes()
+    with torch.no_grad():
+        y = krl.row_fwd_plain(gr, gi, sr, si)
+        y_lane = krl.row_fwd_plain(gr, gi, sr, si, mr, mi)
+    cases = {
+        "row_fwd": [
+            ("no lane", lambda: krl.row_fwd(gr, gi, sr, si), lambda: krl.row_fwd_plain(gr, gi, sr, si)),
+            ("lane", lambda: krl.row_fwd(gr, gi, sr, si, mr, mi),
+             lambda: krl.row_fwd_plain(gr, gi, sr, si, mr, mi)),
+        ],
+        "row_bwd": [
+            ("no lane", lambda: krl.row_bwd(gr, gi, *y, ctr, cti),
+             lambda: krl.row_bwd_plain(gr, gi, *y, ctr, cti)),
+            ("lane", lambda: krl.row_bwd(gr, gi, *y_lane, ctr, cti, mr, mi),
+             lambda: krl.row_bwd_plain(gr, gi, *y_lane, ctr, cti, mr, mi)),
+        ],
+        "row_bwd_const": [
+            ("no lane", lambda: krl.row_bwd_const(gr, gi, ctr, cti),
+             lambda: krl.row_bwd_const_plain(gr, gi, ctr, cti)),
+        ],
+    }
+    print(f"row-layer parity at n={N}: nkernel={nkernel}, r={r}, distinct unitary gates")
+    max_err = _check_parity(cases, twice=("row_bwd",))
+
+    # 5 SGD steps through the public API, on the card and on the CPU
+    w0 = np.random.default_rng(42).normal(size=(L, 2, N)) * 0.1
+    counters = (krl.row_fwd, krl.row_bwd, krl.row_bwd_const)
+
+    def step(w):
+        e = hea_energy(tct, N, w, device=w.device)
+        (gw,) = torch.autograd.grad(e, w)
+        with torch.no_grad():
+            w.sub_(LR * gw)
+        return e, gw
+
+    for k in counters:
+        k.launches = 0
+    w = tct.convert.params(w0, dev).requires_grad_()
+    card_steps = [tuple(t.detach().cpu().numpy() for t in step(w)) for _ in range(STEPS)]
+    torch.cuda.synchronize()
+    launches = {k.__name__: k.launches for k in counters}
+    print(f"HEA path launches ({STEPS} steps, n={N} L={L}): {launches}")
+    want = {"row_fwd": 2 * L + 1, "row_bwd": 2 * L, "row_bwd_const": 1}
+    if any(launches[k] != STEPS * v for k, v in want.items()):
+        _fail(f"the HEA path did not launch K6/K7/K8 {want} times a step: {launches}")
+    w = tct.convert.params(w0, "cpu").requires_grad_()
+    for i in range(STEPS):
+        e, gw = (t.detach().numpy() for t in step(w))
+        e_card, g_card = card_steps[i]
+        de = abs(float(e_card) - float(e))
+        dg = float(np.abs(g_card - gw).max())
+        print(f"HEA step {i}: E card {float(e_card):.7f} cpu {float(e):.7f} |dE| {de:.2e} (tol {ENERGY_ATOL:g}); "
+              f"max|dgrad| {dg:.2e} of max|grad| {float(np.abs(gw).max()):.3e} (tol {GRAD_ATOL:g})")
+        if not (np.isfinite(e_card) and np.all(np.isfinite(g_card)) and g_card.shape == (L, 2, N)):
+            _fail("HEA step: non-finite or misshapen result")
+        if de > ENERGY_ATOL or dg > GRAD_ATOL:
+            _fail(f"HEA step {i} on the card disagrees with the CPU path")
+    if not card_steps[-1][0] < card_steps[0][0]:
+        _fail(f"{STEPS} HEA SGD steps did not lower the energy")
+
+    # timings: the step, each kernel (the path's variant) and its plain version
+    wt = tct.convert.params(w0, dev).requires_grad_()
+    step_ms = _time_ms(lambda: step(wt)[0].item(), inner=1)
+    prof = _profile(lambda: step(wt)[0].item())
+    timed = {k: cases[k][0] for k in cases}  # the path runs no lane variant
+    with torch.no_grad():
+        times = {k: (_time_rounds(v[1]), _time_rounds(v[2], **PLAIN_TIMING)) for k, v in timed.items()}
+    print(f"HEA training step n={N} L={L} (value, grad, SGD update; CUDA events, ends in .item()), "
+          f"{card}: {step_ms:.3f} ms (median of 20)")
+    host, busy, by_kernel = prof
+    print(f"profile HEA step (torch.profiler, 10 runs), {card}: host {host:.3f} ms under the profiler, "
+          f"device busy {busy:.3f} ms ({100 * busy / host:.1f} % of it; {100 * busy / step_ms:.1f} % of "
+          f"the unprofiled {step_ms:.3f} ms), {len(by_kernel)} kernel names")
+    for name, ms, count in by_kernel[:14]:
+        print(f"  device {ms:.4f} ms x{count:g}/run  {name[:90]}")
+    # the kernels' own device time a launch on the path (the event timing
+    # of back-to-back wrapper calls below also holds the wrapper's host time)
+    for kname, stage in (("row_fwd", "row_apply_kernel<false>"), ("row_bwd", "row_bwd_kernel"),
+                         ("row_bwd", "colsum_kernel"), ("row_bwd_const", "row_apply_kernel<true>")):
+        for name, ms, count in by_kernel:
+            if stage in name:
+                print(f"device time a launch on the HEA step, {kname} {stage}: {1e3 * ms / count:.2f} us "
+                      f"(x{count:g}/step)")
+    kind ={"row_fwd": "fwd", "row_bwd": "bwd", "row_bwd_const": "const"}
+    replaces = {"row_fwd": 296, "row_bwd": 344, "row_bwd_const": 799}
+    entries = []
+    for name, (t, tp) in times.items():
+        bound, by = _bound_ms(*_row_work(r, nkernel, kind[name]))
+        print(f"kernel {name} [no lane, n={N} nkernel={nkernel} r={r}] over 3 rounds, {card}: median "
+              f"{t[0]:.4f} ms (min {t[1]:.4f}, max {t[2]:.4f}); plain median {tp[0]:.4f} ms "
+              f"(min {tp[1]:.4f}, max {tp[2]:.4f}); bound {bound:.4f} ms ({by}); "
+              f"launches {launches[name]} in {STEPS} steps")
+        entries.append({
+            "name": name, "route": "cuda", "source": "tensorcircuit_ng_tpu_torch/core/csrc/row_layer.cu",
+            "replaces": f"tensorcircuit_ng_tpu/core/kernels_rowlayer.py:{replaces[name]}",
+            "launches": launches[name], "max_abs_err": max_err[name], "ms": t[0], "plain_ms": tp[0],
+            "bound_ms": bound, "bound_by": by, "library_ms": None,
+        })
+    return entries
+
+
 def main() -> int:
     import torch
 
@@ -350,6 +569,8 @@ def main() -> int:
             if "registers" in line or "smem" in line or "spill" in line:
                 print(f"  ptxas[{name}]: {line.strip()}")
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+
+    print(f"phase 1 ended at {time.time() - t_start:.1f} s")
 
     # ---- 2. kernel parity at the n=20 shapes -----------------------------
     nrow, nkernel, nouter, _ = kst._shapes(N)
@@ -412,30 +633,9 @@ def main() -> int:
             for nl in (L, 3)
         ],
     }
-    max_err = {}
-    with torch.no_grad():
-        for kname, variants in cases.items():
-            max_err[kname] = 0.0
-            for label, kern, plain in variants:
-                got = kern()
-                again = kern() if kname == "grand_zzrx_bwd" else got
-                torch.cuda.synchronize()
-                want = plain()
-                if len(got) != len(want):
-                    _fail(f"{kname} [{label}] returns {len(got)} outputs, its plain version {len(want)}")
-                for i, (a, a2, b) in enumerate(zip(got, again, want)):
-                    diff, scale, rel = _errors(a, b)
-                    ok = a.shape == b.shape and rel <= KERNEL_RTOL and diff <= KERNEL_RTOL * scale
-                    print(f"parity {kname} [{label}] out{i} {tuple(a.shape)}: max_abs {diff:.3e} "
-                          f"(max|plain| {scale:.3e}), rel_frob {rel:.3e}, "
-                          f"tol {KERNEL_RTOL:g} -> {'ok' if ok else 'FAIL'}")
-                    if not ok:
-                        _fail(f"{kname} [{label}] disagrees with its plain version")
-                    if not torch.equal(a, a2):
-                        _fail(f"{kname} [{label}] out{i} differs between two runs")
-                    max_err[kname] = max(max_err[kname], diff)
-                if kname == "grand_zzrx_bwd":
-                    print(f"parity {kname} [{label}]: two runs equal bit for bit")
+    max_err = _check_parity(cases, twice=("grand_zzrx_bwd",))
+
+    print(f"phase 2 ended at {time.time() - t_start:.1f} s")
 
     # ---- 3. the forward path through the public API ----------------------
     def circuit_energy(params, nl, device, n=N):
@@ -476,6 +676,8 @@ def main() -> int:
     if abs(norm0.item() - 1.0) > NORM_ATOL:
         _fail(f"state norm {norm0.item()}")
     print(f"state norm {norm0.item():.7f} (tol {NORM_ATOL:g})")
+
+    print(f"phase 3 ended at {time.time() - t_start:.1f} s")
 
     # ---- 4. the training path through the public API ---------------------
     def value_and_grad(p, nl, device, n=N):
@@ -527,6 +729,8 @@ def main() -> int:
     if not card_steps[STEPS - 1][0] < card_steps[0][0]:
         _fail("5 SGD steps did not lower the energy")
 
+    print(f"phase 4 ended at {time.time() - t_start:.1f} s")
+
     # ---- 5. timings --------------------------------------------------------
     p4 = tct.convert.params(grids[0], dev)
     p3 = tct.convert.params(grid3, dev)
@@ -548,7 +752,7 @@ def main() -> int:
             "zzrx_bwd": cases["zzrx_bwd"][2],
             "grand_zzrx_bwd": cases["grand_zzrx_bwd"][0],
         }
-        times = {k: (_time_rounds(v[1]), _time_rounds(v[2])) for k, v in timed.items()}
+        times = {k: (_time_rounds(v[1]), _time_rounds(v[2], **PLAIN_TIMING)) for k, v in timed.items()}
     for name, (t, tp) in times.items():
         print(f"kernel {name} [{timed[name][0]}] over 3 rounds, {card}: median {t[0]:.4f} ms "
               f"(min {t[1]:.4f}, max {t[2]:.4f}); plain median {tp[0]:.4f} ms "
@@ -572,6 +776,8 @@ def main() -> int:
         "zzrx_bwd": "tensorcircuit_ng_tpu/core/kernels_rowlayer.py:1276",
         "grand_zzrx_bwd": "tensorcircuit_ng_tpu/core/kernels_grand.py:392",
     }
+    sources = {"zzrx_fwd": "zzrx_fwd", "grand_zzrx_fwd": "zzrx_fwd",
+               "zzrx_bwd": "zzrx_bwd", "grand_zzrx_bwd": "zzrx_bwd"}
     # each kernel's launches on its path: the forward path for K1/K2, the
     # training path for K3/K4
     path_launches = {**launches, "zzrx_bwd": train_launches["zzrx_bwd"],
@@ -581,7 +787,7 @@ def main() -> int:
         bound, by = _bound_ms(*work[name])
         kernels_line["kernels"].append({
             "name": name, "route": "cuda",
-            "source": f"tensorcircuit_ng_tpu_torch/core/csrc/{name.replace('grand_', '')}.cu",
+            "source": f"tensorcircuit_ng_tpu_torch/core/csrc/{sources[name]}.cu",
             "replaces": replaces[name], "launches": path_launches[name],
             "max_abs_err": max_err[name], "ms": times[name][0][0], "plain_ms": times[name][1][0],
             "bound_ms": bound, "bound_by": by, "library_ms": None,
@@ -590,6 +796,8 @@ def main() -> int:
         n_path = N22 if k["name"] == "zzrx_bwd" else N
         print(f"kernel {k['name']} (n={n_path}), {card}: {k['ms']:.4f} ms, plain {k['plain_ms']:.4f} ms, "
               f"bound {k['bound_ms']:.4f} ms ({k['bound_by']}), launches {k['launches']}")
+
+    print(f"phase 5 ended at {time.time() - t_start:.1f} s")
 
     # ---- 6. where the time of an evaluation and of a step goes -----------
     with torch.no_grad():
@@ -604,6 +812,8 @@ def main() -> int:
               f"{len(by_kernel)} kernel names")
         for name, ms, count in by_kernel[:12]:
             print(f"  device {ms:.4f} ms x{count:g}/run  {name[:90]}")
+
+    print(f"phase 6 ended at {time.time() - t_start:.1f} s")
 
     # ---- 7. the TEBD path through the public API ------------------------
     import scipy.linalg
@@ -730,6 +940,12 @@ def main() -> int:
     print(f"kernel jacobi_svd (B=30, 128x128, {TEBD_SWEEPS} sweeps, with V), {card}: {k5_t[0]:.4f} ms, "
           f"plain {k5_plain:.2f} ms, bound {bound:.4f} ms ({by}), torch.linalg.svd {k5_lib:.4f} ms, "
           f"launches {tebd_launches['jacobi_rotations']}")
+    print(f"phase 7 ended at {time.time() - t_start:.1f} s")
+
+    # ---- 8. the HEA path: K6, K7 and K8 --------------------------------
+    hea_line = _hea_phase(tct, krl, dev, card)
+    kernels_line["kernels"].extend(hea_line)
+    print(f"phase 8 ended at {time.time() - t_start:.1f} s")
     print(f"smoke total: {time.time() - t_start:.1f} s")
     print(json.dumps(kernels_line))
     print(card)

@@ -12,6 +12,7 @@ object: used as a context manager it restores the previous value on exit.
 from __future__ import annotations
 
 import contextlib
+import functools
 from typing import Any, Iterator, Optional, Union
 
 import numpy as np
@@ -26,6 +27,7 @@ __all__ = [
     "get_device",
     "resolve_device",
     "full_float32",
+    "device_constant",
 ]
 
 _COMPLEX_TO_REAL = {"complex64": "float32", "complex128": "float64"}
@@ -134,3 +136,25 @@ def resolve_device(device: Union[None, str, torch.device] = None) -> torch.devic
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}: use 'cuda' or 'cpu'")
     return dev
+
+
+#: numpy constants up to this many elements are kept on their device
+_CONSTANT_MAX_ELEMS = 4096
+
+
+@functools.lru_cache(maxsize=512)
+def _cached_constant(data: bytes, shape: tuple, np_dtype: str, device: str, dtype: torch.dtype) -> torch.Tensor:
+    a = np.frombuffer(data, dtype=np.dtype(np_dtype)).reshape(shape)
+    return torch.as_tensor(a.copy()).to(device=device, dtype=dtype)
+
+
+def device_constant(a: Any, device: Union[str, torch.device], dtype: torch.dtype) -> torch.Tensor:
+    """A numpy operand (a gate matrix, a Pauli) as a tensor of ``dtype`` on
+    ``device``.  A small one is copied to the card once and kept, keyed by
+    its bytes: a copy from pageable host memory waits for the card, so a
+    CNOT ladder that copied its gate each time would stall the stream at
+    every gate.  Callers never write to the result."""
+    a = np.asarray(a)
+    if a.size > _CONSTANT_MAX_ELEMS:
+        return torch.as_tensor(a).to(device=device, dtype=dtype)
+    return _cached_constant(a.tobytes(), a.shape, a.dtype.str, str(device), dtype)

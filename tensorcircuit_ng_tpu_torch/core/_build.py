@@ -7,8 +7,9 @@ with a plain C interface (no PyTorch headers, so a build takes seconds):
          -Xcompiler -fPIC -Xptxas -v -o build/kernels/lib<name>_<hash>.so <name>.cu
 
 The output goes to ``build/kernels/`` at the root of the checkout (listed in
-``.gitignore``), named by a hash of the source and flags, so an edited
-source rebuilds and an unchanged one loads the library already built.
+``.gitignore``), named by a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source or header rebuilds and
+an unchanged one loads the library already built.
 ``build_all()`` starts one nvcc for each source together.  Nothing here
 runs when the module is imported, so the CPU path never needs nvcc.
 """
@@ -31,6 +32,7 @@ SOURCES: Dict[str, Path] = {
     "zzrx_fwd": _CSRC / "zzrx_fwd.cu",
     "zzrx_bwd": _CSRC / "zzrx_bwd.cu",
     "jacobi_svd": _CSRC / "jacobi_svd.cu",
+    "row_layer": _CSRC / "row_layer.cu",
 }
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = [
@@ -63,8 +65,14 @@ _SIGNATURES = {
     "jacobi_svd": {
         "tcng_jacobi_svd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     },
+    "row_layer": {
+        "tcng_row_fwd": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _P],
+        "tcng_row_bwd_scratch": [_I, _I, _I],
+        "tcng_row_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _P],
+        "tcng_row_bwd_const": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
+    },
 }
-_RESTYPES = {"tcng_zzrx_bwd_scratch": ctypes.c_long}
+_RESTYPES = {"tcng_zzrx_bwd_scratch": ctypes.c_long, "tcng_row_bwd_scratch": ctypes.c_long}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 
@@ -81,6 +89,8 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Path:
     h = hashlib.sha256(SOURCES[name].read_bytes())
+    for header in sorted(_CSRC.glob("*.cuh")):  # the headers the sources share
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 

@@ -28,11 +28,11 @@
 // Design.  As in the forward (zzrx_fwd.cu), a TPU block of 2^10 rows x 128
 // lanes does not fit a CTA, so a layer runs as passes over the state, which
 // at n = 20 (4 planes of 4 MB between passes) stay in the 50 MB L2:
-//   lane pass (lane_bwd_kernel): 16 rows x 128 lanes a CTA; both complex
-//     right-products by M^T (the un-lane of y and the ct walk) share the
-//     M chunks streamed through shared memory;
-//   dM pass (dm_partial_kernel): a 32 x 128 slab of dM over a chunk of rows
-//     a CTA, one partial per chunk;
+//   lane pass (lane_bwd_kernel, lane.cuh): 16 rows x 128 lanes a CTA;
+//     both complex right-products by M^T (the un-lane of y and the ct
+//     walk) share the M chunks streamed through shared memory;
+//   dM pass (dm_partial_kernel, lane.cuh): a 32 x 128 slab of dM over a
+//     chunk of rows a CTA, one partial per chunk;
 //   row pass (zzrx_bwd_row_kernel): all rows of a block for a few lanes a
 //     CTA, psi and ct both in shared memory (128 KB), the nkernel
 //     butterflies in place on both, then the phase walk and dzz;
@@ -49,22 +49,12 @@
 // 3.2 GFLOP a layer against 67 TFLOP/s float32 outside the tensor cores;
 // the state moves ~25 MB a layer.  Plain f32 FMAs, no fast-math.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "lane.cuh"
 
 namespace {
 
-constexpr int LANES = 128;
-constexpr int MM = LANES * LANES;
-constexpr int THREADS = 256;
-constexpr int NWARPS = THREADS / 32;
 // row pass tile: RB * TL complex elements of psi and of ct (4 planes, 128 KB)
 constexpr int TILE_ELEMS = 8192;
-// lane pass: 16 rows a CTA, 8 warps x 2 rows, 4 columns a thread
-constexpr int L_ROWS = 16;
-constexpr int KC = 8;
-// dM pass: 32 rows of dM (8 warps x 4) a CTA
-constexpr int DM_SLAB = 32;
 // outer pass: D <= 16 (nouter <= 4)
 constexpr int MAX_NOUTER = 4;
 
@@ -80,153 +70,6 @@ __device__ float block_sum(float v, float* red) {
     for (int w = 0; w < NWARPS; ++w) t += red[w];
   __syncthreads();
   return t;
-}
-
-// psi = y @ conj(M)^T and w = ct @ M^T on 16-row tiles.
-__global__ void __launch_bounds__(THREADS)
-lane_bwd_kernel(const float* yr, const float* yi, const float* cr,
-                const float* ci, float* pr, float* pi, float* wr, float* wi,
-                const float* __restrict__ mr, const float* __restrict__ mi,
-                int ni) {
-  __shared__ float ys_r[L_ROWS][LANES], ys_i[L_ROWS][LANES];
-  __shared__ float cs_r[L_ROWS][LANES], cs_i[L_ROWS][LANES];
-  __shared__ float ms_r[KC][LANES + 1], ms_i[KC][LANES + 1];
-  const long row0 = static_cast<long>(blockIdx.x) * ni;
-  for (int e = threadIdx.x; e < ni * LANES; e += THREADS) {
-    const int lr = e / LANES, c = e % LANES;
-    const long off = (row0 + lr) * LANES + c;
-    ys_r[lr][c] = yr[off];
-    ys_i[lr][c] = yi[off];
-    cs_r[lr][c] = cr[off];
-    cs_i[lr][c] = ci[off];
-  }
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  float p_r[2][4], p_i[2][4], w_r[2][4], w_i[2][4];
-#pragma unroll
-  for (int a = 0; a < 2; ++a)
-#pragma unroll
-    for (int q = 0; q < 4; ++q) p_r[a][q] = p_i[a][q] = w_r[a][q] = w_i[a][q] = 0.f;
-  for (int kc = 0; kc < LANES; kc += KC) {
-    __syncthreads();  // tiles loaded / previous chunk consumed
-    // ms[kk][c] = M[c][kc + kk]: the chunk of M^T
-    for (int e = threadIdx.x; e < KC * LANES; e += THREADS) {
-      const int c = e / KC, kk = e % KC;
-      ms_r[kk][c] = mr[c * LANES + kc + kk];
-      ms_i[kk][c] = mi[c * LANES + kc + kk];
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < KC; ++kk) {
-      float m_r[4], m_i[4];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        m_r[q] = ms_r[kk][lane + 32 * q];
-        m_i[q] = ms_i[kk][lane + 32 * q];
-      }
-#pragma unroll
-      for (int a = 0; a < 2; ++a) {
-        const int lr = warp * 2 + a;  // rows >= ni read unused smem
-        const float y_r = ys_r[lr][kc + kk], y_i = ys_i[lr][kc + kk];
-        const float c_r = cs_r[lr][kc + kk], c_i = cs_i[lr][kc + kk];
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          p_r[a][q] += y_r * m_r[q] + y_i * m_i[q];
-          p_i[a][q] += y_i * m_r[q] - y_r * m_i[q];
-          w_r[a][q] += c_r * m_r[q] - c_i * m_i[q];
-          w_i[a][q] += c_r * m_i[q] + c_i * m_r[q];
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int a = 0; a < 2; ++a) {
-    const int lr = warp * 2 + a;
-    if (lr >= ni) continue;
-    const long base = (row0 + lr) * LANES;
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int c = lane + 32 * q;
-      pr[base + c] = p_r[a][q];
-      pi[base + c] = p_i[a][q];
-      wr[base + c] = w_r[a][q];
-      wi[base + c] = w_i[a][q];
-    }
-  }
-}
-
-// part[chunk] = (re, im) of sum over the chunk's rows of psi[row]^T ct[row]
-// for the dM rows [32 * blockIdx.x, +32): the non-conjugating product.
-__global__ void __launch_bounds__(THREADS)
-dm_partial_kernel(const float* pr, const float* pi, const float* cr,
-                  const float* ci, float* part, int ch) {
-  __shared__ float ps_r[KC][DM_SLAB], ps_i[KC][DM_SLAB];
-  __shared__ float cs_r[KC][LANES], cs_i[KC][LANES];
-  const int a0 = blockIdx.x * DM_SLAB;
-  const long row0 = static_cast<long>(blockIdx.y) * ch;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  float acc_r[4][4], acc_i[4][4];
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int q = 0; q < 4; ++q) acc_r[a][q] = acc_i[a][q] = 0.f;
-  for (int k0 = 0; k0 < ch; k0 += KC) {
-    const int kn = ch - k0 < KC ? ch - k0 : KC;
-    __syncthreads();
-    for (int e = threadIdx.x; e < KC * DM_SLAB; e += THREADS) {
-      const int kk = e / DM_SLAB, a = e % DM_SLAB;
-      const long off = (row0 + k0 + kk) * LANES + a0 + a;
-      ps_r[kk][a] = kk < kn ? pr[off] : 0.f;
-      ps_i[kk][a] = kk < kn ? pi[off] : 0.f;
-    }
-    for (int e = threadIdx.x; e < KC * LANES; e += THREADS) {
-      const int kk = e / LANES, b = e % LANES;
-      const long off = (row0 + k0 + kk) * LANES + b;
-      cs_r[kk][b] = kk < kn ? cr[off] : 0.f;
-      cs_i[kk][b] = kk < kn ? ci[off] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < KC; ++kk) {
-      float c_r[4], c_i[4];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        c_r[q] = cs_r[kk][lane + 32 * q];
-        c_i[q] = cs_i[kk][lane + 32 * q];
-      }
-#pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        const float p_r = ps_r[kk][warp * 4 + a], p_i = ps_i[kk][warp * 4 + a];
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          acc_r[a][q] += p_r * c_r[q] - p_i * c_i[q];
-          acc_i[a][q] += p_r * c_i[q] + p_i * c_r[q];
-        }
-      }
-    }
-  }
-  float* out = part + static_cast<long>(blockIdx.y) * 2 * MM;
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int row = a0 + warp * 4 + a;
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      out[row * LANES + lane + 32 * q] = acc_r[a][q];
-      out[MM + row * LANES + lane + 32 * q] = acc_i[a][q];
-    }
-  }
-}
-
-// out[(j / inner) * ostride + j % inner] = sum over b < nb, in order, of
-// part[b * ncols + j].
-__global__ void colsum_kernel(const float* part, int nb, int ncols, float* out,
-                              int inner, long ostride) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= ncols) return;
-  float s = 0.f;
-  for (int b = 0; b < nb; ++b) s += part[static_cast<long>(b) * ncols + j];
-  out[static_cast<long>(j / inner) * ostride + j % inner] = s;
 }
 
 // The rx and zz adjoint of one layer on an RB x TL tile (all rows of a
@@ -395,14 +238,8 @@ outer_bwd_kernel(const float* cr, const float* ci, float* wr, float* wi,
   }
 }
 
-int ilog2(int v) {
-  int l = 0;
-  while ((1 << l) < v) ++l;
-  return l;
-}
-
 struct Plan {
-  int r, rb, ltl, grid_row, ch, nchunks, grid_outer;
+  int r, rb, ltl, grid_row, grid_outer;
   size_t row_smem;
 };
 
@@ -417,9 +254,6 @@ Plan make_plan(int r, int nkernel, int npairs) {
   p.grid_row = (r / p.rb) * (LANES / tl);
   p.row_smem = sizeof(float) * (4 * static_cast<size_t>(p.rb) * tl + NWARPS + npairs) +
                sizeof(int) * 2 * npairs;
-  p.ch = r < 256 ? r : 256;
-  if (p.ch < r / 32) p.ch = r / 32;  // at most 32 dM partials
-  p.nchunks = r / p.ch;
   p.grid_outer = static_cast<int>((static_cast<long>(p.rb) * LANES + THREADS - 1) / THREADS);
   return p;
 }
@@ -436,7 +270,7 @@ size_t layout(const Plan& p, int npairs, int nkernel, int mode, float* base,
   size_t sizes[7] = {
       static_cast<size_t>(p.grid_row) * (npairs + nkernel),
       mode == 2 ? static_cast<size_t>(p.grid_outer) * MAX_NOUTER : 0,
-      mode ? static_cast<size_t>(p.nchunks) * 2 * MM : 0,
+      mode ? dm_partial_floats(p.r) : 0,
       mode ? plane : 0, mode ? plane : 0, mode ? plane : 0, mode ? plane : 0,
   };
   size_t off = 0;
@@ -457,29 +291,14 @@ size_t layout(const Plan& p, int npairs, int nkernel, int mode, float* base,
   return off;
 }
 
-cudaError_t colsum(const float* part, int nb, int ncols, float* out, int inner,
-                   long ostride, cudaStream_t st) {
-  colsum_kernel<<<(ncols + THREADS - 1) / THREADS, THREADS, 0, st>>>(
-      part, nb, ncols, out, inner, ostride);
-  return cudaGetLastError();
-}
-
 // Lane stage of the adjoint: s.pr/pi <- y @ conj(M)^T, s.wr/wi <- ct @ M^T,
 // dm planes (dm_out, dm_out + dm_stride) <- psi^T ct.
 cudaError_t lane_stage(const Plan& p, const float* yr, const float* yi,
                        const float* ctr, const float* cti, const float* mr,
                        const float* mi, const Scratch& s, float* dm_out,
                        long dm_stride, cudaStream_t st) {
-  const int ni = p.r < L_ROWS ? p.r : L_ROWS;
-  lane_bwd_kernel<<<p.r / ni, THREADS, 0, st>>>(yr, yi, ctr, cti, s.pr, s.pi,
-                                                s.wr, s.wi, mr, mi, ni);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  dm_partial_kernel<<<dim3(LANES / DM_SLAB, p.nchunks), THREADS, 0, st>>>(
-      s.pr, s.pi, ctr, cti, s.part_dm, p.ch);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  return colsum(s.part_dm, p.nchunks, 2 * MM, dm_out, MM, dm_stride, st);
+  return lane_bwd_stage(p.r, yr, yi, ctr, cti, mr, mi, s.pr, s.pi, s.wr, s.wi,
+                        s.part_dm, dm_out, dm_stride, st);
 }
 
 // Row stage: ds <- rx and zz adjoint of (psi, ct); grads[0..npairs+nkernel)

@@ -22,10 +22,10 @@
 //     block, TL lanes) in shared memory, applies the zz phase as it loads
 //     (sign from the XOR parity of the two index bits, any pair count) and
 //     all nkernel rx butterflies in place.
-//   pass B (lane_outer_kernel): a CTA holds 32 rows x 128 lanes, computes
-//     the complex x @ M with M streamed through shared memory in K chunks,
-//     and for K2 writes ks[l] and applies the outer matrix across the D
-//     rows {i + k*RB} that the CTA holds together.
+//   pass B (lane_outer_kernel, lane.cuh): a CTA holds 32 rows x 128
+//     lanes, computes the complex x @ M with M streamed through shared
+//     memory in K chunks, and for K2 writes ks[l] and applies the outer
+//     matrix across the D rows {i + k*RB} that the CTA holds together.
 // Both passes may run in place: a CTA loads its whole tile before it
 // writes, and tiles are disjoint.  K2 is one C entry point that launches
 // pass A and pass B for each layer in sequence on the caller's stream (the
@@ -34,18 +34,12 @@
 // a layer) against 67 TFLOP/s float32 outside the tensor cores; the state
 // moves 16.8 MB a layer.  No fast-math: sin/cos accuracy matters in f32.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "lane.cuh"
 
 namespace {
 
-constexpr int LANES = 128;
-constexpr int THREADS = 256;
 // pass A tile: RB * TL complex elements, at most 8192 (64 KB of planes)
 constexpr int TILE_ELEMS = 8192;
-// pass B: 32 rows a CTA, 8 warps x 4 rows, 4 columns a thread
-constexpr int B_ROWS = 32;
-constexpr int B_KC = 8;
 
 __global__ void __launch_bounds__(THREADS)
 zz_rowrx_kernel(const float* xr, const float* xi, float* yr, float* yi,
@@ -118,128 +112,6 @@ zz_rowrx_kernel(const float* xr, const float* xi, float* yr, float* yi,
   }
 }
 
-// Rows of a pass-B tile: local row lr holds global row
-// (blockIdx.x * ni + lr / d) + (lr % d) * rb, so that with d > 1 the d
-// rows one outer matrix mixes sit in one CTA (d = 1: contiguous rows).
-__device__ __forceinline__ long b_row(int lr, int ni, int d, int rb) {
-  return static_cast<long>(blockIdx.x) * ni + lr / d +
-         static_cast<long>(lr % d) * rb;
-}
-
-template <bool OUTER>
-__global__ void __launch_bounds__(THREADS)
-lane_outer_kernel(const float* xr, const float* xi, float* yr, float* yi,
-                  float* ksr, float* ksi, const float* __restrict__ mr,
-                  const float* __restrict__ mi, const float* __restrict__ mor,
-                  const float* __restrict__ moi, int ni, int d, int rb) {
-  __shared__ float xs_r[B_ROWS][LANES];
-  __shared__ float xs_i[B_ROWS][LANES];
-  __shared__ float ms_r[B_KC][LANES];
-  __shared__ float ms_i[B_KC][LANES];
-  const int tr_rows = ni * d;
-  for (int e = threadIdx.x; e < tr_rows * LANES; e += blockDim.x) {
-    const int lr = e / LANES, c = e % LANES;
-    const long off = b_row(lr, ni, d, rb) * LANES + c;
-    xs_r[lr][c] = xr[off];
-    xs_i[lr][c] = xi[off];
-  }
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  float acc_r[4][4], acc_i[4][4];
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int q = 0; q < 4; ++q) acc_r[a][q] = acc_i[a][q] = 0.f;
-  for (int kc = 0; kc < LANES; kc += B_KC) {
-    __syncthreads();  // tile loaded / previous chunk consumed
-    for (int e = threadIdx.x; e < B_KC * LANES; e += blockDim.x) {
-      ms_r[e / LANES][e % LANES] = mr[(kc + e / LANES) * LANES + e % LANES];
-      ms_i[e / LANES][e % LANES] = mi[(kc + e / LANES) * LANES + e % LANES];
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < B_KC; ++kk) {
-      float m_r[4], m_i[4];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        m_r[q] = ms_r[kk][lane + 32 * q];
-        m_i[q] = ms_i[kk][lane + 32 * q];
-      }
-#pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        const float x_r = xs_r[warp * 4 + a][kc + kk];
-        const float x_i = xs_i[warp * 4 + a][kc + kk];
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          acc_r[a][q] += x_r * m_r[q] - x_i * m_i[q];
-          acc_i[a][q] += x_r * m_i[q] + x_i * m_r[q];
-        }
-      }
-    }
-  }
-  if (!OUTER) {
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const int lr = warp * 4 + a;
-      if (lr >= tr_rows) continue;
-      const long base = b_row(lr, ni, d, rb) * LANES;
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        yr[base + lane + 32 * q] = acc_r[a][q];
-        yi[base + lane + 32 * q] = acc_i[a][q];
-      }
-    }
-    return;
-  }
-  __syncthreads();  // every thread is done reading the x tile
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int lr = warp * 4 + a;
-    if (lr >= tr_rows) continue;
-    const long base = b_row(lr, ni, d, rb) * LANES;
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int c = lane + 32 * q;
-      ksr[base + c] = acc_r[a][q];
-      ksi[base + c] = acc_i[a][q];
-      xs_r[lr][c] = acc_r[a][q];
-      xs_i[lr][c] = acc_i[a][q];
-    }
-  }
-  __syncthreads();
-  // outer: row (i, k) <- sum_k' mo[k][k'] * row (i, k')
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int lr = warp * 4 + a;
-    if (lr >= tr_rows) continue;
-    const int k = lr % d;
-    const int g0 = lr - k;
-    float o_r[4] = {0.f, 0.f, 0.f, 0.f}, o_i[4] = {0.f, 0.f, 0.f, 0.f};
-    for (int kp = 0; kp < d; ++kp) {
-      const float wr = mor[k * d + kp], wi = moi[k * d + kp];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const float v_r = xs_r[g0 + kp][lane + 32 * q];
-        const float v_i = xs_i[g0 + kp][lane + 32 * q];
-        o_r[q] += wr * v_r - wi * v_i;
-        o_i[q] += wr * v_i + wi * v_r;
-      }
-    }
-    const long base = b_row(lr, ni, d, rb) * LANES;
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      yr[base + lane + 32 * q] = o_r[q];
-      yi[base + lane + 32 * q] = o_i[q];
-    }
-  }
-}
-
-int ilog2(int v) {
-  int l = 0;
-  while ((1 << l) < v) ++l;
-  return l;
-}
-
 cudaError_t launch_pass_a(const float* xr, const float* xi, float* yr,
                           float* yi, const float* zzth, const int* shifts,
                           int npairs, const float* th, int nkernel, int r,
@@ -280,10 +152,7 @@ int tcng_zzrx_fwd(const float* sr, const float* si, float* yr, float* yi,
   cudaError_t err = launch_pass_a(sr, si, yr, yi, zzth, shifts, npairs, th,
                                   nkernel, r, s);
   if (err != cudaSuccess || mr == nullptr) return static_cast<int>(err);
-  const int ni = r < B_ROWS ? r : B_ROWS;
-  lane_outer_kernel<false><<<r / ni, THREADS, 0, s>>>(
-      yr, yi, yr, yi, nullptr, nullptr, mr, mi, nullptr, nullptr, ni, 1, r);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(lane_fwd_stage(yr, yi, yr, yi, mr, mi, r, s));
 }
 
 // K2.  sr/si (r, 128) input planes; ksr/ksi (L, r, 128) residuals;

@@ -1,12 +1,14 @@
-"""Dispatch layer of the fused TFIM path.
+"""Dispatch layer of the fused circuit layers.
 
-Counterpart of ``tensorcircuit_ng_tpu/core/kernels.py:203-504``.  The
-shape conditions are the JAX package's, so every shape takes the
-counterpart of the kernel JAX takes there; the JAX condition "on a TPU"
-becomes "the state tensor is on CUDA".  On a CPU state the port takes the
-JAX package's CPU branch: the plain versions of the kernels.  Every entry
-point differentiates end to end: the gradients go through the autograd
-boundaries of ``kernels_stack`` and ``kernels_rowlayer.zzrx_row_layer``.
+Counterpart of ``tensorcircuit_ng_tpu/core/kernels.py``.  The shape
+conditions are the JAX package's, so every shape takes the counterpart of
+the kernel JAX takes there; the JAX condition "on a TPU" becomes "the
+state tensor is on CUDA".  On a CPU state the port takes the JAX package's
+CPU branch: the plain versions of the kernels.  Every entry point
+differentiates end to end: the gradients go through the autograd
+boundaries of ``kernels_stack`` and ``kernels_rowlayer``.  complex128 keeps
+the plain per-qubit (or per-layer) formulation on any device: the kernels
+compute in float32 planes.
 """
 
 from __future__ import annotations
@@ -16,12 +18,16 @@ from typing import Any, Tuple
 import numpy as np
 import torch
 
+from .. import config
 from . import kernels_rowlayer, statevec
 from . import kernels_stack as kst
 from ..ops.gates import rx_matrix
 
 __all__ = [
     "fused_single_qubit_layer",
+    "fused_single_qubit_layer_pallas",
+    "fused_rx_layer",
+    "block_kron_layer",
     "fused_zzrx_layer",
     "fused_zzrx_multilayer",
     "fused_zzrx_multilayer_energy",
@@ -32,14 +38,105 @@ __all__ = [
 _LANE_QUBITS = 7
 
 
-def fused_single_qubit_layer(state, gates, constant: bool = False):
-    """One gate per qubit, fused: needs the row-layer kernels
-    (``row_layer_const`` for constant gates), which are not ported yet."""
-    raise NotImplementedError(
-        "fused_single_qubit_layer needs the row_layer_const / row_layer "
-        "kernels (counterparts of kernels_rowlayer._pallas_row_fwd and "
-        "_pallas_row_bwd_const), which are not ported yet"
-    )
+def _lane_matrix(gates: torch.Tensor, nlane: int) -> torch.Tensor:
+    """kron of the last ``nlane`` gates: one matmul applies them all."""
+    m = gates[-nlane]
+    for j in range(1, nlane):
+        m = torch.kron(m, gates[-nlane + j])
+    return m
+
+
+def _apply_layer_reference(state: torch.Tensor, gates: torch.Tensor) -> torch.Tensor:
+    """Unfused: one :func:`statevec.apply_unitary` a qubit."""
+    for q in range(gates.shape[0]):
+        state = statevec.apply_unitary(state, gates[q], [q])
+    return state
+
+
+def _gate_stack(gates: Any, state: torch.Tensor) -> torch.Tensor:
+    """(n, 2, 2) gates as a tensor on the state's device and dtype (keeps
+    autograd)."""
+    if isinstance(gates, torch.Tensor):
+        return gates.to(device=state.device, dtype=state.dtype)
+    return config.device_constant(gates, state.device, state.dtype)
+
+
+def fused_single_qubit_layer_pallas(
+    state: torch.Tensor, gates: Any, fuse_lane: bool = False, constant: bool = False
+) -> torch.Tensor:
+    """gates[q] on qubit q for all q, fused (UNITARY gates).
+
+    Qubits split three ways: the first large-stride qubits (beyond the
+    kernels' ``MAX_KERNEL_QUBITS`` row block) apply as plain einsums; the
+    middle row qubits go to the row kernels (K6 forward; K7 backward, or
+    K8 for ``constant`` gates); the last 7 lane qubits collapse into one
+    128x128 kron matmul, fused into K6/K7 with ``fuse_lane``.  A complex128
+    state takes the per-qubit formulation."""
+    gates = _gate_stack(gates, state)
+    n = gates.shape[0]
+    if state.shape[0] != 2**n:
+        raise ValueError(f"one gate per qubit required: {n} gates for a state of {state.shape[0]}")
+    if state.dtype != torch.complex64:
+        return _apply_layer_reference(state, gates)
+    nlane = min(_LANE_QUBITS, n)
+    nrow = n - nlane
+    nkernel = min(nrow, kernels_rowlayer.MAX_KERNEL_QUBITS)
+    nouter = nrow - nkernel
+    psi = state
+    for q in range(nouter):  # large-stride qubits: plain einsum
+        psi = statevec.apply_unitary(psi, gates[q], [q])
+    psi = torch.reshape(psi, (max(2**nrow, 1), 2**nlane))
+    mlane = _lane_matrix(gates, nlane)
+    if nkernel > 0 and fuse_lane:
+        psi = kernels_rowlayer.row_layer_lane(psi, gates[nouter:nrow], mlane.T)
+    elif nkernel > 0 and constant:
+        psi = kernels_rowlayer.row_layer_const(psi, gates[nouter:nrow]) @ mlane.T
+    elif nkernel > 0:
+        psi = kernels_rowlayer.row_layer(psi, gates[nouter:nrow]) @ mlane.T
+    else:
+        psi = psi @ mlane.T
+    return torch.reshape(psi, (-1,))
+
+
+#: route ``rx_layer`` through the theta-native rotx kernels (off in the JAX
+#: package too; they are not ported yet)
+USE_ROTX = False
+
+
+def fused_rx_layer(state: torch.Tensor, thetas: Any) -> torch.Tensor:
+    """rx(thetas[q]) on every qubit: the generic fused layer of rx gates."""
+    thetas = torch.reshape(torch.as_tensor(thetas, device=state.device), (-1,))
+    if USE_ROTX:
+        raise NotImplementedError(
+            "USE_ROTX needs the rotx kernels (counterparts of "
+            "kernels_rowlayer._pallas_rotx_fwd and _pallas_rotx_bwd), which "
+            "are not ported yet"
+        )
+    return fused_single_qubit_layer(state, rx_matrix(thetas, dtype=str(state.dtype).replace("torch.", "")))
+
+
+def fused_single_qubit_layer(state: torch.Tensor, gates: Any, constant: bool = False) -> torch.Tensor:
+    """gates[q] on qubit q for all q, fused through the row kernels (UNITARY
+    gates; :func:`block_kron_layer` takes any stack)."""
+    return fused_single_qubit_layer_pallas(state, gates, constant=constant)
+
+
+def block_kron_layer(state: torch.Tensor, gates: Any, block: int = _LANE_QUBITS) -> torch.Tensor:
+    """gates[q] on every qubit via ~n/7 block-kron matmuls; no unitarity
+    requirement, plain autograd."""
+    gates = _gate_stack(gates, state)
+    n = gates.shape[0]
+    pos = 0
+    psi = state
+    while pos < n:
+        b = min(block, n - pos)
+        m = gates[pos]
+        for j in range(1, b):
+            m = torch.kron(m, gates[pos + j])
+        v = torch.reshape(psi, (2**pos, 2**b, -1))
+        psi = torch.reshape(torch.einsum("ab,xby->xay", m, v), (-1,))
+        pos += b
+    return psi
 
 
 def _check_width(state, n: int) -> None:

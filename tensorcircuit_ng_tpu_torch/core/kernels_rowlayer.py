@@ -1,19 +1,33 @@
-"""One fused TFIM layer (zz phase + row rx, optionally the lane matmul) on
-the ``(r, 128)`` float32 plane pair of a complex64 state, and its adjoint.
+"""Row layers on the ``(r, 128)`` float32 plane pair of a complex64 state,
+and their adjoints: one arbitrary 2x2 gate per kernel row qubit, and the
+fused TFIM layer (zz phase + row rx), each optionally with the lane matmul.
 
-Counterpart of ``tensorcircuit_ng_tpu/core/kernels_rowlayer.py``, the zzrx
-subset.  ``zzrx_fwd`` is the wrapper of kernel K1 (``csrc/zzrx_fwd.cu``,
-``tcng_zzrx_fwd``), which replaces the Pallas ``_pallas_zzrx_fwd``;
-``zzrx_bwd`` the wrapper of kernel K3 (``csrc/zzrx_bwd.cu``,
-``tcng_zzrx_bwd``), which replaces ``_pallas_zzrx_bwd``.  On a CUDA tensor
-a wrapper launches its kernel, on a CPU tensor it runs the plain version
-(``zzrx_fwd_plain``, ``zzrx_bwd_plain``: ordinary torch ops).  The wrappers
-are plain launch functions; the autograd boundary is ``zzrx_row_layer``
-here and the stack boundaries of ``kernels_stack``, as in the JAX package.
-Qubit q is bit ``n-1-q`` of the flat index ``row * 128 + lane``; rx acts on
-the ``nkernel`` lowest row bits, ``th[0]`` on the most significant of them.
-Cotangent planes follow the JAX package: ``(dL/dyr, -dL/dyi)``, the
-conjugate of torch's gradient of a complex tensor.
+Counterpart of ``tensorcircuit_ng_tpu/core/kernels_rowlayer.py``.  The
+wrappers and the kernels they launch on a CUDA tensor:
+
+- ``row_fwd``: K6 (``csrc/row_layer.cu``, ``tcng_row_fwd``), replaces the
+  Pallas ``_pallas_row_fwd``;
+- ``row_bwd``: K7 (``tcng_row_bwd``), replaces ``_pallas_row_bwd``;
+- ``row_bwd_const``: K8 (``tcng_row_bwd_const``), replaces
+  ``_pallas_row_bwd_const``;
+- ``zzrx_fwd``: K1 (``csrc/zzrx_fwd.cu``, ``tcng_zzrx_fwd``), replaces
+  ``_pallas_zzrx_fwd``;
+- ``zzrx_bwd``: K3 (``csrc/zzrx_bwd.cu``, ``tcng_zzrx_bwd``), replaces
+  ``_pallas_zzrx_bwd``.
+
+On a CPU tensor a wrapper runs its plain version (``row_fwd_plain``, ...:
+ordinary torch ops, stage by stage as the kernel takes them).  The
+wrappers are plain launch functions; the autograd boundaries are
+``row_layer``, ``row_layer_lane``, ``row_layer_const`` and
+``zzrx_row_layer`` here and the stack boundaries of ``kernels_stack``, as
+in the JAX package.  Qubit q is bit ``n-1-q`` of the flat index
+``row * 128 + lane``; the row kernels act on the ``nkernel`` lowest row
+bits, gate (or angle) 0 on the most significant of them, of stride
+``2^nkernel >> 1``.  Gates are planes ``(nkernel, 2, 2)`` (or
+``(nkernel, 4)``: g00, g01, g10, g11), unitary, since the backward rebuilds
+states by un-application.  Cotangent planes follow the JAX package:
+``(dL/dyr, -dL/dyi)``, the conjugate of torch's gradient of a complex
+tensor.
 """
 
 from __future__ import annotations
@@ -27,6 +41,16 @@ import torch
 from . import _build
 
 __all__ = [
+    "row_fwd",
+    "row_fwd_plain",
+    "row_bwd",
+    "row_bwd_plain",
+    "row_bwd_const",
+    "row_bwd_const_plain",
+    "row_layer",
+    "row_layer_lane",
+    "row_layer_const",
+    "MAX_KERNEL_QUBITS",
     "zzrx_fwd",
     "zzrx_fwd_plain",
     "zzrx_bwd",
@@ -35,7 +59,10 @@ __all__ = [
     "MAX_KERNEL_QUBITS_ZZRX",
 ]
 
-#: row qubits one kernel block covers (the rest are "outer" qubits)
+#: row qubits one block of the row-layer kernels covers (the rest are
+#: "outer" qubits); also with the lane matrix, as in the JAX package
+MAX_KERNEL_QUBITS = 11
+#: row qubits one block of the zzrx kernels covers
 MAX_KERNEL_QUBITS_ZZRX = 10
 
 _LANES = 128
@@ -51,7 +78,8 @@ def _rx_gates(thetas: torch.Tensor) -> torch.Tensor:
 
 
 def _row_layer_reference(state2d: torch.Tensor, gates: torch.Tensor) -> torch.Tensor:
-    """Gate k on the bit of stride 2^(ng-1-k) of the (r, lanes) view."""
+    """Gate k on the bit of stride 2^(ng-1-k) of the (r, lanes) view: one
+    einsum a gate (the JAX reference, not a kernel's plain version)."""
     ng = gates.shape[0]
     r, lanes = state2d.shape
     psi = state2d
@@ -382,3 +410,352 @@ def zzrx_row_layer(
     through K3 (the JAX ``zzrx_row_layer``)."""
     pairs = tuple((int(a), int(b)) for a, b in pairs)
     return _ZzrxRowLayer.apply(pairs, n, state2d, zz_thetas, rx_thetas)
+
+
+# ---------------------------------------------------------------------------
+# the generic row layer: K6 forward, K7 backward, K8 constant-gate backward
+# ---------------------------------------------------------------------------
+
+
+def _gate_scalars(gr: torch.Tensor, gi: torch.Tensor, q: int):
+    """(g00r, g00i, g01r, g01i, g10r, g10i, g11r, g11i) of gate q."""
+    a, b = gr.reshape(-1, 4)[q], gi.reshape(-1, 4)[q]
+    return a[0], b[0], a[1], b[1], a[2], b[2], a[3], b[3]
+
+
+def _lo_rows(r: int, s: int, device) -> torch.Tensor:
+    """(r, 1) bool: the rows whose bit of stride s is 0."""
+    return ((torch.arange(r, device=device) // s) % 2 == 0)[:, None]
+
+
+def _butterfly(cr: torch.Tensor, ci: torch.Tensor, s: int, m):
+    """The 2x2 complex matrix m (8 scalars, row-major re/im) on the row bit
+    of stride s: lo' = m00 lo + m01 hi, hi' = m10 lo + m11 hi."""
+    m00r, m00i, m01r, m01i, m10r, m10i, m11r, m11i = m
+    pr, pi = _partner(cr, s), _partner(ci, s)
+    lo = _lo_rows(cr.shape[0], s, cr.device)
+    lo_r = m00r * cr - m00i * ci + m01r * pr - m01i * pi
+    lo_i = m00r * ci + m00i * cr + m01r * pi + m01i * pr
+    hi_r = m10r * pr - m10i * pi + m11r * cr - m11i * ci
+    hi_i = m10r * pi + m10i * pr + m11r * ci + m11i * cr
+    return torch.where(lo, lo_r, hi_r), torch.where(lo, lo_i, hi_i)
+
+
+def row_fwd_plain(gr, gi, sr, si, mr=None, mi=None):
+    """K6's plain version: gate q's butterfly for q = 0..nkernel-1 on the
+    planes, then ``y = x @ (mr + i mi)`` when the lane planes are given."""
+    nk = gr.reshape(-1, 4).shape[0]
+    cr, ci = sr, si
+    for q in range(nk):
+        cr, ci = _butterfly(cr, ci, (1 << nk) >> (q + 1), _gate_scalars(gr, gi, q))
+    if mr is not None:
+        cr, ci = _lane_apply(mr, mi, cr, ci)
+    return cr.contiguous(), ci.contiguous()
+
+
+def row_bwd_plain(gr, gi, yr, yi, ctr, cti, mr=None, mi=None):
+    """K7's plain version: the adjoint of K6 from its output, stage by stage
+    as the JAX ``_bwd_kernel`` takes them.
+
+    ``(yr, yi)`` is the layer's output (post-lane when the unitary lane
+    planes ``mr/mi`` are given) and ``(ctr, cti)`` the cotangent planes
+    ``(dL/dyr, -dL/dyi)``.  Returns ``(dsr, dsi, dgr, dgi)`` with the gate
+    cotangent planes (nkernel, 2, 2), ``dg[q, a, b] = Σ_{rows, bit=a}
+    ct[r]·s[r with bit=b]`` (plain products), and, with the lane planes,
+    ``(dmr, dmi)``."""
+    lane = mr is not None
+    if lane:
+        # psi = y @ conj(M)^T; dM = psi^T ct; ct <- ct @ M^T
+        sr = yr @ mr.T + yi @ mi.T
+        si = yi @ mr.T - yr @ mi.T
+        dmr = sr.T @ ctr - si.T @ cti
+        dmi = sr.T @ cti + si.T @ ctr
+        cr, ci = _lane_walk(mr, mi, ctr, cti)
+    else:
+        sr, si, cr, ci = yr, yi, ctr, cti
+    nk = gr.reshape(-1, 4).shape[0]
+    r = yr.shape[0]
+    dgr, dgi = [None] * nk, [None] * nk
+    for q in range(nk - 1, -1, -1):
+        s = (1 << nk) >> (q + 1)
+        g00r, g00i, g01r, g01i, g10r, g10i, g11r, g11i = _gate_scalars(gr, gi, q)
+        # 1) un-apply: s <- g^dagger s
+        sr, si = _butterfly(sr, si, s, (g00r, -g00i, g10r, -g10i, g01r, -g01i, g11r, -g11i))
+        # 2) dg[a, b]: the partner cotangent pct[r] = ct[r ^ s] turns the
+        # cross sums over bit-a rows into sums over the other half
+        pcr, pci = _partner(cr, s), _partner(ci, s)
+        lo_b = _lo_rows(r, s, yr.device)
+        lo = lo_b.to(torch.float32)
+        hi = 1.0 - lo
+        same_r, same_i = cr * sr - ci * si, cr * si + ci * sr
+        cross_r, cross_i = pcr * sr - pci * si, pcr * si + pci * sr
+        dgr[q] = torch.stack([torch.sum(lo * same_r), torch.sum(hi * cross_r),
+                              torch.sum(lo * cross_r), torch.sum(hi * same_r)]).reshape(2, 2)
+        dgi[q] = torch.stack([torch.sum(lo * same_i), torch.sum(hi * cross_i),
+                              torch.sum(lo * cross_i), torch.sum(hi * same_i)]).reshape(2, 2)
+        # 3) walk: ct <- g^T ct, with the partner values already fetched
+        cr, ci = (
+            torch.where(lo_b, g00r * cr - g00i * ci + g10r * pcr - g10i * pci,
+                        g01r * pcr - g01i * pci + g11r * cr - g11i * ci),
+            torch.where(lo_b, g00r * ci + g00i * cr + g10r * pci + g10i * pcr,
+                        g01r * pci + g01i * pcr + g11r * ci + g11i * cr),
+        )
+    out = (cr.contiguous(), ci.contiguous(), torch.stack(dgr), torch.stack(dgi))
+    return out + (dmr, dmi) if lane else out
+
+
+def row_bwd_const_plain(gr, gi, ctr, cti):
+    """K8's plain version: the cotangent walk ``ct <- g^T ct`` for gate q =
+    nkernel-1..0, no gate cotangent."""
+    nk = gr.reshape(-1, 4).shape[0]
+    cr, ci = ctr, cti
+    for q in range(nk - 1, -1, -1):
+        g00r, g00i, g01r, g01i, g10r, g10i, g11r, g11i = _gate_scalars(gr, gi, q)
+        cr, ci = _butterfly(cr, ci, (1 << nk) >> (q + 1),
+                            (g00r, g00i, g10r, g10i, g01r, g01i, g11r, g11i))
+    return cr.contiguous(), ci.contiguous()
+
+
+def _row_setup(what: str, gr, gi, sr, *planes):
+    """Device checks of a row-kernel launch; the gates as (nkernel, 4)
+    float32 planes on the card."""
+    dev = sr.device
+    if dev.type != "cuda":
+        raise ValueError(f"{what}: no kernel for device {dev}")
+    gr, gi = _f32(gr, dev).reshape(-1, 4), _f32(gi, dev).reshape(-1, 4)
+    nk = gr.shape[0]
+    r, lanes = sr.shape
+    if lanes != _LANES or not 1 <= nk <= MAX_KERNEL_QUBITS or r % (1 << nk) or gi.shape != gr.shape:
+        raise ValueError(f"{what}: unsupported shape r={r}, lanes={lanes}, nkernel={nk}")
+    _check_planes(what, dev, (r, lanes), sr, *planes)
+    return dev, gr, gi, nk, r
+
+
+def _launch_row_fwd(gr, gi, sr, si, mr, mi):
+    dev, gr, gi, nk, r = _row_setup("row_fwd", gr, gi, sr, si)
+    if mr is not None:
+        _check_planes("row_fwd lane", dev, (_LANES, _LANES), mr, mi)
+    yr = torch.empty_like(sr)
+    yi = torch.empty_like(si)
+    lib = _build.library("row_layer")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        row_fwd.launches += 1
+        err = lib.tcng_row_fwd(
+            sr.data_ptr(), si.data_ptr(), yr.data_ptr(), yi.data_ptr(),
+            gr.data_ptr(), gi.data_ptr(), nk,
+            None if mr is None else mr.data_ptr(),
+            None if mi is None else mi.data_ptr(),
+            r, stream,
+        )
+    _build.check("row_layer", err, "row_fwd")
+    return yr, yi
+
+
+def row_fwd(gr, gi, sr, si, mr=None, mi=None):
+    """K6: gate q = 0..nkernel-1 (``gr/gi`` (nkernel, 2, 2) or (nkernel, 4)
+    planes) on the in-block row bit of stride ``2^nkernel >> (q+1)`` of the
+    (r, 128) planes ``sr/si``, then ``y = x @ (mr + i mi)`` when the lane
+    planes are given.
+
+    CUDA tensors launch the kernel (``row_fwd.launches`` counts the
+    launches); CPU tensors run :func:`row_fwd_plain`."""
+    if sr.device.type == "cpu":
+        return row_fwd_plain(gr, gi, sr, si, mr, mi)
+    return _launch_row_fwd(gr, gi, sr, si, mr, mi)
+
+
+row_fwd.launches = 0
+
+
+def _launch_row_bwd(gr, gi, yr, yi, ctr, cti, mr, mi):
+    dev, gr, gi, nk, r = _row_setup("row_bwd", gr, gi, yr, yi, ctr, cti)
+    lane = mr is not None
+    if lane:
+        _check_planes("row_bwd lane", dev, (_LANES, _LANES), mr, mi)
+    ds = torch.empty((2, r, _LANES), dtype=torch.float32, device=dev)
+    dg = torch.empty((2, nk, 4), dtype=torch.float32, device=dev)
+    dm = torch.empty((2, _LANES, _LANES), dtype=torch.float32, device=dev) if lane else None
+    lib = _build.library("row_layer")
+    scratch = torch.empty(lib.tcng_row_bwd_scratch(r, nk, int(lane)), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        row_bwd.launches += 1
+        err = lib.tcng_row_bwd(
+            yr.data_ptr(), yi.data_ptr(), ctr.data_ptr(), cti.data_ptr(),
+            ds[0].data_ptr(), ds[1].data_ptr(), dg.data_ptr(),
+            None if dm is None else dm.data_ptr(),
+            gr.data_ptr(), gi.data_ptr(), nk,
+            None if mr is None else mr.data_ptr(),
+            None if mi is None else mi.data_ptr(),
+            scratch.data_ptr(), r, stream,
+        )
+    _build.check("row_layer", err, "row_bwd")
+    out = (ds[0], ds[1], dg[0].reshape(nk, 2, 2), dg[1].reshape(nk, 2, 2))
+    return out + (dm[0], dm[1]) if lane else out
+
+
+def row_bwd(gr, gi, yr, yi, ctr, cti, mr=None, mi=None):
+    """K7: the adjoint of :func:`row_fwd` from its output ``(yr, yi)`` and
+    the cotangent planes ``(dL/dyr, -dL/dyi)``.
+
+    Returns ``(dsr, dsi, dgr, dgi)``, the gate cotangent planes (nkernel,
+    2, 2), plus the lane cotangent planes ``(dmr, dmi)`` (128, 128) when
+    the (unitary) lane planes are given.  CUDA tensors launch the kernel
+    (``row_bwd.launches`` counts the launches); CPU tensors run
+    :func:`row_bwd_plain`."""
+    if yr.device.type == "cpu":
+        return row_bwd_plain(gr, gi, yr, yi, ctr, cti, mr, mi)
+    return _launch_row_bwd(gr, gi, yr, yi, ctr, cti, mr, mi)
+
+
+row_bwd.launches = 0
+
+
+def _launch_row_bwd_const(gr, gi, ctr, cti):
+    dev, gr, gi, nk, r = _row_setup("row_bwd_const", gr, gi, ctr, cti)
+    dsr = torch.empty_like(ctr)
+    dsi = torch.empty_like(cti)
+    lib = _build.library("row_layer")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        row_bwd_const.launches += 1
+        err = lib.tcng_row_bwd_const(
+            ctr.data_ptr(), cti.data_ptr(), dsr.data_ptr(), dsi.data_ptr(),
+            gr.data_ptr(), gi.data_ptr(), nk, r, stream,
+        )
+    _build.check("row_layer", err, "row_bwd_const")
+    return dsr, dsi
+
+
+def row_bwd_const(gr, gi, ctr, cti):
+    """K8: the cotangent walk of :func:`row_fwd` without the lane matrix
+    and without the gate cotangent (constant gates): ``ct <- g^T ct`` for
+    gate q = nkernel-1..0.  CUDA tensors launch the kernel
+    (``row_bwd_const.launches`` counts the launches); CPU tensors run
+    :func:`row_bwd_const_plain`."""
+    if ctr.device.type == "cpu":
+        return row_bwd_const_plain(gr, gi, ctr, cti)
+    return _launch_row_bwd_const(gr, gi, ctr, cti)
+
+
+row_bwd_const.launches = 0
+
+
+def _row_bwd_reference(y: torch.Tensor, gates: torch.Tensor, ct: torch.Tensor):
+    """The JAX ``_row_bwd_reference``: (ds, dg) of :func:`_row_layer_reference`
+    from its output y and the JAX cotangent ct, one einsum a step (not a
+    kernel's plain version; the tests hold the plain versions against it)."""
+    nk = gates.shape[0]
+    r, lanes = y.shape
+    cur_s, cur_ct = y, ct
+    dgs = [None] * nk
+    for q in range(nk - 1, -1, -1):
+        s = (2**nk) >> (q + 1)
+        gdag = torch.conj(gates[q].T).to(y.dtype)
+        v = torch.reshape(cur_s, (r // (2 * s), 2, s, lanes))
+        cur_s = torch.reshape(torch.einsum("ab,xbsl->xasl", gdag, v), (r, lanes))
+        a_exp = torch.reshape(cur_ct, (r // (2 * s), 2, s * lanes))
+        b_exp = torch.reshape(cur_s, (r // (2 * s), 2, s * lanes))
+        dgs[q] = torch.einsum("xay,xby->ab", a_exp, b_exp)
+        v = torch.reshape(cur_ct, (r // (2 * s), 2, s, lanes))
+        cur_ct = torch.reshape(torch.einsum("ab,xbsl->xasl", gates[q].T.to(y.dtype), v), (r, lanes))
+    return cur_ct, torch.stack(dgs)
+
+
+def _gate_planes(gates: torch.Tensor):
+    """(nkernel, 4) float32 real and imaginary planes of a gate stack."""
+    g = gates.detach().to(torch.complex64).reshape(-1, 4)
+    return g.real.contiguous(), g.imag.contiguous()
+
+
+def _state_planes(state2d: torch.Tensor):
+    return state2d.real.to(torch.float32).contiguous(), state2d.imag.to(torch.float32).contiguous()
+
+
+class _RowLayer(torch.autograd.Function):
+    """Counterpart of the JAX ``row_layer`` custom VJP: K6 forward, K7
+    backward; the residual is the output."""
+
+    @staticmethod
+    def forward(ctx, state2d, gates):
+        gr, gi = _gate_planes(gates)
+        yr, yi = row_fwd(gr, gi, *_state_planes(state2d))
+        ctx.save_for_backward(yr, yi, gr, gi)
+        ctx.gdtype = gates.dtype
+        return torch.complex(yr, yi).to(state2d.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        yr, yi, gr, gi = ctx.saved_tensors
+        dsr, dsi, dgr, dgi = row_bwd(gr, gi, yr, yi, *conj_planes(g))
+        return grad_of_planes(dsr, dsi).to(g.dtype), grad_of_planes(dgr, dgi).to(ctx.gdtype)
+
+
+class _RowLayerLane(torch.autograd.Function):
+    """Counterpart of the JAX ``row_layer_lane`` custom VJP: K6 with the
+    lane matrix forward, K7 with it backward."""
+
+    @staticmethod
+    def forward(ctx, state2d, gates, mlane):
+        gr, gi = _gate_planes(gates)
+        mr, mi = _state_planes(mlane.detach())
+        yr, yi = row_fwd(gr, gi, *_state_planes(state2d), mr, mi)
+        ctx.save_for_backward(yr, yi, gr, gi, mr, mi)
+        ctx.dtypes = (gates.dtype, mlane.dtype)
+        return torch.complex(yr, yi).to(state2d.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        yr, yi, gr, gi, mr, mi = ctx.saved_tensors
+        dsr, dsi, dgr, dgi, dmr, dmi = row_bwd(gr, gi, yr, yi, *conj_planes(g), mr, mi)
+        return (
+            grad_of_planes(dsr, dsi).to(g.dtype),
+            grad_of_planes(dgr, dgi).to(ctx.dtypes[0]),
+            grad_of_planes(dmr, dmi).to(ctx.dtypes[1]),
+        )
+
+
+class _RowLayerConst(torch.autograd.Function):
+    """Counterpart of the JAX ``row_layer_const`` custom VJP: K6 forward,
+    K8 backward; the gate cotangent is zero."""
+
+    @staticmethod
+    def forward(ctx, state2d, gates):
+        gr, gi = _gate_planes(gates)
+        yr, yi = row_fwd(gr, gi, *_state_planes(state2d))
+        ctx.save_for_backward(gr, gi)
+        ctx.gates_like = (gates.shape, gates.dtype)
+        return torch.complex(yr, yi).to(state2d.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        gr, gi = ctx.saved_tensors
+        dsr, dsi = row_bwd_const(gr, gi, *conj_planes(g))
+        dg = None
+        if ctx.needs_input_grad[1]:
+            shape, dtype = ctx.gates_like
+            dg = torch.zeros(shape, dtype=dtype, device=g.device)
+        return grad_of_planes(dsr, dsi).to(g.dtype), dg
+
+
+def row_layer(state2d: torch.Tensor, gates: torch.Tensor) -> torch.Tensor:
+    """Apply ``gates[k]`` on the k-th of the ng lowest row bits of a
+    ``(r, 128)`` complex view (gate k of stride ``2^(ng-1-k)``); UNITARY
+    gates only (the backward un-applies them), ``ng <= MAX_KERNEL_QUBITS``.
+    Differentiable in both through K7 (the JAX ``row_layer``)."""
+    return _RowLayer.apply(state2d, gates)
+
+
+def row_layer_lane(state2d: torch.Tensor, gates: torch.Tensor, mlane: torch.Tensor) -> torch.Tensor:
+    """Row butterflies then ``@ mlane`` (the (128, 128) right-multiplication
+    matrix, the transposed kron of the lane gates) in one kernel; gates and
+    ``mlane`` unitary.  Differentiable in all three through K7 with the lane
+    (the JAX ``row_layer_lane``)."""
+    return _RowLayerLane.apply(state2d, gates, mlane)
+
+
+def row_layer_const(state2d: torch.Tensor, gates: torch.Tensor) -> torch.Tensor:
+    """:func:`row_layer` for constant gates: the backward is the cotangent
+    walk alone (K8), the gate cotangent zero (the JAX ``row_layer_const``)."""
+    return _RowLayerConst.apply(state2d, gates)

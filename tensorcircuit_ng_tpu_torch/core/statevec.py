@@ -23,10 +23,19 @@ __all__ = [
     "apply_unitary",
     "apply_diagonal",
     "apply_zz_product_phase",
+    "apply_zstring_phase",
+    "apply_multicz",
     "expectation_zz_sum",
+    "expectation_1q_sum",
     "expectation_x_sum",
+    "flip_slot",
+    "sign_slot",
+    "expectation_local",
     "expectation_ps",
+    "amplitude",
     "probabilities",
+    "marginal_probability",
+    "project_slot",
 ]
 
 _LETTERS = string.ascii_lowercase + string.ascii_uppercase
@@ -47,7 +56,7 @@ def _as_tensor(t: Any, like: torch.Tensor) -> torch.Tensor:
     """Numpy or torch operand -> tensor on ``like``'s device and dtype."""
     if isinstance(t, torch.Tensor):
         return t.to(device=like.device, dtype=like.dtype)
-    return torch.as_tensor(np.array(t), device=like.device).to(like.dtype)
+    return config.device_constant(t, like.device, like.dtype)
 
 
 def init_state(
@@ -147,8 +156,71 @@ def apply_zz_product_phase(
     return state * torch.polar(torch.ones_like(expo), -0.5 * expo).to(state.dtype)
 
 
+def apply_zstring_phase(state: torch.Tensor, wires: Sequence[int], theta: Any) -> torch.Tensor:
+    r"""exp(-i theta/2 Z_{w1} ... Z_{wk}) in one elementwise pass: the sign
+    is the parity of the wires' index bits (no 2^k matrix)."""
+    n = num_slots(state, 2)
+    idx = torch.arange(state.shape[0], device=state.device)
+    parity = torch.zeros_like(idx)
+    for w in wires:
+        parity = parity ^ ((idx >> (n - 1 - int(w))) & 1)
+    rdt = _real_dtype(state.dtype)
+    theta = torch.as_tensor(theta, device=state.device).to(rdt)
+    expo = theta * (1 - 2 * parity).to(rdt)
+    return state * torch.polar(torch.ones_like(expo), -0.5 * expo).to(state.dtype)
+
+
+def apply_multicz(state: torch.Tensor, wires: Sequence[int]) -> torch.Tensor:
+    r"""k-controlled Z: flip the sign of the amplitudes where every wire is
+    1, in one elementwise pass."""
+    n = num_slots(state, 2)
+    idx = torch.arange(state.shape[0], device=state.device)
+    mask = 0
+    for w in wires:
+        mask |= 1 << (n - 1 - int(w))
+    sign = 1.0 - 2.0 * ((idx & mask) == mask).to(_real_dtype(state.dtype))
+    return state * sign.to(state.dtype)
+
+
 def probabilities(state: torch.Tensor) -> torch.Tensor:
     return torch.real(torch.conj(state) * state)
+
+
+def amplitude(state: torch.Tensor, bitstring: Sequence[int], d: int = 2) -> torch.Tensor:
+    """⟨b|psi⟩ for a computational-basis string of ints."""
+    n = num_slots(state, d)
+    b = torch.as_tensor(np.asarray(bitstring), device=state.device).to(torch.int64)
+    radix = torch.as_tensor([d ** (n - 1 - i) for i in range(n)], device=state.device)
+    return state[torch.sum(b * radix)]
+
+
+def marginal_probability(state: torch.Tensor, wires: Sequence[int], d: int = 2) -> torch.Tensor:
+    """Marginal probability over ``wires`` (flat, length d^len(wires), in
+    the order of ``wires``)."""
+    wires = [int(w) for w in wires]
+    k = len(wires)
+    n = num_slots(state, d)
+    ps = torch.reshape(probabilities(state), _exposed_shape(n, sorted(wires), d))
+    m = torch.sum(ps, dim=tuple(2 * i for i in range(k + 1)))  # (d,)*k, sorted order
+    order = list(np.argsort(wires))
+    inv = [order.index(i) for i in range(k)]
+    if inv != list(range(k)):
+        m = m.permute(inv)
+    return torch.reshape(m, (-1,))
+
+
+def project_slot(
+    state: torch.Tensor, wire: int, outcome: Any, d: int = 2, renormalize: bool = True
+) -> torch.Tensor:
+    """Project ``wire`` onto basis state ``outcome`` (0..d-1, an int or a
+    0-d tensor), renormalized unless the projection is zero."""
+    outcome = torch.as_tensor(outcome, device=state.device).to(torch.int64)
+    sel = torch.nn.functional.one_hot(outcome, d).to(state.dtype)
+    proj = apply_diagonal(state, sel, [wire], d)
+    if renormalize:
+        nrm = torch.linalg.vector_norm(proj)
+        proj = proj / torch.where(nrm == 0, torch.ones_like(nrm), nrm).to(proj.dtype)
+    return proj
 
 
 def expectation_zz_sum(
@@ -167,14 +239,16 @@ def expectation_zz_sum(
     return torch.sum(p * acc)
 
 
-def expectation_x_sum(
-    state: torch.Tensor, wires: Optional[Sequence[int]] = None, block: int = 7
+def expectation_1q_sum(
+    state: torch.Tensor, op: Any, wires: Optional[Sequence[int]] = None, block: int = 7
 ) -> torch.Tensor:
-    r"""Σ_q ⟨X_q⟩ by block sandwiches: qubits group into blocks of ≤ ``block``,
-    each block's Σ X_q is one (2^b, 2^b) matrix applied by one matmul."""
+    r"""Σ_{q∈wires} ⟨O_q⟩ for one single-qubit operator O by block
+    sandwiches: qubits group into blocks of ≤ ``block``, each block's Σ O_q
+    is one (2^b, 2^b) matrix applied by one matmul.  Real part, at the
+    state's real precision."""
     n = num_slots(state, 2)
     wire_set = set(int(q) for q in (range(n) if wires is None else wires))
-    x = np.array([[0.0, 1.0], [1.0, 0.0]])
+    op = np.asarray(op)
     e2 = np.eye(2)
     total = torch.zeros((), dtype=_real_dtype(state.dtype), device=state.device)
     pos = 0
@@ -182,12 +256,12 @@ def expectation_x_sum(
         b = min(block, n - pos)
         qubits = [pos + j for j in range(b)]
         if wire_set.intersection(qubits):
-            m = np.zeros((2**b, 2**b))
+            m = np.zeros((2**b, 2**b), dtype=complex)
             for j, q in enumerate(qubits):
                 if q in wire_set:
                     term = np.eye(1)
                     for jj in range(b):
-                        term = np.kron(term, x if jj == j else e2)
+                        term = np.kron(term, op if jj == j else e2)
                     m = m + term
             v = torch.reshape(state, (2**pos, 2**b, -1))
             mv = torch.einsum("ab,xby->xay", _as_tensor(m, state), v)
@@ -196,10 +270,33 @@ def expectation_x_sum(
     return total
 
 
-def _flip_slot(state: torch.Tensor, wire: int, d: int = 2) -> torch.Tensor:
+def expectation_x_sum(
+    state: torch.Tensor, wires: Optional[Sequence[int]] = None, block: int = 7
+) -> torch.Tensor:
+    r"""Σ_q ⟨X_q⟩ by block sandwiches (:func:`expectation_1q_sum`)."""
+    return expectation_1q_sum(state, np.array([[0.0, 1.0], [1.0, 0.0]]), wires, block)
+
+
+def flip_slot(state: torch.Tensor, wire: int, d: int = 2) -> torch.Tensor:
+    """X-like index reversal on one slot (an axis flip)."""
     n = num_slots(state, d)
     v = torch.reshape(state, _exposed_shape(n, [wire], d))
     return torch.reshape(torch.flip(v, dims=(1,)), (-1,))
+
+
+def sign_slot(state: torch.Tensor, wire: int, d: int = 2) -> torch.Tensor:
+    """Z on one slot (d=2): the sign mask diag(1, -1)."""
+    return apply_diagonal(state, np.array([1.0, -1.0]), [wire], d)
+
+
+def expectation_local(
+    state: torch.Tensor, ops: Sequence[Tuple[Any, Sequence[int]]], d: int = 2
+) -> torch.Tensor:
+    """⟨psi| Π_i O_i |psi⟩ for local operators ``(O_i, wires_i)``."""
+    phi = state
+    for op, wires in ops:
+        phi = apply_unitary(phi, op, wires, d)
+    return torch.vdot(state, phi)
 
 
 def expectation_ps(
@@ -211,11 +308,11 @@ def expectation_ps(
     """⟨psi| X_x Y_y Z_z |psi⟩: flips and sign masks, no matmuls."""
     phi = state
     for q in x or ():
-        phi = _flip_slot(phi, q)
+        phi = flip_slot(phi, q)
     for q in y or ():
         # Y = flip ∘ diag(i, -i)
         phi = apply_diagonal(phi, np.array([1j, -1j]), [q])
-        phi = _flip_slot(phi, q)
+        phi = flip_slot(phi, q)
     for q in z or ():
-        phi = apply_diagonal(phi, np.array([1.0, -1.0]), [q])
+        phi = sign_slot(phi, q)
     return torch.vdot(state, phi)

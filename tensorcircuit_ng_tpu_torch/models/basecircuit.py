@@ -1,10 +1,13 @@
 """Dense-engine circuit layer of the port.
 
-Counterpart of ``tensorcircuit_ng_tpu/models/basecircuit.py``, the subset
-of the fused TFIM path: the state is a flat ``(2^n,)`` torch tensor on the
-circuit's device, folded over the QIR when it is asked for.  A leading
-``h_layer`` on |0...0> folds to the uniform state, and runs of consecutive
-``zzrx_layer`` items with the same pairs go to the multi-layer kernels.
+Counterpart of ``tensorcircuit_ng_tpu/models/basecircuit.py``: the state is
+a flat ``(d^n,)`` torch tensor on the circuit's device, folded over the QIR
+when it is asked for.  A leading ``h_layer`` on |0...0> folds to the
+uniform state, runs of consecutive ``zzrx_layer`` items with the same pairs
+go to the multi-layer kernels, and single-qubit layers (``rx/ry/rz_layer``,
+``h_layer``, ``fused_single_qubit_layer``) to the row-layer kernels.
+Measurement takes its uniforms from ``status`` (as in the JAX package) or
+from ``torch.rand`` on the circuit's device.
 """
 
 from __future__ import annotations
@@ -17,7 +20,7 @@ import torch
 
 from .. import config
 from ..core import kernels, statevec
-from ..ops.gates import GATES, Gate
+from ..ops.gates import GATES, Gate, ry_matrix, rz_matrix
 from .abstractcircuit import AbstractCircuit
 
 __all__ = ["BaseCircuit"]
@@ -151,6 +154,8 @@ class BaseCircuit(AbstractCircuit):
         return out
 
     def _apply_item(self, psi: torch.Tensor, item: Dict[str, Any]) -> torch.Tensor:
+        if item.get("rx_layer"):
+            return kernels.fused_rx_layer(psi, item["thetas"])
         if item.get("fused_1q_layer"):
             return kernels.fused_single_qubit_layer(
                 psi, item["gates"], constant=bool(item.get("constant"))
@@ -161,6 +166,10 @@ class BaseCircuit(AbstractCircuit):
             return kernels.fused_zzrx_layer(
                 psi, item["pairs"], item["zz_thetas"], item["rx_thetas"]
             )
+        if item.get("multicz"):
+            return statevec.apply_multicz(psi, item["index"])
+        if item.get("zstring_rot"):
+            return statevec.apply_zstring_phase(psi, item["index"], item["theta"])
         k = len(item["index"])
         gate = item["gate"].tensor
         if item.get("diagonal"):
@@ -176,13 +185,58 @@ class BaseCircuit(AbstractCircuit):
     # fused layers
     # ------------------------------------------------------------------
 
+    def multicz(self, *index: int) -> None:
+        r"""Multi-controlled Z on ``index``: the sign flips where every wire
+        is 1, one elementwise pass (no 2^k matrix)."""
+        if len(index) == 1 and hasattr(index[0], "__len__"):
+            index = tuple(index[0])  # multicz([0, 1, 2]) as well
+        self._append(
+            {
+                "gatef": None,
+                "gate": None,
+                "index": tuple(int(i) % self._nqubits for i in index),
+                "name": "multicz",
+                "split": None,
+                "mpo": False,
+                "multicz": True,
+            }
+        )
+
+    mcz = multicz
+    cmz = multicz
+
+    def rzm(self, *index: int, theta: Any = 0.0) -> None:
+        r"""exp(-i θ/2 Z⊗...⊗Z) on ``index``, one diagonal parity mask."""
+        if len(index) == 1 and hasattr(index[0], "__len__"):
+            index = tuple(index[0])
+        self._append(
+            {
+                "gatef": None,
+                "gate": None,
+                "index": tuple(int(i) % self._nqubits for i in index),
+                "name": "rzm",
+                "split": None,
+                "mpo": False,
+                "zstring_rot": True,
+                "theta": theta,
+                "parameters": {"theta": theta},
+            }
+        )
+
     def fused_single_qubit_layer(
         self, gates: Any, name: str = "fused_1q_layer", constant: bool = False
     ) -> None:
-        """Apply gates[q] on every qubit q in one fused pass."""
-        if not isinstance(gates, torch.Tensor):
+        """Apply gates[q] on every qubit q in one fused pass (unitary gates).
+
+        ``constant=True`` marks non-trainable gates (``h_layer``): the
+        backward then walks the cotangent only (K8).  Concrete gate stacks
+        stay numpy; a tensor stack keeps autograd."""
+        if isinstance(gates, torch.Tensor):
+            gates = gates.to(device=self._device, dtype=config.torch_dtype())
+        else:
             gates = np.asarray(gates).astype(config.np_dtype())
-        assert gates.shape[0] == self._nqubits
+        if gates.shape[0] != self._nqubits:
+            raise ValueError(f"one gate per qubit required: {gates.shape[0]} gates for {self._nqubits} qubits")
         self._append(
             {
                 "fused_1q_layer": True,
@@ -194,6 +248,29 @@ class BaseCircuit(AbstractCircuit):
                 "mpo": False,
             }
         )
+
+    def rx_layer(self, thetas: Any) -> None:
+        """rx(thetas[q]) on every qubit, fused."""
+        self._append(
+            {
+                "gatef": None,
+                "gate": None,
+                "index": tuple(range(self._nqubits)),
+                "name": "rx_layer",
+                "split": None,
+                "mpo": False,
+                "rx_layer": True,
+                "thetas": self._param(thetas),
+            }
+        )
+
+    def ry_layer(self, thetas: Any) -> None:
+        """ry(thetas[q]) on every qubit, fused."""
+        self.fused_single_qubit_layer(ry_matrix(self._param(thetas)), name="ry_layer")
+
+    def rz_layer(self, thetas: Any) -> None:
+        """rz(thetas[q]) on every qubit, fused."""
+        self.fused_single_qubit_layer(rz_matrix(self._param(thetas)), name="rz_layer")
 
     def h_layer(self) -> None:
         """Hadamard on every qubit, fused (folded on |0...0>)."""
@@ -291,6 +368,90 @@ class BaseCircuit(AbstractCircuit):
         zz = [(int(a), int(b), float(zz_weight)) for a, b in (pairs or ())]
         xs = [(q, float(x_weight)) for q in range(self._nqubits)] if x_weight else None
         return self.expectation_ising_sum(zz_terms=zz, x_terms=xs)
+
+    def expectation(self, *ops: Tuple[Any, Sequence[int]], reuse: bool = True) -> torch.Tensor:
+        """⟨psi| O_1 O_2 ... |psi⟩ with ``O_i = (operator, [wires])`` on the
+        dense state; an operator is a ``Gate`` or a dense matrix or tensor."""
+        norm_ops = []
+        for op in ops:
+            if not (isinstance(op, tuple) and len(op) == 2):
+                raise ValueError("each op must be (operator, [wires])")
+            o, wires = op
+            if isinstance(o, Gate):
+                o = o.tensor
+            if not hasattr(wires, "__len__"):
+                wires = [wires]
+            norm_ops.append((o, [int(w) % self._nqubits for w in wires]))
+        psi = self.state(reuse=reuse)
+        phi = psi
+        for o, wires in norm_ops:
+            phi = statevec.apply_unitary(phi, o, wires, self._d)
+        return torch.vdot(psi, phi)
+
+    def replace_inputs(self, inputs: Any) -> None:
+        """Swap the input state."""
+        self._inputs = inputs
+        self._state_cache = None
+
+    def amplitude(self, l: Union[str, Sequence[int]]) -> torch.Tensor:
+        r"""⟨l|psi⟩ for a basis string such as ``"0101"`` (base d, 0-9A-Z)
+        or a sequence of ints."""
+        if isinstance(l, str):
+            l = [int(ch, 36) for ch in l]
+        return statevec.amplitude(self.state(), l, self._d)
+
+    def probability(self) -> torch.Tensor:
+        """The probability vector |psi|^2 (length d^n)."""
+        return statevec.probabilities(self.state())
+
+    #: tie-break added to each uniform, as in the JAX package
+    _MEASURE_EPS = 0.31415926e-12
+
+    def measure_jit(
+        self,
+        *index: int,
+        with_prob: bool = False,
+        status: Optional[Any] = None,
+        generator: Optional[torch.Generator] = None,
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Projective measurement of the ``index`` qubits in turn.
+
+        ``status``: uniforms in [0, 1), one a qubit (numpy or tensor); the
+        same status gives the JAX package's outcomes.  Without it the
+        uniforms come from ``torch.rand`` on the circuit's device (with
+        ``generator`` if given).  Returns (outcomes (len(index),) int32,
+        their probability, or -1 without ``with_prob``)."""
+        if status is None:
+            status = torch.rand(len(index), device=self._device, generator=generator)
+        status = torch.as_tensor(status, device=self._device)
+        psi = self.state()
+        rdt = statevec._real_dtype(psi.dtype)
+        outcomes = []
+        prob = torch.ones((), dtype=rdt, device=self._device)
+        for k, q in enumerate(index):
+            marg = statevec.marginal_probability(psi, [q], self._d)
+            marg = marg / torch.sum(marg)
+            cdf = torch.cumsum(marg, 0)
+            u = status[k].to(cdf.dtype) + self._MEASURE_EPS
+            outcome = torch.clamp(torch.searchsorted(cdf, u.reshape(1), side="left")[0], 0, self._d - 1)
+            psi = statevec.project_slot(psi, q, outcome, self._d)
+            outcomes.append(outcome)
+            prob = prob * marg[outcome]
+        sample = torch.stack(outcomes).to(torch.int32)
+        if with_prob:
+            return sample, prob
+        return sample, torch.tensor(-1.0, device=self._device)
+
+    def measure(
+        self, *index: int, with_prob: bool = False, generator: Optional[torch.Generator] = None
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        return self.measure_jit(*index, with_prob=with_prob, generator=generator)
+
+    def perfect_sampling(
+        self, status: Optional[Any] = None, generator: Optional[torch.Generator] = None
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Sample every qubit once: (bits, probability)."""
+        return self.measure_jit(*range(self._nqubits), with_prob=True, status=status, generator=generator)
 
     def state(self, form: str = "default", reuse: bool = True) -> torch.Tensor:
         """The output state (flat), cached until the next gate application;

@@ -10,8 +10,11 @@ from __future__ import annotations
 
 from typing import Any, Optional, Union
 
+import numpy as np
 import torch
 
+from .. import config
+from ..ops.gates import Gate
 from .basecircuit import BaseCircuit
 
 __all__ = ["Circuit"]
@@ -28,3 +31,16 @@ class Circuit(BaseCircuit):
         device: Union[None, str, torch.device] = None,
     ) -> None:
         super().__init__(nqubits, inputs=inputs, dim=dim, device=device)
+
+    def mid_measurement(self, index: int, keep: Union[int, torch.Tensor] = 0) -> None:
+        """Post-select qubit ``index`` onto outcome ``keep``, without
+        renormalization."""
+        if isinstance(keep, torch.Tensor):
+            sel = torch.nn.functional.one_hot(keep.to(torch.int64), self._d)
+            m = torch.diag(sel.to(device=self._device, dtype=config.torch_dtype()))
+        else:
+            m = np.diag(np.eye(self._d)[int(keep)]).astype(config.np_dtype())
+        self.apply_general_gate(Gate(m, name="mid_measurement"), index, name="mid_measurement")
+
+    post_select = mid_measurement
+    mid_measure = mid_measurement

@@ -24,7 +24,9 @@ import pytest
 import torch
 
 import tensorcircuit_ng_tpu_torch as tct
-from chip_smoke import SVD_ORTH_TOL, SVD_REC_TOL, SVD_S_TOL, SVD_VEC_TOL, _svd_batches, _svd_checks
+from chip_smoke import (
+    SVD_ORTH_TOL, SVD_REC_TOL, SVD_S_TOL, SVD_VEC_TOL, _svd_batches, _svd_checks, hea_energy,
+)
 from tensorcircuit_ng_tpu_torch import convert
 from tensorcircuit_ng_tpu_torch.core import kernels_grand as kg
 from tensorcircuit_ng_tpu_torch.core import kernels_jacobi as kj
@@ -350,3 +352,120 @@ def test_tebd_on_card_matches_cpu_complex128(cuda, n, chi, steps):
     z_cpu, lam_cpu = run("cpu", "complex128")
     np.testing.assert_allclose(z_card, z_cpu, rtol=0, atol=1e-4)
     np.testing.assert_allclose(lam_card, lam_cpu, rtol=0, atol=1e-4)
+
+
+def _row_inputs(n, nkernel, seed, dev):
+    """Unit-norm state and cotangent planes, distinct unitary gates
+    (nkernel, 4) on every kernel qubit and a unitary lane matrix: the
+    backward kernels rebuild states by un-application."""
+    rng = np.random.default_rng(seed)
+
+    def unitaries(k, dim):
+        a = rng.normal(size=(k, dim, dim)) + 1j * rng.normal(size=(k, dim, dim))
+        return np.linalg.qr(a)[0]
+
+    def unit(size):
+        z = rng.normal(size=size) + 1j * rng.normal(size=size)
+        return z / np.linalg.norm(z)
+
+    g = unitaries(nkernel, 2).reshape(nkernel, 4)
+    m = unitaries(1, 128)[0]
+    return {
+        "s": convert.planes(unit(2**n), dev),
+        "ct": convert.planes(unit(2**n), dev),
+        "g": (convert.params(g.real, dev), convert.params(g.imag, dev)),
+        "m": (convert.params(m.real, dev), convert.params(m.imag, dev)),
+    }
+
+
+ROW_CASES = [(10, 3, False), (12, 5, True), (18, 11, False), (20, 11, False), (20, 11, True)]
+
+
+@pytest.mark.parametrize("n,nkernel,lane", ROW_CASES)
+def test_row_fwd_kernel_matches_plain(cuda, n, nkernel, lane):
+    x = _row_inputs(n, nkernel, n + nkernel, cuda)
+    m = x["m"] if lane else ()
+    krl.row_fwd.launches = 0
+    got = krl.row_fwd(*x["g"], *x["s"], *m)
+    torch.cuda.synchronize()
+    assert krl.row_fwd.launches == 1
+    want = krl.row_fwd_plain(*x["g"], *x["s"], *m)
+    for g, w in zip(got, want):
+        assert g.is_cuda and g.shape == w.shape
+        torch.testing.assert_close(g, w, atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("n,nkernel,lane", ROW_CASES)
+def test_row_bwd_kernel_matches_plain(cuda, n, nkernel, lane):
+    """K7 against its plain version from the layer's output, and bit for
+    bit against itself (per-CTA partials added in a fixed order)."""
+    x = _row_inputs(n, nkernel, 2 * n + nkernel, cuda)
+    m = x["m"] if lane else ()
+    with torch.no_grad():
+        y = krl.row_fwd_plain(*x["g"], *x["s"], *m)
+    krl.row_bwd.launches = 0
+    got = krl.row_bwd(*x["g"], *y, *x["ct"], *m)
+    again = krl.row_bwd(*x["g"], *y, *x["ct"], *m)
+    torch.cuda.synchronize()
+    assert krl.row_bwd.launches == 2
+    want = krl.row_bwd_plain(*x["g"], *y, *x["ct"], *m)
+    # (dsr, dsi, dgr, dgi[, dmr, dmi])
+    assert len(got) == len(want) == (6 if lane else 4)
+    for i, (g, g2, w) in enumerate(zip(got, again, want)):
+        assert g.is_cuda and g.shape == w.shape and torch.equal(g, g2)
+        if i < 2:
+            torch.testing.assert_close(g, w, atol=ATOL, rtol=0)
+        else:
+            _close(g, w)
+
+
+@pytest.mark.parametrize("n,nkernel", [(10, 3), (12, 5), (20, 11)])
+def test_row_bwd_const_kernel_matches_plain(cuda, n, nkernel):
+    x = _row_inputs(n, nkernel, 3 * n + nkernel, cuda)
+    krl.row_bwd_const.launches = 0
+    got = krl.row_bwd_const(*x["g"], *x["ct"])
+    torch.cuda.synchronize()
+    assert krl.row_bwd_const.launches == 1
+    want = krl.row_bwd_const_plain(*x["g"], *x["ct"])
+    for g, w in zip(got, want):
+        assert g.is_cuda and g.shape == w.shape
+        torch.testing.assert_close(g, w, atol=ATOL, rtol=0)
+
+
+def test_row_wrappers_check_their_inputs(cuda):
+    x = _row_inputs(12, 5, 1, cuda)
+    (sr, si), (gr, gi) = x["s"], x["g"]
+    with pytest.raises(ValueError, match="float32"):
+        krl.row_fwd(gr, gi, sr.double(), si)
+    with pytest.raises(ValueError, match="contiguous"):
+        krl.row_bwd(gr, gi, sr, si, sr.t().contiguous().t(), si)
+    with pytest.raises(ValueError, match="unsupported shape"):  # nkernel 12 > 11
+        g12 = torch.zeros((12, 4), device=cuda)
+        krl.row_fwd(g12, g12, sr, si)
+    with pytest.raises(ValueError, match="unsupported shape"):  # 32 rows: not whole blocks of 2^6
+        g6 = torch.zeros((6, 4), device=cuda)
+        krl.row_bwd_const(g6, g6, sr, si)
+
+
+@pytest.mark.parametrize("n,L", [(12, 2), (20, 4)])
+def test_hea_gradient_on_card_matches_cpu(cuda, n, L):
+    """The HEA energy and its gradient through ``Circuit`` on the card (K6
+    forward, K7 and K8 backward) against the CPU path, and the launches
+    one step takes: K6 2L+1, K7 2L, K8 1."""
+    w0 = np.random.default_rng(n + L).normal(size=(L, 2, n)) * 0.1
+
+    def run(dev):
+        w = convert.params(w0, dev).requires_grad_()
+        e = hea_energy(tct, n, w, device=dev)
+        (g,) = torch.autograd.grad(e, w)
+        assert g.device == w.device
+        return e.item(), convert.to_numpy(g)
+
+    for k in (krl.row_fwd, krl.row_bwd, krl.row_bwd_const):
+        k.launches = 0
+    e_card, g_card = run(cuda)
+    launches = (krl.row_fwd.launches, krl.row_bwd.launches, krl.row_bwd_const.launches)
+    assert launches == (2 * L + 1, 2 * L, 1)
+    e_cpu, g_cpu = run("cpu")
+    assert abs(e_card - e_cpu) <= 1e-4
+    np.testing.assert_allclose(g_card, g_cpu, rtol=0, atol=1e-4)

@@ -1,0 +1,267 @@
+"""The port's row-layer kernels and fused single-qubit layers against the
+JAX package, on the CPU.
+
+The plain versions of K6 (``kernels_rowlayer.row_fwd``), K7 (``row_bwd``)
+and K8 (``row_bwd_const``) are held against the JAX Pallas kernels
+``_pallas_row_fwd``, ``_pallas_row_bwd`` and ``_pallas_row_bwd_const`` run in
+interpret mode, on the same numpy-seeded inputs, with and without the lane
+matrix; the autograd boundaries ``row_layer``, ``row_layer_lane`` and
+``row_layer_const`` against the JAX custom VJPs; ``fused_single_qubit_layer``
+and ``fused_rx_layer`` against the JAX dispatch layer.  The kernels
+themselves run only on a CUDA card (``tests/test_torch_cuda.py``).
+
+Tolerance: both sides compute in float32, in another order, on unit-norm
+states and unitary gates (the backward rebuilds states by un-application):
+1e-5 absolute on every output, the planes, the gate cotangent dg and the
+lane cotangent dM (each of those a sum of 2^n products of size ~2^-n).
+The fused layers at n <= 18: state 2e-6 and gradients 1e-5 absolute; at
+n=20, where each gradient entry is a float32 sum over 2^20 amplitudes
+taken in another order, 1e-4.  complex128 keeps the per-qubit formulation
+on both sides: 1e-10.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import tensorcircuit_ng_tpu as tc
+from tensorcircuit_ng_tpu.core import kernels as jkernels
+from tensorcircuit_ng_tpu.core import kernels_rowlayer as jkrl
+
+from tensorcircuit_ng_tpu_torch.core import kernels
+from tensorcircuit_ng_tpu_torch.core import kernels_rowlayer as krl
+
+ATOL = 1e-5
+
+
+def _interpret(fn):
+    jkernels.set_interpret_mode(True)
+    try:
+        return fn()
+    finally:
+        jkernels.set_interpret_mode(False)
+
+
+def _unitaries(rng, k, dim):
+    """k Haar-like unitaries (dim, dim) by numpy QR."""
+    a = rng.standard_normal((k, dim, dim)) + 1j * rng.standard_normal((k, dim, dim))
+    return np.linalg.qr(a)[0]
+
+
+def _state(rng, size):
+    psi = rng.standard_normal(size) + 1j * rng.standard_normal(size)
+    return psi / np.linalg.norm(psi)
+
+
+def _planes(z):
+    z = np.asarray(z).reshape(-1, 128)
+    return z.real.astype(np.float32), z.imag.astype(np.float32)
+
+
+def _row_inputs(nkernel, blocks, seed):
+    """Unit-norm state planes, unitary gates (nkernel, 2, 2) and lane
+    matrix, and a cotangent, as float32 numpy planes."""
+    rng = np.random.default_rng(seed)
+    r = blocks * 2**nkernel
+    g = _unitaries(rng, nkernel, 2)
+    m = _unitaries(rng, 1, 128)[0]
+    return {
+        "s": _planes(_state(rng, r * 128)),
+        "ct": _planes(_state(rng, r * 128)),
+        "g": (g.real.astype(np.float32), g.imag.astype(np.float32)),
+        "m": _planes(m),
+    }
+
+
+def _t(*arrays):
+    return [torch.as_tensor(a) for a in arrays]
+
+
+def _j(*arrays):
+    return [jnp.asarray(a) for a in arrays]
+
+
+def _assert_all_close(got, want):
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        g = g.numpy() if isinstance(g, torch.Tensor) else np.asarray(g)
+        w = np.asarray(w)
+        assert g.shape == w.shape, (g.shape, w.shape)
+        np.testing.assert_allclose(g, w, rtol=0, atol=ATOL)
+
+
+CASES = [(nk, blocks, lane) for nk in (3, 5) for blocks in (2, 4) for lane in (False, True)]
+
+
+@pytest.mark.parametrize("nkernel,blocks,lane", CASES)
+def test_row_fwd_plain_matches_pallas(nkernel, blocks, lane):
+    x = _row_inputs(nkernel, blocks, seed=10 * nkernel + blocks)
+    lane_args = list(x["m"]) if lane else []
+    want = _interpret(lambda: jkrl._pallas_row_fwd(*_j(*x["g"], *x["s"], *lane_args)))
+    got = krl.row_fwd_plain(*_t(*x["g"], *x["s"], *lane_args))
+    _assert_all_close(got, want)
+    # the CPU wrapper is the plain version
+    _assert_all_close(krl.row_fwd(*_t(*x["g"], *x["s"], *lane_args)), want)
+
+
+@pytest.mark.parametrize("nkernel,blocks,lane", CASES)
+def test_row_bwd_plain_matches_pallas(nkernel, blocks, lane):
+    x = _row_inputs(nkernel, blocks, seed=20 * nkernel + blocks)
+    lane_args = list(x["m"]) if lane else []
+    # the layer's output: the backward rebuilds its input from it
+    y = [t.numpy() for t in krl.row_fwd_plain(*_t(*x["g"], *x["s"], *lane_args))]
+    want = _interpret(lambda: jkrl._pallas_row_bwd(*_j(*x["g"], *y, *x["ct"], *lane_args)))
+    got = krl.row_bwd_plain(*_t(*x["g"], *y, *x["ct"], *lane_args))
+    assert len(got) == (6 if lane else 4)
+    _assert_all_close(got, want)  # ds planes, dg planes (nkernel, 2, 2), dM planes
+
+
+@pytest.mark.parametrize("nkernel,blocks", [(3, 2), (3, 4), (5, 2), (5, 4)])
+def test_row_bwd_const_plain_matches_pallas(nkernel, blocks):
+    x = _row_inputs(nkernel, blocks, seed=30 * nkernel + blocks)
+    want = _interpret(lambda: jkrl._pallas_row_bwd_const(*_j(*x["g"], *x["ct"])))
+    got = krl.row_bwd_const_plain(*_t(*x["g"], *x["ct"]))
+    _assert_all_close(got, want)
+
+
+@pytest.mark.parametrize("nkernel,blocks", [(3, 4), (5, 2)])
+def test_plain_versions_match_the_einsum_references(nkernel, blocks):
+    """K6/K7's plain versions against the port's own einsum references."""
+    x = _row_inputs(nkernel, blocks, seed=40 * nkernel + blocks)
+    gates = torch.complex(*_t(*x["g"]))
+    s = torch.complex(*_t(*x["s"]))
+    ct = torch.complex(*_t(*x["ct"]))
+    yr, yi = krl.row_fwd_plain(*_t(*x["g"], *x["s"]))
+    _assert_all_close([torch.complex(yr, yi)], [krl._row_layer_reference(s, gates).numpy()])
+    y = torch.complex(yr, yi)
+    ds, dg = krl._row_bwd_reference(y, gates, ct)
+    dsr, dsi, dgr, dgi = krl.row_bwd_plain(*_t(*x["g"]), yr, yi, *_t(*x["ct"]))
+    _assert_all_close([dsr, dsi, dgr, dgi], [ds.real, ds.imag, dg.real, dg.imag])
+
+
+def _boundary(kind, mod, state2d, gates, mlane):
+    if kind == "lane":
+        return mod.row_layer_lane(state2d, gates, mlane)
+    return getattr(mod, {"row": "row_layer", "const": "row_layer_const"}[kind])(state2d, gates)
+
+
+@pytest.mark.parametrize("kind", ["row", "lane", "const"])
+def test_row_layer_boundaries_match_jax_vjp(kind):
+    """Value and gradients of L = Re Σ conj(w) · layer(s, g[, M]); torch's
+    gradient of a complex input is the conjugate of the JAX package's."""
+    rng = np.random.default_rng({"row": 1, "lane": 2, "const": 3}[kind])
+    nk, r = 4, 32
+    s = _state(rng, r * 128).reshape(r, 128).astype(np.complex64)
+    g = _unitaries(rng, nk, 2).astype(np.complex64)
+    m = _unitaries(rng, 1, 128)[0].astype(np.complex64)
+    w = (rng.standard_normal((r, 128)) + 1j * rng.standard_normal((r, 128))).astype(np.complex64)
+
+    def jloss(s_, g_, m_):
+        return jnp.real(jnp.sum(jnp.conj(w) * _boundary(kind, jkrl, s_, g_, m_)))
+
+    jv, jgrads = jax.value_and_grad(jloss, argnums=(0, 1, 2))(*_j(s, g, m))
+    ts, tg, tm = (torch.as_tensor(a).requires_grad_() for a in (s, g, m))
+    tv = torch.real(torch.sum(torch.conj(torch.as_tensor(w)) * _boundary(kind, krl, ts, tg, tm)))
+    grads = torch.autograd.grad(tv, (ts, tg, tm), allow_unused=True)
+    assert abs(tv.item() - float(jv)) <= ATOL * max(1.0, abs(float(jv)))
+    for got, want in zip(grads, jgrads):
+        want = np.asarray(want)
+        if kind != "lane" and want.shape == (128, 128):
+            assert got is None  # M feeds only the lane boundary
+            continue
+        np.testing.assert_allclose(np.conj(got.numpy()), want, rtol=0, atol=ATOL)
+
+
+def _layer_inputs(n, seed, dtype=np.complex64):
+    rng = np.random.default_rng(seed)
+    return _state(rng, 2**n).astype(dtype), _unitaries(rng, n, 2).astype(dtype), rng
+
+
+@pytest.mark.parametrize(
+    "n,constant,fuse_lane",
+    [
+        (8, False, False), (8, True, False), (8, False, True),  # nouter 0, nkernel 1
+        (12, False, False), (12, True, False), (12, False, True),  # nkernel 5
+        (18, False, False), (18, True, False), (18, False, True),  # nkernel 11, nouter 0
+        (20, False, False),  # nkernel 11, nouter 2: the path's shape
+    ],
+)
+def test_fused_single_qubit_layer_matches_jax(n, constant, fuse_lane):
+    """State and gradients (in the input state and in the gates) of
+    L = Re Σ conj(w) · layer(psi, gates)."""
+    psi, g, rng = _layer_inputs(n, seed=n + 2 * constant + 4 * fuse_lane)
+    w = _state(rng, 2**n).astype(np.complex64)
+
+    def jloss(p, gg):
+        out = jkernels.fused_single_qubit_layer_pallas(p, gg, fuse_lane=fuse_lane, constant=constant)
+        return jnp.real(jnp.sum(jnp.conj(w) * out)), out
+
+    (jv, jout), (jdp, jdg) = jax.value_and_grad(jloss, argnums=(0, 1), has_aux=True)(*_j(psi, g))
+    tp, tg = (torch.as_tensor(a).requires_grad_() for a in (psi, g))
+    out = kernels.fused_single_qubit_layer_pallas(tp, tg, fuse_lane=fuse_lane, constant=constant)
+    tv = torch.real(torch.sum(torch.conj(torch.as_tensor(w)) * out))
+    dp, dg = torch.autograd.grad(tv, (tp, tg))
+    gtol = 1e-4 if n >= 20 else 1e-5
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(jout), rtol=0, atol=2e-6)
+    np.testing.assert_allclose(np.conj(dp.numpy()), np.asarray(jdp), rtol=0, atol=gtol)
+    np.testing.assert_allclose(np.conj(dg.numpy()), np.asarray(jdg), rtol=0, atol=gtol)
+    if not (constant or fuse_lane):  # the default entry point takes the same path
+        again = kernels.fused_single_qubit_layer(torch.as_tensor(psi), torch.as_tensor(g))
+        np.testing.assert_allclose(again.numpy(), np.asarray(jout), rtol=0, atol=2e-6)
+
+
+@pytest.mark.parametrize("n", [8, 12, 18])
+def test_fused_rx_layer_matches_jax(n):
+    rng = np.random.default_rng(50 + n)
+    psi = _state(rng, 2**n).astype(np.complex64)
+    th = (rng.standard_normal(n) * 0.7).astype(np.float32)
+    w = _state(rng, 2**n).astype(np.complex64)
+
+    def jloss(t):
+        return jnp.real(jnp.sum(jnp.conj(w) * jkernels.fused_rx_layer(jnp.asarray(psi), t)))
+
+    jv, jdth = jax.value_and_grad(jloss)(jnp.asarray(th))
+    tth = torch.as_tensor(th).requires_grad_()
+    tv = torch.real(torch.sum(torch.conj(torch.as_tensor(w)) * kernels.fused_rx_layer(torch.as_tensor(psi), tth)))
+    (dth,) = torch.autograd.grad(tv, tth)
+    assert abs(tv.item() - float(jv)) <= 2e-6 * 2**(n / 2)
+    np.testing.assert_allclose(dth.numpy(), np.asarray(jdth), rtol=0, atol=1e-5)
+
+
+def test_fused_rx_layer_rotx_route_names_the_unported_kernels(monkeypatch):
+    monkeypatch.setattr(kernels, "USE_ROTX", True)
+    with pytest.raises(NotImplementedError, match="_pallas_rotx_fwd"):
+        kernels.fused_rx_layer(torch.ones(2**8, dtype=torch.complex64), torch.zeros(8))
+
+
+def test_block_kron_layer_matches_jax():
+    psi, g, _ = _layer_inputs(10, seed=61)
+    want = jkernels.block_kron_layer(jnp.asarray(psi), jnp.asarray(g), block=4)
+    got = kernels.block_kron_layer(torch.as_tensor(psi), torch.as_tensor(g), block=4)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=2e-6)
+
+
+def test_complex128_takes_the_per_qubit_formulation(monkeypatch):
+    """A rule of the dtype: the row kernels compute in float32 planes, so a
+    complex128 state never reaches them, on any device."""
+    def refuse(*args, **kws):
+        raise AssertionError("a complex128 state reached a float32 row kernel")
+
+    for name in ("row_layer", "row_layer_lane", "row_layer_const"):
+        monkeypatch.setattr(krl, name, refuse)
+    psi, g, _ = _layer_inputs(12, seed=71, dtype=np.complex128)
+    for fuse_lane, constant in ((False, False), (True, False), (False, True)):
+        got = kernels.fused_single_qubit_layer_pallas(
+            torch.as_tensor(psi), torch.as_tensor(g), fuse_lane=fuse_lane, constant=constant
+        )
+        assert got.dtype == torch.complex128
+        want = kernels._apply_layer_reference(torch.as_tensor(psi), torch.as_tensor(g))
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=1e-12)
+    tc.set_dtype("complex128")  # the JAX package's own switch to float64
+    try:
+        jwant = jkernels._apply_layer_reference(jnp.asarray(psi), jnp.asarray(g))
+    finally:
+        tc.set_dtype("complex64")
+    np.testing.assert_allclose(got.numpy(), np.asarray(jwant), rtol=0, atol=1e-10)

@@ -144,7 +144,29 @@ def test_kernel_wrappers_refuse_other_devices():
 
 
 def test_h_layer_on_inputs_needs_unported_kernel():
-    c = tct.Circuit(3, inputs=np.eye(8)[0], device="cpu")
+    """h_layer on ``inputs=`` is not folded: it runs as a constant row layer
+    (K8 backward on the card; here the plain versions) and matches the
+    dense H^{(x)n} on the input state.  The name dates from before the row
+    kernels were ported, when this raised NotImplementedError."""
+    n = 9
+    rng = np.random.default_rng(0)
+    psi = rng.standard_normal(2**n) + 1j * rng.standard_normal(2**n)
+    psi /= np.linalg.norm(psi)
+    c = tct.Circuit(n, inputs=psi, device="cpu")
     c.h_layer()
-    with pytest.raises(NotImplementedError, match="row_layer_const"):
-        c.state()
+    hn = np.ones((1, 1))
+    for _ in range(n):
+        hn = np.kron(hn, np.array([[1, 1], [1, -1]]) / np.sqrt(2))
+    np.testing.assert_allclose(c.state().numpy(), hn @ psi, rtol=0, atol=2e-6)
+
+
+def test_row_kernel_wrappers_refuse_other_devices():
+    """K6, K7 and K8 take a plain version only for CPU tensors."""
+    sr = torch.empty((8, 128), device="meta")
+    g = torch.zeros((3, 4))
+    with pytest.raises(ValueError, match="no kernel"):
+        kernels_rowlayer.row_fwd(g, g, sr, sr)
+    with pytest.raises(ValueError, match="no kernel"):
+        kernels_rowlayer.row_bwd(g, g, sr, sr, sr, sr)
+    with pytest.raises(ValueError, match="no kernel"):
+        kernels_rowlayer.row_bwd_const(g, g, sr, sr)
