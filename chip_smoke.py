@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA card: builds the kernels, holds
 each against its plain PyTorch version, drives the N=20 TFIM energy path
-and its training step, the n=60 TEBD path and the n=20 HEA training step
-through the public API, and times them.
+and its training step, the n=60 TEBD path, the n=20 HEA training step and
+the n=20, p=4 QAOA MaxCut training step through the public API, and times
+them.
 
     python3 chip_smoke.py
 
@@ -56,7 +57,20 @@ Phases (any failure exits non-zero; nothing is caught):
      counts reset just before and read just after (K6 9, K7 8 and K8 1 a
      step), energies and gradients against the same steps on the port's CPU
      path; the step timed (CUDA events) and profiled, each kernel and its
-     plain version timed at the path's shape over 3 rounds.
+     plain version timed at the path's shape over 3 rounds;
+  9. the QAOA path, the main path of the QAOA slice: MaxCut on the n=20
+     graph of ``examples/qaoa_maxcut_fused.py`` (37 edges, p=4); K9
+     ``ml_fwd`` and K10 ``ml_bwd`` (whole block, 12 row qubits, 256 lanes)
+     and K11 ``rotx_fwd`` and K12 ``rotx_bwd`` (nkernel=10, r=8192) against
+     their plain versions at the path's shapes (K10 and K12 twice, equal bit
+     for bit); the start energy of form (a) (``zzrx_layer`` under
+     ``ML_MODE="pallas"``), form (b) (``rzz_product`` + ``rx_layer`` under
+     ``USE_ROTX``) and form (a) under the default "stack", within 1e-5
+     relative; 5 Adam steps (lr 0.05) of each form on the card, the launch
+     counts reset just before and read just after each (K9 and K10 once a
+     step, K11 and K12 four times), against the same steps on the port's
+     CPU path; each step timed (CUDA events) and profiled, each kernel and
+     its plain version timed; the switches restored to their defaults.
 
 Prints the kernels JSON line, then the card's name and power limit, then
 ``{"ok": true, "device": {...}}`` as the last line.  Needs no network and
@@ -147,6 +161,44 @@ def hea_energy(mod, n, w, **kw):
         c.rz_layer(w[l, 1])
     c.h_layer()
     return c.expectation_zzx_energy(pairs, 1.0, -1.0)
+
+
+def qaoa_graph(n, p, seed=7):
+    """The weighted MaxCut graph and start parameters of
+    ``examples/qaoa_maxcut_fused.py``: vertex i takes ``min(2, n-1-i)``
+    partners above it with weights uniform in [0.5, 1.5], then 2p angles
+    (γ_1..γ_p, β_1..β_p) uniform in [0.1, 0.5], float32, from the same rng.
+    Returns ``(edges [(a, b, w)], params)``."""
+    rng = np.random.default_rng(seed)
+    edges = []
+    for i in range(n):
+        cand = np.arange(i + 1, n)
+        if len(cand):
+            for j in rng.choice(cand, size=min(2, len(cand)), replace=False):
+                edges.append((i, int(j), float(rng.uniform(0.5, 1.5))))
+    return edges, rng.uniform(0.1, 0.5, size=2 * p).astype(np.float32)
+
+
+def qaoa_energy(mod, arr, n, edges, params, form="zzrx", **kw):
+    """The QAOA MaxCut cost Σ w/2 ⟨Z_a Z_b⟩ written against the public
+    ``Circuit`` API that the port shares with the JAX package (``mod`` is
+    either; ``arr`` makes a float32 array of that framework from numpy):
+    h_layer, then for each round r either one ``zzrx_layer(edges, w·γ_r,
+    2β_r)`` (``form="zzrx"``) or ``rzz_product(edges, w·γ_r)`` and
+    ``rx_layer(2β_r)`` (``form="rzz_rx"``), the same circuit."""
+    p = params.shape[0] // 2
+    pairs = [(a, b) for a, b, _ in edges]
+    w = arr([x for _, _, x in edges])
+    ones = arr(np.ones(n))
+    c = mod.Circuit(n, **kw)
+    c.h_layer()
+    for r in range(p):
+        if form == "zzrx":
+            c.zzrx_layer(pairs, w * params[r], ones * (2.0 * params[p + r]))
+        else:
+            c.rzz_product(pairs, w * params[r])
+            c.rx_layer(ones * (2.0 * params[p + r]))
+    return c.expectation_ising_sum(zz_terms=[(a, b, 0.5 * x) for a, b, x in edges])
 
 
 def _fail(msg: str) -> None:
@@ -529,6 +581,227 @@ def _hea_phase(tct, krl, dev, card):
             "replaces": f"tensorcircuit_ng_tpu/core/kernels_rowlayer.py:{replaces[name]}",
             "launches": launches[name], "max_abs_err": max_err[name], "ms": t[0], "plain_ms": tp[0],
             "bound_ms": bound, "bound_by": by, "library_ms": None,
+        })
+    return entries
+
+
+#: QAOA: rounds, Adam rate (``optax.adam(0.05)``'s defaults), and the
+#: relative spread allowed between the energies of the two forms and the
+#: stack path at the start parameters (one function, float32 sums over 2^20
+#: amplitudes taken in three orders)
+QAOA_P = 4
+QAOA_LR = 0.05
+QAOA_FORMS_RTOL = 1e-5
+
+
+def _ml_work(r, lanes, npairs, nrow, L, kind):
+    """(bytes, flops) of K9 ("fwd") or K10 ("bwd") at L layers on the
+    (r, lanes) planes.  K9 reads two state planes and writes two, reads the
+    angles and the L lane planes; per layer and amplitude 2 flops a pair + 6
+    for the phase, 6 an rx stage and 8·lanes for the complex lane product.
+    K10 reads y and ct and writes ds, reads the lane planes and writes dM;
+    per layer and amplitude three complex lane products (un-lane, ct walk,
+    dM), 20 flops an rx stage (un-apply, the two dθ sums, the walk) and 4 a
+    pair + 9 for the zz stage (exponent, dzz sum, phase walk and
+    un-apply)."""
+    amps = r * lanes
+    mats = L * 2 * 4 * lanes * lanes
+    angles = 4 * L * (npairs + nrow)
+    if kind == "fwd":
+        return 4 * 4 * amps + mats + angles + 8 * npairs, L * amps * (2 * npairs + 6 + 6 * nrow + 8 * lanes)
+    return (6 * 4 * amps + 2 * mats + 2 * angles + 8 * npairs,
+            L * amps * (3 * 8 * lanes + 20 * nrow + 4 * npairs + 9))
+
+
+def _rotx_work(r, nkernel, kind):
+    """(bytes, flops) of K11 ("fwd": two state planes in, two out, 6 flops
+    an amplitude a qubit) or K12 ("bwd": y and ct in, ds and dθ out, 20
+    flops an amplitude a qubit: un-apply, the two dθ sums, the walk)."""
+    amps = r * 128
+    if kind == "fwd":
+        return 4 * 4 * amps + 4 * nkernel, 6 * nkernel * amps
+    return 6 * 4 * amps + 2 * 4 * nkernel, 20 * nkernel * amps
+
+
+def _qaoa_phase(tct, krl, dev, card, counters):
+    """Phase 9, the QAOA path (the main path of the QAOA slice): K9-K12
+    against their plain versions at the path's shapes; the start energy of
+    form (a) under ML_MODE="pallas", form (b) under USE_ROTX and form (a)
+    under the default "stack"; 5 Adam steps of each form on the card with
+    every kernel's launches read, against the same steps on the CPU; the
+    steps timed and profiled, each kernel timed at its path shape.  The
+    switches are restored afterwards.  Returns the kernels line's entries."""
+    import torch
+    from tensorcircuit_ng_tpu_torch.core import kernels, kernels_multilayer as kml
+    from tensorcircuit_ng_tpu_torch.core import kernels_stack as kst
+
+    n = N
+    edges, params0 = qaoa_graph(n, QAOA_P)
+    npairs = len(edges)
+    pairs = tuple((a, b) for a, b, _ in edges)
+    nrow = min(n - 7, kml.MAX_ML_ROW_QUBITS)
+    lanes, r = 2 ** (n - nrow), 2**nrow
+    nk = min(n - 7, krl.MAX_KERNEL_QUBITS_ROTX)
+    rng = np.random.default_rng(19)
+
+    def unit_planes(width):
+        z = rng.normal(size=2**n) + 1j * rng.normal(size=2**n)
+        return tct.convert.planes(z / np.linalg.norm(z), dev, lanes=width)
+
+    # the path's angles: zz = w·γ_r, rx = 2β_r on every qubit; the lane
+    # planes are the transposed rx krons the dispatch builds (unitary)
+    p0 = tct.convert.params(params0, dev)
+    w = tct.convert.params([x for _, _, x in edges], dev)
+    zz = w[None, :] * p0[:QAOA_P, None]
+    rx = (2.0 * p0[QAOA_P:, None]).expand(QAOA_P, n).contiguous()
+    mr, mi = kst._lane_kron_planes_T(rx[:, nrow:])
+    th_row = rx[:, :nrow].contiguous()
+    sr, si = unit_planes(lanes)
+    ctr, cti = unit_planes(lanes)
+    th_k = rx[0, n - 7 - nk:n - 7].contiguous()
+    xr, xi = unit_planes(128)
+    c2r, c2i = unit_planes(128)
+    with torch.no_grad():
+        y_ml = kml.ml_fwd_plain(pairs, n, zz, th_row, sr, si, mr, mi)
+        y_rx = krl.rotx_fwd_plain(th_k, xr, xi)
+    ml = (pairs, n, zz, th_row)
+    cases = {
+        "ml_fwd": [(f"L={QAOA_P} lanes={lanes}", lambda: kml.ml_fwd(*ml, sr, si, mr, mi),
+                    lambda: kml.ml_fwd_plain(*ml, sr, si, mr, mi))],
+        "ml_bwd": [(f"L={QAOA_P} lanes={lanes}", lambda: kml.ml_bwd(*ml, *y_ml, ctr, cti, mr, mi),
+                    lambda: kml.ml_bwd_plain(*ml, *y_ml, ctr, cti, mr, mi))],
+        "rotx_fwd": [(f"nkernel={nk} r={2**(n - 7)}", lambda: krl.rotx_fwd(th_k, xr, xi),
+                      lambda: krl.rotx_fwd_plain(th_k, xr, xi))],
+        "rotx_bwd": [(f"nkernel={nk} r={2**(n - 7)}", lambda: krl.rotx_bwd(th_k, *y_rx, c2r, c2i),
+                      lambda: krl.rotx_bwd_plain(th_k, *y_rx, c2r, c2i))],
+    }
+    print(f"QAOA kernel parity at n={n}: {npairs} edges, whole-block nrow={nrow}, {lanes} lanes; "
+          f"rotx nkernel={nk}")
+    max_err = _check_parity(cases, twice=("ml_bwd", "rotx_bwd"))
+
+    forms = {"a": ("zzrx", "pallas", False), "b": ("rzz_rx", "stack", True), "a-stack": ("zzrx", "stack", False)}
+
+    def energy(p, form, device):
+        return qaoa_energy(tct, lambda a: tct.convert.params(a, device), n, edges, p, forms[form][0],
+                           device=device)
+
+    def use(form):
+        kernels.ML_MODE, kernels.USE_ROTX = forms[form][1:]
+
+    def start(device):
+        # a copy: on the CPU the tensor would share the numpy start angles,
+        # which Adam updates in place
+        return tct.convert.params(params0, device).clone().requires_grad_()
+
+    def adam_steps(form, device, steps):
+        p = start(device)
+        opt = torch.optim.Adam([p], lr=QAOA_LR)
+        out = []
+        for _ in range(steps):
+            e = energy(p, form, device)
+            (p.grad,) = torch.autograd.grad(e, p)
+            out.append((e.item(), p.grad.cpu().numpy().copy()))
+            opt.step()
+        return out
+
+    entries, launches = [], {}
+    try:
+        with torch.no_grad():
+            e0 = {}
+            for form in forms:
+                use(form)
+                e0[form] = energy(p0, form, dev).item()
+        spread = max(abs(e - e0["a-stack"]) for e in e0.values()) / abs(e0["a-stack"])
+        print(f"QAOA n={n} p={QAOA_P} start energy: (a) pallas {e0['a']:.7f}, (b) rotx {e0['b']:.7f}, "
+              f"(a) stack {e0['a-stack']:.7f}; relative spread {spread:.2e} (tol {QAOA_FORMS_RTOL:g})")
+        if not (np.isfinite(list(e0.values())).all() and spread <= QAOA_FORMS_RTOL):
+            _fail("the QAOA forms disagree at the start parameters")
+
+        card_steps = {}
+        for form in ("a", "b"):
+            use(form)
+            for k in counters:
+                k.launches = 0
+            card_steps[form] = adam_steps(form, dev, STEPS)
+            torch.cuda.synchronize()
+            launches[form] = {k.__name__: k.launches for k in counters if k.launches}
+            print(f"QAOA form ({form}) path launches ({STEPS} Adam steps, n={n} p={QAOA_P}): {launches[form]}")
+        want = {"a": {"ml_fwd": STEPS, "ml_bwd": STEPS},
+                "b": {"rotx_fwd": QAOA_P * STEPS, "rotx_bwd": QAOA_P * STEPS}}
+        if launches != want:
+            _fail(f"the QAOA path did not launch {want}: {launches}")
+        for form in ("a", "b"):
+            use(form)
+            cpu = adam_steps(form, "cpu", STEPS)
+            for i, ((e_card, g_card), (e, g)) in enumerate(zip(card_steps[form], cpu)):
+                de, dg = abs(e_card - e), float(np.abs(g_card - g).max())
+                print(f"QAOA form ({form}) step {i}: E card {e_card:.7f} cpu {e:.7f} |dE| {de:.2e} "
+                      f"(tol {ENERGY_ATOL:g}); max|dgrad| {dg:.2e} of max|grad| {float(np.abs(g).max()):.3e} "
+                      f"(tol {GRAD_ATOL:g})")
+                if not (np.isfinite(e_card) and np.all(np.isfinite(g_card)) and g_card.shape == (2 * QAOA_P,)):
+                    _fail("QAOA step: non-finite or misshapen result")
+                if de > ENERGY_ATOL or dg > GRAD_ATOL:
+                    _fail(f"QAOA form ({form}) step {i} on the card disagrees with the CPU path")
+            if not card_steps[form][-1][0] < card_steps[form][0][0]:
+                _fail(f"{STEPS} Adam steps of QAOA form ({form}) did not lower the cost")
+
+        # timings: each form's step (value, grad, Adam update), profiled
+        step_ms = {}
+        for form in ("a", "b"):
+            use(form)
+            p = start(dev)
+            opt = torch.optim.Adam([p], lr=QAOA_LR)
+
+            def step():
+                e = energy(p, form, dev)
+                (p.grad,) = torch.autograd.grad(e, p)
+                opt.step()
+                return e.item()
+
+            step_ms[form] = _time_ms(step, inner=1)
+            host, busy, by_kernel = _profile(step)
+            print(f"QAOA form ({form}) training step n={n} p={QAOA_P} (value, grad, Adam update; CUDA "
+                  f"events, ends in .item()), {card}: {step_ms[form]:.3f} ms (median of 20)")
+            print(f"profile QAOA form ({form}) step (torch.profiler, 10 runs), {card}: host {host:.3f} ms "
+                  f"under the profiler, device busy {busy:.3f} ms ({100 * busy / host:.1f} % of it; "
+                  f"{100 * busy / step_ms[form]:.1f} % of the unprofiled {step_ms[form]:.3f} ms), "
+                  f"{len(by_kernel)} kernel names")
+            for name, ms, count in by_kernel[:12]:
+                print(f"  device {ms:.4f} ms x{count:g}/run  {name[:90]}")
+            # the kernels' own device time a launch on the step, stage by stage
+            stages = {"a": ("ml_row_fwd_kernel", "wide_lane_kernel<0>", "wide_lane_kernel<2>",
+                            "wide_lane_kernel<1>", "wide_dm_kernel", "ml_row_bwd_kernel", "colsum_kernel"),
+                      "b": ("rotx_fwd_kernel", "rotx_bwd_kernel", "colsum_kernel")}[form]
+            for stage in stages:
+                for name, ms, count in by_kernel:
+                    if stage in name:
+                        print(f"device time a launch on the QAOA form ({form}) step, {stage}: "
+                              f"{1e3 * ms / count:.2f} us (x{count:g}/step)")
+    finally:
+        kernels.ML_MODE, kernels.USE_ROTX = "stack", False
+
+    with torch.no_grad():
+        times = {k: (_time_rounds(v[0][1]), _time_rounds(v[0][2], **PLAIN_TIMING)) for k, v in cases.items()}
+    work = {
+        "ml_fwd": _ml_work(r, lanes, npairs, nrow, QAOA_P, "fwd"),
+        "ml_bwd": _ml_work(r, lanes, npairs, nrow, QAOA_P, "bwd"),
+        "rotx_fwd": _rotx_work(2 ** (n - 7), nk, "fwd"),
+        "rotx_bwd": _rotx_work(2 ** (n - 7), nk, "bwd"),
+    }
+    source = {"ml_fwd": "multilayer", "ml_bwd": "multilayer", "rotx_fwd": "row_layer", "rotx_bwd": "row_layer"}
+    replaces = {"ml_fwd": "kernels_multilayer.py:326", "ml_bwd": "kernels_multilayer.py:358",
+                "rotx_fwd": "kernels_rowlayer.py:650", "rotx_bwd": "kernels_rowlayer.py:680"}
+    for name, (t, tp) in times.items():
+        bound, by = _bound_ms(*work[name])
+        n_launch = launches["a" if name.startswith("ml") else "b"][name]
+        print(f"kernel {name} [{cases[name][0][0]}, n={n}] over 3 rounds, {card}: median {t[0]:.4f} ms "
+              f"(min {t[1]:.4f}, max {t[2]:.4f}); plain median {tp[0]:.4f} ms (min {tp[1]:.4f}, "
+              f"max {tp[2]:.4f}); bound {bound:.4f} ms ({by}); launches {n_launch} in {STEPS} steps")
+        entries.append({
+            "name": name, "route": "cuda", "source": f"tensorcircuit_ng_tpu_torch/core/csrc/{source[name]}.cu",
+            "replaces": f"tensorcircuit_ng_tpu/core/{replaces[name]}", "launches": n_launch,
+            "max_abs_err": max_err[name], "ms": t[0], "plain_ms": tp[0], "bound_ms": bound, "bound_by": by,
+            "library_ms": None,
         })
     return entries
 
@@ -946,6 +1219,14 @@ def main() -> int:
     hea_line = _hea_phase(tct, krl, dev, card)
     kernels_line["kernels"].extend(hea_line)
     print(f"phase 8 ended at {time.time() - t_start:.1f} s")
+
+    # ---- 9. the QAOA path: K9, K10, K11 and K12 ------------------------
+    from tensorcircuit_ng_tpu_torch.core import kernels_multilayer as kml
+
+    every_counter = all_counters + (krl.row_fwd, krl.row_bwd, krl.row_bwd_const, kml.ml_fwd,
+                                    kml.ml_bwd, krl.rotx_fwd, krl.rotx_bwd)
+    kernels_line["kernels"].extend(_qaoa_phase(tct, krl, dev, card, every_counter))
+    print(f"phase 9 ended at {time.time() - t_start:.1f} s")
     print(f"smoke total: {time.time() - t_start:.1f} s")
     print(json.dumps(kernels_line))
     print(card)

@@ -7,8 +7,9 @@ entry point of the port, these put their tensors on the default device
 
 - :func:`params` — a parameter grid such as the ``(L, 2, n)`` float32 array
   of the TFIM benchmark (``rng.normal(size=(L, 2, n)) * 0.1``);
-- :func:`state` — a flat complex state, and :func:`planes` its ``(r, 128)``
-  float32 (real, imag) planes in the kernels' layout;
+- :func:`state` — a flat complex state, and :func:`planes` its ``(r,
+  lanes)`` float32 (real, imag) planes in the kernels' layout (128 lanes,
+  or the whole-block kernels' 128-1024);
 - :func:`readout_spec` — an Ising readout spec ``(diag_terms, x_terms)``
   with plain ints and floats, hashable as the port's readout caches need;
 - :func:`tebd_state` — a ``ParallelTEBD`` engine's Vidal tensors, for
@@ -26,7 +27,6 @@ from .config import resolve_device
 
 __all__ = ["params", "state", "planes", "readout_spec", "tebd_state", "to_numpy"]
 
-_LANES = 128
 Device = Union[None, str, torch.device]
 
 
@@ -40,10 +40,10 @@ def state(psi: Any, device: Device = None, dtype: torch.dtype = torch.complex64)
     return torch.as_tensor(np.asarray(psi).reshape(-1), device=resolve_device(device)).to(dtype)
 
 
-def planes(psi: Any, device: Device = None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """A complex state of ``2^n >= 128`` amplitudes as contiguous
-    ``(2^n / 128, 128)`` float32 (real, imag) planes on ``device``."""
-    a = np.asarray(psi).reshape(-1, _LANES)
+def planes(psi: Any, device: Device = None, lanes: int = 128) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A complex state of ``2^n >= lanes`` amplitudes as contiguous
+    ``(2^n / lanes, lanes)`` float32 (real, imag) planes on ``device``."""
+    a = np.asarray(psi).reshape(-1, lanes)
     device = resolve_device(device)
 
     def f(x):

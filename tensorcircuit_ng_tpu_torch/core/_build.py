@@ -33,6 +33,7 @@ SOURCES: Dict[str, Path] = {
     "zzrx_bwd": _CSRC / "zzrx_bwd.cu",
     "jacobi_svd": _CSRC / "jacobi_svd.cu",
     "row_layer": _CSRC / "row_layer.cu",
+    "multilayer": _CSRC / "multilayer.cu",
 }
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = [
@@ -70,9 +71,22 @@ _SIGNATURES = {
         "tcng_row_bwd_scratch": [_I, _I, _I],
         "tcng_row_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _P],
         "tcng_row_bwd_const": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
+        "tcng_rotx_fwd": [_P, _P, _P, _P, _P, _I, _I, _P],
+        "tcng_rotx_bwd_scratch": [_I, _I],
+        "tcng_rotx_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _P],
+    },
+    "multilayer": {
+        "tcng_ml_scratch": [_I, _I, _I, _I, _I, _I],
+        "tcng_ml_fwd": [_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _P, _P, _P, _I, _I, _P],
+        "tcng_ml_bwd": [
+            _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _P, _P, _P, _I, _I, _P,
+        ],
     },
 }
-_RESTYPES = {"tcng_zzrx_bwd_scratch": ctypes.c_long, "tcng_row_bwd_scratch": ctypes.c_long}
+_RESTYPES = {
+    name: ctypes.c_long
+    for name in ("tcng_zzrx_bwd_scratch", "tcng_row_bwd_scratch", "tcng_rotx_bwd_scratch", "tcng_ml_scratch")
+}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 

@@ -24,6 +24,14 @@
 //    ct by g^T.  Returns ds = ct, dg (2, nkernel, 4) and dM.
 // K8 tcng_row_bwd_const replaces kernels_rowlayer._pallas_row_bwd_const
 //    (_const_bwd_kernel): the ct walk by g^T alone, gates in reverse.
+// K11 tcng_rotx_fwd replaces kernels_rowlayer._pallas_rotx_fwd
+//    (_rotx_fwd_kernel): rx(th_q) = [[c, -i s], [-i s, c]] on each kernel
+//    row bit, the symmetric form of K6's butterfly (angles, not gates).
+// K12 tcng_rotx_bwd replaces kernels_rowlayer._pallas_rotx_bwd
+//    (_rotx_bwd_kernel): per bit in reverse the rx un-apply, dth_q =
+//    -1/2 s Re S1 + 1/2 c Im S2 (S1 = sum ct.psi, S2 = sum pct.psi, pct
+//    the partner rows' cotangent) and the ct walk by rx^T = rx: two sums a
+//    qubit where K7 takes eight, and dth directly (no dgate -> dth chain).
 //
 // Design.  A TPU block holds RB x 128 lanes in VMEM: 2 MB at RB = 2048
 // (nkernel = 11), nine times a CTA's 227 KB of shared memory.  The row
@@ -43,6 +51,10 @@
 // 0.16 GFLOP, 0.005 ms, bound by bytes; with the lane the 1.07 GFLOP of
 // lane products bound it by operations (0.018 ms); K7 without the lane
 // moves 25 MB for 0.5 GFLOP (0.0076 ms, bytes); K8 as K6 (0.005 ms).
+// K11 and K12 use K6's and K7's tiles: at n = 20, nkernel = 10 (r = 8192),
+// K11 moves 16.8 MB (0.005 ms, bytes) and K12 25 MB (0.0075 ms, bytes);
+// K12's dth sums are block sums into one partial a CTA, added by
+// colsum_kernel in a fixed order, as K7's dg.
 // Launch latency alone is a few microseconds, so these simple kernels sit
 // well above their bounds; the design keeps the state to one read and one
 // write a pass.  Plain f32 FMAs, no fast-math.
@@ -241,6 +253,111 @@ row_bwd_kernel(const float* psr, const float* psi, const float* ctr,
   }
 }
 
+// K11's row pass: rx(th_q) for q = 0..nkernel-1 on its bit.  x and y may
+// alias.
+__global__ void __launch_bounds__(THREADS)
+rotx_fwd_kernel(const float* xr, const float* xi, float* yr, float* yi,
+                const float* __restrict__ th, int nkernel, int ltl) {
+  extern __shared__ float smem[];
+  const int rb = 1 << nkernel;
+  const int elems = rb << ltl;
+  float* tr = smem;
+  float* ti = tr + elems;
+  float* cs = ti + elems;  // (cos, sin) of the half angles
+  for (int q = threadIdx.x; q < nkernel; q += blockDim.x)
+    sincosf(0.5f * th[q], &cs[2 * q + 1], &cs[2 * q]);
+  for (int e = threadIdx.x; e < elems; e += blockDim.x) {
+    const long off = tile_off(e, ltl, rb);
+    tr[e] = xr[off];
+    ti[e] = xi[off];
+  }
+  __syncthreads();
+  const int half = elems >> 1;
+  for (int q = 0; q < nkernel; ++q) {
+    const int ls = nkernel - 1 - q;
+    const float c = cs[2 * q], sn = cs[2 * q + 1];
+    for (int p = threadIdx.x; p < half; p += blockDim.x) {
+      int elo, ehi;
+      pair_elems(p, ls, ltl, &elo, &ehi);
+      const float ar = tr[elo], ai = ti[elo], br = tr[ehi], bi = ti[ehi];
+      tr[elo] = c * ar + sn * bi;
+      ti[elo] = c * ai - sn * br;
+      tr[ehi] = c * br + sn * ai;
+      ti[ehi] = c * bi - sn * ar;
+    }
+    __syncthreads();
+  }
+  for (int e = threadIdx.x; e < elems; e += blockDim.x) {
+    const long off = tile_off(e, ltl, rb);
+    yr[off] = tr[e];
+    yi[off] = ti[e];
+  }
+}
+
+// K12's row pass on an RB x TL tile of y and ct: writes ds and one partial
+// a CTA, part[blk] = dth[0..nkernel).
+__global__ void __launch_bounds__(THREADS)
+rotx_bwd_kernel(const float* yr, const float* yi, const float* ctr,
+                const float* cti, float* dsr, float* dsi, float* part,
+                const float* __restrict__ th, int nkernel, int ltl) {
+  extern __shared__ float smem[];
+  const int rb = 1 << nkernel;
+  const int elems = rb << ltl;
+  float* tr = smem;
+  float* ti = tr + elems;
+  float* cr = ti + elems;
+  float* ci = cr + elems;
+  float* cs = ci + elems;
+  float* red = cs + 2 * nkernel;
+  for (int q = threadIdx.x; q < nkernel; q += blockDim.x)
+    sincosf(0.5f * th[q], &cs[2 * q + 1], &cs[2 * q]);
+  for (int e = threadIdx.x; e < elems; e += blockDim.x) {
+    const long off = tile_off(e, ltl, rb);
+    tr[e] = yr[off];
+    ti[e] = yi[off];
+    cr[e] = ctr[off];
+    ci[e] = cti[off];
+  }
+  __syncthreads();
+  float* mypart = part + static_cast<long>(blockIdx.x) * nkernel;
+  const int half = elems >> 1;
+  for (int q = nkernel - 1; q >= 0; --q) {
+    const int ls = nkernel - 1 - q;
+    const float c = cs[2 * q], sn = cs[2 * q + 1];
+    float s1 = 0.f, s2 = 0.f;
+    for (int p = threadIdx.x; p < half; p += blockDim.x) {
+      int elo, ehi;
+      pair_elems(p, ls, ltl, &elo, &ehi);
+      // un-apply rx^dagger = [[c, +i s], [+i s, c]]
+      const float ar = tr[elo], ai = ti[elo], br = tr[ehi], bi = ti[ehi];
+      const float nar = c * ar - sn * bi, nai = c * ai + sn * br;
+      const float nbr = c * br - sn * ai, nbi = c * bi + sn * ar;
+      tr[elo] = nar;
+      ti[elo] = nai;
+      tr[ehi] = nbr;
+      ti[ehi] = nbi;
+      // Re S1 = sum ct.psi, Im S2 = sum pct.psi over both rows of the pair
+      const float ur = cr[elo], ui = ci[elo], vr = cr[ehi], vi = ci[ehi];
+      s1 += ur * nar - ui * nai + vr * nbr - vi * nbi;
+      s2 += vr * nai + vi * nar + ur * nbi + ui * nbr;
+      // walk: ct <- c ct - i s pct
+      cr[elo] = c * ur + sn * vi;
+      ci[elo] = c * ui - sn * vr;
+      cr[ehi] = c * vr + sn * ui;
+      ci[ehi] = c * vi - sn * ur;
+    }
+    // the block sums are also the barrier between stages
+    s1 = block_sum(s1, red);
+    s2 = block_sum(s2, red);
+    if (threadIdx.x == 0) mypart[q] = -0.5f * sn * s1 + 0.5f * c * s2;
+  }
+  for (int e = threadIdx.x; e < elems; e += blockDim.x) {
+    const long off = tile_off(e, ltl, rb);
+    dsr[off] = cr[e];
+    dsi[off] = ci[e];
+  }
+}
+
 template <bool WALK>
 cudaError_t row_apply(const RowPlan& p, const float* xr, const float* xi,
                       float* yr, float* yi, const float* gr, const float* gi,
@@ -355,6 +472,48 @@ int tcng_row_bwd_const(const float* ctr, const float* cti, float* dsr,
   if (!row_plan(r, nkernel, &p)) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(row_apply<true>(p, ctr, cti, dsr, dsi, gr, gi, nkernel,
                                           static_cast<cudaStream_t>(stream)));
+}
+
+// K11.  sr/si, yr/yi: (r, 128) planes (may alias); th (nkernel) angles.
+int tcng_rotx_fwd(const float* sr, const float* si, float* yr, float* yi,
+                  const float* th, int nkernel, int r, void* stream) {
+  RowPlan p;
+  if (!row_plan(r, nkernel, &p)) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = row_smem(2, 0, 2 * nkernel);
+  cudaError_t err = cudaFuncSetAttribute(
+      rotx_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  rotx_fwd_kernel<<<p.grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      sr, si, yr, yi, th, nkernel, p.ltl);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Floats of scratch tcng_rotx_bwd needs (-1: a shape it does not take).
+long tcng_rotx_bwd_scratch(int r, int nkernel) {
+  RowPlan p;
+  if (!row_plan(r, nkernel, &p)) return -1;
+  return static_cast<long>(p.grid) * nkernel;
+}
+
+// K12.  yr/yi: the layer's (r, 128) output planes; ctr/cti: cotangent
+// planes; dsr/dsi (r, 128) output; dth (nkernel) output; th (nkernel);
+// scratch of tcng_rotx_bwd_scratch floats.
+int tcng_rotx_bwd(const float* yr, const float* yi, const float* ctr,
+                  const float* cti, float* dsr, float* dsi, float* dth,
+                  const float* th, int nkernel, float* scratch, int r,
+                  void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  RowPlan p;
+  if (!row_plan(r, nkernel, &p)) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = row_smem(4, 0, 2 * nkernel + NWARPS);
+  cudaError_t err = cudaFuncSetAttribute(
+      rotx_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  rotx_bwd_kernel<<<p.grid, THREADS, smem, st>>>(yr, yi, ctr, cti, dsr, dsi, scratch, th,
+                                                 nkernel, p.ltl);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(colsum(scratch, p.grid, nkernel, dth, nkernel, 0, st));
 }
 
 }  // extern "C"

@@ -58,20 +58,6 @@ constexpr int TILE_ELEMS = 8192;
 // outer pass: D <= 16 (nouter <= 4)
 constexpr int MAX_NOUTER = 4;
 
-// Sum of v over the block, valid in thread 0: a warp xor-butterfly, then
-// the warp sums in order (a fixed order, so the result is reproducible).
-// Every thread must call it; it contains two barriers.
-__device__ float block_sum(float v, float* red) {
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  float t = 0.f;
-  if (threadIdx.x == 0)
-    for (int w = 0; w < NWARPS; ++w) t += red[w];
-  __syncthreads();
-  return t;
-}
-
 // The rx and zz adjoint of one layer on an RB x TL tile (all rows of a
 // block, TL lanes) of psi (pre-lane state) and ct.  Writes ds and one
 // partial a CTA: part[blk] = (dzz[0..npairs), dth[0..nkernel)).

@@ -6,9 +6,11 @@ the kernel JAX takes there; the JAX condition "on a TPU" becomes "the
 state tensor is on CUDA".  On a CPU state the port takes the JAX package's
 CPU branch: the plain versions of the kernels.  Every entry point
 differentiates end to end: the gradients go through the autograd
-boundaries of ``kernels_stack`` and ``kernels_rowlayer``.  complex128 keeps
-the plain per-qubit (or per-layer) formulation on any device: the kernels
-compute in float32 planes.
+boundaries of ``kernels_stack``, ``kernels_rowlayer`` and
+``kernels_multilayer``.  complex128 keeps the plain per-qubit (or
+per-layer) formulation on any device: the kernels compute in float32
+planes.  Two switches pick the off-default kernels, as in the JAX package:
+``ML_MODE`` for the zzrx runs and ``USE_ROTX`` for ``rx_layer``.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import numpy as np
 import torch
 
 from .. import config
+from . import kernels_multilayer as kml
 from . import kernels_rowlayer, statevec
 from . import kernels_stack as kst
 from ..ops.gates import rx_matrix
@@ -98,21 +101,37 @@ def fused_single_qubit_layer_pallas(
     return torch.reshape(psi, (-1,))
 
 
-#: route ``rx_layer`` through the theta-native rotx kernels (off in the JAX
-#: package too; they are not ported yet)
+#: route ``rx_layer`` through the theta-native rotx kernels (K11 forward,
+#: K12 backward: dθ directly); off by default, as in the JAX package
 USE_ROTX = False
 
 
 def fused_rx_layer(state: torch.Tensor, thetas: Any) -> torch.Tensor:
-    """rx(thetas[q]) on every qubit: the generic fused layer of rx gates."""
+    """rx(thetas[q]) on every qubit.
+
+    By default the generic fused layer of rx gates.  With ``USE_ROTX`` a
+    complex64 state splits as in the JAX package: the outer row qubits
+    beyond ``MAX_KERNEL_QUBITS_ROTX`` as einsums, the kernel row qubits
+    through :func:`kernels_rowlayer.rotx_row_layer`, the 7 lane qubits as
+    one kron matmul.  A complex128 state keeps the per-qubit formulation
+    (the JAX package sends it through float32 gates there)."""
     thetas = torch.reshape(torch.as_tensor(thetas, device=state.device), (-1,))
-    if USE_ROTX:
-        raise NotImplementedError(
-            "USE_ROTX needs the rotx kernels (counterparts of "
-            "kernels_rowlayer._pallas_rotx_fwd and _pallas_rotx_bwd), which "
-            "are not ported yet"
-        )
-    return fused_single_qubit_layer(state, rx_matrix(thetas, dtype=str(state.dtype).replace("torch.", "")))
+    if not USE_ROTX or state.dtype != torch.complex64:
+        return fused_single_qubit_layer(state, rx_matrix(thetas, dtype=str(state.dtype).replace("torch.", "")))
+    n = thetas.shape[0]
+    _check_width(state, n)
+    nlane = min(_LANE_QUBITS, n)
+    nrow = n - nlane
+    nkernel = min(nrow, kernels_rowlayer.MAX_KERNEL_QUBITS_ROTX)
+    nouter = nrow - nkernel
+    psi = state
+    for q in range(nouter):
+        psi = statevec.apply_unitary(psi, rx_matrix(thetas[q], dtype="complex64"), [q])
+    psi = torch.reshape(psi, (max(2**nrow, 1), 2**nlane))
+    if nkernel > 0:
+        psi = kernels_rowlayer.rotx_row_layer(psi, thetas[nouter:nrow])
+    psi = psi @ kst._rx_kron(thetas[None, nrow:])[0].T
+    return torch.reshape(psi, (-1,))
 
 
 def fused_single_qubit_layer(state: torch.Tensor, gates: Any, constant: bool = False) -> torch.Tensor:
@@ -192,21 +211,56 @@ def _stack_ok(n: int, dtype: torch.dtype) -> bool:
     return n > _LANE_QUBITS and nouter_s <= _LANE_QUBITS and dtype == torch.complex64
 
 
+#: implementation of a run of zzrx layers, as in the JAX package: "stack"
+#: (the per-layer kernels under one autograd boundary; the default),
+#: "pallas" (the whole-block kernels K9/K10, ``kernels_multilayer``), "xla"
+#: (plain matmuls, native autograd) or "perlayer" (one
+#: :func:`fused_zzrx_layer` a layer)
+ML_MODE = "stack"
+
+
 def fused_zzrx_multilayer(state, pairs, zz_thetas, rx_thetas):
     """L stacked zzrx layers: ``zz_thetas`` (L, npairs), ``rx_thetas`` (L, n).
 
-    Runs the stack path (:func:`kernels_stack.zzrx_stack_core`) where it
-    applies, else one :func:`fused_zzrx_layer` per layer."""
+    ``ML_MODE`` picks the implementation under the JAX package's conditions:
+    "stack" where the stack path applies (n > 7, at most 7 outer qubits,
+    complex64); "xla" from n = 10 with at most 128 pairs; any other mode
+    but "perlayer" the whole-block kernels, with nrow = min(n - 7, 12) row
+    qubits and at most 10 lane qubits, at most 128 pairs and complex64.
+    Every other case takes one :func:`fused_zzrx_layer` a layer."""
     zz_thetas = torch.as_tensor(zz_thetas, device=state.device)
     rx_thetas = torch.as_tensor(rx_thetas, device=state.device)
     L, n = rx_thetas.shape
     _check_width(state, n)
     pairs = _pairs(pairs)
-    if not _stack_ok(n, state.dtype):
+    # the lanes take what the whole-block row budget cannot: n=20 gives 12
+    # row qubits and 8 lane qubits (256 lanes)
+    nrow = min(n - _LANE_QUBITS, kml.MAX_ML_ROW_QUBITS)
+    nlane = n - nrow
+    if ML_MODE == "perlayer" or (ML_MODE == "stack" and not _stack_ok(n, state.dtype)) or (
+        ML_MODE == "xla" and (n < 10 or len(pairs) > kml.MAX_ML_PAIRS)
+    ) or (
+        ML_MODE not in ("stack", "xla")
+        and (
+            nrow < 1
+            or nlane > 10
+            or len(pairs) > kml.MAX_ML_PAIRS
+            or state.dtype != torch.complex64
+        )
+    ):
         psi = state
         for l in range(L):
             psi = fused_zzrx_layer(psi, pairs, zz_thetas[l], rx_thetas[l])
         return psi
+    if ML_MODE == "xla":
+        gb = min(3, n - 14) if n > 14 else 0
+        cb = min(7, n - gb - 1)
+        return kml.zzrx_multilayer_xla(pairs, n, state, zz_thetas, rx_thetas, split=(gb, cb))
+    if ML_MODE != "stack":
+        mlane = kst._rx_kron(rx_thetas[:, nrow:]).transpose(-1, -2)
+        psi = torch.reshape(state, (2**nrow, 2**nlane))
+        psi = kml.zzrx_multilayer(pairs, n, psi, zz_thetas, rx_thetas[:, :nrow], mlane)
+        return torch.reshape(psi, (-1,))
     nrow, nkernel, nouter, _ = kst._shapes(n)
     mout, mlane = kst._theta_kron_mats(n, rx_thetas)
     psi = torch.reshape(state, (2**nrow, 2**_LANE_QUBITS))
@@ -251,16 +305,17 @@ def ising_energy_dense(state, n: int, spec) -> torch.Tensor:
 def fused_zzrx_multilayer_energy(state, pairs, zz_thetas, rx_thetas, spec=((), ())):
     """L stacked zzrx layers + an Ising-family energy readout.
 
-    On a CUDA complex64 state with 1 <= nouter and nrow <=
-    ``MAX_GRAND_ROW_QUBITS`` this is the angle-level boundary
+    Under ``ML_MODE = "stack"``, on a CUDA complex64 state with 1 <= nouter
+    and nrow <= ``MAX_GRAND_ROW_QUBITS`` this is the angle-level boundary
     (:func:`kernels_stack.zzrx_stack_energy_theta`), else the matrix-level
-    one, else layers + the dense readout."""
+    one; other modes and shapes take :func:`fused_zzrx_multilayer` + the
+    dense readout."""
     zz_thetas = torch.as_tensor(zz_thetas, device=state.device)
     rx_thetas = torch.as_tensor(rx_thetas, device=state.device)
     L, n = rx_thetas.shape
     _check_width(state, n)
     pairs = _pairs(pairs)
-    if not _stack_ok(n, state.dtype):
+    if not (ML_MODE == "stack" and _stack_ok(n, state.dtype)):
         psi = fused_zzrx_multilayer(state, pairs, zz_thetas, rx_thetas)
         return ising_energy_dense(psi, n, spec)
     nrow, nkernel, nouter, _ = kst._shapes(n)

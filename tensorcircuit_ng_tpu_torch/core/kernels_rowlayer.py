@@ -13,13 +13,16 @@ wrappers and the kernels they launch on a CUDA tensor:
 - ``zzrx_fwd``: K1 (``csrc/zzrx_fwd.cu``, ``tcng_zzrx_fwd``), replaces
   ``_pallas_zzrx_fwd``;
 - ``zzrx_bwd``: K3 (``csrc/zzrx_bwd.cu``, ``tcng_zzrx_bwd``), replaces
-  ``_pallas_zzrx_bwd``.
+  ``_pallas_zzrx_bwd``;
+- ``rotx_fwd``: K11 (``csrc/row_layer.cu``, ``tcng_rotx_fwd``), replaces
+  ``_pallas_rotx_fwd``;
+- ``rotx_bwd``: K12 (``tcng_rotx_bwd``), replaces ``_pallas_rotx_bwd``.
 
 On a CPU tensor a wrapper runs its plain version (``row_fwd_plain``, ...:
 ordinary torch ops, stage by stage as the kernel takes them).  The
 wrappers are plain launch functions; the autograd boundaries are
-``row_layer``, ``row_layer_lane``, ``row_layer_const`` and
-``zzrx_row_layer`` here and the stack boundaries of ``kernels_stack``, as
+``row_layer``, ``row_layer_lane``, ``row_layer_const``, ``rotx_row_layer``
+and ``zzrx_row_layer`` here and the stack boundaries of ``kernels_stack``, as
 in the JAX package.  Qubit q is bit ``n-1-q`` of the flat index
 ``row * 128 + lane``; the row kernels act on the ``nkernel`` lowest row
 bits, gate (or angle) 0 on the most significant of them, of stride
@@ -57,6 +60,12 @@ __all__ = [
     "zzrx_bwd_plain",
     "zzrx_row_layer",
     "MAX_KERNEL_QUBITS_ZZRX",
+    "rotx_fwd",
+    "rotx_fwd_plain",
+    "rotx_bwd",
+    "rotx_bwd_plain",
+    "rotx_row_layer",
+    "MAX_KERNEL_QUBITS_ROTX",
 ]
 
 #: row qubits one block of the row-layer kernels covers (the rest are
@@ -64,6 +73,8 @@ __all__ = [
 MAX_KERNEL_QUBITS = 11
 #: row qubits one block of the zzrx kernels covers
 MAX_KERNEL_QUBITS_ZZRX = 10
+#: row qubits of the theta-native rx layer (the JAX package's dispatch limit)
+MAX_KERNEL_QUBITS_ROTX = 10
 
 _LANES = 128
 
@@ -759,3 +770,144 @@ def row_layer_const(state2d: torch.Tensor, gates: torch.Tensor) -> torch.Tensor:
     """:func:`row_layer` for constant gates: the backward is the cotangent
     walk alone (K8), the gate cotangent zero (the JAX ``row_layer_const``)."""
     return _RowLayerConst.apply(state2d, gates)
+
+
+# ---------------------------------------------------------------------------
+# the theta-native rx layer: K11 forward, K12 backward (dθ directly)
+# ---------------------------------------------------------------------------
+
+
+def rotx_fwd_plain(th, sr, si):
+    """K11's plain version: rx(th[q]) = [[c, -i s], [-i s, c]] for q =
+    0..nkernel-1 on the in-block row bit of stride ``2^nkernel >> (q+1)``."""
+    nk = th.shape[0]
+    cos, sin = torch.cos(th.to(torch.float32) / 2), torch.sin(th.to(torch.float32) / 2)
+    cr, ci = sr, si
+    for q in range(nk):
+        s = (1 << nk) >> (q + 1)
+        pr, pi = _partner(cr, s), _partner(ci, s)
+        cr, ci = cos[q] * cr + sin[q] * pi, cos[q] * ci - sin[q] * pr
+    return cr.contiguous(), ci.contiguous()
+
+
+def rotx_bwd_plain(th, yr, yi, ctr, cti):
+    """K12's plain version: from the layer's output ``(yr, yi)`` and the
+    cotangent planes ``(dL/dyr, -dL/dyi)``, per row bit in reverse the rx
+    un-apply, dθ_q = -½ sin·Re S1 + ½ cos·Im S2 (S1 = Σ ct·s, S2 = Σ pct·s,
+    plain products, pct the partner rows' cotangent) and the ct walk by
+    rx^T = rx, as the JAX ``_rotx_bwd_kernel`` takes them.  Returns
+    ``(dsr, dsi, dth (nkernel,))``."""
+    nk = th.shape[0]
+    cos, sin = torch.cos(th.to(torch.float32) / 2), torch.sin(th.to(torch.float32) / 2)
+    sr, si, cr, ci = yr, yi, ctr, cti
+    dth = [None] * nk
+    for q in range(nk - 1, -1, -1):
+        s = (1 << nk) >> (q + 1)
+        c, sn = cos[q], sin[q]
+        sr, si = c * sr - sn * _partner(si, s), c * si + sn * _partner(sr, s)
+        pcr, pci = _partner(cr, s), _partner(ci, s)
+        dth[q] = -0.5 * sn * torch.sum(cr * sr - ci * si) + 0.5 * c * torch.sum(pcr * si + pci * sr)
+        cr, ci = c * cr + sn * pci, c * ci - sn * pcr
+    dth = torch.stack(dth) if dth else torch.zeros(0, dtype=torch.float32, device=yr.device)
+    return cr.contiguous(), ci.contiguous(), dth
+
+
+def _rotx_setup(what, th, sr, *planes):
+    """Device and shape checks of a rotx launch; the angles as float32 on
+    the card."""
+    dev = sr.device
+    if dev.type != "cuda":
+        raise ValueError(f"{what}: no kernel for device {dev}")
+    th = _f32(th, dev)
+    nk = th.shape[0]
+    r, lanes = sr.shape
+    if th.dim() != 1 or lanes != _LANES or not 1 <= nk <= MAX_KERNEL_QUBITS or r % (1 << nk):
+        raise ValueError(f"{what}: unsupported shape r={r}, lanes={lanes}, nkernel={nk}")
+    _check_planes(what, dev, (r, lanes), sr, *planes)
+    return dev, th, nk, r
+
+
+def _launch_rotx_fwd(th, sr, si):
+    dev, th, nk, r = _rotx_setup("rotx_fwd", th, sr, si)
+    yr = torch.empty_like(sr)
+    yi = torch.empty_like(si)
+    lib = _build.library("row_layer")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rotx_fwd.launches += 1
+        err = lib.tcng_rotx_fwd(
+            sr.data_ptr(), si.data_ptr(), yr.data_ptr(), yi.data_ptr(), th.data_ptr(), nk, r, stream
+        )
+    _build.check("row_layer", err, "rotx_fwd")
+    return yr, yi
+
+
+def rotx_fwd(th, sr, si):
+    """K11: rx(th[q]) for q = 0..nkernel-1 (``th`` (nkernel,)) on the
+    in-block row bit of stride ``2^nkernel >> (q+1)`` of the (r, 128)
+    planes ``sr/si``.  CUDA tensors launch the kernel (``rotx_fwd.launches``
+    counts the launches); CPU tensors run :func:`rotx_fwd_plain`."""
+    if sr.device.type == "cpu":
+        return rotx_fwd_plain(th, sr, si)
+    return _launch_rotx_fwd(th, sr, si)
+
+
+rotx_fwd.launches = 0
+
+
+def _launch_rotx_bwd(th, yr, yi, ctr, cti):
+    dev, th, nk, r = _rotx_setup("rotx_bwd", th, yr, yi, ctr, cti)
+    ds = torch.empty((2, r, _LANES), dtype=torch.float32, device=dev)
+    dth = torch.empty(nk, dtype=torch.float32, device=dev)
+    lib = _build.library("row_layer")
+    scratch = torch.empty(lib.tcng_rotx_bwd_scratch(r, nk), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rotx_bwd.launches += 1
+        err = lib.tcng_rotx_bwd(
+            yr.data_ptr(), yi.data_ptr(), ctr.data_ptr(), cti.data_ptr(),
+            ds[0].data_ptr(), ds[1].data_ptr(), dth.data_ptr(), th.data_ptr(), nk,
+            scratch.data_ptr(), r, stream,
+        )
+    _build.check("row_layer", err, "rotx_bwd")
+    return ds[0], ds[1], dth
+
+
+def rotx_bwd(th, yr, yi, ctr, cti):
+    """K12: the adjoint of :func:`rotx_fwd` from its output ``(yr, yi)``
+    and the cotangent planes ``(dL/dyr, -dL/dyi)``: ``(dsr, dsi, dth)``,
+    two sums a qubit.  CUDA tensors launch the kernel
+    (``rotx_bwd.launches`` counts the launches); CPU tensors run
+    :func:`rotx_bwd_plain`."""
+    if yr.device.type == "cpu":
+        return rotx_bwd_plain(th, yr, yi, ctr, cti)
+    return _launch_rotx_bwd(th, yr, yi, ctr, cti)
+
+
+rotx_bwd.launches = 0
+
+
+class _RotxRowLayer(torch.autograd.Function):
+    """Counterpart of the JAX ``rotx_row_layer`` custom VJP: K11 forward,
+    K12 backward; the residual is the output."""
+
+    @staticmethod
+    def forward(ctx, state2d, thetas):
+        th = thetas.detach().to(torch.float32)
+        yr, yi = rotx_fwd(th, *_state_planes(state2d))
+        ctx.save_for_backward(yr, yi, th)
+        ctx.tdtype = thetas.dtype
+        return torch.complex(yr, yi).to(state2d.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        yr, yi, th = ctx.saved_tensors
+        dsr, dsi, dth = rotx_bwd(th, yr, yi, *conj_planes(g))
+        return grad_of_planes(dsr, dsi).to(g.dtype), dth.to(ctx.tdtype)
+
+
+def rotx_row_layer(state2d: torch.Tensor, thetas: torch.Tensor) -> torch.Tensor:
+    """rx(thetas[k]) on the k-th of the nkernel lowest row bits of a
+    complex64 ``(r, 128)`` view; differentiable in both through K12, which
+    returns dθ directly (the JAX ``rotx_row_layer``)."""
+    return _RotxRowLayer.apply(state2d, thetas)

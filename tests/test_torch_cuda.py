@@ -16,7 +16,10 @@ of its largest entry (about 100 float32 ulps); a circuit gradient within
 1e-4, as in ``tests/test_torch_circuit.py`` at n=20.  K5 (``jacobi_svd``) is
 held to ``chip_smoke.py``'s SVD tolerances, which state their reasons, and
 ``ParallelTEBD`` on the card (float32 Jacobi) to the CPU path in complex128
-within 1e-4, as ``chip_smoke.py`` holds it at n=60.
+within 1e-4, as ``chip_smoke.py`` holds it at n=60.  K9-K12 (the
+whole-block multilayer and rotx kernels) as K1-K8, and the QAOA cost of
+``chip_smoke.qaoa_energy`` on the card in both forms against the CPU path,
+1e-4 on energy and gradient.
 """
 
 import numpy as np
@@ -26,10 +29,13 @@ import torch
 import tensorcircuit_ng_tpu_torch as tct
 from chip_smoke import (
     SVD_ORTH_TOL, SVD_REC_TOL, SVD_S_TOL, SVD_VEC_TOL, _svd_batches, _svd_checks, hea_energy,
+    qaoa_energy, qaoa_graph,
 )
 from tensorcircuit_ng_tpu_torch import convert
 from tensorcircuit_ng_tpu_torch.core import kernels_grand as kg
+from tensorcircuit_ng_tpu_torch.core import kernels
 from tensorcircuit_ng_tpu_torch.core import kernels_jacobi as kj
+from tensorcircuit_ng_tpu_torch.core import kernels_multilayer as kml
 from tensorcircuit_ng_tpu_torch.core import kernels_rowlayer as krl
 from tensorcircuit_ng_tpu_torch.core import kernels_stack as kst
 
@@ -466,6 +472,129 @@ def test_hea_gradient_on_card_matches_cpu(cuda, n, L):
     e_card, g_card = run(cuda)
     launches = (krl.row_fwd.launches, krl.row_bwd.launches, krl.row_bwd_const.launches)
     assert launches == (2 * L + 1, 2 * L, 1)
+    e_cpu, g_cpu = run("cpu")
+    assert abs(e_card - e_cpu) <= 1e-4
+    np.testing.assert_allclose(g_card, g_cpu, rtol=0, atol=1e-4)
+
+
+def _ml_card_inputs(n, L, seed, dev):
+    """The whole-block view of n qubits (nrow = min(n-7, 12), lanes the
+    rest), unit-norm state and cotangent planes, non-adjacent pairs, angles
+    and unitary lane planes (L, lanes, lanes)."""
+    rng = np.random.default_rng(seed)
+    nrow = min(n - 7, kml.MAX_ML_ROW_QUBITS)
+    lanes = 2 ** (n - nrow)
+
+    def unit(size):
+        z = rng.normal(size=size) + 1j * rng.normal(size=size)
+        return z / np.linalg.norm(z)
+
+    cand = [(a, b) for a in range(n) for b in range(a + 2, n)]
+    pairs = tuple(cand[i] for i in rng.choice(len(cand), size=min(37, len(cand)), replace=False))
+    m = np.linalg.qr(rng.normal(size=(L, lanes, lanes)) + 1j * rng.normal(size=(L, lanes, lanes)))[0]
+    return {
+        "pairs": pairs,
+        "s": convert.planes(unit(2**n), dev, lanes=lanes),
+        "ct": convert.planes(unit(2**n), dev, lanes=lanes),
+        "zz": convert.params(rng.normal(size=(L, len(pairs))) * 0.5, dev),
+        "th": convert.params(rng.normal(size=(L, nrow)) * 0.5, dev),
+        "m": (convert.params(m.real, dev), convert.params(m.imag, dev)),
+    }
+
+
+@pytest.mark.parametrize("n,L", [(12, 3), (20, 4), (22, 2)])
+def test_ml_kernels_match_plain(cuda, n, L):
+    """K9 and K10 against their plain versions at 128 (n=12), 256 (n=20)
+    and 1024 (n=22) lanes, and K10 bit for bit against itself."""
+    x = _ml_card_inputs(n, L, n + L, cuda)
+    args = (x["pairs"], n, x["zz"], x["th"])
+    kml.ml_fwd.launches = kml.ml_bwd.launches = 0
+    with torch.no_grad():
+        y = kml.ml_fwd(*args, *x["s"], *x["m"])
+        got = kml.ml_bwd(*args, *y, *x["ct"], *x["m"])
+        again = kml.ml_bwd(*args, *y, *x["ct"], *x["m"])
+        torch.cuda.synchronize()
+        assert (kml.ml_fwd.launches, kml.ml_bwd.launches) == (1, 2)
+        for g, w in zip(y, kml.ml_fwd_plain(*args, *x["s"], *x["m"])):
+            assert g.is_cuda and g.shape == w.shape
+            torch.testing.assert_close(g, w, atol=ATOL, rtol=0)
+        want = kml.ml_bwd_plain(*args, *y, *x["ct"], *x["m"])
+    # (dsr, dsi, dzz, dth, dmr, dmi)
+    assert len(got) == len(want) == 6
+    for i, (g, g2, w) in enumerate(zip(got, again, want)):
+        assert g.shape == w.shape and torch.equal(g, g2)
+        if i < 2:
+            torch.testing.assert_close(g, w, atol=ATOL, rtol=0)
+        else:
+            _close(g, w)
+
+
+@pytest.mark.parametrize("n,nkernel", [(9, 2), (20, 10)])
+def test_rotx_kernels_match_plain(cuda, n, nkernel):
+    """K11 and K12 against their plain versions (n=20: nkernel 10, r=8192,
+    the QAOA path's shape), and K12 bit for bit against itself."""
+    x = _row_inputs(n, nkernel, 4 * n + nkernel, cuda)
+    th = convert.params(np.random.default_rng(n).normal(size=nkernel) * 0.7, cuda)
+    krl.rotx_fwd.launches = krl.rotx_bwd.launches = 0
+    with torch.no_grad():
+        y = krl.rotx_fwd(th, *x["s"])
+        got = krl.rotx_bwd(th, *y, *x["ct"])
+        again = krl.rotx_bwd(th, *y, *x["ct"])
+        torch.cuda.synchronize()
+        assert (krl.rotx_fwd.launches, krl.rotx_bwd.launches) == (1, 2)
+        for g, w in zip(y, krl.rotx_fwd_plain(th, *x["s"])):
+            torch.testing.assert_close(g, w, atol=ATOL, rtol=0)
+        want = krl.rotx_bwd_plain(th, *y, *x["ct"])
+    for i, (g, g2, w) in enumerate(zip(got, again, want)):
+        assert g.is_cuda and g.shape == w.shape and torch.equal(g, g2)
+        if i < 2:
+            torch.testing.assert_close(g, w, atol=ATOL, rtol=0)
+        else:
+            _close(g, w)
+
+
+def test_ml_and_rotx_wrappers_check_their_inputs(cuda):
+    x = _ml_card_inputs(12, 2, 1, cuda)
+    args = (x["pairs"], 12, x["zz"], x["th"])
+    sr, si = x["s"]
+    with pytest.raises(ValueError, match="float32"):
+        kml.ml_fwd(*args, sr.double(), si, *x["m"])
+    with pytest.raises(ValueError, match="unsupported shape"):  # 2048 lanes
+        w = torch.zeros((2, 2048), device=cuda)
+        kml.ml_fwd(x["pairs"], 12, x["zz"], x["th"][:, :1], w, w, *x["m"])
+    with pytest.raises(ValueError, match="zzth shape"):
+        kml.ml_bwd(x["pairs"], 12, x["zz"][:, :-1], x["th"], sr, si, sr, si, *x["m"])
+    with pytest.raises(ValueError, match="plane shape"):
+        kml.ml_fwd(*args, sr, si, x["m"][0][:1], x["m"][1][:1])
+    r = _row_inputs(12, 5, 1, cuda)
+    with pytest.raises(ValueError, match="unsupported shape"):  # nkernel 6: 32 rows
+        krl.rotx_fwd(torch.zeros(6, device=cuda), *r["s"])
+    with pytest.raises(ValueError, match="contiguous"):
+        krl.rotx_bwd(torch.zeros(5, device=cuda), *r["s"], r["ct"][0].t().contiguous().t(), r["ct"][1])
+
+
+@pytest.mark.parametrize("n,form", [(12, "zzrx"), (20, "zzrx"), (12, "rzz_rx"), (20, "rzz_rx")])
+def test_qaoa_on_card_matches_cpu(cuda, n, form, monkeypatch):
+    """The QAOA MaxCut cost at p=4 and its gradient on the card, form (a)
+    under ML_MODE="pallas" (K9 and K10 once each) and form (b) under
+    USE_ROTX (K11 and K12 four times each from n=8 on), against the CPU
+    path."""
+    edges, params = qaoa_graph(n, 4)
+    monkeypatch.setattr(kernels, "ML_MODE", "pallas" if form == "zzrx" else "stack")
+    monkeypatch.setattr(kernels, "USE_ROTX", form != "zzrx")
+
+    def run(dev):
+        p = convert.params(params, dev).requires_grad_()
+        e = qaoa_energy(tct, lambda a: convert.params(a, dev), n, edges, p, form, device=dev)
+        (g,) = torch.autograd.grad(e, p)
+        return e.item(), convert.to_numpy(g)
+
+    counters = (kml.ml_fwd, kml.ml_bwd, krl.rotx_fwd, krl.rotx_bwd)
+    for k in counters:
+        k.launches = 0
+    e_card, g_card = run(cuda)
+    launches = tuple(k.launches for k in counters)
+    assert launches == ((1, 1, 0, 0) if form == "zzrx" else (0, 0, 4, 4))
     e_cpu, g_cpu = run("cpu")
     assert abs(e_card - e_cpu) <= 1e-4
     np.testing.assert_allclose(g_card, g_cpu, rtol=0, atol=1e-4)

@@ -6,8 +6,11 @@ and K8 (``row_bwd_const``) are held against the JAX Pallas kernels
 ``_pallas_row_fwd``, ``_pallas_row_bwd`` and ``_pallas_row_bwd_const`` run in
 interpret mode, on the same numpy-seeded inputs, with and without the lane
 matrix; the autograd boundaries ``row_layer``, ``row_layer_lane`` and
-``row_layer_const`` against the JAX custom VJPs; ``fused_single_qubit_layer``
-and ``fused_rx_layer`` against the JAX dispatch layer.  The kernels
+``row_layer_const`` against the JAX custom VJPs; the plain versions of K11
+(``rotx_fwd``) and K12 (``rotx_bwd``) against ``_pallas_rotx_fwd`` and
+``_pallas_rotx_bwd`` in interpret mode and ``rotx_row_layer`` against its
+JAX custom VJP; ``fused_single_qubit_layer`` and ``fused_rx_layer`` (with
+and without ``USE_ROTX``) against the JAX dispatch layer.  The kernels
 themselves run only on a CUDA card (``tests/test_torch_cuda.py``).
 
 Tolerance: both sides compute in float32, in another order, on unit-norm
@@ -230,10 +233,96 @@ def test_fused_rx_layer_matches_jax(n):
     np.testing.assert_allclose(dth.numpy(), np.asarray(jdth), rtol=0, atol=1e-5)
 
 
-def test_fused_rx_layer_rotx_route_names_the_unported_kernels(monkeypatch):
+@pytest.mark.parametrize("nkernel,blocks", [(2, 4), (10, 2)])
+def test_rotx_plain_versions_match_pallas(nkernel, blocks):
+    """K11/K12's plain versions against ``_pallas_rotx_fwd`` /
+    ``_pallas_rotx_bwd`` in interpret mode: the planes and dθ."""
+    x = _row_inputs(nkernel, blocks, seed=60 + nkernel)
+    th = (np.random.default_rng(nkernel).standard_normal(nkernel) * 0.7).astype(np.float32)
+    y = _interpret(lambda: jkrl._pallas_rotx_fwd(*_j(th, *x["s"])))
+    want_b = _interpret(lambda: jkrl._pallas_rotx_bwd(*_j(th, *y, *x["ct"])))
+    _assert_all_close(krl.rotx_fwd_plain(*_t(th, *x["s"])), y)
+    _assert_all_close(krl.rotx_fwd(*_t(th, *x["s"])), y)  # the CPU wrapper
+    got_b = krl.rotx_bwd(*_t(th, *[np.array(a) for a in y], *x["ct"]))
+    assert len(got_b) == 3 and got_b[2].shape == (nkernel,)
+    _assert_all_close(got_b, want_b)
+
+
+def test_rotx_row_layer_matches_jax_vjp():
+    """Value and gradients (state and angles) of Re Σ conj(w) · rotx_row_layer."""
+    rng = np.random.default_rng(4)
+    nk, r = 5, 64
+    s = _state(rng, r * 128).reshape(r, 128).astype(np.complex64)
+    th = (rng.standard_normal(nk) * 0.7).astype(np.float32)
+    w = _state(rng, r * 128).reshape(r, 128).astype(np.complex64)
+
+    def jloss(s_, t_):
+        return jnp.real(jnp.sum(jnp.conj(w) * jkrl.rotx_row_layer(s_, t_)))
+
+    jv, (jds, jdth) = jax.value_and_grad(jloss, argnums=(0, 1))(*_j(s, th))
+    ts, tth = (torch.as_tensor(a).requires_grad_() for a in (s, th))
+    tv = torch.real(torch.sum(torch.conj(torch.as_tensor(w)) * krl.rotx_row_layer(ts, tth)))
+    ds, dth = torch.autograd.grad(tv, (ts, tth))
+    assert abs(tv.item() - float(jv)) <= ATOL
+    np.testing.assert_allclose(np.conj(ds.numpy()), np.asarray(jds), rtol=0, atol=ATOL)
+    np.testing.assert_allclose(dth.numpy(), np.asarray(jdth), rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("n", [9, 20])
+def test_fused_rx_layer_rotx_matches_jax(n, monkeypatch):
+    """``fused_rx_layer`` under ``USE_ROTX`` in both packages: n=9 puts 2
+    row qubits in the rotx layer, n=20 puts 10 there and 3 outside it
+    (nouter); state and dθ, 1e-4 at n=20 (float32 sums over 2^20
+    amplitudes in another order)."""
+    rng = np.random.default_rng(80 + n)
+    psi = _state(rng, 2**n).astype(np.complex64)
+    th = (rng.standard_normal(n) * 0.7).astype(np.float32)
+    w = _state(rng, 2**n).astype(np.complex64)
+    monkeypatch.setattr(jkernels, "USE_ROTX", True)
     monkeypatch.setattr(kernels, "USE_ROTX", True)
-    with pytest.raises(NotImplementedError, match="_pallas_rotx_fwd"):
-        kernels.fused_rx_layer(torch.ones(2**8, dtype=torch.complex64), torch.zeros(8))
+
+    def jloss(t):
+        out = jkernels.fused_rx_layer(jnp.asarray(psi), t)
+        return jnp.real(jnp.sum(jnp.conj(w) * out)), out
+
+    (jv, jout), jdth = jax.jit(jax.value_and_grad(jloss, has_aux=True))(jnp.asarray(th))
+    tth = torch.as_tensor(th).requires_grad_()
+    out = kernels.fused_rx_layer(torch.as_tensor(psi), tth)
+    tv = torch.real(torch.sum(torch.conj(torch.as_tensor(w)) * out))
+    (dth,) = torch.autograd.grad(tv, tth)
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(jout), rtol=0, atol=2e-6)
+    np.testing.assert_allclose(dth.numpy(), np.asarray(jdth), rtol=0, atol=1e-4 if n >= 20 else ATOL)
+
+
+def test_fused_rx_layer_rotx_keeps_complex128_per_qubit(monkeypatch):
+    """A rule of the dtype, decided for the port: under ``USE_ROTX`` a
+    complex128 state keeps the per-qubit formulation in float64 (the rotx
+    kernels compute in float32 planes), where the JAX package sends it
+    through float32 gates (``kernels_rowlayer._rx_gates`` casts to
+    complex64): the port equals its own default path to 1e-12 and the JAX
+    package to float32 gate precision, 1e-6."""
+    def refuse(*args, **kws):
+        raise AssertionError("a complex128 state reached the float32 rotx kernels")
+
+    monkeypatch.setattr(krl, "rotx_row_layer", refuse)
+    rng = np.random.default_rng(91)
+    n = 12
+    psi = _state(rng, 2**n)
+    th = rng.standard_normal(n) * 0.7
+    monkeypatch.setattr(kernels, "USE_ROTX", True)
+    got = kernels.fused_rx_layer(torch.as_tensor(psi), torch.as_tensor(th))
+    assert got.dtype == torch.complex128
+    monkeypatch.setattr(kernels, "USE_ROTX", False)
+    want = kernels.fused_rx_layer(torch.as_tensor(psi), torch.as_tensor(th))
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=1e-12)
+    monkeypatch.setattr(jkernels, "USE_ROTX", True)
+    tc.set_dtype("complex128")
+    try:
+        jwant = jkernels.fused_rx_layer(jnp.asarray(psi), jnp.asarray(th))
+    finally:
+        tc.set_dtype("complex64")
+    assert np.asarray(jwant).dtype == np.complex128
+    np.testing.assert_allclose(got.numpy(), np.asarray(jwant), rtol=0, atol=1e-6)
 
 
 def test_block_kron_layer_matches_jax():

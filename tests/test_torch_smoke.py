@@ -12,7 +12,7 @@ import pytest
 import torch
 
 import tensorcircuit_ng_tpu_torch as tct
-from tensorcircuit_ng_tpu_torch.core import kernels_grand, kernels_jacobi, kernels_rowlayer
+from tensorcircuit_ng_tpu_torch.core import kernels_grand, kernels_jacobi, kernels_multilayer, kernels_rowlayer
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "tensorcircuit_ng_tpu_torch"
@@ -24,6 +24,7 @@ def test_import_leaves_jax_out():
         "import sys\n"
         "import tensorcircuit_ng_tpu_torch\n"
         "from tensorcircuit_ng_tpu_torch.core import kernels, kernels_stack, kernels_jacobi, linalg, _build\n"
+        "from tensorcircuit_ng_tpu_torch.core import kernels_multilayer\n"
         "from tensorcircuit_ng_tpu_torch.models import tebd\n"
         "from tensorcircuit_ng_tpu_torch import convert\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
@@ -170,3 +171,19 @@ def test_row_kernel_wrappers_refuse_other_devices():
         kernels_rowlayer.row_bwd(g, g, sr, sr, sr, sr)
     with pytest.raises(ValueError, match="no kernel"):
         kernels_rowlayer.row_bwd_const(g, g, sr, sr)
+
+
+def test_multilayer_and_rotx_wrappers_refuse_other_devices():
+    """K9, K10, K11 and K12 take a plain version only for CPU tensors."""
+    sr = torch.empty((8, 256), device="meta")
+    m = torch.empty((2, 256, 256), device="meta")
+    zz, th = torch.zeros((2, 1)), torch.zeros((2, 3))
+    with pytest.raises(ValueError, match="no kernel"):
+        kernels_multilayer.ml_fwd(((0, 1),), 11, zz, th, sr, sr, m, m)
+    with pytest.raises(ValueError, match="no kernel"):
+        kernels_multilayer.ml_bwd(((0, 1),), 11, zz, th, sr, sr, sr, sr, m, m)
+    sr = torch.empty((8, 128), device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        kernels_rowlayer.rotx_fwd(torch.zeros(3), sr, sr)
+    with pytest.raises(ValueError, match="no kernel"):
+        kernels_rowlayer.rotx_bwd(torch.zeros(3), sr, sr, sr, sr)
