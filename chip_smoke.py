@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA card: builds the kernels, holds
 each against its plain PyTorch version, drives the N=20 TFIM energy path
-and its training step, the n=60 TEBD path, the n=20 HEA training step and
-the n=20, p=4 QAOA MaxCut training step through the public API, and times
-them.
+and its training step (also under ``FUSE_ROWM`` and every switch of the
+stack), the n=60 TEBD path, the n=20 HEA training step and the n=20, p=4
+QAOA MaxCut training step through the public API, runs the staged
+micro-benchmark of K2's design, and times them.
 
     python3 chip_smoke.py
 
@@ -70,7 +71,25 @@ Phases (any failure exits non-zero; nothing is caught):
      counts reset just before and read just after each (K9 and K10 once a
      step, K11 and K12 four times), against the same steps on the port's
      CPU path; each step timed (CUDA events) and profiled, each kernel and
-     its plain version timed; the switches restored to their defaults.
+     its plain version timed; the switches restored to their defaults;
+ 10. the FUSE_ROWM path, the main path of the row-kron slice: K1 and K3
+     with the row kron M7 (stages K13 ``rowm_fwd`` and K14 ``rowm_bwd``,
+     rmx=7, a 128x128 complex M7) with and without the lane against their
+     plain versions at n=20 (K3 twice, equal bit for bit); 5 SGD steps of
+     the n=20, L=4 TFIM step under ``kernels_stack.FUSE_ROWM = True``, the
+     launch counts reset just before and read just after (K1, K3, K13 and
+     K14 four times a step, K2 and K4 never), against the default card
+     path (K2/K4) and the port's CPU path from the same parameters; the
+     start point's value and grad under each setting of the stack's
+     switches (FUSE_GRAND, FUSE_GRAND_BWD, both, FUSE_LANE off, FUSE_ROWM
+     on) with the launches each gives; K1/K3 with M7 timed with their
+     bounds, the step timed under each setting and profiled stage by
+     stage under FUSE_ROWM; the switches restored to their defaults;
+ 11. the staged micro-benchmark of K2's design (``examples/
+     micro_grand_fusion.py`` ``run_micro``): K15 ``micro_grand`` at m1, m2
+     and m3 against its plain version on the example's n=20, L=4 inputs,
+     then each level timed by ``kernels_micro.run_micro`` (250 back-to-back
+     calls, its launches read) with its bound.
 
 Prints the kernels JSON line, then the card's name and power limit, then
 ``{"ok": true, "device": {...}}`` as the last line.  Needs no network and
@@ -274,31 +293,41 @@ def _card() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def _k1_work(r, npairs, nkernel, lane):
+def _k1_work(r, npairs, nkernel, lane, rmx=0):
     """(bytes, flops) K1 must move and compute: state planes in and out (and
     the lane planes); zz exponent 2 flops a pair + 6 for the phase, 6 a
-    butterfly stage, 8·128 for the complex lane row-matmul, per amplitude."""
+    butterfly stage, 8·128 for the complex lane row-matmul, per amplitude.
+    With the row kron (rmx > 0, stage K13) its (R, R) planes in, rmx fewer
+    butterfly stages and one complex R-deep left product, 8·R."""
     amps = r * 128
     nbytes = 4 * 4 * amps + 4 * (npairs + nkernel + 2 * npairs)
-    flops = amps * (2 * npairs + 6 + 6 * nkernel)
+    flops = amps * (2 * npairs + 6 + 6 * (nkernel - rmx))
     if lane:
         nbytes += 2 * 4 * 128 * 128
         flops += amps * 8 * 128
+    if rmx:
+        nbytes += 2 * 4 * 4**rmx
+        flops += amps * 8 * 2**rmx
     return nbytes, flops
 
 
-def _k3_work(r, npairs, nkernel, lane):
+def _k3_work(r, npairs, nkernel, lane, rmx=0):
     """(bytes, flops) K3 must move and compute: y and ct in, ds out (and the
     lane planes in, dM out); per amplitude 20 flops a butterfly stage (the
     un-apply, the ct walk, the two dθ sums), 4 a pair + 9 for the zz stage
     (exponent, dzz sum, phase walk) and, with the lane matrix, three complex
-    128-deep products (un-lane, ct walk, dM): 3·8·128."""
+    128-deep products (un-lane, ct walk, dM): 3·8·128.  With the row kron
+    (stage K14) its planes in and dM7 out, rmx fewer butterfly stages and
+    three complex R-deep products (un-apply, ct walk, dM7): 3·8·R."""
     amps = r * 128
-    nbytes = 6 * 4 * amps + 4 * (4 * npairs + 2 * nkernel)
-    flops = amps * (20 * nkernel + 4 * npairs + 9)
+    nbytes = 6 * 4 * amps + 4 * (4 * npairs + 2 * (nkernel - rmx))
+    flops = amps * (20 * (nkernel - rmx) + 4 * npairs + 9)
     if lane:
         nbytes += 4 * 4 * 128 * 128
         flops += amps * 3 * 8 * 128
+    if rmx:
+        nbytes += 4 * 4 * 4**rmx
+        flops += amps * 3 * 8 * 2**rmx
     return nbytes, flops
 
 
@@ -806,6 +835,267 @@ def _qaoa_phase(tct, krl, dev, card, counters):
     return entries
 
 
+#: the FUSE_ROWM step against the default card path from the same
+#: parameters (one function, float32 sums in another order)
+ROWM_ATOL = 1e-4
+#: the switch settings of the stack (module globals of kernels_stack) and
+#: the launches a value-and-grad at n=20, L=4 should give under each
+SWITCHES = {
+    "default": ({}, {"zzrx_fwd": 0, "grand_zzrx_fwd": 1, "zzrx_bwd": 0, "grand_zzrx_bwd": 1}),
+    "FUSE_GRAND=False": ({"FUSE_GRAND": False},
+                         {"zzrx_fwd": L, "grand_zzrx_fwd": 0, "zzrx_bwd": 0, "grand_zzrx_bwd": 1}),
+    "FUSE_GRAND_BWD=False": ({"FUSE_GRAND_BWD": False},
+                             {"zzrx_fwd": 0, "grand_zzrx_fwd": 1, "zzrx_bwd": L, "grand_zzrx_bwd": 0}),
+    "both False": ({"FUSE_GRAND": False, "FUSE_GRAND_BWD": False},
+                   {"zzrx_fwd": L, "grand_zzrx_fwd": 0, "zzrx_bwd": L, "grand_zzrx_bwd": 0}),
+    "FUSE_LANE=False": ({"FUSE_LANE": False},
+                        {"zzrx_fwd": L, "grand_zzrx_fwd": 0, "zzrx_bwd": L, "grand_zzrx_bwd": 0}),
+    "FUSE_ROWM=True": ({"FUSE_ROWM": True},
+                       {"zzrx_fwd": L, "grand_zzrx_fwd": 0, "zzrx_bwd": L, "grand_zzrx_bwd": 0,
+                        "rowm_fwd": L, "rowm_bwd": L}),
+}
+
+
+def _tfim_step(tct, p, device, nl=L, n=N):
+    """The TFIM value and grad of the training path: h_layer, nl
+    zzrx_layers, the open-chain ZZ - X energy."""
+    import torch
+
+    pairs = [(i, i + 1) for i in range(n - 1)]
+    c = tct.Circuit(n, device=device)
+    c.h_layer()
+    for l in range(nl):
+        c.zzrx_layer(pairs, p[l, 0, : n - 1], p[l, 1])
+    e = c.expectation_zzx_energy(pairs, 1.0, -1.0)
+    (g,) = torch.autograd.grad(e, p)
+    return e, g
+
+
+def _rowm_phase(tct, krl, kst, dev, card, counters):
+    """Phase 10, the FUSE_ROWM path (the main path of the row-kron slice):
+    K1 and K3 with the row kron M7 (stages K13/K14, rmx=7) against their
+    plain versions at the path's n=20 shapes (K3 twice, equal bit for bit);
+    5 SGD steps of the TFIM step at n=20, L=4 under ``FUSE_ROWM = True``
+    against the default card path (K2/K4) and the port's CPU path, with
+    every kernel's launches read; the value and grad at the start point
+    under each switch setting with its launches; K1/K3 with M7 timed with
+    their bounds, the step timed under each setting and profiled under
+    FUSE_ROWM.  The switches are restored afterwards.  Returns the kernels
+    line's entries."""
+    import torch
+
+    nrow, nkernel, nouter, _ = kst._shapes(N)
+    rmx = kst._rowm_qubits(nkernel)
+    R, r = 2**rmx, 2**nrow
+    pairs = tuple(PAIRS)
+    rng = np.random.default_rng(23)
+
+    def unit_planes():
+        z = rng.normal(size=2**N) + 1j * rng.normal(size=2**N)
+        return tct.convert.planes(z / np.linalg.norm(z), dev)
+
+    # the path's operands: unitary rx krons M7 (top rmx kernel bits) and lane
+    zz = torch.as_tensor(rng.normal(size=N - 1) * 0.4, dtype=torch.float32, device=dev)
+    rx = torch.as_tensor(rng.normal(size=(1, N)) * 0.4, dtype=torch.float32, device=dev)
+    th = rx[0, nouter:nrow].contiguous()
+    m7r, m7i = (m[0] for m in kst._rx_kron_planes(rx[:, nouter:nouter + rmx]))
+    mlr, mli = (m[0] for m in kst._lane_kron_planes_T(rx[:, nrow:]))
+    sr, si = unit_planes()
+    ctr, cti = unit_planes()
+    with torch.no_grad():
+        y = krl.zzrx_fwd_plain(pairs, N, zz, th, sr, si, mlr, mli, m7r, m7i)
+        y0 = krl.zzrx_fwd_plain(pairs, N, zz, th, sr, si, None, None, m7r, m7i)
+    f_lane = (pairs, N, zz, th, sr, si, mlr, mli, m7r, m7i)
+    f_bare = (pairs, N, zz, th, sr, si, None, None, m7r, m7i)
+    b_lane = (pairs, N, zz, th, *y, ctr, cti, mlr, mli, m7r, m7i)
+    b_bare = (pairs, N, zz, th, *y0, ctr, cti, None, None, m7r, m7i)
+    cases = {
+        "rowm_fwd": [
+            ("lane", lambda: krl.rowm_fwd(pairs, N, zz, th, sr, si, m7r, m7i, mlr, mli),
+             lambda: krl.zzrx_fwd_plain(*f_lane)),
+            ("no lane", lambda: krl.rowm_fwd(pairs, N, zz, th, sr, si, m7r, m7i),
+             lambda: krl.zzrx_fwd_plain(*f_bare)),
+        ],
+        "rowm_bwd": [
+            ("lane", lambda: krl.rowm_bwd(pairs, N, zz, th, *y, ctr, cti, m7r, m7i, mlr, mli),
+             lambda: krl.zzrx_bwd_plain(*b_lane)),
+            ("no lane", lambda: krl.rowm_bwd(pairs, N, zz, th, *y0, ctr, cti, m7r, m7i),
+             lambda: krl.zzrx_bwd_plain(*b_bare)),
+        ],
+    }
+    print(f"row-kron parity at n={N}: r={r}, nkernel={nkernel}, rmx={rmx} (M7 {R}x{R}), "
+          f"{nkernel - rmx} butterfly bits")
+    max_err = _check_parity(cases, twice=("rowm_bwd",))
+
+    defaults = {name: getattr(kst, name) for name in ("FUSE_LANE", "FUSE_ROWM", "FUSE_GRAND", "FUSE_GRAND_BWD")}
+
+    def use(**flags):
+        for name, value in {**defaults, **flags}.items():
+            setattr(kst, name, value)
+
+    p0 = np.random.default_rng(42).normal(size=(L, 2, N)) * 0.1
+
+    def sgd_steps(device, steps, **flags):
+        use(**flags)
+        p = tct.convert.params(p0, device).requires_grad_()
+        out = []
+        for _ in range(steps):
+            e, g = _tfim_step(tct, p, device)
+            out.append((e.item(), g.cpu().numpy()))
+            with torch.no_grad():
+                p.sub_(LR * g)
+        return out
+
+    entries = []
+    try:
+        for k in counters:
+            k.launches = 0
+        rowm_steps = sgd_steps(dev, STEPS, FUSE_ROWM=True)
+        torch.cuda.synchronize()
+        launches = {k.__name__: k.launches for k in counters if k.launches}
+        print(f"FUSE_ROWM path launches ({STEPS} SGD steps, n={N} L={L}): {launches}")
+        want = {"zzrx_fwd": L * STEPS, "zzrx_bwd": L * STEPS, "rowm_fwd": L * STEPS, "rowm_bwd": L * STEPS}
+        if launches != want:
+            _fail(f"the FUSE_ROWM path did not launch {want}: {launches}")
+        default_steps = sgd_steps(dev, STEPS)
+        cpu_steps = sgd_steps("cpu", STEPS, FUSE_ROWM=True)
+        for i, ((e, g), (ed, gd), (ec, gc)) in enumerate(zip(rowm_steps, default_steps, cpu_steps)):
+            dd, gdd = abs(e - ed), float(np.abs(g - gd).max())
+            dc, gdc = abs(e - ec), float(np.abs(g - gc).max())
+            print(f"FUSE_ROWM step {i}: E {e:.7f}, default card {ed:.7f} |dE| {dd:.2e} max|dgrad| {gdd:.2e} "
+                  f"(tol {ROWM_ATOL:g}); cpu {ec:.7f} |dE| {dc:.2e} max|dgrad| {gdc:.2e} (tol {ENERGY_ATOL:g}, "
+                  f"{GRAD_ATOL:g}); max|grad| {float(np.abs(gc).max()):.3e}")
+            if not (np.isfinite(e) and np.all(np.isfinite(g)) and g.shape == (L, 2, N)):
+                _fail("FUSE_ROWM step: non-finite or misshapen result")
+            if dd > ROWM_ATOL or gdd > ROWM_ATOL:
+                _fail(f"FUSE_ROWM step {i} disagrees with the default card path")
+            if dc > ENERGY_ATOL or gdc > GRAD_ATOL:
+                _fail(f"FUSE_ROWM step {i} on the card disagrees with the CPU path")
+        if not rowm_steps[-1][0] < rowm_steps[0][0]:
+            _fail(f"{STEPS} FUSE_ROWM SGD steps did not lower the energy")
+
+        # the start point under each switch setting, with its launches
+        base = None
+        for label, (flags, want) in SWITCHES.items():
+            for k in counters:
+                k.launches = 0
+            (e, g), = sgd_steps(dev, 1, **flags)
+            torch.cuda.synchronize()
+            got = {k.__name__: k.launches for k in counters if k.launches}
+            want = {k: v for k, v in want.items() if v}
+            base = base or (e, g)
+            de, dg = abs(e - base[0]), float(np.abs(g - base[1]).max())
+            print(f"switches {label}: E {e:.7f} |dE| {de:.2e} max|dgrad| {dg:.2e} vs default "
+                  f"(tol {ROWM_ATOL:g}); launches {got}")
+            if got != want:
+                _fail(f"switches {label}: launches {got}, expected {want}")
+            if de > ROWM_ATOL or dg > ROWM_ATOL:
+                _fail(f"switches {label}: value or grad differs from the default")
+
+        # timings: the step under each switch setting (FUSE_ROWM last, then
+        # profiled), K1 and K3 with M7 at the path's shape
+        pt = tct.convert.params(p0, dev).requires_grad_()
+
+        def step():
+            e, g = _tfim_step(tct, pt, "cuda")
+            with torch.no_grad():
+                pt.sub_(LR * g)
+            return e.item()
+
+        for label, (flags, _) in SWITCHES.items():
+            use(**flags)
+            step_ms = _time_ms(step, inner=1)
+            print(f"training step n={N} L={L} under switches {label} (CUDA events, ends in .item()), {card}: "
+                  f"{step_ms:.3f} ms (median of 20)")
+        host, busy, by_kernel = _profile(step)
+    finally:
+        use()
+    print(f"FUSE_ROWM training step n={N} L={L} (value, grad, SGD update; CUDA events, ends in .item()), "
+          f"{card}: {step_ms:.3f} ms (median of 20)")
+    print(f"profile FUSE_ROWM step (torch.profiler, 10 runs), {card}: host {host:.3f} ms under the profiler, "
+          f"device busy {busy:.3f} ms ({100 * busy / host:.1f} % of it; {100 * busy / step_ms:.1f} % of the "
+          f"unprofiled {step_ms:.3f} ms), {len(by_kernel)} kernel names")
+    for name, ms, count in by_kernel[:14]:
+        print(f"  device {ms:.4f} ms x{count:g}/run  {name[:90]}")
+    for stage in ("zz_rowrx_kernel", "rowm_apply_kernel<false>", "lane_outer_kernel<false>", "lane_bwd_kernel",
+                  "dm_partial_kernel", "rowm_apply_kernel<true>", "rowm_dm_kernel", "zzrx_bwd_row_kernel",
+                  "colsum_kernel"):
+        for name, ms, count in by_kernel:
+            if stage in name:
+                print(f"device time a launch on the FUSE_ROWM step, {stage}: {1e3 * ms / count:.2f} us "
+                      f"(x{count:g}/step)")
+    with torch.no_grad():
+        times = {k: (_time_rounds(v[0][1]), _time_rounds(v[0][2], **PLAIN_TIMING)) for k, v in cases.items()}
+    work = {"rowm_fwd": _k1_work(r, len(pairs), nkernel, True, rmx),
+            "rowm_bwd": _k3_work(r, len(pairs), nkernel, True, rmx)}
+    source = {"rowm_fwd": "zzrx_fwd.cu", "rowm_bwd": "zzrx_bwd.cu"}
+    replaces = {"rowm_fwd": 966, "rowm_bwd": 979}
+    for name, (t, tp) in times.items():
+        bound, by = _bound_ms(*work[name])
+        print(f"kernel {name} [K{'1' if name == 'rowm_fwd' else '3'} with M7 and the lane, n={N} rmx={rmx}] "
+              f"over 3 rounds, {card}: median {t[0]:.4f} ms (min {t[1]:.4f}, max {t[2]:.4f}); plain median "
+              f"{tp[0]:.4f} ms (min {tp[1]:.4f}, max {tp[2]:.4f}); bound {bound:.4f} ms ({by}); "
+              f"launches {launches[name]} in {STEPS} steps")
+        entries.append({
+            "name": name, "route": "cuda", "source": f"tensorcircuit_ng_tpu_torch/core/csrc/{source[name]}",
+            "replaces": f"tensorcircuit_ng_tpu/core/kernels_rowlayer.py:{replaces[name]}",
+            "launches": launches[name], "max_abs_err": max_err[name], "ms": t[0], "plain_ms": tp[0],
+            "bound_ms": bound, "bound_by": by, "library_ms": None,
+        })
+    return entries
+
+
+def _micro_work(level, n, nl):
+    """(bytes, flops) of K15 at ``level`` over nl layers: the state planes in
+    once and out once (m2/m3 also the lane and outer planes and the angles
+    in); per layer and amplitude 6 flops a butterfly (10) and 8·128 for the
+    lane product (m2, m3), 8·D for the outer product (m3)."""
+    amps = 2**n
+    d = 2 ** (n - 17)
+    nbytes = 4 * 4 * amps
+    if level == 1:
+        return nbytes, 0
+    nbytes += nl * 4 * (2 * 128 * 128 + 20) + (nl * 2 * 4 * d * d if level == 3 else 0)
+    return nbytes, nl * amps * (6 * 10 + 8 * 128 + (8 * d if level == 3 else 0))
+
+
+def _micro_phase(tct, dev, card):
+    """Phase 11, the staged micro-benchmark of K2's design: K15 at m1, m2
+    and m3 against its plain version on the example's n=20, L=4 inputs,
+    then each level timed by ``run_micro`` (250 back-to-back calls) with
+    its bound.  Returns the kernels line's entry (the m3 level, the whole
+    skeleton)."""
+    import torch
+    from tensorcircuit_ng_tpu_torch.core import kernels_micro as km
+
+    args = km.micro_inputs(dev)
+    cases = {"micro_grand": [
+        (f"m{lv}", lambda lv=lv: km.micro_grand(lv, *args), lambda lv=lv: km.micro_grand_plain(lv, *args))
+        for lv in (1, 2, 3)]}
+    print(f"micro-benchmark parity at n={km.N}, L={km.L}: blocks of {km.RB} rows, random non-unitary inputs")
+    max_err = _check_parity(cases)
+    km.micro_grand.launches = 0
+    ms = {lv: km.run_micro(lv) for lv in (1, 2, 3)}
+    torch.cuda.synchronize()
+    launches = km.micro_grand.launches
+    with torch.no_grad():
+        plain = {lv: _time_ms(lambda lv=lv: km.micro_grand_plain(lv, *args), **PLAIN_TIMING) for lv in (1, 2, 3)}
+    for lv in (1, 2, 3):
+        bound, by = _bound_ms(*_micro_work(lv, km.N, km.L))
+        print(f"kernel micro_grand m{lv} (run_micro: best of 3 x {km.K} back-to-back calls, L={km.L} layers), "
+              f"{card}: {ms[lv]:.4f} ms a call; plain {plain[lv]:.4f} ms; bound {bound:.4f} ms ({by})")
+    print(f"micro_grand launches in run_micro (3 levels x (1 + 3 x {km.K})): {launches}")
+    if launches != 3 * (1 + 3 * km.K):
+        _fail(f"run_micro did not launch K15 {3 * (1 + 3 * km.K)} times: {launches}")
+    bound, by = _bound_ms(*_micro_work(3, km.N, km.L))
+    return [{
+        "name": "micro_grand", "route": "cuda", "source": "tensorcircuit_ng_tpu_torch/core/csrc/micro_grand.cu",
+        "replaces": "examples/micro_grand_fusion.py:132", "launches": launches,
+        "max_abs_err": max_err["micro_grand"], "ms": ms[3], "plain_ms": plain[3], "bound_ms": bound,
+        "bound_by": by, "library_ms": None,
+    }]
+
+
 def main() -> int:
     import torch
 
@@ -1227,6 +1517,15 @@ def main() -> int:
                                     kml.ml_bwd, krl.rotx_fwd, krl.rotx_bwd)
     kernels_line["kernels"].extend(_qaoa_phase(tct, krl, dev, card, every_counter))
     print(f"phase 9 ended at {time.time() - t_start:.1f} s")
+
+    # ---- 10. the FUSE_ROWM path: K13 and K14 inside K1 and K3 ----------
+    every_counter += (krl.rowm_fwd, krl.rowm_bwd)
+    kernels_line["kernels"].extend(_rowm_phase(tct, krl, kst, dev, card, every_counter))
+    print(f"phase 10 ended at {time.time() - t_start:.1f} s")
+
+    # ---- 11. the staged micro-benchmark: K15 ----------------------------
+    kernels_line["kernels"].extend(_micro_phase(tct, dev, card))
+    print(f"phase 11 ended at {time.time() - t_start:.1f} s")
     print(f"smoke total: {time.time() - t_start:.1f} s")
     print(json.dumps(kernels_line))
     print(card)

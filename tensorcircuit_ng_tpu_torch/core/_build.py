@@ -34,6 +34,7 @@ SOURCES: Dict[str, Path] = {
     "jacobi_svd": _CSRC / "jacobi_svd.cu",
     "row_layer": _CSRC / "row_layer.cu",
     "multilayer": _CSRC / "multilayer.cu",
+    "micro_grand": _CSRC / "micro_grand.cu",
 }
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = [
@@ -48,15 +49,16 @@ _I = ctypes.c_int
 #: ``tcng_error_string``)
 _SIGNATURES = {
     "zzrx_fwd": {
-        "tcng_zzrx_fwd": [_P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _I, _P],
+        "tcng_zzrx_fwd": [_P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _P, _P, _I, _I, _P],
         "tcng_grand_zzrx_fwd": [
             _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _P, _P, _P, _P, _I, _P,
         ],
     },
     "zzrx_bwd": {
-        "tcng_zzrx_bwd_scratch": [_I, _I, _I, _I],
+        "tcng_zzrx_bwd_scratch": [_I, _I, _I, _I, _I],
         "tcng_zzrx_bwd": [
-            _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _P, _I, _P,
+            _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _P, _P, _I, _P,
+            _I, _P,
         ],
         "tcng_grand_zzrx_bwd": [
             _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _P, _P, _P, _P,
@@ -74,6 +76,9 @@ _SIGNATURES = {
         "tcng_rotx_fwd": [_P, _P, _P, _P, _P, _I, _I, _P],
         "tcng_rotx_bwd_scratch": [_I, _I],
         "tcng_rotx_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _P],
+    },
+    "micro_grand": {
+        "tcng_micro_grand": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
     },
     "multilayer": {
         "tcng_ml_scratch": [_I, _I, _I, _I, _I, _I],

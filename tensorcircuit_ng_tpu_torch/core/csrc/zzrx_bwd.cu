@@ -17,7 +17,14 @@
 //      walk ct through rx^T                                         (rx)
 //      dzz_k = 1/2 sum h (1 - 2 xor_k), h = ct_r z_i + ct_i z_r;
 //      ct <- ct * phase                                             (zz)
-//    and returns ds = ct, dzz (npairs), dth (nkernel) and dM.
+//    and returns ds = ct, dzz (npairs), dth (nkernel) and dM.  With the
+//    unitary (R, R) row-kron planes M7 (the FUSE_ROWM branch,
+//    kernels_rowlayer._rowm_bwd_stage) stage K14 (rowm.cuh) runs between
+//    the lane and the row stages:
+//      x = M7^dagger psi and ct' = M7^T ct a block (one pass);
+//      dM7 = sum ct x^T over all blocks (partials, colsum);
+//    and the row stage walks only the low nkernel - rmx bits (dth of
+//    those).
 // K4 tcng_grand_zzrx_bwd replaces kernels_grand.grand_zzrx_bwd
 //    (_grand_bwd_kernel): the L layers in reverse; each is the outer
 //    transpose walk w = mo^T ct across the D = 2^nouter row blocks with
@@ -50,6 +57,7 @@
 // the state moves ~25 MB a layer.  Plain f32 FMAs, no fast-math.
 
 #include "lane.cuh"
+#include "rowm.cuh"
 
 namespace {
 
@@ -245,23 +253,27 @@ Plan make_plan(int r, int nkernel, int npairs) {
 }
 
 struct Scratch {
-  float *part_row, *part_outer, *part_dm, *pr, *pi, *wr, *wi;
+  float *part_row, *part_outer, *part_dm, *part_m7, *pr, *pi, *wr, *wi, *vr, *vi;
 };
 
-// mode 0: K3 without lane, 1: K3 with lane, 2: K4.  Returns the floats
-// needed; fills s when base is given.
-size_t layout(const Plan& p, int npairs, int nkernel, int mode, float* base,
-              Scratch* s) {
+// mode 0: K3 without lane, 1: K3 with lane, 2: K4; rmx > 0: K3 with the
+// row kron (the row stage then walks nkernel = the low bits only).
+// Returns the floats needed; fills s when base is given.
+size_t layout(const Plan& p, int npairs, int nkernel, int mode, int rmx,
+              float* base, Scratch* s) {
   const size_t plane = static_cast<size_t>(p.r) * LANES;
-  size_t sizes[7] = {
+  const size_t lane = mode ? plane : 0, rowm = rmx ? plane : 0;
+  const size_t either = (mode || rmx) ? plane : 0;
+  size_t sizes[10] = {
       static_cast<size_t>(p.grid_row) * (npairs + nkernel),
       mode == 2 ? static_cast<size_t>(p.grid_outer) * MAX_NOUTER : 0,
       mode ? dm_partial_floats(p.r) : 0,
-      mode ? plane : 0, mode ? plane : 0, mode ? plane : 0, mode ? plane : 0,
+      rmx ? rowm_dm_floats(p.r, rmx) : 0,
+      either, either, lane, lane, rowm, rowm,
   };
   size_t off = 0;
-  float* ptrs[7];
-  for (int i = 0; i < 7; ++i) {
+  float* ptrs[10];
+  for (int i = 0; i < 10; ++i) {
     ptrs[i] = base ? base + off : nullptr;
     off += sizes[i];
   }
@@ -269,10 +281,13 @@ size_t layout(const Plan& p, int npairs, int nkernel, int mode, float* base,
     s->part_row = ptrs[0];
     s->part_outer = ptrs[1];
     s->part_dm = ptrs[2];
-    s->pr = ptrs[3];
-    s->pi = ptrs[4];
-    s->wr = ptrs[5];
-    s->wi = ptrs[6];
+    s->part_m7 = ptrs[3];
+    s->pr = ptrs[4];
+    s->pi = ptrs[5];
+    s->wr = ptrs[6];
+    s->wi = ptrs[7];
+    s->vr = ptrs[8];
+    s->vi = ptrs[9];
   }
   return off;
 }
@@ -340,38 +355,57 @@ const char* tcng_error_string(int err) {
 }
 
 // Floats of scratch that tcng_zzrx_bwd (mode 0: no lane matrix, 1: with
-// it) or tcng_grand_zzrx_bwd (mode 2) needs for these shapes.
-long tcng_zzrx_bwd_scratch(int r, int nkernel, int npairs, int mode) {
-  const Plan p = make_plan(r, nkernel, npairs);
-  return static_cast<long>(layout(p, npairs, nkernel, mode, nullptr, nullptr));
+// it; rmx > 0: with the row kron) or tcng_grand_zzrx_bwd (mode 2, rmx 0)
+// needs for these shapes.
+long tcng_zzrx_bwd_scratch(int r, int nkernel, int npairs, int mode, int rmx) {
+  const Plan p = make_plan(r, nkernel - rmx, npairs);
+  return static_cast<long>(layout(p, npairs, nkernel - rmx, mode, rmx, nullptr, nullptr));
 }
 
 // K3.  yr/yi: the layer's (r, 128) output planes (post-lane when mr is
 // given); ctr/cti: cotangent planes; dsr/dsi: (r, 128) output; grads:
-// (npairs + nkernel) = (dzz, dth); dm: (2, 128, 128) = (dmr, dmi) or null
-// without lane; zzth (npairs); shifts (npairs, 2) = (n-1-a, n-1-b); th
-// (nkernel); mr/mi (128, 128) lane planes or null; scratch of
-// tcng_zzrx_bwd_scratch floats.  Returns the first CUDA error, 0 on success.
+// (npairs + nkernel - rmx) = (dzz, dth of the low bits); dm: (2, 128, 128)
+// = (dmr, dmi) or null without lane; dm7: (2, R, R) = (dm7r, dm7i) or null
+// with rmx = 0; zzth (npairs); shifts (npairs, 2) = (n-1-a, n-1-b); th
+// (nkernel); mr/mi (128, 128) lane planes or null; m7r/m7i (R, R) unitary
+// row-kron planes, R = 2^rmx, or null; scratch of tcng_zzrx_bwd_scratch
+// floats.  Returns the first CUDA error, 0 on success.
 int tcng_zzrx_bwd(const float* yr, const float* yi, const float* ctr,
                   const float* cti, float* dsr, float* dsi, float* grads,
-                  float* dm, const float* zzth, const int* shifts, int npairs,
-                  const float* th, int nkernel, const float* mr,
-                  const float* mi, float* scratch, int r, void* stream) {
+                  float* dm, float* dm7, const float* zzth, const int* shifts,
+                  int npairs, const float* th, int nkernel, const float* mr,
+                  const float* mi, const float* m7r, const float* m7i,
+                  int rmx, float* scratch, int r, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Plan p = make_plan(r, nkernel, npairs);
+  const int nlow = nkernel - rmx;  // the bits the row stage walks
+  const Plan p = make_plan(r, nlow, npairs);
   Scratch s;
-  layout(p, npairs, nkernel, mr ? 1 : 0, scratch, &s);
+  layout(p, npairs, nlow, mr ? 1 : 0, rmx, scratch, &s);
   const float *psr = yr, *psi = yi, *cr = ctr, *ci = cti;
+  cudaError_t err = cudaSuccess;
   if (mr != nullptr) {
-    cudaError_t err = lane_stage(p, yr, yi, ctr, cti, mr, mi, s, dm, MM, st);
+    err = lane_stage(p, yr, yi, ctr, cti, mr, mi, s, dm, MM, st);
     if (err != cudaSuccess) return static_cast<int>(err);
     psr = s.pr;
     psi = s.pi;
     cr = s.wr;
     ci = s.wi;
   }
+  if (rmx > 0) {
+    // K14: x = M7^dagger psi into s.pr (in place after the lane stage),
+    // ct' = M7^T ct into s.v; then dM7 from ct (not yet walked) and x
+    err = rowm_apply<true>(psr, psi, cr, ci, s.pr, s.pi, s.vr, s.vi, m7r, m7i,
+                           r, nkernel, rmx, st);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    err = rowm_dm(cr, ci, s.pr, s.pi, s.part_m7, dm7, r, nkernel, rmx, st);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    psr = s.pr;
+    psi = s.pi;
+    cr = s.vr;
+    ci = s.vi;
+  }
   return static_cast<int>(row_stage(p, psr, psi, cr, ci, dsr, dsi, s, grads,
-                                    zzth, shifts, npairs, th, nkernel, st));
+                                    zzth, shifts, npairs, th + rmx, nlow, st));
 }
 
 // K4.  ksr/ksi (L, r, 128) post-lane, pre-outer residuals; ctr/cti (r, 128)
@@ -394,7 +428,7 @@ int tcng_grand_zzrx_bwd(const float* ksr, const float* ksi, const float* ctr,
   const int w = npairs + nkernel + nouter;
   const size_t plane = static_cast<size_t>(r) * LANES;
   Scratch s;
-  layout(p, npairs, nkernel, 2, scratch, &s);
+  layout(p, npairs, nkernel, 2, 0, scratch, &s);
   for (int l = L - 1; l >= 0; --l) {
     const float* kr = ksr + l * plane;
     const float* ki = ksi + l * plane;

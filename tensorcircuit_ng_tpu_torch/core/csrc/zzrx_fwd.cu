@@ -7,7 +7,10 @@
 //    (_zzrx_fwd_kernel, _butterfly_rx, _lane_fwd_epilogue): zz phase
 //    exp(-i/2 sum_k th_k Z_a Z_b) over all n qubits, rx on the nkernel
 //    in-block row bits, then optionally y = x @ M with the 128x128 lane
-//    matrix M.
+//    matrix M.  With the (R, R) row-kron planes M7 (the FUSE_ROWM branch,
+//    kernels_rowlayer._rowm_fwd_stage) pass A runs only the low
+//    nkernel - rmx butterflies and stage K13 (rowm.cuh) applies M7 to the
+//    top rmx row bits of each block before the lane stage.
 // K2 tcng_grand_zzrx_fwd replaces kernels_grand.grand_zzrx_fwd
 //    (_grand_fwd_kernel): L layers of K1-with-lane, each followed by the
 //    outer (D, D) left-matmul across the G = D row blocks, streaming out
@@ -35,6 +38,7 @@
 // moves 16.8 MB a layer.  No fast-math: sin/cos accuracy matters in f32.
 
 #include "lane.cuh"
+#include "rowm.cuh"
 
 namespace {
 
@@ -143,14 +147,20 @@ const char* tcng_error_string(int err) {
 
 // K1.  sr/si, yr/yi: (r, 128) planes (may alias); zzth (npairs);
 // shifts (npairs, 2) = (n-1-a, n-1-b); th (nkernel); mr/mi (128, 128)
-// lane planes or null.  Returns the first CUDA error, 0 on success.
+// lane planes or null; m7r/m7i (R, R) row-kron planes with R = 2^rmx, or
+// null with rmx = 0 (then th[0..rmx) is not read).  Returns the first CUDA
+// error, 0 on success.
 int tcng_zzrx_fwd(const float* sr, const float* si, float* yr, float* yi,
                   const float* zzth, const int* shifts, int npairs,
                   const float* th, int nkernel, const float* mr,
-                  const float* mi, int r, void* stream) {
+                  const float* mi, const float* m7r, const float* m7i,
+                  int rmx, int r, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = launch_pass_a(sr, si, yr, yi, zzth, shifts, npairs, th,
-                                  nkernel, r, s);
+  cudaError_t err = launch_pass_a(sr, si, yr, yi, zzth, shifts, npairs,
+                                  th + rmx, nkernel - rmx, r, s);
+  if (err == cudaSuccess && rmx > 0)  // K13, in place
+    err = rowm_apply<false>(yr, yi, nullptr, nullptr, yr, yi, nullptr, nullptr,
+                            m7r, m7i, r, nkernel, rmx, s);
   if (err != cudaSuccess || mr == nullptr) return static_cast<int>(err);
   return static_cast<int>(lane_fwd_stage(yr, yi, yr, yi, mr, mi, r, s));
 }

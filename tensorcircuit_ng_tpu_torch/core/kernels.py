@@ -115,7 +115,7 @@ def fused_rx_layer(state: torch.Tensor, thetas: Any) -> torch.Tensor:
     through :func:`kernels_rowlayer.rotx_row_layer`, the 7 lane qubits as
     one kron matmul.  A complex128 state keeps the per-qubit formulation
     (the JAX package sends it through float32 gates there)."""
-    thetas = torch.reshape(torch.as_tensor(thetas, device=state.device), (-1,))
+    thetas = torch.reshape(statevec.real_tensor(thetas, state.device, state.dtype), (-1,))
     if not USE_ROTX or state.dtype != torch.complex64:
         return fused_single_qubit_layer(state, rx_matrix(thetas, dtype=str(state.dtype).replace("torch.", "")))
     n = thetas.shape[0]
@@ -173,8 +173,8 @@ def fused_zzrx_layer(state, pairs, zz_thetas, rx_thetas):
     The zz phase and the kernel-row rx share kernel K1 (without its lane
     matmul); outer row qubits and the 7 lane qubits are one kron matmul
     each.  complex128 keeps the plain dense formulation."""
-    rx_thetas = torch.reshape(torch.as_tensor(rx_thetas, device=state.device), (-1,))
-    zz_thetas = torch.reshape(torch.as_tensor(zz_thetas, device=state.device), (-1,))
+    rx_thetas = torch.reshape(statevec.real_tensor(rx_thetas, state.device, state.dtype), (-1,))
+    zz_thetas = torch.reshape(statevec.real_tensor(zz_thetas, state.device, state.dtype), (-1,))
     n = rx_thetas.shape[0]
     _check_width(state, n)
     pairs = _pairs(pairs)
@@ -228,8 +228,8 @@ def fused_zzrx_multilayer(state, pairs, zz_thetas, rx_thetas):
     but "perlayer" the whole-block kernels, with nrow = min(n - 7, 12) row
     qubits and at most 10 lane qubits, at most 128 pairs and complex64.
     Every other case takes one :func:`fused_zzrx_layer` a layer."""
-    zz_thetas = torch.as_tensor(zz_thetas, device=state.device)
-    rx_thetas = torch.as_tensor(rx_thetas, device=state.device)
+    zz_thetas = statevec.real_tensor(zz_thetas, state.device, state.dtype)
+    rx_thetas = statevec.real_tensor(rx_thetas, state.device, state.dtype)
     L, n = rx_thetas.shape
     _check_width(state, n)
     pairs = _pairs(pairs)
@@ -305,13 +305,14 @@ def ising_energy_dense(state, n: int, spec) -> torch.Tensor:
 def fused_zzrx_multilayer_energy(state, pairs, zz_thetas, rx_thetas, spec=((), ())):
     """L stacked zzrx layers + an Ising-family energy readout.
 
-    Under ``ML_MODE = "stack"``, on a CUDA complex64 state with 1 <= nouter
-    and nrow <= ``MAX_GRAND_ROW_QUBITS`` this is the angle-level boundary
-    (:func:`kernels_stack.zzrx_stack_energy_theta`), else the matrix-level
-    one; other modes and shapes take :func:`fused_zzrx_multilayer` + the
-    dense readout."""
-    zz_thetas = torch.as_tensor(zz_thetas, device=state.device)
-    rx_thetas = torch.as_tensor(rx_thetas, device=state.device)
+    Under ``ML_MODE = "stack"``, on a complex64 state in the fused
+    topology (``FUSE_LANE`` on a CUDA state) with ``FUSE_GRAND_BWD``, no
+    ``FUSE_ROWM``, 1 <= nouter and nrow <= ``MAX_GRAND_ROW_QUBITS`` this is
+    the angle-level boundary (:func:`kernels_stack.zzrx_stack_energy_theta`,
+    backward K4), else the matrix-level one; other modes and shapes take
+    :func:`fused_zzrx_multilayer` + the dense readout."""
+    zz_thetas = statevec.real_tensor(zz_thetas, state.device, state.dtype)
+    rx_thetas = statevec.real_tensor(rx_thetas, state.device, state.dtype)
     L, n = rx_thetas.shape
     _check_width(state, n)
     pairs = _pairs(pairs)
@@ -320,7 +321,11 @@ def fused_zzrx_multilayer_energy(state, pairs, zz_thetas, rx_thetas, spec=((), (
         return ising_energy_dense(psi, n, spec)
     nrow, nkernel, nouter, _ = kst._shapes(n)
     psi = torch.reshape(state, (2**nrow, 2**_LANE_QUBITS))
-    if nouter >= 1 and nrow <= kst.MAX_GRAND_ROW_QUBITS and state.is_cuda:
+    fused, _ = kst._stack_mode(n, psi)
+    if (
+        kst.FUSE_GRAND_BWD and fused and not kst.FUSE_ROWM
+        and nouter >= 1 and nrow <= kst.MAX_GRAND_ROW_QUBITS
+    ):
         return kst.zzrx_stack_energy_theta(
             pairs, n, psi, zz_thetas, rx_thetas.to(torch.float32), spec
         )

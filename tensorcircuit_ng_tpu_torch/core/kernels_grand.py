@@ -154,7 +154,7 @@ def _launch_grand_bwd(pairs, n, zzth, th, ksr, ksi, ctr, cti, mor, moi, mlr, mli
     dm = torch.empty((2, L, lanes, lanes), dtype=torch.float32, device=dev)
     lib = _build.library("zzrx_bwd")
     scratch = torch.empty(
-        lib.tcng_zzrx_bwd_scratch(r, nkernel, npairs, 2), dtype=torch.float32, device=dev
+        lib.tcng_zzrx_bwd_scratch(r, nkernel, npairs, 2, 0), dtype=torch.float32, device=dev
     )
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream

@@ -33,7 +33,7 @@ import torch
 
 from . import _build
 from . import kernels_rowlayer as krl
-from . import kernels_stack as kst
+from ..ops.gates import rx_matrix
 
 __all__ = [
     "MAX_ML_ROW_QUBITS",
@@ -329,13 +329,15 @@ def zzrx_multilayer_xla(pairs, n, state, zz_thetas, rx_thetas, split=(7, 7)):
     gb, cb = split
     mb = n - gb - cb
     G, M, C = 2**gb, 2**mb, 2**cb
+    # the zz exponent and the rx krons at the state's own precision
+    rdt = torch.float64 if state.dtype == torch.complex128 else torch.float32
     srow, slane = _sign_matrices(tuple(pairs), n, gb + mb, C)
-    srow = torch.as_tensor(srow, device=state.device)
-    slane = torch.as_tensor(slane, device=state.device)
+    srow = torch.as_tensor(srow, device=state.device).to(rdt)
+    slane = torch.as_tensor(slane, device=state.device).to(rdt)
     npairs = len(pairs)
     psi = torch.reshape(state, (G * M, C))
     for l in range(L):
-        th = torch.nn.functional.pad(zz_thetas[l].to(torch.float32), (0, MAX_ML_PAIRS - npairs))
+        th = torch.nn.functional.pad(zz_thetas[l].to(rdt), (0, MAX_ML_PAIRS - npairs))
         expo = (srow * th[None, :]) @ slane.T
         psi = psi * torch.polar(torch.ones_like(expo), -0.5 * expo).to(psi.dtype)
         v = torch.reshape(psi, (G, M, C))
@@ -350,5 +352,10 @@ def zzrx_multilayer_xla(pairs, n, state, zz_thetas, rx_thetas, split=(7, 7)):
 
 
 def _sub_kron(th: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """kron(rx(θ_0), ..., rx(θ_{k-1})) in ``dtype``."""
-    return kst._rx_kron(th.reshape(1, -1))[0].to(dtype)
+    """kron(rx(θ_0), ..., rx(θ_{k-1})), each gate built in ``dtype`` (not in
+    complex64 and cast up, which costs 1e-8 under complex128)."""
+    gates = rx_matrix(th, dtype=str(dtype).replace("torch.", ""))
+    m = gates[0]
+    for g in gates[1:]:
+        m = torch.kron(m, g)
+    return m

@@ -14,6 +14,10 @@ wrappers and the kernels they launch on a CUDA tensor:
   ``_pallas_zzrx_fwd``;
 - ``zzrx_bwd``: K3 (``csrc/zzrx_bwd.cu``, ``tcng_zzrx_bwd``), replaces
   ``_pallas_zzrx_bwd``;
+- ``rowm_fwd`` / ``rowm_bwd``: K1 / K3 with the row-kron planes M7, whose
+  stages K13 (``csrc/zzrx_fwd.cu``) and K14 (``csrc/zzrx_bwd.cu``) replace
+  the ``rmx > 0`` branch of those Pallas kernels (``_rowm_fwd_stage``,
+  ``_rowm_bwd_stage``);
 - ``rotx_fwd``: K11 (``csrc/row_layer.cu``, ``tcng_rotx_fwd``), replaces
   ``_pallas_rotx_fwd``;
 - ``rotx_bwd``: K12 (``tcng_rotx_bwd``), replaces ``_pallas_rotx_bwd``.
@@ -58,6 +62,8 @@ __all__ = [
     "zzrx_fwd_plain",
     "zzrx_bwd",
     "zzrx_bwd_plain",
+    "rowm_fwd",
+    "rowm_bwd",
     "zzrx_row_layer",
     "MAX_KERNEL_QUBITS_ZZRX",
     "rotx_fwd",
@@ -153,11 +159,40 @@ def _outer_walk(mor, moi, cr, ci):
     return nr.reshape(cr.shape), ni.reshape(ci.shape)
 
 
-def zzrx_fwd_plain(pairs, n, zzth, th, sr, si, mr=None, mi=None):
-    """K1's plain version: dense zz phase, row rx reference, lane matmul."""
+def _rowm_view(x: torch.Tensor, nkernel: int, R: int) -> torch.Tensor:
+    """The (blocks, R, rb/R, 128) view of an (r, 128) plane: each block of
+    rb = 2^nkernel rows as an R x (rb/R, 128) matrix, its top rmx row bits
+    on the R axis."""
+    r, lanes = x.shape
+    return torch.reshape(x, (r >> nkernel, R, (1 << nkernel) // R, lanes))
+
+
+def _rowm_bits(th: torch.Tensor, m7r: Optional[torch.Tensor]) -> int:
+    """rmx, the top row bits that the (R, R) row-kron planes carry (0 without)."""
+    if m7r is None:
+        return 0
+    R = m7r.shape[0]
+    rmx = R.bit_length() - 1
+    if R != 1 << rmx or not 1 <= rmx <= th.shape[0] or tuple(m7r.shape) != (R, R):
+        raise ValueError(f"row-kron planes of shape {tuple(m7r.shape)} for {th.shape[0]} kernel row bits")
+    return rmx
+
+
+def zzrx_fwd_plain(pairs, n, zzth, th, sr, si, mr=None, mi=None, m7r=None, m7i=None):
+    """K1's plain version: dense zz phase, row rx reference, lane matmul.
+
+    With the (R, R) row-kron planes ``m7r/m7i`` (R = 2^rmx) the rx
+    butterflies cover only the low nkernel - rmx bits (``th[rmx:]``), and
+    M7 is applied as given: ``y[i, g, c] = Σ_j M7[i, j] x[j, g, c]`` on the
+    (R, rb/R, 128) view of each block (K13), before the lane matmul."""
+    rmx = _rowm_bits(th, m7r)
     psi = torch.complex(sr, si)
     psi = _zz_phase_dense(psi, pairs, n, zzth)
-    psi = _row_layer_reference(psi, _rx_gates(th))
+    psi = _row_layer_reference(psi, _rx_gates(th[rmx:]))
+    if rmx:
+        m7 = torch.complex(m7r, m7i)
+        psi = torch.einsum("ij,bjgc->bigc", m7, _rowm_view(psi, th.shape[0], m7.shape[0]))
+        psi = torch.reshape(psi, sr.shape)
     yr, yi = psi.real.contiguous(), psi.imag.contiguous()
     if mr is not None:
         yr, yi = _lane_apply(mr, mi, yr, yi)
@@ -197,7 +232,7 @@ def _f32(t: torch.Tensor, device: torch.device) -> torch.Tensor:
     return t.detach().to(device=device, dtype=torch.float32).contiguous()
 
 
-def _launch_zzrx_fwd(pairs, n, zzth, th, sr, si, mr, mi):
+def _launch_zzrx_fwd(pairs, n, zzth, th, sr, si, mr, mi, m7r, m7i):
     dev = sr.device
     if dev.type != "cuda":
         raise ValueError(f"zzrx_fwd: no kernel for device {dev}")
@@ -207,6 +242,9 @@ def _launch_zzrx_fwd(pairs, n, zzth, th, sr, si, mr, mi):
     _check_planes("zzrx_fwd", dev, (r, lanes), sr, si)
     if mr is not None:
         _check_planes("zzrx_fwd lane", dev, (lanes, lanes), mr, mi)
+    rmx = _rowm_bits(th, m7r)
+    if rmx:
+        _check_planes("zzrx_fwd row kron", dev, (1 << rmx, 1 << rmx), m7r, m7i)
     zzth = _f32(zzth, dev)
     th = _f32(th, dev)
     if tuple(zzth.shape) != (len(pairs),):
@@ -218,12 +256,16 @@ def _launch_zzrx_fwd(pairs, n, zzth, th, sr, si, mr, mi):
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         zzrx_fwd.launches += 1
+        if rmx:
+            rowm_fwd.launches += 1
         err = lib.tcng_zzrx_fwd(
             sr.data_ptr(), si.data_ptr(), yr.data_ptr(), yi.data_ptr(),
             zzth.data_ptr(), shifts.data_ptr(), len(pairs), th.data_ptr(), nkernel,
             None if mr is None else mr.data_ptr(),
             None if mi is None else mi.data_ptr(),
-            r, stream,
+            None if m7r is None else m7r.data_ptr(),
+            None if m7i is None else m7i.data_ptr(),
+            rmx, r, stream,
         )
     _build.check("zzrx_fwd", err, "zzrx_fwd")
     return yr, yi
@@ -238,21 +280,38 @@ def zzrx_fwd(
     si: torch.Tensor,
     mr: Optional[torch.Tensor] = None,
     mi: Optional[torch.Tensor] = None,
+    m7r: Optional[torch.Tensor] = None,
+    m7i: Optional[torch.Tensor] = None,
 ):
     """K1: zz phase over all n qubits, rx(th) on the nkernel in-block row
     bits, then ``y = x @ (mr + i mi)`` when the lane planes are given.
 
     ``sr/si`` (r, 128) float32 planes; ``zzth`` (npairs,); ``th``
-    (nkernel,).  CUDA tensors launch the kernel (``zzrx_fwd.launches``
-    counts the launches); CPU tensors run :func:`zzrx_fwd_plain`.
+    (nkernel,).  With the (R, R) row-kron planes ``m7r/m7i`` (R = 2^rmx,
+    the ``FUSE_ROWM`` branch) the top rmx row bits of each block are one
+    left-matmul by M7 (stage K13) instead of butterflies, which then use
+    ``th[rmx:]``.  CUDA tensors launch the kernel (``zzrx_fwd.launches``
+    counts the launches, ``rowm_fwd.launches`` those with M7); CPU tensors
+    run :func:`zzrx_fwd_plain`.
     """
     pairs = tuple((int(a), int(b)) for a, b in pairs)
     if sr.device.type == "cpu":
-        return zzrx_fwd_plain(pairs, n, zzth, th, sr, si, mr, mi)
-    return _launch_zzrx_fwd(pairs, n, zzth, th, sr, si, mr, mi)
+        return zzrx_fwd_plain(pairs, n, zzth, th, sr, si, mr, mi, m7r, m7i)
+    return _launch_zzrx_fwd(pairs, n, zzth, th, sr, si, mr, mi, m7r, m7i)
 
 
 zzrx_fwd.launches = 0
+
+
+def rowm_fwd(pairs, n, zzth, th, sr, si, m7r, m7i, mr=None, mi=None):
+    """K1 with its row-kron stage K13: :func:`zzrx_fwd` with the (R, R)
+    planes ``m7r/m7i`` required (``rowm_fwd.launches`` counts K13)."""
+    if m7r is None or m7i is None:
+        raise ValueError("rowm_fwd: the row-kron planes are required")
+    return zzrx_fwd(pairs, n, zzth, th, sr, si, mr, mi, m7r, m7i)
+
+
+rowm_fwd.launches = 0
 
 
 def _partner(x: torch.Tensor, s: int) -> torch.Tensor:
@@ -261,14 +320,18 @@ def _partner(x: torch.Tensor, s: int) -> torch.Tensor:
     return torch.flip(torch.reshape(x, (r // (2 * s), 2, s, lanes)), (1,)).reshape(r, lanes)
 
 
-def zzrx_bwd_plain(pairs, n, zzth, th, yr, yi, ctr, cti, mr=None, mi=None):
+def zzrx_bwd_plain(pairs, n, zzth, th, yr, yi, ctr, cti, mr=None, mi=None, m7r=None, m7i=None):
     """K3's plain version: the adjoint of K1 in torch ops, stage by stage as
     the JAX ``_zzrx_bwd_kernel`` takes them.
 
     ``(yr, yi)`` is the layer's output (post-lane when ``mr/mi`` are given,
     which must then be unitary) and ``(ctr, cti)`` the cotangent planes
     ``(dL/dyr, -dL/dyi)``.  Returns ``(dsr, dsi, dzz, dth)`` and, with the
-    lane planes, ``(dmr, dmi) = (dL/dmr, -dL/dmi)``.
+    lane planes, ``(dmr, dmi) = (dL/dmr, -dL/dmi)``.  With the unitary
+    row-kron planes ``m7r/m7i`` (K14) the row stage un-applies M7 (x =
+    M7† y), takes ``dM7 = Σ ct·x^T`` over all blocks and walks ct by M7^T;
+    ``dth`` then holds the low nkernel - rmx angles and ``(dm7r, dm7i)``
+    ends the tuple.
     """
     lane = mr is not None
     if lane:
@@ -280,8 +343,20 @@ def zzrx_bwd_plain(pairs, n, zzth, th, yr, yi, ctr, cti, mr=None, mi=None):
         cr, ci = _lane_walk(mr, mi, ctr, cti)
     else:
         sr, si, cr, ci = yr, yi, ctr, cti
-    nkernel = th.shape[0]
-    th = th.to(torch.float32)
+    rmx = _rowm_bits(th, m7r)
+    if rmx:
+        # x = M7† y; dM7 = ct x^T (non-conjugating); ct <- M7^T ct
+        v = lambda p: _rowm_view(p, th.shape[0], m7r.shape[0])
+        tmul = lambda m, p: torch.einsum("ji,bjgc->bigc", m, v(p))
+        xr = tmul(m7r, sr) + tmul(m7i, si)
+        xi = tmul(m7r, si) - tmul(m7i, sr)
+        dot = lambda a, b: torch.einsum("bigc,bjgc->ij", v(a), b)
+        dm7r = dot(cr, xr) - dot(ci, xi)
+        dm7i = dot(cr, xi) + dot(ci, xr)
+        cr, ci = tmul(m7r, cr) - tmul(m7i, ci), tmul(m7r, ci) + tmul(m7i, cr)
+        sr, si, cr, ci = (torch.reshape(p, yr.shape) for p in (xr, xi, cr, ci))
+    nkernel = th.shape[0] - rmx
+    th = th[rmx:].to(torch.float32)
     cos, sin = torch.cos(th / 2), torch.sin(th / 2)
     dth = [None] * nkernel
     for q in range(nkernel - 1, -1, -1):
@@ -302,10 +377,12 @@ def zzrx_bwd_plain(pairs, n, zzth, th, yr, yi, ctr, cti, mr=None, mi=None):
         torch.stack(dzz) if dzz else empty,
         torch.stack(dth) if dth else empty,
     )
-    return out + (dmr, dmi) if lane else out
+    if lane:
+        out += (dmr, dmi)
+    return out + (dm7r, dm7i) if rmx else out
 
 
-def _launch_zzrx_bwd(pairs, n, zzth, th, yr, yi, ctr, cti, mr, mi):
+def _launch_zzrx_bwd(pairs, n, zzth, th, yr, yi, ctr, cti, mr, mi, m7r, m7i):
     dev = yr.device
     if dev.type != "cuda":
         raise ValueError(f"zzrx_bwd: no kernel for device {dev}")
@@ -317,33 +394,45 @@ def _launch_zzrx_bwd(pairs, n, zzth, th, yr, yi, ctr, cti, mr, mi):
     lane = mr is not None
     if lane:
         _check_planes("zzrx_bwd lane", dev, (lanes, lanes), mr, mi)
+    rmx = _rowm_bits(th, m7r)
+    R = 1 << rmx
+    if rmx:
+        _check_planes("zzrx_bwd row kron", dev, (R, R), m7r, m7i)
     zzth = _f32(zzth, dev)
     th = _f32(th, dev)
     if tuple(zzth.shape) != (npairs,):
         raise ValueError(f"zzrx_bwd: zzth shape {tuple(zzth.shape)}, expected {(npairs,)}")
     shifts = _pair_shifts(tuple(pairs), n, str(dev))
     ds = torch.empty((2, r, lanes), dtype=torch.float32, device=dev)
-    grads = torch.empty(npairs + nkernel, dtype=torch.float32, device=dev)
+    grads = torch.empty(npairs + nkernel - rmx, dtype=torch.float32, device=dev)
     dm = torch.empty((2, lanes, lanes), dtype=torch.float32, device=dev) if lane else None
+    dm7 = torch.empty((2, R, R), dtype=torch.float32, device=dev) if rmx else None
     lib = _build.library("zzrx_bwd")
     scratch = torch.empty(
-        lib.tcng_zzrx_bwd_scratch(r, nkernel, npairs, int(lane)), dtype=torch.float32, device=dev
+        lib.tcng_zzrx_bwd_scratch(r, nkernel, npairs, int(lane), rmx), dtype=torch.float32, device=dev
     )
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         zzrx_bwd.launches += 1
+        if rmx:
+            rowm_bwd.launches += 1
         err = lib.tcng_zzrx_bwd(
             yr.data_ptr(), yi.data_ptr(), ctr.data_ptr(), cti.data_ptr(),
             ds[0].data_ptr(), ds[1].data_ptr(), grads.data_ptr(),
             None if dm is None else dm.data_ptr(),
+            None if dm7 is None else dm7.data_ptr(),
             zzth.data_ptr(), shifts.data_ptr(), npairs, th.data_ptr(), nkernel,
             None if mr is None else mr.data_ptr(),
             None if mi is None else mi.data_ptr(),
-            scratch.data_ptr(), r, stream,
+            None if m7r is None else m7r.data_ptr(),
+            None if m7i is None else m7i.data_ptr(),
+            rmx, scratch.data_ptr(), r, stream,
         )
     _build.check("zzrx_bwd", err, "zzrx_bwd")
     out = (ds[0], ds[1], grads[:npairs], grads[npairs:])
-    return out + (dm[0], dm[1]) if lane else out
+    if lane:
+        out += (dm[0], dm[1])
+    return out + (dm7[0], dm7[1]) if rmx else out
 
 
 def zzrx_bwd(
@@ -357,22 +446,39 @@ def zzrx_bwd(
     cti: torch.Tensor,
     mr: Optional[torch.Tensor] = None,
     mi: Optional[torch.Tensor] = None,
+    m7r: Optional[torch.Tensor] = None,
+    m7i: Optional[torch.Tensor] = None,
 ):
     """K3: the adjoint of :func:`zzrx_fwd` from its output ``(yr, yi)``
     and the cotangent planes ``(dL/dyr, -dL/dyi)``.
 
     Returns ``(dsr, dsi, dzz (npairs,), dth (nkernel,))``, plus the lane
     cotangent planes ``(dmr, dmi)`` (128, 128) when the (unitary) lane
-    planes are given.  CUDA tensors launch the kernel (``zzrx_bwd.launches``
-    counts the launches); CPU tensors run :func:`zzrx_bwd_plain`.
+    planes are given.  With the unitary (R, R) row-kron planes ``m7r/m7i``
+    (stage K14) ``dth`` holds the low nkernel - rmx angles and the tuple
+    ends with ``(dm7r, dm7i)`` = ``(dL/dm7r, -dL/dm7i)``, as the JAX
+    kernel returns them.  CUDA tensors launch the kernel
+    (``zzrx_bwd.launches`` counts the launches, ``rowm_bwd.launches`` those
+    with M7); CPU tensors run :func:`zzrx_bwd_plain`.
     """
     pairs = tuple((int(a), int(b)) for a, b in pairs)
     if yr.device.type == "cpu":
-        return zzrx_bwd_plain(pairs, n, zzth, th, yr, yi, ctr, cti, mr, mi)
-    return _launch_zzrx_bwd(pairs, n, zzth, th, yr, yi, ctr, cti, mr, mi)
+        return zzrx_bwd_plain(pairs, n, zzth, th, yr, yi, ctr, cti, mr, mi, m7r, m7i)
+    return _launch_zzrx_bwd(pairs, n, zzth, th, yr, yi, ctr, cti, mr, mi, m7r, m7i)
 
 
 zzrx_bwd.launches = 0
+
+
+def rowm_bwd(pairs, n, zzth, th, yr, yi, ctr, cti, m7r, m7i, mr=None, mi=None):
+    """K3 with its row-kron stage K14: :func:`zzrx_bwd` with the (R, R)
+    planes ``m7r/m7i`` required (``rowm_bwd.launches`` counts K14)."""
+    if m7r is None or m7i is None:
+        raise ValueError("rowm_bwd: the row-kron planes are required")
+    return zzrx_bwd(pairs, n, zzth, th, yr, yi, ctr, cti, mr, mi, m7r, m7i)
+
+
+rowm_bwd.launches = 0
 
 
 def conj_planes(g: torch.Tensor):

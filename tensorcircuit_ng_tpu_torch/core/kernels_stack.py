@@ -9,22 +9,32 @@ qubits split into nouter outer and nkernel kernel qubits):
   k --outer: kron of rx on the top nouter row bits, left matmul--> o
   o --lane: kron of rx on the 7 lane bits, right matmul--> x'
 
-On a CUDA state the lane matmul rides inside kernel K1 (``FUSE_LANE``
-topology; the residual ``ks[l]`` is then the post-lane state, since outer
-and lane act on disjoint axes), and an even number of layers with
-1 <= nouter and nrow <= ``MAX_GRAND_ROW_QUBITS`` runs as ONE call of kernel
-K2 (``kernels_grand.grand_zzrx_fwd``).  On a CPU state the matrix-level
-boundaries take the JAX package's CPU branch (unfused, plain versions).
-The per-layer outer and unfused lane matmuls are plain ``torch.matmul``, as
-the JAX package leaves them to XLA.
+The mode is decided in one place, :func:`_stack_mode`, from the module
+switches of the JAX package (same names, same defaults): with
+``FUSE_LANE`` on a CUDA state the lane matmul rides inside kernel K1 (the
+residual ``ks[l]`` is then the post-lane state, since outer and lane act on
+disjoint axes), and with ``FUSE_ROWM`` as well the top rmx =
+:func:`_rowm_qubits` row bits of each block ride as one (2^rmx)^2 rx-kron
+left-matmul (K1's stage K13, K3's stage K14).  With ``FUSE_GRAND``, no
+ROWM, an even number of layers, 1 <= nouter and nrow <=
+``MAX_GRAND_ROW_QUBITS`` the forward runs as ONE call of kernel K2
+(``kernels_grand.grand_zzrx_fwd``); ``FUSE_GRAND_BWD`` sends the energy to
+the angle-level boundary, whose backward is K4 (the gate sits in
+``kernels.fused_zzrx_multilayer_energy``).  ``FUSE_LANE = False``, or a CPU
+state, takes the unfused topology (on a CPU state the JAX package's CPU
+branch, through the plain versions).  The mode is captured at forward time
+on the autograd node, so flipping a switch before the backward changes
+nothing.  The per-layer outer and unfused lane matmuls are plain
+``torch.matmul``, as the JAX package leaves them to XLA.
 
 The JAX custom VJPs become ``torch.autograd.Function``s with the same
 inputs and gradients: ``zzrx_stack_core`` and ``zzrx_stack_energy``
 (matrix level; the backward walks :func:`_adjoint_chain`, K3 once a layer
 on a CUDA state, and returns matrix cotangents that autograd chains to the
 angles through the kron builders) and ``zzrx_stack_energy_theta`` (angle
-level, always the fused topology; the backward is K4, then the lane chain
-dM -> dθ_lane by ``torch.autograd.grad`` through the lane kron builder).
+level, always the fused topology without ROWM; the backward is K4, then
+the lane chain dM -> dθ_lane by ``torch.autograd.grad`` through the lane
+kron builder).
 At every boundary torch's gradient of a complex tensor is the conjugate of
 the JAX cotangent the kernels take and return.  The residuals live on the
 autograd node, so when autograd records nothing (``torch.no_grad``, or no
@@ -50,6 +60,17 @@ __all__ = [
 
 _LANE_QUBITS = 7
 
+#: the lane matmul inside K1/K3 (needs a unitary lane matrix)
+FUSE_LANE = True
+#: the top row bits of each block as one rx-kron left-matmul (K13/K14);
+#: off by default, as in the JAX package
+FUSE_ROWM = False
+ROWM_QUBITS = 7
+#: the whole L-layer forward as one K2 call
+FUSE_GRAND = True
+#: the energy's backward as one K4 call (the angle-level boundary)
+FUSE_GRAND_BWD = True
+
 #: row qubits of the grand (one-call) path; above it the stack runs per layer
 MAX_GRAND_ROW_QUBITS = 14
 
@@ -60,6 +81,21 @@ def _shapes(n: int):
     nkernel = min(nrow, krl.MAX_KERNEL_QUBITS_ZZRX)
     nouter = nrow - nkernel
     return nrow, nkernel, nouter, nlane
+
+
+def _rowm_qubits(nkernel: int) -> int:
+    """Top row bits in the row kron: at least 3 butterfly bits stay, and
+    the kron is at most 128 x 128 (the JAX package's rule)."""
+    return max(0, min(ROWM_QUBITS, nkernel - 3))
+
+
+def _stack_mode(n: int, state2d: torch.Tensor):
+    """``(fused, rmx)`` of a stack on ``state2d``: the lane inside the
+    kernels (``FUSE_LANE`` on a CUDA state, the JAX package's "on a TPU"),
+    and the row bits in the row kron (``FUSE_ROWM``, fused only)."""
+    fused = FUSE_LANE and state2d.is_cuda
+    rmx = _rowm_qubits(_shapes(n)[1]) if fused and FUSE_ROWM else 0
+    return fused, rmx
 
 
 def _rx_kron(th: torch.Tensor) -> torch.Tensor:
@@ -104,12 +140,13 @@ def _planes(z: torch.Tensor):
     return z.real.to(torch.float32).contiguous(), z.imag.to(torch.float32).contiguous()
 
 
-def _stack_fwd_impl(pairs, n, state2d, zz_thetas, rx_kernel_thetas, mo, ml, fused):
+def _stack_fwd_impl(pairs, n, state2d, zz_thetas, rx_kernel_thetas, mo, ml, fused, rmx):
     """Returns ``(yr, yi, ksr, ksi)``: the output planes and the per-layer
     residual planes ``(ksr[l], ksi[l])`` (K2's (L, r, 128) outputs, or
     tuples of L planes).  ``mo``/``ml`` are the (real, imag) float32 planes
     of the outer and lane matrices.  ``fused``: the lane matmul rides inside
-    the kernel (the residual is then the post-lane state)."""
+    the kernel (the residual is then the post-lane state); ``rmx``: the top
+    row bits that ride in the row kron (fused only)."""
     nrow, nkernel, nouter, nlane = _shapes(n)
     L = zz_thetas.shape[0]
     sr, si = _planes(state2d)
@@ -117,7 +154,10 @@ def _stack_fwd_impl(pairs, n, state2d, zz_thetas, rx_kernel_thetas, mo, ml, fuse
     mlr, mli = ml
     zz_thetas = zz_thetas.to(torch.float32)
     rx_kernel_thetas = rx_kernel_thetas.to(torch.float32)
-    if fused and nouter >= 1 and L % 2 == 0 and nrow <= MAX_GRAND_ROW_QUBITS:
+    if (
+        FUSE_GRAND and fused and not rmx and nouter >= 1 and L % 2 == 0
+        and nrow <= MAX_GRAND_ROW_QUBITS
+    ):
         ksr, ksi, yr, yi = kg.grand_zzrx_fwd(
             pairs, n, zz_thetas, rx_kernel_thetas, sr, si, mor, moi, mlr, mli
         )
@@ -125,8 +165,11 @@ def _stack_fwd_impl(pairs, n, state2d, zz_thetas, rx_kernel_thetas, mo, ml, fuse
     ksr, ksi = [], []
     for l in range(L):
         if fused:
+            m7r = m7i = None
+            if rmx:
+                m7r, m7i = (m[0] for m in _rx_kron_planes(rx_kernel_thetas[l:l + 1, :rmx]))
             sr, si = krl.zzrx_fwd(
-                pairs, n, zz_thetas[l], rx_kernel_thetas[l], sr, si, mlr[l], mli[l]
+                pairs, n, zz_thetas[l], rx_kernel_thetas[l], sr, si, mlr[l], mli[l], m7r, m7i
             )
         else:
             sr, si = krl.zzrx_fwd(pairs, n, zz_thetas[l], rx_kernel_thetas[l], sr, si)
@@ -143,14 +186,16 @@ def _stack_fwd_impl(pairs, n, state2d, zz_thetas, rx_kernel_thetas, mo, ml, fuse
     return sr, si, tuple(ksr), tuple(ksi)
 
 
-def _adjoint_chain(pairs, n, ksr, ksi, zz_thetas, rx_kernel_thetas, mout, mlane, cr, ci, fused):
+def _adjoint_chain(pairs, n, ksr, ksi, zz_thetas, rx_kernel_thetas, mout, mlane, cr, ci, fused, rmx):
     """Walk the L-layer adjoint from the output cotangent planes
     ``(cr, ci) = (dL/dyr, -dL/dyi)``.
 
     Returns ``(dsr, dsi, dzz, dth, (dmor, dmoi), (dmlr, dmli))``, every
-    complex cotangent as planes in the same convention.  ``fused`` is the
-    forward's topology: fused residuals are post-lane and pre-outer,
-    unfused ones the kernel's output before the outer and lane matmuls.
+    complex cotangent as planes in the same convention.  ``fused`` and
+    ``rmx`` are the forward's mode: fused residuals are post-lane and
+    pre-outer, unfused ones the kernel's output before the outer and lane
+    matmuls; with rmx, K3 takes the row kron and dM7 chains to the top rmx
+    angles through the kron builder.
     """
     nrow, nkernel, nouter, nlane = _shapes(n)
     L = zz_thetas.shape[0]
@@ -184,7 +229,21 @@ def _adjoint_chain(pairs, n, ksr, ksi, zz_thetas, rx_kernel_thetas, mout, mlane,
             gai = torch.sum(cr * ki) + torch.sum(ci * kr)
             dmo.append((gar.reshape(1, 1), gai.reshape(1, 1)))
             cr, ci = ar * cr - ai * ci, ar * ci + ai * cr
-        if fused:
+        if fused and rmx:
+            th7 = rx_kernel_thetas[l, :rmx]
+            m7r, m7i = (m[0] for m in _rx_kron_planes(th7[None]))
+            cr, ci, dz, dt_low, gmr, gmi, dm7r, dm7i = krl.zzrx_bwd(
+                pairs, n, zz_thetas[l], rx_kernel_thetas[l], kr, ki, cr, ci, mlr[l], mli[l], m7r, m7i
+            )
+            dml.append((gmr, gmi))
+            # dM7 -> dθ_top through the kron builder; the planes are
+            # (dL/dm7r, -dL/dm7i), so the imaginary cotangent flips sign
+            with torch.enable_grad():
+                t7 = th7.detach().requires_grad_()
+                pr, pi = _rx_kron_planes(t7[None])
+                (dt7,) = torch.autograd.grad((pr, pi), t7, (dm7r[None], -dm7i[None]))
+            dt = torch.cat([dt7, dt_low])
+        elif fused:
             cr, ci, dz, dt, gmr, gmi = krl.zzrx_bwd(
                 pairs, n, zz_thetas[l], rx_kernel_thetas[l], kr, ki, cr, ci, mlr[l], mli[l]
             )
@@ -210,7 +269,8 @@ def _matrix_grads(ctx, zz_thetas, rx_kernel_thetas, mout, mlane, cr, ci):
     """torch gradients of (state2d, zz, rx_kernel, mout, mlane) of a
     matrix-level boundary from its output cotangent planes."""
     dsr, dsi, dzz, dth, dmo, dml = _adjoint_chain(
-        ctx.pairs, ctx.n, *ctx.ks, zz_thetas, rx_kernel_thetas, mout, mlane, cr, ci, ctx.fused
+        ctx.pairs, ctx.n, *ctx.ks, zz_thetas, rx_kernel_thetas, mout, mlane, cr, ci,
+        ctx.fused, ctx.rmx,
     )
     return (
         krl.grad_of_planes(dsr, dsi).to(ctx.state_dtype),
@@ -226,12 +286,13 @@ class _StackCore(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, pairs, n, state2d, zz_thetas, rx_kernel_thetas, mout, mlane):
-        fused = state2d.is_cuda
+        fused, rmx = _stack_mode(n, state2d)
         yr, yi, ksr, ksi = _stack_fwd_impl(
-            pairs, n, state2d, zz_thetas, rx_kernel_thetas, _planes(mout), _planes(mlane), fused
+            pairs, n, state2d, zz_thetas, rx_kernel_thetas, _planes(mout), _planes(mlane), fused, rmx
         )
-        # the residuals are intermediates (neither inputs nor outputs)
-        ctx.pairs, ctx.n, ctx.fused, ctx.ks = pairs, n, fused, (ksr, ksi)
+        # the residuals are intermediates (neither inputs nor outputs); the
+        # mode rides the node, so the backward follows this forward
+        ctx.pairs, ctx.n, ctx.fused, ctx.rmx, ctx.ks = pairs, n, fused, rmx, (ksr, ksi)
         ctx.state_dtype = state2d.dtype
         ctx.save_for_backward(zz_thetas, rx_kernel_thetas, mout, mlane)
         return torch.complex(yr, yi).to(state2d.dtype)
@@ -248,9 +309,9 @@ def zzrx_stack_core(pairs, n, state2d, zz_thetas, rx_kernel_thetas, mout, mlane)
     ``state2d`` (2^nrow, 128) complex64; ``zz_thetas`` (L, npairs);
     ``rx_kernel_thetas`` (L, nkernel); ``mout`` (L, D, D) complex left-mul
     matrices on the top nouter row bits; ``mlane`` (L, 128, 128) complex
-    right-mul matrices on the lane bits.  On a CUDA state the lane matmul
-    rides inside the kernels, and then ``mlane`` must be unitary, as in the
-    JAX package.  Differentiable in every tensor: the backward walks
+    right-mul matrices on the lane bits.  On a CUDA state under
+    ``FUSE_LANE`` the lane matmul rides inside the kernels, and then
+    ``mlane`` must be unitary, as in the JAX package.  Differentiable in every tensor: the backward walks
     :func:`_adjoint_chain` (K3 on a CUDA state)."""
     pairs = tuple((int(a), int(b)) for a, b in pairs)
     return _StackCore.apply(pairs, n, state2d, zz_thetas, rx_kernel_thetas, mout, mlane)
@@ -353,12 +414,12 @@ class _StackEnergy(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, pairs, n, state2d, zz_thetas, rx_kernel_thetas, mout, mlane, spec):
-        fused = state2d.is_cuda
+        fused, rmx = _stack_mode(n, state2d)
         yr, yi, ksr, ksi = _stack_fwd_impl(
-            pairs, n, state2d, zz_thetas, rx_kernel_thetas, _planes(mout), _planes(mlane), fused
+            pairs, n, state2d, zz_thetas, rx_kernel_thetas, _planes(mout), _planes(mlane), fused, rmx
         )
         e, br, bi = _readout_energy(yr, yi, n, spec)
-        ctx.pairs, ctx.n, ctx.fused, ctx.ks = pairs, n, fused, (ksr, ksi)
+        ctx.pairs, ctx.n, ctx.fused, ctx.rmx, ctx.ks = pairs, n, fused, rmx, (ksr, ksi)
         ctx.state_dtype = state2d.dtype
         ctx.seeds = (br, bi)
         ctx.save_for_backward(zz_thetas, rx_kernel_thetas, mout, mlane)
@@ -384,7 +445,8 @@ def zzrx_stack_energy(
 
 class _StackEnergyTheta(torch.autograd.Function):
     """Counterpart of the JAX ``zzrx_stack_energy_theta`` custom VJP: the
-    backward is K4 (:func:`kernels_grand.grand_zzrx_bwd`), then the lane
+    forward is K2 under ``FUSE_GRAND`` (and an even L), else K1 a layer;
+    the backward is K4 (:func:`kernels_grand.grand_zzrx_bwd`), then the lane
     chain dM -> dθ_lane through the kron builder."""
 
     @staticmethod
@@ -393,9 +455,10 @@ class _StackEnergyTheta(torch.autograd.Function):
         th = rx_thetas.detach().to(torch.float32)
         mo = _rx_kron_planes(th[:, :nouter])
         ml = _lane_kron_planes_T(th[:, nrow:])
-        # always the fused topology (the JAX package asserts it here)
+        # always the fused topology without ROWM (the JAX package asserts
+        # it here); FUSE_GRAND picks K2 or per-layer K1
         yr, yi, ksr, ksi = _stack_fwd_impl(
-            pairs, n, state2d, zz_thetas, th[:, nouter:nrow], mo, ml, True
+            pairs, n, state2d, zz_thetas, th[:, nouter:nrow], mo, ml, True, 0
         )
         e, br, bi = _readout_energy(yr, yi, n, spec)
         ctx.pairs, ctx.n, ctx.ks, ctx.seeds = pairs, n, (ksr, ksi), (br, bi)

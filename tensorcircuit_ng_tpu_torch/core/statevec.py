@@ -52,6 +52,17 @@ def _real_dtype(dtype: torch.dtype) -> torch.dtype:
     return torch.float64 if dtype == torch.complex128 else torch.float32
 
 
+def real_tensor(x: Any, device: Any, dtype: torch.dtype) -> torch.Tensor:
+    """``x`` as a real tensor on ``device``.  A tensor or a numpy array keeps
+    its dtype (and its autograd graph); Python numbers, and lists of them,
+    are built in the real dtype of the complex ``dtype``: float64 under
+    complex128, as the JAX package's ``jnp.asarray`` gives after
+    ``set_dtype``, not torch's default float32."""
+    if isinstance(x, (torch.Tensor, np.ndarray)):
+        return torch.as_tensor(x, device=device)
+    return torch.as_tensor(x, dtype=_real_dtype(dtype), device=device)
+
+
 def _as_tensor(t: Any, like: torch.Tensor) -> torch.Tensor:
     """Numpy or torch operand -> tensor on ``like``'s device and dtype."""
     if isinstance(t, torch.Tensor):
@@ -149,7 +160,7 @@ def apply_zz_product_phase(
     n = num_slots(state, 2)
     idx = torch.arange(state.shape[0], device=state.device)
     rdt = _real_dtype(state.dtype)
-    thetas = torch.reshape(torch.as_tensor(thetas, device=state.device), (-1,)).to(rdt)
+    thetas = torch.reshape(real_tensor(thetas, state.device, state.dtype), (-1,)).to(rdt)
     expo = torch.zeros(state.shape[0], dtype=rdt, device=state.device)
     for k, (a, b) in enumerate(pairs):
         expo = expo + thetas[k] * (_zsign(idx, n, a) * _zsign(idx, n, b)).to(rdt)
@@ -165,7 +176,7 @@ def apply_zstring_phase(state: torch.Tensor, wires: Sequence[int], theta: Any) -
     for w in wires:
         parity = parity ^ ((idx >> (n - 1 - int(w))) & 1)
     rdt = _real_dtype(state.dtype)
-    theta = torch.as_tensor(theta, device=state.device).to(rdt)
+    theta = real_tensor(theta, state.device, state.dtype).to(rdt)
     expo = theta * (1 - 2 * parity).to(rdt)
     return state * torch.polar(torch.ones_like(expo), -0.5 * expo).to(state.dtype)
 

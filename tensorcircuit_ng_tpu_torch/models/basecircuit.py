@@ -51,8 +51,9 @@ class BaseCircuit(AbstractCircuit):
         return self._device
 
     def _param(self, x: Any) -> torch.Tensor:
-        """A flat parameter tensor on the circuit's device (keeps autograd)."""
-        return torch.reshape(torch.as_tensor(x, device=self._device), (-1,))
+        """A flat parameter tensor on the circuit's device (keeps autograd;
+        Python floats in the real dtype of the default complex dtype)."""
+        return torch.reshape(statevec.real_tensor(x, self._device, config.torch_dtype()), (-1,))
 
     def _append(self, item: Dict[str, Any]) -> None:
         self._qir.append(item)
@@ -423,8 +424,8 @@ class BaseCircuit(AbstractCircuit):
         their probability, or -1 without ``with_prob``)."""
         if status is None:
             status = torch.rand(len(index), device=self._device, generator=generator)
-        status = torch.as_tensor(status, device=self._device)
         psi = self.state()
+        status = statevec.real_tensor(status, self._device, psi.dtype)
         rdt = statevec._real_dtype(psi.dtype)
         outcomes = []
         prob = torch.ones((), dtype=rdt, device=self._device)

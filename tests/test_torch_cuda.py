@@ -19,7 +19,10 @@ held to ``chip_smoke.py``'s SVD tolerances, which state their reasons, and
 within 1e-4, as ``chip_smoke.py`` holds it at n=60.  K9-K12 (the
 whole-block multilayer and rotx kernels) as K1-K8, and the QAOA cost of
 ``chip_smoke.qaoa_energy`` on the card in both forms against the CPU path,
-1e-4 on energy and gradient.
+1e-4 on energy and gradient.  K1/K3 with the row kron (K13/K14) as K1/K3,
+the ``FUSE_ROWM`` TFIM gradient as the circuit gradients; K15 (the staged
+micro-benchmark, random non-unitary inputs whose values grow to O(100))
+within 1e-5 of its output's largest entry.
 """
 
 import numpy as np
@@ -598,3 +601,91 @@ def test_qaoa_on_card_matches_cpu(cuda, n, form, monkeypatch):
     e_cpu, g_cpu = run("cpu")
     assert abs(e_card - e_cpu) <= 1e-4
     np.testing.assert_allclose(g_card, g_cpu, rtol=0, atol=1e-4)
+
+
+def _grad_close(got, want):
+    torch.testing.assert_close(got, want, atol=GRAD_RTOL * want.abs().max().item(), rtol=0)
+
+
+@pytest.mark.parametrize(
+    "n,nkernel,rmx,lane",
+    [(12, 5, 2, True), (13, 6, 3, False), (17, 10, 5, True), (20, 10, 7, True), (20, 10, 7, False)],
+)
+def test_rowm_kernels_match_plain(cuda, n, nkernel, rmx, lane):
+    """K1 and K3 with the row kron M7 (stages K13/K14): the forward with an
+    arbitrary M7, the backward with the unitary M7 = kron(rx) from the
+    forward's output, K3 twice and equal bit for bit (n=20, rmx=7 is the
+    FUSE_ROWM path's shape)."""
+    pairs = _pairs(n, "open")
+    (sr, si), t = _inputs(n, nkernel, 1, len(pairs), 3 * n + rmx, cuda)
+    zz, th = t["zz"][0], t["th"][0]
+    rng = np.random.default_rng(n)
+    mr = mi = None
+    if lane:  # unitary: the backward un-applies it
+        mr, mi = (m[0] for m in kst._lane_kron_planes_T(convert.params(rng.normal(size=(1, 7)), cuda)))
+    R = 2**rmx
+    a7r, a7i = (convert.params(rng.normal(size=(R, R)) / np.sqrt(2 * R), cuda) for _ in range(2))
+    krl.rowm_fwd.launches = krl.rowm_bwd.launches = 0
+    got = krl.rowm_fwd(pairs, n, zz, th, sr, si, a7r, a7i, mr, mi)
+    torch.cuda.synchronize()
+    for g, w in zip(got, krl.zzrx_fwd_plain(pairs, n, zz, th, sr, si, mr, mi, a7r, a7i)):
+        torch.testing.assert_close(g, w, atol=ATOL, rtol=0)
+    m7r, m7i = (m[0] for m in kst._rx_kron_planes(th[None, :rmx]))
+    yr, yi = krl.zzrx_fwd_plain(pairs, n, zz, th, sr, si, mr, mi, m7r, m7i)
+    (ctr, cti), _ = _inputs(n, nkernel, 1, len(pairs), n + 1, cuda)
+    got = krl.rowm_bwd(pairs, n, zz, th, yr, yi, ctr, cti, m7r, m7i, mr, mi)
+    again = krl.rowm_bwd(pairs, n, zz, th, yr, yi, ctr, cti, m7r, m7i, mr, mi)
+    torch.cuda.synchronize()
+    assert (krl.rowm_fwd.launches, krl.rowm_bwd.launches) == (1, 2)
+    want = krl.zzrx_bwd_plain(pairs, n, zz, th, yr, yi, ctr, cti, mr, mi, m7r, m7i)
+    assert len(got) == len(want) == (8 if lane else 6) and got[3].shape == (nkernel - rmx,)
+    for i, (g, g2, w) in enumerate(zip(got, again, want)):
+        assert torch.equal(g, g2)
+        if i < 2:
+            torch.testing.assert_close(g, w, atol=ATOL, rtol=0)
+        else:
+            _grad_close(g, w)
+
+
+@pytest.mark.parametrize("n", [12, 20])
+def test_rowm_gradient_on_card_matches_cpu(cuda, n, monkeypatch):
+    """The TFIM value and grad at L=4 under FUSE_ROWM on the card (K1/K3
+    with M7 once a layer; no K2/K4) against the CPU path."""
+    pairs = [(i, i + 1) for i in range(n - 1)]
+    p0 = np.random.default_rng(n).normal(size=(4, 2, n)) * 0.1
+    monkeypatch.setattr(kst, "FUSE_ROWM", True)
+
+    def run(dev):
+        p = convert.params(p0, dev).requires_grad_()
+        c = tct.Circuit(n, device=dev)
+        c.h_layer()
+        for l in range(4):
+            c.zzrx_layer(pairs, p[l, 0, : n - 1], p[l, 1])
+        e = c.expectation_zzx_energy(pairs, 1.0, -1.0)
+        (g,) = torch.autograd.grad(e, p)
+        return e.item(), convert.to_numpy(g)
+
+    counters = (krl.rowm_fwd, krl.rowm_bwd, kg.grand_zzrx_fwd, kg.grand_zzrx_bwd)
+    for k in counters:
+        k.launches = 0
+    e_card, g_card = run(cuda)
+    rmx = kst._rowm_qubits(kst._shapes(n)[1])
+    assert tuple(k.launches for k in counters) == ((4, 4, 0, 0) if rmx else (0, 0, 0, 0))
+    e_cpu, g_cpu = run("cpu")
+    assert abs(e_card - e_cpu) <= 1e-4
+    np.testing.assert_allclose(g_card, g_cpu, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("n,level", [(18, 1), (18, 3), (20, 1), (20, 2), (20, 3)])
+def test_micro_grand_matches_plain(cuda, n, level):
+    """K15 at each level on the example's inputs (n=20: 8 blocks; n=18: 2)
+    against its plain version, within 1e-5 of the output's largest entry."""
+    from tensorcircuit_ng_tpu_torch.core import kernels_micro as km
+
+    args = km.micro_inputs(cuda, seed=level, n=n)
+    km.micro_grand.launches = 0
+    got = km.micro_grand(level, *args)
+    torch.cuda.synchronize()
+    assert km.micro_grand.launches == 1
+    for g, w in zip(got, km.micro_grand_plain(level, *args)):
+        torch.testing.assert_close(g, w, atol=1e-5 * w.abs().max().item(), rtol=0)
