@@ -48,8 +48,10 @@ Phases (any failure exits non-zero; nothing is caught):
      decaying, rank-deficient and degenerate 128x128 batches of 30 and a
      (30, 128, 80) panel with V, the random batch without; K5 equal to
      itself over two runs; the trotter step timed (CUDA events), K5, its
-     plain version and ``torch.linalg.svd`` timed on the B=30 thetas, and a
-     torch.profiler window over 3 steps;
+     plain version and ``torch.linalg.svd`` timed on the B=30 thetas, K5's
+     cluster size, the card's cluster occupancy, K5 at every cluster size
+     that runs and K5's time a round, and a torch.profiler window over 3
+     steps (one K5 kernel name);
   8. the HEA path, the main path of the single-qubit-layer slice: K6
      ``row_fwd`` and K7 ``row_bwd`` with and without the lane matrix and K8
      ``row_bwd_const`` against their plain versions at n=20 (nkernel=11,
@@ -1486,7 +1488,35 @@ def main() -> int:
     print(f"kernel jacobi_svd [B=30 path thetas, with V] over 3 rounds, {card}: median {k5_t[0]:.4f} ms "
           f"(min {k5_t[1]:.4f}, max {k5_t[2]:.4f}); plain median of {plain_reps} calls {k5_plain:.2f} ms; "
           f"torch.linalg.svd {k5_lib:.4f} ms (median of 10)")
+    rounds = TEBD_SWEEPS * (th_even.shape[-1] - 1)
+    nb, m_, n_ = th_even.shape
+    k5_c = kj.cluster_size(dev, nb, n_, m_, True)
+    active = {c: kj._max_active_clusters(torch.cuda.current_device(), n_, m_, True, c) for c in kj._CLUSTERS
+              if kj._smem_bytes(n_, m_, True, c) <= kj._MAX_SMEM_BYTES}
+    print(f"K5 cluster: {k5_c} CTAs a matrix ({nb * k5_c} CTAs) for B={nb} {n_}x{m_} with V; "
+          f"cudaOccupancyMaxActiveClusters by cluster size {active}, {card}")
+    # the rule's evidence: the same call at every cluster size that runs,
+    # through the C entry point (the wrapper has no cluster argument)
+    lib = _build.library("jacobi_svd")
+    outs = [torch.empty_like(ar), torch.empty_like(ai), torch.empty((nb, n_, n_), device=dev),
+            torch.empty((nb, n_, n_), device=dev)]
+
+    def k5_at(c):
+        err = lib.tcng_jacobi_svd(ar.data_ptr(), ai.data_ptr(), *[o.data_ptr() for o in outs], nb, n_, m_,
+                                  TEBD_SWEEPS, c, torch.cuda.current_stream().cuda_stream)
+        _build.check("jacobi_svd", err, f"jacobi_svd at cluster size {c}")
+
+    by_c = {c: _time_ms(lambda c=c: k5_at(c), reps=5, inner=5, warmup=1) for c in active}
+    print("kernel jacobi_svd by cluster size (ms, median of 5): "
+          + ", ".join(f"C={c} {t:.4f}" for c, t in by_c.items()) + f"; the rule took {k5_c}, {card}")
+    print(f"kernel jacobi_svd a round: {k5_t[0] / rounds * 1e3:.3f} us (median {k5_t[0]:.4f} ms / {rounds} "
+          f"rounds), {card}")
     host, busy, by_kernel = prof_tebd
+    k5_names = [(name, ms, count) for name, ms, count in by_kernel if "jacobi" in name]
+    for name, ms, count in k5_names:
+        print(f"profile K5 kernel: {name} device {ms:.4f} ms x{count:g} a trotter step, {card}")
+    if len(k5_names) != 1:
+        _fail(f"the profiler shows {len(k5_names)} K5 kernel names, not one: {k5_names}")
     print(f"profile TEBD trotter step (torch.profiler, 3 steps), {card}: host {host:.3f} ms under the "
           f"profiler, device busy {busy:.3f} ms ({100 * busy / host:.1f} % of it; "
           f"{100 * busy / tebd_ms:.1f} % of the unprofiled {tebd_ms:.3f} ms), {len(by_kernel)} kernel names")

@@ -66,7 +66,8 @@ _SIGNATURES = {
         ],
     },
     "jacobi_svd": {
-        "tcng_jacobi_svd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+        "tcng_jacobi_max_clusters": [_I, _I, _I, _I],
+        "tcng_jacobi_svd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     },
     "row_layer": {
         "tcng_row_fwd": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _P],

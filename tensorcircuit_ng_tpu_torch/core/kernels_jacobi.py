@@ -13,7 +13,9 @@ K5 (``csrc/jacobi_svd.cu``, ``tcng_jacobi_svd``), serves it:
   ``new_top = [top0, bot0, top1..top_{h-2}]``, ``new_bot = [bot1..bot_{h-1},
   top_{h-1}]``; all n/2 plane rotations of a round at once, ``sweeps *
   (n-1)`` rounds, no convergence test;
-- optional V accumulated with the same rotations.
+- optional V accumulated with the same rotations, in the same kernel;
+- one thread-block cluster of C CTAs a matrix, each holding a slice of every
+  column (:func:`_cluster_size` picks C from the card's occupancy).
 
 :func:`jacobi_rotations` is K5's wrapper: a CUDA tensor launches the kernel
 (``jacobi_rotations.launches`` counts the launches) or raises; a CPU tensor
@@ -29,6 +31,7 @@ TPU layout knobs ``LANES``, ``LANE_GROUP`` and ``PACKED`` do not carry over.
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Optional, Tuple
 
 import numpy as np
@@ -40,6 +43,7 @@ from . import linalg as _linalg
 __all__ = [
     "jacobi_rotations",
     "jacobi_rotations_plain",
+    "cluster_size",
     "jacobi_svd_nodiff",
     "jacobi_svd_pallas",
     "jacobi_svd",
@@ -49,12 +53,62 @@ __all__ = [
     "OVERSAMPLE",
 ]
 
-#: the kernel keeps a matrix's (real, imag) planes in one CTA's shared
-#: memory (227 KB) and up to 8 column elements a lane in registers
+#: a CTA holds its slices of a matrix's (real, imag) planes in shared memory
+#: (227 KB); the wrapper admits the shapes one CTA held before clusters
 _MAX_SMEM_BYTES = 232448
 _MAX_M = 256
-#: columns of V^T one V-replay CTA holds (n must be a multiple)
-_V_COLS = 16
+#: the cluster sizes K5 launches with (CTAs a matrix; 8 is the portable limit)
+_CLUSTERS = (1, 2, 4, 8)
+
+
+def _smem_bytes(n: int, m: int, with_v: bool, c: int) -> int:
+    """Shared memory of one K5 CTA in a cluster of ``c``: the partials
+    buffer (2 parities x c ranks x n/2 pairs x 16 B), its two mbarriers
+    (16 B), the rotations (n/2 x 16 B) and its slices of A's and V's
+    planes, ceil(m/c) and ceil(n/c) elements of each column rounded up to
+    even (the C ``smem_bytes`` of ``csrc/jacobi_svd.cu``)."""
+    mw = -(-m // c)
+    nw = -(-n // c) if with_v else 0
+    return (2 * c + 1) * 16 * (n // 2) + 16 + 2 * 4 * n * (mw + mw % 2 + nw + nw % 2)
+
+
+def _cluster_size(b: int, n: int, m: int, with_v: bool, max_active: Callable[[int], int]) -> int:
+    """K5's cluster size for a batch of ``b`` (n, m) matrices.
+
+    The largest C in {1, 2, 4, 8} whose slices fit one CTA and whose
+    clusters hold the whole batch in one wave, ``b <= max_active(C)``
+    (``cudaOccupancyMaxActiveClusters`` on the card); with no such C, the
+    smallest that fits, in several waves.  Rounds are a dependent chain, so
+    more CTAs a matrix shorten each round while the batch still runs at
+    once.  Raises ValueError if no C fits (V's n x n planes of a matrix with
+    n >> m, which :func:`jacobi_svd_nodiff` never gives: it needs m >= n).
+    """
+    fits = [c for c in _CLUSTERS if _smem_bytes(n, m, with_v, c) <= _MAX_SMEM_BYTES]
+    if not fits:
+        raise ValueError(
+            f"jacobi_rotations: unsupported shape n={n}, m={m}: the slices of a cluster of "
+            f"{_CLUSTERS[-1]} exceed {_MAX_SMEM_BYTES} bytes a CTA{' with V' if with_v else ''}"
+        )
+    one_wave = [c for c in fits if b <= max_active(c)]
+    return one_wave[-1] if one_wave else fits[0]
+
+
+@functools.lru_cache(maxsize=None)
+def _max_active_clusters(index: int, n: int, m: int, with_v: bool, c: int) -> int:
+    """``cudaOccupancyMaxActiveClusters`` of K5 on card ``index``."""
+    lib = _build.library("jacobi_svd")
+    with torch.cuda.device(index):
+        count = lib.tcng_jacobi_max_clusters(n, m, int(with_v), c)
+    if count < 0:
+        _build.check("jacobi_svd", -count, "jacobi_rotations: cluster occupancy")
+    return count
+
+
+def cluster_size(dev: torch.device, b: int, n: int, m: int, with_v: bool) -> int:
+    """The cluster size K5 takes on CUDA device ``dev`` for a (b, n, m) batch."""
+    index = torch.device(dev).index
+    index = torch.cuda.current_device() if index is None else index
+    return _cluster_size(b, n, m, with_v, lambda c: _max_active_clusters(index, n, m, with_v, c))
 
 
 def jacobi_rotations_plain(
@@ -144,19 +198,18 @@ def _launch_jacobi(xr, xi, sweeps: int, with_v: bool):
             raise ValueError(f"jacobi_rotations: plane shape {tuple(p.shape)}, expected {(b, n, m)}")
         if not p.is_contiguous():
             raise ValueError("jacobi_rotations: planes must be contiguous")
-    if n < 2 or n % 2 or m > _MAX_M or 8 * n * m > _MAX_SMEM_BYTES or (with_v and n % _V_COLS):
+    if n < 2 or n % 2 or m > _MAX_M or 8 * n * m > _MAX_SMEM_BYTES:
         raise ValueError(
             f"jacobi_rotations: unsupported shape n={n}, m={m} (n even, m <= {_MAX_M}, "
-            f"8*n*m <= {_MAX_SMEM_BYTES} bytes, n a multiple of {_V_COLS} with V)"
+            f"8*n*m <= {_MAX_SMEM_BYTES} bytes)"
         )
+    c = cluster_size(dev, b, n, m, with_v)
     sweeps = int(sweeps)
     oxr = torch.empty_like(xr)
     oxi = torch.empty_like(xi)
     if with_v:
         ovr = torch.empty((b, n, n), dtype=torch.float32, device=dev)
         ovi = torch.empty_like(ovr)
-        # the (c, s cos phi, s sin phi) of every pair and round, replayed on V
-        log = torch.empty((b, sweeps * (n - 1), 3, n // 2), dtype=torch.float32, device=dev)
     lib = _build.library("jacobi_svd")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -164,7 +217,7 @@ def _launch_jacobi(xr, xi, sweeps: int, with_v: bool):
         err = lib.tcng_jacobi_svd(
             xr.data_ptr(), xi.data_ptr(), oxr.data_ptr(), oxi.data_ptr(),
             ovr.data_ptr() if with_v else None, ovi.data_ptr() if with_v else None,
-            log.data_ptr() if with_v else None, b, n, m, sweeps, stream,
+            b, n, m, sweeps, c, stream,
         )
     _build.check("jacobi_svd", err, "jacobi_rotations")
     return (oxr, oxi, ovr, ovi) if with_v else (oxr, oxi)

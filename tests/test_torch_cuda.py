@@ -301,15 +301,30 @@ def test_backward_wrappers_check_their_inputs(cuda):
         kg.grand_zzrx_bwd(pairs, n, zz, th[:, :0], ksr, ksi, ctr, cti, d32, d32, *mats[2:])
 
 
+#: random (m, n) batches beside ``_svd_batches``' 128-wide ones
+_SVD_SHAPES = {"random 100x96": (100, 96), "random 16x16": (16, 16), "random 160x160": (160, 160)}
+
+
 @pytest.mark.parametrize(
     "kind,b,with_v",
     [("random", 30, True), ("decaying", 29, True), ("rank-deficient", 30, True),
-     ("degenerate", 29, True), ("panel 128x80", 30, True), ("decaying", 30, False)],
+     ("degenerate", 29, True), ("panel 128x80", 30, True), ("decaying", 30, False),
+     ("random", 1, True), ("panel 128x80", 1, True), ("random", 200, True),
+     ("random 100x96", 5, True), ("random 16x16", 4, True),
+     ("random 160x160", 4, True), ("random 160x160", 40, True)],
 )
 def test_jacobi_svd_kernel_matches_plain(cuda, kind, b, with_v):
     """K5 through ``jacobi_svd_nodiff`` against its plain version on the same
-    CUDA inputs, and bit for bit against itself."""
-    a = dict(_svd_batches(np.random.default_rng(b), b=b))[kind]
+    CUDA inputs, and bit for bit against itself: one matrix, several waves
+    of clusters (B=200), a ragged m (100 elements over the cluster), the
+    smallest width, and 80 pairs: two a half-warp (B=4, 8 CTAs a matrix)
+    and pairs loaded again after the barrier (B=40, 2 CTAs)."""
+    rng = np.random.default_rng(b)
+    if kind in _SVD_SHAPES:
+        shape = (b,) + _SVD_SHAPES[kind]
+        a = rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
+    else:
+        a = dict(_svd_batches(rng, b=b))[kind]
     a = torch.as_tensor(a.astype(np.complex64), device=cuda)
     kj.jacobi_rotations.launches = 0
     got = kj.jacobi_svd_nodiff(a, 10, with_v)
@@ -334,6 +349,10 @@ def test_jacobi_wrapper_checks_its_inputs(cuda):
     with pytest.raises(ValueError, match="unsupported shape"):
         y = torch.zeros((2, 16, 512), device=cuda)
         kj.jacobi_rotations(y, y, 10, False)
+    with pytest.raises(ValueError, match="unsupported shape"):
+        # V's 908 x 908 planes do not fit a cluster of 8 CTAs
+        y = torch.zeros((1, 908, 32), device=cuda)
+        kj.jacobi_rotations(y, y, 10, True)
 
 
 @pytest.mark.parametrize("n,chi,steps", [(12, 16, 6), (60, 64, 3)])
