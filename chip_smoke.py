@@ -86,7 +86,11 @@ Phases (any failure exits non-zero; nothing is caught):
      switches (FUSE_GRAND, FUSE_GRAND_BWD, both, FUSE_LANE off, FUSE_ROWM
      on) with the launches each gives; K1/K3 with M7 timed with their
      bounds, the step timed under each setting and profiled stage by
-     stage under FUSE_ROWM; the switches restored to their defaults;
+     stage under FUSE_ROWM; the switches restored to their defaults; the
+     stages' plan at R=128 (tile, grid, shared bytes, CTAs an SM,
+     registers, spills: none allowed) and each stage (K13, K14a, K14b with
+     its colsum) by device time a launch on the step, its bound and one
+     PyTorch call that computes the same product at the same shapes;
  11. the staged micro-benchmark of K2's design (``examples/
      micro_grand_fusion.py`` ``run_micro``): K15 ``micro_grand`` at m1, m2
      and m3 against its plain version on the example's n=20, L=4 inputs,
@@ -266,6 +270,25 @@ def _time_rounds(fn, rounds: int = 3, **kw):
 PLAIN_TIMING = {"reps": 5, "inner": 1, "warmup": 1}
 
 
+def _graph_ms(fn, calls: int = 10):
+    """(median, min, max) ms of one call of ``fn`` over 3 rounds of CUDA
+    events around the replay of a CUDA graph of ``calls`` calls: device time
+    with the host's launch cost taken out."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    return tuple(t / calls for t in _time_rounds(graph.replay, inner=1))
+
+
 def _profile(fn, reps: int = 10):
     """(host ms, device-busy ms, [(kernel, ms, launches)]) per call of
     ``fn`` over ``reps`` calls under torch.profiler (host time includes the
@@ -345,6 +368,76 @@ def _k4_work(r, npairs, nkernel, nouter, L):
     nbytes += L * (4 * 4 * 128 * 128 + 2 * 4 * d * d + 4 * (4 * npairs + 2 * nkernel + nouter))
     flops = L * (f3 + amps * (8 * d + 4 * nouter))
     return nbytes, flops
+
+
+def _rowm_stage_work(r, rmx):
+    """(bytes, flops) of each row-kron stage alone, by name: K13 y = M7 x
+    (x in, y out, M7 in; 8·R flops an amplitude), K14a x = M7† y and c' =
+    M7ᵀ c (y, c in, x, c' out; 16·R), K14b dM7 = Σ c xᵀ (c, x in, dM7 out;
+    8·R)."""
+    amps, R = r * 128, 2**rmx
+    m7 = 2 * 4 * R * R
+    return {
+        "K13": (16 * amps + m7, 8 * R * amps),
+        "K14a": (32 * amps + m7, 16 * R * amps),
+        "K14b": (16 * amps + m7, 8 * R * amps),
+    }
+
+
+def _ptxas_report(log: str, needle: str):
+    """(registers, spill store bytes, spill load bytes) of each kernel whose
+    mangled name holds ``needle``, from nvcc's ``-Xptxas -v`` output."""
+    import re
+
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)'?", line)
+        if m:
+            name = m.group(1)
+            continue
+        if name is None or needle not in name:
+            continue
+        regs, spill = out.get(name, (None, None, None)), re.search(
+            r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if spill:
+            out[name] = (regs[0], int(spill.group(1)), int(spill.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name] = (int(m.group(1)), regs[1], regs[2])
+    return out
+
+
+def _stage_times(fn, stages, reps: int = 10):
+    """(device µs a launch, launches a call) of each stage of ``fn`` under
+    torch.profiler: ``stages`` maps a label to a kernel-name test; a label
+    ending in "+colsum" adds the colsum_kernel launched right after each of
+    its kernels (found in the trace's time order)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    by_name = [e for e in prof.key_averages() if e.device_type == cuda]
+    trace = sorted((e for e in prof.events() if e.device_type == cuda), key=lambda e: e.time_range.start)
+    out = {}
+    for label, test in stages.items():
+        hits = [e for e in by_name if test(e.key)]
+        count = sum(e.count for e in hits)
+        if count == 0:
+            _fail(f"stage {label}: no kernel launched in the profile")
+        us = sum(e.self_device_time_total for e in hits) / count
+        if label.endswith("+colsum"):
+            after = [trace[i + 1] for i, e in enumerate(trace[:-1]) if test(e.name)]
+            if not after or any("colsum_kernel" not in e.name for e in after):
+                _fail(f"{label}: no colsum right after each launch in the trace")
+            us += sum(e.time_range.elapsed_us() for e in after) / len(after)
+        out[label] = (us, count / reps)
+    return out
 
 
 def _bound_ms(nbytes, flops):
@@ -1010,6 +1103,11 @@ def _rowm_phase(tct, krl, kst, dev, card, counters):
             print(f"training step n={N} L={L} under switches {label} (CUDA events, ends in .item()), {card}: "
                   f"{step_ms:.3f} ms (median of 20)")
         host, busy, by_kernel = _profile(step)
+        stage_us = _stage_times(step, {
+            "K13": lambda s: f"rowm_apply_kernel<{R}, false>" in s,
+            "K14a": lambda s: f"rowm_apply_kernel<{R}, true>" in s,
+            "K14b+colsum": lambda s: f"rowm_dm_kernel<{R}>" in s,
+        })
     finally:
         use()
     print(f"FUSE_ROWM training step n={N} L={L} (value, grad, SGD update; CUDA events, ends in .item()), "
@@ -1019,15 +1117,16 @@ def _rowm_phase(tct, krl, kst, dev, card, counters):
           f"unprofiled {step_ms:.3f} ms), {len(by_kernel)} kernel names")
     for name, ms, count in by_kernel[:14]:
         print(f"  device {ms:.4f} ms x{count:g}/run  {name[:90]}")
-    for stage in ("zz_rowrx_kernel", "rowm_apply_kernel<false>", "lane_outer_kernel<false>", "lane_bwd_kernel",
-                  "dm_partial_kernel", "rowm_apply_kernel<true>", "rowm_dm_kernel", "zzrx_bwd_row_kernel",
-                  "colsum_kernel"):
+    for stage in ("zz_rowrx_kernel", f"rowm_apply_kernel<{R}, false>", "lane_outer_kernel<false>",
+                  "lane_bwd_kernel", "dm_partial_kernel", f"rowm_apply_kernel<{R}, true>", f"rowm_dm_kernel<{R}>",
+                  "zzrx_bwd_row_kernel", "colsum_kernel"):
         for name, ms, count in by_kernel:
             if stage in name:
                 print(f"device time a launch on the FUSE_ROWM step, {stage}: {1e3 * ms / count:.2f} us "
                       f"(x{count:g}/step)")
     with torch.no_grad():
         times = {k: (_time_rounds(v[0][1]), _time_rounds(v[0][2], **PLAIN_TIMING)) for k, v in cases.items()}
+    _rowm_stages(krl, card, stage_us, y, ctr, cti, m7r, m7i, nkernel, rmx, r)
     work = {"rowm_fwd": _k1_work(r, len(pairs), nkernel, True, rmx),
             "rowm_bwd": _k3_work(r, len(pairs), nkernel, True, rmx)}
     source = {"rowm_fwd": "zzrx_fwd.cu", "rowm_bwd": "zzrx_bwd.cu"}
@@ -1045,6 +1144,65 @@ def _rowm_phase(tct, krl, kst, dev, card, counters):
             "bound_ms": bound, "bound_by": by, "library_ms": None,
         })
     return entries
+
+
+def _rowm_stages(krl, card, stage_us, y, ctr, cti, m7r, m7i, nkernel, rmx, r):
+    """The row-kron stages at the path's shape: their plan (tile, grid,
+    shared bytes, CTAs an SM, registers and spills; a spill at R=128
+    fails), each stage's device time a launch on the FUSE_ROWM step
+    (``stage_us``, from :func:`_stage_times`), its bound, and one PyTorch
+    call computing the same product on operands of the same shapes (the
+    port never calls it; ``allow_tf32`` is False)."""
+    import torch
+
+    from tensorcircuit_ng_tpu_torch.core import _build
+
+    R = 2**rmx
+    plan = krl.rowm_plan(rmx, r)
+    for stage, p in (("K13", plan["fwd"]), ("K14a", plan["bwd"]), ("K14b dM7", plan["dm"])):
+        print(f"row-kron plan {stage} at R={R}, r={r}, {card}: {p}")
+    for lib, needle in (("zzrx_fwd", f"rowm_apply_kernelILi{R}ELb0E"), ("zzrx_bwd", f"rowm_apply_kernelILi{R}ELb1E"),
+                        ("zzrx_bwd", f"rowm_dm_kernelILi{R}E")):
+        report = _ptxas_report(_build.build_log(lib), needle)
+        if len(report) != 1:
+            _fail(f"ptxas report of {needle}: {report}")
+        (name, (regs, st, ld)), = report.items()
+        print(f"ptxas {needle}: {regs} registers, {st} bytes spill stores, {ld} bytes spill loads")
+        if regs is None or st or ld:
+            _fail(f"{needle} spills or has no register count at R={R}")
+    for key in ("fwd", "bwd", "dm"):
+        if plan[key]["local_bytes"]:
+            _fail(f"row-kron stage {key} uses local memory at R={R}: {plan[key]}")
+    for m in range(1, krl.MAX_ROWM_QUBITS + 1):  # every instantiation the stack can take
+        p = krl.rowm_plan(m, r)
+        print(f"row-kron stages at R={2**m}: " + "; ".join(
+            f"{k} {v['registers']} registers, {v['local_bytes']} B local, {v['ctas_per_sm']} CTAs an SM, "
+            f"{v['smem']} B shared" for k, v in zip(("K13", "K14a", "K14b"), p.values())))
+    # the stages' operands as complex (B, R, C) views, built outside the timed calls
+    view = lambda p_r, p_i: torch.reshape(
+        krl._rowm_view(torch.complex(p_r, p_i), nkernel, R), (r >> nkernel, R, -1))
+    xc = view(*y)
+    cc = view(ctr, cti)
+    m7 = torch.complex(m7r, m7i)
+    a14 = torch.stack([m7.conj().T, m7.T]).unsqueeze(1).contiguous()
+    yc = torch.stack([xc, cc])
+    library = {
+        "K13": lambda: torch.matmul(m7, xc),
+        "K14a": lambda: torch.matmul(a14, yc),
+        "K14b": lambda: torch.einsum("bic,bjc->ij", cc, xc),
+    }
+    with torch.no_grad():
+        lib_ms = {k: _graph_ms(f) for k, f in library.items()}
+    work = _rowm_stage_work(r, rmx)
+    for stage in ("K13", "K14a", "K14b"):
+        us, per_call = stage_us[stage if stage != "K14b" else "K14b+colsum"]
+        bound, by = _bound_ms(*work[stage])
+        lm = lib_ms[stage]
+        print(f"stage {stage}{' (with its colsum)' if stage == 'K14b' else ''} at n={N} R={R}, {card}: "
+              f"{us:.2f} us device a launch (torch.profiler over 10 FUSE_ROWM steps, x{per_call:g} a step); "
+              f"bound {1e3 * bound:.2f} us ({by}), {100 * 1e3 * bound / us:.1f} % of it reached; library call "
+              f"{1e3 * lm[0]:.2f} us (CUDA graph of 10 calls, median of 3 rounds, min {1e3 * lm[1]:.2f}, "
+              f"max {1e3 * lm[2]:.2f}); {8 * 2**rmx * (2 if stage == 'K14a' else 1)} flops an amplitude")
 
 
 def _micro_work(level, n, nl):

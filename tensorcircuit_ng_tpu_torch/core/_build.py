@@ -50,6 +50,7 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "zzrx_fwd": {
         "tcng_zzrx_fwd": [_P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _P, _P, _I, _I, _P],
+        "tcng_rowm_fwd_plan": [_I, _I, _P],
         "tcng_grand_zzrx_fwd": [
             _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _P, _P, _P, _P, _I, _P,
         ],
@@ -60,6 +61,7 @@ _SIGNATURES = {
             _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _P, _P, _I, _P,
             _I, _P,
         ],
+        "tcng_rowm_bwd_plan": [_I, _I, _P],
         "tcng_grand_zzrx_bwd": [
             _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _P, _P, _P, _P,
             _P, _I, _P,

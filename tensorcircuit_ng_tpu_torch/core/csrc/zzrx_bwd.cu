@@ -275,7 +275,7 @@ size_t layout(const Plan& p, int npairs, int nkernel, int mode, int rmx,
   float* ptrs[10];
   for (int i = 0; i < 10; ++i) {
     ptrs[i] = base ? base + off : nullptr;
-    off += sizes[i];
+    off += (sizes[i] + 31) & ~static_cast<size_t>(31);  // 128-byte aligned parts
   }
   if (s) {
     s->part_row = ptrs[0];
@@ -406,6 +406,16 @@ int tcng_zzrx_bwd(const float* yr, const float* yi, const float* ctr,
   }
   return static_cast<int>(row_stage(p, psr, psi, cr, ci, dsr, dsi, s, grads,
                                     zzth, shifts, npairs, th + rmx, nlow, st));
+}
+
+// The row-kron stages' plan at these shapes, for the record: out[0..7) of
+// K14a (CW, tiles, grid, shared bytes, CTAs an SM, registers, local bytes)
+// and out[7..15) of K14b's dM7 (tile edge, tiles, chunks, columns a chunk,
+// shared bytes, CTAs an SM, registers, local bytes).
+int tcng_rowm_bwd_plan(int rmx, int r, long* out) {
+  cudaError_t err = rowm_apply_plan<true>(rmx, r, out);
+  if (err == cudaSuccess) err = rowm_dm_plan(rmx, r, out + 7);
+  return static_cast<int>(err);
 }
 
 // K4.  ksr/ksi (L, r, 128) post-lane, pre-outer residuals; ctr/cti (r, 128)

@@ -165,6 +165,12 @@ int tcng_zzrx_fwd(const float* sr, const float* si, float* yr, float* yi,
   return static_cast<int>(lane_fwd_stage(yr, yi, yr, yi, mr, mi, r, s));
 }
 
+// K13's plan at these shapes, for the record: out[0..7) = CW, tiles,
+// grid, shared bytes, CTAs an SM, registers, local bytes.
+int tcng_rowm_fwd_plan(int rmx, int r, long* out) {
+  return static_cast<int>(rowm_apply_plan<false>(rmx, r, out));
+}
+
 // K2.  sr/si (r, 128) input planes; ksr/ksi (L, r, 128) residuals;
 // yr/yi (r, 128) output; zzth (L, npairs); th (L, nkernel); mor/moi
 // (L, D, D) with D = r >> nkernel <= 32; mlr/mli (L, 128, 128).

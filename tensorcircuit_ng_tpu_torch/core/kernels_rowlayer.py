@@ -15,9 +15,11 @@ wrappers and the kernels they launch on a CUDA tensor:
 - ``zzrx_bwd``: K3 (``csrc/zzrx_bwd.cu``, ``tcng_zzrx_bwd``), replaces
   ``_pallas_zzrx_bwd``;
 - ``rowm_fwd`` / ``rowm_bwd``: K1 / K3 with the row-kron planes M7, whose
-  stages K13 (``csrc/zzrx_fwd.cu``) and K14 (``csrc/zzrx_bwd.cu``) replace
-  the ``rmx > 0`` branch of those Pallas kernels (``_rowm_fwd_stage``,
-  ``_rowm_bwd_stage``);
+  stages K13 and K14 (``csrc/rowm.cuh``, register-blocked products with M7
+  in shared memory, launched from ``tcng_zzrx_fwd`` / ``tcng_zzrx_bwd``)
+  replace the ``rmx > 0`` branch of those Pallas kernels
+  (``_rowm_fwd_stage``, ``_rowm_bwd_stage``); ``rowm_plan`` reports their
+  tiles, grid and occupancy on the card;
 - ``rotx_fwd``: K11 (``csrc/row_layer.cu``, ``tcng_rotx_fwd``), replaces
   ``_pallas_rotx_fwd``;
 - ``rotx_bwd``: K12 (``tcng_rotx_bwd``), replaces ``_pallas_rotx_bwd``.
@@ -39,6 +41,7 @@ tensor.
 
 from __future__ import annotations
 
+import ctypes
 from functools import lru_cache
 from typing import Optional, Sequence, Tuple
 
@@ -64,6 +67,9 @@ __all__ = [
     "zzrx_bwd_plain",
     "rowm_fwd",
     "rowm_bwd",
+    "rowm_apply_plain",
+    "rowm_plan",
+    "MAX_ROWM_QUBITS",
     "zzrx_row_layer",
     "MAX_KERNEL_QUBITS_ZZRX",
     "rotx_fwd",
@@ -178,6 +184,49 @@ def _rowm_bits(th: torch.Tensor, m7r: Optional[torch.Tensor]) -> int:
     return rmx
 
 
+def rowm_apply_plain(m7: torch.Tensor, x: torch.Tensor, nkernel: int) -> torch.Tensor:
+    """Stage K13's plain version: ``y[b, i, g, c] = Σ_j M7[i, j] x[b, j, g,
+    c]`` on the (R, rb/R, 128) view of each block of rb = 2^nkernel rows of
+    the complex (r, 128) state ``x``; returns the (r, 128) result."""
+    return torch.reshape(torch.einsum("ij,bjgc->bigc", m7, _rowm_view(x, nkernel, m7.shape[0])), x.shape)
+
+
+#: the largest row kron the stages K13/K14 take (R = 2^7 = 128: M7's planes
+#: fill most of a CTA's shared memory)
+MAX_ROWM_QUBITS = 7
+
+
+def _aligned16(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy of it when its data is not 16-byte aligned (the row-
+    kron stages copy 16-byte chunks)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _check_rowm(what: str, rmx: int) -> None:
+    if rmx > MAX_ROWM_QUBITS:
+        raise ValueError(f"{what}: the row-kron stages take rmx <= {MAX_ROWM_QUBITS}, got {rmx}")
+
+
+def rowm_plan(rmx: int, r: int) -> dict:
+    """The row-kron stages' plan on the card at R = 2^rmx and r rows, as
+    the C code chooses it: K13 and K14a (``cw`` columns a tile, ``tiles``,
+    persistent ``grid``, ``smem`` bytes, ``ctas_per_sm``, ``registers`` and
+    ``local_bytes`` a thread) and K14b's dM7 (``tile`` edge, ``tiles``,
+    ``chunks``, ``chunk_cols``, ``smem``, ``ctas_per_sm``, ``registers``,
+    ``local_bytes``).  Needs the card."""
+    apply_keys = ("cw", "tiles", "grid", "smem", "ctas_per_sm", "registers", "local_bytes")
+    dm_keys = ("tile", "tiles", "chunks", "chunk_cols", "smem", "ctas_per_sm", "registers", "local_bytes")
+    fwd = (ctypes.c_long * 7)()
+    _build.check("zzrx_fwd", _build.library("zzrx_fwd").tcng_rowm_fwd_plan(rmx, r, fwd), "rowm_plan fwd")
+    bwd = (ctypes.c_long * 15)()
+    _build.check("zzrx_bwd", _build.library("zzrx_bwd").tcng_rowm_bwd_plan(rmx, r, bwd), "rowm_plan bwd")
+    return {
+        "fwd": dict(zip(apply_keys, fwd[:7])),
+        "bwd": dict(zip(apply_keys, bwd[:7])),
+        "dm": dict(zip(dm_keys, bwd[7:15])),
+    }
+
+
 def zzrx_fwd_plain(pairs, n, zzth, th, sr, si, mr=None, mi=None, m7r=None, m7i=None):
     """K1's plain version: dense zz phase, row rx reference, lane matmul.
 
@@ -190,9 +239,7 @@ def zzrx_fwd_plain(pairs, n, zzth, th, sr, si, mr=None, mi=None, m7r=None, m7i=N
     psi = _zz_phase_dense(psi, pairs, n, zzth)
     psi = _row_layer_reference(psi, _rx_gates(th[rmx:]))
     if rmx:
-        m7 = torch.complex(m7r, m7i)
-        psi = torch.einsum("ij,bjgc->bigc", m7, _rowm_view(psi, th.shape[0], m7.shape[0]))
-        psi = torch.reshape(psi, sr.shape)
+        psi = rowm_apply_plain(torch.complex(m7r, m7i), psi, th.shape[0])
     yr, yi = psi.real.contiguous(), psi.imag.contiguous()
     if mr is not None:
         yr, yi = _lane_apply(mr, mi, yr, yi)
@@ -244,7 +291,9 @@ def _launch_zzrx_fwd(pairs, n, zzth, th, sr, si, mr, mi, m7r, m7i):
         _check_planes("zzrx_fwd lane", dev, (lanes, lanes), mr, mi)
     rmx = _rowm_bits(th, m7r)
     if rmx:
+        _check_rowm("zzrx_fwd", rmx)
         _check_planes("zzrx_fwd row kron", dev, (1 << rmx, 1 << rmx), m7r, m7i)
+        m7r, m7i = _aligned16(m7r), _aligned16(m7i)
     zzth = _f32(zzth, dev)
     th = _f32(th, dev)
     if tuple(zzth.shape) != (len(pairs),):
@@ -397,7 +446,9 @@ def _launch_zzrx_bwd(pairs, n, zzth, th, yr, yi, ctr, cti, mr, mi, m7r, m7i):
     rmx = _rowm_bits(th, m7r)
     R = 1 << rmx
     if rmx:
+        _check_rowm("zzrx_bwd", rmx)
         _check_planes("zzrx_bwd row kron", dev, (R, R), m7r, m7i)
+        yr, yi, ctr, cti, m7r, m7i = (_aligned16(t) for t in (yr, yi, ctr, cti, m7r, m7i))
     zzth = _f32(zzth, dev)
     th = _f32(th, dev)
     if tuple(zzth.shape) != (npairs,):

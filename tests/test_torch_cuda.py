@@ -35,6 +35,7 @@ from chip_smoke import (
     qaoa_energy, qaoa_graph,
 )
 from tensorcircuit_ng_tpu_torch import convert
+from tensorcircuit_ng_tpu_torch.core import _build
 from tensorcircuit_ng_tpu_torch.core import kernels_grand as kg
 from tensorcircuit_ng_tpu_torch.core import kernels
 from tensorcircuit_ng_tpu_torch.core import kernels_jacobi as kj
@@ -628,13 +629,16 @@ def _grad_close(got, want):
 
 @pytest.mark.parametrize(
     "n,nkernel,rmx,lane",
-    [(12, 5, 2, True), (13, 6, 3, False), (17, 10, 5, True), (20, 10, 7, True), (20, 10, 7, False)],
+    [(10, 3, 1, True), (14, 7, 1, False), (12, 5, 2, True), (13, 6, 3, False), (16, 8, 4, True),
+     (17, 10, 5, True), (20, 10, 7, True), (20, 10, 7, False), (21, 10, 7, False)],
 )
 def test_rowm_kernels_match_plain(cuda, n, nkernel, rmx, lane):
     """K1 and K3 with the row kron M7 (stages K13/K14): the forward with an
     arbitrary M7, the backward with the unitary M7 = kron(rx) from the
     forward's output, K3 twice and equal bit for bit (n=20, rmx=7 is the
-    FUSE_ROWM path's shape)."""
+    FUSE_ROWM path's shape).  R = 2 at n=10 leaves K13's one tile of 1024
+    columns half empty; n=21, rmx=7 gives 512 and 1024 column tiles, not a
+    multiple of the persistent grid."""
     pairs = _pairs(n, "open")
     (sr, si), t = _inputs(n, nkernel, 1, len(pairs), 3 * n + rmx, cuda)
     zz, th = t["zz"][0], t["th"][0]
@@ -664,6 +668,49 @@ def test_rowm_kernels_match_plain(cuda, n, nkernel, rmx, lane):
             torch.testing.assert_close(g, w, atol=ATOL, rtol=0)
         else:
             _grad_close(g, w)
+
+
+@pytest.mark.parametrize("n,nkernel,rmx", [(12, 5, 2), (20, 10, 7)])
+def test_rowm_fwd_in_place_matches_plain(cuda, n, nkernel, rmx):
+    """K1 with M7 through its C entry point with the output planes the
+    input planes themselves (pass A and K13 then both run in place)."""
+    pairs = _pairs(n, "open")
+    (sr, si), t = _inputs(n, nkernel, 1, len(pairs), 5 * n + rmx, cuda)
+    zz, th = t["zz"][0], t["th"][0]
+    rng = np.random.default_rng(rmx)
+    R = 2**rmx
+    m7r, m7i = (convert.params(rng.normal(size=(R, R)) / np.sqrt(2 * R), cuda) for _ in range(2))
+    want = krl.zzrx_fwd_plain(pairs, n, zz, th, sr, si, None, None, m7r, m7i)
+    yr, yi = sr.clone(), si.clone()
+    shifts = krl._pair_shifts(pairs, n, str(cuda))
+    lib = _build.library("zzrx_fwd")
+    err = lib.tcng_zzrx_fwd(
+        yr.data_ptr(), yi.data_ptr(), yr.data_ptr(), yi.data_ptr(), zz.data_ptr(), shifts.data_ptr(),
+        len(pairs), th.data_ptr(), nkernel, None, None, m7r.data_ptr(), m7i.data_ptr(), rmx, yr.shape[0],
+        torch.cuda.current_stream().cuda_stream,
+    )
+    _build.check("zzrx_fwd", err, "zzrx_fwd in place")
+    torch.cuda.synchronize()
+    for g, w in zip((yr, yi), want):
+        torch.testing.assert_close(g, w, atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("rmx", [1, 4, 7])
+def test_rowm_plan_on_card(cuda, rmx):
+    """The row-kron stages' plan at n=20: a persistent grid no larger than
+    the card's slots, a tile that fits, and no local memory (spills) at the
+    path's R=128 or below."""
+    r = 2**13
+    plan = krl.rowm_plan(rmx, r)
+    slots = torch.cuda.get_device_properties(0).multi_processor_count
+    for key in ("fwd", "bwd"):
+        p = plan[key]
+        assert p["grid"] == min(p["tiles"], slots * p["ctas_per_sm"]) and p["ctas_per_sm"] >= 1
+        assert p["tiles"] * p["cw"] >= r * 128 >> rmx > (p["tiles"] - 1) * p["cw"]
+        assert p["smem"] <= 232448 and p["local_bytes"] == 0
+    dm = plan["dm"]
+    assert dm["chunks"] * dm["chunk_cols"] == r * 128 >> rmx and dm["local_bytes"] == 0
+    assert dm["tiles"] * dm["tile"] ** 2 == 4**rmx and dm["ctas_per_sm"] >= 1
 
 
 @pytest.mark.parametrize("n", [12, 20])

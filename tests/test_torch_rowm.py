@@ -129,6 +129,36 @@ def test_zzrx_rowm_plain_matches_pallas(monkeypatch, n, max_k):
                 _close(g.numpy(), w)
 
 
+@pytest.mark.parametrize("rmx", range(1, 8))
+def test_rowm_apply_plain_matches_jax_stage(rmx):
+    """Stage K13's plain version (``rowm_apply_plain``) against the JAX
+    package's own ``_rowm_fwd_stage`` (a plain jnp function) on one block of
+    2^(rmx+3) rows, R = 2^rmx = 2..128, with an arbitrary complex M7:
+    float32 sums of R terms in another order, so 1e-5 of the largest
+    output."""
+    R, rb = 2**rmx, 2 ** (rmx + 3)
+    rng = np.random.default_rng(100 + rmx)
+    cr, ci = (rng.normal(size=(rb, 128)).astype(np.float32) for _ in range(2))
+    m7r, m7i = ((rng.normal(size=(R, R)) / np.sqrt(2 * R)).astype(np.float32) for _ in range(2))
+    want = jkrl._rowm_fwd_stage(jnp.asarray(cr), jnp.asarray(ci), jnp.asarray(m7r), jnp.asarray(m7i))
+    m7 = torch.complex(torch.as_tensor(m7r), torch.as_tensor(m7i))
+    got = krl.rowm_apply_plain(m7, torch.complex(torch.as_tensor(cr), torch.as_tensor(ci)), rmx + 3)
+    assert got.shape == (rb, 128)
+    _close(got.real.numpy(), want[0])
+    _close(got.imag.numpy(), want[1])
+
+
+def test_rowm_stages_take_aligned_planes():
+    """The row-kron stages copy 16-byte chunks: ``_aligned16`` returns an
+    aligned plane as it is and copies one that is not."""
+    base = torch.arange(130, dtype=torch.float32)
+    ok = base[:128]
+    off = base[1:129]
+    assert krl._aligned16(ok) is ok
+    moved = krl._aligned16(off)
+    assert moved.data_ptr() % 16 == 0 and torch.equal(moved, off)
+
+
 @pytest.mark.parametrize("n,rmx", [(10, 1), (13, 3), (17, 7)])
 def test_rowm_plain_with_rx_kron_equals_butterflies(n, rmx):
     """``zzrx_fwd_plain`` with M7 = kron(rx(th[:rmx])) is the rmx = 0 call,
