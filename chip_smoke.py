@@ -74,6 +74,12 @@ Phases (any failure exits non-zero; nothing is caught):
      step, K11 and K12 four times), against the same steps on the port's
      CPU path; each step timed (CUDA events) and profiled, each kernel and
      its plain version timed; the switches restored to their defaults;
+     K10's plan at 128, 256, 512 and 1024 lanes (each stage kernel's CTAs,
+     threads, shared bytes, CTAs an SM, registers, local bytes; a spill
+     fails) and each of its stages (the lane pair, dM with its colsum, the
+     row stage's two passes and their sums) by device time a layer on the
+     form (a) step, beside its bound and one PyTorch call of each product
+     (a replayed CUDA graph);
  10. the FUSE_ROWM path, the main path of the row-kron slice: K1 and K3
      with the row kron M7 (stages K13 ``rowm_fwd`` and K14 ``rowm_bwd``,
      rmx=7, a 128x128 complex M7) with and without the lane against their
@@ -737,6 +743,23 @@ def _ml_work(r, lanes, npairs, nrow, L, kind):
             L * amps * (3 * 8 * lanes + 20 * nrow + 4 * npairs + 9))
 
 
+def _ml_stage_work(r, lanes, npairs, nrow):
+    """(bytes, flops) of each of K10's stages a layer, by name: the lane
+    pair psi = y @ conj(M)^T and w = ct @ M^T (y, ct and M in, psi and w
+    out; 16·lanes flops an amplitude), dM = psiᵀ ct (psi and ct in, dM out;
+    8·lanes) and the row stage (psi, w, the angles and the pair shifts in,
+    x, ds and the layer's gradients out; 20 flops an rx stage, 4 a pair + 9
+    for the zz stage).  Their flops add up to :func:`_ml_work`'s K10 total
+    over L layers; their bytes to it plus what the stages hand each other."""
+    amps, mat = r * lanes, 2 * 4 * lanes * lanes
+    grads = 4 * (npairs + nrow)
+    return {
+        "lane pair": (32 * amps + mat, 16 * lanes * amps),
+        "dM": (16 * amps + mat, 8 * lanes * amps),
+        "row": (32 * amps + 2 * grads + 8 * npairs, (20 * nrow + 4 * npairs + 9) * amps),
+    }
+
+
 def _rotx_work(r, nkernel, kind):
     """(bytes, flops) of K11 ("fwd": two state planes in, two out, 6 flops
     an amplitude a qubit) or K12 ("bwd": y and ct in, ds and dθ out, 20
@@ -893,19 +916,29 @@ def _qaoa_phase(tct, krl, dev, card, counters):
             for name, ms, count in by_kernel[:12]:
                 print(f"  device {ms:.4f} ms x{count:g}/run  {name[:90]}")
             # the kernels' own device time a launch on the step, stage by stage
-            stages = {"a": ("ml_row_fwd_kernel", "wide_lane_kernel<0>", "wide_lane_kernel<2>",
-                            "wide_lane_kernel<1>", "wide_dm_kernel", "ml_row_bwd_kernel", "colsum_kernel"),
+            stages = {"a": ("ml_row_fwd_kernel", "transpose_kernel", "wide_nt_kernel<1, false>",
+                            "ml_pair_records_kernel", "wide_nt_kernel<2, true>", "wide_dm_kernel", "colsum_kernel",
+                            "ml_row_pass_kernel<false>", "ml_row_pass_kernel<true>", "colsum_tree_kernel"),
                       "b": ("rotx_fwd_kernel", "rotx_bwd_kernel", "colsum_kernel")}[form]
             for stage in stages:
                 for name, ms, count in by_kernel:
                     if stage in name:
                         print(f"device time a launch on the QAOA form ({form}) step, {stage}: "
                               f"{1e3 * ms / count:.2f} us (x{count:g}/step)")
+            if form == "a":
+                stage_us = _stage_times(step, {
+                    "lane pair": lambda k: "wide_nt_kernel<2, true>" in k,
+                    "dM+colsum": lambda k: "wide_dm_kernel" in k,
+                    "row hi": lambda k: "ml_row_pass_kernel<false>" in k,
+                    "row lo": lambda k: "ml_row_pass_kernel<true>" in k,
+                    "row sums": lambda k: "colsum_tree_kernel" in k,
+                })
     finally:
         kernels.ML_MODE, kernels.USE_ROTX = "stack", False
 
     with torch.no_grad():
         times = {k: (_time_rounds(v[0][1]), _time_rounds(v[0][2], **PLAIN_TIMING)) for k, v in cases.items()}
+    _ml_stages(kml, card, stage_us, y_ml, (ctr, cti), (mr, mi), npairs, nrow)
     work = {
         "ml_fwd": _ml_work(r, lanes, npairs, nrow, QAOA_P, "fwd"),
         "ml_bwd": _ml_work(r, lanes, npairs, nrow, QAOA_P, "bwd"),
@@ -928,6 +961,62 @@ def _qaoa_phase(tct, krl, dev, card, counters):
             "library_ms": None,
         })
     return entries
+
+
+#: K10's widths whose plan phase 9 prints (nrow = 12: n = 19..22)
+ML_PLAN_LANES = (128, 256, 512, 1024)
+
+
+def _ml_stages(kml, card, stage_us, y, ct, m, npairs, nrow):
+    """K10's stages at the QAOA path's shape: the plan at every width of
+    ``ML_PLAN_LANES`` (each stage kernel's CTAs, threads, shared bytes, CTAs
+    an SM, registers and local bytes; a spill fails), each stage's device
+    time a launch on the form (a) step (``stage_us``, from
+    :func:`_stage_times`) beside its bound, and one PyTorch call computing
+    each product on the same operands (never called by the port;
+    ``allow_tf32`` is False)."""
+    import torch
+
+    from tensorcircuit_ng_tpu_torch.core import _build
+
+    r, lanes = y[0].shape
+    for w in ML_PLAN_LANES:
+        plan = kml.ml_plan(2**nrow, w, nrow, npairs)
+        for stage, p in plan.items():
+            print(f"K10 plan at nrow={nrow} lanes={w} (n={nrow + w.bit_length() - 1}), {stage}, {card}: {p}")
+            if p["local_bytes"]:
+                _fail(f"K10 stage {stage} uses local memory at lanes={w}: {p}")
+    report = _ptxas_report(_build.build_log("multilayer"), "")
+    for needle in ("wide_nt_kernel", "wide_dm_kernel", "ml_row_pass_kernel", "ml_pair_records_kernel"):
+        hits = {k: v for k, v in report.items() if needle in k}
+        if not hits:
+            _fail(f"no ptxas report of {needle}")
+        for name, (regs, st, ld) in hits.items():
+            print(f"ptxas {needle} ({name[-40:]}): {regs} registers, {st} bytes spill stores, {ld} bytes spill loads")
+            if regs is None or st or ld:
+                _fail(f"{name} spills or has no register count")
+    # the products' operands as complex matrices, built outside the timed calls
+    yc, cc = torch.complex(*y), torch.complex(*ct)
+    mc = torch.complex(m[0][0], m[1][0])
+    a2 = torch.stack([yc, cc])
+    b2 = torch.stack([mc.conj().T, mc.T]).contiguous()
+    psi = yc @ b2[0]
+    library = {"lane pair": lambda: torch.matmul(a2, b2), "dM": lambda: torch.matmul(psi.T, cc)}
+    with torch.no_grad():
+        lib_ms = {k: _graph_ms(f) for k, f in library.items()}
+    work = _ml_stage_work(r, lanes, npairs, nrow)
+    rows = {"lane pair": ["lane pair"], "dM": ["dM+colsum"], "row": ["row hi", "row lo", "row sums"]}
+    for stage, labels in rows.items():
+        us = sum(stage_us[k][0] for k in labels)
+        per_step = stage_us[labels[0]][1]
+        bound, by = _bound_ms(*work[stage])
+        lm = lib_ms.get(stage)
+        lib = (f"library call {1e3 * lm[0]:.2f} us (CUDA graph of 10 calls, median of 3 rounds, min "
+               f"{1e3 * lm[1]:.2f}, max {1e3 * lm[2]:.2f})" if lm else "no library call")
+        parts = " + ".join(f"{k} {stage_us[k][0]:.2f}" for k in labels)
+        print(f"K10 stage {stage} at n={r.bit_length() - 1 + lanes.bit_length() - 1} lanes={lanes}, {card}: "
+              f"{us:.2f} us device a layer ({parts}; torch.profiler over 10 form (a) steps, x{per_step:g} a "
+              f"step); bound {1e3 * bound:.2f} us ({by}), {100 * 1e3 * bound / us:.1f} % of it reached; {lib}")
 
 
 #: the FUSE_ROWM step against the default card path from the same

@@ -85,6 +85,7 @@ _SIGNATURES = {
     },
     "multilayer": {
         "tcng_ml_scratch": [_I, _I, _I, _I, _I, _I],
+        "tcng_ml_plan": [_I, _I, _I, _I, _P],
         "tcng_ml_fwd": [_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _P, _P, _P, _I, _I, _P],
         "tcng_ml_bwd": [
             _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _P, _P, _P, _I, _I, _P,

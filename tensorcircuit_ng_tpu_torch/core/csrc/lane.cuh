@@ -2,7 +2,8 @@
 // port (zzrx_fwd.cu, zzrx_bwd.cu, row_layer.cu), on the (r, 128) float32
 // plane pair of a complex64 statevector.  Layout index = row * 128 + lane.
 // The whole-block kernels (multilayer.cu) take W = 128-1024 lanes and have
-// width-generic stages of their own at the end of this file.
+// width-generic stages of their own; they share the helpers here (the
+// deterministic block sum, 16-byte cp.async copies, float vectors, colsum).
 //
 //   lane_outer_kernel: y = x @ M on 32-row tiles, M streamed through
 //     shared memory in K chunks (and, for the grand forward, the outer
@@ -39,11 +40,59 @@ int ilog2(int v) {
   return l;
 }
 
+// 16-byte asynchronous copies (cp.async.cg) and 2- or 4-float vectors.
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// N consecutive floats (N = 2 or 4, aligned) between memory and registers
+template <int N>
+__device__ __forceinline__ void vload(const float* p, float* v) {
+  static_assert(N == 2 || N == 4, "vload: 2 or 4 floats");
+  if constexpr (N == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(p);
+    v[0] = t.x, v[1] = t.y, v[2] = t.z, v[3] = t.w;
+  } else {
+    const float2 t = *reinterpret_cast<const float2*>(p);
+    v[0] = t.x, v[1] = t.y;
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void vstore(float* p, const float* v) {
+  static_assert(N == 2 || N == 4, "vstore: 2 or 4 floats");
+  if constexpr (N == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  }
+}
+
+bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
+// Sum of v over the warp, in every lane (a fixed xor tree).
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
 // Sum of v over the block, valid in thread 0: a warp xor-butterfly, then
 // the warp sums in order (a fixed order, so the result is reproducible).
 // Every thread must call it; it contains two barriers.
 __device__ float block_sum(float v, float* red) {
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  v = warp_sum(v);
   if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
   __syncthreads();
   float t = 0.f;
@@ -366,202 +415,6 @@ cudaError_t lane_bwd_stage(int r, const float* yr, const float* yi,
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   return colsum(part_dm, nchunks, 2 * MM, dm_out, MM, dm_stride, st);
-}
-
-// ---------------------------------------------------------------------------
-// Width-generic lane stages (the whole-block kernels of multilayer.cu): the
-// (rows, W) plane pair with W = 2^lw lanes, 128 <= W <= 1024, and (W, W)
-// matrices.  A CTA computes a 32 x 128 tile of the output, 8 warps x 4 rows
-// and 4 columns a thread; both operands are streamed through shared memory
-// in chunks of 16 along the summed axis.
-// ---------------------------------------------------------------------------
-
-constexpr int W_BM = 32;
-constexpr int W_BN = 128;
-constexpr int W_KC = 16;
-
-// c = a @ op(b) on (rows, W) planes: op(b) = b (OP 0), b^T (OP 1) or
-// conj(b)^T (OP 2).  c must not alias a (the column tiles of a row read all
-// of a's row).
-template <int OP>
-__global__ void __launch_bounds__(THREADS)
-wide_lane_kernel(const float* ar, const float* ai, float* cr, float* ci,
-                 const float* __restrict__ br, const float* __restrict__ bi,
-                 int rows, int lw) {
-  __shared__ float as_r[W_KC][W_BM + 1], as_i[W_KC][W_BM + 1];
-  __shared__ float bs_r[W_KC][W_BN + 1], bs_i[W_KC][W_BN + 1];
-  const int w = 1 << lw;
-  const long row0 = static_cast<long>(blockIdx.x) * W_BM;
-  const int col0 = blockIdx.y * W_BN;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  float acc_r[4][4], acc_i[4][4];
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int q = 0; q < 4; ++q) acc_r[a][q] = acc_i[a][q] = 0.f;
-  for (int k0 = 0; k0 < w; k0 += W_KC) {
-    __syncthreads();  // the previous chunk is consumed
-    for (int e = threadIdx.x; e < W_BM * W_KC; e += THREADS) {
-      const int m = e / W_KC, kk = e % W_KC;
-      const bool in = row0 + m < rows;
-      const long off = ((row0 + m) << lw) + k0 + kk;
-      as_r[kk][m] = in ? ar[off] : 0.f;
-      as_i[kk][m] = in ? ai[off] : 0.f;
-    }
-    for (int e = threadIdx.x; e < W_BN * W_KC; e += THREADS) {
-      int c, kk;
-      long off;
-      if (OP == 0) {  // b[k0 + kk][col0 + c], c fastest
-        kk = e / W_BN;
-        c = e % W_BN;
-        off = (static_cast<long>(k0 + kk) << lw) + col0 + c;
-      } else {  // b[col0 + c][k0 + kk], kk fastest
-        c = e / W_KC;
-        kk = e % W_KC;
-        off = (static_cast<long>(col0 + c) << lw) + k0 + kk;
-      }
-      bs_r[kk][c] = br[off];
-      bs_i[kk][c] = OP == 2 ? -bi[off] : bi[off];
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < W_KC; ++kk) {
-      float m_r[4], m_i[4];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        m_r[q] = bs_r[kk][lane + 32 * q];
-        m_i[q] = bs_i[kk][lane + 32 * q];
-      }
-#pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        const float x_r = as_r[kk][warp * 4 + a], x_i = as_i[kk][warp * 4 + a];
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          acc_r[a][q] += x_r * m_r[q] - x_i * m_i[q];
-          acc_i[a][q] += x_r * m_i[q] + x_i * m_r[q];
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const long row = row0 + warp * 4 + a;
-    if (row >= rows) continue;
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const long off = (row << lw) + col0 + lane + 32 * q;
-      cr[off] = acc_r[a][q];
-      ci[off] = acc_i[a][q];
-    }
-  }
-}
-
-template <int OP>
-cudaError_t wide_lane(const float* ar, const float* ai, float* cr, float* ci,
-                      const float* br, const float* bi, int rows, int lw,
-                      cudaStream_t st) {
-  const dim3 grid((rows + W_BM - 1) / W_BM, (1 << lw) / W_BN);
-  wide_lane_kernel<OP><<<grid, THREADS, 0, st>>>(ar, ai, cr, ci, br, bi, rows, lw);
-  return cudaGetLastError();
-}
-
-// part[blockIdx.y] (2, W, W) planes, the 32 x 128 tile of blockIdx.x: the
-// sum over the chunk's ch rows of p[row][a] * c[row][b], the
-// non-conjugating product p^T c.
-__global__ void __launch_bounds__(THREADS)
-wide_dm_kernel(const float* pr, const float* pi, const float* cr,
-               const float* ci, float* part, int ch, int lw) {
-  __shared__ float ps_r[W_KC][W_BM], ps_i[W_KC][W_BM];
-  __shared__ float cs_r[W_KC][W_BN], cs_i[W_KC][W_BN];
-  const int w = 1 << lw;
-  const int tiles_b = w / W_BN;
-  const int a0 = (blockIdx.x / tiles_b) * W_BM;
-  const int b0 = (blockIdx.x % tiles_b) * W_BN;
-  const long row0 = static_cast<long>(blockIdx.y) * ch;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  float acc_r[4][4], acc_i[4][4];
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int q = 0; q < 4; ++q) acc_r[a][q] = acc_i[a][q] = 0.f;
-  for (int k0 = 0; k0 < ch; k0 += W_KC) {
-    const int kn = ch - k0 < W_KC ? ch - k0 : W_KC;
-    __syncthreads();
-    for (int e = threadIdx.x; e < W_KC * W_BM; e += THREADS) {
-      const int kk = e / W_BM, a = e % W_BM;
-      const long off = ((row0 + k0 + kk) << lw) + a0 + a;
-      ps_r[kk][a] = kk < kn ? pr[off] : 0.f;
-      ps_i[kk][a] = kk < kn ? pi[off] : 0.f;
-    }
-    for (int e = threadIdx.x; e < W_KC * W_BN; e += THREADS) {
-      const int kk = e / W_BN, b = e % W_BN;
-      const long off = ((row0 + k0 + kk) << lw) + b0 + b;
-      cs_r[kk][b] = kk < kn ? cr[off] : 0.f;
-      cs_i[kk][b] = kk < kn ? ci[off] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < W_KC; ++kk) {
-      float c_r[4], c_i[4];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        c_r[q] = cs_r[kk][lane + 32 * q];
-        c_i[q] = cs_i[kk][lane + 32 * q];
-      }
-#pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        const float p_r = ps_r[kk][warp * 4 + a], p_i = ps_i[kk][warp * 4 + a];
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          acc_r[a][q] += p_r * c_r[q] - p_i * c_i[q];
-          acc_i[a][q] += p_r * c_i[q] + p_i * c_r[q];
-        }
-      }
-    }
-  }
-  const long ww = static_cast<long>(w) * w;
-  float* out = part + static_cast<long>(blockIdx.y) * 2 * ww;
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const long row = a0 + warp * 4 + a;
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      out[(row << lw) + b0 + lane + 32 * q] = acc_r[a][q];
-      out[ww + (row << lw) + b0 + lane + 32 * q] = acc_i[a][q];
-    }
-  }
-}
-
-// Row chunks of the dM partials for (rows, W): about 1024 CTAs, at most 16
-// partials, at least 16 rows a chunk where there are that many (powers of
-// two, so the chunks divide rows).
-int wide_dm_chunks(int rows, int lw) {
-  const int tiles = ((1 << lw) / W_BM) * ((1 << lw) / W_BN);
-  int nc = 1024 / tiles;
-  if (nc > 16) nc = 16;
-  if (nc > rows / W_KC) nc = rows / W_KC;
-  return nc < 1 ? 1 : nc;
-}
-
-// Floats of the dM partials for (rows, W).
-size_t wide_dm_floats(int rows, int lw) {
-  return static_cast<size_t>(wide_dm_chunks(rows, lw)) * 2 << (2 * lw);
-}
-
-// dm planes (dm_out, dm_out + dm_stride) <- p^T c over all rows, as
-// per-chunk partials added in a fixed order; part holds wide_dm_floats.
-cudaError_t wide_dm(const float* pr, const float* pi, const float* cr,
-                    const float* ci, float* part, float* dm_out, long dm_stride,
-                    int rows, int lw, cudaStream_t st) {
-  const int nc = wide_dm_chunks(rows, lw);
-  const int tiles = ((1 << lw) / W_BM) * ((1 << lw) / W_BN);
-  wide_dm_kernel<<<dim3(tiles, nc), THREADS, 0, st>>>(pr, pi, cr, ci, part, rows / nc, lw);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const long ww = 1L << (2 * lw);
-  return colsum(part, nc, static_cast<int>(2 * ww), dm_out, static_cast<int>(ww), dm_stride, st);
 }
 
 }  // namespace

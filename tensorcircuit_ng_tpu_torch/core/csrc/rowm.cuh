@@ -73,44 +73,6 @@
 
 namespace {
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// wait until at most N of this thread's committed groups are in flight
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// N consecutive floats (N = 2 or 4, aligned) between memory and registers
-template <int N>
-__device__ __forceinline__ void vload(const float* p, float* v) {
-  static_assert(N == 2 || N == 4, "vload: 2 or 4 floats");
-  if constexpr (N == 4) {
-    const float4 t = *reinterpret_cast<const float4*>(p);
-    v[0] = t.x, v[1] = t.y, v[2] = t.z, v[3] = t.w;
-  } else {
-    const float2 t = *reinterpret_cast<const float2*>(p);
-    v[0] = t.x, v[1] = t.y;
-  }
-}
-
-template <int N>
-__device__ __forceinline__ void vstore(float* p, const float* v) {
-  static_assert(N == 2 || N == 4, "vstore: 2 or 4 floats");
-  if constexpr (N == 4) {
-    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-  } else {
-    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
-  }
-}
-
 __host__ __device__ constexpr int ilog2c(int v) { return v <= 1 ? 0 : 1 + ilog2c(v >> 1); }
 
 // Offset of element (row k, column g) of the R x K view: column g is
@@ -328,8 +290,6 @@ cudaError_t with_rowm_r(int rmx, F&& f) {
     default: return cudaErrorInvalidValue;
   }
 }
-
-bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
 // CTAs a kernel keeps on each SM, and the SMs of the current device.
 cudaError_t sm_slots(const void* kern, size_t smem, int* nsm, int* occ) {

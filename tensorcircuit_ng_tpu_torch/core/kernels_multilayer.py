@@ -24,6 +24,7 @@ to the lane angles autograd takes through the kron builder outside.
 
 from __future__ import annotations
 
+import ctypes
 import math
 from functools import lru_cache
 from typing import Sequence, Tuple
@@ -42,6 +43,7 @@ __all__ = [
     "ml_fwd_plain",
     "ml_bwd",
     "ml_bwd_plain",
+    "ml_plan",
     "zzrx_multilayer",
     "zzrx_multilayer_xla",
 ]
@@ -190,8 +192,28 @@ def _ml_setup(what, pairs, n, zzth, th, sr, mr, mi, *planes):
     return dev, L, nrow, r, lanes, zzth, krl._f32(th, dev), shifts
 
 
+def ml_plan(r: int, lanes: int, nrow: int, npairs: int) -> dict:
+    """The stage kernels' plan on the card at these shapes, as the C code
+    chooses it: for K10's product pair ``"bwd_lane"``, K9's product
+    ``"fwd_lane"``, K10's dM ``"dm"`` and its two row passes ``"row_hi"``
+    (0 CTAs when nrow <= 6: one pass) and ``"row_lo"`` (with the zz stage),
+    each ``ctas``, ``threads``, ``smem`` bytes, ``ctas_per_sm``,
+    ``registers`` and ``local_bytes`` a thread, and two of its own: the
+    products' tile ``rows`` and ``cols``, dM's ``chunks`` and
+    ``chunk_rows``, a row pass's ``tile`` elements and row ``bits``.  Needs
+    the card."""
+    out = (ctypes.c_long * 40)()
+    lib = _build.library("multilayer")
+    _build.check("multilayer", lib.tcng_ml_plan(r, lanes, nrow, npairs, out), "ml_plan")
+    common = ("ctas", "threads", "smem", "ctas_per_sm", "registers", "local_bytes")
+    own = (("rows", "cols"), ("rows", "cols"), ("chunks", "chunk_rows"), ("tile", "bits"), ("tile", "bits"))
+    names = ("bwd_lane", "fwd_lane", "dm", "row_hi", "row_lo")
+    return {k: dict(zip(common + o, out[8 * i:8 * i + 8])) for i, (k, o) in enumerate(zip(names, own))}
+
+
 def _launch_ml_fwd(pairs, n, zzth, th, sr, si, mr, mi):
     dev, L, nrow, r, lanes, zzth, th, shifts = _ml_setup("ml_fwd", pairs, n, zzth, th, sr, mr, mi, si)
+    sr, si, mr, mi = (krl._aligned16(t) for t in (sr, si, mr, mi))
     yr = torch.empty_like(sr)
     yi = torch.empty_like(si)
     lib = _build.library("multilayer")
@@ -229,6 +251,7 @@ def _launch_ml_bwd(pairs, n, zzth, th, yr, yi, ctr, cti, mr, mi):
     dev, L, nrow, r, lanes, zzth, th, shifts = _ml_setup(
         "ml_bwd", pairs, n, zzth, th, yr, mr, mi, yi, ctr, cti
     )
+    yr, yi, ctr, cti, mr, mi = (krl._aligned16(t) for t in (yr, yi, ctr, cti, mr, mi))
     npairs = len(pairs)
     ds = torch.empty((2, r, lanes), dtype=torch.float32, device=dev)
     grads = torch.empty((L, npairs + nrow), dtype=torch.float32, device=dev)

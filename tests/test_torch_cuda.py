@@ -31,8 +31,8 @@ import torch
 
 import tensorcircuit_ng_tpu_torch as tct
 from chip_smoke import (
-    SVD_ORTH_TOL, SVD_REC_TOL, SVD_S_TOL, SVD_VEC_TOL, _svd_batches, _svd_checks, hea_energy,
-    qaoa_energy, qaoa_graph,
+    SVD_ORTH_TOL, SVD_REC_TOL, SVD_S_TOL, SVD_VEC_TOL, _ptxas_report, _svd_batches, _svd_checks,
+    hea_energy, qaoa_energy, qaoa_graph,
 )
 from tensorcircuit_ng_tpu_torch import convert
 from tensorcircuit_ng_tpu_torch.core import _build
@@ -525,9 +525,10 @@ def _ml_card_inputs(n, L, seed, dev):
     }
 
 
-@pytest.mark.parametrize("n,L", [(12, 3), (20, 4), (22, 2)])
+@pytest.mark.parametrize("n,L", [(12, 3), (14, 2), (20, 4), (21, 2), (22, 2)])
 def test_ml_kernels_match_plain(cuda, n, L):
-    """K9 and K10 against their plain versions at 128 (n=12), 256 (n=20)
+    """K9 and K10 against their plain versions at 128 (n=12: one row pass;
+    n=14: nrow=7, two passes of 1 and 6 row bits), 256 (n=20), 512 (n=21)
     and 1024 (n=22) lanes, and K10 bit for bit against itself."""
     x = _ml_card_inputs(n, L, n + L, cuda)
     args = (x["pairs"], n, x["zz"], x["th"])
@@ -550,6 +551,28 @@ def test_ml_kernels_match_plain(cuda, n, L):
             torch.testing.assert_close(g, w, atol=ATOL, rtol=0)
         else:
             _close(g, w)
+
+
+@pytest.mark.parametrize("nrow,lanes", [(5, 128), (7, 128), (12, 128), (12, 256), (12, 512), (12, 1024)])
+def test_ml_plan_on_card(cuda, nrow, lanes):
+    """K9/K10's stage kernels at these shapes: grids that cover the planes,
+    shared memory within a CTA's 232,448 B, at least one CTA an SM, no local
+    memory, and no spill in nvcc's report."""
+    r, npairs = 2**nrow, 37
+    plan = kml.ml_plan(r, lanes, nrow, npairs)
+    for p in plan.values():
+        assert p["smem"] <= 232448 and p["ctas_per_sm"] >= 1 and p["local_bytes"] == 0
+    for key in ("bwd_lane", "fwd_lane"):
+        p = plan[key]
+        assert p["ctas"] == -(-r // p["rows"]) * (lanes // p["cols"])
+    assert plan["dm"]["chunks"] * plan["dm"]["chunk_rows"] == r
+    hi, lo = plan["row_hi"], plan["row_lo"]
+    assert lo["ctas"] * lo["tile"] == r * lanes and hi["bits"] + lo["bits"] == nrow
+    assert (hi["ctas"] == 0) == (nrow <= 6) and hi["ctas"] in (0, lo["ctas"])
+    report = _ptxas_report(_build.build_log("multilayer"), "")
+    for needle in ("wide_nt_kernel", "wide_dm_kernel", "ml_row_pass_kernel"):
+        hits = [v for k, v in report.items() if needle in k]
+        assert hits and all(regs and not st and not ld for regs, st, ld in hits)
 
 
 @pytest.mark.parametrize("n,nkernel", [(9, 2), (20, 10)])

@@ -29,7 +29,7 @@ import pytest
 import torch
 
 import tensorcircuit_ng_tpu as tc
-from chip_smoke import qaoa_energy, qaoa_graph
+from chip_smoke import _ml_stage_work, _ml_work, qaoa_energy, qaoa_graph
 from tensorcircuit_ng_tpu.core import kernels as jkernels
 from tensorcircuit_ng_tpu.core import kernels_multilayer as jkml
 
@@ -67,6 +67,27 @@ def _ml_inputs(n, L, npairs, seed):
         "rx": (rng.standard_normal((L, nrow)) * 0.5).astype(np.float32),
         "m": m.astype(np.complex64),
     }
+
+
+@pytest.mark.parametrize("n,L", [(12, 3), (20, 4)])
+def test_ml_stage_work_adds_up_to_k10(n, L):
+    """``chip_smoke``'s per-stage work of K10 (its stage bounds) against the
+    whole kernel's (its bound): the flops add up exactly over L layers; the
+    bytes add up once the planes the stages hand each other are taken out."""
+    nrow = min(n - 7, kml.MAX_ML_ROW_QUBITS)
+    r, lanes, npairs = 2**nrow, 2 ** (n - nrow), 37
+    amps = r * lanes
+    stages = _ml_stage_work(r, lanes, npairs, nrow)
+    assert set(stages) == {"lane pair", "dM", "row"}
+    nbytes, flops = _ml_work(r, lanes, npairs, nrow, L, "bwd")
+    assert L * sum(f for _, f in stages.values()) == flops
+    # a layer: psi and w written (2 planes of 8 B an amplitude), psi read
+    # again by dM, psi and w by the row stage, ct again by dM (48 B an
+    # amplitude); between layers x and ds written and read (32 B); layer 0's
+    # x, counted in the row stage, is not written; the shifts are read each
+    # layer but counted once for the kernel
+    handoff = 48 * L * amps + 32 * (L - 1) * amps + 8 * amps + 8 * (L - 1) * npairs
+    assert L * sum(b for b, _ in stages.values()) == nbytes + handoff
 
 
 @pytest.mark.parametrize("n,npairs", [(9, 5), (12, 11)])
