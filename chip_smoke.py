@@ -16,8 +16,8 @@ Phases (any failure exits non-zero; nothing is caught):
      without the lane matrix, K2 ``grand_zzrx_fwd`` at L=4, K3
      ``zzrx_bwd`` with and without the lane matrix (and with it at n=22,
      the shape the training path gives K3), K4 ``grand_zzrx_bwd`` at L=4
-     and L=3 (twice: the two results must be equal bit for bit), each
-     against its plain version on the same CUDA inputs, with unitary
+     and L=3 (K3 and K4 twice: the two results must be equal bit for bit),
+     each against its plain version on the same CUDA inputs, with unitary
      rx-kron outer and lane matrices;
   3. the forward path: ``Circuit(20)`` h_layer + 4 zzrx_layer +
      ``expectation_zzx_energy`` for 5 seeded parameter sets (and the state
@@ -36,7 +36,15 @@ Phases (any failure exits non-zero; nothing is caught):
      others at n=20) over 3 rounds of 20 medians and its plain version over
      3 rounds of 5 single calls, reported as median and spread;
   6. torch.profiler windows over 10 L=4 evaluations and 10 L=4 training
-     steps: device busy share and device time by kernel name;
+     steps: device busy share and device time by kernel name; K3/K4's
+     adjoint stages (``csrc/adjoint_stages.cuh``): their plan at n=20 (also
+     under the row kron) and n=22 as the card reports it, against the
+     Python arithmetic, without local memory; nvcc's registers and spills
+     of each stage kernel (a spill fails); dM alone at 32, 64 and 128 row
+     chunks; each stage (the outer walk with its sum, the lane pair, dM with
+     its colsum, the row stage's two passes and their sum) by device time
+     a layer on the training step, beside its bound and one PyTorch call of
+     each product (a replayed CUDA graph);
   7. the TEBD path, the main path of the TEBD slice: ``ParallelTEBD(60, 64,
      initial="neel")`` on the card for 10 trotter steps with the gate
      stacks of ``bench.py``'s TEBD workload, the launch counts reset just
@@ -376,6 +384,135 @@ def _k4_work(r, npairs, nkernel, nouter, L):
     return nbytes, flops
 
 
+def _k34_stage_work(r, npairs, nkernel, nouter):
+    """(bytes, flops) of each stage of K3 with the lane matrix, and of a K4
+    layer, by name: the lane pair psi = y @ conj(M)^T and w = ct @ M^T (y
+    and ct in, psi and w out, M in; 16·128 flops an amplitude), dM = psiᵀ
+    ct (psi and ct in, dM out; 8·128), the row stage (psi and w in, ds out,
+    the angles and pair shifts in and the layer's gradients out; 20 flops an
+    rx stage, 4 a pair + 9 for the zz stage) and, with nouter > 0 (K4), the
+    outer stage (ct and the residual in, w out, the (D, D) planes in and
+    dθ_outer out; 8·D flops an amplitude and 4 an outer qubit).  Their flops
+    add up to :func:`_k3_work`'s (nouter = 0) and to a layer of
+    :func:`_k4_work`'s; their bytes to it plus what the stages hand each
+    other."""
+    amps, mat = r * 128, 2 * 4 * 128 * 128
+    out = {
+        "lane pair": (32 * amps + mat, 16 * 128 * amps),
+        "dM": (16 * amps + mat, 8 * 128 * amps),
+        "row": (24 * amps + 16 * npairs + 8 * nkernel, (20 * nkernel + 4 * npairs + 9) * amps),
+    }
+    if nouter:
+        d = 2**nouter
+        out["outer"] = (24 * amps + 2 * 4 * d * d + 4 * nouter, (8 * d + 4 * nouter) * amps)
+    return out
+
+
+#: K4's stages on the TFIM step, by kernel name (csrc/adjoint_stages.cuh
+#: and csrc/zzrx_bwd.cu); "+colsum" takes the partials' sum launched
+#: right after each
+K4_STAGES = {
+    "outer+colsum": lambda k: "outer_bwd_kernel" in k,
+    "lane pair": lambda k: "wide_nt_kernel<2, true>" in k,
+    "dM+colsum": lambda k: "wide_dm_kernel" in k,
+    "row hi": lambda k: "ml_row_pass_kernel<false>" in k,
+    "row lo+colsum": lambda k: "ml_row_pass_kernel<true>" in k,
+    "pair records": lambda k: "ml_pair_records_kernel" in k,
+}
+#: dM's row chunks measured at n=20 (dm_chunks takes 64 at 128 lanes)
+DM_CHUNK_SWEEP = (32, 64, 128)
+
+
+def _k4_stages(krl, card, stage_us, y, ct, m, pairs22):
+    """K3/K4's adjoint stages at the TFIM step's shapes: the plan at n=20
+    (and under the row kron, rmx=7) and n=22 as the card reports it, each
+    record equal to the Python arithmetic's (``zzrx_bwd_plan``) and without
+    local memory; nvcc's registers and spills of every stage kernel in the
+    zzrx_bwd and row_layer builds (a spill fails); dM alone at 32, 64 and
+    128 row chunks (CUDA events, against psiᵀ ct); each stage's device time
+    a layer on the n=20 L=4 step (``stage_us``, from :func:`_stage_times`)
+    beside its bound, and one PyTorch call computing each product on the
+    same operands (a replayed CUDA graph; never called by the port;
+    ``allow_tf32`` is False)."""
+    import torch
+
+    from tensorcircuit_ng_tpu_torch.core import _build
+
+    r = y[0].shape[0]
+    nkernel, nouter = 10, r.bit_length() - 1 - 10
+    npairs = N - 1
+    for label, rr, npp, rmx in ((f"n={N}", r, npairs, 0), (f"n={N} rmx=7", r, npairs, 7),
+                                (f"n={N22}", 4 * r, len(pairs22), 0)):
+        got, want = krl.zzrx_bwd_card_plan(rr, nkernel, npp, rmx), krl.zzrx_bwd_plan(rr, nkernel, npp, rmx)
+        for stage, p in got.items():
+            print(f"K3/K4 plan at {label}, {stage}, {card}: {p}")
+            if p["local_bytes"] or any(p[k] != v for k, v in want[stage].items()):
+                _fail(f"K3/K4 stage {stage} at {label}: card plan {p}, Python plan {want[stage]}")
+    for lib, needles in (("zzrx_bwd", ("wide_nt_kernel", "wide_dm_kernel", "ml_row_pass_kernel",
+                                        "ml_pair_records_kernel", "colsum_tree_kernel", "outer_bwd_kernel")),
+                         ("row_layer", ("wide_nt_kernel", "wide_dm_kernel"))):
+        report = _ptxas_report(_build.build_log(lib), "")
+        for needle in needles:
+            hits = {k: v for k, v in report.items() if needle in k}
+            if not hits:
+                _fail(f"no ptxas report of {needle} in {lib}")
+            for name, (regs, st, ld) in hits.items():
+                print(f"ptxas[{lib}] {needle} ({name[-40:]}): {regs} registers, {st} bytes spill stores, "
+                      f"{ld} bytes spill loads")
+                if regs is None or st or ld:
+                    _fail(f"{name} spills or has no register count")
+    # dM alone at each chunk count, through the C entry point (the kernels
+    # take the rule's count)
+    lib = _build.library("zzrx_bwd")
+    part = torch.empty(2 * max(DM_CHUNK_SWEEP) * 128 * 128, device=y[0].device)
+    dm = torch.empty((2, 128, 128), device=y[0].device)
+    want = torch.complex(*y).T @ torch.complex(*ct)
+
+    def dm_at(nc):
+        err = lib.tcng_lane_dm(y[0].data_ptr(), y[1].data_ptr(), ct[0].data_ptr(), ct[1].data_ptr(),
+                               part.data_ptr(), dm.data_ptr(), r, nc, torch.cuda.current_stream().cuda_stream)
+        _build.check("zzrx_bwd", err, f"dM at {nc} chunks")
+
+    nc_rule = krl.zzrx_bwd_plan(r, nkernel, npairs)["dm"]["chunks"]
+    for nc in DM_CHUNK_SWEEP:
+        dm_at(nc)
+        diff, scale, rel = _errors(torch.complex(dm[0], dm[1]), want)
+        if rel > KERNEL_RTOL or diff > KERNEL_RTOL * scale:
+            _fail(f"dM at {nc} chunks disagrees with psi^T ct: max_abs {diff:.3e}, rel {rel:.3e}")
+        t = _time_rounds(lambda nc=nc: dm_at(nc))
+        print(f"K3/K4 dM alone at n={N}, {nc} row chunks ({4 * nc} CTAs{', the rule' if nc == nc_rule else ''}; "
+              f"with its colsum; CUDA events, median of 3 rounds), {card}: {1e3 * t[0]:.2f} us (min "
+              f"{1e3 * t[1]:.2f}, max {1e3 * t[2]:.2f}); max_abs {diff:.2e} from psi^T ct")
+    # the products' operands as complex matrices, built outside the timed calls
+    yc, cc = torch.complex(*y), torch.complex(*ct)
+    mc = torch.complex(*m)
+    a2 = torch.stack([yc, cc])
+    b2 = torch.stack([mc.conj().T, mc.T]).contiguous()
+    psi = yc @ b2[0]
+    library = {"lane pair": lambda: torch.matmul(a2, b2), "dM": lambda: torch.matmul(psi.T, cc)}
+    with torch.no_grad():
+        lib_ms = {k: _graph_ms(f) for k, f in library.items()}
+    work = _k34_stage_work(r, npairs, nkernel, nouter)
+    rows = {"outer": ["outer+colsum"], "lane pair": ["lane pair"], "dM": ["dM+colsum"],
+            "row": ["row hi", "row lo+colsum"]}
+    layer = 0.0
+    for stage, labels in rows.items():
+        us = sum(stage_us[k][0] for k in labels)
+        layer += us
+        per_step = stage_us[labels[0]][1]
+        bound, by = _bound_ms(*work[stage])
+        lm = lib_ms.get(stage)
+        lib_txt = (f"library call {1e3 * lm[0]:.2f} us (CUDA graph of 10 calls, median of 3 rounds, min "
+                   f"{1e3 * lm[1]:.2f}, max {1e3 * lm[2]:.2f})" if lm else "no library call")
+        parts = " + ".join(f"{k} {stage_us[k][0]:.2f}" for k in labels)
+        print(f"K4 stage {stage} at n={N} L={L}, {card}: {us:.2f} us device a layer ({parts}; torch.profiler "
+              f"over 10 training steps, x{per_step:g} a step); bound {1e3 * bound:.2f} us ({by}), "
+              f"{100 * 1e3 * bound / us:.1f} % of it reached; {lib_txt}")
+    rec = stage_us["pair records"]
+    print(f"K4 a layer at n={N} L={L}, {card}: {layer:.2f} us device (the stages above), plus "
+          f"{rec[0]:.2f} us a call for the pair records (x{rec[1]:g} a step)")
+
+
 def _rowm_stage_work(r, rmx):
     """(bytes, flops) of each row-kron stage alone, by name: K13 y = M7 x
     (x in, y out, M7 in; 8·R flops an amplitude), K14a x = M7† y and c' =
@@ -416,8 +553,9 @@ def _ptxas_report(log: str, needle: str):
 def _stage_times(fn, stages, reps: int = 10):
     """(device µs a launch, launches a call) of each stage of ``fn`` under
     torch.profiler: ``stages`` maps a label to a kernel-name test; a label
-    ending in "+colsum" adds the colsum_kernel launched right after each of
-    its kernels (found in the trace's time order)."""
+    ending in "+colsum" adds the colsum_kernel or colsum_tree_kernel
+    launched right after each of its kernels (found in the trace's time
+    order)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -439,7 +577,7 @@ def _stage_times(fn, stages, reps: int = 10):
         us = sum(e.self_device_time_total for e in hits) / count
         if label.endswith("+colsum"):
             after = [trace[i + 1] for i, e in enumerate(trace[:-1]) if test(e.name)]
-            if not after or any("colsum_kernel" not in e.name for e in after):
+            if not after or any("colsum" not in e.name for e in after):
                 _fail(f"{label}: no colsum right after each launch in the trace")
             us += sum(e.time_range.elapsed_us() for e in after) / len(after)
         out[label] = (us, count / reps)
@@ -1207,8 +1345,9 @@ def _rowm_phase(tct, krl, kst, dev, card, counters):
     for name, ms, count in by_kernel[:14]:
         print(f"  device {ms:.4f} ms x{count:g}/run  {name[:90]}")
     for stage in ("zz_rowrx_kernel", f"rowm_apply_kernel<{R}, false>", "lane_outer_kernel<false>",
-                  "lane_bwd_kernel", "dm_partial_kernel", f"rowm_apply_kernel<{R}, true>", f"rowm_dm_kernel<{R}>",
-                  "zzrx_bwd_row_kernel", "colsum_kernel"):
+                  "ml_pair_records_kernel", "wide_nt_kernel<2, true>", "wide_dm_kernel",
+                  f"rowm_apply_kernel<{R}, true>", f"rowm_dm_kernel<{R}>", "ml_row_pass_kernel<true>",
+                  "colsum_kernel", "colsum_tree_kernel"):
         for name, ms, count in by_kernel:
             if stage in name:
                 print(f"device time a launch on the FUSE_ROWM step, {stage}: {1e3 * ms / count:.2f} us "
@@ -1445,7 +1584,7 @@ def main() -> int:
             for nl in (L, 3)
         ],
     }
-    max_err = _check_parity(cases, twice=("grand_zzrx_bwd",))
+    max_err = _check_parity(cases, twice=("zzrx_bwd", "grand_zzrx_bwd"))
 
     print(f"phase 2 ended at {time.time() - t_start:.1f} s")
 
@@ -1624,6 +1763,9 @@ def main() -> int:
               f"{len(by_kernel)} kernel names")
         for name, ms, count in by_kernel[:12]:
             print(f"  device {ms:.4f} ms x{count:g}/run  {name[:90]}")
+    # K4's stages a layer on the step, their bounds and one torch call each
+    _k4_stages(krl, card, _stage_times(train_step, K4_STAGES), (ksr[L - 1], ksi[L - 1]), (ctr, cti),
+               (mlr[L - 1], mli[L - 1]), pairs22)
 
     print(f"phase 6 ended at {time.time() - t_start:.1f} s")
 

@@ -62,6 +62,8 @@ _SIGNATURES = {
             _I, _P,
         ],
         "tcng_rowm_bwd_plan": [_I, _I, _P],
+        "tcng_zzrx_bwd_plan": [_I, _I, _I, _I, _P],
+        "tcng_lane_dm": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
         "tcng_grand_zzrx_bwd": [
             _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _P, _P, _P, _P,
             _P, _I, _P,

@@ -1,18 +1,16 @@
-// Lane-matrix stages shared by the forward and backward kernels of the
-// port (zzrx_fwd.cu, zzrx_bwd.cu, row_layer.cu), on the (r, 128) float32
-// plane pair of a complex64 statevector.  Layout index = row * 128 + lane.
-// The whole-block kernels (multilayer.cu) take W = 128-1024 lanes and have
-// width-generic stages of their own; they share the helpers here (the
-// deterministic block sum, 16-byte cp.async copies, float vectors, colsum).
+// Lane-matrix stages of the forward kernels of the port (zzrx_fwd.cu,
+// row_layer.cu) and the helpers every kernel source shares, on the (r, 128)
+// float32 plane pair of a complex64 statevector.  Layout index = row * 128
+// + lane.
 //
 //   lane_outer_kernel: y = x @ M on 32-row tiles, M streamed through
 //     shared memory in K chunks (and, for the grand forward, the outer
 //     (D, D) left-matmul across the D rows {i + k*RB} a CTA holds);
-//   lane_bwd_kernel: psi = y @ conj(M)^T and w = ct @ M^T on 16-row tiles;
-//   dm_partial_kernel + colsum_kernel: dM = psi^T ct (the non-conjugating
-//     product) as one partial a row chunk, added in a fixed order.
-// Sums across CTAs use no atomics, so two runs give the same result bit
-// for bit.
+//   helpers: the deterministic block sum, 16-byte cp.async copies, float
+//     vectors, colsum_kernel (per-CTA partials added in a fixed order).
+// The adjoint's lane and row stages (K3, K4, K7's lane, K10) are in
+// adjoint_stages.cuh.  Sums across CTAs use no atomics, so two runs give
+// the same result bit for bit.
 
 #pragma once
 
@@ -28,11 +26,6 @@ constexpr int NWARPS = THREADS / 32;
 // forward lane pass: 32 rows a CTA, 8 warps x 4 rows, 4 columns a thread
 constexpr int B_ROWS = 32;
 constexpr int B_KC = 8;
-// backward lane pass: 16 rows a CTA, 8 warps x 2 rows, 4 columns a thread
-constexpr int L_ROWS = 16;
-constexpr int KC = 8;
-// dM pass: 32 rows of dM (8 warps x 4) a CTA
-constexpr int DM_SLAB = 32;
 
 int ilog2(int v) {
   int l = 0;
@@ -229,142 +222,6 @@ cudaError_t lane_fwd_stage(const float* xr, const float* xi, float* yr,
   return cudaGetLastError();
 }
 
-// psi = y @ conj(M)^T and w = ct @ M^T on 16-row tiles.
-__global__ void __launch_bounds__(THREADS)
-lane_bwd_kernel(const float* yr, const float* yi, const float* cr,
-                const float* ci, float* pr, float* pi, float* wr, float* wi,
-                const float* __restrict__ mr, const float* __restrict__ mi,
-                int ni) {
-  __shared__ float ys_r[L_ROWS][LANES], ys_i[L_ROWS][LANES];
-  __shared__ float cs_r[L_ROWS][LANES], cs_i[L_ROWS][LANES];
-  __shared__ float ms_r[KC][LANES + 1], ms_i[KC][LANES + 1];
-  const long row0 = static_cast<long>(blockIdx.x) * ni;
-  for (int e = threadIdx.x; e < ni * LANES; e += THREADS) {
-    const int lr = e / LANES, c = e % LANES;
-    const long off = (row0 + lr) * LANES + c;
-    ys_r[lr][c] = yr[off];
-    ys_i[lr][c] = yi[off];
-    cs_r[lr][c] = cr[off];
-    cs_i[lr][c] = ci[off];
-  }
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  float p_r[2][4], p_i[2][4], w_r[2][4], w_i[2][4];
-#pragma unroll
-  for (int a = 0; a < 2; ++a)
-#pragma unroll
-    for (int q = 0; q < 4; ++q) p_r[a][q] = p_i[a][q] = w_r[a][q] = w_i[a][q] = 0.f;
-  for (int kc = 0; kc < LANES; kc += KC) {
-    __syncthreads();  // tiles loaded / previous chunk consumed
-    // ms[kk][c] = M[c][kc + kk]: the chunk of M^T
-    for (int e = threadIdx.x; e < KC * LANES; e += THREADS) {
-      const int c = e / KC, kk = e % KC;
-      ms_r[kk][c] = mr[c * LANES + kc + kk];
-      ms_i[kk][c] = mi[c * LANES + kc + kk];
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < KC; ++kk) {
-      float m_r[4], m_i[4];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        m_r[q] = ms_r[kk][lane + 32 * q];
-        m_i[q] = ms_i[kk][lane + 32 * q];
-      }
-#pragma unroll
-      for (int a = 0; a < 2; ++a) {
-        const int lr = warp * 2 + a;  // rows >= ni read unused smem
-        const float y_r = ys_r[lr][kc + kk], y_i = ys_i[lr][kc + kk];
-        const float c_r = cs_r[lr][kc + kk], c_i = cs_i[lr][kc + kk];
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          p_r[a][q] += y_r * m_r[q] + y_i * m_i[q];
-          p_i[a][q] += y_i * m_r[q] - y_r * m_i[q];
-          w_r[a][q] += c_r * m_r[q] - c_i * m_i[q];
-          w_i[a][q] += c_r * m_i[q] + c_i * m_r[q];
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int a = 0; a < 2; ++a) {
-    const int lr = warp * 2 + a;
-    if (lr >= ni) continue;
-    const long base = (row0 + lr) * LANES;
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int c = lane + 32 * q;
-      pr[base + c] = p_r[a][q];
-      pi[base + c] = p_i[a][q];
-      wr[base + c] = w_r[a][q];
-      wi[base + c] = w_i[a][q];
-    }
-  }
-}
-
-// part[chunk] = (re, im) of sum over the chunk's rows of psi[row]^T ct[row]
-// for the dM rows [32 * blockIdx.x, +32): the non-conjugating product.
-__global__ void __launch_bounds__(THREADS)
-dm_partial_kernel(const float* pr, const float* pi, const float* cr,
-                  const float* ci, float* part, int ch) {
-  __shared__ float ps_r[KC][DM_SLAB], ps_i[KC][DM_SLAB];
-  __shared__ float cs_r[KC][LANES], cs_i[KC][LANES];
-  const int a0 = blockIdx.x * DM_SLAB;
-  const long row0 = static_cast<long>(blockIdx.y) * ch;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  float acc_r[4][4], acc_i[4][4];
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int q = 0; q < 4; ++q) acc_r[a][q] = acc_i[a][q] = 0.f;
-  for (int k0 = 0; k0 < ch; k0 += KC) {
-    const int kn = ch - k0 < KC ? ch - k0 : KC;
-    __syncthreads();
-    for (int e = threadIdx.x; e < KC * DM_SLAB; e += THREADS) {
-      const int kk = e / DM_SLAB, a = e % DM_SLAB;
-      const long off = (row0 + k0 + kk) * LANES + a0 + a;
-      ps_r[kk][a] = kk < kn ? pr[off] : 0.f;
-      ps_i[kk][a] = kk < kn ? pi[off] : 0.f;
-    }
-    for (int e = threadIdx.x; e < KC * LANES; e += THREADS) {
-      const int kk = e / LANES, b = e % LANES;
-      const long off = (row0 + k0 + kk) * LANES + b;
-      cs_r[kk][b] = kk < kn ? cr[off] : 0.f;
-      cs_i[kk][b] = kk < kn ? ci[off] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < KC; ++kk) {
-      float c_r[4], c_i[4];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        c_r[q] = cs_r[kk][lane + 32 * q];
-        c_i[q] = cs_i[kk][lane + 32 * q];
-      }
-#pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        const float p_r = ps_r[kk][warp * 4 + a], p_i = ps_i[kk][warp * 4 + a];
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          acc_r[a][q] += p_r * c_r[q] - p_i * c_i[q];
-          acc_i[a][q] += p_r * c_i[q] + p_i * c_r[q];
-        }
-      }
-    }
-  }
-  float* out = part + static_cast<long>(blockIdx.y) * 2 * MM;
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int row = a0 + warp * 4 + a;
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      out[row * LANES + lane + 32 * q] = acc_r[a][q];
-      out[MM + row * LANES + lane + 32 * q] = acc_i[a][q];
-    }
-  }
-}
-
 // out[(j / inner) * ostride + j % inner] = sum over b < nb, in order, of
 // part[b * ncols + j].
 __global__ void colsum_kernel(const float* part, int nb, int ncols, float* out,
@@ -381,40 +238,6 @@ cudaError_t colsum(const float* part, int nb, int ncols, float* out, int inner,
   colsum_kernel<<<(ncols + THREADS - 1) / THREADS, THREADS, 0, st>>>(
       part, nb, ncols, out, inner, ostride);
   return cudaGetLastError();
-}
-
-// Rows of one dM partial: at most 256, and at most 32 partials.
-int dm_chunk(int r) {
-  int ch = r < 256 ? r : 256;
-  if (ch < r / 32) ch = r / 32;
-  return ch;
-}
-
-// Floats of the dM partials for r rows.
-size_t dm_partial_floats(int r) {
-  return static_cast<size_t>(r / dm_chunk(r)) * 2 * MM;
-}
-
-// Lane stage of an adjoint: (pr, pi) <- y @ conj(M)^T, (wr, wi) <- ct @ M^T,
-// dm planes (dm_out, dm_out + dm_stride) <- psi^T ct; part_dm holds
-// dm_partial_floats(r) floats.
-cudaError_t lane_bwd_stage(int r, const float* yr, const float* yi,
-                           const float* ctr, const float* cti, const float* mr,
-                           const float* mi, float* pr, float* pi, float* wr,
-                           float* wi, float* part_dm, float* dm_out,
-                           long dm_stride, cudaStream_t st) {
-  const int ni = r < L_ROWS ? r : L_ROWS;
-  lane_bwd_kernel<<<r / ni, THREADS, 0, st>>>(yr, yi, ctr, cti, pr, pi, wr,
-                                              wi, mr, mi, ni);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const int ch = dm_chunk(r);
-  const int nchunks = r / ch;
-  dm_partial_kernel<<<dim3(LANES / DM_SLAB, nchunks), THREADS, 0, st>>>(
-      pr, pi, ctr, cti, part_dm, ch);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  return colsum(part_dm, nchunks, 2 * MM, dm_out, MM, dm_stride, st);
 }
 
 }  // namespace

@@ -41,11 +41,13 @@
 // backward's four (state and cotangent).  The grid is (r / RB) x (128 / TL)
 // CTAs, 128 at n = 20.  Every butterfly stage runs in place in shared
 // memory with one barrier between gates.  The lane matmul needs whole rows,
-// so it is a second pass over the state (lane.cuh), which at n = 20 (8 MB
-// of planes) stays in the 50 MB L2.  K7's dg sums are written as one
-// partial a CTA (a warp shuffle tree, then the warps in order) and added by
-// colsum_kernel in a fixed order: no atomics, so K7 is bit-identical run to
-// run.  K8 is K6's row pass walking the transposed gates in reverse.
+// so it is a second pass over the state, which at n = 20 (8 MB of planes)
+// stays in the 50 MB L2: K6's is lane.cuh's forward product, K7's the
+// adjoint lane stage of adjoint_stages.cuh that K3, K4 and K10 share (the
+// un-lane and ct walk in one launch, dM as split-K partials).  K7's dg
+// sums are written as one partial a CTA (a warp shuffle tree, then the
+// warps in order) and added by colsum_kernel in a fixed order: no atomics,
+// so K7 is bit-identical run to run.  K8 is K6's row pass walking the transposed gates in reverse.
 // Bounds at n = 20, nkernel = 11, on the H100 (3.35 TB/s, 67 TFLOP/s
 // float32): K6 without the lane moves 16.8 MB (two planes in, two out) for
 // 0.16 GFLOP, 0.005 ms, bound by bytes; with the lane the 1.07 GFLOP of
@@ -59,7 +61,7 @@
 // well above their bounds; the design keeps the state to one read and one
 // write a pass.  Plain f32 FMAs, no fast-math.
 
-#include "lane.cuh"
+#include "adjoint_stages.cuh"
 
 namespace {
 
@@ -67,6 +69,8 @@ namespace {
 constexpr int TILE_ELEMS = 8192;
 // RB <= 2048 = TILE_ELEMS / 4 keeps at least 4 lanes a tile
 constexpr int MAX_NKERNEL = 11;
+// log2 of the lanes
+constexpr int LANE_BITS = 7;
 
 struct RowPlan {
   int rb, ltl, grid;
@@ -382,14 +386,14 @@ size_t bwd_layout(int r, const RowPlan& p, int nkernel, bool lane, float* base,
   const size_t plane = static_cast<size_t>(r) * LANES;
   const size_t sizes[6] = {
       static_cast<size_t>(p.grid) * 8 * nkernel,
-      lane ? dm_partial_floats(r) : 0,
+      lane ? dm_floats(dm_chunks(r, LANE_BITS), LANE_BITS) : 0,
       lane ? plane : 0, lane ? plane : 0, lane ? plane : 0, lane ? plane : 0,
   };
   float* ptrs[6];
   size_t off = 0;
   for (int i = 0; i < 6; ++i) {
     ptrs[i] = base ? base + off : nullptr;
-    off += sizes[i];
+    off += (sizes[i] + 63) / 64 * 64;  // 16-byte aligned parts
   }
   if (s) *s = BwdScratch{ptrs[0], ptrs[1], ptrs[2], ptrs[3], ptrs[4], ptrs[5]};
   return off;
@@ -442,8 +446,13 @@ int tcng_row_bwd(const float* yr, const float* yi, const float* ctr,
   bwd_layout(r, p, nkernel, mr != nullptr, scratch, &s);
   const float *psr = yr, *psi = yi, *cr = ctr, *ci = cti;
   if (mr != nullptr) {
-    cudaError_t err = lane_bwd_stage(r, yr, yi, ctr, cti, mr, mi, s.pr, s.pi,
-                                     s.wr, s.wi, s.part_dm, dm, MM, st);
+    // the adjoint's lane stage (adjoint_stages.cuh), as K3's
+    if (!all_aligned16({yr, yi, ctr, cti, mr, mi, scratch}))
+      return static_cast<int>(cudaErrorMisalignedAddress);
+    cudaError_t err = lane_stage_prepare();
+    if (err == cudaSuccess)
+      err = adjoint_lane_stage(r, LANE_BITS, yr, yi, ctr, cti, mr, mi, s.pr, s.pi, s.wr, s.wi,
+                               s.part_dm, dm, MM, dm_chunks(r, LANE_BITS), st);
     if (err != cudaSuccess) return static_cast<int>(err);
     psr = s.pr;
     psi = s.pi;

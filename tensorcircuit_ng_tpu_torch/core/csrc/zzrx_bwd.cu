@@ -34,139 +34,47 @@
 //
 // Design.  As in the forward (zzrx_fwd.cu), a TPU block of 2^10 rows x 128
 // lanes does not fit a CTA, so a layer runs as passes over the state, which
-// at n = 20 (4 planes of 4 MB between passes) stay in the 50 MB L2:
-//   lane pass (lane_bwd_kernel, lane.cuh): 16 rows x 128 lanes a CTA;
-//     both complex right-products by M^T (the un-lane of y and the ct
-//     walk) share the M chunks streamed through shared memory;
-//   dM pass (dm_partial_kernel, lane.cuh): a 32 x 128 slab of dM over a
-//     chunk of rows a CTA, one partial per chunk;
-//   row pass (zzrx_bwd_row_kernel): all rows of a block for a few lanes a
-//     CTA, psi and ct both in shared memory (128 KB), the nkernel
-//     butterflies in place on both, then the phase walk and dzz;
+// at n = 20 (4 planes of 4 MB between passes) stay in the 50 MB L2.  The
+// lane and row stages are the adjoint stages of adjoint_stages.cuh, which
+// K10 (multilayer.cu) and K7's lane stage share:
+//   lane stage (adjoint_lane_stage, W = 128): the un-lane psi = y @
+//     conj(M)^T and the ct walk ct @ M^T in one register-blocked launch
+//     (wide_nt_kernel<2, true>: 64 x 64 tiles, 4 x 4 outputs a thread, M's
+//     chunks shared), then dM = psi^T ct as split-K partials over row
+//     chunks (wide_dm_kernel, dm_chunks: 64 chunks x 4 tiles at n = 20)
+//     added by colsum_kernel;
+//   row stage (adjoint_row_stage): the walked bits are the low nkernel
+//     (nkernel - rmx under the row kron) row bits of each block, in one or
+//     two coalesced passes of at most 6 bits with the zz stage in the last
+//     (ml_row_pass_kernel), the pairs sorted once a call into records
+//     (ml_pair_records_kernel) that take each layer's angles in the pass;
+//     the first of two passes runs in place on scratch, or from the
+//     caller's planes into scratch (they stay untouched);
 //   outer pass (outer_bwd_kernel<D>, K4 only): one thread per in-block
-//     position holds its D elements in registers.
-// Sums over the whole state (dM, dzz, dth, dth_outer) are written as one
-// partial per CTA (block sums in a fixed shuffle-tree order) and reduced by
-// colsum_kernel in a fixed order: no float atomics, so two runs give the
-// same gradient bit for bit.  K4 is one C entry point that launches the
-// stage kernels for each layer in order on the caller's stream (the outer
-// stage is a grid-wide dependency).
+//     position holds its D elements in registers; its dth_outer partials
+//     are added by colsum_tree_kernel.
+// The outer walk stays ahead of the lane stage: dM = psi^T w needs the
+// walked cotangent, though the two maps commute on the state.  Sums over
+// the whole state (dM, dzz, dth, dth_outer) are written as one partial per
+// CTA (block sums in a fixed shuffle-tree order) and reduced in a fixed
+// order: no float atomics, so two runs give the same gradient bit for bit.
+// K4 is one C entry point that launches the stage kernels for each layer in
+// order on the caller's stream (the outer stage is a grid-wide dependency).
 // Bound at n = 20: operations.  The lane stage is three complex 128-deep
 // products per amplitude (un-lane, ct walk, dM), 3 * 8 * 128 flops, about
 // 3.2 GFLOP a layer against 67 TFLOP/s float32 outside the tensor cores;
-// the state moves ~25 MB a layer.  Plain f32 FMAs, no fast-math.
+// the state moves ~25 MB a layer in the row stage and 24 MB in the outer
+// stage.  Plain f32 FMAs, no fast-math.
 
-#include "lane.cuh"
+#include "adjoint_stages.cuh"
 #include "rowm.cuh"
 
 namespace {
 
-// row pass tile: RB * TL complex elements of psi and of ct (4 planes, 128 KB)
-constexpr int TILE_ELEMS = 8192;
 // outer pass: D <= 16 (nouter <= 4)
 constexpr int MAX_NOUTER = 4;
-
-// The rx and zz adjoint of one layer on an RB x TL tile (all rows of a
-// block, TL lanes) of psi (pre-lane state) and ct.  Writes ds and one
-// partial a CTA: part[blk] = (dzz[0..npairs), dth[0..nkernel)).
-__global__ void __launch_bounds__(THREADS)
-zzrx_bwd_row_kernel(const float* psr, const float* psi, const float* ctr,
-                    const float* cti, float* dsr, float* dsi, float* part,
-                    const float* __restrict__ zzth,
-                    const int* __restrict__ shifts, int npairs,
-                    const float* __restrict__ th, int nkernel, int ltl) {
-  extern __shared__ float smem[];
-  const int tl = 1 << ltl;
-  const int rb = 1 << nkernel;
-  const int elems = rb << ltl;
-  float* tr = smem;
-  float* ti = tr + elems;
-  float* cr = ti + elems;
-  float* ci = cr + elems;
-  float* red = ci + elems;
-  float* zth = red + NWARPS;
-  int* sh = reinterpret_cast<int*>(zth + npairs);
-  for (int k = threadIdx.x; k < npairs; k += blockDim.x) {
-    zth[k] = zzth[k];
-    sh[2 * k] = shifts[2 * k];
-    sh[2 * k + 1] = shifts[2 * k + 1];
-  }
-  const int tiles = LANES >> ltl;
-  const long j = blockIdx.x / tiles;  // row block
-  const int lane0 = (blockIdx.x % tiles) << ltl;
-  float* mypart = part + static_cast<long>(blockIdx.x) * (npairs + nkernel);
-  for (int e = threadIdx.x; e < elems; e += blockDim.x) {
-    const long off = (j * rb + (e >> ltl)) * LANES + lane0 + (e & (tl - 1));
-    tr[e] = psr[off];
-    ti[e] = psi[off];
-    cr[e] = ctr[off];
-    ci[e] = cti[off];
-  }
-  __syncthreads();
-  // rx, last kernel bit first: un-apply [[c, -i s], [-i s, c]] from psi
-  // (the butterfly with +s), take dth, walk ct through the transpose
-  const int half = elems >> 1;
-  for (int ql = nkernel - 1; ql >= 0; --ql) {
-    const int ls = nkernel - 1 - ql;  // log2 of the row stride
-    float sn, c;
-    sincosf(0.5f * th[ql], &sn, &c);
-    float s1 = 0.f, s2 = 0.f;
-    for (int p = threadIdx.x; p < half; p += blockDim.x) {
-      const int pr = p >> ltl;
-      const int l = p & (tl - 1);
-      const int lo = ((pr >> ls) << (ls + 1)) | (pr & ((1 << ls) - 1));
-      const int elo = (lo << ltl) | l;
-      const int ehi = elo + (1 << (ls + ltl));
-      const float ar = tr[elo], ai = ti[elo], br = tr[ehi], bi = ti[ehi];
-      const float nar = c * ar - sn * bi, nai = c * ai + sn * br;
-      const float nbr = c * br - sn * ai, nbi = c * bi + sn * ar;
-      tr[elo] = nar;
-      ti[elo] = nai;
-      tr[ehi] = nbr;
-      ti[ehi] = nbi;
-      const float xr = cr[elo], xi = ci[elo], zr = cr[ehi], zi = ci[ehi];
-      s1 += xr * nar - xi * nai + zr * nbr - zi * nbi;
-      s2 += zr * nai + zi * nar + xr * nbi + xi * nbr;
-      cr[elo] = c * xr + sn * zi;
-      ci[elo] = c * xi - sn * zr;
-      cr[ehi] = c * zr + sn * xi;
-      ci[ehi] = c * zi - sn * xr;
-    }
-    // the block sums are also the barrier between stages
-    s1 = block_sum(s1, red);
-    s2 = block_sum(s2, red);
-    if (threadIdx.x == 0) mypart[npairs + ql] = -0.5f * sn * s1 + 0.5f * c * s2;
-  }
-  // zz: ds = ct * e^{-i expo/2} (a diagonal map is its own transpose);
-  // h = ct_r z_i + ct_i z_r replaces psi's real plane for the dzz sums
-  for (int e = threadIdx.x; e < elems; e += blockDim.x) {
-    const long off = (j * rb + (e >> ltl)) * LANES + lane0 + (e & (tl - 1));
-    const unsigned idx = static_cast<unsigned>(off);
-    float expo = 0.f;
-    for (int k = 0; k < npairs; ++k) {
-      const unsigned x = ((idx >> sh[2 * k]) ^ (idx >> sh[2 * k + 1])) & 1u;
-      expo += zth[k] * (1.f - 2.f * static_cast<float>(x));
-    }
-    float s, cc;
-    sincosf(0.5f * expo, &s, &cc);
-    const float xr = cr[e], xi = ci[e];
-    tr[e] = xr * ti[e] + xi * tr[e];
-    dsr[off] = cc * xr + s * xi;
-    dsi[off] = cc * xi - s * xr;
-  }
-  __syncthreads();
-  for (int k = 0; k < npairs; ++k) {
-    float acc = 0.f;
-    for (int e = threadIdx.x; e < elems; e += blockDim.x) {
-      const long off = (j * rb + (e >> ltl)) * LANES + lane0 + (e & (tl - 1));
-      const unsigned idx = static_cast<unsigned>(off);
-      const unsigned x = ((idx >> sh[2 * k]) ^ (idx >> sh[2 * k + 1])) & 1u;
-      acc += tr[e] * (1.f - 2.f * static_cast<float>(x));
-    }
-    acc = block_sum(acc, red);
-    if (threadIdx.x == 0) mypart[k] = 0.5f * acc;
-  }
-}
+// log2 of the lanes
+constexpr int LW = 7;
 
 // K4's outer stage on one in-block position p a thread: w[m] = sum_k
 // mo[k][m] ct[k] over the D row blocks (may run in place: a thread reads
@@ -233,100 +141,66 @@ outer_bwd_kernel(const float* cr, const float* ci, float* wr, float* wi,
 }
 
 struct Plan {
-  int r, rb, ltl, grid_row, grid_outer;
-  size_t row_smem;
+  int r;
+  RowStage rs;      // the walked row bits
+  int nc;           // dM chunks
+  int grid_outer;   // K4's outer stage (nwalk = nkernel)
 };
 
-Plan make_plan(int r, int nkernel, int npairs) {
-  Plan p;
-  p.r = r;
-  p.rb = 1 << nkernel;
-  int tl = TILE_ELEMS / p.rb;
-  if (tl > LANES) tl = LANES;
-  if (tl < 1) tl = 1;
-  p.ltl = ilog2(tl);
-  p.grid_row = (r / p.rb) * (LANES / tl);
-  p.row_smem = sizeof(float) * (4 * static_cast<size_t>(p.rb) * tl + NWARPS + npairs) +
-               sizeof(int) * 2 * npairs;
-  p.grid_outer = static_cast<int>((static_cast<long>(p.rb) * LANES + THREADS - 1) / THREADS);
-  return p;
+// false for a shape the stages do not take.
+bool make_plan(int r, int nwalk, Plan* p) {
+  const int nrb = ilog2(r);
+  if (r < 1 || (1 << nrb) != r || !row_stage_plan(nrb, LW, nwalk, &p->rs)) return false;
+  p->r = r;
+  p->nc = dm_chunks(r, LW);
+  p->grid_outer = static_cast<int>(((static_cast<long>(LANES) << nwalk) + THREADS - 1) / THREADS);
+  return true;
 }
 
 struct Scratch {
-  float *part_row, *part_outer, *part_dm, *part_m7, *pr, *pi, *wr, *wi, *vr, *vi;
+  float *part_row, *part_outer, *part_dm, *part_m7, *pr, *pi, *wr, *wi, *vr, *vi, *rec;
 };
 
 // mode 0: K3 without lane, 1: K3 with lane, 2: K4; rmx > 0: K3 with the
-// row kron (the row stage then walks nkernel = the low bits only).
-// Returns the floats needed; fills s when base is given.
-size_t layout(const Plan& p, int npairs, int nkernel, int mode, int rmx,
-              float* base, Scratch* s) {
+// row kron (the row stage then walks the low nkernel - rmx bits only).
+// Each part a multiple of 64 floats (16-byte aligned).  Returns the floats
+// needed; fills s when base is given.
+size_t layout(const Plan& p, int npairs, int mode, int rmx, float* base, Scratch* s) {
   const size_t plane = static_cast<size_t>(p.r) * LANES;
-  const size_t lane = mode ? plane : 0, rowm = rmx ? plane : 0;
-  const size_t either = (mode || rmx) ? plane : 0;
-  size_t sizes[10] = {
-      static_cast<size_t>(p.grid_row) * (npairs + nkernel),
+  const bool two = p.rs.npass == 2;
+  const size_t psi = (mode || rmx || two) ? plane : 0;  // psi, or the first pass's output
+  const size_t w = (mode || two) ? plane : 0;           // the walked ct
+  const size_t rowm = rmx ? plane : 0;
+  const size_t sizes[11] = {
+      row_part_floats(p.rs, npairs),
       mode == 2 ? static_cast<size_t>(p.grid_outer) * MAX_NOUTER : 0,
-      mode ? dm_partial_floats(p.r) : 0,
+      mode ? dm_floats(p.nc, LW) : 0,
       rmx ? rowm_dm_floats(p.r, rmx) : 0,
-      either, either, lane, lane, rowm, rowm,
+      psi, psi, w, w, rowm, rowm,
+      pair_record_floats(npairs),
   };
   size_t off = 0;
-  float* ptrs[10];
-  for (int i = 0; i < 10; ++i) {
+  float* ptrs[11];
+  for (int i = 0; i < 11; ++i) {
     ptrs[i] = base ? base + off : nullptr;
-    off += (sizes[i] + 31) & ~static_cast<size_t>(31);  // 128-byte aligned parts
+    off += (sizes[i] + 63) / 64 * 64;
   }
-  if (s) {
-    s->part_row = ptrs[0];
-    s->part_outer = ptrs[1];
-    s->part_dm = ptrs[2];
-    s->part_m7 = ptrs[3];
-    s->pr = ptrs[4];
-    s->pi = ptrs[5];
-    s->wr = ptrs[6];
-    s->wi = ptrs[7];
-    s->vr = ptrs[8];
-    s->vi = ptrs[9];
-  }
+  if (s)
+    *s = Scratch{ptrs[0], ptrs[1], ptrs[2], ptrs[3], ptrs[4], ptrs[5],
+                 ptrs[6], ptrs[7], ptrs[8], ptrs[9], ptrs[10]};
   return off;
 }
 
-// Lane stage of the adjoint: s.pr/pi <- y @ conj(M)^T, s.wr/wi <- ct @ M^T,
-// dm planes (dm_out, dm_out + dm_stride) <- psi^T ct.
-cudaError_t lane_stage(const Plan& p, const float* yr, const float* yi,
-                       const float* ctr, const float* cti, const float* mr,
-                       const float* mi, const Scratch& s, float* dm_out,
-                       long dm_stride, cudaStream_t st) {
-  return lane_bwd_stage(p.r, yr, yi, ctr, cti, mr, mi, s.pr, s.pi, s.wr, s.wi,
-                        s.part_dm, dm_out, dm_stride, st);
-}
-
-// Row stage: ds <- rx and zz adjoint of (psi, ct); grads[0..npairs+nkernel)
-// <- (dzz, dth).
-cudaError_t row_stage(const Plan& p, const float* psr, const float* psi,
-                      const float* ctr, const float* cti, float* dsr,
-                      float* dsi, const Scratch& s, float* grads,
-                      const float* zzth, const int* shifts, int npairs,
-                      const float* th, int nkernel, cudaStream_t st) {
-  cudaError_t err = cudaFuncSetAttribute(
-      zzrx_bwd_row_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(p.row_smem));
-  if (err != cudaSuccess) return err;
-  zzrx_bwd_row_kernel<<<p.grid_row, THREADS, p.row_smem, st>>>(
-      psr, psi, ctr, cti, dsr, dsi, s.part_row, zzth, shifts, npairs, th,
-      nkernel, p.ltl);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const int w = npairs + nkernel;
-  return colsum(s.part_row, p.grid_row, w, grads, w, 0, st);
+template <int D>
+const void* outer_fn() {
+  return reinterpret_cast<const void*>(outer_bwd_kernel<D>);
 }
 
 cudaError_t outer_stage(int d, const Plan& p, const float* cr, const float* ci,
                         float* wr, float* wi, const float* ksr,
                         const float* ksi, const float* mor, const float* moi,
                         float* part, cudaStream_t st) {
-  const long be = static_cast<long>(p.rb) * LANES;
+  const long be = static_cast<long>(p.r / d) * LANES;
   switch (d) {
     case 2:
       outer_bwd_kernel<2><<<p.grid_outer, THREADS, 0, st>>>(cr, ci, wr, wi, ksr, ksi, mor, moi, be, part);
@@ -356,10 +230,11 @@ const char* tcng_error_string(int err) {
 
 // Floats of scratch that tcng_zzrx_bwd (mode 0: no lane matrix, 1: with
 // it; rmx > 0: with the row kron) or tcng_grand_zzrx_bwd (mode 2, rmx 0)
-// needs for these shapes.
+// needs for these shapes; -1 for a shape the stages do not take.
 long tcng_zzrx_bwd_scratch(int r, int nkernel, int npairs, int mode, int rmx) {
-  const Plan p = make_plan(r, nkernel - rmx, npairs);
-  return static_cast<long>(layout(p, npairs, nkernel - rmx, mode, rmx, nullptr, nullptr));
+  Plan p;
+  if (npairs < 0 || rmx < 0 || !make_plan(r, nkernel - rmx, &p)) return -1;
+  return static_cast<long>(layout(p, npairs, mode, rmx, nullptr, nullptr));
 }
 
 // K3.  yr/yi: the layer's (r, 128) output planes (post-lane when mr is
@@ -369,7 +244,8 @@ long tcng_zzrx_bwd_scratch(int r, int nkernel, int npairs, int mode, int rmx) {
 // with rmx = 0; zzth (npairs); shifts (npairs, 2) = (n-1-a, n-1-b); th
 // (nkernel); mr/mi (128, 128) lane planes or null; m7r/m7i (R, R) unitary
 // row-kron planes, R = 2^rmx, or null; scratch of tcng_zzrx_bwd_scratch
-// floats.  Returns the first CUDA error, 0 on success.
+// floats.  With the lane, y, ct, the lane planes and the scratch are
+// 16-byte aligned.  Returns the first CUDA error, 0 on success.
 int tcng_zzrx_bwd(const float* yr, const float* yi, const float* ctr,
                   const float* cti, float* dsr, float* dsi, float* grads,
                   float* dm, float* dm7, const float* zzth, const int* shifts,
@@ -377,14 +253,24 @@ int tcng_zzrx_bwd(const float* yr, const float* yi, const float* ctr,
                   const float* mi, const float* m7r, const float* m7i,
                   int rmx, float* scratch, int r, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int nlow = nkernel - rmx;  // the bits the row stage walks
-  const Plan p = make_plan(r, nlow, npairs);
+  Plan p;
+  if (npairs < 0 || rmx < 0 || !make_plan(r, nkernel - rmx, &p))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (mr != nullptr && !all_aligned16({yr, yi, ctr, cti, mr, mi, scratch}))
+    return static_cast<int>(cudaErrorMisalignedAddress);
   Scratch s;
-  layout(p, npairs, nlow, mr ? 1 : 0, rmx, scratch, &s);
+  layout(p, npairs, mr ? 1 : 0, rmx, scratch, &s);
+  cudaError_t err = row_stage_prepare(p.rs, npairs);
+  if (err == cudaSuccess && mr != nullptr) err = lane_stage_prepare();
+  if (err == cudaSuccess) err = pair_records(p.rs, shifts, npairs, s.rec, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const float *psr = yr, *psi = yi, *cr = ctr, *ci = cti;
-  cudaError_t err = cudaSuccess;
+  // where the first of two row passes writes: in place once psi and ct are
+  // in scratch, else into scratch (the caller's planes stay untouched)
+  float *mpr = s.pr, *mpi = s.pi, *mcr = s.wr, *mci = s.wi;
   if (mr != nullptr) {
-    err = lane_stage(p, yr, yi, ctr, cti, mr, mi, s, dm, MM, st);
+    err = adjoint_lane_stage(r, LW, yr, yi, ctr, cti, mr, mi, s.pr, s.pi, s.wr, s.wi, s.part_dm,
+                             dm, MM, p.nc, st);
     if (err != cudaSuccess) return static_cast<int>(err);
     psr = s.pr;
     psi = s.pi;
@@ -401,11 +287,44 @@ int tcng_zzrx_bwd(const float* yr, const float* yi, const float* ctr,
     if (err != cudaSuccess) return static_cast<int>(err);
     psr = s.pr;
     psi = s.pi;
-    cr = s.vr;
-    ci = s.vi;
+    cr = mcr = s.vr;
+    ci = mci = s.vi;
   }
-  return static_cast<int>(row_stage(p, psr, psi, cr, ci, dsr, dsi, s, grads,
-                                    zzth, shifts, npairs, th + rmx, nlow, st));
+  return static_cast<int>(adjoint_row_stage(p.rs, psr, psi, cr, ci, mpr, mpi, mcr, mci, nullptr,
+                                            nullptr, dsr, dsi, s.part_row, s.rec, zzth, npairs,
+                                            th + rmx, grads, st));
+}
+
+// The stages' plan at these shapes, for the record: five records of 8
+// (kernel_record: CTAs, threads, shared bytes, CTAs an SM, registers, local
+// bytes, x1, x2): the lane pair (x1, x2 = the tile's rows and columns), dM
+// (x1 = chunks, x2 = rows a chunk), the first row pass and the last (x1 =
+// tile elements, x2 = the pass's row bits; the first has 0 CTAs when there
+// is one pass) and K4's outer stage (x1 = D, x2 = nouter; 0 CTAs where K4
+// has none: rmx > 0 or D outside 2..16).
+int tcng_zzrx_bwd_plan(int r, int nkernel, int npairs, int rmx, long* out) {
+  Plan p;
+  if (npairs < 0 || rmx < 0 || !make_plan(r, nkernel - rmx, &p))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = kernel_record(reinterpret_cast<const void*>(wide_nt_kernel<2, true>),
+                                  prod_ctas(r, LW), THREADS, prod_smem<2>(), P_T, P_T, out);
+  if (err == cudaSuccess)
+    err = kernel_record(reinterpret_cast<const void*>(wide_dm_kernel), static_cast<long>(p.nc) << 2,
+                        THREADS, DM_SMEM, p.nc, r / p.nc, out + 8);
+  for (int k = 0; k < 2 && err == cudaSuccess; ++k) {
+    const bool last = k == 1;
+    const RowPass& rp = last ? last_pass(p.rs) : p.rs.pass[0];
+    const bool runs = last || p.rs.npass == 2;
+    err = kernel_record(row_pass_fn(last), runs ? row_ctas(p.rs) : 0, row_threads(p.rs),
+                        row_pass_smem(rp, npairs, last), 1L << rp.tb, runs ? rp.nb : 0, out + 16 + 8 * k);
+  }
+  const int d = r >> nkernel;
+  const bool runs = rmx == 0 && d >= 2 && d <= (1 << MAX_NOUTER);
+  const void* fn = !runs ? outer_fn<2>() : d == 2 ? outer_fn<2>() : d == 4 ? outer_fn<4>()
+                 : d == 8 ? outer_fn<8>() : outer_fn<16>();
+  if (err == cudaSuccess)
+    err = kernel_record(fn, runs ? p.grid_outer : 0, THREADS, 0, d, runs ? ilog2(d) : 0, out + 32);
+  return static_cast<int>(err);
 }
 
 // The row-kron stages' plan at these shapes, for the record: out[0..7) of
@@ -418,12 +337,27 @@ int tcng_rowm_bwd_plan(int rmx, int r, long* out) {
   return static_cast<int>(err);
 }
 
+// The dM stage alone at r rows with nc row chunks (a power of two that
+// divides r): dm (2, 128, 128) <- psi^T ct; part of 2 * nc * 128 * 128
+// floats; every plane 16-byte aligned.  For measuring the chunk rule
+// (dm_chunks) on the card; the kernels above take the rule's count.
+int tcng_lane_dm(const float* pr, const float* pi, const float* ctr, const float* cti,
+                 float* part, float* dm, int r, int nc, void* stream) {
+  if (r < 1 || nc < 1 || (nc & (nc - 1)) || r % nc) return static_cast<int>(cudaErrorInvalidValue);
+  if (!all_aligned16({pr, pi, ctr, cti, part, dm})) return static_cast<int>(cudaErrorMisalignedAddress);
+  cudaError_t err = lane_stage_prepare();
+  if (err == cudaSuccess)
+    err = wide_dm(pr, pi, ctr, cti, part, dm, MM, r, LW, nc, static_cast<cudaStream_t>(stream));
+  return static_cast<int>(err);
+}
+
 // K4.  ksr/ksi (L, r, 128) post-lane, pre-outer residuals; ctr/cti (r, 128)
 // seed cotangent; dsr/dsi (r, 128) output (also the walked cotangent
 // between layers); grads (L, npairs + nkernel + nouter) = (dzz, dth,
 // dth_outer) a layer; dm (2, L, 128, 128) = (dmr, dmi); zzth (L, npairs);
 // th (L, nkernel); mor/moi (L, D, D) outer rx krons with D = r >> nkernel
-// in {2, 4, 8, 16}; mlr/mli (L, 128, 128) unitary lane planes.
+// in {2, 4, 8, 16}; mlr/mli (L, 128, 128) unitary lane planes; every plane
+// but the angles and the outer planes 16-byte aligned.
 int tcng_grand_zzrx_bwd(const float* ksr, const float* ksi, const float* ctr,
                         const float* cti, float* dsr, float* dsi, float* grads,
                         float* dm, const float* zzth, const int* shifts,
@@ -431,30 +365,39 @@ int tcng_grand_zzrx_bwd(const float* ksr, const float* ksi, const float* ctr,
                         const float* mor, const float* moi, const float* mlr,
                         const float* mli, float* scratch, int r, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Plan p = make_plan(r, nkernel, npairs);
-  const int d = r / p.rb;
+  Plan p;
+  if (npairs < 0 || L < 1 || !make_plan(r, nkernel, &p)) return static_cast<int>(cudaErrorInvalidValue);
+  const int d = r >> nkernel;
   if (d < 2 || d > (1 << MAX_NOUTER)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!all_aligned16({ksr, ksi, ctr, cti, dsr, dsi, dm, mlr, mli, scratch}))
+    return static_cast<int>(cudaErrorMisalignedAddress);
   const int nouter = ilog2(d);
   const int w = npairs + nkernel + nouter;
   const size_t plane = static_cast<size_t>(r) * LANES;
   Scratch s;
-  layout(p, npairs, nkernel, 2, 0, scratch, &s);
+  layout(p, npairs, 2, 0, scratch, &s);
+  cudaError_t err = lane_stage_prepare();
+  if (err == cudaSuccess) err = row_stage_prepare(p.rs, npairs);
+  if (err == cudaSuccess) err = pair_records(p.rs, shifts, npairs, s.rec, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
   for (int l = L - 1; l >= 0; --l) {
     const float* kr = ksr + l * plane;
     const float* ki = ksi + l * plane;
-    cudaError_t err = outer_stage(
-        d, p, l == L - 1 ? ctr : dsr, l == L - 1 ? cti : dsi, dsr, dsi, kr, ki,
-        mor + l * d * d, moi + l * d * d, s.part_outer, st);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    err = colsum(s.part_outer, p.grid_outer, nouter, grads + l * w + npairs + nkernel,
-                 nouter, 0, st);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    err = lane_stage(p, kr, ki, dsr, dsi, mlr + static_cast<size_t>(l) * MM,
-                     mli + static_cast<size_t>(l) * MM, s, dm + static_cast<size_t>(l) * MM,
-                     static_cast<long>(L) * MM, st);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    err = row_stage(p, s.pr, s.pi, s.wr, s.wi, dsr, dsi, s, grads + l * w,
-                    zzth + l * npairs, shifts, npairs, th + l * nkernel, nkernel, st);
+    // w = mo^T ct into ds (in place after the first layer), dth_outer
+    err = outer_stage(d, p, l == L - 1 ? ctr : dsr, l == L - 1 ? cti : dsi, dsr, dsi, kr, ki,
+                      mor + l * d * d, moi + l * d * d, s.part_outer, st);
+    if (err == cudaSuccess)
+      err = colsum_tree(s.part_outer, p.grid_outer, nouter, grads + l * w + npairs + nkernel, st);
+    // psi = k @ conj(M)^T, w @ M^T and dM = psi^T w
+    if (err == cudaSuccess)
+      err = adjoint_lane_stage(r, LW, kr, ki, dsr, dsi, mlr + static_cast<size_t>(l) * MM,
+                               mli + static_cast<size_t>(l) * MM, s.pr, s.pi, s.wr, s.wi, s.part_dm,
+                               dm + static_cast<size_t>(l) * MM, static_cast<long>(L) * MM, p.nc, st);
+    // the rx and zz adjoint in place on (psi, w), ds into the ds planes
+    if (err == cudaSuccess)
+      err = adjoint_row_stage(p.rs, s.pr, s.pi, s.wr, s.wi, s.pr, s.pi, s.wr, s.wi, nullptr, nullptr,
+                              dsr, dsi, s.part_row, s.rec, zzth + l * npairs, npairs, th + l * nkernel,
+                              grads + l * w, st);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return 0;

@@ -8,7 +8,8 @@ streamed out as the residual ``ks[l]``, then the outer ``(D, D)`` matrix
 mixes the ``G = D`` row blocks.  ``grand_zzrx_bwd`` is the wrapper of
 kernel K4 (``csrc/zzrx_bwd.cu``, ``tcng_grand_zzrx_bwd``), which replaces
 the Pallas ``grand_zzrx_bwd``: the layers in reverse, each the outer
-transpose walk with dθ_outer, then K3's adjoint with the lane matrix.  A
+transpose walk with dθ_outer, then K3's adjoint with the lane matrix, on
+the adjoint stages of ``csrc/adjoint_stages.cuh`` (shared with K10).  A
 CPU tensor runs the plain versions :func:`grand_zzrx_fwd_plain` and
 :func:`grand_zzrx_bwd_plain`.
 """
@@ -152,10 +153,11 @@ def _launch_grand_bwd(pairs, n, zzth, th, ksr, ksi, ctr, cti, mor, moi, mlr, mli
     ds = torch.empty((2, r, lanes), dtype=torch.float32, device=dev)
     grads = torch.empty((L, npairs + nkernel + nouter), dtype=torch.float32, device=dev)
     dm = torch.empty((2, L, lanes, lanes), dtype=torch.float32, device=dev)
+    # the lane stage copies 16-byte chunks of the residuals, the seed and
+    # the lane planes
+    ksr, ksi, ctr, cti, mlr, mli = (krl._aligned16(t) for t in (ksr, ksi, ctr, cti, mlr, mli))
     lib = _build.library("zzrx_bwd")
-    scratch = torch.empty(
-        lib.tcng_zzrx_bwd_scratch(r, nkernel, npairs, 2, 0), dtype=torch.float32, device=dev
-    )
+    scratch = krl._bwd_scratch("grand_zzrx_bwd", lib, r, nkernel, npairs, 2, 0, dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         grand_zzrx_bwd.launches += 1

@@ -13,7 +13,10 @@ wrappers and the kernels they launch on a CUDA tensor:
 - ``zzrx_fwd``: K1 (``csrc/zzrx_fwd.cu``, ``tcng_zzrx_fwd``), replaces
   ``_pallas_zzrx_fwd``;
 - ``zzrx_bwd``: K3 (``csrc/zzrx_bwd.cu``, ``tcng_zzrx_bwd``), replaces
-  ``_pallas_zzrx_bwd``;
+  ``_pallas_zzrx_bwd``; its lane and row stages are the adjoint stages of
+  ``csrc/adjoint_stages.cuh`` that K4 and K10 share, and
+  ``zzrx_bwd_plan`` / ``zzrx_bwd_card_plan`` give their plan (K7's lane
+  stage is the same kernel pair);
 - ``rowm_fwd`` / ``rowm_bwd``: K1 / K3 with the row-kron planes M7, whose
   stages K13 and K14 (``csrc/rowm.cuh``, register-blocked products with M7
   in shared memory, launched from ``tcng_zzrx_fwd`` / ``tcng_zzrx_bwd``)
@@ -69,6 +72,8 @@ __all__ = [
     "rowm_bwd",
     "rowm_apply_plain",
     "rowm_plan",
+    "zzrx_bwd_plan",
+    "zzrx_bwd_card_plan",
     "MAX_ROWM_QUBITS",
     "zzrx_row_layer",
     "MAX_KERNEL_QUBITS_ZZRX",
@@ -225,6 +230,74 @@ def rowm_plan(rmx: int, r: int) -> dict:
         "bwd": dict(zip(apply_keys, bwd[:7])),
         "dm": dict(zip(dm_keys, bwd[7:15])),
     }
+
+
+#: the adjoint stages' constants (``csrc/adjoint_stages.cuh``): product
+#: tile edge and shared bytes of the pair, dM's rows a stage, shared bytes
+#: and CTAs, the row passes' tile bits and walked bits a pass
+_P_T, _PAIR_SMEM, _D_KC, _DM_SMEM, _DM_CTAS = 64, 110592, 32, 65536, 256
+_RP_TB, _RP_MAXB, _THREADS = 11, 6, 256
+_PLAN_KEYS = ("ctas", "threads", "smem", "ctas_per_sm", "registers", "local_bytes")
+_PLAN_OWN = {"lane": ("rows", "cols"), "dm": ("chunks", "chunk_rows"), "row_hi": ("tile", "bits"),
+             "row_lo": ("tile", "bits"), "outer": ("d", "nouter")}
+
+
+def zzrx_bwd_plan(r: int, nkernel: int, npairs: int, rmx: int = 0) -> dict:
+    """K3/K4's stage plan at r rows of 128 lanes, computed as
+    ``csrc/zzrx_bwd.cu`` makes it (no card needed): for the lane pair
+    ``"lane"``, dM ``"dm"``, the row stage's first pass ``"row_hi"`` (0 CTAs
+    with one pass) and its last ``"row_lo"``, and K4's outer stage
+    ``"outer"`` (0 CTAs where K4 has none), each ``ctas``, ``threads`` and
+    ``smem`` (dynamic shared bytes) and two of its own: the pair's tile
+    ``rows`` and ``cols``, dM's ``chunks`` and ``chunk_rows``, a pass's
+    ``tile`` elements and walked row ``bits``, the outer ``d`` and
+    ``nouter``.  The row stage walks the low ``nkernel - rmx`` row bits."""
+    nrb, nwalk = r.bit_length() - 1, nkernel - rmx
+    total = nrb + 7
+    if r != 1 << nrb or not 0 <= nwalk <= min(nrb, 2 * _RP_MAXB) or not 8 <= total <= 31 or npairs < 0:
+        raise ValueError(f"zzrx_bwd_plan: unsupported shape r={r}, nkernel={nkernel}, rmx={rmx}")
+    tb = min(total, _RP_TB)
+    ctas, threads = 1 << (total - tb), 1 << (tb - 3)
+    npass = 2 if nwalk > _RP_MAXB else 1
+    lo_bits = min(nwalk, _RP_MAXB)
+    first_bits = nwalk - _RP_MAXB if npass == 2 else lo_bits
+
+    def smem(nb, last):
+        floats = (4 << tb if nb > 3 else 0) + threads // 32 * (_RP_MAXB + npairs) + 2 * _RP_MAXB + 8
+        return 4 * floats + (16 * npairs if last else 0)
+
+    nc = max(1, min(_DM_CTAS // 4, r // _D_KC))
+    d = r >> nkernel
+    outer = rmx == 0 and 2 <= d <= 16
+    return {
+        "lane": {"ctas": -(-r // _P_T) * 2, "threads": _THREADS, "smem": _PAIR_SMEM, "rows": _P_T, "cols": _P_T},
+        "dm": {"ctas": 4 * nc, "threads": _THREADS, "smem": _DM_SMEM, "chunks": nc, "chunk_rows": r // nc},
+        "row_hi": {"ctas": ctas if npass == 2 else 0, "threads": threads, "smem": smem(first_bits, False),
+                   "tile": 1 << tb, "bits": first_bits if npass == 2 else 0},
+        "row_lo": {"ctas": ctas, "threads": threads, "smem": smem(lo_bits, True), "tile": 1 << tb,
+                   "bits": lo_bits},
+        "outer": {"ctas": -(-(_LANES << nkernel) // _THREADS) if outer else 0, "threads": _THREADS,
+                  "smem": 0, "d": d, "nouter": d.bit_length() - 1 if outer else 0},
+    }
+
+
+def zzrx_bwd_card_plan(r: int, nkernel: int, npairs: int, rmx: int = 0) -> dict:
+    """The same plan as the card's C code reports it
+    (``tcng_zzrx_bwd_plan``), with each stage kernel's ``ctas_per_sm``,
+    ``registers`` and ``local_bytes`` a thread besides.  Needs the card."""
+    out = (ctypes.c_long * 40)()
+    lib = _build.library("zzrx_bwd")
+    _build.check("zzrx_bwd", lib.tcng_zzrx_bwd_plan(r, nkernel, npairs, rmx, out), "zzrx_bwd_plan")
+    return {k: dict(zip(_PLAN_KEYS + own, out[8 * i:8 * i + 8])) for i, (k, own) in enumerate(_PLAN_OWN.items())}
+
+
+def _bwd_scratch(what: str, lib, r: int, nkernel: int, npairs: int, mode: int, rmx: int, dev) -> torch.Tensor:
+    """The scratch a backward entry point needs, or raise for a shape its
+    stages do not take."""
+    floats = lib.tcng_zzrx_bwd_scratch(r, nkernel, npairs, mode, rmx)
+    if floats < 0:
+        raise ValueError(f"{what}: unsupported shape r={r}, nkernel={nkernel}, rmx={rmx}")
+    return torch.empty(floats, dtype=torch.float32, device=dev)
 
 
 def zzrx_fwd_plain(pairs, n, zzth, th, sr, si, mr=None, mi=None, m7r=None, m7i=None):
@@ -448,7 +521,11 @@ def _launch_zzrx_bwd(pairs, n, zzth, th, yr, yi, ctr, cti, mr, mi, m7r, m7i):
     if rmx:
         _check_rowm("zzrx_bwd", rmx)
         _check_planes("zzrx_bwd row kron", dev, (R, R), m7r, m7i)
-        yr, yi, ctr, cti, m7r, m7i = (_aligned16(t) for t in (yr, yi, ctr, cti, m7r, m7i))
+        m7r, m7i = _aligned16(m7r), _aligned16(m7i)
+    if lane or rmx:  # the lane and row-kron stages copy 16-byte chunks
+        yr, yi, ctr, cti = (_aligned16(t) for t in (yr, yi, ctr, cti))
+    if lane:
+        mr, mi = _aligned16(mr), _aligned16(mi)
     zzth = _f32(zzth, dev)
     th = _f32(th, dev)
     if tuple(zzth.shape) != (npairs,):
@@ -459,9 +536,7 @@ def _launch_zzrx_bwd(pairs, n, zzth, th, yr, yi, ctr, cti, mr, mi, m7r, m7i):
     dm = torch.empty((2, lanes, lanes), dtype=torch.float32, device=dev) if lane else None
     dm7 = torch.empty((2, R, R), dtype=torch.float32, device=dev) if rmx else None
     lib = _build.library("zzrx_bwd")
-    scratch = torch.empty(
-        lib.tcng_zzrx_bwd_scratch(r, nkernel, npairs, int(lane), rmx), dtype=torch.float32, device=dev
-    )
+    scratch = _bwd_scratch("zzrx_bwd", lib, r, nkernel, npairs, int(lane), rmx, dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         zzrx_bwd.launches += 1
@@ -741,6 +816,8 @@ def _launch_row_bwd(gr, gi, yr, yi, ctr, cti, mr, mi):
     lane = mr is not None
     if lane:
         _check_planes("row_bwd lane", dev, (_LANES, _LANES), mr, mi)
+        # the adjoint lane stage copies 16-byte chunks
+        yr, yi, ctr, cti, mr, mi = (_aligned16(t) for t in (yr, yi, ctr, cti, mr, mi))
     ds = torch.empty((2, r, _LANES), dtype=torch.float32, device=dev)
     dg = torch.empty((2, nk, 4), dtype=torch.float32, device=dev)
     dm = torch.empty((2, _LANES, _LANES), dtype=torch.float32, device=dev) if lane else None

@@ -19,8 +19,10 @@ held to ``chip_smoke.py``'s SVD tolerances, which state their reasons, and
 within 1e-4, as ``chip_smoke.py`` holds it at n=60.  K9-K12 (the
 whole-block multilayer and rotx kernels) as K1-K8, and the QAOA cost of
 ``chip_smoke.qaoa_energy`` on the card in both forms against the CPU path,
-1e-4 on energy and gradient.  K1/K3 with the row kron (K13/K14) as K1/K3,
-the ``FUSE_ROWM`` TFIM gradient as the circuit gradients; K15 (the staged
+1e-4 on energy and gradient.  K3/K4 at the shared row stage's boundaries
+(1-11 walked bits) as K3/K4, bit for bit twice; their plan as the card
+reports it against ``zzrx_bwd_plan``.  K1/K3 with the row kron (K13/K14)
+as K1/K3, the ``FUSE_ROWM`` TFIM gradient as the circuit gradients; K15 (the staged
 micro-benchmark, random non-unitary inputs whose values grow to O(100))
 within 1e-5 of its output's largest entry.
 """
@@ -228,6 +230,82 @@ def test_grand_zzrx_bwd_kernel_matches_plain(cuda, n, nkernel, L, pairs):
             torch.testing.assert_close(g, w, atol=ATOL, rtol=0)
         else:
             _close(g, w)
+
+
+#: walked row bits at the row stage's boundaries (csrc/adjoint_stages.cuh):
+#: 1 and 3 in registers only, 4 and 6 with one shared-memory crossing, 7
+#: and 10 in two passes
+NWALK_CASES = [1, 3, 4, 6, 7, 10]
+
+
+@pytest.mark.parametrize("lane", [False, True])
+@pytest.mark.parametrize("nwalk", NWALK_CASES)
+def test_zzrx_bwd_at_row_pass_boundaries(cuda, nwalk, lane):
+    """K3 with nkernel = nwalk and two outer row bits (CTA bits of the row
+    stage) against its plain version, and bit for bit against itself."""
+    n = nwalk + 9
+    pairs = _pairs(n, "long" if nwalk % 2 else "chain")
+    (ksr, ksi, ctr, cti), zz, th, mats = _unitary_inputs(n, nwalk, 1, len(pairs), 3 * n, cuda)
+    m = (mats[2][0], mats[3][0]) if lane else ()
+    args = (pairs, n, zz[0], th[0], ksr[0], ksi[0], ctr, cti, *m)
+    krl.zzrx_bwd.launches = 0
+    got = krl.zzrx_bwd(*args)
+    again = krl.zzrx_bwd(*args)
+    torch.cuda.synchronize()
+    assert krl.zzrx_bwd.launches == 2
+    want = krl.zzrx_bwd_plain(*args)
+    assert len(got) == len(want) == (6 if lane else 4)
+    for i, (g, g2, w) in enumerate(zip(got, again, want)):
+        assert g.shape == w.shape and torch.equal(g, g2)
+        if i < 2:
+            torch.testing.assert_close(g, w, atol=ATOL, rtol=0)
+        else:
+            _close(g, w)
+
+
+@pytest.mark.parametrize(
+    "n,nkernel",
+    [(9, 1), (12, 3), (14, 4), (17, 6), (16, 7), (20, 10), (22, 11)],
+)
+def test_grand_zzrx_bwd_at_row_pass_boundaries(cuda, n, nkernel):
+    """K4 at D = 2, 4, 8 and 16 outer blocks with the row stage at its
+    boundaries (nwalk = nkernel = 1, 3, 4, 6, 7, 10, and 11 at n=22: two
+    passes of 5 and 6 bits), L=2, against its plain version and bit for bit
+    against itself."""
+    pairs = _pairs(n, "open")
+    planes, zz, th, mats = _unitary_inputs(n, nkernel, 2, len(pairs), 2 * n + nkernel, cuda)
+    args = (pairs, n, zz, th, *planes, *mats)
+    got = kg.grand_zzrx_bwd(*args)
+    again = kg.grand_zzrx_bwd(*args)
+    torch.cuda.synchronize()
+    want = kg.grand_zzrx_bwd_plain(*args)
+    assert got[4].shape == (2, n - 7 - nkernel)
+    for i, (g, g2, w) in enumerate(zip(got, again, want)):
+        assert g.shape == w.shape and torch.equal(g, g2)
+        if i < 2:
+            torch.testing.assert_close(g, w, atol=ATOL, rtol=0)
+        else:
+            _close(g, w)
+
+
+@pytest.mark.parametrize("n,nkernel,rmx", [(12, 5, 0), (14, 7, 0), (20, 10, 0), (20, 10, 7), (22, 10, 0)])
+def test_zzrx_bwd_plan_on_card(cuda, n, nkernel, rmx):
+    """K3/K4's stage plan as the card reports it equals the Python
+    arithmetic (``zzrx_bwd_plan``), with shared memory within a CTA's
+    232,448 B, at least one CTA an SM, no local memory, and no spill in
+    nvcc's report of the zzrx_bwd build."""
+    r, npairs = 2 ** (n - 7), n - 1
+    got = krl.zzrx_bwd_card_plan(r, nkernel, npairs, rmx)
+    want = krl.zzrx_bwd_plan(r, nkernel, npairs, rmx)
+    assert got.keys() == want.keys()
+    for stage, p in got.items():
+        assert {k: p[k] for k in want[stage]} == want[stage], stage
+        assert p["smem"] <= 232448 and p["ctas_per_sm"] >= 1 and p["local_bytes"] == 0
+    report = _ptxas_report(_build.build_log("zzrx_bwd"), "")
+    for needle in ("wide_nt_kernel", "wide_dm_kernel", "ml_row_pass_kernel", "ml_pair_records_kernel",
+                   "colsum_tree_kernel", "outer_bwd_kernel"):
+        hits = [v for k, v in report.items() if needle in k]
+        assert hits and all(regs and not st and not ld for regs, st, ld in hits)
 
 
 @pytest.mark.parametrize(
@@ -653,7 +731,8 @@ def _grad_close(got, want):
 @pytest.mark.parametrize(
     "n,nkernel,rmx,lane",
     [(10, 3, 1, True), (14, 7, 1, False), (12, 5, 2, True), (13, 6, 3, False), (16, 8, 4, True),
-     (17, 10, 5, True), (20, 10, 7, True), (20, 10, 7, False), (21, 10, 7, False)],
+     (17, 10, 5, True), (20, 10, 7, True), (20, 10, 7, False), (21, 10, 7, False), (17, 10, 3, True),
+     (18, 10, 1, False)],
 )
 def test_rowm_kernels_match_plain(cuda, n, nkernel, rmx, lane):
     """K1 and K3 with the row kron M7 (stages K13/K14): the forward with an
@@ -661,7 +740,8 @@ def test_rowm_kernels_match_plain(cuda, n, nkernel, rmx, lane):
     forward's output, K3 twice and equal bit for bit (n=20, rmx=7 is the
     FUSE_ROWM path's shape).  R = 2 at n=10 leaves K13's one tile of 1024
     columns half empty; n=21, rmx=7 gives 512 and 1024 column tiles, not a
-    multiple of the persistent grid."""
+    multiple of the persistent grid; rmx=3 and rmx=1 at nkernel=10 leave 7
+    and 9 bits to the row stage: two passes after K14."""
     pairs = _pairs(n, "open")
     (sr, si), t = _inputs(n, nkernel, 1, len(pairs), 3 * n + rmx, cuda)
     zz, th = t["zz"][0], t["th"][0]

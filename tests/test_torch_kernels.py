@@ -204,6 +204,8 @@ def _bwd_planes(n, L, rng):
         (11, 2, "long", False),
         (12, 3, "chain", True),
         (12, 5, "long", True),
+        (13, 6, "chain", True),  # one shared-memory crossing in the card's row stage
+        (14, 7, "long", False),  # two row passes on the card
     ],
 )
 def test_zzrx_bwd_plain_matches_pallas(n, nkernel, pairs, lane):
@@ -233,6 +235,8 @@ def test_zzrx_bwd_plain_matches_pallas(n, nkernel, pairs, lane):
         (10, 1, 3, "long"),
         (12, 3, 2, "long"),  # nrow 5: D = 4 blocks of RB = 8 rows
         (12, 3, 3, "chain"),
+        (12, 1, 2, "chain"),  # nrow 5: D = 16 blocks of RB = 2 rows, K4's largest
+        (13, 4, 2, "long"),  # nrow 6: D = 4 blocks of RB = 16 rows
     ],
 )
 def test_grand_zzrx_bwd_plain_matches_pallas(n, nkernel, L, pairs):
