@@ -68,7 +68,13 @@ Phases (any failure exits non-zero; nothing is caught):
      counts reset just before and read just after (K6 9, K7 8 and K8 1 a
      step), energies and gradients against the same steps on the port's CPU
      path; the step timed (CUDA events) and profiled, each kernel and its
-     plain version timed at the path's shape over 3 rounds;
+     plain version timed at the path's shape over 3 rounds (K7 also with
+     the lane); K7's stage plan at n=20 with and without the lane (each
+     stage kernel's CTAs, threads, shared bytes, CTAs an SM, registers,
+     local bytes) against the Python arithmetic, nvcc's registers and
+     spills of its gate passes (a spill fails), and each of its row passes
+     (the first, the last with its colsum) by device time a launch on the
+     HEA step, beside its bound;
   9. the QAOA path, the main path of the QAOA slice: MaxCut on the n=20
      graph of ``examples/qaoa_maxcut_fused.py`` (37 edges, p=4); K9
      ``ml_fwd`` and K10 ``ml_bwd`` (whole block, 12 row qubits, 256 lanes)
@@ -87,7 +93,9 @@ Phases (any failure exits non-zero; nothing is caught):
      fails) and each of its stages (the lane pair, dM with its colsum, the
      row stage's two passes and their sums) by device time a layer on the
      form (a) step, beside its bound and one PyTorch call of each product
-     (a replayed CUDA graph);
+     (a replayed CUDA graph); K9's plan at the same widths against the
+     Python arithmetic and its stages (the zz pass, the other row pass,
+     the product) the same way;
  10. the FUSE_ROWM path, the main path of the row-kron slice: K1 and K3
      with the row kron M7 (stages K13 ``rowm_fwd`` and K14 ``rowm_bwd``,
      rmx=7, a 128x128 complex M7) with and without the lane against their
@@ -723,12 +731,57 @@ def _row_work(r, nkernel, kind, lane=False):
     return nbytes, flops
 
 
+def _k7_stage_work(r, nkernel):
+    """(bytes, flops) of each stage of K7 with the lane matrix, by name:
+    the lane pair and dM as K3's (:func:`_k34_stage_work`), and the row
+    stage (psi and w in, ds out, the gates in and dg out; 44 flops an
+    amplitude a gate).  Without the lane the row stage is all of K7.  Their
+    flops add up to :func:`_row_work`'s; their bytes to it plus what the
+    stages hand each other."""
+    amps, gates = r * 128, 2 * 4 * 4 * nkernel
+    lane = _k34_stage_work(r, 0, nkernel, 0)
+    return {"lane pair": lane["lane pair"], "dM": lane["dM"],
+            "row": (24 * amps + 2 * gates, 44 * nkernel * amps)}
+
+
+#: K7's stages on the HEA step, by kernel name (csrc/adjoint_stages.cuh)
+K7_STAGES = {
+    "row hi": lambda k: "gate_row_pass_kernel<false>" in k,
+    "row lo+colsum": lambda k: "gate_row_pass_kernel<true>" in k,
+}
+
+
+def _k7_plan(krl, card, r, nkernel):
+    """K7's stage plan at the HEA shape with and without the lane as the
+    card reports it, each record equal to :func:`kernels_rowlayer.row_bwd_plan`
+    and without local memory, and nvcc's registers and spills of its gate
+    passes (a spill fails)."""
+    from tensorcircuit_ng_tpu_torch.core import _build
+
+    for lane in (False, True):
+        got, want = krl.row_bwd_card_plan(r, nkernel, lane), krl.row_bwd_plan(r, nkernel, lane)
+        for stage, p in got.items():
+            print(f"K7 plan at n={N} nkernel={nkernel}{' with the lane' if lane else ''}, {stage}, {card}: {p}")
+            if p["local_bytes"] or any(p[k] != v for k, v in want[stage].items()):
+                _fail(f"K7 stage {stage}: card plan {p}, Python plan {want[stage]}")
+    report = _ptxas_report(_build.build_log("row_layer"), "gate_row_pass_kernel")
+    if len(report) != 2:
+        _fail(f"no ptxas report of both gate passes: {report}")
+    for name, (regs, st, ld) in report.items():
+        print(f"ptxas[row_layer] gate_row_pass_kernel ({name[-40:]}): {regs} registers, {st} bytes spill "
+              f"stores, {ld} bytes spill loads")
+        if regs is None or st or ld:
+            _fail(f"{name} spills or has no register count")
+
+
 def _hea_phase(tct, krl, dev, card):
     """Phase 8, the HEA path (the main path of the single-qubit-layer
     slice): K6/K7/K8 against their plain versions at the n=20 shapes, 5 SGD
     steps of :func:`hea_energy` at n=20, L=4 on the card against the CPU
     path with the launches of each kernel read, the step timed and
-    profiled, each kernel timed at its path shape.  Returns the kernels
+    profiled, each kernel timed at its path shape (K7 also with the lane
+    and by a replayed CUDA graph), K7's plan (:func:`_k7_plan`) and its row
+    passes a launch on the step beside their bound.  Returns the kernels
     line's entries."""
     import torch
 
@@ -812,13 +865,16 @@ def _hea_phase(tct, krl, dev, card):
     if not card_steps[-1][0] < card_steps[0][0]:
         _fail(f"{STEPS} HEA SGD steps did not lower the energy")
 
-    # timings: the step, each kernel (the path's variant) and its plain version
+    # timings: the step, each kernel (the path's variant) and its plain
+    # version; K7 also with the lane
     wt = tct.convert.params(w0, dev).requires_grad_()
     step_ms = _time_ms(lambda: step(wt)[0].item(), inner=1)
     prof = _profile(lambda: step(wt)[0].item())
+    stage_us = _stage_times(lambda: step(wt)[0].item(), K7_STAGES)
     timed = {k: cases[k][0] for k in cases}  # the path runs no lane variant
     with torch.no_grad():
         times = {k: (_time_rounds(v[1]), _time_rounds(v[2], **PLAIN_TIMING)) for k, v in timed.items()}
+        k7_lane = _time_rounds(cases["row_bwd"][1][1]), _time_rounds(cases["row_bwd"][1][2], **PLAIN_TIMING)
     print(f"HEA training step n={N} L={L} (value, grad, SGD update; CUDA events, ends in .item()), "
           f"{card}: {step_ms:.3f} ms (median of 20)")
     host, busy, by_kernel = prof
@@ -829,14 +885,36 @@ def _hea_phase(tct, krl, dev, card):
         print(f"  device {ms:.4f} ms x{count:g}/run  {name[:90]}")
     # the kernels' own device time a launch on the path (the event timing
     # of back-to-back wrapper calls below also holds the wrapper's host time)
-    for kname, stage in (("row_fwd", "row_apply_kernel<false>"), ("row_bwd", "row_bwd_kernel"),
-                         ("row_bwd", "colsum_kernel"), ("row_bwd_const", "row_apply_kernel<true>")):
+    for kname, stage in (("row_fwd", "row_apply_kernel<false>"), ("row_bwd", "gate_row_pass_kernel"),
+                         ("row_bwd", "colsum_tree_kernel"), ("row_bwd_const", "row_apply_kernel<true>")):
         for name, ms, count in by_kernel:
             if stage in name:
-                print(f"device time a launch on the HEA step, {kname} {stage}: {1e3 * ms / count:.2f} us "
+                print(f"device time a launch on the HEA step, {kname} {name[:60]}: {1e3 * ms / count:.2f} us "
                       f"(x{count:g}/step)")
-    kind ={"row_fwd": "fwd", "row_bwd": "bwd", "row_bwd_const": "const"}
+    # K7's stages: the plan, and each row pass a launch beside its bound
+    _k7_plan(krl, card, r, nkernel)
+    plan = krl.row_bwd_plan(r, nkernel)
+    work = _k7_stage_work(r, nkernel)
+    k7_us = sum(v[0] for v in stage_us.values())
+    bound, by = _bound_ms(*work["row"])
+    for label, (us, per_step) in stage_us.items():
+        bits = plan["row_hi" if label == "row hi" else "row_lo"]["bits"]
+        print(f"K7 stage {label} ({bits} walked bits) at n={N} nkernel={nkernel}, {card}: {us:.2f} us device a "
+              f"launch (torch.profiler over 10 HEA steps, x{per_step:g} a step)")
+    print(f"K7 row stage a launch at n={N} nkernel={nkernel}, {card}: {k7_us:.2f} us device (the passes above); "
+          f"bound {1e3 * bound:.2f} us ({by}), {100 * 1e3 * bound / k7_us:.1f} % of it reached")
+    kind = {"row_fwd": "fwd", "row_bwd": "bwd", "row_bwd_const": "const"}
     replaces = {"row_fwd": 296, "row_bwd": 344, "row_bwd_const": 799}
+    # K7's device time of a call without the host's launch cost (the event
+    # timing below of back-to-back wrapper calls is host-bound at this size)
+    with torch.no_grad():
+        k7_graph = _graph_ms(cases["row_bwd"][0][1])
+    print(f"K7 alone [no lane, n={N} nkernel={nkernel}] by a replayed CUDA graph of 10 calls (median of 3 rounds), "
+          f"{card}: {1e3 * k7_graph[0]:.2f} us (min {1e3 * k7_graph[1]:.2f}, max {1e3 * k7_graph[2]:.2f})")
+    (t, tp), (bound, by) = k7_lane, _bound_ms(*_row_work(r, nkernel, "bwd", lane=True))
+    print(f"kernel row_bwd [lane, n={N} nkernel={nkernel} r={r}] over 3 rounds, {card}: median {t[0]:.4f} ms "
+          f"(min {t[1]:.4f}, max {t[2]:.4f}); plain median {tp[0]:.4f} ms (min {tp[1]:.4f}, max {tp[2]:.4f}); "
+          f"bound {bound:.4f} ms ({by}); not on the HEA path")
     entries = []
     for name, (t, tp) in times.items():
         bound, by = _bound_ms(*_row_work(r, nkernel, kind[name]))
@@ -898,6 +976,29 @@ def _ml_stage_work(r, lanes, npairs, nrow):
     }
 
 
+def _k9_stage_work(r, lanes, npairs, nrow):
+    """(bytes, flops) of each of K9's stages a layer, by name: the row
+    stage (x in, the row stage's output out, the layer's angles in; 2 flops
+    a pair + 6 for the phase, 6 an rx stage) and the product (that output
+    and M in, y out; 8·lanes).  L layers of them and the pair shifts read
+    once a call add up to :func:`_ml_work`'s K9 flops; their bytes to it
+    plus what the stages and layers hand each other."""
+    amps = r * lanes
+    return {
+        "row": (16 * amps + 4 * (npairs + nrow), (2 * npairs + 6 + 6 * nrow) * amps),
+        "product": (16 * amps + 2 * 4 * lanes * lanes, 8 * lanes * amps),
+    }
+
+
+#: K9's stages on the form (a) step, by kernel name (csrc/adjoint_stages.cuh,
+#: csrc/multilayer.cu)
+K9_STAGES = {
+    "row zz": lambda k: "fwd_row_pass_kernel<true>" in k,
+    "row hi": lambda k: "fwd_row_pass_kernel<false>" in k,
+    "product": lambda k: "wide_nt_kernel<1, false>" in k,
+}
+
+
 def _rotx_work(r, nkernel, kind):
     """(bytes, flops) of K11 ("fwd": two state planes in, two out, 6 flops
     an amplitude a qubit) or K12 ("bwd": y and ct in, ds and dθ out, 20
@@ -914,8 +1015,10 @@ def _qaoa_phase(tct, krl, dev, card, counters):
     form (a) under ML_MODE="pallas", form (b) under USE_ROTX and form (a)
     under the default "stack"; 5 Adam steps of each form on the card with
     every kernel's launches read, against the same steps on the CPU; the
-    steps timed and profiled, each kernel timed at its path shape.  The
-    switches are restored afterwards.  Returns the kernels line's entries."""
+    steps timed and profiled, each kernel timed at its path shape (K9 also
+    by a replayed CUDA graph), K9's and K10's stages (:func:`_ml_stages`).
+    The switches are restored afterwards.  Returns the kernels line's
+    entries."""
     import torch
     from tensorcircuit_ng_tpu_torch.core import kernels, kernels_multilayer as kml
     from tensorcircuit_ng_tpu_torch.core import kernels_stack as kst
@@ -1054,14 +1157,14 @@ def _qaoa_phase(tct, krl, dev, card, counters):
             for name, ms, count in by_kernel[:12]:
                 print(f"  device {ms:.4f} ms x{count:g}/run  {name[:90]}")
             # the kernels' own device time a launch on the step, stage by stage
-            stages = {"a": ("ml_row_fwd_kernel", "transpose_kernel", "wide_nt_kernel<1, false>",
+            stages = {"a": ("fwd_row_pass_kernel", "transpose_kernel", "wide_nt_kernel<1, false>",
                             "ml_pair_records_kernel", "wide_nt_kernel<2, true>", "wide_dm_kernel", "colsum_kernel",
                             "ml_row_pass_kernel<false>", "ml_row_pass_kernel<true>", "colsum_tree_kernel"),
                       "b": ("rotx_fwd_kernel", "rotx_bwd_kernel", "colsum_kernel")}[form]
             for stage in stages:
                 for name, ms, count in by_kernel:
                     if stage in name:
-                        print(f"device time a launch on the QAOA form ({form}) step, {stage}: "
+                        print(f"device time a launch on the QAOA form ({form}) step, {name[:60]}: "
                               f"{1e3 * ms / count:.2f} us (x{count:g}/step)")
             if form == "a":
                 stage_us = _stage_times(step, {
@@ -1070,12 +1173,16 @@ def _qaoa_phase(tct, krl, dev, card, counters):
                     "row hi": lambda k: "ml_row_pass_kernel<false>" in k,
                     "row lo": lambda k: "ml_row_pass_kernel<true>" in k,
                     "row sums": lambda k: "colsum_tree_kernel" in k,
+                    **{f"K9 {k}": v for k, v in K9_STAGES.items()},
                 })
     finally:
         kernels.ML_MODE, kernels.USE_ROTX = "stack", False
 
     with torch.no_grad():
         times = {k: (_time_rounds(v[0][1]), _time_rounds(v[0][2], **PLAIN_TIMING)) for k, v in cases.items()}
+        k9_graph = _graph_ms(cases["ml_fwd"][0][1])
+    print(f"K9 alone [L={QAOA_P} lanes={lanes}, n={n}] by a replayed CUDA graph of 10 calls (median of 3 rounds), "
+          f"{card}: {1e3 * k9_graph[0]:.2f} us (min {1e3 * k9_graph[1]:.2f}, max {1e3 * k9_graph[2]:.2f})")
     _ml_stages(kml, card, stage_us, y_ml, (ctr, cti), (mr, mi), npairs, nrow)
     work = {
         "ml_fwd": _ml_work(r, lanes, npairs, nrow, QAOA_P, "fwd"),
@@ -1101,17 +1208,18 @@ def _qaoa_phase(tct, krl, dev, card, counters):
     return entries
 
 
-#: K10's widths whose plan phase 9 prints (nrow = 12: n = 19..22)
+#: K9's and K10's widths whose plan phase 9 prints (nrow = 12: n = 19..22)
 ML_PLAN_LANES = (128, 256, 512, 1024)
 
 
 def _ml_stages(kml, card, stage_us, y, ct, m, npairs, nrow):
-    """K10's stages at the QAOA path's shape: the plan at every width of
-    ``ML_PLAN_LANES`` (each stage kernel's CTAs, threads, shared bytes, CTAs
-    an SM, registers and local bytes; a spill fails), each stage's device
-    time a launch on the form (a) step (``stage_us``, from
-    :func:`_stage_times`) beside its bound, and one PyTorch call computing
-    each product on the same operands (never called by the port;
+    """K9's and K10's stages at the QAOA path's shape: the plan at every
+    width of ``ML_PLAN_LANES`` (each stage kernel's CTAs, threads, shared
+    bytes, CTAs an SM, registers and local bytes; a spill fails; K9's
+    records equal to ``ml_fwd_plan``'s), each stage's device time a layer on
+    the form (a) step (``stage_us``, from :func:`_stage_times`) beside its
+    bound, and one PyTorch call computing each product on the same operands
+    (K9's on operands of its shapes; never called by the port;
     ``allow_tf32`` is False)."""
     import torch
 
@@ -1121,11 +1229,15 @@ def _ml_stages(kml, card, stage_us, y, ct, m, npairs, nrow):
     for w in ML_PLAN_LANES:
         plan = kml.ml_plan(2**nrow, w, nrow, npairs)
         for stage, p in plan.items():
-            print(f"K10 plan at nrow={nrow} lanes={w} (n={nrow + w.bit_length() - 1}), {stage}, {card}: {p}")
+            print(f"K9/K10 plan at nrow={nrow} lanes={w} (n={nrow + w.bit_length() - 1}), {stage}, {card}: {p}")
             if p["local_bytes"]:
-                _fail(f"K10 stage {stage} uses local memory at lanes={w}: {p}")
+                _fail(f"K9/K10 stage {stage} uses local memory at lanes={w}: {p}")
+        for stage, p in kml.ml_fwd_plan(2**nrow, w, nrow, npairs).items():
+            if any(plan[stage][k] != v for k, v in p.items()):
+                _fail(f"K9 stage {stage} at lanes={w}: card plan {plan[stage]}, Python plan {p}")
     report = _ptxas_report(_build.build_log("multilayer"), "")
-    for needle in ("wide_nt_kernel", "wide_dm_kernel", "ml_row_pass_kernel", "ml_pair_records_kernel"):
+    for needle in ("wide_nt_kernel", "wide_dm_kernel", "ml_row_pass_kernel", "ml_pair_records_kernel",
+                   "fwd_row_pass_kernel"):
         hits = {k: v for k, v in report.items() if needle in k}
         if not hits:
             _fail(f"no ptxas report of {needle}")
@@ -1139,22 +1251,29 @@ def _ml_stages(kml, card, stage_us, y, ct, m, npairs, nrow):
     a2 = torch.stack([yc, cc])
     b2 = torch.stack([mc.conj().T, mc.T]).contiguous()
     psi = yc @ b2[0]
-    library = {"lane pair": lambda: torch.matmul(a2, b2), "dM": lambda: torch.matmul(psi.T, cc)}
+    # K9's product on operands of its shapes: (r, lanes) @ (lanes, lanes)
+    library = {"lane pair": lambda: torch.matmul(a2, b2), "dM": lambda: torch.matmul(psi.T, cc),
+               "K9 product": lambda: torch.matmul(yc, mc)}
     with torch.no_grad():
         lib_ms = {k: _graph_ms(f) for k, f in library.items()}
-    work = _ml_stage_work(r, lanes, npairs, nrow)
-    rows = {"lane pair": ["lane pair"], "dM": ["dM+colsum"], "row": ["row hi", "row lo", "row sums"]}
-    for stage, labels in rows.items():
-        us = sum(stage_us[k][0] for k in labels)
-        per_step = stage_us[labels[0]][1]
-        bound, by = _bound_ms(*work[stage])
-        lm = lib_ms.get(stage)
-        lib = (f"library call {1e3 * lm[0]:.2f} us (CUDA graph of 10 calls, median of 3 rounds, min "
-               f"{1e3 * lm[1]:.2f}, max {1e3 * lm[2]:.2f})" if lm else "no library call")
-        parts = " + ".join(f"{k} {stage_us[k][0]:.2f}" for k in labels)
-        print(f"K10 stage {stage} at n={r.bit_length() - 1 + lanes.bit_length() - 1} lanes={lanes}, {card}: "
-              f"{us:.2f} us device a layer ({parts}; torch.profiler over 10 form (a) steps, x{per_step:g} a "
-              f"step); bound {1e3 * bound:.2f} us ({by}), {100 * 1e3 * bound / us:.1f} % of it reached; {lib}")
+    n = r.bit_length() - 1 + lanes.bit_length() - 1
+    for kname, work, rows in (
+        ("K10", _ml_stage_work(r, lanes, npairs, nrow),
+         {"lane pair": ["lane pair"], "dM": ["dM+colsum"], "row": ["row hi", "row lo", "row sums"]}),
+        ("K9", {f"K9 {k}": v for k, v in _k9_stage_work(r, lanes, npairs, nrow).items()},
+         {"K9 row": ["K9 row zz", "K9 row hi"], "K9 product": ["K9 product"]}),
+    ):
+        for stage, labels in rows.items():
+            us = sum(stage_us[k][0] for k in labels)
+            per_step = stage_us[labels[0]][1]
+            bound, by = _bound_ms(*work[stage])
+            lm = lib_ms.get(stage)
+            lib = (f"library call {1e3 * lm[0]:.2f} us (CUDA graph of 10 calls, median of 3 rounds, min "
+                   f"{1e3 * lm[1]:.2f}, max {1e3 * lm[2]:.2f})" if lm else "no library call")
+            parts = " + ".join(f"{k} {stage_us[k][0]:.2f}" for k in labels)
+            print(f"{kname} stage {stage.removeprefix('K9 ')} at n={n} lanes={lanes}, {card}: {us:.2f} us device "
+                  f"a layer ({parts}; torch.profiler over 10 form (a) steps, x{per_step:g} a step); bound "
+                  f"{1e3 * bound:.2f} us ({by}), {100 * 1e3 * bound / us:.1f} % of it reached; {lib}")
 
 
 #: the FUSE_ROWM step against the default card path from the same

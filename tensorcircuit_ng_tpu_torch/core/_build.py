@@ -76,6 +76,7 @@ _SIGNATURES = {
     "row_layer": {
         "tcng_row_fwd": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _P],
         "tcng_row_bwd_scratch": [_I, _I, _I],
+        "tcng_row_bwd_plan": [_I, _I, _I, _P],
         "tcng_row_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _P],
         "tcng_row_bwd_const": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
         "tcng_rotx_fwd": [_P, _P, _P, _P, _P, _I, _I, _P],

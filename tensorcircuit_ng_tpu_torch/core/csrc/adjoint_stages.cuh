@@ -3,8 +3,10 @@
 // W = 2^lw lanes, 128 <= W <= 1024.  Layout index = row * W + lane; qubit
 // q is bit n-1-q of the flat index.  One set of kernels serves every
 // adjoint of the port with these stages: K3 and K4 (zzrx_bwd.cu, W = 128),
-// K7's lane stage (row_layer.cu, W = 128) and K10 (multilayer.cu, W =
-// 128-1024; K9's forward product is the same kernel with NA = 1).
+// K7 (row_layer.cu, W = 128: the lane stage, and the row stage with
+// general gates) and K10 (multilayer.cu, W = 128-1024); K9's forward
+// (multilayer.cu) runs on the same row-stage plan and its product is the
+// same kernel with NA = 1.
 //
 // Conventions (those of the JAX package): cotangent planes are (dL/dyr,
 // -dL/dyi), the non-conjugating complex cotangent, and walk by the
@@ -54,12 +56,28 @@
 //     sincospif (exact reduction, no local frame).  dth and dzz end as one
 //     partial a CTA (a warp tree, then the warps in order), added by
 //     colsum_tree_kernel in a fixed order.
+//   K7's gate passes (gate_row_pass_kernel, gate_row_stage): the same
+//     plan, tiles and register stages with a general 2x2 gate a walked bit
+//     and no zz: un-apply g^dagger from psi, the eight real sums of dg =
+//     ct (x) s, walk ct by g^T.  The eight sums of a bit leave the
+//     registers at once, reduced over the warp by three halving exchanges
+//     and a two-step butterfly (warp_sum8: 9 shuffles, lane 4k holding sum
+//     k) into shared memory; the warps are then added in order into one
+//     partial a CTA.  The last pass writes only ct (ds).
+//   K9's forward passes (fwd_row_pass_kernel, fwd_row_stage), two planes
+//     in and two out: first the phase and the low row bits' rx on the
+//     tiles of the last pass, whose thread starts on the register bits
+//     the pair records are sorted by (one record set for every layer),
+//     then the high row bits' rx in place.
 // Every sum across CTAs is a per-CTA partial added in a fixed order: no
 // atomics, two runs agree bit for bit.  Plain f32 FMAs, no fast-math.
 // Bounds at n = 20, W = 128 (r = 8192): each complex 128-deep product is
 // 8 W flops an amplitude, 1.07 GFLOP (16.03 us at 67 TFLOP/s float32
 // outside the tensor cores): the pair 32.05 us, dM 16.03 us; the row stage
-// moves psi and ct in and ds out, 25 MB (7.5 us at 3.35 TB/s).
+// moves psi and ct in and ds out, 25 MB (7.5 us at 3.35 TB/s); K7's row
+// stage at nkernel = 11 the same bytes for 44 flops an amplitude a bit,
+// 0.51 GFLOP (7.6 us, operations).  K9's forward row stage at W = 256 moves
+// 16.8 MB a layer (5.0 us, bytes).
 
 #pragma once
 
@@ -427,6 +445,27 @@ __device__ __forceinline__ int tile_flat(int e, const RowPass& rp) {
   return f;
 }
 
+// Flat offset of CTA blockIdx.x's CTA bits under pass rp.
+__device__ __forceinline__ int cta_flat(const RowPass& rp) {
+  int f = 0;
+#pragma unroll
+  for (int i = 0; i < RP_MAXC; ++i)
+    if (i < rp.ncb) f |= ((blockIdx.x >> i) & 1) << rp.cmap[i];
+  return f;
+}
+
+// Flat offsets of a thread's 8 register elements whose register bits are
+// tile bits b0..b0+2.
+__device__ __forceinline__ void reg_offsets(const RowPass& rp, int b0, int (&dl)[8]) {
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    dl[r] = 0;
+#pragma unroll
+    for (int j = 0; j < 3; ++j)
+      if (r & (1 << j)) dl[r] |= 1 << rp.tmap[b0 + j];
+  }
+}
+
 // The rx butterflies of pass bits i0..i0+2 on the thread's 8 elements,
 // register bit j = pass bit i0 + j: un-apply [[c, -i s], [-i s, c]] from
 // psi (z), the two dth sums into d[i0 + j] as -1/2 s S1 + 1/2 c S2, and
@@ -472,6 +511,53 @@ __device__ __forceinline__ T pick(const T (&a)[N], int i) {
 // x (-1)^popc(bits): x with its sign bit flipped by the parity of bits
 __device__ __forceinline__ float signed_by(float x, int bits) {
   return __int_as_float(__float_as_int(x) ^ static_cast<int>((__popc(bits) & 1u) << 31));
+}
+
+// The pair records into shared memory, each with the layer's angle in its
+// first slot (zzth[pair index]), and the slots' offsets (so[s]: the first
+// record of slot s).
+__device__ __forceinline__ void load_records(const int4* __restrict__ grec,
+                                             const int* __restrict__ gso,
+                                             const float* __restrict__ zzth, int npairs,
+                                             int4* rec, int* so) {
+  for (int k = threadIdx.x; k < npairs; k += blockDim.x) {
+    int4 q = grec[k];
+    q.x = __float_as_int(zzth[q.z]);
+    rec[k] = q;
+  }
+  if (threadIdx.x < 8) so[threadIdx.x] = gso[threadIdx.x];
+}
+
+// The zz exponent's 7 Walsh coefficients over the thread's 3 register bits
+// (slot order of ml_pair_records_kernel): each pair's angle times the signs
+// of its fixed bits at the thread's flat offset f.
+__device__ __forceinline__ void zz_walsh(const int4* rec, const int* so, int f, float (&co)[7]) {
+#pragma unroll
+  for (int sv = 0; sv < 7; ++sv) {
+    co[sv] = 0.f;
+    for (int k = so[sv]; k < so[sv + 1]; ++k) {
+      const int4 q = rec[k];
+      co[sv] += signed_by(__int_as_float(q.x), f & q.y);
+    }
+  }
+}
+
+// The Walsh signs of register element r: 1, s_0, s_1, s_2, s_0 s_1, s_0 s_2,
+// s_1 s_2, with s_u = +1 where register bit u of r is 0.
+__device__ __forceinline__ void walsh_signs(int r, float (&sg)[7]) {
+  const float s0 = r & 1 ? -1.f : 1.f, s1 = r & 2 ? -1.f : 1.f, s2 = r & 4 ? -1.f : 1.f;
+  sg[0] = 1.f, sg[1] = s0, sg[2] = s1, sg[3] = s2, sg[4] = s0 * s1, sg[5] = s0 * s2, sg[6] = s1 * s2;
+}
+
+// sin and cos of half the zz exponent sum_i sg[i] co[i]: the angle in units
+// of pi through sincospif, which reduces its argument exactly (sincosf's
+// slow path would need a local frame).
+__device__ __forceinline__ void zz_sincos(const float (&co)[7], const float (&sg)[7], float* sn,
+                                          float* c) {
+  float expo = 0.f;
+#pragma unroll
+  for (int i = 0; i < 7; ++i) expo = fmaf(sg[i], co[i], expo);
+  sincospif(expo * (0.5f / 3.14159265358979f), sn, c);
 }
 
 // The pair records of the last row pass, one warp a call: rec holds (0,
@@ -552,18 +638,8 @@ ml_row_pass_kernel(const float* pr, const float* pi, const float* cr, const floa
   float* cs = red + warps * nred;
   int* so = reinterpret_cast<int*>(cs + 2 * RP_MAXB);
   if (t < rp.nb) sincosf(0.5f * th[pick(rp.q, t)], &cs[2 * t + 1], &cs[2 * t]);
-  if (LAST) {
-    for (int k = t; k < npairs; k += blockDim.x) {
-      int4 q = grec[k];
-      q.x = __float_as_int(zzth[q.z]);
-      rec[k] = q;
-    }
-    if (t < 8) so[t] = gso[t];
-  }
-  int cbase = 0;
-#pragma unroll
-  for (int i = 0; i < RP_MAXC; ++i)
-    if (i < rp.ncb) cbase |= ((blockIdx.x >> i) & 1) << rp.cmap[i];
+  if (LAST) load_records(grec, gso, zzth, npairs, rec, so);
+  const int cbase = cta_flat(rp);
   __syncthreads();
 
   // stage 1: tile bits 5..7 in registers, the thread on tile bits 0..4, 8..
@@ -573,13 +649,7 @@ ml_row_pass_kernel(const float* pr, const float* pi, const float* cr, const floa
   const int e1 = (t & 31) | ((t >> 5) << 8);
   int f = cbase + tile_flat(e1, rp);
   int dl[8];
-#pragma unroll
-  for (int r = 0; r < 8; ++r) {
-    dl[r] = 0;
-#pragma unroll
-    for (int j = 0; j < 3; ++j)
-      if (r & (1 << j)) dl[r] |= 1 << rp.tmap[5 + j];
-  }
+  reg_offsets(rp, 5, dl);
 #pragma unroll
   for (int r = 0; r < 8; ++r) {
     zr[r] = pr[f + dl[r]];
@@ -602,13 +672,7 @@ ml_row_pass_kernel(const float* pr, const float* pi, const float* cr, const floa
       zr[r] = xs[e], zi[r] = xs[nel + e], ur[r] = xs[2 * nel + e], ui[r] = xs[3 * nel + e];
     }
     f = cbase + tile_flat(t, rp);
-#pragma unroll
-    for (int r = 0; r < 8; ++r) {
-      dl[r] = 0;
-#pragma unroll
-      for (int j = 0; j < 3; ++j)
-        if (r & (1 << j)) dl[r] |= 1 << rp.tmap[8 + j];
-    }
+    reg_offsets(rp, 8, dl);
     row_butterflies<3>(zr, zi, ur, ui, d, cs, rp.nb);
   }
   const int lane = t & 31, warp = t >> 5;
@@ -622,27 +686,14 @@ ml_row_pass_kernel(const float* pr, const float* pi, const float* cr, const floa
     }
   } else {
     // zz: the exponent's 7 Walsh coefficients over the 3 register bits
-    float co[7] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-    for (int sv = 0; sv < 7; ++sv)
-      for (int k = so[sv]; k < so[sv + 1]; ++k) {
-        // the angle times the signs of the pair's fixed bits
-        const int4 q = rec[k];
-        co[sv] += signed_by(__int_as_float(q.x), f & q.y);
-      }
+    float co[7];
+    zz_walsh(rec, so, f, co);
     float hw[7] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};  // Walsh sums of h
 #pragma unroll
     for (int r = 0; r < 8; ++r) {
-      // s_u = +1 where register bit u of r is 0; slots 4, 5, 6 = bits (0,1), (0,2), (1,2)
-      const float s0 = r & 1 ? -1.f : 1.f, s1 = r & 2 ? -1.f : 1.f, s2 = r & 4 ? -1.f : 1.f;
-      const float sg[7] = {1.f, s0, s1, s2, s0 * s1, s0 * s2, s1 * s2};
-      float expo = 0.f;
-#pragma unroll
-      for (int i = 0; i < 7; ++i) expo = fmaf(sg[i], co[i], expo);
-      // the phase angle expo / 2 in units of pi: sincospif reduces its
-      // argument exactly (sincosf's slow path would need a local frame)
-      float sn, c;
-      sincospif(expo * (0.5f / 3.14159265358979f), &sn, &c);
+      float sg[7], sn, c;
+      walsh_signs(r, sg);
+      zz_sincos(co, sg, &sn, &c);
       const float u_r = ur[r], u_i = ui[r], z_r = zr[r], z_i = zi[r];
       const float h = fmaf(u_r, z_i, u_i * z_r);
 #pragma unroll
@@ -761,6 +812,345 @@ cudaError_t adjoint_row_stage(const RowStage& rs, const float* pr, const float* 
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   return colsum_tree(part, static_cast<int>(grid), npairs + rs.nwalk, grads, st);
+}
+
+// ---------------------------------------------------------------------------
+// The general-gate adjoint pass (K7) and the forward pass (K9), on the row
+// stage's plan.
+// ---------------------------------------------------------------------------
+
+// The warp sums of a[0..8) without a shuffle tree a value: three halving
+// exchanges (lane bits 4, 3, 2 pick the half a lane keeps), then a butterfly
+// over lane bits 0 and 1; lane L ends with the sum of a[L >> 2], in a fixed
+// order.  Nine shuffles where eight trees take forty.
+__device__ __forceinline__ float warp_sum8(float (&a)[8], int lane) {
+  const bool b4 = lane & 16, b3 = lane & 8, b2 = lane & 4;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float send = b4 ? a[k] : a[k + 4];
+    a[k] = (b4 ? a[k + 4] : a[k]) + __shfl_xor_sync(0xffffffffu, send, 16);
+  }
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    const float send = b3 ? a[k] : a[k + 2];
+    a[k] = (b3 ? a[k + 2] : a[k]) + __shfl_xor_sync(0xffffffffu, send, 8);
+  }
+  const float send = b2 ? a[0] : a[1];
+  float v = (b2 ? a[1] : a[0]) + __shfl_xor_sync(0xffffffffu, send, 4);
+  v += __shfl_xor_sync(0xffffffffu, v, 2);
+  return v + __shfl_xor_sync(0xffffffffu, v, 1);
+}
+
+// The gate butterflies of pass bits i0..i0+2 on the thread's 8 elements,
+// register bit j = pass bit i0 + j, gate g + 8 (i0 + j) = (g00, g01, g10,
+// g11) as (re, im): un-apply g^dagger from psi (z), the eight sums of
+// dg[a][b] = ct[bit a] s[bit b] (plain products; s the state before the
+// gate, ct the cotangent after it), reduced over the warp at once into
+// wred[8 (i0 + j) ..] (lanes 0, 4, .., 28), and the walk of ct (u) by g^T.
+template <int I0>
+__device__ __forceinline__ void gate_butterflies(float (&zr)[8], float (&zi)[8], float (&ur)[8],
+                                                 float (&ui)[8], const float* g, float* wred,
+                                                 int nb, int lane) {
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    if (I0 + j >= nb) continue;
+    const float* m = g + 8 * (I0 + j);
+    const float g00r = m[0], g00i = m[1], g01r = m[2], g01i = m[3];
+    const float g10r = m[4], g10i = m[5], g11r = m[6], g11i = m[7];
+    float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};  // dg 00, 01, 10, 11 as (re, im)
+#pragma unroll
+    for (int lo = 0; lo < 8; ++lo) {
+      if (lo & (1 << j)) continue;
+      const int hi = lo | (1 << j);
+      // un-apply: s <- g^dagger s, g^dagger = [[g00*, g10*], [g01*, g11*]]
+      const float ar = zr[lo], ai = zi[lo], br = zr[hi], bi = zi[hi];
+      const float lr = fmaf(g10i, bi, fmaf(g10r, br, fmaf(g00i, ai, g00r * ar)));
+      const float li = fmaf(-g10i, br, fmaf(g10r, bi, fmaf(-g00i, ar, g00r * ai)));
+      const float hr = fmaf(g11i, bi, fmaf(g11r, br, fmaf(g01i, ai, g01r * ar)));
+      const float hm = fmaf(-g11i, br, fmaf(g11r, bi, fmaf(-g01i, ar, g01r * ai)));
+      zr[lo] = lr, zi[lo] = li, zr[hi] = hr, zi[hi] = hm;
+      const float xr = ur[lo], xi = ui[lo], vr = ur[hi], vi = ui[hi];
+      acc[0] = fmaf(-xi, li, fmaf(xr, lr, acc[0]));
+      acc[1] = fmaf(xi, lr, fmaf(xr, li, acc[1]));
+      acc[2] = fmaf(-xi, hm, fmaf(xr, hr, acc[2]));
+      acc[3] = fmaf(xi, hr, fmaf(xr, hm, acc[3]));
+      acc[4] = fmaf(-vi, li, fmaf(vr, lr, acc[4]));
+      acc[5] = fmaf(vi, lr, fmaf(vr, li, acc[5]));
+      acc[6] = fmaf(-vi, hm, fmaf(vr, hr, acc[6]));
+      acc[7] = fmaf(vi, hr, fmaf(vr, hm, acc[7]));
+      // walk: ct <- g^T ct, g^T = [[g00, g10], [g01, g11]]
+      ur[lo] = fmaf(-g10i, vi, fmaf(g10r, vr, fmaf(-g00i, xi, g00r * xr)));
+      ui[lo] = fmaf(g10i, vr, fmaf(g10r, vi, fmaf(g00i, xr, g00r * xi)));
+      ur[hi] = fmaf(-g11i, vi, fmaf(g11r, vr, fmaf(-g01i, xi, g01r * xr)));
+      ui[hi] = fmaf(g11i, vr, fmaf(g11r, vi, fmaf(g01i, xr, g01r * xi)));
+    }
+    const float v = warp_sum8(acc, lane);
+    if ((lane & 3) == 0) wred[8 * (I0 + j) + (lane >> 2)] = v;
+  }
+}
+
+// Shared bytes of a gate pass: the exchange tile (nb > 3), the warps' dg
+// sums (8 a pass bit) and the pass bits' gates (8 floats each).
+size_t gate_pass_smem(const RowPass& rp) {
+  const int warps = (1 << (rp.tb - 3)) / 32;
+  return sizeof(float) * ((rp.nb > 3 ? 4 << rp.tb : 0) + (warps + 1) * 8 * RP_MAXB);
+}
+
+// K7's row pass on the tile of CTA blockIdx.x, psi (pr, pi) and ct (cr,
+// ci): gate_butterflies for each pass bit i with gate rp.q[i] of the
+// (nkernel, 4) planes gr/gi; ct into (o2r, o2i) and, not LAST, psi into
+// (o1r, o1i) (the last pass writes no psi).  Any output may alias the
+// planes it comes from.  Writes the pass bits' columns of part[blockIdx.x]
+// = (re of dg (nkernel, 4), im of dg).  blockDim.x = 2^(tb-3), 8 elements
+// a thread.  64 registers (4 CTAs an SM: at n = 20 the 512 CTAs run in one
+// wave) spill nothing; at 2 CTAs an SM the pass takes 86-88 and runs about
+// a tenth slower.
+template <bool LAST>
+__global__ void __launch_bounds__(THREADS, 4)
+gate_row_pass_kernel(const float* pr, const float* pi, const float* cr, const float* ci,
+                     float* o1r, float* o1i, float* o2r, float* o2i, float* part,
+                     const float* __restrict__ gr, const float* __restrict__ gi, int nkernel,
+                     RowPass rp) {
+  extern __shared__ __align__(16) float smem[];
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int nel = 1 << rp.tb, warps = blockDim.x >> 5;
+  float* xs = smem;
+  float* red = xs + (rp.nb > 3 ? 4 * nel : 0);  // [warp][8 a pass bit]
+  float* g = red + warps * 8 * RP_MAXB;
+  if (t < 4 * rp.nb) {
+    const int i = t >> 2, e = t & 3, q = pick(rp.q, i);
+    g[8 * i + 2 * e] = gr[4 * q + e];
+    g[8 * i + 2 * e + 1] = gi[4 * q + e];
+  }
+  const int cbase = cta_flat(rp);
+  __syncthreads();
+
+  // stage 1: tile bits 5..7 in registers, the thread on tile bits 0..4, 8..
+  float zr[8], zi[8], ur[8], ui[8];
+  const int e1 = (t & 31) | ((t >> 5) << 8);
+  int f = cbase + tile_flat(e1, rp);
+  int dl[8];
+  reg_offsets(rp, 5, dl);
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    zr[r] = pr[f + dl[r]];
+    zi[r] = pi[f + dl[r]];
+    ur[r] = cr[f + dl[r]];
+    ui[r] = ci[f + dl[r]];
+  }
+  float* wred = red + warp * 8 * RP_MAXB;
+  gate_butterflies<0>(zr, zi, ur, ui, g, wred, rp.nb, lane);
+  if (rp.nb > 3) {
+    // stage 2: across shared memory to tile bits 8..10 in registers
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      const int e = e1 | (r << 5);
+      xs[e] = zr[r], xs[nel + e] = zi[r], xs[2 * nel + e] = ur[r], xs[3 * nel + e] = ui[r];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      const int e = t | (r << 8);
+      zr[r] = xs[e], zi[r] = xs[nel + e], ur[r] = xs[2 * nel + e], ui[r] = xs[3 * nel + e];
+    }
+    f = cbase + tile_flat(t, rp);
+    reg_offsets(rp, 8, dl);
+    gate_butterflies<3>(zr, zi, ur, ui, g, wred, rp.nb, lane);
+  }
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    if (!LAST) {
+      o1r[f + dl[r]] = zr[r];
+      o1i[f + dl[r]] = zi[r];
+    }
+    o2r[f + dl[r]] = ur[r];
+    o2i[f + dl[r]] = ui[r];
+  }
+  __syncthreads();
+  // the warps' sums in order: sum k = 8 i + 2 entry + (re, im) of pass bit i
+  float* mypart = part + static_cast<long>(blockIdx.x) * 8 * nkernel;
+  for (int k = t; k < 8 * rp.nb; k += blockDim.x) {
+    float s = 0.f;
+    for (int w = 0; w < warps; ++w) s += red[w * 8 * RP_MAXB + k];
+    mypart[(k & 1) * 4 * nkernel + 4 * pick(rp.q, k >> 3) + ((k & 7) >> 1)] = s;
+  }
+}
+
+// Floats of the gate passes' per-CTA partials.
+size_t gate_part_floats(const RowStage& rs) {
+  return static_cast<size_t>(row_ctas(rs)) * 8 * rs.nwalk;
+}
+
+// The gate passes' shared bytes (the larger pass's).
+size_t gate_stage_smem(const RowStage& rs) {
+  const size_t a = gate_pass_smem(rs.pass[0]), b = gate_pass_smem(last_pass(rs));
+  return a > b ? a : b;
+}
+
+const void* gate_pass_fn(bool last) {
+  return last ? reinterpret_cast<const void*>(gate_row_pass_kernel<true>)
+              : reinterpret_cast<const void*>(gate_row_pass_kernel<false>);
+}
+
+// The gate passes' shared-memory limits; once an entry call.
+cudaError_t gate_stage_prepare(const RowStage& rs) {
+  cudaError_t err = set_smem(gate_pass_fn(false), gate_stage_smem(rs));
+  if (err == cudaSuccess) err = set_smem(gate_pass_fn(true), gate_stage_smem(rs));
+  return err;
+}
+
+// K7's row stage on psi (pr, pi) and ct (cr, ci), gates gr/gi (nwalk, 4):
+// with two passes the first takes psi into (mpr, mpi) and ct into (dsr,
+// dsi), then the last takes ct into (dsr, dsi) (psi is not needed after
+// it); dg (2, nwalk, 4) <- the per-CTA partials part (gate_part_floats),
+// added by colsum_tree.
+cudaError_t gate_row_stage(const RowStage& rs, const float* pr, const float* pi, const float* cr,
+                           const float* ci, float* mpr, float* mpi, float* dsr, float* dsi,
+                           float* part, const float* gr, const float* gi, float* dg,
+                           cudaStream_t st) {
+  const unsigned grid = static_cast<unsigned>(row_ctas(rs));
+  const int threads = row_threads(rs);
+  const size_t smem = gate_stage_smem(rs);
+  if (rs.npass == 2) {
+    gate_row_pass_kernel<false><<<grid, threads, smem, st>>>(pr, pi, cr, ci, mpr, mpi, dsr, dsi,
+                                                             part, gr, gi, rs.nwalk, rs.pass[0]);
+    pr = mpr, pi = mpi, cr = dsr, ci = dsi;
+  }
+  gate_row_pass_kernel<true><<<grid, threads, smem, st>>>(pr, pi, cr, ci, nullptr, nullptr, dsr,
+                                                          dsi, part, gr, gi, rs.nwalk, last_pass(rs));
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return colsum_tree(part, static_cast<int>(grid), 8 * rs.nwalk, dg, st);
+}
+
+// The forward rx butterflies rx(th) = [[c, -i s], [-i s, c]] of pass bits
+// i0..i0+2 on the thread's 8 elements.
+template <int I0>
+__device__ __forceinline__ void rx_butterflies(float (&zr)[8], float (&zi)[8], const float* cs,
+                                               int nb) {
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    if (I0 + j >= nb) continue;
+    const float c = cs[2 * (I0 + j)], sn = cs[2 * (I0 + j) + 1];
+#pragma unroll
+    for (int lo = 0; lo < 8; ++lo) {
+      if (lo & (1 << j)) continue;
+      const int hi = lo | (1 << j);
+      const float ar = zr[lo], ai = zi[lo], br = zr[hi], bi = zi[hi];
+      zr[lo] = fmaf(sn, bi, c * ar), zi[lo] = fmaf(-sn, br, c * ai);
+      zr[hi] = fmaf(sn, ai, c * br), zi[hi] = fmaf(-sn, ar, c * bi);
+    }
+  }
+}
+
+// Shared bytes of a forward pass: the exchange tile of two planes (nb >
+// 3), ZZ: the pair records; cos/sin of the pass bits and the slots'
+// offsets.
+size_t fwd_pass_smem(const RowPass& rp, int npairs, bool zz) {
+  return sizeof(float) * ((rp.nb > 3 ? 2 << rp.tb : 0) + 2 * RP_MAXB + 8) +
+         (zz ? sizeof(int4) * npairs : 0);
+}
+
+// K9's row pass of one layer on the tile of CTA blockIdx.x, x -> y: ZZ
+// (the last pass's tiles) first the phase exp(-i/2 sum_k th_k z_a z_b),
+// from the pair records grec/gso (pair_records) and the layer's angles
+// zzth, then rx(th_q) on each pass bit (the rx gates act on distinct bits
+// and commute).  With more than 3 pass bits the thread first holds tile
+// bits 8..10 in registers (those the records are sorted by), then crosses
+// shared memory to tile bits 5..7.  y may alias x.
+template <bool ZZ>
+__global__ void __launch_bounds__(THREADS, 4)
+fwd_row_pass_kernel(const float* xr, const float* xi, float* yr, float* yi,
+                    const int4* __restrict__ grec, const int* __restrict__ gso,
+                    const float* __restrict__ zzth, int npairs, const float* __restrict__ th,
+                    RowPass rp) {
+  extern __shared__ __align__(16) float smem[];
+  const int t = threadIdx.x;
+  const int nel = 1 << rp.tb;
+  const bool two = rp.nb > 3;
+  float* xs = smem;
+  int4* rec = reinterpret_cast<int4*>(xs + (two ? 2 * nel : 0));
+  float* cs = reinterpret_cast<float*>(rec + (ZZ ? npairs : 0));
+  int* so = reinterpret_cast<int*>(cs + 2 * RP_MAXB);
+  if (t < rp.nb) sincosf(0.5f * th[pick(rp.q, t)], &cs[2 * t + 1], &cs[2 * t]);
+  if (ZZ) load_records(grec, gso, zzth, npairs, rec, so);
+  const int cbase = cta_flat(rp);
+  __syncthreads();
+
+  const int e1 = (t & 31) | ((t >> 5) << 8);
+  int f = cbase + tile_flat(two ? t : e1, rp);
+  int dl[8];
+  reg_offsets(rp, two ? 8 : 5, dl);
+  float zr[8], zi[8];
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    zr[r] = xr[f + dl[r]];
+    zi[r] = xi[f + dl[r]];
+  }
+  if (ZZ) {
+    float co[7];
+    zz_walsh(rec, so, f, co);
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      float sg[7], sn, c;
+      walsh_signs(r, sg);
+      zz_sincos(co, sg, &sn, &c);
+      const float ar = zr[r], ai = zi[r];
+      zr[r] = fmaf(sn, ai, c * ar), zi[r] = fmaf(-sn, ar, c * ai);
+    }
+  }
+  if (two) {
+    rx_butterflies<3>(zr, zi, cs, rp.nb);
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      const int e = t | (r << 8);
+      xs[e] = zr[r], xs[nel + e] = zi[r];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      const int e = e1 | (r << 5);
+      zr[r] = xs[e], zi[r] = xs[nel + e];
+    }
+    f = cbase + tile_flat(e1, rp);
+    reg_offsets(rp, 5, dl);
+  }
+  rx_butterflies<0>(zr, zi, cs, rp.nb);
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    yr[f + dl[r]] = zr[r];
+    yi[f + dl[r]] = zi[r];
+  }
+}
+
+const void* fwd_pass_fn(bool zz) {
+  return zz ? reinterpret_cast<const void*>(fwd_row_pass_kernel<true>)
+            : reinterpret_cast<const void*>(fwd_row_pass_kernel<false>);
+}
+
+// The forward passes' shared-memory limits; once an entry call.
+cudaError_t fwd_stage_prepare(const RowStage& rs, int npairs) {
+  cudaError_t err = set_smem(fwd_pass_fn(true), fwd_pass_smem(last_pass(rs), npairs, true));
+  if (err == cudaSuccess) err = set_smem(fwd_pass_fn(false), fwd_pass_smem(rs.pass[0], npairs, false));
+  return err;
+}
+
+// K9's row stage of one layer, x -> y (y may alias x): the phase and the
+// low walked bits in the last pass's tiles, then (two passes) the high
+// ones in place.  rec from pair_records; zzth and th the layer's angles.
+cudaError_t fwd_row_stage(const RowStage& rs, const float* xr, const float* xi, float* yr,
+                          float* yi, const float* rec, const float* zzth, int npairs,
+                          const float* th, cudaStream_t st) {
+  const unsigned grid = static_cast<unsigned>(row_ctas(rs));
+  const int threads = row_threads(rs);
+  const int4* r4 = reinterpret_cast<const int4*>(rec);
+  const int* so = reinterpret_cast<const int*>(rec + 4 * static_cast<size_t>(npairs));
+  fwd_row_pass_kernel<true><<<grid, threads, fwd_pass_smem(last_pass(rs), npairs, true), st>>>(
+      xr, xi, yr, yi, r4, so, zzth, npairs, th, last_pass(rs));
+  if (rs.npass == 2)
+    fwd_row_pass_kernel<false><<<grid, threads, fwd_pass_smem(rs.pass[0], npairs, false), st>>>(
+        yr, yi, yr, yi, nullptr, nullptr, nullptr, npairs, th, rs.pass[0]);
+  return cudaGetLastError();
 }
 
 }  // namespace

@@ -22,8 +22,9 @@
 //      dzz_k = 1/2 sum h z_a z_b, h = ct_r z_i + ct_i z_r; ct <- ct * phase;
 //      x = conj(phase) * z                                            (zz)
 //    and returns ds = ct, (dzz, dth) a layer and dM.  The rx gates of a
-//    layer act on distinct bits and commute, so K10 takes the row bits in
-//    another order than the JAX kernel (the sums differ by rounding).
+//    layer act on distinct bits and commute, so K9 and K10 take the row
+//    bits in another order than the JAX kernels (the sums differ by
+//    rounding).
 //
 // Design.  The TPU keeps the whole state (8 MB of planes at n = 20) resident
 // in VMEM across the L grid steps; a CTA holds at most 227 KB.  So one C
@@ -31,18 +32,29 @@
 // and a layer's planes (32 MB at n = 20: y, ct, psi, w) stay in the 50 MB L2.
 // Bound at n = 20, L = 4: operations.  Each lane product is 8 W flops an
 // amplitude, 2.15 GFLOP a layer at W = 256 (32.05 us at 67 TFLOP/s float32
-// outside the tensor cores; three a layer backward); the row stage moves
-// 33.5 MB a layer (10 us at 3.35 TB/s).  Plain f32 FMAs, no fast-math.
+// outside the tensor cores; three a layer backward); the backward's row
+// stage moves 33.5 MB a layer (10 us at 3.35 TB/s), the forward's 16.8 MB
+// (5 us).  Plain f32 FMAs, no fast-math.
 //
-// K10's stages are the adjoint stages of adjoint_stages.cuh, which K3 and
-// K4 (zzrx_bwd.cu) share: the lane pair and split-K dM
-// (adjoint_lane_stage), the pair records once a call, and the row stage
-// (adjoint_row_stage) walking all nrow row bits, with x = conj(phase) z
-// kept for the next layer.  K9's forward is its own row kernel
-// (ml_row_fwd_kernel: all rows of the CTA's lanes in shared memory, the
-// phase then the nrow butterflies) and the product wide_nt_kernel<1,
-// false> on M^T, transposed once a call (transpose_kernel).
-//   Scratch at n = 20: y, psi and w (24 MB), the dM partials (8 MB).
+// Both run on the stages of adjoint_stages.cuh, which K3, K4 and K7 share,
+// on one row-stage plan, row_stage_plan(nrow, lw, nrow): tiles of 2^11
+// elements with 32 consecutive lanes a warp (whole 32-byte sectors), the
+// row bits in at most two passes of at most 6 (at nrow = 12, W = 256: two
+// of 6, 512 CTAs), a thread holding 8 elements in registers for 3 bits at
+// a time, the zz exponent E0 + sum_u A_u s_u + sum_uv B_uv s_u s_v over
+// its 3 register bits from the pair records that ml_pair_records_kernel
+// sorts once a call for the pass over the low row bits (one record set for
+// every layer; the pass joins each record with the layer's angle), the
+// phase through sincospif.  K10: the lane pair and split-K dM
+// (adjoint_lane_stage), then the row stage (adjoint_row_stage) walking the
+// high row bits and then the low ones with the zz stage, x = conj(phase) z
+// kept for the next layer.  K9: the forward row stage (fwd_row_stage): the
+// phase and the low row bits' rx in one pass over the tiles of K10's last
+// pass, the high row bits' rx in the other, in place; then the product
+// wide_nt_kernel<1, false> on M^T, transposed once a call
+// (transpose_kernel).
+//   Scratch at n = 20: K9 the row stage's output (8 MB) and M^T; K10 y, psi
+//   and w (24 MB), the dM partials (8 MB).
 // The TPU's "interleave sweep", the host-built sign matrices and the
 // 128-column pair padding are layout devices of the TPU and are not carried
 // over.
@@ -51,108 +63,8 @@
 
 namespace {
 
-// K9's row tile: 2^nrow x TL complex elements (8192: 64 KB of two planes)
-constexpr int ML_TILE = 8192;
 constexpr int ML_MAX_NROW = 12;
 constexpr int ML_MAX_PAIRS = 128;
-
-// Shared constants of a row kernel after `planes` tile planes: the layer's
-// zz angles, (cos, sin) of the half rx angles and the pair shifts.
-struct RowConsts {
-  float* zth;
-  float* cs;
-  int* sh;
-};
-
-__device__ RowConsts load_consts(float* base, const float* zzth,
-                                 const int* shifts, int npairs,
-                                 const float* th, int nrow) {
-  RowConsts k;
-  k.zth = base;
-  k.cs = k.zth + npairs;
-  k.sh = reinterpret_cast<int*>(k.cs + 2 * nrow);
-  for (int j = threadIdx.x; j < npairs; j += blockDim.x) {
-    k.zth[j] = zzth[j];
-    k.sh[2 * j] = shifts[2 * j];
-    k.sh[2 * j + 1] = shifts[2 * j + 1];
-  }
-  for (int q = threadIdx.x; q < nrow; q += blockDim.x)
-    sincosf(0.5f * th[q], &k.cs[2 * q + 1], &k.cs[2 * q]);
-  return k;
-}
-
-// The zz exponent sum_k th_k (1 - 2 (bit_a ^ bit_b)) at flat index idx.
-__device__ __forceinline__ float zz_expo(unsigned idx, const RowConsts& k,
-                                         int npairs) {
-  float expo = 0.f;
-  for (int j = 0; j < npairs; ++j) {
-    const unsigned x = ((idx >> k.sh[2 * j]) ^ (idx >> k.sh[2 * j + 1])) & 1u;
-    expo += k.zth[j] * (1.f - 2.f * static_cast<float>(x));
-  }
-  return expo;
-}
-
-// Offset of tile element e (row e >> ltl, lane e & (TL-1) of the CTA's TL
-// lanes) in the (r, W) planes: also its flat index.
-__device__ __forceinline__ long ml_off(int e, int ltl, int lw) {
-  return (static_cast<long>(e >> ltl) << lw) + (blockIdx.x << ltl) +
-         (e & ((1 << ltl) - 1));
-}
-
-// Tile elements of pair p of the stage on the row bit of stride 2^ls.
-__device__ __forceinline__ void ml_pair(int p, int ls, int ltl, int* elo,
-                                        int* ehi) {
-  const int pr = p >> ltl;
-  const int lo = ((pr >> ls) << (ls + 1)) | (pr & ((1 << ls) - 1));
-  *elo = (lo << ltl) | (p & ((1 << ltl) - 1));
-  *ehi = *elo + (1 << (ls + ltl));
-}
-
-// K9's row stage of one layer: x -> y = rx...rx (phase * x), all rows of
-// the CTA's TL lanes.  x and y may alias.
-__global__ void __launch_bounds__(THREADS)
-ml_row_fwd_kernel(const float* xr, const float* xi, float* yr, float* yi,
-                  const float* __restrict__ zzth, const int* __restrict__ shifts,
-                  int npairs, const float* __restrict__ th, int nrow, int lw,
-                  int ltl) {
-  extern __shared__ float smem[];
-  const int elems = (1 << nrow) << ltl;
-  float* tr = smem;
-  float* ti = tr + elems;
-  const RowConsts k = load_consts(ti + elems, zzth, shifts, npairs, th, nrow);
-  __syncthreads();
-  // load + phase e^{-i expo/2}
-  for (int e = threadIdx.x; e < elems; e += blockDim.x) {
-    const long off = ml_off(e, ltl, lw);
-    float s, c;
-    sincosf(0.5f * zz_expo(static_cast<unsigned>(off), k, npairs), &s, &c);
-    const float ar = xr[off], ai = xi[off];
-    tr[e] = c * ar + s * ai;
-    ti[e] = c * ai - s * ar;
-  }
-  __syncthreads();
-  // rx(th_q) = [[c, -i s], [-i s, c]] on the row bit of stride 2^(nrow-1-q)
-  const int half = elems >> 1;
-  for (int q = 0; q < nrow; ++q) {
-    const int ls = nrow - 1 - q;
-    const float c = k.cs[2 * q], sn = k.cs[2 * q + 1];
-    for (int p = threadIdx.x; p < half; p += blockDim.x) {
-      int elo, ehi;
-      ml_pair(p, ls, ltl, &elo, &ehi);
-      const float ar = tr[elo], ai = ti[elo], br = tr[ehi], bi = ti[ehi];
-      tr[elo] = c * ar + sn * bi;
-      ti[elo] = c * ai - sn * br;
-      tr[ehi] = c * br + sn * ai;
-      ti[ehi] = c * bi - sn * ar;
-    }
-    __syncthreads();
-  }
-  for (int e = threadIdx.x; e < elems; e += blockDim.x) {
-    const long off = ml_off(e, ltl, lw);
-    yr[off] = tr[e];
-    yi[off] = ti[e];
-  }
-}
 
 // bt[l] = b[l]^T for the L (W, W) planes of b (32 x 32 tiles, blockDim (32, 8)).
 __global__ void transpose_kernel(const float* b, float* bt, int lw) {
@@ -172,9 +84,7 @@ __global__ void transpose_kernel(const float* b, float* bt, int lw) {
 
 struct MlPlan {
   int r, lw;
-  int ltl, grid_row;   // K9's row stage: 2^ltl lanes a CTA, grid_row CTAs
-  size_t fwd_smem;     // ... and its shared bytes
-  RowStage rs;         // K10's row stage: every row bit walked
+  RowStage rs;  // the row stage of K9 and K10: every row bit walked
 };
 
 // false for a shape the kernels do not take.
@@ -183,20 +93,15 @@ bool ml_plan(int r, int lanes, int nrow, int npairs, MlPlan* p) {
   const int lw = ilog2(lanes);
   if ((1 << lw) != lanes || lw < 7 || lw > 10) return false;
   if (npairs < 0 || npairs > ML_MAX_PAIRS) return false;
-  int tl = ML_TILE / r;
-  if (tl > lanes) tl = lanes;
   p->r = r;
   p->lw = lw;
-  p->ltl = ilog2(tl);
-  p->grid_row = lanes / tl;
-  const size_t consts = sizeof(float) * (npairs + 2 * nrow) + sizeof(int) * 2 * npairs;
-  p->fwd_smem = sizeof(float) * 2 * static_cast<size_t>(r) * tl + consts;
   return row_stage_plan(nrow, lw, nrow, &p->rs);
 }
 
 struct MlScratch {
-  float *tr, *ti, *mtr, *mti;                          // K9
-  float *yr, *yi, *pr, *pi, *wr, *wi, *part_row, *part_dm, *rec;  // K10
+  float *tr, *ti, *mtr, *mti;                        // K9
+  float *yr, *yi, *pr, *pi, *wr, *wi, *part_row, *part_dm;  // K10
+  float* rec;                                        // both
 };
 
 // Floats of scratch (bwd = 0: K9, 1: K10), each part a multiple of 64
@@ -210,7 +115,7 @@ size_t ml_layout(const MlPlan& p, int npairs, int L, bool bwd, float* base, MlSc
       bwd ? plane : 0, bwd ? plane : 0,
       bwd ? row_part_floats(p.rs, npairs) : 0,
       bwd ? dm_floats(dm_chunks(p.r, p.lw), p.lw) : 0,
-      bwd ? pair_record_floats(npairs) : 0,
+      pair_record_floats(npairs),
   };
   float* ptrs[13];
   size_t off = 0;
@@ -240,11 +145,13 @@ long tcng_ml_scratch(int r, int lanes, int nrow, int npairs, int L, int bwd) {
   return static_cast<long>(ml_layout(p, npairs, L, bwd != 0, nullptr, nullptr));
 }
 
-// The stage kernels' plan at these shapes, for the record: five records of
-// 8 (kernel_record): K10's product pair (x1, x2 = the tile's rows and
+// The stage kernels' plan at these shapes, for the record: seven records
+// of 8 (kernel_record): K10's product pair (x1, x2 = the tile's rows and
 // columns), K9's product (the same), K10's dM (x1 = chunks, x2 = rows a
-// chunk), K10's first row pass and its last (x1 = tile elements, x2 = the
-// pass's row bits; the first has 0 CTAs when there is one pass).
+// chunk), K10's first row pass and its last, K9's zz pass (the last
+// pass's tiles, first in the forward) and its other pass (x1 = tile
+// elements, x2 = the pass's row bits; a pass that does not run, with one
+// pass, has 0 CTAs).
 int tcng_ml_plan(int r, int lanes, int nrow, int npairs, long* out) {
   MlPlan p;
   if (!ml_plan(r, lanes, nrow, npairs, &p)) return static_cast<int>(cudaErrorInvalidValue);
@@ -258,12 +165,15 @@ int tcng_ml_plan(int r, int lanes, int nrow, int npairs, long* out) {
   if (err == cudaSuccess)
     err = kernel_record(reinterpret_cast<const void*>(wide_dm_kernel), static_cast<long>(nc) << (2 * (p.lw - 6)),
                         THREADS, DM_SMEM, nc, r / nc, out + 16);
-  for (int k = 0; k < 2 && err == cudaSuccess; ++k) {
-    const bool last = k == 1;
+  // K10's first and last pass, then K9's zz pass (the last pass's tiles)
+  // and its other
+  for (int k = 0; k < 4 && err == cudaSuccess; ++k) {
+    const bool fwd = k >= 2, last = fwd ? k == 2 : k == 1;
     const RowPass& rp = last ? last_pass(p.rs) : p.rs.pass[0];
     const bool runs = last || p.rs.npass == 2;
-    err = kernel_record(row_pass_fn(last), runs ? row_ctas(p.rs) : 0, row_threads(p.rs),
-                        row_pass_smem(rp, npairs, last), 1L << rp.tb, runs ? rp.nb : 0, out + 24 + 8 * k);
+    err = kernel_record(fwd ? fwd_pass_fn(last) : row_pass_fn(last), runs ? row_ctas(p.rs) : 0,
+                        row_threads(p.rs), fwd ? fwd_pass_smem(rp, npairs, last) : row_pass_smem(rp, npairs, last),
+                        1L << rp.tb, runs ? rp.nb : 0, out + 24 + 8 * k);
   }
   return static_cast<int>(err);
 }
@@ -284,9 +194,11 @@ int tcng_ml_fwd(const float* sr, const float* si, float* yr, float* yi,
   if (!all_aligned16({sr, si, yr, yi, mr, mi, scratch})) return static_cast<int>(cudaErrorMisalignedAddress);
   MlScratch s;
   ml_layout(p, npairs, L, false, scratch, &s);
-  cudaError_t err = set_smem(reinterpret_cast<const void*>(ml_row_fwd_kernel), p.fwd_smem);
+  cudaError_t err = fwd_stage_prepare(p.rs, npairs);
   if (err == cudaSuccess)
     err = set_smem(reinterpret_cast<const void*>(wide_nt_kernel<1, false>), prod_smem<1>());
+  // the zz pass's pair records, once a call for every layer
+  if (err == cudaSuccess) err = pair_records(p.rs, shifts, npairs, s.rec, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   // M^T once a call: the product reads its b operand as b[n][k]
   const dim3 tgrid(lanes / 32, lanes / 32, L);
@@ -296,10 +208,8 @@ int tcng_ml_fwd(const float* sr, const float* si, float* yr, float* yi,
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t ww = static_cast<size_t>(lanes) * lanes;
   for (int l = 0; l < L; ++l) {
-    ml_row_fwd_kernel<<<p.grid_row, THREADS, p.fwd_smem, st>>>(
-        l == 0 ? sr : yr, l == 0 ? si : yi, s.tr, s.ti, zzth + l * npairs,
-        shifts, npairs, th + l * nrow, nrow, p.lw, p.ltl);
-    err = cudaGetLastError();
+    err = fwd_row_stage(p.rs, l == 0 ? sr : yr, l == 0 ? si : yi, s.tr, s.ti, s.rec,
+                        zzth + l * npairs, npairs, th + l * nrow, st);
     if (err != cudaSuccess) return static_cast<int>(err);
     err = wide_nt<1, false>(s.tr, s.ti, nullptr, nullptr, s.mtr + l * ww, s.mti + l * ww, yr, yi,
                             nullptr, nullptr, r, p.lw, st);

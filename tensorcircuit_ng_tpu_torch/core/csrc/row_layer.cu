@@ -20,8 +20,8 @@
 // K7 tcng_row_bwd replaces kernels_rowlayer._pallas_row_bwd (_bwd_kernel,
 //    _lane_bwd_prologue): from the output y and the cotangent ct, with the
 //    lane: psi = y @ conj(M)^T, dM = psi^T ct, ct <- ct @ M^T; then per
-//    gate in reverse: un-apply g^dagger, the four complex sums of dg, walk
-//    ct by g^T.  Returns ds = ct, dg (2, nkernel, 4) and dM.
+//    gate: un-apply g^dagger, the four complex sums of dg, walk ct by g^T.
+//    Returns ds = ct, dg (2, nkernel, 4) and dM.
 // K8 tcng_row_bwd_const replaces kernels_rowlayer._pallas_row_bwd_const
 //    (_const_bwd_kernel): the ct walk by g^T alone, gates in reverse.
 // K11 tcng_rotx_fwd replaces kernels_rowlayer._pallas_rotx_fwd
@@ -34,32 +34,38 @@
 //    qubit where K7 takes eight, and dth directly (no dgate -> dth chain).
 //
 // Design.  A TPU block holds RB x 128 lanes in VMEM: 2 MB at RB = 2048
-// (nkernel = 11), nine times a CTA's 227 KB of shared memory.  The row
-// butterflies never mix lanes, so a CTA takes all RB rows of one block for
-// TL = 8192 / RB lanes (TL = 4 at nkernel = 11): a tile of 8192 complex
-// elements, 64 KB for the forward's two planes and 128 KB for the
-// backward's four (state and cotangent).  The grid is (r / RB) x (128 / TL)
-// CTAs, 128 at n = 20.  Every butterfly stage runs in place in shared
-// memory with one barrier between gates.  The lane matmul needs whole rows,
-// so it is a second pass over the state, which at n = 20 (8 MB of planes)
-// stays in the 50 MB L2: K6's is lane.cuh's forward product, K7's the
-// adjoint lane stage of adjoint_stages.cuh that K3, K4 and K10 share (the
-// un-lane and ct walk in one launch, dM as split-K partials).  K7's dg
-// sums are written as one partial a CTA (a warp shuffle tree, then the
-// warps in order) and added by colsum_kernel in a fixed order: no atomics,
-// so K7 is bit-identical run to run.  K8 is K6's row pass walking the transposed gates in reverse.
+// (nkernel = 11), nine times a CTA's 227 KB of shared memory.  K6, K8, K11
+// and K12 take all RB rows of one block for TL = 8192 / RB lanes in shared
+// memory (TL = 4 at nkernel = 11: a tile of 8192 complex elements, 64 KB
+// for two planes, 128 KB for four), one barrier between gates; each row
+// is then read as 16 B of a 32-B sector.  K7 runs on the row stage of
+// adjoint_stages.cuh instead (gate_row_stage, the plan row_stage_plan(nrb,
+// 7, nkernel) that K3, K4 and K10 use): tiles of 2^11 elements with 32
+// consecutive lanes a warp (whole sectors), the walked bits in at most two
+// passes of at most 6 (at n = 20, nkernel = 11: the 5 high ones, then the
+// 6 low ones, 512 CTAs of 256 threads each), a thread holding 8 elements
+// of psi and ct in registers for 3 bits at a time.  Per bit: un-apply
+// g^dagger, the eight dg sums reduced over the warp at once by halving
+// exchanges (warp_sum8), the ct walk by g^T.  The gates act on distinct
+// bits and commute, so K7 takes them in another order than the JAX kernel
+// (only rounding differs).  K7 runs on the caller's y and ct, which it does
+// not write: the first of two passes writes psi to scratch and ct to ds,
+// the last only ds.  With the lane (the fuse_lane route) the adjoint lane
+// stage that K3, K4 and K10 share runs first (the un-lane and ct walk in
+// one launch, dM as split-K partials), psi into scratch and ct into ds,
+// and the passes follow in place.  The dg sums are one partial a CTA
+// added by colsum_tree_kernel in a fixed order: no atomics, so K7 is
+// bit-identical run to run.  K8 is K6's row pass walking the transposed
+// gates in reverse.
 // Bounds at n = 20, nkernel = 11, on the H100 (3.35 TB/s, 67 TFLOP/s
 // float32): K6 without the lane moves 16.8 MB (two planes in, two out) for
 // 0.16 GFLOP, 0.005 ms, bound by bytes; with the lane the 1.07 GFLOP of
 // lane products bound it by operations (0.018 ms); K7 without the lane
-// moves 25 MB for 0.5 GFLOP (0.0076 ms, bytes); K8 as K6 (0.005 ms).
-// K11 and K12 use K6's and K7's tiles: at n = 20, nkernel = 10 (r = 8192),
-// K11 moves 16.8 MB (0.005 ms, bytes) and K12 25 MB (0.0075 ms, bytes);
-// K12's dth sums are block sums into one partial a CTA, added by
-// colsum_kernel in a fixed order, as K7's dg.
-// Launch latency alone is a few microseconds, so these simple kernels sit
-// well above their bounds; the design keeps the state to one read and one
-// write a pass.  Plain f32 FMAs, no fast-math.
+// moves 25 MB for 0.5 GFLOP (0.0076 ms, operations); K8 as K6 (0.005 ms).
+// K11 and K12 use K6's tiles: at n = 20, nkernel = 10 (r = 8192), K11
+// moves 16.8 MB (0.005 ms, bytes) and K12 25 MB (0.0075 ms, bytes); K12's
+// dth sums are block sums into one partial a CTA, added by colsum_kernel in
+// a fixed order.  Plain f32 FMAs, no fast-math.
 
 #include "adjoint_stages.cuh"
 
@@ -167,93 +173,6 @@ row_apply_kernel(const float* xr, const float* xi, float* yr, float* yi,
     const long off = tile_off(e, ltl, rb);
     yr[off] = tr[e];
     yi[off] = ti[e];
-  }
-}
-
-// K7's row pass on an RB x TL tile of psi (pre-lane state) and ct: writes
-// ds and one partial a CTA, part[blk] = (re of dg (nkernel, 4), im of dg).
-__global__ void __launch_bounds__(THREADS)
-row_bwd_kernel(const float* psr, const float* psi, const float* ctr,
-               const float* cti, float* dsr, float* dsi, float* part,
-               const float* __restrict__ gr, const float* __restrict__ gi,
-               int nkernel, int ltl) {
-  extern __shared__ float smem[];
-  const int rb = 1 << nkernel;
-  const int elems = rb << ltl;
-  float* tr = smem;
-  float* ti = tr + elems;
-  float* cr = ti + elems;
-  float* ci = cr + elems;
-  float* g = ci + elems;
-  // two buffers of the warp sums: a warp writes the next gate's sums only
-  // after the barrier that warp 0 reaches once it has read this gate's
-  float* red = g + 8 * nkernel;
-  load_gates(g, gr, gi, nkernel);
-  for (int e = threadIdx.x; e < elems; e += blockDim.x) {
-    const long off = tile_off(e, ltl, rb);
-    tr[e] = psr[off];
-    ti[e] = psi[off];
-    cr[e] = ctr[off];
-    ci[e] = cti[off];
-  }
-  __syncthreads();
-  float* mypart = part + static_cast<long>(blockIdx.x) * 8 * nkernel;
-  const int half = elems >> 1;
-  const int warp = threadIdx.x >> 5;
-  for (int q = nkernel - 1; q >= 0; --q) {
-    const int ls = nkernel - 1 - q;
-    const float* m = g + 8 * q;
-    const float g00r = m[0], g00i = m[1], g01r = m[2], g01i = m[3];
-    const float g10r = m[4], g10i = m[5], g11r = m[6], g11i = m[7];
-    // dg entries (00, 01, 10, 11), (re, im) interleaved
-    float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    for (int p = threadIdx.x; p < half; p += blockDim.x) {
-      int elo, ehi;
-      pair_elems(p, ls, ltl, &elo, &ehi);
-      // 1) un-apply: s <- g^dagger s, g^dagger = [[g00*, g10*], [g01*, g11*]]
-      const float ar = tr[elo], ai = ti[elo], br = tr[ehi], bi = ti[ehi];
-      const float lr = g00r * ar + g00i * ai + g10r * br + g10i * bi;
-      const float li = g00r * ai - g00i * ar + g10r * bi - g10i * br;
-      const float hr = g01r * ar + g01i * ai + g11r * br + g11i * bi;
-      const float hi = g01r * ai - g01i * ar + g11r * bi - g11i * br;
-      tr[elo] = lr;
-      ti[elo] = li;
-      tr[ehi] = hr;
-      ti[ehi] = hi;
-      // 2) dg[a][b] += ct[bit a] * s[bit b]
-      const float xr = cr[elo], xi = ci[elo], zr = cr[ehi], zi = ci[ehi];
-      acc[0] += xr * lr - xi * li;
-      acc[1] += xr * li + xi * lr;
-      acc[2] += xr * hr - xi * hi;
-      acc[3] += xr * hi + xi * hr;
-      acc[4] += zr * lr - zi * li;
-      acc[5] += zr * li + zi * lr;
-      acc[6] += zr * hr - zi * hi;
-      acc[7] += zr * hi + zi * hr;
-      // 3) walk: ct <- g^T ct, g^T = [[g00, g10], [g01, g11]]
-      cr[elo] = g00r * xr - g00i * xi + g10r * zr - g10i * zi;
-      ci[elo] = g00r * xi + g00i * xr + g10r * zi + g10i * zr;
-      cr[ehi] = g01r * xr - g01i * xi + g11r * zr - g11i * zi;
-      ci[ehi] = g01r * xi + g01i * xr + g11r * zi + g11i * zr;
-    }
-    float* rb_q = red + (q & 1) * 8 * NWARPS;
-#pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      float v = acc[k];
-      for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-      if ((threadIdx.x & 31) == 0) rb_q[warp * 8 + k] = v;
-    }
-    __syncthreads();  // also the barrier between gates
-    if (threadIdx.x < 8) {
-      float t = 0.f;
-      for (int w = 0; w < NWARPS; ++w) t += rb_q[w * 8 + threadIdx.x];
-      mypart[(threadIdx.x & 1) * 4 * nkernel + 4 * q + (threadIdx.x >> 1)] = t;
-    }
-  }
-  for (int e = threadIdx.x; e < elems; e += blockDim.x) {
-    const long off = tile_off(e, ltl, rb);
-    dsr[off] = cr[e];
-    dsi[off] = ci[e];
   }
 }
 
@@ -376,26 +295,36 @@ cudaError_t row_apply(const RowPlan& p, const float* xr, const float* xi,
   return cudaGetLastError();
 }
 
+// K7's stage plan on (r, 128) planes, r = 2^nrb: the row stage walks the
+// nkernel low row bits; false for a shape it does not take.
+bool bwd_plan(int r, int nkernel, RowStage* rs) {
+  const int nrb = ilog2(r);
+  if (nkernel < 1 || nkernel > MAX_NKERNEL || r < 2 || r != 1 << nrb || nkernel > nrb) return false;
+  return row_stage_plan(nrb, LANE_BITS, nkernel, rs);
+}
+
 struct BwdScratch {
-  float *part_row, *part_dm, *pr, *pi, *wr, *wi;
+  float *part_row, *part_dm, *pr, *pi;
 };
 
-// Floats of K7's scratch; fills s when base is given.
-size_t bwd_layout(int r, const RowPlan& p, int nkernel, bool lane, float* base,
-                  BwdScratch* s) {
+// Floats of K7's scratch; fills s when base is given.  psi's planes hold
+// the lane stage's output or the first of two passes'; the cotangent goes
+// through ds.
+size_t bwd_layout(int r, const RowStage& rs, bool lane, float* base, BwdScratch* s) {
   const size_t plane = static_cast<size_t>(r) * LANES;
-  const size_t sizes[6] = {
-      static_cast<size_t>(p.grid) * 8 * nkernel,
+  const bool psi = lane || rs.npass == 2;
+  const size_t sizes[4] = {
+      gate_part_floats(rs),
       lane ? dm_floats(dm_chunks(r, LANE_BITS), LANE_BITS) : 0,
-      lane ? plane : 0, lane ? plane : 0, lane ? plane : 0, lane ? plane : 0,
+      psi ? plane : 0, psi ? plane : 0,
   };
-  float* ptrs[6];
+  float* ptrs[4];
   size_t off = 0;
-  for (int i = 0; i < 6; ++i) {
+  for (int i = 0; i < 4; ++i) {
     ptrs[i] = base ? base + off : nullptr;
     off += (sizes[i] + 63) / 64 * 64;  // 16-byte aligned parts
   }
-  if (s) *s = BwdScratch{ptrs[0], ptrs[1], ptrs[2], ptrs[3], ptrs[4], ptrs[5]};
+  if (s) *s = BwdScratch{ptrs[0], ptrs[1], ptrs[2], ptrs[3]};
   return off;
 }
 
@@ -424,53 +353,68 @@ int tcng_row_fwd(const float* sr, const float* si, float* yr, float* yi,
 // Floats of scratch tcng_row_bwd needs for these shapes (-1: a shape it
 // does not take).
 long tcng_row_bwd_scratch(int r, int nkernel, int lane) {
-  RowPlan p;
-  if (!row_plan(r, nkernel, &p)) return -1;
-  return static_cast<long>(bwd_layout(r, p, nkernel, lane != 0, nullptr, nullptr));
+  RowStage rs;
+  if (!bwd_plan(r, nkernel, &rs)) return -1;
+  return static_cast<long>(bwd_layout(r, rs, lane != 0, nullptr, nullptr));
+}
+
+// K7's stage kernels' plan at these shapes, for the record: four records
+// of 8 (kernel_record): the lane pair and dM (0 CTAs without the lane; x1,
+// x2 = the tile's rows and columns, dM's chunks and rows a chunk), the
+// row stage's first pass and its last (x1 = tile elements, x2 = the pass's
+// row bits; the first has 0 CTAs when there is one pass).
+int tcng_row_bwd_plan(int r, int nkernel, int lane, long* out) {
+  RowStage rs;
+  if (!bwd_plan(r, nkernel, &rs)) return static_cast<int>(cudaErrorInvalidValue);
+  const int nc = dm_chunks(r, LANE_BITS);
+  cudaError_t err = kernel_record(reinterpret_cast<const void*>(wide_nt_kernel<2, true>),
+                                  lane ? prod_ctas(r, LANE_BITS) : 0, THREADS, prod_smem<2>(), P_T,
+                                  P_T, out);
+  if (err == cudaSuccess)
+    err = kernel_record(reinterpret_cast<const void*>(wide_dm_kernel), lane ? 4L * nc : 0, THREADS,
+                        DM_SMEM, nc, r / nc, out + 8);
+  for (int k = 0; k < 2 && err == cudaSuccess; ++k) {
+    const bool last = k == 1;
+    const RowPass& rp = last ? last_pass(rs) : rs.pass[0];
+    const bool runs = last || rs.npass == 2;
+    err = kernel_record(gate_pass_fn(last), runs ? row_ctas(rs) : 0, row_threads(rs),
+                        gate_stage_smem(rs), 1L << rp.tb, runs ? rp.nb : 0, out + 16 + 8 * k);
+  }
+  return static_cast<int>(err);
 }
 
 // K7.  yr/yi: the layer's (r, 128) output planes (post-lane when mr is
-// given); ctr/cti: cotangent planes; dsr/dsi: (r, 128) output; dg:
-// (2, nkernel, 4) = (re, im) of the gate cotangent; dm: (2, 128, 128) =
-// (dmr, dmi) or null without the lane; gr/gi (nkernel, 4); mr/mi (128, 128)
-// unitary lane planes or null; scratch of tcng_row_bwd_scratch floats.
+// given), r = 2^nrb >= 2^nkernel; ctr/cti: cotangent planes; dsr/dsi: (r,
+// 128) output, aliasing no input; dg: (2, nkernel, 4) = (re, im) of the
+// gate cotangent; dm: (2, 128, 128) = (dmr, dmi) or null without the lane;
+// gr/gi (nkernel, 4); mr/mi (128, 128) unitary lane planes or null;
+// scratch of tcng_row_bwd_scratch floats.  y and ct are not written.
 int tcng_row_bwd(const float* yr, const float* yi, const float* ctr,
                  const float* cti, float* dsr, float* dsi, float* dg,
                  float* dm, const float* gr, const float* gi, int nkernel,
                  const float* mr, const float* mi, float* scratch, int r,
                  void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  RowPlan p;
-  if (!row_plan(r, nkernel, &p)) return static_cast<int>(cudaErrorInvalidValue);
+  RowStage rs;
+  if (!bwd_plan(r, nkernel, &rs)) return static_cast<int>(cudaErrorInvalidValue);
   BwdScratch s;
-  bwd_layout(r, p, nkernel, mr != nullptr, scratch, &s);
+  bwd_layout(r, rs, mr != nullptr, scratch, &s);
   const float *psr = yr, *psi = yi, *cr = ctr, *ci = cti;
-  if (mr != nullptr) {
-    // the adjoint's lane stage (adjoint_stages.cuh), as K3's
-    if (!all_aligned16({yr, yi, ctr, cti, mr, mi, scratch}))
+  cudaError_t err = gate_stage_prepare(rs);
+  if (err == cudaSuccess && mr != nullptr) {
+    // the adjoint's lane stage (adjoint_stages.cuh), as K3's: psi into
+    // scratch, the walked cotangent into ds
+    if (!all_aligned16({yr, yi, ctr, cti, dsr, dsi, mr, mi, scratch}))
       return static_cast<int>(cudaErrorMisalignedAddress);
-    cudaError_t err = lane_stage_prepare();
+    err = lane_stage_prepare();
     if (err == cudaSuccess)
-      err = adjoint_lane_stage(r, LANE_BITS, yr, yi, ctr, cti, mr, mi, s.pr, s.pi, s.wr, s.wi,
+      err = adjoint_lane_stage(r, LANE_BITS, yr, yi, ctr, cti, mr, mi, s.pr, s.pi, dsr, dsi,
                                s.part_dm, dm, MM, dm_chunks(r, LANE_BITS), st);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    psr = s.pr;
-    psi = s.pi;
-    cr = s.wr;
-    ci = s.wi;
+    psr = s.pr, psi = s.pi, cr = dsr, ci = dsi;
   }
-  const size_t smem = row_smem(4, nkernel, 2 * 8 * NWARPS);
-  cudaError_t err = cudaFuncSetAttribute(
-      row_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  row_bwd_kernel<<<p.grid, THREADS, smem, st>>>(psr, psi, cr, ci, dsr, dsi,
-                                                s.part_row, gr, gi, nkernel,
-                                                p.ltl);
-  err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(
-      colsum(s.part_row, p.grid, 8 * nkernel, dg, 8 * nkernel, 0, st));
+      gate_row_stage(rs, psr, psi, cr, ci, s.pr, s.pi, dsr, dsi, s.part_row, gr, gi, dg, st));
 }
 
 // K8.  ctr/cti, dsr/dsi: (r, 128) planes (may alias); gr/gi (nkernel, 4).

@@ -6,7 +6,9 @@ Counterpart of ``tensorcircuit_ng_tpu/core/kernels_multilayer.py``.  The
 wrappers and the kernels they launch on a CUDA tensor:
 
 - ``ml_fwd``: K9 (``csrc/multilayer.cu``, ``tcng_ml_fwd``), replaces the
-  Pallas ``_pallas_ml_fwd``;
+  Pallas ``_pallas_ml_fwd``; its row stage is the forward pass pair of
+  ``csrc/adjoint_stages.cuh`` on K10's row-stage plan (``ml_fwd_plan``
+  computes it without a card, ``ml_plan`` reads it from the card);
 - ``ml_bwd``: K10 (``tcng_ml_bwd``), replaces ``_pallas_ml_bwd``.
 
 A CPU tensor runs the plain versions ``ml_fwd_plain`` / ``ml_bwd_plain``,
@@ -44,6 +46,7 @@ __all__ = [
     "ml_bwd",
     "ml_bwd_plain",
     "ml_plan",
+    "ml_fwd_plan",
     "zzrx_multilayer",
     "zzrx_multilayer_xla",
 ]
@@ -55,6 +58,9 @@ MAX_ML_ROW_QUBITS = 12
 MAX_ML_PAIRS = 128
 #: lane widths the kernels take: 2^7 .. 2^10
 _LANE_BITS = (7, 10)
+#: shared bytes of K9's product (``prod_smem<1>``: two buffered chunks of
+#: four 64 x 36-float planes)
+_FWD_PROD_SMEM = 4 * 2 * 4 * 64 * 36
 
 
 @lru_cache(maxsize=64)
@@ -195,20 +201,46 @@ def _ml_setup(what, pairs, n, zzth, th, sr, mr, mi, *planes):
 def ml_plan(r: int, lanes: int, nrow: int, npairs: int) -> dict:
     """The stage kernels' plan on the card at these shapes, as the C code
     chooses it: for K10's product pair ``"bwd_lane"``, K9's product
-    ``"fwd_lane"``, K10's dM ``"dm"`` and its two row passes ``"row_hi"``
+    ``"fwd_lane"``, K10's dM ``"dm"``, its two row passes ``"row_hi"``
     (0 CTAs when nrow <= 6: one pass) and ``"row_lo"`` (with the zz stage),
-    each ``ctas``, ``threads``, ``smem`` bytes, ``ctas_per_sm``,
-    ``registers`` and ``local_bytes`` a thread, and two of its own: the
-    products' tile ``rows`` and ``cols``, dM's ``chunks`` and
-    ``chunk_rows``, a row pass's ``tile`` elements and row ``bits``.  Needs
-    the card."""
-    out = (ctypes.c_long * 40)()
-    lib = _build.library("multilayer")
-    _build.check("multilayer", lib.tcng_ml_plan(r, lanes, nrow, npairs, out), "ml_plan")
-    common = ("ctas", "threads", "smem", "ctas_per_sm", "registers", "local_bytes")
-    own = (("rows", "cols"), ("rows", "cols"), ("chunks", "chunk_rows"), ("tile", "bits"), ("tile", "bits"))
-    names = ("bwd_lane", "fwd_lane", "dm", "row_hi", "row_lo")
-    return {k: dict(zip(common + o, out[8 * i:8 * i + 8])) for i, (k, o) in enumerate(zip(names, own))}
+    and K9's two row passes ``"fwd_row_zz"`` (the phase and the low row
+    bits, first) and ``"fwd_row_hi"`` (0 CTAs with one pass), each
+    ``ctas``, ``threads``, ``smem`` bytes, ``ctas_per_sm``, ``registers``
+    and ``local_bytes`` a thread, and two of its own: the products' tile
+    ``rows`` and ``cols``, dM's ``chunks`` and ``chunk_rows``, a row pass's
+    ``tile`` elements and row ``bits``.  Needs the card."""
+    tile = ("tile", "bits")
+    own = {"bwd_lane": ("rows", "cols"), "fwd_lane": ("rows", "cols"), "dm": ("chunks", "chunk_rows"),
+           "row_hi": tile, "row_lo": tile, "fwd_row_zz": tile, "fwd_row_hi": tile}
+    return krl._card_records("multilayer", "tcng_ml_plan", own, r, lanes, nrow, npairs)
+
+
+def ml_fwd_plan(r: int, lanes: int, nrow: int, npairs: int) -> dict:
+    """K9's stage plan at these shapes, computed as ``csrc/multilayer.cu``
+    makes it (no card needed): the product ``"fwd_lane"`` and the row
+    passes ``"fwd_row_zz"`` and ``"fwd_row_hi"`` with the keys of
+    :func:`ml_plan` but the card's own three.  The passes walk every row bit
+    on K10's row-stage plan; their shared bytes are the exchange tile of
+    two planes (past 3 bits), cos/sin of 6 bits, 8 slot offsets and, in the
+    zz pass, a 16-byte record a pair."""
+    lo_b, hi_b = _LANE_BITS
+    lw = lanes.bit_length() - 1
+    error = f"ml_fwd_plan: unsupported shape r={r}, lanes={lanes}, nrow={nrow}, npairs={npairs}"
+    if (not 1 <= nrow <= MAX_ML_ROW_QUBITS or r != 1 << nrow or lanes != 1 << lw or not lo_b <= lw <= hi_b
+            or not 0 <= npairs <= MAX_ML_PAIRS):
+        raise ValueError(error)
+    tb, ctas, threads, hi, lo = krl._row_stage(nrow, lw, nrow, error)
+
+    def smem(nb, zz):
+        return 4 * ((2 << tb if nb > 3 else 0) + 2 * krl._RP_MAXB + 8) + (16 * npairs if zz else 0)
+
+    rows = krl._pass_records(ctas, threads, tb, hi, lo, smem)
+    return {
+        "fwd_lane": {"ctas": -(-r // krl._P_T) * (lanes // krl._P_T), "threads": krl._THREADS,
+                     "smem": _FWD_PROD_SMEM, "rows": krl._P_T, "cols": krl._P_T},
+        "fwd_row_zz": rows["row_lo"],
+        "fwd_row_hi": rows["row_hi"],
+    }
 
 
 def _launch_ml_fwd(pairs, n, zzth, th, sr, si, mr, mi):

@@ -7,7 +7,10 @@ wrappers and the kernels they launch on a CUDA tensor:
 
 - ``row_fwd``: K6 (``csrc/row_layer.cu``, ``tcng_row_fwd``), replaces the
   Pallas ``_pallas_row_fwd``;
-- ``row_bwd``: K7 (``tcng_row_bwd``), replaces ``_pallas_row_bwd``;
+- ``row_bwd``: K7 (``tcng_row_bwd``), replaces ``_pallas_row_bwd``; it
+  runs on the adjoint lane stage and on the gate row passes of
+  ``csrc/adjoint_stages.cuh`` (the row stage that K3, K4 and K10 share),
+  and ``row_bwd_plan`` / ``row_bwd_card_plan`` give their plan;
 - ``row_bwd_const``: K8 (``tcng_row_bwd_const``), replaces
   ``_pallas_row_bwd_const``;
 - ``zzrx_fwd``: K1 (``csrc/zzrx_fwd.cu``, ``tcng_zzrx_fwd``), replaces
@@ -15,8 +18,7 @@ wrappers and the kernels they launch on a CUDA tensor:
 - ``zzrx_bwd``: K3 (``csrc/zzrx_bwd.cu``, ``tcng_zzrx_bwd``), replaces
   ``_pallas_zzrx_bwd``; its lane and row stages are the adjoint stages of
   ``csrc/adjoint_stages.cuh`` that K4 and K10 share, and
-  ``zzrx_bwd_plan`` / ``zzrx_bwd_card_plan`` give their plan (K7's lane
-  stage is the same kernel pair);
+  ``zzrx_bwd_plan`` / ``zzrx_bwd_card_plan`` give their plan;
 - ``rowm_fwd`` / ``rowm_bwd``: K1 / K3 with the row-kron planes M7, whose
   stages K13 and K14 (``csrc/rowm.cuh``, register-blocked products with M7
   in shared memory, launched from ``tcng_zzrx_fwd`` / ``tcng_zzrx_bwd``)
@@ -74,6 +76,8 @@ __all__ = [
     "rowm_plan",
     "zzrx_bwd_plan",
     "zzrx_bwd_card_plan",
+    "row_bwd_plan",
+    "row_bwd_card_plan",
     "MAX_ROWM_QUBITS",
     "zzrx_row_layer",
     "MAX_KERNEL_QUBITS_ZZRX",
@@ -242,6 +246,53 @@ _PLAN_OWN = {"lane": ("rows", "cols"), "dm": ("chunks", "chunk_rows"), "row_hi":
              "row_lo": ("tile", "bits"), "outer": ("d", "nouter")}
 
 
+def _card_records(name: str, fn: str, own: dict, *args) -> dict:
+    """The stage records the C plan entry point ``fn`` of library ``name``
+    writes for ``args``: 8 longs a stage, in the order of ``own`` (stage ->
+    its two own keys), after the common ``_PLAN_KEYS``."""
+    out = (ctypes.c_long * (8 * len(own)))()
+    _build.check(name, getattr(_build.library(name), fn)(*args, out), fn)
+    return {k: dict(zip(_PLAN_KEYS + o, out[8 * i:8 * i + 8])) for i, (k, o) in enumerate(own.items())}
+
+
+def _row_stage(nrb: int, lw: int, nwalk: int, error: str):
+    """The row stage's plan on (2^nrb, 2^lw) planes walking the low nwalk
+    row bits, as ``row_stage_plan`` (``csrc/adjoint_stages.cuh``) makes it:
+    ``(tb, ctas, threads, hi_bits, lo_bits)``, the tile bits, the CTAs and
+    threads of each pass, and the walked bits of the first pass (0 with
+    one pass) and of the last; ``ValueError(error)`` for a shape it does
+    not take."""
+    total = nrb + lw
+    if not 0 <= nwalk <= min(nrb, 2 * _RP_MAXB) or not 8 <= total <= 31:
+        raise ValueError(error)
+    tb = min(total, _RP_TB)
+    hi = nwalk - _RP_MAXB if nwalk > _RP_MAXB else 0
+    return tb, 1 << (total - tb), 1 << (tb - 3), hi, min(nwalk, _RP_MAXB)
+
+
+def _pass_records(ctas, threads, tb, hi, lo, smem) -> dict:
+    """The ``row_hi`` and ``row_lo`` records of a row stage; ``smem(nb,
+    last)`` gives a pass's shared bytes, and with one pass the first
+    record is that pass's, with 0 CTAs and 0 bits."""
+    return {
+        "row_hi": {"ctas": ctas if hi else 0, "threads": threads, "smem": smem(hi or lo, False),
+                   "tile": 1 << tb, "bits": hi},
+        "row_lo": {"ctas": ctas, "threads": threads, "smem": smem(lo, True), "tile": 1 << tb, "bits": lo},
+    }
+
+
+def _lane_records(r: int, lane: bool = True) -> dict:
+    """The adjoint lane stage's records at r rows of 128 lanes: the pair and
+    split-K dM (0 CTAs without the lane)."""
+    nc = max(1, min(_DM_CTAS // 4, r // _D_KC))
+    return {
+        "lane": {"ctas": -(-r // _P_T) * 2 if lane else 0, "threads": _THREADS, "smem": _PAIR_SMEM,
+                 "rows": _P_T, "cols": _P_T},
+        "dm": {"ctas": 4 * nc if lane else 0, "threads": _THREADS, "smem": _DM_SMEM, "chunks": nc,
+               "chunk_rows": r // nc},
+    }
+
+
 def zzrx_bwd_plan(r: int, nkernel: int, npairs: int, rmx: int = 0) -> dict:
     """K3/K4's stage plan at r rows of 128 lanes, computed as
     ``csrc/zzrx_bwd.cu`` makes it (no card needed): for the lane pair
@@ -253,29 +304,20 @@ def zzrx_bwd_plan(r: int, nkernel: int, npairs: int, rmx: int = 0) -> dict:
     ``tile`` elements and walked row ``bits``, the outer ``d`` and
     ``nouter``.  The row stage walks the low ``nkernel - rmx`` row bits."""
     nrb, nwalk = r.bit_length() - 1, nkernel - rmx
-    total = nrb + 7
-    if r != 1 << nrb or not 0 <= nwalk <= min(nrb, 2 * _RP_MAXB) or not 8 <= total <= 31 or npairs < 0:
-        raise ValueError(f"zzrx_bwd_plan: unsupported shape r={r}, nkernel={nkernel}, rmx={rmx}")
-    tb = min(total, _RP_TB)
-    ctas, threads = 1 << (total - tb), 1 << (tb - 3)
-    npass = 2 if nwalk > _RP_MAXB else 1
-    lo_bits = min(nwalk, _RP_MAXB)
-    first_bits = nwalk - _RP_MAXB if npass == 2 else lo_bits
+    error = f"zzrx_bwd_plan: unsupported shape r={r}, nkernel={nkernel}, rmx={rmx}"
+    if r != 1 << nrb or nwalk < 0 or npairs < 0:
+        raise ValueError(error)
+    tb, ctas, threads, hi, lo = _row_stage(nrb, 7, nwalk, error)
 
     def smem(nb, last):
         floats = (4 << tb if nb > 3 else 0) + threads // 32 * (_RP_MAXB + npairs) + 2 * _RP_MAXB + 8
         return 4 * floats + (16 * npairs if last else 0)
 
-    nc = max(1, min(_DM_CTAS // 4, r // _D_KC))
     d = r >> nkernel
     outer = rmx == 0 and 2 <= d <= 16
     return {
-        "lane": {"ctas": -(-r // _P_T) * 2, "threads": _THREADS, "smem": _PAIR_SMEM, "rows": _P_T, "cols": _P_T},
-        "dm": {"ctas": 4 * nc, "threads": _THREADS, "smem": _DM_SMEM, "chunks": nc, "chunk_rows": r // nc},
-        "row_hi": {"ctas": ctas if npass == 2 else 0, "threads": threads, "smem": smem(first_bits, False),
-                   "tile": 1 << tb, "bits": first_bits if npass == 2 else 0},
-        "row_lo": {"ctas": ctas, "threads": threads, "smem": smem(lo_bits, True), "tile": 1 << tb,
-                   "bits": lo_bits},
+        **_lane_records(r),
+        **_pass_records(ctas, threads, tb, hi, lo, smem),
         "outer": {"ctas": -(-(_LANES << nkernel) // _THREADS) if outer else 0, "threads": _THREADS,
                   "smem": 0, "d": d, "nouter": d.bit_length() - 1 if outer else 0},
     }
@@ -285,10 +327,7 @@ def zzrx_bwd_card_plan(r: int, nkernel: int, npairs: int, rmx: int = 0) -> dict:
     """The same plan as the card's C code reports it
     (``tcng_zzrx_bwd_plan``), with each stage kernel's ``ctas_per_sm``,
     ``registers`` and ``local_bytes`` a thread besides.  Needs the card."""
-    out = (ctypes.c_long * 40)()
-    lib = _build.library("zzrx_bwd")
-    _build.check("zzrx_bwd", lib.tcng_zzrx_bwd_plan(r, nkernel, npairs, rmx, out), "zzrx_bwd_plan")
-    return {k: dict(zip(_PLAN_KEYS + own, out[8 * i:8 * i + 8])) for i, (k, own) in enumerate(_PLAN_OWN.items())}
+    return _card_records("zzrx_bwd", "tcng_zzrx_bwd_plan", _PLAN_OWN, r, nkernel, npairs, rmx)
 
 
 def _bwd_scratch(what: str, lib, r: int, nkernel: int, npairs: int, mode: int, rmx: int, dev) -> torch.Tensor:
@@ -811,6 +850,33 @@ def row_fwd(gr, gi, sr, si, mr=None, mi=None):
 row_fwd.launches = 0
 
 
+def row_bwd_plan(r: int, nkernel: int, lane: bool = False) -> dict:
+    """K7's stage plan at r rows of 128 lanes, computed as
+    ``csrc/row_layer.cu`` makes it (no card needed): the adjoint lane pair
+    ``"lane"`` and dM ``"dm"`` (0 CTAs without the lane), the gate row
+    stage's first pass ``"row_hi"`` (0 CTAs with one pass) and its last
+    ``"row_lo"``, each ``ctas``, ``threads`` and ``smem`` (dynamic shared
+    bytes) and two of its own, as :func:`zzrx_bwd_plan`'s.  The row stage
+    walks the nkernel low row bits; r must be a power of two."""
+    nrb = r.bit_length() - 1
+    error = f"row_bwd_plan: unsupported shape r={r}, nkernel={nkernel}"
+    if r != 1 << nrb or not 1 <= nkernel <= MAX_KERNEL_QUBITS:
+        raise ValueError(error)
+    tb, ctas, threads, hi, lo = _row_stage(nrb, 7, nkernel, error)
+    # both passes take the larger one's bytes: the exchange tile of four
+    # planes (past 3 bits), the warps' dg sums and the gates, 48 floats each
+    smem = 4 * ((4 << tb if lo > 3 else 0) + (threads // 32 + 1) * 8 * _RP_MAXB)
+    return {**_lane_records(r, lane), **_pass_records(ctas, threads, tb, hi, lo, lambda nb, last: smem)}
+
+
+def row_bwd_card_plan(r: int, nkernel: int, lane: bool = False) -> dict:
+    """The same plan as the card's C code reports it (``tcng_row_bwd_plan``),
+    with each stage kernel's ``ctas_per_sm``, ``registers`` and
+    ``local_bytes`` a thread besides.  Needs the card."""
+    own = {k: _PLAN_OWN[k] for k in ("lane", "dm", "row_hi", "row_lo")}
+    return _card_records("row_layer", "tcng_row_bwd_plan", own, r, nkernel, int(lane))
+
+
 def _launch_row_bwd(gr, gi, yr, yi, ctr, cti, mr, mi):
     dev, gr, gi, nk, r = _row_setup("row_bwd", gr, gi, yr, yi, ctr, cti)
     lane = mr is not None
@@ -822,7 +888,10 @@ def _launch_row_bwd(gr, gi, yr, yi, ctr, cti, mr, mi):
     dg = torch.empty((2, nk, 4), dtype=torch.float32, device=dev)
     dm = torch.empty((2, _LANES, _LANES), dtype=torch.float32, device=dev) if lane else None
     lib = _build.library("row_layer")
-    scratch = torch.empty(lib.tcng_row_bwd_scratch(r, nk, int(lane)), dtype=torch.float32, device=dev)
+    floats = lib.tcng_row_bwd_scratch(r, nk, int(lane))
+    if floats < 0:  # the row stage takes r = 2^nrb rows only
+        raise ValueError(f"row_bwd: unsupported shape r={r}, nkernel={nk}")
+    scratch = torch.empty(floats, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         row_bwd.launches += 1

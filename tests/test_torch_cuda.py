@@ -22,7 +22,11 @@ whole-block multilayer and rotx kernels) as K1-K8, and the QAOA cost of
 1e-4 on energy and gradient.  K3/K4 at the shared row stage's boundaries
 (1-11 walked bits) as K3/K4, bit for bit twice; their plan as the card
 reports it against ``zzrx_bwd_plan``.  K1/K3 with the row kron (K13/K14)
-as K1/K3, the ``FUSE_ROWM`` TFIM gradient as the circuit gradients; K15 (the staged
+as K1/K3, the ``FUSE_ROWM`` TFIM gradient as the circuit gradients; K7 at
+1-11 walked bits (the gate row passes) with and without the lane, bit for
+bit twice, and K9 at 1-12 row bits and 128-1024 lanes, as K1-K8; their
+plans as the card reports them against ``row_bwd_plan`` and
+``ml_fwd_plan``; K15 (the staged
 micro-benchmark, random non-unitary inputs whose values grow to O(100))
 within 1e-5 of its output's largest entry.
 """
@@ -539,6 +543,48 @@ def test_row_bwd_const_kernel_matches_plain(cuda, n, nkernel):
         torch.testing.assert_close(g, w, atol=ATOL, rtol=0)
 
 
+@pytest.mark.parametrize("lane", [False, True])
+@pytest.mark.parametrize("nkernel", range(1, 12))
+def test_row_bwd_at_row_pass_boundaries(cuda, nkernel, lane):
+    """K7 at every walked-bit count of its gate passes (1-3 in registers
+    only, 4-6 with one shared-memory crossing, 7-11 in two passes), with two
+    outer row bits (CTA bits), against its plain version and bit for bit
+    against itself."""
+    n = nkernel + 9
+    x = _row_inputs(n, nkernel, 5 * n + nkernel, cuda)
+    m = x["m"] if lane else ()
+    with torch.no_grad():
+        y = krl.row_fwd_plain(*x["g"], *x["s"], *m)
+    got = krl.row_bwd(*x["g"], *y, *x["ct"], *m)
+    again = krl.row_bwd(*x["g"], *y, *x["ct"], *m)
+    torch.cuda.synchronize()
+    want = krl.row_bwd_plain(*x["g"], *y, *x["ct"], *m)
+    assert len(got) == len(want) == (6 if lane else 4)
+    for i, (g, g2, w) in enumerate(zip(got, again, want)):
+        assert g.shape == w.shape and torch.equal(g, g2)
+        if i < 2:
+            torch.testing.assert_close(g, w, atol=ATOL, rtol=0)
+        else:
+            _close(g, w)
+
+
+@pytest.mark.parametrize("n,nkernel,lane", [(8, 1, False), (12, 2, True), (14, 6, False), (20, 11, False),
+                                            (20, 11, True), (22, 11, True)])
+def test_row_bwd_plan_on_card(cuda, n, nkernel, lane):
+    """K7's stage plan as the card reports it equals the Python arithmetic
+    (``row_bwd_plan``), with shared memory within a CTA's 232,448 B, at
+    least one CTA an SM, no local memory, and no spill of the gate passes
+    in nvcc's report of the row_layer build."""
+    r = 2 ** (n - 7)
+    got, want = krl.row_bwd_card_plan(r, nkernel, lane), krl.row_bwd_plan(r, nkernel, lane)
+    assert got.keys() == want.keys()
+    for stage, p in got.items():
+        assert {k: p[k] for k in want[stage]} == want[stage], stage
+        assert p["smem"] <= 232448 and p["ctas_per_sm"] >= 1 and p["local_bytes"] == 0
+    hits = list(_ptxas_report(_build.build_log("row_layer"), "gate_row_pass_kernel").values())
+    assert len(hits) == 2 and all(regs and not st and not ld for regs, st, ld in hits)
+
+
 def test_row_wrappers_check_their_inputs(cuda):
     x = _row_inputs(12, 5, 1, cuda)
     (sr, si), (gr, gi) = x["s"], x["g"]
@@ -552,6 +598,9 @@ def test_row_wrappers_check_their_inputs(cuda):
     with pytest.raises(ValueError, match="unsupported shape"):  # 32 rows: not whole blocks of 2^6
         g6 = torch.zeros((6, 4), device=cuda)
         krl.row_bwd_const(g6, g6, sr, si)
+    with pytest.raises(ValueError, match="unsupported shape"):  # 96 rows: K7's row stage takes 2^k
+        g5, p96 = torch.zeros((5, 4), device=cuda), torch.zeros((96, 128), device=cuda)
+        krl.row_bwd(g5, g5, p96, p96, p96, p96)
 
 
 @pytest.mark.parametrize("n,L", [(12, 2), (20, 4)])
@@ -651,6 +700,51 @@ def test_ml_plan_on_card(cuda, nrow, lanes):
     for needle in ("wide_nt_kernel", "wide_dm_kernel", "ml_row_pass_kernel"):
         hits = [v for k, v in report.items() if needle in k]
         assert hits and all(regs and not st and not ld for regs, st, ld in hits)
+
+
+@pytest.mark.parametrize(
+    "nrow,lanes", [(k, 128) for k in range(1, 13)] + [(12, 256), (12, 512), (12, 1024)]
+)
+def test_ml_fwd_at_row_pass_boundaries(cuda, nrow, lanes):
+    """K9 at every row-bit count of its forward passes (1-6: the zz pass
+    alone; 7-12: the zz pass and the other) at 128 lanes, and at 12 row
+    bits at 256, 512 and 1024 lanes, L=2, against its plain version."""
+    n = nrow + lanes.bit_length() - 1
+    rng = np.random.default_rng(7 * n + nrow)
+
+    def unit(size):
+        z = rng.normal(size=size) + 1j * rng.normal(size=size)
+        return z / np.linalg.norm(z)
+
+    cand = [(a, b) for a in range(n) for b in range(a + 1, n)]
+    pairs = tuple(cand[i] for i in rng.choice(len(cand), size=min(37, len(cand)), replace=False))
+    m = np.linalg.qr(rng.normal(size=(2, lanes, lanes)) + 1j * rng.normal(size=(2, lanes, lanes)))[0]
+    args = (pairs, n, convert.params(rng.normal(size=(2, len(pairs))) * 0.5, cuda),
+            convert.params(rng.normal(size=(2, nrow)) * 0.5, cuda))
+    planes = (*convert.planes(unit(2**n), cuda, lanes=lanes), convert.params(m.real, cuda),
+              convert.params(m.imag, cuda))
+    kml.ml_fwd.launches = 0
+    with torch.no_grad():
+        got = kml.ml_fwd(*args, *planes)
+        torch.cuda.synchronize()
+        want = kml.ml_fwd_plain(*args, *planes)
+    assert kml.ml_fwd.launches == 1
+    for g, w in zip(got, want):
+        assert g.is_cuda and g.shape == w.shape == (2**nrow, lanes)
+        torch.testing.assert_close(g, w, atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("nrow,lanes", [(1, 128), (4, 128), (7, 128), (12, 256), (12, 1024)])
+def test_ml_fwd_plan_on_card(cuda, nrow, lanes):
+    """K9's records of the card's plan (``ml_plan``) equal the Python
+    arithmetic (``ml_fwd_plan``), and its forward passes spill nothing."""
+    r, npairs = 2**nrow, 37
+    got, want = kml.ml_plan(r, lanes, nrow, npairs), kml.ml_fwd_plan(r, lanes, nrow, npairs)
+    for stage, p in want.items():
+        assert {k: got[stage][k] for k in p} == p, stage
+        assert got[stage]["local_bytes"] == 0 and got[stage]["ctas_per_sm"] >= 1
+    hits = list(_ptxas_report(_build.build_log("multilayer"), "fwd_row_pass_kernel").values())
+    assert len(hits) == 2 and all(regs and not st and not ld for regs, st, ld in hits)
 
 
 @pytest.mark.parametrize("n,nkernel", [(9, 2), (20, 10)])

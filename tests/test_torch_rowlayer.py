@@ -121,6 +121,48 @@ def test_row_bwd_plain_matches_pallas(nkernel, blocks, lane):
     _assert_all_close(got, want)  # ds planes, dg planes (nkernel, 2, 2), dM planes
 
 
+def _row_bwd_in_pass_order(gr, gi, yr, yi, ctr, cti):
+    """K7's row stage in the order the card's gate passes take it, in plain
+    torch: the passes of ``row_bwd_plan``, the first (the high walked bits)
+    before the last (the low ones), each from its lowest bit; per bit the
+    un-apply of g^dagger, the dg sums and the ct walk by g^T."""
+    nk, r = gr.shape[0], yr.shape[0]
+    plan = krl.row_bwd_plan(r, nk)
+    hi, lo = plan["row_hi"]["bits"], plan["row_lo"]["bits"]
+    sr, si, cr, ci = yr, yi, ctr, cti
+    dg = [None] * nk
+    for w in [lo + i for i in range(hi)] + list(range(lo)):
+        q, s = nk - 1 - w, 1 << w
+        g00r, g00i, g01r, g01i, g10r, g10i, g11r, g11i = krl._gate_scalars(gr, gi, q)
+        sr, si = krl._butterfly(sr, si, s, (g00r, -g00i, g10r, -g10i, g01r, -g01i, g11r, -g11i))
+        # dg[a, b] = Σ ct[row with bit a] s[row with bit b], over the pairs
+        lo_rows = krl._lo_rows(r, s, yr.device)[:, 0]
+        c = torch.complex(cr, ci)
+        z = torch.complex(sr, si)
+        dg[q] = torch.stack([
+            torch.stack([torch.sum(c[lo_rows] * z[lo_rows]), torch.sum(c[lo_rows] * z[~lo_rows])]),
+            torch.stack([torch.sum(c[~lo_rows] * z[lo_rows]), torch.sum(c[~lo_rows] * z[~lo_rows])]),
+        ])
+        cr, ci = krl._butterfly(cr, ci, s, (g00r, g00i, g10r, g10i, g01r, g01i, g11r, g11i))
+    dg = torch.stack(dg)
+    return cr, ci, dg.real, dg.imag
+
+
+@pytest.mark.parametrize("nkernel,blocks", [(5, 2), (8, 2), (11, 1)])
+def test_row_bwd_pass_order_matches_pallas(nkernel, blocks):
+    """The card's order of K7's gates (one pass of 5 bits; passes of 2 and
+    6, and of 5 and 6 bits) against the JAX ``_pallas_row_bwd`` in
+    interpret mode, which walks the gates from the lowest bit up in one
+    block: the gates act on distinct bits and commute, so ds and dg agree
+    to rounding (``ATOL``)."""
+    x = _row_inputs(nkernel, blocks, seed=60 * nkernel + blocks)
+    y = [t.numpy() for t in krl.row_fwd_plain(*_t(*x["g"], *x["s"]))]
+    want = _interpret(lambda: jkrl._pallas_row_bwd(*_j(*x["g"], *y, *x["ct"])))
+    got = _row_bwd_in_pass_order(*_t(x["g"][0].reshape(nkernel, 4), x["g"][1].reshape(nkernel, 4), *y,
+                                     *x["ct"]))
+    _assert_all_close(got, want)
+
+
 @pytest.mark.parametrize("nkernel,blocks", [(3, 2), (3, 4), (5, 2), (5, 4)])
 def test_row_bwd_const_plain_matches_pallas(nkernel, blocks):
     x = _row_inputs(nkernel, blocks, seed=30 * nkernel + blocks)
