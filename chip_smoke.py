@@ -16,7 +16,8 @@ Phases (any failure exits non-zero; nothing is caught):
      without the lane matrix, K2 ``grand_zzrx_fwd`` at L=4, K3
      ``zzrx_bwd`` with and without the lane matrix (and with it at n=22,
      the shape the training path gives K3), K4 ``grand_zzrx_bwd`` at L=4
-     and L=3 (K3 and K4 twice: the two results must be equal bit for bit),
+     and L=3 (K2, K3 and K4 twice: the two results must be equal bit for
+     bit),
      each against its plain version on the same CUDA inputs, with unitary
      rx-kron outer and lane matrices;
   3. the forward path: ``Circuit(20)`` h_layer + 4 zzrx_layer +
@@ -34,7 +35,8 @@ Phases (any failure exits non-zero; nothing is caught):
   5. timings (CUDA events, after warm-up): the evaluation and the training
      step (median of 20), each kernel at its path's shape (K3 at n=22, the
      others at n=20) over 3 rounds of 20 medians and its plain version over
-     3 rounds of 5 single calls, reported as median and spread;
+     3 rounds of 5 single calls, reported as median and spread; K2 also by
+     a replayed CUDA graph;
   6. torch.profiler windows over 10 L=4 evaluations and 10 L=4 training
      steps: device busy share and device time by kernel name; K3/K4's
      adjoint stages (``csrc/adjoint_stages.cuh``): their plan at n=20 (also
@@ -44,7 +46,13 @@ Phases (any failure exits non-zero; nothing is caught):
      chunks; each stage (the outer walk with its sum, the lane pair, dM with
      its colsum, the row stage's two passes and their sum) by device time
      a layer on the training step, beside its bound and one PyTorch call of
-     each product (a replayed CUDA graph);
+     each product (a replayed CUDA graph); K2's stages
+     (``csrc/zzrx_fwd.cu`` on the forward row stage and product of
+     ``csrc/adjoint_stages.cuh``): its plan at n=20 L=4 as the card reports
+     it against the Python arithmetic, registers and spills (a spill
+     fails), and each stage (the two row passes, the product beside one
+     ``torch.matmul``, the outer pass) by device time a layer on the
+     training step beside its bound;
   7. the TEBD path, the main path of the TEBD slice: ``ParallelTEBD(60, 64,
      initial="neel")`` on the card for 10 trotter steps with the gate
      stacks of ``bench.py``'s TEBD workload, the launch counts reset just
@@ -95,7 +103,10 @@ Phases (any failure exits non-zero; nothing is caught):
      form (a) step, beside its bound and one PyTorch call of each product
      (a replayed CUDA graph); K9's plan at the same widths against the
      Python arithmetic and its stages (the zz pass, the other row pass,
-     the product) the same way;
+     the product) the same way; K9 and K12 alone by a replayed CUDA graph;
+     K12's plan as the card reports it against the Python arithmetic,
+     registers and spills, and its passes and colsum by device time a
+     launch on the form (b) step beside their bounds;
  10. the FUSE_ROWM path, the main path of the row-kron slice: K1 and K3
      with the row kron M7 (stages K13 ``rowm_fwd`` and K14 ``rowm_bwd``,
      rmx=7, a 128x128 complex M7) with and without the lane against their
@@ -392,6 +403,32 @@ def _k4_work(r, npairs, nkernel, nouter, L):
     return nbytes, flops
 
 
+def _k2_work(r, npairs, nkernel, nouter, L):
+    """(bytes, flops) of K2: the state in and y out, the L residuals out
+    and, a layer, the lane and outer planes in; per layer and amplitude
+    K1's flops with the lane matrix (:func:`_k1_work`) and the outer
+    product, 8·D."""
+    amps, d = r * 128, 2**nouter
+    _, f1 = _k1_work(r, npairs, nkernel, True)
+    nbytes = 4 * 4 * amps + L * 2 * 4 * amps + L * (2 * 4 * 128 * 128 + 2 * 4 * d * d)
+    return nbytes, L * (f1 + amps * 8 * d)
+
+
+def _k2_stage_work(r, npairs, nkernel, nouter):
+    """(bytes, flops) of each of K2's stages a layer, by name: the row stage
+    (x in, its output out, the layer's angles in; 2 flops a pair + 6 for the
+    phase, 6 an rx stage), the product (that output and M in, ks[l] out;
+    8·128) and the outer pass (ks[l] and the (D, D) planes in, y out;
+    8·D).  L layers of them add up to :func:`_k2_work`'s flops; their bytes
+    to it plus what the stages and layers hand each other and the angles."""
+    amps, d = r * 128, 2**nouter
+    return {
+        "row": (16 * amps + 4 * (npairs + nkernel), (2 * npairs + 6 + 6 * nkernel) * amps),
+        "product": (16 * amps + 2 * 4 * 128 * 128, 8 * 128 * amps),
+        "outer": (16 * amps + 2 * 4 * d * d, 8 * d * amps),
+    }
+
+
 def _k34_stage_work(r, npairs, nkernel, nouter):
     """(bytes, flops) of each stage of K3 with the lane matrix, and of a K4
     layer, by name: the lane pair psi = y @ conj(M)^T and w = ct @ M^T (y
@@ -519,6 +556,70 @@ def _k4_stages(krl, card, stage_us, y, ct, m, pairs22):
     rec = stage_us["pair records"]
     print(f"K4 a layer at n={N} L={L}, {card}: {layer:.2f} us device (the stages above), plus "
           f"{rec[0]:.2f} us a call for the pair records (x{rec[1]:g} a step)")
+
+
+#: K2's stages on the TFIM step, by kernel name (csrc/adjoint_stages.cuh
+#: and csrc/zzrx_fwd.cu); the transpose of M runs once a call
+K2_STAGES = {
+    "row zz": lambda k: "fwd_row_pass_kernel<true>" in k,
+    "row hi": lambda k: "fwd_row_pass_kernel<false>" in k,
+    "product": lambda k: "wide_nt_kernel<1, false>" in k,
+    "outer": lambda k: "outer_fwd_kernel" in k,
+    "transpose": lambda k: "transpose_kernel" in k,
+}
+
+
+def _k2_stages(kg, card, stage_us, x, m, npairs, nkernel, nouter):
+    """K2's stages at the TFIM step's shapes: the plan at n=20 L=4 as the
+    card reports it, each record equal to ``grand_zzrx_fwd_plan``'s and
+    without local memory; nvcc's registers and spills of its stage kernels
+    in the zzrx_fwd build (a spill fails); each stage's device time a layer
+    on the n=20 L=4 step (``stage_us``, from :func:`_stage_times`) beside
+    its bound, and one ``torch.matmul`` of the product's shapes on the
+    same operands (a replayed CUDA graph; never called by the port;
+    ``allow_tf32`` is False)."""
+    import torch
+
+    from tensorcircuit_ng_tpu_torch.core import _build
+
+    r = x[0].shape[0]
+    got, want = kg.grand_zzrx_fwd_card_plan(r, nkernel, npairs, L), kg.grand_zzrx_fwd_plan(r, nkernel, npairs, L)
+    for stage, p in got.items():
+        print(f"K2 plan at n={N} L={L}, {stage}, {card}: {p}")
+        if p["local_bytes"] or any(p[k] != v for k, v in want[stage].items()):
+            _fail(f"K2 stage {stage}: card plan {p}, Python plan {want[stage]}")
+    report = _ptxas_report(_build.build_log("zzrx_fwd"), "")
+    for needle in ("fwd_row_pass_kernel", "wide_nt_kernel", "outer_fwd_kernel", "transpose_kernel",
+                   "ml_pair_records_kernel"):
+        hits = {k: v for k, v in report.items() if needle in k}
+        if not hits:
+            _fail(f"no ptxas report of {needle} in zzrx_fwd")
+        for name, (regs, st, ld) in hits.items():
+            print(f"ptxas[zzrx_fwd] {needle} ({name[-40:]}): {regs} registers, {st} bytes spill stores, "
+                  f"{ld} bytes spill loads")
+            if regs is None or st or ld:
+                _fail(f"{name} spills or has no register count")
+    xc, mc = torch.complex(*x), torch.complex(*m)
+    with torch.no_grad():
+        lib_ms = {"product": _graph_ms(lambda: torch.matmul(xc, mc))}
+    work = _k2_stage_work(r, npairs, nkernel, nouter)
+    rows = {"row": ["row zz", "row hi"], "product": ["product"], "outer": ["outer"]}
+    layer = 0.0
+    for stage, labels in rows.items():
+        us = sum(stage_us[k][0] for k in labels)
+        layer += us
+        bound, by = _bound_ms(*work[stage])
+        lm = lib_ms.get(stage)
+        lib_txt = (f"library call torch.matmul {1e3 * lm[0]:.2f} us (CUDA graph of 10 calls, median of 3 rounds, "
+                   f"min {1e3 * lm[1]:.2f}, max {1e3 * lm[2]:.2f})" if lm else "no library call")
+        parts = " + ".join(f"{k} {stage_us[k][0]:.2f}" for k in labels)
+        print(f"K2 stage {stage} at n={N} L={L}, {card}: {us:.2f} us device a layer ({parts}; torch.profiler "
+              f"over 10 training steps, x{stage_us[labels[0]][1]:g} a step); bound {1e3 * bound:.2f} us ({by}), "
+              f"{100 * 1e3 * bound / us:.1f} % of it reached; {lib_txt}")
+    tr = stage_us["transpose"]
+    print(f"K2 a layer at n={N} L={L}, {card}: {layer:.2f} us device (the stages above), plus {tr[0]:.2f} us a "
+          f"launch for the transpose of M (x{tr[1]:g} a step) and the pair records (in K4's line)")
+    return layer
 
 
 def _rowm_stage_work(r, rmx):
@@ -1009,6 +1110,27 @@ def _rotx_work(r, nkernel, kind):
     return 6 * 4 * amps + 2 * 4 * nkernel, 20 * nkernel * amps
 
 
+def _k12_stage_work(r, nkernel):
+    """(bytes, flops) of each of K12's stages a launch, by name: the first
+    row pass "row hi" (the walked bits past the low 6; y and ct in, psi and
+    ct out, its angles in and its dθ partials out; 20 flops an amplitude a
+    bit) where there are two passes, the last "row lo" (psi and ct in, ds
+    out, the low bits' angles in and partials out) and the partials' sum
+    "colsum" (one partial a tile of 2^11 amplitudes and a bit in, dθ out;
+    one add each).  Their flops add up to :func:`_rotx_work`'s K12 flops
+    plus the colsum's adds; their bytes to it plus the handoffs."""
+    amps = r * 128
+    ctas = amps // min(amps, 2048)
+    lo = min(nkernel, 6)
+    hi = nkernel - lo
+    out = {}
+    if hi:
+        out["row hi"] = (32 * amps + 4 * hi + 4 * ctas * hi, 20 * hi * amps)
+    out["row lo"] = (24 * amps + 4 * lo + 4 * ctas * lo, 20 * lo * amps)
+    out["colsum"] = (4 * ctas * nkernel + 4 * nkernel, ctas * nkernel)
+    return out
+
+
 def _qaoa_phase(tct, krl, dev, card, counters):
     """Phase 9, the QAOA path (the main path of the QAOA slice): K9-K12
     against their plain versions at the path's shapes; the start energy of
@@ -1160,7 +1282,8 @@ def _qaoa_phase(tct, krl, dev, card, counters):
             stages = {"a": ("fwd_row_pass_kernel", "transpose_kernel", "wide_nt_kernel<1, false>",
                             "ml_pair_records_kernel", "wide_nt_kernel<2, true>", "wide_dm_kernel", "colsum_kernel",
                             "ml_row_pass_kernel<false>", "ml_row_pass_kernel<true>", "colsum_tree_kernel"),
-                      "b": ("rotx_fwd_kernel", "rotx_bwd_kernel", "colsum_kernel")}[form]
+                      "b": ("rotx_fwd_kernel", "ml_row_pass_kernel<false>", "rx_row_pass_kernel",
+                            "colsum_tree_kernel")}[form]
             for stage in stages:
                 for name, ms, count in by_kernel:
                     if stage in name:
@@ -1175,15 +1298,20 @@ def _qaoa_phase(tct, krl, dev, card, counters):
                     "row sums": lambda k: "colsum_tree_kernel" in k,
                     **{f"K9 {k}": v for k, v in K9_STAGES.items()},
                 })
+            else:
+                k12_us = _stage_times(step, K12_STAGES)
     finally:
         kernels.ML_MODE, kernels.USE_ROTX = "stack", False
 
     with torch.no_grad():
         times = {k: (_time_rounds(v[0][1]), _time_rounds(v[0][2], **PLAIN_TIMING)) for k, v in cases.items()}
         k9_graph = _graph_ms(cases["ml_fwd"][0][1])
-    print(f"K9 alone [L={QAOA_P} lanes={lanes}, n={n}] by a replayed CUDA graph of 10 calls (median of 3 rounds), "
-          f"{card}: {1e3 * k9_graph[0]:.2f} us (min {1e3 * k9_graph[1]:.2f}, max {1e3 * k9_graph[2]:.2f})")
+        k12_graph = _graph_ms(cases["rotx_bwd"][0][1])
+    for kname, label, g in (("K9", f"L={QAOA_P} lanes={lanes}", k9_graph), ("K12", f"nkernel={nk}", k12_graph)):
+        print(f"{kname} alone [{label}, n={n}] by a replayed CUDA graph of 10 calls (median of 3 rounds), "
+              f"{card}: {1e3 * g[0]:.2f} us (min {1e3 * g[1]:.2f}, max {1e3 * g[2]:.2f})")
     _ml_stages(kml, card, stage_us, y_ml, (ctr, cti), (mr, mi), npairs, nrow)
+    _k12_stages(krl, card, k12_us, 2 ** (n - 7), nk)
     work = {
         "ml_fwd": _ml_work(r, lanes, npairs, nrow, QAOA_P, "fwd"),
         "ml_bwd": _ml_work(r, lanes, npairs, nrow, QAOA_P, "bwd"),
@@ -1206,6 +1334,51 @@ def _qaoa_phase(tct, krl, dev, card, counters):
             "library_ms": None,
         })
     return entries
+
+
+#: K12's stages on the form (b) step, by kernel name (csrc/adjoint_stages.cuh)
+K12_STAGES = {
+    "row hi": lambda k: "ml_row_pass_kernel<false>" in k,
+    "row lo": lambda k: "rx_row_pass_kernel" in k,
+    "colsum": lambda k: "colsum_tree_kernel" in k,
+}
+
+
+def _k12_stages(krl, card, stage_us, r, nkernel):
+    """K12's passes at the QAOA form (b) path's shape: the plan as the card
+    reports it, each record equal to ``rotx_bwd_plan``'s and without local
+    memory; nvcc's registers and spills of its passes in the row_layer
+    build (a spill fails); each stage's device time a launch on the form
+    (b) step (``stage_us``, from :func:`_stage_times`) beside its bound (no
+    one PyTorch call computes a stage)."""
+    from tensorcircuit_ng_tpu_torch.core import _build
+
+    got, want = krl.rotx_bwd_card_plan(r, nkernel), krl.rotx_bwd_plan(r, nkernel)
+    for stage, p in got.items():
+        print(f"K12 plan at n={N} nkernel={nkernel}, {stage}, {card}: {p}")
+        if p["local_bytes"] or any(p[k] != v for k, v in want[stage].items()):
+            _fail(f"K12 stage {stage}: card plan {p}, Python plan {want[stage]}")
+    report = _ptxas_report(_build.build_log("row_layer"), "")
+    for needle in ("ml_row_pass_kernel", "rx_row_pass_kernel", "colsum_tree_kernel"):
+        hits = {k: v for k, v in report.items() if needle in k}
+        if not hits:
+            _fail(f"no ptxas report of {needle} in row_layer")
+        for name, (regs, st, ld) in hits.items():
+            print(f"ptxas[row_layer] {needle} ({name[-40:]}): {regs} registers, {st} bytes spill stores, "
+                  f"{ld} bytes spill loads")
+            if regs is None or st or ld:
+                _fail(f"{name} spills or has no register count")
+    work = _k12_stage_work(r, nkernel)
+    total = 0.0
+    for stage, (us, per_step) in stage_us.items():
+        total += us
+        bound, by = _bound_ms(*work[stage])
+        print(f"K12 stage {stage} at n={N} nkernel={nkernel}, {card}: {us:.2f} us device a launch (torch.profiler "
+              f"over 10 form (b) steps, x{per_step:g} a step); bound {1e3 * bound:.2f} us ({by}), "
+              f"{100 * 1e3 * bound / us:.1f} % of it reached; no library call")
+    bound, by = _bound_ms(*_rotx_work(r, nkernel, "bwd"))
+    print(f"K12 a launch at n={N} nkernel={nkernel}, {card}: {total:.2f} us device (the stages above); bound "
+          f"{1e3 * bound:.2f} us ({by}), {100 * 1e3 * bound / total:.1f} % of it reached")
 
 
 #: K9's and K10's widths whose plan phase 9 prints (nrow = 12: n = 19..22)
@@ -1463,7 +1636,7 @@ def _rowm_phase(tct, krl, kst, dev, card, counters):
           f"unprofiled {step_ms:.3f} ms), {len(by_kernel)} kernel names")
     for name, ms, count in by_kernel[:14]:
         print(f"  device {ms:.4f} ms x{count:g}/run  {name[:90]}")
-    for stage in ("zz_rowrx_kernel", f"rowm_apply_kernel<{R}, false>", "lane_outer_kernel<false>",
+    for stage in ("zz_rowrx_kernel", f"rowm_apply_kernel<{R}, false>", "lane_fwd_kernel",
                   "ml_pair_records_kernel", "wide_nt_kernel<2, true>", "wide_dm_kernel",
                   f"rowm_apply_kernel<{R}, true>", f"rowm_dm_kernel<{R}>", "ml_row_pass_kernel<true>",
                   "colsum_kernel", "colsum_tree_kernel"):
@@ -1703,7 +1876,7 @@ def main() -> int:
             for nl in (L, 3)
         ],
     }
-    max_err = _check_parity(cases, twice=("zzrx_bwd", "grand_zzrx_bwd"))
+    max_err = _check_parity(cases, twice=("grand_zzrx_fwd", "zzrx_bwd", "grand_zzrx_bwd"))
 
     print(f"phase 2 ended at {time.time() - t_start:.1f} s")
 
@@ -1823,20 +1996,20 @@ def main() -> int:
             "grand_zzrx_bwd": cases["grand_zzrx_bwd"][0],
         }
         times = {k: (_time_rounds(v[1]), _time_rounds(v[2], **PLAIN_TIMING)) for k, v in timed.items()}
+        k2_graph = _graph_ms(timed["grand_zzrx_fwd"][1])
     for name, (t, tp) in times.items():
         print(f"kernel {name} [{timed[name][0]}] over 3 rounds, {card}: median {t[0]:.4f} ms "
               f"(min {t[1]:.4f}, max {t[2]:.4f}); plain median {tp[0]:.4f} ms "
               f"(min {tp[1]:.4f}, max {tp[2]:.4f})")
+    print(f"K2 alone [L={L}, n={N}] by a replayed CUDA graph of 10 calls (median of 3 rounds), {card}: "
+          f"{1e3 * k2_graph[0]:.2f} us (min {1e3 * k2_graph[1]:.2f}, max {1e3 * k2_graph[2]:.2f})")
     print(f"energy evaluation (CUDA events, ends in .item()), {card}: "
           f"L={L} {e4_ms:.3f} ms, L=3 {e3_ms:.3f} ms (median of 20)")
     print(f"training step n={N} L={L} (value, grad, SGD update; CUDA events, ends in .item()), "
           f"{card}: {step_ms:.3f} ms (median of 20)")
-    b1, f1 = _k1_work(r, len(PAIRS), nkernel, True)
-    b2 = 4 * 4 * r * 128 + L * 2 * 4 * r * 128 + L * (2 * 4 * 128 * 128 + 2 * 4 * 2**(2 * nouter))
-    f2 = L * (f1 + r * 128 * 8 * 2**nouter)
     work = {
-        "zzrx_fwd": (b1, f1),
-        "grand_zzrx_fwd": (b2, f2),
+        "zzrx_fwd": _k1_work(r, len(PAIRS), nkernel, True),
+        "grand_zzrx_fwd": _k2_work(r, len(PAIRS), nkernel, nouter, L),
         "zzrx_bwd": _k3_work(r22, len(pairs22), nkernel22, True),
         "grand_zzrx_bwd": _k4_work(r, len(PAIRS), nkernel, nouter, L),
     }
@@ -1882,9 +2055,12 @@ def main() -> int:
               f"{len(by_kernel)} kernel names")
         for name, ms, count in by_kernel[:12]:
             print(f"  device {ms:.4f} ms x{count:g}/run  {name[:90]}")
-    # K4's stages a layer on the step, their bounds and one torch call each
-    _k4_stages(krl, card, _stage_times(train_step, K4_STAGES), (ksr[L - 1], ksi[L - 1]), (ctr, cti),
-               (mlr[L - 1], mli[L - 1]), pairs22)
+    # K4's and K2's stages a layer on the step, their bounds and one torch
+    # call of each product
+    step_stages = _stage_times(train_step, {**K4_STAGES, **{f"K2 {k}": v for k, v in K2_STAGES.items()}})
+    _k4_stages(krl, card, step_stages, (ksr[L - 1], ksi[L - 1]), (ctr, cti), (mlr[L - 1], mli[L - 1]), pairs22)
+    _k2_stages(kg, card, {k[3:]: v for k, v in step_stages.items() if k.startswith("K2 ")}, (sr, si),
+               (mlr[0], mli[0]), len(PAIRS), nkernel, nouter)
 
     print(f"phase 6 ended at {time.time() - t_start:.1f} s")
 

@@ -4,9 +4,10 @@
 // q is bit n-1-q of the flat index.  One set of kernels serves every
 // adjoint of the port with these stages: K3 and K4 (zzrx_bwd.cu, W = 128),
 // K7 (row_layer.cu, W = 128: the lane stage, and the row stage with
-// general gates) and K10 (multilayer.cu, W = 128-1024); K9's forward
-// (multilayer.cu) runs on the same row-stage plan and its product is the
-// same kernel with NA = 1.
+// general gates), K10 (multilayer.cu, W = 128-1024) and K12 (row_layer.cu:
+// the rx passes without the zz stage); the forwards K2 (zzrx_fwd.cu) and
+// K9 (multilayer.cu) run on the same row-stage plan and their product is
+// the same kernel with NA = 1, on M^T (transpose_kernel).
 //
 // Conventions (those of the JAX package): cotangent planes are (dL/dyr,
 // -dL/dyi), the non-conjugating complex cotangent, and walk by the
@@ -64,11 +65,14 @@
 //     and a two-step butterfly (warp_sum8: 9 shuffles, lane 4k holding sum
 //     k) into shared memory; the warps are then added in order into one
 //     partial a CTA.  The last pass writes only ct (ds).
-//   K9's forward passes (fwd_row_pass_kernel, fwd_row_stage), two planes
-//     in and two out: first the phase and the low row bits' rx on the
-//     tiles of the last pass, whose thread starts on the register bits
-//     the pair records are sorted by (one record set for every layer),
-//     then the high row bits' rx in place.
+//   K12's passes (rx_row_stage): ml_row_pass_kernel<false> with no pairs,
+//     then rx_row_pass_kernel, the last pass without the zz stage (no
+//     pair records, phase or x planes), writing only ct (ds).
+//   The forward passes of K2 and K9 (fwd_row_pass_kernel, fwd_row_stage),
+//     two planes in and two out: first the phase and the low row bits' rx
+//     on the tiles of the last pass, whose thread starts on the register
+//     bits the pair records are sorted by (one record set for every
+//     layer), then the high row bits' rx in place.
 // Every sum across CTAs is a per-CTA partial added in a fixed order: no
 // atomics, two runs agree bit for bit.  Plain f32 FMAs, no fast-math.
 // Bounds at n = 20, W = 128 (r = 8192): each complex 128-deep product is
@@ -76,8 +80,8 @@
 // outside the tensor cores): the pair 32.05 us, dM 16.03 us; the row stage
 // moves psi and ct in and ds out, 25 MB (7.5 us at 3.35 TB/s); K7's row
 // stage at nkernel = 11 the same bytes for 44 flops an amplitude a bit,
-// 0.51 GFLOP (7.6 us, operations).  K9's forward row stage at W = 256 moves
-// 16.8 MB a layer (5.0 us, bytes).
+// 0.51 GFLOP (7.6 us, operations).  The forward row stage moves 16.8 MB a
+// layer (5.0 us, bytes) at W = 256 (K9) and at W = 128 (K2).
 
 #pragma once
 
@@ -241,6 +245,30 @@ cudaError_t wide_nt(const float* a1r, const float* a1i, const float* a2r,
   const dim3 grid((rows + P_T - 1) / P_T, (1 << lw) / P_T);
   wide_nt_kernel<NA, CONJ><<<grid, THREADS, prod_smem<NA>(), st>>>(
       a1r, a1i, a2r, a2i, br, bi, c1r, c1i, c2r, c2i, rows, lw);
+  return cudaGetLastError();
+}
+
+// bt[l] = b[l]^T for the L (W, W) planes of b (32 x 32 tiles, grid (W /
+// 32, W / 32, L), blockDim (32, 8)): the b operand of a forward product
+// (K2, K9), which wide_nt_kernel reads as b[n][k].
+__global__ void transpose_kernel(const float* b, float* bt, int lw) {
+  __shared__ float t[32][33];
+  const long base = static_cast<long>(blockIdx.z) << (2 * lw);
+  const int x0 = blockIdx.x * 32, y0 = blockIdx.y * 32;
+  for (int j = threadIdx.y; j < 32; j += 8)
+    t[j][threadIdx.x] = b[base + (static_cast<long>(y0 + j) << lw) + x0 + threadIdx.x];
+  __syncthreads();
+  for (int j = threadIdx.y; j < 32; j += 8)
+    bt[base + (static_cast<long>(x0 + j) << lw) + y0 + threadIdx.x] = t[threadIdx.x][j];
+}
+
+// The (real, imag) planes of L (W, W) lane matrices transposed into (btr,
+// bti), once a call.
+cudaError_t transpose_planes(const float* br, const float* bi, float* btr, float* bti, int L, int lw,
+                             cudaStream_t st) {
+  const dim3 grid((1 << lw) / 32, (1 << lw) / 32, L);
+  transpose_kernel<<<grid, dim3(32, 8), 0, st>>>(br, btr, lw);
+  transpose_kernel<<<grid, dim3(32, 8), 0, st>>>(bi, bti, lw);
   return cudaGetLastError();
 }
 
@@ -611,34 +639,33 @@ size_t row_pass_smem(const RowPass& rp, int npairs, bool last) {
 
 // One pass of the row stage on the tile of CTA blockIdx.x: the rx bits of
 // the pass on psi (pr, pi) and ct (cr, ci); not LAST: psi into (o1r, o1i)
-// and ct into (o2r, o2i); LAST: then the zz stage, x = conj(phase) z into
-// (o1r, o1i) (skipped when o1r is null) and ds = phase * ct into (o2r,
-// o2i).  Any output may alias the planes it comes from.  Writes its dth
-// (and LAST: every dzz) column of part[blockIdx.x] = (dzz[0..npairs),
-// dth[0..nwalk)).  LAST reads the pair records grec and their slot offsets
-// gso (ml_pair_records_kernel) and the layer's angles zzth.  blockDim.x =
-// 2^(tb-3), 8 elements a thread.  Register caps: 64 (4 CTAs an SM) for the
-// last pass; the first spills at 64, so 80 (3 CTAs an SM).
-template <bool LAST>
-__global__ void __launch_bounds__(THREADS, LAST ? 4 : 3)
-ml_row_pass_kernel(const float* pr, const float* pi, const float* cr, const float* ci,
-                   float* o1r, float* o1i, float* o2r, float* o2i, float* part,
-                   const int4* __restrict__ grec, const int* __restrict__ gso,
-                   const float* __restrict__ zzth, int npairs,
-                   const float* __restrict__ th, int nwalk, RowPass rp) {
+// and ct into (o2r, o2i); LAST: ZZ, then the zz stage, x = conj(phase) z
+// into (o1r, o1i) (skipped when o1r is null) and ds = phase * ct into
+// (o2r, o2i); without ZZ (K12) only ct into (o2r, o2i).  Any output may
+// alias the planes it comes from.  Writes its dth (and ZZ: every dzz)
+// column of part[blockIdx.x] = (dzz[0..npairs), dth[0..nwalk)).  ZZ reads
+// the pair records grec and their slot offsets gso (ml_pair_records_kernel)
+// and the layer's angles zzth.  blockDim.x = 2^(tb-3), 8 elements a thread.
+template <bool LAST, bool ZZ>
+__device__ __forceinline__ void
+row_pass(const float* pr, const float* pi, const float* cr, const float* ci,
+         float* o1r, float* o1i, float* o2r, float* o2i, float* part,
+         const int4* __restrict__ grec, const int* __restrict__ gso,
+         const float* __restrict__ zzth, int npairs,
+         const float* __restrict__ th, int nwalk, const RowPass& rp) {
   extern __shared__ __align__(16) float smem[];
   const int t = threadIdx.x;
   const int nel = 1 << rp.tb, warps = blockDim.x >> 5;
   float* xs = smem;
-  // LAST: the pair records with the layer's angles and the slots'
-  // offsets: slot s holds records [so[s], so[s + 1])
+  // ZZ: the pair records with the layer's angles and the slots' offsets:
+  // slot s holds records [so[s], so[s + 1])
   int4* rec = reinterpret_cast<int4*>(xs + (rp.nb > 3 ? 4 * nel : 0));
-  float* red = reinterpret_cast<float*>(rec + (LAST ? npairs : 0));  // [warp][dth, dzz]
+  float* red = reinterpret_cast<float*>(rec + (ZZ ? npairs : 0));  // [warp][dth, dzz]
   const int nred = RP_MAXB + npairs;
   float* cs = red + warps * nred;
   int* so = reinterpret_cast<int*>(cs + 2 * RP_MAXB);
   if (t < rp.nb) sincosf(0.5f * th[pick(rp.q, t)], &cs[2 * t + 1], &cs[2 * t]);
-  if (LAST) load_records(grec, gso, zzth, npairs, rec, so);
+  if (ZZ) load_records(grec, gso, zzth, npairs, rec, so);
   const int cbase = cta_flat(rp);
   __syncthreads();
 
@@ -676,13 +703,21 @@ ml_row_pass_kernel(const float* pr, const float* pi, const float* cr, const floa
     row_butterflies<3>(zr, zi, ur, ui, d, cs, rp.nb);
   }
   const int lane = t & 31, warp = t >> 5;
-  if (!LAST) {
+  if (!ZZ) {
+    // the register bits' offsets taken again from the plan: held as dl[8]
+    // across the stores they spill at 64 registers
+    const bool two = rp.nb > 3;
+    const int s0 = 1 << (two ? rp.tmap[8] : rp.tmap[5]), s1 = 1 << (two ? rp.tmap[9] : rp.tmap[6]);
+    const int s2 = 1 << (two ? rp.tmap[10] : rp.tmap[7]);
 #pragma unroll
     for (int r = 0; r < 8; ++r) {
-      o1r[f + dl[r]] = zr[r];
-      o1i[f + dl[r]] = zi[r];
-      o2r[f + dl[r]] = ur[r];
-      o2i[f + dl[r]] = ui[r];
+      const int off = f + (r & 1 ? s0 : 0) + (r & 2 ? s1 : 0) + (r & 4 ? s2 : 0);
+      if (!LAST) {
+        o1r[off] = zr[r];
+        o1i[off] = zi[r];
+      }
+      o2r[off] = ur[r];
+      o2i[off] = ui[r];
     }
   } else {
     // zz: the exponent's 7 Walsh coefficients over the 3 register bits
@@ -741,6 +776,33 @@ ml_row_pass_kernel(const float* pr, const float* pi, const float* cr, const floa
     for (int w = 0; w < warps; ++w) s += red[w * nred + k];
     mypart[k < RP_MAXB ? npairs + pick(rp.q, k) : k - RP_MAXB] = s;
   }
+}
+
+// The passes of K3, K4 and K10 (row_pass with the zz stage in the last)
+// and K12's first.  64 registers (4 CTAs an SM: at n = 20 the 512 CTAs
+// run in one wave) spill nothing since the first pass takes its store
+// offsets from the plan (it spilled at 64 when it kept them as dl[8], and
+// ran at 80, 3 CTAs an SM, about 5 % slower in K12).
+template <bool LAST>
+__global__ void __launch_bounds__(THREADS, 4)
+ml_row_pass_kernel(const float* pr, const float* pi, const float* cr, const float* ci,
+                   float* o1r, float* o1i, float* o2r, float* o2i, float* part,
+                   const int4* __restrict__ grec, const int* __restrict__ gso,
+                   const float* __restrict__ zzth, int npairs,
+                   const float* __restrict__ th, int nwalk, RowPass rp) {
+  row_pass<LAST, LAST>(pr, pi, cr, ci, o1r, o1i, o2r, o2i, part, grec, gso, zzth, npairs, th,
+                       nwalk, rp);
+}
+
+// K12's last pass: row_pass without the zz stage (no pair records, phase
+// or x planes); ct into (o2r, o2i).  Its first pass is
+// ml_row_pass_kernel<false> with no pairs.
+__global__ void __launch_bounds__(THREADS, 4)
+rx_row_pass_kernel(const float* pr, const float* pi, const float* cr, const float* ci,
+                   float* o2r, float* o2i, float* part, const float* __restrict__ th, int nwalk,
+                   RowPass rp) {
+  row_pass<true, false>(pr, pi, cr, ci, nullptr, nullptr, o2r, o2i, part, nullptr, nullptr, nullptr,
+                        0, th, nwalk, rp);
 }
 
 // out[j] = sum over b < nb, in a fixed order, of part[b * ncols + j]: one
@@ -1021,6 +1083,31 @@ cudaError_t gate_row_stage(const RowStage& rs, const float* pr, const float* pi,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   return colsum_tree(part, static_cast<int>(grid), 8 * rs.nwalk, dg, st);
+}
+
+// K12's row stage on y (pr, pi) and ct (cr, ci) walking the rx angles th
+// (nwalk): with two passes the first (ml_row_pass_kernel<false>, no pairs)
+// takes psi into (mpr, mpi) and ct into (dsr, dsi), then the last
+// (rx_row_pass_kernel) takes ct into (dsr, dsi) (psi is not needed after
+// it); dth (nwalk) <- the per-CTA partials part (row_part_floats(rs, 0)),
+// added by colsum_tree.  Both passes take less than the default 48 KB of
+// dynamic shared memory.
+cudaError_t rx_row_stage(const RowStage& rs, const float* pr, const float* pi, const float* cr,
+                         const float* ci, float* mpr, float* mpi, float* dsr, float* dsi,
+                         float* part, const float* th, float* dth, cudaStream_t st) {
+  const unsigned grid = static_cast<unsigned>(row_ctas(rs));
+  const int threads = row_threads(rs);
+  if (rs.npass == 2) {
+    ml_row_pass_kernel<false><<<grid, threads, row_pass_smem(rs.pass[0], 0, false), st>>>(
+        pr, pi, cr, ci, mpr, mpi, dsr, dsi, part, nullptr, nullptr, nullptr, 0, th, rs.nwalk,
+        rs.pass[0]);
+    pr = mpr, pi = mpi, cr = dsr, ci = dsi;
+  }
+  rx_row_pass_kernel<<<grid, threads, row_pass_smem(last_pass(rs), 0, true), st>>>(
+      pr, pi, cr, ci, dsr, dsi, part, th, rs.nwalk, last_pass(rs));
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return colsum_tree(part, static_cast<int>(grid), rs.nwalk, dth, st);
 }
 
 // The forward rx butterflies rx(th) = [[c, -i s], [-i s, c]] of pass bits

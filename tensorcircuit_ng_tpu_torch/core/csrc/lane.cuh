@@ -3,9 +3,8 @@
 // float32 plane pair of a complex64 statevector.  Layout index = row * 128
 // + lane.
 //
-//   lane_outer_kernel: y = x @ M on 32-row tiles, M streamed through
-//     shared memory in K chunks (and, for the grand forward, the outer
-//     (D, D) left-matmul across the D rows {i + k*RB} a CTA holds);
+//   lane_fwd_kernel: y = x @ M on 32-row tiles, M streamed through shared
+//     memory in K chunks (K1, K6 and K15);
 //   helpers: the deterministic block sum, 16-byte cp.async copies, float
 //     vectors, colsum_kernel (per-CTA partials added in a fixed order).
 // The adjoint's lane and row stages (K3, K4, K7's lane, K10) are in
@@ -23,7 +22,7 @@ constexpr int LANES = 128;
 constexpr int MM = LANES * LANES;
 constexpr int THREADS = 256;
 constexpr int NWARPS = THREADS / 32;
-// forward lane pass: 32 rows a CTA, 8 warps x 4 rows, 4 columns a thread
+// forward lane stage: 32 rows a CTA, 8 warps x 4 rows, 4 columns a thread
 constexpr int B_ROWS = 32;
 constexpr int B_KC = 8;
 
@@ -95,28 +94,21 @@ __device__ float block_sum(float v, float* red) {
   return t;
 }
 
-// Rows of a forward lane tile: local row lr holds global row
-// (blockIdx.x * ni + lr / d) + (lr % d) * rb, so that with d > 1 the d
-// rows one outer matrix mixes sit in one CTA (d = 1: contiguous rows).
-__device__ __forceinline__ long b_row(int lr, int ni, int d, int rb) {
-  return static_cast<long>(blockIdx.x) * ni + lr / d +
-         static_cast<long>(lr % d) * rb;
-}
-
-template <bool OUTER>
+// K1's and K6's lane stage: y = x @ M on tiles of ni <= 32 consecutive
+// rows, 8 warps x 4 rows, 4 columns a thread, M streamed through shared
+// memory in chunks of 8 k.  x and y may alias (a CTA loads its tile before
+// it writes, and tiles are disjoint).
 __global__ void __launch_bounds__(THREADS)
-lane_outer_kernel(const float* xr, const float* xi, float* yr, float* yi,
-                  float* ksr, float* ksi, const float* __restrict__ mr,
-                  const float* __restrict__ mi, const float* __restrict__ mor,
-                  const float* __restrict__ moi, int ni, int d, int rb) {
+lane_fwd_kernel(const float* xr, const float* xi, float* yr, float* yi,
+                const float* __restrict__ mr, const float* __restrict__ mi, int ni) {
   __shared__ float xs_r[B_ROWS][LANES];
   __shared__ float xs_i[B_ROWS][LANES];
   __shared__ float ms_r[B_KC][LANES];
   __shared__ float ms_i[B_KC][LANES];
-  const int tr_rows = ni * d;
-  for (int e = threadIdx.x; e < tr_rows * LANES; e += blockDim.x) {
+  const long row0 = static_cast<long>(blockIdx.x) * ni;
+  for (int e = threadIdx.x; e < ni * LANES; e += blockDim.x) {
     const int lr = e / LANES, c = e % LANES;
-    const long off = b_row(lr, ni, d, rb) * LANES + c;
+    const long off = (row0 + lr) * LANES + c;
     xs_r[lr][c] = xr[off];
     xs_i[lr][c] = xi[off];
   }
@@ -154,71 +146,25 @@ lane_outer_kernel(const float* xr, const float* xi, float* yr, float* yi,
       }
     }
   }
-  if (!OUTER) {
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const int lr = warp * 4 + a;
-      if (lr >= tr_rows) continue;
-      const long base = b_row(lr, ni, d, rb) * LANES;
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        yr[base + lane + 32 * q] = acc_r[a][q];
-        yi[base + lane + 32 * q] = acc_i[a][q];
-      }
-    }
-    return;
-  }
-  __syncthreads();  // every thread is done reading the x tile
 #pragma unroll
   for (int a = 0; a < 4; ++a) {
     const int lr = warp * 4 + a;
-    if (lr >= tr_rows) continue;
-    const long base = b_row(lr, ni, d, rb) * LANES;
+    if (lr >= ni) continue;
+    const long base = (row0 + lr) * LANES;
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
-      const int c = lane + 32 * q;
-      ksr[base + c] = acc_r[a][q];
-      ksi[base + c] = acc_i[a][q];
-      xs_r[lr][c] = acc_r[a][q];
-      xs_i[lr][c] = acc_i[a][q];
-    }
-  }
-  __syncthreads();
-  // outer: row (i, k) <- sum_k' mo[k][k'] * row (i, k')
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int lr = warp * 4 + a;
-    if (lr >= tr_rows) continue;
-    const int k = lr % d;
-    const int g0 = lr - k;
-    float o_r[4] = {0.f, 0.f, 0.f, 0.f}, o_i[4] = {0.f, 0.f, 0.f, 0.f};
-    for (int kp = 0; kp < d; ++kp) {
-      const float wr = mor[k * d + kp], wi = moi[k * d + kp];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const float v_r = xs_r[g0 + kp][lane + 32 * q];
-        const float v_i = xs_i[g0 + kp][lane + 32 * q];
-        o_r[q] += wr * v_r - wi * v_i;
-        o_i[q] += wr * v_i + wi * v_r;
-      }
-    }
-    const long base = b_row(lr, ni, d, rb) * LANES;
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      yr[base + lane + 32 * q] = o_r[q];
-      yi[base + lane + 32 * q] = o_i[q];
+      yr[base + lane + 32 * q] = acc_r[a][q];
+      yi[base + lane + 32 * q] = acc_i[a][q];
     }
   }
 }
 
-// y = x @ M on whole rows, in place allowed (a CTA loads its tile before it
-// writes, and tiles are disjoint).
+// y = x @ M on whole rows, in place allowed.
 cudaError_t lane_fwd_stage(const float* xr, const float* xi, float* yr,
                            float* yi, const float* mr, const float* mi, int r,
                            cudaStream_t s) {
   const int ni = r < B_ROWS ? r : B_ROWS;
-  lane_outer_kernel<false><<<r / ni, THREADS, 0, s>>>(
-      xr, xi, yr, yi, nullptr, nullptr, mr, mi, nullptr, nullptr, ni, 1, r);
+  lane_fwd_kernel<<<r / ni, THREADS, 0, s>>>(xr, xi, yr, yi, mr, mi, ni);
   return cudaGetLastError();
 }
 

@@ -52,7 +52,7 @@
 // phase and the low row bits' rx in one pass over the tiles of K10's last
 // pass, the high row bits' rx in the other, in place; then the product
 // wide_nt_kernel<1, false> on M^T, transposed once a call
-// (transpose_kernel).
+// (transpose_kernel, adjoint_stages.cuh).
 //   Scratch at n = 20: K9 the row stage's output (8 MB) and M^T; K10 y, psi
 //   and w (24 MB), the dM partials (8 MB).
 // The TPU's "interleave sweep", the host-built sign matrices and the
@@ -65,18 +65,6 @@ namespace {
 
 constexpr int ML_MAX_NROW = 12;
 constexpr int ML_MAX_PAIRS = 128;
-
-// bt[l] = b[l]^T for the L (W, W) planes of b (32 x 32 tiles, blockDim (32, 8)).
-__global__ void transpose_kernel(const float* b, float* bt, int lw) {
-  __shared__ float t[32][33];
-  const long base = static_cast<long>(blockIdx.z) << (2 * lw);
-  const int x0 = blockIdx.x * 32, y0 = blockIdx.y * 32;
-  for (int j = threadIdx.y; j < 32; j += 8)
-    t[j][threadIdx.x] = b[base + (static_cast<long>(y0 + j) << lw) + x0 + threadIdx.x];
-  __syncthreads();
-  for (int j = threadIdx.y; j < 32; j += 8)
-    bt[base + (static_cast<long>(x0 + j) << lw) + y0 + threadIdx.x] = t[threadIdx.x][j];
-}
 
 // ---------------------------------------------------------------------------
 // Plans and entry points.
@@ -201,10 +189,7 @@ int tcng_ml_fwd(const float* sr, const float* si, float* yr, float* yi,
   if (err == cudaSuccess) err = pair_records(p.rs, shifts, npairs, s.rec, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   // M^T once a call: the product reads its b operand as b[n][k]
-  const dim3 tgrid(lanes / 32, lanes / 32, L);
-  transpose_kernel<<<tgrid, dim3(32, 8), 0, st>>>(mr, s.mtr, p.lw);
-  transpose_kernel<<<tgrid, dim3(32, 8), 0, st>>>(mi, s.mti, p.lw);
-  err = cudaGetLastError();
+  err = transpose_planes(mr, mi, s.mtr, s.mti, L, p.lw, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t ww = static_cast<size_t>(lanes) * lanes;
   for (int l = 0; l < L; ++l) {

@@ -34,27 +34,32 @@
 //    qubit where K7 takes eight, and dth directly (no dgate -> dth chain).
 //
 // Design.  A TPU block holds RB x 128 lanes in VMEM: 2 MB at RB = 2048
-// (nkernel = 11), nine times a CTA's 227 KB of shared memory.  K6, K8, K11
-// and K12 take all RB rows of one block for TL = 8192 / RB lanes in shared
+// (nkernel = 11), nine times a CTA's 227 KB of shared memory.  K6, K8 and
+// K11 take all RB rows of one block for TL = 8192 / RB lanes in shared
 // memory (TL = 4 at nkernel = 11: a tile of 8192 complex elements, 64 KB
-// for two planes, 128 KB for four), one barrier between gates; each row
-// is then read as 16 B of a 32-B sector.  K7 runs on the row stage of
-// adjoint_stages.cuh instead (gate_row_stage, the plan row_stage_plan(nrb,
-// 7, nkernel) that K3, K4 and K10 use): tiles of 2^11 elements with 32
-// consecutive lanes a warp (whole sectors), the walked bits in at most two
-// passes of at most 6 (at n = 20, nkernel = 11: the 5 high ones, then the
-// 6 low ones, 512 CTAs of 256 threads each), a thread holding 8 elements
-// of psi and ct in registers for 3 bits at a time.  Per bit: un-apply
-// g^dagger, the eight dg sums reduced over the warp at once by halving
-// exchanges (warp_sum8), the ct walk by g^T.  The gates act on distinct
-// bits and commute, so K7 takes them in another order than the JAX kernel
-// (only rounding differs).  K7 runs on the caller's y and ct, which it does
-// not write: the first of two passes writes psi to scratch and ct to ds,
-// the last only ds.  With the lane (the fuse_lane route) the adjoint lane
-// stage that K3, K4 and K10 share runs first (the un-lane and ct walk in
-// one launch, dM as split-K partials), psi into scratch and ct into ds,
-// and the passes follow in place.  The dg sums are one partial a CTA
-// added by colsum_tree_kernel in a fixed order: no atomics, so K7 is
+// for two planes), one barrier between gates; each row is then read as 16
+// B of a 32-B sector.  K7 and K12 run on the row stage of
+// adjoint_stages.cuh instead (the plan row_stage_plan(nrb, 7, nkernel)
+// that K3, K4 and K10 use): tiles of 2^11 elements with 32 consecutive
+// lanes a warp (whole sectors), the walked bits in at most two passes of
+// at most 6 (at n = 20, nkernel = 11: the 5 high ones, then the 6 low
+// ones, 512 CTAs of 256 threads each), a thread holding 8 elements of psi
+// and ct in registers for 3 bits at a time.  K7 (gate_row_stage), per
+// bit: un-apply g^dagger, the eight dg sums reduced over the warp at once
+// by halving exchanges (warp_sum8), the ct walk by g^T.  K12
+// (rx_row_stage): K10's rx butterflies without the zz stage, the first
+// pass ml_row_pass_kernel<false> with no pairs, the last
+// rx_row_pass_kernel (no pair records, phase or x planes); the two dth
+// sums a bit go through a warp tree into one partial a CTA.  The gates act
+// on distinct bits and commute, so K7 and K12 take them in another order
+// than the JAX kernels (high pass first; only rounding differs).  K7 and
+// K12 run on the caller's y and ct, which they do not write: the first of
+// two passes writes psi to scratch and ct to ds, the last only ds.  With
+// the lane (the fuse_lane route) K7 first runs the adjoint lane stage
+// that K3, K4 and K10 share (the un-lane and ct walk in one launch, dM as
+// split-K partials), psi into scratch and ct into ds, and the passes
+// follow in place.  The dg and dth sums are one partial a CTA added by
+// colsum_tree_kernel in a fixed order: no atomics, so K7 and K12 are
 // bit-identical run to run.  K8 is K6's row pass walking the transposed
 // gates in reverse.
 // Bounds at n = 20, nkernel = 11, on the H100 (3.35 TB/s, 67 TFLOP/s
@@ -62,10 +67,9 @@
 // 0.16 GFLOP, 0.005 ms, bound by bytes; with the lane the 1.07 GFLOP of
 // lane products bound it by operations (0.018 ms); K7 without the lane
 // moves 25 MB for 0.5 GFLOP (0.0076 ms, operations); K8 as K6 (0.005 ms).
-// K11 and K12 use K6's tiles: at n = 20, nkernel = 10 (r = 8192), K11
-// moves 16.8 MB (0.005 ms, bytes) and K12 25 MB (0.0075 ms, bytes); K12's
-// dth sums are block sums into one partial a CTA, added by colsum_kernel in
-// a fixed order.  Plain f32 FMAs, no fast-math.
+// At n = 20, nkernel = 10 (r = 8192), K11 moves 16.8 MB (0.005 ms, bytes)
+// and K12 25 MB for 20 flops an amplitude a bit (0.0075 ms, bytes).
+// Plain f32 FMAs, no fast-math.
 
 #include "adjoint_stages.cuh"
 
@@ -217,70 +221,6 @@ rotx_fwd_kernel(const float* xr, const float* xi, float* yr, float* yi,
   }
 }
 
-// K12's row pass on an RB x TL tile of y and ct: writes ds and one partial
-// a CTA, part[blk] = dth[0..nkernel).
-__global__ void __launch_bounds__(THREADS)
-rotx_bwd_kernel(const float* yr, const float* yi, const float* ctr,
-                const float* cti, float* dsr, float* dsi, float* part,
-                const float* __restrict__ th, int nkernel, int ltl) {
-  extern __shared__ float smem[];
-  const int rb = 1 << nkernel;
-  const int elems = rb << ltl;
-  float* tr = smem;
-  float* ti = tr + elems;
-  float* cr = ti + elems;
-  float* ci = cr + elems;
-  float* cs = ci + elems;
-  float* red = cs + 2 * nkernel;
-  for (int q = threadIdx.x; q < nkernel; q += blockDim.x)
-    sincosf(0.5f * th[q], &cs[2 * q + 1], &cs[2 * q]);
-  for (int e = threadIdx.x; e < elems; e += blockDim.x) {
-    const long off = tile_off(e, ltl, rb);
-    tr[e] = yr[off];
-    ti[e] = yi[off];
-    cr[e] = ctr[off];
-    ci[e] = cti[off];
-  }
-  __syncthreads();
-  float* mypart = part + static_cast<long>(blockIdx.x) * nkernel;
-  const int half = elems >> 1;
-  for (int q = nkernel - 1; q >= 0; --q) {
-    const int ls = nkernel - 1 - q;
-    const float c = cs[2 * q], sn = cs[2 * q + 1];
-    float s1 = 0.f, s2 = 0.f;
-    for (int p = threadIdx.x; p < half; p += blockDim.x) {
-      int elo, ehi;
-      pair_elems(p, ls, ltl, &elo, &ehi);
-      // un-apply rx^dagger = [[c, +i s], [+i s, c]]
-      const float ar = tr[elo], ai = ti[elo], br = tr[ehi], bi = ti[ehi];
-      const float nar = c * ar - sn * bi, nai = c * ai + sn * br;
-      const float nbr = c * br - sn * ai, nbi = c * bi + sn * ar;
-      tr[elo] = nar;
-      ti[elo] = nai;
-      tr[ehi] = nbr;
-      ti[ehi] = nbi;
-      // Re S1 = sum ct.psi, Im S2 = sum pct.psi over both rows of the pair
-      const float ur = cr[elo], ui = ci[elo], vr = cr[ehi], vi = ci[ehi];
-      s1 += ur * nar - ui * nai + vr * nbr - vi * nbi;
-      s2 += vr * nai + vi * nar + ur * nbi + ui * nbr;
-      // walk: ct <- c ct - i s pct
-      cr[elo] = c * ur + sn * vi;
-      ci[elo] = c * ui - sn * vr;
-      cr[ehi] = c * vr + sn * ui;
-      ci[ehi] = c * vi - sn * ur;
-    }
-    // the block sums are also the barrier between stages
-    s1 = block_sum(s1, red);
-    s2 = block_sum(s2, red);
-    if (threadIdx.x == 0) mypart[q] = -0.5f * sn * s1 + 0.5f * c * s2;
-  }
-  for (int e = threadIdx.x; e < elems; e += blockDim.x) {
-    const long off = tile_off(e, ltl, rb);
-    dsr[off] = cr[e];
-    dsi[off] = ci[e];
-  }
-}
-
 template <bool WALK>
 cudaError_t row_apply(const RowPlan& p, const float* xr, const float* xi,
                       float* yr, float* yi, const float* gr, const float* gi,
@@ -295,8 +235,8 @@ cudaError_t row_apply(const RowPlan& p, const float* xr, const float* xi,
   return cudaGetLastError();
 }
 
-// K7's stage plan on (r, 128) planes, r = 2^nrb: the row stage walks the
-// nkernel low row bits; false for a shape it does not take.
+// K7's and K12's stage plan on (r, 128) planes, r = 2^nrb: the row stage
+// walks the nkernel low row bits; false for a shape it does not take.
 bool bwd_plan(int r, int nkernel, RowStage* rs) {
   const int nrb = ilog2(r);
   if (nkernel < 1 || nkernel > MAX_NKERNEL || r < 2 || r != 1 << nrb || nkernel > nrb) return false;
@@ -326,6 +266,15 @@ size_t bwd_layout(int r, const RowStage& rs, bool lane, float* base, BwdScratch*
   }
   if (s) *s = BwdScratch{ptrs[0], ptrs[1], ptrs[2], ptrs[3]};
   return off;
+}
+
+// K12's scratch: the row stage's partials and, with two passes, psi's
+// planes (the cotangent goes through ds); fills s when base is given.
+size_t rotx_layout(int r, const RowStage& rs, float* base, BwdScratch* s) {
+  const size_t plane = rs.npass == 2 ? static_cast<size_t>(r) * LANES : 0;
+  const size_t part = (row_part_floats(rs, 0) + 63) / 64 * 64;
+  if (s) *s = BwdScratch{base, nullptr, base ? base + part : nullptr, base ? base + part + plane : nullptr};
+  return part + 2 * plane;
 }
 
 }  // namespace
@@ -443,30 +392,43 @@ int tcng_rotx_fwd(const float* sr, const float* si, float* yr, float* yi,
 
 // Floats of scratch tcng_rotx_bwd needs (-1: a shape it does not take).
 long tcng_rotx_bwd_scratch(int r, int nkernel) {
-  RowPlan p;
-  if (!row_plan(r, nkernel, &p)) return -1;
-  return static_cast<long>(p.grid) * nkernel;
+  RowStage rs;
+  if (!bwd_plan(r, nkernel, &rs)) return -1;
+  return static_cast<long>(rotx_layout(r, rs, nullptr, nullptr));
 }
 
-// K12.  yr/yi: the layer's (r, 128) output planes; ctr/cti: cotangent
-// planes; dsr/dsi (r, 128) output; dth (nkernel) output; th (nkernel);
-// scratch of tcng_rotx_bwd_scratch floats.
+// K12's row passes' plan at these shapes, for the record: two records of 8
+// (kernel_record): the first pass and the last (x1 = tile elements, x2 =
+// the pass's row bits; the first has 0 CTAs when there is one pass).
+int tcng_rotx_bwd_plan(int r, int nkernel, long* out) {
+  RowStage rs;
+  if (!bwd_plan(r, nkernel, &rs)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSuccess;
+  for (int k = 0; k < 2 && err == cudaSuccess; ++k) {
+    const bool last = k == 1;
+    const RowPass& rp = last ? last_pass(rs) : rs.pass[0];
+    const bool runs = last || rs.npass == 2;
+    const void* fn = last ? reinterpret_cast<const void*>(rx_row_pass_kernel) : row_pass_fn(false);
+    err = kernel_record(fn, runs ? row_ctas(rs) : 0, row_threads(rs), row_pass_smem(rp, 0, last),
+                        1L << rp.tb, runs ? rp.nb : 0, out + 8 * k);
+  }
+  return static_cast<int>(err);
+}
+
+// K12.  yr/yi: the layer's (r, 128) output planes, r = 2^nrb >= 2^nkernel;
+// ctr/cti: cotangent planes; dsr/dsi (r, 128) output, aliasing no input;
+// dth (nkernel) output; th (nkernel); scratch of tcng_rotx_bwd_scratch
+// floats.  y and ct are not written.
 int tcng_rotx_bwd(const float* yr, const float* yi, const float* ctr,
                   const float* cti, float* dsr, float* dsi, float* dth,
                   const float* th, int nkernel, float* scratch, int r,
                   void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  RowPlan p;
-  if (!row_plan(r, nkernel, &p)) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = row_smem(4, 0, 2 * nkernel + NWARPS);
-  cudaError_t err = cudaFuncSetAttribute(
-      rotx_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  rotx_bwd_kernel<<<p.grid, THREADS, smem, st>>>(yr, yi, ctr, cti, dsr, dsi, scratch, th,
-                                                 nkernel, p.ltl);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(colsum(scratch, p.grid, nkernel, dth, nkernel, 0, st));
+  RowStage rs;
+  if (!bwd_plan(r, nkernel, &rs)) return static_cast<int>(cudaErrorInvalidValue);
+  BwdScratch s;
+  rotx_layout(r, rs, scratch, &s);
+  return static_cast<int>(rx_row_stage(rs, yr, yi, ctr, cti, s.pr, s.pi, dsr, dsi, s.part_row, th,
+                                       dth, static_cast<cudaStream_t>(stream)));
 }
 
 }  // extern "C"

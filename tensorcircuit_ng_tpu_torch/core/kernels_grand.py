@@ -5,7 +5,10 @@ Counterpart of ``tensorcircuit_ng_tpu/core/kernels_grand.py``.
 ``tcng_grand_zzrx_fwd``), which replaces the Pallas ``grand_zzrx_fwd``:
 each layer is K1's zz phase + row rx + lane matmul, the post-lane state is
 streamed out as the residual ``ks[l]``, then the outer ``(D, D)`` matrix
-mixes the ``G = D`` row blocks.  ``grand_zzrx_bwd`` is the wrapper of
+mixes the ``G = D`` row blocks; it runs on the forward row stage and the
+product of ``csrc/adjoint_stages.cuh`` (K9's) and a coalesced outer pass,
+and ``grand_zzrx_fwd_plan`` / ``grand_zzrx_fwd_card_plan`` give their
+plan.  ``grand_zzrx_bwd`` is the wrapper of
 kernel K4 (``csrc/zzrx_bwd.cu``, ``tcng_grand_zzrx_bwd``), which replaces
 the Pallas ``grand_zzrx_bwd``: the layers in reverse, each the outer
 transpose walk with dθ_outer, then K3's adjoint with the lane matrix, on
@@ -23,7 +26,20 @@ import torch
 from . import _build
 from . import kernels_rowlayer as krl
 
-__all__ = ["grand_zzrx_fwd", "grand_zzrx_fwd_plain", "grand_zzrx_bwd", "grand_zzrx_bwd_plain"]
+__all__ = [
+    "grand_zzrx_fwd",
+    "grand_zzrx_fwd_plain",
+    "grand_zzrx_fwd_plan",
+    "grand_zzrx_fwd_card_plan",
+    "grand_zzrx_bwd",
+    "grand_zzrx_bwd_plain",
+]
+
+#: K2's largest outer dim D (``MAX_D`` in ``csrc/zzrx_fwd.cu``)
+MAX_GRAND_OUTER = 32
+_LANE_BITS = 7
+_GRAND_OWN = {"fwd_row_zz": ("tile", "bits"), "fwd_row_hi": ("tile", "bits"), "fwd_lane": ("rows", "cols"),
+              "outer": ("d", "nouter"), "transpose": ("layers", "planes")}
 
 
 def grand_zzrx_fwd_plain(pairs, n, zzth, th, sr, si, mor, moi, mlr, mli):
@@ -40,6 +56,42 @@ def grand_zzrx_fwd_plain(pairs, n, zzth, th, sr, si, mor, moi, mlr, mli):
     return torch.stack(ks_r), torch.stack(ks_i), xr, xi
 
 
+def grand_zzrx_fwd_plan(r: int, nkernel: int, npairs: int, L: int) -> dict:
+    """K2's stage plan at r rows of 128 lanes, computed as
+    ``csrc/zzrx_fwd.cu`` makes it (no card needed): the forward row passes
+    ``"fwd_row_zz"`` (the phase and the low 6 walked bits, first) and
+    ``"fwd_row_hi"`` (the rest; 0 CTAs with one pass) and the product
+    ``"fwd_lane"``, as K9's on the nkernel low row bits; the outer pass
+    ``"outer"`` (a thread an in-block position, 2^nkernel · 128 of them)
+    and the transpose of the L lane matrices ``"transpose"`` (CTAs a
+    launch, two launches a call), each ``ctas``, ``threads`` and ``smem``
+    (dynamic shared bytes) and two of its own: a pass's ``tile`` elements
+    and walked row ``bits``, the product's tile ``rows`` and ``cols``, the
+    outer ``d`` and ``nouter``, the transpose's ``layers`` and ``planes``.
+    r must be a power of two and D = r >> nkernel at most 32."""
+    nrb = r.bit_length() - 1
+    error = f"grand_zzrx_fwd_plan: unsupported shape r={r}, nkernel={nkernel}, npairs={npairs}, L={L}"
+    if (r < 1 or r != 1 << nrb or not 0 <= nkernel <= nrb or npairs < 0 or L < 1
+            or r >> nkernel > MAX_GRAND_OUTER):
+        raise ValueError(error)
+    d = r >> nkernel
+    positions = (1 << _LANE_BITS) << nkernel
+    return {
+        **krl._fwd_records(nrb, _LANE_BITS, nkernel, npairs, error),
+        "outer": {"ctas": -(-positions // krl._THREADS), "threads": krl._THREADS, "smem": 0, "d": d,
+                  "nouter": d.bit_length() - 1},
+        "transpose": {"ctas": 16 * L, "threads": 256, "smem": 0, "layers": L, "planes": 2},
+    }
+
+
+def grand_zzrx_fwd_card_plan(r: int, nkernel: int, npairs: int, L: int) -> dict:
+    """The same plan as the card's C code reports it
+    (``tcng_grand_zzrx_fwd_plan``), with each stage kernel's
+    ``ctas_per_sm``, ``registers`` and ``local_bytes`` a thread besides.
+    Needs the card."""
+    return krl._card_records("zzrx_fwd", "tcng_grand_zzrx_fwd_plan", _GRAND_OWN, r, nkernel, npairs, L)
+
+
 def _launch_grand(pairs, n, zzth, th, sr, si, mor, moi, mlr, mli):
     dev = sr.device
     if dev.type != "cuda":
@@ -48,7 +100,6 @@ def _launch_grand(pairs, n, zzth, th, sr, si, mor, moi, mlr, mli):
     r, lanes = sr.shape
     d = r >> nkernel
     krl._check_shape("grand_zzrx_fwd", r, lanes, n, nkernel)
-    # the kernel itself rejects an outer dim D above its tile (B_ROWS)
     krl._check_planes("grand_zzrx_fwd", dev, (r, lanes), sr, si)
     krl._check_planes("grand_zzrx_fwd outer", dev, (L, d, d), mor, moi)
     krl._check_planes("grand_zzrx_fwd lane", dev, (L, lanes, lanes), mlr, mli)
@@ -57,11 +108,16 @@ def _launch_grand(pairs, n, zzth, th, sr, si, mor, moi, mlr, mli):
     if tuple(zzth.shape) != (L, len(pairs)):
         raise ValueError(f"grand_zzrx_fwd: zzth shape {tuple(zzth.shape)}, expected {(L, len(pairs))}")
     shifts = krl._pair_shifts(tuple(pairs), n, str(dev))
+    lib = _build.library("zzrx_fwd")
+    # the kernel's one check of the outer dim: D = r >> nkernel <= 32
+    floats = lib.tcng_grand_zzrx_fwd_scratch(r, nkernel, len(pairs), L)
+    if floats < 0:
+        raise ValueError(f"grand_zzrx_fwd: unsupported shape r={r}, nkernel={nkernel}, L={L}")
+    scratch = torch.empty(floats, dtype=torch.float32, device=dev)
     ksr = torch.empty((L, r, lanes), dtype=torch.float32, device=dev)
     ksi = torch.empty_like(ksr)
     yr = torch.empty_like(sr)
     yi = torch.empty_like(si)
-    lib = _build.library("zzrx_fwd")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         grand_zzrx_fwd.launches += 1
@@ -69,7 +125,7 @@ def _launch_grand(pairs, n, zzth, th, sr, si, mor, moi, mlr, mli):
             sr.data_ptr(), si.data_ptr(), ksr.data_ptr(), ksi.data_ptr(),
             yr.data_ptr(), yi.data_ptr(), zzth.data_ptr(), shifts.data_ptr(),
             len(pairs), th.data_ptr(), nkernel, L, mor.data_ptr(), moi.data_ptr(),
-            mlr.data_ptr(), mli.data_ptr(), r, stream,
+            mlr.data_ptr(), mli.data_ptr(), scratch.data_ptr(), r, stream,
         )
     _build.check("zzrx_fwd", err, "grand_zzrx_fwd")
     return ksr, ksi, yr, yi

@@ -58,9 +58,6 @@ MAX_ML_ROW_QUBITS = 12
 MAX_ML_PAIRS = 128
 #: lane widths the kernels take: 2^7 .. 2^10
 _LANE_BITS = (7, 10)
-#: shared bytes of K9's product (``prod_smem<1>``: two buffered chunks of
-#: four 64 x 36-float planes)
-_FWD_PROD_SMEM = 4 * 2 * 4 * 64 * 36
 
 
 @lru_cache(maxsize=64)
@@ -229,18 +226,7 @@ def ml_fwd_plan(r: int, lanes: int, nrow: int, npairs: int) -> dict:
     if (not 1 <= nrow <= MAX_ML_ROW_QUBITS or r != 1 << nrow or lanes != 1 << lw or not lo_b <= lw <= hi_b
             or not 0 <= npairs <= MAX_ML_PAIRS):
         raise ValueError(error)
-    tb, ctas, threads, hi, lo = krl._row_stage(nrow, lw, nrow, error)
-
-    def smem(nb, zz):
-        return 4 * ((2 << tb if nb > 3 else 0) + 2 * krl._RP_MAXB + 8) + (16 * npairs if zz else 0)
-
-    rows = krl._pass_records(ctas, threads, tb, hi, lo, smem)
-    return {
-        "fwd_lane": {"ctas": -(-r // krl._P_T) * (lanes // krl._P_T), "threads": krl._THREADS,
-                     "smem": _FWD_PROD_SMEM, "rows": krl._P_T, "cols": krl._P_T},
-        "fwd_row_zz": rows["row_lo"],
-        "fwd_row_hi": rows["row_hi"],
-    }
+    return krl._fwd_records(nrow, lw, nrow, npairs, error)
 
 
 def _launch_ml_fwd(pairs, n, zzth, th, sr, si, mr, mi):

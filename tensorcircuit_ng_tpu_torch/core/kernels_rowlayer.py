@@ -27,7 +27,9 @@ wrappers and the kernels they launch on a CUDA tensor:
   tiles, grid and occupancy on the card;
 - ``rotx_fwd``: K11 (``csrc/row_layer.cu``, ``tcng_rotx_fwd``), replaces
   ``_pallas_rotx_fwd``;
-- ``rotx_bwd``: K12 (``tcng_rotx_bwd``), replaces ``_pallas_rotx_bwd``.
+- ``rotx_bwd``: K12 (``tcng_rotx_bwd``), replaces ``_pallas_rotx_bwd``; it
+  runs on K10's rx row passes without the zz stage (``csrc/adjoint_stages.cuh``,
+  on K7's plan), and ``rotx_bwd_plan`` / ``rotx_bwd_card_plan`` give them.
 
 On a CPU tensor a wrapper runs its plain version (``row_fwd_plain``, ...:
 ordinary torch ops, stage by stage as the kernel takes them).  The
@@ -78,6 +80,8 @@ __all__ = [
     "zzrx_bwd_card_plan",
     "row_bwd_plan",
     "row_bwd_card_plan",
+    "rotx_bwd_plan",
+    "rotx_bwd_card_plan",
     "MAX_ROWM_QUBITS",
     "zzrx_row_layer",
     "MAX_KERNEL_QUBITS_ZZRX",
@@ -237,9 +241,11 @@ def rowm_plan(rmx: int, r: int) -> dict:
 
 
 #: the adjoint stages' constants (``csrc/adjoint_stages.cuh``): product
-#: tile edge and shared bytes of the pair, dM's rows a stage, shared bytes
-#: and CTAs, the row passes' tile bits and walked bits a pass
-_P_T, _PAIR_SMEM, _D_KC, _DM_SMEM, _DM_CTAS = 64, 110592, 32, 65536, 256
+#: tile edge and shared bytes of the pair and of the forward's one product
+#: (``prod_smem<2>``, ``prod_smem<1>``: two buffered chunks of six or four
+#: 64 x 36-float planes), dM's rows a stage, shared bytes and CTAs, the row
+#: passes' tile bits and walked bits a pass
+_P_T, _PAIR_SMEM, _FWD_PROD_SMEM, _D_KC, _DM_SMEM, _DM_CTAS = 64, 110592, 73728, 32, 65536, 256
 _RP_TB, _RP_MAXB, _THREADS = 11, 6, 256
 _PLAN_KEYS = ("ctas", "threads", "smem", "ctas_per_sm", "registers", "local_bytes")
 _PLAN_OWN = {"lane": ("rows", "cols"), "dm": ("chunks", "chunk_rows"), "row_hi": ("tile", "bits"),
@@ -278,6 +284,28 @@ def _pass_records(ctas, threads, tb, hi, lo, smem) -> dict:
         "row_hi": {"ctas": ctas if hi else 0, "threads": threads, "smem": smem(hi or lo, False),
                    "tile": 1 << tb, "bits": hi},
         "row_lo": {"ctas": ctas, "threads": threads, "smem": smem(lo, True), "tile": 1 << tb, "bits": lo},
+    }
+
+
+def _fwd_records(nrb: int, lw: int, nwalk: int, npairs: int, error: str) -> dict:
+    """The forward row passes of K2 and K9 (``fwd_row_stage``) on (2^nrb,
+    2^lw) planes walking the low nwalk row bits, and their product on those
+    planes: ``"fwd_row_zz"`` (the phase and the low bits, first),
+    ``"fwd_row_hi"`` (0 CTAs with one pass) and ``"fwd_lane"``.  A pass's
+    shared bytes are the exchange tile of two planes (past 3 bits), cos/sin
+    of 6 bits, 8 slot offsets and, in the zz pass, a 16-byte record a
+    pair."""
+    tb, ctas, threads, hi, lo = _row_stage(nrb, lw, nwalk, error)
+
+    def smem(nb, zz):
+        return 4 * ((2 << tb if nb > 3 else 0) + 2 * _RP_MAXB + 8) + (16 * npairs if zz else 0)
+
+    rows = _pass_records(ctas, threads, tb, hi, lo, smem)
+    return {
+        "fwd_row_zz": rows["row_lo"],
+        "fwd_row_hi": rows["row_hi"],
+        "fwd_lane": {"ctas": -(-(1 << nrb) // _P_T) * ((1 << lw) // _P_T), "threads": _THREADS,
+                     "smem": _FWD_PROD_SMEM, "rows": _P_T, "cols": _P_T},
     }
 
 
@@ -877,6 +905,35 @@ def row_bwd_card_plan(r: int, nkernel: int, lane: bool = False) -> dict:
     return _card_records("row_layer", "tcng_row_bwd_plan", own, r, nkernel, int(lane))
 
 
+def rotx_bwd_plan(r: int, nkernel: int) -> dict:
+    """K12's row passes at r rows of 128 lanes, computed as
+    ``csrc/row_layer.cu`` makes it (no card needed): the first pass
+    ``"row_hi"`` (0 CTAs with one pass) and the last ``"row_lo"``, each
+    ``ctas``, ``threads``, ``smem`` (dynamic shared bytes), ``tile``
+    elements and walked row ``bits``, on K7's plan: the nkernel low row
+    bits walked, r a power of two.  A pass's shared bytes are K3's row
+    pass's with no pairs: the exchange tile of four planes (past 3 bits),
+    a warp's 6 dθ sums, cos/sin of 6 bits and 8 slot offsets."""
+    nrb = r.bit_length() - 1
+    error = f"rotx_bwd_plan: unsupported shape r={r}, nkernel={nkernel}"
+    if r < 1 or r != 1 << nrb or not 1 <= nkernel <= MAX_KERNEL_QUBITS:
+        raise ValueError(error)
+    tb, ctas, threads, hi, lo = _row_stage(nrb, 7, nkernel, error)
+
+    def smem(nb, last):
+        return 4 * ((4 << tb if nb > 3 else 0) + threads // 32 * _RP_MAXB + 2 * _RP_MAXB + 8)
+
+    return _pass_records(ctas, threads, tb, hi, lo, smem)
+
+
+def rotx_bwd_card_plan(r: int, nkernel: int) -> dict:
+    """The same plan as the card's C code reports it (``tcng_rotx_bwd_plan``),
+    with each pass's ``ctas_per_sm``, ``registers`` and ``local_bytes`` a
+    thread besides.  Needs the card."""
+    own = {k: _PLAN_OWN[k] for k in ("row_hi", "row_lo")}
+    return _card_records("row_layer", "tcng_rotx_bwd_plan", own, r, nkernel)
+
+
 def _launch_row_bwd(gr, gi, yr, yi, ctr, cti, mr, mi):
     dev, gr, gi, nk, r = _row_setup("row_bwd", gr, gi, yr, yi, ctr, cti)
     lane = mr is not None
@@ -1163,7 +1220,10 @@ def _launch_rotx_bwd(th, yr, yi, ctr, cti):
     ds = torch.empty((2, r, _LANES), dtype=torch.float32, device=dev)
     dth = torch.empty(nk, dtype=torch.float32, device=dev)
     lib = _build.library("row_layer")
-    scratch = torch.empty(lib.tcng_rotx_bwd_scratch(r, nk), dtype=torch.float32, device=dev)
+    floats = lib.tcng_rotx_bwd_scratch(r, nk)
+    if floats < 0:  # the row stage takes r = 2^nrb rows only
+        raise ValueError(f"rotx_bwd: unsupported shape r={r}, nkernel={nk}")
+    scratch = torch.empty(floats, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rotx_bwd.launches += 1

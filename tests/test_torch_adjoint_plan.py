@@ -5,19 +5,26 @@
 their shared bytes) in Python, ``kernels_rowlayer.row_bwd_plan`` K7's (the
 gate row passes of ``csrc/row_layer.cu``) and
 ``kernels_multilayer.ml_fwd_plan`` K9's (the forward row passes and the
-product of ``csrc/multilayer.cu``); ``tests/test_torch_cuda.py`` holds them
-against the card's own report.  Here they are held against values worked
-out by hand from the constants of ``csrc/adjoint_stages.cuh``.  And
-``chip_smoke._k34_stage_work``, ``_k7_stage_work`` and ``_k9_stage_work``
-(each stage's bound) must add up to the whole kernels' work (``_k3_work``,
-``_k4_work``, ``_row_work``, ``_ml_work``).
+product of ``csrc/multilayer.cu``), ``kernels_grand.grand_zzrx_fwd_plan``
+K2's (the same forward passes and product, the outer pass and the
+transpose of ``csrc/zzrx_fwd.cu``) and ``kernels_rowlayer.rotx_bwd_plan``
+K12's (the zz-free rx passes of ``csrc/row_layer.cu``);
+``tests/test_torch_cuda.py`` holds them against the card's own report.
+Here they are held against values worked out by hand from the constants
+of ``csrc/adjoint_stages.cuh``.  And ``chip_smoke._k34_stage_work``,
+``_k7_stage_work``, ``_k9_stage_work``, ``_k2_stage_work`` and
+``_k12_stage_work`` (each stage's bound) must add up to the whole
+kernels' work (``_k3_work``, ``_k4_work``, ``_row_work``, ``_ml_work``,
+``_k2_work``, ``_rotx_work``).
 """
 
 import pytest
 
 from chip_smoke import (
-    _k34_stage_work, _k3_work, _k4_work, _k7_stage_work, _k9_stage_work, _ml_work, _row_work,
+    _k12_stage_work, _k2_stage_work, _k2_work, _k34_stage_work, _k3_work, _k4_work, _k7_stage_work,
+    _k9_stage_work, _ml_work, _rotx_work, _row_work,
 )
+from tensorcircuit_ng_tpu_torch.core import kernels_grand as kg
 from tensorcircuit_ng_tpu_torch.core import kernels_multilayer as kml
 from tensorcircuit_ng_tpu_torch.core import kernels_rowlayer as krl
 
@@ -246,3 +253,145 @@ def test_k9_stage_work_adds_up(L, lanes):
     nbytes, flops = _ml_work(r, lanes, npairs, nrow, L, "fwd")
     assert L * sum(f for _, f in stages.values()) == flops
     assert L * sum(b for b, _ in stages.values()) + 8 * npairs == nbytes + (32 * L - 16) * r * lanes
+
+
+# (n, nkernel, L): K2's stages worked out by hand, 19 pairs: the zz pass
+# (CTAs, threads, tile, bits, shared bytes), the other pass (CTAs, bits,
+# shared bytes), the product's CTAs, the outer pass (CTAs, D, nouter)
+K2_PLANS = {
+    # r = 8192: 2^20 / 2^11 = 512 tiles of 256 threads; the zz pass takes
+    # the 6 low walked bits with 19 records of 16 B: 4 (2 · 2048 + 12 + 8)
+    # + 304 = 16,768 B, the other the 4 high ones, 16,464 B; the product
+    # 8192 / 64 row tiles x 2 column tiles; the outer pass a thread an
+    # in-block position, 2^10 · 128 / 256 = 512 CTAs on D = 8
+    (20, 10, 4): ((512, 256, 2048, 6, 16768), (512, 4, 16464), 256, (512, 8, 3)),
+    # one pass of 3 bits on r = 32 (2 tiles), no exchange tile: 4 · 20 B
+    # and the records; 2^3 · 128 / 256 = 4 outer CTAs on D = 4
+    (12, 3, 3): ((2, 256, 2048, 3, 80 + 304), (0, 0, 80), 2, (4, 4, 2)),
+    # a state below one tile: r = 2 (2^8 elements, 32 threads), D = 1
+    (8, 1, 2): ((1, 32, 256, 1, 80 + 304), (0, 0, 80), 2, (1, 1, 0)),
+    # 11 walked bits at n = 22 (r = 32768, D = 16): passes of 6 and 5 on
+    # 2048 tiles; 2^11 · 128 / 256 = 1024 outer CTAs
+    (22, 11, 4): ((2048, 256, 2048, 6, 16768), (2048, 5, 16464), 1024, (1024, 16, 4)),
+}
+
+
+@pytest.mark.parametrize("n,nkernel,L", list(K2_PLANS))
+def test_grand_zzrx_fwd_plan_by_hand(n, nkernel, L):
+    """``grand_zzrx_fwd_plan``'s passes, product, outer pass and transpose
+    against the hand-worked values above; the product's shared bytes are
+    two buffered chunks of four 64 x 36-float planes (73,728 B), the
+    transpose 16 CTAs a layer and plane."""
+    plan = kg.grand_zzrx_fwd_plan(2 ** (n - 7), nkernel, 19, L)
+    zz, hi, prod, outer, tr = (plan[k] for k in ("fwd_row_zz", "fwd_row_hi", "fwd_lane", "outer", "transpose"))
+    want_zz, want_hi, want_prod, want_outer = K2_PLANS[(n, nkernel, L)]
+    assert (zz["ctas"], zz["threads"], zz["tile"], zz["bits"], zz["smem"]) == want_zz
+    assert (hi["ctas"], hi["bits"], hi["smem"]) == want_hi
+    assert (prod["ctas"], prod["threads"], prod["smem"], prod["rows"], prod["cols"]) == (want_prod, 256, 73728, 64, 64)
+    assert (outer["ctas"], outer["d"], outer["nouter"], outer["threads"], outer["smem"]) == want_outer + (256, 0)
+    assert (tr["ctas"], tr["layers"], tr["planes"], tr["threads"]) == (16 * L, L, 2, 256)
+    assert zz["bits"] + hi["bits"] == nkernel and zz["ctas"] * zz["tile"] == 2**n
+    assert outer["ctas"] * 256 >= 128 << nkernel
+
+
+def test_grand_zzrx_fwd_plan_is_k9s_forward_stage():
+    """K2's passes and product are K9's (``ml_fwd_plan``) on the same
+    planes: 12 row bits of 128 lanes, all walked, 37 pairs."""
+    k9 = kml.ml_fwd_plan(4096, 128, 12, 37)
+    k2 = kg.grand_zzrx_fwd_plan(4096, 12, 37, 2)
+    for stage in ("fwd_row_zz", "fwd_row_hi", "fwd_lane"):
+        assert k2[stage] == k9[stage]
+    assert k2["outer"]["d"] == 1
+
+
+@pytest.mark.parametrize(
+    "r,nkernel,npairs,L",
+    [(3 * 2048, 10, 19, 4), (16, 5, 10, 2), (8192, 7, 19, 4), (8192, 10, 19, 0), (8192, 10, -1, 4),
+     (8192, 13, 19, 4), (1, 0, 5, 2)],
+)
+def test_grand_zzrx_fwd_plan_refuses_bad_shapes(r, nkernel, npairs, L):
+    """Rows that are not a power of two, more kernel bits than row bits, an
+    outer dim above 32 (D = 64), no layer, a negative pair count, more than
+    12 walked bits, and a single row (below 2^8 elements)."""
+    with pytest.raises(ValueError, match="unsupported shape"):
+        kg.grand_zzrx_fwd_plan(r, nkernel, npairs, L)
+
+
+@pytest.mark.parametrize("L", [3, 4])
+@pytest.mark.parametrize("n", [20, 22])
+def test_k2_stage_work_adds_up(n, L):
+    """L layers of ``_k2_stage_work`` against ``_k2_work`` (n=20: D = 8;
+    n=22 past the grand path's route, D = 32): the flops exactly; the bytes
+    once the handoffs are taken out (a layer's row output written and read
+    by the product, ks[l] read by the outer pass, y written by it and read
+    by the next row stage: 40 B an amplitude a layer, less the state read
+    and y written once, 16 B) and the angles, which ``_k2_work`` does not
+    count."""
+    r, npairs, nkernel = 2 ** (n - 7), n - 1, 10
+    nouter = n - 7 - nkernel
+    amps = r * 128
+    stages = _k2_stage_work(r, npairs, nkernel, nouter)
+    assert set(stages) == {"row", "product", "outer"}
+    nbytes, flops = _k2_work(r, npairs, nkernel, nouter, L)
+    assert L * sum(f for _, f in stages.values()) == flops
+    assert L * sum(b for b, _ in stages.values()) == nbytes + (40 * L - 16) * amps + 4 * L * (npairs + nkernel)
+
+
+# (n, nkernel): K12's passes worked out by hand: (CTAs, threads, tile,
+# bits of the first pass, bits of the last, shared bytes of each)
+K12_PLANS = {
+    # r = 8192: 512 tiles of 256 threads; passes of 4 (row bits 6..9) and
+    # 6 (0..5), both with the exchange tile: 4 (8192 + 48 + 20) B
+    (20, 10): (512, 256, 2048, 4, 6, (33040, 33040)),
+    (20, 11): (512, 256, 2048, 5, 6, (33040, 33040)),
+    # one pass of 6 bits at r = 128 (8 tiles)
+    (14, 6): (8, 256, 2048, 0, 6, (33040, 33040)),
+    # one pass of 3 bits, registers only: 4 (48 + 20) B
+    (12, 3): (2, 256, 2048, 0, 3, (272, 272)),
+    # a state below one tile: r = 2, 2^8 elements, 32 threads, one warp
+    (8, 1): (1, 32, 256, 0, 1, (104, 104)),
+}
+
+
+@pytest.mark.parametrize("n,nkernel", list(K12_PLANS))
+def test_rotx_bwd_plan_by_hand(n, nkernel):
+    """``rotx_bwd_plan``'s two passes against the hand-worked values; they
+    walk the bits K7's gate passes walk (``row_bwd_plan``)."""
+    r = 2 ** (n - 7)
+    plan = krl.rotx_bwd_plan(r, nkernel)
+    ctas, threads, tile, hi_bits, lo_bits, (hi_smem, lo_smem) = K12_PLANS[(n, nkernel)]
+    hi, lo = plan["row_hi"], plan["row_lo"]
+    assert (lo["ctas"], lo["threads"], lo["tile"], lo["bits"], lo["smem"]) == (ctas, threads, tile, lo_bits, lo_smem)
+    assert (hi["ctas"], hi["bits"], hi["smem"]) == ((ctas if hi_bits else 0), hi_bits, hi_smem)
+    # K3's row pass with no pairs
+    assert lo_smem == _row_smem(tile.bit_length() - 1, lo_bits, 0, True)
+    k7 = krl.row_bwd_plan(r, nkernel)
+    for stage in ("row_hi", "row_lo"):
+        assert {k: plan[stage][k] for k in ("ctas", "threads", "tile", "bits")} == {
+            k: k7[stage][k] for k in ("ctas", "threads", "tile", "bits")}
+
+
+@pytest.mark.parametrize("r,nkernel", [(8192, 12), (8192, 0), (3 * 2048, 10), (16, 5), (1, 1)])
+def test_rotx_bwd_plan_refuses_bad_shapes(r, nkernel):
+    """More than 11 kernel bits or none, rows that are not a power of two,
+    more kernel bits than row bits, and a single row."""
+    with pytest.raises(ValueError, match="unsupported shape"):
+        krl.rotx_bwd_plan(r, nkernel)
+
+
+@pytest.mark.parametrize("n,nkernel", [(20, 10), (14, 6), (9, 2)])
+def test_k12_stage_work_adds_up(n, nkernel):
+    """``_k12_stage_work``'s flops add up to K12's (``_rotx_work``) plus the
+    colsum's one add a partial; its bytes once the handoffs are taken out:
+    psi and ct written by the first pass and read by the last (32 B an
+    amplitude, with two passes) and the dθ partials written and read (8 B a
+    tile and bit)."""
+    r = 2 ** (n - 7)
+    amps = r * 128
+    ctas = amps // min(amps, 2048)
+    stages = _k12_stage_work(r, nkernel)
+    assert set(stages) == ({"row hi"} if nkernel > 6 else set()) | {"row lo", "colsum"}
+    nbytes, flops = _rotx_work(r, nkernel, "bwd")
+    assert sum(f for _, f in stages.values()) == flops + ctas * nkernel
+    two = 32 * amps if nkernel > 6 else 0
+    assert sum(b for b, _ in stages.values()) == nbytes + two + 8 * ctas * nkernel

@@ -26,7 +26,10 @@ as K1/K3, the ``FUSE_ROWM`` TFIM gradient as the circuit gradients; K7 at
 1-11 walked bits (the gate row passes) with and without the lane, bit for
 bit twice, and K9 at 1-12 row bits and 128-1024 lanes, as K1-K8; their
 plans as the card reports them against ``row_bwd_plan`` and
-``ml_fwd_plan``; K15 (the staged
+``ml_fwd_plan``; K2 at the forward row stage's boundaries (1-11 walked
+bits) and every outer dim D = 1-32, and K12 at 1-10 walked bits, as K1-K8
+and bit for bit twice, their plans against ``grand_zzrx_fwd_plan`` and
+``rotx_bwd_plan``; K15 (the staged
 micro-benchmark, random non-unitary inputs whose values grow to O(100))
 within 1e-5 of its output's largest entry.
 """
@@ -123,6 +126,50 @@ def test_grand_zzrx_fwd_kernel_matches_plain(cuda, n, nkernel, L, pairs):
     for g, w in zip(got, want):
         assert g.shape == w.shape
         torch.testing.assert_close(g, w, atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize(
+    "n,nkernel",
+    [(8, 1), (10, 1), (13, 5), (12, 3), (14, 4), (16, 9), (17, 5), (17, 6), (18, 7), (20, 10), (22, 11)],
+)
+def test_grand_zzrx_fwd_at_row_stage_boundaries(cuda, n, nkernel):
+    """K2 at the forward row stage's boundaries (1, 3, 4, 5, 6 walked bits:
+    the zz pass alone; 7, 9, 10, 11: the zz pass and the other) and at
+    every outer dim it takes (D = 1, 2, 4, 8, 16, 32), L=2, general
+    matrices, against its plain version and bit for bit against itself."""
+    pairs = _pairs(n, "open")
+    (sr, si), t = _inputs(n, nkernel, 2, len(pairs), 3 * n + nkernel, cuda)
+    mats = [t[k] for k in ("mor", "moi", "mlr", "mli")]
+    args = (pairs, n, t["zz"], t["th"], sr, si, *mats)
+    kg.grand_zzrx_fwd.launches = 0
+    with torch.no_grad():
+        got = kg.grand_zzrx_fwd(*args)
+        again = kg.grand_zzrx_fwd(*args)
+        torch.cuda.synchronize()
+        want = kg.grand_zzrx_fwd_plain(*args)
+    assert kg.grand_zzrx_fwd.launches == 2 and t["mor"].shape[1] == 2 ** (n - 7 - nkernel)
+    for g, g2, w in zip(got, again, want):
+        assert g.is_cuda and g.shape == w.shape and torch.equal(g, g2)
+        torch.testing.assert_close(g, w, atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("n,nkernel,L", [(8, 1, 2), (12, 3, 3), (17, 5, 2), (20, 10, 4), (22, 11, 4)])
+def test_grand_zzrx_fwd_plan_on_card(cuda, n, nkernel, L):
+    """K2's stage plan as the card reports it equals the Python arithmetic
+    (``grand_zzrx_fwd_plan``), with shared memory within a CTA's 232,448
+    B, at least one CTA an SM, no local memory, and no spill of its stage
+    kernels in nvcc's report of the zzrx_fwd build."""
+    r, npairs = 2 ** (n - 7), n - 1
+    got, want = kg.grand_zzrx_fwd_card_plan(r, nkernel, npairs, L), kg.grand_zzrx_fwd_plan(r, nkernel, npairs, L)
+    assert got.keys() == want.keys()
+    for stage, p in got.items():
+        assert {k: p[k] for k in want[stage]} == want[stage], stage
+        assert p["smem"] <= 232448 and p["ctas_per_sm"] >= 1 and p["local_bytes"] == 0
+    report = _ptxas_report(_build.build_log("zzrx_fwd"), "")
+    for needle in ("fwd_row_pass_kernel", "wide_nt_kernel", "outer_fwd_kernel", "transpose_kernel",
+                   "ml_pair_records_kernel"):
+        hits = [v for k, v in report.items() if needle in k]
+        assert hits and all(regs and not st and not ld for regs, st, ld in hits), needle
 
 
 def test_kernel_wrappers_check_their_inputs(cuda):
@@ -769,6 +816,49 @@ def test_rotx_kernels_match_plain(cuda, n, nkernel):
             torch.testing.assert_close(g, w, atol=ATOL, rtol=0)
         else:
             _close(g, w)
+
+
+@pytest.mark.parametrize("nkernel", range(1, 11))
+def test_rotx_bwd_at_row_stage_boundaries(cuda, nkernel):
+    """K12 at every walked-bit count of its passes (1-6: the last pass
+    alone; 7-10: the first and the last) on two blocks of 2^nkernel rows
+    (n >= 9), unitary inputs from K11's plain version, against its plain
+    version and bit for bit against itself."""
+    n = max(9, nkernel + 8)
+    x = _row_inputs(n, nkernel, 11 * nkernel, cuda)
+    th = convert.params(np.random.default_rng(nkernel).normal(size=nkernel) * 0.7, cuda)
+    krl.rotx_bwd.launches = 0
+    with torch.no_grad():
+        y = krl.rotx_fwd_plain(th, *x["s"])
+        got = krl.rotx_bwd(th, *y, *x["ct"])
+        again = krl.rotx_bwd(th, *y, *x["ct"])
+        torch.cuda.synchronize()
+        want = krl.rotx_bwd_plain(th, *y, *x["ct"])
+    assert krl.rotx_bwd.launches == 2
+    for i, (g, g2, w) in enumerate(zip(got, again, want)):
+        assert g.is_cuda and g.shape == w.shape and torch.equal(g, g2)
+        if i < 2:
+            torch.testing.assert_close(g, w, atol=ATOL, rtol=0)
+        else:
+            _close(g, w)
+
+
+@pytest.mark.parametrize("n,nkernel", [(8, 1), (12, 3), (14, 6), (17, 7), (20, 10), (20, 11)])
+def test_rotx_bwd_plan_on_card(cuda, n, nkernel):
+    """K12's pass plan as the card reports it equals the Python arithmetic
+    (``rotx_bwd_plan``), with shared memory within a CTA's 232,448 B, at
+    least one CTA an SM, no local memory, and no spill of its passes in
+    nvcc's report of the row_layer build."""
+    r = 2 ** (n - 7)
+    got, want = krl.rotx_bwd_card_plan(r, nkernel), krl.rotx_bwd_plan(r, nkernel)
+    assert got.keys() == want.keys()
+    for stage, p in got.items():
+        assert {k: p[k] for k in want[stage]} == want[stage], stage
+        assert p["smem"] <= 232448 and p["ctas_per_sm"] >= 1 and p["local_bytes"] == 0
+    report = _ptxas_report(_build.build_log("row_layer"), "")
+    for needle in ("ml_row_pass_kernel", "rx_row_pass_kernel", "colsum_tree_kernel"):
+        hits = [v for k, v in report.items() if needle in k]
+        assert hits and all(regs and not st and not ld for regs, st, ld in hits), needle
 
 
 def test_ml_and_rotx_wrappers_check_their_inputs(cuda):

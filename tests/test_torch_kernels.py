@@ -144,6 +144,74 @@ def test_grand_zzrx_fwd_plain_matches_pallas(n, nkernel, L, pairs):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=ATOL)
 
 
+def _rx_walked(th, cr, ci, w, nk):
+    """rx(th[q]) on walked row bit w (stride 2^w in a block, q = nk-1-w)."""
+    q, s = nk - 1 - w, 1 << w
+    c, sn = torch.cos(th[q] / 2), torch.sin(th[q] / 2)
+    pr, pi = krl._partner(cr, s), krl._partner(ci, s)
+    return c * cr + sn * pi, c * ci - sn * pr
+
+
+def _pass_order(b0, nb):
+    """The walked bits of a forward row pass from walked bit b0, in the
+    order the card takes them: past 3 bits the thread first holds pass
+    bits 3..5 in registers, then 0..2."""
+    bits = list(range(b0, b0 + nb))
+    return bits[3:] + bits[:3] if nb > 3 else bits
+
+
+def _grand_fwd_in_stage_order(pairs, n, zzth, th, sr, si, mor, moi, mlr, mli):
+    """K2 a layer in the order the card's stages take it, in plain torch:
+    the zz pass (the phase, then the low walked bits of
+    ``grand_zzrx_fwd_plan``'s "fwd_row_zz"), the other pass (the high
+    ones), the product y @ M_l into the residual, the outer pass."""
+    L, nk = th.shape
+    plan = kg.grand_zzrx_fwd_plan(sr.shape[0], nk, len(pairs), L)
+    lo, hi = plan["fwd_row_zz"]["bits"], plan["fwd_row_hi"]["bits"]
+    ks_r, ks_i = [], []
+    xr, xi = sr, si
+    for l in range(L):
+        z = krl._zz_phase_dense(torch.complex(xr, xi), pairs, n, zzth[l])
+        xr, xi = z.real, z.imag
+        for w in _pass_order(0, lo) + _pass_order(lo, hi):
+            xr, xi = _rx_walked(th[l], xr, xi, w, nk)
+        xr, xi = krl._lane_apply(mlr[l], mli[l], xr, xi)
+        ks_r.append(xr)
+        ks_i.append(xi)
+        xr, xi = krl._outer_apply(mor[l], moi[l], xr, xi)
+    return torch.stack(ks_r), torch.stack(ks_i), xr, xi
+
+
+@pytest.mark.parametrize(
+    "n,nkernel,L,pairs",
+    [(10, 1, 2, "chain"), (12, 3, 4, "chain"), (12, 2, 2, "long"), (16, 8, 2, "chain")],
+)
+def test_grand_fwd_stage_order_matches_pallas(n, nkernel, L, pairs):
+    """The card's order of K2's stages (phase and the low walked bits, the
+    high ones, the product on M, the outer pass), at the shapes above and
+    with two row passes (nkernel 8: 6 + 2 bits), against the JAX
+    ``grand_zzrx_fwd`` in interpret mode, which takes every rx after the
+    phase in one block from the most significant bit: the rx gates act on
+    distinct bits and commute, so the residuals and the output agree to
+    rounding (``ATOL``)."""
+    pairs = _chain(n) if pairs == "chain" else _long_range(n)
+    x = _inputs(n, nkernel, L, pairs, seed=5 * n + L)
+    sr, si = _jplanes(x["psi"])
+    names = ("mor", "moi", "mlr", "mli")
+    want = _interpret(lambda: jkg.grand_zzrx_fwd(
+        pairs, n, jnp.asarray(x["zz"]), jnp.asarray(x["th"]), sr, si,
+        *(jnp.asarray(x[k]) for k in names),
+    ))
+    tr, ti = convert.planes(x["psi"], "cpu")
+    got = _grand_fwd_in_stage_order(
+        pairs, n, torch.as_tensor(x["zz"]), torch.as_tensor(x["th"]), tr, ti,
+        *(torch.as_tensor(x[k]) for k in names),
+    )
+    for g, w in zip(got, want):
+        assert tuple(g.shape) == tuple(w.shape)
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=ATOL)
+
+
 def test_cpu_tensors_route_to_plain_versions():
     n, nkernel, L = 10, 1, 2
     pairs = _chain(n)

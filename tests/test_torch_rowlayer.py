@@ -8,8 +8,9 @@ interpret mode, on the same numpy-seeded inputs, with and without the lane
 matrix; the autograd boundaries ``row_layer``, ``row_layer_lane`` and
 ``row_layer_const`` against the JAX custom VJPs; the plain versions of K11
 (``rotx_fwd``) and K12 (``rotx_bwd``) against ``_pallas_rotx_fwd`` and
-``_pallas_rotx_bwd`` in interpret mode and ``rotx_row_layer`` against its
-JAX custom VJP; ``fused_single_qubit_layer`` and ``fused_rx_layer`` (with
+``_pallas_rotx_bwd`` in interpret mode, K12's pass order on the card
+against ``_pallas_rotx_bwd``, and ``rotx_row_layer`` against its JAX
+custom VJP; ``fused_single_qubit_layer`` and ``fused_rx_layer`` (with
 and without ``USE_ROTX``) against the JAX dispatch layer.  The kernels
 themselves run only on a CUDA card (``tests/test_torch_cuda.py``).
 
@@ -288,6 +289,41 @@ def test_rotx_plain_versions_match_pallas(nkernel, blocks):
     got_b = krl.rotx_bwd(*_t(th, *[np.array(a) for a in y], *x["ct"]))
     assert len(got_b) == 3 and got_b[2].shape == (nkernel,)
     _assert_all_close(got_b, want_b)
+
+
+def _rotx_bwd_in_pass_order(th, yr, yi, ctr, cti):
+    """K12 in the order the card's passes take it, in plain torch: the
+    passes of ``rotx_bwd_plan``, the first (the high walked bits) before
+    the last (the low ones), each from its lowest bit; per bit the rx
+    un-apply, dθ_q = -½ sin·Re S1 + ½ cos·Im S2 and the ct walk."""
+    nk, r = th.shape[0], yr.shape[0]
+    plan = krl.rotx_bwd_plan(r, nk)
+    hi, lo = plan["row_hi"]["bits"], plan["row_lo"]["bits"]
+    sr, si, cr, ci = yr, yi, ctr, cti
+    dth = [None] * nk
+    for w in [lo + i for i in range(hi)] + list(range(lo)):
+        q, s = nk - 1 - w, 1 << w
+        c, sn = torch.cos(th[q] / 2), torch.sin(th[q] / 2)
+        sr, si = c * sr - sn * krl._partner(si, s), c * si + sn * krl._partner(sr, s)
+        pcr, pci = krl._partner(cr, s), krl._partner(ci, s)
+        dth[q] = -0.5 * sn * torch.sum(cr * sr - ci * si) + 0.5 * c * torch.sum(pcr * si + pci * sr)
+        cr, ci = c * cr + sn * pci, c * ci - sn * pcr
+    return cr, ci, torch.stack(dth)
+
+
+@pytest.mark.parametrize("nkernel,blocks", [(5, 2), (8, 2), (10, 2)])
+def test_rotx_bwd_pass_order_matches_pallas(nkernel, blocks):
+    """The card's order of K12's bits (one pass of 5; passes of 2 and 6,
+    and of 4 and 6 bits) against the JAX ``_pallas_rotx_bwd`` in interpret
+    mode, which walks them from the lowest bit up in one block: the rx
+    gates act on distinct bits and commute, so ds and dθ agree to rounding
+    (``ATOL``)."""
+    x = _row_inputs(nkernel, blocks, seed=70 * nkernel + blocks)
+    th = (np.random.default_rng(3 * nkernel).standard_normal(nkernel) * 0.7).astype(np.float32)
+    y = [t.numpy() for t in krl.rotx_fwd_plain(*_t(th, *x["s"]))]
+    want = _interpret(lambda: jkrl._pallas_rotx_bwd(*_j(th, *y, *x["ct"])))
+    got = _rotx_bwd_in_pass_order(*_t(th, *y, *x["ct"]))
+    _assert_all_close(got, want)
 
 
 def test_rotx_row_layer_matches_jax_vjp():
