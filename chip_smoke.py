@@ -76,13 +76,15 @@ Phases (any failure exits non-zero; nothing is caught):
      counts reset just before and read just after (K6 9, K7 8 and K8 1 a
      step), energies and gradients against the same steps on the port's CPU
      path; the step timed (CUDA events) and profiled, each kernel and its
-     plain version timed at the path's shape over 3 rounds (K7 also with
-     the lane); K7's stage plan at n=20 with and without the lane (each
-     stage kernel's CTAs, threads, shared bytes, CTAs an SM, registers,
-     local bytes) against the Python arithmetic, nvcc's registers and
-     spills of its gate passes (a spill fails), and each of its row passes
-     (the first, the last with its colsum) by device time a launch on the
-     HEA step, beside its bound;
+     plain version timed at the path's shape over 3 rounds (K6 and K7 also
+     with the lane); K6's and K7's stage plans at n=20 with and without the
+     lane (each stage kernel's CTAs, threads, shared bytes, CTAs an SM,
+     registers, local bytes) against the Python arithmetic, nvcc's
+     registers and spills of their passes, K6's product and the transpose
+     (a spill fails), and each of their row passes (K6: the low pass, then
+     the high one; K7: the first, the last with its colsum) by device time
+     a launch on the HEA step, beside its bound; K6 (with and without the
+     lane), K7 and K8 alone by a replayed CUDA graph;
   9. the QAOA path, the main path of the QAOA slice: MaxCut on the n=20
      graph of ``examples/qaoa_maxcut_fused.py`` (37 edges, p=4); K9
      ``ml_fwd`` and K10 ``ml_bwd`` (whole block, 12 row qubits, 256 lanes)
@@ -103,10 +105,11 @@ Phases (any failure exits non-zero; nothing is caught):
      form (a) step, beside its bound and one PyTorch call of each product
      (a replayed CUDA graph); K9's plan at the same widths against the
      Python arithmetic and its stages (the zz pass, the other row pass,
-     the product) the same way; K9 and K12 alone by a replayed CUDA graph;
-     K12's plan as the card reports it against the Python arithmetic,
-     registers and spills, and its passes and colsum by device time a
-     launch on the form (b) step beside their bounds;
+     the product) the same way; K9, K11 and K12 alone by a replayed CUDA
+     graph; K11's and K12's plans as the card reports them against the
+     Python arithmetic, registers and spills, and their passes (K12's with
+     its colsum) by device time a launch on the form (b) step beside their
+     bounds;
  10. the FUSE_ROWM path, the main path of the row-kron slice: K1 and K3
      with the row kron M7 (stages K13 ``rowm_fwd`` and K14 ``rowm_bwd``,
      rmx=7, a 128x128 complex M7) with and without the lane against their
@@ -488,24 +491,11 @@ def _k4_stages(krl, card, stage_us, y, ct, m, pairs22):
     npairs = N - 1
     for label, rr, npp, rmx in ((f"n={N}", r, npairs, 0), (f"n={N} rmx=7", r, npairs, 7),
                                 (f"n={N22}", 4 * r, len(pairs22), 0)):
-        got, want = krl.zzrx_bwd_card_plan(rr, nkernel, npp, rmx), krl.zzrx_bwd_plan(rr, nkernel, npp, rmx)
-        for stage, p in got.items():
-            print(f"K3/K4 plan at {label}, {stage}, {card}: {p}")
-            if p["local_bytes"] or any(p[k] != v for k, v in want[stage].items()):
-                _fail(f"K3/K4 stage {stage} at {label}: card plan {p}, Python plan {want[stage]}")
-    for lib, needles in (("zzrx_bwd", ("wide_nt_kernel", "wide_dm_kernel", "ml_row_pass_kernel",
-                                        "ml_pair_records_kernel", "colsum_tree_kernel", "outer_bwd_kernel")),
-                         ("row_layer", ("wide_nt_kernel", "wide_dm_kernel"))):
-        report = _ptxas_report(_build.build_log(lib), "")
-        for needle in needles:
-            hits = {k: v for k, v in report.items() if needle in k}
-            if not hits:
-                _fail(f"no ptxas report of {needle} in {lib}")
-            for name, (regs, st, ld) in hits.items():
-                print(f"ptxas[{lib}] {needle} ({name[-40:]}): {regs} registers, {st} bytes spill stores, "
-                      f"{ld} bytes spill loads")
-                if regs is None or st or ld:
-                    _fail(f"{name} spills or has no register count")
+        _plan_check(f"K3/K4 at {label}", card, krl.zzrx_bwd_card_plan(rr, nkernel, npp, rmx),
+                    krl.zzrx_bwd_plan(rr, nkernel, npp, rmx))
+    _ptxas_check("zzrx_bwd", ("wide_nt_kernel", "wide_dm_kernel", "ml_row_pass_kernel", "ml_pair_records_kernel",
+                              "colsum_tree_kernel", "outer_bwd_kernel"))
+    _ptxas_check("row_layer", ("wide_nt_kernel", "wide_dm_kernel"))
     # dM alone at each chunk count, through the C entry point (the kernels
     # take the rule's count)
     lib = _build.library("zzrx_bwd")
@@ -561,8 +551,8 @@ def _k4_stages(krl, card, stage_us, y, ct, m, pairs22):
 #: K2's stages on the TFIM step, by kernel name (csrc/adjoint_stages.cuh
 #: and csrc/zzrx_fwd.cu); the transpose of M runs once a call
 K2_STAGES = {
-    "row zz": lambda k: "fwd_row_pass_kernel<true>" in k,
-    "row hi": lambda k: "fwd_row_pass_kernel<false>" in k,
+    "row zz": lambda k: "fwd_row_pass_kernel<true, false>" in k,
+    "row hi": lambda k: "fwd_row_pass_kernel<false, false>" in k,
     "product": lambda k: "wide_nt_kernel<1, false>" in k,
     "outer": lambda k: "outer_fwd_kernel" in k,
     "transpose": lambda k: "transpose_kernel" in k,
@@ -580,25 +570,11 @@ def _k2_stages(kg, card, stage_us, x, m, npairs, nkernel, nouter):
     ``allow_tf32`` is False)."""
     import torch
 
-    from tensorcircuit_ng_tpu_torch.core import _build
-
     r = x[0].shape[0]
-    got, want = kg.grand_zzrx_fwd_card_plan(r, nkernel, npairs, L), kg.grand_zzrx_fwd_plan(r, nkernel, npairs, L)
-    for stage, p in got.items():
-        print(f"K2 plan at n={N} L={L}, {stage}, {card}: {p}")
-        if p["local_bytes"] or any(p[k] != v for k, v in want[stage].items()):
-            _fail(f"K2 stage {stage}: card plan {p}, Python plan {want[stage]}")
-    report = _ptxas_report(_build.build_log("zzrx_fwd"), "")
-    for needle in ("fwd_row_pass_kernel", "wide_nt_kernel", "outer_fwd_kernel", "transpose_kernel",
-                   "ml_pair_records_kernel"):
-        hits = {k: v for k, v in report.items() if needle in k}
-        if not hits:
-            _fail(f"no ptxas report of {needle} in zzrx_fwd")
-        for name, (regs, st, ld) in hits.items():
-            print(f"ptxas[zzrx_fwd] {needle} ({name[-40:]}): {regs} registers, {st} bytes spill stores, "
-                  f"{ld} bytes spill loads")
-            if regs is None or st or ld:
-                _fail(f"{name} spills or has no register count")
+    _plan_check(f"K2 at n={N} L={L}", card, kg.grand_zzrx_fwd_card_plan(r, nkernel, npairs, L),
+                kg.grand_zzrx_fwd_plan(r, nkernel, npairs, L))
+    _ptxas_check("zzrx_fwd", ("fwd_row_pass_kernel", "wide_nt_kernel", "outer_fwd_kernel", "transpose_kernel",
+                              "ml_pair_records_kernel"))
     xc, mc = torch.complex(*x), torch.complex(*m)
     with torch.no_grad():
         lib_ms = {"product": _graph_ms(lambda: torch.matmul(xc, mc))}
@@ -664,7 +640,9 @@ def _stage_times(fn, stages, reps: int = 10):
     torch.profiler: ``stages`` maps a label to a kernel-name test; a label
     ending in "+colsum" adds the colsum_kernel or colsum_tree_kernel
     launched right after each of its kernels (found in the trace's time
-    order)."""
+    order).  A stage given as ``(test, k, m)`` is the k-th launch of every
+    m adjacent launches that match ``test`` in the trace's time order: the
+    passes of one call that share a kernel."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -679,6 +657,15 @@ def _stage_times(fn, stages, reps: int = 10):
     trace = sorted((e for e in prof.events() if e.device_type == cuda), key=lambda e: e.time_range.start)
     out = {}
     for label, test in stages.items():
+        if isinstance(test, tuple):
+            test, k, m = test
+            idx = [i for i, e in enumerate(trace) if test(e.name)]
+            groups = [idx[g:g + m] for g in range(0, len(idx), m)]
+            if not idx or any(len(g) != m or g[-1] - g[0] != m - 1 for g in groups):
+                _fail(f"stage {label}: the launches of {label} do not come in adjacent groups of {m}")
+            us = sum(trace[g[k]].time_range.elapsed_us() for g in groups) / len(groups)
+            out[label] = (us, len(groups) / reps)
+            continue
         hits = [e for e in by_name if test(e.key)]
         count = sum(e.count for e in hits)
         if count == 0:
@@ -845,6 +832,81 @@ def _k7_stage_work(r, nkernel):
             "row": (24 * amps + 2 * gates, 44 * nkernel * amps)}
 
 
+def _k6_stage_work(r, nkernel, lane=False):
+    """(bytes, flops) of each stage of K6 a launch, by name: the row
+    stage's "row lo" pass (the low 6 walked bits, launched first: two
+    planes in, two out, its gates in; 14 flops an amplitude a bit), "row
+    hi" (the walked bits past 6, in place) where there are two passes, and
+    with the lane "product" (the row stage's output and M in, y out; one
+    complex 128-deep product an amplitude).  Their flops add up to
+    :func:`_row_work`'s; their bytes to it plus the planes the stages hand
+    each other."""
+    amps = r * 128
+    lo = min(nkernel, 6)
+    hi = nkernel - lo
+    out = {"row lo": (16 * amps + 32 * lo, 14 * lo * amps)}
+    if hi:
+        out["row hi"] = (16 * amps + 32 * hi, 14 * hi * amps)
+    if lane:
+        out["product"] = (16 * amps + 2 * 4 * 128 * 128, 8 * 128 * amps)
+    return out
+
+
+def _fwd_pass_stages(instance):
+    """The two passes of K6 or K11 on a step, by kernel name: both are
+    ``fwd_row_pass_kernel<false, GATE>`` (csrc/adjoint_stages.cuh), the
+    low bits launched first and the high ones right after."""
+    test = lambda k: f"fwd_row_pass_kernel<{instance}>" in k  # noqa: E731
+    return {"row lo": (test, 0, 2), "row hi": (test, 1, 2)}
+
+
+#: K6's and K11's passes on their steps (GATE true and false)
+K6_STAGES = {f"K6 {k}": v for k, v in _fwd_pass_stages("false, true").items()}
+K11_STAGES = {f"K11 {k}": v for k, v in _fwd_pass_stages("false, false").items()}
+
+
+def _plan_check(name, card, got, want):
+    """A stage plan as the card reports it: each record equal to the Python
+    arithmetic and without local memory."""
+    for stage, p in got.items():
+        print(f"{name} plan, {stage}, {card}: {p}")
+        if p["local_bytes"] or any(p[k] != v for k, v in want[stage].items()):
+            _fail(f"{name} stage {stage}: card plan {p}, Python plan {want[stage]}")
+
+
+def _ptxas_check(build, needles):
+    """nvcc's registers and spills of each kernel of the ``build`` whose
+    mangled name holds one of ``needles`` (a spill fails, and so does a
+    needle that no kernel's name holds)."""
+    from tensorcircuit_ng_tpu_torch.core import _build
+
+    report = {k: v for k, v in _ptxas_report(_build.build_log(build), "").items()
+              if any(x in k for x in needles)}
+    for m in needles:
+        if not any(m in k for k in report):
+            _fail(f"no ptxas report of {m} in {build}: {list(report)}")
+    for kname, (regs, st, ld) in report.items():
+        print(f"ptxas[{build}] ({kname[-60:]}): {regs} registers, {st} bytes spill stores, "
+              f"{ld} bytes spill loads")
+        if regs is None or st or ld:
+            _fail(f"{kname} spills or has no register count")
+
+
+#: the mangled names of K6's and K11's pass kernels,
+#: fwd_row_pass_kernel<false, true> and <false, false>
+K6_PASS, K11_PASS = "fwd_row_pass_kernelILb0ELb1E", "fwd_row_pass_kernelILb0ELb0E"
+
+
+def _k6_plan(krl, card, r, nkernel):
+    """K6's stage plan at the HEA shape with and without the lane against
+    :func:`kernels_rowlayer.row_fwd_plan`, and nvcc's registers and spills
+    of its pass, product and transpose in the row_layer build."""
+    for lane in (False, True):
+        _plan_check(f"K6 at n={N} nkernel={nkernel}{' with the lane' if lane else ''}", card,
+                    krl.row_fwd_card_plan(r, nkernel, lane), krl.row_fwd_plan(r, nkernel, lane))
+    _ptxas_check("row_layer", (K6_PASS, "wide_nt_kernel", "transpose_kernel"))
+
+
 #: K7's stages on the HEA step, by kernel name (csrc/adjoint_stages.cuh)
 K7_STAGES = {
     "row hi": lambda k: "gate_row_pass_kernel<false>" in k,
@@ -857,22 +919,11 @@ def _k7_plan(krl, card, r, nkernel):
     card reports it, each record equal to :func:`kernels_rowlayer.row_bwd_plan`
     and without local memory, and nvcc's registers and spills of its gate
     passes (a spill fails)."""
-    from tensorcircuit_ng_tpu_torch.core import _build
-
     for lane in (False, True):
-        got, want = krl.row_bwd_card_plan(r, nkernel, lane), krl.row_bwd_plan(r, nkernel, lane)
-        for stage, p in got.items():
-            print(f"K7 plan at n={N} nkernel={nkernel}{' with the lane' if lane else ''}, {stage}, {card}: {p}")
-            if p["local_bytes"] or any(p[k] != v for k, v in want[stage].items()):
-                _fail(f"K7 stage {stage}: card plan {p}, Python plan {want[stage]}")
-    report = _ptxas_report(_build.build_log("row_layer"), "gate_row_pass_kernel")
-    if len(report) != 2:
-        _fail(f"no ptxas report of both gate passes: {report}")
-    for name, (regs, st, ld) in report.items():
-        print(f"ptxas[row_layer] gate_row_pass_kernel ({name[-40:]}): {regs} registers, {st} bytes spill "
-              f"stores, {ld} bytes spill loads")
-        if regs is None or st or ld:
-            _fail(f"{name} spills or has no register count")
+        _plan_check(f"K7 at n={N} nkernel={nkernel}{' with the lane' if lane else ''}", card,
+                    krl.row_bwd_card_plan(r, nkernel, lane), krl.row_bwd_plan(r, nkernel, lane))
+    # the two gate passes, gate_row_pass_kernel<false> and <true>
+    _ptxas_check("row_layer", ("gate_row_pass_kernelILb0E", "gate_row_pass_kernelILb1E"))
 
 
 def _hea_phase(tct, krl, dev, card):
@@ -971,11 +1022,12 @@ def _hea_phase(tct, krl, dev, card):
     wt = tct.convert.params(w0, dev).requires_grad_()
     step_ms = _time_ms(lambda: step(wt)[0].item(), inner=1)
     prof = _profile(lambda: step(wt)[0].item())
-    stage_us = _stage_times(lambda: step(wt)[0].item(), K7_STAGES)
+    stage_us = _stage_times(lambda: step(wt)[0].item(), {**K7_STAGES, **K6_STAGES})
     timed = {k: cases[k][0] for k in cases}  # the path runs no lane variant
     with torch.no_grad():
         times = {k: (_time_rounds(v[1]), _time_rounds(v[2], **PLAIN_TIMING)) for k, v in timed.items()}
-        k7_lane = _time_rounds(cases["row_bwd"][1][1]), _time_rounds(cases["row_bwd"][1][2], **PLAIN_TIMING)
+        lanes = {k: (_time_rounds(cases[k][1][1]), _time_rounds(cases[k][1][2], **PLAIN_TIMING))
+                 for k in ("row_fwd", "row_bwd")}
     print(f"HEA training step n={N} L={L} (value, grad, SGD update; CUDA events, ends in .item()), "
           f"{card}: {step_ms:.3f} ms (median of 20)")
     host, busy, by_kernel = prof
@@ -986,19 +1038,35 @@ def _hea_phase(tct, krl, dev, card):
         print(f"  device {ms:.4f} ms x{count:g}/run  {name[:90]}")
     # the kernels' own device time a launch on the path (the event timing
     # of back-to-back wrapper calls below also holds the wrapper's host time)
-    for kname, stage in (("row_fwd", "row_apply_kernel<false>"), ("row_bwd", "gate_row_pass_kernel"),
+    for kname, stage in (("row_fwd", "fwd_row_pass_kernel<false, true>"), ("row_bwd", "gate_row_pass_kernel"),
                          ("row_bwd", "colsum_tree_kernel"), ("row_bwd_const", "row_apply_kernel<true>")):
         for name, ms, count in by_kernel:
             if stage in name:
                 print(f"device time a launch on the HEA step, {kname} {name[:60]}: {1e3 * ms / count:.2f} us "
                       f"(x{count:g}/step)")
-    # K7's stages: the plan, and each row pass a launch beside its bound
+    # K6's and K7's stages: the plan, and each row pass a launch beside its
+    # bound
+    _k6_plan(krl, card, r, nkernel)
+    plan = krl.row_fwd_plan(r, nkernel)
+    work = _k6_stage_work(r, nkernel)
+    for label in K6_STAGES:
+        us, per_step = stage_us[label]
+        stage = label.removeprefix("K6 ")
+        bound, by = _bound_ms(*work[stage])
+        print(f"K6 stage {stage} ({plan[stage.replace(' ', '_')]['bits']} walked bits) at n={N} nkernel={nkernel}, "
+              f"{card}: {us:.2f} us device a launch (torch.profiler over 10 HEA steps, x{per_step:g} a step); "
+              f"bound {1e3 * bound:.2f} us ({by}), {100 * 1e3 * bound / us:.1f} % of it reached; no library call")
+    k6_us = sum(stage_us[k][0] for k in K6_STAGES)
+    bound, by = _bound_ms(*_row_work(r, nkernel, "fwd"))
+    print(f"K6 a launch at n={N} nkernel={nkernel}, {card}: {k6_us:.2f} us device (the passes above); bound "
+          f"{1e3 * bound:.2f} us ({by}), {100 * 1e3 * bound / k6_us:.1f} % of it reached")
     _k7_plan(krl, card, r, nkernel)
     plan = krl.row_bwd_plan(r, nkernel)
     work = _k7_stage_work(r, nkernel)
-    k7_us = sum(v[0] for v in stage_us.values())
+    k7_us = sum(stage_us[k][0] for k in K7_STAGES)
     bound, by = _bound_ms(*work["row"])
-    for label, (us, per_step) in stage_us.items():
+    for label in K7_STAGES:
+        us, per_step = stage_us[label]
         bits = plan["row_hi" if label == "row hi" else "row_lo"]["bits"]
         print(f"K7 stage {label} ({bits} walked bits) at n={N} nkernel={nkernel}, {card}: {us:.2f} us device a "
               f"launch (torch.profiler over 10 HEA steps, x{per_step:g} a step)")
@@ -1006,16 +1074,21 @@ def _hea_phase(tct, krl, dev, card):
           f"bound {1e3 * bound:.2f} us ({by}), {100 * 1e3 * bound / k7_us:.1f} % of it reached")
     kind = {"row_fwd": "fwd", "row_bwd": "bwd", "row_bwd_const": "const"}
     replaces = {"row_fwd": 296, "row_bwd": 344, "row_bwd_const": 799}
-    # K7's device time of a call without the host's launch cost (the event
-    # timing below of back-to-back wrapper calls is host-bound at this size)
+    # each kernel's device time of a call without the host's launch cost
+    # (the event timing below of back-to-back wrapper calls is host-bound
+    # at this size); K6 also with the lane
+    graphs = {("K6", "no lane"): cases["row_fwd"][0][1], ("K6", "lane"): cases["row_fwd"][1][1],
+              ("K7", "no lane"): cases["row_bwd"][0][1], ("K8", "no lane"): cases["row_bwd_const"][0][1]}
     with torch.no_grad():
-        k7_graph = _graph_ms(cases["row_bwd"][0][1])
-    print(f"K7 alone [no lane, n={N} nkernel={nkernel}] by a replayed CUDA graph of 10 calls (median of 3 rounds), "
-          f"{card}: {1e3 * k7_graph[0]:.2f} us (min {1e3 * k7_graph[1]:.2f}, max {1e3 * k7_graph[2]:.2f})")
-    (t, tp), (bound, by) = k7_lane, _bound_ms(*_row_work(r, nkernel, "bwd", lane=True))
-    print(f"kernel row_bwd [lane, n={N} nkernel={nkernel} r={r}] over 3 rounds, {card}: median {t[0]:.4f} ms "
-          f"(min {t[1]:.4f}, max {t[2]:.4f}); plain median {tp[0]:.4f} ms (min {tp[1]:.4f}, max {tp[2]:.4f}); "
-          f"bound {bound:.4f} ms ({by}); not on the HEA path")
+        graphs = {k: _graph_ms(f) for k, f in graphs.items()}
+    for (kname, label), g in graphs.items():
+        print(f"{kname} alone [{label}, n={N} nkernel={nkernel}] by a replayed CUDA graph of 10 calls (median of "
+              f"3 rounds), {card}: {1e3 * g[0]:.2f} us (min {1e3 * g[1]:.2f}, max {1e3 * g[2]:.2f})")
+    for name, (t, tp) in lanes.items():
+        bound, by = _bound_ms(*_row_work(r, nkernel, kind[name], lane=True))
+        print(f"kernel {name} [lane, n={N} nkernel={nkernel} r={r}] over 3 rounds, {card}: median {t[0]:.4f} ms "
+              f"(min {t[1]:.4f}, max {t[2]:.4f}); plain median {tp[0]:.4f} ms (min {tp[1]:.4f}, max "
+              f"{tp[2]:.4f}); bound {bound:.4f} ms ({by}); not on the HEA path")
     entries = []
     for name, (t, tp) in times.items():
         bound, by = _bound_ms(*_row_work(r, nkernel, kind[name]))
@@ -1094,8 +1167,8 @@ def _k9_stage_work(r, lanes, npairs, nrow):
 #: K9's stages on the form (a) step, by kernel name (csrc/adjoint_stages.cuh,
 #: csrc/multilayer.cu)
 K9_STAGES = {
-    "row zz": lambda k: "fwd_row_pass_kernel<true>" in k,
-    "row hi": lambda k: "fwd_row_pass_kernel<false>" in k,
+    "row zz": lambda k: "fwd_row_pass_kernel<true, false>" in k,
+    "row hi": lambda k: "fwd_row_pass_kernel<false, false>" in k,
     "product": lambda k: "wide_nt_kernel<1, false>" in k,
 }
 
@@ -1108,6 +1181,22 @@ def _rotx_work(r, nkernel, kind):
     if kind == "fwd":
         return 4 * 4 * amps + 4 * nkernel, 6 * nkernel * amps
     return 6 * 4 * amps + 2 * 4 * nkernel, 20 * nkernel * amps
+
+
+def _k11_stage_work(r, nkernel):
+    """(bytes, flops) of each of K11's passes a launch, by name: "row lo"
+    (the low 6 walked bits, launched first: two planes in, two out, its
+    angles in; 6 flops an amplitude a bit) and "row hi" (the bits past 6,
+    in place) where there are two passes.  Their flops add up to
+    :func:`_rotx_work`'s K11 flops; their bytes to it plus the planes the
+    first pass hands the second."""
+    amps = r * 128
+    lo = min(nkernel, 6)
+    hi = nkernel - lo
+    out = {"row lo": (16 * amps + 4 * lo, 6 * lo * amps)}
+    if hi:
+        out["row hi"] = (16 * amps + 4 * hi, 6 * hi * amps)
+    return out
 
 
 def _k12_stage_work(r, nkernel):
@@ -1282,8 +1371,8 @@ def _qaoa_phase(tct, krl, dev, card, counters):
             stages = {"a": ("fwd_row_pass_kernel", "transpose_kernel", "wide_nt_kernel<1, false>",
                             "ml_pair_records_kernel", "wide_nt_kernel<2, true>", "wide_dm_kernel", "colsum_kernel",
                             "ml_row_pass_kernel<false>", "ml_row_pass_kernel<true>", "colsum_tree_kernel"),
-                      "b": ("rotx_fwd_kernel", "ml_row_pass_kernel<false>", "rx_row_pass_kernel",
-                            "colsum_tree_kernel")}[form]
+                      "b": ("fwd_row_pass_kernel<false, false>", "ml_row_pass_kernel<false>",
+                            "rx_row_pass_kernel", "colsum_tree_kernel")}[form]
             for stage in stages:
                 for name, ms, count in by_kernel:
                     if stage in name:
@@ -1299,19 +1388,22 @@ def _qaoa_phase(tct, krl, dev, card, counters):
                     **{f"K9 {k}": v for k, v in K9_STAGES.items()},
                 })
             else:
-                k12_us = _stage_times(step, K12_STAGES)
+                k12_us = _stage_times(step, {**K12_STAGES, **K11_STAGES})
     finally:
         kernels.ML_MODE, kernels.USE_ROTX = "stack", False
 
     with torch.no_grad():
         times = {k: (_time_rounds(v[0][1]), _time_rounds(v[0][2], **PLAIN_TIMING)) for k, v in cases.items()}
         k9_graph = _graph_ms(cases["ml_fwd"][0][1])
+        k11_graph = _graph_ms(cases["rotx_fwd"][0][1])
         k12_graph = _graph_ms(cases["rotx_bwd"][0][1])
-    for kname, label, g in (("K9", f"L={QAOA_P} lanes={lanes}", k9_graph), ("K12", f"nkernel={nk}", k12_graph)):
+    for kname, label, g in (("K9", f"L={QAOA_P} lanes={lanes}", k9_graph), ("K11", f"nkernel={nk}", k11_graph),
+                            ("K12", f"nkernel={nk}", k12_graph)):
         print(f"{kname} alone [{label}, n={n}] by a replayed CUDA graph of 10 calls (median of 3 rounds), "
               f"{card}: {1e3 * g[0]:.2f} us (min {1e3 * g[1]:.2f}, max {1e3 * g[2]:.2f})")
     _ml_stages(kml, card, stage_us, y_ml, (ctr, cti), (mr, mi), npairs, nrow)
-    _k12_stages(krl, card, k12_us, 2 ** (n - 7), nk)
+    _k11_stages(krl, card, {k: k12_us[k] for k in K11_STAGES}, 2 ** (n - 7), nk)
+    _k12_stages(krl, card, {k: k12_us[k] for k in K12_STAGES}, 2 ** (n - 7), nk)
     work = {
         "ml_fwd": _ml_work(r, lanes, npairs, nrow, QAOA_P, "fwd"),
         "ml_bwd": _ml_work(r, lanes, npairs, nrow, QAOA_P, "bwd"),
@@ -1344,6 +1436,30 @@ K12_STAGES = {
 }
 
 
+def _k11_stages(krl, card, stage_us, r, nkernel):
+    """K11's passes at the QAOA form (b) path's shape: the plan as the card
+    reports it against ``rotx_fwd_plan``, nvcc's registers and spills of
+    its pass kernel in the row_layer build (a spill fails), and each pass's
+    device time a launch on the form (b) step (``stage_us``) beside its
+    bound (no one PyTorch call computes a pass)."""
+    _plan_check(f"K11 at n={N} nkernel={nkernel}", card, krl.rotx_fwd_card_plan(r, nkernel),
+                krl.rotx_fwd_plan(r, nkernel))
+    _ptxas_check("row_layer", (K11_PASS,))
+    plan = krl.rotx_fwd_plan(r, nkernel)
+    work = _k11_stage_work(r, nkernel)
+    for label, (us, per_step) in stage_us.items():
+        stage = label.removeprefix("K11 ")
+        bound, by = _bound_ms(*work[stage])
+        print(f"K11 stage {stage} ({plan[stage.replace(' ', '_')]['bits']} walked bits) at n={N} nkernel={nkernel}, "
+              f"{card}: {us:.2f} us device a launch (torch.profiler over 10 form (b) steps, x{per_step:g} a "
+              f"step); bound {1e3 * bound:.2f} us ({by}), {100 * 1e3 * bound / us:.1f} % of it reached; "
+              f"no library call")
+    total = sum(v[0] for v in stage_us.values())
+    bound, by = _bound_ms(*_rotx_work(r, nkernel, "fwd"))
+    print(f"K11 a launch at n={N} nkernel={nkernel}, {card}: {total:.2f} us device (the passes above); bound "
+          f"{1e3 * bound:.2f} us ({by}), {100 * 1e3 * bound / total:.1f} % of it reached")
+
+
 def _k12_stages(krl, card, stage_us, r, nkernel):
     """K12's passes at the QAOA form (b) path's shape: the plan as the card
     reports it, each record equal to ``rotx_bwd_plan``'s and without local
@@ -1351,23 +1467,9 @@ def _k12_stages(krl, card, stage_us, r, nkernel):
     build (a spill fails); each stage's device time a launch on the form
     (b) step (``stage_us``, from :func:`_stage_times`) beside its bound (no
     one PyTorch call computes a stage)."""
-    from tensorcircuit_ng_tpu_torch.core import _build
-
-    got, want = krl.rotx_bwd_card_plan(r, nkernel), krl.rotx_bwd_plan(r, nkernel)
-    for stage, p in got.items():
-        print(f"K12 plan at n={N} nkernel={nkernel}, {stage}, {card}: {p}")
-        if p["local_bytes"] or any(p[k] != v for k, v in want[stage].items()):
-            _fail(f"K12 stage {stage}: card plan {p}, Python plan {want[stage]}")
-    report = _ptxas_report(_build.build_log("row_layer"), "")
-    for needle in ("ml_row_pass_kernel", "rx_row_pass_kernel", "colsum_tree_kernel"):
-        hits = {k: v for k, v in report.items() if needle in k}
-        if not hits:
-            _fail(f"no ptxas report of {needle} in row_layer")
-        for name, (regs, st, ld) in hits.items():
-            print(f"ptxas[row_layer] {needle} ({name[-40:]}): {regs} registers, {st} bytes spill stores, "
-                  f"{ld} bytes spill loads")
-            if regs is None or st or ld:
-                _fail(f"{name} spills or has no register count")
+    _plan_check(f"K12 at n={N} nkernel={nkernel}", card, krl.rotx_bwd_card_plan(r, nkernel),
+                krl.rotx_bwd_plan(r, nkernel))
+    _ptxas_check("row_layer", ("ml_row_pass_kernel", "rx_row_pass_kernel", "colsum_tree_kernel"))
     work = _k12_stage_work(r, nkernel)
     total = 0.0
     for stage, (us, per_step) in stage_us.items():
@@ -1396,8 +1498,6 @@ def _ml_stages(kml, card, stage_us, y, ct, m, npairs, nrow):
     ``allow_tf32`` is False)."""
     import torch
 
-    from tensorcircuit_ng_tpu_torch.core import _build
-
     r, lanes = y[0].shape
     for w in ML_PLAN_LANES:
         plan = kml.ml_plan(2**nrow, w, nrow, npairs)
@@ -1408,16 +1508,8 @@ def _ml_stages(kml, card, stage_us, y, ct, m, npairs, nrow):
         for stage, p in kml.ml_fwd_plan(2**nrow, w, nrow, npairs).items():
             if any(plan[stage][k] != v for k, v in p.items()):
                 _fail(f"K9 stage {stage} at lanes={w}: card plan {plan[stage]}, Python plan {p}")
-    report = _ptxas_report(_build.build_log("multilayer"), "")
-    for needle in ("wide_nt_kernel", "wide_dm_kernel", "ml_row_pass_kernel", "ml_pair_records_kernel",
-                   "fwd_row_pass_kernel"):
-        hits = {k: v for k, v in report.items() if needle in k}
-        if not hits:
-            _fail(f"no ptxas report of {needle}")
-        for name, (regs, st, ld) in hits.items():
-            print(f"ptxas {needle} ({name[-40:]}): {regs} registers, {st} bytes spill stores, {ld} bytes spill loads")
-            if regs is None or st or ld:
-                _fail(f"{name} spills or has no register count")
+    _ptxas_check("multilayer", ("wide_nt_kernel", "wide_dm_kernel", "ml_row_pass_kernel", "ml_pair_records_kernel",
+                                "fwd_row_pass_kernel"))
     # the products' operands as complex matrices, built outside the timed calls
     yc, cc = torch.complex(*y), torch.complex(*ct)
     mc = torch.complex(m[0][0], m[1][0])

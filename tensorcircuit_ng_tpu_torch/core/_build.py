@@ -76,11 +76,14 @@ _SIGNATURES = {
         "tcng_jacobi_svd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     },
     "row_layer": {
-        "tcng_row_fwd": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _P],
+        "tcng_row_fwd_scratch": [_I, _I, _I],
+        "tcng_row_fwd_plan": [_I, _I, _I, _P],
+        "tcng_row_fwd": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _P],
         "tcng_row_bwd_scratch": [_I, _I, _I],
         "tcng_row_bwd_plan": [_I, _I, _I, _P],
         "tcng_row_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _P],
         "tcng_row_bwd_const": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
+        "tcng_rotx_fwd_plan": [_I, _I, _P],
         "tcng_rotx_fwd": [_P, _P, _P, _P, _P, _I, _I, _P],
         "tcng_rotx_bwd_scratch": [_I, _I],
         "tcng_rotx_bwd_plan": [_I, _I, _P],
@@ -100,8 +103,8 @@ _SIGNATURES = {
 }
 _RESTYPES = {
     name: ctypes.c_long
-    for name in ("tcng_zzrx_bwd_scratch", "tcng_row_bwd_scratch", "tcng_rotx_bwd_scratch", "tcng_ml_scratch",
-                 "tcng_grand_zzrx_fwd_scratch")
+    for name in ("tcng_zzrx_bwd_scratch", "tcng_row_fwd_scratch", "tcng_row_bwd_scratch",
+                 "tcng_rotx_bwd_scratch", "tcng_ml_scratch", "tcng_grand_zzrx_fwd_scratch")
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

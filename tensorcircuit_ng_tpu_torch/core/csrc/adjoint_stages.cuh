@@ -5,9 +5,10 @@
 // adjoint of the port with these stages: K3 and K4 (zzrx_bwd.cu, W = 128),
 // K7 (row_layer.cu, W = 128: the lane stage, and the row stage with
 // general gates), K10 (multilayer.cu, W = 128-1024) and K12 (row_layer.cu:
-// the rx passes without the zz stage); the forwards K2 (zzrx_fwd.cu) and
-// K9 (multilayer.cu) run on the same row-stage plan and their product is
-// the same kernel with NA = 1, on M^T (transpose_kernel).
+// the rx passes without the zz stage); the forwards K2 (zzrx_fwd.cu), K9
+// (multilayer.cu), K6 and K11 (row_layer.cu) run on the same row-stage
+// plan, and the product of K2, K9 and K6 with the lane is the same kernel
+// with NA = 1, on M^T (transpose_kernel).
 //
 // Conventions (those of the JAX package): cotangent planes are (dL/dyr,
 // -dL/dyi), the non-conjugating complex cotangent, and walk by the
@@ -68,11 +69,14 @@
 //   K12's passes (rx_row_stage): ml_row_pass_kernel<false> with no pairs,
 //     then rx_row_pass_kernel, the last pass without the zz stage (no
 //     pair records, phase or x planes), writing only ct (ds).
-//   The forward passes of K2 and K9 (fwd_row_pass_kernel, fwd_row_stage),
-//     two planes in and two out: first the phase and the low row bits' rx
-//     on the tiles of the last pass, whose thread starts on the register
-//     bits the pair records are sorted by (one record set for every
-//     layer), then the high row bits' rx in place.
+//   The forward passes (fwd_row_pass_kernel<ZZ, GATE>), two planes in and
+//     two out: the low walked bits on the tiles of the last pass, whose
+//     thread starts on the register bits the pair records are sorted by
+//     (one record set for every layer), then the high ones in place.  K2
+//     and K9 (fwd_row_stage): the phase, then rx, in the first pass.  K6
+//     and K11 (bfly_row_stage): no phase; K11 rx, K6 a general 2x2 gate a
+//     walked bit (GATE), staged in shared memory as K7's gate passes stage
+//     theirs.
 // Every sum across CTAs is a per-CTA partial added in a fixed order: no
 // atomics, two runs agree bit for bit.  Plain f32 FMAs, no fast-math.
 // Bounds at n = 20, W = 128 (r = 8192): each complex 128-deep product is
@@ -81,7 +85,7 @@
 // moves psi and ct in and ds out, 25 MB (7.5 us at 3.35 TB/s); K7's row
 // stage at nkernel = 11 the same bytes for 44 flops an amplitude a bit,
 // 0.51 GFLOP (7.6 us, operations).  The forward row stage moves 16.8 MB a
-// layer (5.0 us, bytes) at W = 256 (K9) and at W = 128 (K2).
+// layer (5.0 us, bytes) at W = 256 (K9) and at W = 128 (K2, K6, K11).
 
 #pragma once
 
@@ -877,8 +881,8 @@ cudaError_t adjoint_row_stage(const RowStage& rs, const float* pr, const float* 
 }
 
 // ---------------------------------------------------------------------------
-// The general-gate adjoint pass (K7) and the forward pass (K9), on the row
-// stage's plan.
+// The general-gate adjoint pass (K7) and the forward passes (K2, K6, K9,
+// K11), on the row stage's plan.
 // ---------------------------------------------------------------------------
 
 // The warp sums of a[0..8) without a shuffle tree a value: three halving
@@ -1110,56 +1114,90 @@ cudaError_t rx_row_stage(const RowStage& rs, const float* pr, const float* pi, c
   return colsum_tree(part, static_cast<int>(grid), rs.nwalk, dth, st);
 }
 
-// The forward rx butterflies rx(th) = [[c, -i s], [-i s, c]] of pass bits
-// i0..i0+2 on the thread's 8 elements.
-template <int I0>
-__device__ __forceinline__ void rx_butterflies(float (&zr)[8], float (&zi)[8], const float* cs,
-                                               int nb) {
+// The forward butterflies of pass bits i0..i0+2 on the thread's 8
+// elements, register bit j = pass bit i0 + j.  GATE: the general gate co +
+// 8 (i0 + j) = (g00, g01, g10, g11) as (re, im), lo' = g00 lo + g01 hi and
+// hi' = g10 lo + g11 hi, each complex multiply-add two fmaf a plane; else
+// rx(th) = [[c, -i s], [-i s, c]] with co + 2 (i0 + j) = (c, s).
+template <int I0, bool GATE>
+__device__ __forceinline__ void fwd_butterflies(float (&zr)[8], float (&zi)[8], const float* co,
+                                                int nb) {
 #pragma unroll
   for (int j = 0; j < 3; ++j) {
     if (I0 + j >= nb) continue;
-    const float c = cs[2 * (I0 + j)], sn = cs[2 * (I0 + j) + 1];
+    if constexpr (GATE) {
+      const float* m = co + 8 * (I0 + j);
+      const float g00r = m[0], g00i = m[1], g01r = m[2], g01i = m[3];
+      const float g10r = m[4], g10i = m[5], g11r = m[6], g11i = m[7];
 #pragma unroll
-    for (int lo = 0; lo < 8; ++lo) {
-      if (lo & (1 << j)) continue;
-      const int hi = lo | (1 << j);
-      const float ar = zr[lo], ai = zi[lo], br = zr[hi], bi = zi[hi];
-      zr[lo] = fmaf(sn, bi, c * ar), zi[lo] = fmaf(-sn, br, c * ai);
-      zr[hi] = fmaf(sn, ai, c * br), zi[hi] = fmaf(-sn, ar, c * bi);
+      for (int lo = 0; lo < 8; ++lo) {
+        if (lo & (1 << j)) continue;
+        const int hi = lo | (1 << j);
+        const float ar = zr[lo], ai = zi[lo], br = zr[hi], bi = zi[hi];
+        zr[lo] = fmaf(-g01i, bi, fmaf(g01r, br, fmaf(-g00i, ai, g00r * ar)));
+        zi[lo] = fmaf(g01i, br, fmaf(g01r, bi, fmaf(g00i, ar, g00r * ai)));
+        zr[hi] = fmaf(-g11i, bi, fmaf(g11r, br, fmaf(-g10i, ai, g10r * ar)));
+        zi[hi] = fmaf(g11i, br, fmaf(g11r, bi, fmaf(g10i, ar, g10r * ai)));
+      }
+    } else {
+      const float c = co[2 * (I0 + j)], sn = co[2 * (I0 + j) + 1];
+#pragma unroll
+      for (int lo = 0; lo < 8; ++lo) {
+        if (lo & (1 << j)) continue;
+        const int hi = lo | (1 << j);
+        const float ar = zr[lo], ai = zi[lo], br = zr[hi], bi = zi[hi];
+        zr[lo] = fmaf(sn, bi, c * ar), zi[lo] = fmaf(-sn, br, c * ai);
+        zr[hi] = fmaf(sn, ai, c * br), zi[hi] = fmaf(-sn, ar, c * bi);
+      }
     }
   }
 }
 
+// Floats a pass bit of a forward pass's butterfly coefficients: a gate's
+// four complex entries, or rx's cos and sin.
+__host__ __device__ constexpr int fwd_coef_floats(bool gate) { return gate ? 8 : 2; }
+
 // Shared bytes of a forward pass: the exchange tile of two planes (nb >
-// 3), ZZ: the pair records; cos/sin of the pass bits and the slots'
+// 3), ZZ: the pair records; the pass bits' coefficients and the slots'
 // offsets.
-size_t fwd_pass_smem(const RowPass& rp, int npairs, bool zz) {
-  return sizeof(float) * ((rp.nb > 3 ? 2 << rp.tb : 0) + 2 * RP_MAXB + 8) +
+size_t fwd_pass_smem(const RowPass& rp, int npairs, bool zz, bool gate = false) {
+  return sizeof(float) * ((rp.nb > 3 ? 2 << rp.tb : 0) + fwd_coef_floats(gate) * RP_MAXB + 8) +
          (zz ? sizeof(int4) * npairs : 0);
 }
 
-// K9's row pass of one layer on the tile of CTA blockIdx.x, x -> y: ZZ
-// (the last pass's tiles) first the phase exp(-i/2 sum_k th_k z_a z_b),
-// from the pair records grec/gso (pair_records) and the layer's angles
-// zzth, then rx(th_q) on each pass bit (the rx gates act on distinct bits
+// A forward row pass on the tile of CTA blockIdx.x, x -> y: ZZ (K2's and
+// K9's first pass, on the last pass's tiles) first the phase exp(-i/2
+// sum_k th_k z_a z_b), from the pair records grec/gso (pair_records) and
+// the layer's angles zzth, then a butterfly on each pass bit i: GATE (K6)
+// gate rp.q[i] of the (nwalk, 4) planes c1/c2 = gr/gi, else (K2, K9, K11)
+// rx(th_q) with q = rp.q[i] and c1 = th (the gates act on distinct bits
 // and commute).  With more than 3 pass bits the thread first holds tile
 // bits 8..10 in registers (those the records are sorted by), then crosses
-// shared memory to tile bits 5..7.  y may alias x.
-template <bool ZZ>
+// shared memory to tile bits 5..7.  y may alias x.  64 registers (4 CTAs
+// an SM: at n = 20 the 512 CTAs run in one wave).
+template <bool ZZ, bool GATE>
 __global__ void __launch_bounds__(THREADS, 4)
 fwd_row_pass_kernel(const float* xr, const float* xi, float* yr, float* yi,
                     const int4* __restrict__ grec, const int* __restrict__ gso,
-                    const float* __restrict__ zzth, int npairs, const float* __restrict__ th,
-                    RowPass rp) {
+                    const float* __restrict__ zzth, int npairs, const float* __restrict__ c1,
+                    const float* __restrict__ c2, RowPass rp) {
   extern __shared__ __align__(16) float smem[];
   const int t = threadIdx.x;
   const int nel = 1 << rp.tb;
   const bool two = rp.nb > 3;
   float* xs = smem;
   int4* rec = reinterpret_cast<int4*>(xs + (two ? 2 * nel : 0));
-  float* cs = reinterpret_cast<float*>(rec + (ZZ ? npairs : 0));
-  int* so = reinterpret_cast<int*>(cs + 2 * RP_MAXB);
-  if (t < rp.nb) sincosf(0.5f * th[pick(rp.q, t)], &cs[2 * t + 1], &cs[2 * t]);
+  float* co = reinterpret_cast<float*>(rec + (ZZ ? npairs : 0));  // the pass bits' coefficients
+  int* so = reinterpret_cast<int*>(co + fwd_coef_floats(GATE) * RP_MAXB);
+  if constexpr (GATE) {
+    if (t < 4 * rp.nb) {
+      const int i = t >> 2, e = t & 3, q = pick(rp.q, i);
+      co[8 * i + 2 * e] = c1[4 * q + e];
+      co[8 * i + 2 * e + 1] = c2[4 * q + e];
+    }
+  } else if (t < rp.nb) {
+    sincosf(0.5f * c1[pick(rp.q, t)], &co[2 * t + 1], &co[2 * t]);
+  }
   if (ZZ) load_records(grec, gso, zzth, npairs, rec, so);
   const int cbase = cta_flat(rp);
   __syncthreads();
@@ -1175,19 +1213,19 @@ fwd_row_pass_kernel(const float* xr, const float* xi, float* yr, float* yi,
     zi[r] = xi[f + dl[r]];
   }
   if (ZZ) {
-    float co[7];
-    zz_walsh(rec, so, f, co);
+    float cz[7];
+    zz_walsh(rec, so, f, cz);
 #pragma unroll
     for (int r = 0; r < 8; ++r) {
       float sg[7], sn, c;
       walsh_signs(r, sg);
-      zz_sincos(co, sg, &sn, &c);
+      zz_sincos(cz, sg, &sn, &c);
       const float ar = zr[r], ai = zi[r];
       zr[r] = fmaf(sn, ai, c * ar), zi[r] = fmaf(-sn, ar, c * ai);
     }
   }
   if (two) {
-    rx_butterflies<3>(zr, zi, cs, rp.nb);
+    fwd_butterflies<3, GATE>(zr, zi, co, rp.nb);
 #pragma unroll
     for (int r = 0; r < 8; ++r) {
       const int e = t | (r << 8);
@@ -1202,7 +1240,7 @@ fwd_row_pass_kernel(const float* xr, const float* xi, float* yr, float* yi,
     f = cbase + tile_flat(e1, rp);
     reg_offsets(rp, 5, dl);
   }
-  rx_butterflies<0>(zr, zi, cs, rp.nb);
+  fwd_butterflies<0, GATE>(zr, zi, co, rp.nb);
 #pragma unroll
   for (int r = 0; r < 8; ++r) {
     yr[f + dl[r]] = zr[r];
@@ -1210,9 +1248,10 @@ fwd_row_pass_kernel(const float* xr, const float* xi, float* yr, float* yi,
   }
 }
 
+// K2's and K9's forward passes: the zz pass (first) and the other.
 const void* fwd_pass_fn(bool zz) {
-  return zz ? reinterpret_cast<const void*>(fwd_row_pass_kernel<true>)
-            : reinterpret_cast<const void*>(fwd_row_pass_kernel<false>);
+  return zz ? reinterpret_cast<const void*>(fwd_row_pass_kernel<true, false>)
+            : reinterpret_cast<const void*>(fwd_row_pass_kernel<false, false>);
 }
 
 // The forward passes' shared-memory limits; once an entry call.
@@ -1232,11 +1271,33 @@ cudaError_t fwd_row_stage(const RowStage& rs, const float* xr, const float* xi, 
   const int threads = row_threads(rs);
   const int4* r4 = reinterpret_cast<const int4*>(rec);
   const int* so = reinterpret_cast<const int*>(rec + 4 * static_cast<size_t>(npairs));
-  fwd_row_pass_kernel<true><<<grid, threads, fwd_pass_smem(last_pass(rs), npairs, true), st>>>(
-      xr, xi, yr, yi, r4, so, zzth, npairs, th, last_pass(rs));
+  fwd_row_pass_kernel<true, false><<<grid, threads, fwd_pass_smem(last_pass(rs), npairs, true), st>>>(
+      xr, xi, yr, yi, r4, so, zzth, npairs, th, nullptr, last_pass(rs));
   if (rs.npass == 2)
-    fwd_row_pass_kernel<false><<<grid, threads, fwd_pass_smem(rs.pass[0], npairs, false), st>>>(
-        yr, yi, yr, yi, nullptr, nullptr, nullptr, npairs, th, rs.pass[0]);
+    fwd_row_pass_kernel<false, false><<<grid, threads, fwd_pass_smem(rs.pass[0], npairs, false), st>>>(
+        yr, yi, yr, yi, nullptr, nullptr, nullptr, npairs, th, nullptr, rs.pass[0]);
+  return cudaGetLastError();
+}
+
+// The row stage of K6 (GATE: the general gates c1/c2 = gr/gi, (nwalk, 4)
+// planes) and K11 (rx, c1 = th), x -> y (y may alias x): K9's passes
+// without the phase, the low walked bits on the last pass's tiles, then
+// (two passes) the high ones in place.
+template <bool GATE>
+cudaError_t bfly_row_stage(const RowStage& rs, const float* xr, const float* xi, float* yr,
+                           float* yi, const float* c1, const float* c2, cudaStream_t st) {
+  const unsigned grid = static_cast<unsigned>(row_ctas(rs));
+  const int threads = row_threads(rs);
+  const size_t lo = fwd_pass_smem(last_pass(rs), 0, false, GATE);
+  const size_t hi = fwd_pass_smem(rs.pass[0], 0, false, GATE);
+  // a plan record may have set a smaller limit on this kernel
+  cudaError_t err = set_smem(reinterpret_cast<const void*>(fwd_row_pass_kernel<false, GATE>), lo > hi ? lo : hi);
+  if (err != cudaSuccess) return err;
+  fwd_row_pass_kernel<false, GATE><<<grid, threads, lo, st>>>(xr, xi, yr, yi, nullptr, nullptr, nullptr,
+                                                              0, c1, c2, last_pass(rs));
+  if (rs.npass == 2)
+    fwd_row_pass_kernel<false, GATE><<<grid, threads, hi, st>>>(yr, yi, yr, yi, nullptr, nullptr,
+                                                                nullptr, 0, c1, c2, rs.pass[0]);
   return cudaGetLastError();
 }
 

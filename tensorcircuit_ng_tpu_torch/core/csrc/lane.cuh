@@ -1,10 +1,10 @@
 // Lane-matrix stages of the forward kernels of the port (zzrx_fwd.cu,
-// row_layer.cu) and the helpers every kernel source shares, on the (r, 128)
+// micro_grand.cu) and the helpers every kernel source shares, on the (r, 128)
 // float32 plane pair of a complex64 statevector.  Layout index = row * 128
 // + lane.
 //
 //   lane_fwd_kernel: y = x @ M on 32-row tiles, M streamed through shared
-//     memory in K chunks (K1, K6 and K15);
+//     memory in K chunks (K1 and K15);
 //   helpers: the deterministic block sum, 16-byte cp.async copies, float
 //     vectors, colsum_kernel (per-CTA partials added in a fixed order).
 // The adjoint's lane and row stages (K3, K4, K7's lane, K10) are in

@@ -34,39 +34,46 @@
 //    qubit where K7 takes eight, and dth directly (no dgate -> dth chain).
 //
 // Design.  A TPU block holds RB x 128 lanes in VMEM: 2 MB at RB = 2048
-// (nkernel = 11), nine times a CTA's 227 KB of shared memory.  K6, K8 and
-// K11 take all RB rows of one block for TL = 8192 / RB lanes in shared
-// memory (TL = 4 at nkernel = 11: a tile of 8192 complex elements, 64 KB
-// for two planes), one barrier between gates; each row is then read as 16
-// B of a 32-B sector.  K7 and K12 run on the row stage of
-// adjoint_stages.cuh instead (the plan row_stage_plan(nrb, 7, nkernel)
-// that K3, K4 and K10 use): tiles of 2^11 elements with 32 consecutive
-// lanes a warp (whole sectors), the walked bits in at most two passes of
-// at most 6 (at n = 20, nkernel = 11: the 5 high ones, then the 6 low
-// ones, 512 CTAs of 256 threads each), a thread holding 8 elements of psi
-// and ct in registers for 3 bits at a time.  K7 (gate_row_stage), per
-// bit: un-apply g^dagger, the eight dg sums reduced over the warp at once
-// by halving exchanges (warp_sum8), the ct walk by g^T.  K12
-// (rx_row_stage): K10's rx butterflies without the zz stage, the first
-// pass ml_row_pass_kernel<false> with no pairs, the last
-// rx_row_pass_kernel (no pair records, phase or x planes); the two dth
-// sums a bit go through a warp tree into one partial a CTA.  The gates act
-// on distinct bits and commute, so K7 and K12 take them in another order
-// than the JAX kernels (high pass first; only rounding differs).  K7 and
-// K12 run on the caller's y and ct, which they do not write: the first of
-// two passes writes psi to scratch and ct to ds, the last only ds.  With
-// the lane (the fuse_lane route) K7 first runs the adjoint lane stage
-// that K3, K4 and K10 share (the un-lane and ct walk in one launch, dM as
-// split-K partials), psi into scratch and ct into ds, and the passes
-// follow in place.  The dg and dth sums are one partial a CTA added by
-// colsum_tree_kernel in a fixed order: no atomics, so K7 and K12 are
-// bit-identical run to run.  K8 is K6's row pass walking the transposed
-// gates in reverse.
+// (nkernel = 11), nine times a CTA's 227 KB of shared memory, and a tile
+// of all RB rows by 8 lanes (whole 32-byte sectors) would give only 64
+// CTAs at n = 20.  So K6, K7, K11 and K12 run on the row stage of
+// adjoint_stages.cuh (the plan row_stage_plan(nrb, 7, nkernel) that K3, K4
+// and K10 use): tiles of 2^11 elements with 32 consecutive lanes a warp
+// (whole sectors), the walked bits in at most two passes of at most 6 (at
+// n = 20, nkernel = 11: the 6 low ones and the 5 high ones; 512 CTAs of
+// 256 threads, 4 an SM), a thread holding 8 elements in registers for 3
+// bits at a time and crossing shared memory once for more.  K6 and K11
+// (bfly_row_stage): K9's forward passes without the phase, the low bits
+// on the last pass's tiles first, then the high ones in place; K11 with
+// rx, K6 with a general gate a walked bit (the pass's gates staged in
+// shared memory, 8 floats a bit).  With the lane (the fuse_lane route) K6
+// runs the row stage into a scratch plane pair, then y = x @ M by the
+// forward product of K2 and K9 (wide_nt_kernel<1, false> on M^T,
+// transposed once a call).  K7 (gate_row_stage), per bit: un-apply
+// g^dagger, the eight dg sums reduced over the warp at once by halving
+// exchanges (warp_sum8), the ct walk by g^T.  K12 (rx_row_stage): K10's
+// rx butterflies without the zz stage, the first pass
+// ml_row_pass_kernel<false> with no pairs, the last rx_row_pass_kernel
+// (no pair records, phase or x planes); the two dth sums a bit go through
+// a warp tree into one partial a CTA.  The gates act on distinct bits and
+// commute, so K6, K7, K11 and K12 take them in another order than the JAX
+// kernels (only rounding differs).  K7 and K12 run on the caller's y and
+// ct, which they do not write: the first of two passes writes psi to
+// scratch and ct to ds, the last only ds.  With the lane K7 first runs the
+// adjoint lane stage that K3, K4 and K10 share (the un-lane and ct walk in
+// one launch, dM as split-K partials), psi into scratch and ct into ds,
+// and the passes follow in place.  The dg and dth sums are one partial a
+// CTA added by colsum_tree_kernel in a fixed order: no atomics, so K7 and
+// K12 are bit-identical run to run.  K8 still runs its first design: all
+// RB rows of one block for TL = 8192 / RB lanes in shared memory (TL = 4
+// at nkernel = 11: each row read as 16 B of a 32-B sector), the
+// transposed gates in reverse, one barrier between gates.
 // Bounds at n = 20, nkernel = 11, on the H100 (3.35 TB/s, 67 TFLOP/s
 // float32): K6 without the lane moves 16.8 MB (two planes in, two out) for
-// 0.16 GFLOP, 0.005 ms, bound by bytes; with the lane the 1.07 GFLOP of
-// lane products bound it by operations (0.018 ms); K7 without the lane
-// moves 25 MB for 0.5 GFLOP (0.0076 ms, operations); K8 as K6 (0.005 ms).
+// 0.16 GFLOP, 0.005 ms, bound by bytes; with the lane the 1.07 GFLOP
+// lane product and the butterflies bound it by operations (0.018 ms); K7
+// without the lane moves 25 MB for 0.5 GFLOP (0.0076 ms, operations); K8
+// as K6 (0.005 ms).
 // At n = 20, nkernel = 10 (r = 8192), K11 moves 16.8 MB (0.005 ms, bytes)
 // and K12 25 MB for 20 flops an amplitude a bit (0.0075 ms, bytes).
 // Plain f32 FMAs, no fast-math.
@@ -75,7 +82,7 @@
 
 namespace {
 
-// row tile: RB * TL complex elements (8192: 64 KB of two planes)
+// K8's row tile: RB * TL complex elements (8192: 64 KB of two planes)
 constexpr int TILE_ELEMS = 8192;
 // RB <= 2048 = TILE_ELEMS / 4 keeps at least 4 lanes a tile
 constexpr int MAX_NKERNEL = 11;
@@ -86,8 +93,8 @@ struct RowPlan {
   int rb, ltl, grid;
 };
 
-// false for a shape the kernels do not take: nkernel in [1, 11] and r a
-// positive multiple of RB.
+// K8's plan; false for a shape it does not take: nkernel in [1, 11] and r
+// a positive multiple of RB.
 bool row_plan(int r, int nkernel, RowPlan* p) {
   if (nkernel < 1 || nkernel > MAX_NKERNEL || r <= 0) return false;
   p->rb = 1 << nkernel;
@@ -99,10 +106,10 @@ bool row_plan(int r, int nkernel, RowPlan* p) {
   return true;
 }
 
-// Dynamic shared memory of a row kernel: `planes` tile planes, the gates
-// (8 floats a gate) and `extra` floats.
-size_t row_smem(int planes, int nkernel, int extra) {
-  return sizeof(float) * (static_cast<size_t>(planes) * TILE_ELEMS + 8 * nkernel + extra);
+// Dynamic shared memory of K8's row pass: the tile's two planes and the
+// gates (8 floats a gate).
+size_t row_smem(int nkernel) {
+  return sizeof(float) * (2 * static_cast<size_t>(TILE_ELEMS) + 8 * nkernel);
 }
 
 // Tile element e of CTA blockIdx.x: its offset in the planes.
@@ -133,8 +140,9 @@ __device__ __forceinline__ void load_gates(float* g, const float* gr,
   }
 }
 
-// K6's row pass (WALK = false): gate q = 0..nkernel-1 on its bit.  K8
-// (WALK = true): the transpose of gate q = nkernel-1..0.  x and y may alias.
+// K8's row pass (WALK = true, the one instance built): the transpose of
+// gate q = nkernel-1..0 on its bit; WALK = false would take gate q =
+// 0..nkernel-1 itself.  x and y may alias.
 template <bool WALK>
 __global__ void __launch_bounds__(THREADS)
 row_apply_kernel(const float* xr, const float* xi, float* yr, float* yi,
@@ -180,64 +188,19 @@ row_apply_kernel(const float* xr, const float* xi, float* yr, float* yi,
   }
 }
 
-// K11's row pass: rx(th_q) for q = 0..nkernel-1 on its bit.  x and y may
-// alias.
-__global__ void __launch_bounds__(THREADS)
-rotx_fwd_kernel(const float* xr, const float* xi, float* yr, float* yi,
-                const float* __restrict__ th, int nkernel, int ltl) {
-  extern __shared__ float smem[];
-  const int rb = 1 << nkernel;
-  const int elems = rb << ltl;
-  float* tr = smem;
-  float* ti = tr + elems;
-  float* cs = ti + elems;  // (cos, sin) of the half angles
-  for (int q = threadIdx.x; q < nkernel; q += blockDim.x)
-    sincosf(0.5f * th[q], &cs[2 * q + 1], &cs[2 * q]);
-  for (int e = threadIdx.x; e < elems; e += blockDim.x) {
-    const long off = tile_off(e, ltl, rb);
-    tr[e] = xr[off];
-    ti[e] = xi[off];
-  }
-  __syncthreads();
-  const int half = elems >> 1;
-  for (int q = 0; q < nkernel; ++q) {
-    const int ls = nkernel - 1 - q;
-    const float c = cs[2 * q], sn = cs[2 * q + 1];
-    for (int p = threadIdx.x; p < half; p += blockDim.x) {
-      int elo, ehi;
-      pair_elems(p, ls, ltl, &elo, &ehi);
-      const float ar = tr[elo], ai = ti[elo], br = tr[ehi], bi = ti[ehi];
-      tr[elo] = c * ar + sn * bi;
-      ti[elo] = c * ai - sn * br;
-      tr[ehi] = c * br + sn * ai;
-      ti[ehi] = c * bi - sn * ar;
-    }
-    __syncthreads();
-  }
-  for (int e = threadIdx.x; e < elems; e += blockDim.x) {
-    const long off = tile_off(e, ltl, rb);
-    yr[off] = tr[e];
-    yi[off] = ti[e];
-  }
-}
-
-template <bool WALK>
-cudaError_t row_apply(const RowPlan& p, const float* xr, const float* xi,
-                      float* yr, float* yi, const float* gr, const float* gi,
-                      int nkernel, cudaStream_t s) {
-  const size_t smem = row_smem(2, nkernel, 0);
-  cudaError_t err = cudaFuncSetAttribute(
-      reinterpret_cast<const void*>(row_apply_kernel<WALK>),
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+cudaError_t row_walk(const RowPlan& p, const float* xr, const float* xi, float* yr, float* yi,
+                     const float* gr, const float* gi, int nkernel, cudaStream_t s) {
+  const size_t smem = row_smem(nkernel);
+  cudaError_t err = set_smem(reinterpret_cast<const void*>(row_apply_kernel<true>), smem);
   if (err != cudaSuccess) return err;
-  row_apply_kernel<WALK><<<p.grid, THREADS, smem, s>>>(xr, xi, yr, yi, gr, gi,
-                                                       nkernel, p.ltl);
+  row_apply_kernel<true><<<p.grid, THREADS, smem, s>>>(xr, xi, yr, yi, gr, gi, nkernel, p.ltl);
   return cudaGetLastError();
 }
 
-// K7's and K12's stage plan on (r, 128) planes, r = 2^nrb: the row stage
-// walks the nkernel low row bits; false for a shape it does not take.
-bool bwd_plan(int r, int nkernel, RowStage* rs) {
+// The row stage's plan of K6, K7, K11 and K12 on (r, 128) planes, r =
+// 2^nrb: it walks the nkernel low row bits; false for a shape it does not
+// take.
+bool stage_plan(int r, int nkernel, RowStage* rs) {
   const int nrb = ilog2(r);
   if (nkernel < 1 || nkernel > MAX_NKERNEL || r < 2 || r != 1 << nrb || nkernel > nrb) return false;
   return row_stage_plan(nrb, LANE_BITS, nkernel, rs);
@@ -277,6 +240,38 @@ size_t rotx_layout(int r, const RowStage& rs, float* base, BwdScratch* s) {
   return part + 2 * plane;
 }
 
+struct FwdScratch {
+  float *mtr, *mti, *tr, *ti;
+};
+
+// Floats of K6's scratch, each part a multiple of 64 floats (16-byte
+// aligned): with the lane M^T's two planes and the row stage's output
+// planes, without it none; fills s when base is given.
+size_t fwd_layout(int r, bool lane, float* base, FwdScratch* s) {
+  const size_t plane = lane ? static_cast<size_t>(r) * LANES : 0, mm = lane ? MM : 0;
+  const size_t sizes[4] = {mm, mm, plane, plane};
+  float* ptrs[4];
+  size_t off = 0;
+  for (int i = 0; i < 4; ++i) {
+    ptrs[i] = base ? base + off : nullptr;
+    off += (sizes[i] + 63) / 64 * 64;
+  }
+  if (s) *s = FwdScratch{ptrs[0], ptrs[1], ptrs[2], ptrs[3]};
+  return off;
+}
+
+// A forward pass's record (kernel_record) of K6 (GATE) or K11: the first
+// pass (pass[0]) or the last, x1 = tile elements, x2 = the pass's row
+// bits; with one pass the first has 0 CTAs.
+template <bool GATE>
+cudaError_t bfly_pass_record(const RowStage& rs, bool last, long* out) {
+  const RowPass& rp = last ? last_pass(rs) : rs.pass[0];
+  const bool runs = last || rs.npass == 2;
+  return kernel_record(reinterpret_cast<const void*>(fwd_row_pass_kernel<false, GATE>),
+                       runs ? row_ctas(rs) : 0, row_threads(rs), fwd_pass_smem(rp, 0, false, GATE),
+                       1L << rp.tb, runs ? rp.nb : 0, out);
+}
+
 }  // namespace
 
 extern "C" {
@@ -285,25 +280,64 @@ const char* tcng_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// K6.  sr/si, yr/yi: (r, 128) planes (may alias); gr/gi (nkernel, 4) gate
-// planes; mr/mi (128, 128) lane planes or null.  Returns the first CUDA
-// error (cudaErrorInvalidValue for a shape it does not take), 0 on success.
+// Floats of scratch tcng_row_fwd needs for these shapes (-1: a shape it
+// does not take).
+long tcng_row_fwd_scratch(int r, int nkernel, int lane) {
+  RowStage rs;
+  if (!stage_plan(r, nkernel, &rs)) return -1;
+  return static_cast<long>(fwd_layout(r, lane != 0, nullptr, nullptr));
+}
+
+// K6's stage kernels' plan at these shapes, for the record: three records
+// of 8 (kernel_record): the lane product (0 CTAs without the lane; x1, x2
+// = the tile's rows and columns), the row stage's first pass and its last
+// (x1 = tile elements, x2 = the pass's row bits; the first has 0 CTAs when
+// there is one pass).  The last pass's bits run first.
+int tcng_row_fwd_plan(int r, int nkernel, int lane, long* out) {
+  RowStage rs;
+  if (!stage_plan(r, nkernel, &rs)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = kernel_record(reinterpret_cast<const void*>(wide_nt_kernel<1, false>),
+                                  lane ? prod_ctas(r, LANE_BITS) : 0, THREADS, prod_smem<1>(), P_T,
+                                  P_T, out);
+  if (err == cudaSuccess) err = bfly_pass_record<true>(rs, false, out + 8);
+  if (err == cudaSuccess) err = bfly_pass_record<true>(rs, true, out + 16);
+  return static_cast<int>(err);
+}
+
+// K6.  sr/si, yr/yi: (r, 128) planes, r = 2^nrb >= 2^nkernel (may alias
+// without the lane); gr/gi (nkernel, 4) gate planes; mr/mi (128, 128) lane
+// planes or null; scratch of tcng_row_fwd_scratch floats (null without the
+// lane).  With the lane every pointer is 16-byte aligned and sr/si are not
+// written.  Returns the first CUDA error (cudaErrorInvalidValue for a
+// shape it does not take), 0 on success.
 int tcng_row_fwd(const float* sr, const float* si, float* yr, float* yi,
                  const float* gr, const float* gi, int nkernel,
-                 const float* mr, const float* mi, int r, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  RowPlan p;
-  if (!row_plan(r, nkernel, &p)) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = row_apply<false>(p, sr, si, yr, yi, gr, gi, nkernel, s);
-  if (err != cudaSuccess || mr == nullptr) return static_cast<int>(err);
-  return static_cast<int>(lane_fwd_stage(yr, yi, yr, yi, mr, mi, r, s));
+                 const float* mr, const float* mi, float* scratch, int r,
+                 void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  RowStage rs;
+  if (!stage_plan(r, nkernel, &rs)) return static_cast<int>(cudaErrorInvalidValue);
+  if (mr == nullptr) return static_cast<int>(bfly_row_stage<true>(rs, sr, si, yr, yi, gr, gi, st));
+  // the product may not alias its input: the row stage writes scratch
+  if (!all_aligned16({sr, si, yr, yi, mr, mi, scratch}))
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  FwdScratch s;
+  fwd_layout(r, true, scratch, &s);
+  cudaError_t err = set_smem(reinterpret_cast<const void*>(wide_nt_kernel<1, false>), prod_smem<1>());
+  // M^T once a call: the product reads its b operand as b[n][k]
+  if (err == cudaSuccess) err = transpose_planes(mr, mi, s.mtr, s.mti, 1, LANE_BITS, st);
+  if (err == cudaSuccess) err = bfly_row_stage<true>(rs, sr, si, s.tr, s.ti, gr, gi, st);
+  if (err == cudaSuccess)
+    err = wide_nt<1, false>(s.tr, s.ti, nullptr, nullptr, s.mtr, s.mti, yr, yi, nullptr, nullptr, r,
+                            LANE_BITS, st);
+  return static_cast<int>(err);
 }
 
 // Floats of scratch tcng_row_bwd needs for these shapes (-1: a shape it
 // does not take).
 long tcng_row_bwd_scratch(int r, int nkernel, int lane) {
   RowStage rs;
-  if (!bwd_plan(r, nkernel, &rs)) return -1;
+  if (!stage_plan(r, nkernel, &rs)) return -1;
   return static_cast<long>(bwd_layout(r, rs, lane != 0, nullptr, nullptr));
 }
 
@@ -314,7 +348,7 @@ long tcng_row_bwd_scratch(int r, int nkernel, int lane) {
 // row bits; the first has 0 CTAs when there is one pass).
 int tcng_row_bwd_plan(int r, int nkernel, int lane, long* out) {
   RowStage rs;
-  if (!bwd_plan(r, nkernel, &rs)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!stage_plan(r, nkernel, &rs)) return static_cast<int>(cudaErrorInvalidValue);
   const int nc = dm_chunks(r, LANE_BITS);
   cudaError_t err = kernel_record(reinterpret_cast<const void*>(wide_nt_kernel<2, true>),
                                   lane ? prod_ctas(r, LANE_BITS) : 0, THREADS, prod_smem<2>(), P_T,
@@ -345,7 +379,7 @@ int tcng_row_bwd(const float* yr, const float* yi, const float* ctr,
                  void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   RowStage rs;
-  if (!bwd_plan(r, nkernel, &rs)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!stage_plan(r, nkernel, &rs)) return static_cast<int>(cudaErrorInvalidValue);
   BwdScratch s;
   bwd_layout(r, rs, mr != nullptr, scratch, &s);
   const float *psr = yr, *psi = yi, *cr = ctr, *ci = cti;
@@ -372,28 +406,36 @@ int tcng_row_bwd_const(const float* ctr, const float* cti, float* dsr,
                        int nkernel, int r, void* stream) {
   RowPlan p;
   if (!row_plan(r, nkernel, &p)) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(row_apply<true>(p, ctr, cti, dsr, dsi, gr, gi, nkernel,
-                                          static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(
+      row_walk(p, ctr, cti, dsr, dsi, gr, gi, nkernel, static_cast<cudaStream_t>(stream)));
 }
 
-// K11.  sr/si, yr/yi: (r, 128) planes (may alias); th (nkernel) angles.
+// K11's row passes' plan at these shapes, for the record: two records of
+// 8 (kernel_record): the first pass and the last (x1 = tile elements, x2 =
+// the pass's row bits; the first has 0 CTAs when there is one pass).  The
+// last pass's bits run first.
+int tcng_rotx_fwd_plan(int r, int nkernel, long* out) {
+  RowStage rs;
+  if (!stage_plan(r, nkernel, &rs)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = bfly_pass_record<false>(rs, false, out);
+  if (err == cudaSuccess) err = bfly_pass_record<false>(rs, true, out + 8);
+  return static_cast<int>(err);
+}
+
+// K11.  sr/si, yr/yi: (r, 128) planes, r = 2^nrb >= 2^nkernel (may
+// alias); th (nkernel) angles.
 int tcng_rotx_fwd(const float* sr, const float* si, float* yr, float* yi,
                   const float* th, int nkernel, int r, void* stream) {
-  RowPlan p;
-  if (!row_plan(r, nkernel, &p)) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = row_smem(2, 0, 2 * nkernel);
-  cudaError_t err = cudaFuncSetAttribute(
-      rotx_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  rotx_fwd_kernel<<<p.grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      sr, si, yr, yi, th, nkernel, p.ltl);
-  return static_cast<int>(cudaGetLastError());
+  RowStage rs;
+  if (!stage_plan(r, nkernel, &rs)) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(
+      bfly_row_stage<false>(rs, sr, si, yr, yi, th, nullptr, static_cast<cudaStream_t>(stream)));
 }
 
 // Floats of scratch tcng_rotx_bwd needs (-1: a shape it does not take).
 long tcng_rotx_bwd_scratch(int r, int nkernel) {
   RowStage rs;
-  if (!bwd_plan(r, nkernel, &rs)) return -1;
+  if (!stage_plan(r, nkernel, &rs)) return -1;
   return static_cast<long>(rotx_layout(r, rs, nullptr, nullptr));
 }
 
@@ -402,7 +444,7 @@ long tcng_rotx_bwd_scratch(int r, int nkernel) {
 // the pass's row bits; the first has 0 CTAs when there is one pass).
 int tcng_rotx_bwd_plan(int r, int nkernel, long* out) {
   RowStage rs;
-  if (!bwd_plan(r, nkernel, &rs)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!stage_plan(r, nkernel, &rs)) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSuccess;
   for (int k = 0; k < 2 && err == cudaSuccess; ++k) {
     const bool last = k == 1;
@@ -424,7 +466,7 @@ int tcng_rotx_bwd(const float* yr, const float* yi, const float* ctr,
                   const float* th, int nkernel, float* scratch, int r,
                   void* stream) {
   RowStage rs;
-  if (!bwd_plan(r, nkernel, &rs)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!stage_plan(r, nkernel, &rs)) return static_cast<int>(cudaErrorInvalidValue);
   BwdScratch s;
   rotx_layout(r, rs, scratch, &s);
   return static_cast<int>(rx_row_stage(rs, yr, yi, ctr, cti, s.pr, s.pi, dsr, dsi, s.part_row, th,

@@ -6,7 +6,10 @@ Counterpart of ``tensorcircuit_ng_tpu/core/kernels_rowlayer.py``.  The
 wrappers and the kernels they launch on a CUDA tensor:
 
 - ``row_fwd``: K6 (``csrc/row_layer.cu``, ``tcng_row_fwd``), replaces the
-  Pallas ``_pallas_row_fwd``;
+  Pallas ``_pallas_row_fwd``; it runs on the forward row passes of
+  ``csrc/adjoint_stages.cuh`` with a general gate a walked bit (K9's passes
+  without the phase) and, with the lane, on K9's product, and
+  ``row_fwd_plan`` / ``row_fwd_card_plan`` give their plan;
 - ``row_bwd``: K7 (``tcng_row_bwd``), replaces ``_pallas_row_bwd``; it
   runs on the adjoint lane stage and on the gate row passes of
   ``csrc/adjoint_stages.cuh`` (the row stage that K3, K4 and K10 share),
@@ -26,7 +29,8 @@ wrappers and the kernels they launch on a CUDA tensor:
   (``_rowm_fwd_stage``, ``_rowm_bwd_stage``); ``rowm_plan`` reports their
   tiles, grid and occupancy on the card;
 - ``rotx_fwd``: K11 (``csrc/row_layer.cu``, ``tcng_rotx_fwd``), replaces
-  ``_pallas_rotx_fwd``;
+  ``_pallas_rotx_fwd``; it runs on K9's forward row passes without the
+  phase, and ``rotx_fwd_plan`` / ``rotx_fwd_card_plan`` give them;
 - ``rotx_bwd``: K12 (``tcng_rotx_bwd``), replaces ``_pallas_rotx_bwd``; it
   runs on K10's rx row passes without the zz stage (``csrc/adjoint_stages.cuh``,
   on K7's plan), and ``rotx_bwd_plan`` / ``rotx_bwd_card_plan`` give them.
@@ -76,6 +80,10 @@ __all__ = [
     "rowm_bwd",
     "rowm_apply_plain",
     "rowm_plan",
+    "row_fwd_plan",
+    "row_fwd_card_plan",
+    "rotx_fwd_plan",
+    "rotx_fwd_card_plan",
     "zzrx_bwd_plan",
     "zzrx_bwd_card_plan",
     "row_bwd_plan",
@@ -841,13 +849,66 @@ def _row_setup(what: str, gr, gi, sr, *planes):
     return dev, gr, gi, nk, r
 
 
+def _bfly_records(what: str, r: int, nkernel: int, gate: bool) -> dict:
+    """The row passes of K6 (``gate``) or K11 (``bfly_row_stage``,
+    ``csrc/adjoint_stages.cuh``) at r rows of 128 lanes: ``"row_hi"`` (0
+    CTAs with one pass) and ``"row_lo"`` (the low walked bits, launched
+    first), each ``ctas``, ``threads``, ``smem``, ``tile`` elements and
+    walked row ``bits``, on K7's plan: the nkernel low row bits walked, r a
+    power of two.  A pass's shared bytes: the exchange tile of two planes
+    (past 3 bits), the coefficients of 6 bits (a gate's 8 floats, or rx's
+    cos/sin) and 8 slot offsets."""
+    nrb = r.bit_length() - 1
+    error = f"{what}: unsupported shape r={r}, nkernel={nkernel}"
+    if r < 1 or r != 1 << nrb or not 1 <= nkernel <= MAX_KERNEL_QUBITS:
+        raise ValueError(error)
+    tb, ctas, threads, hi, lo = _row_stage(nrb, 7, nkernel, error)
+    coef = 8 if gate else 2
+
+    def smem(nb, last):
+        return 4 * ((2 << tb if nb > 3 else 0) + coef * _RP_MAXB + 8)
+
+    return _pass_records(ctas, threads, tb, hi, lo, smem)
+
+
+def row_fwd_plan(r: int, nkernel: int, lane: bool = False) -> dict:
+    """K6's stage plan at r rows of 128 lanes, computed as
+    ``csrc/row_layer.cu`` makes it (no card needed): the lane product
+    ``"lane"`` (0 CTAs without the lane; the forward product of K2 and K9,
+    its tile ``rows`` and ``cols``) and the row passes ``"row_hi"`` and
+    ``"row_lo"`` (:func:`_bfly_records` with the gates), each ``ctas``,
+    ``threads`` and ``smem`` (dynamic shared bytes) and two of its own.  r
+    must be a power of two."""
+    rows = _bfly_records("row_fwd_plan", r, nkernel, True)
+    return {
+        "lane": {"ctas": -(-r // _P_T) * (_LANES // _P_T) if lane else 0, "threads": _THREADS,
+                 "smem": _FWD_PROD_SMEM, "rows": _P_T, "cols": _P_T},
+        **rows,
+    }
+
+
+def row_fwd_card_plan(r: int, nkernel: int, lane: bool = False) -> dict:
+    """The same plan as the card's C code reports it (``tcng_row_fwd_plan``),
+    with each stage kernel's ``ctas_per_sm``, ``registers`` and
+    ``local_bytes`` a thread besides.  Needs the card."""
+    own = {k: _PLAN_OWN[k] for k in ("lane", "row_hi", "row_lo")}
+    return _card_records("row_layer", "tcng_row_fwd_plan", own, r, nkernel, int(lane))
+
+
 def _launch_row_fwd(gr, gi, sr, si, mr, mi):
     dev, gr, gi, nk, r = _row_setup("row_fwd", gr, gi, sr, si)
-    if mr is not None:
+    lane = mr is not None
+    if lane:
         _check_planes("row_fwd lane", dev, (_LANES, _LANES), mr, mi)
+        # the lane product copies 16-byte chunks
+        sr, si, mr, mi = (_aligned16(t) for t in (sr, si, mr, mi))
+    lib = _build.library("row_layer")
+    floats = lib.tcng_row_fwd_scratch(r, nk, int(lane))
+    if floats < 0:  # the row stage takes r = 2^nrb rows only
+        raise ValueError(f"row_fwd: unsupported shape r={r}, nkernel={nk}")
+    scratch = torch.empty(floats, dtype=torch.float32, device=dev) if floats else None
     yr = torch.empty_like(sr)
     yi = torch.empty_like(si)
-    lib = _build.library("row_layer")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         row_fwd.launches += 1
@@ -856,7 +917,7 @@ def _launch_row_fwd(gr, gi, sr, si, mr, mi):
             gr.data_ptr(), gi.data_ptr(), nk,
             None if mr is None else mr.data_ptr(),
             None if mi is None else mi.data_ptr(),
-            r, stream,
+            None if scratch is None else scratch.data_ptr(), r, stream,
         )
     _build.check("row_layer", err, "row_fwd")
     return yr, yi
@@ -865,8 +926,8 @@ def _launch_row_fwd(gr, gi, sr, si, mr, mi):
 def row_fwd(gr, gi, sr, si, mr=None, mi=None):
     """K6: gate q = 0..nkernel-1 (``gr/gi`` (nkernel, 2, 2) or (nkernel, 4)
     planes) on the in-block row bit of stride ``2^nkernel >> (q+1)`` of the
-    (r, 128) planes ``sr/si``, then ``y = x @ (mr + i mi)`` when the lane
-    planes are given.
+    (r, 128) planes ``sr/si`` (on the card r a power of two), then ``y = x @
+    (mr + i mi)`` when the lane planes are given.
 
     CUDA tensors launch the kernel (``row_fwd.launches`` counts the
     launches); CPU tensors run :func:`row_fwd_plain`."""
@@ -903,6 +964,21 @@ def row_bwd_card_plan(r: int, nkernel: int, lane: bool = False) -> dict:
     ``local_bytes`` a thread besides.  Needs the card."""
     own = {k: _PLAN_OWN[k] for k in ("lane", "dm", "row_hi", "row_lo")}
     return _card_records("row_layer", "tcng_row_bwd_plan", own, r, nkernel, int(lane))
+
+
+def rotx_fwd_plan(r: int, nkernel: int) -> dict:
+    """K11's row passes at r rows of 128 lanes, computed as
+    ``csrc/row_layer.cu`` makes it (no card needed): :func:`_bfly_records`
+    with rx, K9's forward passes without the phase on K7's plan."""
+    return _bfly_records("rotx_fwd_plan", r, nkernel, False)
+
+
+def rotx_fwd_card_plan(r: int, nkernel: int) -> dict:
+    """The same plan as the card's C code reports it (``tcng_rotx_fwd_plan``),
+    with each pass's ``ctas_per_sm``, ``registers`` and ``local_bytes`` a
+    thread besides.  Needs the card."""
+    own = {k: _PLAN_OWN[k] for k in ("row_hi", "row_lo")}
+    return _card_records("row_layer", "tcng_rotx_fwd_plan", own, r, nkernel)
 
 
 def rotx_bwd_plan(r: int, nkernel: int) -> dict:
@@ -1189,6 +1265,8 @@ def _rotx_setup(what, th, sr, *planes):
 
 def _launch_rotx_fwd(th, sr, si):
     dev, th, nk, r = _rotx_setup("rotx_fwd", th, sr, si)
+    if r & (r - 1):  # the row stage takes r = 2^nrb rows only
+        raise ValueError(f"rotx_fwd: unsupported shape r={r}, nkernel={nk}")
     yr = torch.empty_like(sr)
     yi = torch.empty_like(si)
     lib = _build.library("row_layer")
@@ -1205,7 +1283,7 @@ def _launch_rotx_fwd(th, sr, si):
 def rotx_fwd(th, sr, si):
     """K11: rx(th[q]) for q = 0..nkernel-1 (``th`` (nkernel,)) on the
     in-block row bit of stride ``2^nkernel >> (q+1)`` of the (r, 128)
-    planes ``sr/si``.  CUDA tensors launch the kernel (``rotx_fwd.launches``
+    planes ``sr/si`` (on the card r a power of two).  CUDA tensors launch the kernel (``rotx_fwd.launches``
     counts the launches); CPU tensors run :func:`rotx_fwd_plain`."""
     if sr.device.type == "cpu":
         return rotx_fwd_plain(th, sr, si)

@@ -7,22 +7,25 @@ gate row passes of ``csrc/row_layer.cu``) and
 ``kernels_multilayer.ml_fwd_plan`` K9's (the forward row passes and the
 product of ``csrc/multilayer.cu``), ``kernels_grand.grand_zzrx_fwd_plan``
 K2's (the same forward passes and product, the outer pass and the
-transpose of ``csrc/zzrx_fwd.cu``) and ``kernels_rowlayer.rotx_bwd_plan``
-K12's (the zz-free rx passes of ``csrc/row_layer.cu``);
+transpose of ``csrc/zzrx_fwd.cu``), ``kernels_rowlayer.rotx_bwd_plan``
+K12's (the zz-free rx passes of ``csrc/row_layer.cu``) and
+``row_fwd_plan`` / ``rotx_fwd_plan`` K6's and K11's (the forward passes
+without the phase, K6's with a general gate and, with the lane, the
+product);
 ``tests/test_torch_cuda.py`` holds them against the card's own report.
 Here they are held against values worked out by hand from the constants
 of ``csrc/adjoint_stages.cuh``.  And ``chip_smoke._k34_stage_work``,
-``_k7_stage_work``, ``_k9_stage_work``, ``_k2_stage_work`` and
-``_k12_stage_work`` (each stage's bound) must add up to the whole
-kernels' work (``_k3_work``, ``_k4_work``, ``_row_work``, ``_ml_work``,
-``_k2_work``, ``_rotx_work``).
+``_k7_stage_work``, ``_k9_stage_work``, ``_k2_stage_work``,
+``_k12_stage_work``, ``_k6_stage_work`` and ``_k11_stage_work`` (each
+stage's bound) must add up to the whole kernels' work (``_k3_work``,
+``_k4_work``, ``_row_work``, ``_ml_work``, ``_k2_work``, ``_rotx_work``).
 """
 
 import pytest
 
 from chip_smoke import (
-    _k12_stage_work, _k2_stage_work, _k2_work, _k34_stage_work, _k3_work, _k4_work, _k7_stage_work,
-    _k9_stage_work, _ml_work, _rotx_work, _row_work,
+    _k11_stage_work, _k12_stage_work, _k2_stage_work, _k2_work, _k34_stage_work, _k3_work, _k4_work,
+    _k6_stage_work, _k7_stage_work, _k9_stage_work, _ml_work, _rotx_work, _row_work,
 )
 from tensorcircuit_ng_tpu_torch.core import kernels_grand as kg
 from tensorcircuit_ng_tpu_torch.core import kernels_multilayer as kml
@@ -395,3 +398,105 @@ def test_k12_stage_work_adds_up(n, nkernel):
     assert sum(f for _, f in stages.values()) == flops + ctas * nkernel
     two = 32 * amps if nkernel > 6 else 0
     assert sum(b for b, _ in stages.values()) == nbytes + two + 8 * ctas * nkernel
+
+
+def _bfly_smem(tb, nb, gate):
+    """A forward pass's shared bytes without the phase: the exchange tile
+    of two planes past 3 walked bits, the coefficients of 6 bits (8 floats
+    of a gate, or rx's cos and sin) and 8 slot offsets."""
+    return 4 * ((2 << tb if nb > 3 else 0) + (8 if gate else 2) * 6 + 8)
+
+
+# (n, nkernel): K6's and K11's passes worked out by hand: (CTAs, threads,
+# tile, bits of the first pass, bits of the last; shared bytes of K6's
+# passes and of K11's)
+FWD_PLANS = {
+    # r = 8192: 2^20 / 2^11 = 512 tiles of 256 threads; the 11 walked bits
+    # in a last pass of 6 (launched first) and a first of 5, both with the
+    # exchange tile of two planes: K6 4 (4096 + 48 + 8) B, K11 4 (4096 + 12
+    # + 8) B
+    (20, 11): (512, 256, 2048, 5, 6, 16608, 16464),
+    # nkernel = 10 (K11's path, r = 8192): passes of 4 and 6 bits
+    (20, 10): (512, 256, 2048, 4, 6, 16608, 16464),
+    # one pass of 6 bits at r = 128 (8 tiles)
+    (14, 6): (8, 256, 2048, 0, 6, 16608, 16464),
+    # one pass of 3 bits in registers only: no exchange tile
+    (12, 3): (2, 256, 2048, 0, 3, 4 * 56, 4 * 20),
+    # a state below one tile: r = 2, 2^8 elements, 32 threads
+    (8, 1): (1, 32, 256, 0, 1, 224, 80),
+}
+
+
+@pytest.mark.parametrize("n,nkernel", list(FWD_PLANS))
+def test_row_and_rotx_fwd_plans_by_hand(n, nkernel):
+    """``row_fwd_plan``'s and ``rotx_fwd_plan``'s passes against the
+    hand-worked values above; they walk the bits K7's gate passes walk
+    (``row_bwd_plan``); K6's product has 0 CTAs without the lane."""
+    r = 2 ** (n - 7)
+    ctas, threads, tile, hi_bits, lo_bits, k6_smem, k11_smem = FWD_PLANS[(n, nkernel)]
+    k7 = krl.row_bwd_plan(r, nkernel)
+    for plan, smem, gate in ((krl.row_fwd_plan(r, nkernel), k6_smem, True),
+                             (krl.rotx_fwd_plan(r, nkernel), k11_smem, False)):
+        hi, lo = plan["row_hi"], plan["row_lo"]
+        assert (lo["ctas"], lo["threads"], lo["tile"], lo["bits"], lo["smem"]) == (ctas, threads, tile, lo_bits,
+                                                                                   smem)
+        assert (hi["ctas"], hi["bits"], hi["smem"]) == ((ctas if hi_bits else 0), hi_bits, smem)
+        assert smem == _bfly_smem(tile.bit_length() - 1, lo_bits, gate)
+        for stage in ("row_hi", "row_lo"):
+            assert {k: plan[stage][k] for k in ("ctas", "threads", "tile", "bits")} == {
+                k: k7[stage][k] for k in ("ctas", "threads", "tile", "bits")}
+    assert krl.row_fwd_plan(r, nkernel)["lane"]["ctas"] == 0
+
+
+@pytest.mark.parametrize("n,ctas", [(20, 256), (12, 2), (8, 2)])
+def test_row_fwd_plan_lane_by_hand(n, ctas):
+    """K6's product with the lane is K2's and K9's forward product on the
+    (r, 128) planes: ceil(r / 64) row tiles by 2 column tiles of 64, two
+    buffered chunks of four 64 x 36-float planes (73,728 B)."""
+    plan = krl.row_fwd_plan(2 ** (n - 7), min(n - 7, 11), lane=True)
+    assert plan["lane"] == {"ctas": ctas, "threads": 256, "smem": 73728, "rows": 64, "cols": 64}
+    k2 = kg.grand_zzrx_fwd_plan(2 ** (n - 7), min(n - 7, 10), 19, 1)
+    assert {k: plan["lane"][k] for k in ("threads", "smem", "rows", "cols")} == {
+        k: k2["fwd_lane"][k] for k in ("threads", "smem", "rows", "cols")}
+
+
+@pytest.mark.parametrize("r,nkernel", [(8192, 12), (8192, 0), (3 * 2048, 11), (16, 5), (1, 1)])
+def test_row_and_rotx_fwd_plans_refuse_bad_shapes(r, nkernel):
+    """More than 11 kernel bits or none, rows that are not a power of two,
+    more kernel bits than row bits, and a single row."""
+    with pytest.raises(ValueError, match="unsupported shape"):
+        krl.row_fwd_plan(r, nkernel)
+    with pytest.raises(ValueError, match="unsupported shape"):
+        krl.rotx_fwd_plan(r, nkernel)
+
+
+@pytest.mark.parametrize("lane", [False, True])
+@pytest.mark.parametrize("nkernel", [3, 6, 11])
+def test_k6_stage_work_adds_up(nkernel, lane):
+    """``_k6_stage_work``'s flops add up to K6's (``_row_work``); its bytes
+    once the planes the stages hand each other are taken out: the low
+    pass's output written and read by the high pass (16 B an amplitude,
+    with two passes) and, with the lane, the row stage's output written and
+    read by the product (16 B)."""
+    r = 8192
+    amps = r * 128
+    stages = _k6_stage_work(r, nkernel, lane)
+    assert set(stages) == {"row lo"} | ({"row hi"} if nkernel > 6 else set()) | ({"product"} if lane else set())
+    nbytes, flops = _row_work(r, nkernel, "fwd", lane)
+    assert sum(f for _, f in stages.values()) == flops
+    handoffs = (16 if nkernel > 6 else 0) + (16 if lane else 0)
+    assert sum(b for b, _ in stages.values()) == nbytes + handoffs * amps
+
+
+@pytest.mark.parametrize("n,nkernel", [(20, 10), (14, 6), (9, 2)])
+def test_k11_stage_work_adds_up(n, nkernel):
+    """``_k11_stage_work``'s flops add up to K11's (``_rotx_work``); its
+    bytes once the low pass's output, written and read by the high pass
+    (16 B an amplitude, with two passes), is taken out."""
+    r = 2 ** (n - 7)
+    amps = r * 128
+    stages = _k11_stage_work(r, nkernel)
+    assert set(stages) == {"row lo"} | ({"row hi"} if nkernel > 6 else set())
+    nbytes, flops = _rotx_work(r, nkernel, "fwd")
+    assert sum(f for _, f in stages.values()) == flops
+    assert sum(b for b, _ in stages.values()) == nbytes + (16 * amps if nkernel > 6 else 0)

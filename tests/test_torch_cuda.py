@@ -29,7 +29,10 @@ plans as the card reports them against ``row_bwd_plan`` and
 ``ml_fwd_plan``; K2 at the forward row stage's boundaries (1-11 walked
 bits) and every outer dim D = 1-32, and K12 at 1-10 walked bits, as K1-K8
 and bit for bit twice, their plans against ``grand_zzrx_fwd_plan`` and
-``rotx_bwd_plan``; K15 (the staged
+``rotx_bwd_plan``; K6 (with and without the lane) and K11 at 1-11 walked
+bits, bit for bit twice, their plans against ``row_fwd_plan`` and
+``rotx_fwd_plan``, the forward pass instances of each build without a
+spill, and r not a power of two refused; K15 (the staged
 micro-benchmark, random non-unitary inputs whose values grow to O(100))
 within 1e-5 of its output's largest entry.
 """
@@ -630,6 +633,114 @@ def test_row_bwd_plan_on_card(cuda, n, nkernel, lane):
         assert p["smem"] <= 232448 and p["ctas_per_sm"] >= 1 and p["local_bytes"] == 0
     hits = list(_ptxas_report(_build.build_log("row_layer"), "gate_row_pass_kernel").values())
     assert len(hits) == 2 and all(regs and not st and not ld for regs, st, ld in hits)
+
+
+@pytest.mark.parametrize("lane", [False, True])
+@pytest.mark.parametrize("nkernel", range(1, 12))
+def test_row_fwd_at_row_stage_boundaries(cuda, nkernel, lane):
+    """K6 at every walked-bit count of its forward passes (1-3 in
+    registers only, 4-6 with one shared-memory crossing, 7-11 in two
+    passes), with two outer row bits (CTA bits), with and without the lane,
+    against its plain version and bit for bit against itself."""
+    n = nkernel + 9
+    x = _row_inputs(n, nkernel, 6 * n + nkernel, cuda)
+    m = x["m"] if lane else ()
+    krl.row_fwd.launches = 0
+    with torch.no_grad():
+        got = krl.row_fwd(*x["g"], *x["s"], *m)
+        again = krl.row_fwd(*x["g"], *x["s"], *m)
+        torch.cuda.synchronize()
+        want = krl.row_fwd_plain(*x["g"], *x["s"], *m)
+    assert krl.row_fwd.launches == 2
+    for g, g2, w in zip(got, again, want):
+        assert g.is_cuda and g.shape == w.shape and torch.equal(g, g2)
+        torch.testing.assert_close(g, w, atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("nkernel", range(1, 12))
+def test_rotx_fwd_at_row_stage_boundaries(cuda, nkernel):
+    """K11 at every walked-bit count of its passes (1-6: the low pass
+    alone; 7-11: the low pass, then the high one in place) on four blocks
+    of 2^nkernel rows, against its plain version and bit for bit against
+    itself."""
+    n = nkernel + 9
+    x = _row_inputs(n, nkernel, 13 * nkernel, cuda)
+    th = convert.params(np.random.default_rng(5 * nkernel).normal(size=nkernel) * 0.7, cuda)
+    krl.rotx_fwd.launches = 0
+    with torch.no_grad():
+        got = krl.rotx_fwd(th, *x["s"])
+        again = krl.rotx_fwd(th, *x["s"])
+        torch.cuda.synchronize()
+        want = krl.rotx_fwd_plain(th, *x["s"])
+    assert krl.rotx_fwd.launches == 2
+    for g, g2, w in zip(got, again, want):
+        assert g.is_cuda and g.shape == w.shape and torch.equal(g, g2)
+        torch.testing.assert_close(g, w, atol=ATOL, rtol=0)
+
+
+#: the forward pass instances (fwd_row_pass_kernel<ZZ, GATE>) each source
+#: builds: K2's and K9's zz pass and rx pass (zzrx_bwd builds them too,
+#: unused: the header's stage functions refer to them), and in row_layer
+#: also K6's gate pass (K11 runs the rx pass)
+FWD_PASS_INSTANCES = {"zzrx_fwd": 2, "zzrx_bwd": 2, "multilayer": 2, "row_layer": 3}
+
+
+@pytest.mark.parametrize("build", list(FWD_PASS_INSTANCES))
+def test_fwd_pass_instances_spill_nothing(cuda, build):
+    """nvcc's report of each source's build holds the forward pass
+    instances it should build, each without a spill."""
+    _build.library(build)
+    hits = list(_ptxas_report(_build.build_log(build), "fwd_row_pass_kernel").values())
+    assert len(hits) == FWD_PASS_INSTANCES[build] and all(regs and not st and not ld for regs, st, ld in hits)
+
+
+@pytest.mark.parametrize("n,nkernel,lane", [(8, 1, False), (12, 3, True), (14, 6, False), (20, 10, False),
+                                            (20, 11, False), (20, 11, True), (22, 11, True)])
+def test_row_fwd_plan_on_card(cuda, n, nkernel, lane):
+    """K6's stage plan as the card reports it equals the Python arithmetic
+    (``row_fwd_plan``), with shared memory within a CTA's 232,448 B, at
+    least one CTA an SM, no local memory, and no spill of its pass (the
+    gate kind), product or transpose in nvcc's report of the row_layer
+    build."""
+    r = 2 ** (n - 7)
+    got, want = krl.row_fwd_card_plan(r, nkernel, lane), krl.row_fwd_plan(r, nkernel, lane)
+    assert got.keys() == want.keys()
+    for stage, p in got.items():
+        assert {k: p[k] for k in want[stage]} == want[stage], stage
+        assert p["smem"] <= 232448 and p["ctas_per_sm"] >= 1 and p["local_bytes"] == 0
+    report = _ptxas_report(_build.build_log("row_layer"), "")
+    for needle in ("fwd_row_pass_kernelILb0ELb1E", "wide_nt_kernel", "transpose_kernel"):
+        hits = [v for k, v in report.items() if needle in k]
+        assert hits and all(regs and not st and not ld for regs, st, ld in hits), needle
+
+
+@pytest.mark.parametrize("n,nkernel", [(8, 1), (12, 3), (14, 6), (17, 7), (20, 10), (20, 11)])
+def test_rotx_fwd_plan_on_card(cuda, n, nkernel):
+    """K11's pass plan as the card reports it equals the Python arithmetic
+    (``rotx_fwd_plan``), with shared memory within a CTA's 232,448 B, at
+    least one CTA an SM, no local memory, and no spill of its pass (the rx
+    kind) in nvcc's report of the row_layer build."""
+    r = 2 ** (n - 7)
+    got, want = krl.rotx_fwd_card_plan(r, nkernel), krl.rotx_fwd_plan(r, nkernel)
+    assert got.keys() == want.keys()
+    for stage, p in got.items():
+        assert {k: p[k] for k in want[stage]} == want[stage], stage
+        assert p["smem"] <= 232448 and p["ctas_per_sm"] >= 1 and p["local_bytes"] == 0
+    hits = [v for k, v in _ptxas_report(_build.build_log("row_layer"), "").items()
+            if "fwd_row_pass_kernelILb0ELb0E" in k]
+    assert len(hits) == 1 and all(regs and not st and not ld for regs, st, ld in hits)
+
+
+def test_row_and_rotx_fwd_take_rows_a_power_of_two(cuda):
+    """K6 (with and without the lane) and K11 run on the row stage's plan,
+    which takes r = 2^k rows only: 96 rows raise ValueError."""
+    g5, p96, m = (torch.zeros(s, device=cuda) for s in ((5, 4), (96, 128), (128, 128)))
+    with pytest.raises(ValueError, match="unsupported shape"):
+        krl.row_fwd(g5, g5, p96, p96)
+    with pytest.raises(ValueError, match="unsupported shape"):
+        krl.row_fwd(g5, g5, p96, p96, m, m)
+    with pytest.raises(ValueError, match="unsupported shape"):
+        krl.rotx_fwd(torch.zeros(5, device=cuda), p96, p96)
 
 
 def test_row_wrappers_check_their_inputs(cuda):

@@ -8,8 +8,9 @@ interpret mode, on the same numpy-seeded inputs, with and without the lane
 matrix; the autograd boundaries ``row_layer``, ``row_layer_lane`` and
 ``row_layer_const`` against the JAX custom VJPs; the plain versions of K11
 (``rotx_fwd``) and K12 (``rotx_bwd``) against ``_pallas_rotx_fwd`` and
-``_pallas_rotx_bwd`` in interpret mode, K12's pass order on the card
-against ``_pallas_rotx_bwd``, and ``rotx_row_layer`` against its JAX
+``_pallas_rotx_bwd`` in interpret mode, K6's, K11's and K12's pass
+order on the card against ``_pallas_row_fwd``, ``_pallas_rotx_fwd`` and
+``_pallas_rotx_bwd``, and ``rotx_row_layer`` against its JAX
 custom VJP; ``fused_single_qubit_layer`` and ``fused_rx_layer`` (with
 and without ``USE_ROTX``) against the JAX dispatch layer.  The kernels
 themselves run only on a CUDA card (``tests/test_torch_cuda.py``).
@@ -162,6 +163,52 @@ def test_row_bwd_pass_order_matches_pallas(nkernel, blocks):
     got = _row_bwd_in_pass_order(*_t(x["g"][0].reshape(nkernel, 4), x["g"][1].reshape(nkernel, 4), *y,
                                      *x["ct"]))
     _assert_all_close(got, want)
+
+
+def _fwd_pass_bits(plan):
+    """The walked bits (from the lowest) in the order the card's forward
+    passes take them: the last pass (the low bits) first, then the first
+    pass (the high ones); a pass of more than 3 bits takes its bits 3..5
+    in registers before its bits 0..2, each group from its lowest."""
+    hi, lo = plan["row_hi"]["bits"], plan["row_lo"]["bits"]
+
+    def order(nb, base):
+        return [base + i for i in list(range(3, nb)) + list(range(min(nb, 3)))]
+
+    return order(lo, 0) + order(hi, lo)
+
+
+def _row_fwd_in_pass_order(gr, gi, sr, si):
+    """K6's row stage in the order the card's passes take it, in plain
+    torch (:func:`_fwd_pass_bits` of ``row_fwd_plan``): gate q = nkernel-1-w
+    on walked bit w."""
+    nk = gr.shape[0]
+    cr, ci = sr, si
+    for w in _fwd_pass_bits(krl.row_fwd_plan(sr.shape[0], nk)):
+        cr, ci = krl._butterfly(cr, ci, 1 << w, krl._gate_scalars(gr, gi, nk - 1 - w))
+    return cr, ci
+
+
+@pytest.mark.parametrize("nkernel,blocks", [(5, 2), (8, 2), (11, 1)])
+def test_row_fwd_pass_order_matches_pallas(nkernel, blocks):
+    """The card's order of K6's gates (one pass of 5 bits; passes of 6 and
+    2, and of 6 and 5 bits, the low pass first) against the JAX
+    ``_pallas_row_fwd`` in interpret mode, which applies gate 0 (the
+    highest bit) first in one block: the gates act on distinct bits and
+    commute, so the planes agree to rounding (``ATOL``)."""
+    x = _row_inputs(nkernel, blocks, seed=80 * nkernel + blocks)
+    want = _interpret(lambda: jkrl._pallas_row_fwd(*_j(*x["g"], *x["s"])))
+    got = _row_fwd_in_pass_order(*_t(x["g"][0].reshape(nkernel, 4), x["g"][1].reshape(nkernel, 4), *x["s"]))
+    _assert_all_close(got, want)
+
+
+@pytest.mark.parametrize("nkernel,blocks,order", [(5, 2, [3, 4, 0, 1, 2]), (8, 2, [3, 4, 5, 0, 1, 2, 6, 7]),
+                                                  (11, 1, [3, 4, 5, 0, 1, 2, 9, 10, 6, 7, 8])])
+def test_fwd_pass_bits_by_hand(nkernel, blocks, order):
+    """The card's order of the forward passes' walked bits: the low pass's
+    register bits 3.. before 0..2, then the high pass's, the same way."""
+    assert _fwd_pass_bits(krl.row_fwd_plan(blocks << nkernel, nkernel)) == order
+    assert _fwd_pass_bits(krl.rotx_fwd_plan(blocks << nkernel, nkernel)) == order
 
 
 @pytest.mark.parametrize("nkernel,blocks", [(3, 2), (3, 4), (5, 2), (5, 4)])
@@ -324,6 +371,33 @@ def test_rotx_bwd_pass_order_matches_pallas(nkernel, blocks):
     want = _interpret(lambda: jkrl._pallas_rotx_bwd(*_j(th, *y, *x["ct"])))
     got = _rotx_bwd_in_pass_order(*_t(th, *y, *x["ct"]))
     _assert_all_close(got, want)
+
+
+def _rotx_fwd_in_pass_order(th, sr, si):
+    """K11 in the order the card's passes take it, in plain torch
+    (:func:`_fwd_pass_bits` of ``rotx_fwd_plan``): rx(th[q]) with q =
+    nkernel-1-w on walked bit w."""
+    nk = th.shape[0]
+    cr, ci = sr, si
+    for w in _fwd_pass_bits(krl.rotx_fwd_plan(sr.shape[0], nk)):
+        q, s = nk - 1 - w, 1 << w
+        c, sn = torch.cos(th[q] / 2), torch.sin(th[q] / 2)
+        pr, pi = krl._partner(cr, s), krl._partner(ci, s)
+        cr, ci = c * cr + sn * pi, c * ci - sn * pr
+    return cr, ci
+
+
+@pytest.mark.parametrize("nkernel,blocks", [(5, 2), (8, 2), (10, 1)])
+def test_rotx_fwd_pass_order_matches_pallas(nkernel, blocks):
+    """The card's order of K11's bits (one pass of 5; passes of 6 and 2,
+    and of 6 and 4 bits, the low pass first) against the JAX
+    ``_pallas_rotx_fwd`` in interpret mode, which takes angle 0 (the
+    highest bit) first in one block: the rx gates act on distinct bits and
+    commute, so the planes agree to rounding (``ATOL``)."""
+    x = _row_inputs(nkernel, blocks, seed=90 * nkernel + blocks)
+    th = (np.random.default_rng(5 * nkernel).standard_normal(nkernel) * 0.7).astype(np.float32)
+    want = _interpret(lambda: jkrl._pallas_rotx_fwd(*_j(th, *x["s"])))
+    _assert_all_close(_rotx_fwd_in_pass_order(*_t(th, *x["s"])), want)
 
 
 def test_rotx_row_layer_matches_jax_vjp():

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""K2 and K12 on one CUDA card, checkout against checkout, in turns.
+"""K2, K12, K6 and K11 on one CUDA card, checkout against checkout, in
+turns.
 
-    python3 tools/ab_k2_k12.py ROOT [ROOT ...]
+    python3 tools/ab_kernels.py ROOT [ROOT ...]
 
 Each ROOT is a checkout of the repo (the working tree, or an older commit
 unpacked with ``git archive`` into a git-ignored directory).  For each, in
@@ -9,13 +10,17 @@ the order given, a process of its own (the packages of two checkouts share
 names) imports the port and ``chip_smoke.py`` from that root, builds the
 kernels there, and measures at the main paths' shapes (n = 20):
 
-- K2 ``grand_zzrx_fwd`` at L = 4 (TFIM, open chain) and K12 ``rotx_bwd`` at
-  nkernel = 10 (QAOA form (b)): CUDA events over back-to-back wrapper calls
-  (median of 3 rounds of 20 medians) and a replayed CUDA graph of 10 calls
-  (median of 3 rounds);
+- K2 ``grand_zzrx_fwd`` at L = 4 (TFIM, open chain), K6 ``row_fwd`` at
+  nkernel = 11 without the lane (HEA), K11 ``rotx_fwd`` and K12
+  ``rotx_bwd`` at nkernel = 10 (QAOA form (b)): CUDA events over
+  back-to-back wrapper calls (median of 3 rounds of 20 medians), a replayed
+  CUDA graph of 10 calls (median of 3 rounds), and the device time of a
+  call and of each of its kernels a launch (torch.profiler over 10 calls;
+  the kernels' names differ between checkouts);
 - device busy (torch.profiler, 10 runs) and wall time (CUDA events, median
   of 20, each run ending in ``.item()``) of the TFIM L = 4 evaluation, the
-  TFIM L = 4 training step and the QAOA form (b) Adam step.
+  TFIM L = 4 training step, the HEA L = 4 training step and the QAOA form
+  (b) Adam step.
 
 Prints one line a measurement with the card's name and power limit, and a
 JSON line a root.  Give the roots as A B B A to see the spread between
@@ -63,19 +68,30 @@ def _measure(root: str) -> dict:
     mlr, mli = kst._lane_kron_planes_T(rx[:, nrow:])
     thk = rx[:, nouter:nrow].contiguous()
     pairs = tuple(cs.PAIRS)
-    # K12 at the QAOA form (b) path's shape: nkernel = 10, r = 8192
+    # K11 and K12 at the QAOA form (b) path's shape: nkernel = 10, r = 8192
     nk = min(n - 7, krl.MAX_KERNEL_QUBITS_ROTX)
     th = torch.as_tensor(rng.normal(size=nk) * 0.4, dtype=torch.float32, device=dev)
     yr, yi = tct.convert.planes(rng.normal(size=2**n) + 1j * rng.normal(size=2**n), dev)
     cr, ci = tct.convert.planes(rng.normal(size=2**n) + 1j * rng.normal(size=2**n), dev)
+    # K6 at the HEA path's shape: nkernel = 11, r = 8192, unitary gates
+    n6 = min(n - 7, krl.MAX_KERNEL_QUBITS)
+    g = np.linalg.qr(rng.normal(size=(n6, 2, 2)) + 1j * rng.normal(size=(n6, 2, 2)))[0].reshape(n6, 4)
+    gr, gi = (torch.as_tensor(x, dtype=torch.float32, device=dev).contiguous() for x in (g.real, g.imag))
     calls = {
         "K2 grand_zzrx_fwd": lambda: kg.grand_zzrx_fwd(pairs, n, zz, thk, sr, si, mor, moi, mlr, mli),
         "K12 rotx_bwd": lambda: krl.rotx_bwd(th, yr, yi, cr, ci),
+        "K6 row_fwd": lambda: krl.row_fwd(gr, gi, sr, si),
+        "K11 rotx_fwd": lambda: krl.rotx_fwd(th, sr, si),
     }
     with torch.no_grad():
         for name, fn in calls.items():
             out[f"{name} events ms"] = cs._time_rounds(fn)[0]
             out[f"{name} graph ms"] = cs._graph_ms(fn)[0]
+            _, busy, by_kernel = cs._profile(fn)
+            out[f"{name} device us a call"] = 1e3 * busy
+            for kname, ms, count in by_kernel:
+                short = kname.removeprefix("void ").removeprefix("(anonymous namespace)::").split("(")[0]
+                out[f"{name} device us a launch, {short}"] = 1e3 * ms / count
 
     # the paths: TFIM evaluation and step, QAOA form (b) step
     grid = tct.convert.params(np.random.default_rng(42).normal(size=(L, 2, n)) * 0.1, dev)
@@ -96,6 +112,15 @@ def _measure(root: str) -> dict:
             pt.sub_(cs.LR * g)
         return e.item()
 
+    wh = tct.convert.params(np.random.default_rng(42).normal(size=(L, 2, n)) * 0.1, dev).requires_grad_()
+
+    def hea_step():
+        e = cs.hea_energy(tct, n, wh, device=wh.device)
+        (gw,) = torch.autograd.grad(e, wh)
+        with torch.no_grad():
+            wh.sub_(cs.LR * gw)
+        return e.item()
+
     edges, params0 = cs.qaoa_graph(n, cs.QAOA_P)
     pq = tct.convert.params(params0, dev).clone().requires_grad_()
     opt = torch.optim.Adam([pq], lr=cs.QAOA_LR)
@@ -108,7 +133,7 @@ def _measure(root: str) -> dict:
 
     # form (b) runs K11/K12 only under USE_ROTX
     for name, fn, rotx in (("TFIM evaluation", evaluation, False), ("TFIM step", tfim_step, False),
-                           ("QAOA (b) step", qaoa_b_step, True)):
+                           ("HEA step", hea_step, False), ("QAOA (b) step", qaoa_b_step, True)):
         kernels.USE_ROTX = rotx
         out[f"{name} wall ms"] = cs._time_ms(fn, inner=1)
         out[f"{name} busy ms"] = cs._profile(fn)[1]
@@ -121,7 +146,7 @@ def main() -> int:
         import torch
 
         if not torch.cuda.is_available():
-            print("ab_k2_k12: no CUDA device", file=sys.stderr)
+            print("ab_kernels: no CUDA device", file=sys.stderr)
             return 2
         print(json.dumps(_measure(os.path.abspath(sys.argv[2]))))
         return 0
