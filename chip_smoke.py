@@ -13,13 +13,15 @@ Phases (any failure exits non-zero; nothing is caught):
      nvcc for each source, all at once, into ``build/kernels/``); print the
      build time and the card's name and power limit;
   2. kernel parity on the card at the n=20 shapes: K1 ``zzrx_fwd`` with and
-     without the lane matrix, K2 ``grand_zzrx_fwd`` at L=4, K3
-     ``zzrx_bwd`` with and without the lane matrix (and with it at n=22,
-     the shape the training path gives K3), K4 ``grand_zzrx_bwd`` at L=4
-     and L=3 (K2, K3 and K4 twice: the two results must be equal bit for
-     bit),
+     without the lane matrix (and with it at n=22, the shape the n=22 step
+     gives K1), K2 ``grand_zzrx_fwd`` at L=4, K3 ``zzrx_bwd`` with and
+     without the lane matrix (and with it at n=22, the shape the training
+     path gives K3), K4 ``grand_zzrx_bwd`` at L=4 and L=3 (K1-K4 twice: the
+     two results must be equal bit for bit),
      each against its plain version on the same CUDA inputs, with unitary
-     rx-kron outer and lane matrices;
+     rx-kron outer and lane matrices; K1's and K2's input planes unwritten;
+     K1 alone by a replayed CUDA graph in each of its three variants, and
+     one ``torch.matmul`` of its product's shapes at n=22;
   3. the forward path: ``Circuit(20)`` h_layer + 4 zzrx_layer +
      ``expectation_zzx_energy`` for 5 seeded parameter sets (and the state
      of the first), then L=3 once (K1 through the circuit), with the launch
@@ -52,7 +54,13 @@ Phases (any failure exits non-zero; nothing is caught):
      it against the Python arithmetic, registers and spills (a spill
      fails), and each stage (the two row passes, the product beside one
      ``torch.matmul``, the outer pass) by device time a layer on the
-     training step beside its bound;
+     training step beside its bound; K1's stages (``csrc/zzrx_fwd.cu`` on
+     the same forward row stage and product): its plan at n=20 with the
+     lane as the card reports it against ``zzrx_fwd_plan``, registers and
+     spills, and each stage (the zz pass, the other pass, the transpose of
+     M, the product beside one ``torch.matmul``) by device time a launch
+     on the n=20 L=3 training step (K1 three times a step) beside its
+     bound;
   7. the TEBD path, the main path of the TEBD slice: ``ParallelTEBD(60, 64,
      initial="neel")`` on the card for 10 trotter steps with the gate
      stacks of ``bench.py``'s TEBD workload, the launch counts reset just
@@ -78,13 +86,14 @@ Phases (any failure exits non-zero; nothing is caught):
      path; the step timed (CUDA events) and profiled, each kernel and its
      plain version timed at the path's shape over 3 rounds (K6 and K7 also
      with the lane); K6's and K7's stage plans at n=20 with and without the
-     lane (each stage kernel's CTAs, threads, shared bytes, CTAs an SM,
-     registers, local bytes) against the Python arithmetic, nvcc's
+     lane and K8's (each stage kernel's CTAs, threads, shared bytes, CTAs
+     an SM, registers, local bytes) against the Python arithmetic, nvcc's
      registers and spills of their passes, K6's product and the transpose
-     (a spill fails), and each of their row passes (K6: the low pass, then
-     the high one; K7: the first, the last with its colsum) by device time
-     a launch on the HEA step, beside its bound; K6 (with and without the
-     lane), K7 and K8 alone by a replayed CUDA graph;
+     (a spill fails), and each of their row passes (K6 and K8, one kernel
+     instance each: the low pass, then the high one, told apart by their
+     order in the trace; K7: the first, the last with its colsum) by device
+     time a launch on the HEA step, beside its bound; K6 (with and without
+     the lane), K7 and K8 alone by a replayed CUDA graph;
   9. the QAOA path, the main path of the QAOA slice: MaxCut on the n=20
      graph of ``examples/qaoa_maxcut_fused.py`` (37 edges, p=4); K9
      ``ml_fwd`` and K10 ``ml_bwd`` (whole block, 12 row qubits, 256 lanes)
@@ -126,7 +135,10 @@ Phases (any failure exits non-zero; nothing is caught):
      stages' plan at R=128 (tile, grid, shared bytes, CTAs an SM,
      registers, spills: none allowed) and each stage (K13, K14a, K14b with
      its colsum) by device time a launch on the step, its bound and one
-     PyTorch call that computes the same product at the same shapes;
+     PyTorch call that computes the same product at the same shapes; K1
+     with M7 by stage: its plan at rmx=7 against ``zzrx_fwd_plan``, and its
+     zz pass (3 walked bits, the only pass), K13, the transpose and the
+     product by device time a launch on the step beside their bounds;
  11. the staged micro-benchmark of K2's design (``examples/
      micro_grand_fusion.py`` ``run_micro``): K15 ``micro_grand`` at m1, m2
      and m3 against its plain version on the example's n=20, L=4 inputs,
@@ -548,15 +560,18 @@ def _k4_stages(krl, card, stage_us, y, ct, m, pairs22):
           f"{rec[0]:.2f} us a call for the pair records (x{rec[1]:g} a step)")
 
 
-#: K2's stages on the TFIM step, by kernel name (csrc/adjoint_stages.cuh
-#: and csrc/zzrx_fwd.cu); the transpose of M runs once a call
-K2_STAGES = {
-    "row zz": lambda k: "fwd_row_pass_kernel<true, false>" in k,
-    "row hi": lambda k: "fwd_row_pass_kernel<false, false>" in k,
-    "product": lambda k: "wide_nt_kernel<1, false>" in k,
-    "outer": lambda k: "outer_fwd_kernel" in k,
+#: K1's stages by kernel name (csrc/adjoint_stages.cuh, launched from
+#: csrc/zzrx_fwd.cu) on a step that runs no other forward kernel of the
+#: header (the n=20 L=3 TFIM step, the FUSE_ROWM step); the transpose of M
+#: runs once a call
+K1_STAGES = {
+    "row zz": lambda k: "fwd_row_pass_kernel<true, false, false>" in k,
+    "row hi": lambda k: "fwd_row_pass_kernel<false, false, false>" in k,
     "transpose": lambda k: "transpose_kernel" in k,
+    "product": lambda k: "wide_nt_kernel<1, false>" in k,
 }
+#: K2's stages on the TFIM step: K1's and the outer pass
+K2_STAGES = {**K1_STAGES, "outer": lambda k: "outer_fwd_kernel" in k}
 
 
 def _k2_stages(kg, card, stage_us, x, m, npairs, nkernel, nouter):
@@ -596,6 +611,73 @@ def _k2_stages(kg, card, stage_us, x, m, npairs, nkernel, nouter):
     print(f"K2 a layer at n={N} L={L}, {card}: {layer:.2f} us device (the stages above), plus {tr[0]:.2f} us a "
           f"launch for the transpose of M (x{tr[1]:g} a step) and the pair records (in K4's line)")
     return layer
+
+
+def _k1_stage_work(r, npairs, nkernel, lane, rmx=0):
+    """(bytes, flops) of each of K1's stages a launch, by name: "row zz"
+    (the zz pass: x in, its output out, the pairs' angles and shifts and
+    its bits' angles in; 2 flops a pair + 6 for the phase, 6 an rx bit on
+    the low min(6, nkernel - rmx) walked bits), "row hi" (the walked bits
+    past 6, in place) where there are two passes, with M7 "K13"
+    (:func:`_rowm_stage_work`), and with the lane "transpose" (M in, M^T
+    out) and "product" (the row stage's output and M^T in, y out; 8·128).
+    Their flops add up to :func:`_k1_work`'s; their bytes to it plus what
+    the stages hand each other (the state and M^T), less the rmx angles
+    that K13 does not read."""
+    amps, mat = r * 128, 2 * 4 * 128 * 128
+    nwalk = nkernel - rmx
+    lo = min(nwalk, 6)
+    hi = nwalk - lo
+    out = {"row zz": (16 * amps + 4 * (3 * npairs + lo), (2 * npairs + 6 + 6 * lo) * amps)}
+    if hi:
+        out["row hi"] = (16 * amps + 4 * hi, 6 * hi * amps)
+    if rmx:
+        out["K13"] = _rowm_stage_work(r, rmx)["K13"]
+    if lane:
+        out["transpose"] = (2 * mat, 0)
+        out["product"] = (16 * amps + mat, 8 * 128 * amps)
+    return out
+
+
+def _k1_stages(krl, card, stage_us, x, m, npairs, nkernel, rmx, steps):
+    """K1 with the lane at the shape of the profiled ``steps`` (the n=20
+    L=3 TFIM steps, or the FUSE_ROWM steps with rmx = 7): the plan as the
+    card reports it, each record equal to ``zzrx_fwd_plan``'s and without
+    local memory; nvcc's registers and spills of its stage kernels in the
+    zzrx_fwd build (a spill fails); each stage's device time a call on the
+    step (``stage_us``, from :func:`_stage_times`: the zz and the other
+    pass are two instances of the pass kernel, told apart by name; the
+    transpose runs twice a call) beside its bound, and one ``torch.matmul``
+    of the product's shapes on its operands (a replayed CUDA graph; never
+    called by the port; ``allow_tf32`` is False)."""
+    import torch
+
+    r = x[0].shape[0]
+    shape = f"n={N} nkernel={nkernel}" + (f" rmx={rmx}" if rmx else "")
+    _plan_check(f"K1 at {shape} with the lane", card, krl.zzrx_fwd_card_plan(r, nkernel, npairs, True, rmx),
+                krl.zzrx_fwd_plan(r, nkernel, npairs, True, rmx))
+    _ptxas_check("zzrx_fwd", ("fwd_row_pass_kernel", "wide_nt_kernel", "transpose_kernel",
+                              "ml_pair_records_kernel"))
+    xc, mc = torch.complex(*x), torch.complex(*m)
+    with torch.no_grad():
+        lib = _graph_ms(lambda: torch.matmul(xc, mc))
+    plan = krl.zzrx_fwd_plan(r, nkernel, npairs, True, rmx)
+    bits = {"row zz": plan["fwd_row_zz"]["bits"], "row hi": plan["fwd_row_hi"]["bits"]}
+    total = 0.0
+    for stage, work in _k1_stage_work(r, npairs, nkernel, True, rmx).items():
+        us, per_step = stage_us[stage]
+        k = 2 if stage == "transpose" else 1  # launches a call: M's two planes
+        total += k * us
+        bound, by = _bound_ms(*work)
+        lib_txt = (f"library call torch.matmul {1e3 * lib[0]:.2f} us (CUDA graph of 10 calls, median of 3 rounds, "
+                   f"min {1e3 * lib[1]:.2f}, max {1e3 * lib[2]:.2f})" if stage == "product" else "no library call")
+        walked = f" ({bits[stage]} walked bits)" if stage in bits else ""
+        print(f"K1 stage {stage}{walked} at {shape}, {card}: {k * us:.2f} us device a call ({k} x {us:.2f} a launch; "
+              f"torch.profiler over 10 {steps}, x{per_step:g} a step); bound {1e3 * bound:.2f} us ({by}), "
+              f"{100 * 1e3 * bound / (k * us):.1f} % of it reached; {lib_txt}")
+    bound, by = _bound_ms(*_k1_work(r, npairs, nkernel, True, rmx))
+    print(f"K1 a call at {shape} with the lane, {card}: {total:.2f} us device (the stages above, plus the pair "
+          f"records in K4's line); bound {1e3 * bound:.2f} us ({by}), {100 * 1e3 * bound / total:.1f} % of it reached")
 
 
 def _rowm_stage_work(r, rmx):
@@ -853,16 +935,18 @@ def _k6_stage_work(r, nkernel, lane=False):
 
 
 def _fwd_pass_stages(instance):
-    """The two passes of K6 or K11 on a step, by kernel name: both are
-    ``fwd_row_pass_kernel<false, GATE>`` (csrc/adjoint_stages.cuh), the
-    low bits launched first and the high ones right after."""
+    """The two passes of K6, K8 or K11 on a step, by kernel name: both are
+    ``fwd_row_pass_kernel<false, GATE, TRANS>`` (csrc/adjoint_stages.cuh),
+    the low bits launched first and the high ones right after."""
     test = lambda k: f"fwd_row_pass_kernel<{instance}>" in k  # noqa: E731
     return {"row lo": (test, 0, 2), "row hi": (test, 1, 2)}
 
 
-#: K6's and K11's passes on their steps (GATE true and false)
-K6_STAGES = {f"K6 {k}": v for k, v in _fwd_pass_stages("false, true").items()}
-K11_STAGES = {f"K11 {k}": v for k, v in _fwd_pass_stages("false, false").items()}
+#: K6's, K8's and K11's passes on their steps (the gate, the transposed
+#: gate and rx)
+K6_STAGES = {f"K6 {k}": v for k, v in _fwd_pass_stages("false, true, false").items()}
+K8_STAGES = {f"K8 {k}": v for k, v in _fwd_pass_stages("false, true, true").items()}
+K11_STAGES = {f"K11 {k}": v for k, v in _fwd_pass_stages("false, false, false").items()}
 
 
 def _plan_check(name, card, got, want):
@@ -892,19 +976,25 @@ def _ptxas_check(build, needles):
             _fail(f"{kname} spills or has no register count")
 
 
-#: the mangled names of K6's and K11's pass kernels,
-#: fwd_row_pass_kernel<false, true> and <false, false>
-K6_PASS, K11_PASS = "fwd_row_pass_kernelILb0ELb1E", "fwd_row_pass_kernelILb0ELb0E"
+#: the mangled names of K6's, K8's and K11's pass kernels,
+#: fwd_row_pass_kernel<false, true, false>, <false, true, true> and
+#: <false, false, false>
+K6_PASS, K8_PASS, K11_PASS = ("fwd_row_pass_kernelILb0ELb1ELb0E", "fwd_row_pass_kernelILb0ELb1ELb1E",
+                              "fwd_row_pass_kernelILb0ELb0ELb0E")
 
 
-def _k6_plan(krl, card, r, nkernel):
+def _k6_k8_plan(krl, card, r, nkernel):
     """K6's stage plan at the HEA shape with and without the lane against
-    :func:`kernels_rowlayer.row_fwd_plan`, and nvcc's registers and spills
-    of its pass, product and transpose in the row_layer build."""
+    :func:`kernels_rowlayer.row_fwd_plan` and K8's against
+    :func:`kernels_rowlayer.row_bwd_const_plan`, and nvcc's registers and
+    spills of their passes and K6's product and transpose in the row_layer
+    build."""
     for lane in (False, True):
         _plan_check(f"K6 at n={N} nkernel={nkernel}{' with the lane' if lane else ''}", card,
                     krl.row_fwd_card_plan(r, nkernel, lane), krl.row_fwd_plan(r, nkernel, lane))
-    _ptxas_check("row_layer", (K6_PASS, "wide_nt_kernel", "transpose_kernel"))
+    _plan_check(f"K8 at n={N} nkernel={nkernel}", card, krl.row_bwd_const_card_plan(r, nkernel),
+                krl.row_bwd_const_plan(r, nkernel))
+    _ptxas_check("row_layer", (K6_PASS, K8_PASS, "wide_nt_kernel", "transpose_kernel"))
 
 
 #: K7's stages on the HEA step, by kernel name (csrc/adjoint_stages.cuh)
@@ -932,9 +1022,9 @@ def _hea_phase(tct, krl, dev, card):
     steps of :func:`hea_energy` at n=20, L=4 on the card against the CPU
     path with the launches of each kernel read, the step timed and
     profiled, each kernel timed at its path shape (K7 also with the lane
-    and by a replayed CUDA graph), K7's plan (:func:`_k7_plan`) and its row
-    passes a launch on the step beside their bound.  Returns the kernels
-    line's entries."""
+    and by a replayed CUDA graph), K6's, K8's (:func:`_k6_k8_plan`) and
+    K7's plans (:func:`_k7_plan`) and their row passes a launch on the step
+    beside their bound.  Returns the kernels line's entries."""
     import torch
 
     nrow = N - 7
@@ -1022,7 +1112,7 @@ def _hea_phase(tct, krl, dev, card):
     wt = tct.convert.params(w0, dev).requires_grad_()
     step_ms = _time_ms(lambda: step(wt)[0].item(), inner=1)
     prof = _profile(lambda: step(wt)[0].item())
-    stage_us = _stage_times(lambda: step(wt)[0].item(), {**K7_STAGES, **K6_STAGES})
+    stage_us = _stage_times(lambda: step(wt)[0].item(), {**K7_STAGES, **K6_STAGES, **K8_STAGES})
     timed = {k: cases[k][0] for k in cases}  # the path runs no lane variant
     with torch.no_grad():
         times = {k: (_time_rounds(v[1]), _time_rounds(v[2], **PLAIN_TIMING)) for k, v in timed.items()}
@@ -1038,28 +1128,31 @@ def _hea_phase(tct, krl, dev, card):
         print(f"  device {ms:.4f} ms x{count:g}/run  {name[:90]}")
     # the kernels' own device time a launch on the path (the event timing
     # of back-to-back wrapper calls below also holds the wrapper's host time)
-    for kname, stage in (("row_fwd", "fwd_row_pass_kernel<false, true>"), ("row_bwd", "gate_row_pass_kernel"),
-                         ("row_bwd", "colsum_tree_kernel"), ("row_bwd_const", "row_apply_kernel<true>")):
+    for kname, stage in (("row_fwd", "fwd_row_pass_kernel<false, true, false>"),
+                         ("row_bwd", "gate_row_pass_kernel"), ("row_bwd", "colsum_tree_kernel"),
+                         ("row_bwd_const", "fwd_row_pass_kernel<false, true, true>")):
         for name, ms, count in by_kernel:
             if stage in name:
                 print(f"device time a launch on the HEA step, {kname} {name[:60]}: {1e3 * ms / count:.2f} us "
                       f"(x{count:g}/step)")
-    # K6's and K7's stages: the plan, and each row pass a launch beside its
-    # bound
-    _k6_plan(krl, card, r, nkernel)
-    plan = krl.row_fwd_plan(r, nkernel)
+    # K6's, K8's and K7's stages: the plan, and each row pass a launch
+    # beside its bound (K8's passes move and compute what K6's do)
+    _k6_k8_plan(krl, card, r, nkernel)
     work = _k6_stage_work(r, nkernel)
-    for label in K6_STAGES:
-        us, per_step = stage_us[label]
-        stage = label.removeprefix("K6 ")
-        bound, by = _bound_ms(*work[stage])
-        print(f"K6 stage {stage} ({plan[stage.replace(' ', '_')]['bits']} walked bits) at n={N} nkernel={nkernel}, "
-              f"{card}: {us:.2f} us device a launch (torch.profiler over 10 HEA steps, x{per_step:g} a step); "
-              f"bound {1e3 * bound:.2f} us ({by}), {100 * 1e3 * bound / us:.1f} % of it reached; no library call")
-    k6_us = sum(stage_us[k][0] for k in K6_STAGES)
-    bound, by = _bound_ms(*_row_work(r, nkernel, "fwd"))
-    print(f"K6 a launch at n={N} nkernel={nkernel}, {card}: {k6_us:.2f} us device (the passes above); bound "
-          f"{1e3 * bound:.2f} us ({by}), {100 * 1e3 * bound / k6_us:.1f} % of it reached")
+    for kname, stages, plan, kind in (("K6", K6_STAGES, krl.row_fwd_plan(r, nkernel), "fwd"),
+                                      ("K8", K8_STAGES, krl.row_bwd_const_plan(r, nkernel), "const")):
+        for label in stages:
+            us, per_step = stage_us[label]
+            stage = label.removeprefix(f"{kname} ")
+            bound, by = _bound_ms(*work[stage])
+            print(f"{kname} stage {stage} ({plan[stage.replace(' ', '_')]['bits']} walked bits) at n={N} "
+                  f"nkernel={nkernel}, {card}: {us:.2f} us device a launch (torch.profiler over 10 HEA steps, "
+                  f"x{per_step:g} a step); bound {1e3 * bound:.2f} us ({by}), {100 * 1e3 * bound / us:.1f} % of it "
+                  f"reached; no library call")
+        k_us = sum(stage_us[k][0] for k in stages)
+        bound, by = _bound_ms(*_row_work(r, nkernel, kind))
+        print(f"{kname} a launch at n={N} nkernel={nkernel}, {card}: {k_us:.2f} us device (the passes above); bound "
+              f"{1e3 * bound:.2f} us ({by}), {100 * 1e3 * bound / k_us:.1f} % of it reached")
     _k7_plan(krl, card, r, nkernel)
     plan = krl.row_bwd_plan(r, nkernel)
     work = _k7_stage_work(r, nkernel)
@@ -1167,8 +1260,8 @@ def _k9_stage_work(r, lanes, npairs, nrow):
 #: K9's stages on the form (a) step, by kernel name (csrc/adjoint_stages.cuh,
 #: csrc/multilayer.cu)
 K9_STAGES = {
-    "row zz": lambda k: "fwd_row_pass_kernel<true, false>" in k,
-    "row hi": lambda k: "fwd_row_pass_kernel<false, false>" in k,
+    "row zz": lambda k: "fwd_row_pass_kernel<true, false, false>" in k,
+    "row hi": lambda k: "fwd_row_pass_kernel<false, false, false>" in k,
     "product": lambda k: "wide_nt_kernel<1, false>" in k,
 }
 
@@ -1371,7 +1464,7 @@ def _qaoa_phase(tct, krl, dev, card, counters):
             stages = {"a": ("fwd_row_pass_kernel", "transpose_kernel", "wide_nt_kernel<1, false>",
                             "ml_pair_records_kernel", "wide_nt_kernel<2, true>", "wide_dm_kernel", "colsum_kernel",
                             "ml_row_pass_kernel<false>", "ml_row_pass_kernel<true>", "colsum_tree_kernel"),
-                      "b": ("fwd_row_pass_kernel<false, false>", "ml_row_pass_kernel<false>",
+                      "b": ("fwd_row_pass_kernel<false, false, false>", "ml_row_pass_kernel<false>",
                             "rx_row_pass_kernel", "colsum_tree_kernel")}[form]
             for stage in stages:
                 for name, ms, count in by_kernel:
@@ -1586,8 +1679,9 @@ def _rowm_phase(tct, krl, kst, dev, card, counters):
     every kernel's launches read; the value and grad at the start point
     under each switch setting with its launches; K1/K3 with M7 timed with
     their bounds, the step timed under each setting and profiled under
-    FUSE_ROWM.  The switches are restored afterwards.  Returns the kernels
-    line's entries."""
+    FUSE_ROWM, K13/K14 and K1's stages (:func:`_k1_stages`) a launch on
+    it.  The switches are restored afterwards.  Returns the kernels line's
+    entries."""
     import torch
 
     nrow, nkernel, nouter, _ = kst._shapes(N)
@@ -1714,7 +1808,11 @@ def _rowm_phase(tct, krl, kst, dev, card, counters):
             print(f"training step n={N} L={L} under switches {label} (CUDA events, ends in .item()), {card}: "
                   f"{step_ms:.3f} ms (median of 20)")
         host, busy, by_kernel = _profile(step)
+        # K1's stages but K13 (its row stage walks nkernel - rmx = 3 bits:
+        # one pass), K13 and K14
+        k1_stages = {k: K1_STAGES[k] for k in _k1_stage_work(r, len(pairs), nkernel, True, rmx) if k in K1_STAGES}
         stage_us = _stage_times(step, {
+            **k1_stages,
             "K13": lambda s: f"rowm_apply_kernel<{R}, false>" in s,
             "K14a": lambda s: f"rowm_apply_kernel<{R}, true>" in s,
             "K14b+colsum": lambda s: f"rowm_dm_kernel<{R}>" in s,
@@ -1728,8 +1826,8 @@ def _rowm_phase(tct, krl, kst, dev, card, counters):
           f"unprofiled {step_ms:.3f} ms), {len(by_kernel)} kernel names")
     for name, ms, count in by_kernel[:14]:
         print(f"  device {ms:.4f} ms x{count:g}/run  {name[:90]}")
-    for stage in ("zz_rowrx_kernel", f"rowm_apply_kernel<{R}, false>", "lane_fwd_kernel",
-                  "ml_pair_records_kernel", "wide_nt_kernel<2, true>", "wide_dm_kernel",
+    for stage in ("fwd_row_pass_kernel<true, false, false>", f"rowm_apply_kernel<{R}, false>", "transpose_kernel",
+                  "wide_nt_kernel<1, false>", "ml_pair_records_kernel", "wide_nt_kernel<2, true>", "wide_dm_kernel",
                   f"rowm_apply_kernel<{R}, true>", f"rowm_dm_kernel<{R}>", "ml_row_pass_kernel<true>",
                   "colsum_kernel", "colsum_tree_kernel"):
         for name, ms, count in by_kernel:
@@ -1739,6 +1837,7 @@ def _rowm_phase(tct, krl, kst, dev, card, counters):
     with torch.no_grad():
         times = {k: (_time_rounds(v[0][1]), _time_rounds(v[0][2], **PLAIN_TIMING)) for k, v in cases.items()}
     _rowm_stages(krl, card, stage_us, y, ctr, cti, m7r, m7i, nkernel, rmx, r)
+    _k1_stages(krl, card, stage_us, y, (mlr, mli), len(pairs), nkernel, rmx, "FUSE_ROWM steps")
     work = {"rowm_fwd": _k1_work(r, len(pairs), nkernel, True, rmx),
             "rowm_bwd": _k3_work(r, len(pairs), nkernel, True, rmx)}
     source = {"rowm_fwd": "zzrx_fwd.cu", "rowm_bwd": "zzrx_bwd.cu"}
@@ -1944,12 +2043,14 @@ def main() -> int:
     c22r, c22i = tct.convert.planes(rng.normal(size=2**N22) + 1j * rng.normal(size=2**N22), dev)
     c22r, c22i = c22r / 2 ** (N22 / 2), c22i / 2 ** (N22 / 2)
     k3_22 = (pairs22, N22, zz22, th22, k22r, k22i, c22r, c22i, ml22r, ml22i)
+    k1_22 = (pairs22, N22, zz22, th22, s22r, s22i, ml22r, ml22i)
     cases = {
         "zzrx_fwd": [
             ("no lane", lambda: krl.zzrx_fwd(pairs, N, zz[0], thk[0], sr, si),
              lambda: krl.zzrx_fwd_plain(pairs, N, zz[0], thk[0], sr, si)),
             ("lane", lambda: krl.zzrx_fwd(pairs, N, zz[0], thk[0], sr, si, mlr[0], mli[0]),
              lambda: krl.zzrx_fwd_plain(pairs, N, zz[0], thk[0], sr, si, mlr[0], mli[0])),
+            (f"lane n={N22}", lambda: krl.zzrx_fwd(*k1_22), lambda: krl.zzrx_fwd_plain(*k1_22)),
         ],
         "grand_zzrx_fwd": [
             (f"L={L}", lambda: kg.grand_zzrx_fwd(pairs, N, zz, thk, sr, si, mor, moi, mlr, mli),
@@ -1968,7 +2069,22 @@ def main() -> int:
             for nl in (L, 3)
         ],
     }
-    max_err = _check_parity(cases, twice=("grand_zzrx_fwd", "zzrx_bwd", "grand_zzrx_bwd"))
+    s_in = (sr.clone(), si.clone(), s22r.clone(), s22i.clone())
+    max_err = _check_parity(cases, twice=("zzrx_fwd", "grand_zzrx_fwd", "zzrx_bwd", "grand_zzrx_bwd"))
+    if not all(torch.equal(a, b) for a, b in zip(s_in, (sr, si, s22r, s22i))):
+        _fail("K1 or K2 wrote its input planes")
+    # K1 alone by a replayed CUDA graph (with the lane, without it, and at
+    # n=22, K1's shape on the n=22 step), and one torch.matmul of the
+    # product's shapes at n=22 (never called by the port)
+    with torch.no_grad():
+        k1_graph = {label: _graph_ms(kern) for label, kern, _ in cases["zzrx_fwd"]}
+        x22c, m22c = torch.complex(s22r, s22i), torch.complex(ml22r, ml22i)
+        k1_lib22 = _graph_ms(lambda: torch.matmul(x22c, m22c))
+    for label, g in k1_graph.items():
+        print(f"K1 alone [{label}{'' if 'n=' in label else f', n={N}'}] by a replayed CUDA graph of 10 calls (median "
+              f"of 3 rounds), {card}: {1e3 * g[0]:.2f} us (min {1e3 * g[1]:.2f}, max {1e3 * g[2]:.2f})")
+    print(f"K1's product at n={N22}: library call torch.matmul {1e3 * k1_lib22[0]:.2f} us (CUDA graph of 10 calls, "
+          f"median of 3 rounds, min {1e3 * k1_lib22[1]:.2f}, max {1e3 * k1_lib22[2]:.2f}), {card}")
 
     print(f"phase 2 ended at {time.time() - t_start:.1f} s")
 
@@ -2153,6 +2269,16 @@ def main() -> int:
     _k4_stages(krl, card, step_stages, (ksr[L - 1], ksi[L - 1]), (ctr, cti), (mlr[L - 1], mli[L - 1]), pairs22)
     _k2_stages(kg, card, {k[3:]: v for k, v in step_stages.items() if k.startswith("K2 ")}, (sr, si),
                (mlr[0], mli[0]), len(PAIRS), nkernel, nouter)
+    # K1's stages a launch on the n=20 L=3 step (K1 a layer, then K4)
+    pt3 = tct.convert.params(grid3, dev).requires_grad_()
+
+    def train_step3():
+        e, g = value_and_grad(pt3, 3, "cuda")
+        sgd(pt3, g)
+        return e.item()
+
+    _k1_stages(krl, card, _stage_times(train_step3, K1_STAGES), (sr, si), (mlr[0], mli[0]), len(PAIRS), nkernel,
+               0, "n=20 L=3 steps")
 
     print(f"phase 6 ended at {time.time() - t_start:.1f} s")
 

@@ -49,7 +49,9 @@ _I = ctypes.c_int
 #: ``tcng_error_string``)
 _SIGNATURES = {
     "zzrx_fwd": {
-        "tcng_zzrx_fwd": [_P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _P, _P, _I, _I, _P],
+        "tcng_zzrx_fwd_scratch": [_I, _I, _I, _I, _I],
+        "tcng_zzrx_fwd_plan": [_I, _I, _I, _I, _I, _P],
+        "tcng_zzrx_fwd": [_P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _P, _P, _I, _P, _I, _P],
         "tcng_rowm_fwd_plan": [_I, _I, _P],
         "tcng_grand_zzrx_fwd_scratch": [_I, _I, _I, _I],
         "tcng_grand_zzrx_fwd_plan": [_I, _I, _I, _I, _P],
@@ -82,6 +84,7 @@ _SIGNATURES = {
         "tcng_row_bwd_scratch": [_I, _I, _I],
         "tcng_row_bwd_plan": [_I, _I, _I, _P],
         "tcng_row_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _P],
+        "tcng_row_bwd_const_plan": [_I, _I, _P],
         "tcng_row_bwd_const": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
         "tcng_rotx_fwd_plan": [_I, _I, _P],
         "tcng_rotx_fwd": [_P, _P, _P, _P, _P, _I, _I, _P],
@@ -104,7 +107,8 @@ _SIGNATURES = {
 _RESTYPES = {
     name: ctypes.c_long
     for name in ("tcng_zzrx_bwd_scratch", "tcng_row_fwd_scratch", "tcng_row_bwd_scratch",
-                 "tcng_rotx_bwd_scratch", "tcng_ml_scratch", "tcng_grand_zzrx_fwd_scratch")
+                 "tcng_rotx_bwd_scratch", "tcng_ml_scratch", "tcng_grand_zzrx_fwd_scratch",
+                 "tcng_zzrx_fwd_scratch")
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -7,8 +7,9 @@
 // general gates), K10 (multilayer.cu, W = 128-1024) and K12 (row_layer.cu:
 // the rx passes without the zz stage); the forwards K2 (zzrx_fwd.cu), K9
 // (multilayer.cu), K6 and K11 (row_layer.cu) run on the same row-stage
-// plan, and the product of K2, K9 and K6 with the lane is the same kernel
-// with NA = 1, on M^T (transpose_kernel).
+// plan, and so do K1 (zzrx_fwd.cu) and K8 (row_layer.cu); the product of
+// K1, K2, K9 and K6 with the lane is the same kernel with NA = 1, on M^T
+// (transpose_kernel).
 //
 // Conventions (those of the JAX package): cotangent planes are (dL/dyr,
 // -dL/dyi), the non-conjugating complex cotangent, and walk by the
@@ -69,14 +70,15 @@
 //   K12's passes (rx_row_stage): ml_row_pass_kernel<false> with no pairs,
 //     then rx_row_pass_kernel, the last pass without the zz stage (no
 //     pair records, phase or x planes), writing only ct (ds).
-//   The forward passes (fwd_row_pass_kernel<ZZ, GATE>), two planes in and
-//     two out: the low walked bits on the tiles of the last pass, whose
-//     thread starts on the register bits the pair records are sorted by
-//     (one record set for every layer), then the high ones in place.  K2
-//     and K9 (fwd_row_stage): the phase, then rx, in the first pass.  K6
-//     and K11 (bfly_row_stage): no phase; K11 rx, K6 a general 2x2 gate a
+//   The forward passes (fwd_row_pass_kernel<ZZ, GATE, TRANS>), two planes
+//     in and two out: the low walked bits on the tiles of the last pass,
+//     whose thread starts on the register bits the pair records are sorted
+//     by (one record set for every layer), then the high ones in place.  K1,
+//     K2 and K9 (fwd_row_stage): the phase, then rx, in the first pass.  K6,
+//     K8 and K11 (bfly_row_stage): no phase; K11 rx, K6 a general 2x2 gate a
 //     walked bit (GATE), staged in shared memory as K7's gate passes stage
-//     theirs.
+//     theirs, and K8 the same gates staged transposed (TRANS: the walk ct <-
+//     g^T ct).
 // Every sum across CTAs is a per-CTA partial added in a fixed order: no
 // atomics, two runs agree bit for bit.  Plain f32 FMAs, no fast-math.
 // Bounds at n = 20, W = 128 (r = 8192): each complex 128-deep product is
@@ -85,7 +87,8 @@
 // moves psi and ct in and ds out, 25 MB (7.5 us at 3.35 TB/s); K7's row
 // stage at nkernel = 11 the same bytes for 44 flops an amplitude a bit,
 // 0.51 GFLOP (7.6 us, operations).  The forward row stage moves 16.8 MB a
-// layer (5.0 us, bytes) at W = 256 (K9) and at W = 128 (K2, K6, K11).
+// layer (5.0 us, bytes) at W = 256 (K9) and at W = 128 (K1, K2, K6, K8,
+// K11).
 
 #pragma once
 
@@ -104,6 +107,19 @@ bool all_aligned16(std::initializer_list<const void*> ptrs) {
   for (const void* q : ptrs)
     if (!aligned16(q)) return false;
   return true;
+}
+
+// Lays out N scratch parts of the given float counts from base, each a
+// multiple of 64 floats (16-byte aligned); fills ptrs (null without base)
+// and returns the floats of all.
+template <int N>
+size_t carve(const size_t (&sizes)[N], float* base, float* (&ptrs)[N]) {
+  size_t off = 0;
+  for (int i = 0; i < N; ++i) {
+    ptrs[i] = base ? base + off : nullptr;
+    off += (sizes[i] + 63) / 64 * 64;
+  }
+  return off;
 }
 
 // out[0..8): CTAs, threads, shared bytes, CTAs an SM, registers, local
@@ -881,8 +897,8 @@ cudaError_t adjoint_row_stage(const RowStage& rs, const float* pr, const float* 
 }
 
 // ---------------------------------------------------------------------------
-// The general-gate adjoint pass (K7) and the forward passes (K2, K6, K9,
-// K11), on the row stage's plan.
+// The general-gate adjoint pass (K7) and the forward passes (K1, K2, K6,
+// K8, K9, K11), on the row stage's plan.
 // ---------------------------------------------------------------------------
 
 // The warp sums of a[0..8) without a shuffle tree a value: three halving
@@ -1165,22 +1181,24 @@ size_t fwd_pass_smem(const RowPass& rp, int npairs, bool zz, bool gate = false) 
          (zz ? sizeof(int4) * npairs : 0);
 }
 
-// A forward row pass on the tile of CTA blockIdx.x, x -> y: ZZ (K2's and
-// K9's first pass, on the last pass's tiles) first the phase exp(-i/2
-// sum_k th_k z_a z_b), from the pair records grec/gso (pair_records) and
-// the layer's angles zzth, then a butterfly on each pass bit i: GATE (K6)
-// gate rp.q[i] of the (nwalk, 4) planes c1/c2 = gr/gi, else (K2, K9, K11)
-// rx(th_q) with q = rp.q[i] and c1 = th (the gates act on distinct bits
-// and commute).  With more than 3 pass bits the thread first holds tile
-// bits 8..10 in registers (those the records are sorted by), then crosses
-// shared memory to tile bits 5..7.  y may alias x.  64 registers (4 CTAs
-// an SM: at n = 20 the 512 CTAs run in one wave).
-template <bool ZZ, bool GATE>
+// A forward row pass on the tile of CTA blockIdx.x, x -> y: ZZ (K1's,
+// K2's and K9's first pass, on the last pass's tiles) first the phase
+// exp(-i/2 sum_k th_k z_a z_b), from the pair records grec/gso
+// (pair_records) and the layer's angles zzth, then a butterfly on each pass
+// bit i: GATE (K6) gate rp.q[i] of the (nwalk, 4) planes c1/c2 = gr/gi,
+// with TRANS (K8) its transpose, else (K1, K2, K9, K11) rx(th_q) with q =
+// rp.q[i] and c1 = th (the gates act on distinct bits and commute).  With
+// more than 3 pass bits the thread first holds tile bits 8..10 in registers
+// (those the records are sorted by), then crosses shared memory to tile
+// bits 5..7.  y may alias x.  64 registers (4 CTAs an SM: at n = 20 the 512
+// CTAs run in one wave).
+template <bool ZZ, bool GATE, bool TRANS>
 __global__ void __launch_bounds__(THREADS, 4)
 fwd_row_pass_kernel(const float* xr, const float* xi, float* yr, float* yi,
                     const int4* __restrict__ grec, const int* __restrict__ gso,
                     const float* __restrict__ zzth, int npairs, const float* __restrict__ c1,
                     const float* __restrict__ c2, RowPass rp) {
+  static_assert(GATE || !TRANS, "only a gate is staged transposed");
   extern __shared__ __align__(16) float smem[];
   const int t = threadIdx.x;
   const int nel = 1 << rp.tb;
@@ -1191,9 +1209,12 @@ fwd_row_pass_kernel(const float* xr, const float* xi, float* yr, float* yi,
   int* so = reinterpret_cast<int*>(co + fwd_coef_floats(GATE) * RP_MAXB);
   if constexpr (GATE) {
     if (t < 4 * rp.nb) {
+      // entry e = 2 row + column of the staged gate; TRANS reads g's entry
+      // 2 column + row
       const int i = t >> 2, e = t & 3, q = pick(rp.q, i);
-      co[8 * i + 2 * e] = c1[4 * q + e];
-      co[8 * i + 2 * e + 1] = c2[4 * q + e];
+      const int src = TRANS ? ((e & 1) << 1) | (e >> 1) : e;
+      co[8 * i + 2 * e] = c1[4 * q + src];
+      co[8 * i + 2 * e + 1] = c2[4 * q + src];
     }
   } else if (t < rp.nb) {
     sincosf(0.5f * c1[pick(rp.q, t)], &co[2 * t + 1], &co[2 * t]);
@@ -1248,10 +1269,10 @@ fwd_row_pass_kernel(const float* xr, const float* xi, float* yr, float* yi,
   }
 }
 
-// K2's and K9's forward passes: the zz pass (first) and the other.
+// K1's, K2's and K9's forward passes: the zz pass (first) and the other.
 const void* fwd_pass_fn(bool zz) {
-  return zz ? reinterpret_cast<const void*>(fwd_row_pass_kernel<true, false>)
-            : reinterpret_cast<const void*>(fwd_row_pass_kernel<false, false>);
+  return zz ? reinterpret_cast<const void*>(fwd_row_pass_kernel<true, false, false>)
+            : reinterpret_cast<const void*>(fwd_row_pass_kernel<false, false, false>);
 }
 
 // The forward passes' shared-memory limits; once an entry call.
@@ -1261,9 +1282,11 @@ cudaError_t fwd_stage_prepare(const RowStage& rs, int npairs) {
   return err;
 }
 
-// K9's row stage of one layer, x -> y (y may alias x): the phase and the
-// low walked bits in the last pass's tiles, then (two passes) the high
-// ones in place.  rec from pair_records; zzth and th the layer's angles.
+// The row stage of one layer of K1, K2 and K9, x -> y (y may alias x):
+// the phase and the low walked bits in the last pass's tiles, then (two
+// passes) the high ones in place.  rec from pair_records; zzth and th the
+// layer's angles.  With no walked bit (K1 under the row kron, rmx =
+// nkernel) the one pass is the phase alone.
 cudaError_t fwd_row_stage(const RowStage& rs, const float* xr, const float* xi, float* yr,
                           float* yi, const float* rec, const float* zzth, int npairs,
                           const float* th, cudaStream_t st) {
@@ -1271,33 +1294,35 @@ cudaError_t fwd_row_stage(const RowStage& rs, const float* xr, const float* xi, 
   const int threads = row_threads(rs);
   const int4* r4 = reinterpret_cast<const int4*>(rec);
   const int* so = reinterpret_cast<const int*>(rec + 4 * static_cast<size_t>(npairs));
-  fwd_row_pass_kernel<true, false><<<grid, threads, fwd_pass_smem(last_pass(rs), npairs, true), st>>>(
+  fwd_row_pass_kernel<true, false, false><<<grid, threads, fwd_pass_smem(last_pass(rs), npairs, true), st>>>(
       xr, xi, yr, yi, r4, so, zzth, npairs, th, nullptr, last_pass(rs));
   if (rs.npass == 2)
-    fwd_row_pass_kernel<false, false><<<grid, threads, fwd_pass_smem(rs.pass[0], npairs, false), st>>>(
+    fwd_row_pass_kernel<false, false, false><<<grid, threads, fwd_pass_smem(rs.pass[0], npairs, false), st>>>(
         yr, yi, yr, yi, nullptr, nullptr, nullptr, npairs, th, nullptr, rs.pass[0]);
   return cudaGetLastError();
 }
 
 // The row stage of K6 (GATE: the general gates c1/c2 = gr/gi, (nwalk, 4)
-// planes) and K11 (rx, c1 = th), x -> y (y may alias x): K9's passes
-// without the phase, the low walked bits on the last pass's tiles, then
-// (two passes) the high ones in place.
-template <bool GATE>
+// planes), K8 (GATE and TRANS: the same planes, each gate transposed) and
+// K11 (rx, c1 = th), x -> y (y may alias x): K9's passes without the
+// phase, the low walked bits on the last pass's tiles, then (two passes)
+// the high ones in place.
+template <bool GATE, bool TRANS>
 cudaError_t bfly_row_stage(const RowStage& rs, const float* xr, const float* xi, float* yr,
                            float* yi, const float* c1, const float* c2, cudaStream_t st) {
   const unsigned grid = static_cast<unsigned>(row_ctas(rs));
   const int threads = row_threads(rs);
   const size_t lo = fwd_pass_smem(last_pass(rs), 0, false, GATE);
   const size_t hi = fwd_pass_smem(rs.pass[0], 0, false, GATE);
+  const void* kern = reinterpret_cast<const void*>(fwd_row_pass_kernel<false, GATE, TRANS>);
   // a plan record may have set a smaller limit on this kernel
-  cudaError_t err = set_smem(reinterpret_cast<const void*>(fwd_row_pass_kernel<false, GATE>), lo > hi ? lo : hi);
+  cudaError_t err = set_smem(kern, lo > hi ? lo : hi);
   if (err != cudaSuccess) return err;
-  fwd_row_pass_kernel<false, GATE><<<grid, threads, lo, st>>>(xr, xi, yr, yi, nullptr, nullptr, nullptr,
-                                                              0, c1, c2, last_pass(rs));
+  fwd_row_pass_kernel<false, GATE, TRANS><<<grid, threads, lo, st>>>(xr, xi, yr, yi, nullptr, nullptr,
+                                                                     nullptr, 0, c1, c2, last_pass(rs));
   if (rs.npass == 2)
-    fwd_row_pass_kernel<false, GATE><<<grid, threads, hi, st>>>(yr, yi, yr, yi, nullptr, nullptr,
-                                                                nullptr, 0, c1, c2, rs.pass[0]);
+    fwd_row_pass_kernel<false, GATE, TRANS><<<grid, threads, hi, st>>>(yr, yi, yr, yi, nullptr, nullptr,
+                                                                       nullptr, 0, c1, c2, rs.pass[0]);
   return cudaGetLastError();
 }
 

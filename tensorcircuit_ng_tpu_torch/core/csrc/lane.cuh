@@ -1,13 +1,12 @@
-// Lane-matrix stages of the forward kernels of the port (zzrx_fwd.cu,
-// micro_grand.cu) and the helpers every kernel source shares, on the (r, 128)
-// float32 plane pair of a complex64 statevector.  Layout index = row * 128
-// + lane.
+// The lane-matrix stage of K15 (micro_grand.cu) and the helpers every
+// kernel source shares, on the (r, 128) float32 plane pair of a complex64
+// statevector.  Layout index = row * 128 + lane.
 //
 //   lane_fwd_kernel: y = x @ M on 32-row tiles, M streamed through shared
-//     memory in K chunks (K1 and K15);
+//     memory in K chunks (K15 alone);
 //   helpers: the deterministic block sum, 16-byte cp.async copies, float
 //     vectors, colsum_kernel (per-CTA partials added in a fixed order).
-// The adjoint's lane and row stages (K3, K4, K7's lane, K10) are in
+// The other kernels' lane products and row stages (K1-K4, K6-K12) are in
 // adjoint_stages.cuh.  Sums across CTAs use no atomics, so two runs give
 // the same result bit for bit.
 
@@ -94,7 +93,7 @@ __device__ float block_sum(float v, float* red) {
   return t;
 }
 
-// K1's and K6's lane stage: y = x @ M on tiles of ni <= 32 consecutive
+// K15's lane stage: y = x @ M on tiles of ni <= 32 consecutive
 // rows, 8 warps x 4 rows, 4 columns a thread, M streamed through shared
 // memory in chunks of 8 k.  x and y may alias (a CTA loads its tile before
 // it writes, and tiles are disjoint).

@@ -21,7 +21,7 @@
 // which stays in the 50 MB L2 at n = 20 (16.8 MB for both buffers):
 //   copy pass (m1): float4 loads and stores;
 //   butterfly pass (m2, m3): a CTA holds all RB rows of a block for 8 lanes
-//     (64 KB of planes, as K1's pass A) and runs the 10 butterflies in
+//     (64 KB of planes) and runs the 10 butterflies in
 //     place in shared memory, reading src and writing dst;
 //   lane pass: lane.cuh's y = x @ M, in place;
 //   outer pass (m3): one thread per in-block position holds its D elements

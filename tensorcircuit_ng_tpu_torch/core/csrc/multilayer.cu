@@ -106,11 +106,7 @@ size_t ml_layout(const MlPlan& p, int npairs, int L, bool bwd, float* base, MlSc
       pair_record_floats(npairs),
   };
   float* ptrs[13];
-  size_t off = 0;
-  for (int i = 0; i < 13; ++i) {
-    ptrs[i] = base ? base + off : nullptr;
-    off += (sizes[i] + 63) / 64 * 64;
-  }
+  const size_t off = carve(sizes, base, ptrs);
   if (s)
     *s = MlScratch{ptrs[0], ptrs[1], ptrs[2], ptrs[3], ptrs[4], ptrs[5],
                    ptrs[6], ptrs[7], ptrs[8], ptrs[9], ptrs[10], ptrs[11], ptrs[12]};

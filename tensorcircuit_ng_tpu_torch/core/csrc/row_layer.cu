@@ -23,7 +23,7 @@
 //    gate: un-apply g^dagger, the four complex sums of dg, walk ct by g^T.
 //    Returns ds = ct, dg (2, nkernel, 4) and dM.
 // K8 tcng_row_bwd_const replaces kernels_rowlayer._pallas_row_bwd_const
-//    (_const_bwd_kernel): the ct walk by g^T alone, gates in reverse.
+//    (_const_bwd_kernel): the ct walk by g^T alone, gate q = nkernel-1..0.
 // K11 tcng_rotx_fwd replaces kernels_rowlayer._pallas_rotx_fwd
 //    (_rotx_fwd_kernel): rx(th_q) = [[c, -i s], [-i s, c]] on each kernel
 //    row bit, the symmetric form of K6's butterfly (angles, not gates).
@@ -36,44 +36,43 @@
 // Design.  A TPU block holds RB x 128 lanes in VMEM: 2 MB at RB = 2048
 // (nkernel = 11), nine times a CTA's 227 KB of shared memory, and a tile
 // of all RB rows by 8 lanes (whole 32-byte sectors) would give only 64
-// CTAs at n = 20.  So K6, K7, K11 and K12 run on the row stage of
+// CTAs at n = 20.  So every kernel here runs on the row stage of
 // adjoint_stages.cuh (the plan row_stage_plan(nrb, 7, nkernel) that K3, K4
 // and K10 use): tiles of 2^11 elements with 32 consecutive lanes a warp
 // (whole sectors), the walked bits in at most two passes of at most 6 (at
 // n = 20, nkernel = 11: the 6 low ones and the 5 high ones; 512 CTAs of
 // 256 threads, 4 an SM), a thread holding 8 elements in registers for 3
-// bits at a time and crossing shared memory once for more.  K6 and K11
+// bits at a time and crossing shared memory once for more.  K6, K8 and K11
 // (bfly_row_stage): K9's forward passes without the phase, the low bits
 // on the last pass's tiles first, then the high ones in place; K11 with
 // rx, K6 with a general gate a walked bit (the pass's gates staged in
-// shared memory, 8 floats a bit).  With the lane (the fuse_lane route) K6
-// runs the row stage into a scratch plane pair, then y = x @ M by the
-// forward product of K2 and K9 (wide_nt_kernel<1, false> on M^T,
-// transposed once a call).  K7 (gate_row_stage), per bit: un-apply
-// g^dagger, the eight dg sums reduced over the warp at once by halving
-// exchanges (warp_sum8), the ct walk by g^T.  K12 (rx_row_stage): K10's
-// rx butterflies without the zz stage, the first pass
-// ml_row_pass_kernel<false> with no pairs, the last rx_row_pass_kernel
-// (no pair records, phase or x planes); the two dth sums a bit go through
-// a warp tree into one partial a CTA.  The gates act on distinct bits and
-// commute, so K6, K7, K11 and K12 take them in another order than the JAX
-// kernels (only rounding differs).  K7 and K12 run on the caller's y and
-// ct, which they do not write: the first of two passes writes psi to
-// scratch and ct to ds, the last only ds.  With the lane K7 first runs the
-// adjoint lane stage that K3, K4 and K10 share (the un-lane and ct walk in
-// one launch, dM as split-K partials), psi into scratch and ct into ds,
-// and the passes follow in place.  The dg and dth sums are one partial a
-// CTA added by colsum_tree_kernel in a fixed order: no atomics, so K7 and
-// K12 are bit-identical run to run.  K8 still runs its first design: all
-// RB rows of one block for TL = 8192 / RB lanes in shared memory (TL = 4
-// at nkernel = 11: each row read as 16 B of a 32-B sector), the
-// transposed gates in reverse, one barrier between gates.
+// shared memory, 8 floats a bit), K8 with the same gates staged transposed
+// (the walk ct <- g^T ct: only the staging load differs from K6's).  With
+// the lane (the fuse_lane route) K6 runs the row stage into a scratch
+// plane pair, then y = x @ M by the forward product of K2 and K9
+// (wide_nt_kernel<1, false> on M^T, transposed once a call).  K7
+// (gate_row_stage), per bit: un-apply g^dagger, the eight dg sums reduced
+// over the warp at once by halving exchanges (warp_sum8), the ct walk by
+// g^T.  K12 (rx_row_stage): K10's rx butterflies without the zz stage, the
+// first pass ml_row_pass_kernel<false> with no pairs, the last
+// rx_row_pass_kernel (no pair records, phase or x planes); the two dth
+// sums a bit go through a warp tree into one partial a CTA.  The gates act
+// on distinct bits and commute, so K6, K7, K8, K11 and K12 take them in
+// another order than the JAX kernels (only rounding differs).  K7, K8 and
+// K12 run on the caller's ct, which they do not write (K7 and K12 also on
+// y): the first of two passes writes ds (K7 and K12 also psi to scratch),
+// the last only ds.  With the lane K7 first runs the adjoint lane stage
+// that K3, K4 and K10 share (the un-lane and ct walk in one launch, dM as
+// split-K partials), psi into scratch and ct into ds, and the passes
+// follow in place.  The dg and dth sums are one partial a CTA added by
+// colsum_tree_kernel in a fixed order: no atomics, so K7 and K12 are
+// bit-identical run to run.
 // Bounds at n = 20, nkernel = 11, on the H100 (3.35 TB/s, 67 TFLOP/s
-// float32): K6 without the lane moves 16.8 MB (two planes in, two out) for
-// 0.16 GFLOP, 0.005 ms, bound by bytes; with the lane the 1.07 GFLOP
-// lane product and the butterflies bound it by operations (0.018 ms); K7
-// without the lane moves 25 MB for 0.5 GFLOP (0.0076 ms, operations); K8
-// as K6 (0.005 ms).
+// float32): K6 and K8 without the lane move 16.8 MB (two planes in, two
+// out) for 0.16 GFLOP, 0.005 ms, bound by bytes; K6 with the lane the 1.07
+// GFLOP lane product and the butterflies bound it by operations (0.018
+// ms); K7 without the lane moves 25 MB for 0.5 GFLOP (0.0076 ms,
+// operations).
 // At n = 20, nkernel = 10 (r = 8192), K11 moves 16.8 MB (0.005 ms, bytes)
 // and K12 25 MB for 20 flops an amplitude a bit (0.0075 ms, bytes).
 // Plain f32 FMAs, no fast-math.
@@ -82,122 +81,13 @@
 
 namespace {
 
-// K8's row tile: RB * TL complex elements (8192: 64 KB of two planes)
-constexpr int TILE_ELEMS = 8192;
-// RB <= 2048 = TILE_ELEMS / 4 keeps at least 4 lanes a tile
+// the row stage walks at most 11 row bits (the JAX package's
+// MAX_KERNEL_QUBITS)
 constexpr int MAX_NKERNEL = 11;
 // log2 of the lanes
 constexpr int LANE_BITS = 7;
 
-struct RowPlan {
-  int rb, ltl, grid;
-};
-
-// K8's plan; false for a shape it does not take: nkernel in [1, 11] and r
-// a positive multiple of RB.
-bool row_plan(int r, int nkernel, RowPlan* p) {
-  if (nkernel < 1 || nkernel > MAX_NKERNEL || r <= 0) return false;
-  p->rb = 1 << nkernel;
-  if (r % p->rb) return false;
-  int tl = TILE_ELEMS / p->rb;
-  if (tl > LANES) tl = LANES;
-  p->ltl = ilog2(tl);
-  p->grid = (r / p->rb) * (LANES >> p->ltl);
-  return true;
-}
-
-// Dynamic shared memory of K8's row pass: the tile's two planes and the
-// gates (8 floats a gate).
-size_t row_smem(int nkernel) {
-  return sizeof(float) * (2 * static_cast<size_t>(TILE_ELEMS) + 8 * nkernel);
-}
-
-// Tile element e of CTA blockIdx.x: its offset in the planes.
-__device__ __forceinline__ long tile_off(int e, int ltl, int rb) {
-  const int tiles = LANES >> ltl;
-  const long j = blockIdx.x / tiles;  // row block
-  const int lane0 = (blockIdx.x % tiles) << ltl;
-  return (j * rb + (e >> ltl)) * LANES + lane0 + (e & ((1 << ltl) - 1));
-}
-
-// Pair p of the stage on the in-block bit of stride 2^ls: the tile
-// elements of its bit-0 row (elo) and bit-1 row (ehi), same lane.
-__device__ __forceinline__ void pair_elems(int p, int ls, int ltl, int* elo,
-                                           int* ehi) {
-  const int pr = p >> ltl;
-  const int lo = ((pr >> ls) << (ls + 1)) | (pr & ((1 << ls) - 1));
-  *elo = (lo << ltl) | (p & ((1 << ltl) - 1));
-  *ehi = *elo + (1 << (ls + ltl));
-}
-
-// gates (nkernel, 4) re/im planes -> g[8q + 2e + {0, 1}] = (re, im) of
-// entry e of gate q.
-__device__ __forceinline__ void load_gates(float* g, const float* gr,
-                                           const float* gi, int nkernel) {
-  for (int k = threadIdx.x; k < 4 * nkernel; k += blockDim.x) {
-    g[2 * k] = gr[k];
-    g[2 * k + 1] = gi[k];
-  }
-}
-
-// K8's row pass (WALK = true, the one instance built): the transpose of
-// gate q = nkernel-1..0 on its bit; WALK = false would take gate q =
-// 0..nkernel-1 itself.  x and y may alias.
-template <bool WALK>
-__global__ void __launch_bounds__(THREADS)
-row_apply_kernel(const float* xr, const float* xi, float* yr, float* yi,
-                 const float* __restrict__ gr, const float* __restrict__ gi,
-                 int nkernel, int ltl) {
-  extern __shared__ float smem[];
-  const int rb = 1 << nkernel;
-  const int elems = rb << ltl;
-  float* tr = smem;
-  float* ti = tr + elems;
-  float* g = ti + elems;
-  load_gates(g, gr, gi, nkernel);
-  for (int e = threadIdx.x; e < elems; e += blockDim.x) {
-    const long off = tile_off(e, ltl, rb);
-    tr[e] = xr[off];
-    ti[e] = xi[off];
-  }
-  __syncthreads();
-  const int half = elems >> 1;
-  for (int st = 0; st < nkernel; ++st) {
-    const int q = WALK ? nkernel - 1 - st : st;
-    const int ls = nkernel - 1 - q;  // log2 of the row stride
-    const float* m = g + 8 * q;
-    // a = g, or g^T for the walk: lo' = a00 lo + a01 hi, hi' = a10 lo + a11 hi
-    const float a00r = m[0], a00i = m[1], a11r = m[6], a11i = m[7];
-    const float a01r = WALK ? m[4] : m[2], a01i = WALK ? m[5] : m[3];
-    const float a10r = WALK ? m[2] : m[4], a10i = WALK ? m[3] : m[5];
-    for (int p = threadIdx.x; p < half; p += blockDim.x) {
-      int elo, ehi;
-      pair_elems(p, ls, ltl, &elo, &ehi);
-      const float ar = tr[elo], ai = ti[elo], br = tr[ehi], bi = ti[ehi];
-      tr[elo] = a00r * ar - a00i * ai + a01r * br - a01i * bi;
-      ti[elo] = a00r * ai + a00i * ar + a01r * bi + a01i * br;
-      tr[ehi] = a10r * ar - a10i * ai + a11r * br - a11i * bi;
-      ti[ehi] = a10r * ai + a10i * ar + a11r * bi + a11i * br;
-    }
-    __syncthreads();
-  }
-  for (int e = threadIdx.x; e < elems; e += blockDim.x) {
-    const long off = tile_off(e, ltl, rb);
-    yr[off] = tr[e];
-    yi[off] = ti[e];
-  }
-}
-
-cudaError_t row_walk(const RowPlan& p, const float* xr, const float* xi, float* yr, float* yi,
-                     const float* gr, const float* gi, int nkernel, cudaStream_t s) {
-  const size_t smem = row_smem(nkernel);
-  cudaError_t err = set_smem(reinterpret_cast<const void*>(row_apply_kernel<true>), smem);
-  if (err != cudaSuccess) return err;
-  row_apply_kernel<true><<<p.grid, THREADS, smem, s>>>(xr, xi, yr, yi, gr, gi, nkernel, p.ltl);
-  return cudaGetLastError();
-}
-
-// The row stage's plan of K6, K7, K11 and K12 on (r, 128) planes, r =
+// The row stage's plan of K6, K7, K8, K11 and K12 on (r, 128) planes, r =
 // 2^nrb: it walks the nkernel low row bits; false for a shape it does not
 // take.
 bool stage_plan(int r, int nkernel, RowStage* rs) {
@@ -222,11 +112,7 @@ size_t bwd_layout(int r, const RowStage& rs, bool lane, float* base, BwdScratch*
       psi ? plane : 0, psi ? plane : 0,
   };
   float* ptrs[4];
-  size_t off = 0;
-  for (int i = 0; i < 4; ++i) {
-    ptrs[i] = base ? base + off : nullptr;
-    off += (sizes[i] + 63) / 64 * 64;  // 16-byte aligned parts
-  }
+  const size_t off = carve(sizes, base, ptrs);
   if (s) *s = BwdScratch{ptrs[0], ptrs[1], ptrs[2], ptrs[3]};
   return off;
 }
@@ -251,25 +137,27 @@ size_t fwd_layout(int r, bool lane, float* base, FwdScratch* s) {
   const size_t plane = lane ? static_cast<size_t>(r) * LANES : 0, mm = lane ? MM : 0;
   const size_t sizes[4] = {mm, mm, plane, plane};
   float* ptrs[4];
-  size_t off = 0;
-  for (int i = 0; i < 4; ++i) {
-    ptrs[i] = base ? base + off : nullptr;
-    off += (sizes[i] + 63) / 64 * 64;
-  }
+  const size_t off = carve(sizes, base, ptrs);
   if (s) *s = FwdScratch{ptrs[0], ptrs[1], ptrs[2], ptrs[3]};
   return off;
 }
 
-// A forward pass's record (kernel_record) of K6 (GATE) or K11: the first
-// pass (pass[0]) or the last, x1 = tile elements, x2 = the pass's row
-// bits; with one pass the first has 0 CTAs.
-template <bool GATE>
-cudaError_t bfly_pass_record(const RowStage& rs, bool last, long* out) {
-  const RowPass& rp = last ? last_pass(rs) : rs.pass[0];
-  const bool runs = last || rs.npass == 2;
-  return kernel_record(reinterpret_cast<const void*>(fwd_row_pass_kernel<false, GATE>),
-                       runs ? row_ctas(rs) : 0, row_threads(rs), fwd_pass_smem(rp, 0, false, GATE),
-                       1L << rp.tb, runs ? rp.nb : 0, out);
+// The forward passes' records (kernel_record) of K6 (GATE), K8 (GATE and
+// TRANS) or K11 into out[0..16): the first pass (pass[0]) and the last,
+// x1 = tile elements, x2 = the pass's row bits; with one pass the first
+// has 0 CTAs.
+template <bool GATE, bool TRANS>
+cudaError_t bfly_pass_records(const RowStage& rs, long* out) {
+  cudaError_t err = cudaSuccess;
+  for (int k = 0; k < 2 && err == cudaSuccess; ++k) {
+    const bool last = k == 1;
+    const RowPass& rp = last ? last_pass(rs) : rs.pass[0];
+    const bool runs = last || rs.npass == 2;
+    err = kernel_record(reinterpret_cast<const void*>(fwd_row_pass_kernel<false, GATE, TRANS>),
+                        runs ? row_ctas(rs) : 0, row_threads(rs), fwd_pass_smem(rp, 0, false, GATE),
+                        1L << rp.tb, runs ? rp.nb : 0, out + 8 * k);
+  }
+  return err;
 }
 
 }  // namespace
@@ -299,8 +187,7 @@ int tcng_row_fwd_plan(int r, int nkernel, int lane, long* out) {
   cudaError_t err = kernel_record(reinterpret_cast<const void*>(wide_nt_kernel<1, false>),
                                   lane ? prod_ctas(r, LANE_BITS) : 0, THREADS, prod_smem<1>(), P_T,
                                   P_T, out);
-  if (err == cudaSuccess) err = bfly_pass_record<true>(rs, false, out + 8);
-  if (err == cudaSuccess) err = bfly_pass_record<true>(rs, true, out + 16);
+  if (err == cudaSuccess) err = bfly_pass_records<true, false>(rs, out + 8);
   return static_cast<int>(err);
 }
 
@@ -317,7 +204,7 @@ int tcng_row_fwd(const float* sr, const float* si, float* yr, float* yi,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   RowStage rs;
   if (!stage_plan(r, nkernel, &rs)) return static_cast<int>(cudaErrorInvalidValue);
-  if (mr == nullptr) return static_cast<int>(bfly_row_stage<true>(rs, sr, si, yr, yi, gr, gi, st));
+  if (mr == nullptr) return static_cast<int>(bfly_row_stage<true, false>(rs, sr, si, yr, yi, gr, gi, st));
   // the product may not alias its input: the row stage writes scratch
   if (!all_aligned16({sr, si, yr, yi, mr, mi, scratch}))
     return static_cast<int>(cudaErrorMisalignedAddress);
@@ -326,7 +213,7 @@ int tcng_row_fwd(const float* sr, const float* si, float* yr, float* yi,
   cudaError_t err = set_smem(reinterpret_cast<const void*>(wide_nt_kernel<1, false>), prod_smem<1>());
   // M^T once a call: the product reads its b operand as b[n][k]
   if (err == cudaSuccess) err = transpose_planes(mr, mi, s.mtr, s.mti, 1, LANE_BITS, st);
-  if (err == cudaSuccess) err = bfly_row_stage<true>(rs, sr, si, s.tr, s.ti, gr, gi, st);
+  if (err == cudaSuccess) err = bfly_row_stage<true, false>(rs, sr, si, s.tr, s.ti, gr, gi, st);
   if (err == cudaSuccess)
     err = wide_nt<1, false>(s.tr, s.ti, nullptr, nullptr, s.mtr, s.mti, yr, yi, nullptr, nullptr, r,
                             LANE_BITS, st);
@@ -400,14 +287,27 @@ int tcng_row_bwd(const float* yr, const float* yi, const float* ctr,
       gate_row_stage(rs, psr, psi, cr, ci, s.pr, s.pi, dsr, dsi, s.part_row, gr, gi, dg, st));
 }
 
-// K8.  ctr/cti, dsr/dsi: (r, 128) planes (may alias); gr/gi (nkernel, 4).
+// K8's row passes' plan at these shapes, for the record: two records of 8
+// (kernel_record): the first pass and the last (x1 = tile elements, x2 =
+// the pass's row bits; the first has 0 CTAs when there is one pass).  The
+// last pass's bits run first.
+int tcng_row_bwd_const_plan(int r, int nkernel, long* out) {
+  RowStage rs;
+  if (!stage_plan(r, nkernel, &rs)) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(bfly_pass_records<true, true>(rs, out));
+}
+
+// K8.  ctr/cti, dsr/dsi: (r, 128) planes, r = 2^nrb >= 2^nkernel (may
+// alias); gr/gi (nkernel, 4) gate planes, each walked transposed.  Returns
+// the first CUDA error (cudaErrorInvalidValue for a shape it does not
+// take), 0 on success.
 int tcng_row_bwd_const(const float* ctr, const float* cti, float* dsr,
                        float* dsi, const float* gr, const float* gi,
                        int nkernel, int r, void* stream) {
-  RowPlan p;
-  if (!row_plan(r, nkernel, &p)) return static_cast<int>(cudaErrorInvalidValue);
+  RowStage rs;
+  if (!stage_plan(r, nkernel, &rs)) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(
-      row_walk(p, ctr, cti, dsr, dsi, gr, gi, nkernel, static_cast<cudaStream_t>(stream)));
+      bfly_row_stage<true, true>(rs, ctr, cti, dsr, dsi, gr, gi, static_cast<cudaStream_t>(stream)));
 }
 
 // K11's row passes' plan at these shapes, for the record: two records of
@@ -417,9 +317,7 @@ int tcng_row_bwd_const(const float* ctr, const float* cti, float* dsr,
 int tcng_rotx_fwd_plan(int r, int nkernel, long* out) {
   RowStage rs;
   if (!stage_plan(r, nkernel, &rs)) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = bfly_pass_record<false>(rs, false, out);
-  if (err == cudaSuccess) err = bfly_pass_record<false>(rs, true, out + 8);
-  return static_cast<int>(err);
+  return static_cast<int>(bfly_pass_records<false, false>(rs, out));
 }
 
 // K11.  sr/si, yr/yi: (r, 128) planes, r = 2^nrb >= 2^nkernel (may
@@ -429,7 +327,7 @@ int tcng_rotx_fwd(const float* sr, const float* si, float* yr, float* yi,
   RowStage rs;
   if (!stage_plan(r, nkernel, &rs)) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(
-      bfly_row_stage<false>(rs, sr, si, yr, yi, th, nullptr, static_cast<cudaStream_t>(stream)));
+      bfly_row_stage<false, false>(rs, sr, si, yr, yi, th, nullptr, static_cast<cudaStream_t>(stream)));
 }
 
 // Floats of scratch tcng_rotx_bwd needs (-1: a shape it does not take).

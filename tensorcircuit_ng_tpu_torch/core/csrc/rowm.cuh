@@ -30,8 +30,8 @@
 //
 // Apply (K13, K14a).  A CTA owns column tiles of CW columns x all R rows:
 // it reads all R rows of a tile before it writes any, and tiles are
-// disjoint, so the stage runs in place (K13 on yr/yi, K14a on the lane
-// stage's psi).  The grid is persistent, min(tiles, SMs x CTAs an SM);
+// disjoint, so the stage runs in place (K13 on K1's row-stage output,
+// K14a on the lane stage's psi).  The grid is persistent, min(tiles, SMs x CTAs an SM);
 // M7's planes are copied once a CTA into shared memory (row stride R + 4:
 // rows four apart fall in different banks).  The copies are cp.async of
 // 16 B (a tile row is a strided run of CW floats of a block row), and the

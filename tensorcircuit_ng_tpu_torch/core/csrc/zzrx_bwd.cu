@@ -179,12 +179,8 @@ size_t layout(const Plan& p, int npairs, int mode, int rmx, float* base, Scratch
       psi, psi, w, w, rowm, rowm,
       pair_record_floats(npairs),
   };
-  size_t off = 0;
   float* ptrs[11];
-  for (int i = 0; i < 11; ++i) {
-    ptrs[i] = base ? base + off : nullptr;
-    off += (sizes[i] + 63) / 64 * 64;
-  }
+  const size_t off = carve(sizes, base, ptrs);
   if (s)
     *s = Scratch{ptrs[0], ptrs[1], ptrs[2], ptrs[3], ptrs[4], ptrs[5],
                  ptrs[6], ptrs[7], ptrs[8], ptrs[9], ptrs[10]};

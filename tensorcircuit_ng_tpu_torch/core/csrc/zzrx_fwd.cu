@@ -8,9 +8,9 @@
 //    exp(-i/2 sum_k th_k Z_a Z_b) over all n qubits, rx on the nkernel
 //    in-block row bits, then optionally y = x @ M with the 128x128 lane
 //    matrix M.  With the (R, R) row-kron planes M7 (the FUSE_ROWM branch,
-//    kernels_rowlayer._rowm_fwd_stage) pass A runs only the low
+//    kernels_rowlayer._rowm_fwd_stage) the row stage runs only the low
 //    nkernel - rmx butterflies and stage K13 (rowm.cuh) applies M7 to the
-//    top rmx row bits of each block before the lane stage.
+//    top rmx row bits of each block before the lane product.
 // K2 tcng_grand_zzrx_fwd replaces kernels_grand.grand_zzrx_fwd
 //    (_grand_fwd_kernel): L layers of K1-with-lane, each followed by the
 //    outer (D, D) left-matmul across the G = D row blocks, streaming out
@@ -19,20 +19,24 @@
 // Design of K1.  A Pallas block holds RB = 2^nkernel rows x 128 lanes (1
 // MB at RB = 1024), far above a CTA's 227 KB of shared memory, and the row
 // butterflies need every row of a lane while the lane matmul needs every
-// lane of a row.  So K1 runs as two passes over the state, which at n = 20
-// (8.4 MB) stays in the 50 MB L2:
-//   pass A (zz_rowrx_kernel): a CTA holds an RB x TL tile (all rows of a
-//     block, TL lanes) in shared memory, applies the zz phase as it loads
-//     (sign from the XOR parity of the two index bits, any pair count) and
-//     all nkernel rx butterflies in place;
-//   pass B (lane_fwd_kernel, lane.cuh): a CTA holds 32 rows x 128 lanes and
-//     computes the complex x @ M with M streamed through shared memory in K
-//     chunks.
-// Both passes may run in place.  K1 keeps this design (with K13 for
-// M7); its redesign on the shared stages is left for later.
-// Bound of K1 at n = 20: the lane matmul (4 real 8192x128x128 GEMMs, 1.07
-// GFLOP) against 67 TFLOP/s float32 outside the tensor cores; the state
-// moves 16.8 MB.
+// lane of a row.  So K1 is one layer of K2 without the outer pass, on the
+// same stages of adjoint_stages.cuh:
+//   row stage (fwd_row_stage on row_stage_plan(nrb, 7, nkernel - rmx)):
+//     the phase over all n qubits (pair records sorted once a call) and the
+//     low 6 walked bits in one pass, the high ones in a second, in place (at
+//     n = 20, nkernel = 10: 6 + 4 bits, 512 CTAs of 256 threads; under the
+//     row kron, rmx = 7: 3 bits in the zz pass alone, no shared-memory
+//     exchange).  Without the lane it writes y; with it a scratch plane
+//     pair, since the product may not alias its input;
+//   K13 (rowm_apply<false>, rowm.cuh), with M7: the top rmx row bits of each
+//     block as one (R, R) left product, in place on the row stage's output;
+//   lane product (wide_nt_kernel<1, false>), with the lane: the scratch
+//     planes @ M into y, on M^T transposed once a call.
+// The caller's sr/si are never written.  Scratch: the pair records, and
+// with the lane M^T's planes and the plane pair.
+// Bound of K1 at n = 20 with the lane: operations, the lane product (1.07
+// GFLOP, 16.0 us at 67 TFLOP/s float32 outside the tensor cores); without
+// it bytes, the state's 16.8 MB in and out (5.0 us).
 //
 // Design of K2.  One C entry point launches three stages a layer on the
 // caller's stream (the outer stage mixes blocks, so each layer needs a
@@ -63,101 +67,6 @@
 #include "rowm.cuh"
 
 namespace {
-
-// pass A tile: RB * TL complex elements, at most 8192 (64 KB of planes)
-constexpr int TILE_ELEMS = 8192;
-
-__global__ void __launch_bounds__(THREADS)
-zz_rowrx_kernel(const float* xr, const float* xi, float* yr, float* yi,
-                const float* __restrict__ zzth, const int* __restrict__ shifts,
-                int npairs, const float* __restrict__ th, int nkernel,
-                int ltl) {
-  extern __shared__ float smem[];
-  const int tl = 1 << ltl;
-  const int rb = 1 << nkernel;
-  const int elems = rb << ltl;
-  float* tr = smem;
-  float* ti = smem + elems;
-  float* zth = smem + 2 * elems;
-  int* sh = reinterpret_cast<int*>(zth + npairs);
-  for (int k = threadIdx.x; k < npairs; k += blockDim.x) {
-    zth[k] = zzth[k];
-    sh[2 * k] = shifts[2 * k];
-    sh[2 * k + 1] = shifts[2 * k + 1];
-  }
-  __syncthreads();
-
-  const int tiles = LANES >> ltl;
-  const long j = blockIdx.x / tiles;  // row block
-  const int lane0 = (blockIdx.x % tiles) << ltl;
-  // load + zz phase e^{-i expo/2}, expo = sum_k th_k (1 - 2 (bit_a ^ bit_b))
-  for (int e = threadIdx.x; e < elems; e += blockDim.x) {
-    const int row = e >> ltl;
-    const int lane = lane0 + (e & (tl - 1));
-    const long off = (j * rb + row) * LANES + lane;
-    const unsigned idx = static_cast<unsigned>(off);
-    float expo = 0.f;
-    for (int k = 0; k < npairs; ++k) {
-      const unsigned x = ((idx >> sh[2 * k]) ^ (idx >> sh[2 * k + 1])) & 1u;
-      expo += zth[k] * (1.f - 2.f * static_cast<float>(x));
-    }
-    float s, c;
-    sincosf(0.5f * expo, &s, &c);
-    const float ar = xr[off], ai = xi[off];
-    tr[e] = c * ar + s * ai;
-    ti[e] = c * ai - s * ar;
-  }
-  __syncthreads();
-  // rx(th[ql]) on the in-block bit of stride rb >> (ql+1) (most significant
-  // first): [[c, -i s], [-i s, c]]
-  const int half = elems >> 1;
-  for (int ql = 0; ql < nkernel; ++ql) {
-    const int ls = nkernel - 1 - ql;  // log2 of the row stride
-    float sn, c;
-    sincosf(0.5f * th[ql], &sn, &c);
-    for (int p = threadIdx.x; p < half; p += blockDim.x) {
-      const int pr = p >> ltl;
-      const int l = p & (tl - 1);
-      const int lo = ((pr >> ls) << (ls + 1)) | (pr & ((1 << ls) - 1));
-      const int elo = (lo << ltl) | l;
-      const int ehi = elo + (1 << (ls + ltl));
-      const float ar = tr[elo], ai = ti[elo], br = tr[ehi], bi = ti[ehi];
-      tr[elo] = c * ar + sn * bi;
-      ti[elo] = c * ai - sn * br;
-      tr[ehi] = c * br + sn * ai;
-      ti[ehi] = c * bi - sn * ar;
-    }
-    __syncthreads();
-  }
-  for (int e = threadIdx.x; e < elems; e += blockDim.x) {
-    const int row = e >> ltl;
-    const int lane = lane0 + (e & (tl - 1));
-    const long off = (j * rb + row) * LANES + lane;
-    yr[off] = tr[e];
-    yi[off] = ti[e];
-  }
-}
-
-cudaError_t launch_pass_a(const float* xr, const float* xi, float* yr,
-                          float* yi, const float* zzth, const int* shifts,
-                          int npairs, const float* th, int nkernel, int r,
-                          cudaStream_t stream) {
-  const int rb = 1 << nkernel;
-  int tl = TILE_ELEMS / rb;
-  if (tl > LANES) tl = LANES;
-  if (tl < 1) tl = 1;
-  const int ltl = ilog2(tl);
-  const size_t smem = sizeof(float) * (2 * static_cast<size_t>(rb) * tl) +
-                      sizeof(float) * npairs + sizeof(int) * 2 * npairs;
-  cudaError_t err = cudaFuncSetAttribute(
-      zz_rowrx_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  const int grid = (r / rb) * (LANES / tl);
-  zz_rowrx_kernel<<<grid, THREADS, smem, stream>>>(
-      xr, xi, yr, yi, zzth, shifts, npairs, th, nkernel, ltl);
-  return cudaGetLastError();
-}
 
 // K2's largest outer dim: D <= 32
 constexpr int MAX_D = 32;
@@ -247,19 +156,57 @@ struct GrandScratch {
   float *rec, *mtr, *mti;
 };
 
-// Floats of K2's scratch, each part a multiple of 64 floats (16-byte
-// aligned): the pair records and M^T's two planes; fills s when base is
-// given.
+// Floats of K2's scratch: the pair records and M^T's two planes; fills s
+// when base is given.
 size_t grand_layout(int npairs, int L, float* base, GrandScratch* s) {
   const size_t sizes[3] = {pair_record_floats(npairs), static_cast<size_t>(L) * MM,
                            static_cast<size_t>(L) * MM};
   float* ptrs[3];
-  size_t off = 0;
-  for (int i = 0; i < 3; ++i) {
-    ptrs[i] = base ? base + off : nullptr;
-    off += (sizes[i] + 63) / 64 * 64;
-  }
+  const size_t off = carve(sizes, base, ptrs);
   if (s) *s = GrandScratch{ptrs[0], ptrs[1], ptrs[2]};
+  return off;
+}
+
+// The records of the forward row stage's zz pass (first: the last pass's
+// tiles) and its other pass (x1 = tile elements, x2 = the pass's row bits;
+// 0 CTAs with one pass) into out[0..16), as K1 and K2 report them.
+cudaError_t fwd_pass_records(const RowStage& rs, int npairs, long* out) {
+  cudaError_t err = cudaSuccess;
+  for (int k = 0; k < 2 && err == cudaSuccess; ++k) {
+    const bool zz = k == 0;
+    const RowPass& rp = zz ? last_pass(rs) : rs.pass[0];
+    const bool runs = zz || rs.npass == 2;
+    err = kernel_record(fwd_pass_fn(zz), runs ? row_ctas(rs) : 0, row_threads(rs),
+                        fwd_pass_smem(rp, npairs, zz), 1L << rp.tb, runs ? rp.nb : 0, out + 8 * k);
+  }
+  return err;
+}
+
+// K1's largest row kron: rmx <= 7 (rowm.cuh's R = 2..128)
+constexpr int MAX_RMX = 7;
+
+// K1's row stage, which walks the low nkernel - rmx row bits; false for a
+// shape K1 does not take: r = 2^nrb rows, 0 <= rmx <= min(nkernel, 7),
+// nkernel <= nrb, and the row stage's shapes.
+bool k1_plan(int r, int nkernel, int npairs, int rmx, RowStage* rs) {
+  const int nrb = ilog2(r);
+  if (r < 1 || r != 1 << nrb || nkernel > nrb || npairs < 0 || rmx < 0 || rmx > nkernel || rmx > MAX_RMX)
+    return false;
+  return row_stage_plan(nrb, ilog2(LANES), nkernel - rmx, rs);
+}
+
+struct K1Scratch {
+  float *rec, *mtr, *mti, *tr, *ti;
+};
+
+// Floats of K1's scratch: the pair records and, with the lane, M^T's two
+// planes and the row stage's output planes; fills s when base is given.
+size_t k1_layout(int r, int npairs, bool lane, float* base, K1Scratch* s) {
+  const size_t plane = lane ? static_cast<size_t>(r) * LANES : 0, mm = lane ? MM : 0;
+  const size_t sizes[5] = {pair_record_floats(npairs), mm, mm, plane, plane};
+  float* ptrs[5];
+  const size_t off = carve(sizes, base, ptrs);
+  if (s) *s = K1Scratch{ptrs[0], ptrs[1], ptrs[2], ptrs[3], ptrs[4]};
   return off;
 }
 
@@ -271,24 +218,70 @@ const char* tcng_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// K1.  sr/si, yr/yi: (r, 128) planes (may alias); zzth (npairs);
-// shifts (npairs, 2) = (n-1-a, n-1-b); th (nkernel); mr/mi (128, 128)
-// lane planes or null; m7r/m7i (R, R) row-kron planes with R = 2^rmx, or
-// null with rmx = 0 (then th[0..rmx) is not read).  Returns the first CUDA
-// error, 0 on success.
+// Floats of scratch tcng_zzrx_fwd needs for these shapes; -1 for a shape
+// it does not take.
+long tcng_zzrx_fwd_scratch(int r, int nkernel, int npairs, int lane, int rmx) {
+  RowStage rs;
+  if (!k1_plan(r, nkernel, npairs, rmx, &rs)) return -1;
+  return static_cast<long>(k1_layout(r, npairs, lane != 0, nullptr, nullptr));
+}
+
+// K1's stage kernels' plan at these shapes, for the record: four records
+// of 8 (kernel_record): the row stage's zz pass (first) and its other pass
+// (x1 = tile elements, x2 = the pass's row bits; 0 CTAs with one pass), the
+// transpose of M (x1 = 1 layer, x2 = 2 planes; CTAs a launch) and the lane
+// product (x1, x2 = the tile's rows and columns), both 0 CTAs without the
+// lane.  K13's record is tcng_rowm_fwd_plan's.
+int tcng_zzrx_fwd_plan(int r, int nkernel, int npairs, int lane, int rmx, long* out) {
+  RowStage rs;
+  if (!k1_plan(r, nkernel, npairs, rmx, &rs)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = fwd_pass_records(rs, npairs, out);
+  if (err == cudaSuccess)
+    err = kernel_record(reinterpret_cast<const void*>(transpose_kernel), lane ? 16 : 0, 256, 0, 1, 2,
+                        out + 16);
+  if (err == cudaSuccess)
+    err = kernel_record(reinterpret_cast<const void*>(wide_nt_kernel<1, false>), lane ? prod_ctas(r, 7) : 0,
+                        THREADS, prod_smem<1>(), P_T, P_T, out + 24);
+  return static_cast<int>(err);
+}
+
+// K1.  sr/si, yr/yi: (r, 128) planes, r = 2^nrb (y may alias s without
+// the lane; s is not written unless it is y); zzth (npairs); shifts
+// (npairs, 2) = (n-1-a, n-1-b); th (nkernel); mr/mi (128, 128) lane planes
+// or null; m7r/m7i (R, R) row-kron planes with R = 2^rmx, or null with rmx
+// = 0 (then th[0..rmx) is not read); scratch of tcng_zzrx_fwd_scratch
+// floats.  The scratch, m7r/m7i and (without the lane, under the row kron)
+// y are 16-byte aligned.  Returns the first CUDA error
+// (cudaErrorInvalidValue for a shape it does not take), 0 on success.
 int tcng_zzrx_fwd(const float* sr, const float* si, float* yr, float* yi,
                   const float* zzth, const int* shifts, int npairs,
                   const float* th, int nkernel, const float* mr,
                   const float* mi, const float* m7r, const float* m7i,
-                  int rmx, int r, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = launch_pass_a(sr, si, yr, yi, zzth, shifts, npairs,
-                                  th + rmx, nkernel - rmx, r, s);
+                  int rmx, float* scratch, int r, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  RowStage rs;
+  if (!k1_plan(r, nkernel, npairs, rmx, &rs)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!aligned16(scratch)) return static_cast<int>(cudaErrorMisalignedAddress);
+  const bool lane = mr != nullptr;
+  K1Scratch s;
+  k1_layout(r, npairs, lane, scratch, &s);
+  // the product may not alias its input: with the lane the row stage and
+  // K13 write the scratch planes
+  float* xr = lane ? s.tr : yr;
+  float* xi = lane ? s.ti : yi;
+  cudaError_t err = fwd_stage_prepare(rs, npairs);
+  if (err == cudaSuccess) err = pair_records(rs, shifts, npairs, s.rec, st);
+  if (err == cudaSuccess && lane) {
+    err = set_smem(reinterpret_cast<const void*>(wide_nt_kernel<1, false>), prod_smem<1>());
+    // M^T once a call: the product reads its b operand as b[n][k]
+    if (err == cudaSuccess) err = transpose_planes(mr, mi, s.mtr, s.mti, 1, 7, st);
+  }
+  if (err == cudaSuccess) err = fwd_row_stage(rs, sr, si, xr, xi, s.rec, zzth, npairs, th + rmx, st);
   if (err == cudaSuccess && rmx > 0)  // K13, in place
-    err = rowm_apply<false>(yr, yi, nullptr, nullptr, yr, yi, nullptr, nullptr,
-                            m7r, m7i, r, nkernel, rmx, s);
-  if (err != cudaSuccess || mr == nullptr) return static_cast<int>(err);
-  return static_cast<int>(lane_fwd_stage(yr, yi, yr, yi, mr, mi, r, s));
+    err = rowm_apply<false>(xr, xi, nullptr, nullptr, xr, xi, nullptr, nullptr, m7r, m7i, r, nkernel, rmx, st);
+  if (err == cudaSuccess && lane)
+    err = wide_nt<1, false>(xr, xi, nullptr, nullptr, s.mtr, s.mti, yr, yi, nullptr, nullptr, r, 7, st);
+  return static_cast<int>(err);
 }
 
 // K13's plan at these shapes, for the record: out[0..7) = CW, tiles,
@@ -315,14 +308,7 @@ long tcng_grand_zzrx_fwd_scratch(int r, int nkernel, int npairs, int L) {
 int tcng_grand_zzrx_fwd_plan(int r, int nkernel, int npairs, int L, long* out) {
   GrandPlan p;
   if (L < 1 || !grand_plan(r, nkernel, npairs, &p)) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaSuccess;
-  for (int k = 0; k < 2 && err == cudaSuccess; ++k) {
-    const bool zz = k == 0;
-    const RowPass& rp = zz ? last_pass(p.rs) : p.rs.pass[0];
-    const bool runs = zz || p.rs.npass == 2;
-    err = kernel_record(fwd_pass_fn(zz), runs ? row_ctas(p.rs) : 0, row_threads(p.rs),
-                        fwd_pass_smem(rp, npairs, zz), 1L << rp.tb, runs ? rp.nb : 0, out + 8 * k);
-  }
+  cudaError_t err = fwd_pass_records(p.rs, npairs, out);
   if (err == cudaSuccess)
     err = kernel_record(reinterpret_cast<const void*>(wide_nt_kernel<1, false>), prod_ctas(r, 7),
                         THREADS, prod_smem<1>(), P_T, P_T, out + 16);

@@ -15,9 +15,14 @@ wrappers and the kernels they launch on a CUDA tensor:
   ``csrc/adjoint_stages.cuh`` (the row stage that K3, K4 and K10 share),
   and ``row_bwd_plan`` / ``row_bwd_card_plan`` give their plan;
 - ``row_bwd_const``: K8 (``tcng_row_bwd_const``), replaces
-  ``_pallas_row_bwd_const``;
+  ``_pallas_row_bwd_const``; it runs on K6's passes with each gate
+  transposed, and ``row_bwd_const_plan`` / ``row_bwd_const_card_plan``
+  give them;
 - ``zzrx_fwd``: K1 (``csrc/zzrx_fwd.cu``, ``tcng_zzrx_fwd``), replaces
-  ``_pallas_zzrx_fwd``;
+  ``_pallas_zzrx_fwd``; it is one layer of K2 without the outer pass: the
+  forward row stage of ``csrc/adjoint_stages.cuh`` (the phase with the low
+  walked bits, then the high ones) and, with the lane, K2's product, and
+  ``zzrx_fwd_plan`` / ``zzrx_fwd_card_plan`` give their plan;
 - ``zzrx_bwd``: K3 (``csrc/zzrx_bwd.cu``, ``tcng_zzrx_bwd``), replaces
   ``_pallas_zzrx_bwd``; its lane and row stages are the adjoint stages of
   ``csrc/adjoint_stages.cuh`` that K4 and K10 share, and
@@ -82,6 +87,10 @@ __all__ = [
     "rowm_plan",
     "row_fwd_plan",
     "row_fwd_card_plan",
+    "row_bwd_const_plan",
+    "row_bwd_const_card_plan",
+    "zzrx_fwd_plan",
+    "zzrx_fwd_card_plan",
     "rotx_fwd_plan",
     "rotx_fwd_card_plan",
     "zzrx_bwd_plan",
@@ -296,7 +305,7 @@ def _pass_records(ctas, threads, tb, hi, lo, smem) -> dict:
 
 
 def _fwd_records(nrb: int, lw: int, nwalk: int, npairs: int, error: str) -> dict:
-    """The forward row passes of K2 and K9 (``fwd_row_stage``) on (2^nrb,
+    """The forward row passes of K1, K2 and K9 (``fwd_row_stage``) on (2^nrb,
     2^lw) planes walking the low nwalk row bits, and their product on those
     planes: ``"fwd_row_zz"`` (the phase and the low bits, first),
     ``"fwd_row_hi"`` (0 CTAs with one pass) and ``"fwd_lane"``.  A pass's
@@ -427,6 +436,43 @@ def _f32(t: torch.Tensor, device: torch.device) -> torch.Tensor:
     return t.detach().to(device=device, dtype=torch.float32).contiguous()
 
 
+_K1_OWN = {"fwd_row_zz": ("tile", "bits"), "fwd_row_hi": ("tile", "bits"), "transpose": ("layers", "planes"),
+           "fwd_lane": ("rows", "cols")}
+
+
+def zzrx_fwd_plan(r: int, nkernel: int, npairs: int, lane: bool = False, rmx: int = 0) -> dict:
+    """K1's stage plan at r rows of 128 lanes, computed as
+    ``csrc/zzrx_fwd.cu`` makes it (no card needed): the forward row passes
+    ``"fwd_row_zz"`` (the phase and the low 6 walked bits, first) and
+    ``"fwd_row_hi"`` (the rest; 0 CTAs with one pass), as K2's a layer, on
+    the low ``nkernel - rmx`` row bits (K13 takes the top rmx); with the
+    lane the transpose of M ``"transpose"`` (CTAs a launch, two launches a
+    call) and the product ``"fwd_lane"``, both 0 CTAs without it.  Each
+    ``ctas``, ``threads`` and ``smem`` (dynamic shared bytes) and two of its
+    own: a pass's ``tile`` elements and walked row ``bits``, the
+    transpose's ``layers`` and ``planes``, the product's tile ``rows`` and
+    ``cols``.  r must be a power of two."""
+    nrb = r.bit_length() - 1
+    error = f"zzrx_fwd_plan: unsupported shape r={r}, nkernel={nkernel}, npairs={npairs}, rmx={rmx}"
+    if r < 1 or r != 1 << nrb or not 0 <= rmx <= min(nkernel, MAX_ROWM_QUBITS) or nkernel > nrb or npairs < 0:
+        raise ValueError(error)
+    stages = _fwd_records(nrb, 7, nkernel - rmx, npairs, error)
+    prod = stages["fwd_lane"]
+    return {
+        "fwd_row_zz": stages["fwd_row_zz"],
+        "fwd_row_hi": stages["fwd_row_hi"],
+        "transpose": {"ctas": 16 if lane else 0, "threads": 256, "smem": 0, "layers": 1, "planes": 2},
+        "fwd_lane": {**prod, "ctas": prod["ctas"] if lane else 0},
+    }
+
+
+def zzrx_fwd_card_plan(r: int, nkernel: int, npairs: int, lane: bool = False, rmx: int = 0) -> dict:
+    """The same plan as the card's C code reports it (``tcng_zzrx_fwd_plan``),
+    with each stage kernel's ``ctas_per_sm``, ``registers`` and
+    ``local_bytes`` a thread besides.  Needs the card."""
+    return _card_records("zzrx_fwd", "tcng_zzrx_fwd_plan", _K1_OWN, r, nkernel, npairs, int(lane), rmx)
+
+
 def _launch_zzrx_fwd(pairs, n, zzth, th, sr, si, mr, mi, m7r, m7i):
     dev = sr.device
     if dev.type != "cuda":
@@ -435,8 +481,10 @@ def _launch_zzrx_fwd(pairs, n, zzth, th, sr, si, mr, mi, m7r, m7i):
     nkernel = th.shape[0]
     _check_shape("zzrx_fwd", r, lanes, n, nkernel, th.dim() == 1)
     _check_planes("zzrx_fwd", dev, (r, lanes), sr, si)
-    if mr is not None:
+    lane = mr is not None
+    if lane:
         _check_planes("zzrx_fwd lane", dev, (lanes, lanes), mr, mi)
+        mr, mi = _aligned16(mr), _aligned16(mi)
     rmx = _rowm_bits(th, m7r)
     if rmx:
         _check_rowm("zzrx_fwd", rmx)
@@ -447,9 +495,14 @@ def _launch_zzrx_fwd(pairs, n, zzth, th, sr, si, mr, mi, m7r, m7i):
     if tuple(zzth.shape) != (len(pairs),):
         raise ValueError(f"zzrx_fwd: zzth shape {tuple(zzth.shape)}, expected {(len(pairs),)}")
     shifts = _pair_shifts(tuple(pairs), n, str(dev))
+    lib = _build.library("zzrx_fwd")
+    # the row stage takes r = 2^nrb rows only
+    floats = lib.tcng_zzrx_fwd_scratch(r, nkernel, len(pairs), int(lane), rmx)
+    if floats < 0:
+        raise ValueError(f"zzrx_fwd: unsupported shape r={r}, nkernel={nkernel}, rmx={rmx}")
+    scratch = torch.empty(floats, dtype=torch.float32, device=dev)
     yr = torch.empty_like(sr)
     yi = torch.empty_like(si)
-    lib = _build.library("zzrx_fwd")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         zzrx_fwd.launches += 1
@@ -462,7 +515,7 @@ def _launch_zzrx_fwd(pairs, n, zzth, th, sr, si, mr, mi, m7r, m7i):
             None if mi is None else mi.data_ptr(),
             None if m7r is None else m7r.data_ptr(),
             None if m7i is None else m7i.data_ptr(),
-            rmx, r, stream,
+            rmx, scratch.data_ptr(), r, stream,
         )
     _build.check("zzrx_fwd", err, "zzrx_fwd")
     return yr, yi
@@ -487,9 +540,10 @@ def zzrx_fwd(
     (nkernel,).  With the (R, R) row-kron planes ``m7r/m7i`` (R = 2^rmx,
     the ``FUSE_ROWM`` branch) the top rmx row bits of each block are one
     left-matmul by M7 (stage K13) instead of butterflies, which then use
-    ``th[rmx:]``.  CUDA tensors launch the kernel (``zzrx_fwd.launches``
-    counts the launches, ``rowm_fwd.launches`` those with M7); CPU tensors
-    run :func:`zzrx_fwd_plain`.
+    ``th[rmx:]``.  On the card r must be a power of two.  CUDA tensors
+    launch the kernel (``zzrx_fwd.launches`` counts the launches,
+    ``rowm_fwd.launches`` those with M7); CPU tensors run
+    :func:`zzrx_fwd_plain`.
     """
     pairs = tuple((int(a), int(b)) for a, b in pairs)
     if sr.device.type == "cpu":
@@ -850,7 +904,7 @@ def _row_setup(what: str, gr, gi, sr, *planes):
 
 
 def _bfly_records(what: str, r: int, nkernel: int, gate: bool) -> dict:
-    """The row passes of K6 (``gate``) or K11 (``bfly_row_stage``,
+    """The row passes of K6 and K8 (``gate``) or K11 (``bfly_row_stage``,
     ``csrc/adjoint_stages.cuh``) at r rows of 128 lanes: ``"row_hi"`` (0
     CTAs with one pass) and ``"row_lo"`` (the low walked bits, launched
     first), each ``ctas``, ``threads``, ``smem``, ``tile`` elements and
@@ -885,6 +939,22 @@ def row_fwd_plan(r: int, nkernel: int, lane: bool = False) -> dict:
                  "smem": _FWD_PROD_SMEM, "rows": _P_T, "cols": _P_T},
         **rows,
     }
+
+
+def row_bwd_const_plan(r: int, nkernel: int) -> dict:
+    """K8's row passes at r rows of 128 lanes, computed as
+    ``csrc/row_layer.cu`` makes it (no card needed): K6's passes
+    (:func:`_bfly_records` with the gates), which K8 runs with each gate
+    transposed."""
+    return _bfly_records("row_bwd_const_plan", r, nkernel, True)
+
+
+def row_bwd_const_card_plan(r: int, nkernel: int) -> dict:
+    """The same plan as the card's C code reports it
+    (``tcng_row_bwd_const_plan``), with each pass's ``ctas_per_sm``,
+    ``registers`` and ``local_bytes`` a thread besides.  Needs the card."""
+    own = {k: _PLAN_OWN[k] for k in ("row_hi", "row_lo")}
+    return _card_records("row_layer", "tcng_row_bwd_const_plan", own, r, nkernel)
 
 
 def row_fwd_card_plan(r: int, nkernel: int, lane: bool = False) -> dict:
@@ -1061,6 +1131,8 @@ row_bwd.launches = 0
 
 def _launch_row_bwd_const(gr, gi, ctr, cti):
     dev, gr, gi, nk, r = _row_setup("row_bwd_const", gr, gi, ctr, cti)
+    if r & (r - 1):  # the row stage takes r = 2^nrb rows only
+        raise ValueError(f"row_bwd_const: unsupported shape r={r}, nkernel={nk}")
     dsr = torch.empty_like(ctr)
     dsi = torch.empty_like(cti)
     lib = _build.library("row_layer")
@@ -1078,7 +1150,8 @@ def _launch_row_bwd_const(gr, gi, ctr, cti):
 def row_bwd_const(gr, gi, ctr, cti):
     """K8: the cotangent walk of :func:`row_fwd` without the lane matrix
     and without the gate cotangent (constant gates): ``ct <- g^T ct`` for
-    gate q = nkernel-1..0.  CUDA tensors launch the kernel
+    gate q = nkernel-1..0 (on the card r a power of two).  CUDA tensors
+    launch the kernel
     (``row_bwd_const.launches`` counts the launches); CPU tensors run
     :func:`row_bwd_const_plain`."""
     if ctr.device.type == "cpu":

@@ -11,21 +11,23 @@ transpose of ``csrc/zzrx_fwd.cu``), ``kernels_rowlayer.rotx_bwd_plan``
 K12's (the zz-free rx passes of ``csrc/row_layer.cu``) and
 ``row_fwd_plan`` / ``rotx_fwd_plan`` K6's and K11's (the forward passes
 without the phase, K6's with a general gate and, with the lane, the
-product);
+product), ``row_bwd_const_plan`` K8's (K6's passes) and ``zzrx_fwd_plan``
+K1's (K2's forward passes and product for one layer, the transpose);
 ``tests/test_torch_cuda.py`` holds them against the card's own report.
 Here they are held against values worked out by hand from the constants
 of ``csrc/adjoint_stages.cuh``.  And ``chip_smoke._k34_stage_work``,
 ``_k7_stage_work``, ``_k9_stage_work``, ``_k2_stage_work``,
-``_k12_stage_work``, ``_k6_stage_work`` and ``_k11_stage_work`` (each
-stage's bound) must add up to the whole kernels' work (``_k3_work``,
-``_k4_work``, ``_row_work``, ``_ml_work``, ``_k2_work``, ``_rotx_work``).
+``_k12_stage_work``, ``_k6_stage_work``, ``_k11_stage_work`` and
+``_k1_stage_work`` (each stage's bound) must add up to the whole kernels'
+work (``_k3_work``, ``_k4_work``, ``_row_work``, ``_ml_work``,
+``_k2_work``, ``_rotx_work``, ``_k1_work``).
 """
 
 import pytest
 
 from chip_smoke import (
-    _k11_stage_work, _k12_stage_work, _k2_stage_work, _k2_work, _k34_stage_work, _k3_work, _k4_work,
-    _k6_stage_work, _k7_stage_work, _k9_stage_work, _ml_work, _rotx_work, _row_work,
+    _k11_stage_work, _k12_stage_work, _k1_stage_work, _k1_work, _k2_stage_work, _k2_work, _k34_stage_work,
+    _k3_work, _k4_work, _k6_stage_work, _k7_stage_work, _k9_stage_work, _ml_work, _rotx_work, _row_work,
 )
 from tensorcircuit_ng_tpu_torch.core import kernels_grand as kg
 from tensorcircuit_ng_tpu_torch.core import kernels_multilayer as kml
@@ -500,3 +502,118 @@ def test_k11_stage_work_adds_up(n, nkernel):
     nbytes, flops = _rotx_work(r, nkernel, "fwd")
     assert sum(f for _, f in stages.values()) == flops
     assert sum(b for b, _ in stages.values()) == nbytes + (16 * amps if nkernel > 6 else 0)
+
+
+# (n, nkernel, rmx): K1's passes worked out by hand, n - 1 pairs: the zz
+# pass (CTAs, threads, tile, bits, shared bytes), the other pass (CTAs,
+# bits, shared bytes), the product's CTAs with the lane
+K1_PLANS = {
+    # r = 8192: 512 tiles of 256 threads; the zz pass takes the 6 low
+    # walked bits with 19 records of 16 B: 4 (2 · 2048 + 12 + 8) + 304 =
+    # 16,768 B, the other the 4 high ones, 16,464 B; the product 8192 / 64
+    # row tiles x 2 column tiles (K2's a layer)
+    (20, 10, 0): ((512, 256, 2048, 6, 16768), (512, 4, 16464), 256),
+    # the row kron takes the top 7 bits: 3 walked bits in the zz pass
+    # alone, in registers, no exchange tile: 4 (12 + 8) + 304 = 384 B; the
+    # other pass's record has 0 CTAs and 0 bits, 80 B
+    (20, 10, 7): ((512, 256, 2048, 3, 384), (0, 0, 80), 256),
+    # r = 32768: 2048 tiles; 21 records, 4 · 4116 + 336 = 16,800 B
+    (22, 10, 0): ((2048, 256, 2048, 6, 16800), (2048, 4, 16464), 1024),
+}
+
+
+@pytest.mark.parametrize("lane", [False, True])
+@pytest.mark.parametrize("n,nkernel,rmx", list(K1_PLANS))
+def test_zzrx_fwd_plan_by_hand(n, nkernel, rmx, lane):
+    """``zzrx_fwd_plan``'s passes, transpose and product against the
+    hand-worked values above; without the lane the transpose and the
+    product have 0 CTAs; without M7 the passes and the product are K2's a
+    layer (``grand_zzrx_fwd_plan``)."""
+    r = 2 ** (n - 7)
+    plan = krl.zzrx_fwd_plan(r, nkernel, n - 1, lane, rmx)
+    assert list(plan) == ["fwd_row_zz", "fwd_row_hi", "transpose", "fwd_lane"]
+    zz, hi, tr, prod = plan.values()
+    want_zz, want_hi, want_prod = K1_PLANS[(n, nkernel, rmx)]
+    assert (zz["ctas"], zz["threads"], zz["tile"], zz["bits"], zz["smem"]) == want_zz
+    assert (hi["ctas"], hi["bits"], hi["smem"]) == want_hi
+    assert zz["bits"] + hi["bits"] == nkernel - rmx and zz["ctas"] * zz["tile"] == 2**n
+    assert (tr["ctas"], tr["layers"], tr["planes"], tr["threads"], tr["smem"]) == (16 if lane else 0, 1, 2, 256, 0)
+    assert (prod["ctas"], prod["threads"], prod["smem"], prod["rows"], prod["cols"]) == (
+        want_prod if lane else 0, 256, 73728, 64, 64)
+    if lane and not rmx:
+        k2 = kg.grand_zzrx_fwd_plan(r, nkernel, n - 1, 4)
+        for stage in ("fwd_row_zz", "fwd_row_hi", "fwd_lane"):
+            assert plan[stage] == k2[stage]
+
+
+@pytest.mark.parametrize("nkernel,rmx", [(3, 3), (0, 0), (7, 4)])
+def test_zzrx_fwd_plan_walks_nkernel_less_rmx_bits(nkernel, rmx):
+    """No walked bit (all under M7, or no kernel bit) leaves one
+    phase-only pass; with M7 the row stage walks the low nkernel - rmx
+    row bits, as K3's does (``zzrx_bwd_plan``)."""
+    r = 2 ** max(nkernel, 5)
+    plan = krl.zzrx_fwd_plan(r, nkernel, 4, True, rmx)
+    assert plan["fwd_row_zz"]["bits"] == min(nkernel - rmx, 6)
+    assert plan["fwd_row_zz"]["ctas"] == r * 128 // 2048 and plan["fwd_row_hi"]["ctas"] == 0
+    k3 = krl.zzrx_bwd_plan(r, nkernel, 4, rmx)
+    assert plan["fwd_row_zz"]["bits"] == k3["row_lo"]["bits"]
+
+
+@pytest.mark.parametrize(
+    "r,nkernel,npairs,rmx",
+    [(3 * 2048, 10, 19, 0), (96, 5, 4, 0), (8192, 14, 19, 0), (32, 6, 4, 0), (8192, 10, -1, 0),
+     (8192, 10, 19, 8), (8192, 5, 19, 6), (8192, 10, 19, -1), (1, 0, 3, 0)],
+)
+def test_zzrx_fwd_plan_refuses_bad_shapes(r, nkernel, npairs, rmx):
+    """Rows that are not a power of two, more than 12 walked bits, more
+    kernel bits than row bits, a negative pair count, a row kron past R =
+    128 or wider than the kernel bits, a negative rmx, and a single row
+    (below 2^8 elements)."""
+    with pytest.raises(ValueError, match="unsupported shape"):
+        krl.zzrx_fwd_plan(r, nkernel, npairs, True, rmx)
+
+
+@pytest.mark.parametrize("lane", [False, True])
+@pytest.mark.parametrize("n,nkernel,rmx", [(20, 10, 0), (20, 10, 7), (22, 10, 0), (14, 3, 3), (16, 8, 2)])
+def test_k1_stage_work_adds_up(n, nkernel, rmx, lane):
+    """``_k1_stage_work``'s flops add up to K1's (``_k1_work``); its bytes
+    once the planes the stages hand each other are taken out (16 B an
+    amplitude for each stage after the zz pass on the state: the other
+    pass, K13, the product), and, with the lane, M^T written by the
+    transpose and read by the product, less the rmx angles K13 does not
+    read."""
+    r, npairs = 2 ** (n - 7), n - 1
+    amps = r * 128
+    stages = _k1_stage_work(r, npairs, nkernel, lane, rmx)
+    hi = nkernel - rmx > 6
+    assert set(stages) == ({"row zz"} | ({"row hi"} if hi else set()) | ({"K13"} if rmx else set())
+                           | ({"transpose", "product"} if lane else set()))
+    nbytes, flops = _k1_work(r, npairs, nkernel, lane, rmx)
+    assert sum(f for _, f in stages.values()) == flops
+    handoffs = 16 * amps * (hi + bool(rmx) + lane) + (2 * 2 * 4 * 128 * 128 if lane else 0)
+    assert sum(b for b, _ in stages.values()) == nbytes + handoffs - 4 * rmx
+
+
+@pytest.mark.parametrize("n,nkernel", [(20, 11), (22, 11), (20, 10), (14, 6), (12, 3)])
+def test_row_bwd_const_plan_is_k6s_passes(n, nkernel):
+    """K8's passes are K6's (``row_fwd_plan``'s row passes: the same
+    kernel, the gates staged transposed), checked by hand at n = 20 and 22
+    with 11 walked bits: passes of 6 (launched first) and 5 on 512 and 2048
+    tiles of 256 threads, both with the exchange tile of two planes, 4
+    (4096 + 48 + 8) = 16,608 B."""
+    r = 2 ** (n - 7)
+    plan = krl.row_bwd_const_plan(r, nkernel)
+    k6 = krl.row_fwd_plan(r, nkernel)
+    assert plan == {k: k6[k] for k in ("row_hi", "row_lo")}
+    if nkernel == 11:
+        ctas = 2 ** (n - 11)
+        assert plan["row_lo"] == {"ctas": ctas, "threads": 256, "smem": 16608, "tile": 2048, "bits": 6}
+        assert plan["row_hi"] == {"ctas": ctas, "threads": 256, "smem": 16608, "tile": 2048, "bits": 5}
+
+
+@pytest.mark.parametrize("r,nkernel", [(8192, 12), (8192, 0), (3 * 2048, 11), (96, 5), (16, 5), (1, 1)])
+def test_row_bwd_const_plan_refuses_bad_shapes(r, nkernel):
+    """More than 11 kernel bits or none, rows that are not a power of two,
+    more kernel bits than row bits, and a single row."""
+    with pytest.raises(ValueError, match="unsupported shape"):
+        krl.row_bwd_const_plan(r, nkernel)

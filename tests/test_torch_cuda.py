@@ -175,6 +175,96 @@ def test_grand_zzrx_fwd_plan_on_card(cuda, n, nkernel, L):
         assert hits and all(regs and not st and not ld for regs, st, ld in hits), needle
 
 
+def _k1_case(n, nkernel, pairs, lane, rmx, seed, dev):
+    """K1's inputs: unit-norm state planes, angles, a general lane matrix
+    (or none) and an arbitrary (R, R) M7 at rmx > 0 (or none)."""
+    (sr, si), t = _inputs(n, nkernel, 1, len(pairs), seed, dev)
+    m = (t["mlr"][0], t["mli"][0]) if lane else (None, None)
+    m7 = (None, None)
+    if rmx:
+        R, rng = 2**rmx, np.random.default_rng(seed)
+        m7 = tuple(convert.params(rng.normal(size=(R, R)) / np.sqrt(2 * R), dev) for _ in range(2))
+    return (pairs, n, t["zz"][0], t["th"][0], sr, si, *m, *m7)
+
+
+@pytest.mark.parametrize("kind", ["no lane", "lane", "M7"])
+@pytest.mark.parametrize("nwalk", range(11))
+def test_zzrx_fwd_at_row_stage_boundaries(cuda, nwalk, kind):
+    """K1 at every walked-bit count of its row stage (0: the phase alone;
+    1-3 in registers; 4-6 with one shared-memory crossing, the zz pass
+    alone; 7-10: the zz pass and the other), with two outer row bits (CTA
+    bits), without the lane, with it, and with M7 on 2 more row bits and
+    the lane, against its plain version, bit for bit against itself, and
+    with its input planes unwritten."""
+    rmx = 2 if kind == "M7" else 0
+    nkernel = nwalk + rmx
+    n = nkernel + 9
+    args = _k1_case(n, nkernel, _pairs(n, "open"), kind != "no lane", rmx, 7 * n + nwalk, cuda)
+    s_in = (args[4].clone(), args[5].clone())
+    krl.zzrx_fwd.launches = krl.rowm_fwd.launches = 0
+    with torch.no_grad():
+        got = krl.zzrx_fwd(*args)
+        again = krl.zzrx_fwd(*args)
+        torch.cuda.synchronize()
+        want = krl.zzrx_fwd_plain(*args)
+    assert (krl.zzrx_fwd.launches, krl.rowm_fwd.launches) == (2, 2 if rmx else 0)
+    assert torch.equal(args[4], s_in[0]) and torch.equal(args[5], s_in[1])
+    for g, g2, w in zip(got, again, want):
+        assert g.is_cuda and g.shape == w.shape and torch.equal(g, g2)
+        torch.testing.assert_close(g, w, atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("lane", [False, True])
+@pytest.mark.parametrize("pairs", ["none", "one", "outer", "lane", "mixed", "row"])
+def test_zzrx_fwd_pair_sets(cuda, pairs, lane):
+    """K1 with no pair (the records empty), one pair, and pairs on outer row
+    bits only (qubits 0 and 1: CTA bits of every pass), on lane bits only
+    (qubits n-2 and n-1: the warp's lane bits), across outer, walked and
+    lane bits, and on walked row bits only, against its plain version."""
+    n, nkernel = 16, 7
+    pairs = {"none": (), "one": ((3, 9),), "outer": ((0, 1),), "lane": ((n - 2, n - 1), (n - 5, n - 1)),
+             "mixed": ((0, n - 1), (1, 5), (8, 12)), "row": ((2, 4), (5, 8))}[pairs]
+    args = _k1_case(n, nkernel, pairs, lane, 0, 3 * n + len(pairs), cuda)
+    with torch.no_grad():
+        got = krl.zzrx_fwd(*args)
+        torch.cuda.synchronize()
+        want = krl.zzrx_fwd_plain(*args)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("n,nkernel,lane,rmx", [(8, 1, False, 0), (9, 0, True, 0), (12, 3, True, 0),
+                                                (14, 6, False, 0), (20, 10, False, 0), (20, 10, True, 0),
+                                                (20, 10, True, 7), (20, 10, False, 7), (12, 4, True, 4),
+                                                (22, 10, True, 0)])
+def test_zzrx_fwd_plan_on_card(cuda, n, nkernel, lane, rmx):
+    """K1's stage plan as the card reports it equals the Python arithmetic
+    (``zzrx_fwd_plan``), with shared memory within a CTA's 232,448 B, at
+    least one CTA an SM and no local memory; its scratch holds the records
+    and, with the lane, M^T and the plane pair."""
+    r, npairs = 2 ** (n - 7), n - 1
+    got, want = krl.zzrx_fwd_card_plan(r, nkernel, npairs, lane, rmx), krl.zzrx_fwd_plan(r, nkernel, npairs, lane, rmx)
+    assert got.keys() == want.keys()
+    for stage, p in got.items():
+        assert {k: p[k] for k in want[stage]} == want[stage], stage
+        assert p["smem"] <= 232448 and p["ctas_per_sm"] >= 1 and p["local_bytes"] == 0
+    floats = _build.library("zzrx_fwd").tcng_zzrx_fwd_scratch(r, nkernel, npairs, int(lane), rmx)
+    assert floats >= 4 * npairs + 8 + (2 * 128 * 128 + 2 * r * 128 if lane else 0)
+
+
+def test_zzrx_fwd_and_row_bwd_const_take_rows_a_power_of_two(cuda):
+    """K1 (with and without the lane) and K8 run on the row stage's plan,
+    which takes r = 2^k rows only: 96 rows raise ValueError."""
+    p96, m, g5 = (torch.zeros(s, device=cuda) for s in ((96, 128), (128, 128), (5, 4)))
+    zz, th = torch.zeros(2, device=cuda), torch.zeros(5, device=cuda)
+    with pytest.raises(ValueError, match="unsupported shape"):
+        krl.zzrx_fwd(((0, 1), (1, 2)), 13, zz, th, p96, p96)
+    with pytest.raises(ValueError, match="unsupported shape"):
+        krl.zzrx_fwd(((0, 1), (1, 2)), 13, zz, th, p96, p96, m, m)
+    with pytest.raises(ValueError, match="unsupported shape"):
+        krl.row_bwd_const(g5, g5, p96, p96)
+
+
 def test_kernel_wrappers_check_their_inputs(cuda):
     n, pairs = 10, _pairs(10, "chain")
     (sr, si), t = _inputs(n, 1, 2, len(pairs), 1, cuda)
@@ -593,6 +683,46 @@ def test_row_bwd_const_kernel_matches_plain(cuda, n, nkernel):
         torch.testing.assert_close(g, w, atol=ATOL, rtol=0)
 
 
+@pytest.mark.parametrize("nkernel", range(1, 12))
+def test_row_bwd_const_at_row_stage_boundaries(cuda, nkernel):
+    """K8 at every walked-bit count of its passes (1-3 in registers only,
+    4-6 with one shared-memory crossing, 7-11: the low pass, then the high
+    one in place), with two outer row bits (CTA bits), against its plain
+    version, bit for bit against itself, and with ct unwritten."""
+    n = nkernel + 9
+    x = _row_inputs(n, nkernel, 9 * n + nkernel, cuda)
+    ct_in = tuple(c.clone() for c in x["ct"])
+    krl.row_bwd_const.launches = 0
+    with torch.no_grad():
+        got = krl.row_bwd_const(*x["g"], *x["ct"])
+        again = krl.row_bwd_const(*x["g"], *x["ct"])
+        torch.cuda.synchronize()
+        want = krl.row_bwd_const_plain(*x["g"], *x["ct"])
+    assert krl.row_bwd_const.launches == 2
+    assert all(torch.equal(a, b) for a, b in zip(x["ct"], ct_in))
+    for g, g2, w in zip(got, again, want):
+        assert g.is_cuda and g.shape == w.shape and torch.equal(g, g2)
+        torch.testing.assert_close(g, w, atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("n,nkernel", [(8, 1), (12, 3), (14, 6), (17, 7), (20, 10), (20, 11), (22, 11)])
+def test_row_bwd_const_plan_on_card(cuda, n, nkernel):
+    """K8's pass plan as the card reports it equals the Python arithmetic
+    (``row_bwd_const_plan``, K6's passes), with shared memory within a
+    CTA's 232,448 B, at least one CTA an SM, no local memory, and no spill
+    of its pass (the transposed gate kind) in nvcc's report of the
+    row_layer build."""
+    r = 2 ** (n - 7)
+    got, want = krl.row_bwd_const_card_plan(r, nkernel), krl.row_bwd_const_plan(r, nkernel)
+    assert got.keys() == want.keys()
+    for stage, p in got.items():
+        assert {k: p[k] for k in want[stage]} == want[stage], stage
+        assert p["smem"] <= 232448 and p["ctas_per_sm"] >= 1 and p["local_bytes"] == 0
+    hits = [v for k, v in _ptxas_report(_build.build_log("row_layer"), "").items()
+            if "fwd_row_pass_kernelILb0ELb1ELb1E" in k]
+    assert len(hits) == 1 and all(regs and not st and not ld for regs, st, ld in hits)
+
+
 @pytest.mark.parametrize("lane", [False, True])
 @pytest.mark.parametrize("nkernel", range(1, 12))
 def test_row_bwd_at_row_pass_boundaries(cuda, nkernel, lane):
@@ -678,11 +808,12 @@ def test_rotx_fwd_at_row_stage_boundaries(cuda, nkernel):
         torch.testing.assert_close(g, w, atol=ATOL, rtol=0)
 
 
-#: the forward pass instances (fwd_row_pass_kernel<ZZ, GATE>) each source
-#: builds: K2's and K9's zz pass and rx pass (zzrx_bwd builds them too,
-#: unused: the header's stage functions refer to them), and in row_layer
-#: also K6's gate pass (K11 runs the rx pass)
-FWD_PASS_INSTANCES = {"zzrx_fwd": 2, "zzrx_bwd": 2, "multilayer": 2, "row_layer": 3}
+#: the forward pass instances (fwd_row_pass_kernel<ZZ, GATE, TRANS>) each
+#: source builds: K1's, K2's and K9's zz pass and rx pass (zzrx_bwd builds
+#: them too, unused: the header's stage functions refer to them), and in
+#: row_layer also K6's gate pass and K8's transposed gate pass (K11 runs
+#: the rx pass)
+FWD_PASS_INSTANCES = {"zzrx_fwd": 2, "zzrx_bwd": 2, "multilayer": 2, "row_layer": 4}
 
 
 @pytest.mark.parametrize("build", list(FWD_PASS_INSTANCES))
@@ -709,7 +840,7 @@ def test_row_fwd_plan_on_card(cuda, n, nkernel, lane):
         assert {k: p[k] for k in want[stage]} == want[stage], stage
         assert p["smem"] <= 232448 and p["ctas_per_sm"] >= 1 and p["local_bytes"] == 0
     report = _ptxas_report(_build.build_log("row_layer"), "")
-    for needle in ("fwd_row_pass_kernelILb0ELb1E", "wide_nt_kernel", "transpose_kernel"):
+    for needle in ("fwd_row_pass_kernelILb0ELb1ELb0E", "wide_nt_kernel", "transpose_kernel"):
         hits = [v for k, v in report.items() if needle in k]
         assert hits and all(regs and not st and not ld for regs, st, ld in hits), needle
 
@@ -727,7 +858,7 @@ def test_rotx_fwd_plan_on_card(cuda, n, nkernel):
         assert {k: p[k] for k in want[stage]} == want[stage], stage
         assert p["smem"] <= 232448 and p["ctas_per_sm"] >= 1 and p["local_bytes"] == 0
     hits = [v for k, v in _ptxas_report(_build.build_log("row_layer"), "").items()
-            if "fwd_row_pass_kernelILb0ELb0E" in k]
+            if "fwd_row_pass_kernelILb0ELb0ELb0E" in k]
     assert len(hits) == 1 and all(regs and not st and not ld for regs, st, ld in hits)
 
 
@@ -1071,7 +1202,8 @@ def test_rowm_kernels_match_plain(cuda, n, nkernel, rmx, lane):
 @pytest.mark.parametrize("n,nkernel,rmx", [(12, 5, 2), (20, 10, 7)])
 def test_rowm_fwd_in_place_matches_plain(cuda, n, nkernel, rmx):
     """K1 with M7 through its C entry point with the output planes the
-    input planes themselves (pass A and K13 then both run in place)."""
+    input planes themselves (the row stage and K13 then both run in
+    place)."""
     pairs = _pairs(n, "open")
     (sr, si), t = _inputs(n, nkernel, 1, len(pairs), 5 * n + rmx, cuda)
     zz, th = t["zz"][0], t["th"][0]
@@ -1082,10 +1214,11 @@ def test_rowm_fwd_in_place_matches_plain(cuda, n, nkernel, rmx):
     yr, yi = sr.clone(), si.clone()
     shifts = krl._pair_shifts(pairs, n, str(cuda))
     lib = _build.library("zzrx_fwd")
+    scratch = torch.empty(lib.tcng_zzrx_fwd_scratch(yr.shape[0], nkernel, len(pairs), 0, rmx), device=cuda)
     err = lib.tcng_zzrx_fwd(
         yr.data_ptr(), yi.data_ptr(), yr.data_ptr(), yi.data_ptr(), zz.data_ptr(), shifts.data_ptr(),
-        len(pairs), th.data_ptr(), nkernel, None, None, m7r.data_ptr(), m7i.data_ptr(), rmx, yr.shape[0],
-        torch.cuda.current_stream().cuda_stream,
+        len(pairs), th.data_ptr(), nkernel, None, None, m7r.data_ptr(), m7i.data_ptr(), rmx, scratch.data_ptr(),
+        yr.shape[0], torch.cuda.current_stream().cuda_stream,
     )
     _build.check("zzrx_fwd", err, "zzrx_fwd in place")
     torch.cuda.synchronize()

@@ -212,6 +212,70 @@ def test_grand_fwd_stage_order_matches_pallas(n, nkernel, L, pairs):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=ATOL)
 
 
+def _zzrx_fwd_in_stage_order(pairs, n, zzth, th, sr, si, mr=None, mi=None, m7r=None, m7i=None):
+    """K1 in the order the card's stages take it, in plain torch: the zz
+    pass (the phase, then the low walked bits of ``zzrx_fwd_plan``'s
+    "fwd_row_zz"), the other pass (the high ones), K13 (M7 on the top rmx
+    row bits) and the product y @ M."""
+    nk = th.shape[0]
+    rmx = krl._rowm_bits(th, m7r)
+    plan = krl.zzrx_fwd_plan(sr.shape[0], nk, len(pairs), mr is not None, rmx)
+    lo, hi = plan["fwd_row_zz"]["bits"], plan["fwd_row_hi"]["bits"]
+    assert lo + hi == nk - rmx
+    z = krl._zz_phase_dense(torch.complex(sr, si), pairs, n, zzth)
+    xr, xi = z.real, z.imag
+    for w in _pass_order(0, lo) + _pass_order(lo, hi):
+        xr, xi = _rx_walked(th, xr, xi, w, nk)
+    if rmx:
+        x = krl.rowm_apply_plain(torch.complex(m7r, m7i), torch.complex(xr, xi), nk)
+        xr, xi = x.real, x.imag
+    if mr is not None:
+        xr, xi = krl._lane_apply(mr, mi, xr, xi)
+    return xr, xi
+
+
+@pytest.mark.parametrize(
+    "n,nkernel,pairs,lane,rmx",
+    [(10, 3, "chain", False, 0), (12, 5, "long", True, 0), (16, 8, "chain", True, 0), (16, 8, "long", False, 0),
+     (12, 4, "chain", True, 1), (12, 4, "long", False, 2), (12, 4, "chain", True, 3), (12, 4, "long", True, 4)],
+)
+def test_zzrx_fwd_stage_order_matches_pallas(n, nkernel, pairs, lane, rmx):
+    """The card's order of K1's stages (phase and the low walked bits, the
+    high ones, K13, the product on M), with and without the lane, one pass
+    and two (nkernel 8: 6 + 2 bits), and with an arbitrary (R, R) M7 at
+    rmx 1-4 (3, 2, 1 and no walked bit, the last a phase-only pass),
+    against the JAX ``_pallas_zzrx_fwd`` in interpret mode, which takes
+    every rx after the phase in one block from the most significant bit:
+    the rx gates act on distinct bits and commute, so the planes agree to
+    rounding (``ATOL``).  The Pallas kernel needs a walked bit (its angle
+    block would be empty), so at rmx = nkernel it runs with rmx - 1 and the
+    arbitrary M7', and K1 with M7 = M7' (x) rx(th[-1]), the same map."""
+    pairs = _chain(n) if pairs == "chain" else _long_range(n)
+    x = _inputs(n, nkernel, 1, pairs, seed=7 * n + nkernel + rmx)
+    th = x["th"][0]
+    rng = np.random.default_rng(11 * n + rmx)
+    rj = rmx - 1 if rmx == nkernel else rmx
+    m7j = rng.normal(size=(2**rj, 2**rj)) + 1j * rng.normal(size=(2**rj, 2**rj))
+    m7j /= np.sqrt(2**rj)
+    m7 = m7j
+    if rj < rmx:
+        c, sn = np.cos(th[-1] / 2.0), np.sin(th[-1] / 2.0)
+        m7 = np.kron(m7j, np.array([[c, -1j * sn], [-1j * sn, c]]))
+    split = lambda m: [m.real.astype(np.float32), m.imag.astype(np.float32)] if rmx else [None, None]  # noqa: E731
+    mats = [x["mlr"][0], x["mli"][0]] if lane else [None, None]
+    sr, si = _jplanes(x["psi"])
+    jopt = lambda a: None if a is None else jnp.asarray(a)  # noqa: E731
+    want = _interpret(lambda: jkrl._pallas_zzrx_fwd(
+        pairs, n, jnp.asarray(x["zz"][0]), jnp.asarray(th), sr, si, *map(jopt, mats + split(m7j))))
+    tr, ti = convert.planes(x["psi"], "cpu")
+    topt = lambda a: None if a is None else torch.as_tensor(a)  # noqa: E731
+    got = _zzrx_fwd_in_stage_order(pairs, n, torch.as_tensor(x["zz"][0]), torch.as_tensor(th), tr, ti,
+                                   *map(topt, mats + split(m7)))
+    for g, w in zip(got, want):
+        assert tuple(g.shape) == tuple(w.shape)
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=ATOL)
+
+
 def test_cpu_tensors_route_to_plain_versions():
     n, nkernel, L = 10, 1, 2
     pairs = _chain(n)

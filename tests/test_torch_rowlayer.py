@@ -8,9 +8,10 @@ interpret mode, on the same numpy-seeded inputs, with and without the lane
 matrix; the autograd boundaries ``row_layer``, ``row_layer_lane`` and
 ``row_layer_const`` against the JAX custom VJPs; the plain versions of K11
 (``rotx_fwd``) and K12 (``rotx_bwd``) against ``_pallas_rotx_fwd`` and
-``_pallas_rotx_bwd`` in interpret mode, K6's, K11's and K12's pass
-order on the card against ``_pallas_row_fwd``, ``_pallas_rotx_fwd`` and
-``_pallas_rotx_bwd``, and ``rotx_row_layer`` against its JAX
+``_pallas_rotx_bwd`` in interpret mode, K6's, K8's, K11's and K12's pass
+order on the card against ``_pallas_row_fwd``, ``_pallas_row_bwd_const``,
+``_pallas_rotx_fwd`` and ``_pallas_rotx_bwd``, and ``rotx_row_layer``
+against its JAX
 custom VJP; ``fused_single_qubit_layer`` and ``fused_rx_layer`` (with
 and without ``USE_ROTX``) against the JAX dispatch layer.  The kernels
 themselves run only on a CUDA card (``tests/test_torch_cuda.py``).
@@ -208,7 +209,35 @@ def test_fwd_pass_bits_by_hand(nkernel, blocks, order):
     """The card's order of the forward passes' walked bits: the low pass's
     register bits 3.. before 0..2, then the high pass's, the same way."""
     assert _fwd_pass_bits(krl.row_fwd_plan(blocks << nkernel, nkernel)) == order
+    assert _fwd_pass_bits(krl.row_bwd_const_plan(blocks << nkernel, nkernel)) == order
     assert _fwd_pass_bits(krl.rotx_fwd_plan(blocks << nkernel, nkernel)) == order
+
+
+def _row_bwd_const_in_pass_order(gr, gi, ctr, cti):
+    """K8's row stage in the order the card's passes take it, in plain
+    torch (:func:`_fwd_pass_bits` of ``row_bwd_const_plan``, K6's order):
+    the transpose of gate q = nkernel-1-w on walked bit w."""
+    nk = gr.shape[0]
+    cr, ci = ctr, cti
+    for w in _fwd_pass_bits(krl.row_bwd_const_plan(ctr.shape[0], nk)):
+        g00r, g00i, g01r, g01i, g10r, g10i, g11r, g11i = krl._gate_scalars(gr, gi, nk - 1 - w)
+        cr, ci = krl._butterfly(cr, ci, 1 << w, (g00r, g00i, g10r, g10i, g01r, g01i, g11r, g11i))
+    return cr, ci
+
+
+@pytest.mark.parametrize("nkernel,blocks", [(5, 2), (8, 2), (11, 1)])
+def test_row_bwd_const_pass_order_matches_pallas(nkernel, blocks):
+    """The card's order of K8's transposed gates (one pass of 5 bits;
+    passes of 6 and 2, and of 6 and 5 bits, the low pass first) against the
+    JAX ``_pallas_row_bwd_const`` in interpret mode, which walks gate
+    nkernel-1 (the lowest bit) first in one block: the gates act on
+    distinct bits and commute, so the planes agree to rounding
+    (``ATOL``)."""
+    x = _row_inputs(nkernel, blocks, seed=90 * nkernel + blocks)
+    want = _interpret(lambda: jkrl._pallas_row_bwd_const(*_j(*x["g"], *x["ct"])))
+    got = _row_bwd_const_in_pass_order(*_t(x["g"][0].reshape(nkernel, 4), x["g"][1].reshape(nkernel, 4),
+                                           *x["ct"]))
+    _assert_all_close(got, want)
 
 
 @pytest.mark.parametrize("nkernel,blocks", [(3, 2), (3, 4), (5, 2), (5, 4)])

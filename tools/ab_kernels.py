@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""K2, K12, K6 and K11 on one CUDA card, checkout against checkout, in
-turns.
+"""K1, K2, K6, K8, K11 and K12 on one CUDA card, checkout against
+checkout, in turns.
 
     python3 tools/ab_kernels.py ROOT [ROOT ...]
 
@@ -10,7 +10,10 @@ the order given, a process of its own (the packages of two checkouts share
 names) imports the port and ``chip_smoke.py`` from that root, builds the
 kernels there, and measures at the main paths' shapes (n = 20):
 
-- K2 ``grand_zzrx_fwd`` at L = 4 (TFIM, open chain), K6 ``row_fwd`` at
+- K2 ``grand_zzrx_fwd`` at L = 4 (TFIM, open chain), K1 ``zzrx_fwd`` at
+  nkernel = 10 with the lane (the TFIM L = 3 step's), without it, with the
+  row kron M7 (rmx = 7, the ``FUSE_ROWM`` step's) and with the lane at
+  n = 22 (the n = 22 step's), K6 ``row_fwd`` and K8 ``row_bwd_const`` at
   nkernel = 11 without the lane (HEA), K11 ``rotx_fwd`` and K12
   ``rotx_bwd`` at nkernel = 10 (QAOA form (b)): CUDA events over
   back-to-back wrapper calls (median of 3 rounds of 20 medians), a replayed
@@ -19,8 +22,9 @@ kernels there, and measures at the main paths' shapes (n = 20):
   the kernels' names differ between checkouts);
 - device busy (torch.profiler, 10 runs) and wall time (CUDA events, median
   of 20, each run ending in ``.item()``) of the TFIM L = 4 evaluation, the
-  TFIM L = 4 training step, the HEA L = 4 training step and the QAOA form
-  (b) Adam step.
+  TFIM L = 4 and L = 3 training steps, the TFIM L = 4 step under
+  ``FUSE_ROWM``, the HEA L = 4 training step and the QAOA form (b) Adam
+  step.
 
 Prints one line a measurement with the card's name and power limit, and a
 JSON line a root.  Give the roots as A B B A to see the spread between
@@ -77,10 +81,26 @@ def _measure(root: str) -> dict:
     n6 = min(n - 7, krl.MAX_KERNEL_QUBITS)
     g = np.linalg.qr(rng.normal(size=(n6, 2, 2)) + 1j * rng.normal(size=(n6, 2, 2)))[0].reshape(n6, 4)
     gr, gi = (torch.as_tensor(x, dtype=torch.float32, device=dev).contiguous() for x in (g.real, g.imag))
+    # K1's M7 (the top rmx = 7 kernel bits' rx kron) and its n = 22 shape
+    rmx = kst._rowm_qubits(nkernel)
+    m7r, m7i = (m[0] for m in kst._rx_kron_planes(rx[:1, nouter:nouter + rmx]))
+    n22 = n + 2
+    nrow22, _, nouter22, _ = kst._shapes(n22)
+    pairs22 = tuple((i, i + 1) for i in range(n22 - 1))
+    s22r, s22i = tct.convert.planes(rng.normal(size=2**n22) + 1j * rng.normal(size=2**n22), dev)
+    zz22 = torch.as_tensor(rng.normal(size=n22 - 1) * 0.4, dtype=torch.float32, device=dev)
+    rx22 = torch.as_tensor(rng.normal(size=(1, n22)) * 0.4, dtype=torch.float32, device=dev)
+    ml22r, ml22i = (m[0] for m in kst._lane_kron_planes_T(rx22[:, nrow22:]))
+    th22 = rx22[0, nouter22:nrow22].contiguous()
     calls = {
         "K2 grand_zzrx_fwd": lambda: kg.grand_zzrx_fwd(pairs, n, zz, thk, sr, si, mor, moi, mlr, mli),
+        "K1 zzrx_fwd lane": lambda: krl.zzrx_fwd(pairs, n, zz[0], thk[0], sr, si, mlr[0], mli[0]),
+        "K1 zzrx_fwd no lane": lambda: krl.zzrx_fwd(pairs, n, zz[0], thk[0], sr, si),
+        "K1 zzrx_fwd M7": lambda: krl.rowm_fwd(pairs, n, zz[0], thk[0], sr, si, m7r, m7i, mlr[0], mli[0]),
+        f"K1 zzrx_fwd lane n={n22}": lambda: krl.zzrx_fwd(pairs22, n22, zz22, th22, s22r, s22i, ml22r, ml22i),
         "K12 rotx_bwd": lambda: krl.rotx_bwd(th, yr, yi, cr, ci),
         "K6 row_fwd": lambda: krl.row_fwd(gr, gi, sr, si),
+        "K8 row_bwd_const": lambda: krl.row_bwd_const(gr, gi, cr, ci),
         "K11 rotx_fwd": lambda: krl.rotx_fwd(th, sr, si),
     }
     with torch.no_grad():
@@ -112,6 +132,15 @@ def _measure(root: str) -> dict:
             pt.sub_(cs.LR * g)
         return e.item()
 
+    # the L = 3 step: K1 a layer, K4 backward
+    p3 = tct.convert.params(np.random.default_rng(43).normal(size=(3, 2, n)) * 0.1, dev).requires_grad_()
+
+    def tfim3_step():
+        e, g = cs._tfim_step(tct, p3, "cuda", nl=3)
+        with torch.no_grad():
+            p3.sub_(cs.LR * g)
+        return e.item()
+
     wh = tct.convert.params(np.random.default_rng(42).normal(size=(L, 2, n)) * 0.1, dev).requires_grad_()
 
     def hea_step():
@@ -131,13 +160,18 @@ def _measure(root: str) -> dict:
         opt.step()
         return e.item()
 
-    # form (b) runs K11/K12 only under USE_ROTX
-    for name, fn, rotx in (("TFIM evaluation", evaluation, False), ("TFIM step", tfim_step, False),
-                           ("HEA step", hea_step, False), ("QAOA (b) step", qaoa_b_step, True)):
-        kernels.USE_ROTX = rotx
+    # form (b) runs K11/K12 only under USE_ROTX; the FUSE_ROWM step K1 and
+    # K3 with M7 a layer
+    for name, fn, rotx, rowm in (("TFIM evaluation", evaluation, False, False),
+                                 ("TFIM step", tfim_step, False, False),
+                                 ("TFIM L=3 step", tfim3_step, False, False),
+                                 ("FUSE_ROWM step", tfim_step, False, True),
+                                 ("HEA step", hea_step, False, False),
+                                 ("QAOA (b) step", qaoa_b_step, True, False)):
+        kernels.USE_ROTX, kst.FUSE_ROWM = rotx, rowm
         out[f"{name} wall ms"] = cs._time_ms(fn, inner=1)
         out[f"{name} busy ms"] = cs._profile(fn)[1]
-    kernels.USE_ROTX = False
+    kernels.USE_ROTX, kst.FUSE_ROWM = False, False
     return out
 
 
