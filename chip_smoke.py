@@ -141,9 +141,17 @@ Phases (any failure exits non-zero; nothing is caught):
      product by device time a launch on the step beside their bounds;
  11. the staged micro-benchmark of K2's design (``examples/
      micro_grand_fusion.py`` ``run_micro``): K15 ``micro_grand`` at m1, m2
-     and m3 against its plain version on the example's n=20, L=4 inputs,
-     then each level timed by ``kernels_micro.run_micro`` (250 back-to-back
-     calls, its launches read) with its bound.
+     and m3 against its plain version on the example's n=20, L=4 inputs
+     (twice, equal bit for bit); its plan at each level as the card
+     reports it against ``micro_grand_plan``, nvcc's registers and spills
+     of its kernels (a spill fails); each level timed by
+     ``kernels_micro.run_micro`` (250 back-to-back calls, its launches
+     read, the counts reset just before) and by a replayed CUDA graph,
+     with its bound; each stage (the gate build, the transpose, the two
+     row passes, the product, the outer pass, told apart by name and by
+     their order in each complete call; m1's copy) by device time a launch
+     beside its bound; ``torch.matmul`` of the product and
+     ``copy_`` of m1's planes as library calls.
 
 Prints the kernels JSON line, then the card's name and power limit, then
 ``{"ok": true, "device": {...}}`` as the last line.  Needs no network and
@@ -1930,40 +1938,173 @@ def _micro_work(level, n, nl):
     return nbytes, nl * amps * (6 * 10 + 8 * 128 + (8 * d if level == 3 else 0))
 
 
+def _micro_stage_work(r, nl, d):
+    """(bytes, flops) of each of K15's stages a launch, by name: "gates"
+    (cs in, the gate planes out), "transpose" (one plane of the L lane
+    matrices in and out), the row passes "row lo" (the low 6 row bits:
+    two planes in, two out, their gates in; 6 flops an amplitude a bit)
+    and "row hi" (the high 4), "product" (the row stage's output and M^T
+    in, the output out; 8·128), "outer" (8·D) and "copy" (m1: two planes
+    in and out).  Per layer the row passes', product's and outer's flops
+    add up to :func:`_micro_work`'s."""
+    amps, mat = r * 128, 2 * 4 * 128 * 128
+    return {
+        "gates": (40 * 10 * nl, 0), "transpose": (mat * nl, 0),
+        "row lo": (16 * amps + 32 * 6, 6 * 6 * amps), "row hi": (16 * amps + 32 * 4, 6 * 4 * amps),
+        "product": (16 * amps + mat, 8 * 128 * amps), "outer": (16 * amps + 8 * d * d, 8 * d * amps),
+        "copy": (16 * amps, 0),
+    }
+
+
+#: K15's kernels by name (csrc/micro_grand.cu on csrc/adjoint_stages.cuh):
+#: the gate build, the transpose, K6's row pass, the product, K2's outer
+#: pass and m1's copy
+MICRO_KERNELS = {
+    "gates": lambda k: "micro_gates_kernel" in k,
+    "transpose": lambda k: "transpose_kernel" in k,
+    "row": lambda k: "fwd_row_pass_kernel<false, true, false>" in k,
+    "product": lambda k: "wide_nt_kernel<1, false>" in k,
+    "outer": lambda k: "outer_fwd_kernel" in k,
+    "copy": lambda k: "copy_kernel" in k,
+}
+
+
+def _micro_call_stages(trace, level, nl):
+    """K15's stages at m2 or m3 from a trace of (kernel name, µs) in time
+    order: the trace split into calls at each gate build, and each
+    complete call (the gate build, the transpose twice, then a layer: the
+    row passes, low then high, the product and, at m3, the outer pass)
+    read in launch order; a call the profiler recorded only in part is
+    left out.  Returns ({stage: [µs of each launch]}, complete calls)."""
+    kinds = [next((k for k, t in MICRO_KERNELS.items() if t(name)), None) for name, _ in trace]
+    labels = ["gates", "transpose", "transpose"] + (["row lo", "row hi", "product"]
+                                                     + (["outer"] if level == 3 else [])) * nl
+    want = [lab.split()[0] for lab in labels]
+    out = {lab: [] for lab in labels}
+    calls = 0
+    for i, kind in enumerate(kinds):
+        if kind != "gates" or kinds[i:i + len(labels)] != want:
+            continue
+        calls += 1
+        for lab, (_, us) in zip(labels, trace[i:i + len(labels)]):
+            out[lab].append(us)
+    return out, calls
+
+
+def _micro_stage_times(fn, level, nl, reps: int = 20):
+    """(device µs a launch, launches read) of each of K15's stages at m2 or
+    m3 over ``reps`` calls of ``fn`` under torch.profiler, from the complete
+    calls of :func:`_micro_call_stages` (the profiler may miss the first
+    calls' launches); fails with fewer than half the calls complete."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    trace = sorted((e for e in prof.events() if e.device_type == cuda), key=lambda e: e.time_range.start)
+    stages, calls = _micro_call_stages([(e.name, e.time_range.elapsed_us()) for e in trace], level, nl)
+    if 2 * calls < reps:
+        _fail(f"K15 m{level}: {calls} of {reps} calls complete in the profiler's trace")
+    return {lab: (sum(v) / len(v), len(v)) for lab, v in stages.items()}
+
+
 def _micro_phase(tct, dev, card):
     """Phase 11, the staged micro-benchmark of K2's design: K15 at m1, m2
-    and m3 against its plain version on the example's n=20, L=4 inputs,
-    then each level timed by ``run_micro`` (250 back-to-back calls) with
-    its bound.  Returns the kernels line's entry (the m3 level, the whole
-    skeleton)."""
+    and m3 against its plain version on the example's n=20, L=4 inputs
+    (twice, equal bit for bit); its plan at each level as the card reports
+    it against ``micro_grand_plan`` and nvcc's registers and spills of its
+    kernels; each level timed by ``run_micro`` (250 back-to-back calls,
+    its launches read) and by a replayed CUDA graph beside its bound; each
+    stage by device time a launch (torch.profiler) beside its bound; the
+    library calls of its work, never called by the port: ``torch.matmul``
+    of a layer's complex product and ``copy_`` of the two planes L times
+    (m1's function).  Returns the kernels line's entry (the m3 level, the
+    whole skeleton; ``library_ms`` the L products by ``torch.matmul``)."""
     import torch
     from tensorcircuit_ng_tpu_torch.core import kernels_micro as km
 
     args = km.micro_inputs(dev)
+    r, nl = args[-1].shape[0], km.L
+    d = r // km.RB
     cases = {"micro_grand": [
         (f"m{lv}", lambda lv=lv: km.micro_grand(lv, *args), lambda lv=lv: km.micro_grand_plain(lv, *args))
         for lv in (1, 2, 3)]}
-    print(f"micro-benchmark parity at n={km.N}, L={km.L}: blocks of {km.RB} rows, random non-unitary inputs")
-    max_err = _check_parity(cases)
+    print(f"micro-benchmark parity at n={km.N}, L={nl}: blocks of {km.RB} rows, random non-unitary inputs")
+    max_err = _check_parity(cases, twice=("micro_grand",))
+    for lv in (1, 2, 3):
+        _plan_check(f"K15 m{lv} at n={km.N} L={nl}", card, km.micro_grand_card_plan(lv, r, nl),
+                    km.micro_grand_plan(lv, r, nl))
+    _ptxas_check("micro_grand", (K6_PASS, "wide_nt_kernel", "outer_fwd_kernel", "transpose_kernel",
+                                 "micro_gates_kernel", "copy_kernel"))
     km.micro_grand.launches = 0
     ms = {lv: km.run_micro(lv) for lv in (1, 2, 3)}
     torch.cuda.synchronize()
     launches = km.micro_grand.launches
-    with torch.no_grad():
-        plain = {lv: _time_ms(lambda lv=lv: km.micro_grand_plain(lv, *args), **PLAIN_TIMING) for lv in (1, 2, 3)}
-    for lv in (1, 2, 3):
-        bound, by = _bound_ms(*_micro_work(lv, km.N, km.L))
-        print(f"kernel micro_grand m{lv} (run_micro: best of 3 x {km.K} back-to-back calls, L={km.L} layers), "
-              f"{card}: {ms[lv]:.4f} ms a call; plain {plain[lv]:.4f} ms; bound {bound:.4f} ms ({by})")
     print(f"micro_grand launches in run_micro (3 levels x (1 + 3 x {km.K})): {launches}")
     if launches != 3 * (1 + 3 * km.K):
         _fail(f"run_micro did not launch K15 {3 * (1 + 3 * km.K)} times: {launches}")
-    bound, by = _bound_ms(*_micro_work(3, km.N, km.L))
+    _, mlr, mli, _, _, sr, si = args
+    xc = torch.complex(sr, si)
+    mcs = [torch.complex(mlr[l], mli[l]) for l in range(nl)]
+    bufs = [(torch.empty_like(sr), torch.empty_like(si)) for _ in range(2)]
+
+    def copy_m1():  # m1's function by copy_: the planes to y and a in turn
+        xr, xi = sr, si
+        for l in range(nl):
+            dr, di = bufs[(nl - 1 - l) % 2]
+            dr.copy_(xr)
+            di.copy_(xi)
+            xr, xi = dr, di
+
+    with torch.no_grad():
+        graph = {lv: _graph_ms(lambda lv=lv: km.micro_grand(lv, *args)) for lv in (1, 2, 3)}
+        plain = {lv: _time_ms(lambda lv=lv: km.micro_grand_plain(lv, *args), **PLAIN_TIMING) for lv in (1, 2, 3)}
+        lib = {"product": _graph_ms(lambda: torch.matmul(xc, mcs[0])),
+               "products": _graph_ms(lambda: [torch.matmul(xc, m) for m in mcs]), "copy": _graph_ms(copy_m1)}
+        copy = _stage_times(lambda: km.micro_grand(1, *args), {"copy": MICRO_KERNELS["copy"]}, reps=20)["copy"]
+        stage_us = {1: {"copy": (copy[0], round(20 * copy[1]))},
+                    **{lv: _micro_stage_times(lambda lv=lv: km.micro_grand(lv, *args), lv, nl) for lv in (2, 3)}}
+    for lv in (1, 2, 3):
+        bound, by = _bound_ms(*_micro_work(lv, km.N, nl))
+        g = graph[lv]
+        print(f"kernel micro_grand m{lv}, {card}: {ms[lv]:.4f} ms a call by events (run_micro: best of 3 x {km.K} "
+              f"back-to-back calls, L={nl} layers); {g[0]:.4f} ms by a replayed CUDA graph (10 calls, median of 3 "
+              f"rounds, min {g[1]:.4f}, max {g[2]:.4f}); plain {plain[lv]:.4f} ms; bound {bound:.4f} ms ({by}), "
+              f"{100 * bound / g[0]:.1f} % of it reached by graph")
+    work = _micro_stage_work(r, nl, d)
+    # launches a call: the gate build once, the transpose once a plane, the
+    # rest once a layer
+    per_call = {"gates": 1, "transpose": 2}
+    for lv in (1, 2, 3):
+        total = 0.0
+        for stage, (us, read) in stage_us[lv].items():
+            k = per_call.get(stage, nl)
+            total += us * k
+            bound, by = _bound_ms(*work[stage])
+            print(f"K15 m{lv} stage {stage} at n={km.N} L={nl}, {card}: {us:.2f} us device a launch (torch.profiler "
+                  f"over 20 calls, the mean of {read} launches; x{k} a call); bound {1e3 * bound:.2f} us ({by}), "
+                  f"{100 * 1e3 * bound / us:.1f} % of it reached")
+        print(f"K15 m{lv} a call at n={km.N} L={nl}, {card}: {total:.2f} us device (the stages above), "
+              f"{1e3 * graph[lv][0]:.2f} us by graph")
+    for name, what in (("product", "torch.matmul of one layer's complex (8192,128)@(128,128) product"),
+                       ("products", f"the {nl} layers' products by torch.matmul"),
+                       ("copy", f"m1's function by copy_: the two planes {nl} times")):
+        t = lib[name]
+        print(f"library call, {what}, {card}: {1e3 * t[0]:.2f} us (CUDA graph of 10 calls, median of 3 rounds, "
+              f"min {1e3 * t[1]:.2f}, max {1e3 * t[2]:.2f})")
+    print(f"K15 m1 by graph against copy_ of the planes, {card}: {1e3 * graph[1][0]:.2f} us against "
+          f"{1e3 * lib['copy'][0]:.2f} us ({100 * (graph[1][0] / lib['copy'][0] - 1):+.1f} %)")
+    bound, by = _bound_ms(*_micro_work(3, km.N, nl))
     return [{
         "name": "micro_grand", "route": "cuda", "source": "tensorcircuit_ng_tpu_torch/core/csrc/micro_grand.cu",
         "replaces": "examples/micro_grand_fusion.py:132", "launches": launches,
         "max_abs_err": max_err["micro_grand"], "ms": ms[3], "plain_ms": plain[3], "bound_ms": bound,
-        "bound_by": by, "library_ms": None,
+        "bound_by": by, "library_ms": lib["products"][0],
     }]
 
 

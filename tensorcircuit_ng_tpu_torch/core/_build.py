@@ -93,7 +93,9 @@ _SIGNATURES = {
         "tcng_rotx_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _P],
     },
     "micro_grand": {
-        "tcng_micro_grand": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
+        "tcng_micro_grand_scratch": [_I, _I, _I],
+        "tcng_micro_grand_plan": [_I, _I, _I, _P],
+        "tcng_micro_grand": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
     },
     "multilayer": {
         "tcng_ml_scratch": [_I, _I, _I, _I, _I, _I],
@@ -108,7 +110,7 @@ _RESTYPES = {
     name: ctypes.c_long
     for name in ("tcng_zzrx_bwd_scratch", "tcng_row_fwd_scratch", "tcng_row_bwd_scratch",
                  "tcng_rotx_bwd_scratch", "tcng_ml_scratch", "tcng_grand_zzrx_fwd_scratch",
-                 "tcng_zzrx_fwd_scratch")
+                 "tcng_zzrx_fwd_scratch", "tcng_micro_grand_scratch")
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

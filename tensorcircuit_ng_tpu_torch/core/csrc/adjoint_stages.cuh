@@ -7,9 +7,10 @@
 // general gates), K10 (multilayer.cu, W = 128-1024) and K12 (row_layer.cu:
 // the rx passes without the zz stage); the forwards K2 (zzrx_fwd.cu), K9
 // (multilayer.cu), K6 and K11 (row_layer.cu) run on the same row-stage
-// plan, and so do K1 (zzrx_fwd.cu) and K8 (row_layer.cu); the product of
-// K1, K2, K9 and K6 with the lane is the same kernel with NA = 1, on M^T
-// (transpose_kernel).
+// plan, and so do K1 (zzrx_fwd.cu), K8 (row_layer.cu) and K15
+// (micro_grand.cu, K6's passes); the product of K1, K2, K9, K15 and K6 with
+// the lane is the same kernel with NA = 1, on M^T (transpose_kernel); K2
+// and K15 share one outer pass (outer_fwd_kernel).
 //
 // Conventions (those of the JAX package): cotangent planes are (dL/dyr,
 // -dL/dyi), the non-conjugating complex cotangent, and walk by the
@@ -290,6 +291,76 @@ cudaError_t transpose_planes(const float* br, const float* bi, float* btr, float
   transpose_kernel<<<grid, dim3(32, 8), 0, st>>>(br, btr, lw);
   transpose_kernel<<<grid, dim3(32, 8), 0, st>>>(bi, bti, lw);
   return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// The outer pass.
+// ---------------------------------------------------------------------------
+
+// The outer pass of K2 and K15 on one in-block position p a thread: y[m] =
+// sum_k mo[m][k] x[k] over the D row blocks of be positions each,
+// consecutive threads on consecutive positions.  y does not alias x.
+template <int D>
+__global__ void __launch_bounds__(THREADS)
+outer_fwd_kernel(const float* __restrict__ kr, const float* __restrict__ ki, float* yr,
+                 float* yi, const float* __restrict__ mor, const float* __restrict__ moi,
+                 long be) {
+  __shared__ float m_r[D * D], m_i[D * D];
+  for (int e = threadIdx.x; e < D * D; e += blockDim.x) {
+    m_r[e] = mor[e];
+    m_i[e] = moi[e];
+  }
+  __syncthreads();
+  const long p = static_cast<long>(blockIdx.x) * THREADS + threadIdx.x;
+  if (p >= be) return;
+  float x_r[D], x_i[D];
+#pragma unroll
+  for (int k = 0; k < D; ++k) {
+    x_r[k] = kr[k * be + p];
+    x_i[k] = ki[k * be + p];
+  }
+#pragma unroll
+  for (int m = 0; m < D; ++m) {
+    float sr = 0.f, si = 0.f;
+#pragma unroll
+    for (int k = 0; k < D; ++k) {
+      const float wr = m_r[m * D + k], wi = m_i[m * D + k];
+      sr = fmaf(-wi, x_i[k], fmaf(wr, x_r[k], sr));
+      si = fmaf(wi, x_r[k], fmaf(wr, x_i[k], si));
+    }
+    yr[m * be + p] = sr;
+    yi[m * be + p] = si;
+  }
+}
+
+template <int D>
+const void* outer_fwd_fn() {
+  return reinterpret_cast<const void*>(outer_fwd_kernel<D>);
+}
+
+// The outer pass's kernel for D (1..32, a power of two), else null.
+const void* outer_fwd_for(int d) {
+  switch (d) {
+    case 1: return outer_fwd_fn<1>();
+    case 2: return outer_fwd_fn<2>();
+    case 4: return outer_fwd_fn<4>();
+    case 8: return outer_fwd_fn<8>();
+    case 16: return outer_fwd_fn<16>();
+    case 32: return outer_fwd_fn<32>();
+    default: return nullptr;
+  }
+}
+
+// CTAs of the outer pass over be in-block positions.
+unsigned outer_grid(long be) { return static_cast<unsigned>((be + THREADS - 1) / THREADS); }
+
+// One outer pass, x -> y, with a layer's (D, D) planes mor/moi.
+cudaError_t outer_fwd(int d, long be, const float* kr, const float* ki, float* yr, float* yi,
+                      const float* mor, const float* moi, cudaStream_t st) {
+  const void* fn = outer_fwd_for(d);
+  if (fn == nullptr) return cudaErrorInvalidValue;
+  void* args[] = {&kr, &ki, &yr, &yi, &mor, &moi, &be};
+  return cudaLaunchKernel(fn, dim3(outer_grid(be)), dim3(THREADS), args, 0, st);
 }
 
 // dM: the 64 x 64 output tiles split over row chunks of D_KC-row stages.

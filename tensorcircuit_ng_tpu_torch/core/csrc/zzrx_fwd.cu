@@ -54,9 +54,9 @@
 //     into the residual ks[l], on M^T transposed once a call for all L
 //     layers (64 x 64 tiles, 4 x 4 micro-tiles a thread, double-buffered
 //     cp.async chunks; 256 CTAs at n = 20);
-//   outer pass (outer_fwd_kernel<D>): ks[l] -> y, one thread an in-block
-//     position holding its D elements in registers, consecutive threads on
-//     consecutive positions.
+//   outer pass (outer_fwd_kernel<D> of adjoint_stages.cuh, shared with
+//     K15): ks[l] -> y, one thread an in-block position holding its D
+//     elements in registers, consecutive threads on consecutive positions.
 // The row stage runs from the caller's planes (layer 0) or y into y, so the
 // caller's sr/si are never written; scratch holds the pair records and M^T.
 // Bound of K2 at n = 20, L = 4: operations, the lane product (1.07 GFLOP a
@@ -70,59 +70,6 @@ namespace {
 
 // K2's largest outer dim: D <= 32
 constexpr int MAX_D = 32;
-
-// K2's outer pass on one in-block position p a thread: y[m] = sum_k
-// mo[m][k] ks[k] over the D row blocks of be positions each.
-template <int D>
-__global__ void __launch_bounds__(THREADS)
-outer_fwd_kernel(const float* __restrict__ kr, const float* __restrict__ ki, float* yr,
-                 float* yi, const float* __restrict__ mor, const float* __restrict__ moi,
-                 long be) {
-  __shared__ float m_r[D * D], m_i[D * D];
-  for (int e = threadIdx.x; e < D * D; e += blockDim.x) {
-    m_r[e] = mor[e];
-    m_i[e] = moi[e];
-  }
-  __syncthreads();
-  const long p = static_cast<long>(blockIdx.x) * THREADS + threadIdx.x;
-  if (p >= be) return;
-  float x_r[D], x_i[D];
-#pragma unroll
-  for (int k = 0; k < D; ++k) {
-    x_r[k] = kr[k * be + p];
-    x_i[k] = ki[k * be + p];
-  }
-#pragma unroll
-  for (int m = 0; m < D; ++m) {
-    float sr = 0.f, si = 0.f;
-#pragma unroll
-    for (int k = 0; k < D; ++k) {
-      const float wr = m_r[m * D + k], wi = m_i[m * D + k];
-      sr = fmaf(-wi, x_i[k], fmaf(wr, x_r[k], sr));
-      si = fmaf(wi, x_r[k], fmaf(wr, x_i[k], si));
-    }
-    yr[m * be + p] = sr;
-    yi[m * be + p] = si;
-  }
-}
-
-template <int D>
-const void* outer_fwd_fn() {
-  return reinterpret_cast<const void*>(outer_fwd_kernel<D>);
-}
-
-// The outer pass's kernel for D (1..MAX_D, a power of two), else null.
-const void* outer_fwd_for(int d) {
-  switch (d) {
-    case 1: return outer_fwd_fn<1>();
-    case 2: return outer_fwd_fn<2>();
-    case 4: return outer_fwd_fn<4>();
-    case 8: return outer_fwd_fn<8>();
-    case 16: return outer_fwd_fn<16>();
-    case 32: return outer_fwd_fn<32>();
-    default: return nullptr;
-  }
-}
 
 struct GrandPlan {
   int r, d;
@@ -140,16 +87,6 @@ bool grand_plan(int r, int nkernel, int npairs, GrandPlan* p) {
   if (p->d > MAX_D || !row_stage_plan(nrb, ilog2(LANES), nkernel, &p->rs)) return false;
   p->be = static_cast<long>(LANES) << nkernel;
   return true;
-}
-
-unsigned outer_grid(const GrandPlan& p) { return static_cast<unsigned>((p.be + THREADS - 1) / THREADS); }
-
-// The outer pass of one layer, ks -> y, with the layer's (D, D) planes.
-cudaError_t outer_fwd(const GrandPlan& p, const float* kr, const float* ki, float* yr, float* yi,
-                      const float* mor, const float* moi, cudaStream_t st) {
-  long be = p.be;
-  void* args[] = {&kr, &ki, &yr, &yi, &mor, &moi, &be};
-  return cudaLaunchKernel(outer_fwd_for(p.d), dim3(outer_grid(p)), dim3(THREADS), args, 0, st);
 }
 
 struct GrandScratch {
@@ -313,7 +250,7 @@ int tcng_grand_zzrx_fwd_plan(int r, int nkernel, int npairs, int L, long* out) {
     err = kernel_record(reinterpret_cast<const void*>(wide_nt_kernel<1, false>), prod_ctas(r, 7),
                         THREADS, prod_smem<1>(), P_T, P_T, out + 16);
   if (err == cudaSuccess)
-    err = kernel_record(outer_fwd_for(p.d), outer_grid(p), THREADS, 0, p.d, ilog2(p.d), out + 24);
+    err = kernel_record(outer_fwd_for(p.d), outer_grid(p.be), THREADS, 0, p.d, ilog2(p.d), out + 24);
   if (err == cudaSuccess)
     err = kernel_record(reinterpret_cast<const void*>(transpose_kernel), 16L * L, 256, 0, L, 2,
                         out + 32);
@@ -356,7 +293,7 @@ int tcng_grand_zzrx_fwd(const float* sr, const float* si, float* ksr,
       err = wide_nt<1, false>(yr, yi, nullptr, nullptr, s.mtr + l * MM, s.mti + l * MM, kr, ki,
                               nullptr, nullptr, r, 7, st);
     if (err != cudaSuccess) return static_cast<int>(err);
-    err = outer_fwd(p, kr, ki, yr, yi, mor + l * dd, moi + l * dd, st);
+    err = outer_fwd(p.d, p.be, kr, ki, yr, yi, mor + l * dd, moi + l * dd, st);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return 0;

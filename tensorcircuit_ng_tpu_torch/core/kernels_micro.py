@@ -15,7 +15,12 @@ qubits) and D = 8 blocks.  Layer by layer over a ping-pong pair of planes:
 ``micro_grand`` launches kernel K15 (``csrc/micro_grand.cu``,
 ``tcng_micro_grand``) on CUDA tensors and runs :func:`micro_grand_plain`
 on CPU tensors; ``run_micro`` times it on the card as the example times
-its kernel.  The inputs are random and not unitary, as in the example.
+its kernel.  On the card levels 2 and 3 run the stages of K6 with the lane
+and K2 (``csrc/adjoint_stages.cuh``): the gates built once a call as K6's
+(:func:`micro_gate_planes` is the plain mirror), K6's two row passes, the
+forward product on M^T and K2's outer pass; ``micro_grand_plan`` /
+``micro_grand_card_plan`` give their plan.  The inputs are random and not
+unitary, as in the example.
 """
 
 from __future__ import annotations
@@ -24,14 +29,30 @@ import numpy as np
 import torch
 
 from . import _build
+from . import kernels_rowlayer as krl
 
-__all__ = ["micro_grand", "micro_grand_plain", "micro_inputs", "run_micro", "RB"]
+__all__ = [
+    "micro_grand",
+    "micro_grand_plain",
+    "micro_gate_planes",
+    "micro_grand_plan",
+    "micro_grand_card_plan",
+    "micro_inputs",
+    "run_micro",
+    "RB",
+]
 
 #: rows of a block (10 row qubits), and the example's shapes
 RB = 1024
 N, L, K = 20, 4, 250
 _LANES = 128
 _NBF = 10
+#: the most blocks K15 takes (``MAX_D`` in ``csrc/micro_grand.cu``)
+MAX_BLOCKS = 16
+#: K15's stages in launch order, each with its two own plan keys
+_MICRO_OWN = {"gates": ("layers", "gates"), "transpose": ("layers", "planes"), "row_lo": ("tile", "bits"),
+              "row_hi": ("tile", "bits"), "lane": ("rows", "cols"), "outer": ("d", "nouter"),
+              "copy": ("vectors", "planes")}
 
 
 def micro_grand_plain(level, cs, mlr, mli, mor, moi, sr, si):
@@ -56,17 +77,76 @@ def micro_grand_plain(level, cs, mlr, mli, mor, moi, sr, si):
     return x.real.contiguous(), x.imag.contiguous()
 
 
+def micro_gate_planes(cs):
+    """The gates of K6's kind that K15 builds from ``cs`` (L, 10, 2) once a
+    call: ``g[l, q] = [[c, -i s], [-i s, c]]`` as (L, 10, 4) planes ``gr =
+    (c, 0, 0, c)``, ``gi = (0, -s, -s, 0)``, entries (g00, g01, g10, g11)."""
+    c, s = cs[..., 0], cs[..., 1]
+    zero = torch.zeros_like(c)
+    return torch.stack([c, zero, zero, c], -1), torch.stack([zero, -s, -s, zero], -1)
+
+
+def _check_shape(what: str, level: int, r: int, lanes: int, nl: int) -> int:
+    """The blocks D of a K15 call, or ``ValueError``: L >= 1 layers of (r,
+    128) planes, r = D * RB with D in 1..16; at levels 2 and 3 r a power of
+    two (the row stage's plan), at level 3 D in {2, 4, 8, 16}."""
+    d = r // RB
+    if level not in (1, 2, 3) or lanes != _LANES or nl < 1 or r % RB or not 1 <= d <= MAX_BLOCKS:
+        raise ValueError(f"{what}: unsupported level {level} or shape r={r}, lanes={lanes}, L={nl}")
+    if level >= 2 and r & (r - 1):
+        raise ValueError(f"{what}: levels 2 and 3 take r a power of two, not {r}")
+    if level == 3 and d == 1:
+        raise ValueError(f"{what}: the outer stage takes 2, 4, 8 or 16 blocks, not {d}")
+    return d
+
+
+def micro_grand_plan(level: int, r: int, L: int) -> dict:
+    """K15's stage plan at ``level`` with r rows of 128 lanes and L layers,
+    computed as ``csrc/micro_grand.cu`` makes it (no card needed), in launch
+    order: at levels 2 and 3 the gate build ``"gates"`` (L, 10 gates a
+    layer), the transpose of the L lane matrices ``"transpose"`` (CTAs a
+    launch, two launches a call), K6's row passes ``"row_lo"`` (the low 6
+    row bits, first) and ``"row_hi"`` (the high 4) and the product
+    ``"lane"`` (:func:`kernels_rowlayer.row_fwd_plan`'s at nkernel = 10),
+    at level 3 K2's outer pass ``"outer"`` (a thread an in-block position,
+    RB · 128 of them), at level 1 the copy pass ``"copy"`` (a float4 of
+    each plane a thread).  Each ``ctas``, ``threads`` and ``smem`` (dynamic
+    shared bytes) and two of its own; a stage the level does not run has
+    zeros."""
+    d = _check_shape("micro_grand_plan", level, r, _LANES, L)
+    plan = {k: dict.fromkeys(("ctas", "threads", "smem") + own, 0) for k, own in _MICRO_OWN.items()}
+    if level == 1:
+        vectors = r * _LANES // 4
+        plan["copy"] = {"ctas": -(-vectors // krl._THREADS), "threads": krl._THREADS, "smem": 0,
+                        "vectors": vectors, "planes": 2}
+        return plan
+    k6 = krl.row_fwd_plan(r, _NBF, lane=True)
+    plan["gates"] = {"ctas": -(-L * _NBF // krl._THREADS), "threads": krl._THREADS, "smem": 0, "layers": L,
+                     "gates": _NBF}
+    plan["transpose"] = {"ctas": 16 * L, "threads": 256, "smem": 0, "layers": L, "planes": 2}
+    plan.update(row_lo=k6["row_lo"], row_hi=k6["row_hi"], lane=k6["lane"])
+    if level == 3:
+        positions = RB * _LANES
+        plan["outer"] = {"ctas": -(-positions // krl._THREADS), "threads": krl._THREADS, "smem": 0, "d": d,
+                         "nouter": d.bit_length() - 1}
+    return plan
+
+
+def micro_grand_card_plan(level: int, r: int, L: int) -> dict:
+    """The same plan as the card's C code reports it
+    (``tcng_micro_grand_plan``), with each stage kernel's ``ctas_per_sm``,
+    ``registers`` and ``local_bytes`` a thread besides (zeros for a stage
+    the level does not run).  Needs the card."""
+    return krl._card_records("micro_grand", "tcng_micro_grand_plan", _MICRO_OWN, level, r, L)
+
+
 def _launch(level, cs, mlr, mli, mor, moi, sr, si):
     dev = sr.device
     if dev.type != "cuda":
         raise ValueError(f"micro_grand: no kernel for device {dev}")
-    r, lanes = sr.shape
+    r = sr.shape[0]
     nl = cs.shape[0]
     d = r // RB
-    if level not in (1, 2, 3) or lanes != _LANES or r % RB or not 1 <= d <= 16:
-        raise ValueError(f"micro_grand: unsupported level {level} or shape {tuple(sr.shape)}")
-    if level == 3 and d not in (2, 4, 8, 16):
-        raise ValueError(f"micro_grand: the outer stage takes 2, 4, 8 or 16 blocks, not {d}")
     shapes = {
         "cs": (cs, (nl, _NBF, 2)), "mlr": (mlr, (nl, _LANES, _LANES)), "mli": (mli, (nl, _LANES, _LANES)),
         "mor": (mor, (nl, d, d)), "moi": (moi, (nl, d, d)), "sr": (sr, (r, _LANES)), "si": (si, (r, _LANES)),
@@ -74,16 +154,22 @@ def _launch(level, cs, mlr, mli, mor, moi, sr, si):
     for name, (t, shape) in shapes.items():
         if t.device != dev or t.dtype != torch.float32 or tuple(t.shape) != shape or not t.is_contiguous():
             raise ValueError(f"micro_grand: {name} must be contiguous float32 {shape} on {dev}")
+    # the copy and the product move 16-byte vectors
+    sr, si = krl._aligned16(sr), krl._aligned16(si)
+    lib = _build.library("micro_grand")
+    floats = lib.tcng_micro_grand_scratch(level, r, nl)
+    if floats < 0:
+        raise ValueError(f"micro_grand: unsupported level {level} or shape {tuple(sr.shape)}")
+    scratch = torch.empty(floats, dtype=torch.float32, device=dev) if floats else None
     yr, yi = torch.empty((2, r, _LANES), dtype=torch.float32, device=dev)
     ar, ai = torch.empty((2, r, _LANES), dtype=torch.float32, device=dev)  # the ping-pong pair
-    lib = _build.library("micro_grand")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         micro_grand.launches += 1
         err = lib.tcng_micro_grand(
             level, cs.data_ptr(), mlr.data_ptr(), mli.data_ptr(), mor.data_ptr(), moi.data_ptr(),
             sr.data_ptr(), si.data_ptr(), yr.data_ptr(), yi.data_ptr(), ar.data_ptr(), ai.data_ptr(),
-            nl, r, stream,
+            None if scratch is None else scratch.data_ptr(), nl, r, stream,
         )
     _build.check("micro_grand", err, "micro_grand")
     return yr, yi
@@ -91,9 +177,12 @@ def _launch(level, cs, mlr, mli, mor, moi, sr, si):
 
 def micro_grand(level, cs, mlr, mli, mor, moi, sr, si):
     """K15: the ``level`` (1, 2 or 3) of the micro-benchmark over L =
-    ``cs.shape[0]`` layers.  CUDA tensors launch the kernel
+    ``cs.shape[0]`` layers of (r, 128) planes (``ValueError`` for a shape
+    K15 does not take: r = D · 1024 with D in 1..16, at levels 2 and 3 a
+    power of two, at level 3 D >= 2).  CUDA tensors launch the kernel
     (``micro_grand.launches`` counts the launches); CPU tensors run
     :func:`micro_grand_plain`."""
+    _check_shape("micro_grand", level, sr.shape[0], sr.shape[-1], cs.shape[0])
     if sr.device.type == "cpu":
         return micro_grand_plain(level, cs, mlr, mli, mor, moi, sr, si)
     return _launch(level, cs, mlr, mli, mor, moi, sr, si)

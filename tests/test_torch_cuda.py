@@ -34,7 +34,9 @@ bits, bit for bit twice, their plans against ``row_fwd_plan`` and
 ``rotx_fwd_plan``, the forward pass instances of each build without a
 spill, and r not a power of two refused; K15 (the staged
 micro-benchmark, random non-unitary inputs whose values grow to O(100))
-within 1e-5 of its output's largest entry.
+within 1e-5 of its output's largest entry at n=18-21, bit for bit twice,
+its plan against ``micro_grand_plan``, and r not a power of two refused
+at m2 and m3.
 """
 
 import numpy as np
@@ -1273,7 +1275,7 @@ def test_rowm_gradient_on_card_matches_cpu(cuda, n, monkeypatch):
     np.testing.assert_allclose(g_card, g_cpu, rtol=0, atol=1e-4)
 
 
-@pytest.mark.parametrize("n,level", [(18, 1), (18, 3), (20, 1), (20, 2), (20, 3)])
+@pytest.mark.parametrize("n,level", [(18, 1), (18, 3), (19, 3), (20, 1), (20, 2), (20, 3), (21, 3)])
 def test_micro_grand_matches_plain(cuda, n, level):
     """K15 at each level on the example's inputs (n=20: 8 blocks; n=18: 2)
     against its plain version, within 1e-5 of the output's largest entry."""
@@ -1286,3 +1288,59 @@ def test_micro_grand_matches_plain(cuda, n, level):
     assert km.micro_grand.launches == 1
     for g, w in zip(got, km.micro_grand_plain(level, *args)):
         torch.testing.assert_close(g, w, atol=1e-5 * w.abs().max().item(), rtol=0)
+
+
+@pytest.mark.parametrize("level", [1, 2, 3])
+def test_micro_grand_twice_bit_identical(cuda, level):
+    """K15 at n=20 twice on the same inputs: equal bit for bit (no sum
+    crosses a CTA), and the caller's planes unwritten."""
+    from tensorcircuit_ng_tpu_torch.core import kernels_micro as km
+
+    args = km.micro_inputs(cuda, seed=level)
+    before = [a.clone() for a in args[-2:]]
+    first, second = km.micro_grand(level, *args), km.micro_grand(level, *args)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    for a, b in zip(args[-2:], before):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("level", [1, 2, 3])
+@pytest.mark.parametrize("n", [18, 19, 20, 21])
+def test_micro_grand_plan_on_card(cuda, n, level):
+    """K15's stage plan as the card reports it equals the Python arithmetic
+    (``micro_grand_plan``), each stage it runs with shared memory within a
+    CTA's 232,448 B, at least one CTA an SM and no local memory, and no
+    spill of its kernels in nvcc's report of the micro_grand build."""
+    from tensorcircuit_ng_tpu_torch.core import kernels_micro as km
+
+    r = 2 ** (n - 7)
+    got, want = km.micro_grand_card_plan(level, r, 4), km.micro_grand_plan(level, r, 4)
+    assert got.keys() == want.keys()
+    for stage, p in got.items():
+        assert {k: p[k] for k in want[stage]} == want[stage], stage
+        assert p["local_bytes"] == 0
+        if p["ctas"]:
+            assert p["smem"] <= 232448 and p["ctas_per_sm"] >= 1
+    report = _ptxas_report(_build.build_log("micro_grand"), "")
+    for needle in ("fwd_row_pass_kernelILb0ELb1ELb0E", "wide_nt_kernel", "outer_fwd_kernel", "transpose_kernel",
+                   "micro_gates_kernel", "copy_kernel"):
+        hits = [v for k, v in report.items() if needle in k]
+        assert hits and all(regs and not st and not ld for regs, st, ld in hits), needle
+
+
+@pytest.mark.parametrize("level", [2, 3])
+def test_micro_grand_refuses_r_not_power_of_two(cuda, level):
+    """Three blocks (r = 3072) at m2 and m3 on the card: ValueError; m1
+    copies them."""
+    from tensorcircuit_ng_tpu_torch.core import kernels_micro as km
+
+    g = torch.Generator(device=cuda).manual_seed(level)
+    draw = lambda *shape: torch.randn(*shape, generator=g, device=cuda)  # noqa: E731
+    args = (draw(4, 10, 2), draw(4, 128, 128), draw(4, 128, 128), draw(4, 3, 3), draw(4, 3, 3),
+            draw(3072, 128), draw(3072, 128))
+    with pytest.raises(ValueError, match="power of two"):
+        km.micro_grand(level, *args)
+    yr, yi = km.micro_grand(1, *args)
+    assert torch.equal(yr, args[-2]) and torch.equal(yi, args[-1])

@@ -72,3 +72,39 @@ def test_micro_grand_plain_matches_example(example, monkeypatch, level):
         w = np.asarray(w)
         assert g.shape == w.shape and np.all(np.isfinite(w))
         np.testing.assert_allclose(g.numpy(), w, rtol=0, atol=1e-5 * np.abs(w).max())
+
+
+@pytest.mark.parametrize("level", [1, 2, 3])
+def test_micro_grand_stages_match_example(example, monkeypatch, level):
+    """K15's card design composed from its stages' plain versions, in the
+    kernel's buffer order, against the Pallas kernel at each level: the
+    gates built once a call (``micro_gate_planes``), then per layer at m2
+    the row stage x -> a (``row_fwd_plain`` with the gate planes) and the
+    lane product a -> y (``_lane_apply``), at m3 the row stage x -> y, the
+    product y -> a and the outer pass a -> y (``_outer_apply``); at m1 the
+    copies to y and a in turn.  Tolerance as above."""
+    from tensorcircuit_ng_tpu_torch.core import kernels_rowlayer as krl
+
+    monkeypatch.setattr(example, "G", 2)
+    monkeypatch.setattr(example, "D", 2)
+    monkeypatch.setattr(example, "R_TOT", 2048)
+    args = [a.numpy() for a in km.micro_inputs("cpu", seed=10 + level, n=18)]
+    want = _pallas_micro(example, level, args)
+    cs, mlr, mli, mor, moi, sr, si = (torch.as_tensor(a) for a in args)
+    gr, gi = km.micro_gate_planes(cs)
+    x = (sr, si)
+    for l in range(cs.shape[0]):
+        if level == 1:
+            y = a = tuple(p.clone() for p in x)
+        elif level == 2:
+            a = krl.row_fwd_plain(gr[l], gi[l], *x)
+            y = krl._lane_apply(mlr[l], mli[l], *a)
+        else:
+            y = krl.row_fwd_plain(gr[l], gi[l], *x)
+            a = krl._lane_apply(mlr[l], mli[l], *y)
+            y = krl._outer_apply(mor[l], moi[l], *a)
+        x = y
+    for g, w in zip(x, want):
+        w = np.asarray(w)
+        assert g.shape == w.shape and np.all(np.isfinite(w))
+        np.testing.assert_allclose(g.numpy(), w, rtol=0, atol=1e-5 * np.abs(w).max())

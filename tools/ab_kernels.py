@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""K1, K2, K6, K8, K11 and K12 on one CUDA card, checkout against
+"""K1, K2, K6, K8, K11, K12 and K15 on one CUDA card, checkout against
 checkout, in turns.
 
     python3 tools/ab_kernels.py ROOT [ROOT ...]
@@ -15,11 +15,13 @@ kernels there, and measures at the main paths' shapes (n = 20):
   row kron M7 (rmx = 7, the ``FUSE_ROWM`` step's) and with the lane at
   n = 22 (the n = 22 step's), K6 ``row_fwd`` and K8 ``row_bwd_const`` at
   nkernel = 11 without the lane (HEA), K11 ``rotx_fwd`` and K12
-  ``rotx_bwd`` at nkernel = 10 (QAOA form (b)): CUDA events over
-  back-to-back wrapper calls (median of 3 rounds of 20 medians), a replayed
-  CUDA graph of 10 calls (median of 3 rounds), and the device time of a
-  call and of each of its kernels a launch (torch.profiler over 10 calls;
-  the kernels' names differ between checkouts);
+  ``rotx_bwd`` at nkernel = 10 (QAOA form (b)), K15 ``micro_grand`` at
+  m1, m2 and m3 on ``examples/micro_grand_fusion.py``'s inputs (L = 4):
+  CUDA events over back-to-back wrapper calls (median of 3 rounds of 20
+  medians), a replayed CUDA graph of 10 calls (median of 3 rounds), and
+  the device time of a call and of each of its kernels a launch
+  (torch.profiler over 10 calls; the kernels' names differ between
+  checkouts);
 - device busy (torch.profiler, 10 runs) and wall time (CUDA events, median
   of 20, each run ending in ``.item()``) of the TFIM L = 4 evaluation, the
   TFIM L = 4 and L = 3 training steps, the TFIM L = 4 step under
@@ -50,6 +52,7 @@ def _measure(root: str) -> dict:
     from tensorcircuit_ng_tpu_torch.core import _build
     from tensorcircuit_ng_tpu_torch.core import kernels
     from tensorcircuit_ng_tpu_torch.core import kernels_grand as kg
+    from tensorcircuit_ng_tpu_torch.core import kernels_micro as km
     from tensorcircuit_ng_tpu_torch.core import kernels_rowlayer as krl
     from tensorcircuit_ng_tpu_torch.core import kernels_stack as kst
 
@@ -103,6 +106,8 @@ def _measure(root: str) -> dict:
         "K8 row_bwd_const": lambda: krl.row_bwd_const(gr, gi, cr, ci),
         "K11 rotx_fwd": lambda: krl.rotx_fwd(th, sr, si),
     }
+    margs = km.micro_inputs(dev)
+    calls.update({f"K15 micro_grand m{lv}": (lambda lv=lv: km.micro_grand(lv, *margs)) for lv in (1, 2, 3)})
     with torch.no_grad():
         for name, fn in calls.items():
             out[f"{name} events ms"] = cs._time_rounds(fn)[0]
