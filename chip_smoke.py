@@ -4,7 +4,9 @@ each against its plain PyTorch version, drives the N=20 TFIM energy path
 and its training step (also under ``FUSE_ROWM`` and every switch of the
 stack), the n=60 TEBD path, the n=20 HEA training step and the n=20, p=4
 QAOA MaxCut training step through the public API, runs the staged
-micro-benchmark of K2's design, and times them.
+micro-benchmark of K2's design, and times them; then drives the rest of the
+circuit API (echo, remapping, Pauli strings, light cone, the unitary) at
+the same width.
 
     python3 chip_smoke.py
 
@@ -151,7 +153,27 @@ Phases (any failure exits non-zero; nothing is caught):
      row passes, the product, the outer pass, told apart by name and by
      their order in each complete call; m1's copy) by device time a launch
      beside its bound; ``torch.matmul`` of the product and
-     ``copy_`` of m1's planes as library calls.
+     ``copy_`` of m1's planes as library calls;
+ 12. the circuit API at full width (no kernel of its own), on the n=20,
+     L=4 TFIM circuit of the training path (:func:`tfim_circuit`) and the
+     HEA circuit of phase 8 (:func:`hea_circuit`), each check against the
+     port's CPU path on the same inputs: (a) the Loschmidt echo
+     (:func:`loschmidt_echo`; the inverse's 176 plain gates launch no
+     kernel, the forward part K2), |<0...0|e>|^2 within 1e-4 of 1;
+     (b) ``initial_mapping`` under q -> n-1-q (:func:`remapped_tfim_energy`;
+     K2/K4) and ``compose`` of the HEA circuit onto a permuted register
+     (:func:`composed_hea_energy`; K6/K7), energy and gradient against the
+     unmapped circuit's; (c) the TFIM Hamiltonian as 39 Pauli strings
+     (:func:`tfim_pauli_strings`) through ``expectation_structures`` against
+     ``expectation_zzx_energy``, and ``ps=`` strings with y terms against
+     the x/y/z lists and the dense route; (d) the light cone of <Z_w Z_w+1>
+     against the dense expectation (K6 a layer, on the TFIM circuit K1 a
+     layer); (e) ``matrix()`` of the HEA circuit at n=12: unitarity, its
+     first column against ``state()``; (f) ``outcome_probability``,
+     ``projected_subsystem``, the free ``expectation`` and ``is_valid``;
+     then each route timed (CUDA events, median of 20, busy time under
+     torch.profiler) beside the path it stands against, with the launches
+     each route gave.
 
 Prints the kernels JSON line, then the card's name and power limit, then
 ``{"ok": true, "device": {...}}`` as the last line.  Needs no network and
@@ -225,14 +247,12 @@ SVD_VEC_TOL = 2e-5
 SVD_ORTH_TOL = 5e-3
 
 
-def hea_energy(mod, n, w, **kw):
-    """The hardware-efficient-ansatz VQE energy, written against the public
-    ``Circuit`` API that the port shares with the JAX package (``mod`` is
-    either; the CPU tests pass both): h_layer (folded on |0...0>), then for
-    each of the L rows of ``w`` (L, 2, n) an ry_layer, a CNOT ladder and an
-    rz_layer, a final h_layer (a constant layer, not folded), and the
-    open-chain TFIM energy ZZ - X."""
-    pairs = [(q, q + 1) for q in range(n - 1)]
+def hea_circuit(mod, n, w, **kw):
+    """The hardware-efficient ansatz, written against the public ``Circuit``
+    API that the port shares with the JAX package (``mod`` is either; the
+    CPU tests pass both): h_layer (folded on |0...0>), then for each of the
+    L rows of ``w`` (L, 2, n) an ry_layer, a CNOT ladder and an rz_layer,
+    and a final h_layer (a constant layer, not folded)."""
     c = mod.Circuit(n, **kw)
     c.h_layer()
     for l in range(w.shape[0]):
@@ -241,7 +261,75 @@ def hea_energy(mod, n, w, **kw):
             c.cnot(q, q + 1)
         c.rz_layer(w[l, 1])
     c.h_layer()
+    return c
+
+
+def hea_energy(mod, n, w, **kw):
+    """The HEA VQE energy: :func:`hea_circuit` and the open-chain TFIM
+    energy ZZ - X."""
+    pairs = [(q, q + 1) for q in range(n - 1)]
+    return hea_circuit(mod, n, w, **kw).expectation_zzx_energy(pairs, 1.0, -1.0)
+
+
+def tfim_circuit(mod, p, n, nl, **kw):
+    """The TFIM circuit of the training path (``bench.py``'s), for either
+    package: h_layer, then nl zzrx_layers on the open chain with the zz
+    angles ``p[l, 0, :n-1]`` and the rx angles ``p[l, 1]``."""
+    pairs = [(i, i + 1) for i in range(n - 1)]
+    c = mod.Circuit(n, **kw)
+    c.h_layer()
+    for l in range(nl):
+        c.zzrx_layer(pairs, p[l, 0, : n - 1], p[l, 1])
+    return c
+
+
+def loschmidt_echo(c):
+    """``c`` followed by its inverse: |0...0> again, up to rounding."""
+    echo = c.copy()
+    echo.append(c.inverse())
+    return echo
+
+
+def reversal(n):
+    """The qubit mapping q -> n-1-q."""
+    return {q: n - 1 - q for q in range(n)}
+
+
+def remapped_tfim_energy(mod, p, n, nl, mapping, **kw):
+    """The open-chain TFIM energy ZZ - X of :func:`tfim_circuit` moved onto
+    other wires by ``initial_mapping(mapping)``, with the Hamiltonian's
+    pairs mapped the same way: the unmapped energy again."""
+    c = tfim_circuit(mod, p, n, nl, **kw).initial_mapping(mapping)
+    pairs = [(mapping[i], mapping[i + 1]) for i in range(n - 1)]
     return c.expectation_zzx_energy(pairs, 1.0, -1.0)
+
+
+def composed_hea_energy(mod, n, w, perm, **kw):
+    """The HEA energy of :func:`hea_circuit` composed into an empty circuit
+    with its qubit q on wire ``perm[q]``, the Hamiltonian's pairs mapped
+    the same way: :func:`hea_energy` again."""
+    c = mod.Circuit(n, **kw)
+    c.compose(hea_circuit(mod, n, w, **kw), indices=[int(q) for q in perm])
+    pairs = [(int(perm[q]), int(perm[q + 1])) for q in range(n - 1)]
+    return c.expectation_zzx_energy(pairs, 1.0, -1.0)
+
+
+def tfim_pauli_strings(n):
+    """The open-chain TFIM Hamiltonian ZZ - X as Pauli strings for
+    ``expectation_structures``: ``ps`` lists (0/1/2/3 for I/X/Y/Z a qubit),
+    n-1 ZZ terms of weight 1 then n X terms of weight -1."""
+    structures, weights = [], []
+    for i in range(n - 1):
+        ps = [0] * n
+        ps[i] = ps[i + 1] = 3
+        structures.append(ps)
+        weights.append(1.0)
+    for i in range(n):
+        ps = [0] * n
+        ps[i] = 1
+        structures.append(ps)
+        weights.append(-1.0)
+    return structures, weights
 
 
 def qaoa_graph(n, p, seed=7):
@@ -345,16 +433,18 @@ def _graph_ms(fn, calls: int = 10):
     return tuple(t / calls for t in _time_rounds(graph.replay, inner=1))
 
 
-def _profile(fn, reps: int = 10):
+def _profile(fn, reps: int = 10, cpu: bool = True):
     """(host ms, device-busy ms, [(kernel, ms, launches)]) per call of
     ``fn`` over ``reps`` calls under torch.profiler (host time includes the
-    profiler's own cost)."""
+    profiler's own cost).  ``cpu=False`` traces the card alone: the same
+    kernels, without the host ops' records, which cost the profiler
+    seconds on a route of thousands of small ops."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU] * cpu + [ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
         for _ in range(reps):
             fn()
@@ -1669,11 +1759,7 @@ def _tfim_step(tct, p, device, nl=L, n=N):
     import torch
 
     pairs = [(i, i + 1) for i in range(n - 1)]
-    c = tct.Circuit(n, device=device)
-    c.h_layer()
-    for l in range(nl):
-        c.zzrx_layer(pairs, p[l, 0, : n - 1], p[l, 1])
-    e = c.expectation_zzx_energy(pairs, 1.0, -1.0)
+    e = tfim_circuit(tct, p, n, nl, device=device).expectation_zzx_energy(pairs, 1.0, -1.0)
     (g,) = torch.autograd.grad(e, p)
     return e, g
 
@@ -1991,26 +2077,47 @@ def _micro_call_stages(trace, level, nl):
     return out, calls
 
 
+#: profiler windows of 20 calls that phase 11 may read for K15's stages:
+#: the profiler can drop the tail of a window's launches (every kind short
+#: of its due, the calls recorded whole up to there; ``tools/micro_trace.py``)
+MICRO_WINDOWS = 3
+
+
 def _micro_stage_times(fn, level, nl, reps: int = 20):
     """(device µs a launch, launches read) of each of K15's stages at m2 or
-    m3 over ``reps`` calls of ``fn`` under torch.profiler, from the complete
-    calls of :func:`_micro_call_stages` (the profiler may miss the first
-    calls' launches); fails with fewer than half the calls complete."""
+    m3 from the complete calls of :func:`_micro_call_stages` in one window
+    of ``reps`` calls of ``fn`` under torch.profiler, the first of up to
+    ``MICRO_WINDOWS`` windows with at least half of its calls complete.
+    Each window prints its share of complete calls.  A window whose trace
+    holds every launch of its calls but not every call complete fails at
+    once: the trace was split wrongly, not cut."""
+    import collections
+
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
     cuda = torch.autograd.DeviceType.CUDA
-    trace = sorted((e for e in prof.events() if e.device_type == cuda), key=lambda e: e.time_range.start)
-    stages, calls = _micro_call_stages([(e.name, e.time_range.elapsed_us()) for e in trace], level, nl)
-    if 2 * calls < reps:
-        _fail(f"K15 m{level}: {calls} of {reps} calls complete in the profiler's trace")
-    return {lab: (sum(v) / len(v), len(v)) for lab, v in stages.items()}
+    want = ["gates", "transpose", "transpose"] + (["row", "row", "product"] + (["outer"] if level == 3 else [])) * nl
+    due = {k: reps * v for k, v in collections.Counter(want).items()}
+    for window in range(1, MICRO_WINDOWS + 1):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        trace = sorted((e for e in prof.events() if e.device_type == cuda), key=lambda e: e.time_range.start)
+        pairs = [(e.name, e.time_range.elapsed_us()) for e in trace]
+        stages, calls = _micro_call_stages(pairs, level, nl)
+        seen = collections.Counter(next((k for k, t in MICRO_KERNELS.items() if t(name)), None) for name, _ in pairs)
+        short = {k: f"{seen[k]} of {v}" for k, v in due.items() if seen[k] < v}
+        print(f"K15 m{level} stage window {window}: {calls} of {reps} calls ({100 * calls / reps:.0f} %) complete in "
+              f"the profiler's trace; launches missing from it: {short or 'none'}")
+        if calls < reps and not short:
+            _fail(f"K15 m{level}: every launch in the trace, yet {reps - calls} of {reps} calls not read whole")
+        if 2 * calls >= reps:
+            return {lab: (sum(v) / len(v), len(v)) for lab, v in stages.items()}
+    _fail(f"K15 m{level}: no window of {MICRO_WINDOWS} with half of its {reps} calls complete in the profiler's trace")
 
 
 def _micro_phase(tct, dev, card):
@@ -2106,6 +2213,264 @@ def _micro_phase(tct, dev, card):
         "max_abs_err": max_err["micro_grand"], "ms": ms[3], "plain_ms": plain[3], "bound_ms": bound,
         "bound_by": by, "library_ms": lib["products"][0],
     }]
+
+
+#: phase 12, the circuit API at full width (n=20, L=4; matrix() at n=12):
+#: the echo's |<0...0|e>|^2 within 1e-4 of 1 and the echo state against the
+#: CPU path within 1e-5 (amplitudes <= 1, 176 dense float32 gates);
+ECHO_FID_TOL = 1e-4
+STATE_ATOL = 1e-5
+#: the remapped energies and gradients against the unmapped ones and the
+#: CPU path, and the 39 Pauli strings and the light cone against the fused
+#: and the dense readouts (E ~ -19.6 is 1.9e-6 an ulp in float32; each
+#: entry a float32 sum over 2^20 amplitudes in another order);
+MAP_E_ATOL = 1e-5
+MAP_G_ATOL = 1e-4
+#: U U^H - I, U against the CPU path (complex64 rounding over ~170 gate
+#: layers on every column) and U[:, 0] against state(); the readouts that
+#: pick or slice the same amplitudes (outcome probabilities, subsystems,
+#: the free expectation, Pauli strings through two routes)
+UNITARY_ATOL = 1e-5
+SAME_ATOL = 1e-6
+N_UNITARY = 12
+
+
+def _launched(counters):
+    """The counters that moved since the last reset (host-side counts)."""
+    return {k.__name__: k.launches for k in counters if k.launches}
+
+
+def _reset(counters):
+    for k in counters:
+        k.launches = 0
+
+
+def _check(label, err, tol):
+    print(f"  {label}: {err:.3e} (tol {tol:g})")
+    if not err <= tol:
+        _fail(f"phase 12, {label}: {err} > {tol}")
+
+
+def _api_checks(tct, dev, counters, n=N, nl=L, n_u=N_UNITARY):
+    """Phase 12's checks (a)-(f) on the n-qubit TFIM circuit of the
+    training path and the HEA circuit of phase 8, both on ``dev``, each
+    against the port's CPU path on the same inputs (the kernels' launches
+    are required only on the card).  Returns what the timings reuse."""
+    import torch
+
+    card = torch.device(dev).type == "cuda"
+    pairs = [(i, i + 1) for i in range(n - 1)]
+    g0 = np.random.default_rng(42).normal(size=(nl, 2, n)) * 0.1  # bench.py's parameters
+    z, x = np.diag([1.0, -1.0]), np.array([[0.0, 1.0], [1.0, 0.0]])
+
+    def params(a, device, grad=False):
+        p = tct.convert.params(a, device)
+        return p.requires_grad_() if grad else p
+
+    def need(launches, names, what):
+        if card and not all(launches.get(k, 0) for k in names):
+            _fail(f"phase 12, {what}: {names} not launched ({launches})")
+
+    spent = {}  # seconds of wall time: each check, and the CPU references in it
+
+    def on_cpu(key, fn):
+        t = time.perf_counter()
+        out = fn()
+        spent[f"CPU {key}"] = spent.get(f"CPU {key}", 0.0) + time.perf_counter() - t
+        return out
+
+    last = [time.perf_counter()]
+
+    def lap(key):
+        now = time.perf_counter()
+        spent[key], last[0] = now - last[0], now
+
+    print(f"circuit API (n={n}, L={nl}):")
+    # (a) the Loschmidt echo: the inverse is plain gates, the forward K2
+    with torch.no_grad():
+        c = tfim_circuit(tct, params(g0, dev), n, nl, device=dev)
+        inv = c.inverse()
+        if inv.gate_count() != nl * (2 * n - 1) + n:
+            _fail(f"phase 12: the inverse has {inv.gate_count()} gates")
+        _reset(counters)
+        inv.state()
+        if _launched(counters):
+            _fail(f"phase 12: the inverse launched kernels: {_launched(counters)}")
+        _reset(counters)
+        echo = loschmidt_echo(c).state()
+        echo_launches = _launched(counters)
+        need(echo_launches, ["grand_zzrx_fwd"], "the echo")
+        fid = abs(echo[0].item()) ** 2
+        echo_cpu = on_cpu("(a)", lambda: loschmidt_echo(
+            tfim_circuit(tct, params(g0, "cpu"), n, nl, device="cpu")).state())
+    print(f"  (a) echo: the inverse has {inv.gate_count()} gates and launched no kernel; the echo "
+          f"launched {echo_launches}; |<0|e>|^2 = {fid:.9f}")
+    _check("(a) |<0|e>|^2 - 1", abs(fid - 1.0), ECHO_FID_TOL)
+    _check("(a) echo state, card against the CPU", (echo.cpu() - echo_cpu).abs().max().item(), STATE_ATOL)
+    lap("(a)")
+
+    # (b) remapping: the reversal of the TFIM circuit, the HEA circuit
+    # composed onto a permuted register; energy and grad of the same p
+    def tfim_vg(device, mapping):
+        p = params(g0, device, True)
+        if mapping is None:
+            e = tfim_circuit(tct, p, n, nl, device=device).expectation_zzx_energy(pairs, 1.0, -1.0)
+        else:
+            e = remapped_tfim_energy(tct, p, n, nl, mapping, device=device)
+        (g,) = torch.autograd.grad(e, p)
+        return e.item(), g.cpu().numpy()
+
+    perm = np.random.default_rng(5).permutation(n)
+
+    def hea_vg(device, perm):
+        w = params(g0, device, True)
+        if perm is None:
+            e = hea_energy(tct, n, w, device=device)
+        else:
+            e = composed_hea_energy(tct, n, w, perm, device=device)
+        (g,) = torch.autograd.grad(e, w)
+        return e.item(), g.cpu().numpy()
+
+    for label, vg, mapping, names in (
+        ("initial_mapping(q -> n-1-q)", tfim_vg, reversal(n), ["grand_zzrx_fwd", "grand_zzrx_bwd"]),
+        ("HEA compose onto a permuted register", hea_vg, perm, ["row_fwd", "row_bwd"]),
+    ):
+        _reset(counters)
+        e_m, g_m = vg(dev, mapping)
+        launches = _launched(counters)
+        need(launches, names, label)
+        e_u, g_u = vg(dev, None)
+        e_c, g_c = on_cpu("(b)", lambda: vg("cpu", mapping))
+        if not (np.isfinite(e_m) and np.all(np.isfinite(g_m)) and g_m.shape == (nl, 2, n)):
+            _fail(f"phase 12, {label}: non-finite or misshapen result")
+        print(f"  (b) {label}: E {e_m:.7f} (unmapped {e_u:.7f}, CPU {e_c:.7f}); launched {launches}")
+        _check("(b) |dE| against the unmapped circuit", abs(e_m - e_u), MAP_E_ATOL)
+        _check("(b) max|dgrad| against the unmapped circuit", float(np.abs(g_m - g_u).max()), MAP_G_ATOL)
+        _check("(b) |dE| against the CPU", abs(e_m - e_c), MAP_E_ATOL)
+        _check("(b) max|dgrad| against the CPU", float(np.abs(g_m - g_c).max()), MAP_G_ATOL)
+
+    lap("(b)")
+
+    # (c) the Hamiltonian as Pauli strings; y strings through three routes
+    structures, weights = tfim_pauli_strings(n)
+    with torch.no_grad():
+        es = c.expectation_structures(structures, weights)
+        ez = c.expectation_zzx_energy(pairs, 1.0, -1.0).item()
+        print(f"  (c) {len(structures)} Pauli strings: {es.real.item():.7f} (imag {es.imag.item():.1e}); "
+              f"fused energy {ez:.7f}")
+        _check("(c) expectation_structures against expectation_zzx_energy", abs(es.item() - ez), MAP_E_ATOL)
+        paulis = tct.gates.pauli_gates()
+        for ps in ([2, 3] + [0] * (n - 3) + [1], [0] * (n // 2) + [2, 2, 3] + [0] * (n - n // 2 - 3)):
+            got = c.expectation_ps(ps=ps)
+            lists = c.expectation_ps(**{k: [i for i, v in enumerate(ps) if v == code]
+                                        for k, code in (("x", 1), ("y", 2), ("z", 3))})
+            dense = c.expectation(*[(paulis[v], [i]) for i, v in enumerate(ps) if v])
+            _check(f"(c) ps={''.join(map(str, ps))} against x/y/z lists and the dense route",
+                   max(abs(got - lists).item(), abs(got - dense).item()), SAME_ATOL)
+
+    lap("(c)")
+
+    # (d) the light cone: items one by one, the zzrx layers through K1
+    w_card = params(g0, dev)
+    with torch.no_grad():
+        hc = hea_circuit(tct, n, w_card, device=dev)
+        for label, circuit, names in (("HEA", hc, ["row_fwd"]), ("TFIM", c, ["zzrx_fwd", "row_fwd"])):
+            for wire in (0, n // 2):
+                obs = ((z, [wire]), (z, [wire + 1]))
+                _reset(counters)
+                lc = circuit.expectation(*obs, enable_lightcone=True)
+                launches = _launched(counters)
+                need(launches, names, f"the {label} light cone")
+                dense = circuit.expectation(*obs)
+                print(f"  (d) {label} <Z_{wire} Z_{wire + 1}> light cone {lc.real.item():.7f}, "
+                      f"dense {dense.real.item():.7f}; launched {launches}")
+                _check(f"(d) {label} light cone against dense", abs(lc - dense).item(), MAP_E_ATOL)
+
+    lap("(d)")
+
+    # (e) the circuit unitary of the HEA circuit at n_u
+    wu = np.random.default_rng(12).normal(size=(nl, 2, n_u)) * 0.5
+    with torch.no_grad(), tct.config.full_float32():
+        hu = hea_circuit(tct, n_u, params(wu, dev), device=dev)
+        u = hu.matrix()
+        eye = torch.eye(2**n_u, dtype=u.dtype, device=u.device)
+        defect = (u @ u.conj().T - eye).abs().max().item()
+        col = (u[:, 0] - hu.state()).abs().max().item()
+        u_cpu = on_cpu("(e)", lambda: hea_circuit(tct, n_u, params(wu, "cpu"), device="cpu").matrix())
+        du = (u.cpu() - u_cpu).abs().max().item()
+    print(f"  (e) matrix() n={n_u}: {tuple(u.shape)} {u.dtype} on {u.device}, "
+          f"{hu.gate_count()} items, {len(hu._expanded_qir())} gates")
+    _check("(e) max|U U^H - I|", defect, UNITARY_ATOL)
+    _check("(e) U[:, 0] against state()", col, SAME_ATOL)
+    _check("(e) U against the CPU", du, UNITARY_ATOL)
+
+    lap("(e)")
+
+    # (f) subsystems and the free expectation
+    rng = np.random.default_rng(3)
+    with torch.no_grad():
+        psi, probs = c.state(), c.probability()
+        bits = rng.integers(0, 2, size=(16, n))
+        idx = torch.as_tensor(bits @ (2 ** np.arange(n - 1, -1, -1)), device=psi.device)
+        outcome = torch.stack([c.outcome_probability(b.tolist()) for b in bits])
+        _check("(f) outcome_probability at 16 bitstrings against probability()",
+               (outcome - probs[idx]).abs().max().item(), SAME_ATOL)
+        traceout, left = rng.integers(0, 2, size=n), (2, 7, 13 % n)
+        sub = c.projected_subsystem(torch.as_tensor(traceout, device=psi.device), left)
+        sl = tuple(slice(None) if q in left else int(traceout[q]) for q in range(n))
+        want = torch.reshape(torch.reshape(psi, (2,) * n)[sl], (-1,))
+        _check(f"(f) projected_subsystem{left} against the sliced state",
+               (sub - want / torch.linalg.vector_norm(want)).abs().max().item(), SAME_ATOL)
+        ops = [(z, [3]), (x, [7 % n])]
+        ref = c.expectation(*ops)
+        free = max(abs(tct.expectation(*ops, ket=psi) - ref).item(),
+                   abs(tct.expectation(*ops, ket=2 * psi, bra=psi, normalization=True) - ref).item())
+        _check("(f) free expectation(ket=, bra=) against c.expectation", free, SAME_ATOL)
+        if not c.is_valid():
+            _fail("phase 12: is_valid() is false")
+    print("  (f) is_valid(): True")
+    lap("(f)")
+    print("  wall time of the checks: " + ", ".join(f"{k} {v:.1f} s" for k, v in spent.items()))
+    return {"c": c, "g0": g0, "hu": hu, "structures": (structures, weights), "tfim_vg": tfim_vg}
+
+
+def _api_phase(tct, card, counters):
+    """Phase 12, the circuit API at full width: :func:`_api_checks` on the
+    card, then each route timed by CUDA events (median of 20 after warm-up)
+    beside what it stands against, with its busy time under torch.profiler
+    (5 calls, the card's activity alone)."""
+    import torch
+
+    dev = torch.device("cuda")
+    got = _api_checks(tct, dev, counters)
+    c, hu = got["c"], got["hu"]
+    structures, weights = got["structures"]
+    pairs = [(i, i + 1) for i in range(N - 1)]
+    zz = ((np.diag([1.0, -1.0]), [0]), (np.diag([1.0, -1.0]), [1]))
+    p = tct.convert.params(got["g0"], dev)
+    timed = {
+        "echo state (copy, inverse, 196 items)": lambda: loschmidt_echo(c).state()[0].item(),
+        "initial_mapping energy + grad": lambda: got["tfim_vg"](dev, reversal(N)),
+        "unmapped energy + grad (the training step's value and grad)": lambda: got["tfim_vg"](dev, None),
+        "39 Pauli strings (a new circuit each call)":
+            lambda: tfim_circuit(tct, p, N, L, device=dev).expectation_structures(structures, weights).item(),
+        "fused expectation_zzx_energy (a new circuit each call)":
+            lambda: tfim_circuit(tct, p, N, L, device=dev).expectation_zzx_energy(pairs, 1.0, -1.0).item(),
+        "HEA <Z_0 Z_1> light cone": lambda: hea_circuit(tct, N, p, device=dev).expectation(
+            *zz, enable_lightcone=True).item(),
+        "HEA <Z_0 Z_1> dense": lambda: hea_circuit(tct, N, p, device=dev).expectation(*zz).item(),
+        "TFIM <Z_0 Z_1> light cone": lambda: tfim_circuit(tct, p, N, L, device=dev).expectation(
+            *zz, enable_lightcone=True).item(),
+        "TFIM <Z_0 Z_1> dense": lambda: tfim_circuit(tct, p, N, L, device=dev).expectation(*zz).item(),
+        f"matrix() n={N_UNITARY}": lambda: hu.matrix()[0, 0].item(),
+    }
+    for label, fn in timed.items():
+        with torch.no_grad() if "grad" not in label else torch.enable_grad():
+            ms = _time_ms(fn, inner=1)
+            host, busy, by_kernel = _profile(fn, reps=5, cpu=False)
+        top = ", ".join(f"{name[:40]} {t:.3f} x{k:g}" for name, t, k in by_kernel[:3])
+        print(f"phase 12 time, {label}: {ms:.3f} ms (CUDA events, median of 20), busy {busy:.3f} ms "
+              f"({100 * busy / ms:.1f} %; profiler, 5 calls), {card}; top kernels {top}")
 
 
 def main() -> int:
@@ -2231,12 +2596,8 @@ def main() -> int:
 
     # ---- 3. the forward path through the public API ----------------------
     def circuit_energy(params, nl, device, n=N):
-        pp = [(i, i + 1) for i in range(n - 1)]
-        c = tct.Circuit(n, device=device)
-        c.h_layer()
-        for l in range(nl):
-            c.zzrx_layer(pp, params[l, 0, : n - 1], params[l, 1])
-        return c, c.expectation_zzx_energy(pp, 1.0, -1.0)
+        c = tfim_circuit(tct, params, n, nl, device=device)
+        return c, c.expectation_zzx_energy([(i, i + 1) for i in range(n - 1)], 1.0, -1.0)
 
     prng = np.random.default_rng(42)
     grids = [prng.normal(size=(L, 2, N)) * 0.1 for _ in range(SEEDS)]
@@ -2599,6 +2960,12 @@ def main() -> int:
     # ---- 11. the staged micro-benchmark: K15 ----------------------------
     kernels_line["kernels"].extend(_micro_phase(tct, dev, card))
     print(f"phase 11 ended at {time.time() - t_start:.1f} s")
+
+    # ---- 12. the circuit API at full width -----------------------------
+    from tensorcircuit_ng_tpu_torch.core import kernels_micro
+
+    _api_phase(tct, card, every_counter + (kernels_micro.micro_grand,))
+    print(f"phase 12 ended at {time.time() - t_start:.1f} s")
     print(f"smoke total: {time.time() - t_start:.1f} s")
     print(json.dumps(kernels_line))
     print(card)

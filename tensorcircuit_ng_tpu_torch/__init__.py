@@ -17,6 +17,16 @@ Time evolution of a matrix product state in Vidal form::
     for _ in range(10):
         eng.trotter_step(gates)                      # (nb, 4, 4) or (4, 4)
 
+Copies, composition, remapping and the inverse (a Loschmidt echo), the
+circuit unitary and Pauli-string expectations::
+
+    c = tct.Circuit(8, device="cpu")
+    c.h_layer()
+    c.zzrx_layer(pairs, zz, rx)
+    echo = c.copy().append(c.inverse())           # back to |0...0>
+    u = c.matrix()                                # (256, 256)
+    e = c.expectation_ps(ps=[3, 3, 0, 0, 0, 0, 0, 0])
+
 On the card the fused TFIM layers and the TEBD truncation SVD run
 hand-written Hopper kernels (``core/csrc/``, built by nvcc at first use
 into ``build/kernels/``); on the CPU (``device="cpu"`` or
@@ -24,8 +34,35 @@ into ``build/kernels/``); on the CPU (``device="cpu"`` or
 """
 
 from . import config, convert
-from .config import dtypestr, get_device, set_device, set_dtype
-from .models.circuit import Circuit
+from .config import (
+    dtypestr,
+    get_device,
+    get_dtype,
+    runtime_dtype,
+    set_device,
+    set_dtype,
+    set_function_dtype,
+)
+from .models.circuit import Circuit, expectation
 from .models.tebd import ParallelTEBD
+from .ops import gates
+from .ops.gates import Gate, array_to_tensor, num_to_tensor
 
-__all__ = ["Circuit", "ParallelTEBD", "config", "convert", "dtypestr", "get_device", "set_device", "set_dtype"]
+__all__ = [
+    "Circuit",
+    "Gate",
+    "ParallelTEBD",
+    "array_to_tensor",
+    "config",
+    "convert",
+    "dtypestr",
+    "expectation",
+    "gates",
+    "get_device",
+    "get_dtype",
+    "num_to_tensor",
+    "runtime_dtype",
+    "set_device",
+    "set_dtype",
+    "set_function_dtype",
+]

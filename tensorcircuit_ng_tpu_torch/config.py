@@ -13,14 +13,19 @@ from __future__ import annotations
 
 import contextlib
 import functools
-from typing import Any, Iterator, Optional, Union
+from typing import Any, Callable, Iterator, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 __all__ = [
     "set_dtype",
+    "get_dtype",
+    "runtime_dtype",
+    "set_function_dtype",
     "dtypestr",
+    "rdtypestr",
+    "npdtype",
     "torch_dtype",
     "np_dtype",
     "set_device",
@@ -86,6 +91,40 @@ def set_dtype(dtype: Any = "complex64") -> _Scope:
 
 def dtypestr() -> str:
     return _dtype
+
+
+get_dtype = dtypestr
+
+
+def rdtypestr() -> str:
+    """The real dtype paired with the default complex dtype."""
+    return _COMPLEX_TO_REAL[_dtype]
+
+
+def npdtype() -> np.dtype:
+    return np.dtype(_dtype)
+
+
+@contextlib.contextmanager
+def runtime_dtype(dtype: Any) -> Iterator[Tuple[str, str]]:
+    """The default dtype is ``dtype`` inside the scope; yields
+    ``(complex_dtype_str, real_dtype_str)``."""
+    with set_dtype(dtype) as value:
+        yield value
+
+
+def set_function_dtype(dtype: Any) -> Callable[[Callable], Callable]:
+    """Decorator: run the wrapped function under ``runtime_dtype(dtype)``."""
+
+    def deco(f: Callable) -> Callable:
+        @functools.wraps(f)
+        def wrapper(*args: Any, **kws: Any) -> Any:
+            with runtime_dtype(dtype):
+                return f(*args, **kws)
+
+        return wrapper
+
+    return deco
 
 
 def torch_dtype(dtype: Optional[str] = None) -> torch.dtype:

@@ -4,7 +4,9 @@ Counterpart of ``tensorcircuit_ng_tpu/models/abstractcircuit.py``: the gate
 methods (every name of the gate registry, lower and upper case, with
 broadcast over index sequences), ``any``/``unitary``, the QIR round trip
 (``to_qir``, ``from_qir``, ``append_from_qir``) for the items the port's
-engine knows, and gate counts.
+engine knows, copies, composition, remapping and the inverse circuit, gate
+counts, the recorded hardware instructions and ``expectation_structures``
+(``expectation_ps`` itself lives with the state, in ``basecircuit.py``).
 """
 
 from __future__ import annotations
@@ -25,6 +27,41 @@ def _is_sequence(x: Any) -> bool:
     return isinstance(x, (list, tuple, range, np.ndarray))
 
 
+def _remap_qir_item(item: Dict[str, Any], mapping: Dict[int, int], n_new: int) -> Dict[str, Any]:
+    """A QIR item with its qubits renamed through ``mapping``.
+
+    Layer items carry wires outside ``index`` (``pairs``, renamed in place,
+    each keeping its parameter) and full-register per-qubit parameters
+    (``rx_thetas``, ``gates``, and ``thetas`` of rx and fused one-qubit
+    layers), which are permuted: that needs ``mapping`` to be a bijection of
+    the new register, else ValueError.  A tensor is permuted by an index
+    tensor on its own device (kept there, like a gate constant), so
+    autograd reaches the original angles."""
+    new_item = dict(item)
+    if "index" in item:
+        new_item["index"] = tuple(mapping[int(q)] for q in item["index"])
+    if item.get("pairs") is not None:
+        new_item["pairs"] = [(mapping[int(a)], mapping[int(b)]) for a, b in item["pairs"]]
+    keys = [k for k in ("rx_thetas", "gates") if item.get(k) is not None]
+    if (item.get("rx_layer") or item.get("fused_1q_layer")) and item.get("thetas") is not None:
+        keys.append("thetas")
+    for key in keys:
+        arr = item[key]
+        if len(mapping) != n_new or sorted(mapping.values()) != list(range(n_new)) or arr.shape[0] != n_new:
+            raise ValueError(
+                f"cannot remap fused-layer item {item.get('name')!r}: "
+                "per-qubit parameters need a full-register bijection"
+            )
+        perm = np.zeros(n_new, dtype=np.int64)
+        for logical, physical in mapping.items():
+            perm[int(physical)] = int(logical)
+        if isinstance(arr, torch.Tensor):
+            new_item[key] = arr[config.device_constant(perm, arr.device, torch.int64)]
+        else:
+            new_item[key] = np.asarray(arr)[perm]
+    return new_item
+
+
 class AbstractCircuit:
     """Gate bookkeeping shared by the port's simulators."""
 
@@ -37,6 +74,7 @@ class AbstractCircuit:
 
     def __init__(self) -> None:
         self._qir: List[Dict[str, Any]] = []
+        self._extra_qir: List[Dict[str, Any]] = []
 
     def apply_general_gate(
         self,
@@ -199,6 +237,100 @@ class AbstractCircuit:
                 **item.get("parameters", {}),
             )
 
+    def get_positional_logical_mapping(self) -> Dict[int, int]:
+        """Position in a measured bitstring -> logical qubit: the identity,
+        or the qubits of the recorded measure instructions in order."""
+        measured = [
+            item["index"][0]
+            for item in self._extra_qir + self._qir
+            if item.get("measure") or item.get("name") == "measure"
+        ]
+        if not measured:
+            return {i: i for i in range(self._nqubits)}
+        return dict(enumerate(measured))
+
+    # ------------------------------------------------------------------
+    # composition, copies, remapping, inverse
+    # ------------------------------------------------------------------
+
+    def _new_params(self, circuit_params: Optional[Dict[str, Any]]) -> Dict[str, Any]:
+        """``circuit_params`` with the device of this circuit unless it
+        names one (a port circuit lands on the configured device else)."""
+        params = {k: v for k, v in self._copy_params().items() if k == "device"}  # type: ignore[attr-defined]
+        params.update(circuit_params or {})
+        return params
+
+    def compose(self, other: "AbstractCircuit", indices: Optional[Sequence[int]] = None) -> "AbstractCircuit":
+        """Append ``other`` (in place, returns self), its qubit i placed on
+        ``indices[i]`` when given."""
+        qir = other.to_qir()
+        if indices is not None:
+            mapping = {i: int(j) for i, j in enumerate(indices)}
+            qir = [_remap_qir_item(item, mapping, self._nqubits) for item in qir]
+        return self.append_from_qir([dict(item) for item in qir])
+
+    def initial_mapping(
+        self,
+        logical_physical_mapping: Dict[int, int],
+        n: Optional[int] = None,
+        circuit_params: Optional[Dict[str, Any]] = None,
+    ) -> "AbstractCircuit":
+        """A new circuit with logical qubit q on ``logical_physical_mapping[q]``
+        (on this circuit's device; no input state)."""
+        circuit_params = self._new_params(circuit_params)
+        circuit_params.setdefault("nqubits", self._nqubits if n is None else n)
+        c = type(self)(**circuit_params)  # type: ignore[call-arg]
+        for item in self._qir:
+            c._apply_qir_item(_remap_qir_item(item, logical_physical_mapping, circuit_params["nqubits"]))
+        return c
+
+    def inverse(self, circuit_params: Optional[Dict[str, Any]] = None) -> "AbstractCircuit":
+        """The adjoint circuit, from |0...0> (the inputs are dropped): the
+        expanded QIR in reverse, each gate as ``any`` named ``name + "d"``
+        with its conjugate transpose (a tensor gate keeps autograd);
+        ``multicz`` is its own inverse, a wide ``rzm`` negates its angle."""
+        if circuit_params is None:
+            circuit_params = dict(self._copy_params())  # type: ignore[attr-defined]
+            circuit_params.pop("inputs", None)
+        circuit_params = self._new_params(circuit_params)
+        circuit_params.setdefault("nqubits", self._nqubits)
+        c = type(self)(**circuit_params)  # type: ignore[call-arg]
+        for item in reversed(self._expanded_qir()):  # type: ignore[attr-defined]
+            if item.get("multicz"):
+                c.multicz(*item["index"])  # type: ignore[attr-defined]
+            elif item.get("gate") is None and item.get("gatef") is None:
+                params = item.get("parameters") or {}
+                if "theta" in params:
+                    getattr(c, item["name"])(*item["index"], theta=-params["theta"])
+                else:
+                    getattr(c, item["name"])(*item["index"])
+            else:
+                m = item["gate"].matrix()
+                c.any(*item["index"], unitary=m.T.conj(), name=(item.get("name") or "any") + "d")
+        return c
+
+    def append(self, c: "AbstractCircuit", indices: Optional[Sequence[int]] = None) -> "AbstractCircuit":
+        """Append ``c`` after this circuit (in place, returns self); with
+        ``indices`` only each item's ``index`` is renamed, so a fused layer
+        of a smaller circuit fails."""
+        for item in c.to_qir():
+            new_item = dict(item)
+            if indices is not None:
+                new_item["index"] = tuple(indices[i] for i in item["index"])
+            self._apply_qir_item(new_item)
+        return self
+
+    def prepend(self, c: "AbstractCircuit") -> "AbstractCircuit":
+        """A new circuit: a copy of ``c``, then this circuit."""
+        new = c.copy()
+        new.append(self)
+        return new
+
+    def copy(self) -> "AbstractCircuit":
+        c = type(self)(**self._copy_params())  # type: ignore[attr-defined]
+        c.append_from_qir([dict(item) for item in self._qir])
+        return c
+
     # ------------------------------------------------------------------
     # counts
     # ------------------------------------------------------------------
@@ -218,6 +350,10 @@ class AbstractCircuit:
             if self.gate_aliases.get((item.get("name") or "").lower(), (item.get("name") or "").lower()) in wanted
         )
 
+    def gate_count_by_condition(self, cond_func: Callable[[Dict[str, Any]], bool]) -> int:
+        """The number of QIR items for which ``cond_func`` is true."""
+        return sum(1 for item in self._qir if cond_func(item))
+
     def gate_summary(self) -> Dict[str, int]:
         """QIR item count by name."""
         summary: Dict[str, int] = {}
@@ -225,6 +361,63 @@ class AbstractCircuit:
             name = item.get("name") or "any"
             summary[name] = summary.get(name, 0) + 1
         return summary
+
+    def count_flop(self) -> int:
+        """A rough FLOP count of the dense forward pass: 8 d^(n+k) an item
+        on k wires (a fused layer counts as an n-wire gate)."""
+        return sum(8 * self._d ** (self._nqubits + len(item["index"])) for item in self._qir)
+
+    def __repr__(self) -> str:
+        return f"{type(self).__name__}(nqubits={self._nqubits}, ngates={len(self._qir)})"
+
+    # ------------------------------------------------------------------
+    # hardware instructions (recorded beside the QIR, not simulated)
+    # ------------------------------------------------------------------
+
+    def _instruction(self, name: str, index: Sequence[int]) -> None:
+        self._extra_qir.append({"name": name, "index": tuple(index), "pos": len(self._qir)})
+
+    def measure_instruction(self, *index: int) -> None:
+        self._instruction("measure", index)
+
+    def reset_instruction(self, *index: int) -> None:
+        self._instruction("reset", index)
+
+    def barrier_instruction(self, *index: int) -> None:
+        self._instruction("barrier", index)
+
+    # ------------------------------------------------------------------
+    # expectation sugar and gate-factory plumbing
+    # ------------------------------------------------------------------
+
+    def expectation_structures(self, structures: Any, weights: Any, **kws: Any) -> Any:
+        """Σ_s w_s ⟨P_s⟩ over Pauli strings given as ``ps`` lists (0/1/2/3
+        for I/X/Y/Z a qubit)."""
+        total = 0.0
+        for s, w in zip(structures, weights):
+            total = total + w * self.expectation_ps(ps=s, **kws)  # type: ignore[attr-defined]
+        return total
+
+    @staticmethod
+    def apply_general_gate_delayed(gatef: Any, name: Optional[str] = None, mpo: bool = False) -> Any:
+        """An unbound method that applies the gates of ``gatef``."""
+
+        def apply(self: "AbstractCircuit", *index: int, **kws: Any) -> None:
+            self._apply_gate_instance(gatef, *index, name=name or getattr(gatef, "name", "any"), **kws)
+
+        return apply
+
+    @staticmethod
+    def apply_general_variable_gate_delayed(gatef: Any, name: Optional[str] = None, mpo: bool = False) -> Any:
+        """As :meth:`apply_general_gate_delayed`, for a parameterized gate."""
+        return AbstractCircuit.apply_general_gate_delayed(gatef, name=name, mpo=mpo)
+
+    @staticmethod
+    def standardize_gate(name: str) -> str:
+        """The canonical lower-case name of a gate alias."""
+        name = name.lower()
+        aliases = {"cx": "cnot", "toff": "toffoli", "ccx": "toffoli", "cswap": "fredkin", "sdg": "sd", "tdg": "td"}
+        return aliases.get(name, name)
 
 
 AbstractCircuit._meta_apply()

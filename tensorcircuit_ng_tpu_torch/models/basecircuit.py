@@ -7,7 +7,10 @@ uniform state, runs of consecutive ``zzrx_layer`` items with the same pairs
 go to the multi-layer kernels, and single-qubit layers (``rx/ry/rz_layer``,
 ``h_layer``, ``fused_single_qubit_layer``) to the row-layer kernels.
 Measurement takes its uniforms from ``status`` (as in the JAX package) or
-from ``torch.rand`` on the circuit's device.
+from ``torch.rand`` on the circuit's device.  ``_expanded_qir`` unfolds the
+fused layers into one gate a qubit or pair (for ``inverse`` and
+``matrix``); the light-cone expectation applies the items that reach the
+observable one by one, from |0...0>, without the fold or the grouping.
 """
 
 from __future__ import annotations
@@ -20,7 +23,16 @@ import torch
 
 from .. import config
 from ..core import kernels, statevec
-from ..ops.gates import GATES, Gate, ry_matrix, rz_matrix
+from ..ops.gates import (
+    GATES,
+    Gate,
+    multicontrol_matrix,
+    rx_matrix,
+    ry_matrix,
+    rz_matrix,
+    rzm_diagonal,
+    rzz_matrix,
+)
 from .abstractcircuit import AbstractCircuit
 
 __all__ = ["BaseCircuit"]
@@ -49,6 +61,9 @@ class BaseCircuit(AbstractCircuit):
     @property
     def device(self) -> torch.device:
         return self._device
+
+    def _copy_params(self) -> Dict[str, Any]:
+        return {"nqubits": self._nqubits, "inputs": self._inputs, "dim": self._d, "device": self._device}
 
     def _param(self, x: Any) -> torch.Tensor:
         """A flat parameter tensor on the circuit's device (keeps autograd;
@@ -181,6 +196,53 @@ class BaseCircuit(AbstractCircuit):
                 diag = np.diagonal(np.reshape(gate, (dim, dim)))
             return statevec.apply_diagonal(psi, diag, item["index"], self._d)
         return statevec.apply_unitary(psi, gate, item["index"], self._d)
+
+    def _expanded_qir(self) -> List[Dict[str, Any]]:
+        """The QIR with each fused item unfolded into plain gate items: an
+        rx layer into n ``rx``, a zz product into one ``rzz`` a pair, a zzrx
+        layer into both, a fused one-qubit layer into n ``fused1q``, and
+        ``rzm``/``multicz`` on at most 8 wires into one diagonal matrix
+        (wider ones stay as they are).  Tensor angles keep autograd."""
+        cdt = config.dtypestr()
+
+        def gate_item(gate, index, name, gatef=None, theta=None, diagonal=False):
+            item = {"gatef": gatef, "gate": gate, "index": tuple(int(i) for i in index), "name": name,
+                    "split": None, "mpo": False, "diagonal": diagonal}
+            if theta is not None:
+                item["parameters"] = {"theta": theta}
+            return item
+
+        def rzz_items(pairs, thetas):
+            ms = rzz_matrix(thetas)
+            return [gate_item(Gate(ms[k].reshape(2, 2, 2, 2), name="rzz"), (a, b), "rzz", GATES["rzz"], thetas[k], True)
+                    for k, (a, b) in enumerate(pairs)]
+
+        def rx_items(thetas):
+            ms = rx_matrix(thetas)
+            return [gate_item(Gate(ms[q], name="rx"), (q,), "rx", theta=thetas[q]) for q in range(self._nqubits)]
+
+        out: List[Dict[str, Any]] = []
+        for item in self._qir:
+            k = len(item["index"])
+            if item.get("rx_layer"):
+                out.extend(rx_items(item["thetas"]))
+            elif item.get("zstring_rot") and k <= 8:
+                diag = rzm_diagonal(item["theta"], k, cdt)
+                m = torch.diag(diag) if isinstance(diag, torch.Tensor) else np.diag(diag)
+                out.append(gate_item(Gate(m, name="rzm"), item["index"], "rzm", diagonal=True))
+            elif item.get("multicz") and k <= 8:
+                m = multicontrol_matrix(np.diag([1.0, -1.0]), [1] * (k - 1))
+                out.append(gate_item(Gate(m, name="multicz"), item["index"], "multicz", diagonal=True))
+            elif item.get("fused_1q_layer"):
+                out.extend(gate_item(Gate(item["gates"][q], name="any"), (q,), "fused1q") for q in range(self._nqubits))
+            elif item.get("zz_product"):
+                out.extend(rzz_items(item["pairs"], item["thetas"]))
+            elif item.get("zzrx_layer"):
+                out.extend(rzz_items(item["pairs"], item["zz_thetas"]))
+                out.extend(rx_items(item["rx_thetas"]))
+            else:
+                out.append(item)
+        return out
 
     # ------------------------------------------------------------------
     # fused layers
@@ -332,8 +394,25 @@ class BaseCircuit(AbstractCircuit):
         x: Optional[Sequence[int]] = None,
         y: Optional[Sequence[int]] = None,
         z: Optional[Sequence[int]] = None,
+        ps: Optional[Sequence[int]] = None,
+        reuse: bool = True,
+        noise_conf: Optional[Any] = None,
+        nmc: int = 1000,
+        status: Optional[Any] = None,
+        enable_lightcone: bool = False,
     ) -> torch.Tensor:
-        return statevec.expectation_ps(self.state(), x, y, z)
+        """⟨X_x Y_y Z_z⟩ by slot flips and sign masks (no matmuls).  ``ps``,
+        a length-n list of 0/1/2/3 for I/X/Y/Z, takes precedence over the
+        x/y/z lists.  ``noise_conf`` (with ``nmc`` and ``status``) is not
+        ported yet."""
+        _no_noise(noise_conf)
+        if ps is not None:
+            x, y, z = ([i for i, v in enumerate(ps) if v == p] for p in (1, 2, 3))
+        if enable_lightcone:
+            psi = self._lightcone_state([int(q) for q in (*(x or ()), *(y or ()), *(z or ()))])
+        else:
+            psi = self.state(reuse=reuse)
+        return statevec.expectation_ps(psi, x, y, z)
 
     def expectation_ising_sum(
         self,
@@ -370,9 +449,21 @@ class BaseCircuit(AbstractCircuit):
         xs = [(q, float(x_weight)) for q in range(self._nqubits)] if x_weight else None
         return self.expectation_ising_sum(zz_terms=zz, x_terms=xs)
 
-    def expectation(self, *ops: Tuple[Any, Sequence[int]], reuse: bool = True) -> torch.Tensor:
+    def expectation(
+        self,
+        *ops: Tuple[Any, Sequence[int]],
+        reuse: bool = True,
+        enable_lightcone: bool = False,
+        noise_conf: Optional[Any] = None,
+        nmc: int = 1000,
+        status: Optional[Any] = None,
+    ) -> torch.Tensor:
         """⟨psi| O_1 O_2 ... |psi⟩ with ``O_i = (operator, [wires])`` on the
-        dense state; an operator is a ``Gate`` or a dense matrix or tensor."""
+        dense state; an operator is a ``Gate`` or a dense matrix or tensor.
+        ``enable_lightcone`` builds the state from the items in the
+        observables' causal cone only (:meth:`_lightcone_qir`); ``noise_conf``
+        (with ``nmc`` and ``status``) is not ported yet."""
+        _no_noise(noise_conf)
         norm_ops = []
         for op in ops:
             if not (isinstance(op, tuple) and len(op) == 2):
@@ -383,11 +474,34 @@ class BaseCircuit(AbstractCircuit):
             if not hasattr(wires, "__len__"):
                 wires = [wires]
             norm_ops.append((o, [int(w) % self._nqubits for w in wires]))
-        psi = self.state(reuse=reuse)
+        if enable_lightcone:
+            psi = self._lightcone_state([w for _, ws in norm_ops for w in ws])
+        else:
+            psi = self.state(reuse=reuse)
         phi = psi
         for o, wires in norm_ops:
             phi = statevec.apply_unitary(phi, o, wires, self._d)
         return torch.vdot(psi, phi)
+
+    def _lightcone_qir(self, obs_wires: Sequence[int]) -> List[Dict[str, Any]]:
+        """The QIR items in the causal cone of ``obs_wires``, in order: an
+        item is kept when it touches the cone, and then widens it (a fused
+        layer touches every wire, so the cone keeps everything before it)."""
+        cone = set(obs_wires)
+        keep: List[Dict[str, Any]] = []
+        for item in reversed(self._qir):
+            if cone.intersection(item["index"]):
+                keep.append(item)
+                cone.update(item["index"])
+        keep.reverse()
+        return keep
+
+    def _lightcone_state(self, obs_wires: Sequence[int]) -> torch.Tensor:
+        """The cone's items applied one by one to the initial state."""
+        psi = self._initial_state()
+        for item in self._lightcone_qir(obs_wires):
+            psi = self._apply_item(psi, item)
+        return psi
 
     def replace_inputs(self, inputs: Any) -> None:
         """Swap the input state."""
@@ -404,6 +518,24 @@ class BaseCircuit(AbstractCircuit):
     def probability(self) -> torch.Tensor:
         """The probability vector |psi|^2 (length d^n)."""
         return statevec.probabilities(self.state())
+
+    def outcome_probability(self, bitstring: Union[str, Sequence[int]]) -> torch.Tensor:
+        """The probability of measuring ``bitstring`` on every qubit."""
+        amp = self.amplitude(bitstring)
+        return torch.real(torch.conj(amp) * amp)
+
+    def projected_subsystem(self, traceout: Any, left: Sequence[int]) -> torch.Tensor:
+        """The normalized state of the sites in ``left``, every other site
+        projected onto its digit in ``traceout`` (length n; the entries at
+        ``left`` are ignored; a tensor may lie on the card)."""
+        left = tuple(int(q) for q in left)
+        tv = torch.reshape(torch.as_tensor(traceout, device=self._device), (-1,)).to(torch.int64)
+        psi = self.state()
+        n, d = self._nqubits, self._d
+        for q in sorted((q for q in range(self._nqubits) if q not in left), reverse=True):
+            psi = torch.reshape(torch.reshape(psi, (d**q, d, d ** (n - 1 - q)))[:, tv[q], :], (-1,))
+            n -= 1
+        return psi / torch.linalg.vector_norm(psi).to(psi.dtype)
 
     #: tie-break added to each uniform, as in the JAX package
     _MEASURE_EPS = 0.31415926e-12
@@ -465,3 +597,12 @@ class BaseCircuit(AbstractCircuit):
         if form == "tensor":
             return torch.reshape(s, (self._d,) * self._nqubits)
         return s
+
+    wavefunction = state
+
+
+def _no_noise(noise_conf: Any) -> None:
+    if noise_conf is not None:
+        raise NotImplementedError(
+            "noise_conf is not ported yet: the noise API is Queue 1 item 11b of ROADMAP.md"
+        )

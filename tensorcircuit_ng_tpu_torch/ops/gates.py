@@ -6,7 +6,8 @@ a dense tensor of shape ``(2,)*2k``; gate matrices are functions of
 matrices, which are moved to the state's device where they are applied; a
 torch tensor parameter gives a torch matrix on its device that keeps
 autograd.  ``GATES`` maps every gate name (and alias) to its factory:
-``GATES["cnot"]()`` or ``GATES["rx"](theta=0.3)`` -> :class:`Gate`.
+``GATES["cnot"]()`` or ``GATES["rx"](theta=0.3)`` -> :class:`Gate`; the
+module attributes ``gates.h``, ``gates.rx_gate`` name the same factories.
 """
 
 from __future__ import annotations
@@ -24,6 +25,8 @@ __all__ = [
     "Gate",
     "GateF",
     "GateVF",
+    "num_to_tensor",
+    "array_to_tensor",
     "GATES",
     "GATE_ALIASES",
     "VARIABLE_ALIASES",
@@ -53,6 +56,32 @@ __all__ = [
 ]
 
 
+def num_to_tensor(*nums: Any, dtype: Optional[str] = None, device: Any = None) -> Any:
+    """Numbers or arrays as tensors of the complex ``dtype`` (default: the
+    configured one).  A tensor keeps its device (and autograd) unless
+    ``device`` is given; anything else goes to ``device``, else the
+    configured device."""
+    cdt = config.torch_dtype(dtype)
+    out = []
+    for x in nums:
+        if isinstance(x, torch.Tensor):
+            out.append(x.to(device=x.device if device is None else device, dtype=cdt))
+        else:
+            out.append(torch.as_tensor(np.asarray(x), device=config.resolve_device(device)).to(cdt))
+    return out[0] if len(out) == 1 else out
+
+
+array_to_tensor = num_to_tensor
+
+PAULI_CHAR_TO_INDEX = {"I": 0, "X": 1, "Y": 2, "Z": 3}
+
+# single-qubit basis states, numpy constants
+zero_state = np.array([1.0, 0.0], dtype=np.complex64)
+one_state = np.array([0.0, 1.0], dtype=np.complex64)
+plus_state = (zero_state + one_state) / np.sqrt(2.0)
+minus_state = (zero_state - one_state) / np.sqrt(2.0)
+
+
 class Gate:
     """A dense gate tensor with a name; shape ``(d,)*2k`` or matrix form."""
 
@@ -61,6 +90,9 @@ class Gate:
             tensor = np.asarray(tensor)
         self.tensor = tensor
         self.name = name
+
+    def copy(self) -> "Gate":
+        return Gate(self.tensor, self.name)
 
     def __repr__(self) -> str:
         return f"Gate(name={self.name!r}, shape={tuple(self.tensor.shape)})"
@@ -409,6 +441,46 @@ class GateF:
     def matrix(self, *args: Any, **kws: Any) -> Any:
         return self(*args, **kws).matrix()
 
+    def adjoint(self) -> "GateF":
+        """The factory of the conjugate transpose, named ``name + "d"``."""
+        base = self
+
+        def adj_fn(*args: Any, dtype: Optional[str] = None, **kws: Any) -> Any:
+            return base(*args, dtype=dtype, **kws).matrix().T.conj()
+
+        return GateF(self.name + "d", adj_fn, self.nqubits)
+
+    def ided(self, before: bool = True) -> "GateF":
+        """An identity wire tensored before (or after) the gate."""
+        base = self
+
+        def ided_fn(*args: Any, dtype: Optional[str] = None, **kws: Any) -> Any:
+            m = base(*args, dtype=dtype, **kws).matrix()
+            o = _Ops(dtype, m)
+            return o.kron(o.eye(2), m) if before else o.kron(m, o.eye(2))
+
+        return GateF(("ip" if before else "ia") + self.name, ided_fn, self.nqubits + 1)
+
+    def _with_control(self, prefix: str, on: int) -> "GateF":
+        base = self
+
+        def ctrl_fn(*args: Any, dtype: Optional[str] = None, **kws: Any) -> Any:
+            m = base(*args, dtype=dtype, **kws).matrix()
+            o = _Ops(dtype, m)
+            dim = m.shape[0]
+            block = slice(dim, None) if on else slice(None, dim)
+            return o.set_block(o.eye(2 * dim), block, block, m)
+
+        return GateF(prefix + self.name, ctrl_fn, self.nqubits + 1, ctrl=[on] + self.ctrl)
+
+    def controlled(self) -> "GateF":
+        """The gate controlled by one more qubit (active on 1)."""
+        return self._with_control("c", 1)
+
+    def ocontrolled(self) -> "GateF":
+        """The gate controlled by one more qubit (active on 0)."""
+        return self._with_control("o", 0)
+
     def __repr__(self) -> str:
         return f"GateF({self.name!r})"
 
@@ -484,3 +556,145 @@ GATES: Dict[str, GateF] = _build_registry()
 FIXED_GATE_NAMES = list(_FIXED_GATES) + list(GATE_ALIASES)
 #: names of the parameterized gates
 VARIABLE_GATE_NAMES = list(_VARIABLE_FNS) + list(VARIABLE_ALIASES)
+
+
+def get_gate(name: str) -> GateF:
+    """The factory registered under ``name`` (any case)."""
+    name = name.lower()
+    if name not in GATES:
+        raise KeyError(f"unknown gate {name!r}")
+    return GATES[name]
+
+
+def __getattr__(attr: str) -> Any:
+    """``gates.h``, ``gates.rx`` and ``gates.rx_gate`` name the factories."""
+    key = attr[: -len("_gate")] if attr.endswith("_gate") else attr
+    if key in GATES:
+        return GATES[key]
+    raise AttributeError(f"module 'gates' has no attribute {attr!r}")
+
+
+def _numpy(a: Any) -> np.ndarray:
+    return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
+def matrix_for_gate(gate: Gate) -> np.ndarray:
+    """The dense numpy matrix of a Gate."""
+    return _numpy(gate.matrix())
+
+
+def batched_unitary(thetas: Any, nqubits: int = 1) -> Any:
+    """Unitaries exp(i H(theta)) from parameter rows: each row, cast to the
+    complex dtype and repeated to fill d x d, gives the hermitian H.  A row
+    gives one (d, d) matrix, a (B, k) batch (B, d, d); numpy in, numpy out,
+    a tensor keeps its device and autograd."""
+    o = _Ops(None, thetas)
+    th = o.c(thetas)
+    dim = 2**nqubits
+    need = dim * dim
+    tile = (1,) * (th.ndim - 1) + (-(-need // th.shape[-1]),)
+    th = th.repeat(*tile) if o.torch else np.tile(th, tile)
+    m = th[..., :need].reshape(tuple(th.shape[:-1]) + (dim, dim))
+
+    def dag(a: Any) -> Any:
+        return a.transpose(-1, -2).conj() if o.torch else np.swapaxes(a, -1, -2).conj()
+
+    h = (m + dag(m)) / 2.0 + 1j * (m - dag(m)) / 2.0
+    h = (h + dag(h)) / 2.0
+    e, v = o.fn("linalg").eigh(h)
+    return (v * o.fn("exp")(1j * e)[..., None, :]) @ dag(v)
+
+
+def pauli_gates(dtype: Optional[str] = None) -> list:
+    """[I, X, Y, Z] as numpy matrices of the complex dtype."""
+    return list(_Ops(dtype).paulis())
+
+
+def meta_gate() -> None:
+    """No-op: the gate matrices are built at each call with the live dtype."""
+
+
+def meta_vgate() -> None:
+    """No-op, as :func:`meta_gate`."""
+
+
+def bmatrix(a: Any) -> str:
+    r"""LaTeX bmatrix text of a 2D array."""
+    a = _numpy(a)
+    if a.ndim > 2:
+        raise ValueError("bmatrix can at most display two dimensions")
+    lines = np.array2string(a, max_line_width=10**8).replace("[", "").replace("]", "").splitlines()
+    body = "\\\\\n".join("    " + " & ".join(ln.split()) for ln in lines if ln.strip())
+    return "\\begin{bmatrix}\n" + body + "\n\\end{bmatrix}"
+
+
+def get_u_parameter(m: Any) -> Tuple[float, float, float]:
+    """(theta, phi, lbd) of the u gate from a single-qubit unitary."""
+    m = _numpy(m).reshape(2, 2)
+    u = np.linalg.det(m) ** (-0.5) * m  # SU(2)
+    theta = 2 * np.arctan2(abs(u[1, 0]), abs(u[0, 0]))
+    phi_plus_lam = 2 * np.angle(u[1, 1])
+    phi_minus_lam = 2 * np.angle(u[1, 0])
+    return float(theta), float((phi_plus_lam + phi_minus_lam) / 2.0), float((phi_plus_lam - phi_minus_lam) / 2.0)
+
+
+def rgate_theoretical(theta: float = 0, alpha: float = 0, phi: float = 0) -> Gate:
+    r"""The r gate by an explicit matrix exponential (complex128 numpy)."""
+    x, y, z = (p.astype(complex) for p in (_x_matrix, _y_matrix, _z_matrix))
+    h = np.sin(alpha) * np.cos(phi) * x + np.sin(alpha) * np.sin(phi) * y + np.cos(alpha) * z
+    return Gate(scipy.linalg.expm(-1j * theta * h), name="r")
+
+
+def random_single_qubit_gate(generator: Optional[torch.Generator] = None) -> Gate:
+    """An r gate of three angles uniform in [0, 2 pi) (from ``generator``
+    if given)."""
+    theta, alpha, phi = (torch.rand(3, dtype=torch.float64, generator=generator) * 2 * np.pi).tolist()
+    return Gate(rgate_matrix(theta, alpha, phi), name="R1Q")
+
+
+def random_two_qubit_gate(generator: Optional[torch.Generator] = None) -> Gate:
+    """A Haar-random two-qubit gate (complex64): the QR of a complex
+    Gaussian matrix with the phases of R's diagonal divided out."""
+    z = torch.randn(4, 4, dtype=torch.complex128, generator=generator).numpy()
+    q, r = np.linalg.qr(z)
+    d = np.diagonal(r)
+    u = (q * (d / np.abs(d))).astype(np.complex64)
+    return Gate(u.reshape(2, 2, 2, 2), name="R2Q")
+
+
+def any_gate(unitary: Any, name: str = "any") -> Gate:
+    """A dense unitary as a Gate."""
+    return Gate(unitary, name=name)
+
+
+def exponential_gate_unity(unitary: Any, theta: Any, half: bool = False, name: str = "none") -> Gate:
+    r"""exp(-i theta U) for U^2 = I, as cos(theta) I - i sin(theta) U
+    (theta/2 with ``half``)."""
+    return Gate(exp1_matrix(unitary, theta / 2.0 if half else theta), name=name)
+
+
+def exponential_gate(unitary: Any, theta: Any, name: str = "none") -> Gate:
+    r"""exp(-i theta G) by the matrix exponential."""
+    return Gate(exponential_matrix(unitary, theta), name=name)
+
+
+def diagonal_gate(diag: Any, name: str = "diagonal") -> Gate:
+    """The gate of a diagonal vector."""
+    return Gate(torch.diag(diag) if isinstance(diag, torch.Tensor) else np.diag(np.asarray(diag)), name=name)
+
+
+def rzm_gate(theta: Any = 0) -> Gate:
+    """The gate of :func:`rzm_matrix`: the diagonal of rz, a 2-vector."""
+    return Gate(rzm_matrix(theta), name="rzm")
+
+
+def cmz_gate(theta: Any = 0) -> Gate:
+    """The phase exp(-i theta) on |11>, as a (2, 2, 2, 2) complex128 numpy
+    tensor (the angle's real part, as a number)."""
+    diag = np.exp(-1j * float(np.real(_numpy(theta))) * np.array([0.0, 0.0, 0.0, 1.0]))
+    return Gate(np.diag(diag).reshape(2, 2, 2, 2), name="cmz")
+
+
+def mpo_gate(mpo: Any, name: str = "mpo") -> Any:
+    """The MPO itself (a pass-through constructor)."""
+    return mpo

@@ -27,6 +27,15 @@ from tensorcircuit_ng_tpu_torch import convert
 from tensorcircuit_ng_tpu_torch.core import kernels_grand, kernels_rowlayer, statevec
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _jax_at_complex64():
+    """The JAX package at complex64 with x64 off, whatever an earlier
+    module on this worker left (its ``runtime_dtype`` leaves x64 on)."""
+    tc.set_dtype("complex64")
+    yield
+    tc.set_dtype("complex64")
+
+
 def _pairs(n, periodic):
     return [(i, (i + 1) % n) for i in range(n if periodic else n - 1)]
 

@@ -36,6 +36,17 @@ from tensorcircuit_ng_tpu_torch.ops import gates as tgates
 ATOL = 1e-6
 
 _G = np.kron(np.array([[0, 1], [1, 0]]), np.diag([1.0, -1.0]))  # G^2 = I
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _jax_at_complex64():
+    """The JAX package at complex64 with x64 off, whatever an earlier
+    module on this worker left (its ``runtime_dtype`` leaves x64 on)."""
+    tc.set_dtype("complex64")
+    yield
+    tc.set_dtype("complex64")
+
+
 #: parameters of each parameterized gate (the fixed ones take none)
 _PARAMS = {
     "r": {"theta": 0.3, "alpha": 0.7, "phi": 1.1},

@@ -27,6 +27,7 @@ import jax
 import jax.numpy as jnp
 import torch
 
+import tensorcircuit_ng_tpu as tc
 from tensorcircuit_ng_tpu.core import kernels as jkernels
 from tensorcircuit_ng_tpu.core import kernels_grand as jkg
 from tensorcircuit_ng_tpu.core import kernels_rowlayer as jkrl
@@ -39,6 +40,15 @@ from tensorcircuit_ng_tpu_torch.core import kernels_stack as kst
 
 ATOL = 2e-6
 GRAD_RTOL = 1e-5
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _jax_at_complex64():
+    """The JAX package at complex64 with x64 off, whatever an earlier
+    module on this worker left (its ``runtime_dtype`` leaves x64 on)."""
+    tc.set_dtype("complex64")
+    yield
+    tc.set_dtype("complex64")
 
 
 def _close(got, want, rtol=GRAD_RTOL):

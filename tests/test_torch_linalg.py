@@ -26,6 +26,15 @@ from tensorcircuit_ng_tpu_torch.core import linalg as TL
 RTOL = {"complex64": 1e-4, "complex128": 1e-9}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _jax_at_complex64():
+    """The JAX package at complex64 with x64 off, whatever an earlier
+    module on this worker left (its ``runtime_dtype`` leaves x64 on)."""
+    tc.set_dtype("complex64")
+    yield
+    tc.set_dtype("complex64")
+
+
 @pytest.fixture(params=["complex64", "complex128"])
 def dtype(request):
     """The complex dtype of a case; complex128 turns JAX's x64 on for it."""

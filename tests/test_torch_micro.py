@@ -22,9 +22,19 @@ import jax
 import jax.numpy as jnp
 import torch
 
+import tensorcircuit_ng_tpu as tc
 from tensorcircuit_ng_tpu_torch.core import kernels_micro as km
 
 _EXAMPLE = Path(__file__).resolve().parents[1] / "examples" / "micro_grand_fusion.py"
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _jax_at_complex64():
+    """The JAX package at complex64 with x64 off, whatever an earlier
+    module on this worker left (its ``runtime_dtype`` leaves x64 on)."""
+    tc.set_dtype("complex64")
+    yield
+    tc.set_dtype("complex64")
 
 
 @pytest.fixture(scope="module")

@@ -25,6 +25,15 @@ from tensorcircuit_ng_tpu_torch.core import kernels
 TOL = 1e-14
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _jax_at_complex64():
+    """The JAX package at complex64 with x64 off, whatever an earlier
+    module on this worker left (its ``runtime_dtype`` leaves x64 on)."""
+    tc.set_dtype("complex64")
+    yield
+    tc.set_dtype("complex64")
+
+
 @pytest.fixture
 def complex128():
     tc.set_dtype("complex128")

@@ -42,6 +42,15 @@ from tensorcircuit_ng_tpu_torch.core import kernels_rowlayer as krl
 ATOL = 1e-5
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _jax_at_complex64():
+    """The JAX package at complex64 with x64 off, whatever an earlier
+    module on this worker left (its ``runtime_dtype`` leaves x64 on)."""
+    tc.set_dtype("complex64")
+    yield
+    tc.set_dtype("complex64")
+
+
 def _interpret(fn):
     jkernels.set_interpret_mode(True)
     try:

@@ -48,6 +48,15 @@ E_ATOL = 2e-5
 G_ATOL = 1e-4
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _jax_at_complex64():
+    """The JAX package at complex64 with x64 off, whatever an earlier
+    module on this worker left (its ``runtime_dtype`` leaves x64 on)."""
+    tc.set_dtype("complex64")
+    yield
+    tc.set_dtype("complex64")
+
+
 def _close(got, want, rtol=GRAD_RTOL):
     got, want = np.asarray(got), np.asarray(want)
     assert got.shape == want.shape, (got.shape, want.shape)

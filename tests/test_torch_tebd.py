@@ -41,6 +41,15 @@ X = np.array([[0, 1], [1, 0.0]])
 Z = np.diag([1.0, -1.0])
 ATOL = 5e-5
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _jax_at_complex64():
+    """The JAX package at complex64 with x64 off, whatever an earlier
+    module on this worker left (its ``runtime_dtype`` leaves x64 on)."""
+    tc.set_dtype("complex64")
+    yield
+    tc.set_dtype("complex64")
+
 #: the JAX oracles, compiled once a shape (interpret mode is read at trace)
 _jax_svd = jax.jit(JKJ.jacobi_svd_pallas, static_argnums=(1, 2, 3))
 _jax_warm = jax.jit(JKJ.jacobi_svd_warm, static_argnums=(1, 2))
