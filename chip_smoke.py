@@ -5,8 +5,9 @@ and its training step (also under ``FUSE_ROWM`` and every switch of the
 stack), the n=60 TEBD path, the n=20 HEA training step and the n=20, p=4
 QAOA MaxCut training step through the public API, runs the staged
 micro-benchmark of K2's design, and times them; then drives the rest of the
-circuit API (echo, remapping, Pauli strings, light cone, the unitary) at
-the same width.
+circuit API (echo, remapping, Pauli strings, light cone, the unitary) and
+sampling (shots in six formats, trajectories, readout error, shot-noise
+expectations, feed-forward) at the same width.
 
     python3 chip_smoke.py
 
@@ -173,7 +174,22 @@ Phases (any failure exits non-zero; nothing is caught):
      ``projected_subsystem``, the free ``expectation`` and ``is_valid``;
      then each route timed (CUDA events, median of 20, busy time under
      torch.profiler) beside the path it stands against, with the launches
-     each route gave.
+     each route gave;
+ 13. sampling at full width (no kernel of its own) on the same TFIM
+     circuit, each route also on the port's CPU path with the same status:
+     (a) ``sample(8192, allow_state=True)`` in its six formats and the
+     legacy list (they agree and sum to 8192), each index within 1e-4 of
+     its float64 cdf interval (:func:`bracket_miss`), a chi-square over 64
+     equal-mass groups within 5 sigma; (b) 1024 trajectories
+     (``allow_state=False``, a [1024, 20] status): each probability against
+     |amplitude|^2, each step's bracket (:func:`trajectory_bracket_miss`),
+     the peak memory above the state under 64 MB; (c) ``readout_error``
+     on route (a) against the CPU path; (d) ``sample_expectation_ps`` of
+     <Z_0 Z_1> and <X_5>, exact against ``expectation_ps`` and from 8192
+     shots within 5 sigma; (e) a feed-forward circuit
+     (``cond_measurement``, ``conditional_gate``, ``cond_measurement``):
+     the outcomes and the final state against the CPU path, one K2 launch
+     a ``state()``; then each route timed as in phase 12.
 
 Prints the kernels JSON line, then the card's name and power limit, then
 ``{"ok": true, "device": {...}}`` as the last line.  Needs no network and
@@ -2235,6 +2251,50 @@ SAME_ATOL = 1e-6
 N_UNITARY = 12
 
 
+#: the measurement tie-break added to each uniform (both packages)
+MEASURE_EPS = 0.31415926e-12
+
+
+def bracket_miss(idx, u, p):
+    """How far the uniforms ``u`` of an inverse-CDF sample lie outside the
+    intervals of their indices ``idx`` on the float64 cdf of ``p``: the
+    largest of cdf[i-1] - u and u - cdf[i] over the shots, so at most 0
+    where every index is the float64 one (a float32 cumsum over 2^n entries
+    may pick a neighbour within its rounding)."""
+    p = np.asarray(p, dtype=np.float64)
+    cdf = np.cumsum(p / p.sum())
+    idx = np.asarray(idx).astype(np.int64).reshape(-1)
+    u = np.asarray(u, dtype=np.float64).reshape(-1)
+    lo = np.where(idx > 0, cdf[np.maximum(idx - 1, 0)], 0.0)
+    return float(np.max(np.maximum(lo - u, u - cdf[idx])))
+
+
+def trajectory_bracket_miss(samples, status, p, d=2):
+    """:func:`bracket_miss` for each step of the trajectory sampler: at
+    step k the uniform ``status[:, k]`` + the tie-break against the float64
+    conditional cdf of qudit k given the measured prefix (the block sums of
+    ``p``).  Returns the largest miss over shots and steps."""
+    p = np.asarray(p, dtype=np.float64)
+    samples = np.asarray(samples).astype(np.int64)
+    status = np.asarray(status, dtype=np.float64)
+    n = samples.shape[1]
+    levels = [p]
+    for k in range(n - 1, -1, -1):
+        levels.append(levels[-1].reshape(d**k, d).sum(axis=1))
+    levels = levels[::-1]
+    block = np.zeros(samples.shape[0], dtype=np.int64)
+    miss = -np.inf
+    for k in range(n):
+        sums = levels[k + 1][block[:, None] * d + np.arange(d)]
+        cdf = np.cumsum(sums / sums.sum(axis=1, keepdims=True), axis=1)
+        o = samples[:, k]
+        u = status[:, k] + MEASURE_EPS
+        lo = np.where(o > 0, cdf[np.arange(len(o)), np.maximum(o - 1, 0)], 0.0)
+        miss = max(miss, float(np.max(np.maximum(lo - u, u - cdf[np.arange(len(o)), o]))))
+        block = block * d + o
+    return miss
+
+
 def _launched(counters):
     """The counters that moved since the last reset (host-side counts)."""
     return {k.__name__: k.launches for k in counters if k.launches}
@@ -2471,6 +2531,244 @@ def _api_phase(tct, card, counters):
         top = ", ".join(f"{name[:40]} {t:.3f} x{k:g}" for name, t, k in by_kernel[:3])
         print(f"phase 12 time, {label}: {ms:.3f} ms (CUDA events, median of 20), busy {busy:.3f} ms "
               f"({100 * busy / ms:.1f} %; profiler, 5 calls), {card}; top kernels {top}")
+
+
+#: phase 13, sampling at full width (n=20, L=4): 8,192 shots by inverse
+#: CDF, 1,024 trajectories.  A float32 cumsum over 2^20 entries drifts from
+#: the float64 one by ~1e-6 to 1e-4 of the mass, wider than an entry, so
+#: each index is held to its float64 cdf interval within BRACKET_TOL;
+BRACKET_TOL = 1e-4
+#: a trajectory's probability against |amplitude|^2 (a product of 20
+#: float32 conditionals), and the readout-confused p against the CPU path;
+TRAJ_PROB_RTOL = 1e-4
+READOUT_ATOL = 1e-6
+#: the exact Pauli expectations against expectation_ps (float32 sums over
+#: 2^20 entries in another order), and the peak memory of 1,024 trajectories
+#: above the state (one state a shot would be 8.6 GB)
+SEP_ATOL = 1e-5
+TRAJ_PEAK_MB = 64
+SAMPLE_SHOTS = 8192
+TRAJ_SHOTS = 1024
+
+
+def _chi2_equal_mass(counts, p, bins=64):
+    """(chi-square, degrees of freedom) of ``counts`` against ``p`` over
+    ``bins`` groups of outcomes of about equal mass, the most likely first:
+    at the TFIM state's nearly flat p no single outcome expects a shot."""
+    order = np.argsort(-p, kind="stable")
+    group = np.minimum((np.cumsum(p[order]) * bins).astype(np.int64), bins - 1)
+    expect = np.bincount(group, weights=p[order], minlength=bins) * counts.sum()
+    seen = np.bincount(group, weights=counts[order], minlength=bins)
+    keep = expect > 0
+    return float(np.sum((seen[keep] - expect[keep]) ** 2 / expect[keep])), int(keep.sum()) - 1
+
+
+def _sampling_checks(tct, dev, counters, n=N, nl=L, shots=SAMPLE_SHOTS, traj=TRAJ_SHOTS, bracket_tol=BRACKET_TOL):
+    """Phase 13's checks (a)-(e) on the n-qubit TFIM circuit of the
+    training path on ``dev``, each route also on the port's CPU path with
+    the same status (once a route; on the CPU the two are one).  Returns
+    what the timings reuse."""
+    import torch
+
+    card = torch.device(dev).type == "cuda"
+    g0 = np.random.default_rng(42).normal(size=(nl, 2, n)) * 0.1  # bench.py's parameters
+    rng = np.random.default_rng(13)
+    u = rng.random(shots).astype(np.float32)
+    big_u = rng.random((traj, n)).astype(np.float32)
+    radix = 2 ** np.arange(n - 1, -1, -1)
+    spent = {}
+    last = [time.perf_counter()]
+
+    def lap(key):
+        now = time.perf_counter()
+        spent[key], last[0] = now - last[0], now
+
+    def on_cpu(key, fn):
+        t = time.perf_counter()
+        out = fn()
+        spent[f"CPU {key}"] = spent.get(f"CPU {key}", 0.0) + time.perf_counter() - t
+        return out
+
+    def check(label, err, tol):
+        print(f"  {label}: {err:.3e} (tol {tol:g})")
+        if not err <= tol:
+            _fail(f"phase 13, {label}: {err} > {tol}")
+
+    def circuit(device):
+        return tfim_circuit(tct, tct.convert.params(g0, device), n, nl, device=device)
+
+    print(f"sampling (n={n}, L={nl}, {shots} shots, {traj} trajectories):")
+    with torch.no_grad():
+        c = circuit(dev)
+        _reset(counters)
+        psi = c.state()
+        state_launches = _launched(counters)
+        p = c.probability()
+        p64 = p.double().cpu().numpy()
+        c_cpu = on_cpu("(a)", lambda: circuit("cpu"))
+        p_cpu = on_cpu("(a)", lambda: c_cpu.probability().double().numpy())
+        u_dev = torch.as_tensor(u, device=dev)
+        # (a) allow_state: six formats, the legacy list, the bracket, chi-square
+        out = {f: c.sample(batch=shots, allow_state=True, status=u_dev, format=f)
+               for f in ("sample_int", "sample_bin", "count_vector", "count_tuple", "count_dict_bin",
+                         "count_dict_int", None)}
+        idx = out["sample_int"].cpu().numpy().astype(np.int64)
+        cv = out["count_vector"].cpu().numpy()
+        vals, cnts = (x.cpu().numpy() for x in out["count_tuple"])
+        legacy = np.stack([b.cpu().numpy() for b, _ in out[None]])
+        bits = (idx[:, None] >> np.arange(n - 1, -1, -1)) & 1
+        sums = [int(cv.sum()), int(cnts.sum()), sum(out["count_dict_bin"].values()),
+                sum(out["count_dict_int"].values())]
+        agree = {
+            "sample_int on a second call": torch.equal(
+                out["sample_int"], c.sample(batch=shots, allow_state=True, status=u_dev, format="sample_int")),
+            "sample_bin": np.array_equal(out["sample_bin"].cpu().numpy(), bits),
+            "legacy list": np.array_equal(legacy, bits),
+            "count_vector": np.array_equal(cv, np.bincount(idx, minlength=2**n)),
+            "count_tuple": np.array_equal(vals, np.flatnonzero(cv)) and np.array_equal(cnts, cv[vals]),
+            "count_dict_int": out["count_dict_int"] == {int(k): int(cv[k]) for k in vals},
+            "count_dict_bin": out["count_dict_bin"] == {format(int(k), f"0{n}b"): int(cv[k]) for k in vals},
+        }
+        if sums != [shots] * 4 or not all(agree.values()):
+            _fail(f"phase 13 (a): sums {sums} (want {shots}); disagreeing with sample_int: "
+                  f"{[k for k, v in agree.items() if not v]}")
+        idx_cpu = on_cpu("(a)", lambda: c_cpu.sample(batch=shots, allow_state=True, status=u,
+                                                     format="sample_int").numpy())
+        chi2, dof = _chi2_equal_mass(cv.astype(np.float64), p64 / p64.sum())
+        print(f"  (a) {shots} shots in six formats and the legacy list: they agree (and with a second call), "
+              f"each sums to {shots}; "
+              f"{len(vals)} distinct outcomes; max p {p64.max():.3e}; {int(np.sum(idx != idx_cpu))} indices "
+              f"differ from the CPU path's; state() launched {state_launches}")
+        check("(a) bracket miss against the card's float64 cdf", bracket_miss(idx, u, p64), bracket_tol)
+        check("(a) CPU path's bracket miss against its float64 cdf", bracket_miss(idx_cpu, u, p_cpu), bracket_tol)
+        check(f"(a) chi-square over {dof + 1} equal-mass groups, |chi2 - dof| / sqrt(2 dof)",
+              abs(chi2 - dof) / np.sqrt(2 * dof), 5.0)
+        lap("(a)")
+
+        # (b) trajectories: no state a shot
+        big_dev = torch.as_tensor(big_u, device=dev)
+        if card:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+        rows = c.sample(batch=traj, allow_state=False, status=big_dev)
+        if card:
+            torch.cuda.synchronize()
+            peak_mb = (torch.cuda.max_memory_allocated() - base) / 2**20
+        tbits = np.stack([b.cpu().numpy() for b, _ in rows]).astype(np.int64)
+        tprob = np.array([q.item() for _, q in rows])
+        amp2 = (psi.abs() ** 2).double().cpu().numpy()[tbits @ radix]
+        rows_cpu = on_cpu("(b)", lambda: c_cpu.sample(batch=traj, allow_state=False, status=big_u))
+        tbits_cpu = np.stack([b.numpy() for b, _ in rows_cpu]).astype(np.int64)
+        print(f"  (b) {traj} trajectories: {int(np.sum(np.any(tbits != tbits_cpu, axis=1)))} differ from the "
+              f"CPU path's; probabilities {tprob.min():.3e}-{tprob.max():.3e}"
+              + (f"; peak memory above the state {peak_mb:.2f} MB (one state a shot: "
+                 f"{traj * psi.numel() * psi.element_size() / 1e9:.1f} GB)" if card else ""))
+        check("(b) max relative |prob - |amplitude|^2|", float(np.max(np.abs(tprob - amp2) / amp2)), TRAJ_PROB_RTOL)
+        check("(b) step bracket miss against the card's float64 block sums",
+              trajectory_bracket_miss(tbits, big_u, p64), bracket_tol)
+        check("(b) CPU path's step bracket miss", trajectory_bracket_miss(tbits_cpu, big_u, p_cpu), bracket_tol)
+        if card:
+            check("(b) peak memory above the state, MB", peak_mb, TRAJ_PEAK_MB)
+        lap("(b)")
+
+        # (c) readout error on the allow_state route
+        err = [[0.98, 0.97]] * n
+        pr = c.readouterror_bs(err, p / torch.sum(p))
+        pr_cpu = on_cpu("(c)", lambda: c_cpu.readouterror_bs(err, torch.as_tensor(p_cpu / p_cpu.sum())))
+        ridx = c.sample(batch=shots, allow_state=True, readout_error=err, status=u_dev, format="sample_int")
+        pr64 = pr.double().cpu().numpy()
+        print(f"  (c) readout_error [[0.98, 0.97]] * {n}: sum of p {pr64.sum():.7f}")
+        check("(c) max|p - p_CPU|", float(np.max(np.abs(pr64 - pr_cpu.numpy()))), READOUT_ATOL)
+        check("(c) bracket miss against the confused p", bracket_miss(ridx.cpu().numpy(), u, pr64), bracket_tol)
+        lap("(c)")
+
+        # (d) sample_expectation_ps: exact, and 8192 shots with a status
+        for label, kw in (("<Z_0 Z_1>", {"z": [0, 1]}), ("<X_5>", {"x": [5 % n]})):
+            exact = c.sample_expectation_ps(**kw).item()
+            ps = c.expectation_ps(**kw).real.item()
+            est = c.sample_expectation_ps(**kw, shots=shots, status=u_dev).item()
+            rot = c.copy()
+            for q in kw.get("x", ()):
+                rot.h(q)
+            prot = rot.probability()
+            ridx = tct.backend.probability_sample(shots, prot, status=u_dev).cpu().numpy().astype(np.int64)
+            parity = np.ones(shots)
+            for w in list(kw.get("x", ())) + list(kw.get("z", ())):
+                parity = parity * (1 - 2 * ((ridx >> (n - 1 - w)) & 1))
+            est_cpu = on_cpu("(d)", lambda kw=kw: c_cpu.sample_expectation_ps(**kw, shots=shots, status=u).item())
+            sigma = np.sqrt(max(1 - exact**2, 1e-12) / shots)
+            print(f"  (d) {label}: exact {exact:.7f} (expectation_ps {ps:.7f}), {shots} shots {est:.7f} "
+                  f"(CPU path {est_cpu:.7f}), sigma {sigma:.2e}")
+            check(f"(d) {label} exact against expectation_ps", abs(exact - ps), SEP_ATOL)
+            check(f"(d) {label} shots against the parity of the same indices", abs(est - parity.mean()), 1e-6)
+            check(f"(d) {label} bracket miss", bracket_miss(ridx, u, prot.double().cpu().numpy()), bracket_tol)
+            check(f"(d) {label} |shots - exact| / sigma", abs(est - exact) / sigma, 5.0)
+        lap("(d)")
+
+        # (e) feed-forward: measure, correct, measure; one K2 a state()
+        def feed_forward(device, s0, s1):
+            f = circuit(device)
+            m0 = f.cond_measurement(0, status=s0)
+            f.conditional_gate(m0, [np.eye(2), np.array([[0.0, 1.0], [1.0, 0.0]])], 1)
+            m1 = f.cond_measurement(1, status=s1)
+            return f, m0, m1
+
+        for s0, s1 in ((0.7, 0.2),):  # qubit 0 reads 1 here: the X correction runs
+            _reset(counters)
+            f, m0, m1 = feed_forward(dev, torch.tensor(s0, device=dev), torch.tensor(s1, device=dev))
+            final = f.state()
+            ff_launches = _launched(counters)
+            f_cpu, m0c, m1c = on_cpu("(e)", lambda: feed_forward("cpu", s0, s1))
+            final_cpu = on_cpu("(e)", f_cpu.state)
+            got = (int(m0.item()), int(m1.item()))
+            print(f"  (e) feed-forward, status ({s0}, {s1}): outcomes {got} (CPU {(int(m0c), int(m1c))}); "
+                  f"launched {ff_launches} for 3 state() computations")
+            if got != (int(m0c), int(m1c)):
+                _fail(f"phase 13 (e): outcomes {got} differ from the CPU path's")
+            if card and ff_launches != {"grand_zzrx_fwd": 3}:
+                _fail(f"phase 13 (e): expected one K2 launch a state(), launched {ff_launches}")
+            check("(e) final state against the CPU path", (final.cpu() - final_cpu).abs().max().item(), STATE_ATOL)
+            check("(e) |norm - 1|", abs(torch.linalg.vector_norm(final).item() - 1.0), STATE_ATOL)
+        lap("(e)")
+    print("  wall time of the checks: " + ", ".join(f"{k} {v:.1f} s" for k, v in spent.items()))
+    return {"c": c, "u": u_dev, "big_u": big_dev, "feed_forward": feed_forward, "err": err}
+
+
+def _sampling_phase(tct, card, counters):
+    """Phase 13, sampling at full width: :func:`_sampling_checks` on the
+    card, then each route timed by CUDA events (median of 20 after warm-up)
+    with its busy time under torch.profiler (5 calls, the card alone)."""
+    import torch
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    got = _sampling_checks(tct, dev, counters)
+    t1 = time.perf_counter()
+    c, u, big_u = got["c"], got["u"], got["big_u"]
+    s0, s1 = torch.tensor(0.7, device=dev), torch.tensor(0.2, device=dev)
+    timed = {
+        f"(a) {SAMPLE_SHOTS} shots, sample_int (cached state)":
+            lambda: c.sample(batch=SAMPLE_SHOTS, allow_state=True, status=u, format="sample_int")[-1].item(),
+        f"(a) {SAMPLE_SHOTS} shots, count_dict_bin (cached state)":
+            lambda: c.sample(batch=SAMPLE_SHOTS, allow_state=True, status=u, format="count_dict_bin"),
+        f"(b) {TRAJ_SHOTS} trajectories, sample_int (cached state)":
+            lambda: c.sample(batch=TRAJ_SHOTS, status=big_u, format="sample_int")[-1].item(),
+        f"(c) {SAMPLE_SHOTS} shots with readout_error":
+            lambda: c.sample(batch=SAMPLE_SHOTS, allow_state=True, readout_error=got["err"], status=u,
+                             format="sample_int")[-1].item(),
+        f"(d) sample_expectation_ps <X_5>, {SAMPLE_SHOTS} shots (a copy: K2 and h)":
+            lambda: c.sample_expectation_ps(x=[5], shots=SAMPLE_SHOTS, status=u).item(),
+        "(e) feed-forward circuit (3 K2)": lambda: got["feed_forward"](dev, s0, s1)[0].state()[0].item(),
+    }
+    with torch.no_grad():
+        for label, fn in timed.items():
+            ms = _time_ms(fn, inner=1)
+            host, busy, by_kernel = _profile(fn, reps=5, cpu=False)
+            top = ", ".join(f"{name[:40]} {t:.3f} x{k:g}" for name, t, k in by_kernel[:3])
+            print(f"phase 13 time, {label}: {ms:.3f} ms (CUDA events, median of 20), busy {busy:.3f} ms "
+                  f"({100 * busy / ms:.1f} %; profiler, 5 calls), {card}; top kernels {top}")
+    print(f"phase 13 wall time: checks {t1 - t0:.1f} s, timing {time.perf_counter() - t1:.1f} s")
 
 
 def main() -> int:
@@ -2964,8 +3262,13 @@ def main() -> int:
     # ---- 12. the circuit API at full width -----------------------------
     from tensorcircuit_ng_tpu_torch.core import kernels_micro
 
-    _api_phase(tct, card, every_counter + (kernels_micro.micro_grand,))
+    every_counter += (kernels_micro.micro_grand,)
+    _api_phase(tct, card, every_counter)
     print(f"phase 12 ended at {time.time() - t_start:.1f} s")
+
+    # ---- 13. sampling and feed-forward at full width -------------------
+    _sampling_phase(tct, card, every_counter)
+    print(f"phase 13 ended at {time.time() - t_start:.1f} s")
     print(f"smoke total: {time.time() - t_start:.1f} s")
     print(json.dumps(kernels_line))
     print(card)

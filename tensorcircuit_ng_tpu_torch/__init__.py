@@ -27,20 +27,35 @@ circuit unitary and Pauli-string expectations::
     u = c.matrix()                                # (256, 256)
     e = c.expectation_ps(ps=[3, 3, 0, 0, 0, 0, 0, 0])
 
+Shots, counts and feed-forward (uniforms from ``status``, or from a
+``torch.Generator`` on the circuit's device, or from ``tct.backend``'s
+implicit generator, seeded by ``tct.backend.set_random_state(seed)``)::
+
+    counts = c.sample(batch=8192, allow_state=True, format="count_dict_bin")
+    bits, prob = c.sample(allow_state=False, status=np.random.rand(1, 8))
+    e = c.sample_expectation_ps(z=[0, 1], shots=8192)
+    m = c.cond_measurement(0)                     # collapse, outcome on the device
+    c.conditional_gate(m, [np.eye(2), x_matrix], 1)
+
 On the card the fused TFIM layers and the TEBD truncation SVD run
 hand-written Hopper kernels (``core/csrc/``, built by nvcc at first use
 into ``build/kernels/``); on the CPU (``device="cpu"`` or
 ``set_device("cpu")``) they run their plain torch versions.
 """
 
-from . import config, convert
+from . import config, convert, quantum
+from .backend import TorchBackend, backend
 from .config import (
     dtypestr,
+    get_backend,
     get_device,
     get_dtype,
+    runtime_backend,
     runtime_dtype,
+    set_backend,
     set_device,
     set_dtype,
+    set_function_backend,
     set_function_dtype,
 )
 from .models.circuit import Circuit, expectation
@@ -52,17 +67,24 @@ __all__ = [
     "Circuit",
     "Gate",
     "ParallelTEBD",
+    "TorchBackend",
     "array_to_tensor",
+    "backend",
     "config",
     "convert",
     "dtypestr",
     "expectation",
     "gates",
+    "get_backend",
     "get_device",
     "get_dtype",
     "num_to_tensor",
+    "quantum",
+    "runtime_backend",
     "runtime_dtype",
+    "set_backend",
     "set_device",
     "set_dtype",
+    "set_function_backend",
     "set_function_dtype",
 ]

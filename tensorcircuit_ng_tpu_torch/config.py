@@ -33,6 +33,11 @@ __all__ = [
     "resolve_device",
     "full_float32",
     "device_constant",
+    "normalize_backend",
+    "set_backend",
+    "get_backend",
+    "runtime_backend",
+    "set_function_backend",
 ]
 
 _COMPLEX_TO_REAL = {"complex64": "float32", "complex128": "float64"}
@@ -40,6 +45,8 @@ _REAL_TO_COMPLEX = {"float32": "complex64", "float64": "complex128"}
 
 _dtype = "complex64"
 _device = "cuda"
+_backend = "pytorch"
+_BACKEND_ALIASES = {"pytorch": "pytorch", "torch": "pytorch"}
 
 
 class _Scope:
@@ -133,6 +140,57 @@ def torch_dtype(dtype: Optional[str] = None) -> torch.dtype:
 
 def np_dtype(dtype: Optional[str] = None) -> np.dtype:
     return np.dtype(_normalize_dtype(dtype or _dtype))
+
+
+def normalize_backend(name: Any) -> str:
+    """``"pytorch"`` (alias ``"torch"``), the port's one backend; anything
+    else is a ValueError."""
+    if name not in _BACKEND_ALIASES:
+        raise ValueError(
+            f"backend {name!r} not supported: the port's backend is 'pytorch' (alias 'torch')"
+        )
+    return _BACKEND_ALIASES[name]
+
+
+def set_backend(backend: str = "pytorch") -> Any:
+    """Select the backend by name and return it (``tct.backend``); the
+    port has one, ``"pytorch"``."""
+    global _backend
+    _backend = normalize_backend(backend)
+    return get_backend()
+
+
+def get_backend() -> Any:
+    """The configured backend object (the port's ``TorchBackend``)."""
+    from .backend import get_backend as _get
+
+    return _get(_backend)
+
+
+@contextlib.contextmanager
+def runtime_backend(backend: str) -> Iterator[Any]:
+    """The backend is ``backend`` inside the scope; yields it."""
+    global _backend
+    prev = _backend
+    _backend = normalize_backend(backend)
+    try:
+        yield get_backend()
+    finally:
+        _backend = prev
+
+
+def set_function_backend(backend: str) -> Callable[[Callable], Callable]:
+    """Decorator: run the wrapped function under ``runtime_backend(backend)``."""
+
+    def deco(f: Callable) -> Callable:
+        @functools.wraps(f)
+        def wrapper(*args: Any, **kws: Any) -> Any:
+            with runtime_backend(backend):
+                return f(*args, **kws)
+
+        return wrapper
+
+    return deco
 
 
 def set_device(device: Union[str, torch.device] = "cuda") -> _Scope:

@@ -36,6 +36,9 @@ __all__ = [
     "probabilities",
     "marginal_probability",
     "project_slot",
+    "block_sums",
+    "sample_trajectories",
+    "cumsum_fixed_order",
 ]
 
 _LETTERS = string.ascii_lowercase + string.ascii_uppercase
@@ -232,6 +235,78 @@ def project_slot(
         nrm = torch.linalg.vector_norm(proj)
         proj = proj / torch.where(nrm == 0, torch.ones_like(nrm), nrm).to(proj.dtype)
     return proj
+
+
+#: the widest row :func:`cumsum_fixed_order` scans in one piece
+_SCAN_ROW = 1024
+
+
+def cumsum_fixed_order(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive cumsum of a 1-D tensor whose float sums run in the same
+    order on every call.  On the card ``torch.cumsum`` of one long row is
+    CUB's decoupled look-back scan, whose partial sums depend on timing: at
+    n=20 two calls moved 157 of 8,192 inverse-CDF indices.  Here rows of
+    ``_SCAN_ROW`` entries are scanned each by one block (torch's scan along
+    the innermost of several rows), then their totals the same way, and
+    each row gets its predecessors' total."""
+    size = x.shape[0]
+    rows = -(-size // _SCAN_ROW)
+    xs = torch.nn.functional.pad(x, (0, rows * _SCAN_ROW - size)).reshape(rows, _SCAN_ROW)
+    if rows == 1:  # two rows: never the one-row (CUB) route
+        return torch.cumsum(torch.cat([xs, torch.zeros_like(xs)]), dim=1)[0, :size]
+    cs = torch.cumsum(xs, dim=1)
+    offsets = cumsum_fixed_order(cs[:, -1])
+    cs = torch.cat([cs[:1], cs[1:] + offsets[:-1, None]])
+    return cs.reshape(-1)[:size]
+
+
+def block_sums(p: torch.Tensor, d: int = 2) -> list:
+    """The d-ary tree of block sums of ``p`` (d^n,): entry k is the (d^k,)
+    vector of the sums over the blocks that fix the first k digits (qubits
+    0..k-1), from k = 0 (the total) to k = n (``p`` itself); about
+    d^(n+1)/(d-1) entries in all."""
+    n = num_slots(p, d)
+    levels = [p]
+    for k in range(n - 1, -1, -1):
+        levels.append(torch.sum(torch.reshape(levels[-1], (d**k, d)), dim=1))
+    return levels[::-1]
+
+
+#: tie-break added to each uniform, as in the JAX package's measurement
+MEASURE_EPS = 0.31415926e-12
+
+
+def sample_trajectories(
+    p: torch.Tensor, status: torch.Tensor, d: int = 2
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Measure every qudit of a state with probabilities ``p`` (d^n,),
+    qudit 0 first, once a row of ``status`` [batch, n]: the outcomes
+    [batch, n] (int32) and each shot's probability [batch].
+
+    The outcomes of ``measure_jit`` on each row, without a state a shot: the
+    measured prefix fixes one contiguous block of ``p``, so the conditional
+    marginal of the next qudit is its block's d child sums in
+    :func:`block_sums`, renormalized, cumulated and searched at
+    ``status[:, k] + MEASURE_EPS`` (the first child whose cdf reaches it,
+    held to d-1).  n vectorised steps over the batch on ``p``'s device."""
+    n = num_slots(p, d)
+    levels = block_sums(p, d)
+    batch = status.shape[0]
+    status = status.to(p.dtype)
+    children = torch.arange(d, device=p.device)
+    block = torch.zeros((batch,), dtype=torch.int64, device=p.device)
+    prob = torch.ones((batch,), dtype=p.dtype, device=p.device)
+    outcomes = []
+    for k in range(n):
+        sums = levels[k + 1][block[:, None] * d + children]  # (batch, d)
+        marg = sums / torch.sum(sums, dim=1, keepdim=True)
+        cdf = torch.cumsum(marg, dim=1)
+        u = status[:, k] + MEASURE_EPS
+        out = torch.clamp(torch.sum(cdf < u[:, None], dim=1), max=d - 1)
+        prob = prob * torch.gather(marg, 1, out[:, None])[:, 0]
+        block = block * d + out
+        outcomes.append(out)
+    return torch.stack(outcomes, dim=1).to(torch.int32), prob
 
 
 def expectation_zz_sum(

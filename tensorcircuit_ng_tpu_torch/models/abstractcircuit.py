@@ -228,6 +228,11 @@ class AbstractCircuit:
         if item.get("zstring_rot"):
             self.rzm(*index, theta=item["theta"])  # type: ignore[attr-defined]
             return
+        if item.get("is_channel"):
+            self.general_kraus(  # type: ignore[attr-defined]
+                item["channel_kraus"], *index, status=item.get("channel_status"), name=item.get("name")
+            )
+            return
         gatef = item.get("gatef")
         if gatef is None:
             self.any(*index, unitary=item["gate"].tensor, name=item.get("name", "any"))
@@ -288,7 +293,9 @@ class AbstractCircuit:
         """The adjoint circuit, from |0...0> (the inputs are dropped): the
         expanded QIR in reverse, each gate as ``any`` named ``name + "d"``
         with its conjugate transpose (a tensor gate keeps autograd);
-        ``multicz`` is its own inverse, a wide ``rzm`` negates its angle."""
+        ``multicz`` is its own inverse, a wide ``rzm`` negates its angle,
+        and channel items (``general_kraus``, ``cond_measurement``) are
+        left out."""
         if circuit_params is None:
             circuit_params = dict(self._copy_params())  # type: ignore[attr-defined]
             circuit_params.pop("inputs", None)
@@ -296,6 +303,8 @@ class AbstractCircuit:
         circuit_params.setdefault("nqubits", self._nqubits)
         c = type(self)(**circuit_params)  # type: ignore[call-arg]
         for item in reversed(self._expanded_qir()):  # type: ignore[attr-defined]
+            if item.get("is_channel"):
+                continue  # a channel or a measurement with collapse has no adjoint
             if item.get("multicz"):
                 c.multicz(*item["index"])  # type: ignore[attr-defined]
             elif item.get("gate") is None and item.get("gatef") is None:

@@ -6,8 +6,9 @@ when it is asked for.  A leading ``h_layer`` on |0...0> folds to the
 uniform state, runs of consecutive ``zzrx_layer`` items with the same pairs
 go to the multi-layer kernels, and single-qubit layers (``rx/ry/rz_layer``,
 ``h_layer``, ``fused_single_qubit_layer``) to the row-layer kernels.
-Measurement takes its uniforms from ``status`` (as in the JAX package) or
-from ``torch.rand`` on the circuit's device.  ``_expanded_qir`` unfolds the
+Measurement and sampling take their uniforms from ``status`` (as in the JAX
+package) or from a ``torch.Generator`` on the circuit's device (the
+caller's, or the backend's implicit one).  ``_expanded_qir`` unfolds the
 fused layers into one gate a qubit or pair (for ``inverse`` and
 ``matrix``); the light-cone expectation applies the items that reach the
 observable one by one, from |0...0>, without the fold or the grouping.
@@ -22,6 +23,9 @@ import numpy as np
 import torch
 
 from .. import config
+from .. import quantum as qu
+from ..backend import backend as K
+from ..backend import check_generator, device_tensor
 from ..core import kernels, statevec
 from ..ops.gates import (
     GATES,
@@ -538,7 +542,18 @@ class BaseCircuit(AbstractCircuit):
         return psi / torch.linalg.vector_norm(psi).to(psi.dtype)
 
     #: tie-break added to each uniform, as in the JAX package
-    _MEASURE_EPS = 0.31415926e-12
+    _MEASURE_EPS = statevec.MEASURE_EPS
+    #: above this many qubits no dense state is made (the einsum route of
+    #: the JAX package, Queue 1 item 12, is not ported)
+    _DENSE_MAX_QUBITS = 30
+
+    def _uniforms(self, shape: Sequence[int], generator: Optional[torch.Generator]) -> torch.Tensor:
+        """Uniforms on the circuit's device: from ``generator`` (which must
+        lie there) or from the backend's implicit generator."""
+        if generator is None:
+            return K.implicit_randu(shape, device=self._device)
+        check_generator(generator, self._device)
+        return K.stateful_randu(generator, shape)
 
     def measure_jit(
         self,
@@ -551,11 +566,11 @@ class BaseCircuit(AbstractCircuit):
 
         ``status``: uniforms in [0, 1), one a qubit (numpy or tensor); the
         same status gives the JAX package's outcomes.  Without it the
-        uniforms come from ``torch.rand`` on the circuit's device (with
-        ``generator`` if given).  Returns (outcomes (len(index),) int32,
+        uniforms come from ``generator`` or the backend's implicit generator
+        on the circuit's device.  Returns (outcomes (len(index),) int32,
         their probability, or -1 without ``with_prob``)."""
         if status is None:
-            status = torch.rand(len(index), device=self._device, generator=generator)
+            status = self._uniforms([len(index)], generator)
         psi = self.state()
         status = statevec.real_tensor(status, self._device, psi.dtype)
         rdt = statevec._real_dtype(psi.dtype)
@@ -585,6 +600,144 @@ class BaseCircuit(AbstractCircuit):
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Sample every qubit once: (bits, probability)."""
         return self.measure_jit(*range(self._nqubits), with_prob=True, status=status, generator=generator)
+
+    def sample(
+        self,
+        batch: Optional[int] = None,
+        allow_state: bool = False,
+        readout_error: Optional[Any] = None,
+        format: Optional[str] = None,
+        random_generator: Optional[torch.Generator] = None,
+        status: Optional[Any] = None,
+        jittable: bool = True,
+        format_: Optional[str] = None,
+    ) -> Any:
+        """``batch`` shots of every qubit (one when ``batch`` is None).
+
+        ``allow_state=True`` samples the renormalized ``probability()``
+        (through ``readouterror_bs`` when ``readout_error`` is given) by
+        inverse CDF, one uniform a shot: ``status`` [batch], or the first
+        column of a [batch, n] one.  Otherwise each shot measures the qubits
+        in turn as ``measure_jit`` does, from a row of ``status`` [batch, n],
+        by :func:`statevec.sample_trajectories` (no state a shot), and
+        ``readout_error`` is ignored, as in the JAX package.  Without a
+        status the uniforms come from ``random_generator`` (a
+        ``torch.Generator`` on the circuit's device) or the backend's
+        implicit generator.
+
+        ``format`` (or ``format_``) None gives the legacy output: (digits,
+        probability) for ``batch=None``, else a list of them (the
+        probability is -1.0 on the ``allow_state`` route); else one of
+        :func:`quantum.sample2all`'s six formats."""
+        if format is None:
+            format = format_
+        nbatch = 1 if batch is None else batch
+        n, d = self._nqubits, self._d
+        if d**n > 2**self._DENSE_MAX_QUBITS:
+            raise NotImplementedError(
+                f"sample above 2^{self._DENSE_MAX_QUBITS} amplitudes needs the einsum route, "
+                "Queue 1 item 12 of ROADMAP.md, which is not ported yet"
+            )
+        if status is not None:
+            status = device_tensor(status, self._device)
+        if allow_state:
+            p = self.probability()
+            p = p / torch.sum(p)
+            if readout_error is not None:
+                p = self.readouterror_bs(readout_error, p)
+            if status is not None and status.ndim == 2:
+                status = status[:, 0]
+            idx = K.probability_sample(nbatch, p, status=status, g=random_generator)
+            if format is None:
+                bins = qu.sample_int2bin(idx, n, d)
+                if batch is None:
+                    return bins[0], -1.0
+                return [(bins[i], -1.0) for i in range(nbatch)]
+            return qu.sample2all(idx, n, format=format, jittable=jittable, d=d)
+        if status is None:
+            status = self._uniforms([nbatch, n], random_generator)
+        if status.ndim != 2:
+            raise ValueError(f"the trajectory route takes a [batch, {n}] status, not shape {tuple(status.shape)}")
+        samples, probs = statevec.sample_trajectories(self.probability(), status, d)
+        if format is None:
+            if batch is None:
+                return samples[0], probs[0]
+            return [(samples[i], probs[i]) for i in range(nbatch)]
+        idx = qu.sample_bin2int(samples, n, d)
+        return qu.sample2all(idx, n, format=format, jittable=jittable, d=d)
+
+    def readouterror_bs(self, readout_error: Optional[Any] = None, p: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The probability vector ``p`` through each qubit's readout
+        confusion, ``readout_error[i] = [P(0|0), P(1|1)]`` (qubit i)."""
+        if readout_error is None:
+            return p
+        for i, err in enumerate(readout_error):
+            err = statevec.real_tensor(err, p.device, torch.complex128)
+            m = torch.stack([torch.stack([err[0], 1.0 - err[1]]), torch.stack([1.0 - err[0], err[1]])])
+            m = m.to(p.dtype)
+            p = statevec.apply_unitary(p, m, [i], self._d)
+        return p
+
+    def sample_expectation_ps(
+        self,
+        x: Optional[Sequence[int]] = None,
+        y: Optional[Sequence[int]] = None,
+        z: Optional[Sequence[int]] = None,
+        shots: Optional[int] = None,
+        random_generator: Optional[torch.Generator] = None,
+        status: Optional[Any] = None,
+        readout_error: Optional[Any] = None,
+        noise_conf: Optional[Any] = None,
+        nmc: int = 1000,
+        statusc: Optional[Any] = None,
+        **kws: Any,
+    ) -> torch.Tensor:
+        """⟨X_x Y_y Z_z⟩ from measurements in the Pauli bases: a copy of the
+        circuit rotated into the Z basis (h on x, sd then h on y), its
+        renormalized probabilities (through ``readouterror_bs``), and the
+        mean parity of the measured wires, exact when ``shots`` is None,
+        else over ``shots`` samples of ``backend.probability_sample``.
+        ``noise_conf`` (with ``nmc`` and ``statusc``) is not ported yet."""
+        _no_noise(noise_conf)
+        c = self.copy()
+        for q in x or ():
+            c.h(q)  # type: ignore[attr-defined]
+        for q in y or ():
+            c.sd(q)  # type: ignore[attr-defined]
+            c.h(q)  # type: ignore[attr-defined]
+        p = c.probability()
+        p = p / torch.sum(p)
+        if readout_error is not None:
+            p = c.readouterror_bs(readout_error, p)
+        parity = torch.ones_like(p)
+        sign = np.asarray([1.0, -1.0] + [1.0] * (self._d - 2))
+        for w in list(x or ()) + list(y or ()) + list(z or ()):
+            parity = statevec.apply_diagonal(parity, sign, [w], self._d)
+        if shots is None:
+            return torch.sum(p * parity)
+        if status is not None:
+            status = device_tensor(status, self._device)
+        idx = K.probability_sample(shots, p, status=status, g=random_generator)
+        return torch.mean(parity[idx.to(torch.int64)])
+
+    def select_gate(self, which: Any, kraus: Sequence[Any], *index: int) -> None:
+        """Apply ``kraus[which]`` on ``index``: ``which`` may be a tensor on
+        the circuit's device (a measured outcome), picked there without a
+        host sync; the picked matrix is applied as a gate."""
+        mats = torch.stack(self._kraus_mats(kraus, index))
+        which = device_tensor(which, self._device, "which").to(torch.int64)
+        chosen = torch.index_select(mats, 0, torch.reshape(which, (1,)))[0]
+        self.any(*index, unitary=chosen, name="select_gate")  # type: ignore[attr-defined]
+
+    conditional_gate = select_gate
+
+    def _kraus_mats(self, kraus: Sequence[Any], index: Sequence[int]) -> List[torch.Tensor]:
+        """Each operator as a (d^k, d^k) tensor of the configured dtype on
+        the circuit's device (a tensor keeps its autograd)."""
+        dim = self._d ** len(index)
+        like = torch.empty((), dtype=config.torch_dtype(), device=self._device)
+        return [torch.reshape(statevec._as_tensor(k.tensor if isinstance(k, Gate) else k, like), (dim, dim))
+                for k in kraus]
 
     def state(self, form: str = "default", reuse: bool = True) -> torch.Tensor:
         """The output state (flat), cached until the next gate application;

@@ -36,7 +36,11 @@ spill, and r not a power of two refused; K15 (the staged
 micro-benchmark, random non-unitary inputs whose values grow to O(100))
 within 1e-5 of its output's largest entry at n=18-21, bit for bit twice,
 its plan against ``micro_grand_plan``, and r not a power of two refused
-at m2 and m3.
+at m2 and m3.  The samplers (``backend.probability_sample`` and the
+trajectory sampler) on the card against the CPU with the same status, each
+index within its float64 cdf interval (1e-6 at n=10, 1e-4 at n=20: a
+float32 cumsum in another order); a generator or a status on another
+device refused.
 """
 
 import numpy as np
@@ -1344,3 +1348,62 @@ def test_micro_grand_refuses_r_not_power_of_two(cuda, level):
         km.micro_grand(level, *args)
     yr, yi = km.micro_grand(1, *args)
     assert torch.equal(yr, args[-2]) and torch.equal(yi, args[-1])
+
+
+@pytest.mark.parametrize("n", [10, 20])
+def test_samplers_on_card_match_cpu(cuda, n):
+    """``backend.probability_sample`` and the trajectory sampler
+    (``statevec.sample_trajectories``) on the card against the CPU with the
+    same status, the card's indices the same on a second call: every index within its float64 cdf interval
+    (``chip_smoke.bracket_miss``, 1e-6 at n=10, 1e-4 at n=20: a float32
+    cumsum over 2^n entries in another order), each trajectory's probability
+    within a relative 1e-4 of p(bits)."""
+    from chip_smoke import bracket_miss, trajectory_bracket_miss
+    from tensorcircuit_ng_tpu_torch.core import statevec
+
+    rng = np.random.default_rng(n)
+    p = (np.abs(rng.standard_normal(2**n) + 1j * rng.standard_normal(2**n)) ** 2).astype(np.float32)
+    u = rng.random(4096).astype(np.float32)
+    big = rng.random((512, n)).astype(np.float32)
+    tol = 1e-6 if n <= 10 else 1e-4
+    pc = torch.as_tensor(p, device=cuda)
+    idx = tct.backend.probability_sample(4096, pc, status=torch.as_tensor(u, device=cuda))
+    assert idx.device.type == "cuda" and idx.dtype == torch.int32
+    again = tct.backend.probability_sample(4096, pc, status=torch.as_tensor(u, device=cuda))
+    assert torch.equal(idx, again)  # the cdf's sums in a fixed order
+    idx_cpu = tct.backend.probability_sample(4096, torch.as_tensor(p), status=u)
+    assert bracket_miss(idx.cpu().numpy(), u, p) <= tol
+    assert bracket_miss(idx_cpu.numpy(), u, p) <= tol
+    bits, prob = statevec.sample_trajectories(pc, torch.as_tensor(big, device=cuda))
+    bits_cpu, _ = statevec.sample_trajectories(torch.as_tensor(p), torch.as_tensor(big))
+    assert bits.device.type == "cuda" and bits.shape == (512, n)
+    for b in (bits.cpu().numpy(), bits_cpu.numpy()):
+        assert trajectory_bracket_miss(b, big, p) <= tol
+    want = p.astype(np.float64)[bits.cpu().numpy().astype(np.int64) @ (2 ** np.arange(n - 1, -1, -1))] / p.sum()
+    np.testing.assert_allclose(prob.cpu().numpy(), want, rtol=1e-4)
+
+
+def test_sampling_circuit_runs_on_card(cuda):
+    """``tct.Circuit(n).sample`` defaults to the card; a generator or a
+    status tensor on another device is a ValueError naming both devices; a
+    generator on the card repeats itself."""
+    c = tct.Circuit(5)
+    c.h(0)
+    c.cnot(0, 3)
+    assert c.sample(batch=8, allow_state=True, format="sample_int").device.type == "cuda"
+    assert c.sample(batch=8, format="sample_bin").device.type == "cuda"
+    g = torch.Generator().manual_seed(1)
+    for call in (lambda: c.sample(batch=4, allow_state=True, random_generator=g),
+                 lambda: c.sample(batch=4, random_generator=g),
+                 lambda: c.sample_expectation_ps(z=[0], shots=4, random_generator=g),
+                 lambda: c.measure(0, generator=g)):
+        with pytest.raises(ValueError, match="cpu.*cuda"):
+            call()
+    with pytest.raises(ValueError, match="cpu.*cuda"):
+        c.sample(batch=2, allow_state=True, status=torch.zeros(2))
+    runs = [c.sample(batch=64, random_generator=tct.backend.get_random_state(3, device=cuda), format="sample_int")
+            for _ in range(2)]
+    assert torch.equal(runs[0], runs[1])
+    m = c.cond_measurement(0, status=torch.tensor(0.9, device=cuda))
+    c.conditional_gate(m, [np.eye(2), np.array([[0.0, 1.0], [1.0, 0.0]])], 1)
+    assert m.device.type == "cuda" and abs(torch.linalg.vector_norm(c.state()).item() - 1) < 1e-6
