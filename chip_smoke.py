@@ -189,7 +189,27 @@ Phases (any failure exits non-zero; nothing is caught):
      shots within 5 sigma; (e) a feed-forward circuit
      (``cond_measurement``, ``conditional_gate``, ``cond_measurement``):
      the outcomes and the final state against the CPU path, one K2 launch
-     a ``state()``; then each route timed as in phase 12.
+     in all (the three ``state()`` computations extend the kept prefix
+     state); then each route timed as in phase 12;
+ 14. noise at full width (no kernel of its own), each case also on the
+     port's CPU path with the same statuses: (a) a noisy TFIM VQE step at
+     n=20, L=4 (a depolarizing channel of 0.005 a Pauli after each
+     ``zzrx_layer``: 80 sites; 32 trajectories, value and gradient one
+     trajectory at a time, then an SGD update), the branches equal on the
+     two devices, |dE| and max |dgrad| within 1e-4, K1 4 x 32 times in the
+     forward, K3 4 x 32 in the backward, K2/K4 never, the peak memory above
+     the start; (b) a noisy HEA energy (amplitude damping 0.02 after each
+     CNOT, on each leg: 152 ``general_kraus`` sites; 8 trajectories): each
+     branch within 1e-5 of its float64 cdf interval, the energies within
+     1e-4 where the branches agree, K6 launched a trajectory as often as a
+     noiseless ``state()``; (c) ``expectation_ps(noise_conf=)`` against the
+     CPU path within 1e-4, and ``sample_expectation_ps(noise_conf=)`` with a
+     readout error within 3 sigma of the exact value of the same
+     trajectories; (d) the exact oracle at n=10: the ``DMCircuit`` of the
+     noisy TFIM against the CPU path within 1e-5, its trace 1 and its purity
+     below 1, and the mean of 512 trajectories of <Z_0 Z_1> and of the
+     energy within 4 sigma + 1e-3 of it; then each route timed as in
+     phase 12.
 
 Prints the kernels JSON line, then the card's name and power limit, then
 ``{"ok": true, "device": {...}}`` as the last line.  Needs no network and
@@ -2706,7 +2726,8 @@ def _sampling_checks(tct, dev, counters, n=N, nl=L, shots=SAMPLE_SHOTS, traj=TRA
             check(f"(d) {label} |shots - exact| / sigma", abs(est - exact) / sigma, 5.0)
         lap("(d)")
 
-        # (e) feed-forward: measure, correct, measure; one K2 a state()
+        # (e) feed-forward: measure, correct, measure; one K2 in all: each
+        # state() after the first extends the kept prefix state
         def feed_forward(device, s0, s1):
             f = circuit(device)
             m0 = f.cond_measurement(0, status=s0)
@@ -2726,8 +2747,8 @@ def _sampling_checks(tct, dev, counters, n=N, nl=L, shots=SAMPLE_SHOTS, traj=TRA
                   f"launched {ff_launches} for 3 state() computations")
             if got != (int(m0c), int(m1c)):
                 _fail(f"phase 13 (e): outcomes {got} differ from the CPU path's")
-            if card and ff_launches != {"grand_zzrx_fwd": 3}:
-                _fail(f"phase 13 (e): expected one K2 launch a state(), launched {ff_launches}")
+            if card and ff_launches != {"grand_zzrx_fwd": 1}:
+                _fail(f"phase 13 (e): expected one K2 launch for the three state()s, launched {ff_launches}")
             check("(e) final state against the CPU path", (final.cpu() - final_cpu).abs().max().item(), STATE_ATOL)
             check("(e) |norm - 1|", abs(torch.linalg.vector_norm(final).item() - 1.0), STATE_ATOL)
         lap("(e)")
@@ -2759,7 +2780,7 @@ def _sampling_phase(tct, card, counters):
                              format="sample_int")[-1].item(),
         f"(d) sample_expectation_ps <X_5>, {SAMPLE_SHOTS} shots (a copy: K2 and h)":
             lambda: c.sample_expectation_ps(x=[5], shots=SAMPLE_SHOTS, status=u).item(),
-        "(e) feed-forward circuit (3 K2)": lambda: got["feed_forward"](dev, s0, s1)[0].state()[0].item(),
+        "(e) feed-forward circuit (1 K2)": lambda: got["feed_forward"](dev, s0, s1)[0].state()[0].item(),
     }
     with torch.no_grad():
         for label, fn in timed.items():
@@ -2769,6 +2790,334 @@ def _sampling_phase(tct, card, counters):
             print(f"phase 13 time, {label}: {ms:.3f} ms (CUDA events, median of 20), busy {busy:.3f} ms "
                   f"({100 * busy / ms:.1f} %; profiler, 5 calls), {card}; top kernels {top}")
     print(f"phase 13 wall time: checks {t1 - t0:.1f} s, timing {time.perf_counter() - t1:.1f} s")
+
+
+#: phase 14, noise at full width: the depolarizing strength a Pauli after
+#: each zzrx_layer, the trajectories of the noisy TFIM step, the amplitude
+#: damping after each CNOT of the HEA and its trajectories, the trajectories
+#: and shots of the API entry points, and the exact oracle's width and its
+#: trajectories
+NOISE_P = 0.005
+NOISE_NMC = 32
+HEA_GAMMA = 0.02
+HEA_NMC = 8
+API_NMC = 16
+API_SHOTS = 8192
+DM_N = 10
+DM_NMC = 512
+#: the trajectories of (a), (b) and (c) that the CPU path also runs (one
+#: n=20 trajectory there takes 1.2-2.9 s); every branch of (a) is compared
+CPU_TRAJ, CPU_HEA, CPU_API = 8, 3, 4
+#: a branch against its float64 cdf interval: the float32 branch
+#: probabilities of one device against the float64 sums of the same
+#: numbers (phase 13's bracket, one site at a time)
+BRANCH_TOL = 1e-5
+#: the density matrix on the card against the CPU path (2^20 float32
+#: entries, each a sum over the Kraus branches of 40 channels)
+DM_ATOL = 1e-5
+
+
+def channel_branches(c):
+    """The branch each channel item of ``c`` took, in QIR order (a tensor
+    on the circuit's device)."""
+    import torch
+
+    return torch.stack([item["channel_branch"] for item in c.to_qir() if item.get("is_channel")])
+
+
+def channel_probs(c):
+    """The branch probabilities of each channel item of ``c``, (sites,
+    branches), on the circuit's device."""
+    import torch
+
+    return torch.stack([item["channel_probs"] for item in c.to_qir() if item.get("is_channel")])
+
+
+def branch_miss(branches, u, probs):
+    """How far past its float64 cdf interval [cdf[b-1], cdf[b]] each uniform
+    ``u`` + the tie-break lies, at most (0 when every branch is inside):
+    ``probs`` (sites, branches) are one device's float32 probabilities."""
+    cdf = np.cumsum(np.asarray(probs, dtype=np.float64), axis=1)
+    b = np.asarray(branches, dtype=np.int64)
+    u = np.asarray(u, dtype=np.float64) + MEASURE_EPS
+    rows = np.arange(len(b))
+    lo = np.where(b > 0, cdf[rows, np.maximum(b - 1, 0)], 0.0)
+    return float(np.max(np.maximum(lo - u, u - cdf[rows, b])))
+
+
+def _noise_checks(tct, dev, counters, n=N, nl=L, nmc=NOISE_NMC, hea_nmc=HEA_NMC, api_nmc=API_NMC,
+                  shots=API_SHOTS, dm_n=DM_N, dm_nmc=DM_NMC, cpu_traj=CPU_TRAJ, cpu_hea=CPU_HEA, cpu_api=CPU_API):
+    """Phase 14's checks (a)-(d) on ``dev``, each case also on the port's
+    CPU path with the same statuses: the first ``cpu_traj``, ``cpu_hea``
+    and ``cpu_api`` trajectories of (a)-(c), every branch of (a), and (d)'s
+    density matrix (on the CPU the two are one; the kernels' launches are
+    required only on the card).  Returns what the timings reuse."""
+    import torch
+
+    card = torch.device(dev).type == "cuda"
+    g0 = np.random.default_rng(42).normal(size=(nl, 2, n)) * 0.1  # bench.py's parameters
+    pairs = [(i, i + 1) for i in range(n - 1)]
+    rng = np.random.default_rng(14)
+    nc = tct.NoiseConf()
+    nc.add_noise("zzrx_layer", tct.channels.depolarizingchannel(NOISE_P, NOISE_P, NOISE_P))
+    names = [k.__name__ for k in counters]
+    spent = {}
+    last = [time.perf_counter()]
+
+    def lap(key):
+        now = time.perf_counter()
+        spent[key], last[0] = now - last[0], now
+
+    def on_cpu(key, fn):
+        t = time.perf_counter()
+        out = fn()
+        spent[f"CPU {key}"] = spent.get(f"CPU {key}", 0.0) + time.perf_counter() - t
+        return out
+
+    def check(label, err, tol):
+        print(f"  {label}: {err:.3e} (tol {tol:g})")
+        if not err <= tol:
+            _fail(f"phase 14, {label}: {err} > {tol}")
+
+    def need(label, launched, want):
+        if card and {k: v for k, v in launched.items() if k in names} != want:
+            _fail(f"phase 14 {label}: expected launches {want}, got {launched}")
+
+    # (a) the noisy TFIM step: value and grad one trajectory at a time
+    s_a = rng.random((nmc, nc.channel_count(tfim_circuit(tct, g0, n, nl, device="cpu")))).astype(np.float32)
+
+    def tfim_trajectory(p, device, st):
+        cn = tct.circuit_with_noise(tfim_circuit(tct, p, n, nl, device=device), nc, status=st)
+        return cn, cn.expectation_zzx_energy(pairs, 1.0, -1.0)
+
+    def tfim_step(device, status, launches=None):
+        """The step's mean energy and gradient, one trajectory at a time,
+        and the SGD update; each trajectory's energy and gradient."""
+        p = tct.convert.params(g0, device).requires_grad_()
+        es, gs = [], []
+        for k in range(len(status)):
+            _reset(counters)
+            _, e = tfim_trajectory(p, device, status[k])
+            if launches is not None:
+                launches["forward"].append(_launched(counters))
+                _reset(counters)
+            (g,) = torch.autograd.grad(e, p)
+            if launches is not None:
+                launches["backward"].append(_launched(counters))
+            es.append(e.detach())
+            gs.append(g)
+        e, g = torch.stack(es), torch.stack(gs)
+        return e.mean(), g.mean(dim=0), p.detach() - LR * g.mean(dim=0), e, g
+
+    def tfim_branches(device, status):
+        """Every trajectory's branches (the channels are unitary: no state
+        is computed)."""
+        with torch.no_grad():
+            return torch.stack([channel_branches(tct.circuit_with_noise(
+                tfim_circuit(tct, g0, n, nl, device=device), nc, status=st)) for st in status])
+
+    print(f"noise (n={n}, L={nl}; depolarizing {NOISE_P} a Pauli after each zzrx_layer, "
+          f"{s_a.shape[1]} sites, {nmc} trajectories):")
+    launches = {"forward": [], "backward": []}
+    if card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+    e_a, g_a, p_new, e_k, g_k = tfim_step(dev, torch.as_tensor(s_a, device=dev), launches)
+    if card:
+        torch.cuda.synchronize()
+        peak_mb = (torch.cuda.max_memory_allocated() - base) / 2**20
+    b_a = tfim_branches(dev, torch.as_tensor(s_a, device=dev))
+    b_ac = on_cpu("(a)", lambda: tfim_branches("cpu", s_a))
+    _, _, _, e_kc, g_kc = on_cpu("(a)", lambda: tfim_step("cpu", s_a[:cpu_traj]))
+    fwd = {k: sum(d.get(k, 0) for d in launches["forward"]) for k in names}
+    bwd = {k: sum(d.get(k, 0) for d in launches["backward"]) for k in names}
+    fwd, bwd = ({k: v for k, v in d.items() if v} for d in (fwd, bwd))
+    differ = int((b_a.cpu() != b_ac).sum())
+    print(f"  (a) E {e_a.item():.7f}, |grad| {g_a.abs().max().item():.4f}; {int((b_a != 0).sum())} non-identity "
+          f"branches of {b_a.numel()}, {differ} differ from the CPU path's; forward launched {fwd}, backward {bwd}"
+          + (f"; peak memory above the start {peak_mb:.2f} MB" if card else ""))
+    if differ:
+        _fail(f"phase 14 (a): {differ} branches differ from the CPU path's")
+    need("(a) forward", fwd, {"zzrx_fwd": nl * nmc})
+    need("(a) backward", bwd, {"zzrx_bwd": nl * nmc})
+    with torch.no_grad():  # the same trajectories (the branches do not read the state) after the update
+        e_new = torch.stack([tfim_trajectory(p_new, dev, st)[1] for st in torch.as_tensor(s_a, device=dev)]).mean()
+    print(f"  (a) after one SGD step (rate {LR}): E {e_new.item():.7f}")
+    if not e_new.item() < e_a.item():
+        _fail(f"phase 14 (a): the SGD step raised the energy, {e_a.item()} -> {e_new.item()}")
+    check(f"(a) max |E - E_CPU| over trajectories 0-{cpu_traj - 1}",
+          (e_k[:cpu_traj].cpu() - e_kc).abs().max().item(), ENERGY_ATOL)
+    check(f"(a) max |grad - grad_CPU| over trajectories 0-{cpu_traj - 1}",
+          (g_k[:cpu_traj].cpu() - g_kc).abs().max().item(), GRAD_ATOL)
+    lap("(a)")
+
+    # (b) the noisy HEA energy: general_kraus reads the state at each site
+    nc_hea = tct.NoiseConf()
+    nc_hea.add_noise("cnot", tct.channels.amplitudedampingchannel(HEA_GAMMA, 1.0))
+    with torch.no_grad():
+        c_hea = hea_circuit(tct, n, tct.convert.params(g0, dev), device=dev)
+        c_hea_cpu = hea_circuit(tct, n, tct.convert.params(g0, "cpu"), device="cpu")
+        num = nc_hea.channel_count(c_hea)
+        s_b = rng.random((hea_nmc, num)).astype(np.float32)
+        _reset(counters)
+        hea_circuit(tct, n, tct.convert.params(g0, dev), device=dev).state()
+        clean = _launched(counters)
+
+        def hea_trajectory(c, st):
+            cn = tct.circuit_with_noise(c, nc_hea, status=st)
+            return cn, cn.expectation_zzx_energy(pairs, 1.0, -1.0).item()
+
+        rows, traj_launches = [], []
+        s_b_dev = torch.as_tensor(s_b, device=dev)
+        for k in range(hea_nmc):
+            _reset(counters)
+            cn, e = hea_trajectory(c_hea, s_b_dev[k])
+            traj_launches.append(_launched(counters))
+            rows.append([e, None, channel_branches(cn).cpu().numpy(), None,
+                         channel_probs(cn).double().cpu().numpy(), None])
+            if k < cpu_hea:
+                cc, rows[k][1] = on_cpu("(b)", lambda k=k: hea_trajectory(c_hea_cpu, s_b[k]))
+                rows[k][3], rows[k][5] = channel_branches(cc).numpy(), channel_probs(cc).double().numpy()
+    miss = max(branch_miss(b, s_b[k], pr) for k, (_, _, b, _, pr, _) in enumerate(rows))
+    miss_cpu = max(branch_miss(r[3], s_b[k], r[5]) for k, r in enumerate(rows[:cpu_hea]))
+    same = [k for k, r in enumerate(rows[:cpu_hea]) if np.array_equal(r[2], r[3])]
+    print(f"  (b) HEA, amplitude damping {HEA_GAMMA} after each CNOT: {num} sites, {hea_nmc} trajectories; "
+          f"{len(same)} of the {cpu_hea} on the CPU path with every branch equal to its; "
+          f"{sum(int(r[2].sum()) for r in rows)} decays; "
+          f"a trajectory launched {traj_launches[0]}, a noiseless state() {clean}")
+    check("(b) branch bracket miss against the card's float64 cdf", miss, BRANCH_TOL)
+    check("(b) CPU path's branch bracket miss", miss_cpu, BRANCH_TOL)
+    for k, (e, ec, b, bc, pr, _) in enumerate(rows[:cpu_hea]):
+        if k in same:
+            continue
+        site = int(np.flatnonzero(b != bc)[0])
+        edge = np.cumsum(pr[site])[min(b[site], bc[site])]
+        check(f"(b) trajectory {k}: first differing site's |u - cdf boundary|",
+              abs(float(s_b[k, site]) + MEASURE_EPS - edge), BRANCH_TOL)
+    if same:
+        check("(b) max |E - E_CPU| where the branches agree", max(abs(rows[k][0] - rows[k][1]) for k in same),
+              ENERGY_ATOL)
+    k6 = [d.get("row_fwd", 0) for d in traj_launches]
+    if card and (set(k6) != {clean.get("row_fwd", 0)} or not k6[0]):
+        _fail(f"phase 14 (b): K6 launches a trajectory {k6}, a noiseless state() {clean}")
+    lap("(b)")
+
+    # (c) the API entry points on the noisy TFIM
+    nc_ro = tct.NoiseConf()
+    nc_ro.add_noise("zzrx_layer", tct.channels.depolarizingchannel(NOISE_P, NOISE_P, NOISE_P))
+    nc_ro.add_noise("readout", [[0.98, 0.97]] * n)
+    s_c = rng.random((api_nmc, s_a.shape[1])).astype(np.float32)
+    u_c = rng.random(shots).astype(np.float32)
+    with torch.no_grad():
+        c = tfim_circuit(tct, tct.convert.params(g0, dev), n, nl, device=dev)
+        c_cpu = tfim_circuit(tct, tct.convert.params(g0, "cpu"), n, nl, device="cpu")
+        s_c_dev, u_c_dev = torch.as_tensor(s_c, device=dev), torch.as_tensor(u_c, device=dev)
+        zz01 = c.expectation_ps(z=[0, 1], noise_conf=nc, status=s_c_dev).item()
+        zz01_few = c.expectation_ps(z=[0, 1], noise_conf=nc, status=s_c_dev[:cpu_api]).item()
+        zz01_cpu = on_cpu("(c)", lambda: c_cpu.expectation_ps(z=[0, 1], noise_conf=nc, status=s_c[:cpu_api]).item())
+        est = c.sample_expectation_ps(x=[5 % n], noise_conf=nc_ro, nmc=api_nmc, shots=shots, status=u_c_dev,
+                                      statusc=s_c_dev).item()
+        exact = c.sample_expectation_ps(x=[5 % n], noise_conf=nc_ro, nmc=api_nmc, statusc=s_c_dev).item()
+    sigma = np.sqrt(max(1 - exact**2, 1e-12) / shots)
+    print(f"  (c) expectation_ps <Z_0 Z_1>, {api_nmc} trajectories: {zz01:.7f}; the first {cpu_api}: "
+          f"{zz01_few:.7f} (CPU {zz01_cpu:.7f}); "
+          f"sample_expectation_ps <X_5> with readout error: {shots} shots {est:.7f}, exact {exact:.7f}, "
+          f"sigma {sigma:.2e}")
+    check(f"(c) |<Z_0 Z_1> - CPU| over {cpu_api} trajectories", abs(zz01_few - zz01_cpu), ENERGY_ATOL)
+    check("(c) |shots - exact| / sigma", abs(est - exact) / sigma, 3.0)
+    lap("(c)")
+
+    # (d) the exact oracle at n=dm_n: DMCircuit against the trajectory mean
+    gd = np.random.default_rng(42).normal(size=(nl, 2, dm_n)) * 0.1
+    pairs_d = [(i, i + 1) for i in range(dm_n - 1)]
+    with torch.no_grad():
+        def dm(device):
+            cd = tfim_circuit(tct, tct.convert.params(gd, device), dm_n, nl, device=device)
+            return tct.circuit_with_noise(cd.to_dm_circuit(), nc)
+
+        def dm_values(d):
+            zz = d.expectation_ps(z=[0, 1]).real.item()
+            e = sum(d.expectation_ps(z=[a, b]).real.item() for a, b in pairs_d)
+            return zz, e - sum(d.expectation_ps(x=[q]).real.item() for q in range(dm_n))
+
+        d = dm(dev)
+        rho = d.densitymatrix()
+        rho_cpu = on_cpu("(d)", lambda: dm("cpu").densitymatrix())
+        zz_dm, e_dm = dm_values(d)
+        cd = tfim_circuit(tct, tct.convert.params(gd, dev), dm_n, nl, device=dev)
+        s_d = torch.as_tensor(rng.random((dm_nmc, nc.channel_count(cd))).astype(np.float32), device=dev)
+        vals = []
+        for k in range(dm_nmc):
+            cn = tct.circuit_with_noise(cd, nc, status=s_d[k])
+            vals.append(torch.stack([cn.expectation_ps(z=[0, 1]).real,
+                                     cn.expectation_zzx_energy(pairs_d, 1.0, -1.0).real]))
+        vals = torch.stack(vals).double().cpu().numpy()
+    mean, sd = vals.mean(axis=0), vals.std(axis=0, ddof=1) / np.sqrt(dm_nmc)
+    tr = torch.trace(rho).real.item()
+    purity = d.purity().item()
+    print(f"  (d) DMCircuit n={dm_n} ({rho.numel()} entries): trace {tr:.7f}, purity {purity:.6f}; "
+          f"<Z_0 Z_1> {zz_dm:.6f} exact, {mean[0]:.6f} +- {sd[0]:.1e} over {dm_nmc} trajectories; "
+          f"energy {e_dm:.6f} exact, {mean[1]:.6f} +- {sd[1]:.1e}")
+    check("(d) max |rho - rho_CPU|", (rho.cpu() - rho_cpu).abs().max().item(), DM_ATOL)
+    check("(d) |tr rho - 1|", abs(tr - 1.0), DM_ATOL)
+    if not purity < 1.0:
+        _fail(f"phase 14 (d): purity {purity} is not below 1")
+    check("(d) <Z_0 Z_1>: |mean - exact| - 4 sigma", abs(mean[0] - zz_dm) - 4 * sd[0], 1e-3)
+    check("(d) energy: |mean - exact| - 4 sigma", abs(mean[1] - e_dm) - 4 * sd[1], 1e-3)
+    lap("(d)")
+    print("  wall time of the checks: " + ", ".join(f"{k} {v:.1f} s" for k, v in spent.items()))
+    return {"g0": g0, "nc": nc, "nc_ro": nc_ro, "nc_hea": nc_hea, "s_a": s_a, "s_b": s_b, "s_c": s_c,
+            "u_c": u_c, "c": c, "c_hea": c_hea, "tfim_trajectory": tfim_trajectory, "dm": dm}
+
+
+def _noise_phase(tct, card, counters):
+    """Phase 14, noise at full width: :func:`_noise_checks` on the card,
+    then each route timed by CUDA events (median of 3 after a warm-up) with
+    its busy time under torch.profiler (one call, the card alone) and the
+    launches of one call."""
+    import torch
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    got = _noise_checks(tct, dev, counters)
+    t1 = time.perf_counter()
+    c, nc, pairs = got["c"], got["nc"], [(i, i + 1) for i in range(N - 1)]
+    s_a = torch.as_tensor(got["s_a"], device=dev)
+    s_b = torch.as_tensor(got["s_b"], device=dev)
+    s_c = torch.as_tensor(got["s_c"], device=dev)
+    u_c = torch.as_tensor(got["u_c"], device=dev)
+    p = tct.convert.params(got["g0"], dev).requires_grad_()
+
+    def tfim_vg():
+        _, e = got["tfim_trajectory"](p, dev, s_a[0])
+        return torch.autograd.grad(e, p)[0][0, 0, 0].item()
+
+    timed = {
+        "(a) one noisy TFIM trajectory, value and grad (80 channel sites)": tfim_vg,
+        "(a) one noisy TFIM trajectory, energy": lambda: got["tfim_trajectory"](p, dev, s_a[0])[1].item(),
+        "(b) one noisy HEA trajectory, energy (152 general_kraus sites)":
+            lambda: tct.circuit_with_noise(got["c_hea"], got["nc_hea"], status=s_b[0]).expectation_zzx_energy(
+                pairs, 1.0, -1.0).item(),
+        f"(c) expectation_ps(noise_conf=), {CPU_API} trajectories":
+            lambda: c.expectation_ps(z=[0, 1], noise_conf=nc, status=s_c[:CPU_API]).item(),
+        f"(c) sample_expectation_ps(noise_conf=), {CPU_API} trajectories, {API_SHOTS} shots":
+            lambda: c.sample_expectation_ps(x=[5], noise_conf=got["nc_ro"], shots=API_SHOTS, status=u_c,
+                                            statusc=s_c[:CPU_API]).item(),
+        f"(d) DMCircuit n={DM_N}, the noisy density matrix":
+            lambda: got["dm"](dev).densitymatrix()[0, 0].real.item(),
+    }
+    for label, fn in timed.items():
+        with torch.no_grad() if "grad" not in label else torch.enable_grad():
+            ms = _time_ms(fn, reps=3, inner=1, warmup=1)
+            _reset(counters)
+            fn()
+            launched = _launched(counters)
+            host, busy, by_kernel = _profile(fn, reps=1, cpu=False)
+        top = ", ".join(f"{name[:40]} {t:.3f} x{k:g}" for name, t, k in by_kernel[:3])
+        print(f"phase 14 time, {label}: {ms:.3f} ms (CUDA events, median of 3), busy {busy:.3f} ms "
+              f"({100 * busy / ms:.1f} %; profiler, one call), launched {launched}, {card}; top kernels {top}")
+    print(f"phase 14 wall time: checks {t1 - t0:.1f} s, timing {time.perf_counter() - t1:.1f} s")
 
 
 def main() -> int:
@@ -3269,6 +3618,10 @@ def main() -> int:
     # ---- 13. sampling and feed-forward at full width -------------------
     _sampling_phase(tct, card, every_counter)
     print(f"phase 13 ended at {time.time() - t_start:.1f} s")
+
+    # ---- 14. noise at full width ---------------------------------------
+    _noise_phase(tct, card, every_counter)
+    print(f"phase 14 ended at {time.time() - t_start:.1f} s")
     print(f"smoke total: {time.time() - t_start:.1f} s")
     print(json.dumps(kernels_line))
     print(card)

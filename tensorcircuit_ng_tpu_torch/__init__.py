@@ -37,13 +37,22 @@ implicit generator, seeded by ``tct.backend.set_random_state(seed)``)::
     m = c.cond_measurement(0)                     # collapse, outcome on the device
     c.conditional_gate(m, [np.eye(2), x_matrix], 1)
 
+Noise: Monte-Carlo trajectories on a ``Circuit`` (one uniform a channel
+site chooses each branch), the exact channels on a ``DMCircuit``::
+
+    nc = tct.NoiseConf()
+    nc.add_noise("zzrx_layer", tct.channels.depolarizingchannel(0.005, 0.005, 0.005))
+    e = c.expectation_ps(z=[0, 1], noise_conf=nc, nmc=64)       # trajectory mean
+    exact = tct.circuit_with_noise(c.to_dm_circuit(), nc).expectation_ps(z=[0, 1])
+    c.amplitudedamping(3, gamma=0.02, p=1.0)        # one trajectory, in place
+
 On the card the fused TFIM layers and the TEBD truncation SVD run
 hand-written Hopper kernels (``core/csrc/``, built by nvcc at first use
 into ``build/kernels/``); on the CPU (``device="cpu"`` or
 ``set_device("cpu")``) they run their plain torch versions.
 """
 
-from . import config, convert, quantum
+from . import config, convert, noisemodel, quantum
 from .backend import TorchBackend, backend
 from .config import (
     dtypestr,
@@ -59,17 +68,25 @@ from .config import (
     set_function_dtype,
 )
 from .models.circuit import Circuit, expectation
+from .models.densitymatrix import DMCircuit, DMCircuit2, DensityMatrixCircuit
+from .noisemodel import NoiseConf, circuit_with_noise
 from .models.tebd import ParallelTEBD
-from .ops import gates
+from .ops import channels, gates
 from .ops.gates import Gate, array_to_tensor, num_to_tensor
 
 __all__ = [
     "Circuit",
+    "DMCircuit",
+    "DMCircuit2",
+    "DensityMatrixCircuit",
     "Gate",
+    "NoiseConf",
     "ParallelTEBD",
     "TorchBackend",
     "array_to_tensor",
     "backend",
+    "channels",
+    "circuit_with_noise",
     "config",
     "convert",
     "dtypestr",

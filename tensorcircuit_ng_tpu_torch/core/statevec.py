@@ -35,6 +35,7 @@ __all__ = [
     "amplitude",
     "probabilities",
     "marginal_probability",
+    "reduced_density_matrix",
     "project_slot",
     "block_sums",
     "sample_trajectories",
@@ -221,6 +222,25 @@ def marginal_probability(state: torch.Tensor, wires: Sequence[int], d: int = 2) 
     if inv != list(range(k)):
         m = m.permute(inv)
     return torch.reshape(m, (-1,))
+
+
+def reduced_density_matrix(state: torch.Tensor, wires: Sequence[int], d: int = 2) -> torch.Tensor:
+    """The (d^k, d^k) reduced density matrix Tr_rest |psi><psi| of the k
+    ``wires`` (rows and columns in the order of ``wires``), unnormalized:
+    one pass over the state."""
+    wires = [int(w) for w in wires]
+    k = len(wires)
+    n = num_slots(state, d)
+    ps = torch.reshape(state, _exposed_shape(n, sorted(wires), d))
+    ket, bra, seg = _LETTERS[:k], _LETTERS[k : 2 * k], _LETTERS[2 * k : 3 * k + 1]
+    sub_ket = "".join(seg[i] + ket[i] for i in range(k)) + seg[k]
+    sub_bra = "".join(seg[i] + bra[i] for i in range(k)) + seg[k]
+    rho = torch.einsum(f"{sub_ket},{sub_bra}->{ket}{bra}", ps, torch.conj(ps))
+    order = list(np.argsort(wires))
+    inv = [order.index(i) for i in range(k)]
+    if inv != list(range(k)):
+        rho = rho.permute(inv + [k + i for i in inv])
+    return torch.reshape(rho, (d**k, d**k))
 
 
 def project_slot(

@@ -228,6 +228,9 @@ class AbstractCircuit:
         if item.get("zstring_rot"):
             self.rzm(*index, theta=item["theta"])  # type: ignore[attr-defined]
             return
+        if item.get("cond_collapse"):
+            self.cond_measurement(*index, status=item.get("status"))  # type: ignore[attr-defined]
+            return
         if item.get("is_channel"):
             self.general_kraus(  # type: ignore[attr-defined]
                 item["channel_kraus"], *index, status=item.get("channel_status"), name=item.get("name")
@@ -394,6 +397,23 @@ class AbstractCircuit:
 
     def barrier_instruction(self, *index: int) -> None:
         self._instruction("barrier", index)
+
+    def pauli_instruction(self, *index: int, p: Any = None, **kws: Any) -> None:
+        """Record a one-qubit Pauli channel instruction with probabilities ``p``."""
+        self._extra_qir.append({"name": "pauli", "index": tuple(index), "p": p, "pos": len(self._qir), **kws})
+
+    def pauli2_instruction(self, *index: int, p: Any = None, **kws: Any) -> None:
+        self._extra_qir.append({"name": "pauli2", "index": tuple(index), "p": p, "pos": len(self._qir), **kws})
+
+    def depolarizing_instruction(self, *index: int, p: float = 0.0, **kws: Any) -> None:
+        self._extra_qir.append({"name": "depolarizing", "index": tuple(index), "p": p, "pos": len(self._qir), **kws})
+
+    def depolarizing2_instruction(self, *index: int, p: float = 0.0, **kws: Any) -> None:
+        self._extra_qir.append({"name": "depolarizing2", "index": tuple(index), "p": p, "pos": len(self._qir), **kws})
+
+    def mr_instruction(self, *index: int, **kws: Any) -> None:
+        """Record a measure-and-reset instruction."""
+        self._extra_qir.append({"name": "mr", "index": tuple(index), "pos": len(self._qir), **kws})
 
     # ------------------------------------------------------------------
     # expectation sugar and gate-factory plumbing

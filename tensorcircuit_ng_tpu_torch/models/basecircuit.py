@@ -12,6 +12,14 @@ caller's, or the backend's implicit one).  ``_expanded_qir`` unfolds the
 fused layers into one gate a qubit or pair (for ``inverse`` and
 ``matrix``); the light-cone expectation applies the items that reach the
 observable one by one, from |0...0>, without the fold or the grouping.
+
+The state of the first k QIR items is kept once computed, and the next
+``state()`` applies only the items appended since: a trajectory whose
+channels read the state at each channel (``general_kraus``, the replay of a
+channel item) then costs each item once, not once a channel.  Anything
+but an append (``replace_inputs``, a QIR item replaced or removed) drops
+the kept state, which is used only under the autograd mode it was computed
+in; ``state(reuse=False)`` computes from the first item.
 """
 
 from __future__ import annotations
@@ -48,6 +56,8 @@ _DIAGONAL_GATES = frozenset(
 
 
 class BaseCircuit(AbstractCircuit):
+    is_dm = False
+
     def __init__(
         self,
         nqubits: int,
@@ -60,7 +70,8 @@ class BaseCircuit(AbstractCircuit):
         self._d = dim
         self._device = config.resolve_device(device)
         self._inputs = inputs
-        self._state_cache: Optional[torch.Tensor] = None
+        #: (the prefix's items, autograd mode, state) of the kept prefix
+        self._state_cache: Optional[Tuple[List[Dict[str, Any]], Tuple[bool, bool], torch.Tensor]] = None
 
     @property
     def device(self) -> torch.device:
@@ -75,8 +86,7 @@ class BaseCircuit(AbstractCircuit):
         return torch.reshape(statevec.real_tensor(x, self._device, config.torch_dtype()), (-1,))
 
     def _append(self, item: Dict[str, Any]) -> None:
-        self._qir.append(item)
-        self._state_cache = None
+        self._qir.append(item)  # the kept prefix state stays valid
 
     # ------------------------------------------------------------------
     # state computation
@@ -120,10 +130,31 @@ class BaseCircuit(AbstractCircuit):
     def _compute_state(self) -> torch.Tensor:
         return self._run_groups(self._grouped_qir())
 
-    def _run_groups(self, groups: List[Any]) -> torch.Tensor:
-        psi = None
+    def _extend_state(self, psi: torch.Tensor, items: List[Dict[str, Any]]) -> torch.Tensor:
+        """``psi`` with ``items`` applied after it."""
+        return self._run_groups(self._grouped_qir(items), psi)
+
+    def _kept_state(self) -> torch.Tensor:
+        """The state of the whole QIR, from the kept prefix state when it
+        is still the prefix of the QIR and was computed under the current
+        autograd mode; kept again for the next call."""
+        mode = (torch.is_grad_enabled(), torch.is_inference_mode_enabled())
+        kept = self._state_cache
+        s = None
+        if kept is not None:
+            items, kmode, psi = kept
+            k = len(items)
+            if kmode == mode and 0 < k <= len(self._qir) and all(a is b for a, b in zip(items, self._qir)):
+                s = psi if k == len(self._qir) else self._extend_state(psi, self._qir[k:])
+        if s is None:
+            s = self._compute_state()
+        self._state_cache = (list(self._qir), mode, s)
+        return s
+
+    def _run_groups(self, groups: List[Any], psi: Optional[torch.Tensor] = None) -> torch.Tensor:
         if (
-            self._inputs is None
+            psi is None
+            and self._inputs is None
             and self._d == 2
             and groups
             and isinstance(groups[0], dict)
@@ -148,9 +179,9 @@ class BaseCircuit(AbstractCircuit):
                 psi = self._apply_item(psi, group)
         return psi
 
-    def _grouped_qir(self) -> List[Any]:
-        """QIR with runs of >= 2 consecutive ``zzrx_layer`` items (identical
-        pairs) collected into lists."""
+    def _grouped_qir(self, items: Optional[List[Dict[str, Any]]] = None) -> List[Any]:
+        """QIR (or ``items``) with runs of >= 2 consecutive ``zzrx_layer``
+        items (identical pairs) collected into lists."""
         out: List[Any] = []
         run: List[Dict[str, Any]] = []
 
@@ -162,7 +193,7 @@ class BaseCircuit(AbstractCircuit):
                 out.extend(run)
             run = []
 
-        for item in self._qir:
+        for item in self._qir if items is None else items:
             if item.get("zzrx_layer"):
                 if run and run[0]["pairs"] != item["pairs"]:
                     flush()
@@ -201,8 +232,8 @@ class BaseCircuit(AbstractCircuit):
             return statevec.apply_diagonal(psi, diag, item["index"], self._d)
         return statevec.apply_unitary(psi, gate, item["index"], self._d)
 
-    def _expanded_qir(self) -> List[Dict[str, Any]]:
-        """The QIR with each fused item unfolded into plain gate items: an
+    def _expanded_qir(self, items: Optional[List[Dict[str, Any]]] = None) -> List[Dict[str, Any]]:
+        """The QIR (or ``items``) with each fused item unfolded into plain gate items: an
         rx layer into n ``rx``, a zz product into one ``rzz`` a pair, a zzrx
         layer into both, a fused one-qubit layer into n ``fused1q``, and
         ``rzm``/``multicz`` on at most 8 wires into one diagonal matrix
@@ -226,7 +257,7 @@ class BaseCircuit(AbstractCircuit):
             return [gate_item(Gate(ms[q], name="rx"), (q,), "rx", theta=thetas[q]) for q in range(self._nqubits)]
 
         out: List[Dict[str, Any]] = []
-        for item in self._qir:
+        for item in self._qir if items is None else items:
             k = len(item["index"])
             if item.get("rx_layer"):
                 out.extend(rx_items(item["thetas"]))
@@ -407,16 +438,31 @@ class BaseCircuit(AbstractCircuit):
     ) -> torch.Tensor:
         """⟨X_x Y_y Z_z⟩ by slot flips and sign masks (no matmuls).  ``ps``,
         a length-n list of 0/1/2/3 for I/X/Y/Z, takes precedence over the
-        x/y/z lists.  ``noise_conf`` (with ``nmc`` and ``status``) is not
-        ported yet."""
-        _no_noise(noise_conf)
+        x/y/z lists.  With ``noise_conf`` the noisy value of
+        :func:`noisemodel.expectation_noisfy` for the Pauli gates
+        (``nmc`` trajectories, or the rows of ``status``)."""
         if ps is not None:
             x, y, z = ([i for i, v in enumerate(ps) if v == p] for p in (1, 2, 3))
+        if noise_conf is not None:
+            return self._noisy_expectation(self._pauli_ops(x, y, z), noise_conf, nmc, status,
+                                           enable_lightcone=enable_lightcone)
         if enable_lightcone:
             psi = self._lightcone_state([int(q) for q in (*(x or ()), *(y or ()), *(z or ()))])
         else:
             psi = self.state(reuse=reuse)
         return statevec.expectation_ps(psi, x, y, z)
+
+    @staticmethod
+    def _pauli_ops(x: Optional[Sequence[int]], y: Optional[Sequence[int]], z: Optional[Sequence[int]]) -> List[Any]:
+        """The Pauli gates of ⟨X_x Y_y Z_z⟩ as ``(gate, [wire])`` operators."""
+        return [(GATES[name](), [int(q)]) for name, qs in (("x", x), ("y", y), ("z", z)) for q in qs or ()]
+
+    def _noisy_expectation(self, ops: Sequence[Any], noise_conf: Any, nmc: int, status: Optional[Any],
+                           enable_lightcone: bool = False) -> torch.Tensor:
+        from .. import noisemodel
+
+        kws = {"enable_lightcone": True} if enable_lightcone else {}
+        return noisemodel.expectation_noisfy(self, *ops, noise_conf=noise_conf, nmc=nmc, status=status, **kws)
 
     def expectation_ising_sum(
         self,
@@ -465,9 +511,11 @@ class BaseCircuit(AbstractCircuit):
         """⟨psi| O_1 O_2 ... |psi⟩ with ``O_i = (operator, [wires])`` on the
         dense state; an operator is a ``Gate`` or a dense matrix or tensor.
         ``enable_lightcone`` builds the state from the items in the
-        observables' causal cone only (:meth:`_lightcone_qir`); ``noise_conf``
-        (with ``nmc`` and ``status``) is not ported yet."""
-        _no_noise(noise_conf)
+        observables' causal cone only (:meth:`_lightcone_qir`).  With
+        ``noise_conf`` the noisy value of :func:`noisemodel.expectation_noisfy`
+        (``nmc`` trajectories, or the rows of ``status``)."""
+        if noise_conf is not None:
+            return self._noisy_expectation(ops, noise_conf, nmc, status)
         norm_ops = []
         for op in ops:
             if not (isinstance(op, tuple) and len(op) == 2):
@@ -697,8 +745,18 @@ class BaseCircuit(AbstractCircuit):
         renormalized probabilities (through ``readouterror_bs``), and the
         mean parity of the measured wires, exact when ``shots`` is None,
         else over ``shots`` samples of ``backend.probability_sample``.
-        ``noise_conf`` (with ``nmc`` and ``statusc``) is not ported yet."""
-        _no_noise(noise_conf)
+        With ``noise_conf`` the noisy value of
+        :func:`noisemodel.sample_expectation_ps_noisfy`: ``nmc``
+        trajectories, or the rows of ``statusc``, each sampled with the shot
+        uniforms ``status``, through the readout error of ``noise_conf``
+        (else ``readout_error``)."""
+        if noise_conf is not None:
+            from .. import noisemodel
+
+            return noisemodel.sample_expectation_ps_noisfy(
+                self, x=x, y=y, z=z, noise_conf=noise_conf, nmc=nmc, shots=shots, status=status,
+                statusc=statusc, readout_error=readout_error, random_generator=random_generator, **kws,
+            )
         c = self.copy()
         for q in x or ():
             c.h(q)  # type: ignore[attr-defined]
@@ -724,7 +782,7 @@ class BaseCircuit(AbstractCircuit):
         """Apply ``kraus[which]`` on ``index``: ``which`` may be a tensor on
         the circuit's device (a measured outcome), picked there without a
         host sync; the picked matrix is applied as a gate."""
-        mats = torch.stack(self._kraus_mats(kraus, index))
+        mats = self._kraus_stack(kraus, index)
         which = device_tensor(which, self._device, "which").to(torch.int64)
         chosen = torch.index_select(mats, 0, torch.reshape(which, (1,)))[0]
         self.any(*index, unitary=chosen, name="select_gate")  # type: ignore[attr-defined]
@@ -739,23 +797,31 @@ class BaseCircuit(AbstractCircuit):
         return [torch.reshape(statevec._as_tensor(k.tensor if isinstance(k, Gate) else k, like), (dim, dim))
                 for k in kraus]
 
+    def _kraus_host(self, kraus: Sequence[Any], index: Sequence[int]) -> Optional[np.ndarray]:
+        """The operators stacked as a numpy (m, d^k, d^k) array of the
+        configured dtype, or None when one of them is a tensor."""
+        dim = self._d ** len(index)
+        raw = [k.tensor if isinstance(k, Gate) else k for k in kraus]
+        if any(isinstance(m, torch.Tensor) for m in raw):
+            return None
+        return np.stack([np.reshape(np.asarray(m), (dim, dim)) for m in raw]).astype(config.np_dtype())
+
+    def _kraus_stack(self, kraus: Sequence[Any], index: Sequence[int]) -> torch.Tensor:
+        """The operators stacked, (m, d^k, d^k), as :meth:`_kraus_mats`
+        gives them; a numpy set goes to the device once, as one constant."""
+        host = self._kraus_host(kraus, index)
+        if host is None:
+            return torch.stack(self._kraus_mats(kraus, index))
+        return config.device_constant(host, self._device, config.torch_dtype())
+
     def state(self, form: str = "default", reuse: bool = True) -> torch.Tensor:
-        """The output state (flat), cached until the next gate application;
+        """The output state (flat), from the kept prefix state and the items
+        appended since (``reuse=False``: from the first item, nothing kept);
         ``form="tensor"`` reshapes to ``(d,)*n``."""
-        s = self._state_cache if reuse else None
-        if s is None:
-            s = self._compute_state()
-            if reuse:
-                self._state_cache = s
+        s = self._kept_state() if reuse else self._compute_state()
         if form == "tensor":
             return torch.reshape(s, (self._d,) * self._nqubits)
         return s
 
     wavefunction = state
 
-
-def _no_noise(noise_conf: Any) -> None:
-    if noise_conf is not None:
-        raise NotImplementedError(
-            "noise_conf is not ported yet: the noise API is Queue 1 item 11b of ROADMAP.md"
-        )

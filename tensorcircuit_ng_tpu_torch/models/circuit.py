@@ -1,18 +1,23 @@
 """``Circuit``: the exact statevector simulator of the port.
 
 Counterpart of ``tensorcircuit_ng_tpu/models/circuit.py`` without the
-multi-chip ``mesh=`` engine and the noise channels: post-selection, the
-measurement with collapse (``cond_measurement``) on one trajectory of a
-general Kraus channel (``general_kraus``), the circuit unitary (``matrix``)
-and the free function :func:`expectation`.  ``device``
-defaults to the configured device (``"cuda"`` unless
-:func:`config.set_device` says otherwise); a CUDA device without a card
-raises.
+multi-chip ``mesh=`` engine: post-selection, Monte-Carlo trajectories of
+noise channels (``unitary_kraus``, ``general_kraus`` and the channel
+methods ``c.depolarizing(q, px=..)``, ``c.amplitudedamping(q, gamma=..)``,
+... of ``ops/channels.py``), the measurement with collapse
+(``cond_measurement``, ``general_kraus`` on the projectors), the circuit
+unitary (``matrix``), the exact density-matrix twin (``to_dm_circuit``) and
+the free function :func:`expectation`.  A channel picks its branch where
+the cdf of its branch probabilities first reaches ``status`` (a uniform;
+one is drawn on the circuit's device without it), so the same status gives
+the JAX package's branch.  ``device`` defaults to the configured device
+(``"cuda"`` unless :func:`config.set_device` says otherwise); a CUDA device
+without a card raises.
 """
 
 from __future__ import annotations
 
-from typing import Any, List, Optional, Sequence, Tuple, Union
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -20,6 +25,7 @@ import torch
 from .. import config
 from ..backend import device_tensor
 from ..core import statevec
+from ..ops import channels as channels_mod
 from ..ops.gates import Gate
 from .basecircuit import BaseCircuit
 
@@ -64,6 +70,163 @@ class Circuit(BaseCircuit):
 
     cond_measure = cond_measurement
 
+    # ------------------------------------------------------------------
+    # Monte-Carlo noise channels
+    # ------------------------------------------------------------------
+
+    def _unitary_probs(
+        self, kraus: Sequence[Any], index: Sequence[int], prob: Optional[Sequence[float]]
+    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """(the operators as given, the operators to apply, the branch
+        probabilities), each stacked on the circuit's device: tr(K†K)/dim
+        and the renormalized operators, without the state, or ``prob`` and
+        the operators as given.  Numpy operators are worked on the host in
+        the configured dtype and kept on the device as constants."""
+        rdt = config.rdtypestr()
+        host = self._kraus_host(kraus, index)
+        if host is None:
+            mats = self._kraus_stack(kraus, index)
+        else:
+            mats = config.device_constant(host, self._device, config.torch_dtype())
+        if prob is not None:
+            if isinstance(prob, torch.Tensor):
+                p = device_tensor(prob, self._device, "prob").to(getattr(torch, rdt))
+            else:
+                p = config.device_constant(np.asarray(prob, dtype=rdt), self._device, getattr(torch, rdt))
+            return mats, mats, p / torch.sum(p)
+        dim = mats.shape[-1]
+        if host is not None:
+            p = np.real(np.trace(np.conj(np.swapaxes(host, 1, 2)) @ host, axis1=1, axis2=2)) / dim
+            new = host / np.sqrt(p + np.asarray(1e-30, dtype=rdt))[:, None, None]
+            return (mats, config.device_constant(new, self._device, mats.dtype),
+                    config.device_constant(p / np.sum(p), self._device, getattr(torch, rdt)))
+        p = torch.real(torch.diagonal(mats.conj().transpose(1, 2) @ mats, dim1=1, dim2=2).sum(-1)) / dim
+        return mats, mats / torch.sqrt(p + 1e-30).to(mats.dtype)[:, None, None], p / torch.sum(p)
+
+    def unitary_kraus(
+        self,
+        kraus: Sequence[Any],
+        *index: int,
+        prob: Optional[Sequence[float]] = None,
+        status: Optional[Any] = None,
+        name: Optional[str] = None,
+    ) -> torch.Tensor:
+        """One trajectory of a mixed-unitary channel: branch i has
+        probability tr(K_i†K_i)/dim (or ``prob[i]``), read without the state,
+        and is applied renormalized.  Returns the branch (0-d int32)."""
+        mats, new_mats, p = self._unitary_probs(kraus, index, prob)
+        return self._apply_selected_kraus(new_mats, p, index, status=status, name=name or "unitary_kraus",
+                                          orig_mats=list(mats))
+
+    def unitary_kraus2(
+        self,
+        kraus: Sequence[Any],
+        *index: int,
+        prob: Optional[Sequence[float]] = None,
+        status: Optional[Any] = None,
+        name: Optional[str] = None,
+    ) -> torch.Tensor:
+        """:meth:`unitary_kraus` with the branch's operator picked by an
+        ``index_select`` of the stacked set (the JAX package's
+        ``lax.switch``), tie-break 1e-12, and applied as a plain ``any``
+        gate (no channel item)."""
+        _, mats, p = self._unitary_probs(kraus, index, prob)
+        status = self._uniforms([], None) if status is None else device_tensor(status, self._device)
+        cdf = torch.cumsum(p, 0)
+        r = torch.reshape(status, (1,)).to(cdf.dtype) + 1e-12
+        idx = torch.clamp(torch.searchsorted(cdf, r, side="left"), 0, mats.shape[0] - 1)
+        chosen = torch.index_select(mats, 0, idx)[0]
+        self.any(*index, unitary=chosen, name=name or "unitary_kraus2")  # type: ignore[attr-defined]
+        return idx[0].to(torch.int32)
+
+    @classmethod
+    def _meta_apply_channels(cls) -> None:
+        """Install each channel of ``ops/channels.CHANNEL_NAMES`` as a
+        method: ``c.depolarizing(0, px=0.1, py=0.1, pz=0.1, status=u)`` runs
+        one trajectory (``unitary_kraus`` for a mixed-unitary channel, else
+        ``general_kraus``) and returns the branch."""
+
+        def make_method(cname: str, factory: Callable[..., Any]) -> Callable[..., torch.Tensor]:
+            def method(self: "Circuit", *index: int, status: Optional[Any] = None, **params: Any) -> torch.Tensor:
+                kraus = factory(**params)
+                if getattr(kraus, "is_unitary", False):
+                    return self.unitary_kraus(kraus, *index, status=status, name=cname)
+                return self.general_kraus(kraus, *index, status=status, name=cname)
+
+            method.__name__ = cname
+            method.__doc__ = f"One Monte-Carlo trajectory of the {cname} channel; returns the branch."
+            return method
+
+        for cname, factory in channels_mod.CHANNEL_NAMES.items():
+            setattr(cls, cname, make_method(cname, factory))
+
+    def depolarizing2(self, *index: int, px: Any = 0, py: Any = 0, pz: Any = 0,
+                      status: Optional[Any] = None) -> torch.Tensor:
+        """Same as ``depolarizing``."""
+        return self.depolarizing(*index, px=px, py=py, pz=pz, status=status)  # type: ignore[attr-defined]
+
+    def depolarizing_reference(
+        self, index: int, *, px: Any, py: Any, pz: Any, status: Optional[Any] = None
+    ) -> torch.Tensor:
+        """Depolarizing by the sign trick: branch
+        (sign(r-px) + sign(r-px-py) + sign(r-px-py-pz))/2 + 1.5, truncated,
+        0: X, 1: Y, 2: Z, 3: I, applied as a plain ``any`` gate.  Returns
+        the branch (0-d int32)."""
+        rdt = getattr(torch, config.rdtypestr())
+        status = self._uniforms([], None) if status is None else device_tensor(status, self._device)
+        r = status.to(rdt)
+        step = torch.sign(r - px) + torch.sign(r - px - py) + torch.sign(r - px - py - pz)
+        which = (step / 2 + 1.5).to(torch.int32)
+        paulis = np.stack([channels_mod._X, channels_mod._Y, channels_mod._Z, np.eye(2)])
+        stack = config.device_constant(paulis, self._device, config.torch_dtype())
+        op = torch.index_select(stack, 0, torch.reshape(which, (1,)).to(torch.int64))[0]
+        self.any(index, unitary=op, name="depolarizing_reference")  # type: ignore[attr-defined]
+        return which
+
+    def measure_reference(self, *index: int, with_prob: bool = False) -> Tuple[str, float]:
+        """Measurement on the host, drawing from numpy's global generator
+        (``np.random.choice``), as the JAX package does: the outcomes as a
+        base-d string and their probability (-1.0 without ``with_prob``)."""
+        alphabet = "0123456789ABCDEFGHIJKLMNOPQRSTUVWXYZ"
+        d, n = self._d, self._nqubits
+        probs_full = np.abs(self.state().detach().cpu().numpy().reshape((d,) * n)) ** 2
+        sample = ""
+        p_tot = 1.0
+        fixed: Dict[int, int] = {}
+        for j in index:
+            sl: List[Any] = [slice(None)] * n
+            for q, v in fixed.items():
+                sl[q] = v
+            sub = probs_full[tuple(sl)]
+            axes = tuple(k for k, q in enumerate(sorted(set(range(n)) - set(fixed))) if q != j)
+            pj = sub.sum(axis=axes)
+            pj = pj / pj.sum()
+            outcome = int(np.random.choice(d, p=pj))
+            sample += alphabet[outcome]
+            p_tot *= float(pj[outcome])
+            fixed[j] = outcome
+        if with_prob:
+            return sample, p_tot
+        return sample, -1.0
+
+    @staticmethod
+    def apply_general_kraus_delayed(kraus: Sequence[Any], name: Optional[str] = None) -> Callable[..., Any]:
+        """An unbound method that runs one trajectory of the fixed ``kraus``."""
+
+        def apply(self: "Circuit", *index: int, status: Optional[Any] = None, **kws: Any) -> torch.Tensor:
+            return self.general_kraus(kraus, *index, status=status, name=name)
+
+        return apply
+
+    def to_dm_circuit(self) -> Any:
+        """The :class:`DMCircuit` of the same QIR, inputs and device: each
+        channel item becomes its exact channel."""
+        from .densitymatrix import DMCircuit
+
+        dmc = DMCircuit(self._nqubits, inputs=self._inputs, dim=self._d, device=self._device)
+        dmc.append_from_qir(self.to_qir())
+        return dmc
+
     def general_kraus(
         self,
         kraus: Sequence[Any],
@@ -73,23 +236,19 @@ class Circuit(BaseCircuit):
         name: Optional[str] = None,
     ) -> Any:
         """One trajectory of the channel with Kraus operators ``kraus`` on
-        ``index``: branch i has probability ⟨ψ|K_i†K_i|ψ⟩ on the state at
-        this point (computed now), is picked by the uniform ``status`` (or
-        one drawn on the circuit's device) and applied renormalized, so the
-        state stays normalized.  Returns the branch (and the branch
-        probabilities with ``with_prob``)."""
-        mats = self._kraus_mats(kraus, index)
-        psi = self.state()
-        nrm2 = torch.real(torch.vdot(psi, psi))
-        probs = []
-        for m in mats:
-            phi = statevec.apply_unitary(psi, m, index, self._d)
-            probs.append(torch.real(torch.vdot(phi, phi)) / nrm2)
-        p = torch.stack(probs)
+        ``index``: branch i has probability ⟨ψ|K_i†K_i|ψ⟩ = tr(K_i ρ K_i†) on
+        the state at this point (computed now; ρ the reduced density matrix
+        of ``index``, one pass over the state), is picked by the uniform
+        ``status`` (or one drawn on the circuit's device) and applied
+        renormalized, so the state stays normalized.  Returns the branch
+        (and the branch probabilities with ``with_prob``)."""
+        ks = self._kraus_stack(kraus, index)
+        rho = statevec.reduced_density_matrix(self.state(), index, self._d)
+        p = torch.real(torch.einsum("kab,bc,kac->k", ks, rho, torch.conj(ks)))
         p = p / torch.sum(p)
-        new_mats = [m / torch.sqrt(pi.to(m.dtype) + 1e-30) for m, pi in zip(mats, p)]
+        new_mats = ks / torch.sqrt(p + 1e-30).to(ks.dtype)[:, None, None]
         idx = self._apply_selected_kraus(new_mats, p, index, status=status, name=name or "general_kraus",
-                                         orig_mats=mats)
+                                         orig_mats=list(ks))
         if with_prob:
             return idx, p
         return idx
@@ -98,7 +257,7 @@ class Circuit(BaseCircuit):
 
     def _apply_selected_kraus(
         self,
-        mats: List[torch.Tensor],
+        mats: torch.Tensor,
         p: torch.Tensor,
         index: Sequence[int],
         status: Optional[Any] = None,
@@ -106,16 +265,14 @@ class Circuit(BaseCircuit):
         orig_mats: Optional[List[torch.Tensor]] = None,
     ) -> torch.Tensor:
         """Pick branch i where the cdf of ``p`` first reaches ``status`` +
-        the measurement tie-break, on the device, and append the one-hot sum
-        of ``mats`` as a channel item (the Kraus set and the status kept for
-        the QIR replay)."""
+        the measurement tie-break, on the device, and append ``mats[i]``
+        (of the stacked ``mats``, picked there) as a channel item (the Kraus
+        set and the status kept for the QIR replay)."""
         status = self._uniforms([], None) if status is None else device_tensor(status, self._device)
         cdf = torch.cumsum(p, 0)
         r = torch.reshape(status, (1,)).to(cdf.dtype) + self._MEASURE_EPS
-        idx = torch.clamp(torch.searchsorted(cdf, r, side="left")[0], 0, len(mats) - 1)
-        onehot = torch.nn.functional.one_hot(idx, len(mats)).to(mats[0].dtype)
-        op = sum(onehot[i] * mats[i] for i in range(len(mats)))
-        g = Gate(op, name=name)
+        idx = torch.clamp(torch.searchsorted(cdf, r, side="left"), 0, mats.shape[0] - 1)
+        g = Gate(torch.index_select(mats, 0, idx)[0], name=name)
         ir_dict = {
             "gatef": None,
             "gate": g,
@@ -124,11 +281,14 @@ class Circuit(BaseCircuit):
             "split": None,
             "mpo": False,
             "is_channel": True,
-            "channel_kraus": orig_mats if orig_mats is not None else mats,
+            "channel_kraus": orig_mats if orig_mats is not None else list(mats),
             "channel_status": status,
+            # the trajectory's branch and branch probabilities, for its readers
+            "channel_branch": idx[0],
+            "channel_probs": p,
         }
         self.apply_general_gate(g, *index, name=name, ir_dict=ir_dict)
-        return idx.to(torch.int32)
+        return idx[0].to(torch.int32)
 
     def matrix(self) -> torch.Tensor:
         """The circuit unitary, (d^n, d^n), on the circuit's device: the
@@ -150,6 +310,9 @@ class Circuit(BaseCircuit):
         except (RuntimeError, ValueError, AssertionError):
             return False
         return psi.numel() == self._d**self._nqubits and bool(torch.isfinite(psi).all())
+
+
+Circuit._meta_apply_channels()
 
 
 def expectation(

@@ -40,7 +40,10 @@ at m2 and m3.  The samplers (``backend.probability_sample`` and the
 trajectory sampler) on the card against the CPU with the same status, each
 index within its float64 cdf interval (1e-6 at n=10, 1e-4 at n=20: a
 float32 cumsum in another order); a generator or a status on another
-device refused.
+device refused.  A noisy trajectory (the TFIM with its gradient, the HEA
+with ``general_kraus`` sites) and a ``DMCircuit`` with exact channels on
+the card against the CPU path with the same status: the branches equal,
+each within 1e-5 of its float64 cdf interval, values as the circuit's.
 """
 
 import numpy as np
@@ -1407,3 +1410,76 @@ def test_sampling_circuit_runs_on_card(cuda):
     m = c.cond_measurement(0, status=torch.tensor(0.9, device=cuda))
     c.conditional_gate(m, [np.eye(2), np.array([[0.0, 1.0], [1.0, 0.0]])], 1)
     assert m.device.type == "cuda" and abs(torch.linalg.vector_norm(c.state()).item() - 1) < 1e-6
+
+
+@pytest.mark.parametrize("n", [10, 20])
+def test_noisy_trajectories_on_card_match_cpu(cuda, n):
+    """One trajectory of the TFIM at L=2 with a depolarizing channel after
+    each ``zzrx_layer`` (value and gradient: K1 and K3 a layer) and one of
+    the HEA at L=2 with amplitude damping after each CNOT (``general_kraus``
+    reads the state at each site; K6), on the card and on the CPU with the
+    same status: the same branches, each within 1e-5 of its float64 cdf
+    interval on both devices, the energy within 2e-5 n, the gradient within
+    1e-4; the ``noise_conf=`` entry points on a circuit of the default
+    device give a value on the card."""
+    from chip_smoke import branch_miss, channel_branches, channel_probs, hea_circuit, tfim_circuit
+
+    nl = 2
+    g0 = np.random.default_rng(42).normal(size=(nl, 2, n)) * 0.3
+    pairs = [(i, i + 1) for i in range(n - 1)]
+    nc = tct.NoiseConf()
+    nc.add_noise("zzrx_layer", tct.channels.depolarizingchannel(0.05, 0.05, 0.05))
+    nc_hea = tct.NoiseConf()
+    nc_hea.add_noise("cnot", tct.channels.amplitudedampingchannel(0.1, 1.0))
+    st = np.random.default_rng(n).random(nl * n).astype(np.float32)
+    st_hea = np.random.default_rng(n + 1).random(2 * nl * (n - 1)).astype(np.float32)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        p = convert.params(g0, dev).requires_grad_()
+        cn = tct.circuit_with_noise(tfim_circuit(tct, p, n, nl, device=dev), nc, status=torch.as_tensor(st, device=dev))
+        e = cn.expectation_zzx_energy(pairs, 1.0, -1.0)
+        (g,) = torch.autograd.grad(e, p)
+        with torch.no_grad():
+            ch = tct.circuit_with_noise(hea_circuit(tct, n, p, device=dev), nc_hea,
+                                        status=torch.as_tensor(st_hea, device=dev))
+            eh = ch.expectation_zzx_energy(pairs, 1.0, -1.0)
+        out[dev.type] = (e.item(), g.cpu(), channel_branches(cn).cpu(), eh.item(), channel_branches(ch).cpu(),
+                         channel_probs(ch).double().cpu().numpy())
+    card, cpu = out["cuda"], out["cpu"]
+    assert torch.equal(card[2], cpu[2]) and torch.equal(card[4], cpu[4])
+    for o in (card, cpu):
+        assert branch_miss(o[4].numpy(), st_hea, o[5]) <= 1e-5
+    assert abs(card[0] - cpu[0]) <= 2e-5 * n and abs(card[3] - cpu[3]) <= 2e-5 * n
+    assert (card[1] - cpu[1]).abs().max().item() <= 1e-4
+    c = tfim_circuit(tct, convert.params(g0, cuda), n, nl)
+    assert c.device.type == "cuda"
+    v = c.expectation_ps(z=[0, 1], noise_conf=nc, nmc=4)
+    assert v.device.type == "cuda" and -1 <= v.item() <= 1
+
+
+def test_dmcircuit_on_card_matches_cpu(cuda):
+    """A 6-qubit ``DMCircuit`` (fused layers, dense gates, every exact
+    channel kind, a collapse) on the card against the CPU: ρ within 2e-6,
+    its trace 1, its purity and an expectation within 1e-5."""
+
+    def build(device):
+        rng = np.random.default_rng(5)
+        c = tct.DMCircuit(6, device=device)
+        c.h_layer()
+        c.zzrx_layer([(i, i + 1) for i in range(5)], rng.normal(size=5), rng.normal(size=6))
+        c.ry_layer(rng.normal(size=6))
+        c.cnot(0, 4)
+        c.depolarizing(1, px=0.1, py=0.05, pz=0.08)
+        c.amplitudedamping(2, gamma=0.3, p=0.8)
+        c.generaldepolarizing(3, 5, p=0.02, num_qubits=2)
+        c.cond_measurement(4, status=0.3)
+        c.rx(2, theta=0.3)
+        return c
+
+    d, dc = build(cuda), build("cpu")
+    rho = d.densitymatrix()
+    assert rho.device.type == "cuda" and rho.shape == (64, 64)
+    assert (rho.cpu() - dc.densitymatrix()).abs().max().item() <= ATOL
+    assert abs(torch.trace(rho).real.item() - 1) <= 1e-5
+    assert abs(d.purity().item() - dc.purity().item()) <= 1e-5
+    assert abs(d.expectation_ps(x=[0], z=[2]).real.item() - dc.expectation_ps(x=[0], z=[2]).real.item()) <= 1e-5

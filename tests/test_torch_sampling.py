@@ -616,14 +616,15 @@ def test_backend_draws_and_names(cpu):
 
 
 def test_unported_routes_raise(cpu):
-    """``sample`` above 2^30 amplitudes names Queue 1 item 12; ``noise_conf``
-    names 11b; a 1-D status on the trajectory route and a status tensor on
-    another device are ValueErrors."""
+    """``sample`` above 2^30 amplitudes names Queue 1 item 12, and so does
+    ``DMCircuit2``; a 1-D status on the trajectory route and a status tensor
+    on another device are ValueErrors.  (``noise_conf`` is ported: the
+    noise tests hold it.)"""
     with pytest.raises(NotImplementedError, match="item 12"):
         tct.Circuit(31).sample(batch=4)
+    with pytest.raises(NotImplementedError, match="item 12"):
+        tct.DMCircuit2(2)
     c = _bell(tct)
-    with pytest.raises(NotImplementedError, match="11b"):
-        c.sample_expectation_ps(z=[0], noise_conf=object())
     with pytest.raises(ValueError, match="trajectory route"):
         c.sample(batch=2, status=np.array([0.1, 0.2]))
     with pytest.raises(ValueError, match="meta"):
