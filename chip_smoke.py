@@ -7,7 +7,8 @@ QAOA MaxCut training step through the public API, runs the staged
 micro-benchmark of K2's design, and times them; then drives the rest of the
 circuit API (echo, remapping, Pauli strings, light cone, the unitary) and
 sampling (shots in six formats, trajectories, readout error, shot-noise
-expectations, feed-forward) at the same width.
+expectations, feed-forward) and noise at the same width, and the
+contraction engine past the dense cliff.
 
     python3 chip_smoke.py
 
@@ -209,7 +210,26 @@ Phases (any failure exits non-zero; nothing is caught):
      noisy TFIM against the CPU path within 1e-5, its trace 1 and its purity
      below 1, and the mean of 512 trajectories of <Z_0 Z_1> and of the
      energy within 4 sigma + 1e-3 of it; then each route timed as in
-     phase 12.
+     phase 12;
+ 15. the contraction engine at full width (no kernel of its own: each
+     pairwise step a ``torch.einsum``): (a) the 5x6 grid random circuit at
+     depth 12 (n=30), ``amplitude_before`` planned under "auto" (the
+     TreeSA escalation builds the native library with g++), contracted
+     whole (largest intermediate 2^27) and over ``choose_slices(ir, 2^26)``,
+     each against the dense state's amplitude on the card and a complex128
+     contraction, the complex128 sliced and whole sums against each other;
+     (b) the 7x7 grid at depth 8 (n=49) past the dense cliff: ``amplitude``
+     and ``expectation`` of Z_24 with their gradients in the angles (a
+     tensor that needs a grad) against the CPU path; (c) sampling past 2^30
+     amplitudes: 64 shots of a 40-qubit GHZ state (all-zero or all-one
+     strings) and 8 shots of the n=40 depth-6 brickwork with a status and a
+     readout error, bit for bit against the CPU path; (d) ``DMCircuit2`` at
+     n=24, depth 4 (depolarizing 0.01 after each CNOT): ``expectation``,
+     ``probability`` of three wires, ``measure_jit`` of four and
+     ``amplitude`` against the CPU path, and at n=10 its einsum route
+     against the dense ``DMCircuit``; then each route timed (the dense
+     state and the brickwork shots once, inside the checks) with its busy
+     time and its peak memory above the start.
 
 Prints the kernels JSON line, then the card's name and power limit, then
 ``{"ok": true, "device": {...}}`` as the last line.  Needs no network and
@@ -3120,6 +3140,352 @@ def _noise_phase(tct, card, counters):
     print(f"phase 14 wall time: checks {t1 - t0:.1f} s, timing {time.perf_counter() - t1:.1f} s")
 
 
+#: phase 15, the contraction engine at full width: (a) the 5x6 grid at
+#: depth 12 (n=30; 207 operands, largest intermediate 2^27, 10^11.8 FLOPs:
+#: the plan escalates to TreeSA) contracted whole and over the slices of
+#: choose_slices(ir, 2^26), against the dense state; (b) past the dense
+#: cliff, the 7x7 grid at depth 8 (n=49; 2^23, 10^10 FLOPs); (c) sampling
+#: past 2^30 amplitudes; (d) DMCircuit2 past its cliff of 14 qubits
+GRID_A = (5, 6, 12)
+GRID_B = (7, 7, 8)
+SLICE_TARGET = 2**26
+GHZ_N, GHZ_SHOTS = 40, 64
+BRICK_N, BRICK_DEPTH, BRICK_SHOTS = 40, 6, 8
+READOUT = (0.97, 0.95)
+DM2_N, DM2_DEPTH, DM2_P, DM2_SMALL = 24, 4, 0.01, 10
+#: the complex64 amplitude of (a), each route against the other and against
+#: the complex128 contraction, over |a_128|: this check's complex128 run on
+#: an H100 puts the complex64 routes 2.6e-6 (sliced), 3.6e-6 (whole) and
+#: 6.5e-6 (dense: ~900 float32 gate applications) from the complex128
+#: amplitude, so 1e-4 leaves a factor 15 for another rounding order
+GRID_RTOL = 1e-4
+#: the same check at complex128: the unsliced and the sliced contraction
+GRID_RTOL_128 = 1e-10
+#: (b) on the card against the CPU path, both complex64: the amplitude over
+#: |a|, each gradient over the largest entry of its CPU gradient, the
+#: expectation and its gradient absolutely (<Z> and its derivatives <= 1)
+WIDE_RTOL = 1e-4
+WIDE_ATOL = 1e-5
+#: (d) on the card against the CPU path (and the n=10 einsum route against
+#: the dense DMCircuit), complex64, absolutely: probabilities and <Z> <= 1
+DM2_ATOL = 1e-5
+
+
+def grid_patterns(rows, cols):
+    """The four CZ patterns of a rows x cols grid (qubit r*cols + c), used in
+    turn: horizontal pairs from even columns, vertical pairs from even rows,
+    horizontal pairs from odd columns, vertical pairs from odd rows."""
+    q = lambda r, c: r * cols + c  # noqa: E731
+    return [
+        [(q(r, c), q(r, c + 1)) for r in range(rows) for c in range(0, cols - 1, 2)],
+        [(q(r, c), q(r + 1, c)) for r in range(0, rows - 1, 2) for c in range(cols)],
+        [(q(r, c), q(r, c + 1)) for r in range(rows) for c in range(1, cols - 1, 2)],
+        [(q(r, c), q(r + 1, c)) for r in range(1, rows - 1, 2) for c in range(cols)],
+    ]
+
+
+def grid_angles(n, depth, seed=7):
+    """(depth, 2, n) normal angles: rz, then ry, on each qubit a layer."""
+    return np.random.default_rng(seed).normal(size=(depth, 2, n))
+
+
+def grid_circuit(mod, rows, cols, depth, angles, **kw):
+    """A grid random circuit: H on every qubit, then per layer rz and ry on
+    each qubit (``rz_layer``/``ry_layer``; the IR expands them) and CZ on
+    the layer's pattern.  ``angles`` (depth, 2, n) may be a tensor that
+    needs a grad."""
+    c = mod.Circuit(rows * cols, **kw)
+    c.h_layer()
+    pats = grid_patterns(rows, cols)
+    for layer in range(depth):
+        c.rz_layer(angles[layer, 0])
+        c.ry_layer(angles[layer, 1])
+        for a, b in pats[layer % 4]:
+            c.cz(a, b)
+    return c
+
+
+def brickwork_circuit(mod, n, depth, seed=7, **kw):
+    """``examples/benchmark_40q_amplitude.py``'s circuit: H on every qubit,
+    then per layer a CNOT brick and rz, rx on each qubit."""
+    th = np.random.default_rng(seed).normal(size=(depth, n, 2)).astype(np.float32)
+    c = mod.Circuit(n, **kw)
+    for i in range(n):
+        c.h(i)
+    for layer in range(depth):
+        for i in range(layer % 2, n - 1, 2):
+            c.cnot(i, i + 1)
+        for i in range(n):
+            c.rz(i, theta=float(th[layer, i, 0]))
+            c.rx(i, theta=float(th[layer, i, 1]))
+    return c
+
+
+def ghz_circuit(mod, n, **kw):
+    c = mod.Circuit(n, **kw)
+    c.h(0)
+    for i in range(n - 1):
+        c.cnot(i, i + 1)
+    return c
+
+
+def noisy_brickwork_dm(mod, n, depth, p=DM2_P, seed=11, cls="DMCircuit2", **kw):
+    """A 1D brickwork ``DMCircuit2``: H on every qubit, then per layer a CNOT
+    brick with depolarizing ``p`` (a Pauli) on both legs after each CNOT,
+    and ry on each qubit."""
+    th = np.random.default_rng(seed).normal(size=(depth, n))
+    c = getattr(mod, cls)(n, **kw)
+    for i in range(n):
+        c.h(i)
+    for layer in range(depth):
+        for i in range(layer % 2, n - 1, 2):
+            c.cnot(i, i + 1)
+            for q in (i, i + 1):
+                c.depolarizing(q, px=p, py=p, pz=p)
+        for i in range(n):
+            c.ry(i, theta=float(th[layer, i]))
+    return c
+
+
+def _contraction_checks(tct, dev, grid_a=GRID_A, grid_b=GRID_B, slice_target=SLICE_TARGET, ghz=(GHZ_N, GHZ_SHOTS),
+                        brick=(BRICK_N, BRICK_DEPTH, BRICK_SHOTS), dm2=(DM2_N, DM2_DEPTH), dm2_small=DM2_SMALL):
+    """Phase 15's checks (a)-(d) on ``dev``, each against the port's CPU
+    path (on the CPU the two are one) or another route on ``dev``.  Returns
+    what the timings reuse."""
+    import torch
+
+    from tensorcircuit_ng_tpu_torch.core import contractor as ctr
+
+    zmat = np.diag([1.0, -1.0])
+    spent = {}
+    last = [time.perf_counter()]
+
+    def lap(key):
+        now = time.perf_counter()
+        spent[key], last[0] = now - last[0], now
+
+    def check(label, err, tol):
+        print(f"  {label}: {err:.3e} (tol {tol:g})")
+        if not err <= tol:
+            _fail(f"phase 15, {label}: {err} > {tol}")
+
+    # (a) the grid amplitude: plan, whole, sliced, dense
+    rows, cols, depth = grid_a
+    n = rows * cols
+    ang = grid_angles(n, depth)
+    c = grid_circuit(tct, rows, cols, depth, ang, device=dev)
+    t = time.perf_counter()
+    ir = c.amplitude_before("0" * n)
+    build_s = time.perf_counter() - t
+    t = time.perf_counter()
+    info = ctr.contraction_info(ir)
+    plan_s = time.perf_counter() - t
+    sliced = ctr.choose_slices(ir, slice_target)
+    nsl = 2 ** len(sliced)
+    print(f"  (a) {rows}x{cols} grid depth {depth}: {len(ir.inputs)} operands, IR built in {build_s:.3f} s, "
+          f"planned in {plan_s:.3f} s (opt_einsum auto, then TreeSA), log10[FLOPs] {info['log10[FLOPs]']:.3f}, "
+          f"log2[largest intermediate] {info['log2[SIZE]']:.1f}; choose_slices(ir, {slice_target}): "
+          f"{len(sliced)} indices {sliced}, {nsl} slices")
+    first = {}
+
+    def timed_first(key, fn):
+        t = time.perf_counter()
+        out = fn()
+        out.sum().item()
+        first[key] = time.perf_counter() - t
+        return out
+
+    with torch.no_grad():
+        a_whole = timed_first("whole", lambda: ctr.contract_ir(ir))
+        # the sliced network is planned anew (above 10^10 FLOPs: TreeSA again)
+        a_sliced = timed_first("sliced", lambda: ctr.sliced_contract_ir(ir, sliced))
+        a_dense, dense_cost = _once(lambda: c.state(reuse=False)[0], dev)
+        with tct.runtime_dtype("complex128"):
+            c128 = grid_circuit(tct, rows, cols, depth, ang, device=dev)
+            ir128 = c128.amplitude_before("0" * n)
+            a128 = timed_first("complex128 whole", lambda: ctr.contract_ir(ir128))
+            a128_sliced = timed_first("complex128 sliced", lambda: ctr.sliced_contract_ir(ir128, sliced))
+        del c128, ir128
+    sub = ctr.contraction_info(ctr._without(ir, sliced))
+    print("  (a) first calls (wall, with their planning): "
+          + ", ".join(f"{k} {v:.2f} s" for k, v in first.items())
+          + f"; a slice: log10[FLOPs] {sub['log10[FLOPs]']:.3f}, log2[largest intermediate] {sub['log2[SIZE]']:.1f}")
+    for name, v in (("whole", a_whole), ("sliced", a_sliced), ("dense", a_dense), ("complex128", a128)):
+        if v.shape != () or not torch.isfinite(torch.view_as_real(v)).all():
+            _fail(f"phase 15 (a): the {name} amplitude is non-finite or misshapen: {v}")
+    scale = abs(a128.item())
+    print(f"  (a) amplitude <0|C|0>: whole {a_whole.item():.6e}, sliced {a_sliced.item():.6e}, "
+          f"dense {a_dense.item():.6e}, complex128 {a128.item():.9e}; complex64 against complex128: whole "
+          f"{abs(a_whole.item() - a128.item()) / scale:.2e}, sliced {abs(a_sliced.item() - a128.item()) / scale:.2e}, "
+          f"dense {abs(a_dense.item() - a128.item()) / scale:.2e} of |a|")
+    check("(a) complex128 |sliced - whole| / |a|", abs(a128_sliced.item() - a128.item()) / scale, GRID_RTOL_128)
+    check("(a) |whole - dense| / |a|", abs(a_whole.item() - a_dense.item()) / scale, GRID_RTOL)
+    check("(a) |sliced - dense| / |a|", abs(a_sliced.item() - a_dense.item()) / scale, GRID_RTOL)
+    for name, v in (("whole", a_whole), ("sliced", a_sliced), ("dense", a_dense)):
+        check(f"(a) |{name} - complex128| / |a|", abs(v.item() - a128.item()) / scale, GRID_RTOL)
+    lap("(a)")
+
+    # (b) past the dense cliff, with the angles' gradient
+    rows, cols, depth = grid_b
+    nb = rows * cols
+    ang_b = grid_angles(nb, depth, seed=8)
+    bits = "".join(str(b) for b in np.random.default_rng(9).integers(0, 2, nb))
+    mid = nb // 2
+
+    def wide(device):
+        # a circuit a quantity: the two share the gates' autograd graph
+        th = torch.tensor(ang_b, dtype=torch.float32, device=device, requires_grad=True)
+        amp = grid_circuit(tct, rows, cols, depth, th, device=device).amplitude(bits)
+        (g_amp,) = torch.autograd.grad(torch.abs(amp) ** 2, th)
+        e = grid_circuit(tct, rows, cols, depth, th, device=device).expectation((zmat, [mid])).real
+        (g_e,) = torch.autograd.grad(e, th)
+        return amp.detach(), g_amp, e.detach(), g_e
+
+    ir_b = grid_circuit(tct, rows, cols, depth, ang_b, device=dev).amplitude_before(bits)
+    info_b = ctr.contraction_info(ir_b)
+    got = wide(dev)
+    want = wide("cpu")
+    amp, g_amp, e, g_e = got
+    for v in got:
+        if not torch.isfinite(torch.view_as_real(v) if v.is_complex() else v).all():
+            _fail("phase 15 (b): non-finite result")
+    print(f"  (b) {rows}x{cols} grid depth {depth} (n={nb}): {len(ir_b.inputs)} operands, log10[FLOPs] "
+          f"{info_b['log10[FLOPs]']:.3f}, log2[largest intermediate] {info_b['log2[SIZE]']:.1f}; amplitude "
+          f"{amp.item():.6e}, <Z_{mid}> {e.item():.7f}")
+    check("(b) |amplitude - CPU| / |a|", abs(amp.item() - want[0].item()) / abs(want[0].item()), WIDE_RTOL)
+    check("(b) max |d|a|^2/dtheta - CPU| / max |CPU|",
+          ((g_amp.cpu() - want[1]).abs().max() / want[1].abs().max()).item(), WIDE_RTOL)
+    check(f"(b) |<Z_{mid}> - CPU|", abs(e.item() - want[2].item()), WIDE_ATOL)
+    check(f"(b) max |d<Z_{mid}>/dtheta - CPU|", (g_e.cpu() - want[3]).abs().max().item(), WIDE_ATOL)
+    lap("(b)")
+
+    # (c) sampling past 2^30 amplitudes
+    n_g, shots = ghz
+    s = ghz_circuit(tct, n_g, device=dev).sample(
+        batch=shots, status=np.random.default_rng(15).random((shots, n_g)), format="sample_bin").cpu().numpy()
+    ones = int(s[:, 0].sum())
+    print(f"  (c) GHZ n={n_g}: {shots} shots, {ones} all-one, {shots - ones} all-zero")
+    if s.shape != (shots, n_g) or not np.all(s == s[:, :1]) or ones in (0, shots):
+        _fail(f"phase 15 (c): GHZ samples are not all-zero and all-one strings: {s.sum(axis=1)}")
+    n_w, depth_w, shots_w = brick
+    st = np.random.default_rng(16).random((shots_w, n_w))
+    ro = [list(READOUT)] * n_w
+    got_s, brick_cost = _once(lambda: brickwork_circuit(tct, n_w, depth_w, device=dev).sample(
+        batch=shots_w, status=st, readout_error=ro, format="sample_bin").cpu().numpy(), dev)
+    want_s = brickwork_circuit(tct, n_w, depth_w, device="cpu").sample(batch=shots_w, status=st, readout_error=ro,
+                                                                        format="sample_bin").numpy()
+    print(f"  (c) brickwork n={n_w} depth {depth_w}: {shots_w} shots with a readout error, ones a shot "
+          f"{got_s.sum(axis=1).tolist()}")
+    if not np.array_equal(got_s, want_s):
+        _fail(f"phase 15 (c): {int((got_s != want_s).sum())} bits differ from the CPU path's")
+    lap("(c)")
+
+    # (d) DMCircuit2 past its cliff, and its einsum route below it
+    n_d, depth_d = dm2
+    wires = (3, n_d // 2, n_d - 4)
+    mwires = (1, n_d // 2, n_d // 2 + 1, n_d - 2)
+    mstatus = np.random.default_rng(17).random(len(mwires))
+    dbits = "".join(str(b) for b in np.random.default_rng(18).integers(0, 2, n_d))
+
+    def dm2_values(device):
+        cd = noisy_brickwork_dm(tct, n_d, depth_d, device=device)
+        return (cd.expectation((zmat, [n_d // 2])).real, cd.probability(*wires),
+                cd.measure_jit(*mwires, with_prob=True, status=mstatus), cd.amplitude(dbits).real)
+
+    got_d = dm2_values(dev)
+    want_d = dm2_values("cpu")
+    print(f"  (d) DMCircuit2 n={n_d} depth {depth_d}: <Z_{n_d // 2}> {got_d[0].item():.7f}, probability{wires} "
+          f"{[round(x, 6) for x in got_d[1].tolist()]} (sum {got_d[1].sum().item():.7f}), measure_jit{mwires} "
+          f"{got_d[2][0].tolist()} with p {got_d[2][1].item():.6f}, <l|rho|l> {got_d[3].item():.4e}")
+    check("(d) |<Z> - CPU|", abs(got_d[0].item() - want_d[0].item()), DM2_ATOL)
+    check("(d) max |probability - CPU|", (got_d[1].cpu() - want_d[1]).abs().max().item(), DM2_ATOL)
+    check("(d) |sum probability - 1|", abs(got_d[1].sum().item() - 1.0), DM2_ATOL)
+    if not torch.equal(got_d[2][0].cpu(), want_d[2][0]):
+        _fail(f"phase 15 (d): measure_jit outcomes {got_d[2][0].tolist()} differ from the CPU path's")
+    check("(d) |measure_jit p - CPU|", abs(got_d[2][1].item() - want_d[2][1].item()), DM2_ATOL)
+    check("(d) |<l|rho|l> - CPU| / CPU", abs(got_d[3].item() - want_d[3].item()) / abs(want_d[3].item()), WIDE_RTOL)
+    cs = noisy_brickwork_dm(tct, dm2_small, depth_d, device=dev)
+    ops = ((zmat, [dm2_small // 2]), (zmat, [dm2_small // 2 + 1]))
+    e_ir = ctr.contract_ir(cs.expectation_before(*ops)).real.item()
+    e_dense = cs.expectation(*ops).real.item()
+    print(f"  (d) DMCircuit2 n={dm2_small}: <Z Z> einsum route {e_ir:.7f}, dense {e_dense:.7f}")
+    check(f"(d) n={dm2_small} |einsum - dense DMCircuit|", abs(e_ir - e_dense), DM2_ATOL)
+    lap("(d)")
+    print("  wall time of the checks: " + ", ".join(f"{k} {v:.1f} s" for k, v in spent.items()))
+    return {"ir": ir, "sliced": sliced, "wide": wide, "dm2_values": dm2_values,
+            "once": {f"(a) the same, dense state (2^{n}; rz_layer/ry_layer and CZ)": dense_cost,
+                     f"(c) brickwork n={n_w} depth {depth_w}, {shots_w} shots with a readout error": brick_cost}}
+
+
+def _once(fn, dev):
+    """(fn(), cost) of one call: on a card the cost is (ms by CUDA events,
+    busy ms under torch.profiler tracing the card alone, peak MiB above the
+    start), for a route too long to repeat; None on the CPU."""
+    import torch
+
+    if torch.device(dev).type != "cuda":
+        return fn(), None
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        start.record()
+        out = fn()
+        stop.record()
+        stop.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels.sort(key=lambda e: -e.self_device_time_total)
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    top = [(e.key, e.self_device_time_total / 1e3, e.count) for e in kernels[:3]]
+    return out, (start.elapsed_time(stop), busy, (torch.cuda.max_memory_allocated() - base) / 2**20, top)
+
+
+def _contraction_phase(tct, card):
+    """Phase 15, the contraction engine at full width: :func:`_contraction_checks`
+    on the card, then each route timed by CUDA events (median of 3 after a
+    warm-up) with its busy time under torch.profiler (one call, the card
+    alone) and its peak memory above the start."""
+    import torch
+
+    from tensorcircuit_ng_tpu_torch.core import contractor as ctr
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    got = _contraction_checks(tct, dev)
+    t1 = time.perf_counter()
+    ir, sliced = got["ir"], got["sliced"]
+    timed = {
+        f"(a) {GRID_A[0]}x{GRID_A[1]} grid depth {GRID_A[2]} amplitude, whole": lambda: ctr.contract_ir(ir).item(),
+        f"(a) the same, {2 ** len(sliced)} slices": lambda: ctr.sliced_contract_ir(ir, sliced).item(),
+        f"(b) {GRID_B[0]}x{GRID_B[1]} grid depth {GRID_B[2]} (n={GRID_B[0] * GRID_B[1]}), amplitude and <Z>, "
+        "values and grads": lambda: got["wide"](dev),
+        f"(d) DMCircuit2 n={DM2_N}, <Z>, probability, measure_jit, amplitude": lambda: got["dm2_values"](dev),
+    }
+    for label, (ms, busy, peak, top) in got["once"].items():
+        top = ", ".join(f"{name[:40]} {t:.3f} x{k:g}" for name, t, k in top)
+        print(f"phase 15 time, {label}: {ms:.3f} ms (CUDA events, one call), busy {busy:.3f} ms "
+              f"({100 * busy / ms:.1f} %; profiler, the same call), peak {peak:.1f} MiB above the start, {card}; "
+              f"top kernels {top}")
+    for label, fn in timed.items():
+        with torch.no_grad() if "grad" not in label else torch.enable_grad():
+            ms = _time_ms(fn, reps=3, inner=1, warmup=1)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            fn()
+            torch.cuda.synchronize()
+            peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+            host, busy, by_kernel = _profile(fn, reps=1, cpu=False)
+        top = ", ".join(f"{name[:40]} {t:.3f} x{k:g}" for name, t, k in by_kernel[:3])
+        print(f"phase 15 time, {label}: {ms:.3f} ms (CUDA events, median of 3), busy {busy:.3f} ms "
+              f"({100 * busy / ms:.1f} %; profiler, one call), peak {peak:.1f} MiB above the start, {card}; "
+              f"top kernels {top}")
+    print(f"phase 15 wall time: checks {t1 - t0:.1f} s, timing {time.perf_counter() - t1:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -3622,6 +3988,10 @@ def main() -> int:
     # ---- 14. noise at full width ---------------------------------------
     _noise_phase(tct, card, every_counter)
     print(f"phase 14 ended at {time.time() - t_start:.1f} s")
+
+    # ---- 15. the contraction engine at full width ----------------------
+    _contraction_phase(tct, card)
+    print(f"phase 15 ended at {time.time() - t_start:.1f} s")
     print(f"smoke total: {time.time() - t_start:.1f} s")
     print(json.dumps(kernels_line))
     print(card)

@@ -46,33 +46,56 @@ site chooses each branch), the exact channels on a ``DMCircuit``::
     exact = tct.circuit_with_noise(c.to_dm_circuit(), nc).expectation_ps(z=[0, 1])
     c.amplitudedamping(3, gamma=0.02, p=1.0)        # one trajectory, in place
 
+Past the dense cliff (above 30 qubits; a ``DMCircuit2`` above 14) the
+readouts contract the circuit's einsum IR, planned by opt_einsum and, for
+networks above 10^10 FLOPs, the native TreeSA annealer (``native/treesa.cpp``,
+built by g++ at first use into ``build/native/``)::
+
+    c = tct.Circuit(49)                           # a 7x7 grid, say
+    ...
+    a = c.amplitude("0" * 49)                     # no 2^49 state
+    e = c.expectation((tct.gates.z(), [24]))      # light-cone pruned
+    ir = c.amplitude_before("0" * 49)
+    tct.contraction_info(ir)                      # FLOPs, largest intermediate
+    sl = tct.cons.choose_slices(ir, 2**26)
+    a = tct.cons.sliced_contract_ir(ir, sl)
+
 On the card the fused TFIM layers and the TEBD truncation SVD run
 hand-written Hopper kernels (``core/csrc/``, built by nvcc at first use
 into ``build/kernels/``); on the CPU (``device="cpu"`` or
 ``set_device("cpu")``) they run their plain torch versions.
 """
 
-from . import config, convert, noisemodel, quantum
+from . import config, convert, noisemodel, quantum, simplify
 from .backend import TorchBackend, backend
 from .config import (
     dtypestr,
     get_backend,
+    get_contractor,
     get_device,
     get_dtype,
     runtime_backend,
+    runtime_contractor,
     runtime_dtype,
     set_backend,
+    set_contractor,
     set_device,
     set_dtype,
     set_function_backend,
+    set_function_contractor,
     set_function_dtype,
 )
+from .core.contractor import contraction_info, get_tn_info
 from .models.circuit import Circuit, expectation
 from .models.densitymatrix import DMCircuit, DMCircuit2, DensityMatrixCircuit
 from .noisemodel import NoiseConf, circuit_with_noise
 from .models.tebd import ParallelTEBD
 from .ops import channels, gates
 from .ops.gates import Gate, array_to_tensor, num_to_tensor
+
+#: the runtime configuration, with the contractor's helpers on it, as the
+#: JAX package names it
+cons = config
 
 __all__ = [
     "Circuit",
@@ -88,20 +111,28 @@ __all__ = [
     "channels",
     "circuit_with_noise",
     "config",
+    "cons",
+    "contraction_info",
     "convert",
     "dtypestr",
     "expectation",
     "gates",
     "get_backend",
+    "get_contractor",
     "get_device",
     "get_dtype",
+    "get_tn_info",
     "num_to_tensor",
     "quantum",
     "runtime_backend",
+    "runtime_contractor",
     "runtime_dtype",
     "set_backend",
+    "set_contractor",
     "set_device",
     "set_dtype",
     "set_function_backend",
+    "set_function_contractor",
     "set_function_dtype",
+    "simplify",
 ]

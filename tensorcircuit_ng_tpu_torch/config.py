@@ -1,8 +1,9 @@
-"""Runtime configuration of the PyTorch port: default dtype and device.
+"""Runtime configuration of the PyTorch port: default dtype, device and
+contractor.
 
-Counterpart of ``tensorcircuit_ng_tpu/config.py`` (dtype state read by the
-circuit engine) plus the default device, which the JAX package leaves to
-JAX.  Entry points run on the CUDA card unless the caller asks for the CPU;
+Counterpart of ``tensorcircuit_ng_tpu/config.py`` (the dtype and the
+contraction-path strategy read by the engines) plus the default device,
+which the JAX package leaves to JAX.  Entry points run on the CUDA card unless the caller asks for the CPU;
 nothing falls back to the CPU silently.
 
 ``set_dtype`` / ``set_device`` change the process default and return a scope
@@ -38,6 +39,11 @@ __all__ = [
     "get_backend",
     "runtime_backend",
     "set_function_backend",
+    "set_contractor",
+    "get_contractor",
+    "contractor_options",
+    "runtime_contractor",
+    "set_function_contractor",
 ]
 
 _COMPLEX_TO_REAL = {"complex64": "float32", "complex128": "float64"}
@@ -46,6 +52,9 @@ _REAL_TO_COMPLEX = {"float32": "complex64", "float64": "complex128"}
 _dtype = "complex64"
 _device = "cuda"
 _backend = "pytorch"
+#: the contraction-path strategy of the einsum IR and its options
+_contractor = "auto"
+_contractor_options: Optional[dict] = None
 _BACKEND_ALIASES = {"pytorch": "pytorch", "torch": "pytorch"}
 
 
@@ -255,3 +264,66 @@ def device_constant(a: Any, device: Union[str, torch.device], dtype: torch.dtype
     if a.size > _CONSTANT_MAX_ELEMS:
         return torch.as_tensor(a).to(device=device, dtype=dtype)
     return _cached_constant(a.tobytes(), a.shape, a.dtype.str, str(device), dtype)
+
+
+def set_contractor(method: str = "auto", optimizer: Any = None, **options: Any) -> str:
+    """Set the default contraction-path strategy of the einsum IR.
+
+    Methods: ``"auto"`` (opt_einsum's auto), ``"greedy"``, ``"optimal"``,
+    ``"branch-2"``, ``"plain"`` (left to right), ``"treesa"`` (the native
+    annealer), ``"custom"`` (an opt_einsum-compatible ``optimizer=``).
+    The options ``contraction_info=True`` (print each network's cost once)
+    and ``debug_level=2`` (contract nothing: zeros of the output shape) are
+    read by the contractor itself."""
+    global _contractor, _contractor_options
+    opts = dict(options)
+    if optimizer is not None:
+        opts["optimizer"] = optimizer
+        method = "custom"
+    _contractor, _contractor_options = method, opts or None
+    return method
+
+
+def get_contractor() -> str:
+    return _contractor
+
+
+def contractor_options() -> dict:
+    """A copy of the contractor's options ({} when none are set)."""
+    return dict(_contractor_options or {})
+
+
+@contextlib.contextmanager
+def runtime_contractor(method: str = "auto", **options: Any) -> Iterator[str]:
+    """The contractor is ``method`` with ``options`` inside the scope."""
+    global _contractor, _contractor_options
+    prev = (_contractor, _contractor_options)
+    _contractor, _contractor_options = method, options or None
+    try:
+        yield method
+    finally:
+        _contractor, _contractor_options = prev
+
+
+def set_function_contractor(method: str = "auto", **options: Any) -> Callable[[Callable], Callable]:
+    """Decorator: run the wrapped function under ``runtime_contractor``."""
+
+    def deco(f: Callable) -> Callable:
+        @functools.wraps(f)
+        def wrapper(*args: Any, **kws: Any) -> Any:
+            with runtime_contractor(method, **options):
+                return f(*args, **kws)
+
+        return wrapper
+
+    return deco
+
+
+def __getattr__(name: str) -> Any:
+    """The contractor helpers on the config module too (``tct.cons.plain_contractor``,
+    ``tct.cons.get_symbol``), as the JAX package forwards them."""
+    from .core import contractor as _contractor_mod
+
+    if hasattr(_contractor_mod, name):
+        return getattr(_contractor_mod, name)
+    raise AttributeError(f"module 'tensorcircuit_ng_tpu_torch.config' has no attribute {name!r}")

@@ -13,6 +13,12 @@ fused layers into one gate a qubit or pair (for ``inverse`` and
 ``matrix``); the light-cone expectation applies the items that reach the
 observable one by one, from |0...0>, without the fold or the grouping.
 
+Above ``_DENSE_MAX_QUBITS`` = 30 qubits no 2^n object is made:
+``amplitude`` and ``expectation`` contract the einsum IR of the expanded QIR
+(``amplitude_before``, ``expectation_before``; light-cone pruned) on the
+circuit's device, and ``sample`` draws each qubit in turn from planned
+contractions of projector expectations.
+
 The state of the first k QIR items is kept once computed, and the next
 ``state()`` applies only the items appended since: a trajectory whose
 channels read the state at each channel (``general_kraus``, the replay of a
@@ -511,21 +517,20 @@ class BaseCircuit(AbstractCircuit):
         """⟨psi| O_1 O_2 ... |psi⟩ with ``O_i = (operator, [wires])`` on the
         dense state; an operator is a ``Gate`` or a dense matrix or tensor.
         ``enable_lightcone`` builds the state from the items in the
-        observables' causal cone only (:meth:`_lightcone_qir`).  With
+        observables' causal cone only (:meth:`_lightcone_qir`).  Above 30
+        qubits the light-cone pruned einsum IR is contracted instead.  With
         ``noise_conf`` the noisy value of :func:`noisemodel.expectation_noisfy`
         (``nmc`` trajectories, or the rows of ``status``)."""
         if noise_conf is not None:
             return self._noisy_expectation(ops, noise_conf, nmc, status)
-        norm_ops = []
         for op in ops:
             if not (isinstance(op, tuple) and len(op) == 2):
                 raise ValueError("each op must be (operator, [wires])")
-            o, wires = op
-            if isinstance(o, Gate):
-                o = o.tensor
-            if not hasattr(wires, "__len__"):
-                wires = [wires]
-            norm_ops.append((o, [int(w) % self._nqubits for w in wires]))
+        if self._nqubits > self._DENSE_MAX_QUBITS:
+            from ..core import contractor
+
+            return contractor.contract_ir(self.expectation_before(*ops))
+        norm_ops = self._norm_ops(ops)
         if enable_lightcone:
             psi = self._lightcone_state([w for _, ws in norm_ops for w in ws])
         else:
@@ -534,6 +539,42 @@ class BaseCircuit(AbstractCircuit):
         for o, wires in norm_ops:
             phi = statevec.apply_unitary(phi, o, wires, self._d)
         return torch.vdot(psi, phi)
+
+    def _norm_ops(self, ops: Sequence[Tuple[Any, Any]]) -> List[Tuple[Any, List[int]]]:
+        """``(operator, [wires])`` pairs with a ``Gate`` unwrapped and the
+        wires taken modulo n."""
+        out = []
+        for o, wires in ops:
+            if isinstance(o, Gate):
+                o = o.tensor
+            if not hasattr(wires, "__len__"):
+                wires = [wires]
+            out.append((o, [int(w) % self._nqubits for w in wires]))
+        return out
+
+    def amplitude_before(self, l: Union[str, Sequence[int], torch.Tensor]) -> Any:
+        """The einsum IR of the ⟨l|C|0...0⟩ network (contract it with
+        ``core.contractor.contract_ir``)."""
+        from ..core import einsum_ir
+
+        return einsum_ir.amplitude_ir(self._expanded_qir(), self._nqubits, self._digits(l), d=self._d,
+                                      device=self._device)
+
+    def expectation_before(self, *ops: Tuple[Any, Sequence[int]], enable_lightcone: bool = True) -> Any:
+        """The einsum IR of the ⟨ψ|O_1 O_2 ...|ψ⟩ network, pruned to the
+        observables' light cone with ``enable_lightcone``."""
+        from ..core import einsum_ir
+
+        return einsum_ir.expectation_ir(self._expanded_qir(), self._nqubits, self._norm_ops(ops), d=self._d,
+                                        lightcone=enable_lightcone, device=self._device)
+
+    @staticmethod
+    def _digits(l: Union[str, Sequence[int], torch.Tensor]) -> List[int]:
+        if isinstance(l, str):
+            return [int(ch, 36) for ch in l]
+        if isinstance(l, torch.Tensor):
+            return [int(v) for v in l.reshape(-1).tolist()]
+        return [int(v) for v in np.reshape(np.asarray(l), (-1,))]
 
     def _lightcone_qir(self, obs_wires: Sequence[int]) -> List[Dict[str, Any]]:
         """The QIR items in the causal cone of ``obs_wires``, in order: an
@@ -562,7 +603,12 @@ class BaseCircuit(AbstractCircuit):
 
     def amplitude(self, l: Union[str, Sequence[int]]) -> torch.Tensor:
         r"""⟨l|psi⟩ for a basis string such as ``"0101"`` (base d, 0-9A-Z)
-        or a sequence of ints."""
+        or a sequence of ints; above 30 qubits by contracting
+        :meth:`amplitude_before`."""
+        if self._nqubits > self._DENSE_MAX_QUBITS:
+            from ..core import contractor
+
+            return contractor.contract_ir(self.amplitude_before(l))
         if isinstance(l, str):
             l = [int(ch, 36) for ch in l]
         return statevec.amplitude(self.state(), l, self._d)
@@ -591,8 +637,7 @@ class BaseCircuit(AbstractCircuit):
 
     #: tie-break added to each uniform, as in the JAX package
     _MEASURE_EPS = statevec.MEASURE_EPS
-    #: above this many qubits no dense state is made (the einsum route of
-    #: the JAX package, Queue 1 item 12, is not ported)
+    #: above this many qubits no dense state is made: the einsum routes
     _DENSE_MAX_QUBITS = 30
 
     def _uniforms(self, shape: Sequence[int], generator: Optional[torch.Generator]) -> torch.Tensor:
@@ -676,16 +721,16 @@ class BaseCircuit(AbstractCircuit):
         ``format`` (or ``format_``) None gives the legacy output: (digits,
         probability) for ``batch=None``, else a list of them (the
         probability is -1.0 on the ``allow_state`` route); else one of
-        :func:`quantum.sample2all`'s six formats."""
+        :func:`quantum.sample2all`'s six formats.
+
+        Above 2^30 amplitudes :meth:`_sample_large_n` draws the shots (the
+        probability is -1.0, ``allow_state`` is moot)."""
         if format is None:
             format = format_
         nbatch = 1 if batch is None else batch
         n, d = self._nqubits, self._d
         if d**n > 2**self._DENSE_MAX_QUBITS:
-            raise NotImplementedError(
-                f"sample above 2^{self._DENSE_MAX_QUBITS} amplitudes needs the einsum route, "
-                "Queue 1 item 12 of ROADMAP.md, which is not ported yet"
-            )
+            return self._sample_large_n(nbatch, batch, format, status, jittable, readout_error, random_generator)
         if status is not None:
             status = device_tensor(status, self._device)
         if allow_state:
@@ -713,6 +758,83 @@ class BaseCircuit(AbstractCircuit):
             return [(samples[i], probs[i]) for i in range(nbatch)]
         idx = qu.sample_bin2int(samples, n, d)
         return qu.sample2all(idx, n, format=format, jittable=jittable, d=d)
+
+    def _sample_large_n(
+        self,
+        nbatch: int,
+        batch: Optional[int],
+        format: Optional[str],
+        status: Optional[Any],
+        jittable: bool,
+        readout_error: Optional[Any] = None,
+        random_generator: Optional[torch.Generator] = None,
+    ) -> Any:
+        """Shots without any 2^n object: each qubit in turn from P(q = v |
+        the prefix drawn) = P(prefix, v) / P(prefix), each joint probability
+        one planned, light-cone pruned contraction of projector expectations
+        on the circuit's device (one plan a prefix length, cached by its
+        signature).  ``status`` [batch, n] gives the uniforms, as in the JAX
+        package, else ``random_generator`` or the backend's implicit one.
+
+        ``readout_error[i] = [P(0|0), P(1|1)]`` then flips bits with uniforms
+        from ``np.random.default_rng(zlib.crc32(status.tobytes()))``, the
+        status as a numpy array of its own dtype: the JAX package's flips
+        for the same status."""
+        import zlib
+
+        from ..core import contractor
+
+        n, d = self._nqubits, self._d
+        if status is None:
+            status = self._uniforms([nbatch, n], random_generator)
+        if isinstance(status, torch.Tensor):
+            status_np = status.detach().cpu().numpy().reshape(nbatch, n)
+        else:
+            status_np = np.asarray(status).reshape(nbatch, n)
+        eye = np.eye(d, dtype=np.complex64)
+
+        def joint(prefix: List[int]) -> float:
+            ops = [(np.diag(eye[v]), [i]) for i, v in enumerate(prefix)]
+            val = contractor.contract_ir(self.expectation_before(*ops))
+            return max(float(torch.real(val).reshape(())), 0.0)
+
+        samples = np.zeros((nbatch, n), dtype=np.int32)
+        for b in range(nbatch):
+            prefix: List[int] = []
+            p_prefix = 1.0
+            for q in range(n):
+                r = status_np[b, q] * p_prefix
+                acc = 0.0
+                outcome, p_joint = d - 1, None
+                for v in range(d - 1):
+                    pv = joint(prefix + [v])
+                    if r < acc + pv:
+                        outcome, p_joint = v, pv
+                        break
+                    acc += pv
+                if p_joint is None:  # the last outcome takes the remainder
+                    p_joint = max(p_prefix - acc, 1e-30)
+                samples[b, q] = outcome
+                prefix.append(outcome)
+                p_prefix = max(p_joint, 1e-30)
+        if readout_error is not None:
+            if d != 2:
+                raise NotImplementedError("readout_error needs qubits (d=2)")
+            # in the configured real dtype first, as the JAX package reads it
+            err = np.asarray(
+                [[float(x) for x in (e.tolist() if isinstance(e, torch.Tensor) else e)] for e in readout_error],
+                dtype=config.rdtypestr(),
+            ).astype(np.float64)
+            rng_ro = np.random.default_rng(zlib.crc32(status_np.tobytes()))
+            keep = np.where(samples == 0, err[None, :, 0], err[None, :, 1])
+            flips = rng_ro.uniform(size=samples.shape) >= keep
+            samples = np.where(flips, 1 - samples, samples).astype(np.int32)
+        bits = torch.as_tensor(samples, device=self._device)
+        if format is None:
+            if batch is None:
+                return bits[0], -1.0
+            return [(bits[i], -1.0) for i in range(nbatch)]
+        return qu.sample2all(qu.sample_bin2int(bits, n, d), n, format=format, jittable=jittable, d=d)
 
     def readouterror_bs(self, readout_error: Optional[Any] = None, p: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The probability vector ``p`` through each qubit's readout
@@ -824,4 +946,49 @@ class BaseCircuit(AbstractCircuit):
         return s
 
     wavefunction = state
+
+    # ------------------------------------------------------------------
+    # the node-graph helpers of the JAX package's API, over the QIR
+    # ------------------------------------------------------------------
+
+    def all_zero_nodes(self) -> List[torch.Tensor]:
+        """The |0...0> input "nodes": the initial state."""
+        return [self._initial_state()]
+
+    def copy_nodes(self, conj: bool = False) -> List[Any]:
+        """The expanded QIR's gate tensors on the circuit's device
+        (conjugated with ``conj``, for the bra half)."""
+        like = torch.empty((), dtype=config.torch_dtype(), device=self._device)
+        tensors = [statevec._as_tensor(item["gate"].tensor, like) for item in self._expanded_qir()
+                   if item.get("gate") is not None]
+        return [torch.conj(t) for t in tensors] if conj else tensors
+
+    def front_from_nodes(self, nodes: Any = None) -> List[int]:
+        """The dangling legs: the qubit slots of the state."""
+        return list(range(self._nqubits))
+
+    def coloring_nodes(self, *args: Any, **kws: Any) -> None:
+        """Light-cone tagging is a QIR pass here (``simplify.light_cone_qir``):
+        a no-op kept for the API."""
+
+    def coloring_copied_nodes(self, *args: Any, **kws: Any) -> None:
+        """See :meth:`coloring_nodes`."""
+
+    def to_graphviz(self, graph: Any = None, include_all_names: bool = False) -> str:
+        """DOT text of the circuit's DAG: gates as nodes, qubit wires as edges."""
+        lines = ["digraph circuit {", "  rankdir=LR;"]
+        last = {q: f"q{q}_in" for q in range(self._nqubits)}
+        for q in range(self._nqubits):
+            lines.append(f'  q{q}_in [label="q{q}|0>", shape=plaintext];')
+        for gi, item in enumerate(self._qir):
+            node = f"g{gi}"
+            lines.append(f'  {node} [label="{item.get("name") or "?"}", shape=box];')
+            for q in item["index"]:
+                lines.append(f"  {last[int(q)]} -> {node};")
+                last[int(q)] = node
+        for q in range(self._nqubits):
+            lines.append(f'  q{q}_out [label="q{q}", shape=plaintext];')
+            lines.append(f"  {last[q]} -> q{q}_out;")
+        lines.append("}")
+        return "\n".join(lines)
 

@@ -41,8 +41,12 @@ class Circuit(BaseCircuit):
         inputs: Optional[Any] = None,
         dim: int = 2,
         device: Union[None, str, torch.device] = None,
+        split: Optional[Dict[str, Any]] = None,
     ) -> None:
+        """``split``: the split rules of two-qubit gates (``contractor.split_rules``),
+        stored as the JAX package stores them."""
         super().__init__(nqubits, inputs=inputs, dim=dim, device=device)
+        self._split = split
 
     def mid_measurement(self, index: int, keep: Union[int, torch.Tensor] = 0) -> None:
         """Post-select qubit ``index`` onto outcome ``keep``, without

@@ -7,9 +7,9 @@ expanded QIR is applied as U on the ket slots and U* on the bra slots, a
 diagonal gate as two broadcast multiplies, and a channel item exactly as
 Σ_k K ρ K†.  The state of a QIR prefix is kept as in ``BaseCircuit``.
 ``sample`` and ``sample_expectation_ps`` are ``BaseCircuit``'s, on this
-circuit's ``probability``.  ``DMCircuit2`` (the lazy doubled network)
-waits for Queue 1 item 12, ``get_dm_as_quoperator`` for item 14 and
-``mps_inputs=`` for item 13.
+circuit's ``probability``.  ``DMCircuit2`` contracts the doubled
+network's einsum IR instead above 14 qubits.  ``get_dm_as_quoperator``
+waits for Queue 1 item 14 and ``mps_inputs=`` for item 13.
 """
 
 from __future__ import annotations
@@ -417,13 +417,119 @@ DMCircuit._meta_apply_channels()
 
 
 class DMCircuit2(DMCircuit):
-    """The lazy doubled-network ``DMCircuit2`` of the JAX package: not
-    ported."""
+    """``DMCircuit`` whose readouts contract the doubled (superoperator)
+    network lazily above ``_DENSE_MAX_QUBITS_DM`` = 14 qubits, so a noisy
+    wide shallow circuit never makes its d^2n ρ.
 
-    def __init__(self, *args: Any, **kws: Any) -> None:
-        raise NotImplementedError(
-            "DMCircuit2 contracts the einsum IR of Queue 1 item 12 of ROADMAP.md, which is not ported yet"
-        )
+    ``expectation_before`` lowers the expanded QIR to
+    ``einsum_ir.superop_expectation_ir`` (channels as superoperator tensors,
+    light-cone pruned); ``expectation`` contracts it above the cliff (with
+    ``noise_conf`` it stays dense); ``probability(*index)``,
+    ``measure_jit`` (one contraction a qubit, the earlier outcomes as
+    one-hot boundaries) and ``amplitude`` contract
+    ``einsum_ir.superop_boundary_ir``; ``sample`` above 2^14 amplitudes
+    draws from contractions of ``expectation_before``.  Below the cliff
+    each method is ``DMCircuit``'s."""
+
+    #: above this qubit count the readouts bypass the dense ρ
+    _DENSE_MAX_QUBITS_DM = 14
+    #: ``BaseCircuit.sample``'s cliff: ρ holds d^2n entries, so half the
+    #: pure state's width
+    _DENSE_MAX_QUBITS = _DENSE_MAX_QUBITS_DM
+
+    def _dense(self) -> bool:
+        return self._nqubits <= self._DENSE_MAX_QUBITS_DM
+
+    def expectation_before(self, *ops: Tuple[Any, Sequence[int]], enable_lightcone: bool = True) -> Any:
+        """The einsum IR of tr(O_1 O_2 ... ρ) over the doubled network."""
+        from ..core import einsum_ir
+
+        return einsum_ir.superop_expectation_ir(self._expanded_qir(), self._nqubits, self._norm_ops(ops),
+                                                d=self._d, lightcone=enable_lightcone, device=self._device)
+
+    def expectation(
+        self,
+        *ops: Tuple[Any, Sequence[int]],
+        reuse: bool = True,
+        noise_conf: Optional[Any] = None,
+        nmc: int = 1000,
+        status: Optional[Any] = None,
+        enable_lightcone: bool = True,
+        **kws: Any,
+    ) -> torch.Tensor:
+        if noise_conf is not None or self._dense():
+            return DMCircuit.expectation(self, *ops, reuse=reuse, noise_conf=noise_conf, nmc=nmc, status=status,
+                                         **kws)
+        from ..core import contractor
+
+        return contractor.contract_ir(self.expectation_before(*ops, enable_lightcone=enable_lightcone))
+
+    def _boundary_ir(self, **kws: Any) -> Any:
+        from ..core import einsum_ir
+
+        return einsum_ir.superop_boundary_ir(self._expanded_qir(), self._nqubits, d=self._d, device=self._device,
+                                             **kws)
+
+    def probability(self, *index: int) -> torch.Tensor:
+        """The diagonal of ρ, or with wires given the joint diagonal
+        marginal of those wires (flat, the first wire slowest), by a
+        light-cone contraction that never makes ρ (so at any n)."""
+        from ..core import contractor
+
+        if not index:
+            if self._dense():
+                return DMCircuit.probability(self)
+            index = tuple(range(self._nqubits))
+        p = contractor.contract_ir(self._boundary_ir(diag_wires=[int(q) for q in index]))
+        return torch.real(torch.reshape(p, (-1,)))
+
+    def measure_jit(
+        self,
+        *index: int,
+        with_prob: bool = False,
+        status: Optional[Any] = None,
+        generator: Optional[torch.Generator] = None,
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The ``index`` qubits measured in turn, each from one contraction
+        of its marginal conditioned on the earlier outcomes (one-hot
+        boundary vectors on the device); ``DMCircuit``'s below the cliff."""
+        if self._dense():
+            return DMCircuit.measure_jit(self, *index, with_prob=with_prob, status=status, generator=generator)
+        from ..core import contractor
+
+        d = self._d
+        if status is None:
+            status = self._uniforms([len(index)], generator)
+        status = statevec.real_tensor(status, self._device, config.torch_dtype())
+        rdt = getattr(torch, config.rdtypestr())
+        fixed: Dict[int, torch.Tensor] = {}
+        outcomes = []
+        prob = torch.ones((), dtype=rdt, device=self._device)
+        for k, q in enumerate(index):
+            marg = torch.real(torch.reshape(contractor.contract_ir(self._boundary_ir(fixed=fixed, diag_wires=[q])),
+                                            (d,)))
+            marg = marg / torch.sum(marg)
+            cdf = torch.cumsum(marg, 0)
+            r = torch.reshape(status[k], (1,)).to(cdf.dtype) + self._MEASURE_EPS
+            outcome = torch.clamp(torch.searchsorted(cdf, r, side="left")[0], 0, d - 1)
+            prob = prob * marg[outcome]
+            fixed = dict(fixed)
+            fixed[int(q)] = torch.nn.functional.one_hot(outcome, d).to(rdt)
+            outcomes.append(outcome)
+        sample = torch.stack(outcomes).to(torch.int32)
+        if with_prob:
+            return sample, prob
+        return sample, torch.tensor(-1.0, device=self._device)
+
+    def amplitude(self, l: Union[str, Sequence[int], Tensor]) -> torch.Tensor:
+        """⟨l|ρ|l⟩; above the cliff a closed doubled-network contraction."""
+        if self._dense():
+            return DMCircuit.amplitude(self, l)
+        from ..core import contractor
+
+        eye = np.eye(self._d)
+        fixed = {q: eye[v] for q, v in enumerate(self._digits(l))}
+        return contractor.contract_ir(self._boundary_ir(fixed=fixed))
 
 
 DensityMatrixCircuit = DMCircuit

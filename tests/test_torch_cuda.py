@@ -44,6 +44,11 @@ device refused.  A noisy trajectory (the TFIM with its gradient, the HEA
 with ``general_kraus`` sites) and a ``DMCircuit`` with exact channels on
 the card against the CPU path with the same status: the branches equal,
 each within 1e-5 of its float64 cdf interval, values as the circuit's.
+The contraction engine (no kernel of its own: pairwise ``torch.einsum``
+steps) on the card against the CPU path: the IR's operands on the card,
+a grid amplitude whole and sliced, the n > 30 amplitude, expectation and
+their gradients, samples past 2^30 amplitudes bit for bit, ``DMCircuit2``
+past its cliff, and ``chip_smoke.py``'s phase 15 at a small size.
 """
 
 import numpy as np
@@ -52,8 +57,9 @@ import torch
 
 import tensorcircuit_ng_tpu_torch as tct
 from chip_smoke import (
-    SVD_ORTH_TOL, SVD_REC_TOL, SVD_S_TOL, SVD_VEC_TOL, _ptxas_report, _svd_batches, _svd_checks,
-    hea_energy, qaoa_energy, qaoa_graph,
+    SVD_ORTH_TOL, SVD_REC_TOL, SVD_S_TOL, SVD_VEC_TOL, _contraction_checks, _ptxas_report, _svd_batches,
+    _svd_checks, brickwork_circuit, grid_angles, grid_circuit, hea_energy, noisy_brickwork_dm, qaoa_energy,
+    qaoa_graph,
 )
 from tensorcircuit_ng_tpu_torch import convert
 from tensorcircuit_ng_tpu_torch.core import _build
@@ -1483,3 +1489,70 @@ def test_dmcircuit_on_card_matches_cpu(cuda):
     assert abs(torch.trace(rho).real.item() - 1) <= 1e-5
     assert abs(d.purity().item() - dc.purity().item()) <= 1e-5
     assert abs(d.expectation_ps(x=[0], z=[2]).real.item() - dc.expectation_ps(x=[0], z=[2]).real.item()) <= 1e-5
+
+
+def test_grid_amplitude_on_card_matches_cpu(cuda):
+    """A 4x5 grid amplitude's IR operands lie on the card; its contraction,
+    whole and sliced, equals the CPU path's and the dense state's."""
+    from tensorcircuit_ng_tpu_torch.core import contractor as ctr
+
+    ang = grid_angles(20, 8)
+    c = grid_circuit(tct, 4, 5, 8, ang, device=cuda)
+    ir = c.amplitude_before("0" * 20)
+    assert all(t.is_cuda and t.dtype == torch.complex64 for t in ir.tensors)
+    want = ctr.contract_ir(grid_circuit(tct, 4, 5, 8, ang, device="cpu").amplitude_before("0" * 20))
+    got = ctr.contract_ir(ir)
+    sliced = ctr.sliced_contract_ir(ir, ctr.choose_slices(ir, 2**6))
+    scale = abs(want.item())
+    for v in (got, sliced, c.state()[0]):
+        assert abs(v.item() - want.item()) <= 1e-4 * scale
+
+
+def test_wide_routes_on_card_match_cpu(cuda):
+    """Past the dense cliff (a 4x8 grid, n=32): the amplitude, <Z> and
+    their gradients in the angles on the card against the CPU path."""
+    ang = grid_angles(32, 3)
+    z = np.diag([1.0, -1.0])
+    out = {}
+    for dev in ("cpu", cuda):
+        th = torch.tensor(ang, dtype=torch.float32, device=dev, requires_grad=True)
+        amp = grid_circuit(tct, 4, 8, 3, th, device=dev).amplitude("01" * 16)
+        (ga,) = torch.autograd.grad(torch.abs(amp) ** 2, th)
+        e = grid_circuit(tct, 4, 8, 3, th, device=dev).expectation((z, [13])).real
+        (ge,) = torch.autograd.grad(e, th)
+        out[str(dev)] = [x.detach().cpu() for x in (amp, ga, e, ge)]
+    (a0, ga0, e0, ge0), (a1, ga1, e1, ge1) = out["cpu"], out["cuda"]
+    assert abs(a1 - a0) <= 1e-4 * abs(a0)
+    assert (ga1 - ga0).abs().max() <= 1e-4 * ga0.abs().max()
+    assert abs(e1 - e0) <= 1e-5 and (ge1 - ge0).abs().max() <= 1e-5
+
+
+def test_sample_past_cliff_on_card_matches_cpu(cuda):
+    """31-qubit shots with a status and a readout error: the card's bits
+    are the CPU path's."""
+    st = np.random.default_rng(3).random((2, 31))
+    ro = [[0.97, 0.95]] * 31
+    got, want = (brickwork_circuit(tct, 31, 2, device=dev).sample(batch=2, status=st, readout_error=ro,
+                                                                  format="sample_bin").cpu()
+                 for dev in (cuda, "cpu"))
+    assert torch.equal(got, want)
+
+
+def test_dmcircuit2_on_card_matches_cpu(cuda):
+    """``DMCircuit2`` past its cliff (n=16) on the card against the CPU."""
+    z = np.diag([1.0, -1.0])
+    vals = []
+    for dev in (cuda, "cpu"):
+        c = noisy_brickwork_dm(tct, 16, 2, device=dev)
+        vals.append([c.expectation((z, [8])).real.cpu(), c.probability(2, 8, 13).cpu(),
+                     c.measure_jit(1, 8, 9, status=np.array([0.2, 0.7, 0.4]))[0].cpu(), c.amplitude("0" * 16).cpu()])
+    (e1, p1, m1, a1), (e0, p0, m0, a0) = vals
+    assert abs(e1 - e0) <= 1e-5 and (p1 - p0).abs().max() <= 1e-5 and torch.equal(m1, m0)
+    assert abs(a1 - a0) <= 1e-4 * abs(a0)
+
+
+def test_contraction_phase_checks_on_card(cuda):
+    """``chip_smoke.py``'s phase 15 at a small size on the card."""
+    got = _contraction_checks(tct, cuda, grid_a=(3, 4, 6), grid_b=(4, 8, 2), slice_target=2**4, ghz=(31, 8),
+                              brick=(31, 2, 2), dm2=(16, 2), dm2_small=6)
+    assert got["sliced"] and all(cost is not None for cost in got["once"].values())

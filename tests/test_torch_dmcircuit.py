@@ -7,7 +7,7 @@ amplitudes, probabilities, the projected subsystem, the collapse of
 the exact channel methods, ``to_circuit``, the checks, and the trajectory
 mean of ``Circuit`` against the JAX ``DMCircuit`` (n=5, 400 trajectories,
 3 sigma + 1e-3, as ``examples/noisy_qml_training.py`` checks).  The parts
-left to Queue 1 items 12-14 raise NotImplementedError naming the item.
+left to Queue 1 items 13-14 raise NotImplementedError naming the item.
 
 Tolerances: complex64 1e-5, complex128 1e-10, n <= 5.
 """
@@ -235,10 +235,17 @@ def test_trajectory_mean_matches_jax_dmcircuit(cpu):
 
 
 def test_unported_parts_raise(cpu):
-    """``DMCircuit2`` waits for Queue 1 item 12, ``get_dm_as_quoperator``
-    for item 14, ``mps_inputs=`` for item 13."""
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tct.DMCircuit2(3)
+    """``get_dm_as_quoperator`` waits for Queue 1 item 14, ``mps_inputs=``
+    for item 13; ``DMCircuit2`` (item 12's doubled network, ported) is a
+    ``DMCircuit`` that keeps its dense readouts up to 14 qubits."""
+    d2, d = tct.DMCircuit2(3), tct.DMCircuit(3)
+    for c in (d2, d):
+        c.h(0)
+        c.cnot(0, 1)
+        c.depolarizing(1, px=0.1, py=0.0, pz=0.0)
+    assert isinstance(d2, tct.DMCircuit)
+    _close(d2.expectation((Z, [1])), d.expectation((Z, [1])), 1e-6)
+    _close(d2.probability(), d.probability(), 1e-6)
     with pytest.raises(NotImplementedError, match="item 14"):
         tct.DMCircuit(2).get_dm_as_quoperator()
     with pytest.raises(NotImplementedError, match="item 13"):

@@ -616,14 +616,14 @@ def test_backend_draws_and_names(cpu):
 
 
 def test_unported_routes_raise(cpu):
-    """``sample`` above 2^30 amplitudes names Queue 1 item 12, and so does
-    ``DMCircuit2``; a 1-D status on the trajectory route and a status tensor
-    on another device are ValueErrors.  (``noise_conf`` is ported: the
-    noise tests hold it.)"""
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tct.Circuit(31).sample(batch=4)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tct.DMCircuit2(2)
+    """A 1-D status on the trajectory route and a status tensor on another
+    device are ValueErrors.  ``sample`` above 2^30 amplitudes (Queue 1 item
+    12, ported: ``tests/test_torch_einsum_routes.py`` holds it against the
+    JAX package) draws through the einsum IR: |0...0> gives zeros.
+    (``noise_conf`` is ported: the noise tests hold it.)"""
+    zeros = tct.Circuit(31).sample(batch=4, status=np.full((4, 31), 0.5), format="sample_bin")
+    assert zeros.shape == (4, 31) and not zeros.any()
+    assert tct.DMCircuit2(2).probability().shape == (4,)
     c = _bell(tct)
     with pytest.raises(ValueError, match="trajectory route"):
         c.sample(batch=2, status=np.array([0.1, 0.2]))
