@@ -155,7 +155,12 @@ Phases (any failure exits non-zero; nothing is caught):
      row passes, the product, the outer pass, told apart by name and by
      their order in each complete call; m1's copy) by device time a launch
      beside its bound; ``torch.matmul`` of the product and
-     ``copy_`` of m1's planes as library calls;
+     ``copy_`` of m1's planes as library calls; then the CPU references
+     of phases 15 (c) and 16 start in a child process that sees no card
+     (``python3 chip_smoke.py --references DIR``, 4 threads: the
+     brickwork shots, then phase 16's references), after every kernel's
+     and step's timing; K1 by events and the TFIM training step are timed
+     before it starts and again after phase 13, beside it;
  12. the circuit API at full width (no kernel of its own), on the n=20,
      L=4 TFIM circuit of the training path (:func:`tfim_circuit`) and the
      HEA circuit of phase 8 (:func:`hea_circuit`), each check against the
@@ -227,9 +232,33 @@ Phases (any failure exits non-zero; nothing is caught):
      n=24, depth 4 (depolarizing 0.01 after each CNOT): ``expectation``,
      ``probability`` of three wires, ``measure_jit`` of four and
      ``amplitude`` against the CPU path, and at n=10 its einsum route
-     against the dense ``DMCircuit``; then each route timed (the dense
-     state and the brickwork shots once, inside the checks) with its busy
-     time and its peak memory above the start.
+     against the dense ``DMCircuit``; the CPU path's brickwork shots come
+     from the child process; then each route
+     timed (the dense state and the brickwork shots once, inside the
+     checks) with its busy time and its peak memory above the start;
+ 16. the MPS simulators at full width (no kernel of their own; the card
+     truncates by the Gram-eigh SVD, a complex64 chain's SVDs and QRs in
+     complex128), each check against the port's CPU path, whose references
+     the child process computes: (a) the MPS VQE step of
+     ``examples/mps_vqe_truncated.py``'s TFIM ansatz at n=60, chi=64,
+     depth 10 (:func:`mps_vqe_circuit`; the energy through 119
+     ``expectation_ps`` terms, its gradient in the angles, one SGD step) at
+     complex128 and complex64, the energies against the CPU path's
+     complex128 exact-SVD run (tolerances from ``tools/mps_gram_drift.py``)
+     and the gradient against its Gram route; the bond dimensions (64 in
+     the middle); (b) the exact regime at n=20,
+     depth 4: the MPS energy and gradient against the dense ``Circuit``
+     (``h_layer`` + ``zzrx_layer``, K2/K4 launched); (c) 1,024 shots of
+     (a)'s evaluated MPS with a status: at complex128 each outcome within
+     1e-6 of its float64 cdf interval on the CPU path's chain
+     (:func:`mps_bracket_miss`), at complex64 <Z_i Z_i+1> from the shots
+     within 5 sigma of ``expectation_ps``; its entropy at bond 30 and rho
+     of qubits 29-30; (d) ``dmrg(xxz_mpo(12, 1.0), chi=16, sweeps=6)``
+     against the CPU path and the exact ground energy, its tensors fed to
+     ``MPSCircuit``, ``FiniteMPS`` and ``Circuit(mps_inputs=)``; (e) the
+     QuOperator methods at n=8 (:func:`_qop_values`); then (a)'s value and
+     grad, a two-site update on the Gram and on the exact route, the
+     shots and the DMRG sweeps timed with busy share and peak memory.
 
 Prints the kernels JSON line, then the card's name and power limit, then
 ``{"ok": true, "device": {...}}`` as the last line.  Needs no network and
@@ -3229,6 +3258,14 @@ def ghz_circuit(mod, n, **kw):
     return c
 
 
+def brickwork_shots(mod, n, depth, shots, device):
+    """(c)'s brickwork shots with a readout error on ``device``, from
+    seeded uniforms: a numpy array [shots, n]."""
+    st = np.random.default_rng(16).random((shots, n))
+    return brickwork_circuit(mod, n, depth, device=device).sample(
+        batch=shots, status=st, readout_error=[list(READOUT)] * n, format="sample_bin").cpu().numpy()
+
+
 def noisy_brickwork_dm(mod, n, depth, p=DM2_P, seed=11, cls="DMCircuit2", **kw):
     """A 1D brickwork ``DMCircuit2``: H on every qubit, then per layer a CNOT
     brick with depolarizing ``p`` (a Pauli) on both legs after each CNOT,
@@ -3248,10 +3285,12 @@ def noisy_brickwork_dm(mod, n, depth, p=DM2_P, seed=11, cls="DMCircuit2", **kw):
 
 
 def _contraction_checks(tct, dev, grid_a=GRID_A, grid_b=GRID_B, slice_target=SLICE_TARGET, ghz=(GHZ_N, GHZ_SHOTS),
-                        brick=(BRICK_N, BRICK_DEPTH, BRICK_SHOTS), dm2=(DM2_N, DM2_DEPTH), dm2_small=DM2_SMALL):
+                        brick=(BRICK_N, BRICK_DEPTH, BRICK_SHOTS), dm2=(DM2_N, DM2_DEPTH), dm2_small=DM2_SMALL,
+                        brick_ref=None):
     """Phase 15's checks (a)-(d) on ``dev``, each against the port's CPU
-    path (on the CPU the two are one) or another route on ``dev``.  Returns
-    what the timings reuse."""
+    path (on the CPU the two are one) or another route on ``dev``; the CPU
+    path's brickwork shots from ``brick_ref()`` when it is given (else
+    computed here).  Returns what the timings reuse."""
     import torch
 
     from tensorcircuit_ng_tpu_torch.core import contractor as ctr
@@ -3299,7 +3338,9 @@ def _contraction_checks(tct, dev, grid_a=GRID_A, grid_b=GRID_B, slice_target=SLI
         a_whole = timed_first("whole", lambda: ctr.contract_ir(ir))
         # the sliced network is planned anew (above 10^10 FLOPs: TreeSA again)
         a_sliced = timed_first("sliced", lambda: ctr.sliced_contract_ir(ir, sliced))
-        a_dense, dense_cost = _once(lambda: c.state(reuse=False)[0], dev)
+        # the profiler's digest of the dense state's launches would cost
+        # more than the state: its busy share is not measured
+        a_dense, dense_cost = _once(lambda: c.state(reuse=False)[0], dev, profile_it=False)
         with tct.runtime_dtype("complex128"):
             c128 = grid_circuit(tct, rows, cols, depth, ang, device=dev)
             ir128 = c128.amplitude_before("0" * n)
@@ -3368,12 +3409,8 @@ def _contraction_checks(tct, dev, grid_a=GRID_A, grid_b=GRID_B, slice_target=SLI
     if s.shape != (shots, n_g) or not np.all(s == s[:, :1]) or ones in (0, shots):
         _fail(f"phase 15 (c): GHZ samples are not all-zero and all-one strings: {s.sum(axis=1)}")
     n_w, depth_w, shots_w = brick
-    st = np.random.default_rng(16).random((shots_w, n_w))
-    ro = [list(READOUT)] * n_w
-    got_s, brick_cost = _once(lambda: brickwork_circuit(tct, n_w, depth_w, device=dev).sample(
-        batch=shots_w, status=st, readout_error=ro, format="sample_bin").cpu().numpy(), dev)
-    want_s = brickwork_circuit(tct, n_w, depth_w, device="cpu").sample(batch=shots_w, status=st, readout_error=ro,
-                                                                        format="sample_bin").numpy()
+    got_s, brick_cost = _once(lambda: brickwork_shots(tct, n_w, depth_w, shots_w, dev), dev)
+    want_s = brickwork_shots(tct, n_w, depth_w, shots_w, "cpu") if brick_ref is None else brick_ref()
     print(f"  (c) brickwork n={n_w} depth {depth_w}: {shots_w} shots with a readout error, ones a shot "
           f"{got_s.sum(axis=1).tolist()}")
     if not np.array_equal(got_s, want_s):
@@ -3417,10 +3454,14 @@ def _contraction_checks(tct, dev, grid_a=GRID_A, grid_b=GRID_B, slice_target=SLI
                      f"(c) brickwork n={n_w} depth {depth_w}, {shots_w} shots with a readout error": brick_cost}}
 
 
-def _once(fn, dev):
+def _once(fn, dev, profile_it=True):
     """(fn(), cost) of one call: on a card the cost is (ms by CUDA events,
     busy ms under torch.profiler tracing the card alone, peak MiB above the
-    start), for a route too long to repeat; None on the CPU."""
+    start, the top kernels), for a route too long to repeat; None on the
+    CPU.  ``profile_it=False`` leaves the profiler out (busy None, no
+    kernels): digesting ~150,000 launches costs it tens of seconds."""
+    import contextlib
+
     import torch
 
     if torch.device(dev).type != "cuda":
@@ -3431,11 +3472,13 @@ def _once(fn, dev):
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
     start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with (profile(activities=[ProfilerActivity.CUDA]) if profile_it else contextlib.nullcontext()) as prof:
         start.record()
         out = fn()
         stop.record()
         stop.synchronize()
+    if not profile_it:
+        return out, (start.elapsed_time(stop), None, (torch.cuda.max_memory_allocated() - base) / 2**20, [])
     kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     kernels.sort(key=lambda e: -e.self_device_time_total)
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
@@ -3443,7 +3486,7 @@ def _once(fn, dev):
     return out, (start.elapsed_time(stop), busy, (torch.cuda.max_memory_allocated() - base) / 2**20, top)
 
 
-def _contraction_phase(tct, card):
+def _contraction_phase(tct, card, job):
     """Phase 15, the contraction engine at full width: :func:`_contraction_checks`
     on the card, then each route timed by CUDA events (median of 3 after a
     warm-up) with its busy time under torch.profiler (one call, the card
@@ -3454,7 +3497,14 @@ def _contraction_phase(tct, card):
 
     dev = torch.device("cuda")
     t0 = time.perf_counter()
-    got = _contraction_checks(tct, dev)
+
+    def brick_ref():
+        ref, waited = _await_reference(job, "brickwork")
+        print(f"  (c) the CPU path's brickwork shots from the child process ({REF_THREADS} threads, "
+              f"{ref['seconds']:.1f} s): waited {waited:.1f} s")
+        return ref["shots"]
+
+    got = _contraction_checks(tct, dev, brick_ref=brick_ref)
     t1 = time.perf_counter()
     ir, sliced = got["ir"], got["sliced"]
     timed = {
@@ -3466,9 +3516,10 @@ def _contraction_phase(tct, card):
     }
     for label, (ms, busy, peak, top) in got["once"].items():
         top = ", ".join(f"{name[:40]} {t:.3f} x{k:g}" for name, t, k in top)
-        print(f"phase 15 time, {label}: {ms:.3f} ms (CUDA events, one call), busy {busy:.3f} ms "
-              f"({100 * busy / ms:.1f} %; profiler, the same call), peak {peak:.1f} MiB above the start, {card}; "
-              f"top kernels {top}")
+        busy = "busy not measured" if busy is None else (
+            f"busy {busy:.3f} ms ({100 * busy / ms:.1f} %; profiler, the same call)")
+        print(f"phase 15 time, {label}: {ms:.3f} ms (CUDA events, one call), {busy}, peak {peak:.1f} MiB above "
+              f"the start, {card}; top kernels {top or 'not traced'}")
     for label, fn in timed.items():
         with torch.no_grad() if "grad" not in label else torch.enable_grad():
             ms = _time_ms(fn, reps=3, inner=1, warmup=1)
@@ -3484,6 +3535,578 @@ def _contraction_phase(tct, card):
               f"({100 * busy / ms:.1f} %; profiler, one call), peak {peak:.1f} MiB above the start, {card}; "
               f"top kernels {top}")
     print(f"phase 15 wall time: checks {t1 - t0:.1f} s, timing {time.perf_counter() - t1:.1f} s")
+
+
+#: phase 16, the MPS simulators at full width: (a) the MPS VQE step of
+#: examples/mps_vqe_truncated.py's TFIM ansatz at the TEBD path's width
+#: (bench.py's n=60, chi=64) and depth 10; (b) the exact regime at n=20,
+#: depth 4 (every bond 16 or less) against the dense circuit; (c) 1,024
+#: shots of (a)'s updated MPS; (d) DMRG of the n=12 Heisenberg chain and its
+#: three consumers; (e) the QuOperator methods at n=8
+MPS_SIZES = {"n": 60, "chi": 64, "depth": 10, "n_b": 20, "depth_b": 4, "shots": 1024,
+             "n_d": 12, "chi_d": 16, "sweeps_d": 6, "n_e": 8}
+#: the CPU references of phases 15 (c) and 16 run in a child process
+#: started after phase 11 (the kernels' and the steps' timings), on this
+#: many threads, while the card runs phases 12-16
+REF_THREADS = 4
+#: (a) on the card against the port's CPU path at complex128 (the exact
+#: SVD): (|dE|/|E|, |dE after the SGD step|/|E after|).  The card
+#: truncates with the Gram-eigh SVD, a complex64 chain's SVDs and QRs in
+#: complex128 (``core/linalg.py``).  Set from the CPU path's own drift at
+#: full width, run on the card machine's CPU (``tools/mps_gram_drift.py``;
+#: PERF.md): the Gram route at complex128 5.1e-12 and 3.4e-6, the card's
+#: first run 3.6e-12 and 2.3e-6; the complex64 route at n=30 on the CPU
+#: 4.4e-7 off the complex128 one.  The step's 3.4e-6 comes from the exact
+#: SVD adjoint's error in the CPU path's gradient (Queue 3 F9), whose size
+#: moves with the CPU's thread count (2.4e-3 of the largest entry on 4
+#: threads, 1.4e-2 on 2); each tolerance is about 3-100x its drift
+MPS_TOL = {"complex128": (1e-9, 1e-4), "complex64": (1e-5, 1e-4)}
+#: (a)'s gradient on the card against the CPU path's Gram route at
+#: complex128, whose gradient a central difference confirms to 1e-8
+#: (``tools/mps_gram_drift.py``): the two Gram routes differ only in their
+#: eigh's rounding; the complex64 chain, decomposed in complex128, was
+#: 4.7e-5 off at n=30 on the CPU.  The distance to the exact SVD's
+#: gradient (F9) is printed, not checked
+MPS_GRAM_GRAD_TOL = {"complex128": 1e-5, "complex64": 1e-3}
+#: (c) the entropy and rho of (a)'s evaluated MPS at complex128 against
+#: the CPU path: the two SVDs' states agree to ~1e-11 in energy
+MPS_STATE_TOL = 1e-6
+#: (b) the exact regime, MPS against the dense circuit on the card, both
+#: complex64: |dE| and max |dgrad|
+MPS_EXACT_ATOL = 1e-4
+#: (c) a shot's outcome may leave the float64 cdf interval of the CPU
+#: path's chain by this much (phase 13's bracket rule)
+MPS_BRACKET_TOL = 1e-6
+#: (d) DMRG on the card against the CPU path; against the exact ground
+#: energy (examples/dmrg_ground_state.py's bound); the dense <H> of
+#: Circuit(mps_inputs=) against the DMRG energy
+DMRG_ATOL = 1e-8
+DMRG_EXACT_ATOL = 1e-3
+DMRG_DENSE_ATOL = 1e-6
+#: (e) the QuOperator methods on the card against the CPU path, complex64
+QOP_ATOL = 1e-5
+#: (e)'s 3-site gate for the mpo method: exp(-i 0.4 Z X Z)
+MPO_GATE = np.cos(0.4) * np.eye(8) - 1j * np.sin(0.4) * np.kron(
+    np.kron(np.diag([1.0, -1.0]), [[0.0, 1.0], [1.0, 0.0]]), np.diag([1.0, -1.0]))
+
+
+def mps_vqe_angles(n, depth, seed=42):
+    """examples/mps_vqe_truncated.py's angles: (depth, 2, n) normals x 0.1."""
+    return np.random.default_rng(seed).normal(size=(depth, 2, n)) * 0.1
+
+
+def mps_vqe_circuit(mod, p, n, chi, **kw):
+    """The TFIM ansatz on an ``MPSCircuit`` with bond cap ``chi``: h on each
+    qubit, then each layer l rzz(p[l, 1, i]) on the n-1 bonds and
+    rx(p[l, 0, i]) on each qubit."""
+    c = mod.MPSCircuit(n, split={"max_singular_values": chi}, **kw)
+    for i in range(n):
+        c.h(i)
+    for l in range(p.shape[0]):
+        for i in range(n - 1):
+            c.rzz(i, i + 1, theta=p[l, 1, i])
+        for i in range(n):
+            c.rx(i, theta=p[l, 0, i])
+    return c
+
+
+def tfim_energy_ps(c, n):
+    """Σ <Z_i Z_i+1> - Σ <X_i> through ``expectation_ps`` (2n-1 terms)."""
+    e = 0.0
+    for i in range(n - 1):
+        e = e + c.expectation_ps(z=[i, i + 1]).real
+    for i in range(n):
+        e = e - c.expectation_ps(x=[i]).real
+    return e
+
+
+def dense_vqe_energy(mod, p, n, **kw):
+    """The same ansatz and energy on the dense ``Circuit``: ``h_layer`` and a
+    ``zzrx_layer`` a layer (rzz and the layer's zz share exp(-i θ/2 ZZ))."""
+    c = mod.Circuit(n, **kw)
+    c.h_layer()
+    pairs = [(i, i + 1) for i in range(n - 1)]
+    for l in range(p.shape[0]):
+        c.zzrx_layer(pairs, p[l, 1, : n - 1], p[l, 0])
+    return c.expectation_zzx_energy(pairs, 1.0, -1.0)
+
+
+def heisenberg_energy_ps(c, n):
+    """Σ <X_i X_i+1 + Y_i Y_i+1 + Z_i Z_i+1> through ``expectation_ps``."""
+    e = 0.0
+    for i in range(n - 1):
+        for key in ("x", "y", "z"):
+            e = e + c.expectation_ps(**{key: [i, i + 1]}).real
+    return e
+
+
+def heisenberg_ground(n):
+    """The exact ground energy of the open Heisenberg chain (xxz_mpo(n, 1.0))
+    from numpy's eigvalsh of its dense 2^n x 2^n matrix."""
+    idx = np.arange(2**n)
+    h = np.zeros((2**n, 2**n))
+    for i in range(n - 1):
+        a, b = n - 1 - i, n - 2 - i
+        differ = ((idx >> a) & 1) != ((idx >> b) & 1)
+        h[idx, idx] += np.where(differ, -1.0, 1.0)
+        h[(idx ^ (1 << a) ^ (1 << b))[differ], idx[differ]] += 2.0  # XX + YY on |01>, |10>
+    return float(np.linalg.eigvalsh(h)[0])
+
+
+def mps_bracket_miss(chain, bits, status, d=2):
+    """How far the uniforms (+ the tie-break) of MPS shots lie outside the
+    float64 cdf intervals of their outcomes, each step's conditional taken
+    on the right-canonical ``chain`` (complex128) given the shot's earlier
+    outcomes: at most 0 where every outcome is the float64 one."""
+    import torch
+
+    bits = torch.as_tensor(np.asarray(bits), dtype=torch.int64)
+    status = np.asarray(status, dtype=np.float64)
+    rows = torch.arange(bits.shape[0])
+    v, miss = None, -np.inf
+    for k, t in enumerate(chain):
+        t = t.to(torch.complex128)
+        m = t[0].expand(bits.shape[0], *t[0].shape) if v is None else torch.einsum("sb,bdc->sdc", v, t)
+        w = torch.sum(torch.abs(m) ** 2, dim=2)
+        cdf = torch.cumsum(w / torch.sum(w, dim=1, keepdim=True), dim=1).numpy()
+        o = bits[:, k].numpy()
+        u = status[:, k] + MEASURE_EPS
+        lo = np.where(o > 0, cdf[np.arange(len(o)), np.maximum(o - 1, 0)], 0.0)
+        miss = max(miss, float(np.max(np.maximum(lo - u, u - cdf[np.arange(len(o)), o]))))
+        row = m[rows, bits[:, k]]
+        v = row / torch.linalg.vector_norm(row, dim=1, keepdim=True).to(row.dtype)
+    return miss
+
+
+def mps_vqe_step(tct, dev, g0, n, chi):
+    """(a): the energy and its gradient in the angles, one SGD step, and the
+    energy after it, in the configured dtype on ``dev``; returns (E, grad,
+    E after, the evaluated circuit, the updated circuit)."""
+    import torch
+
+    p = torch.as_tensor(g0, device=dev).to(getattr(torch, tct.config.rdtypestr())).requires_grad_()
+    c0 = mps_vqe_circuit(tct, p, n, chi, device=dev)
+    e = tfim_energy_ps(c0, n)
+    (g,) = torch.autograd.grad(e, p)
+    c0._tensors = [t.detach() for t in c0._tensors]
+    with torch.no_grad():
+        c1 = mps_vqe_circuit(tct, p - LR * g, n, chi, device=dev)
+        e1 = tfim_energy_ps(c1, n)
+    return e.detach(), g, e1, c0, c1
+
+
+def mps_status(shots, n, seed=7):
+    return np.random.default_rng(seed).uniform(size=(shots, n))
+
+
+def _mps_reference(tct, n, chi, depth, n_b, depth_b, shots, n_d, chi_d, sweeps_d, n_e, drift=True, log=None):
+    """Phase 16's references on the port's CPU path: (a) at complex128 with
+    the exact SVD, its evaluated chain (right-canonical) and its shots, the
+    entropy and ρ of (c), (a) again on the Gram route at complex128 (its
+    gradient is a central difference's, the exact SVD's is not: Queue 3
+    F9), DMRG (d) and the exact ground energy; with ``drift``, (a) on the
+    Gram route at complex64 and with the exact SVD at complex64 too, each
+    passed to ``log`` as it ends.  Returns a dict of CPU tensors and
+    numbers."""
+    import torch
+
+    from tensorcircuit_ng_tpu_torch.core import linalg
+
+    ref = {}
+    g0 = mps_vqe_angles(n, depth)
+    t0 = time.perf_counter()
+    saved = linalg.USE_GRAM_SVD
+    try:
+        linalg.USE_GRAM_SVD = False
+        with tct.set_dtype("complex128"):
+            e, g, e1, c0, c1 = mps_vqe_step(tct, "cpu", g0, n, chi)
+            ref.update(e=e.item(), g=g, e1=e1.item(), bonds=c1.get_bond_dimensions())
+            with torch.no_grad():
+                ref["chain"] = c0._right_canonical()
+                ref["bits"] = c0.sample(shots, status=mps_status(shots, n), format="sample_bin")
+                ref["entropy"] = c0.entanglement_entropy(n // 2).item()
+                ref["rho"] = c0.reduced_density_matrix([n // 2 - 1, n // 2])
+        ref["seconds (a)"] = time.perf_counter() - t0
+        if log:
+            log(f"exact complex128: E {ref['e']:.12f}, E after {ref['e1']:.12f} ({ref['seconds (a)']:.1f} s)")
+        routes = [("gram128", True, "complex128")]
+        if drift:
+            routes += [("gram64", True, "complex64"), ("exact64", False, "complex64")]
+        for route, gram, dtype in routes:
+            t0 = time.perf_counter()
+            linalg.USE_GRAM_SVD = gram
+            with tct.set_dtype(dtype):
+                e, g, e1, _, _ = mps_vqe_step(tct, "cpu", g0, n, chi)
+            ref[f"drift {route}"] = _mps_errors(ref, e.item(), g, e1.item())
+            ref[f"g {route}"] = g.detach()
+            ref[f"seconds {route}"] = time.perf_counter() - t0
+            if log:
+                log(f"{route}: |dE|/|E|, max |dgrad|/max |grad|, |dE after|/|E after| = "
+                    f"{ref[f'drift {route}']} ({ref[f'seconds {route}']:.1f} s)")
+    finally:
+        linalg.USE_GRAM_SVD = saved
+    t0 = time.perf_counter()
+    e_d, a_d = tct.dmrg.dmrg(tct.dmrg.xxz_mpo(n_d, 1.0), chi=chi_d, sweeps=sweeps_d, device="cpu")
+    ref["dmrg"] = e_d
+    ref["seconds (d)"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ref["ground"] = heisenberg_ground(n_d)
+    ref["seconds ground"] = time.perf_counter() - t0
+    return ref
+
+
+def _mps_errors(ref, e, g, e1):
+    """(|dE|/|E|, max |dgrad|/max |grad|, |dE after|/|E after|) against ``ref``."""
+    gr = ref["g"]
+    dg = (g.detach().cpu().to(gr.dtype) - gr).abs().max().item() / gr.abs().max().item()
+    return abs(e - ref["e"]) / abs(ref["e"]), dg, abs(e1 - ref["e1"]) / abs(ref["e1"])
+
+
+def _reference_child(out):
+    """``python3 chip_smoke.py --references DIR``: the port's CPU path of
+    phase 15 (c)'s brickwork shots, then :func:`_mps_reference` at phase
+    16's full sizes, each saved (torch.save) into DIR as it ends
+    (:data:`REFERENCES`).  The Gram-against-exact drift is left to
+    ``tools/mps_gram_drift.py``: three more runs of (a) on the CPU would
+    crowd phases 12-16."""
+    import torch
+
+    torch.set_num_threads(REF_THREADS)
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, here)
+    import tensorcircuit_ng_tpu_torch as tct
+
+    def save(name, value):
+        path = os.path.join(out, REFERENCES[name])
+        torch.save(value, path + ".part")
+        os.replace(path + ".part", path)
+
+    with tct.set_device("cpu"):
+        t0 = time.perf_counter()
+        shots = brickwork_shots(tct, BRICK_N, BRICK_DEPTH, BRICK_SHOTS, "cpu")
+        save("brickwork", {"shots": shots, "seconds": time.perf_counter() - t0})
+        save("mps", _mps_reference(tct, **MPS_SIZES, drift=False))
+    return 0
+
+
+def _mps_checks(tct, dev, ref, counters=(), n=60, chi=64, depth=10, n_b=20, depth_b=4, shots=1024, n_d=12,
+                chi_d=16, sweeps_d=6, n_e=8):
+    """Phase 16's checks (a)-(e) on ``dev`` against ``ref``
+    (:func:`_mps_reference` of the same sizes; on the CPU the two paths are
+    one), or against ``ref()`` once (a)'s steps on ``dev`` have run.
+    Returns what the timings reuse."""
+    import torch
+
+    card = torch.device(dev).type == "cuda"
+    spent = {}
+    last = [time.perf_counter()]
+
+    def lap(key):
+        now = time.perf_counter()
+        spent[key], last[0] = now - last[0], now
+
+    def check(label, err, tol):
+        print(f"  {label}: {err:.3e} (tol {tol:g})")
+        if not err <= tol:
+            _fail(f"phase 16, {label}: {err} > {tol}")
+
+    print("MPS simulators:")
+    # (a) the MPS VQE step at n, chi: complex128 and complex64 on dev
+    g0 = mps_vqe_angles(n, depth)
+    out, once = {}, {}
+    for dtype in ("complex128", "complex64"):
+        with tct.set_dtype(dtype):
+            # the complex64 step is the timed one (one call; on a card by
+            # events and peak memory: the profiler's digest of its ~300,000
+            # launches took ~190 s, so its busy share stands in the update's
+            # and the shots' lines)
+            out[dtype], cost = _once(lambda: mps_vqe_step(tct, dev, g0, n, chi), dev, profile_it=False)
+        if dtype == "complex64" and cost:
+            once[f"(a) value, grad and the energy after the SGD step, n={n} chi={chi} depth {depth}, "
+                 "complex64"] = cost
+    if callable(ref):
+        ref = ref()
+    for key in sorted(k for k in ref if k.startswith("drift ")):
+        de, dg, de1 = ref[key]
+        print(f"  CPU path, {key[6:]} against exact complex128: |dE|/|E| {de:.3e}, max |dgrad|/max |grad| "
+              f"{dg:.3e}, |dE after|/|E after| {de1:.3e} ({ref['seconds ' + key[6:]]:.1f} s)")
+    for dtype in ("complex128", "complex64"):
+        e, g, e1 = out[dtype][:3]
+        de, dg, de1 = _mps_errors(ref, e.item(), g, e1.item())
+        if not (np.isfinite(e.item()) and torch.isfinite(g).all() and e1.item() < e.item()):
+            _fail(f"phase 16 (a) {dtype}: E {e.item()}, E after {e1.item()}: non-finite or not lowered")
+        print(f"  (a) n={n} chi={chi} depth {depth}, {dtype}: E {e.item():.10f}, E after the step "
+              f"{e1.item():.10f} (CPU complex128 {ref['e']:.10f}, {ref['e1']:.10f})")
+        for (label, err), tol in zip((("|dE|/|E|", de), ("|dE after|/|E after|", de1)), MPS_TOL[dtype]):
+            check(f"(a) {dtype} {label} against the CPU path", err, tol)
+        print(f"  (a) {dtype} max |dgrad|/max |grad| against the CPU path's exact SVD: {dg:.3e} (printed, not "
+              "checked: that adjoint's error, Queue 3 F9)")
+        gg = ref["g gram128"]
+        check(f"(a) {dtype} max |dgrad|/max |grad| against the CPU path's Gram route",
+              (g.detach().cpu().to(gg.dtype) - gg).abs().max().item() / gg.abs().max().item(), MPS_GRAM_GRAD_TOL[dtype])
+    bonds = out["complex128"][4].get_bond_dimensions()
+    print(f"  (a) bond dimensions {bonds}")
+    if bonds != ref["bonds"] or bonds[n // 2 - 1] != min(chi, 2**depth, 2 ** (n // 2)):
+        _fail(f"phase 16 (a): bond dimensions {bonds}, the CPU path's {ref['bonds']}")
+    lap("(a)")
+
+    # (b) the exact regime: the MPS energy and gradient against the dense
+    # circuit of the same gates (K2/K4 on the card)
+    gb = mps_vqe_angles(n_b, depth_b, seed=43)
+    with tct.set_dtype("complex64"):
+        p_m = torch.as_tensor(gb, device=dev).to(torch.float32).requires_grad_()
+        c_b = mps_vqe_circuit(tct, p_m, n_b, chi, device=dev)
+        e_m = tfim_energy_ps(c_b, n_b)
+        (g_m,) = torch.autograd.grad(e_m, p_m)
+        p_d = torch.as_tensor(gb, device=dev).to(torch.float32).requires_grad_()
+        _reset(counters)
+        e_dn = dense_vqe_energy(tct, p_d, n_b, device=dev)
+        (g_dn,) = torch.autograd.grad(e_dn, p_d)
+    launched = _launched(counters)
+    if card and counters and not all(launched.get(k, 0) for k in ("grand_zzrx_fwd", "grand_zzrx_bwd")):
+        _fail(f"phase 16 (b): K2/K4 not launched by the dense side ({launched})")
+    print(f"  (b) n={n_b} depth {depth_b}: bonds {c_b.get_bond_dimensions()}, MPS E {e_m.item():.7f}, "
+          f"dense E {e_dn.item():.7f}; the dense side launched {launched}")
+    if max(c_b.get_bond_dimensions()) > 2**depth_b:
+        _fail(f"phase 16 (b): bonds {c_b.get_bond_dimensions()} past 2^{depth_b}")
+    check("(b) |E MPS - E dense|", abs(e_m.item() - e_dn.item()), MPS_EXACT_ATOL)
+    check("(b) max |grad MPS - grad dense|", (g_m - g_dn).abs().max().item(), MPS_EXACT_ATOL)
+    lap("(b)")
+
+    # (c) shots of (a)'s evaluated MPS (the updated one inherits the CPU
+    # path's gradient, Queue 3 F9), its entropy and a two-site rho
+    status = mps_status(shots, n)
+    with tct.set_dtype("complex128"), torch.no_grad():
+        c128 = out["complex128"][3]
+        bits = c128.sample(shots, status=status, format="sample_bin")
+        entropy = c128.entanglement_entropy(n // 2).item()
+        rho = c128.reduced_density_matrix([n // 2 - 1, n // 2])
+    same = int((bits.cpu() == ref["bits"]).all(dim=1).sum())
+    miss = mps_bracket_miss(ref["chain"], bits.cpu(), status)
+    print(f"  (c) {shots} shots at complex128: {same} equal to the CPU path's, bracket miss {miss:.3e}")
+    check("(c) bracket miss on the CPU path's chain", miss, MPS_BRACKET_TOL)
+    check("(c) |entropy - CPU|", abs(entropy - ref["entropy"]), MPS_STATE_TOL)
+    check("(c) max |rho - CPU|", (rho.cpu() - ref["rho"]).abs().max().item(), MPS_STATE_TOL)
+    c64 = out["complex64"][3]
+    with tct.set_dtype("complex64"), torch.no_grad():
+        bits64 = c64.sample(shots, status=status, format="sample_bin").cpu().numpy()
+        worst = 0.0
+        for i in range(n - 1):
+            zz = c64.expectation_ps(z=[i, i + 1]).real.item()
+            est = float(np.mean((1 - 2 * bits64[:, i]) * (1 - 2 * bits64[:, i + 1])))
+            worst = max(worst, abs(est - zz) / max(np.sqrt((1 - zz * zz) / shots), 1e-3))
+    print(f"  (c) {shots} shots at complex64: <Z_i Z_i+1> from the shots, the largest |shots - exact| / sigma "
+          f"{worst:.2f}")
+    check("(c) complex64 <ZZ> from the shots, in sigma", worst, 5.0)
+    lap("(c)")
+
+    # (d) DMRG of the Heisenberg chain, and its tensors' three consumers
+    (e_d, a_d), cost = _once(lambda: tct.dmrg.dmrg(tct.dmrg.xxz_mpo(n_d, 1.0), chi=chi_d, sweeps=sweeps_d,
+                                                   device=dev), dev)
+    if cost:
+        once[f"(d) DMRG n={n_d} chi={chi_d}, {sweeps_d} sweeps"] = cost
+    print(f"  (d) DMRG n={n_d} chi={chi_d} {sweeps_d} sweeps: {e_d:.12f} (CPU {ref['dmrg']:.12f}, exact "
+          f"{ref['ground']:.12f})")
+    check("(d) |E - CPU|", abs(e_d - ref["dmrg"]), DMRG_ATOL)
+    check("(d) |E - exact|", abs(e_d - ref["ground"]), DMRG_EXACT_ATOL)
+    z = np.diag([1.0, -1.0])
+    with tct.set_dtype("complex128"):
+        m_d = tct.MPSCircuit(n_d, tensors=a_d, device=dev)
+        check("(d) |MPSCircuit(tensors=) <H> - E|", abs(heisenberg_energy_ps(m_d, n_d).item() - e_d), DMRG_ATOL)
+        corr = torch.stack(tct.FiniteMPS(a_d, device=dev).measure_two_body_correlator(z, z, n_d // 2 - 1,
+                                                                                      range(n_d)))
+        c_d = tct.Circuit(n_d, mps_inputs=a_d, device=dev)
+        check("(d) |Circuit(mps_inputs=) <H> - E|", abs(heisenberg_energy_ps(c_d, n_d).item() - e_d), DMRG_DENSE_ATOL)
+        dense = torch.stack([c_d.expectation_ps(z=[n_d // 2 - 1, j]) if j != n_d // 2 - 1
+                             else torch.ones((), dtype=corr.dtype, device=corr.device) for j in range(n_d)])
+        check("(d) max |FiniteMPS <Z Z_j> - dense|", (corr - dense).abs().max().item(), DMRG_ATOL)
+    lap("(d)")
+
+    # (e) the QuOperator methods, against the CPU path
+    got, want = _qop_values(tct, dev, n_e), _qop_values(tct, "cpu", n_e)
+    for key in want:
+        check(f"(e) {key}, max |card - CPU|", (got[key].cpu() - want[key]).abs().max().item(), QOP_ATOL)
+    for key, (a, b) in _qop_pairs(got).items():
+        check(f"(e) {key}", (a - b).abs().max().item(), QOP_ATOL)
+    lap("(e)")
+    print("  wall time of the checks: " + ", ".join(f"{k} {v:.1f} s" for k, v in spent.items()))
+    return {"c128": out["complex128"][3], "c64": c64, "status": status, "once": once}
+
+
+def _qop_circuit(tct, n, dev, cls="Circuit", **kw):
+    rng = np.random.default_rng(5)
+    c = getattr(tct, cls)(n, device=dev, **kw)
+    for i in range(n):
+        c.ry(i, theta=float(rng.normal()))
+    for i in range(n - 1):
+        c.cnot(i, i + 1)
+    c.rzz(0, n - 1, theta=0.4)
+    return c
+
+
+def _qop_values(tct, dev, n):
+    """(e)'s readouts on ``dev``: the QuVector and QuOperator of a circuit,
+    the mpo method with a 3-site MPO, DMCircuit's QuOperator and its
+    mps_inputs, the QuOperator algebra; each a tensor."""
+    import torch
+
+    qu = tct.quantum
+    c = _qop_circuit(tct, n, dev)
+    mpo = [t.numpy() for t in tct.MPSCircuit(3, device="cpu").gate_to_mpo(MPO_GATE, 3)]
+    cm = _qop_circuit(tct, n, dev)
+    cm.mpo(1, 2, 3, mpo=mpo)
+    ca = _qop_circuit(tct, n, dev)
+    ca.any(1, 2, 3, unitary=MPO_GATE)
+    m = tct.MPSCircuit(n, device=dev)
+    for i in range(n):
+        m.ry(i, theta=0.3 * i + 0.1)
+    m.cnot(0, 1)
+    m.rzz(2, 5 % n, theta=0.7)
+    dm = _qop_circuit(tct, min(n, 6), dev, cls="DMCircuit")
+    dm.depolarizing(0, px=0.05, py=0.05, pz=0.05)
+    qv = c.get_quvector()
+    qo = c.get_quoperator()
+    rho = qv.projector()
+    op = qu.QuOperator.from_tensor(torch.as_tensor([[0.0, 1.0], [1.0, 0.0]], device=dev))
+    big = op | qu.identity((2,) * (n - 1), device=dev)
+    return {
+        "quvector": qv.eval().reshape(-1),
+        "quoperator": qo.eval_matrix(),
+        "mpo state": cm.state(),
+        "any state": ca.state(),
+        "dm quoperator": dm.get_dm_as_quoperator().eval_matrix(),
+        "dm mps_inputs": tct.DMCircuit(n, mps_inputs=m, device=dev).densitymatrix(),
+        "dm dense inputs": tct.DMCircuit(n, inputs=m.wavefunction(), device=dev).densitymatrix(),
+        "<psi|X_0|psi>": (qv.adjoint() @ big @ qv).eval().reshape(1),
+        "partial trace": rho.partial_trace(list(range(2, n))).eval_matrix(),
+        "state": c.state(),
+        "matrix": c.matrix(),
+        "<X_0>": c.expectation_ps(x=[0]).reshape(1).to(torch.complex64),
+    }
+
+
+def _qop_pairs(v):
+    """(e)'s identities within one path: each pair should agree."""
+    return {
+        "QuVector against state()": (v["quvector"], v["state"]),
+        "QuOperator against matrix()": (v["quoperator"], v["matrix"]),
+        "mpo(tn2qop MPO) against any(matrix)": (v["mpo state"], v["any state"]),
+        "DMCircuit(mps_inputs=) against DMCircuit(inputs=dense)": (v["dm mps_inputs"], v["dm dense inputs"]),
+        "<psi|X_0 (x) I|psi> against expectation_ps": (v["<psi|X_0|psi>"].to(v["<X_0>"].dtype), v["<X_0>"]),
+    }
+
+
+#: the files of the CPU references' child process, under build/
+REFERENCES = {"brickwork": "phase15_brickwork.pt", "mps": "phase16_reference.pt"}
+#: the longest a phase waits for one of them
+REF_TIMEOUT = 600
+
+
+def _start_references(here):
+    """Start :func:`_reference_child` in a child process that sees no card
+    (``CUDA_VISIBLE_DEVICES`` empty), its output in
+    ``build/references.log``; killed at exit if still running.  Returns
+    (the process, the directory of its results, the log's path)."""
+    import atexit
+
+    out = os.path.join(here, "build")
+    os.makedirs(out, exist_ok=True)
+    for name in REFERENCES.values():
+        if os.path.exists(os.path.join(out, name)):
+            os.remove(os.path.join(out, name))
+    log = os.path.join(out, "references.log")
+    with open(log, "w") as fh:
+        proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--references", out], cwd=here,
+                                stdout=fh, stderr=subprocess.STDOUT, env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc, out, log
+
+
+def _await_reference(job, name):
+    """(the child's ``name`` result, the seconds waited for it); fails if
+    the child ends without it or it takes longer than :data:`REF_TIMEOUT`."""
+    import torch
+
+    proc, out, log = job
+    path = os.path.join(out, REFERENCES[name])
+    t0 = time.perf_counter()
+    while not os.path.exists(path) and proc.poll() is None and time.perf_counter() - t0 < REF_TIMEOUT:
+        time.sleep(0.1)
+    waited = time.perf_counter() - t0
+    if not os.path.exists(path):
+        rc = proc.poll()
+        if rc is None:
+            proc.kill()
+            rc = "killed at the time limit"
+        with open(log) as fh:
+            print(fh.read()[-4000:])
+        _fail(f"the CPU references' process ended with {rc} before its {name} result")
+    return torch.load(path, weights_only=False), waited
+
+
+def _mps_phase(tct, card, counters, job):
+    """Phase 16, the MPS simulators at full width: :func:`_mps_checks` on
+    the card (its complex64 step of (a) and its DMRG sweeps timed once,
+    inside the checks) against the CPU references of the child process of
+    :func:`_start_references`, waited for after (a)'s steps on the card;
+    then a two-site update on each SVD route and the shots, each by CUDA
+    events with its busy time under torch.profiler (the card alone) and
+    its peak memory above the start."""
+    import torch
+
+    from tensorcircuit_ng_tpu_torch.core import linalg
+
+    wait = {}
+
+    def reference():
+        ref, wait["s"] = _await_reference(job, "mps")
+        print(f"phase 16 CPU references (the child process, {REF_THREADS} threads, beside phases 12-16): waited "
+              f"{wait['s']:.1f} s after (a)'s steps on the card; "
+              + ", ".join(f"{k[8:]} {v:.1f} s" for k, v in ref.items() if k.startswith("seconds ")))
+        return ref
+
+    dev = torch.device("cuda")
+    t1 = time.perf_counter()
+    got = _mps_checks(tct, dev, reference, counters, **MPS_SIZES)
+    t2 = time.perf_counter()
+    n, chi = MPS_SIZES["n"], MPS_SIZES["chi"]
+    for label, (ms, busy, peak, top) in got["once"].items():
+        top = ", ".join(f"{name[:40]} {t:.3f} x{k:g}" for name, t, k in top)
+        busy = "busy not measured" if busy is None else (
+            f"busy {busy:.3f} ms ({100 * busy / ms:.1f} %; profiler, the same call)")
+        print(f"phase 16 time, {label}: {ms:.3f} ms (CUDA events, one call), {busy}, peak {peak:.1f} MiB above "
+              f"the start, {card}; top kernels {top or 'not traced'}")
+    c128 = got["c128"].copy()
+    rzz = tct.gates.rzz_matrix(0.3).astype(np.complex128)
+    status = torch.as_tensor(got["status"], device=dev)
+    saved = linalg.USE_GRAM_SVD
+    timed = {}
+    for route, gram in (("Gram-eigh", True), ("exact", False)):
+        def update(gram=gram):
+            linalg.USE_GRAM_SVD = gram
+            try:
+                c128.apply_adjacent_double_gate(rzz, n // 2 - 1, n // 2)
+            finally:
+                linalg.USE_GRAM_SVD = saved
+        timed[f"(a) one two-site update at bond {n // 2} (chi={chi}), {route} SVD, complex128"] = update
+    timed[f"(c) {MPS_SIZES['shots']} shots of (a)'s MPS, complex64"] = lambda: got["c64"].sample(
+        MPS_SIZES["shots"], status=status)
+    with torch.no_grad():
+        for label, fn in timed.items():
+            ms = _time_ms(fn, reps=10, inner=2, warmup=2)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            fn()
+            torch.cuda.synchronize()
+            peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+            host, busy, by_kernel = _profile(fn, reps=4, cpu=False)
+            top = ", ".join(f"{name[:40]} {t:.3f} x{k:g}" for name, t, k in by_kernel[:3])
+            print(f"phase 16 time, {label}: {ms:.3f} ms (CUDA events, median of 10), busy {busy:.3f} ms "
+                  f"({100 * busy / ms:.1f} %; profiler, 4 calls), peak {peak:.1f} MiB above the start, {card}; "
+                  f"top kernels {top}")
+    print(f"phase 16 wall time: checks {t2 - t1:.1f} s (of which waiting {wait['s']:.1f} s), timing "
+          f"{time.perf_counter() - t2:.1f} s")
 
 
 def main() -> int:
@@ -3974,6 +4597,19 @@ def main() -> int:
     kernels_line["kernels"].extend(_micro_phase(tct, dev, card))
     print(f"phase 11 ended at {time.time() - t_start:.1f} s")
 
+    # the CPU references of phases 15 (c) and 16 run in a child process
+    # beside phases 12-16, after every kernel's and step's timing; how far
+    # it moves a host-bound time: the same two timings without it and
+    # beside it (after phase 13)
+    def probe():
+        with torch.no_grad():
+            k1 = _time_rounds(timed["zzrx_fwd"][1])[0]
+        return {"K1 by events (the kernels line's ms)": k1, f"TFIM training step n={N} L={L}": _time_ms(
+            train_step, inner=1)}
+
+    alone = probe()
+    ref_job = _start_references(here)
+
     # ---- 12. the circuit API at full width -----------------------------
     from tensorcircuit_ng_tpu_torch.core import kernels_micro
 
@@ -3984,14 +4620,23 @@ def main() -> int:
     # ---- 13. sampling and feed-forward at full width -------------------
     _sampling_phase(tct, card, every_counter)
     print(f"phase 13 ended at {time.time() - t_start:.1f} s")
+    running = ref_job[0].poll() is None
+    beside = probe()
+    for key in alone:
+        print(f"host contention, {key}: {alone[key]:.4f} ms without the child process, {beside[key]:.4f} ms "
+              f"beside it ({'running' if running else 'ended before'}), {card}")
 
     # ---- 14. noise at full width ---------------------------------------
     _noise_phase(tct, card, every_counter)
     print(f"phase 14 ended at {time.time() - t_start:.1f} s")
 
     # ---- 15. the contraction engine at full width ----------------------
-    _contraction_phase(tct, card)
+    _contraction_phase(tct, card, ref_job)
     print(f"phase 15 ended at {time.time() - t_start:.1f} s")
+
+    # ---- 16. the MPS simulators at full width ---------------------------
+    _mps_phase(tct, card, every_counter, ref_job)
+    print(f"phase 16 ended at {time.time() - t_start:.1f} s")
     print(f"smoke total: {time.time() - t_start:.1f} s")
     print(json.dumps(kernels_line))
     print(card)
@@ -4002,4 +4647,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--references"]:
+        sys.exit(_reference_child(sys.argv[2]))
     sys.exit(main())

@@ -60,13 +60,32 @@ built by g++ at first use into ``build/native/``)::
     sl = tct.cons.choose_slices(ir, 2**26)
     a = tct.cons.sliced_contract_ir(ir, sl)
 
+Matrix product states: ``MPSCircuit`` takes the gate methods with a bond
+cap, ``FiniteMPS`` measures local operators and correlators on its
+tensors, and ``dmrg`` finds ground states (complex128 sweeps) whose tensors
+feed both and ``Circuit(mps_inputs=...)``::
+
+    m = tct.MPSCircuit(60, split={"max_singular_values": 64})   # on the card
+    m.h(0); m.rzz(0, 1, theta=0.3)
+    e = m.expectation_ps(z=[0, 1])
+    shots = m.sample(1024, format="sample_bin")
+    energy, tensors = tct.dmrg.dmrg(tct.dmrg.xxz_mpo(12, 1.0), chi=16, sweeps=6)
+    c = tct.Circuit(12, mps_inputs=tensors)
+    zz = tct.FiniteMPS(tensors).measure_two_body_correlator(z, z, 5, range(12))
+
+Operators as dense QuOperators (``@``, ``|``, ``adjoint``,
+``partial_trace``)::
+
+    qv = c.get_quvector(); qo = c.get_quoperator()
+    rho = tct.DMCircuit(4, mps_inputs=m4).get_dm_as_quoperator()
+
 On the card the fused TFIM layers and the TEBD truncation SVD run
 hand-written Hopper kernels (``core/csrc/``, built by nvcc at first use
 into ``build/kernels/``); on the CPU (``device="cpu"`` or
 ``set_device("cpu")``) they run their plain torch versions.
 """
 
-from . import config, convert, noisemodel, quantum, simplify
+from . import config, convert, dmrg, noisemodel, quantum, simplify
 from .backend import TorchBackend, backend
 from .config import (
     dtypestr,
@@ -88,10 +107,13 @@ from .config import (
 from .core.contractor import contraction_info, get_tn_info
 from .models.circuit import Circuit, expectation
 from .models.densitymatrix import DMCircuit, DMCircuit2, DensityMatrixCircuit
+from .models.mps_base import FiniteMPS
+from .models.mpscircuit import MPSCircuit
 from .noisemodel import NoiseConf, circuit_with_noise
 from .models.tebd import ParallelTEBD
 from .ops import channels, gates
 from .ops.gates import Gate, array_to_tensor, num_to_tensor
+from .quantum import QuAdjointVector, QuOperator, QuScalar, QuVector
 
 #: the runtime configuration, with the contractor's helpers on it, as the
 #: JAX package names it
@@ -102,9 +124,15 @@ __all__ = [
     "DMCircuit",
     "DMCircuit2",
     "DensityMatrixCircuit",
+    "FiniteMPS",
     "Gate",
+    "MPSCircuit",
     "NoiseConf",
     "ParallelTEBD",
+    "QuAdjointVector",
+    "QuOperator",
+    "QuScalar",
+    "QuVector",
     "TorchBackend",
     "array_to_tensor",
     "backend",
@@ -114,6 +142,7 @@ __all__ = [
     "cons",
     "contraction_info",
     "convert",
+    "dmrg",
     "dtypestr",
     "expectation",
     "gates",

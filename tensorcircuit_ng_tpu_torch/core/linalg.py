@@ -29,6 +29,7 @@ __all__ = [
     "truncated_svd",
     "lobpcg",
     "USE_GRAM_SVD",
+    "uses_gram",
 ]
 
 _EPS_DEFAULT = 1e-12
@@ -97,22 +98,55 @@ def _svd_bwd_conjconv(a, u, s, vh, du, ds, dvh):
     return da
 
 
+def _orthonormal_columns(u: torch.Tensor) -> torch.Tensor:
+    """``u``'s columns made orthonormal in order (QR, each column keeping
+    its phase): columns that already are stay as they are."""
+    q, r = torch.linalg.qr(u)
+    d = torch.diagonal(r, dim1=-2, dim2=-1)
+    mag = d.abs()
+    # a column at the noise floor (r_jj down to denormals) keeps q's phase
+    keep = mag > torch.finfo(mag.dtype).eps * mag.amax(dim=-1, keepdim=True)
+    phase = torch.where(keep, d / torch.where(keep, mag, torch.ones_like(mag)), torch.ones_like(d))
+    return q * phase[..., None, :]
+
+
+#: the double-precision dtype in which the truncation's Gram route works on
+#: a single-precision matrix (through autograd: its adjoint too)
+WIDE = {torch.complex64: torch.complex128, torch.float32: torch.float64}
+
+
 class _SVDAdjoint(torch.autograd.Function):
-    """An SVD forward ``impl`` with the degenerate-safe adjoint."""
+    """An SVD forward ``impl`` with the degenerate-safe adjoint.
+
+    The adjoint needs an SVD's orthonormal vectors.  The Gram-eigh impl
+    (``floored``) returns them with the singular values at
+    its noise floor set to zero; the backward takes those zeros, and their
+    cotangents, as exact (the JAX package's Gram adjoint takes the divided side's vectors
+    as they are, neither unit nor orthogonal at the floor, and its gradient
+    of a rank-deficient matrix is wrong: Queue 3 F8 of ``ROADMAP.md``)."""
 
     @staticmethod
-    def forward(ctx, a, impl):
+    def forward(ctx, a, impl, floored=False):
         u, s, vh = impl(a)
         ctx.save_for_backward(a, u, s, vh)
+        ctx.floored = floored
         return u, s, vh
 
     @staticmethod
     def backward(ctx, du, ds, dvh):
         a, u, s, vh = ctx.saved_tensors
+        if ctx.floored:
+            live = s > 0
+            if du is not None:
+                du = torch.where(live[..., None, :], du, torch.zeros_like(du))
+            if ds is not None:
+                ds = torch.where(live, ds, torch.zeros_like(ds))
+            if dvh is not None:
+                dvh = torch.where(live[..., :, None], dvh, torch.zeros_like(dvh))
         da = _svd_bwd_conjconv(
             a, u, s, vh, _zeros_if_none(du, u), _zeros_if_none(ds, s), _zeros_if_none(dvh, vh)
         )
-        return da, None
+        return da, None, None
 
 
 def _exact_svd(a):
@@ -121,7 +155,7 @@ def _exact_svd(a):
 
 def adaware_svd(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Reduced SVD ``a = u @ diag(s) @ vh`` with degenerate-safe gradients."""
-    return _SVDAdjoint.apply(a, _exact_svd)
+    return _SVDAdjoint.apply(a, _exact_svd, False)
 
 
 def _eigh_ftz(g: torch.Tensor):
@@ -157,20 +191,63 @@ def _gram_svd_impl(a):
     return u, s, vh.resolve_conj()
 
 
+def _gram_svd_floored(a):
+    """The Gram-eigh SVD with the singular values at its noise floor,
+    2·sqrt(eps)·s_max (eigh of the Gram matrix resolves its eigenvalues to
+    ~eps·s_max²), set to zero and the side it divides by s orthonormalized,
+    so the kept factors are an SVD's (orthonormal vectors, noise directions
+    of weight zero).  Without this a truncated MPS's gradient grows without
+    bound through the QR sweeps: noise columns of u·s (~sqrt(eps)·s_max,
+    not orthogonal to the live ones) make the QR adjoints' triangular
+    solves amplify at every site."""
+    u, s, vh = _gram_svd_impl(a)
+    if a.shape[-1] <= a.shape[-2]:
+        u = _orthonormal_columns(u)
+    else:
+        vh = _H(_orthonormal_columns(_H(vh))).resolve_conj()
+    live = s > 2.0 * torch.finfo(s.dtype).eps ** 0.5 * s[..., :1]
+    return u, torch.where(live, s, torch.zeros_like(s)), vh
+
+
 def gram_svd(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Reduced SVD via eigh of the smaller-side Gram matrix.
+    """Reduced SVD via eigh of the smaller-side Gram matrix, the TEBD and
+    MPS truncations' SVD.
 
     Singular values below ~sqrt(eps)·s_max lose relative accuracy, the tail
-    that bond truncation discards; the backward is the degenerate-safe SVD
-    adjoint, which needs only a consistent (u, s, vh) triple.
+    that bond truncation discards: they are set to zero and the side
+    divided by s is orthonormalized (:func:`_gram_svd_floored`; the JAX
+    package keeps them and its adjoint of a rank-deficient matrix is wrong,
+    Queue 3 F8).  The backward is the degenerate-safe SVD adjoint with the
+    zeroed values' cotangents dropped.
     """
-    return _SVDAdjoint.apply(a, _gram_svd_impl)
+    return _SVDAdjoint.apply(a, _gram_svd_floored, True)
 
 
-#: route truncated_svd through the Gram-eigh SVD.  None = auto: Gram on a
-#: CUDA tensor (as the JAX package takes it on the TPU), exact SVD
-#: otherwise.  True/False force.
+#: route truncated_svd through the Gram-eigh SVD (:func:`gram_svd`).
+#: None = auto: Gram on a CUDA tensor (as the JAX package takes it on the
+#: TPU), exact SVD otherwise.  True/False force.  On the Gram route a
+#: single-precision matrix is decomposed in double precision, and so are
+#: :func:`adaware_qr` and :func:`adaware_rq` (:func:`_on_gram_route`): in
+#: single precision the floor, 2·sqrt(eps)·s_max ~ 7e-4·s_max, would drop
+#: the singular value a rotation by less than ~1e-3 creates and its O(1)
+#: gradient (phase 16 (b): 0.16 off the dense gradient; PERF.md), and the
+#: QR adjoints of an MPS's rank-deficient site tensors amplify their
+#: rounding at every site of a sweep.
 USE_GRAM_SVD: Optional[bool] = None
+
+
+def uses_gram(a: torch.Tensor) -> bool:
+    """Whether :func:`truncated_svd` takes the Gram route for ``a``."""
+    return USE_GRAM_SVD if USE_GRAM_SVD is not None else a.is_cuda
+
+
+def _on_gram_route(fn, a: torch.Tensor):
+    """``fn(a)``; for a single-precision ``a`` on the Gram route computed
+    in double precision (through autograd), each factor rounded back."""
+    if not (uses_gram(a) and a.dtype in WIDE):
+        return fn(a)
+    real = a.real.dtype
+    return tuple(x.to(a.dtype if x.is_complex() == a.is_complex() else real) for x in fn(a.to(WIDE[a.dtype])))
 
 
 # ------------------------------------------------------- one-sided Jacobi
@@ -299,16 +376,22 @@ class _QR(torch.autograd.Function):
 
 
 def adaware_qr(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Reduced QR with gradients defined for tall and wide matrices."""
-    return _QR.apply(a)
+    """Reduced QR with gradients defined for tall and wide matrices (in
+    double precision on the Gram route, as :data:`USE_GRAM_SVD` says)."""
+    return _on_gram_route(_QR.apply, a)
 
 
-def adaware_rq(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """RQ decomposition ``a = r @ q`` built from QR of the flipped matrix."""
-    q, r = adaware_qr(torch.flip(a, (-2, -1)).transpose(-1, -2))
+def _rq(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    q, r = _QR.apply(torch.flip(a, (-2, -1)).transpose(-1, -2))
     rr = torch.flip(r.transpose(-1, -2), (-2, -1))
     qq = torch.flip(q.transpose(-1, -2), (-2, -1))
     return rr, qq
+
+
+def adaware_rq(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """RQ decomposition ``a = r @ q`` built from QR of the flipped matrix
+    (in double precision on the Gram route, as :func:`adaware_qr`)."""
+    return _on_gram_route(_rq, a)
 
 
 # ---------------------------------------------------------------- eigh
@@ -348,8 +431,7 @@ def truncated_svd(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Truncated SVD with a static output rank: ``(u, s, vh, mask)``, the
     entries past the effective rank zeroed by the boolean ``mask``."""
-    use_gram = USE_GRAM_SVD if USE_GRAM_SVD is not None else a.is_cuda
-    u, s, vh = (gram_svd if use_gram else adaware_svd)(a)
+    u, s, vh = _on_gram_route(gram_svd, a) if uses_gram(a) else adaware_svd(a)
     k = min(max_singular_values, s.shape[-1])
     u = u[..., :, :k]
     s_k = s[..., :k]

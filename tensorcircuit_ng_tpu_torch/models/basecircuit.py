@@ -947,6 +947,24 @@ class BaseCircuit(AbstractCircuit):
 
     wavefunction = state
 
+    def get_quvector(self) -> qu.QuVector:
+        """The output state as a QuVector (n legs), on the circuit's device."""
+        return qu.QuVector.from_tensor(self.state(form="tensor"))
+
+    quvector = get_quvector
+
+    def mpo(self, *index: int, mpo: Any = None, name: str = "mpo") -> None:
+        """Apply an operator on ``index`` as an ``any`` gate: a QuOperator,
+        a list of MPO site tensors (l, out, in, r) through
+        :func:`quantum.tn2qop`, or a matrix."""
+        if isinstance(mpo, qu.QuOperator):
+            m = mpo.eval_matrix()
+        elif isinstance(mpo, (list, tuple)):
+            m = qu.tn2qop(mpo).eval_matrix()
+        else:
+            m = mpo
+        self.any(*index, unitary=m, name=name)  # type: ignore[attr-defined]
+
     # ------------------------------------------------------------------
     # the node-graph helpers of the JAX package's API, over the QIR
     # ------------------------------------------------------------------

@@ -7,7 +7,11 @@ methods ``c.depolarizing(q, px=..)``, ``c.amplitudedamping(q, gamma=..)``,
 ... of ``ops/channels.py``), the measurement with collapse
 (``cond_measurement``, ``general_kraus`` on the projectors), the circuit
 unitary (``matrix``), the exact density-matrix twin (``to_dm_circuit``) and
-the free function :func:`expectation`.  A channel picks its branch where
+the free function :func:`expectation`.  ``mps_inputs=`` (an
+``MPSCircuit``, a ``FiniteMPS``, a list of (l, d, r) site tensors or a
+``QuVector``) starts from that state, contracted once into the dense
+vector, and ``get_quoperator`` gives the circuit unitary as a
+``QuOperator``.  A channel picks its branch where
 the cdf of its branch probabilities first reaches ``status`` (a uniform;
 one is drawn on the circuit's device without it), so the same status gives
 the JAX package's branch.  ``device`` defaults to the configured device
@@ -23,6 +27,7 @@ import numpy as np
 import torch
 
 from .. import config
+from .. import quantum as qu
 from ..backend import device_tensor
 from ..core import statevec
 from ..ops import channels as channels_mod
@@ -42,11 +47,29 @@ class Circuit(BaseCircuit):
         dim: int = 2,
         device: Union[None, str, torch.device] = None,
         split: Optional[Dict[str, Any]] = None,
+        mps_inputs: Optional[Any] = None,
     ) -> None:
-        """``split``: the split rules of two-qubit gates (``contractor.split_rules``),
-        stored as the JAX package stores them."""
+        """``mps_inputs``: an MPS input state, densified by
+        :func:`_mps_to_dense` (it replaces ``inputs``).  ``split``: the split
+        rules of two-qubit gates (``contractor.split_rules``), stored as the
+        JAX package stores them."""
+        if mps_inputs is not None:
+            inputs = _mps_to_dense(mps_inputs)
         super().__init__(nqubits, inputs=inputs, dim=dim, device=device)
         self._split = split
+
+    def replace_mps_inputs(self, mps_inputs: Any) -> None:
+        """Replace the input state by an MPS (densified once)."""
+        self.replace_inputs(_mps_to_dense(mps_inputs))
+
+    def get_quoperator(self) -> qu.QuOperator:
+        """The circuit unitary as a QuOperator (n output legs, then n input
+        legs), on the circuit's device."""
+        dims = (self._d,) * self._nqubits
+        return qu.QuOperator.from_tensor(torch.reshape(self.matrix(), dims + dims))
+
+    quoperator = get_quoperator
+    get_circuit_as_quoperator = get_quoperator
 
     def mid_measurement(self, index: int, keep: Union[int, torch.Tensor] = 0) -> None:
         """Post-select qubit ``index`` onto outcome ``keep``, without
@@ -317,6 +340,25 @@ class Circuit(BaseCircuit):
 
 
 Circuit._meta_apply_channels()
+
+
+def _mps_to_dense(mps_inputs: Any) -> torch.Tensor:
+    """The flat dense state of an MPS input: a QuVector's tensor as it is,
+    else the (l, d, r) site tensors of an ``MPSCircuit``, a ``FiniteMPS`` or a
+    list, contracted as (rows, bond) matrices on the first tensor's device
+    (numpy goes to the configured device)."""
+    if isinstance(mps_inputs, qu.QuOperator):
+        return torch.reshape(mps_inputs.eval(), (-1,))
+    tensors = mps_inputs.tensors if hasattr(mps_inputs, "tensors") else mps_inputs
+    psi = None
+    for t in tensors:
+        t = qu._tensor(t)
+        l, d, r = t.shape
+        if psi is None:
+            psi = torch.reshape(t, (l * d, r))
+        else:
+            psi = torch.reshape(psi @ torch.reshape(t.to(device=psi.device, dtype=psi.dtype), (l, d * r)), (-1, r))
+    return torch.reshape(psi, (-1,))
 
 
 def expectation(

@@ -8,8 +8,9 @@ diagonal gate as two broadcast multiplies, and a channel item exactly as
 Σ_k K ρ K†.  The state of a QIR prefix is kept as in ``BaseCircuit``.
 ``sample`` and ``sample_expectation_ps`` are ``BaseCircuit``'s, on this
 circuit's ``probability``.  ``DMCircuit2`` contracts the doubled
-network's einsum IR instead above 14 qubits.  ``get_dm_as_quoperator``
-waits for Queue 1 item 14 and ``mps_inputs=`` for item 13.
+network's einsum IR instead above 14 qubits.  ``mps_inputs=`` starts
+from the pure ρ of an MPS state; ``get_dm_as_quoperator`` gives ρ as a
+``QuOperator``.
 """
 
 from __future__ import annotations
@@ -47,10 +48,12 @@ class DMCircuit(BaseCircuit):
         dim: int = 2,
         device: Union[None, str, torch.device] = None,
     ) -> None:
+        """``mps_inputs``: an MPS input state (as ``Circuit`` takes it),
+        densified to the pure ρ = |ψ⟩⟨ψ|; it replaces ``inputs``."""
         if mps_inputs is not None:
-            raise NotImplementedError(
-                "mps_inputs= needs the MPS modules, Queue 1 item 13 of ROADMAP.md, which is not ported yet"
-            )
+            from .circuit import _mps_to_dense
+
+            inputs = _mps_to_dense(mps_inputs)
         super().__init__(nqubits, inputs=inputs, dim=dim, device=device)
         self._dminputs = dminputs
 
@@ -243,9 +246,11 @@ class DMCircuit(BaseCircuit):
         return True
 
     def get_dm_as_quoperator(self) -> Any:
-        raise NotImplementedError(
-            "get_dm_as_quoperator needs quantum.QuOperator, Queue 1 item 14 of ROADMAP.md, which is not ported yet"
-        )
+        """ρ as a QuOperator (n output legs, n input legs) on the circuit's device."""
+        from .. import quantum as qu
+
+        dims = (self._d,) * self._nqubits
+        return qu.QuOperator.from_tensor(torch.reshape(self.densitymatrix(), dims + dims))
 
     @staticmethod
     def apply_general_kraus_delayed(kraus: Sequence[Any], name: Optional[str] = None) -> Any:

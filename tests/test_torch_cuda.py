@@ -48,7 +48,15 @@ The contraction engine (no kernel of its own: pairwise ``torch.einsum``
 steps) on the card against the CPU path: the IR's operands on the card,
 a grid amplitude whole and sliced, the n > 30 amplitude, expectation and
 their gradients, samples past 2^30 amplitudes bit for bit, ``DMCircuit2``
-past its cliff, and ``chip_smoke.py``'s phase 15 at a small size.
+past its cliff, and ``chip_smoke.py``'s phase 15 at a small size.  The MPS
+simulators (no kernel of their own; the card truncates by the Gram-eigh
+SVD, a complex64 chain's SVDs and QRs in complex128) against the CPU path:
+the MPS VQE value and step at n=20 within phase 16's ``MPS_TOL`` (set
+from the CPU path's own drift), its gradient against the CPU path's Gram
+route within ``MPS_GRAM_GRAD_TOL``, DMRG at n=8 within 1e-8, ``MPSCircuit.sample`` at
+complex128 under the bracket rule (1e-6), ``mps_inputs=`` and the
+QuOperator methods within 1e-5, and ``chip_smoke.py``'s phase 16 at a small
+size.
 """
 
 import numpy as np
@@ -57,8 +65,9 @@ import torch
 
 import tensorcircuit_ng_tpu_torch as tct
 from chip_smoke import (
-    SVD_ORTH_TOL, SVD_REC_TOL, SVD_S_TOL, SVD_VEC_TOL, _contraction_checks, _ptxas_report, _svd_batches,
-    _svd_checks, brickwork_circuit, grid_angles, grid_circuit, hea_energy, noisy_brickwork_dm, qaoa_energy,
+    MPS_GRAM_GRAD_TOL, MPS_TOL, SVD_ORTH_TOL, SVD_REC_TOL, SVD_S_TOL, SVD_VEC_TOL, _contraction_checks, _mps_checks, _mps_reference,
+    _ptxas_report, _qop_values, _svd_batches, _svd_checks, brickwork_circuit, grid_angles, grid_circuit,
+    hea_energy, mps_bracket_miss, mps_status, mps_vqe_angles, mps_vqe_step, noisy_brickwork_dm, qaoa_energy,
     qaoa_graph,
 )
 from tensorcircuit_ng_tpu_torch import convert
@@ -1556,3 +1565,70 @@ def test_contraction_phase_checks_on_card(cuda):
     got = _contraction_checks(tct, cuda, grid_a=(3, 4, 6), grid_b=(4, 8, 2), slice_target=2**4, ghz=(31, 8),
                               brick=(31, 2, 2), dm2=(16, 2), dm2_small=6)
     assert got["sliced"] and all(cost is not None for cost in got["once"].values())
+
+
+@pytest.mark.parametrize("dtype", ["complex128", "complex64"])
+def test_mps_vqe_on_card_matches_cpu(cuda, dtype, monkeypatch):
+    """Phase 16 (a)'s step at n=20, chi=16, depth 4 (chi binding in the
+    middle): the card's Gram route against the CPU path's complex128 exact
+    SVD, its gradient against the CPU path's Gram route (the exact SVD's
+    adjoint is off: Queue 3 F9)."""
+    from tensorcircuit_ng_tpu_torch.core import linalg
+
+    g0 = mps_vqe_angles(20, 4)
+    with tct.set_dtype(dtype):
+        got = mps_vqe_step(tct, cuda, g0, 20, 16)
+    with tct.set_dtype("complex128"):
+        want = mps_vqe_step(tct, "cpu", g0, 20, 16)
+        monkeypatch.setattr(linalg, "USE_GRAM_SVD", True)
+        gram = mps_vqe_step(tct, "cpu", g0, 20, 16)
+    tol_e, tol_e1 = MPS_TOL[dtype]
+    assert got[3].get_bond_dimensions() == want[3].get_bond_dimensions()
+    assert abs(got[0].item() - want[0].item()) <= tol_e * abs(want[0].item())
+    assert abs(got[2].item() - want[2].item()) <= tol_e1 * abs(want[2].item())
+    gg = gram[1]
+    assert (got[1].cpu().double() - gg).abs().max().item() <= MPS_GRAM_GRAD_TOL[dtype] * gg.abs().max().item()
+
+
+def test_dmrg_on_card_matches_cpu(cuda):
+    mpo = tct.dmrg.xxz_mpo(8, 1.4, 0.2)
+    e1, a1 = tct.dmrg.dmrg(mpo, chi=16, sweeps=4, device=cuda)
+    e0, a0 = tct.dmrg.dmrg(mpo, chi=16, sweeps=4, device="cpu")
+    assert a1[0].device.type == "cuda" and abs(e1 - e0) <= 1e-8
+    assert abs(tct.dmrg.mps_energy(a1, mpo, device=cuda) - e0) <= 1e-8
+    assert abs(abs(tct.dmrg.mps_overlap([t.cpu() for t in a1], a0, device="cpu")) - 1.0) <= 1e-8
+
+
+def test_mps_sample_on_card_matches_cpu(cuda):
+    """1024 shots of an n=20 chi=16 MPS at complex128 with one status: each
+    outcome within 1e-6 of its float64 cdf interval on the CPU path's chain."""
+    g0 = mps_vqe_angles(20, 4)
+    status = mps_status(1024, 20)
+    with tct.set_dtype("complex128"):
+        c1 = mps_vqe_step(tct, cuda, g0, 20, 16)[3]
+        c0 = mps_vqe_step(tct, "cpu", g0, 20, 16)[3]
+        bits = c1.sample(1024, status=status, format="sample_bin")
+        want = c0.sample(1024, status=status, format="sample_bin")
+        assert bits.device.type == "cuda"
+        assert mps_bracket_miss(c0._right_canonical(), bits.cpu(), status) <= 1e-6
+        assert int((bits.cpu() != want).any(dim=1).sum()) <= 2
+        with pytest.raises(ValueError, match="generator"):
+            c1.sample(4, random_generator=torch.Generator(device="cpu"))
+
+
+def test_mps_inputs_and_quoperators_on_card_match_cpu(cuda):
+    got, want = _qop_values(tct, cuda, 8), _qop_values(tct, "cpu", 8)
+    for key in want:
+        assert got[key].device.type == "cuda", key
+        assert (got[key].cpu() - want[key]).abs().max().item() <= 1e-5, key
+
+
+def test_mps_phase_checks_on_card(cuda):
+    """``chip_smoke.py``'s phase 16 at a small size on the card."""
+    small = dict(n=10, chi=8, depth=4, n_b=8, depth_b=2, shots=256, n_d=6, chi_d=8, sweeps_d=3, n_e=6)
+    with tct.set_device("cpu"):
+        ref = _mps_reference(tct, **small, drift=False)
+    # at n_b=8 the dense side runs the plain path: K2/K4's launches are the
+    # smoke's check, at n=20
+    got = _mps_checks(tct, cuda, ref, (), **small)
+    assert got["c64"].tensors[0].device.type == "cuda"

@@ -7,7 +7,8 @@ amplitudes, probabilities, the projected subsystem, the collapse of
 the exact channel methods, ``to_circuit``, the checks, and the trajectory
 mean of ``Circuit`` against the JAX ``DMCircuit`` (n=5, 400 trajectories,
 3 sigma + 1e-3, as ``examples/noisy_qml_training.py`` checks).  The parts
-left to Queue 1 items 13-14 raise NotImplementedError naming the item.
+once left to Queue 1 items 13-14 (``get_dm_as_quoperator``,
+``mps_inputs=``) against ``densitymatrix()`` and the dense input's ρ.
 
 Tolerances: complex64 1e-5, complex128 1e-10, n <= 5.
 """
@@ -235,8 +236,11 @@ def test_trajectory_mean_matches_jax_dmcircuit(cpu):
 
 
 def test_unported_parts_raise(cpu):
-    """``get_dm_as_quoperator`` waits for Queue 1 item 14, ``mps_inputs=``
-    for item 13; ``DMCircuit2`` (item 12's doubled network, ported) is a
+    """The parts once left to Queue 1 items 13-14 now work:
+    ``get_dm_as_quoperator`` is ``densitymatrix()`` as a QuOperator, and
+    ``mps_inputs=`` starts from the MPS state's pure ρ (the JAX package's
+    ``DMCircuit`` of the dense input; its own drops ``mps_inputs``, Queue 3
+    F7); ``DMCircuit2`` (item 12's doubled network, ported) is a
     ``DMCircuit`` that keeps its dense readouts up to 14 qubits."""
     d2, d = tct.DMCircuit2(3), tct.DMCircuit(3)
     for c in (d2, d):
@@ -246,10 +250,12 @@ def test_unported_parts_raise(cpu):
     assert isinstance(d2, tct.DMCircuit)
     _close(d2.expectation((Z, [1])), d.expectation((Z, [1])), 1e-6)
     _close(d2.probability(), d.probability(), 1e-6)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tct.DMCircuit(2).get_dm_as_quoperator()
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tct.DMCircuit(2, mps_inputs=[np.ones((1, 2, 1))] * 2)
+    qo = d.get_dm_as_quoperator()
+    assert qo.out_dims == qo.in_dims == (2, 2, 2)
+    _close(qo.eval_matrix(), d.densitymatrix(), 0)
+    tensors = [np.array([[[1.0], [1.0]]]) / np.sqrt(2), np.array([[[0.0], [1.0]]])]
+    want = tc.DMCircuit(2, inputs=jnp.asarray([0.0, 1.0, 0.0, 1.0]) / np.sqrt(2)).densitymatrix()
+    _close(tct.DMCircuit(2, mps_inputs=tensors).densitymatrix(), want, 1e-6)
     assert tct.DensityMatrixCircuit is tct.DMCircuit
     for name in ("channels", "noisemodel", "NoiseConf", "circuit_with_noise", "DMCircuit"):
         assert hasattr(tc, name) and hasattr(tct, name), name
