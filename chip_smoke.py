@@ -156,9 +156,9 @@ Phases (any failure exits non-zero; nothing is caught):
      their order in each complete call; m1's copy) by device time a launch
      beside its bound; ``torch.matmul`` of the product and
      ``copy_`` of m1's planes as library calls; then the CPU references
-     of phases 15 (c) and 16 start in a child process that sees no card
-     (``python3 chip_smoke.py --references DIR``, 4 threads: the
-     brickwork shots, then phase 16's references), after every kernel's
+     of phases 14, 15 (c), 16 and 17 start in a child process that sees
+     no card (``python3 chip_smoke.py --references DIR``, 4 threads, in
+     that order), after every kernel's
      and step's timing; K1 by events and the TFIM training step are timed
      before it starts and again after phase 13, beside it;
  12. the circuit API at full width (no kernel of its own), on the n=20,
@@ -198,7 +198,8 @@ Phases (any failure exits non-zero; nothing is caught):
      in all (the three ``state()`` computations extend the kept prefix
      state); then each route timed as in phase 12;
  14. noise at full width (no kernel of its own), each case also on the
-     port's CPU path with the same statuses: (a) a noisy TFIM VQE step at
+     port's CPU path with the same statuses (computed by the child
+     process, :func:`_noise_reference`): (a) a noisy TFIM VQE step at
      n=20, L=4 (a depolarizing channel of 0.005 a Pauli after each
      ``zzrx_layer``: 80 sites; 32 trajectories, value and gradient one
      trajectory at a time, then an SGD update), the branches equal on the
@@ -235,7 +236,8 @@ Phases (any failure exits non-zero; nothing is caught):
      against the dense ``DMCircuit``; the CPU path's brickwork shots come
      from the child process; then each route
      timed (the dense state and the brickwork shots once, inside the
-     checks) with its busy time and its peak memory above the start;
+     checks, by events alone) with its busy time and its peak memory above
+     the start;
  16. the MPS simulators at full width (no kernel of their own; the card
      truncates by the Gram-eigh SVD, a complex64 chain's SVDs and QRs in
      complex128), each check against the port's CPU path, whose references
@@ -244,9 +246,9 @@ Phases (any failure exits non-zero; nothing is caught):
      depth 10 (:func:`mps_vqe_circuit`; the energy through 119
      ``expectation_ps`` terms, its gradient in the angles, one SGD step) at
      complex128 and complex64, the energies against the CPU path's
-     complex128 exact-SVD run (tolerances from ``tools/mps_gram_drift.py``)
-     and the gradient against its Gram route; the bond dimensions (64 in
-     the middle); (b) the exact regime at n=20,
+     complex128 exact-SVD run, the gradient against it and against its
+     Gram route (tolerances from ``tools/mps_gram_drift.py``); the bond
+     dimensions (64 in the middle); (b) the exact regime at n=20,
      depth 4: the MPS energy and gradient against the dense ``Circuit``
      (``h_layer`` + ``zzrx_layer``, K2/K4 launched); (c) 1,024 shots of
      (a)'s evaluated MPS with a status: at complex128 each outcome within
@@ -258,7 +260,30 @@ Phases (any failure exits non-zero; nothing is caught):
      ``MPSCircuit``, ``FiniteMPS`` and ``Circuit(mps_inputs=)``; (e) the
      QuOperator methods at n=8 (:func:`_qop_values`); then (a)'s value and
      grad, a two-site update on the Gram and on the exact route, the
-     shots and the DMRG sweeps timed with busy share and peak memory.
+     shots and the DMRG sweeps timed with busy share and peak memory;
+ 17. the Hamiltonians and the QI toolbox at full width (no kernel of their
+     own), each check against the port's CPU path, whose references the
+     child process computes after phase 16's (:func:`_hamiltonian_checks`):
+     (a) ``tfim_hamiltonian(20)`` built on the card by
+     ``PauliStringSum2COO`` (equal to the CPU path's bit for bit, by
+     sha256; its nnz and peak memory) and as ``PauliStringSum2MVP``, the
+     ``operator_expectation`` of each on the n=20, L=4 TFIM state and its
+     gradient in the angles (K2 forward and K3 a layer backward
+     launched: the state's adjoint) against ``expectation_zzx_energy``; (b) the Heisenberg model of the 4x5 grid
+     (``templates.graphs.Grid2DCoord(4, 5)``) as COO against
+     ``heisenberg_measurements``; (c) ``PauliStringSum2Dense`` of the n=12
+     TFIM equal to ``to_dense`` of its COO, their energies on the n=12
+     state; (d) the density matrix of qubits 0-9, the entropy, Renyi-2
+     entropy and its angle gradient (K3), the mutual information of 0-4
+     and 5-9, the negativity and log-negativity with 0-4 transposed, the
+     fidelity and trace distance to the state after one SGD step (those
+     four on the state's density matrix in complex128), the Gibbs state and free energy of the
+     n=10 TFIM, and the stabilizer Renyi entropy of the n=12 state
+     (``QI_TOL``, from ``tools/qi_drift.py``); (e) the QAOA ansatz of
+     phase 9's graph (n=20, p=4) through ``operator_expectation`` of
+     ``ising_hamiltonian`` against ``spin_glass_measurements``; then the
+     COO build, the COO's and the product's value and grad, the entropy,
+     its gradient and the SRE timed with busy share and peak memory.
 
 Prints the kernels JSON line, then the card's name and power limit, then
 ``{"ok": true, "device": {...}}`` as the last line.  Needs no network and
@@ -2380,6 +2405,17 @@ def _check(label, err, tol):
         _fail(f"phase 12, {label}: {err} > {tol}")
 
 
+def _hea_unitary(tct, n_u, nl, device):
+    """Phase 12 (e)'s circuit unitary: :func:`hea_circuit` at n_u with its
+    angles from a seed, in full float32."""
+    import torch
+
+    wu = np.random.default_rng(12).normal(size=(nl, 2, n_u)) * 0.5
+    with torch.no_grad(), tct.config.full_float32():
+        hu = hea_circuit(tct, n_u, tct.convert.params(wu, device), device=device)
+        return hu, hu.matrix()
+
+
 def _api_checks(tct, dev, counters, n=N, nl=L, n_u=N_UNITARY):
     """Phase 12's checks (a)-(f) on the n-qubit TFIM circuit of the
     training path and the HEA circuit of phase 8, both on ``dev``, each
@@ -2518,14 +2554,14 @@ def _api_checks(tct, dev, counters, n=N, nl=L, n_u=N_UNITARY):
     lap("(d)")
 
     # (e) the circuit unitary of the HEA circuit at n_u
-    wu = np.random.default_rng(12).normal(size=(nl, 2, n_u)) * 0.5
+    hu, u = _hea_unitary(tct, n_u, nl, dev)
     with torch.no_grad(), tct.config.full_float32():
-        hu = hea_circuit(tct, n_u, params(wu, dev), device=dev)
-        u = hu.matrix()
         eye = torch.eye(2**n_u, dtype=u.dtype, device=u.device)
         defect = (u @ u.conj().T - eye).abs().max().item()
         col = (u[:, 0] - hu.state()).abs().max().item()
-        u_cpu = on_cpu("(e)", lambda: hea_circuit(tct, n_u, params(wu, "cpu"), device="cpu").matrix())
+        # on the card machine this runs beside the child process, which
+        # meanwhile computes phase 14's references (PERF.md, PR 21)
+        u_cpu = on_cpu("(e)", lambda: _hea_unitary(tct, n_u, nl, "cpu")[1])
         du = (u.cpu() - u_cpu).abs().max().item()
     print(f"  (e) matrix() n={n_u}: {tuple(u.shape)} {u.dtype} on {u.device}, "
           f"{hu.gate_count()} items, {len(hu._expanded_qir())} gates")
@@ -2894,21 +2930,125 @@ def branch_miss(branches, u, probs):
     return float(np.max(np.maximum(lo - u, u - cdf[rows, b])))
 
 
-def _noise_checks(tct, dev, counters, n=N, nl=L, nmc=NOISE_NMC, hea_nmc=HEA_NMC, api_nmc=API_NMC,
-                  shots=API_SHOTS, dm_n=DM_N, dm_nmc=DM_NMC, cpu_traj=CPU_TRAJ, cpu_hea=CPU_HEA, cpu_api=CPU_API):
-    """Phase 14's checks (a)-(d) on ``dev``, each case also on the port's
-    CPU path with the same statuses: the first ``cpu_traj``, ``cpu_hea``
-    and ``cpu_api`` trajectories of (a)-(c), every branch of (a), and (d)'s
-    density matrix (on the CPU the two are one; the kernels' launches are
-    required only on the card).  Returns what the timings reuse."""
-    import torch
-
-    card = torch.device(dev).type == "cuda"
-    g0 = np.random.default_rng(42).normal(size=(nl, 2, n)) * 0.1  # bench.py's parameters
-    pairs = [(i, i + 1) for i in range(n - 1)]
+def _noise_inputs(tct, n=N, nl=L, nmc=NOISE_NMC, hea_nmc=HEA_NMC, api_nmc=API_NMC, shots=API_SHOTS):
+    """Phase 14's parameters (bench.py's), noise configurations and numpy
+    statuses, the same for every device: (a)'s, (b)'s and (c)'s statuses
+    from one seeded generator, returned positioned for (d)'s."""
+    g0 = np.random.default_rng(42).normal(size=(nl, 2, n)) * 0.1
     rng = np.random.default_rng(14)
     nc = tct.NoiseConf()
     nc.add_noise("zzrx_layer", tct.channels.depolarizingchannel(NOISE_P, NOISE_P, NOISE_P))
+    s_a = rng.random((nmc, nc.channel_count(tfim_circuit(tct, g0, n, nl, device="cpu")))).astype(np.float32)
+    nc_hea = tct.NoiseConf()
+    nc_hea.add_noise("cnot", tct.channels.amplitudedampingchannel(HEA_GAMMA, 1.0))
+    num = nc_hea.channel_count(hea_circuit(tct, n, tct.convert.params(g0, "cpu"), device="cpu"))
+    s_b = rng.random((hea_nmc, num)).astype(np.float32)
+    nc_ro = tct.NoiseConf()
+    nc_ro.add_noise("zzrx_layer", tct.channels.depolarizingchannel(NOISE_P, NOISE_P, NOISE_P))
+    nc_ro.add_noise("readout", [[0.98, 0.97]] * n)
+    s_c = rng.random((api_nmc, s_a.shape[1])).astype(np.float32)
+    u_c = rng.random(shots).astype(np.float32)
+    return {"n": n, "nl": nl, "g0": g0, "rng": rng, "nc": nc, "nc_hea": nc_hea, "nc_ro": nc_ro, "s_a": s_a,
+            "s_b": s_b, "s_c": s_c, "u_c": u_c}
+
+
+def _noisy_tfim(tct, x, p, device, st):
+    """One trajectory of (a)'s noisy TFIM: (its circuit, its energy)."""
+    n, nl = x["n"], x["nl"]
+    cn = tct.circuit_with_noise(tfim_circuit(tct, p, n, nl, device=device), x["nc"], status=st)
+    return cn, cn.expectation_zzx_energy([(i, i + 1) for i in range(n - 1)], 1.0, -1.0)
+
+
+def _noisy_tfim_step(tct, x, device, status, counters=(), launches=None):
+    """(a)'s step: the mean energy and gradient over the trajectories of
+    ``status``, one at a time, and the SGD update; each trajectory's energy
+    and gradient (with ``launches``, each one's forward and backward
+    launches)."""
+    import torch
+
+    p = tct.convert.params(x["g0"], device).requires_grad_()
+    es, gs = [], []
+    for k in range(len(status)):
+        _reset(counters)
+        _, e = _noisy_tfim(tct, x, p, device, status[k])
+        if launches is not None:
+            launches["forward"].append(_launched(counters))
+            _reset(counters)
+        (g,) = torch.autograd.grad(e, p)
+        if launches is not None:
+            launches["backward"].append(_launched(counters))
+        es.append(e.detach())
+        gs.append(g)
+    e, g = torch.stack(es), torch.stack(gs)
+    return e.mean(), g.mean(dim=0), p.detach() - LR * g.mean(dim=0), e, g
+
+
+def _noisy_tfim_branches(tct, x, device, status):
+    """Every trajectory's branches (the channels are unitary: no state is
+    computed)."""
+    import torch
+
+    with torch.no_grad():
+        return torch.stack([channel_branches(tct.circuit_with_noise(
+            tfim_circuit(tct, x["g0"], x["n"], x["nl"], device=device), x["nc"], status=st)) for st in status])
+
+
+def _noisy_hea(tct, x, c, st):
+    """One trajectory of (b)'s noisy HEA circuit ``c``: (its circuit, its
+    energy)."""
+    cn = tct.circuit_with_noise(c, x["nc_hea"], status=st)
+    return cn, cn.expectation_zzx_energy([(i, i + 1) for i in range(x["n"] - 1)], 1.0, -1.0).item()
+
+
+def _noisy_dm(tct, x, device, dm_n):
+    """(d)'s exact oracle: the noisy TFIM at dm_n as a ``DMCircuit``."""
+    gd = np.random.default_rng(42).normal(size=(x["nl"], 2, dm_n)) * 0.1
+    cd = tfim_circuit(tct, tct.convert.params(gd, device), dm_n, x["nl"], device=device)
+    return tct.circuit_with_noise(cd.to_dm_circuit(), x["nc"])
+
+
+def _noise_reference(tct, n=N, nl=L, nmc=NOISE_NMC, hea_nmc=HEA_NMC, api_nmc=API_NMC, shots=API_SHOTS, dm_n=DM_N,
+                     cpu_traj=CPU_TRAJ, cpu_hea=CPU_HEA, cpu_api=CPU_API, **_):
+    """Phase 14's references on the port's CPU path, from the inputs of
+    :func:`_noise_inputs`: (a)'s branches of every trajectory and the
+    energies and gradients of the first ``cpu_traj``, (b)'s energy,
+    branches and branch probabilities of the first ``cpu_hea``, (c)'s
+    <Z_0 Z_1> over the first ``cpu_api``, and (d)'s density matrix."""
+    import torch
+
+    x = _noise_inputs(tct, n, nl, nmc, hea_nmc, api_nmc, shots)
+    t0 = time.perf_counter()
+    ref = {"branches": _noisy_tfim_branches(tct, x, "cpu", x["s_a"])}
+    ref["e"], ref["g"] = _noisy_tfim_step(tct, x, "cpu", x["s_a"][:cpu_traj])[3:]
+    with torch.no_grad():
+        c_hea = hea_circuit(tct, n, tct.convert.params(x["g0"], "cpu"), device="cpu")
+        ref["hea"] = []
+        for k in range(cpu_hea):
+            cc, e = _noisy_hea(tct, x, c_hea, x["s_b"][k])
+            ref["hea"].append((e, channel_branches(cc).numpy(), channel_probs(cc).double().numpy()))
+        c = tfim_circuit(tct, tct.convert.params(x["g0"], "cpu"), n, nl, device="cpu")
+        ref["zz01"] = c.expectation_ps(z=[0, 1], noise_conf=x["nc"], status=x["s_c"][:cpu_api]).item()
+        ref["rho"] = _noisy_dm(tct, x, "cpu", dm_n).densitymatrix()
+    ref["seconds"] = time.perf_counter() - t0
+    return ref
+
+
+def _noise_checks(tct, dev, counters, n=N, nl=L, nmc=NOISE_NMC, hea_nmc=HEA_NMC, api_nmc=API_NMC,
+                  shots=API_SHOTS, dm_n=DM_N, dm_nmc=DM_NMC, cpu_traj=CPU_TRAJ, cpu_hea=CPU_HEA, cpu_api=CPU_API,
+                  ref=None):
+    """Phase 14's checks (a)-(d) on ``dev``, each case also on the port's
+    CPU path with the same statuses: the first ``cpu_traj``, ``cpu_hea``
+    and ``cpu_api`` trajectories of (a)-(c), every branch of (a), and (d)'s
+    density matrix (:func:`_noise_reference`, or ``ref()`` when a callable
+    gives it, fetched after (a)'s card step; on the CPU the two paths are
+    one; the kernels' launches are required only on the card).  Returns
+    what the timings reuse."""
+    import torch
+
+    card = torch.device(dev).type == "cuda"
+    x = _noise_inputs(tct, n, nl, nmc, hea_nmc, api_nmc, shots)
+    g0, rng, nc, s_a = x["g0"], x["rng"], x["nc"], x["s_a"]
+    pairs = [(i, i + 1) for i in range(n - 1)]
     names = [k.__name__ for k in counters]
     spent = {}
     last = [time.perf_counter()]
@@ -2917,11 +3057,15 @@ def _noise_checks(tct, dev, counters, n=N, nl=L, nmc=NOISE_NMC, hea_nmc=HEA_NMC,
         now = time.perf_counter()
         spent[key], last[0] = now - last[0], now
 
-    def on_cpu(key, fn):
-        t = time.perf_counter()
-        out = fn()
-        spent[f"CPU {key}"] = spent.get(f"CPU {key}", 0.0) + time.perf_counter() - t
-        return out
+    refs = {}
+
+    def cpu_ref():
+        if not refs:
+            t = time.perf_counter()
+            refs.update(ref() if callable(ref) else ref or _noise_reference(
+                tct, n, nl, nmc, hea_nmc, api_nmc, shots, dm_n, cpu_traj, cpu_hea, cpu_api))
+            spent["CPU references"] = time.perf_counter() - t
+        return refs
 
     def check(label, err, tol):
         print(f"  {label}: {err:.3e} (tol {tol:g})")
@@ -2933,37 +3077,8 @@ def _noise_checks(tct, dev, counters, n=N, nl=L, nmc=NOISE_NMC, hea_nmc=HEA_NMC,
             _fail(f"phase 14 {label}: expected launches {want}, got {launched}")
 
     # (a) the noisy TFIM step: value and grad one trajectory at a time
-    s_a = rng.random((nmc, nc.channel_count(tfim_circuit(tct, g0, n, nl, device="cpu")))).astype(np.float32)
-
     def tfim_trajectory(p, device, st):
-        cn = tct.circuit_with_noise(tfim_circuit(tct, p, n, nl, device=device), nc, status=st)
-        return cn, cn.expectation_zzx_energy(pairs, 1.0, -1.0)
-
-    def tfim_step(device, status, launches=None):
-        """The step's mean energy and gradient, one trajectory at a time,
-        and the SGD update; each trajectory's energy and gradient."""
-        p = tct.convert.params(g0, device).requires_grad_()
-        es, gs = [], []
-        for k in range(len(status)):
-            _reset(counters)
-            _, e = tfim_trajectory(p, device, status[k])
-            if launches is not None:
-                launches["forward"].append(_launched(counters))
-                _reset(counters)
-            (g,) = torch.autograd.grad(e, p)
-            if launches is not None:
-                launches["backward"].append(_launched(counters))
-            es.append(e.detach())
-            gs.append(g)
-        e, g = torch.stack(es), torch.stack(gs)
-        return e.mean(), g.mean(dim=0), p.detach() - LR * g.mean(dim=0), e, g
-
-    def tfim_branches(device, status):
-        """Every trajectory's branches (the channels are unitary: no state
-        is computed)."""
-        with torch.no_grad():
-            return torch.stack([channel_branches(tct.circuit_with_noise(
-                tfim_circuit(tct, g0, n, nl, device=device), nc, status=st)) for st in status])
+        return _noisy_tfim(tct, x, p, device, st)
 
     print(f"noise (n={n}, L={nl}; depolarizing {NOISE_P} a Pauli after each zzrx_layer, "
           f"{s_a.shape[1]} sites, {nmc} trajectories):")
@@ -2972,13 +3087,12 @@ def _noise_checks(tct, dev, counters, n=N, nl=L, nmc=NOISE_NMC, hea_nmc=HEA_NMC,
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
-    e_a, g_a, p_new, e_k, g_k = tfim_step(dev, torch.as_tensor(s_a, device=dev), launches)
+    e_a, g_a, p_new, e_k, g_k = _noisy_tfim_step(tct, x, dev, torch.as_tensor(s_a, device=dev), counters, launches)
     if card:
         torch.cuda.synchronize()
         peak_mb = (torch.cuda.max_memory_allocated() - base) / 2**20
-    b_a = tfim_branches(dev, torch.as_tensor(s_a, device=dev))
-    b_ac = on_cpu("(a)", lambda: tfim_branches("cpu", s_a))
-    _, _, _, e_kc, g_kc = on_cpu("(a)", lambda: tfim_step("cpu", s_a[:cpu_traj]))
+    b_a = _noisy_tfim_branches(tct, x, dev, torch.as_tensor(s_a, device=dev))
+    b_ac, e_kc, g_kc = cpu_ref()["branches"], cpu_ref()["e"], cpu_ref()["g"]
     fwd = {k: sum(d.get(k, 0) for d in launches["forward"]) for k in names}
     bwd = {k: sum(d.get(k, 0) for d in launches["backward"]) for k in names}
     fwd, bwd = ({k: v for k, v in d.items() if v} for d in (fwd, bwd))
@@ -3002,32 +3116,23 @@ def _noise_checks(tct, dev, counters, n=N, nl=L, nmc=NOISE_NMC, hea_nmc=HEA_NMC,
     lap("(a)")
 
     # (b) the noisy HEA energy: general_kraus reads the state at each site
-    nc_hea = tct.NoiseConf()
-    nc_hea.add_noise("cnot", tct.channels.amplitudedampingchannel(HEA_GAMMA, 1.0))
+    nc_hea, s_b = x["nc_hea"], x["s_b"]
+    num = s_b.shape[1]
     with torch.no_grad():
         c_hea = hea_circuit(tct, n, tct.convert.params(g0, dev), device=dev)
-        c_hea_cpu = hea_circuit(tct, n, tct.convert.params(g0, "cpu"), device="cpu")
-        num = nc_hea.channel_count(c_hea)
-        s_b = rng.random((hea_nmc, num)).astype(np.float32)
         _reset(counters)
         hea_circuit(tct, n, tct.convert.params(g0, dev), device=dev).state()
         clean = _launched(counters)
-
-        def hea_trajectory(c, st):
-            cn = tct.circuit_with_noise(c, nc_hea, status=st)
-            return cn, cn.expectation_zzx_energy(pairs, 1.0, -1.0).item()
-
         rows, traj_launches = [], []
         s_b_dev = torch.as_tensor(s_b, device=dev)
         for k in range(hea_nmc):
             _reset(counters)
-            cn, e = hea_trajectory(c_hea, s_b_dev[k])
+            cn, e = _noisy_hea(tct, x, c_hea, s_b_dev[k])
             traj_launches.append(_launched(counters))
             rows.append([e, None, channel_branches(cn).cpu().numpy(), None,
                          channel_probs(cn).double().cpu().numpy(), None])
             if k < cpu_hea:
-                cc, rows[k][1] = on_cpu("(b)", lambda k=k: hea_trajectory(c_hea_cpu, s_b[k]))
-                rows[k][3], rows[k][5] = channel_branches(cc).numpy(), channel_probs(cc).double().numpy()
+                rows[k][1], rows[k][3], rows[k][5] = cpu_ref()["hea"][k]
     miss = max(branch_miss(b, s_b[k], pr) for k, (_, _, b, _, pr, _) in enumerate(rows))
     miss_cpu = max(branch_miss(r[3], s_b[k], r[5]) for k, r in enumerate(rows[:cpu_hea]))
     same = [k for k, r in enumerate(rows[:cpu_hea]) if np.array_equal(r[2], r[3])]
@@ -3053,18 +3158,13 @@ def _noise_checks(tct, dev, counters, n=N, nl=L, nmc=NOISE_NMC, hea_nmc=HEA_NMC,
     lap("(b)")
 
     # (c) the API entry points on the noisy TFIM
-    nc_ro = tct.NoiseConf()
-    nc_ro.add_noise("zzrx_layer", tct.channels.depolarizingchannel(NOISE_P, NOISE_P, NOISE_P))
-    nc_ro.add_noise("readout", [[0.98, 0.97]] * n)
-    s_c = rng.random((api_nmc, s_a.shape[1])).astype(np.float32)
-    u_c = rng.random(shots).astype(np.float32)
+    nc_ro, s_c, u_c = x["nc_ro"], x["s_c"], x["u_c"]
     with torch.no_grad():
         c = tfim_circuit(tct, tct.convert.params(g0, dev), n, nl, device=dev)
-        c_cpu = tfim_circuit(tct, tct.convert.params(g0, "cpu"), n, nl, device="cpu")
         s_c_dev, u_c_dev = torch.as_tensor(s_c, device=dev), torch.as_tensor(u_c, device=dev)
         zz01 = c.expectation_ps(z=[0, 1], noise_conf=nc, status=s_c_dev).item()
         zz01_few = c.expectation_ps(z=[0, 1], noise_conf=nc, status=s_c_dev[:cpu_api]).item()
-        zz01_cpu = on_cpu("(c)", lambda: c_cpu.expectation_ps(z=[0, 1], noise_conf=nc, status=s_c[:cpu_api]).item())
+        zz01_cpu = cpu_ref()["zz01"]
         est = c.sample_expectation_ps(x=[5 % n], noise_conf=nc_ro, nmc=api_nmc, shots=shots, status=u_c_dev,
                                       statusc=s_c_dev).item()
         exact = c.sample_expectation_ps(x=[5 % n], noise_conf=nc_ro, nmc=api_nmc, statusc=s_c_dev).item()
@@ -3082,8 +3182,7 @@ def _noise_checks(tct, dev, counters, n=N, nl=L, nmc=NOISE_NMC, hea_nmc=HEA_NMC,
     pairs_d = [(i, i + 1) for i in range(dm_n - 1)]
     with torch.no_grad():
         def dm(device):
-            cd = tfim_circuit(tct, tct.convert.params(gd, device), dm_n, nl, device=device)
-            return tct.circuit_with_noise(cd.to_dm_circuit(), nc)
+            return _noisy_dm(tct, x, device, dm_n)
 
         def dm_values(d):
             zz = d.expectation_ps(z=[0, 1]).real.item()
@@ -3092,7 +3191,7 @@ def _noise_checks(tct, dev, counters, n=N, nl=L, nmc=NOISE_NMC, hea_nmc=HEA_NMC,
 
         d = dm(dev)
         rho = d.densitymatrix()
-        rho_cpu = on_cpu("(d)", lambda: dm("cpu").densitymatrix())
+        rho_cpu = cpu_ref()["rho"]
         zz_dm, e_dm = dm_values(d)
         cd = tfim_circuit(tct, tct.convert.params(gd, dev), dm_n, nl, device=dev)
         s_d = torch.as_tensor(rng.random((dm_nmc, nc.channel_count(cd))).astype(np.float32), device=dev)
@@ -3120,16 +3219,23 @@ def _noise_checks(tct, dev, counters, n=N, nl=L, nmc=NOISE_NMC, hea_nmc=HEA_NMC,
             "u_c": u_c, "c": c, "c_hea": c_hea, "tfim_trajectory": tfim_trajectory, "dm": dm}
 
 
-def _noise_phase(tct, card, counters):
-    """Phase 14, noise at full width: :func:`_noise_checks` on the card,
-    then each route timed by CUDA events (median of 3 after a warm-up) with
+def _noise_phase(tct, card, counters, job):
+    """Phase 14, noise at full width: :func:`_noise_checks` on the card
+    against the CPU references of the child process, then each route timed by CUDA events (median of 3 after a warm-up) with
     its busy time under torch.profiler (one call, the card alone) and the
     launches of one call."""
     import torch
 
     dev = torch.device("cuda")
     t0 = time.perf_counter()
-    got = _noise_checks(tct, dev, counters)
+
+    def reference():
+        ref, waited = _await_reference(job, "noise")
+        print(f"  the CPU path's references from the child process ({REF_THREADS} threads, {ref['seconds']:.1f} s): "
+              f"waited {waited:.1f} s")
+        return ref
+
+    got = _noise_checks(tct, dev, counters, ref=reference)
     t1 = time.perf_counter()
     c, nc, pairs = got["c"], got["nc"], [(i, i + 1) for i in range(N - 1)]
     s_a = torch.as_tensor(got["s_a"], device=dev)
@@ -3409,7 +3515,9 @@ def _contraction_checks(tct, dev, grid_a=GRID_A, grid_b=GRID_B, slice_target=SLI
     if s.shape != (shots, n_g) or not np.all(s == s[:, :1]) or ones in (0, shots):
         _fail(f"phase 15 (c): GHZ samples are not all-zero and all-one strings: {s.sum(axis=1)}")
     n_w, depth_w, shots_w = brick
-    got_s, brick_cost = _once(lambda: brickwork_shots(tct, n_w, depth_w, shots_w, dev), dev)
+    # timed by events alone: the profiler's digest of the shots' launches
+    # took ~40 s of the checks
+    got_s, brick_cost = _once(lambda: brickwork_shots(tct, n_w, depth_w, shots_w, dev), dev, profile_it=False)
     want_s = brickwork_shots(tct, n_w, depth_w, shots_w, "cpu") if brick_ref is None else brick_ref()
     print(f"  (c) brickwork n={n_w} depth {depth_w}: {shots_w} shots with a readout error, ones a shot "
           f"{got_s.sum(axis=1).tolist()}")
@@ -3545,29 +3653,27 @@ def _contraction_phase(tct, card, job):
 #: three consumers; (e) the QuOperator methods at n=8
 MPS_SIZES = {"n": 60, "chi": 64, "depth": 10, "n_b": 20, "depth_b": 4, "shots": 1024,
              "n_d": 12, "chi_d": 16, "sweeps_d": 6, "n_e": 8}
-#: the CPU references of phases 15 (c) and 16 run in a child process
+#: the CPU references of phases 14, 15 (c), 16 and 17 run in a child process
 #: started after phase 11 (the kernels' and the steps' timings), on this
-#: many threads, while the card runs phases 12-16
+#: many threads, while the card runs phases 12-17
 REF_THREADS = 4
 #: (a) on the card against the port's CPU path at complex128 (the exact
-#: SVD): (|dE|/|E|, |dE after the SGD step|/|E after|).  The card
-#: truncates with the Gram-eigh SVD, a complex64 chain's SVDs and QRs in
-#: complex128 (``core/linalg.py``).  Set from the CPU path's own drift at
-#: full width, run on the card machine's CPU (``tools/mps_gram_drift.py``;
-#: PERF.md): the Gram route at complex128 5.1e-12 and 3.4e-6, the card's
-#: first run 3.6e-12 and 2.3e-6; the complex64 route at n=30 on the CPU
-#: 4.4e-7 off the complex128 one.  The step's 3.4e-6 comes from the exact
-#: SVD adjoint's error in the CPU path's gradient (Queue 3 F9), whose size
-#: moves with the CPU's thread count (2.4e-3 of the largest entry on 4
-#: threads, 1.4e-2 on 2); each tolerance is about 3-100x its drift
-MPS_TOL = {"complex128": (1e-9, 1e-4), "complex64": (1e-5, 1e-4)}
+#: SVD): (|dE|/|E|, max |dgrad|/max |grad|, |dE after the SGD step|/|E
+#: after|).  The card truncates with the Gram-eigh SVD, a complex64
+#: chain's SVDs and QRs in complex128 (``core/linalg.py``).  Set from the
+#: CPU path's own drift at full width, run on the card machine's CPU
+#: (``tools/mps_gram_drift.py``, 8 threads; PERF.md, PR 21): the Gram
+#: route at complex128 5.1e-12, 3.3e-8 and 2.2e-11, at complex64 4.6e-7,
+#: 7.0e-6 and 1.4e-7 (the exact SVD's gradient equal to a central
+#: difference to 1e-9 at the angle where the two routes differ most);
+#: each tolerance is about 10-200x its drift
+MPS_TOL = {"complex128": (1e-9, 1e-6, 1e-9), "complex64": (1e-5, 1e-4, 1e-5)}
 #: (a)'s gradient on the card against the CPU path's Gram route at
-#: complex128, whose gradient a central difference confirms to 1e-8
-#: (``tools/mps_gram_drift.py``): the two Gram routes differ only in their
-#: eigh's rounding; the complex64 chain, decomposed in complex128, was
-#: 4.7e-5 off at n=30 on the CPU.  The distance to the exact SVD's
-#: gradient (F9) is printed, not checked
-MPS_GRAM_GRAD_TOL = {"complex128": 1e-5, "complex64": 1e-3}
+#: complex128: the two Gram routes differ only in their eigh's rounding,
+#: no more than the Gram route from the exact SVD on the CPU (3.3e-8 and
+#: 7.0e-6 above; PR 21's card run: 2.2e-8 at complex128, 2.6e-6 at
+#: complex64, the complex64 chain decomposed in complex128)
+MPS_GRAM_GRAD_TOL = {"complex128": 1e-6, "complex64": 1e-4}
 #: (c) the entropy and rho of (a)'s evaluated MPS at complex128 against
 #: the CPU path: the two SVDs' states agree to ~1e-11 in energy
 MPS_STATE_TOL = 1e-6
@@ -3702,9 +3808,8 @@ def mps_status(shots, n, seed=7):
 def _mps_reference(tct, n, chi, depth, n_b, depth_b, shots, n_d, chi_d, sweeps_d, n_e, drift=True, log=None):
     """Phase 16's references on the port's CPU path: (a) at complex128 with
     the exact SVD, its evaluated chain (right-canonical) and its shots, the
-    entropy and ρ of (c), (a) again on the Gram route at complex128 (its
-    gradient is a central difference's, the exact SVD's is not: Queue 3
-    F9), DMRG (d) and the exact ground energy; with ``drift``, (a) on the
+    entropy and ρ of (c), (a) again on the Gram route at complex128 (the
+    card's route), DMRG (d) and the exact ground energy; with ``drift``, (a) on the
     Gram route at complex64 and with the exact SVD at complex64 too, each
     passed to ``log`` as it ends.  Returns a dict of CPU tensors and
     numbers."""
@@ -3764,9 +3869,10 @@ def _mps_errors(ref, e, g, e1):
 
 def _reference_child(out):
     """``python3 chip_smoke.py --references DIR``: the port's CPU path of
-    phase 15 (c)'s brickwork shots, then :func:`_mps_reference` at phase
-    16's full sizes, each saved (torch.save) into DIR as it ends
-    (:data:`REFERENCES`).  The Gram-against-exact drift is left to
+    phase 14 (:func:`_noise_reference`), then phase 15 (c)'s brickwork
+    shots, then :func:`_mps_reference` at phase 16's full sizes, then
+    :func:`_hamiltonian_values` at phase 17's, each saved (torch.save) into
+    DIR as it ends (:data:`REFERENCES`).  The Gram-against-exact drift is left to
     ``tools/mps_gram_drift.py``: three more runs of (a) on the CPU would
     crowd phases 12-16."""
     import torch
@@ -3782,10 +3888,14 @@ def _reference_child(out):
         os.replace(path + ".part", path)
 
     with tct.set_device("cpu"):
+        save("noise", _noise_reference(tct))
         t0 = time.perf_counter()
         shots = brickwork_shots(tct, BRICK_N, BRICK_DEPTH, BRICK_SHOTS, "cpu")
         save("brickwork", {"shots": shots, "seconds": time.perf_counter() - t0})
         save("mps", _mps_reference(tct, **MPS_SIZES, drift=False))
+        t0 = time.perf_counter()
+        ham = _hamiltonian_values(tct, "cpu", **HAM_SIZES)
+        save("ham", {**ham, "seconds": time.perf_counter() - t0})
     return 0
 
 
@@ -3837,10 +3947,9 @@ def _mps_checks(tct, dev, ref, counters=(), n=60, chi=64, depth=10, n_b=20, dept
             _fail(f"phase 16 (a) {dtype}: E {e.item()}, E after {e1.item()}: non-finite or not lowered")
         print(f"  (a) n={n} chi={chi} depth {depth}, {dtype}: E {e.item():.10f}, E after the step "
               f"{e1.item():.10f} (CPU complex128 {ref['e']:.10f}, {ref['e1']:.10f})")
-        for (label, err), tol in zip((("|dE|/|E|", de), ("|dE after|/|E after|", de1)), MPS_TOL[dtype]):
-            check(f"(a) {dtype} {label} against the CPU path", err, tol)
-        print(f"  (a) {dtype} max |dgrad|/max |grad| against the CPU path's exact SVD: {dg:.3e} (printed, not "
-              "checked: that adjoint's error, Queue 3 F9)")
+        labels = ("|dE|/|E|", "max |dgrad|/max |grad|", "|dE after|/|E after|")
+        for label, err, tol in zip(labels, (de, dg, de1), MPS_TOL[dtype]):
+            check(f"(a) {dtype} {label} against the CPU path's exact SVD", err, tol)
         gg = ref["g gram128"]
         check(f"(a) {dtype} max |dgrad|/max |grad| against the CPU path's Gram route",
               (g.detach().cpu().to(gg.dtype) - gg).abs().max().item() / gg.abs().max().item(), MPS_GRAM_GRAD_TOL[dtype])
@@ -3873,8 +3982,7 @@ def _mps_checks(tct, dev, ref, counters=(), n=60, chi=64, depth=10, n_b=20, dept
     check("(b) max |grad MPS - grad dense|", (g_m - g_dn).abs().max().item(), MPS_EXACT_ATOL)
     lap("(b)")
 
-    # (c) shots of (a)'s evaluated MPS (the updated one inherits the CPU
-    # path's gradient, Queue 3 F9), its entropy and a two-site rho
+    # (c) shots of (a)'s evaluated MPS, its entropy and a two-site rho
     status = mps_status(shots, n)
     with tct.set_dtype("complex128"), torch.no_grad():
         c128 = out["complex128"][3]
@@ -3997,7 +4105,8 @@ def _qop_pairs(v):
 
 
 #: the files of the CPU references' child process, under build/
-REFERENCES = {"brickwork": "phase15_brickwork.pt", "mps": "phase16_reference.pt"}
+REFERENCES = {"noise": "phase14_reference.pt", "brickwork": "phase15_brickwork.pt", "mps": "phase16_reference.pt",
+              "ham": "phase17_reference.pt"}
 #: the longest a phase waits for one of them
 REF_TIMEOUT = 600
 
@@ -4107,6 +4216,294 @@ def _mps_phase(tct, card, counters, job):
                   f"top kernels {top}")
     print(f"phase 16 wall time: checks {t2 - t1:.1f} s (of which waiting {wait['s']:.1f} s), timing "
           f"{time.perf_counter() - t2:.1f} s")
+
+
+#: phase 17, the Hamiltonians and the QI toolbox at full width (no kernel
+#: of their own): (a) the TFIM Hamiltonian of the training path at n=20 as
+#: a COO matrix and as a matrix-free product on its L=4 state (K2 forward;
+#: the state's adjoint walks K3 a layer, the matrix-level boundary: K4
+#: serves the fused energy's angle-level one); (b) the Heisenberg model of the 4x5 grid on the same
+#: state; (c) the dense TFIM at n=12; (d) the QI toolbox on the n=20
+#: state: the density matrix of qubits 0-9, its entropies, mutual
+#: information, negativity and distances, the Gibbs state of the n=10 TFIM
+#: and the stabilizer Renyi entropy of the n=12 state; (e) the QAOA ansatz
+#: of phase 9's MaxCut graph (n=20, p=4) against its term-by-term energy
+HAM_SIZES = {"n": 20, "nl": L, "grid": (4, 5), "n_dense": 12, "n_gibbs": 10, "qaoa": (20, QAOA_P)}
+#: the same checks at a CPU test's size
+HAM_SMALL = {"n": 8, "nl": 2, "grid": (2, 4), "n_dense": 6, "n_gibbs": 4, "qaoa": (8, 2)}
+#: (a), (b), (e): an energy and its gradient on one device against another
+#: route to it (the fused ZZ - X energy, the term-by-term sums) and against
+#: the CPU path, complex64 (phase 12's ENERGY_ATOL and GRAD_ATOL)
+HAM_ATOL = 1e-4
+#: (c) the dense matrix's <H> against the COO route's at n=12, one device
+HAM_DENSE_ATOL = 1e-5
+#: (d) each QI quantity on the card against the CPU path.  Set from the CPU
+#: path's complex64 against its complex128 at full width
+#: (``tools/qi_drift.py``; PERF.md, PR 21): the density matrix 8.4e-10, the
+#: entropy 5.2e-5, the Renyi-2 entropy 4.3e-7, the mutual information
+#: 4.8e-5, the entropy's gradient 3.5e-7 (largest entry 0.35), the Gibbs
+#: state 8.5e-8, the SRE 7.7e-8: about 10x each.  The free energy's 1.7e-6
+#: understated the card: its -S/beta is a complex64 eigvalsh entropy of a
+#: 1024^2 Gibbs state whose smallest eigenvalues (e^-20 of the largest)
+#: are rounding, and the card was 5.1e-5 off the CPU path (PERF.md, PR 21
+#: run 2): held to the entropy's 1e-3.
+#: The half-chain density matrix is nearly pure (two eigenvalues above
+#: 1e-6), and past its rank a complex64 matrix's spectrum is rounding: a
+#: complex64 eigvalsh moves the negativity by 1.7e-2 and the fidelity by
+#: 6.9e-2, and even in complex128 the complex64 rho's own rounding moved
+#: the card's fidelity 5.5e-5 from the CPU path's (110x that route's CPU
+#: drift).  So the negativities, fidelity and trace distance take the
+#: density matrix of the state in complex128: 9.6e-9, 1.6e-8, 6.5e-9 and
+#: 2.1e-8 of drift, each held to 1e-5
+QI_TOL = {"rho": 1e-6, "entropy": 1e-3, "renyi": 1e-5, "mutual": 1e-3, "negativity": 1e-5, "log_negativity": 1e-5,
+          "fidelity": 1e-5, "trace_distance": 1e-5, "gibbs": 1e-6, "free_energy": 1e-3, "sre": 1e-6,
+          "entropy_grad": 1e-5}
+
+
+def _digest(t):
+    """sha256 of a COO tensor's index and value bytes (coalesced order)."""
+    import hashlib
+
+    h = hashlib.sha256(t.indices().cpu().numpy().tobytes())
+    h.update(t.values().cpu().resolve_conj().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _qaoa_ising(qn, qp):
+    """Phase 9's MaxCut graph (:func:`qaoa_graph`) as a networkx graph,
+    its Z-string structures and weights, and its start angles interleaved
+    (γ_1, β_1, ...) for ``QAOA_ansatz_for_Ising``."""
+    import networkx as nx
+
+    edges, params = qaoa_graph(qn, qp)
+    g = nx.Graph()
+    for i in range(qn):
+        g.add_node(i, weight=0.0)
+    structures, weights = [], []
+    for a, b, w in edges:
+        g.add_edge(a, b, weight=w)
+        s = [0] * qn
+        s[a] = s[b] = 3
+        structures.append(s)
+        weights.append(w)
+    return g, structures, weights, np.stack([params[:qp], params[qp:]], axis=1).reshape(-1)
+
+
+def _hamiltonian_values(tct, dev, counters=(), n=20, nl=L, grid=(4, 5), n_dense=12, n_gibbs=10, qaoa=(20, QAOA_P)):
+    """Phase 17's quantities on ``dev`` (complex64), each moved to the
+    CPU: the readouts (a)-(e) checks compare, and the launches of (a).
+    On a card the COO build's peak memory above the start is measured."""
+    import torch
+
+    qu, tm = tct.quantum, tct.templates
+    card = torch.device(dev).type == "cuda"
+    out = {}
+    g0 = np.random.default_rng(42).normal(size=(nl, 2, n)) * 0.1  # bench.py's parameters
+    pairs = [(i, i + 1) for i in range(n - 1)]
+
+    def cpu(x):
+        return x.detach().cpu() if isinstance(x, torch.Tensor) else x
+
+    # (a) the COO build, its <H> and gradient, the matrix-free product's
+    if card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+    h = tm.hamiltonians.tfim_hamiltonian(n, device=dev)
+    if card:
+        torch.cuda.synchronize()
+        out["coo peak MiB"] = (torch.cuda.max_memory_allocated() - base) / 2**20
+    out["nnz"], out["digest"] = h.values().numel(), _digest(h)
+    mvp = qu.PauliStringSum2MVP(*tfim_pauli_strings(n))
+    for route, ham in (("coo", h), ("mvp", mvp), ("fused", None)):
+        p = tct.convert.params(g0, dev).requires_grad_()
+        _reset(counters)
+        c = tfim_circuit(tct, p, n, nl, device=dev)
+        e = (c.expectation_zzx_energy(pairs, 1.0, -1.0) if ham is None
+             else tm.measurements.operator_expectation(c, ham))
+        (g,) = torch.autograd.grad(e, p)
+        out[f"e {route}"], out[f"g {route}"], out[f"launched {route}"] = e.item(), cpu(g), _launched(counters)
+        if ham is None:
+            p1 = (p - LR * g).detach()
+    # (b) the 2D Heisenberg model on the same state
+    with torch.no_grad():
+        c = tfim_circuit(tct, tct.convert.params(g0, dev), n, nl, device=dev)
+        lattice = tm.graphs.Grid2DCoord(*grid).lattice_graph(pbc=False)
+        hb = tm.hamiltonians.heisenberg_hamiltonian(lattice, device=dev)
+        out["heisenberg nnz"] = hb.values().numel()
+        out["e heisenberg coo"] = tm.measurements.operator_expectation(c, hb).item()
+        out["e heisenberg terms"] = tm.measurements.heisenberg_measurements(c, lattice).item()
+        psi, psi1 = c.state(), tfim_circuit(tct, p1, n, nl, device=dev).state()
+        # (c) the dense TFIM at n_dense, against its COO
+        ls, ws = tfim_pauli_strings(n_dense)
+        dense, coo = qu.PauliStringSum2Dense(ls, ws, device=dev), qu.PauliStringSum2COO(ls, ws, device=dev)
+        out["dense equal"] = bool(torch.equal(dense, tct.backend.to_dense(coo)))
+        c12 = tfim_circuit(tct, tct.convert.params(g0[:, :, :n_dense], dev), n_dense, nl, device=dev)
+        out["e dense"] = tm.measurements.operator_expectation(c12, dense).item()
+        out["e dense coo"] = tm.measurements.operator_expectation(c12, coo).item()
+        # (d) the QI toolbox on the n-qubit state
+        half = n // 2
+        rho = qu.reduced_density_matrix(psi, subsystem_to_keep=list(range(half)))
+        rho1 = qu.reduced_density_matrix(psi1, subsystem_to_keep=list(range(half)))
+        # the spectra past rho's rank are rounding: the four below take rho
+        # from the state in complex128 (QI_TOL)
+        r128, r128_1 = (qu.reduced_density_matrix(x.to(torch.complex128), subsystem_to_keep=list(range(half)))
+                        for x in (psi, psi1))
+        ta = list(range(half // 2))
+        out["rho"] = cpu(rho)
+        out["entropy"] = qu.entanglement_entropy(psi, half).item()
+        out["renyi"] = qu.renyi_entanglement_entropy(psi, half, k=2).item()
+        out["mutual"] = qu.mutual_information(rho, cut=ta).item()
+        out["negativity"] = qu.entanglement_negativity(r128, ta).item()
+        out["log_negativity"] = qu.log_negativity(r128, ta).item()
+        out["fidelity"] = qu.fidelity(r128, r128_1).item()
+        out["trace_distance"] = qu.trace_distance(r128, r128_1).item()
+        out["negativity complex64"] = qu.entanglement_negativity(rho, ta).item()
+        out["fidelity complex64"] = qu.fidelity(rho, rho1).item()
+        hg = qu.PauliStringSum2Dense(*tfim_pauli_strings(n_gibbs), device=dev)
+        gibbs = qu.gibbs_state(hg, 1.0)
+        out["gibbs"], out["free_energy"] = cpu(gibbs), qu.free_energy(gibbs, hg, 1.0).item()
+        out["sre"] = qu.stabilizer_renyi_entropy(c12.state()).item()
+    p = tct.convert.params(g0, dev).requires_grad_()
+    _reset(counters)
+    s = qu.entanglement_entropy(tfim_circuit(tct, p, n, nl, device=dev).state(), half)
+    (gs,) = torch.autograd.grad(s, p)
+    out["entropy_grad"], out["launched entropy"] = cpu(gs), _launched(counters)
+    # (e) the QAOA ansatz of phase 9's graph
+    graph, structures, weights, angles = _qaoa_ising(*qaoa)
+    with torch.no_grad():
+        cq = tm.ansatz.QAOA_ansatz_for_Ising(angles, qaoa[1], structures, weights, device=dev)
+        out["e qaoa coo"] = tm.measurements.operator_expectation(
+            cq, tm.hamiltonians.ising_hamiltonian(graph, device=dev)).item()
+        out["e qaoa terms"] = tm.measurements.spin_glass_measurements(cq, graph).item()
+    return out
+
+
+def _hamiltonian_checks(tct, dev, counters=(), ref=None, **sizes):
+    """Phase 17's checks (a)-(e) on ``dev``: each route against another
+    route to the same number on ``dev``, and against the port's CPU path
+    (``ref``, :func:`_hamiltonian_values` on the CPU, or a callable giving
+    it; computed here when None: on the CPU the two paths are one).  The
+    launches of K2 and K3 are required in (a) on a card.  Returns the card's
+    values."""
+    import torch
+
+    sizes = {**HAM_SIZES, **sizes}
+    card = torch.device(dev).type == "cuda"
+    n = sizes["n"]
+
+    def check(label, err, tol):
+        print(f"  {label}: {err:.3e} (tol {tol:g})")
+        if not err <= tol:
+            _fail(f"phase 17, {label}: {err} > {tol}")
+
+    got = _hamiltonian_values(tct, dev, counters, **sizes)
+    ref = (got if not card else _hamiltonian_values(tct, "cpu", **sizes)) if ref is None else (
+        ref() if callable(ref) else ref)
+    print("Hamiltonians and the QI toolbox:")
+    peak = f", peak {got['coo peak MiB']:.1f} MiB above the start" if "coo peak MiB" in got else ""
+    print(f"  (a) tfim_hamiltonian({n}) as COO: nnz {got['nnz']}{peak}; sha256 {got['digest'][:16]}..., the CPU "
+          f"path's {ref['digest'][:16]}...; E fused {got['e fused']:.7f}, COO {got['e coo']:.7f}, MVP "
+          f"{got['e mvp']:.7f}")
+    if got["digest"] != ref["digest"] or got["nnz"] != ref["nnz"]:
+        _fail("phase 17 (a): the COO matrix differs from the CPU path's (indices or values)")
+    for route in ("coo", "mvp"):
+        if card and counters and not all(got[f"launched {route}"].get(k, 0) for k in ("grand_zzrx_fwd", "zzrx_bwd")):
+            _fail(f"phase 17 (a) {route}: K2/K3 not launched ({got[f'launched {route}']})")
+        print(f"  (a) {route} launched {got[f'launched {route}']}")
+        check(f"(a) |E {route} - E fused|", abs(got[f"e {route}"] - got["e fused"]), HAM_ATOL)
+        check(f"(a) max |grad {route} - grad fused|", (got[f"g {route}"] - got["g fused"]).abs().max().item(), HAM_ATOL)
+        check(f"(a) |E {route} - CPU|", abs(got[f"e {route}"] - ref[f"e {route}"]), HAM_ATOL)
+        check(f"(a) max |grad {route} - CPU|", (got[f"g {route}"] - ref[f"g {route}"]).abs().max().item(), HAM_ATOL)
+    print(f"  (b) Heisenberg on the {sizes['grid'][0]}x{sizes['grid'][1]} grid: nnz {got['heisenberg nnz']}, E COO "
+          f"{got['e heisenberg coo']:.7f}, term by term {got['e heisenberg terms']:.7f}")
+    check("(b) |E COO - E term by term|", abs(got["e heisenberg coo"] - got["e heisenberg terms"]), HAM_ATOL)
+    check("(b) |E COO - CPU|", abs(got["e heisenberg coo"] - ref["e heisenberg coo"]), HAM_ATOL)
+    if not got["dense equal"]:
+        _fail(f"phase 17 (c): PauliStringSum2Dense({sizes['n_dense']}) differs from to_dense of the COO")
+    print(f"  (c) dense TFIM n={sizes['n_dense']}: equal to to_dense(COO) bit for bit; E dense {got['e dense']:.7f}, "
+          f"COO {got['e dense coo']:.7f}")
+    check("(c) |E dense - E COO|", abs(got["e dense"] - got["e dense coo"]), HAM_DENSE_ATOL)
+    check("(c) |E dense - CPU|", abs(got["e dense"] - ref["e dense"]), HAM_ATOL)
+    print(f"  (d) S {got['entropy']:.9f}, S_2 {got['renyi']:.9f}, I {got['mutual']:.9f}, N {got['negativity']:.9f} "
+          f"(complex64 spectrum {got['negativity complex64']:.6f}), log N {got['log_negativity']:.9f}, F "
+          f"{got['fidelity']:.9f} (complex64 spectrum {got['fidelity complex64']:.6f}), T {got['trace_distance']:.9f}, "
+          f"free energy {got['free_energy']:.7f}, SRE {got['sre']:.9f}; entropy grad launched {got['launched entropy']}")
+    if card and counters and not got["launched entropy"].get("zzrx_bwd", 0):
+        _fail(f"phase 17 (d): K3 not launched by the entropy's gradient ({got['launched entropy']})")
+    for key, tol in QI_TOL.items():
+        a, b = got[key], ref[key]
+        err = (a - b).abs().max().item() if isinstance(a, torch.Tensor) else abs(a - b)
+        check(f"(d) {key} against the CPU path", err, tol)
+    print(f"  (e) QAOA n={sizes['qaoa'][0]} p={sizes['qaoa'][1]}: E COO {got['e qaoa coo']:.7f}, term by term "
+          f"{got['e qaoa terms']:.7f}")
+    check("(e) |E COO - E term by term|", abs(got["e qaoa coo"] - got["e qaoa terms"]), HAM_ATOL)
+    check("(e) |E COO - CPU|", abs(got["e qaoa coo"] - ref["e qaoa coo"]), HAM_ATOL)
+    check("(e) |E term by term - CPU|", abs(got["e qaoa terms"] - ref["e qaoa terms"]), HAM_ATOL)
+    return got
+
+
+def _hamiltonian_phase(tct, card, counters, job):
+    """Phase 17: :func:`_hamiltonian_checks` on the card against the CPU
+    references of the child process, then each route timed by CUDA events
+    (median of 3) with its busy time under torch.profiler (the card alone,
+    one call) and its peak memory above the start."""
+    import torch
+
+    qu, tm = tct.quantum, tct.templates
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    wait = {}
+
+    def reference():
+        ref, wait["s"] = _await_reference(job, "ham")
+        print(f"phase 17 CPU references (the child process): waited {wait['s']:.1f} s; {ref['seconds']:.1f} s there")
+        return ref
+
+    _hamiltonian_checks(tct, dev, counters, ref=reference)
+    t1 = time.perf_counter()
+    n, nl = HAM_SIZES["n"], HAM_SIZES["nl"]
+    g0 = np.random.default_rng(42).normal(size=(nl, 2, n)) * 0.1
+    h = tm.hamiltonians.tfim_hamiltonian(n, device=dev)
+    mvp = qu.PauliStringSum2MVP(*tfim_pauli_strings(n))
+    n12 = HAM_SIZES["n_dense"]
+    psi12 = tfim_circuit(tct, tct.convert.params(g0[:, :, :n12], dev), n12, nl, device=dev).state()
+
+    def value_and_grad(fn):
+        p = tct.convert.params(g0, dev).requires_grad_()
+        v = fn(tfim_circuit(tct, p, n, nl, device=dev))
+        (g,) = torch.autograd.grad(v, p)
+        return g[0, 0, 0].item()
+
+    timed = {
+        f"(a) PauliStringSum2COO of the TFIM, n={n} (the build)": lambda: tm.hamiltonians.tfim_hamiltonian(
+            n, device=dev).values()[0].item(),
+        "(a) COO <H> and its grad in the angles (K2, cuSPARSE, K3 a layer)": lambda: value_and_grad(
+            lambda c: tm.measurements.operator_expectation(c, h)),
+        "(a) matrix-free <H> and its grad (39 strings)": lambda: value_and_grad(
+            lambda c: tm.measurements.operator_expectation(c, mvp)),
+        f"(d) entanglement_entropy(cut={n // 2}) of the state (1024^2 eigvalsh)": lambda: qu.entanglement_entropy(
+            tfim_circuit(tct, tct.convert.params(g0, dev), n, nl, device=dev).state(), n // 2).item(),
+        "(d) its gradient in the angles (K3 a layer)": lambda: value_and_grad(
+            lambda c: qu.entanglement_entropy(c.state(), n // 2)),
+        f"(d) stabilizer_renyi_entropy, n={n12} (a 4096^2 table)": lambda: qu.stabilizer_renyi_entropy(psi12).item(),
+    }
+    for label, fn in timed.items():
+        with torch.no_grad() if "grad" not in label else torch.enable_grad():
+            ms = _time_ms(fn, reps=3, inner=1, warmup=1)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            fn()
+            torch.cuda.synchronize()
+            peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+            host, busy, by_kernel = _profile(fn, reps=1, cpu=False)
+        top = ", ".join(f"{name[:40]} {t:.3f} x{k:g}" for name, t, k in by_kernel[:3])
+        print(f"phase 17 time, {label}: {ms:.3f} ms (CUDA events, median of 3), busy {busy:.3f} ms "
+              f"({100 * busy / ms:.1f} %; profiler, one call), peak {peak:.1f} MiB above the start, {card}; "
+              f"top kernels {top}")
+    print(f"phase 17 wall time: checks {t1 - t0:.1f} s (of which waiting {wait.get('s', 0.0):.1f} s), timing "
+          f"{time.perf_counter() - t1:.1f} s")
 
 
 def main() -> int:
@@ -4627,7 +5024,7 @@ def main() -> int:
               f"beside it ({'running' if running else 'ended before'}), {card}")
 
     # ---- 14. noise at full width ---------------------------------------
-    _noise_phase(tct, card, every_counter)
+    _noise_phase(tct, card, every_counter, ref_job)
     print(f"phase 14 ended at {time.time() - t_start:.1f} s")
 
     # ---- 15. the contraction engine at full width ----------------------
@@ -4637,6 +5034,10 @@ def main() -> int:
     # ---- 16. the MPS simulators at full width ---------------------------
     _mps_phase(tct, card, every_counter, ref_job)
     print(f"phase 16 ended at {time.time() - t_start:.1f} s")
+
+    # ---- 17. the Hamiltonians and the QI toolbox at full width ----------
+    _hamiltonian_phase(tct, card, every_counter, ref_job)
+    print(f"phase 17 ended at {time.time() - t_start:.1f} s")
     print(f"smoke total: {time.time() - t_start:.1f} s")
     print(json.dumps(kernels_line))
     print(card)

@@ -79,13 +79,24 @@ Operators as dense QuOperators (``@``, ``|``, ``adjoint``,
     qv = c.get_quvector(); qo = c.get_quoperator()
     rho = tct.DMCircuit(4, mps_inputs=m4).get_dm_as_quoperator()
 
+Hamiltonians as a COO tensor (built and coalesced on the device), a dense
+matrix or a matrix-free product, the quantum-information toolbox, and the
+templates (lattices, graphs, Hamiltonians, blocks, ansätze, measurements)::
+
+    h = tct.templates.hamiltonians.tfim_hamiltonian(20)     # COO, on the card
+    e = tct.templates.measurements.operator_expectation(c, h)
+    mvp = tct.PauliStringSum2MVP([[3, 3, 0], [1, 0, 0]], [1.0, -1.0])
+    s = tct.quantum.entanglement_entropy(c.state(), 10)     # differentiable
+    with tct.set_device("cpu"):
+        hc = tct.PauliStringSum2COO([[3, 3, 0], [1, 0, 0]], [1.0, -1.0])
+
 On the card the fused TFIM layers and the TEBD truncation SVD run
 hand-written Hopper kernels (``core/csrc/``, built by nvcc at first use
 into ``build/kernels/``); on the CPU (``device="cpu"`` or
 ``set_device("cpu")``) they run their plain torch versions.
 """
 
-from . import config, convert, dmrg, noisemodel, quantum, simplify
+from . import config, convert, dmrg, noisemodel, quantum, simplify, templates
 from .backend import TorchBackend, backend
 from .config import (
     dtypestr,
@@ -113,7 +124,17 @@ from .noisemodel import NoiseConf, circuit_with_noise
 from .models.tebd import ParallelTEBD
 from .ops import channels, gates
 from .ops.gates import Gate, array_to_tensor, num_to_tensor
-from .quantum import QuAdjointVector, QuOperator, QuScalar, QuVector
+from .quantum import (
+    LinearOperator,
+    PauliStringSum2COO,
+    PauliStringSum2Dense,
+    PauliStringSum2MVP,
+    QuAdjointVector,
+    QuOperator,
+    QuScalar,
+    QuVector,
+    aslinearoperator,
+)
 
 #: the runtime configuration, with the contractor's helpers on it, as the
 #: JAX package names it
@@ -126,15 +147,20 @@ __all__ = [
     "DensityMatrixCircuit",
     "FiniteMPS",
     "Gate",
+    "LinearOperator",
     "MPSCircuit",
     "NoiseConf",
     "ParallelTEBD",
+    "PauliStringSum2COO",
+    "PauliStringSum2Dense",
+    "PauliStringSum2MVP",
     "QuAdjointVector",
     "QuOperator",
     "QuScalar",
     "QuVector",
     "TorchBackend",
     "array_to_tensor",
+    "aslinearoperator",
     "backend",
     "channels",
     "circuit_with_noise",
@@ -164,4 +190,5 @@ __all__ = [
     "set_function_contractor",
     "set_function_dtype",
     "simplify",
+    "templates",
 ]

@@ -11,6 +11,10 @@ device it is drawn on:
 - ``stateful_rand*`` draw from a generator the caller passes, on that
   generator's device.
 
+The sparse surface: ``coo_sparse_matrix`` (a coalesced
+``torch.sparse_coo_tensor`` on the values' device), its scipy import,
+``sparse_dense_matmul``, ``is_sparse`` and ``to_dense``.
+
 torch's generators give other bits than JAX's threefry keys: a run matches
 the JAX package only through an explicit ``status`` of uniforms.  ``jit``,
 ``vmap``, ``grad`` and the optimizers are not part of this subset.
@@ -188,6 +192,37 @@ class TorchBackend:
         cdf = cumsum_fixed_order(p)
         idx = torch.searchsorted(cdf, status.to(cdf.dtype).contiguous(), right=True)
         return torch.clamp(idx, max=p.shape[0] - 1).to(torch.int32)
+
+    # ---------------- sparse matrices ----------------
+
+    def coo_sparse_matrix(self, indices: Any, values: Any, shape: Sequence[int]) -> torch.Tensor:
+        """The COO matrix of ``indices`` [nnz, 2] and ``values`` [nnz],
+        coalesced (entries in row-major order, duplicates summed), on the
+        values' device (numpy values: the configured device)."""
+        values = values if isinstance(values, torch.Tensor) else torch.as_tensor(
+            np.asarray(values), device=config.resolve_device())
+        idx = torch.as_tensor(np.asarray(indices) if not isinstance(indices, torch.Tensor) else indices,
+                              device=values.device).to(torch.int64)
+        return torch.sparse_coo_tensor(idx.T, values, tuple(int(s) for s in shape), check_invariants=True).coalesce()
+
+    def coo_sparse_matrix_from_numpy(self, a: Any) -> torch.Tensor:
+        """A scipy sparse matrix (or a dense numpy one) as
+        :meth:`coo_sparse_matrix` gives it."""
+        import scipy.sparse as sp
+
+        acoo = sp.coo_matrix(a)
+        return self.coo_sparse_matrix(np.stack([acoo.row, acoo.col], axis=1), acoo.data, acoo.shape)
+
+    def sparse_dense_matmul(self, sp_a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        """``sp_a @ b`` for a vector or a matrix ``b``."""
+        return sp_a @ b
+
+    def is_sparse(self, a: Any) -> bool:
+        """Whether ``a`` is a torch sparse tensor (COO or compressed)."""
+        return isinstance(a, torch.Tensor) and a.layout != torch.strided
+
+    def to_dense(self, sp_a: torch.Tensor) -> torch.Tensor:
+        return sp_a.to_dense()
 
 
 backend = TorchBackend()

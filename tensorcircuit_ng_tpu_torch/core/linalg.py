@@ -15,7 +15,7 @@ complex gradient here is the conjugate of the JAX package's.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -26,6 +26,7 @@ __all__ = [
     "adaware_qr",
     "adaware_rq",
     "adaware_eigh",
+    "plain_eigh",
     "truncated_svd",
     "lobpcg",
     "USE_GRAM_SVD",
@@ -35,7 +36,7 @@ __all__ = [
 _EPS_DEFAULT = 1e-12
 
 
-def _safe_inverse(x: torch.Tensor, eps: float = _EPS_DEFAULT) -> torch.Tensor:
+def _safe_inverse(x: torch.Tensor, eps: Union[float, torch.Tensor] = _EPS_DEFAULT) -> torch.Tensor:
     return x / (x * x + eps)
 
 
@@ -55,10 +56,26 @@ def _zeros_if_none(g: Optional[torch.Tensor], like: torch.Tensor) -> torch.Tenso
 
 
 def _svd_bwd_conjconv(a, u, s, vh, du, ds, dvh):
-    """SVD adjoint in the ``dL = Re tr(g^H dA)`` form (torch's gradient)."""
+    """SVD adjoint in the ``dL = Re tr(g^H dA)`` form (torch's gradient).
+
+    Both regularizations scale with the dtype and with s_max, not with an
+    absolute eps: a singular value at the decomposition's rounding floor,
+    max(m, n)·eps·s_max (numpy's rank tolerance), is a zero whose vectors
+    are arbitrary, so its cotangents are dropped and its 1/s is 0; and
+    1/(s_j² − s_i²) is regularized at the rounding of s², eps·s_max².  The
+    JAX package's absolute 1e-12 distorts every pair closer than ~1e-6 in
+    s², as the kept values near a truncation's cut of a normalized MPS
+    centre are: its gradient there is 1e-4-1e-2 off a central difference
+    (Queue 3 F9 of ``ROADMAP.md``)."""
     dtype = a.dtype
     m, n = a.shape[-2], a.shape[-1]
     k = s.shape[-1]
+    eps = torch.finfo(s.dtype).eps
+    s_max = s.amax(dim=-1, keepdim=True)
+    live = s > max(m, n) * eps * s_max
+    du = torch.where(live[..., None, :], du, torch.zeros_like(du))
+    ds = torch.where(live, ds, torch.zeros_like(ds))
+    dvh = torch.where(live[..., :, None], dvh, torch.zeros_like(dvh))
     v = _H(vh)
     dv = _H(dvh)
 
@@ -66,10 +83,11 @@ def _svd_bwd_conjconv(a, u, s, vh, du, ds, dvh):
     s2 = s * s
     # F[i, j] = 1 / (s_j^2 - s_i^2), zero diagonal (regularized)
     eye_k = _eye(k, a)
-    f = _safe_inverse(s2[..., None, :] - s2[..., :, None]).to(dtype) * (1.0 - eye_k)
+    f = _safe_inverse(s2[..., None, :] - s2[..., :, None], ((eps * s_max * s_max) ** 2)[..., None])
+    f = f.to(dtype) * (1.0 - eye_k)
 
     sigma_mat = eye_k * s_c[..., None, :]
-    s_inv = _safe_inverse(s).to(dtype)
+    s_inv = torch.where(live, 1.0 / torch.where(live, s, torch.ones_like(s)), torch.zeros_like(s)).to(dtype)
     sigma_inv_mat = eye_k * s_inv[..., None, :]
 
     da = u @ (eye_k * ds.to(dtype)[..., None, :]) @ vh
@@ -116,37 +134,29 @@ WIDE = {torch.complex64: torch.complex128, torch.float32: torch.float64}
 
 
 class _SVDAdjoint(torch.autograd.Function):
-    """An SVD forward ``impl`` with the degenerate-safe adjoint.
+    """An SVD forward ``impl`` with the degenerate-safe adjoint
+    (:func:`_svd_bwd_conjconv`).
 
     The adjoint needs an SVD's orthonormal vectors.  The Gram-eigh impl
-    (``floored``) returns them with the singular values at
-    its noise floor set to zero; the backward takes those zeros, and their
-    cotangents, as exact (the JAX package's Gram adjoint takes the divided side's vectors
+    (:func:`_gram_svd_floored`) returns them with the singular values at
+    its noise floor set to zero, and the adjoint drops the cotangents of
+    zeros (the JAX package's Gram adjoint takes the divided side's vectors
     as they are, neither unit nor orthogonal at the floor, and its gradient
     of a rank-deficient matrix is wrong: Queue 3 F8 of ``ROADMAP.md``)."""
 
     @staticmethod
-    def forward(ctx, a, impl, floored=False):
+    def forward(ctx, a, impl):
         u, s, vh = impl(a)
         ctx.save_for_backward(a, u, s, vh)
-        ctx.floored = floored
         return u, s, vh
 
     @staticmethod
     def backward(ctx, du, ds, dvh):
         a, u, s, vh = ctx.saved_tensors
-        if ctx.floored:
-            live = s > 0
-            if du is not None:
-                du = torch.where(live[..., None, :], du, torch.zeros_like(du))
-            if ds is not None:
-                ds = torch.where(live, ds, torch.zeros_like(ds))
-            if dvh is not None:
-                dvh = torch.where(live[..., :, None], dvh, torch.zeros_like(dvh))
         da = _svd_bwd_conjconv(
             a, u, s, vh, _zeros_if_none(du, u), _zeros_if_none(ds, s), _zeros_if_none(dvh, vh)
         )
-        return da, None, None
+        return da, None
 
 
 def _exact_svd(a):
@@ -155,7 +165,7 @@ def _exact_svd(a):
 
 def adaware_svd(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Reduced SVD ``a = u @ diag(s) @ vh`` with degenerate-safe gradients."""
-    return _SVDAdjoint.apply(a, _exact_svd, False)
+    return _SVDAdjoint.apply(a, _exact_svd)
 
 
 def _eigh_ftz(g: torch.Tensor):
@@ -220,7 +230,7 @@ def gram_svd(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
     Queue 3 F8).  The backward is the degenerate-safe SVD adjoint with the
     zeroed values' cotangents dropped.
     """
-    return _SVDAdjoint.apply(a, _gram_svd_floored, True)
+    return _SVDAdjoint.apply(a, _gram_svd_floored)
 
 
 #: route truncated_svd through the Gram-eigh SVD (:func:`gram_svd`).
@@ -398,10 +408,18 @@ def adaware_rq(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 class _Eigh(torch.autograd.Function):
+    """``torch.linalg.eigh`` with the adjoint V (diag(dλ) + F ∘ V^H dV) V^H,
+    F[i, j] = 1/(λ_j - λ_i) off the diagonal: regularized at an absolute
+    ``eps``, or exact (``eps=None``: inf at an exactly degenerate pair, so
+    the gradient is NaN there).
+    Unlike torch's own adjoint it does not check that the loss ignores
+    the eigenvectors' phases, which rounding breaks."""
+
     @staticmethod
-    def forward(ctx, a):
+    def forward(ctx, a, eps):
         e, v = torch.linalg.eigh(a)
         ctx.save_for_backward(e, v)
+        ctx.eps = eps
         return e, v
 
     @staticmethod
@@ -410,14 +428,25 @@ class _Eigh(torch.autograd.Function):
         de, dv = _zeros_if_none(de, e), _zeros_if_none(dv, v)
         k = e.shape[-1]
         eye_k = _eye(k, v)
-        f = _safe_inverse(e[..., None, :] - e[..., :, None]).to(v.dtype) * (1.0 - eye_k)
+        diff = e[..., None, :] - e[..., :, None]
+        if ctx.eps is None:
+            f = (1.0 / (diff + eye_k.real) - eye_k.real).to(v.dtype)
+        else:
+            f = _safe_inverse(diff, ctx.eps).to(v.dtype) * (1.0 - eye_k)
         mid = eye_k * de.to(v.dtype)[..., None, :] + f * (_H(v) @ dv)
-        return v @ mid @ _H(v)
+        return v @ mid @ _H(v), None
 
 
 def adaware_eigh(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Hermitian eigendecomposition with degenerate-safe gradients."""
-    return _Eigh.apply(a)
+    return _Eigh.apply(a, _EPS_DEFAULT)
+
+
+def plain_eigh(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Hermitian eigendecomposition with the plain adjoint, JAX's
+    ``jnp.linalg.eigh``'s: exact inverse spacings, a NaN gradient where
+    two eigenvalues are equal."""
+    return _Eigh.apply(a, None)
 
 
 # ---------------------------------------------------------------- truncation

@@ -773,8 +773,9 @@ class BaseCircuit(AbstractCircuit):
         the prefix drawn) = P(prefix, v) / P(prefix), each joint probability
         one planned, light-cone pruned contraction of projector expectations
         on the circuit's device (one plan a prefix length, cached by its
-        signature).  ``status`` [batch, n] gives the uniforms, as in the JAX
-        package, else ``random_generator`` or the backend's implicit one.
+        signature), once a call for each distinct prefix.  ``status``
+        [batch, n] gives the uniforms, as in the JAX package, else
+        ``random_generator`` or the backend's implicit one.
 
         ``readout_error[i] = [P(0|0), P(1|1)]`` then flips bits with uniforms
         from ``np.random.default_rng(zlib.crc32(status.tobytes()))``, the
@@ -792,11 +793,17 @@ class BaseCircuit(AbstractCircuit):
         else:
             status_np = np.asarray(status).reshape(nbatch, n)
         eye = np.eye(d, dtype=np.complex64)
+        # shots that share a prefix share its joint probability (a GHZ
+        # state's 64 shots walk two prefixes): each is contracted once a call
+        joints: Dict[Tuple[int, ...], float] = {}
 
         def joint(prefix: List[int]) -> float:
-            ops = [(np.diag(eye[v]), [i]) for i, v in enumerate(prefix)]
-            val = contractor.contract_ir(self.expectation_before(*ops))
-            return max(float(torch.real(val).reshape(())), 0.0)
+            key = tuple(prefix)
+            if key not in joints:
+                ops = [(np.diag(eye[v]), [i]) for i, v in enumerate(prefix)]
+                val = contractor.contract_ir(self.expectation_before(*ops))
+                joints[key] = max(float(torch.real(val).reshape(())), 0.0)
+            return joints[key]
 
         samples = np.zeros((nbatch, n), dtype=np.int32)
         for b in range(nbatch):

@@ -103,12 +103,12 @@ class Circuit(BaseCircuit):
 
     def _unitary_probs(
         self, kraus: Sequence[Any], index: Sequence[int], prob: Optional[Sequence[float]]
-    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """(the operators as given, the operators to apply, the branch
-        probabilities), each stacked on the circuit's device: tr(K†K)/dim
-        and the renormalized operators, without the state, or ``prob`` and
-        the operators as given.  Numpy operators are worked on the host in
-        the configured dtype and kept on the device as constants."""
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(the operators to apply, the branch probabilities), each stacked
+        on the circuit's device: the renormalized operators and tr(K†K)/dim,
+        without the state, or the operators as given and ``prob``.  Numpy
+        operators are worked on the host in the configured dtype and kept on
+        the device as constants."""
         rdt = config.rdtypestr()
         host = self._kraus_host(kraus, index)
         if host is None:
@@ -120,15 +120,15 @@ class Circuit(BaseCircuit):
                 p = device_tensor(prob, self._device, "prob").to(getattr(torch, rdt))
             else:
                 p = config.device_constant(np.asarray(prob, dtype=rdt), self._device, getattr(torch, rdt))
-            return mats, mats, p / torch.sum(p)
+            return mats, p / torch.sum(p)
         dim = mats.shape[-1]
         if host is not None:
             p = np.real(np.trace(np.conj(np.swapaxes(host, 1, 2)) @ host, axis1=1, axis2=2)) / dim
             new = host / np.sqrt(p + np.asarray(1e-30, dtype=rdt))[:, None, None]
-            return (mats, config.device_constant(new, self._device, mats.dtype),
+            return (config.device_constant(new, self._device, mats.dtype),
                     config.device_constant(p / np.sum(p), self._device, getattr(torch, rdt)))
         p = torch.real(torch.diagonal(mats.conj().transpose(1, 2) @ mats, dim1=1, dim2=2).sum(-1)) / dim
-        return mats, mats / torch.sqrt(p + 1e-30).to(mats.dtype)[:, None, None], p / torch.sum(p)
+        return mats / torch.sqrt(p + 1e-30).to(mats.dtype)[:, None, None], p / torch.sum(p)
 
     def unitary_kraus(
         self,
@@ -139,11 +139,17 @@ class Circuit(BaseCircuit):
         name: Optional[str] = None,
     ) -> torch.Tensor:
         """One trajectory of a mixed-unitary channel: branch i has
-        probability tr(K_i†K_i)/dim (or ``prob[i]``), read without the state,
-        and is applied renormalized.  Returns the branch (0-d int32)."""
-        mats, new_mats, p = self._unitary_probs(kraus, index, prob)
+        probability p_i = tr(K_i†K_i)/dim (or ``prob[i]``), read without the
+        state, and applies U_i, K_i renormalized.  The channel item keeps
+        √p_i·U_i as its operators, so a replay through ``general_kraus``
+        (``copy``, the light cone, ``to_dm_circuit``) draws with p_i and
+        applies U_i (the JAX package keeps the K_i as given: with ``prob``
+        its replay is another channel, Queue 3 F5 of ``ROADMAP.md``).
+        Returns the branch (0-d int32)."""
+        new_mats, p = self._unitary_probs(kraus, index, prob)
+        kept = torch.sqrt(p).to(new_mats.dtype)[:, None, None] * new_mats
         return self._apply_selected_kraus(new_mats, p, index, status=status, name=name or "unitary_kraus",
-                                          orig_mats=list(mats))
+                                          orig_mats=list(kept))
 
     def unitary_kraus2(
         self,
@@ -157,7 +163,7 @@ class Circuit(BaseCircuit):
         ``index_select`` of the stacked set (the JAX package's
         ``lax.switch``), tie-break 1e-12, and applied as a plain ``any``
         gate (no channel item)."""
-        _, mats, p = self._unitary_probs(kraus, index, prob)
+        mats, p = self._unitary_probs(kraus, index, prob)
         status = self._uniforms([], None) if status is None else device_tensor(status, self._device)
         cdf = torch.cumsum(p, 0)
         r = torch.reshape(status, (1,)).to(cdf.dtype) + 1e-12

@@ -51,11 +51,19 @@ their gradients, samples past 2^30 amplitudes bit for bit, ``DMCircuit2``
 past its cliff, and ``chip_smoke.py``'s phase 15 at a small size.  The MPS
 simulators (no kernel of their own; the card truncates by the Gram-eigh
 SVD, a complex64 chain's SVDs and QRs in complex128) against the CPU path:
-the MPS VQE value and step at n=20 within phase 16's ``MPS_TOL`` (set
-from the CPU path's own drift), its gradient against the CPU path's Gram
-route within ``MPS_GRAM_GRAD_TOL``, DMRG at n=8 within 1e-8, ``MPSCircuit.sample`` at
-complex128 under the bracket rule (1e-6), ``mps_inputs=`` and the
-QuOperator methods within 1e-5, and ``chip_smoke.py``'s phase 16 at a small
+the MPS VQE value, gradient and step at n=20 within phase 16's ``MPS_TOL``
+against the CPU path's exact SVD (set from the CPU path's own drift), its
+gradient against the CPU path's Gram route within ``MPS_GRAM_GRAD_TOL``,
+the exact SVD's gradient on the card at n=16 against a central difference
+on the CPU (1e-8; Queue 3 F9), DMRG at n=8 within 1e-8,
+``MPSCircuit.sample`` at complex128 under the bracket rule (1e-6),
+``mps_inputs=`` and the QuOperator methods within 1e-5, and
+``chip_smoke.py``'s phase 16 at a small size.  The Hamiltonians and the QI
+toolbox (no kernel of their own): a 4x4 complex COO product and its
+backward in the vector against the CPU, ``PauliStringSum2COO`` at n=12 on
+the card equal to the CPU path's bit for bit, the entanglement entropy of
+an n=12 TFIM state and its angle gradient (1e-5, 1e-4), the stabilizer
+Renyi entropy at n=8 (1e-6), and ``chip_smoke.py``'s phase 17 at a small
 size.
 """
 
@@ -65,10 +73,11 @@ import torch
 
 import tensorcircuit_ng_tpu_torch as tct
 from chip_smoke import (
-    MPS_GRAM_GRAD_TOL, MPS_TOL, SVD_ORTH_TOL, SVD_REC_TOL, SVD_S_TOL, SVD_VEC_TOL, _contraction_checks, _mps_checks, _mps_reference,
+    HAM_SMALL, MPS_GRAM_GRAD_TOL, MPS_TOL, SVD_ORTH_TOL, SVD_REC_TOL, SVD_S_TOL, SVD_VEC_TOL, _contraction_checks,
+    _hamiltonian_checks, _mps_checks, _mps_reference,
     _ptxas_report, _qop_values, _svd_batches, _svd_checks, brickwork_circuit, grid_angles, grid_circuit,
-    hea_energy, mps_bracket_miss, mps_status, mps_vqe_angles, mps_vqe_step, noisy_brickwork_dm, qaoa_energy,
-    qaoa_graph,
+    hea_energy, mps_bracket_miss, mps_status, mps_vqe_angles, mps_vqe_circuit, mps_vqe_step, noisy_brickwork_dm,
+    qaoa_energy, qaoa_graph, tfim_circuit, tfim_energy_ps,
 )
 from tensorcircuit_ng_tpu_torch import convert
 from tensorcircuit_ng_tpu_torch.core import _build
@@ -1571,8 +1580,8 @@ def test_contraction_phase_checks_on_card(cuda):
 def test_mps_vqe_on_card_matches_cpu(cuda, dtype, monkeypatch):
     """Phase 16 (a)'s step at n=20, chi=16, depth 4 (chi binding in the
     middle): the card's Gram route against the CPU path's complex128 exact
-    SVD, its gradient against the CPU path's Gram route (the exact SVD's
-    adjoint is off: Queue 3 F9)."""
+    SVD (value, gradient, the step), and its gradient against the CPU
+    path's Gram route."""
     from tensorcircuit_ng_tpu_torch.core import linalg
 
     g0 = mps_vqe_angles(20, 4)
@@ -1582,9 +1591,10 @@ def test_mps_vqe_on_card_matches_cpu(cuda, dtype, monkeypatch):
         want = mps_vqe_step(tct, "cpu", g0, 20, 16)
         monkeypatch.setattr(linalg, "USE_GRAM_SVD", True)
         gram = mps_vqe_step(tct, "cpu", g0, 20, 16)
-    tol_e, tol_e1 = MPS_TOL[dtype]
+    tol_e, tol_g, tol_e1 = MPS_TOL[dtype]
     assert got[3].get_bond_dimensions() == want[3].get_bond_dimensions()
     assert abs(got[0].item() - want[0].item()) <= tol_e * abs(want[0].item())
+    assert (got[1].cpu().double() - want[1]).abs().max().item() <= tol_g * want[1].abs().max().item()
     assert abs(got[2].item() - want[2].item()) <= tol_e1 * abs(want[2].item())
     gg = gram[1]
     assert (got[1].cpu().double() - gg).abs().max().item() <= MPS_GRAM_GRAD_TOL[dtype] * gg.abs().max().item()
@@ -1632,3 +1642,99 @@ def test_mps_phase_checks_on_card(cuda):
     # smoke's check, at n=20
     got = _mps_checks(tct, cuda, ref, (), **small)
     assert got["c64"].tensors[0].device.type == "cuda"
+
+
+def test_exact_svd_gradient_on_card_matches_central_difference(cuda, monkeypatch):
+    """Queue 3 F9 on the card: the exact SVD's gradient of phase 16 (a)'s
+    step at n=16, chi=16, depth 10 (complex128) at the angle (2, 1, 13),
+    where the JAX package's adjoint rule is 4.3e-5 off, against a central
+    difference of the CPU path's energy (h=1e-5), within 1e-8."""
+    from tensorcircuit_ng_tpu_torch.core import linalg
+
+    n, chi, angle = 16, 16, (2, 1, 13)
+    g0 = mps_vqe_angles(n, 10)
+    monkeypatch.setattr(linalg, "USE_GRAM_SVD", False)
+    with tct.set_dtype("complex128"):
+        g = mps_vqe_step(tct, cuda, g0, n, chi)[1]
+        e = []
+        with torch.no_grad():
+            for sign in (1.0, -1.0):
+                p = g0.copy()
+                p[angle] += sign * 1e-5
+                e.append(tfim_energy_ps(mps_vqe_circuit(tct, torch.as_tensor(p), n, chi, device="cpu"), n).item())
+    assert g.device.type == "cuda"
+    assert abs(g[angle].item() - (e[0] - e[1]) / 2e-5) < 1e-8
+
+
+def test_coo_matvec_and_its_backward_on_card(cuda):
+    """A 4x4 complex64 COO matrix (a duplicate entry summed) times a vector
+    on the card, and the gradient of Re <v|A v> in v, against the CPU and
+    the dense matrix."""
+    idx = np.array([[0, 1], [1, 0], [2, 2], [3, 0], [0, 1], [1, 3]])
+    vals = np.array([1 + 1j, 2.0, -1.0, 0.5j, 0.25, 0.3 - 0.2j], dtype=np.complex64)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        m = tct.backend.coo_sparse_matrix(idx, torch.as_tensor(vals, device=dev), (4, 4))
+        assert m.device.type == dev.type and m.is_coalesced()
+        v = torch.as_tensor(np.arange(4) + 1j * np.arange(4)[::-1], dtype=torch.complex64, device=dev)
+        v.requires_grad_()
+        mv = m @ v
+        (g,) = torch.autograd.grad(torch.real(torch.vdot(v, mv)), v)
+        out[dev.type] = (m.indices().cpu(), m.values().cpu(), mv.detach().cpu(), g.cpu(), m.to_dense().cpu())
+    assert torch.equal(out["cuda"][0], out["cpu"][0]) and torch.equal(out["cuda"][1], out["cpu"][1])
+    for k in (2, 3, 4):
+        assert (out["cuda"][k] - out["cpu"][k]).abs().max().item() <= 1e-6, k
+    dense = out["cpu"][4].numpy()
+    v = np.arange(4) + 1j * np.arange(4)[::-1]
+    np.testing.assert_allclose(out["cuda"][2].numpy(), dense @ v, atol=1e-5)
+
+
+def test_pauli_sum_coo_on_card_matches_cpu(cuda):
+    """``PauliStringSum2COO`` of the TFIM and of random strings at n=12,
+    built on the card: indices and values equal to the CPU path's bit for
+    bit; ``PauliStringSum2Dense`` is its ``to_dense``."""
+    rng = np.random.default_rng(3)
+    ls = rng.integers(0, 4, size=(20, 12)).tolist() + [[3, 3] + [0] * 10, [0] * 12]
+    w = rng.normal(size=len(ls)).tolist()
+    for strings, weights in ((ls, w), (None, None)):
+        if strings is None:
+            got, want = (tct.templates.hamiltonians.tfim_hamiltonian(12, device=d) for d in (cuda, "cpu"))
+        else:
+            got, want = (tct.PauliStringSum2COO(strings, weights, device=d) for d in (cuda, "cpu"))
+        assert got.device.type == "cuda" and got.is_coalesced()
+        assert torch.equal(got.indices().cpu(), want.indices()) and torch.equal(got.values().cpu(), want.values())
+    assert torch.equal(tct.PauliStringSum2Dense(ls, w, device=cuda),
+                       tct.PauliStringSum2COO(ls, w, device=cuda).to_dense())
+
+
+def test_entanglement_entropy_and_its_gradient_on_card_match_cpu(cuda):
+    """The half-chain entanglement entropy of the n=12, L=4 TFIM state and
+    its gradient in the angles, on the card against the CPU path."""
+    g0 = np.random.default_rng(5).normal(size=(4, 2, 12)) * 0.5
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        p = convert.params(g0, dev).requires_grad_()
+        s = tct.quantum.entanglement_entropy(tfim_circuit(tct, p, 12, 4, device=dev).state(), 6)
+        (g,) = torch.autograd.grad(s, p)
+        out[dev.type] = (s.item(), g.cpu())
+    assert abs(out["cuda"][0] - out["cpu"][0]) <= 1e-5
+    assert (out["cuda"][1] - out["cpu"][1]).abs().max().item() <= 1e-4
+
+
+def test_stabilizer_renyi_entropy_on_card_matches_cpu(cuda):
+    """The SRE of an n=8 state (alpha 1 and 2) on the card against the CPU."""
+    rng = np.random.default_rng(2)
+    psi = rng.normal(size=256) + 1j * rng.normal(size=256)
+    psi = psi / np.linalg.norm(psi)
+    for alpha in (1, 2):
+        got = tct.quantum.stabilizer_renyi_entropy(torch.as_tensor(psi, dtype=torch.complex64, device=cuda), alpha)
+        want = tct.quantum.stabilizer_renyi_entropy(torch.as_tensor(psi, dtype=torch.complex64), alpha)
+        assert got.device.type == "cuda" and abs(got.item() - want.item()) <= 1e-6
+
+
+def test_hamiltonian_phase_checks_on_card(cuda):
+    """``chip_smoke.py``'s phase 17 at a small size on the card (at n=8 the
+    TFIM state takes the plain path: K2's and K3's launches are the
+    smoke's check, at n=20)."""
+    got = _hamiltonian_checks(tct, cuda, (), **HAM_SMALL)
+    assert got["nnz"] == 9 * 2**8

@@ -6,12 +6,22 @@ complex64 and complex128, and the card's Gram-eigh route
 gradient of phase 16's step equal to the exact SVD's (also through ten
 layers of sweeps at n=16, chi=64), and the Gram adjoint of a
 rank-deficient matrix equal to the exact SVD's, where the JAX package's is
-not (Queue 3 F8 of ``ROADMAP.md``).
+not (Queue 3 F8 of ``ROADMAP.md``); and the exact SVD's adjoint held to a
+central difference, on phase 16's step where chi binds (n=20, chi=32,
+depth 10, complex128, two angles, on 1 and 4 BLAS threads) and on one truncated matrix
+with kept values near the cut, where the JAX package's adjoint is not
+(Queue 3 F9).
 
 Tolerances: complex64 1e-5, complex128 1e-10; the Gram route against the
 exact SVD at complex128: the energy 1e-9, the gradient 1e-6 of its largest
 entry (n=16: 1e-6 relative; at complex64 1e-4: 4e-6 measured), the
-rank-deficient adjoint 1e-8 of its largest entry.
+rank-deficient adjoint 1e-8 of its largest entry; the exact SVD's
+gradient of phase 16's step against the central difference 1e-8 (7e-10
+measured; the JAX package's rule is 3e-4 to 1.4e-2 of the largest entry
+off, as the thread count moves it),
+the truncated matrix's directional derivative 1e-5 relative (6e-7
+measured, the difference's own error at h=1e-7; the JAX package's 38 %
+off).
 """
 
 import functools
@@ -192,3 +202,83 @@ def test_gram_gradient_of_a_rank_deficient_matrix(cpu, monkeypatch):
         tc.set_dtype("complex64")
     np.testing.assert_allclose(ge, grads[0], rtol=0, atol=1e-8 * np.abs(grads[0]).max())
     assert np.abs(gj - grads[0]).max() > 0.1 * np.abs(grads[0]).max()
+
+
+#: phase 16 (a)'s step where chi binds at a test's size, and the angles at
+#: which the exact SVD's gradient under the JAX package's adjoint rule is
+#: furthest off: (3, 1, 14), where it differed most from the Gram route's
+#: (``tools/mps_gram_drift.py``'s search at this size, one thread: 0.452058
+#: against the central difference's 0.451736), and (5, 1, 9), where it
+#: differs most from the port's on four threads (0.380225 against 0.393931)
+#: (Queue 3 F9)
+F9_SIZE = {"n": 20, "chi": 32, "depth": 10}
+F9_ANGLES = ((3, 1, 14), (5, 1, 9))
+
+
+@pytest.mark.parametrize("threads", [1, 4])
+def test_exact_svd_gradient_of_phase16_step_matches_central_difference(cpu, monkeypatch, threads):
+    """The exact SVD's gradient of phase 16 (a)'s step (complex128, every
+    middle bond truncated to chi) at :data:`F9_ANGLES` against a central
+    difference of the energy (h=1e-5), on 1 and 4 BLAS threads."""
+    n, chi, depth = F9_SIZE["n"], F9_SIZE["chi"], F9_SIZE["depth"]
+    g0 = cs.mps_vqe_angles(n, depth)
+    monkeypatch.setattr(TL, "USE_GRAM_SVD", False)
+    saved = torch.get_num_threads()
+    torch.set_num_threads(threads)
+    try:
+        with threadpoolctl.threadpool_limits(threads), tct.set_dtype("complex128"):
+            _, g, _, _, c = cs.mps_vqe_step(tct, "cpu", g0, n, chi)
+            assert max(c.get_bond_dimensions()) == chi
+            h = 1e-5
+            for angle in F9_ANGLES:
+                e = []
+                with torch.no_grad():
+                    for sign in (1.0, -1.0):
+                        p = g0.copy()
+                        p[angle] += sign * h
+                        e.append(cs.tfim_energy_ps(cs.mps_vqe_circuit(tct, torch.as_tensor(p), n, chi), n).item())
+                assert abs(g[angle].item() - (e[0] - e[1]) / (2 * h)) < 1e-8, angle
+    finally:
+        torch.set_num_threads(saved)
+
+
+def test_exact_svd_adjoint_near_a_truncation_cut(cpu):
+    """A rank-4 truncation of an 8x8 complex128 matrix whose kept and
+    discarded singular values near the cut lie 1e-3 apart: the exact SVD's
+    directional derivative against a central difference, and the JAX
+    package's, whose absolute 1e-12 in 1/(s_j² - s_i²) is 38 % off there
+    (Queue 3 F9)."""
+    from tensorcircuit_ng_tpu.core import linalg as JL
+
+    rng = np.random.default_rng(0)
+
+    def c(*shape):
+        return rng.normal(size=shape) + 1j * rng.normal(size=shape)
+
+    u0, v0 = np.linalg.qr(c(8, 8))[0], np.linalg.qr(c(8, 8))[0]
+    a = (u0 * np.array([1.0, 0.6, 0.3, 2.0e-3, 1.5e-3, 1.2e-3, 1e-3, 5e-4])) @ v0.conj().T
+    w, b, e = c(8, 8), c(8, 8), c(8, 8)
+
+    def loss(svd, xp, cast):
+        wx, bx = cast(w), cast(b)
+
+        def f(x):
+            u, s, vh = svd(x)
+            u, s, vh = u[:, :4], s[:4], vh[:4]
+            return xp.real(xp.sum(((u * s[None, :]) @ (vh @ wx)) * xp.conj(bx)))
+        return f
+
+    f = loss(TL.adaware_svd, torch, torch.as_tensor)
+    x = torch.as_tensor(a).requires_grad_()
+    (g,) = torch.autograd.grad(f(x), x)
+    got = np.real(np.sum(np.conj(g.numpy()) * e))
+    h = 1e-7
+    with torch.no_grad():
+        want = (f(torch.as_tensor(a + h * e)).item() - f(torch.as_tensor(a - h * e)).item()) / (2 * h)
+    assert abs(got - want) < 1e-5 * abs(want)
+    tc.set_dtype("complex128")
+    try:
+        gj = np.asarray(jax.grad(loss(JL.adaware_svd, jnp, jnp.asarray))(jnp.asarray(a)))
+    finally:
+        tc.set_dtype("complex64")
+    assert abs(np.real(np.sum(gj * e)) - want) > 0.1 * abs(want)
