@@ -7,8 +7,10 @@ QAOA MaxCut training step through the public API, runs the staged
 micro-benchmark of K2's design, and times them; then drives the rest of the
 circuit API (echo, remapping, Pauli strings, light cone, the unitary) and
 sampling (shots in six formats, trajectories, readout error, shot-noise
-expectations, feed-forward) and noise at the same width, and the
-contraction engine past the dense cliff.
+expectations, feed-forward) and noise at the same width, the contraction
+engine past the dense cliff, the MPS simulators, the Hamiltonians and the
+QI toolbox, and the backend's transforms (the training step as a captured
+CUDA graph, vvag, parameter shift, Adam), time evolution and shadows.
 
     python3 chip_smoke.py
 
@@ -283,7 +285,29 @@ Phases (any failure exits non-zero; nothing is caught):
      phase 9's graph (n=20, p=4) through ``operator_expectation`` of
      ``ising_hamiltonian`` against ``spin_glass_measurements``; then the
      COO build, the COO's and the product's value and grad, the entropy,
-     its gradient and the SRE timed with busy share and peak memory.
+     its gradient and the SRE timed with busy share and peak memory;
+ 18. the backend's transforms, time evolution and shadows at full width
+     (no kernel of their own), each check across devices against the
+     port's CPU path, whose references the child process computes after
+     phase 17's (:func:`_transform_checks`, :func:`_transform_reference`):
+     (a) the n=20, L=4 training step ``backend.jit(backend.value_and_grad
+     (energy, argnums=(0, 1)))``, captured as a CUDA graph at its first
+     call (K2 and K4 launched in the eager run and in the capture), its 3
+     replays equal to the uncaptured step bit for bit and to the CPU path
+     within 1e-4; (b) ``jit(vvag(...))`` over 8 seeded restarts (K2/K4
+     once a restart), each value and gradient within 1e-5 of its eager
+     step, relative, and 1e-4 of the CPU path; (c)
+     ``experimental.parameter_shift_grad`` under ``jit`` (2 x 156 shifted
+     energies, K2 a shift) against (a)'s autograd gradient; (d) 5 steps of
+     ``backend.optimizer(torch.optim.Adam, lr=0.05)`` on (a)'s jitted step
+     against the CPU path; (e) the L=4 state evolved to t=0.5 under the
+     n=20 TFIM COO by ``krylov_evol`` and ``chebyshev_evol`` in complex128:
+     norm, <Z_0>, <X_10> against the CPU path (1e-5) and each other
+     (1e-4); (f) 2,048 x 4 shadow snapshots: <Z_0 Z_1>, <X_5> and the
+     Renyi-2 entropy of qubits 0-1 within 5 standard errors of the exact
+     values; then the captured and uncaptured steps (CUDA events, median
+     of 20, and busy time under torch.profiler), vvag, the parameter shift
+     and both evolutions (with their peak memory) timed.
 
 Prints the kernels JSON line, then the card's name and power limit, then
 ``{"ok": true, "device": {...}}`` as the last line.  Needs no network and
@@ -3871,7 +3895,8 @@ def _reference_child(out):
     """``python3 chip_smoke.py --references DIR``: the port's CPU path of
     phase 14 (:func:`_noise_reference`), then phase 15 (c)'s brickwork
     shots, then :func:`_mps_reference` at phase 16's full sizes, then
-    :func:`_hamiltonian_values` at phase 17's, each saved (torch.save) into
+    :func:`_hamiltonian_values` at phase 17's, then
+    :func:`_transform_reference` at phase 18's, each saved (torch.save) into
     DIR as it ends (:data:`REFERENCES`).  The Gram-against-exact drift is left to
     ``tools/mps_gram_drift.py``: three more runs of (a) on the CPU would
     crowd phases 12-16."""
@@ -3896,6 +3921,9 @@ def _reference_child(out):
         t0 = time.perf_counter()
         ham = _hamiltonian_values(tct, "cpu", **HAM_SIZES)
         save("ham", {**ham, "seconds": time.perf_counter() - t0})
+        t0 = time.perf_counter()
+        transform = _transform_reference(tct, **TRANSFORM_SIZES)
+        save("transform", {**transform, "seconds": time.perf_counter() - t0})
     return 0
 
 
@@ -4106,7 +4134,7 @@ def _qop_pairs(v):
 
 #: the files of the CPU references' child process, under build/
 REFERENCES = {"noise": "phase14_reference.pt", "brickwork": "phase15_brickwork.pt", "mps": "phase16_reference.pt",
-              "ham": "phase17_reference.pt"}
+              "ham": "phase17_reference.pt", "transform": "phase18_reference.pt"}
 #: the longest a phase waits for one of them
 REF_TIMEOUT = 600
 
@@ -4504,6 +4532,309 @@ def _hamiltonian_phase(tct, card, counters, job):
               f"top kernels {top}")
     print(f"phase 17 wall time: checks {t1 - t0:.1f} s (of which waiting {wait.get('s', 0.0):.1f} s), timing "
           f"{time.perf_counter() - t1:.1f} s")
+
+
+# ---- phase 18: the backend's transforms, time evolution and shadows -------
+
+#: phase 18's sizes: the main path (n, nl), vvag's restarts, Adam's steps,
+#: the evolution time, the Krylov dimension (‖H‖·t ≤ 19.5 at n=20: 30
+#: complex128 Lanczos steps agree with Chebyshev to 3e-16 on the CPU), the
+#: shadow settings and shots a setting
+TRANSFORM_SIZES = {"n": N, "nl": L, "restarts": 8, "steps": 5, "t": 0.5, "krylov": 30, "settings": 2048,
+                   "repeat": 4}
+#: the same checks at a CPU test's size
+TRANSFORM_SMALL = {"n": 8, "nl": 2, "restarts": 3, "steps": 2, "t": 0.5, "krylov": 20, "settings": 512,
+                   "repeat": 4}
+#: (a), (b), (d): the card against the port's CPU path (phase 4's tolerance)
+TRANSFORM_ATOL = 1e-4
+#: (b): each restart's value and gradient against its own eager step on
+#: the same device, relative to the largest entry
+VVAG_RTOL = 1e-5
+#: (c): the parameter-shift gradient against autograd's, relative to the
+#: largest entry (the two-term rule is exact for rx and the zz phase; float32)
+SHIFT_RTOL = 1e-4
+#: (d): Adam's rate (optax.adam(0.05)'s b1, b2, eps)
+ADAM_LR = 0.05
+#: (e): the norm, <Z_0> and <X_n/2> after exp(-iHt) (complex128) against
+#: the CPU path, and Krylov against Chebyshev on one device
+EVOL_ATOL = 1e-5
+EVOL_METHODS_ATOL = 1e-4
+#: (f): the shadow estimates within this many standard errors of the exact
+SHADOW_SIGMAS = 5.0
+
+
+def transform_energy(tct, n, nl, device):
+    """The main path as a function of the angles ``(zz (nl, n-1), rx (nl,
+    n))`` (``bench.py:204-227``'s circuit: h_layer, nl zzrx_layers, the
+    fused ZZ - X energy)."""
+    pairs = [(i, i + 1) for i in range(n - 1)]
+
+    def energy(zz, rx):
+        c = tct.Circuit(n, device=device)
+        c.h_layer()
+        for l in range(nl):
+            c.zzrx_layer(pairs, zz[l], rx[l])
+        return c.expectation_zzx_energy(pairs, 1.0, -1.0)
+
+    return energy
+
+
+def transform_angles(n, nl, b=None, seed=42):
+    """``(zz, rx)`` numpy angles from ``bench.py``'s seeded parameters (b
+    restarts from another seed: (b, nl, 2, n) stacked)."""
+    if b is None:
+        g0 = np.random.default_rng(seed).normal(size=(nl, 2, n)) * 0.1
+        return g0[:, 0, : n - 1], g0[:, 1]
+    return np.random.default_rng(seed + 1).normal(size=(b, nl, 2, n)) * 0.1
+
+
+def _tfim_coo_state(tct, dev, n, nl):
+    """(the TFIM COO on ``dev``, phase 17's L=nl state there, the bound
+    ‖H‖ ≤ Σ|w| = 2n - 1 as spectral bounds), both in complex128: a
+    complex64 Lanczos run drifts by 1e-4 in the norm at n=20, more than
+    the check across devices allows."""
+    import torch
+
+    with tct.set_dtype("complex128"):
+        h = tct.templates.hamiltonians.tfim_hamiltonian(n, device=dev)
+    g0 = np.random.default_rng(42).normal(size=(nl, 2, n)) * 0.1
+    psi = tfim_circuit(tct, tct.convert.params(g0, dev), n, nl, device=dev).state().to(torch.complex128)
+    return h, psi, (2.0 * n - 1, -(2.0 * n - 1))
+
+
+def _evol_readouts(tct, psi, n):
+    """(norm, <Z_0>, <X_n/2>) of a state, as Python floats."""
+    import torch
+    from tensorcircuit_ng_tpu_torch.core import statevec
+
+    x = np.array([[0.0, 1.0], [1.0, 0.0]])
+    z = np.diag([1.0, -1.0])
+    norm = torch.linalg.vector_norm(psi).item()
+    ez = torch.real(torch.vdot(psi, statevec.apply_unitary(psi, z, [0]))).item()
+    ex = torch.real(torch.vdot(psi, statevec.apply_unitary(psi, x, [n // 2]))).item()
+    return norm, ez, ex
+
+
+def _transform_reference(tct, n=N, nl=L, restarts=8, steps=5, t=0.5, krylov=30, **_):
+    """Phase 18's CPU references (the port's CPU path, where ``jit`` runs
+    eagerly): (a) the value and gradient, (b) each restart's, (d) the
+    energies of the Adam steps, (e) the readouts of the evolved state
+    (Krylov)."""
+    import torch
+
+    K = tct.backend
+    energy = transform_energy(tct, n, nl, "cpu")
+    zz, rx = (tct.convert.params(a, "cpu") for a in transform_angles(n, nl))
+    out = {}
+    e, (gz, gr) = K.value_and_grad(energy, argnums=(0, 1))(zz, rx)
+    out["a"] = (e.item(), gz, gr)
+    energy_p = lambda p: energy(p[:, 0, : n - 1], p[:, 1])  # noqa: E731
+    ps = tct.convert.params(transform_angles(n, nl, restarts), "cpu")
+    out["b"] = [K.value_and_grad(energy_p)(p) for p in ps]
+    out["d"] = _adam_energies(tct, K.value_and_grad(energy, argnums=(0, 1)), zz, rx, steps)
+    h, psi, _ = _tfim_coo_state(tct, "cpu", n, nl)
+    # the CPU path's evolved state (Krylov; Chebyshev agrees to 3e-16 there)
+    out["e"] = _evol_readouts(tct, tct.timeevol.krylov_evol(h, psi, t, krylov), n)
+    return out
+
+
+def _adam_energies(tct, step, zz, rx, steps):
+    """The energies of ``steps`` Adam steps (``backend.optimizer``) of the
+    value-and-grad ``step`` from (zz, rx)."""
+    import torch
+
+    opt = tct.backend.optimizer(torch.optim.Adam, lr=ADAM_LR)
+    energies = []
+    for _ in range(steps):
+        e, grads = step(zz, rx)
+        energies.append(e.item())
+        zz, rx = opt.update(grads, (zz, rx))
+    return energies
+
+
+def _transform_checks(tct, dev, counters=(), ref=None, **sizes):
+    """Phase 18's checks (a)-(f) on ``dev``, the ones across devices last
+    against the port's CPU path (``ref``: :func:`_transform_reference` or
+    a callable giving it, asked for after the card's work; computed here
+    when None).  On a card the launches of K2 and K4 are required, the
+    captured step must equal the uncaptured one bit for bit, and the
+    routes are timed; returns the times.  ``counters`` empty: no launch
+    is required (the plain path below n=18)."""
+    import torch
+    from tensorcircuit_ng_tpu_torch.core import statevec
+
+    sizes = {**TRANSFORM_SIZES, **sizes}
+    n, nl, b, steps, t = sizes["n"], sizes["nl"], sizes["restarts"], sizes["steps"], sizes["t"]
+    card = torch.device(dev).type == "cuda"
+    K = tct.backend
+    times = {}
+
+    def check(label, err, tol):
+        print(f"  {label}: {err:.3e} (tol {tol:g})")
+        if not err <= tol:
+            _fail(f"phase 18, {label}: {err} > {tol}")
+
+    def need(label, got, names, count):
+        print(f"  {label} launches: {got}")
+        if card and counters and any(got.get(k, 0) != count for k in names):
+            _fail(f"phase 18, {label}: launches {got}, want {names} {count} times each")
+
+    def lap(key, fn, reps=20):
+        if card:
+            times[key] = _time_ms(fn, reps=reps, inner=1, warmup=1)
+
+    def grads_err(a, b):
+        return max((x.detach().cpu() - y.detach().cpu()).abs().max().item() for x, y in zip(a, b))
+
+    energy = transform_energy(tct, n, nl, dev)
+    zz, rx = (tct.convert.params(a, dev) for a in transform_angles(n, nl))
+    vg = K.value_and_grad(energy, argnums=(0, 1))
+    # (a) the training step under jit: K2 forward and K4 backward in the graph
+    jvg = K.jit(vg)
+    _reset(counters)
+    first = jvg(zz, rx)
+    if card:
+        torch.cuda.synchronize()
+    need("(a) jit's first call (eager, then the capture)", _launched(counters),
+         ("grand_zzrx_fwd", "grand_zzrx_bwd"), 2)
+    _reset(counters)
+    replays = [jvg(zz, rx) for _ in range(3)]
+    if card:
+        torch.cuda.synchronize()
+        print(f"  (a) launches counted over 3 replays (a replay runs no Python): {_launched(counters) or 'none'}; "
+              f"graphs captured {jvg.captures}")
+    eager = vg(zz, rx)
+    if card:
+        same = all(torch.equal(r[0], eager[0]) and all(torch.equal(x, y) for x, y in zip(r[1], eager[1]))
+                   for r in replays)
+        print(f"  (a) 3 replays equal to the uncaptured step bit for bit: {same}")
+        if not same or jvg.captures != 1:
+            _fail("phase 18 (a): the captured step differs from the uncaptured one")
+    lap("(a) the step under jit (a graph replay)", lambda: jvg(zz, rx)[0])
+    lap("(a) the uncaptured step", lambda: vg(zz, rx)[0])
+    if card:
+        for key, fn in (("(a) busy, under jit", lambda: jvg(zz, rx)), ("(a) busy, uncaptured", lambda: vg(zz, rx))):
+            times[key] = _profile(fn, reps=10, cpu=False)[1]
+
+    # (b) vvag over b seeded restarts: the vmap rule runs K2/K4 once a restart
+    energy_p = lambda p: energy(p[:, 0, : n - 1], p[:, 1])  # noqa: E731
+    ps = tct.convert.params(transform_angles(n, nl, b), dev)
+    vvag = K.vvag(energy_p, argnums=0, vectorized_argnums=0)
+    _reset(counters)
+    vvag(ps)
+    need(f"(b) vvag over {b} restarts", _launched(counters), ("grand_zzrx_fwd", "grand_zzrx_bwd"), b)
+    jvvag = K.jit(vvag)
+    _reset(counters)
+    jvvag(ps)
+    need("(b) jit of vvag's first call (eager, then the capture)", _launched(counters),
+         ("grand_zzrx_fwd", "grand_zzrx_bwd"), 2 * b)
+    jvs, jgs = jvvag(ps)
+    for i in range(b):
+        e1, g1 = K.value_and_grad(energy_p)(ps[i])
+        check(f"(b) restart {i} |dE|/|E| against its eager step", abs(jvs[i].item() - e1.item()) / abs(e1.item()),
+              VVAG_RTOL)
+        check(f"(b) restart {i} max |dgrad| against its eager step, relative",
+              (jgs[i] - g1).abs().max().item() / max(g1.abs().max().item(), 1e-30), VVAG_RTOL)
+    lap(f"(b) jit of vvag, {b} restarts", lambda: jvvag(ps)[0], reps=5)
+
+    # (c) parameter shift: 2 x nl (2n - 1) shifted energies, vmapped, K2 a shift
+    shift = K.jit(tct.experimental.parameter_shift_grad(energy, argnums=(0, 1)))
+    m = zz.numel() + rx.numel()
+    _reset(counters)
+    shift(zz, rx)
+    need(f"(c) parameter shift's first call ({2 * m} shifted energies, eager then captured)",
+         _launched(counters), ("grand_zzrx_fwd",), 2 * 2 * m)
+    scale = max(x.abs().max().item() for x in eager[1])
+    check("(c) parameter shift under jit against autograd, max |dgrad| / max |grad|",
+          grads_err(shift(zz, rx), eager[1]) / scale, SHIFT_RTOL)
+    lap(f"(c) parameter shift under jit ({2 * m} energies)", lambda: shift(zz, rx)[0], reps=3)
+
+    # (d) Adam on the jitted step
+    adam = _adam_energies(tct, jvg, zz, rx, steps)
+    if not adam[-1] < adam[0]:
+        _fail("phase 18 (d): Adam did not lower the energy")
+
+    # (e) time evolution of the TFIM state by Krylov and by Chebyshev
+    h, psi, bounds = _tfim_coo_state(tct, dev, n, nl)
+    te = tct.timeevol
+    evolved = {"krylov": lambda: te.krylov_evol(h, psi, t, sizes["krylov"]),
+               "chebyshev": lambda: te.chebyshev_evol(h, psi, t, bounds)}
+    reads = {}
+    for name, fn in evolved.items():
+        if card:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+        reads[name] = _evol_readouts(tct, fn(), n)
+        if card:
+            times[f"(e) {name} peak MiB"] = (torch.cuda.max_memory_allocated() - base) / 2**20
+        lap(f"(e) {name} to t={t}", lambda fn=fn: fn()[0], reps=3)
+    for label, a, c in zip(("norm", "<Z_0>", f"<X_{n // 2}>"), reads["krylov"], reads["chebyshev"]):
+        check(f"(e) Krylov against Chebyshev, {label}", abs(a - c), EVOL_METHODS_ATOL)
+
+    # (f) classical shadows of the same state
+    ns, repeat = sizes["settings"], sizes["repeat"]
+    srng = np.random.default_rng(5)
+    strings = srng.integers(0, 3, size=(ns, n))
+    status = srng.random((ns, repeat))
+    sh = tct.shadows
+    t0 = time.perf_counter()
+    snaps = sh.shadow_snapshots(psi, strings, status)
+    if card:
+        torch.cuda.synchronize()
+        times[f"(f) {ns} x {repeat} snapshots, wall"] = (time.perf_counter() - t0) * 1e3
+    for label, kw, wires, op in (("Z_0 Z_1", {"z": [0, 1]}, [0, 1], np.kron(np.diag([1.0, -1]), np.diag([1.0, -1]))),
+                                 ("X_5", {"x": [5]}, [5], np.array([[0.0, 1], [1, 0]]))):
+        ests = torch.stack(sh.expectation_ps_shadow(snaps, strings, k=ns, **kw)).cpu().numpy()
+        exact = torch.real(torch.vdot(psi, statevec.apply_unitary(psi, op, wires))).item()
+        sigma = ests.std() / np.sqrt(ns)
+        print(f"  (f) <{label}> shadow {ests.mean():.5f} exact {exact:.5f} sigma {sigma:.5f}")
+        check(f"(f) <{label}> |shadow - exact| / sigma", abs(ests.mean() - exact) / sigma, SHADOW_SIGMAS)
+    rho = statevec.reduced_density_matrix(psi, [0, 1])
+    s_exact = -np.log(torch.real(torch.trace(rho @ rho)).item())
+    s_all = sh.renyi_entropy_2(snaps, [0, 1])
+    groups = 16
+    purities = [np.exp(-sh.renyi_entropy_2(g, [0, 1])) for g in snaps.cpu().numpy().reshape(groups, -1, repeat, n)]
+    sigma_s = np.std(purities) / np.sqrt(groups) / np.exp(-s_all)
+    print(f"  (f) Renyi-2 of qubits 0-1: shadow {s_all:.5f} exact {s_exact:.5f} sigma {sigma_s:.5f} "
+          f"({groups} groups)")
+    check("(f) Renyi-2 |shadow - exact| / sigma", abs(s_all - s_exact) / sigma_s, SHADOW_SIGMAS)
+
+    # against the port's CPU path
+    reference = ref() if callable(ref) else (ref if ref is not None else _transform_reference(tct, **sizes))
+    e_ref, gz_ref, gr_ref = reference["a"]
+    for i, (e, g) in enumerate([first] + replays):
+        check(f"(a) call {i} |dE| against the CPU path", abs(e.item() - e_ref), TRANSFORM_ATOL)
+        check(f"(a) call {i} max |dgrad| against the CPU path", grads_err(g, (gz_ref, gr_ref)), TRANSFORM_ATOL)
+    for i, (e_c, g_c) in enumerate(reference["b"]):
+        check(f"(b) restart {i} |dE| against the CPU path", abs(jvs[i].item() - e_c.item()), TRANSFORM_ATOL)
+        check(f"(b) restart {i} max |dgrad| against the CPU path", grads_err([jgs[i]], [g_c]), TRANSFORM_ATOL)
+    for i, (e, e_c) in enumerate(zip(adam, reference["d"])):
+        check(f"(d) Adam step {i} E {e:.7f} against the CPU path", abs(e - e_c), TRANSFORM_ATOL)
+    for name in evolved:
+        for label, a, c in zip(("norm", "<Z_0>", f"<X_{n // 2}>"), reads[name], reference["e"]):
+            check(f"(e) {name} {label} {a:.10f} against the CPU path", abs(a - c), EVOL_ATOL)
+    return times
+
+
+def _transform_phase(tct, card, counters, job):
+    """Phase 18: :func:`_transform_checks` on the card against the CPU
+    references of the child process, then its times."""
+    t0 = time.perf_counter()
+    wait = {}
+
+    def reference():
+        ref, wait["s"] = _await_reference(job, "transform")
+        print(f"phase 18 CPU references (the child process): waited {wait['s']:.1f} s; "
+              f"{ref['seconds']:.1f} s there")
+        return ref
+
+    times = _transform_checks(tct, "cuda", counters, ref=reference)
+    for key, ms in times.items():
+        unit = "" if "MiB" in key else " ms"
+        how = "" if "MiB" in key or "busy" in key or "wall" in key else " (CUDA events, median)"
+        print(f"phase 18 time, {key}: {ms:.4f}{unit}{how}, {card}")
+    print(f"phase 18 wall time: {time.perf_counter() - t0:.1f} s (of which waiting {wait.get('s', 0.0):.1f} s)")
 
 
 def main() -> int:
@@ -5038,6 +5369,10 @@ def main() -> int:
     # ---- 17. the Hamiltonians and the QI toolbox at full width ----------
     _hamiltonian_phase(tct, card, every_counter, ref_job)
     print(f"phase 17 ended at {time.time() - t_start:.1f} s")
+
+    # ---- 18. the backend's transforms, time evolution, shadows ---------
+    _transform_phase(tct, card, every_counter, ref_job)
+    print(f"phase 18 ended at {time.time() - t_start:.1f} s")
     print(f"smoke total: {time.time() - t_start:.1f} s")
     print(json.dumps(kernels_line))
     print(card)

@@ -96,7 +96,7 @@ into ``build/kernels/``); on the CPU (``device="cpu"`` or
 ``set_device("cpu")``) they run their plain torch versions.
 """
 
-from . import config, convert, dmrg, noisemodel, quantum, simplify, templates
+from . import config, convert, dmrg, experimental, noisemodel, quantum, shadows, simplify, templates, timeevol
 from .backend import TorchBackend, backend
 from .config import (
     dtypestr,
@@ -170,6 +170,7 @@ __all__ = [
     "convert",
     "dmrg",
     "dtypestr",
+    "experimental",
     "expectation",
     "gates",
     "get_backend",
@@ -189,6 +190,8 @@ __all__ = [
     "set_function_backend",
     "set_function_contractor",
     "set_function_dtype",
+    "shadows",
     "simplify",
     "templates",
+    "timeevol",
 ]

@@ -13,6 +13,7 @@ object: used as a context manager it restores the previous value on exit.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
 from typing import Any, Callable, Iterator, Optional, Tuple, Union
 
@@ -44,6 +45,9 @@ __all__ = [
     "contractor_options",
     "runtime_contractor",
     "set_function_contractor",
+    "Config",
+    "current",
+    "get_backend_name",
 ]
 
 _COMPLEX_TO_REAL = {"complex64": "float32", "complex128": "float64"}
@@ -151,6 +155,42 @@ def np_dtype(dtype: Optional[str] = None) -> np.dtype:
     return np.dtype(_normalize_dtype(dtype or _dtype))
 
 
+@dataclasses.dataclass(frozen=True)
+class Config:
+    """A snapshot of the runtime configuration (:func:`current`), with the
+    JAX package's ``Config`` fields and properties, and the device."""
+
+    dtype: str = "complex64"
+    backend: str = "pytorch"
+    contractor: str = "auto"
+    contractor_options: Optional[dict] = None
+    device: str = "cuda"
+
+    @property
+    def rdtype(self) -> str:
+        """The real dtype paired with :attr:`dtype`."""
+        return _COMPLEX_TO_REAL[self.dtype]
+
+    @property
+    def idtype(self) -> str:
+        """The integer dtype paired with :attr:`dtype`."""
+        return "int64" if self.dtype == "complex128" else "int32"
+
+    @property
+    def npdtype(self) -> np.dtype:
+        return np.dtype(self.dtype)
+
+
+def current() -> Config:
+    """The active configuration as a :class:`Config`."""
+    return Config(_dtype, _backend, _contractor, _contractor_options, _device)
+
+
+def get_backend_name() -> str:
+    """The configured backend's name (``"pytorch"``)."""
+    return _backend
+
+
 def normalize_backend(name: Any) -> str:
     """``"pytorch"`` (alias ``"torch"``), the port's one backend; anything
     else is a ValueError."""
@@ -251,7 +291,10 @@ _CONSTANT_MAX_ELEMS = 4096
 @functools.lru_cache(maxsize=512)
 def _cached_constant(data: bytes, shape: tuple, np_dtype: str, device: str, dtype: torch.dtype) -> torch.Tensor:
     a = np.frombuffer(data, dtype=np.dtype(np_dtype)).reshape(shape)
-    return torch.as_tensor(a.copy()).to(device=device, dtype=dtype)
+    # made outside any torch.func transform: a constant kept past the
+    # transform that first asked for it must not carry its level
+    with torch._C._DisableFuncTorch():
+        return torch.as_tensor(a.copy()).to(device=device, dtype=dtype)
 
 
 def device_constant(a: Any, device: Union[str, torch.device], dtype: torch.dtype) -> torch.Tensor:

@@ -39,6 +39,7 @@ import torch
 
 from . import _build
 from . import linalg as _linalg
+from .transform_rules import front_vmap
 
 __all__ = [
     "jacobi_rotations",
@@ -322,10 +323,12 @@ jacobi_svd_pallas = jacobi_svd_nodiff
 
 class _JacobiSVD(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, a, sweeps, accumulate_v, presort):
-        u, s, vh = jacobi_svd_nodiff(a, sweeps, accumulate_v, presort)
-        ctx.save_for_backward(a, u, s, vh)
-        return u, s, vh
+    def forward(a, sweeps, accumulate_v, presort):
+        return jacobi_svd_nodiff(a, sweeps, accumulate_v, presort)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(inputs[0], *output)
 
     @staticmethod
     def backward(ctx, du, ds, dvh):
@@ -334,6 +337,11 @@ class _JacobiSVD(torch.autograd.Function):
         ds = torch.zeros_like(s) if ds is None else ds
         dvh = torch.zeros_like(vh) if dvh is None else dvh
         return _linalg._svd_bwd_conjconv(a, u, s, vh, du, ds, dvh), None, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        # batched already: the batch in front, one call (one K5 launch)
+        return front_vmap(info, in_dims, _JacobiSVD.apply, args)
 
 
 def jacobi_svd(

@@ -36,6 +36,7 @@ import torch
 
 from . import _build
 from . import kernels_rowlayer as krl
+from .transform_rules import each, loop_vmap
 from ..ops.gates import rx_matrix
 
 __all__ = [
@@ -323,24 +324,34 @@ class _Multilayer(torch.autograd.Function):
     K10 backward; the residual is the output."""
 
     @staticmethod
-    def forward(ctx, pairs, n, state2d, zz_thetas, rx_row_thetas, mlane):
+    def forward(pairs, n, state2d, zz_thetas, rx_row_thetas, mlane):
         mr, mi = krl._state_planes(mlane.detach())
         yr, yi = ml_fwd(pairs, n, zz_thetas, rx_row_thetas, *krl._state_planes(state2d), mr, mi)
-        ctx.pairs, ctx.n = pairs, n
-        ctx.save_for_backward(yr, yi, zz_thetas, rx_row_thetas, mr, mi)
-        ctx.mdtype = mlane.dtype
-        return torch.complex(yr, yi).to(state2d.dtype)
+        return torch.complex(yr, yi).to(state2d.dtype), yr, yi, mr, mi
 
     @staticmethod
-    def backward(ctx, g):
+    def setup_context(ctx, inputs, output):
+        pairs, n, _, zz_thetas, rx_row_thetas, mlane = inputs
+        _, yr, yi, mr, mi = output
+        ctx.pairs, ctx.n, ctx.mdtype = pairs, n, mlane.dtype
+        ctx.mark_non_differentiable(yr, yi, mr, mi)
+        ctx.save_for_backward(yr, yi, zz_thetas, rx_row_thetas, mr, mi)
+
+    @staticmethod
+    def backward(ctx, g, *_):
         yr, yi, zz, rx, mr, mi = ctx.saved_tensors
-        dsr, dsi, dzz, dth, dmr, dmi = ml_bwd(
-            ctx.pairs, ctx.n, zz, rx, yr, yi, *krl.conj_planes(g), mr, mi
+        pairs, n = ctx.pairs, ctx.n
+        dsr, dsi, dzz, dth, dmr, dmi = each(
+            lambda *t: ml_bwd(pairs, n, *t), zz, rx, yr, yi, *krl.conj_planes(g), mr, mi
         )
         return (
             None, None, krl.grad_of_planes(dsr, dsi).to(g.dtype), dzz.to(zz.dtype),
             dth.to(rx.dtype), krl.grad_of_planes(dmr, dmi).to(ctx.mdtype),
         )
+
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        return loop_vmap(info, in_dims, _Multilayer.apply, args)
 
 
 def zzrx_multilayer(
@@ -358,7 +369,7 @@ def zzrx_multilayer(
     lanes) unitary right-multiplication matrices.  Differentiable in all four
     through K10 (the JAX ``zzrx_multilayer``)."""
     pairs = tuple((int(a), int(b)) for a, b in pairs)
-    return _Multilayer.apply(pairs, n, state2d, zz_thetas, rx_row_thetas, mlane)
+    return _Multilayer.apply(pairs, n, state2d, zz_thetas, rx_row_thetas, mlane)[0]
 
 
 def zzrx_multilayer_xla(pairs, n, state, zz_thetas, rx_thetas, split=(7, 7)):

@@ -65,6 +65,7 @@ import numpy as np
 import torch
 
 from . import _build
+from .transform_rules import each, loop_vmap
 
 __all__ = [
     "row_fwd",
@@ -753,21 +754,32 @@ class _ZzrxRowLayer(torch.autograd.Function):
     K3 (without the lane matrix) backward; the residual is the output."""
 
     @staticmethod
-    def forward(ctx, pairs, n, state2d, zz_thetas, rx_thetas):
-        ctx.pairs, ctx.n = pairs, n
+    def forward(pairs, n, state2d, zz_thetas, rx_thetas):
         yr, yi = zzrx_fwd(
             pairs, n, zz_thetas, rx_thetas,
             state2d.real.contiguous(), state2d.imag.contiguous(),
         )
-        ctx.save_for_backward(yr, yi, zz_thetas, rx_thetas)
-        return torch.complex(yr, yi).to(state2d.dtype)
+        return torch.complex(yr, yi).to(state2d.dtype), yr, yi
 
     @staticmethod
-    def backward(ctx, g):
+    def setup_context(ctx, inputs, output):
+        pairs, n, _, zz_thetas, rx_thetas = inputs
+        _, yr, yi = output
+        ctx.pairs, ctx.n = pairs, n
+        ctx.mark_non_differentiable(yr, yi)
+        ctx.save_for_backward(yr, yi, zz_thetas, rx_thetas)
+
+    @staticmethod
+    def backward(ctx, g, *_):
         yr, yi, zz, rx = ctx.saved_tensors
+        pairs, n = ctx.pairs, ctx.n
         ctr, cti = conj_planes(g)
-        dsr, dsi, dzz, dth = zzrx_bwd(ctx.pairs, ctx.n, zz, rx, yr, yi, ctr, cti)
+        dsr, dsi, dzz, dth = each(lambda *t: zzrx_bwd(pairs, n, *t), zz, rx, yr, yi, ctr, cti)
         return None, None, grad_of_planes(dsr, dsi).to(g.dtype), dzz.to(zz.dtype), dth.to(rx.dtype)
+
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        return loop_vmap(info, in_dims, _ZzrxRowLayer.apply, args)
 
 
 def zzrx_row_layer(
@@ -781,7 +793,7 @@ def zzrx_row_layer(
     complex64 ``(r, 128)`` state; differentiable in all three tensors
     through K3 (the JAX ``zzrx_row_layer``)."""
     pairs = tuple((int(a), int(b)) for a, b in pairs)
-    return _ZzrxRowLayer.apply(pairs, n, state2d, zz_thetas, rx_thetas)
+    return _ZzrxRowLayer.apply(pairs, n, state2d, zz_thetas, rx_thetas)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -1198,18 +1210,26 @@ class _RowLayer(torch.autograd.Function):
     backward; the residual is the output."""
 
     @staticmethod
-    def forward(ctx, state2d, gates):
+    def forward(state2d, gates):
         gr, gi = _gate_planes(gates)
         yr, yi = row_fwd(gr, gi, *_state_planes(state2d))
-        ctx.save_for_backward(yr, yi, gr, gi)
-        ctx.gdtype = gates.dtype
-        return torch.complex(yr, yi).to(state2d.dtype)
+        return torch.complex(yr, yi).to(state2d.dtype), yr, yi, gr, gi
 
     @staticmethod
-    def backward(ctx, g):
+    def setup_context(ctx, inputs, output):
+        ctx.mark_non_differentiable(*output[1:])
+        ctx.save_for_backward(*output[1:])
+        ctx.gdtype = inputs[1].dtype
+
+    @staticmethod
+    def backward(ctx, g, *_):
         yr, yi, gr, gi = ctx.saved_tensors
-        dsr, dsi, dgr, dgi = row_bwd(gr, gi, yr, yi, *conj_planes(g))
+        dsr, dsi, dgr, dgi = each(row_bwd, gr, gi, yr, yi, *conj_planes(g))
         return grad_of_planes(dsr, dsi).to(g.dtype), grad_of_planes(dgr, dgi).to(ctx.gdtype)
+
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        return loop_vmap(info, in_dims, _RowLayer.apply, args)
 
 
 class _RowLayerLane(torch.autograd.Function):
@@ -1217,23 +1237,31 @@ class _RowLayerLane(torch.autograd.Function):
     lane matrix forward, K7 with it backward."""
 
     @staticmethod
-    def forward(ctx, state2d, gates, mlane):
+    def forward(state2d, gates, mlane):
         gr, gi = _gate_planes(gates)
         mr, mi = _state_planes(mlane.detach())
         yr, yi = row_fwd(gr, gi, *_state_planes(state2d), mr, mi)
-        ctx.save_for_backward(yr, yi, gr, gi, mr, mi)
-        ctx.dtypes = (gates.dtype, mlane.dtype)
-        return torch.complex(yr, yi).to(state2d.dtype)
+        return torch.complex(yr, yi).to(state2d.dtype), yr, yi, gr, gi, mr, mi
 
     @staticmethod
-    def backward(ctx, g):
+    def setup_context(ctx, inputs, output):
+        ctx.mark_non_differentiable(*output[1:])
+        ctx.save_for_backward(*output[1:])
+        ctx.dtypes = (inputs[1].dtype, inputs[2].dtype)
+
+    @staticmethod
+    def backward(ctx, g, *_):
         yr, yi, gr, gi, mr, mi = ctx.saved_tensors
-        dsr, dsi, dgr, dgi, dmr, dmi = row_bwd(gr, gi, yr, yi, *conj_planes(g), mr, mi)
+        dsr, dsi, dgr, dgi, dmr, dmi = each(row_bwd, gr, gi, yr, yi, *conj_planes(g), mr, mi)
         return (
             grad_of_planes(dsr, dsi).to(g.dtype),
             grad_of_planes(dgr, dgi).to(ctx.dtypes[0]),
             grad_of_planes(dmr, dmi).to(ctx.dtypes[1]),
         )
+
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        return loop_vmap(info, in_dims, _RowLayerLane.apply, args)
 
 
 class _RowLayerConst(torch.autograd.Function):
@@ -1241,22 +1269,30 @@ class _RowLayerConst(torch.autograd.Function):
     K8 backward; the gate cotangent is zero."""
 
     @staticmethod
-    def forward(ctx, state2d, gates):
+    def forward(state2d, gates):
         gr, gi = _gate_planes(gates)
         yr, yi = row_fwd(gr, gi, *_state_planes(state2d))
-        ctx.save_for_backward(gr, gi)
-        ctx.gates_like = (gates.shape, gates.dtype)
-        return torch.complex(yr, yi).to(state2d.dtype)
+        return torch.complex(yr, yi).to(state2d.dtype), gr, gi
 
     @staticmethod
-    def backward(ctx, g):
+    def setup_context(ctx, inputs, output):
+        ctx.mark_non_differentiable(*output[1:])
+        ctx.save_for_backward(*output[1:])
+        ctx.gates_like = (inputs[1].shape, inputs[1].dtype)
+
+    @staticmethod
+    def backward(ctx, g, *_):
         gr, gi = ctx.saved_tensors
-        dsr, dsi = row_bwd_const(gr, gi, *conj_planes(g))
+        dsr, dsi = each(row_bwd_const, gr, gi, *conj_planes(g))
         dg = None
         if ctx.needs_input_grad[1]:
             shape, dtype = ctx.gates_like
             dg = torch.zeros(shape, dtype=dtype, device=g.device)
         return grad_of_planes(dsr, dsi).to(g.dtype), dg
+
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        return loop_vmap(info, in_dims, _RowLayerConst.apply, args)
 
 
 def row_layer(state2d: torch.Tensor, gates: torch.Tensor) -> torch.Tensor:
@@ -1264,7 +1300,7 @@ def row_layer(state2d: torch.Tensor, gates: torch.Tensor) -> torch.Tensor:
     ``(r, 128)`` complex view (gate k of stride ``2^(ng-1-k)``); UNITARY
     gates only (the backward un-applies them), ``ng <= MAX_KERNEL_QUBITS``.
     Differentiable in both through K7 (the JAX ``row_layer``)."""
-    return _RowLayer.apply(state2d, gates)
+    return _RowLayer.apply(state2d, gates)[0]
 
 
 def row_layer_lane(state2d: torch.Tensor, gates: torch.Tensor, mlane: torch.Tensor) -> torch.Tensor:
@@ -1272,13 +1308,13 @@ def row_layer_lane(state2d: torch.Tensor, gates: torch.Tensor, mlane: torch.Tens
     matrix, the transposed kron of the lane gates) in one kernel; gates and
     ``mlane`` unitary.  Differentiable in all three through K7 with the lane
     (the JAX ``row_layer_lane``)."""
-    return _RowLayerLane.apply(state2d, gates, mlane)
+    return _RowLayerLane.apply(state2d, gates, mlane)[0]
 
 
 def row_layer_const(state2d: torch.Tensor, gates: torch.Tensor) -> torch.Tensor:
     """:func:`row_layer` for constant gates: the backward is the cotangent
     walk alone (K8), the gate cotangent zero (the JAX ``row_layer_const``)."""
-    return _RowLayerConst.apply(state2d, gates)
+    return _RowLayerConst.apply(state2d, gates)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -1406,22 +1442,30 @@ class _RotxRowLayer(torch.autograd.Function):
     K12 backward; the residual is the output."""
 
     @staticmethod
-    def forward(ctx, state2d, thetas):
+    def forward(state2d, thetas):
         th = thetas.detach().to(torch.float32)
         yr, yi = rotx_fwd(th, *_state_planes(state2d))
-        ctx.save_for_backward(yr, yi, th)
-        ctx.tdtype = thetas.dtype
-        return torch.complex(yr, yi).to(state2d.dtype)
+        return torch.complex(yr, yi).to(state2d.dtype), yr, yi, th
 
     @staticmethod
-    def backward(ctx, g):
+    def setup_context(ctx, inputs, output):
+        ctx.mark_non_differentiable(*output[1:])
+        ctx.save_for_backward(*output[1:])
+        ctx.tdtype = inputs[1].dtype
+
+    @staticmethod
+    def backward(ctx, g, *_):
         yr, yi, th = ctx.saved_tensors
-        dsr, dsi, dth = rotx_bwd(th, yr, yi, *conj_planes(g))
+        dsr, dsi, dth = each(rotx_bwd, th, yr, yi, *conj_planes(g))
         return grad_of_planes(dsr, dsi).to(g.dtype), dth.to(ctx.tdtype)
+
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        return loop_vmap(info, in_dims, _RotxRowLayer.apply, args)
 
 
 def rotx_row_layer(state2d: torch.Tensor, thetas: torch.Tensor) -> torch.Tensor:
     """rx(thetas[k]) on the k-th of the nkernel lowest row bits of a
     complex64 ``(r, 128)`` view; differentiable in both through K12, which
     returns dθ directly (the JAX ``rotx_row_layer``)."""
-    return _RotxRowLayer.apply(state2d, thetas)
+    return _RotxRowLayer.apply(state2d, thetas)[0]

@@ -50,6 +50,7 @@ import torch
 
 from . import kernels_grand as kg
 from . import kernels_rowlayer as krl
+from .transform_rules import each, loop_vmap
 
 __all__ = [
     "zzrx_stack_core",
@@ -265,42 +266,86 @@ def _adjoint_chain(pairs, n, ksr, ksi, zz_thetas, rx_kernel_thetas, mout, mlane,
     )
 
 
-def _matrix_grads(ctx, zz_thetas, rx_kernel_thetas, mout, mlane, cr, ci):
+def _matrix_grads(ctx, zz_thetas, rx_kernel_thetas, mout, mlane, ks, cr, ci):
     """torch gradients of (state2d, zz, rx_kernel, mout, mlane) of a
-    matrix-level boundary from its output cotangent planes."""
-    dsr, dsi, dzz, dth, dmo, dml = _adjoint_chain(
-        ctx.pairs, ctx.n, *ctx.ks, zz_thetas, rx_kernel_thetas, mout, mlane, cr, ci,
-        ctx.fused, ctx.rmx,
+    matrix-level boundary from its output cotangent planes (the adjoint
+    chain's kernels through :func:`transform_rules.each`)."""
+    pairs, n, fused, rmx, nks = ctx.pairs, ctx.n, ctx.fused, ctx.rmx, ctx.nks
+
+    def chain(zz, th, mo, ml, cr, ci, *ks):
+        dsr, dsi, dzz, dth, dmo, dml = _adjoint_chain(
+            pairs, n, *_unpack_ks(ks, nks), zz, th, mo, ml, cr, ci, fused, rmx
+        )
+        return (dsr, dsi, dzz, dth) + dmo + dml
+
+    dsr, dsi, dzz, dth, dmor, dmoi, dmlr, dmli = each(
+        chain, zz_thetas, rx_kernel_thetas, mout, mlane, cr, ci, *ks
     )
     return (
         krl.grad_of_planes(dsr, dsi).to(ctx.state_dtype),
         dzz.to(zz_thetas.dtype),
         dth.to(rx_kernel_thetas.dtype),
-        krl.grad_of_planes(*dmo).to(mout.dtype),
-        krl.grad_of_planes(*dml).to(mlane.dtype),
+        krl.grad_of_planes(dmor, dmoi).to(mout.dtype),
+        krl.grad_of_planes(dmlr, dmli).to(mlane.dtype),
     )
+
+
+def _pack_ks(ksr, ksi) -> tuple:
+    """The residual states as flat extra outputs of a forward: K2's two
+    stacked (L, r, 128) planes, or the per-layer planes of each part."""
+    if torch.is_tensor(ksr):
+        return (ksr, ksi)
+    return tuple(ksr) + tuple(ksi)
+
+
+def _unpack_ks(ks, nks):
+    """``(ksr, ksi)`` of :func:`_pack_ks`'s outputs (``nks`` planes a part):
+    K2's stacked planes, or tuples of the per-layer ones."""
+    if nks == 1 and ks[0].dim() == 3:
+        return ks[0], ks[1]
+    return tuple(ks[:nks]), tuple(ks[nks:])
+
+
+def _save_stack(ctx, pairs, n, state2d, ks) -> None:
+    """The node's non-tensor state of a stack boundary; the residuals
+    ``ks`` (:func:`_pack_ks`) ride as saved tensors.  The mode is the
+    forward's: :func:`_stack_mode` reads it the same way just after."""
+    ctx.pairs, ctx.n = pairs, n
+    ctx.fused, ctx.rmx = _stack_mode(n, state2d)
+    ctx.nks = len(ks) // 2
+    ctx.state_dtype = state2d.dtype
+    ctx.mark_non_differentiable(*ks)
 
 
 class _StackCore(torch.autograd.Function):
     """Counterpart of the JAX ``zzrx_stack_core`` custom VJP."""
 
     @staticmethod
-    def forward(ctx, pairs, n, state2d, zz_thetas, rx_kernel_thetas, mout, mlane):
+    def forward(pairs, n, state2d, zz_thetas, rx_kernel_thetas, mout, mlane):
         fused, rmx = _stack_mode(n, state2d)
         yr, yi, ksr, ksi = _stack_fwd_impl(
             pairs, n, state2d, zz_thetas, rx_kernel_thetas, _planes(mout), _planes(mlane), fused, rmx
         )
-        # the residuals are intermediates (neither inputs nor outputs); the
-        # mode rides the node, so the backward follows this forward
-        ctx.pairs, ctx.n, ctx.fused, ctx.rmx, ctx.ks = pairs, n, fused, rmx, (ksr, ksi)
-        ctx.state_dtype = state2d.dtype
-        ctx.save_for_backward(zz_thetas, rx_kernel_thetas, mout, mlane)
-        return torch.complex(yr, yi).to(state2d.dtype)
+        # the residuals are intermediates (neither inputs nor the result):
+        # extra outputs, so that a transform's node keeps them
+        return (torch.complex(yr, yi).to(state2d.dtype),) + _pack_ks(ksr, ksi)
 
     @staticmethod
-    def backward(ctx, g):
+    def setup_context(ctx, inputs, output):
+        pairs, n, state2d, zz_thetas, rx_kernel_thetas, mout, mlane = inputs
+        ks = output[1:]
+        _save_stack(ctx, pairs, n, state2d, ks)
+        ctx.save_for_backward(zz_thetas, rx_kernel_thetas, mout, mlane, *ks)
+
+    @staticmethod
+    def backward(ctx, g, *_):
+        zz, th, mo, ml, *ks = ctx.saved_tensors
         cr, ci = krl.conj_planes(g)
-        return (None, None) + _matrix_grads(ctx, *ctx.saved_tensors, cr, ci)
+        return (None, None) + _matrix_grads(ctx, zz, th, mo, ml, ks, cr, ci)
+
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        return loop_vmap(info, in_dims, _StackCore.apply, args)
 
 
 def zzrx_stack_core(pairs, n, state2d, zz_thetas, rx_kernel_thetas, mout, mlane):
@@ -314,7 +359,7 @@ def zzrx_stack_core(pairs, n, state2d, zz_thetas, rx_kernel_thetas, mout, mlane)
     ``mlane`` must be unitary, as in the JAX package.  Differentiable in every tensor: the backward walks
     :func:`_adjoint_chain` (K3 on a CUDA state)."""
     pairs = tuple((int(a), int(b)) for a, b in pairs)
-    return _StackCore.apply(pairs, n, state2d, zz_thetas, rx_kernel_thetas, mout, mlane)
+    return _StackCore.apply(pairs, n, state2d, zz_thetas, rx_kernel_thetas, mout, mlane)[0]
 
 
 def _np_kron_all(ms):
@@ -409,27 +454,35 @@ def _readout_energy(sr, si, n, spec):
 
 class _StackEnergy(torch.autograd.Function):
     """Counterpart of the JAX ``zzrx_stack_energy`` custom VJP: the
-    readout's seed planes ``(br, bi)`` are saved in the forward, so its
+    readout's seed planes ``(br, bi)`` come from the forward, so its
     backward is one scale, ``ct = (2 g br, -2 g bi)``."""
 
     @staticmethod
-    def forward(ctx, pairs, n, state2d, zz_thetas, rx_kernel_thetas, mout, mlane, spec):
+    def forward(pairs, n, state2d, zz_thetas, rx_kernel_thetas, mout, mlane, spec):
         fused, rmx = _stack_mode(n, state2d)
         yr, yi, ksr, ksi = _stack_fwd_impl(
             pairs, n, state2d, zz_thetas, rx_kernel_thetas, _planes(mout), _planes(mlane), fused, rmx
         )
         e, br, bi = _readout_energy(yr, yi, n, spec)
-        ctx.pairs, ctx.n, ctx.fused, ctx.rmx, ctx.ks = pairs, n, fused, rmx, (ksr, ksi)
-        ctx.state_dtype = state2d.dtype
-        ctx.seeds = (br, bi)
-        ctx.save_for_backward(zz_thetas, rx_kernel_thetas, mout, mlane)
-        return e
+        return (e, br, bi) + _pack_ks(ksr, ksi)
 
     @staticmethod
-    def backward(ctx, g):
+    def setup_context(ctx, inputs, output):
+        pairs, n, state2d, zz_thetas, rx_kernel_thetas, mout, mlane, spec = inputs
+        _, br, bi, *ks = output
+        _save_stack(ctx, pairs, n, state2d, ks)
+        ctx.mark_non_differentiable(br, bi)
+        ctx.save_for_backward(zz_thetas, rx_kernel_thetas, mout, mlane, br, bi, *ks)
+
+    @staticmethod
+    def backward(ctx, g, *_):
+        zz, th, mo, ml, br, bi, *ks = ctx.saved_tensors
         s = 2.0 * g.to(torch.float32)
-        br, bi = ctx.seeds
-        return (None, None) + _matrix_grads(ctx, *ctx.saved_tensors, s * br, -s * bi) + (None,)
+        return (None, None) + _matrix_grads(ctx, zz, th, mo, ml, ks, s * br, -s * bi) + (None,)
+
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        return loop_vmap(info, in_dims, _StackEnergy.apply, args)
 
 
 def zzrx_stack_energy(
@@ -440,7 +493,7 @@ def zzrx_stack_energy(
     Matrix-level boundary: differentiable in every tensor, the matrix
     cotangents chained to the angles by autograd outside."""
     pairs = tuple((int(a), int(b)) for a, b in pairs)
-    return _StackEnergy.apply(pairs, n, state2d, zz_thetas, rx_kernel_thetas, mout, mlane, spec)
+    return _StackEnergy.apply(pairs, n, state2d, zz_thetas, rx_kernel_thetas, mout, mlane, spec)[0]
 
 
 class _StackEnergyTheta(torch.autograd.Function):
@@ -450,7 +503,7 @@ class _StackEnergyTheta(torch.autograd.Function):
     chain dM -> dθ_lane through the kron builder."""
 
     @staticmethod
-    def forward(ctx, pairs, n, state2d, zz_thetas, rx_thetas, spec):
+    def forward(pairs, n, state2d, zz_thetas, rx_thetas, spec):
         nrow, nkernel, nouter, nlane = _shapes(n)
         th = rx_thetas.detach().to(torch.float32)
         mo = _rx_kron_planes(th[:, :nouter])
@@ -461,36 +514,45 @@ class _StackEnergyTheta(torch.autograd.Function):
             pairs, n, state2d, zz_thetas, th[:, nouter:nrow], mo, ml, True, 0
         )
         e, br, bi = _readout_energy(yr, yi, n, spec)
-        ctx.pairs, ctx.n, ctx.ks, ctx.seeds = pairs, n, (ksr, ksi), (br, bi)
-        ctx.mats = mo + ml
-        ctx.state_dtype = state2d.dtype
-        ctx.save_for_backward(zz_thetas, rx_thetas)
-        return e
+        return (e, br, bi) + mo + ml + _pack_ks(ksr, ksi)
 
     @staticmethod
-    def backward(ctx, g):
-        zz_thetas, rx_thetas = ctx.saved_tensors
-        n = ctx.n
+    def setup_context(ctx, inputs, output):
+        pairs, n, state2d, zz_thetas, rx_thetas, spec = inputs
+        rest = output[1:]
+        ctx.pairs, ctx.n, ctx.nks = pairs, n, (len(rest) - 6) // 2
+        ctx.state_dtype = state2d.dtype
+        ctx.mark_non_differentiable(*rest)
+        ctx.save_for_backward(zz_thetas, rx_thetas, *rest)
+
+    @staticmethod
+    def backward(ctx, g, *_):
+        zz_thetas, rx_thetas, br, bi, mor, moi, mlr, mli, *ks = ctx.saved_tensors
+        pairs, n, nks = ctx.pairs, ctx.n, ctx.nks
         nrow, nkernel, nouter, nlane = _shapes(n)
         s = 2.0 * g.to(torch.float32)
-        br, bi = ctx.seeds
-        th = rx_thetas.detach().to(torch.float32)
-        # the forward's outer and lane planes
-        mor, moi, mlr, mli = ctx.mats
-        # K2's residuals come stacked; per-layer K1 ones (odd L) are stacked here
-        ksr, ksi = (k if torch.is_tensor(k) else torch.stack(k) for k in ctx.ks)
-        dsr, dsi, dzz, dthk, dtho, dmlr, dmli = kg.grand_zzrx_bwd(
-            ctx.pairs, n, zz_thetas, th[:, nouter:nrow].contiguous(),
-            ksr, ksi, s * br, -s * bi, mor, moi, mlr, mli,
-        )
-        # lane chain: the kernel's dM planes are (dL/dmr, -dL/dmi)
-        with torch.enable_grad():
-            thl = th[:, nrow:].detach().requires_grad_()
-            lr, li = _lane_kron_planes_T(thl)
-            (dthl,) = torch.autograd.grad((lr, li), thl, (dmlr, -dmli))
-        dth = torch.cat([dtho, dthk, dthl], dim=1).to(rx_thetas.dtype)
+
+        def adjoint(zz, rx, ctr, cti, mor, moi, mlr, mli, *ks):
+            th = rx.detach().to(torch.float32)
+            # K2's residuals come stacked; per-layer K1 ones (odd L) are stacked here
+            ksr, ksi = (k if torch.is_tensor(k) else torch.stack(k) for k in _unpack_ks(ks, nks))
+            dsr, dsi, dzz, dthk, dtho, dmlr, dmli = kg.grand_zzrx_bwd(
+                pairs, n, zz, th[:, nouter:nrow].contiguous(), ksr, ksi, ctr, cti, mor, moi, mlr, mli,
+            )
+            # lane chain: the kernel's dM planes are (dL/dmr, -dL/dmi)
+            with torch.enable_grad():
+                thl = th[:, nrow:].detach().requires_grad_()
+                lr, li = _lane_kron_planes_T(thl)
+                (dthl,) = torch.autograd.grad((lr, li), thl, (dmlr, -dmli))
+            return dsr, dsi, dzz, torch.cat([dtho, dthk, dthl], dim=1)
+
+        dsr, dsi, dzz, dth = each(adjoint, zz_thetas, rx_thetas, s * br, -s * bi, mor, moi, mlr, mli, *ks)
         grad_state = krl.grad_of_planes(dsr, dsi).to(ctx.state_dtype)
-        return None, None, grad_state, dzz.to(zz_thetas.dtype), dth, None
+        return None, None, grad_state, dzz.to(zz_thetas.dtype), dth.to(rx_thetas.dtype), None
+
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        return loop_vmap(info, in_dims, _StackEnergyTheta.apply, args)
 
 
 def zzrx_stack_energy_theta(pairs, n, state2d, zz_thetas, rx_thetas, spec=((), ())):
@@ -501,4 +563,4 @@ def zzrx_stack_energy_theta(pairs, n, state2d, zz_thetas, rx_thetas, spec=((), (
     1 <= nouter <= 4.  Always the fused topology, on a CPU state too
     (through the plain versions); the backward is K4."""
     pairs = tuple((int(a), int(b)) for a, b in pairs)
-    return _StackEnergyTheta.apply(pairs, n, state2d, zz_thetas, rx_thetas, spec)
+    return _StackEnergyTheta.apply(pairs, n, state2d, zz_thetas, rx_thetas, spec)[0]

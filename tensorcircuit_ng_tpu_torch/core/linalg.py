@@ -19,6 +19,8 @@ from typing import Optional, Tuple, Union
 
 import torch
 
+from .transform_rules import front_vmap
+
 __all__ = [
     "adaware_svd",
     "gram_svd",
@@ -145,10 +147,12 @@ class _SVDAdjoint(torch.autograd.Function):
     of a rank-deficient matrix is wrong: Queue 3 F8 of ``ROADMAP.md``)."""
 
     @staticmethod
-    def forward(ctx, a, impl):
-        u, s, vh = impl(a)
-        ctx.save_for_backward(a, u, s, vh)
-        return u, s, vh
+    def forward(a, impl):
+        return impl(a)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(inputs[0], *output)
 
     @staticmethod
     def backward(ctx, du, ds, dvh):
@@ -157,6 +161,10 @@ class _SVDAdjoint(torch.autograd.Function):
             a, u, s, vh, _zeros_if_none(du, u), _zeros_if_none(ds, s), _zeros_if_none(dvh, vh)
         )
         return da, None
+
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        return front_vmap(info, in_dims, _SVDAdjoint.apply, args)
 
 
 def _exact_svd(a):
@@ -362,10 +370,16 @@ def _qr_square_bwd(q, r, dq, dr):
 
 class _QR(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, a):
-        q, r = torch.linalg.qr(a, mode="reduced")
-        ctx.save_for_backward(a, q, r)
-        return q, r
+    def forward(a):
+        return torch.linalg.qr(a, mode="reduced")
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(inputs[0], *output)
+
+    @staticmethod
+    def vmap(info, in_dims, a):
+        return front_vmap(info, in_dims, _QR.apply, (a,))
 
     @staticmethod
     def backward(ctx, dq, dr):
@@ -416,11 +430,17 @@ class _Eigh(torch.autograd.Function):
     the eigenvectors' phases, which rounding breaks."""
 
     @staticmethod
-    def forward(ctx, a, eps):
-        e, v = torch.linalg.eigh(a)
-        ctx.save_for_backward(e, v)
-        ctx.eps = eps
-        return e, v
+    def forward(a, eps):
+        return torch.linalg.eigh(a)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*output)
+        ctx.eps = inputs[1]
+
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        return front_vmap(info, in_dims, _Eigh.apply, args)
 
     @staticmethod
     def backward(ctx, de, dv):
@@ -447,6 +467,50 @@ def plain_eigh(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     ``jnp.linalg.eigh``'s: exact inverse spacings, a NaN gradient where
     two eigenvalues are equal."""
     return _Eigh.apply(a, None)
+
+
+class _SqrtmH(torch.autograd.Function):
+    """√a of a Hermitian matrix by ``eigh``, √λ of its eigenvalues (clipped
+    at 0 with ``psd``, else NaN below 0 as the JAX package's ``sqrtmh``).
+    The adjoint is the Daleckii-Krein form V (K ∘ V^H g V) V^H with the
+    divided difference of √·, K_ij = 1/(√λ_i + √λ_j), set to 0 where both
+    eigenvalues lie below the rounding of the spectrum, eps·λ_max (the
+    floor of :func:`gram_svd` and :func:`_svd_bwd_conjconv`): a rank-
+    deficient matrix has a finite gradient, its null space held fixed."""
+
+    @staticmethod
+    def forward(a, psd):
+        e, v = torch.linalg.eigh(a)
+        if psd:
+            e = torch.clamp(e, min=0.0)
+        return (v * torch.sqrt(e).to(v.dtype)[..., None, :]) @ _H(v), e, v
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        _, e, v = output
+        ctx.mark_non_differentiable(e, v)
+        ctx.save_for_backward(e, v)
+
+    @staticmethod
+    def backward(ctx, g, *_):
+        e, v = ctx.saved_tensors
+        e = torch.clamp(e, min=0.0)
+        floor = torch.finfo(e.dtype).eps * e.amax(dim=-1, keepdim=True)
+        root = torch.sqrt(e)
+        null = (e <= floor)[..., None, :] & (e <= floor)[..., :, None]
+        denom = root[..., None, :] + root[..., :, None]
+        k = torch.where(null, torch.zeros_like(denom), 1.0 / torch.where(null, torch.ones_like(denom), denom))
+        return v @ (k.to(v.dtype) * (_H(v) @ g @ v)) @ _H(v), None
+
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        return front_vmap(info, in_dims, _SqrtmH.apply, args)
+
+
+def sqrtmh(a: torch.Tensor, psd: bool = False) -> torch.Tensor:
+    """The Hermitian square root √a (the JAX backend's ``sqrtmh``), with a
+    gradient that stays finite where ``a`` is rank-deficient."""
+    return _SqrtmH.apply(a, psd)[0]
 
 
 # ---------------------------------------------------------------- truncation

@@ -579,11 +579,17 @@ class BaseCircuit(AbstractCircuit):
     def _lightcone_qir(self, obs_wires: Sequence[int]) -> List[Dict[str, Any]]:
         """The QIR items in the causal cone of ``obs_wires``, in order: an
         item is kept when it touches the cone, and then widens it (a fused
-        layer touches every wire, so the cone keeps everything before it)."""
+        layer touches every wire, so the cone keeps everything before it).
+        A non-unitary channel item (a ``general_kraus`` branch: damping,
+        reset, thermal relaxation, a measurement) is kept wherever it
+        stands: its branch is renormalized by the reduced state of its
+        wires, which conditions the qubits entangled with them (the JAX
+        package drops it, Queue 3 F11 of ``ROADMAP.md``)."""
         cone = set(obs_wires)
         keep: List[Dict[str, Any]] = []
         for item in reversed(self._qir):
-            if cone.intersection(item["index"]):
+            state_dependent = item.get("is_channel") and not item.get("channel_unitary")
+            if state_dependent or cone.intersection(item["index"]):
                 keep.append(item)
                 cone.update(item["index"])
         keep.reverse()

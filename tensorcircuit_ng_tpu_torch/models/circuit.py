@@ -149,7 +149,7 @@ class Circuit(BaseCircuit):
         new_mats, p = self._unitary_probs(kraus, index, prob)
         kept = torch.sqrt(p).to(new_mats.dtype)[:, None, None] * new_mats
         return self._apply_selected_kraus(new_mats, p, index, status=status, name=name or "unitary_kraus",
-                                          orig_mats=list(kept))
+                                          orig_mats=list(kept), unitary=True)
 
     def unitary_kraus2(
         self,
@@ -296,11 +296,13 @@ class Circuit(BaseCircuit):
         status: Optional[Any] = None,
         name: str = "kraus",
         orig_mats: Optional[List[torch.Tensor]] = None,
+        unitary: bool = False,
     ) -> torch.Tensor:
         """Pick branch i where the cdf of ``p`` first reaches ``status`` +
         the measurement tie-break, on the device, and append ``mats[i]``
         (of the stacked ``mats``, picked there) as a channel item (the Kraus
-        set and the status kept for the QIR replay)."""
+        set and the status kept for the QIR replay; ``unitary``: the branch
+        probabilities do not read the state, as a mixed-unitary channel's)."""
         status = self._uniforms([], None) if status is None else device_tensor(status, self._device)
         cdf = torch.cumsum(p, 0)
         r = torch.reshape(status, (1,)).to(cdf.dtype) + self._MEASURE_EPS
@@ -314,6 +316,7 @@ class Circuit(BaseCircuit):
             "split": None,
             "mpo": False,
             "is_channel": True,
+            "channel_unitary": unitary,
             "channel_kraus": orig_mats if orig_mats is not None else list(mats),
             "channel_status": status,
             # the trajectory's branch and branch probabilities, for its readers

@@ -22,9 +22,11 @@ Counterpart of ``tensorcircuit_ng_tpu/quantum.py``:
   or on ``device=``.
 - the QI toolbox: reduced density matrices, partial transposes and
   purifications; the von Neumann and Rényi entropies (``eigvalsh``),
-  mutual information, negativities; fidelity and Gibbs, thermofield and
-  purified states (``eigh``: a NaN gradient at a degenerate spectrum, as
-  the JAX package's, Queue 3 F10); trace distance, free energies, the
+  mutual information, negativities; fidelity (both roots by
+  ``core.linalg.sqrtmh``: a finite gradient at a pure state, where the JAX
+  package's is NaN, Queue 3 F10), Gibbs, thermofield and purified states
+  (``eigh``: a NaN gradient at a degenerate spectrum, as the JAX
+  package's); trace distance, free energies, the
   stabilizer Rényi entropy; the U(1) sector helpers and the MPO
   converters (quimb, TeNPy and tensornetwork imported only when called).
   Each computes in its input's dtype, with the JAX package's clips and
@@ -47,6 +49,7 @@ import torch
 
 from . import config
 from .backend import backend as K
+from .core import linalg
 from .core.linalg import plain_eigh as _eigh
 
 __all__ = [
@@ -1191,19 +1194,19 @@ def log_negativity(rho: Any, transposed_sites: Sequence[int], base: str = "e") -
 
 
 def _matrix_sqrt(a: torch.Tensor) -> torch.Tensor:
-    """√a of a Hermitian PSD matrix by ``eigh`` (negative eigenvalues
-    clipped to 0).  Its gradient is NaN where a is singular, as the JAX
-    package's (Queue 3 F10 of ``ROADMAP.md``)."""
-    e, v = _eigh(a)
-    e = torch.clamp(e, min=0.0)
-    return (v * torch.sqrt(e).to(v.dtype)[None, :]) @ v.mH
+    """√a of a Hermitian PSD matrix (negative eigenvalues clipped to 0) by
+    :func:`core.linalg.sqrtmh`, whose gradient stays finite where a is
+    singular (the JAX package's is NaN there: Queue 3 F10 of
+    ``ROADMAP.md``)."""
+    return linalg.sqrtmh(a, psd=True)
 
 
 def fidelity(rho: Any, rho0: Any) -> torch.Tensor:
-    """The Uhlmann fidelity (tr √(√ρ ρ0 √ρ))²."""
+    """The Uhlmann fidelity (tr √(√ρ ρ0 √ρ))², both roots by
+    :func:`_matrix_sqrt`: finite gradients at a pure ρ too."""
     sq = _matrix_sqrt(_to_rho(rho))
-    lam = torch.clamp(torch.linalg.eigvalsh(sq @ _to_rho(rho0) @ sq), min=0.0)
-    return torch.sum(torch.sqrt(lam)) ** 2
+    root = _matrix_sqrt(sq @ _to_rho(rho0) @ sq)
+    return torch.real(torch.diagonal(root, dim1=-2, dim2=-1).sum(-1)) ** 2
 
 
 def trace_distance(rho: Any, rho0: Any, eps: float = 1e-12) -> torch.Tensor:

@@ -64,7 +64,13 @@ backward in the vector against the CPU, ``PauliStringSum2COO`` at n=12 on
 the card equal to the CPU path's bit for bit, the entanglement entropy of
 an n=12 TFIM state and its angle gradient (1e-5, 1e-4), the stabilizer
 Renyi entropy at n=8 (1e-6), and ``chip_smoke.py``'s phase 17 at a small
-size.
+size.  The backend's transforms: ``jit`` of the n=18 training step as a
+captured CUDA graph (K2 and K4 in it), its replays equal to the
+uncaptured step bit for bit and the CPU path within 1e-4, a host read
+refused at capture; ``vvag`` over 3 restarts (K2/K4 once a restart, each
+within 1e-5 of its eager step); Krylov and Chebyshev evolution in
+complex128 at n=12 against the CPU (1e-10); and ``chip_smoke.py``'s phase
+18 at a small size.
 """
 
 import numpy as np
@@ -73,7 +79,8 @@ import torch
 
 import tensorcircuit_ng_tpu_torch as tct
 from chip_smoke import (
-    HAM_SMALL, MPS_GRAM_GRAD_TOL, MPS_TOL, SVD_ORTH_TOL, SVD_REC_TOL, SVD_S_TOL, SVD_VEC_TOL, _contraction_checks,
+    HAM_SMALL, TRANSFORM_SMALL, _tfim_coo_state, _transform_checks, transform_angles, transform_energy,
+    MPS_GRAM_GRAD_TOL, MPS_TOL, SVD_ORTH_TOL, SVD_REC_TOL, SVD_S_TOL, SVD_VEC_TOL, _contraction_checks,
     _hamiltonian_checks, _mps_checks, _mps_reference,
     _ptxas_report, _qop_values, _svd_batches, _svd_checks, brickwork_circuit, grid_angles, grid_circuit,
     hea_energy, mps_bracket_miss, mps_status, mps_vqe_angles, mps_vqe_circuit, mps_vqe_step, noisy_brickwork_dm,
@@ -1738,3 +1745,81 @@ def test_hamiltonian_phase_checks_on_card(cuda):
     smoke's check, at n=20)."""
     got = _hamiltonian_checks(tct, cuda, (), **HAM_SMALL)
     assert got["nnz"] == 9 * 2**8
+
+
+def test_jit_captures_the_training_step_on_card(cuda):
+    """Phase 18 (a) at n=18, L=4 (K2/K4's smallest width): ``jit`` of
+    ``value_and_grad`` captures K2 and K4 into a CUDA graph at its first
+    call, its replays equal the uncaptured step bit for bit and the CPU path
+    within 1e-4; a later signature is captured again; a host read inside
+    raises with the capture's reason."""
+    K = tct.backend
+    n, nl = 18, 4
+    vg = K.value_and_grad(transform_energy(tct, n, nl, cuda), argnums=(0, 1))
+    zz, rx = (convert.params(a, cuda) for a in transform_angles(n, nl))
+    jvg = K.jit(vg)
+    kg.grand_zzrx_fwd.launches = kg.grand_zzrx_bwd.launches = 0
+    jvg(zz, rx)
+    assert (kg.grand_zzrx_fwd.launches, kg.grand_zzrx_bwd.launches) == (2, 2) and jvg.captures == 1
+    got = [jvg(zz, rx) for _ in range(2)]
+    want = vg(zz, rx)
+    for e, g in got:
+        assert torch.equal(e, want[0]) and all(torch.equal(a, b) for a, b in zip(g, want[1]))
+    e_cpu, g_cpu = K.value_and_grad(transform_energy(tct, n, nl, "cpu"), argnums=(0, 1))(
+        *(convert.params(a, "cpu") for a in transform_angles(n, nl)))
+    assert abs(got[0][0].item() - e_cpu.item()) <= 1e-4
+    assert max((a.cpu() - b).abs().max().item() for a, b in zip(got[0][1], g_cpu)) <= 1e-4
+    jvg(zz.double(), rx.double())
+    assert jvg.captures == 2
+    with pytest.raises(RuntimeError, match="cannot be captured"):
+        K.jit(lambda x: x * x.sum().item())(zz)
+
+
+def test_vvag_runs_the_kernels_once_a_restart_on_card(cuda):
+    """Phase 18 (b) at n=18, L=4 over 3 restarts: K2 and K4 once a restart,
+    each value and gradient within 1e-5 of its eager step, relative, and
+    within 1e-4 of the CPU path; under ``jit`` the same values."""
+    K = tct.backend
+    n, nl, b = 18, 4, 3
+
+    def energy_p(dev):
+        energy = transform_energy(tct, n, nl, dev)
+        return lambda p: energy(p[:, 0, : n - 1], p[:, 1])
+
+    ps = convert.params(transform_angles(n, nl, b), cuda)
+    kg.grand_zzrx_fwd.launches = kg.grand_zzrx_bwd.launches = 0
+    vs, gs = K.vvag(energy_p(cuda), argnums=0, vectorized_argnums=0)(ps)
+    assert (kg.grand_zzrx_fwd.launches, kg.grand_zzrx_bwd.launches) == (b, b)
+    jvs, jgs = K.jit(K.vvag(energy_p(cuda), argnums=0, vectorized_argnums=0))(ps)
+    for i in range(b):
+        e1, g1 = K.value_and_grad(energy_p(cuda))(ps[i])
+        e_cpu, g_cpu = K.value_and_grad(energy_p("cpu"))(ps[i].cpu())
+        for e, g in ((vs[i], gs[i]), (jvs[i], jgs[i])):
+            assert abs(e.item() - e1.item()) <= 1e-5 * abs(e1.item())
+            assert (g - g1).abs().max().item() <= 1e-5 * g1.abs().max().item()
+            assert abs(e.item() - e_cpu.item()) <= 1e-4 and (g.cpu() - g_cpu).abs().max().item() <= 1e-4
+
+
+def test_time_evolution_on_card_matches_cpu(cuda):
+    """Phase 18 (e) at n=12: Krylov and Chebyshev of the TFIM COO built on
+    each device in complex128, from the same state (the CPU path's), on
+    the card against the CPU path (1e-10) and each other."""
+    te = tct.timeevol
+    psi = _tfim_coo_state(tct, "cpu", 12, 2)[1]
+    outs = {}
+    for dev in (cuda, torch.device("cpu")):
+        h, _, bounds = _tfim_coo_state(tct, dev, 12, 2)
+        x = psi.to(dev)
+        outs[dev.type] = (te.krylov_evol(h, x, [0.2, 0.5], 30), te.chebyshev_evol(h, x, 0.5, bounds))
+    kc, cc = outs["cuda"]
+    assert kc.device.type == "cuda" and kc.dtype == torch.complex128
+    assert (kc.cpu() - outs["cpu"][0]).abs().max().item() <= 1e-10
+    assert (cc.cpu() - outs["cpu"][1]).abs().max().item() <= 1e-10
+    assert (kc[1] - cc).abs().max().item() <= 1e-10
+
+
+def test_transform_phase_checks_on_card(cuda):
+    """``chip_smoke.py``'s phase 18 at a small size on the card (the plain
+    path at n=8: no kernel launch is required there; its jit captures the
+    plain torch ops)."""
+    _transform_checks(tct, cuda, (), **TRANSFORM_SMALL)

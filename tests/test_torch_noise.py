@@ -256,11 +256,6 @@ _METHODS = {
     "general_kraus_delayed": lambda m, c, s: m.Circuit.apply_general_kraus_delayed(
         m.channels.amplitudedampingchannel(0.5, 0.6), name="ad")(c, 1, status=s),
 }
-#: the methods whose branch is a general Kraus operator: a branch outside
-#: an observable's light cone still conditions the qubits entangled with its
-#: own, and both packages' cones drop it (ROADMAP Queue 3, F11), so the
-#: light cone is held to the circuit only for the unitary branches
-_STATE_DEPENDENT = {"amplitudedamping", "general_kraus_delayed", "phasedamping", "reset", "thermalrelaxation"}
 #: statuses at least 1e-3 from every cdf boundary of the channels above (a
 #: uniform on a boundary picks either side by the rounding of the sums)
 _MC_STATUSES = [0.031, 0.452, 0.833, 0.971]
@@ -271,7 +266,7 @@ def test_monte_carlo_methods_match_jax(dtype, name):
     """Each channel method on a 5-qubit state at four statuses: the branch
     the JAX package picks and the state after it and one more gate; then
     the channel item replayed through ``general_kraus`` (``copy``, and the
-    light cone of a unitary branch) held to the circuit itself, an oracle
+    light cone, which keeps a non-unitary branch: Queue 3 F11) held to the circuit itself, an oracle
     independent of both replays.  The JAX package replays ``unitary_kraus(prob=...)`` as
     another channel: its copy draws by [1/3, 1/3, 1/3] and has norm √3
     (Queue 3 F5); the port's replays the channel it drew from."""
@@ -287,11 +282,29 @@ def test_monte_carlo_methods_match_jax(dtype, name):
         assert int(b) == int(jb), (name, s)
         _close(c.state(), jc.state(), TOL[dtype])
         _close(c.copy().state(), c.state(), TOL[dtype])
-        if name not in _STATE_DEPENDENT:
-            for q in (0, 2):
-                _close(c.expectation((Z, [q]), enable_lightcone=True), c.expectation((Z, [q])), 10 * TOL[dtype])
+        for q in (0, 2):
+            _close(c.expectation((Z, [q]), enable_lightcone=True), c.expectation((Z, [q])), 10 * TOL[dtype])
         if name == "unitary_kraus_prob":
             _close(np.linalg.norm(np.asarray(jc.copy().state())), np.sqrt(3.0), 10 * TOL[dtype])
+
+
+def test_lightcone_keeps_a_non_unitary_branch():
+    """Queue 3 F11: a reset outside the cone of ⟨Z_2⟩ still conditions the
+    qubits entangled with its own.  The port's light cone keeps it and
+    gives the state's value; the JAX package's drops it."""
+    want = -0.355887
+    with tct.set_dtype("complex128"), tct.set_device("cpu"):
+        c = _base(tct, 5)
+        c.reset(3, status=np.asarray(0.833))
+        c.rx(4, theta=0.3)
+        cone = complex(c.expectation((Z, [2]), enable_lightcone=True))
+        dense = complex(c.expectation((Z, [2])))
+    assert abs(dense - want) <= 1e-6 and abs(cone - want) <= 1e-6
+    jc = _base(tc, 5)
+    jc.reset(3, status=jnp.asarray(0.833))
+    jc.rx(4, theta=0.3)
+    assert abs(complex(np.asarray(jc.expectation((Z, [2]), enable_lightcone=True))) - (-0.262973)) <= 1e-5
+    assert abs(complex(np.asarray(jc.expectation((Z, [2])))) - want) <= 1e-5
 
 
 def test_measure_reference_draws_from_numpy_as_jax(dtype):

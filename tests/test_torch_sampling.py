@@ -433,7 +433,7 @@ def _kraus_jax(dtype, n, p):
             c, (k, pk), m = _kraus_circuit(tc, n, p, jnp.asarray(s))
             out[s] = {"k": k, "p": pk, "m": m, "state": c.state(), "copy": c.copy().state(),
                       "inverse": c.inverse().state(), "mapped": c.initial_mapping({q: n - 1 - q for q in range(n)}).state(),
-                      "cone": c.expectation((Z, [3]), enable_lightcone=True)}
+                      "dense": c.expectation((Z, [3]))}
         return out
     return _jax_ref("kraus", dtype, fn)
 
@@ -442,7 +442,8 @@ def _kraus_jax(dtype, n, p):
 def test_general_kraus_and_cond_measurement_match_jax(dtype, s):
     """Branches, their probabilities and the states through ``copy``,
     ``inverse`` (the channel items left out), ``initial_mapping`` and the
-    light cone of a circuit with two channel items."""
+    light cone of a circuit with two channel items (held to the JAX
+    package's dense expectation: its light cone drops the channels, F11)."""
     n = 6
     p = _params(n, 13, RDT[dtype])
     want = _kraus_jax(dtype, n, p)[s]
@@ -463,7 +464,9 @@ def test_general_kraus_and_cond_measurement_match_jax(dtype, s):
     assert not any(it.get("is_channel") for it in inv.to_qir())
     _close(inv.state(), want["inverse"], tol)
     _close(c.initial_mapping({q: n - 1 - q for q in range(n)}).state(), want["mapped"], tol)
-    _close(c.expectation((Z, [3]), enable_lightcone=True), want["cone"], tol)
+    # the light cone keeps both non-unitary channel items (Queue 3 F11: the
+    # JAX package's drops them), so it gives the state's value
+    _close(c.expectation((Z, [3]), enable_lightcone=True), want["dense"], tol)
 
 
 def _teleport(mod, gates, theta, phi, s0, s1):
