@@ -10,7 +10,8 @@ sampling (shots in six formats, trajectories, readout error, shot-noise
 expectations, feed-forward) and noise at the same width, the contraction
 engine past the dense cliff, the MPS simulators, the Hamiltonians and the
 QI toolbox, and the backend's transforms (the training step as a captured
-CUDA graph, vvag, parameter shift, Adam), time evolution and shadows.
+CUDA graph, vvag, parameter shift, Adam), time evolution and shadows,
+and the stabilizer simulator, QEC detectors, qudits and one U(1) sector.
 
     python3 chip_smoke.py
 
@@ -307,7 +308,38 @@ Phases (any failure exits non-zero; nothing is caught):
      Renyi-2 entropy of qubits 0-1 within 5 standard errors of the exact
      values; then the captured and uncaptured steps (CUDA events, median
      of 20, and busy time under torch.profiler), vvag, the parameter shift
-     and both evolutions (with their peak memory) timed.
+     and both evolutions (with their peak memory) timed;
+ 19. the stabilizer simulator, the detectors, qudits and U(1) at full
+     width (no kernel of their own; the tableau is host C++ built by g++),
+     each check against the port's CPU path, whose references the child
+     process computes after phase 18's (:func:`_stab_checks`,
+     :func:`_stab_reference`): (a) the distance-3 rotated surface code's
+     Z memory (17 qubits, 3 rounds, depolarizing 0.01 after every CNOT on
+     both qubits: 144 channel sites) by ``sample_detector`` over 1,024
+     shots held as one [1024, 2^17] state (its chunking and peak printed):
+     the first 16 shots' detector and observable bits equal to the CPU
+     path's on the same statuses (a shot may differ only within 1e-6 of a
+     cdf boundary, printed), each rate within 5 sigma of the tableau's
+     ``sample_detectors`` of the same program (``depolarize1``) at 4,096
+     shots; (b) the distance-5 repetition code (9 qubits, 2 rounds,
+     amplitude damping 0.02 on the data between rounds and before the
+     readout): ``detector_probabilities_exact`` against the CPU path (1e-5)
+     and 8,192 trajectories (5 sigma), and F12's two probes, exact equal to
+     trajectories; (c) a random Clifford circuit at n=20, depth 40:
+     ``state()`` replayed on the card against the state rebuilt from the
+     tableau (|<a|b>| >= 1 - 1e-5), the 1,770 Pauli strings of weight <= 2
+     and the 20 stabilizer generators (+-1) on the tableau against the
+     dense state, and the native
+     ``sample(8192)`` at n=49 against the tableau's <Z_q> (5 sigma);
+     (d) ``QuditCircuit`` at d=3, n=12 (4 layers of rx/ry on level pairs,
+     a csum chain, rzz): the state, an energy and its gradient against the
+     CPU path (1e-5), 8,192 samples against the exact mean level (5
+     sigma); (e) ``U1Circuit`` at n=24, k=12 (2,704,156 amplitudes; 4
+     brick layers of XY rotations, rz, rzz): <sum Z_i Z_i+1> and its
+     gradient against the CPU path (1e-5), 8,192 samples in the sector
+     against the exact value (5 sigma), one gate with its maps built and
+     cached; each route timed (CUDA events, or the wall clock where
+     marked) with its peak memory above the start.
 
 Prints the kernels JSON line, then the card's name and power limit, then
 ``{"ok": true, "device": {...}}`` as the last line.  Needs no network and
@@ -3896,7 +3928,8 @@ def _reference_child(out):
     phase 14 (:func:`_noise_reference`), then phase 15 (c)'s brickwork
     shots, then :func:`_mps_reference` at phase 16's full sizes, then
     :func:`_hamiltonian_values` at phase 17's, then
-    :func:`_transform_reference` at phase 18's, each saved (torch.save) into
+    :func:`_transform_reference` at phase 18's, then :func:`_stab_reference`
+    at phase 19's, each saved (torch.save) into
     DIR as it ends (:data:`REFERENCES`).  The Gram-against-exact drift is left to
     ``tools/mps_gram_drift.py``: three more runs of (a) on the CPU would
     crowd phases 12-16."""
@@ -3924,6 +3957,7 @@ def _reference_child(out):
         t0 = time.perf_counter()
         transform = _transform_reference(tct, **TRANSFORM_SIZES)
         save("transform", {**transform, "seconds": time.perf_counter() - t0})
+        save("stab", _stab_reference(tct, **STAB_SIZES))
     return 0
 
 
@@ -4134,7 +4168,7 @@ def _qop_pairs(v):
 
 #: the files of the CPU references' child process, under build/
 REFERENCES = {"noise": "phase14_reference.pt", "brickwork": "phase15_brickwork.pt", "mps": "phase16_reference.pt",
-              "ham": "phase17_reference.pt", "transform": "phase18_reference.pt"}
+              "ham": "phase17_reference.pt", "transform": "phase18_reference.pt", "stab": "phase19_reference.pt"}
 #: the longest a phase waits for one of them
 REF_TIMEOUT = 600
 
@@ -4837,6 +4871,543 @@ def _transform_phase(tct, card, counters, job):
     print(f"phase 18 wall time: {time.perf_counter() - t0:.1f} s (of which waiting {wait.get('s', 0.0):.1f} s)")
 
 
+
+# ---- phase 19: the stabilizer simulator, detectors, qudits, U(1) -----------
+
+#: phase 19's sizes: (a) the rotated surface code's distance, rounds,
+#: depolarizing p, shots on the card, the shots held against the CPU path,
+#: the tableau's shots; (b) the repetition code's distance, rounds, damping
+#: and trajectories; (c) the random Clifford circuit's width and depth and
+#: the sampled circuit's width; (d) the qudits; (e) the U(1) sector
+STAB_SIZES = {"sc_d": 3, "sc_rounds": 3, "sc_p": 0.01, "sc_shots": 1024, "sc_ref": 16, "sc_tab": 4096,
+              "rep_d": 5, "rep_rounds": 2, "rep_gamma": 0.02, "rep_traj": 8192,
+              "cl_n": 20, "cl_depth": 40, "cl_wide": 49, "samples": 8192,
+              "q_n": 12, "q_d": 3, "q_layers": 4, "u_n": 24, "u_k": 12, "u_layers": 4}
+#: the same checks at a CPU test's size
+STAB_SMALL = {"sc_d": 3, "sc_rounds": 1, "sc_p": 0.01, "sc_shots": 16, "sc_ref": 4, "sc_tab": 400,
+              "rep_d": 3, "rep_rounds": 2, "rep_gamma": 0.05, "rep_traj": 2048,
+              "cl_n": 8, "cl_depth": 10, "cl_wide": 30, "samples": 2048,
+              "q_n": 4, "q_d": 3, "q_layers": 2, "u_n": 8, "u_k": 4, "u_layers": 2}
+#: (b), (d), (e): the card against the port's CPU path (complex64)
+STAB_ATOL = 1e-5
+#: (a): a shot may differ from the CPU path's only where a uniform lies this
+#: near a cdf boundary (the sampling phases' bracket rule)
+STAB_BRACKET = 1e-6
+#: (a), (b), (c), (d), (e): sampled rates within this many standard errors
+STAB_SIGMAS = 5.0
+#: (c): |<replayed|rebuilt>| at least 1 - this
+STAB_OVERLAP_TOL = 1e-5
+
+
+def surface_layout(d):
+    """The rotated surface code of distance d: (data coordinates, X-measure
+    coordinates, Z-measure coordinates), data at odd (x, y), measures at
+    even ones (stim's ``surface_code:rotated_memory_z`` layout)."""
+    data = [(2 * i + 1, 2 * j + 1) for i in range(d) for j in range(d)]
+    xm, zm = [], []
+    for x in range(d + 1):
+        for y in range(d + 1):
+            parity = (x % 2) != (y % 2)
+            if (x in (0, d) and parity) or (y in (0, d) and not parity):
+                continue
+            (xm if parity else zm).append((2 * x, 2 * y))
+    return data, xm, zm
+
+
+def surface_code_program(tct, d, rounds, p, tableau=False, **kw):
+    """The Z-memory experiment of the rotated surface code: ``rounds`` rounds
+    of the X and Z checks (stim's CNOT orders), a depolarizing channel of
+    total ``p`` on both qubits after every CNOT (a ``Circuit`` channel
+    site, or the tableau's lazy ``depolarize1``), measure and reset of the
+    measure qubits, detectors between rounds, the data measured at the end,
+    the Z checks closed on it and one observable (a row of data).  A
+    ``Circuit`` reset is a record, a tableau one is not: each program's
+    detectors count their own records."""
+    data, xm, zm = surface_layout(d)
+    coords = data + xm + zm
+    idx = {c: k for k, c in enumerate(coords)}
+    mq = [idx[m] for m in xm + zm]
+    c = tct.StabilizerCircuit(len(coords), **kw) if tableau else tct.Circuit(len(coords), **kw)
+    det = c.detector if tableau else c.detector_instruction
+    per_round = len(mq) * (1 if tableau else 2)
+
+    def noise(q):
+        if tableau:
+            c.depolarize1(q, p=p)
+        else:
+            c.depolarizing(q, px=p / 3, py=p / 3, pz=p / 3)
+
+    def cnot(a, b):
+        c.cnot(a, b)
+        noise(a)
+        noise(b)
+
+    x_order = [(1, 1), (1, -1), (-1, 1), (-1, -1)]
+    z_order = [(1, 1), (-1, 1), (1, -1), (-1, -1)]
+    for r in range(rounds):
+        for m in xm:
+            c.h(idx[m])
+        for k in range(4):
+            for m in xm:
+                q = (m[0] + x_order[k][0], m[1] + x_order[k][1])
+                if q in data:
+                    cnot(idx[m], idx[q])
+            for m in zm:
+                q = (m[0] + z_order[k][0], m[1] + z_order[k][1])
+                if q in data:
+                    cnot(idx[q], idx[m])
+        for m in xm:
+            c.h(idx[m])
+        c.measure_instruction(*mq)
+        c.reset_instruction(*mq)
+        for j, m in enumerate(xm + zm):
+            cur = -(per_round - j)
+            if r:
+                det(cur, cur - per_round)
+            elif m in zm:
+                det(cur)
+    c.measure_instruction(*range(len(data)))
+    nd = len(data)
+    for j, m in enumerate(xm + zm):
+        if m in zm:
+            near = [data.index((m[0] + a, m[1] + b)) for a, b in z_order if (m[0] + a, m[1] + b) in data]
+            det(*[-(nd - k) for k in near], -(nd + per_round - j))
+    row = [-(nd - data.index(q)) for q in data if q[1] == 1]
+    if tableau:
+        c.observable_include(*row)
+    else:
+        c.observable_instruction(*row)
+    return c
+
+
+def repetition_program(tct, d, rounds, gamma, **kw):
+    """The distance-d repetition code (d data qubits in |1>, d-1 measure
+    qubits between them): ``rounds`` rounds of ZZ checks with measure and
+    reset, amplitude damping ``gamma`` on the data before each later round
+    and before the final data measurement, detectors between rounds, the
+    checks closed on the data, and data qubit 0 as the observable."""
+    n = 2 * d - 1
+    c = tct.Circuit(n, **kw)
+    ms = list(range(d, n))
+    per_round = 2 * len(ms)
+    for q in range(d):
+        c.x(q)
+    for r in range(rounds):
+        if r:
+            for q in range(d):
+                c.amplitudedamping(q, gamma=gamma, p=1.0)
+        for j in range(d - 1):
+            c.cnot(j, d + j)
+            c.cnot(j + 1, d + j)
+        c.measure_instruction(*ms)
+        c.reset_instruction(*ms)
+        for j in range(d - 1):
+            cur = -(per_round - j)
+            if r:
+                c.detector_instruction(cur, cur - per_round)
+            else:
+                c.detector_instruction(cur)
+    for q in range(d):
+        c.amplitudedamping(q, gamma=gamma, p=1.0)
+    c.measure_instruction(*range(d))
+    for j in range(d - 1):
+        c.detector_instruction(-(d - j), -(d - j - 1), -(d + per_round - j))
+    c.observable_instruction(-d)
+    return c
+
+
+def f12_programs(tct, **kw):
+    """Queue 3 F12's two probes: a detector before a later record, and a
+    record named twice."""
+    c1 = tct.Circuit(2, **kw)
+    c1.x(0)
+    c1.measure_instruction(0)
+    c1.detector_instruction(-1)
+    c1.measure_instruction(1)
+    c2 = tct.Circuit(2, **kw)
+    c2.x(0)
+    c2.measure_instruction(0)
+    c2.detector_instruction(-1, -1)
+    return c1, c2
+
+
+def detector_statuses(c, shots, seed=19):
+    """Seeded uniforms for the measurements and the channel sites of ``c``."""
+    rng = np.random.default_rng(seed)
+    return rng.random((shots, max(c._num_measures(), 1))), rng.random((shots, max(c._num_channels(), 1)))
+
+
+def clifford_program(tct, n, depth, seed, **kw):
+    """A random Clifford circuit: ``depth`` layers of a random one-qubit
+    Clifford a qubit and CNOT or CZ on a random pairing."""
+    rng = np.random.default_rng(seed)
+    c = tct.StabilizerCircuit(n, **kw)
+    ones = ["h", "s", "sd", "x", "y", "z", "sx"]
+    for _ in range(depth):
+        for q in range(n):
+            getattr(c, ones[rng.integers(len(ones))])(q)
+        perm = rng.permutation(n)
+        for a, b in zip(perm[0::2], perm[1::2]):
+            getattr(c, "cnot" if rng.random() < 0.5 else "cz")(int(a), int(b))
+    return c
+
+
+def weight2_strings(n):
+    """Every Pauli string of weight 1 and 2 on n qubits, as (x, y, z) lists."""
+    out = []
+    for q in range(n):
+        for k in "xyz":
+            out.append({k: [q]})
+    for a in range(n):
+        for b in range(a + 1, n):
+            for ka in "xyz":
+                for kb in "xyz":
+                    s = {"x": [], "y": [], "z": []}
+                    s[ka].append(a)
+                    s[kb].append(b)
+                    out.append(s)
+    return out
+
+
+def qudit_op(d):
+    """A Hermitian one-qudit observable: the centred level plus a hopping."""
+    return np.diag(np.arange(d) - (d - 1) / 2.0) + 0.3 * (np.eye(d, k=1) + np.eye(d, k=-1))
+
+
+def qudit_circuit(tct, p, n, d, layers, **kw):
+    """``layers`` layers of rx (levels 0-1) and ry (levels 1-2) on every
+    qudit, a csum chain and rzz on neighbours, after the Fourier H; ``p``
+    (layers, 3, n) angles."""
+    c = tct.QuditCircuit(n, dim=d, **kw)
+    for q in range(n):
+        c.h(q)
+    for l in range(layers):
+        for q in range(n):
+            c.rx(q, theta=p[l, 0, q], j=0, k=1)
+            c.ry(q, theta=p[l, 1, q], j=1, k=2)
+        for q in range(n - 1):
+            c.csum(q, q + 1)
+        for q in range(n - 1):
+            c.rzz(q, q + 1, theta=p[l, 2, q])
+    return c
+
+
+def qudit_energy(tct, p, n, d, layers, **kw):
+    c = qudit_circuit(tct, p, n, d, layers, **kw)
+    op = qudit_op(d)
+    return c, sum(c.expectation((op, [q])) for q in range(n)).real
+
+
+def xy_gate(t, cdt):
+    """exp(-i t (XX + YY)/2), the hopping rotation, from a tensor angle."""
+    import torch
+
+    c, s = torch.cos(t).to(cdt), torch.sin(t).to(cdt)
+    z, o = torch.zeros_like(c), torch.ones_like(c)
+    return torch.stack([torch.stack([o, z, z, z]), torch.stack([z, c, -1j * s, z]),
+                        torch.stack([z, -1j * s, c, z]), torch.stack([z, z, z, o])])
+
+
+def u1_circuit(tct, p, n, k, layers, **kw):
+    """From the Neel-like filling of k sites, ``layers`` brick layers of XY
+    rotations (even pairs, then odd), rz on every site and rzz on
+    neighbours; ``p`` (layers, 3, n) angles."""
+    c = tct.U1Circuit(n, filled=list(range(0, 2 * k, 2)) if 2 * k <= n else list(range(k)), **kw)
+    cdt = tct.config.torch_dtype()
+    for l in range(layers):
+        for start in (0, 1):
+            for a in range(start, n - 1, 2):
+                c.unitary(a, a + 1, unitary=xy_gate(p[l, 0, a], cdt))
+        for q in range(n):
+            c.rz(q, theta=p[l, 1, q])
+        for q in range(n - 1):
+            c.rzz(q, q + 1, theta=p[l, 2, q])
+    return c
+
+
+def u1_energy(tct, p, n, k, layers, **kw):
+    c = u1_circuit(tct, p, n, k, layers, **kw)
+    return c, sum(c.expectation_ps(z=[i, i + 1]) for i in range(n - 1)).real
+
+
+def stab_angles(layers, n, seed):
+    return np.random.default_rng(seed).normal(size=(layers, 3, n)) * 0.5
+
+
+def _stab_values(tct, dev, sizes):
+    """What phase 19 holds across devices, computed on ``dev``: (a) the
+    first ``sc_ref`` shots of the surface code, (b) the exact detector
+    probabilities of the repetition code, (d) the qudit state, energy and
+    gradient, (e) the U(1) energy and gradient."""
+    import torch
+
+    s = sizes
+    out = {}
+    sc = surface_code_program(tct, s["sc_d"], s["sc_rounds"], s["sc_p"], device=dev)
+    st, sc_c = detector_statuses(sc, s["sc_shots"])
+    det, obs, margin = sc.sample_detector(s["sc_ref"], status=st[: s["sc_ref"]], statusc=sc_c[: s["sc_ref"]],
+                                          with_observable=True, with_margin=True)
+    out["a det"], out["a obs"], out["a margin"] = det.cpu(), obs.cpu(), margin.cpu()
+    rep = repetition_program(tct, s["rep_d"], s["rep_rounds"], s["rep_gamma"], device=dev)
+    out["b exact"] = rep.detector_probabilities_exact().cpu()
+    qp = tct.convert.params(stab_angles(s["q_layers"], s["q_n"], 23), dev).requires_grad_()
+    c, e = qudit_energy(tct, qp, s["q_n"], s["q_d"], s["q_layers"], device=dev)
+    (g,) = torch.autograd.grad(e, qp)
+    out["d state"], out["d e"], out["d g"] = c.state().detach().cpu(), e.item(), g.cpu()
+    up = tct.convert.params(stab_angles(s["u_layers"], s["u_n"], 29), dev).requires_grad_()
+    c, e = u1_energy(tct, up, s["u_n"], s["u_k"], s["u_layers"], device=dev)
+    (g,) = torch.autograd.grad(e, up)
+    out["e e"], out["e g"] = e.item(), g.cpu()
+    return out
+
+
+def _stab_reference(tct, **sizes):
+    """Phase 19's CPU references: :func:`_stab_values` on the CPU and the
+    tableau's ``sample_detectors`` of the surface code at ``sc_tab`` shots."""
+    s = {**STAB_SIZES, **sizes}
+    t0 = time.perf_counter()
+    out = _stab_values(tct, "cpu", s)
+    tab = surface_code_program(tct, s["sc_d"], s["sc_rounds"], s["sc_p"], tableau=True, device="cpu")
+    t1 = time.perf_counter()
+    out["a tableau"] = tab.sample_detectors(s["sc_tab"], seed=19)
+    out["seconds tableau"] = time.perf_counter() - t1
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def _rates_agree(label, a, na, b, nb, check):
+    """Each column's rate of ``a`` (na shots) against ``b`` (nb shots)
+    within :data:`STAB_SIGMAS` standard errors of the difference (the
+    pooled rate, at least one event's worth)."""
+    ra, rb = a.mean(axis=0), b.mean(axis=0)
+    pool = np.clip((ra * na + rb * nb) / (na + nb), 1.0 / (na + nb), 1.0)
+    sigma = np.sqrt(pool * (1 - pool) * (1.0 / na + 1.0 / nb))
+    worst = float(np.max(np.abs(ra - rb) / sigma)) if ra.size else 0.0
+    check(f"{label} max |rate difference| / sigma over {ra.size} columns", worst, STAB_SIGMAS)
+    return ra, rb
+
+
+def _stab_checks(tct, dev, counters=(), ref=None, **sizes):
+    """Phase 19's checks (a)-(e) on ``dev``, against the port's CPU path
+    (``ref``: :func:`_stab_reference` or a callable giving it, asked for
+    after the work on ``dev``; computed here when None).  Returns the
+    routes' times (CUDA events on a card, else the wall clock) and peaks."""
+    import torch
+    from tensorcircuit_ng_tpu_torch.core import native_tableau, statevec
+    from tensorcircuit_ng_tpu_torch.models import detectors as detmod
+
+    s = {**STAB_SIZES, **sizes}
+    dev = torch.device(dev)
+    card = dev.type == "cuda"
+    times = {}
+
+    def check(label, err, tol):
+        print(f"  {label}: {err:.3e} (tol {tol:g})")
+        if not err <= tol:
+            _fail(f"phase 19, {label}: {err} > {tol}")
+
+    def timed(label, fn):
+        """``fn()`` once, timed by CUDA events (card) or the wall clock,
+        with its peak memory above the start (card)."""
+        if card:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = fn()
+            b.record()
+            b.synchronize()
+            times[label] = (a.elapsed_time(b), "CUDA events, one call",
+                            (torch.cuda.max_memory_allocated() - base) / 2**20)
+        else:
+            t0 = time.perf_counter()
+            out = fn()
+            times[label] = ((time.perf_counter() - t0) * 1e3, "wall clock, one call", None)
+        return out
+
+    print("stabilizer simulator, detectors, qudits, U(1):")
+    t0 = time.perf_counter()
+    native_tableau.native_tableau_available()
+    print(f"  libtableau loaded in {time.perf_counter() - t0:.2f} s (built by g++ at the process's first use, "
+          f"{native_tableau.library_path().name})")
+    got = _stab_values(tct, dev, s)
+    # (a) the surface code's trajectories, the shots as one state
+    sc = surface_code_program(tct, s["sc_d"], s["sc_rounds"], s["sc_p"], device=dev)
+    n_sc = sc.nqubits
+    st, sc_c = detector_statuses(sc, s["sc_shots"])
+    st_d, sc_d = (torch.as_tensor(a, device=dev) for a in (st, sc_c))
+    chunk = detmod.detector_chunk(s["sc_shots"], 2**n_sc, tct.config.torch_dtype(), dev)
+    det, obs = timed(f"(a) sample_detector, surface code d={s['sc_d']} ({n_sc} qubits), {s['sc_rounds']} rounds, "
+                     f"{s['sc_shots']} shots", lambda: sc.sample_detector(s["sc_shots"], status=st_d, statusc=sc_d,
+                                                                           with_observable=True))
+    print(f"  (a) {n_sc} qubits, {sc._num_channels()} channel sites, {sc._num_measures()} records, "
+          f"{det.shape[1]} detectors; {s['sc_shots']} shots as a [{s['sc_shots']}, 2^{n_sc}] state: "
+          f"{-(-s['sc_shots'] // chunk)} chunk(s) of at most {chunk} shots "
+          f"({s['sc_shots'] * 2**n_sc * 8 / 2**30:.3f} GiB of complex64 state)")
+    det, obs = det.cpu().numpy(), obs.cpu().numpy()
+    if det.shape != (s["sc_shots"], det.shape[1]) or not set(np.unique(det)) <= {0, 1}:
+        _fail(f"phase 19 (a): detector bits of shape {det.shape}, values {np.unique(det)}")
+    # (b) exact detector probabilities of the repetition code
+    rep = repetition_program(tct, s["rep_d"], s["rep_rounds"], s["rep_gamma"], device=dev)
+    exact = timed(f"(b) detector_probabilities_exact, repetition code d={s['rep_d']} ({rep.nqubits} qubits)",
+                  lambda: rep.detector_probabilities_exact()).cpu().numpy()
+    st_b, sc_b = detector_statuses(rep, s["rep_traj"], seed=20)
+    rates = timed(f"(b) {s['rep_traj']} trajectories of the same", lambda: rep.detector_probabilities(
+        s["rep_traj"], status=torch.as_tensor(st_b, device=dev), statusc=torch.as_tensor(sc_b, device=dev)))
+    rates = rates.cpu().numpy()
+    print(f"  (b) exact {np.array2string(exact, precision=5)}; {s['rep_traj']} trajectories "
+          f"{np.array2string(rates, precision=5)}")
+    sigma = np.sqrt(np.maximum(exact * (1 - exact), 1.0 / s["rep_traj"]) / s["rep_traj"])
+    check("(b) max |trajectories - exact| / sigma", float(np.max(np.abs(rates - exact) / sigma)), STAB_SIGMAS)
+    if not exact.max() > 0:
+        _fail(f"phase 19 (b): no detector fires ({exact})")
+    for label, c, fire in zip(("detector before a later record", "a record named twice"), f12_programs(tct, device=dev),
+                              (1.0, 0.0)):
+        e = c.detector_probabilities_exact().cpu().numpy()
+        t = c.sample_detector(64).cpu().numpy().mean(axis=0)
+        print(f"  (b) F12 probe, {label}: exact {e.tolist()}, 64 trajectories {t.tolist()}, expected [{fire}]")
+        check(f"(b) F12 {label}: |exact - trajectories|", float(np.max(np.abs(e - t))), 1e-6)
+        check(f"(b) F12 {label}: |exact - expected|", float(np.max(np.abs(e - fire))), 1e-6)
+    # (c) the stabilizer simulator: the dense state on the device, Pauli
+    # strings, the native sampler
+    cl = timed(f"(c) random Clifford circuit n={s['cl_n']}, depth {s['cl_depth']} on the tableau",
+               lambda: clifford_program(tct, s["cl_n"], s["cl_depth"], 5, device=dev))
+    replayed = timed(f"(c) state() replayed through Circuit ({len(cl.to_qir())} gates)", lambda: cl.state())
+    rebuilt = timed(f"(c) state() rebuilt from the {s['cl_n']} stabilizers",
+                    lambda: tct.StabilizerCircuit(s["cl_n"], tableau_inputs=cl.get_tableau(), device=dev).state())
+    overlap = torch.abs(torch.vdot(replayed, rebuilt)).item()
+    check("(c) 1 - |<replayed|rebuilt>|", 1 - overlap, STAB_OVERLAP_TOL)
+    xs, zs_, _ = cl.get_tableau().stabilizers()
+    strings = weight2_strings(s["cl_n"]) + [
+        {"x": [q for q in range(s["cl_n"]) if xs[j, q] and not zs_[j, q]],
+         "y": [q for q in range(s["cl_n"]) if xs[j, q] and zs_[j, q]],
+         "z": [q for q in range(s["cl_n"]) if zs_[j, q] and not xs[j, q]]} for j in range(s["cl_n"])]
+    tab_vals = timed(f"(c) {len(strings)} Pauli strings (weight <= 2 and the generators) on the tableau",
+                     lambda: np.array([cl.expectation_ps(**ps).item() for ps in strings]))
+    dense_vals = timed(f"(c) the same on the dense state", lambda: torch.stack(
+        [torch.real(statevec.expectation_ps(replayed, **ps)) for ps in strings]).cpu().numpy())
+    print(f"  (c) {len(strings) - s['cl_n']} strings of weight <= 2 and the {s['cl_n']} stabilizer generators: "
+          f"{int(np.sum(tab_vals != 0))} nonzero on the tableau")
+    if not np.all(np.abs(tab_vals[-s["cl_n"]:]) == 1):
+        _fail("phase 19 (c): a stabilizer generator's expectation is not +-1")
+    check(f"(c) max |tableau - dense| over {len(strings)} strings", float(np.max(np.abs(tab_vals - dense_vals))),
+          STAB_ATOL)
+    wide = clifford_program(tct, s["cl_wide"], s["cl_depth"], 6, device=dev)
+    t0 = time.perf_counter()
+    bits = wide.sample(s["samples"], format="sample_bin", random_generator=np.random.default_rng(7))
+    times[f"(c) native sample({s['samples']}), n={s['cl_wide']}"] = (
+        (time.perf_counter() - t0) * 1e3, "wall clock, one call, to the bits on the device", None)
+    means = bits.to(torch.float64).mean(dim=0).cpu().numpy()
+    zs = np.array([wide.expectation_ps(z=[q]).item() for q in range(s["cl_wide"])])
+    want = (1 - zs) / 2
+    det_q = zs != 0
+    if not np.array_equal(means[det_q], want[det_q]):
+        _fail("phase 19 (c): a determined qubit's samples disagree with the tableau's <Z>")
+    check(f"(c) max |mean - 1/2| / sigma over the {int(np.sum(~det_q))} random qubits",
+          float(np.max(np.abs(means[~det_q] - 0.5)) / np.sqrt(0.25 / s["samples"])) if (~det_q).any() else 0.0,
+          STAB_SIGMAS)
+    # (d) qudits: samples of the evaluated state
+    qp = tct.convert.params(stab_angles(s["q_layers"], s["q_n"], 23), dev)
+    with torch.no_grad():
+        qc, _ = timed(f"(d) qudit energy d={s['q_d']}, n={s['q_n']}", lambda: qudit_energy(
+            tct, qp, s["q_n"], s["q_d"], s["q_layers"], device=dev))
+    qg = tct.convert.params(stab_angles(s["q_layers"], s["q_n"], 23), dev).requires_grad_()
+    timed("(d) its value and gradient", lambda: torch.autograd.grad(
+        qudit_energy(tct, qg, s["q_n"], s["q_d"], s["q_layers"], device=dev)[1], qg))
+    st_q = torch.as_tensor(np.random.default_rng(8).random(s["samples"]), device=dev)
+    shots = timed(f"(d) sample({s['samples']}, allow_state=True)", lambda: qc.sample(
+        s["samples"], allow_state=True, status=st_q, format="sample_bin"))
+    level = (shots[:, 0].to(torch.float64) - (s["q_d"] - 1) / 2).cpu().numpy()
+    exact0 = qc.expectation((np.diag(np.arange(s["q_d"]) - (s["q_d"] - 1) / 2.0), [0])).real.item()
+    check("(d) |shot mean of qudit 0's level - <level>| / sigma",
+          abs(level.mean() - exact0) / max(level.std() / np.sqrt(s["samples"]), 1e-12), STAB_SIGMAS)
+    # (e) U(1): samples, and one gate with its maps cached and uncached
+    up = tct.convert.params(stab_angles(s["u_layers"], s["u_n"], 29), dev)
+    with torch.no_grad():
+        uc = timed(f"(e) U1Circuit n={s['u_n']}, k={s['u_k']}: the circuit", lambda: u1_circuit(
+            tct, up, s["u_n"], s["u_k"], s["u_layers"], device=dev))
+    ug = tct.convert.params(stab_angles(s["u_layers"], s["u_n"], 29), dev).requires_grad_()
+    timed("(e) <sum Z_i Z_i+1> and its gradient", lambda: torch.autograd.grad(
+        u1_energy(tct, ug, s["u_n"], s["u_k"], s["u_layers"], device=dev)[1], ug))
+    st_u = torch.as_tensor(np.random.default_rng(9).random(s["samples"]), device=dev)
+    ubits = timed(f"(e) sample({s['samples']})", lambda: uc.sample(s["samples"], status=st_u, format="sample_bin"))
+    if not bool((ubits.sum(dim=1) == s["u_k"]).all()):
+        _fail("phase 19 (e): a sample leaves the sector")
+    zz = (1 - 2 * ubits[:, :-1].to(torch.float64)) * (1 - 2 * ubits[:, 1:].to(torch.float64))
+    shots_zz = zz.sum(dim=1).cpu().numpy()
+    with torch.no_grad():
+        exact_zz = sum(uc.expectation_ps(z=[i, i + 1]) for i in range(s["u_n"] - 1)).real.item()
+    check("(e) |shot mean of sum Z_i Z_i+1 - exact| / sigma",
+          abs(shots_zz.mean() - exact_zz) / max(shots_zz.std() / np.sqrt(s["samples"]), 1e-12), STAB_SIGMAS)
+    print(f"  (e) sector dimension {uc.sector_dim}; {len(uc._maps)} wire tuples of maps kept")
+    m = xy_gate(torch.tensor(0.3, device=dev), tct.config.torch_dtype())
+
+    def gate(cached):
+        if not cached:
+            uc._maps.pop((0, 1), None)
+        with torch.no_grad():
+            uc.unitary(0, 1, unitary=m)
+
+    for cached in (False, True):
+        label = f"(e) one XY gate on the {uc.sector_dim}-amplitude sector, maps {'cached' if cached else 'built'}"
+        samples = []
+        for _ in range(5):
+            timed(label, lambda: gate(cached))
+            samples.append(times[label][0])
+        times[label] = (statistics.median(samples), ("CUDA events" if card else "wall clock") + ", median of 5",
+                        times[label][2])
+    # against the port's CPU path
+    reference = ref() if callable(ref) else (ref if ref is not None else _stab_reference(tct, **sizes))
+    k = s["sc_ref"]
+    cpu_bits = np.concatenate([reference["a det"].numpy(), reference["a obs"].numpy()], axis=1)
+    card_bits = np.concatenate([got["a det"].numpy(), got["a obs"].numpy()], axis=1)
+    margin = np.minimum(reference["a margin"].numpy(), got["a margin"].numpy())
+    differ = np.any(cpu_bits != card_bits, axis=1)
+    for i in np.nonzero(differ)[0]:
+        print(f"  (a) shot {i} differs from the CPU path's; its nearest uniform lies {margin[i]:.3e} from a cdf "
+              f"boundary")
+    print(f"  (a) the first {k} shots: {int(differ.sum())} differ from the CPU path's, least margin "
+          f"{margin.min():.3e}")
+    if (differ & (margin > STAB_BRACKET)).any():
+        _fail(f"phase 19 (a): shots {np.nonzero(differ & (margin > STAB_BRACKET))[0].tolist()} differ from the CPU "
+              f"path's away from a cdf boundary")
+    if not np.array_equal(card_bits, np.concatenate([det[:k], obs[:k]], axis=1)):
+        _fail("phase 19 (a): the first shots of the full run differ from the same shots run alone")
+    tab_det, tab_obs = reference["a tableau"]
+    ra, rb = _rates_agree(f"(a) {s['sc_shots']} trajectories against {s['sc_tab']} tableau shots",
+                          np.concatenate([det, obs], axis=1), s["sc_shots"],
+                          np.concatenate([tab_det, tab_obs], axis=1).astype(np.float64), s["sc_tab"], check)
+    print(f"  (a) detector rates: card {np.array2string(ra, precision=4)}; tableau {np.array2string(rb, precision=4)}")
+    check("(b) max |exact - CPU path|", float(np.max(np.abs(exact - reference["b exact"].numpy()))), STAB_ATOL)
+    check("(d) max |state - CPU path|", (got["d state"] - reference["d state"]).abs().max().item(), STAB_ATOL)
+    check("(d) |E - CPU path|", abs(got["d e"] - reference["d e"]), STAB_ATOL)
+    check("(d) max |grad - CPU path|", (got["d g"] - reference["d g"]).abs().max().item(), STAB_ATOL)
+    check("(e) |<sum ZZ> - CPU path|", abs(got["e e"] - reference["e e"]), STAB_ATOL)
+    check("(e) max |grad - CPU path|", (got["e g"] - reference["e g"]).abs().max().item(), STAB_ATOL)
+    print(f"  (d) E {got['d e']:.7f}; (e) <sum ZZ> {got['e e']:.7f}; the tableau's {s['sc_tab']} shots took "
+          f"{reference['seconds tableau']:.1f} s on the CPU")
+    return times
+
+
+def _stab_phase(tct, card, job):
+    """Phase 19: :func:`_stab_checks` on the card against the CPU references
+    of the child process, then its times."""
+    t0 = time.perf_counter()
+    wait = {}
+
+    def reference():
+        ref, wait["s"] = _await_reference(job, "stab")
+        print(f"phase 19 CPU references (the child process): waited {wait['s']:.1f} s; {ref['seconds']:.1f} s there")
+        return ref
+
+    times = _stab_checks(tct, "cuda", ref=reference)
+    for label, (ms, how, peak) in times.items():
+        mem = f", peak {peak:.1f} MiB above the start" if peak is not None else ""
+        print(f"phase 19 time, {label}: {ms:.3f} ms ({how}){mem}, {card}")
+    print(f"phase 19 wall time: {time.perf_counter() - t0:.1f} s (of which waiting {wait.get('s', 0.0):.1f} s)")
+
+
 def main() -> int:
     import torch
 
@@ -5373,6 +5944,10 @@ def main() -> int:
     # ---- 18. the backend's transforms, time evolution, shadows ---------
     _transform_phase(tct, card, every_counter, ref_job)
     print(f"phase 18 ended at {time.time() - t_start:.1f} s")
+
+    # ---- 19. the stabilizer simulator, detectors, qudits, U(1) ----------
+    _stab_phase(tct, card, ref_job)
+    print(f"phase 19 ended at {time.time() - t_start:.1f} s")
     print(f"smoke total: {time.time() - t_start:.1f} s")
     print(json.dumps(kernels_line))
     print(card)

@@ -90,13 +90,28 @@ templates (lattices, graphs, Hamiltonians, blocks, ansätze, measurements)::
     with tct.set_device("cpu"):
         hc = tct.PauliStringSum2COO([[3, 3, 0], [1, 0, 0]], [1.0, -1.0])
 
+Clifford circuits on the stabilizer tableau (host C++, built by g++ at first
+use into ``build/native/``), QEC detectors on the dense circuit (the shots as
+one ``[shots, 2^n]`` state on the card), qudits and one U(1) sector::
+
+    s = tct.StabilizerCircuit(49)                 # state(), readouts on the card
+    s.h(0); s.cnot(0, 1)
+    shots = s.sample(8192, format="sample_bin")
+    c = tct.Circuit(17)
+    c.depolarizing(3, px=0.01 / 3, py=0.01 / 3, pz=0.01 / 3)
+    c.measure_instruction(3); c.detector(-1)
+    det = c.sample_detector(1024)                 # [1024, n_det] int32
+    p = c.detector_probabilities_exact()          # by density matrices
+    q = tct.QuditCircuit(12, dim=3); q.csum(0, 1)
+    u = tct.U1Circuit(24, k=12); u.rzz(0, 1, theta=0.3)
+
 On the card the fused TFIM layers and the TEBD truncation SVD run
 hand-written Hopper kernels (``core/csrc/``, built by nvcc at first use
 into ``build/kernels/``); on the CPU (``device="cpu"`` or
 ``set_device("cpu")``) they run their plain torch versions.
 """
 
-from . import config, convert, dmrg, experimental, noisemodel, quantum, shadows, simplify, templates, timeevol
+from . import config, convert, dmrg, experimental, noisemodel, quantum, shadows, simplify, templates, timeevol, translation
 from .backend import TorchBackend, backend
 from .config import (
     dtypestr,
@@ -121,8 +136,11 @@ from .models.densitymatrix import DMCircuit, DMCircuit2, DensityMatrixCircuit
 from .models.mps_base import FiniteMPS
 from .models.mpscircuit import MPSCircuit
 from .noisemodel import NoiseConf, circuit_with_noise
+from .models.quditcircuit import QuditCircuit
+from .models.stabilizercircuit import StabilizerCircuit
 from .models.tebd import ParallelTEBD
-from .ops import channels, gates
+from .models.u1circuit import U1Circuit, U1Operator
+from .ops import channels, gates, quditgates
 from .ops.gates import Gate, array_to_tensor, num_to_tensor
 from .quantum import (
     LinearOperator,
@@ -136,12 +154,15 @@ from .quantum import (
     aslinearoperator,
 )
 
+CliffordCircuit = StabCircuit = StabilizerCircuit
+
 #: the runtime configuration, with the contractor's helpers on it, as the
 #: JAX package names it
 cons = config
 
 __all__ = [
     "Circuit",
+    "CliffordCircuit",
     "DMCircuit",
     "DMCircuit2",
     "DensityMatrixCircuit",
@@ -158,7 +179,12 @@ __all__ = [
     "QuOperator",
     "QuScalar",
     "QuVector",
+    "QuditCircuit",
+    "StabCircuit",
+    "StabilizerCircuit",
     "TorchBackend",
+    "U1Circuit",
+    "U1Operator",
     "array_to_tensor",
     "aslinearoperator",
     "backend",
@@ -180,6 +206,7 @@ __all__ = [
     "get_tn_info",
     "num_to_tensor",
     "quantum",
+    "quditgates",
     "runtime_backend",
     "runtime_contractor",
     "runtime_dtype",
@@ -194,4 +221,5 @@ __all__ = [
     "simplify",
     "templates",
     "timeevol",
+    "translation",
 ]

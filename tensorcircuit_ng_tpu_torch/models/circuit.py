@@ -16,7 +16,8 @@ the cdf of its branch probabilities first reaches ``status`` (a uniform;
 one is drawn on the circuit's device without it), so the same status gives
 the JAX package's branch.  ``device`` defaults to the configured device
 (``"cuda"`` unless :func:`config.set_device` says otherwise); a CUDA device
-without a card raises.
+without a card raises.  Detector and observable instructions, their
+trajectories and exact rates come from :class:`detectors.DetectorMixin`.
 """
 
 from __future__ import annotations
@@ -33,11 +34,12 @@ from ..core import statevec
 from ..ops import channels as channels_mod
 from ..ops.gates import Gate
 from .basecircuit import BaseCircuit
+from .detectors import DetectorMixin
 
 __all__ = ["Circuit", "expectation"]
 
 
-class Circuit(BaseCircuit):
+class Circuit(DetectorMixin, BaseCircuit):
     """Exact statevector circuit simulator (dense engine)."""
 
     def __init__(

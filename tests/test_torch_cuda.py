@@ -79,6 +79,8 @@ import torch
 
 import tensorcircuit_ng_tpu_torch as tct
 from chip_smoke import (
+    STAB_SMALL, _stab_checks, detector_statuses, qudit_energy, repetition_program, stab_angles, surface_code_program,
+    u1_circuit, u1_energy, xy_gate, clifford_program,
     HAM_SMALL, TRANSFORM_SMALL, _tfim_coo_state, _transform_checks, transform_angles, transform_energy,
     MPS_GRAM_GRAD_TOL, MPS_TOL, SVD_ORTH_TOL, SVD_REC_TOL, SVD_S_TOL, SVD_VEC_TOL, _contraction_checks,
     _hamiltonian_checks, _mps_checks, _mps_reference,
@@ -1823,3 +1825,69 @@ def test_transform_phase_checks_on_card(cuda):
     path at n=8: no kernel launch is required there; its jit captures the
     plain torch ops)."""
     _transform_checks(tct, cuda, (), **TRANSFORM_SMALL)
+
+
+def test_surface_code_detectors_on_card_match_cpu(cuda):
+    """Phase 19 (a) at 2 rounds, 64 shots: the card's bits equal the CPU
+    path's with the same statuses, but for shots within 1e-6 of a cdf
+    boundary; twice on the card, bit for bit."""
+    outs = {}
+    for dev in (cuda, torch.device("cpu")):
+        c = surface_code_program(tct, 3, 2, 0.01, device=dev)
+        st, sc = detector_statuses(c, 64)
+        outs[dev.type] = c.sample_detector(64, status=st, statusc=sc, with_observable=True, with_margin=True)
+        if dev.type == "cuda":
+            again = c.sample_detector(64, status=st, statusc=sc, with_observable=True, with_margin=True)
+            assert all(torch.equal(a, b) for a, b in zip(outs["cuda"], again))
+    (dc, oc, mc), (dp, op, mp) = outs["cuda"], outs["cpu"]
+    assert dc.device.type == "cuda" and dc.dtype == torch.int32
+    differ = ((dc.cpu() != dp).any(dim=1) | (oc.cpu() != op).any(dim=1)).numpy()
+    margin = np.minimum(mc.cpu().numpy(), mp.numpy())
+    assert not (differ & (margin > 1e-6)).any()
+
+
+def test_exact_detector_probabilities_on_card_match_cpu(cuda):
+    got = repetition_program(tct, 5, 2, 0.05, device=cuda).detector_probabilities_exact()
+    want = repetition_program(tct, 5, 2, 0.05, device="cpu").detector_probabilities_exact()
+    assert got.device.type == "cuda" and (got.cpu() - want).abs().max().item() <= 1e-6
+
+
+def test_stabilizer_states_on_card(cuda):
+    c = clifford_program(tct, 12, 20, 3, device=cuda)
+    replayed, rebuilt = c.state(), tct.StabilizerCircuit(12, tableau_inputs=c.get_tableau(), device=cuda).state()
+    assert replayed.device.type == rebuilt.device.type == "cuda"
+    assert abs(torch.abs(torch.vdot(replayed, rebuilt)).item() - 1.0) <= 1e-5
+    cpu = clifford_program(tct, 12, 20, 3, device="cpu").state()
+    assert (replayed.cpu() - cpu).abs().max().item() <= 1e-6
+    assert c.expectation_ps(z=[0]).device.type == "cuda"
+
+
+@pytest.mark.parametrize("kind", ["qudit", "u1"])
+def test_qudit_u1_energy_and_grad_on_card_match_cpu(cuda, kind):
+    res = {}
+    for dev in (cuda, torch.device("cpu")):
+        if kind == "qudit":
+            p = convert.params(stab_angles(2, 6, 23), dev).requires_grad_()
+            c, e = qudit_energy(tct, p, 6, 3, 2, device=dev)
+        else:
+            p = convert.params(stab_angles(2, 12, 29), dev).requires_grad_()
+            c, e = u1_energy(tct, p, 12, 6, 2, device=dev)
+        (g,) = torch.autograd.grad(e, p)
+        res[dev.type] = (c.state().detach().cpu(), e.item(), g.cpu())
+    (sc, ec, gc), (sp, ep, gp) = res["cuda"], res["cpu"]
+    assert (sc - sp).abs().max().item() <= 1e-5 and abs(ec - ep) <= 1e-5 and (gc - gp).abs().max().item() <= 1e-5
+
+
+def test_u1_gate_twice_bit_for_bit_on_card(cuda):
+    """The gather form sums each amplitude's terms in one order."""
+    p = convert.params(stab_angles(2, 16, 31), cuda)
+    outs = [u1_circuit(tct, p, 16, 8, 2, device=cuda).state() for _ in range(2)]
+    assert torch.equal(outs[0], outs[1])
+    c = tct.U1Circuit(16, k=8, device=cuda)
+    c.unitary(3, 4, unitary=xy_gate(torch.tensor(0.3, device=cuda), torch.complex64))
+    assert c._maps[(3, 4)][1].device.type == "cuda"
+
+
+def test_stab_phase_checks_on_card(cuda):
+    """``chip_smoke.py``'s phase 19 at a small size on the card."""
+    _stab_checks(tct, cuda, **STAB_SMALL)
