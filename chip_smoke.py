@@ -983,7 +983,7 @@ def _ptxas_report(log: str, needle: str):
 
 def _stage_times(fn, stages, reps: int = 10):
     """(device µs a launch, launches a call) of each stage of ``fn`` under
-    torch.profiler: ``stages`` maps a label to a kernel-name test; a label
+    torch.profiler tracing the card alone: ``stages`` maps a label to a kernel-name test; a label
     ending in "+colsum" adds the colsum_kernel or colsum_tree_kernel
     launched right after each of its kernels (found in the trace's time
     order).  A stage given as ``(test, k, m)`` is the k-th launch of every
@@ -994,7 +994,10 @@ def _stage_times(fn, stages, reps: int = 10):
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    # the card alone: the kernels' records are the same, and the host ops'
+    # records of a step of thousands of small ops cost the profiler tens of
+    # seconds (phases 8 and 9)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
@@ -1280,6 +1283,23 @@ def _k7_plan(krl, card, r, nkernel):
     _ptxas_check("row_layer", ("gate_row_pass_kernelILb0E", "gate_row_pass_kernelILb1E"))
 
 
+class _SubSteps:
+    """Wall-clock seconds of a phase's sub-steps, each from the end of the
+    one before (printed by :meth:`report`)."""
+
+    def __init__(self, phase):
+        self.phase, self.t, self.steps = phase, time.perf_counter(), []
+
+    def done(self, label):
+        now = time.perf_counter()
+        self.steps.append((label, now - self.t))
+        self.t = now
+
+    def report(self, card):
+        for label, sec in self.steps:
+            print(f"{self.phase} sub-step, {label}: {sec:.1f} s (wall clock), {card}")
+
+
 def _hea_phase(tct, krl, dev, card):
     """Phase 8, the HEA path (the main path of the single-qubit-layer
     slice): K6/K7/K8 against their plain versions at the n=20 shapes, 5 SGD
@@ -1333,7 +1353,9 @@ def _hea_phase(tct, krl, dev, card):
         ],
     }
     print(f"row-layer parity at n={N}: nkernel={nkernel}, r={r}, distinct unitary gates")
+    sub = _SubSteps("phase 8")
     max_err = _check_parity(cases, twice=("row_bwd",))
+    sub.done("kernel parity against the plain versions")
 
     # 5 SGD steps through the public API, on the card and on the CPU
     w0 = np.random.default_rng(42).normal(size=(L, 2, N)) * 0.1
@@ -1351,6 +1373,7 @@ def _hea_phase(tct, krl, dev, card):
     w = tct.convert.params(w0, dev).requires_grad_()
     card_steps = [tuple(t.detach().cpu().numpy() for t in step(w)) for _ in range(STEPS)]
     torch.cuda.synchronize()
+    sub.done(f"{STEPS} SGD steps on the card")
     launches = {k.__name__: k.launches for k in counters}
     print(f"HEA path launches ({STEPS} steps, n={N} L={L}): {launches}")
     want = {"row_fwd": 2 * L + 1, "row_bwd": 2 * L, "row_bwd_const": 1}
@@ -1370,24 +1393,29 @@ def _hea_phase(tct, krl, dev, card):
             _fail(f"HEA step {i} on the card disagrees with the CPU path")
     if not card_steps[-1][0] < card_steps[0][0]:
         _fail(f"{STEPS} HEA SGD steps did not lower the energy")
+    sub.done(f"{STEPS} SGD steps on the CPU (the reference)")
 
     # timings: the step, each kernel (the path's variant) and its plain
     # version; K7 also with the lane
     wt = tct.convert.params(w0, dev).requires_grad_()
     step_ms = _time_ms(lambda: step(wt)[0].item(), inner=1)
-    prof = _profile(lambda: step(wt)[0].item())
+    sub.done("the step timed by events (20 calls)")
+    prof = _profile(lambda: step(wt)[0].item(), cpu=False)
+    sub.done("the step profiled (10 calls, the card alone)")
     stage_us = _stage_times(lambda: step(wt)[0].item(), {**K7_STAGES, **K6_STAGES, **K8_STAGES})
+    sub.done("the stages by device time (10 calls, the card alone)")
     timed = {k: cases[k][0] for k in cases}  # the path runs no lane variant
     with torch.no_grad():
         times = {k: (_time_rounds(v[1]), _time_rounds(v[2], **PLAIN_TIMING)) for k, v in timed.items()}
         lanes = {k: (_time_rounds(cases[k][1][1]), _time_rounds(cases[k][1][2], **PLAIN_TIMING))
                  for k in ("row_fwd", "row_bwd")}
+    sub.done("each kernel and its plain version timed")
     print(f"HEA training step n={N} L={L} (value, grad, SGD update; CUDA events, ends in .item()), "
           f"{card}: {step_ms:.3f} ms (median of 20)")
     host, busy, by_kernel = prof
-    print(f"profile HEA step (torch.profiler, 10 runs), {card}: host {host:.3f} ms under the profiler, "
-          f"device busy {busy:.3f} ms ({100 * busy / host:.1f} % of it; {100 * busy / step_ms:.1f} % of "
-          f"the unprofiled {step_ms:.3f} ms), {len(by_kernel)} kernel names")
+    print(f"profile HEA step (torch.profiler tracing the card alone, 10 runs), {card}: host {host:.3f} ms under "
+          f"the profiler, device busy {busy:.3f} ms ({100 * busy / host:.1f} % of it; {100 * busy / step_ms:.1f} % "
+          f"of the unprofiled {step_ms:.3f} ms), {len(by_kernel)} kernel names")
     for name, ms, count in by_kernel[:14]:
         print(f"  device {ms:.4f} ms x{count:g}/run  {name[:90]}")
     # the kernels' own device time a launch on the path (the event timing
@@ -1438,6 +1466,7 @@ def _hea_phase(tct, krl, dev, card):
               ("K7", "no lane"): cases["row_bwd"][0][1], ("K8", "no lane"): cases["row_bwd_const"][0][1]}
     with torch.no_grad():
         graphs = {k: _graph_ms(f) for k, f in graphs.items()}
+    sub.done("the plans and the replayed CUDA graphs")
     for (kname, label), g in graphs.items():
         print(f"{kname} alone [{label}, n={N} nkernel={nkernel}] by a replayed CUDA graph of 10 calls (median of "
               f"3 rounds), {card}: {1e3 * g[0]:.2f} us (min {1e3 * g[1]:.2f}, max {1e3 * g[2]:.2f})")
@@ -1459,6 +1488,7 @@ def _hea_phase(tct, krl, dev, card):
             "launches": launches[name], "max_abs_err": max_err[name], "ms": t[0], "plain_ms": tp[0],
             "bound_ms": bound, "bound_by": by, "library_ms": None,
         })
+    sub.report(card)
     return entries
 
 
@@ -1633,7 +1663,9 @@ def _qaoa_phase(tct, krl, dev, card, counters):
     }
     print(f"QAOA kernel parity at n={n}: {npairs} edges, whole-block nrow={nrow}, {lanes} lanes; "
           f"rotx nkernel={nk}")
+    sub = _SubSteps("phase 9")
     max_err = _check_parity(cases, twice=("ml_bwd", "rotx_bwd"))
+    sub.done("kernel parity against the plain versions")
 
     forms = {"a": ("zzrx", "pallas", False), "b": ("rzz_rx", "stack", True), "a-stack": ("zzrx", "stack", False)}
 
@@ -1682,6 +1714,7 @@ def _qaoa_phase(tct, krl, dev, card, counters):
             torch.cuda.synchronize()
             launches[form] = {k.__name__: k.launches for k in counters if k.launches}
             print(f"QAOA form ({form}) path launches ({STEPS} Adam steps, n={n} p={QAOA_P}): {launches[form]}")
+        sub.done(f"the start energies and {STEPS} Adam steps a form on the card")
         want = {"a": {"ml_fwd": STEPS, "ml_bwd": STEPS},
                 "b": {"rotx_fwd": QAOA_P * STEPS, "rotx_bwd": QAOA_P * STEPS}}
         if launches != want:
@@ -1700,6 +1733,7 @@ def _qaoa_phase(tct, krl, dev, card, counters):
                     _fail(f"QAOA form ({form}) step {i} on the card disagrees with the CPU path")
             if not card_steps[form][-1][0] < card_steps[form][0][0]:
                 _fail(f"{STEPS} Adam steps of QAOA form ({form}) did not lower the cost")
+        sub.done(f"{STEPS} Adam steps a form on the CPU (the reference)")
 
         # timings: each form's step (value, grad, Adam update), profiled
         step_ms = {}
@@ -1715,11 +1749,13 @@ def _qaoa_phase(tct, krl, dev, card, counters):
                 return e.item()
 
             step_ms[form] = _time_ms(step, inner=1)
-            host, busy, by_kernel = _profile(step)
+            sub.done(f"form ({form})'s step timed by events (20 calls)")
+            host, busy, by_kernel = _profile(step, cpu=False)
+            sub.done(f"form ({form})'s step profiled (10 calls, the card alone)")
             print(f"QAOA form ({form}) training step n={n} p={QAOA_P} (value, grad, Adam update; CUDA "
                   f"events, ends in .item()), {card}: {step_ms[form]:.3f} ms (median of 20)")
-            print(f"profile QAOA form ({form}) step (torch.profiler, 10 runs), {card}: host {host:.3f} ms "
-                  f"under the profiler, device busy {busy:.3f} ms ({100 * busy / host:.1f} % of it; "
+            print(f"profile QAOA form ({form}) step (torch.profiler tracing the card alone, 10 runs), {card}: host "
+                  f"{host:.3f} ms under the profiler, device busy {busy:.3f} ms ({100 * busy / host:.1f} % of it; "
                   f"{100 * busy / step_ms[form]:.1f} % of the unprofiled {step_ms[form]:.3f} ms), "
                   f"{len(by_kernel)} kernel names")
             for name, ms, count in by_kernel[:12]:
@@ -1746,6 +1782,7 @@ def _qaoa_phase(tct, krl, dev, card, counters):
                 })
             else:
                 k12_us = _stage_times(step, {**K12_STAGES, **K11_STAGES})
+            sub.done(f"form ({form})'s stages by device time (10 calls, the card alone)")
     finally:
         kernels.ML_MODE, kernels.USE_ROTX = "stack", False
 
@@ -1758,6 +1795,7 @@ def _qaoa_phase(tct, krl, dev, card, counters):
                             ("K12", f"nkernel={nk}", k12_graph)):
         print(f"{kname} alone [{label}, n={n}] by a replayed CUDA graph of 10 calls (median of 3 rounds), "
               f"{card}: {1e3 * g[0]:.2f} us (min {1e3 * g[1]:.2f}, max {1e3 * g[2]:.2f})")
+    sub.done("each kernel and its plain version timed, the replayed CUDA graphs")
     _ml_stages(kml, card, stage_us, y_ml, (ctr, cti), (mr, mi), npairs, nrow)
     _k11_stages(krl, card, {k: k12_us[k] for k in K11_STAGES}, 2 ** (n - 7), nk)
     _k12_stages(krl, card, {k: k12_us[k] for k in K12_STAGES}, 2 ** (n - 7), nk)
@@ -1782,6 +1820,8 @@ def _qaoa_phase(tct, krl, dev, card, counters):
             "max_abs_err": max_err[name], "ms": t[0], "plain_ms": tp[0], "bound_ms": bound, "bound_by": by,
             "library_ms": None,
         })
+    sub.done("the stage plans")
+    sub.report(card)
     return entries
 
 
@@ -3929,7 +3969,8 @@ def _reference_child(out):
     shots, then :func:`_mps_reference` at phase 16's full sizes, then
     :func:`_hamiltonian_values` at phase 17's, then
     :func:`_transform_reference` at phase 18's, then :func:`_stab_reference`
-    at phase 19's, each saved (torch.save) into
+    at phase 19's, then :func:`_slice_reference` at phase 20's, each saved
+    (torch.save) into
     DIR as it ends (:data:`REFERENCES`).  The Gram-against-exact drift is left to
     ``tools/mps_gram_drift.py``: three more runs of (a) on the CPU would
     crowd phases 12-16."""
@@ -3958,6 +3999,7 @@ def _reference_child(out):
         transform = _transform_reference(tct, **TRANSFORM_SIZES)
         save("transform", {**transform, "seconds": time.perf_counter() - t0})
         save("stab", _stab_reference(tct, **STAB_SIZES))
+        save("slice", _slice_reference(tct, **SLICE_SIZES))
     return 0
 
 
@@ -4168,7 +4210,8 @@ def _qop_pairs(v):
 
 #: the files of the CPU references' child process, under build/
 REFERENCES = {"noise": "phase14_reference.pt", "brickwork": "phase15_brickwork.pt", "mps": "phase16_reference.pt",
-              "ham": "phase17_reference.pt", "transform": "phase18_reference.pt", "stab": "phase19_reference.pt"}
+              "ham": "phase17_reference.pt", "transform": "phase18_reference.pt", "stab": "phase19_reference.pt",
+              "slice": "phase20_reference.pt"}
 #: the longest a phase waits for one of them
 REF_TIMEOUT = 600
 
@@ -5408,6 +5451,468 @@ def _stab_phase(tct, card, job):
     print(f"phase 19 wall time: {time.perf_counter() - t0:.1f} s (of which waiting {wait.get('s', 0.0):.1f} s)")
 
 
+# ---- phase 20: analog circuits, free fermions, Pauli propagation, symbols -
+
+#: phase 20's sizes: (a) the analog circuit's width and zzrx layers, its
+#: global block's duration T and drive Ω, the local block's wires; (b) the
+#: free-fermion chain, its hopping layers (each every bond, even then odd),
+#: the measured sites, the asymmetry's block and angles; (c) the exact and
+#: the truncated propagation's widths and weights, and their brick layers;
+#: (d) the symbolic circuit's width and layers
+SLICE_SIZES = {"a_n": 18, "a_nl": L, "a_T": 0.5, "a_omega": 1.2, "a_local": 4,
+               "f_L": 512, "f_layers": 4, "f_meas": 32, "f_block": 64, "f_angles": 100,
+               "p_n": 10, "p_k": 10, "p_wide": 40, "p_wide_k": 3, "p_layers": 4,
+               "s_n": 4, "s_layers": 3}
+#: the same checks at a CPU test's size
+SLICE_SMALL = {"a_n": 8, "a_nl": 2, "a_T": 0.5, "a_omega": 1.2, "a_local": 3,
+               "f_L": 16, "f_layers": 2, "f_meas": 4, "f_block": 4, "f_angles": 8,
+               "p_n": 6, "p_k": 6, "p_wide": 10, "p_wide_k": 2, "p_layers": 2,
+               "s_n": 3, "s_layers": 2}
+#: (a): the value and gradients against the CPU path, and the local block
+#: H = θ/(2T) X against rx(θ): the ODE's tolerance
+ANALOG_ATOL = 1e-4
+#: (a): the blocks' absolute ODE tolerance, set for amplitudes of 2^-9: at
+#: the default 1.4e-7 the n=18 state's norm drifted 4.5e-5 on the card (25
+#: steps); at 1e-9 the n=16 one drifts 5.4e-7 on the CPU (48 steps)
+ANALOG_ODE_ATOL = 1e-9
+#: (b): each readout against the CPU path, relative to its own size
+FGS_RTOL = 1e-4
+#: (b): C² = C and C = C† on the card
+FGS_PROJ_ATOL = 1e-4
+#: (b): Σ occupations after the number-conserving hopping layers
+FGS_NUMBER_ATOL = 1e-3
+#: (b): a measured site's occupation against its outcome
+FGS_OUTCOME_ATOL = 1e-5
+#: (c) and (d): float32 propagation against the dense state and the CPU
+#: path; the bound symbolic circuit against the substituted expression
+SLICE_ATOL = 1e-5
+
+
+def _hermitian_mvp(h):
+    """v -> h @ v for a hermitian sparse ``h``, its backward the same
+    product (h^H = h), so that no transpose of ``h`` is made."""
+    import torch
+
+    class Product(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, v):
+            return h @ v
+
+        @staticmethod
+        def backward(ctx, g):
+            return h @ g
+
+    return Product.apply
+
+
+def analog_local_hamiltonian(k, seed=31):
+    """H_0 of phase 20 (a)'s local block: a seeded hermitian 2^k x 2^k
+    matrix of spectral norm 1."""
+    a = np.random.default_rng(seed).normal(size=(2**k, 2**k, 2)) @ np.array([1.0, 1.0j])
+    h = (a + a.conj().T) / 2
+    return h / np.linalg.norm(h, 2)
+
+
+def analog_circuit(tct, p, omega, n, nl, T, local, device):
+    """Phase 20 (a)'s hybrid circuit: the TFIM main path (h_layer and nl
+    zzrx_layers on the chain, angles ``p``), a global block H(t) = Σ Z_i
+    Z_{i+1} + Ω sin(πt/T) Σ X_i over [0, T] (the port's COO, built once on
+    the device and kept as CSR, the drive scaled per t), rx(0.1 (q+1)) on
+    every qubit, a local block (1 + t) H_0 on wires 0..local-1 over [0, T];
+    both blocks at the absolute tolerance :data:`ANALOG_ODE_ATOL`."""
+    import torch
+
+    pairs = [(i, i + 1) for i in range(n - 1)]
+    with tct.set_device(device):
+        hzz = tct.PauliStringSum2COO([[3 if q in (i, i + 1) else 0 for q in range(n)] for i in range(n - 1)])
+        hx = tct.PauliStringSum2COO([[1 if q == i else 0 for q in range(n)] for i in range(n)])
+    zz, xs = (_hermitian_mvp(h.to_sparse_csr()) for h in (hzz, hx))
+    c = tct.AnalogCircuit(n, device=device)
+    c.h_layer()
+    for l in range(nl):
+        c.zzrx_layer(pairs, p[l, 0, : n - 1], p[l, 1])
+    c.add_analog_block(lambda t: (lambda v: zz(v) + omega * torch.sin(np.pi * t / T) * xs(v)), T,
+                       atol=ANALOG_ODE_ATOL)
+    for q in range(n):
+        c.rx(q, theta=0.1 * (q + 1))
+    h0 = torch.as_tensor(analog_local_hamiltonian(local), dtype=tct.config.torch_dtype(), device=device)
+    c.add_analog_block(lambda t: (1 + t) * h0, T, index=list(range(local)), atol=ANALOG_ODE_ATOL)
+    return c
+
+
+def analog_stack_kernels(kst, n, nl):
+    """The stack's launches on (a)'s value and gradient: K2 once (the fused
+    pair under ``FUSE_GRAND``) or K1 a layer forward, and K3 a layer
+    backward (the circuit hands a state to the ODE, so the matrix-level
+    boundary: K4 rides only the Ising energy's angle-level one)."""
+    nrow, _, nouter, _ = kst._shapes(n)
+    grand = (kst.FUSE_GRAND and kst.FUSE_LANE and not kst.FUSE_ROWM and nouter >= 1 and nl % 2 == 0
+             and nrow <= kst.MAX_GRAND_ROW_QUBITS)
+    return {**({"grand_zzrx_fwd": 1} if grand else {"zzrx_fwd": nl}), "zzrx_bwd": nl}
+
+
+def fgs_bonds(L):
+    """A hopping layer's bonds: the even ones, then the odd ones."""
+    return [(i, i + 1) for i in range(0, L - 1, 2)] + [(i, i + 1) for i in range(1, L - 1, 2)]
+
+
+def fgs_inputs(L, layers, meas, block, nangles, seed=47):
+    """Phase 20 (b)'s seeded inputs: the hopping χ a layer and bond (and a
+    second state's last layer, 0.01 away), a random BdG M (hopping plus
+    pairing, norm O(1)), the measured sites and their uniforms, the charge
+    moment's and the asymmetry's angles, the nearest-neighbour hopping M of
+    the energy."""
+    from tensorcircuit_ng_tpu_torch.models.fgs import FGSSimulator
+
+    rng = np.random.default_rng(seed)
+    nb = L - 1
+    chi = 0.4 * (rng.normal(size=(layers, nb)) + 1j * rng.normal(size=(layers, nb)))
+    h = rng.normal(size=(L, L)) + 1j * rng.normal(size=(L, L))
+    d = rng.normal(size=(L, L)) + 1j * rng.normal(size=(L, L))
+    hop = np.diag(-np.ones(L - 1), 1) + np.diag(-np.ones(L - 1), -1)
+    return {
+        "chi": chi, "chi2": chi[-1] + 0.01 * (rng.normal(size=nb) + 1j * rng.normal(size=nb)),
+        "m": FGSSimulator.bdg((h + h.conj().T) / (2 * np.sqrt(L)), (d - d.T) / (2 * np.sqrt(L))),
+        "sites": rng.choice(L, size=meas, replace=False), "status": rng.random(meas),
+        "cm_angles": rng.uniform(-np.pi, np.pi, size=2), "angles": rng.uniform(-np.pi, np.pi, size=(nangles, 2)),
+        "hop": FGSSimulator.bdg(hop, np.zeros((L, L))), "L": L, "layers": layers, "block": block,
+    }
+
+
+def fgs_layers(tct, x, device, last=None):
+    """Néel filling and the hopping layers on ``device``; ``last`` replaces
+    the last layer's χ (a leaf for the gradient)."""
+    import torch
+
+    L = x["L"]
+    f = tct.FGSSimulator(L, filled=range(0, L, 2), device=device)
+    chi = torch.as_tensor(x["chi"]).to(device=device, dtype=tct.config.torch_dtype())
+    for l in range(x["layers"]):
+        cl = last if (last is not None and l == x["layers"] - 1) else chi[l]
+        for b, (i, j) in enumerate(fgs_bonds(L)):
+            f.evol_hp(i, j, cl[b])
+    return f
+
+
+def _fgs_values(tct, x, device, timed):
+    """Phase 20 (b) on ``device``: the readouts held across devices and the
+    invariants on the device itself."""
+    import torch
+
+    L, cdt = x["L"], tct.config.torch_dtype()
+    out = {}
+    last = torch.as_tensor(x["chi"][-1]).to(device=device, dtype=cdt).requires_grad_()
+    hop = torch.as_tensor(x["hop"]).to(device=device, dtype=cdt)
+
+    def hopping():
+        f = fgs_layers(tct, x, device, last)
+        e = torch.real(torch.sum(hop * f.get_cmatrix().T)) / 2
+        (g,) = torch.autograd.grad(e, last)
+        return f, e, g
+
+    f, e, g = timed(f"(b) Néel and {x['layers']} hopping layers ({x['layers'] * (L - 1)} evol_hp), the energy "
+                    f"tr(M C)/2 and its gradient in the last layer's {L - 1} χ", hopping)
+    out["energy"], out["grad"] = e.item(), g.detach().cpu()
+    f = tct.FGSSimulator(L, alpha=f.alpha.detach(), device=device)
+    c = f.get_cmatrix()
+    out["c hop"] = c.cpu()
+    out["number"] = torch.sum(torch.real(torch.diagonal(c)[L:])).item()
+    other = fgs_layers(tct, {**x, "chi": np.concatenate([x["chi"][:-1], x["chi2"][None]])}, device)
+    out["overlap"] = timed(f"(b) overlap with a second state (|det| of a {L}x{L} matrix by QR)",
+                           lambda: f.overlap(other)).item()
+    timed(f"(b) evol_hamiltonian of a random BdG M ({2 * L}x{2 * L} matrix_exp)", lambda: f.evol_hamiltonian(x["m"], 0.3))
+    status = torch.as_tensor(x["status"]).to(device)
+    out["outcomes"] = timed(f"(b) cond_measure on {len(x['sites'])} sites (an exact projection and a QR each)",
+                            lambda: torch.stack([f.cond_measure(int(i), status[k]) for k, i in
+                                                 enumerate(x["sites"])])).cpu()
+    c = f.get_cmatrix()
+    out["c final"] = c.cpu()
+    out["measured occupations"] = torch.stack([f.occupation(int(i)) for i in x["sites"]]).cpu()
+    out["idempotent"] = (c @ c - c).abs().max().item()
+    out["hermitian"] = (c - c.mH).abs().max().item()
+    half = range(L // 2)
+    out["entropy"] = timed(f"(b) entropy of {L // 2} sites", lambda: f.entropy(half)).item()
+    out["renyi"] = f.renyi_entropy(half, 2).item()
+    trace = list(range(x["block"], L))
+    out["charge moment"] = complex(f.charge_moment(x["cm_angles"], 2, trace))
+    out["asymmetry"] = timed(f"(b) renyi_entanglement_asymmetry(n=2), {len(x['angles'])} angles, a {x['block']}-site "
+                             f"block", lambda: f.renyi_entanglement_asymmetry(2, trace, status=x["angles"])).item()
+    return out
+
+
+def pp_circuit(tct, n, layers, seed=53, **kw):
+    """Phase 20 (c)'s circuit: h_layer and one zzrx_layer (fused items),
+    then ``layers`` brick layers of rx and rz on every qubit and cnot and
+    rzz on alternating pairs.  Returns the circuit and its QIR cut into
+    ``layers`` segments (the fused items with the first)."""
+    rng = np.random.default_rng(seed)
+    c = tct.Circuit(n, **kw)
+    c.h_layer()
+    c.zzrx_layer([(i, i + 1) for i in range(n - 1)], 0.5 * rng.normal(size=n - 1), 0.5 * rng.normal(size=n))
+    bounds = [0]
+    for layer in range(layers):
+        for q in range(n):
+            c.rx(q, theta=float(rng.normal()))
+            c.rz(q, theta=float(rng.normal()))
+        for q in range(layer % 2, n - 1, 2):
+            c.cnot(q, q + 1)
+            c.rzz(q, q + 1, theta=float(rng.normal()))
+        bounds.append(len(c.to_qir()))
+    qir = c.to_qir()
+    return c, [qir[a:b] for a, b in zip(bounds[:-1], bounds[1:])]
+
+
+def symbol_circuit(tct, n, layers, **kw):
+    """Phase 20 (d)'s circuit over the symbols θ and φ: a layer is rx(θ (q+1)/n)
+    or ry(φ + q) on every qubit, cnots on alternating pairs and rzz(θ or φ)
+    on the chain.  Returns the circuit and the symbols."""
+    import sympy as sp
+
+    th, ph = sp.symbols("theta phi", real=True)
+    c = tct.SymbolCircuit(n, **kw)
+    for layer in range(layers):
+        for q in range(n):
+            if layer % 2 == 0:
+                c.rx(q, theta=th * (q + 1) / n)
+            else:
+                c.ry(q, theta=ph + q)
+        for q in range(layer % 2, n - 1, 2):
+            c.cnot(q, q + 1)
+        for q in range(n - 1):
+            c.rzz(q, q + 1, theta=ph if q % 2 else th)
+    return c, (th, ph)
+
+
+def _slice_values(tct, dev, sizes, timed=None, counters=()):
+    """What phase 20 holds across devices, computed on ``dev``: (a) ⟨Z_0
+    Z_1⟩ of the analog circuit, its gradients in Ω and the zz angles (and
+    the stack's launches on a card), (b) :func:`_fgs_values`, (c) the
+    truncated propagation's scan over the brick layers."""
+    import torch
+
+    s = sizes
+    timed = timed or (lambda label, fn: fn())
+    out = {}
+    n, nl = s["a_n"], s["a_nl"]
+    p = tct.convert.params(np.random.default_rng(42).normal(size=(nl, 2, N))[:, :, :n] * 0.1, dev).requires_grad_()
+    omega = torch.tensor(s["a_omega"], dtype=torch.float32, device=dev, requires_grad=True)
+    c = timed(f"(a) AnalogCircuit n={n}, its blocks' COO as CSR", lambda: analog_circuit(
+        tct, p, omega, n, nl, s["a_T"], s["a_local"], dev))
+    _reset(counters)
+
+    def value_and_grad():
+        e = torch.real(c.expectation_ps(z=[0, 1]))
+        g_om, g_p = torch.autograd.grad(e, (omega, p))
+        return e, g_om, g_p
+
+    e, g_om, g_p = timed(f"(a) <Z_0 Z_1> and its gradient in Ω and the angles (two ODE blocks)", value_and_grad)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    out["a launched"] = _launched(counters)
+    out["a e"], out["a g omega"], out["a g zz"] = e.item(), g_om.item(), g_p[:, 0, : n - 1].detach().cpu()
+    with torch.no_grad():
+        out["a norm"] = torch.linalg.vector_norm(c.state()).item()
+    x = fgs_inputs(s["f_L"], s["f_layers"], s["f_meas"], s["f_block"], s["f_angles"])
+    out.update({f"b {k}": v for k, v in _fgs_values(tct, x, dev, timed).items()})
+    ps = [0] * s["p_wide"]
+    ps[s["p_wide"] // 2 - 1] = ps[s["p_wide"] // 2] = 3
+    cw, segs = pp_circuit(tct, s["p_wide"], s["p_layers"], device=dev)
+    eng = timed(f"(c) PauliPropagationEngine(n={s['p_wide']}, k={s['p_wide_k']}), the basis on the device",
+                lambda: tct.PauliPropagationEngine(s["p_wide"], s["p_wide_k"], device=dev))
+    out["c dim"] = eng.dim
+    out["c scan"] = timed(f"(c) compute_expectation_scan over {s['p_layers']} segments ({len(cw.to_qir())} items, "
+                          f"the maps built)", lambda: eng.compute_expectation_scan(segs, ps)).cpu()
+    out["c engine"], out["c circuit"], out["c ps"] = eng, cw, ps
+    return out
+
+
+def _slice_reference(tct, **sizes):
+    """Phase 20's CPU references: :func:`_slice_values` on the CPU."""
+    import torch
+
+    s = {**SLICE_SIZES, **sizes}
+    t0 = time.perf_counter()
+    out = _slice_values(tct, torch.device("cpu"), s)
+    for key in ("c engine", "c circuit", "c ps"):
+        del out[key]
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def _slice_checks(tct, dev, counters=(), ref=None, **sizes):
+    """Phase 20's checks (a)-(d) on ``dev``: (a) and (b) against the port's
+    CPU path (``ref``: :func:`_slice_reference` or a callable giving it,
+    asked for after the work on ``dev``; computed here when None) and their
+    invariants, (c) at k = n against the dense state and truncated against
+    the CPU path, (d) the bound circuit against the substituted expression.
+    Returns the routes' times (CUDA events on a card, else the wall clock)
+    and peaks."""
+    import sympy as sp
+    import torch
+    from tensorcircuit_ng_tpu_torch.core import kernels_stack as kst
+
+    s = {**SLICE_SIZES, **sizes}
+    dev = torch.device(dev)
+    card = dev.type == "cuda"
+    times = {}
+
+    def check(label, err, tol):
+        print(f"  {label}: {err:.3e} (tol {tol:g})")
+        if not err <= tol:
+            _fail(f"phase 20, {label}: {err} > {tol}")
+
+    def rel(a, b):
+        a, b = torch.as_tensor(a), torch.as_tensor(b)
+        return (a - b).abs().max().item() / max(b.abs().max().item(), 1e-300)
+
+    def timed(label, fn):
+        """``fn()`` once, timed by CUDA events (card) or the wall clock,
+        with its peak memory above the start (card)."""
+        if card:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = fn()
+            b.record()
+            b.synchronize()
+            times[label] = (a.elapsed_time(b), "CUDA events, one call",
+                            (torch.cuda.max_memory_allocated() - base) / 2**20)
+        else:
+            t0 = time.perf_counter()
+            out = fn()
+            times[label] = ((time.perf_counter() - t0) * 1e3, "wall clock, one call", None)
+        return out
+
+    wall = [time.perf_counter()]
+
+    def section(label):
+        """The wall-clock time since the last section, timed routes included."""
+        wall.append(time.perf_counter())
+        times[f"section {label}"] = (1e3 * (wall[-1] - wall[-2]), "wall clock, the section", None)
+
+    print("analog circuits, free fermions, Pauli propagation, symbolic circuits:")
+    got = _slice_values(tct, dev, s, timed, counters)
+    section("(a)-(c) on the device (_slice_values)")
+    # (a) the analog circuit
+    n = s["a_n"]
+    print(f"  (a) n={n}: <Z_0 Z_1> {got['a e']:.7f}, d/dΩ {got['a g omega']:.7f}, |ψ| {got['a norm']:.8f}; "
+          f"launched {got['a launched']}")
+    if card and counters:
+        want = analog_stack_kernels(kst, n, s["a_nl"])
+        if got["a launched"] != want:
+            _fail(f"phase 20 (a): the stack launched {got['a launched']}, not {want}")
+    check("(a) ||ψ| - 1|", abs(got["a norm"] - 1.0), NORM_ATOL)
+    th = 0.7
+    plain = tct.Circuit(n, device=dev)
+    blocked = tct.AnalogCircuit(n, device=dev)
+    for c in (plain, blocked):
+        c.h_layer()
+        c.cnot(0, 1)
+    plain.rx(3, theta=th)
+    xm = torch.tensor([[0, 1], [1, 0]], dtype=tct.config.torch_dtype(), device=dev)
+    blocked.add_analog_block(lambda t: th / (2 * s["a_T"]) * xm, s["a_T"], index=[3])
+    with torch.no_grad():
+        check("(a) max |local block θ/(2T) X - rx(θ)|", (blocked.state() - plain.state()).abs().max().item(),
+              ANALOG_ATOL)
+    section("(a) the local block against rx")
+    # (c) exact propagation against the dense state on this device
+    n1, k1 = s["p_n"], s["p_k"]
+    c1, _ = pp_circuit(tct, n1, s["p_layers"], device=dev)
+    ps1 = [0] * n1
+    ps1[n1 // 2 - 1] = ps1[n1 // 2] = 3
+    eng1 = timed(f"(c) PauliPropagationEngine(n={n1}, k={k1}), the basis on the device",
+                 lambda: tct.PauliPropagationEngine(n1, k1, device=dev))
+    v1 = timed(f"(c) exact propagation, n={n1} k={k1} ({eng1.dim} strings), the maps built",
+               lambda: eng1.propagate(c1, ps1))
+    v2 = timed(f"(c) the same, the maps cached", lambda: eng1.propagate(c1, ps1))
+    if not torch.equal(v1, v2):
+        _fail("phase 20 (c): two propagations of one input differ")
+    dense = torch.real(c1.expectation_ps(z=[n1 // 2 - 1, n1 // 2])).item()
+    prop = eng1.expectation_zero_state(v1).item()
+    print(f"  (c) n={n1} k={k1}: {eng1.dim} strings, <Z Z> propagated {prop:.7f}, dense {dense:.7f}; the same bits twice")
+    check(f"(c) |propagated - dense|, n={n1} k={k1}", abs(prop - dense), SLICE_ATOL)
+    eng, cw, ps = got["c engine"], got["c circuit"], got["c ps"]
+    zz = timed(f"(c) pauli_propagation(n={s['p_wide']}, k={s['p_wide_k']})",
+               lambda: tct.pauli_propagation(cw, ps, k=s["p_wide_k"])).item()
+    rng = np.random.default_rng(59)
+    u = torch.as_tensor(np.linalg.qr(rng.normal(size=(4, 4)) + 1j * rng.normal(size=(4, 4)))[0],
+                        dtype=tct.config.torch_dtype(), device=dev)
+    coeffs = eng.observable_vector(ps)
+    wires = (0, s["p_wide"] - 1)  # a support no gate of the circuit has
+    timed(f"(c) one two-qubit gate on {eng.dim} strings, its maps built", lambda: eng.apply_gate(coeffs, u, wires))
+    timed(f"(c) the same gate, its maps cached", lambda: eng.apply_gate(coeffs, u, wires))
+    held = sum(t.numel() * t.element_size() for maps in eng._gate_map_cache.values() for t in maps if t is not None)
+    print(f"  (c) n={s['p_wide']} k={s['p_wide_k']}: {eng.dim} strings and the sink; <Z Z> {zz:.7f}; scan "
+          f"{np.array2string(got['c scan'].numpy(), precision=6)}; {len(eng._gate_map_cache)} wire tuples' maps "
+          f"held, {held / 2**20:.1f} MiB")
+    times[f"(c) the cached maps of {len(eng._gate_map_cache)} wire tuples (bytes held)"] = (0.0, "not a time",
+                                                                                          held / 2**20)
+    check("(c) |pauli_propagation - the scan's last value|", abs(zz - got["c scan"][-1].item()), SLICE_ATOL)
+    section("(c) exact propagation, pauli_propagation and one gate")
+    # (d) the symbolic circuit and F14's probe
+    sc, (sth, sph) = symbol_circuit(tct, s["s_n"], s["s_layers"], device=dev)
+    vals = {sth: 0.3, sph: -0.7}
+    wf = timed(f"(d) SymbolCircuit n={s['s_n']}, {len(sc.to_qir())} gates: wavefunction() (host sympy)",
+               lambda: sc.wavefunction())
+    sub = np.asarray(sp.lambdify((sth, sph), wf, "numpy", cse=True)(0.3, -0.7), dtype=complex).reshape(-1)
+    bound = timed("(d) to_circuit(bindings).state() on the device", lambda: sc.to_circuit(vals).state())
+    check("(d) max |bound state - substituted wavefunction|", float(np.abs(bound.cpu().numpy() - sub).max()), SLICE_ATOL)
+    probe = tct.SymbolCircuit(2, inputs=np.array([0, 1, 0, 0], dtype=complex), device=dev)
+    probe.rx(0, theta=sth)
+    probe.cnot(0, 1)
+    sym = np.asarray(sp.N(probe.wavefunction().subs({sth: 0.3})), dtype=complex).reshape(-1)
+    check("(d) F14 probe: max |to_circuit state - symbolic state|",
+          float(np.abs(probe.to_circuit({sth: 0.3}).state().cpu().numpy() - sym).max()), SLICE_ATOL)
+    section("(d) the symbolic circuit (host sympy, lambdify with cse) and F14's probe")
+    # (b) the invariants on this device
+    x = fgs_inputs(s["f_L"], s["f_layers"], s["f_meas"], s["f_block"], s["f_angles"])
+    check("(b) max |C² - C|", got["b idempotent"], FGS_PROJ_ATOL)
+    check("(b) max |C - C†|", got["b hermitian"], FGS_PROJ_ATOL)
+    check(f"(b) |Σ occupations - {s['f_L'] // 2}| after the hopping layers", abs(got["b number"] - s["f_L"] // 2),
+          FGS_NUMBER_ATOL)
+    check("(b) max |occupation - outcome| of the measured sites",
+          (got["b measured occupations"] - got["b outcomes"]).abs().max().item(), FGS_OUTCOME_ATOL)
+    print(f"  (b) L={s['f_L']}: E {got['b energy']:.6f}, outcomes {''.join(str(int(o)) for o in got['b outcomes'])}, "
+          f"S {got['b entropy']:.6f}, S_2 {got['b renyi']:.6f}, Z_2 {got['b charge moment']:.4e}, asymmetry "
+          f"{got['b asymmetry']:.6f}, overlap {got['b overlap']:.6f}")
+    # (a), (b), (c) against the CPU path
+    reference = got if (ref is None and not card) else _slice_reference(tct, **sizes) if ref is None else (
+        ref() if callable(ref) else ref)
+    check("(a) |<Z_0 Z_1> - CPU|", abs(got["a e"] - reference["a e"]), ANALOG_ATOL)
+    check("(a) |d/dΩ - CPU|", abs(got["a g omega"] - reference["a g omega"]), ANALOG_ATOL)
+    check("(a) max |d/dzz - CPU|", (got["a g zz"] - reference["a g zz"]).abs().max().item(), ANALOG_ATOL)
+    if not torch.equal(got["b outcomes"], reference["b outcomes"]):
+        _fail(f"phase 20 (b): outcomes {got['b outcomes'].tolist()} differ from the CPU path's "
+              f"{reference['b outcomes'].tolist()}")
+    for key in ("energy", "grad", "c hop", "overlap", "c final", "entropy", "renyi", "charge moment", "asymmetry"):
+        check(f"(b) {key}: relative |card - CPU|", rel(got[f"b {key}"], reference[f"b {key}"]), FGS_RTOL)
+    if got["c dim"] != reference["c dim"]:
+        _fail(f"phase 20 (c): {got['c dim']} strings, the CPU path {reference['c dim']}")
+    check("(c) max |scan - CPU|", (got["c scan"] - reference["c scan"]).abs().max().item(), SLICE_ATOL)
+    section("(b)'s invariants and the comparisons with the CPU path")
+    return times
+
+
+def _slice_phase(tct, card, counters, job):
+    """Phase 20: :func:`_slice_checks` on the card against the CPU references
+    of the child process, then its times."""
+    t0 = time.perf_counter()
+    wait = {}
+
+    def reference():
+        ref, wait["s"] = _await_reference(job, "slice")
+        print(f"phase 20 CPU references (the child process): waited {wait['s']:.1f} s; {ref['seconds']:.1f} s there")
+        return ref
+
+    times = _slice_checks(tct, "cuda", counters, ref=reference)
+    for label, (ms, how, peak) in times.items():
+        mem = f", peak {peak:.1f} MiB above the start" if peak is not None else ""
+        print(f"phase 20 time, {label}: {ms:.3f} ms ({how}){mem}, {card}")
+    print(f"phase 20 wall time: {time.perf_counter() - t0:.1f} s (of which waiting {wait.get('s', 0.0):.1f} s)")
+
+
 def main() -> int:
     import torch
 
@@ -5948,6 +6453,10 @@ def main() -> int:
     # ---- 19. the stabilizer simulator, detectors, qudits, U(1) ----------
     _stab_phase(tct, card, ref_job)
     print(f"phase 19 ended at {time.time() - t_start:.1f} s")
+
+    # ---- 20. analog circuits, free fermions, Pauli propagation, symbols -
+    _slice_phase(tct, card, every_counter, ref_job)
+    print(f"phase 20 ended at {time.time() - t_start:.1f} s")
     print(f"smoke total: {time.time() - t_start:.1f} s")
     print(json.dumps(kernels_line))
     print(card)

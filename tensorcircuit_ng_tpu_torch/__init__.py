@@ -105,6 +105,22 @@ one ``[shots, 2^n]`` state on the card), qudits and one U(1) sector::
     q = tct.QuditCircuit(12, dim=3); q.csum(0, 1)
     u = tct.U1Circuit(24, k=12); u.rzz(0, 1, theta=0.3)
 
+Free fermions (the 2L x L Bogoliubov matrix on the card), hybrid
+digital-analog circuits (ODE blocks between digital segments), Pauli
+propagation (the truncated observable on the card) and sympy circuits (the
+algebra on the host, bound to numbers for the card)::
+
+    f = tct.FGSSimulator(512, filled=range(0, 512, 2))
+    f.evol_hp(0, 1, 0.3); f.cond_measure(7, status=0.4)
+    s = f.entropy(range(256))
+    a = tct.AnalogCircuit(18); a.h_layer()
+    a.add_analog_block(lambda t: h_of(t), 0.5)    # a matrix, COO or mvp of t
+    e = a.expectation_ps(z=[0, 1])
+    zz = tct.pauli_propagation(c, [3, 3] + [0] * 38, k=3)
+    theta = sympy.Symbol("theta")
+    sc = tct.SymbolCircuit(4); sc.rx(0, theta=theta)
+    c = sc.to_circuit({theta: 0.3})              # the port's Circuit
+
 On the card the fused TFIM layers and the TEBD truncation SVD run
 hand-written Hopper kernels (``core/csrc/``, built by nvcc at first use
 into ``build/kernels/``); on the CPU (``device="cpu"`` or
@@ -131,7 +147,12 @@ from .config import (
     set_function_dtype,
 )
 from .core.contractor import contraction_info, get_tn_info
+from .models import fgs
+from .models.analogcircuit import AnalogBlock, AnalogCircuit
 from .models.circuit import Circuit, expectation
+from .models.fgs import FGSCircuit, FGSSimulator, FGSTestSimulator
+from .models.pauliprop import PauliPropagationEngine, SparsePauliPropagationEngine, pauli_propagation
+from .models.symbolcircuit import SymbolCircuit
 from .models.densitymatrix import DMCircuit, DMCircuit2, DensityMatrixCircuit
 from .models.mps_base import FiniteMPS
 from .models.mpscircuit import MPSCircuit
@@ -140,7 +161,7 @@ from .models.quditcircuit import QuditCircuit
 from .models.stabilizercircuit import StabilizerCircuit
 from .models.tebd import ParallelTEBD
 from .models.u1circuit import U1Circuit, U1Operator
-from .ops import channels, gates, quditgates
+from .ops import channels, gates, quditgates, symbolgates
 from .ops.gates import Gate, array_to_tensor, num_to_tensor
 from .quantum import (
     LinearOperator,
@@ -161,16 +182,22 @@ CliffordCircuit = StabCircuit = StabilizerCircuit
 cons = config
 
 __all__ = [
+    "AnalogBlock",
+    "AnalogCircuit",
     "Circuit",
     "CliffordCircuit",
     "DMCircuit",
     "DMCircuit2",
     "DensityMatrixCircuit",
+    "FGSCircuit",
+    "FGSSimulator",
+    "FGSTestSimulator",
     "FiniteMPS",
     "Gate",
     "LinearOperator",
     "MPSCircuit",
     "NoiseConf",
+    "PauliPropagationEngine",
     "ParallelTEBD",
     "PauliStringSum2COO",
     "PauliStringSum2Dense",
@@ -180,8 +207,10 @@ __all__ = [
     "QuScalar",
     "QuVector",
     "QuditCircuit",
+    "SparsePauliPropagationEngine",
     "StabCircuit",
     "StabilizerCircuit",
+    "SymbolCircuit",
     "TorchBackend",
     "U1Circuit",
     "U1Operator",
@@ -197,6 +226,7 @@ __all__ = [
     "dmrg",
     "dtypestr",
     "experimental",
+    "fgs",
     "expectation",
     "gates",
     "get_backend",
@@ -205,6 +235,7 @@ __all__ = [
     "get_dtype",
     "get_tn_info",
     "num_to_tensor",
+    "pauli_propagation",
     "quantum",
     "quditgates",
     "runtime_backend",
@@ -219,6 +250,7 @@ __all__ = [
     "set_function_dtype",
     "shadows",
     "simplify",
+    "symbolgates",
     "templates",
     "timeevol",
     "translation",

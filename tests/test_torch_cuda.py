@@ -70,7 +70,12 @@ uncaptured step bit for bit and the CPU path within 1e-4, a host read
 refused at capture; ``vvag`` over 3 restarts (K2/K4 once a restart, each
 within 1e-5 of its eager step); Krylov and Chebyshev evolution in
 complex128 at n=12 against the CPU (1e-10); and ``chip_smoke.py``'s phase
-18 at a small size.
+18 at a small size.  Phase 20's modules (no kernel of their own but the
+stack's on the analog circuit's digital segment): the Pauli propagation's
+coefficients twice bit for bit on the card and within 1e-5 of the CPU
+path, a free-fermion energy gradient through a chain of ``evol_hp``, the
+outcomes and the collapsed correlation matrix against the CPU path (1e-4),
+and ``chip_smoke.py``'s phase 20 at a small size.
 """
 
 import numpy as np
@@ -79,6 +84,7 @@ import torch
 
 import tensorcircuit_ng_tpu_torch as tct
 from chip_smoke import (
+    SLICE_SMALL, _slice_checks, fgs_inputs, fgs_layers, pp_circuit,
     STAB_SMALL, _stab_checks, detector_statuses, qudit_energy, repetition_program, stab_angles, surface_code_program,
     u1_circuit, u1_energy, xy_gate, clifford_program,
     HAM_SMALL, TRANSFORM_SMALL, _tfim_coo_state, _transform_checks, transform_angles, transform_energy,
@@ -1891,3 +1897,38 @@ def test_u1_gate_twice_bit_for_bit_on_card(cuda):
 def test_stab_phase_checks_on_card(cuda):
     """``chip_smoke.py``'s phase 19 at a small size on the card."""
     _stab_checks(tct, cuda, **STAB_SMALL)
+
+
+def test_slice_phase_checks_on_card(cuda):
+    """``chip_smoke.py``'s phase 20 at a small size on the card (its own CPU
+    path as the reference)."""
+    _slice_checks(tct, cuda, **SLICE_SMALL)
+
+
+def test_pauli_propagation_on_card_bit_for_bit_and_cpu(cuda):
+    """The dense engine's gather form sums each coefficient in one order:
+    twice the same bits on the card; against the CPU path within 1e-5."""
+    c, _ = pp_circuit(tct, 8, 3, device=cuda)
+    ps = [0, 0, 0, 3, 3, 0, 0, 0]
+    eng = tct.PauliPropagationEngine(8, 3, device=cuda)
+    outs = [eng.propagate(c, ps) for _ in range(2)]
+    assert torch.equal(outs[0], outs[1]) and outs[0].device.type == "cuda"
+    cpu = tct.PauliPropagationEngine(8, 3, device="cpu").propagate(pp_circuit(tct, 8, 3, device="cpu")[0], ps)
+    assert (outs[0].cpu() - cpu).abs().max().item() <= 1e-5
+
+
+def test_fgs_gradient_and_measurement_on_card_match_cpu(cuda):
+    x = fgs_inputs(24, 2, 4, 6, 16)
+    res = {}
+    for dev in (cuda, torch.device("cpu")):
+        last = torch.as_tensor(x["chi"][-1]).to(device=dev, dtype=torch.complex64).requires_grad_()
+        f = fgs_layers(tct, x, dev, last)
+        e = torch.real(torch.sum(torch.as_tensor(x["hop"]).to(dev, torch.complex64) * f.get_cmatrix().T)) / 2
+        (g,) = torch.autograd.grad(e, last)
+        f = tct.FGSSimulator(24, alpha=f.alpha.detach(), device=dev)
+        f.evol_hamiltonian(x["m"], 0.3)
+        out = torch.stack([f.cond_measure(int(i), float(u)) for i, u in zip(x["sites"], x["status"])])
+        res[dev.type] = (e.item(), g.cpu(), out.cpu(), f.get_cmatrix().cpu())
+    (ec, gc, oc, cc), (ep, gp, op, cp) = res["cuda"], res["cpu"]
+    assert abs(ec - ep) <= 1e-4 and (gc - gp).abs().max().item() <= 1e-4
+    assert torch.equal(oc, op) and (cc - cp).abs().max().item() <= 1e-4
