@@ -339,7 +339,30 @@ Phases (any failure exits non-zero; nothing is caught):
      gradient against the CPU path (1e-5), 8,192 samples in the sector
      against the exact value (5 sigma), one gate with its maps built and
      cached; each route timed (CUDA events, or the wall clock where
-     marked) with its peak memory above the start.
+     marked) with its peak memory above the start;
+ 20. the free-fermion, analog, Pauli-propagation and symbolic simulators
+     at full width (:func:`_slice_checks`), each against the port's CPU
+     path from the child process;
+ 21. the parallel engines (no kernel of their own; the sharded engine's
+     local steps launch K1/K3 and K6-K8), the sharded engine on one card's
+     in-process meshes against the dense engine on the same card
+     (:func:`_parallel_checks`): (a) the n=28 TFIM VQE step (h_layer, two
+     ring ``zzrx_layer``s, ``expectation_zzx_energy`` and its gradient) on
+     4 shards, K1 and K3 launched once a shard a layer, the energy within
+     1e-5 relative and the gradient within 2e-4 of ``Circuit(28)``'s;
+     (b) a mixed forward at n=30 (a ring layer, a CNOT from top wire 0, rzm,
+     multicz, a depolarizing ``unitary_kraus`` on top wire 1) on 4 and 8
+     shards: the gathered state, ``amplitude``, a three-wire probability and
+     ``expectation_ps`` within 1e-5, 8,192 shots by ``sample_direct`` under
+     the bracket rule (1e-6) and ``measure_jit``'s outcomes equal; (c)
+     ``term_sharded_expectation`` of the 39 n=20 TFIM strings and
+     ``DistributedContractor`` of a 4x4 depth-8 grid's <Z_7> (64 slices) on
+     4 shards, values and gradients against the dense ones; (d) the same
+     over a one-rank NCCL process group (``initialize_distributed`` with a
+     timeout, destroyed at the end), with ``broadcast_py_object`` and a
+     one-rank group ``Circuit(mesh=)``; (e) ``ReadoutMit`` on 8,192 card
+     shots of a 10-qubit GHZ with a known readout error: the mitigated
+     <Z...Z> within 5 sigma of 1; each route timed with its peak memory.
 
 Prints the kernels JSON line, then the card's name and power limit, then
 ``{"ok": true, "device": {...}}`` as the last line.  Needs no network and
@@ -5913,6 +5936,317 @@ def _slice_phase(tct, card, counters, job):
     print(f"phase 20 wall time: {time.perf_counter() - t0:.1f} s (of which waiting {wait.get('s', 0.0):.1f} s)")
 
 
+#: phase 21, the parallel engines: (a) the sharded VQE step's width and
+#: shard count, (b) the mixed forward's width and shard counts, its shots,
+#: (c) the term-sharded TFIM's width and depth and the contracted grid
+#: (rows, cols, depth) with its slice target, (e) the GHZ width and shots
+PAR_SIZES = {"a_n": 28, "a_shards": 4, "b_n": 30, "b_shards": (4, 8), "shots": 8192, "c_n": N, "c_nl": L,
+             "c_grid": (4, 4, 8), "c_target": 2**7, "e_n": 10, "e_shots": 8192}
+PAR_SMALL = {"a_n": 10, "a_shards": 4, "b_n": 9, "b_shards": (2, 4), "shots": 512, "c_n": 8, "c_nl": 2,
+             "c_grid": (3, 3, 4), "c_target": 2**3, "e_n": 6, "e_shots": 2048}
+#: the sharded energy against the dense one, relative
+PAR_ENERGY_RTOL = 1e-5
+#: the sharded gradient against the dense one (float32 sums over 2^28
+#: amplitudes in another order), as the JAX package holds its own
+PAR_GRAD_ATOL = 2e-4
+#: the gathered state and the readouts against the dense engine's
+PAR_STATE_ATOL = 1e-5
+#: each shot within this of its float64 cdf interval (the bracket rule)
+PAR_BRACKET_TOL = 1e-6
+#: the mitigated <Z...Z> within this many standard errors of the exact value
+PAR_SIGMAS = 5.0
+#: the readout error of (e): [P(0|0), P(1|1)] on every qubit
+PAR_READOUT = (0.97, 0.95)
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def par_mixed_circuit(tct, n, status, **kw):
+    """(b)'s mixed QIR: h_layer, a ring zzrx_layer, cnot(0, 2n/3), rzm,
+    multicz and a depolarizing ``unitary_kraus`` on top wire 1."""
+    rng = np.random.default_rng(29)
+    c = tct.Circuit(n, **kw)
+    c.h_layer()
+    c.zzrx_layer([(i, (i + 1) % n) for i in range(n)], rng.normal(size=n) * 0.3, rng.normal(size=n) * 0.4)
+    c.cnot(0, 2 * n // 3)
+    c.rzm(1, n // 2 + 2, n - 1, theta=0.3)
+    c.multicz(0, n // 3, n - 5)
+    paulis = [np.eye(2), np.array([[0, 1], [1, 0]]), np.array([[0, -1j], [1j, 0]]), np.diag([1.0, -1.0])]
+    c.unitary_kraus([np.sqrt(p) * m for p, m in zip((0.7, 0.1, 0.1, 0.1), paulis)], 1, status=status)
+    return c
+
+
+def _bracket_miss_cdf(idx, u, cdf):
+    """:func:`bracket_miss` on a float64 cdf already on the device."""
+    import torch
+
+    idx = idx.to(torch.int64).reshape(-1)
+    u = u.to(torch.float64).reshape(-1)
+    lo = torch.where(idx > 0, cdf[torch.clamp(idx - 1, min=0)], torch.zeros_like(u))
+    return torch.max(torch.maximum(lo - u, u - cdf[idx])).item()
+
+
+def _parallel_checks(tct, dev, counters=(), **sizes):
+    """Phase 21's checks (a)-(e) on ``dev``, the sharded engine (in-process
+    meshes of shards on ``dev``) against the dense engine on the same
+    device; (d) on a one-rank process group (NCCL on a card, gloo on the
+    CPU).  Returns the routes' times (CUDA events on a card, else the wall
+    clock) and peak memory above the start."""
+    import torch
+    import torch.distributed as dist
+    from tensorcircuit_ng_tpu_torch import experimental, parallel
+    from tensorcircuit_ng_tpu_torch.core import statevec
+    from tensorcircuit_ng_tpu_torch.results import ReadoutMit
+
+    s = {**PAR_SIZES, **sizes}
+    dev = torch.device(dev)
+    card = dev.type == "cuda"
+    times = {}
+    t0 = time.perf_counter()
+
+    def check(label, err, tol):
+        print(f"  {label}: {err:.3e} (tol {tol:g})")
+        if not err <= tol:
+            _fail(f"phase 21, {label}: {err} > {tol}")
+
+    def part(label):
+        held = f", {torch.cuda.memory_allocated() / 2**30:.2f} GiB held" if card else ""
+        print(f"  ({label}) starts at {time.perf_counter() - t0:.1f} s{held}")
+
+    def sync():
+        if card:
+            torch.cuda.synchronize()
+
+    def timed(label, fn, reps=3):
+        """``fn()``, its time and its peak memory above the start."""
+        sync()
+        if card:
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            out = fn()
+            torch.cuda.synchronize()
+            peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+            ms = _time_ms(fn, reps=reps, inner=1, warmup=0)
+            times[label] = (ms, "CUDA events, median of %d" % reps, peak)
+        else:
+            t = time.perf_counter()
+            out = fn()
+            times[label] = ((time.perf_counter() - t) * 1e3, "wall clock, one call", None)
+        return out
+
+    def mesh(k, axis="sv"):
+        return parallel.Mesh([dev] * k, (axis,))
+
+    def forward(c):
+        """``c``'s state from its first item, kept for the readouts."""
+        c._state_cache = None
+        return c.state()
+
+    # ---- (a) the sharded VQE step ------------------------------------
+    part("a")
+    n, k = s["a_n"], s["a_shards"]
+    pairs = [(i, (i + 1) % n) for i in range(n)]
+    p = torch.tensor(np.random.default_rng(42).normal(size=(2, 2, n)) * 0.2, dtype=torch.float32, device=dev,
+                     requires_grad=True)
+
+    def vqe_step(m=None):
+        c = tct.Circuit(n, mesh=m) if m is not None else tct.Circuit(n, device=dev)
+        c.h_layer()
+        for layer in range(2):
+            c.zzrx_layer(pairs, p[layer, 0], p[layer, 1])
+        e = c.expectation_zzx_energy(pairs, 1.0, 0.7)
+        return e.detach(), torch.autograd.grad(e, p)[0]
+
+    ma = mesh(k)
+    _reset(counters)
+    e_s, g_s = vqe_step(ma)
+    sync()
+    launched = _launched(counters)
+    print(f"  (a) launches of the sharded step (n={n}, {k} shards, 2 layers): {launched}")
+    if card and (launched.get("zzrx_fwd") != 2 * k or launched.get("zzrx_bwd") != 2 * k
+                 or set(launched) - {"zzrx_fwd", "zzrx_bwd"}):
+        _fail(f"phase 21 (a): K1 and K3 not launched {2 * k} times each (one a shard a layer): {launched}")
+    e_d, g_d = vqe_step()
+    check(f"(a) energy n={n} sharded over {k} against dense, relative", abs(e_s.item() - e_d.item()) / abs(
+        e_d.item()), PAR_ENERGY_RTOL)
+    check("(a) gradient, sharded against dense", (g_s - g_d).abs().max().item(), PAR_GRAD_ATOL)
+    timed(f"(a) the sharded VQE step n={n}, {k} shards of one card (value and gradient)", lambda: vqe_step(ma))
+    timed(f"(a) the dense VQE step n={n} (K2/K4)", lambda: vqe_step())
+    del e_s, g_s, e_d, g_d
+
+    # ---- (b) the mixed forward over 2 shard counts ---------------------
+    part("b")
+    n = s["b_n"]
+    rng = np.random.default_rng(31)
+    u = torch.tensor(rng.uniform(size=s["shots"]), dtype=torch.float32, device=dev)
+    mst = np.array([0.3, 0.6, 0.8])
+    wires = [0, n // 2, n - 1]
+    bits = [int(b) for b in rng.integers(0, 2, size=n)]
+    with torch.no_grad():
+        cd = par_mixed_circuit(tct, n, 0.83, device=dev)
+        dense = timed(f"(b) the dense forward n={n}", lambda: forward(cd), reps=1)
+        want = {"amp": cd.amplitude(bits), "prob": statevec.marginal_probability(dense, wires),
+                "ps": cd.expectation_ps(x=[0], y=[n // 2], z=[n - 1]), "m": cd.measure_jit(*wires, with_prob=True,
+                                                                                          status=mst)}
+        pd = torch.abs(dense) ** 2
+        cdf = torch.cumsum(pd.to(torch.float64), 0)
+        cdf = cdf / cdf[-1]
+        del pd
+        for k in s["b_shards"]:
+            cs = par_mixed_circuit(tct, n, 0.83, mesh=mesh(k))
+            psi = timed(f"(b) the sharded forward n={n}, {k} shards", lambda: forward(cs), reps=1)
+            full = timed(f"(b) {k} shards: gather", psi.gather, reps=1)
+            err = max((full[i:i + 2**26] - dense[i:i + 2**26]).abs().max().item() for i in range(0, 2**n, 2**26))
+            del full
+            check(f"(b) {k} shards: the gathered state against the dense state", err, PAR_STATE_ATOL)
+            eng = cs._mesh_engine
+            amp = timed(f"(b) {k} shards: amplitude", lambda: cs.amplitude(bits))
+            check(f"(b) {k} shards: amplitude", abs(complex(amp) - complex(want["amp"])), PAR_STATE_ATOL)
+            prob = timed(f"(b) {k} shards: probability of wires {wires}", lambda: eng.probability(psi, wires))
+            check(f"(b) {k} shards: probability of wires {wires}", (prob - want["prob"]).abs().max().item(),
+                  PAR_STATE_ATOL)
+            ps = timed(f"(b) {k} shards: expectation_ps x top, y and z local",
+                       lambda: cs.expectation_ps(x=[0], y=[n // 2], z=[n - 1]))
+            check(f"(b) {k} shards: expectation_ps", abs(complex(ps) - complex(want["ps"])), PAR_STATE_ATOL)
+            idx = timed(f"(b) {k} shards: {s['shots']} shots by sample_direct",
+                        lambda: cs.sample(batch=s["shots"], status=u, format="sample_int"))
+            check(f"(b) {k} shards: {s['shots']} shots, bracket miss", _bracket_miss_cdf(idx, u, cdf),
+                  PAR_BRACKET_TOL)
+            m = timed(f"(b) {k} shards: measure_jit of wires {wires}",
+                      lambda: cs.measure_jit(*wires, with_prob=True, status=mst))
+            if not torch.equal(m[0], want["m"][0]):
+                _fail(f"phase 21 (b): measure_jit outcomes {m[0].tolist()} against dense {want['m'][0].tolist()}")
+            check(f"(b) {k} shards: measure_jit probability", abs(m[1].item() - want["m"][1].item()), PAR_STATE_ATOL)
+            del cs, psi
+        del cd, dense, cdf
+    if card:
+        torch.cuda.empty_cache()
+
+    # ---- (c) term sharding and the distributed contractor ------------
+    part("c")
+    n, nl = s["c_n"], s["c_nl"]
+    structures, weights = tfim_pauli_strings(n)
+    open_pairs = [(i, i + 1) for i in range(n - 1)]
+    pc = torch.tensor(np.random.default_rng(7).normal(size=(nl, 2, n)) * 0.3, dtype=torch.float32, device=dev,
+                      requires_grad=True)
+    e_ref = tfim_circuit(tct, pc, n, nl, device=dev).expectation_zzx_energy(open_pairs, 1.0, -1.0)
+    g_ref = torch.autograd.grad(e_ref, pc)[0]
+
+    def term_vg(m):
+        energy = parallel.term_sharded_expectation(lambda q: tfim_circuit(tct, q, n, nl, device=dev).state(),
+                                                   structures, weights, m, m.axis_names[0])
+        e = energy(pc)
+        return e.detach(), torch.autograd.grad(e, pc)[0]
+
+    e_t, g_t = timed(f"(c) term_sharded_expectation, {len(weights)} TFIM strings at n={n} over 4 shards, "
+                     "value and gradient", lambda: term_vg(mesh(4, "devices")))
+    check("(c) term-sharded energy against the fused dense energy", abs(e_t.item() - e_ref.item()), ENERGY_ATOL)
+    check("(c) term-sharded gradient", (g_t - g_ref).abs().max().item(), GRAD_ATOL)
+    rows, cols, depth = s["c_grid"]
+    ang = torch.tensor(grid_angles(rows * cols, depth), dtype=torch.float32, device=dev, requires_grad=True)
+    zq = (rows * cols) // 2 - 1
+
+    def ir_fn(a):
+        return grid_circuit(tct, rows, cols, depth, a, device=dev).expectation_before((tct.gates.z(), [zq]))
+
+    v_ref = grid_circuit(tct, rows, cols, depth, ang, device=dev).expectation((tct.gates.z(), [zq]))
+    l_ref = torch.abs(v_ref) ** 2
+    gl_ref = torch.autograd.grad(l_ref, ang)[0]
+    part("c, the slice search")
+    dc = parallel.DistributedContractor(ir_fn, ang.detach(), options={"target_size": s["c_target"]},
+                                        mesh=mesh(4, "devices"))
+    print(f"  (c) DistributedContractor {rows}x{cols} depth {depth} <Z_{zq}>: {dc.report()}")
+    if dc.report()["num_slices"] < 2:
+        _fail(f"phase 21 (c): the contraction was not sliced: {dc.report()}")
+    v = timed(f"(c) DistributedContractor value, {dc.report()['num_slices']} slices over 4 shards",
+              lambda: dc.value(ang.detach()))
+    check("(c) DistributedContractor value against the dense expectation", abs(complex(v) - complex(v_ref.detach())),
+          PAR_STATE_ATOL)
+    l, gl = timed("(c) DistributedContractor value_and_grad of |v|^2",
+                  lambda: dc.value_and_grad(ang.detach(), op=lambda x: torch.abs(x) ** 2), reps=1)
+    check("(c) |v|^2 and its gradient against the dense autograd",
+          max(abs(l.item() - l_ref.item()), (gl - gl_ref).abs().max().item()), GRAD_ATOL)
+
+    # ---- (d) the process-group path, world size 1 --------------------
+    part("d")
+    backend = "nccl" if card else "gloo"
+    parallel.initialize_distributed(f"localhost:{_free_port()}", 1, 0, backend=backend, timeout=120)
+    part("d, the group initialized")
+    try:
+        got = experimental.broadcast_py_object({"phase": 21, "backend": backend})
+        if got != {"phase": 21, "backend": backend}:
+            _fail(f"phase 21 (d): broadcast_py_object gave {got}")
+        gm = parallel.ProcessGroupMesh("devices")
+        print(f"  (d) {gm}, backend {dist.get_backend()}")
+        e_g, g_g = timed(f"(d) term_sharded_expectation over the {backend} group", lambda: term_vg(gm))
+        check(f"(d) {backend}: term-sharded energy and gradient",
+              max(abs(e_g.item() - e_ref.item()), (g_g - g_ref).abs().max().item()), GRAD_ATOL)
+        dcg = parallel.DistributedContractor(ir_fn, ang.detach(), options={"target_size": s["c_target"]}, mesh=gm)
+        l, gl = timed(f"(d) DistributedContractor value_and_grad over the {backend} group",
+                      lambda: dcg.value_and_grad(ang.detach(), op=lambda x: torch.abs(x) ** 2), reps=1)
+        check(f"(d) {backend}: |v|^2 and its gradient", max(abs(l.item() - l_ref.item()),
+                                                            (gl - gl_ref).abs().max().item()), GRAD_ATOL)
+        sm = parallel.ProcessGroupMesh("sv")
+        c = tfim_circuit(tct, pc, n, nl, mesh=sm)
+        e = c.expectation_zzx_energy(open_pairs, 1.0, -1.0)
+        g = torch.autograd.grad(e, pc)[0]
+        check(f"(d) {backend}: a one-rank group Circuit(mesh=): energy and gradient",
+              max(abs(e.item() - e_ref.item()), (g - g_ref).abs().max().item()), GRAD_ATOL)
+        with torch.no_grad():
+            out, _ = c.measure_jit(0, n - 1)
+        if out.shape != (2,) or not bool(((out == 0) | (out == 1)).all()):
+            _fail(f"phase 21 (d): measure_jit over the group gave {out}")
+        sync()
+    finally:
+        part("d, the checks ended")
+        dist.destroy_process_group()
+
+    # ---- (e) readout mitigation on the card's shots --------------------
+    part("e")
+    n = s["e_n"]
+    c = tct.Circuit(n, device=dev)
+    c.h(0)
+    for i in range(n - 1):
+        c.cnot(i, i + 1)
+    err = [list(PAR_READOUT)] * n
+    ue = torch.tensor(np.random.default_rng(5).uniform(size=s["e_shots"]), dtype=torch.float32, device=dev)
+    counts = timed(f"(e) {s['e_shots']} GHZ shots n={n} with a readout error, count_dict_bin", lambda: c.sample(
+        batch=s["e_shots"], allow_state=True, readout_error=err, status=ue, format="count_dict_bin"))
+    p00, p11 = PAR_READOUT
+    mit = ReadoutMit(lambda circuits, shots: [])
+    mit.set_local_cals({q: np.array([[p00, 1 - p11], [1 - p00, p11]]) for q in range(n)})
+    raw = mit.expectation(counts, z=list(range(n)), method="raw")
+    got = mit.expectation(counts, z=list(range(n)), method="inverse")
+    # the local inverse's estimate is the shots' mean of f(b) = prod_q
+    # [(1 + p11 - p00) if b_q = 0 else -(1 + p00 - p11)] / (p00 + p11 - 1):
+    # its standard error from the shots' spread of f
+    f = {b: np.prod([(1 + p11 - p00) if ch == "0" else -(1 + p00 - p11) for ch in b]) / (p00 + p11 - 1) ** n
+         for b in counts}
+    shots = sum(counts.values())
+    mean_f2 = sum(c_b * f[b] ** 2 for b, c_b in counts.items()) / shots
+    sigma = np.sqrt(max(mean_f2 - got**2, 1e-12) / shots)
+    print(f"  (e) <Z...Z> raw {raw:.5f}, mitigated {got:.5f}, exact 1, sigma {sigma:.5f}")
+    check("(e) mitigated <Z...Z> against 1, in sigmas", abs(got - 1.0) / sigma, PAR_SIGMAS)
+    part("end")
+    return times
+
+
+def _parallel_phase(tct, card, counters):
+    """Phase 21: :func:`_parallel_checks` on the card, then its times."""
+    t0 = time.perf_counter()
+    times = _parallel_checks(tct, "cuda", counters)
+    for label, (ms, how, peak) in times.items():
+        mem = f", peak {peak:.1f} MiB above the start" if peak is not None else ""
+        print(f"phase 21 time, {label}: {ms:.3f} ms ({how}){mem}, {card}")
+    print(f"phase 21 wall time: {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -6457,6 +6791,10 @@ def main() -> int:
     # ---- 20. analog circuits, free fermions, Pauli propagation, symbols -
     _slice_phase(tct, card, every_counter, ref_job)
     print(f"phase 20 ended at {time.time() - t_start:.1f} s")
+
+    # ---- 21. the parallel engines: sharded state, terms, slices, group --
+    _parallel_phase(tct, card, every_counter)
+    print(f"phase 21 ended at {time.time() - t_start:.1f} s")
     print(f"smoke total: {time.time() - t_start:.1f} s")
     print(json.dumps(kernels_line))
     print(card)

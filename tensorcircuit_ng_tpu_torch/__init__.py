@@ -127,6 +127,8 @@ into ``build/kernels/``); on the CPU (``device="cpu"`` or
 ``set_device("cpu")``) they run their plain torch versions.
 """
 
+from typing import Any
+
 from . import config, convert, dmrg, experimental, noisemodel, quantum, shadows, simplify, templates, timeevol, translation
 from .backend import TorchBackend, backend
 from .config import (
@@ -176,6 +178,23 @@ from .quantum import (
 )
 
 CliffordCircuit = StabCircuit = StabilizerCircuit
+
+
+def __getattr__(name: str) -> Any:
+    """``parallel``, ``DistributedContractor`` and ``results``, imported at
+    first use, as the JAX package exports them."""
+    import importlib
+
+    lazy = {
+        "parallel": (".parallel", None),
+        "DistributedContractor": (".parallel.distributed", "DistributedContractor"),
+        "results": (".results", None),
+    }
+    if name not in lazy:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    mod, attr = lazy[name]
+    m = importlib.import_module(mod, __name__)
+    return m if attr is None else getattr(m, attr)
 
 #: the runtime configuration, with the contractor's helpers on it, as the
 #: JAX package names it

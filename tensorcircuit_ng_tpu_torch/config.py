@@ -288,7 +288,38 @@ def resolve_device(device: Union[None, str, torch.device] = None) -> torch.devic
 _CONSTANT_MAX_ELEMS = 4096
 
 
-@functools.lru_cache(maxsize=512)
+def tracing() -> bool:
+    """Whether a tracer is active: a fake mode (``torch.export``), another
+    dispatch mode, or ``torch.compile``."""
+    from torch._guards import detect_fake_mode
+    from torch.utils._python_dispatch import _get_current_dispatch_mode
+
+    return (
+        detect_fake_mode() is not None
+        or _get_current_dispatch_mode() is not None
+        or torch.compiler.is_compiling()
+    )
+
+
+def tensor_cache(maxsize: int) -> Callable[[Callable[..., Any]], Callable[..., Any]]:
+    """``functools.lru_cache`` for a function that returns tensors, bypassed
+    while :func:`tracing`: a traced (fake) tensor kept in the cache would
+    come back to every later eager call."""
+
+    def deco(fn: Callable[..., Any]) -> Callable[..., Any]:
+        cached = functools.lru_cache(maxsize=maxsize)(fn)
+
+        @functools.wraps(fn)
+        def wrapper(*args: Any) -> Any:
+            return fn(*args) if tracing() else cached(*args)
+
+        wrapper.cache_clear = cached.cache_clear  # type: ignore[attr-defined]
+        return wrapper
+
+    return deco
+
+
+@tensor_cache(maxsize=512)
 def _cached_constant(data: bytes, shape: tuple, np_dtype: str, device: str, dtype: torch.dtype) -> torch.Tensor:
     a = np.frombuffer(data, dtype=np.dtype(np_dtype)).reshape(shape)
     # made outside any torch.func transform: a constant kept past the
@@ -302,7 +333,8 @@ def device_constant(a: Any, device: Union[str, torch.device], dtype: torch.dtype
     ``device``.  A small one is copied to the card once and kept, keyed by
     its bytes: a copy from pageable host memory waits for the card, so a
     CNOT ladder that copied its gate each time would stall the stream at
-    every gate.  Callers never write to the result."""
+    every gate.  Callers never write to the result.  Under a tracer the
+    constant is built uncached (:func:`tensor_cache`)."""
     a = np.asarray(a)
     if a.size > _CONSTANT_MAX_ELEMS:
         return torch.as_tensor(a).to(device=device, dtype=dtype)

@@ -24,7 +24,7 @@ import subprocess
 from pathlib import Path
 from typing import Dict, List
 
-__all__ = ["SOURCES", "BUILD_DIR", "build_all", "library", "build_log", "check"]
+__all__ = ["SOURCES", "BUILD_DIR", "build_all", "library", "build_log", "check", "refuse_trace"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 #: kernel sources, by library name
@@ -167,8 +167,24 @@ def build_all() -> List[str]:
     return [p[0] for p in procs]
 
 
+def refuse_trace(what: str) -> None:
+    """Raise under a tracer (``torch.export``, ``torch.compile``): a kernel
+    launched through ctypes is opaque to it, and tracing its plain version
+    instead would hide the kernel."""
+    from .. import config
+
+    if config.tracing():
+        raise RuntimeError(
+            f"{what}: this hand-written CUDA kernel is launched through ctypes and cannot be traced "
+            "(torch.export / torch.compile); export the function on CPU tensors, which take the "
+            "kernel's plain version, or call it eagerly on the card"
+        )
+
+
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    """The loaded library of ``csrc/<name>.cu``, built on first use
+    (:func:`refuse_trace` first)."""
+    refuse_trace(name)
     lib = _libs.get(name)
     if lib is None:
         if not _target(name).exists():

@@ -187,6 +187,7 @@ def grand_zzrx_bwd_plain(pairs, n, zzth, th, ksr, ksi, ctr, cti, mor, moi, mlr, 
 
 
 def _launch_grand_bwd(pairs, n, zzth, th, ksr, ksi, ctr, cti, mor, moi, mlr, mli):
+    _build.refuse_trace("grand_zzrx_bwd")
     dev = ctr.device
     if dev.type != "cuda":
         raise ValueError(f"grand_zzrx_bwd: no kernel for device {dev}")

@@ -141,6 +141,7 @@ def micro_grand_card_plan(level: int, r: int, L: int) -> dict:
 
 
 def _launch(level, cs, mlr, mli, mor, moi, sr, si):
+    _build.refuse_trace("micro_grand")
     dev = sr.device
     if dev.type != "cuda":
         raise ValueError(f"micro_grand: no kernel for device {dev}")

@@ -34,6 +34,7 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import config
 from . import _build
 from . import kernels_rowlayer as krl
 from .transform_rules import each, loop_vmap
@@ -91,7 +92,7 @@ def _sign_matrices(pairs, n, nrow, lanes, p_cols=None):
     return srow, slane
 
 
-@lru_cache(maxsize=64)
+@config.tensor_cache(maxsize=64)
 def _sign_tensors(pairs, n, nrow, lanes, device: str):
     """The unpadded sign factors (2^nrow, npairs), (lanes, npairs) on ``device``."""
     srow, slane = _sign_matrices(pairs, n, nrow, lanes, max(len(pairs), 1))
@@ -231,6 +232,7 @@ def ml_fwd_plan(r: int, lanes: int, nrow: int, npairs: int) -> dict:
 
 
 def _launch_ml_fwd(pairs, n, zzth, th, sr, si, mr, mi):
+    _build.refuse_trace("ml_fwd")
     dev, L, nrow, r, lanes, zzth, th, shifts = _ml_setup("ml_fwd", pairs, n, zzth, th, sr, mr, mi, si)
     sr, si, mr, mi = (krl._aligned16(t) for t in (sr, si, mr, mi))
     yr = torch.empty_like(sr)
@@ -267,6 +269,7 @@ ml_fwd.launches = 0
 
 
 def _launch_ml_bwd(pairs, n, zzth, th, yr, yi, ctr, cti, mr, mi):
+    _build.refuse_trace("ml_bwd")
     dev, L, nrow, r, lanes, zzth, th, shifts = _ml_setup(
         "ml_bwd", pairs, n, zzth, th, yr, mr, mi, yi, ctr, cti
     )

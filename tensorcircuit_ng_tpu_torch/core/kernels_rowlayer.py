@@ -58,12 +58,12 @@ tensor.
 from __future__ import annotations
 
 import ctypes
-from functools import lru_cache
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from .. import config
 from . import _build
 from .transform_rules import each, loop_vmap
 
@@ -404,7 +404,7 @@ def zzrx_fwd_plain(pairs, n, zzth, th, sr, si, mr=None, mi=None, m7r=None, m7i=N
     return yr, yi
 
 
-@lru_cache(maxsize=64)
+@config.tensor_cache(maxsize=64)
 def _pair_shifts(pairs: Tuple[Tuple[int, int], ...], n: int, device: str) -> torch.Tensor:
     """(npairs, 2) int32 bit positions (n-1-a, n-1-b) on ``device``."""
     if any(not (0 <= q < n) for pair in pairs for q in pair):
@@ -475,6 +475,7 @@ def zzrx_fwd_card_plan(r: int, nkernel: int, npairs: int, lane: bool = False, rm
 
 
 def _launch_zzrx_fwd(pairs, n, zzth, th, sr, si, mr, mi, m7r, m7i):
+    _build.refuse_trace("zzrx_fwd")
     dev = sr.device
     if dev.type != "cuda":
         raise ValueError(f"zzrx_fwd: no kernel for device {dev}")
@@ -635,6 +636,7 @@ def zzrx_bwd_plain(pairs, n, zzth, th, yr, yi, ctr, cti, mr=None, mi=None, m7r=N
 
 
 def _launch_zzrx_bwd(pairs, n, zzth, th, yr, yi, ctr, cti, mr, mi, m7r, m7i):
+    _build.refuse_trace("zzrx_bwd")
     dev = yr.device
     if dev.type != "cuda":
         raise ValueError(f"zzrx_bwd: no kernel for device {dev}")
@@ -978,6 +980,7 @@ def row_fwd_card_plan(r: int, nkernel: int, lane: bool = False) -> dict:
 
 
 def _launch_row_fwd(gr, gi, sr, si, mr, mi):
+    _build.refuse_trace("row_fwd")
     dev, gr, gi, nk, r = _row_setup("row_fwd", gr, gi, sr, si)
     lane = mr is not None
     if lane:
@@ -1093,6 +1096,7 @@ def rotx_bwd_card_plan(r: int, nkernel: int) -> dict:
 
 
 def _launch_row_bwd(gr, gi, yr, yi, ctr, cti, mr, mi):
+    _build.refuse_trace("row_bwd")
     dev, gr, gi, nk, r = _row_setup("row_bwd", gr, gi, yr, yi, ctr, cti)
     lane = mr is not None
     if lane:

@@ -48,6 +48,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from .. import config
 from . import kernels_grand as kg
 from . import kernels_rowlayer as krl
 from .transform_rules import each, loop_vmap
@@ -371,23 +372,13 @@ def _np_kron_all(ms):
 
 @lru_cache(maxsize=16)
 def _readout_consts(spec, n, nrow_s):
-    """(mask (r, lanes) f64, sxl (lanes, lanes) f64, row blocks [(pos, b, m)]).
-
-    ``spec = (diag_terms, x_terms)``: Z-strings ``((qubits...), w)`` and
-    transverse fields ``(q, w)``.  Qubit q's bit of the flat index x is
-    ``(x >> (n-1-q)) & 1``; rows hold qubits [0, nrow_s), lanes the rest.
-    """
+    """(sxl (lanes, lanes) f64, row blocks [(pos, b, m)]) of the transverse
+    fields; ``spec = (diag_terms, x_terms)``: Z-strings ``((qubits...), w)``
+    and transverse fields ``(q, w)``; rows hold qubits [0, nrow_s), lanes
+    the rest."""
     diag_terms, x_terms = spec
     nlane = n - nrow_s
-    r, lanes = 2**nrow_s, 2**nlane
-    idx = np.arange(2**n, dtype=np.int64)
-    w = np.zeros(2**n, dtype=np.float64)
-    for qubits, wt in diag_terms:
-        zprod = np.ones(2**n, dtype=np.float64)
-        for q in qubits:
-            zprod *= 1 - 2 * ((idx >> (n - 1 - int(q))) & 1)
-        w += float(wt) * zprod
-    mask = w.reshape(r, lanes)
+    lanes = 2**nlane
     x2 = np.array([[0.0, 1.0], [1.0, 0.0]], dtype=np.float64)
     e2 = np.eye(2, dtype=np.float64)
     xw = {int(q): float(wt) for q, wt in x_terms}
@@ -410,18 +401,33 @@ def _readout_consts(spec, n, nrow_s):
         if hit:
             blocks.append((pos, b, m))
         pos += b
-    return mask, sxl, tuple(blocks)
+    return sxl, tuple(blocks)
 
 
-@lru_cache(maxsize=16)
+def _readout_mask(diag_terms, n, nrow_s, device: str) -> torch.Tensor:
+    """(r, lanes) float64 Σ_s w_s Π_{q∈s} Z_q on ``device``; qubit q's bit
+    of the flat index x is ``(x >> (n-1-q)) & 1``.  Built there: on the
+    host it would be O(terms · 2^n) numpy passes (minutes at n=28)."""
+    idx = torch.arange(2**n, device=device)
+    w = torch.zeros(2**n, dtype=torch.float64, device=device)
+    for qubits, wt in diag_terms:
+        zprod = torch.ones(2**n, dtype=torch.float64, device=device)
+        for q in qubits:
+            zprod *= 1 - 2 * ((idx >> (n - 1 - int(q))) & 1)
+        w += float(wt) * zprod
+    return w.reshape(2**nrow_s, -1)
+
+
+@config.tensor_cache(maxsize=16)
 def _readout_tensors(spec, n, nrow_s, device: str, dtype):
-    """:func:`_readout_consts` as tensors of ``dtype`` on ``device``."""
-    mask, sxl, blocks = _readout_consts(spec, n, nrow_s)
+    """The Z-string mask and :func:`_readout_consts` as tensors of
+    ``dtype`` on ``device``."""
+    sxl, blocks = _readout_consts(spec, n, nrow_s)
 
     def t(a):
         return torch.as_tensor(a, dtype=dtype, device=device)
 
-    return (t(mask), t(sxl), bool(np.any(sxl)),
+    return (_readout_mask(spec[0], n, nrow_s, device).to(dtype), t(sxl), bool(np.any(sxl)),
             tuple((p0, b0, t(m0)) for p0, b0, m0 in blocks))
 
 

@@ -1,19 +1,24 @@
 """Experimental utilities: chunked vmap, the quantum Fisher information
 (QNG), parameter-shift and finite-difference gradients, parameter
-checkpoints and layered circuits.
+checkpoints, layered circuits, a traced function's export and the
+process-group broadcasts.
 
 Counterpart of ``tensorcircuit_ng_tpu/experimental.py`` on the backend's
 ``torch.func`` transforms.  The kernel paths define no forward mode (as the
 JAX package's ``custom_vjp`` kernels), so ``qng(..., mode="rev")`` is their
-route.  ``jax_jitted_function_save``/``_load`` (a serialized JAX
-executable) and ``broadcast_py_object*`` (a process group) come with the
-port's ``parallel/``.
+route.  ``jax_jitted_function_save``/``_load`` keep the JAX names and
+serialize a ``torch.export`` program; ``broadcast_py_object*`` send a
+picklable object over the ``torch.distributed`` world
+(``parallel.initialize_distributed``).
 """
 
 from __future__ import annotations
 
 import math
 import os
+import pickle
+import tempfile
+import time
 from typing import Any, Callable, Optional, Sequence, Tuple, Union
 
 import torch
@@ -42,6 +47,13 @@ __all__ = [
     "hamiltonian_evol",
     "evol_local",
     "evol_global",
+    "jax_jitted_function_save",
+    "jax_jitted_function_load",
+    "jax_func_save",
+    "jax_func_load",
+    "broadcast_py_object",
+    "broadcast_py_object_jax",
+    "broadcast_py_object_fs",
 ]
 
 
@@ -214,6 +226,101 @@ def load_params(path: str, template: Any = None) -> Any:
     if template is None:
         return params
     return pytree.tree_map(lambda x, t: x.to(t.device) if isinstance(t, torch.Tensor) else x, params, template)
+
+
+# ------------------------------------------------------------------
+# export of a traced function
+# ------------------------------------------------------------------
+
+
+class _Exported(torch.nn.Module):
+    """``f`` as the module ``torch.export`` takes."""
+
+    def __init__(self, f: Callable[..., Any]) -> None:
+        super().__init__()
+        self.f = f
+
+    def forward(self, *args: Any, **kws: Any) -> Any:
+        return self.f(*args, **kws)
+
+
+def jax_jitted_function_save(path: str, f: Callable[..., Any], *args: Any, **kws: Any) -> None:
+    """Trace ``f`` at the example inputs ``args``/``kws`` with
+    ``torch.export.export`` and write the program to ``path``
+    (``torch.export.save``).  A function that reaches one of the port's
+    hand-written CUDA kernels (a CUDA input) raises: the kernels are launched
+    through ctypes, which the tracer cannot see; on CPU inputs it exports
+    their plain versions."""
+    program = torch.export.export(_Exported(f), tuple(args), kwargs=kws or None, strict=False)
+    torch.export.save(program, path)
+
+
+def jax_jitted_function_load(path: str) -> Callable[..., Any]:
+    """The function :func:`jax_jitted_function_save` wrote, as a callable
+    module."""
+    return torch.export.load(path).module()
+
+
+jax_func_save = jax_jitted_function_save
+jax_func_load = jax_jitted_function_load
+
+
+# ------------------------------------------------------------------
+# broadcasts over the process group
+# ------------------------------------------------------------------
+
+
+def _world() -> Tuple[int, int]:
+    """(rank, world size) of the initialized process group, else (0, 1)."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
+def broadcast_py_object(obj: Any, root: int = 0) -> Any:
+    """A picklable object of process ``root`` on every process: its pickle
+    sent by ``torch.distributed.broadcast_object_list``.  A single process
+    returns the object unchanged."""
+    rank, world = _world()
+    if world == 1:
+        return obj
+    import torch.distributed as dist
+
+    box = [obj if rank == root else None]
+    dist.broadcast_object_list(box, src=root)
+    return box[0]
+
+
+def broadcast_py_object_jax(obj: Any, root: int = 0) -> Any:
+    """:func:`broadcast_py_object` under the JAX package's name."""
+    return broadcast_py_object(obj, root=root)
+
+
+def broadcast_py_object_fs(obj: Any, root: int = 0, path: Optional[str] = None, timeout: float = 60.0) -> Any:
+    """The broadcast through a shared file system: process ``root`` pickles
+    ``obj`` to a temporary file and moves it to ``path`` (``os.replace``);
+    the others wait for ``path`` (up to ``timeout`` seconds) and read it.
+    The rank and world size are ``torch.distributed``'s."""
+    if path is None:
+        path = os.path.join(tempfile.gettempdir(), "tc_torch_broadcast.pkl")
+    rank, world = _world()
+    if world == 1:
+        return obj
+    if rank == root:
+        tmp = path + ".tmp"
+        with open(tmp, "wb") as f:
+            pickle.dump(obj, f)
+        os.replace(tmp, path)
+        return obj
+    deadline = time.time() + timeout
+    while time.time() < deadline:
+        if os.path.exists(path):
+            with open(path, "rb") as f:
+                return pickle.load(f)
+        time.sleep(0.2)
+    raise TimeoutError(f"broadcast file {path} did not appear within {timeout}s")
 
 
 # ------------------------------------------------------------------

@@ -26,6 +26,12 @@ channel item) then costs each item once, not once a channel.  Anything
 but an append (``replace_inputs``, a QIR item replaced or removed) drops
 the kept state, which is used only under the autograd mode it was computed
 in; ``state(reuse=False)`` computes from the first item.
+
+A circuit built with ``mesh=`` (``Circuit``) holds a ``_mesh_engine``, the
+sharded engine of ``parallel/sharded_state.py``: the state (and the kept
+prefix) is then a ``ShardedState``, and ``state()``, ``expectation``,
+``expectation_ps``, the Ising readouts, ``amplitude``, ``probability``,
+``measure_jit`` and ``sample`` run on the shards without gathering them.
 """
 
 from __future__ import annotations
@@ -63,6 +69,8 @@ _DIAGONAL_GATES = frozenset(
 
 class BaseCircuit(AbstractCircuit):
     is_dm = False
+    #: set by ``Circuit(mesh=...)``: the sharded-statevector engine
+    _mesh_engine: Optional[Any] = None
 
     def __init__(
         self,
@@ -134,10 +142,14 @@ class BaseCircuit(AbstractCircuit):
         self._append(ir_dict)
 
     def _compute_state(self) -> torch.Tensor:
+        if self._mesh_engine is not None:
+            return self._mesh_engine.run_groups(self._grouped_qir(), self._inputs)
         return self._run_groups(self._grouped_qir())
 
     def _extend_state(self, psi: torch.Tensor, items: List[Dict[str, Any]]) -> torch.Tensor:
         """``psi`` with ``items`` applied after it."""
+        if self._mesh_engine is not None:
+            return self._mesh_engine.run_groups(self._grouped_qir(items), psi=psi)
         return self._run_groups(self._grouped_qir(items), psi)
 
     def _kept_state(self) -> torch.Tensor:
@@ -452,6 +464,8 @@ class BaseCircuit(AbstractCircuit):
         if noise_conf is not None:
             return self._noisy_expectation(self._pauli_ops(x, y, z), noise_conf, nmc, status,
                                            enable_lightcone=enable_lightcone)
+        if self._mesh_engine is not None:
+            return self._mesh_engine.expectation_ps(self.state(reuse=reuse), x, y, z)
         if enable_lightcone:
             psi = self._lightcone_state([int(q) for q in (*(x or ()), *(y or ()), *(z or ()))])
         else:
@@ -483,6 +497,8 @@ class BaseCircuit(AbstractCircuit):
         (:func:`kernels.fused_zzrx_multilayer_energy`); otherwise the
         readout runs as block sandwiches on the dense state."""
         spec = kernels.ising_readout_spec(self._nqubits, zz_terms, z_terms, x_terms)
+        if self._mesh_engine is not None:
+            return self._mesh_engine.expectation_ising_sum(self.state(), spec)
         groups = self._grouped_qir()
         if self._d == 2 and groups and isinstance(groups[-1], list):
             run = groups[-1]
@@ -526,6 +542,8 @@ class BaseCircuit(AbstractCircuit):
         for op in ops:
             if not (isinstance(op, tuple) and len(op) == 2):
                 raise ValueError("each op must be (operator, [wires])")
+        if self._mesh_engine is not None:
+            return self._mesh_engine.expectation(self.state(reuse=reuse), self._norm_ops(ops))
         if self._nqubits > self._DENSE_MAX_QUBITS:
             from ..core import contractor
 
@@ -611,6 +629,8 @@ class BaseCircuit(AbstractCircuit):
         r"""⟨l|psi⟩ for a basis string such as ``"0101"`` (base d, 0-9A-Z)
         or a sequence of ints; above 30 qubits by contracting
         :meth:`amplitude_before`."""
+        if self._mesh_engine is not None:
+            return self._mesh_engine.amplitude(self.state(), self._digits(l))
         if self._nqubits > self._DENSE_MAX_QUBITS:
             from ..core import contractor
 
@@ -621,6 +641,8 @@ class BaseCircuit(AbstractCircuit):
 
     def probability(self) -> torch.Tensor:
         """The probability vector |psi|^2 (length d^n)."""
+        if self._mesh_engine is not None:
+            return self._mesh_engine.probability(self.state())
         return statevec.probabilities(self.state())
 
     def outcome_probability(self, bitstring: Union[str, Sequence[int]]) -> torch.Tensor:
@@ -668,6 +690,9 @@ class BaseCircuit(AbstractCircuit):
         uniforms come from ``generator`` or the backend's implicit generator
         on the circuit's device.  Returns (outcomes (len(index),) int32,
         their probability, or -1 without ``with_prob``)."""
+        if self._mesh_engine is not None:
+            return self._mesh_engine.measure_jit(self.state(), index, status=status, with_prob=with_prob,
+                                                 generator=generator)
         if status is None:
             status = self._uniforms([len(index)], generator)
         psi = self.state()
@@ -735,6 +760,8 @@ class BaseCircuit(AbstractCircuit):
             format = format_
         nbatch = 1 if batch is None else batch
         n, d = self._nqubits, self._d
+        if self._mesh_engine is not None:
+            return self._sample_mesh(nbatch, batch, format, status, jittable, readout_error, random_generator)
         if d**n > 2**self._DENSE_MAX_QUBITS:
             return self._sample_large_n(nbatch, batch, format, status, jittable, readout_error, random_generator)
         if status is not None:
@@ -747,12 +774,7 @@ class BaseCircuit(AbstractCircuit):
             if status is not None and status.ndim == 2:
                 status = status[:, 0]
             idx = K.probability_sample(nbatch, p, status=status, g=random_generator)
-            if format is None:
-                bins = qu.sample_int2bin(idx, n, d)
-                if batch is None:
-                    return bins[0], -1.0
-                return [(bins[i], -1.0) for i in range(nbatch)]
-            return qu.sample2all(idx, n, format=format, jittable=jittable, d=d)
+            return self._format_indices(idx, nbatch, batch, format, jittable)
         if status is None:
             status = self._uniforms([nbatch, n], random_generator)
         if status.ndim != 2:
@@ -848,6 +870,34 @@ class BaseCircuit(AbstractCircuit):
                 return bits[0], -1.0
             return [(bits[i], -1.0) for i in range(nbatch)]
         return qu.sample2all(qu.sample_bin2int(bits, n, d), n, format=format, jittable=jittable, d=d)
+
+    def _sample_mesh(self, nbatch: int, batch: Optional[int], format: Optional[str], status: Optional[Any],
+                     jittable: bool, readout_error: Optional[Any], generator: Optional[torch.Generator]) -> Any:
+        """``sample`` on the sharded engine: one uniform a shot (``status``
+        [batch], or the first column of a [batch, n] one) through
+        ``sample_direct``, two collectives for all the shots.  A readout
+        error is not modelled there (ValueError)."""
+        if readout_error is not None:
+            raise ValueError("the sharded engine does not model a readout error: sample without it")
+        if status is None:
+            status = self._mesh_engine._uniforms([nbatch], generator)
+        status = device_tensor(status, self._device)
+        if status.ndim == 2:
+            status = status[:, 0]
+        idx = self._mesh_engine.sample_direct(self.state(), status)
+        return self._format_indices(idx, nbatch, batch, format, jittable)
+
+    def _format_indices(self, idx: torch.Tensor, nbatch: int, batch: Optional[int], format: Optional[str],
+                        jittable: bool) -> Any:
+        """Flat shot indices in ``sample``'s output: the legacy (digits, -1.0)
+        pairs for ``format`` None, else :func:`quantum.sample2all`'s."""
+        n, d = self._nqubits, self._d
+        if format is None:
+            bins = qu.sample_int2bin(idx, n, d)
+            if batch is None:
+                return bins[0], -1.0
+            return [(bins[i], -1.0) for i in range(nbatch)]
+        return qu.sample2all(idx, n, format=format, jittable=jittable, d=d)
 
     def readouterror_bs(self, readout_error: Optional[Any] = None, p: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The probability vector ``p`` through each qubit's readout

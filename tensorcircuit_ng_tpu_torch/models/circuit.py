@@ -1,9 +1,9 @@
 """``Circuit``: the exact statevector simulator of the port.
 
-Counterpart of ``tensorcircuit_ng_tpu/models/circuit.py`` without the
-multi-chip ``mesh=`` engine: post-selection, Monte-Carlo trajectories of
-noise channels (``unitary_kraus``, ``general_kraus`` and the channel
-methods ``c.depolarizing(q, px=..)``, ``c.amplitudedamping(q, gamma=..)``,
+Counterpart of ``tensorcircuit_ng_tpu/models/circuit.py``:
+post-selection, Monte-Carlo trajectories of noise channels
+(``unitary_kraus``, ``general_kraus`` and the channel methods
+``c.depolarizing(q, px=..)``, ``c.amplitudedamping(q, gamma=..)``,
 ... of ``ops/channels.py``), the measurement with collapse
 (``cond_measurement``, ``general_kraus`` on the projectors), the circuit
 unitary (``matrix``), the exact density-matrix twin (``to_dm_circuit``) and
@@ -18,6 +18,11 @@ the JAX package's branch.  ``device`` defaults to the configured device
 (``"cuda"`` unless :func:`config.set_device` says otherwise); a CUDA device
 without a card raises.  Detector and observable instructions, their
 trajectories and exact rates come from :class:`detectors.DetectorMixin`.
+``mesh=`` (a ``parallel.Mesh`` or ``parallel.ProcessGroupMesh``) runs the
+circuit on the sharded engine (``parallel/sharded_state.py``): the state
+is split over the mesh, and ``state()``, ``expectation``,
+``expectation_ps``, the Ising readouts, ``amplitude``, ``measure_jit`` and
+``sample`` never gather it.
 """
 
 from __future__ import annotations
@@ -42,6 +47,10 @@ __all__ = ["Circuit", "expectation"]
 class Circuit(DetectorMixin, BaseCircuit):
     """Exact statevector circuit simulator (dense engine)."""
 
+    #: set by ``mesh=``: the mesh and its axis
+    _mesh: Optional[Any] = None
+    _mesh_axis = "sv"
+
     def __init__(
         self,
         nqubits: int,
@@ -50,15 +59,37 @@ class Circuit(DetectorMixin, BaseCircuit):
         device: Union[None, str, torch.device] = None,
         split: Optional[Dict[str, Any]] = None,
         mps_inputs: Optional[Any] = None,
+        mesh: Optional[Any] = None,
+        mesh_axis: str = "sv",
     ) -> None:
         """``mps_inputs``: an MPS input state, densified by
         :func:`_mps_to_dense` (it replaces ``inputs``).  ``split``: the split
         rules of two-qubit gates (``contractor.split_rules``), stored as the
-        JAX package stores them."""
+        JAX package stores them.  ``mesh``: run on the sharded engine, the
+        state split over the mesh's ``mesh_axis`` (qubits only; the
+        circuit's device is the mesh's first device, and another
+        ``device`` is a ValueError)."""
         if mps_inputs is not None:
             inputs = _mps_to_dense(mps_inputs)
+        if mesh is not None:
+            if dim != 2:
+                raise ValueError("the sharded engine supports qubits (dim=2) only")
+            if device is not None and not _same_device(device, mesh.device):
+                raise ValueError(f"device {device} is not the mesh's device {mesh.device}")
+            device = mesh.device
         super().__init__(nqubits, inputs=inputs, dim=dim, device=device)
         self._split = split
+        self._mesh, self._mesh_axis = mesh, mesh_axis
+        if mesh is not None:
+            from ..parallel.sharded_state import ShardedStatevec
+
+            self._mesh_engine = ShardedStatevec(nqubits, mesh, axis=mesh_axis)
+
+    def _copy_params(self) -> Dict[str, Any]:
+        params = super()._copy_params()
+        if self._mesh is not None:
+            params.update(mesh=self._mesh, mesh_axis=self._mesh_axis)
+        return params
 
     def replace_mps_inputs(self, mps_inputs: Any) -> None:
         """Replace the input state by an MPS (densified once)."""
@@ -351,6 +382,13 @@ class Circuit(DetectorMixin, BaseCircuit):
 
 
 Circuit._meta_apply_channels()
+
+
+def _same_device(device: Union[str, torch.device], mesh_device: torch.device) -> bool:
+    """Whether ``device`` names the mesh's device (a bare ``"cuda"`` names
+    any card)."""
+    dev = torch.device(device)
+    return dev.type == mesh_device.type and (dev.index is None or dev.index == mesh_device.index)
 
 
 def _mps_to_dense(mps_inputs: Any) -> torch.Tensor:

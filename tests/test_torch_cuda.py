@@ -85,6 +85,7 @@ import torch
 import tensorcircuit_ng_tpu_torch as tct
 from chip_smoke import (
     SLICE_SMALL, _slice_checks, fgs_inputs, fgs_layers, pp_circuit,
+    PAR_SMALL, _parallel_checks, par_mixed_circuit,
     STAB_SMALL, _stab_checks, detector_statuses, qudit_energy, repetition_program, stab_angles, surface_code_program,
     u1_circuit, u1_energy, xy_gate, clifford_program,
     HAM_SMALL, TRANSFORM_SMALL, _tfim_coo_state, _transform_checks, transform_angles, transform_energy,
@@ -1932,3 +1933,90 @@ def test_fgs_gradient_and_measurement_on_card_match_cpu(cuda):
     (ec, gc, oc, cc), (ep, gp, op, cp) = res["cuda"], res["cpu"]
     assert abs(ec - ep) <= 1e-4 and (gc - gp).abs().max().item() <= 1e-4
     assert torch.equal(oc, op) and (cc - cp).abs().max().item() <= 1e-4
+
+
+# ----------------------------------------------------------------------
+# phase 21: the sharded statevector, term sharding, slices, the group
+# ----------------------------------------------------------------------
+
+
+def _ring(n):
+    return [(i, (i + 1) % n) for i in range(n)]
+
+
+@pytest.mark.parametrize("shards", [2, 4])
+def test_sharded_vqe_step_on_card_launches_k1_k3_a_shard(cuda, shards):
+    """The n=12 two-layer TFIM energy on a mesh of one card's shards: K1
+    forward and K3 backward once a shard a layer (8 local qubits), energy
+    and gradient against the same mesh on the CPU (plain versions)."""
+    from tensorcircuit_ng_tpu_torch.parallel import Mesh
+
+    n = 12
+    x = np.random.default_rng(5).normal(size=(2, 2, n)) * 0.3
+
+    def step(dev):
+        p = torch.tensor(x, dtype=torch.float32, device=dev, requires_grad=True)
+        c = tct.Circuit(n, mesh=Mesh([dev] * shards, ("sv",)))
+        c.h_layer()
+        for layer in range(2):
+            c.zzrx_layer(_ring(n), p[layer, 0], p[layer, 1])
+        e = c.expectation_zzx_energy(_ring(n), 1.0, 0.7)
+        return e.item(), torch.autograd.grad(e, p)[0].cpu()
+
+    krl.zzrx_fwd.launches = krl.zzrx_bwd.launches = 0
+    e, g = step(cuda)
+    torch.cuda.synchronize()
+    assert (krl.zzrx_fwd.launches, krl.zzrx_bwd.launches) == (2 * shards, 2 * shards)
+    e_cpu, g_cpu = step(torch.device("cpu"))
+    assert abs(e - e_cpu) < 2e-5 * n
+    torch.testing.assert_close(g, g_cpu, atol=1e-4, rtol=0)
+
+
+def test_sharded_mixed_forward_and_shots_on_card_match_cpu(cuda):
+    """``chip_smoke.par_mixed_circuit`` at n=12 on 4 shards of the card
+    against the same mesh on the CPU: the gathered state, and 2,048 shots
+    by ``sample_direct`` within 1e-6 of their float64 cdf interval."""
+    from chip_smoke import bracket_miss
+    from tensorcircuit_ng_tpu_torch.parallel import Mesh
+
+    n = 12
+    u = np.random.default_rng(3).uniform(size=2048)
+    psi = {}
+    for dev in (cuda, torch.device("cpu")):
+        c = par_mixed_circuit(tct, n, 0.83, mesh=Mesh([dev] * 4, ("sv",)))
+        psi[dev.type] = c.state().gather().cpu()
+        if dev.type == "cuda":
+            idx = c.sample(batch=len(u), status=torch.tensor(u, dtype=torch.float32, device=dev),
+                           format="sample_int")
+    torch.testing.assert_close(psi["cuda"], psi["cpu"], atol=ATOL, rtol=0)
+    p = (psi["cpu"].abs() ** 2).numpy()
+    assert bracket_miss(idx.cpu().numpy(), u, p) <= 1e-6
+
+
+def test_export_of_a_kernel_path_on_card_raises(cuda, tmp_path):
+    """``jax_jitted_function_save`` of a function that launches K1 (a CUDA
+    input) raises, naming the ctypes launch; the same function on CPU
+    inputs exports its plain version."""
+    from tensorcircuit_ng_tpu_torch import experimental
+
+    n = 10
+
+    def energy(zz, rx):
+        c = tct.Circuit(n, device=zz.device)
+        c.h_layer()
+        c.zzrx_layer(_ring(n), zz, rx)
+        return c.expectation_zzx_energy(_ring(n), 1.0, 0.7)
+
+    zz, rx = torch.full((n,), 0.1, device=cuda), torch.full((n,), 0.2, device=cuda)
+    with pytest.raises(Exception, match="ctypes"):
+        experimental.jax_jitted_function_save(str(tmp_path / "k.pt2"), energy, zz, rx)
+    experimental.jax_jitted_function_save(str(tmp_path / "c.pt2"), energy, zz.cpu(), rx.cpu())
+    f = experimental.jax_jitted_function_load(str(tmp_path / "c.pt2"))
+    assert abs(f(zz.cpu(), rx.cpu()).item() - energy(zz, rx).item()) < 2e-5 * n
+
+
+def test_parallel_phase_checks_on_card(cuda):
+    """``chip_smoke.py``'s phase 21 at a small size (NCCL for the one-rank
+    group)."""
+    counters = (krl.zzrx_fwd, krl.zzrx_bwd, kg.grand_zzrx_fwd, kg.grand_zzrx_bwd)
+    _parallel_checks(tct, cuda, counters, **PAR_SMALL)
