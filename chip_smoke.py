@@ -362,7 +362,25 @@ Phases (any failure exits non-zero; nothing is caught):
      timeout, destroyed at the end), with ``broadcast_py_object`` and a
      one-rank group ``Circuit(mesh=)``; (e) ``ReadoutMit`` on 8,192 card
      shots of a 10-qubit GHZ with a known readout error: the mitigated
-     <Z...Z> within 5 sigma of 1; each route timed with its peak memory.
+     <Z...Z> within 5 sigma of 1; (f) each non-unitary channel kind of F19
+     (``amplitudedamping``, ``general_kraus``, ``reset``, ``cond_measure``)
+     on a top and a local wire of an n=20 circuit on 4 shards, its branch
+     probabilities computed on the shards: the branch equal and the
+     gathered state within 1e-5 of the dense card circuit's; each route
+     timed with its peak memory;
+ 22. the circuits' I/O, the compiler and the cloud layer (no kernel of
+     their own; host code over the card's states) (:func:`_io_checks`):
+     (a) ``bench.py``'s n=20, L=4 TFIM circuit on the card (K2 in
+     ``state()``) through ``to_json``/``from_json``, ``to_openqasm``/
+     ``from_openqasm`` and ``compiler.simple_compile``, each state within
+     1e-4 of the original, and the compiled circuit's energy gradient (K2
+     and K4) equal to the original's; (b) the dense dry run of the
+     contractor's ``debug_level=2`` with ``contraction_info``: zero and the
+     cost line; (c) 8,192 shots of a 10-qubit GHZ from the local cloud
+     provider on the card, and ``batch_expectation_ps`` from its counts
+     within 5 sigma of the exact values; (d) ``apply_rc(simplify=True)``
+     on the GHZ circuit, each twirl's state equal to the GHZ state up to a
+     global phase; each part timed by the wall clock.
 
 Prints the kernels JSON line, then the card's name and power limit, then
 ``{"ok": true, "device": {...}}`` as the last line.  Needs no network and
@@ -5939,11 +5957,12 @@ def _slice_phase(tct, card, counters, job):
 #: phase 21, the parallel engines: (a) the sharded VQE step's width and
 #: shard count, (b) the mixed forward's width and shard counts, its shots,
 #: (c) the term-sharded TFIM's width and depth and the contracted grid
-#: (rows, cols, depth) with its slice target, (e) the GHZ width and shots
+#: (rows, cols, depth) with its slice target, (e) the GHZ width and shots,
+#: (f) the width of F19's channel circuit
 PAR_SIZES = {"a_n": 28, "a_shards": 4, "b_n": 30, "b_shards": (4, 8), "shots": 8192, "c_n": N, "c_nl": L,
-             "c_grid": (4, 4, 8), "c_target": 2**7, "e_n": 10, "e_shots": 8192}
+             "c_grid": (4, 4, 8), "c_target": 2**7, "e_n": 10, "e_shots": 8192, "f_n": N}
 PAR_SMALL = {"a_n": 10, "a_shards": 4, "b_n": 9, "b_shards": (2, 4), "shots": 512, "c_n": 8, "c_nl": 2,
-             "c_grid": (3, 3, 4), "c_target": 2**3, "e_n": 6, "e_shots": 2048}
+             "c_grid": (3, 3, 4), "c_target": 2**3, "e_n": 6, "e_shots": 2048, "f_n": 8}
 #: the sharded energy against the dense one, relative
 PAR_ENERGY_RTOL = 1e-5
 #: the sharded gradient against the dense one (float32 sums over 2^28
@@ -5980,6 +5999,29 @@ def par_mixed_circuit(tct, n, status, **kw):
     paulis = [np.eye(2), np.array([[0, 1], [1, 0]]), np.array([[0, -1j], [1j, 0]]), np.diag([1.0, -1.0])]
     c.unitary_kraus([np.sqrt(p) * m for p, m in zip((0.7, 0.1, 0.1, 0.1), paulis)], 1, status=status)
     return c
+
+
+def par_probe_circuit(tct, n, **kw):
+    """(f)'s input, F19's probe: h and ry(0.2 (q + 1)) on every qubit, then
+    cnot(0, 3) and cnot(1, 4)."""
+    c = tct.Circuit(n, **kw)
+    for q in range(n):
+        c.h(q)
+        c.ry(q, theta=0.2 * (q + 1))
+    c.cnot(0, 3)
+    c.cnot(1, 4)
+    return c
+
+
+#: (f)'s channels, each with a fixed status: on top wire 1 or 0 of 4 shards
+PAR_CHANNELS = {
+    "amplitudedamping(1, gamma=0.3)": lambda c: c.amplitudedamping(1, gamma=0.3, status=0.35),
+    "general_kraus([sqrt(0.7) I, sqrt(0.3) Z], 0)": lambda c: c.general_kraus(
+        [np.sqrt(0.7) * np.eye(2), np.sqrt(0.3) * np.diag([1.0, -1.0])], 0, status=0.5),
+    "reset(0)": lambda c: c.reset(0, status=0.4),
+    "cond_measure(1)": lambda c: c.cond_measure(1, status=0.3),
+    "amplitudedamping on a local wire": lambda c: c.amplitudedamping(c.nqubits - 1, gamma=0.3, status=0.35),
+}
 
 
 def _bracket_miss_cdf(idx, u, cdf):
@@ -6233,6 +6275,29 @@ def _parallel_checks(tct, dev, counters=(), **sizes):
     sigma = np.sqrt(max(mean_f2 - got**2, 1e-12) / shots)
     print(f"  (e) <Z...Z> raw {raw:.5f}, mitigated {got:.5f}, exact 1, sigma {sigma:.5f}")
     check("(e) mitigated <Z...Z> against 1, in sigmas", abs(got - 1.0) / sigma, PAR_SIGMAS)
+
+    # ---- (f) F19: the non-unitary channels on the shards ---------------
+    part("f")
+    n = s["f_n"]
+    mf = mesh(4)
+    with torch.no_grad():
+        for label, channel in PAR_CHANNELS.items():
+            cd = par_probe_circuit(tct, n, device=dev)
+            branch_d = int(channel(cd))
+            psi_d = cd.state()
+
+            def on_shards():
+                cs = par_probe_circuit(tct, n, mesh=mf)
+                return int(channel(cs)), cs.state()
+
+            branch_s, psi_s = timed(f"(f) {label} on 4 shards n={n} (the circuit, the channel, state())", on_shards)
+            if type(psi_s).__name__ != "ShardedState":
+                _fail(f"phase 21 (f): {label} left a {type(psi_s).__name__}, not a ShardedState")
+            print(f"  (f) {label}: branch {branch_s} on 4 shards, {branch_d} dense")
+            if branch_s != branch_d:
+                _fail(f"phase 21 (f): {label} picked branch {branch_s} on the shards, {branch_d} dense")
+            check(f"(f) {label}: the gathered state against the dense card circuit",
+                  (psi_s.gather() - psi_d).abs().max().item(), PAR_STATE_ATOL)
     part("end")
     return times
 
@@ -6245,6 +6310,149 @@ def _parallel_phase(tct, card, counters):
         mem = f", peak {peak:.1f} MiB above the start" if peak is not None else ""
         print(f"phase 21 time, {label}: {ms:.3f} ms ({how}){mem}, {card}")
     print(f"phase 21 wall time: {time.perf_counter() - t0:.1f} s")
+
+
+#: phase 22, the I/O, compiler and cloud layer: (a) the TFIM circuit's
+#: width and depth, (c) the GHZ width and its shots
+IO_SIZES = {"n": N, "nl": L, "ghz_n": 10, "shots": 8192}
+IO_SMALL = {"n": 8, "nl": 2, "ghz_n": 6, "shots": 2048}
+#: a round trip's state against the original's (per-gate einsums against
+#: the fused kernels, float32)
+IO_STATE_ATOL = 1e-4
+#: a value of the shots within this many standard deviations of the exact one
+IO_SIGMAS = 5.0
+#: a twirled circuit's readout against the original's
+IO_VALUE_ATOL = 1e-5
+
+
+def _io_checks(tct, dev, counters=(), **sizes):
+    """Phase 22's checks (a)-(d) on ``dev``; returns each part's wall time
+    (ms)."""
+    import contextlib
+    import io
+    import random
+
+    import torch
+    from tensorcircuit_ng_tpu_torch import compiler
+    from tensorcircuit_ng_tpu_torch.cloud import apis, wrapper
+    from tensorcircuit_ng_tpu_torch.core import contractor
+    from tensorcircuit_ng_tpu_torch.results import qem
+
+    s = {**IO_SIZES, **sizes}
+    dev = torch.device(dev)
+    card = dev.type == "cuda"
+    times = {}
+
+    def check(label, err, tol):
+        print(f"  {label}: {err:.3e} (tol {tol:g})")
+        if not err <= tol:
+            _fail(f"phase 22, {label}: {err} > {tol}")
+
+    def timed(label, fn):
+        if card:
+            torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        if card:
+            torch.cuda.synchronize()
+        times[label] = (time.perf_counter() - t) * 1e3
+        return out
+
+    # ---- (a) the TFIM circuit through JSON, OpenQASM and the compiler --
+    n, nl = s["n"], s["nl"]
+    pairs = [(i, i + 1) for i in range(n - 1)]
+    p = torch.tensor(np.random.default_rng(22).normal(size=(nl, 2, n)) * 0.3, dtype=torch.float32, device=dev)
+    c = tfim_circuit(tct, p, n, nl, device=dev)
+    _reset(counters)
+    with torch.no_grad():
+        psi = timed(f"(a) the TFIM state n={n} L={nl}", c.state)
+    launched = _launched(counters)
+    print(f"  (a) launches of the TFIM state: {launched}")
+    if card and n == N and launched.get("grand_zzrx_fwd") != 1:
+        _fail(f"phase 22 (a): K2 not launched once for the n={n} state: {launched}")
+    text = timed("(a) to_json", c.to_json)
+    qasm = timed("(a) to_openqasm", c.to_openqasm)
+    print(f"  (a) JSON {len(text)} characters, OpenQASM {len(qasm.splitlines())} lines")
+    with torch.no_grad():
+        cj = timed("(a) from_json", lambda: tct.Circuit.from_json(text, device=dev))
+        cq = timed("(a) from_openqasm", lambda: tct.Circuit.from_openqasm(qasm, device=dev))
+        cc, _ = timed("(a) compiler.simple_compile", lambda: compiler.simple_compile(c))
+        for label, other in (("from_json", cj), ("from_openqasm", cq), ("simple_compile", cc)):
+            if other.device != c.device:
+                _fail(f"phase 22 (a): {label} built its circuit on {other.device}, not {c.device}")
+            phi = timed(f"(a) the state of {label}'s circuit ({len(other.to_qir())} QIR items)", other.state)
+            check(f"(a) {label}: max |dpsi| against the original", (phi - psi).abs().max().item(), IO_STATE_ATOL)
+
+    def energy_grad(make):
+        q = p.clone().requires_grad_(True)
+        e = make(q).expectation_zzx_energy(pairs, 1.0, -1.0)
+        return e.detach(), torch.autograd.grad(e, q)[0]
+
+    e0, g0 = energy_grad(lambda q: tfim_circuit(tct, q, n, nl, device=dev))
+    _reset(counters)
+    e1, g1 = timed("(a) the compiled circuit's energy and gradient",
+                   lambda: energy_grad(lambda q: compiler.simple_compile(tfim_circuit(tct, q, n, nl, device=dev))[0]))
+    launched = _launched(counters)
+    print(f"  (a) launches of the compiled circuit's energy and gradient: {launched}")
+    if card and n == N and (launched.get("grand_zzrx_fwd") != 1 or launched.get("grand_zzrx_bwd") != 1):
+        _fail(f"phase 22 (a): K2 and K4 not launched once each for the compiled circuit: {launched}")
+    check("(a) the compiled circuit's energy and gradient against the original's",
+          max(abs(e1.item() - e0.item()), (g1 - g0).abs().max().item()), IO_VALUE_ATOL)
+
+    # ---- (b) the dense dry run --------------------------------------
+    contractor._INFO_PRINTED.discard(("dense", n, 2, len(c.to_qir())))
+    out = io.StringIO()
+    with tct.runtime_contractor("greedy", contraction_info=True, debug_level=2), contextlib.redirect_stdout(out):
+        z = timed("(b) expectation_ps under debug_level=2", lambda: c.expectation_ps(z=[0, 1]))
+    printed = out.getvalue()
+    print("  (b) " + printed.strip().replace("\n", "\n  (b) "))
+    if tuple(z.shape) != () or z.item() != 0 or z.dtype != torch.complex64 or "log10[FLOPs]" not in printed:
+        _fail(f"phase 22 (b): the dry run gave {z!r} and printed {printed!r}")
+
+    # ---- (c) GHZ counts from the local cloud provider -----------------
+    g = tct.Circuit(s["ghz_n"], device=dev)
+    g.h(0)
+    for q in range(s["ghz_n"] - 1):
+        g.cnot(q, q + 1)
+    shots = s["shots"]
+    u = torch.tensor(np.random.default_rng(8).uniform(size=shots), dtype=torch.float32, device=dev)
+    task = timed(f"(c) {shots} GHZ shots n={s['ghz_n']} from the local provider",
+                 lambda: apis.submit_task(device="local::default", circuit=g, shots=shots, status=u))
+    counts = task.results()
+    ends = {"0" * s["ghz_n"], "1" * s["ghz_n"]}
+    if sum(counts.values()) != shots or not set(counts) <= ends:
+        _fail(f"phase 22 (c): the GHZ counts are {counts}")
+    check("(c) the count of |0...0> against shots / 2, in sigmas",
+          abs(counts.get("0" * s["ghz_n"], 0) - shots / 2) / np.sqrt(shots / 4), IO_SIGMAS)
+    pss = [[3] + [0] * (s["ghz_n"] - 2) + [3], [1] * s["ghz_n"], [3] + [0] * (s["ghz_n"] - 1)]
+    exact = wrapper.batch_expectation_ps(g, pss)
+    got = timed(f"(c) batch_expectation_ps of {len(pss)} strings from {shots} shots each",
+                lambda: wrapper.batch_expectation_ps(g, pss, device="local::default", shots=shots, with_rem=False))
+    print(f"  (c) exact {np.round(exact, 6).tolist()}, from the shots {np.round(got, 6).tolist()}")
+    sigma = np.sqrt(np.maximum(1 - exact**2, 0) / shots)
+    if not np.all(np.abs(got - exact) <= IO_SIGMAS * sigma + 1e-6):
+        _fail(f"phase 22 (c): batch_expectation_ps {got} against {exact}, sigma {sigma}")
+
+    # ---- (d) twirling with the compiler -------------------------------
+    random.seed(22)
+    zz = lambda x: float(torch.real(x.expectation_ps(z=[0, s["ghz_n"] - 1])))  # noqa: E731
+    value, twirled = timed("(d) apply_rc(simplify=True), 4 twirls",
+                           lambda: qem.apply_rc(g, zz, num_to_average=4))
+    check("(d) the twirled <Z_0 Z_n-1> against the GHZ value", abs(value - zz(g)), IO_VALUE_ATOL)
+    psi_g = g.state()
+    overlap = min(abs(torch.vdot(t.state(), psi_g).item()) for t in twirled)
+    check("(d) 1 - min |<twirl|GHZ>| over the twirls", 1 - overlap, IO_VALUE_ATOL)
+    print(f"  (d) twirled circuits of {[len(t.to_qir()) for t in twirled]} items from {len(g.to_qir())}")
+    return times
+
+
+def _io_phase(tct, card, counters):
+    """Phase 22: :func:`_io_checks` on the card, then its times."""
+    t0 = time.perf_counter()
+    times = _io_checks(tct, "cuda", counters)
+    for label, ms in times.items():
+        print(f"phase 22 time, {label}: {ms:.3f} ms (wall clock, one call), {card}")
+    print(f"phase 22 wall time: {time.perf_counter() - t0:.1f} s, {card}")
 
 
 def main() -> int:
@@ -6795,6 +7003,10 @@ def main() -> int:
     # ---- 21. the parallel engines: sharded state, terms, slices, group --
     _parallel_phase(tct, card, every_counter)
     print(f"phase 21 ended at {time.time() - t_start:.1f} s")
+
+    # ---- 22. the circuits' I/O, the compiler and the cloud layer --------
+    _io_phase(tct, card, every_counter)
+    print(f"phase 22 ended at {time.time() - t_start:.1f} s")
     print(f"smoke total: {time.time() - t_start:.1f} s")
     print(json.dumps(kernels_line))
     print(card)

@@ -129,7 +129,26 @@ into ``build/kernels/``); on the CPU (``device="cpu"`` or
 
 from typing import Any
 
-from . import config, convert, dmrg, experimental, noisemodel, quantum, shadows, simplify, templates, timeevol, translation
+__version__ = "0.1.0"
+
+from . import (
+    asciiart,
+    compiler,
+    config,
+    convert,
+    dmrg,
+    experimental,
+    noisemodel,
+    quantum,
+    shadows,
+    simplify,
+    templates,
+    timeevol,
+    translation,
+    utils,
+    vis,
+)
+from .about import about, cite
 from .backend import TorchBackend, backend
 from .config import (
     dtypestr,
@@ -181,14 +200,15 @@ CliffordCircuit = StabCircuit = StabilizerCircuit
 
 
 def __getattr__(name: str) -> Any:
-    """``parallel``, ``DistributedContractor`` and ``results``, imported at
-    first use, as the JAX package exports them."""
+    """``parallel``, ``DistributedContractor``, ``results`` and ``cloud``,
+    imported at first use, as the JAX package exports them."""
     import importlib
 
     lazy = {
         "parallel": (".parallel", None),
         "DistributedContractor": (".parallel.distributed", "DistributedContractor"),
         "results": (".results", None),
+        "cloud": (".cloud", None),
     }
     if name not in lazy:
         raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
@@ -231,6 +251,10 @@ __all__ = [
     "StabilizerCircuit",
     "SymbolCircuit",
     "TorchBackend",
+    "about",
+    "asciiart",
+    "cite",
+    "compiler",
     "U1Circuit",
     "U1Operator",
     "array_to_tensor",
@@ -273,4 +297,6 @@ __all__ = [
     "templates",
     "timeevol",
     "translation",
+    "utils",
+    "vis",
 ]

@@ -257,6 +257,9 @@ def project_slot(
     return proj
 
 
+project_qubit = project_slot
+
+
 #: the widest row :func:`cumsum_fixed_order` scans in one piece
 _SCAN_ROW = 1024
 

@@ -5,8 +5,10 @@ methods (every name of the gate registry, lower and upper case, with
 broadcast over index sequences), ``any``/``unitary``, the QIR round trip
 (``to_qir``, ``from_qir``, ``append_from_qir``) for the items the port's
 engine knows, copies, composition, remapping and the inverse circuit, gate
-counts, the recorded hardware instructions and ``expectation_structures``
-(``expectation_ps`` itself lives with the state, in ``basecircuit.py``).
+counts, the recorded hardware instructions, ``expectation_structures``
+(``expectation_ps`` itself lives with the state, in ``basecircuit.py``), and
+the I/O methods over ``translation.py`` and ``vis.py`` (OpenQASM, JSON,
+qsim files, qiskit and cirq, ``draw`` and ``vis_tex``).
 """
 
 from __future__ import annotations
@@ -65,11 +67,14 @@ def _remap_qir_item(item: Dict[str, Any], mapping: Dict[int, int], n_new: int) -
 class AbstractCircuit:
     """Gate bookkeeping shared by the port's simulators."""
 
+    is_dm = False  # a density-matrix circuit (doubled wires) sets it
     _nqubits: int
     _d: int
 
     sgates = list(gates_mod.FIXED_GATE_NAMES)
     vgates = list(gates_mod.VARIABLE_GATE_NAMES)
+    mpogates = ["multicontrol", "mpo"]
+    diaggates = ["diagonal", "rzm", "cmz"]
     gate_aliases = dict(gates_mod.GATE_ALIASES)
 
     def __init__(self) -> None:
@@ -244,6 +249,137 @@ class AbstractCircuit:
                 gatef, *index, name=item.get("name", gatef.name), split=item.get("split"),
                 **item.get("parameters", {}),
             )
+
+    # ------------------------------------------------------------------
+    # translation, drawing
+    # ------------------------------------------------------------------
+
+    def to_openqasm(self, **kws: Any) -> str:
+        """OpenQASM 2.0 text of the circuit's per-gate QIR."""
+        from ..translation import circuit_to_qasm
+
+        return circuit_to_qasm(self)
+
+    def to_openqasm_file(self, file: str, **kws: Any) -> None:
+        with open(file, "w") as f:
+            f.write(self.to_openqasm(**kws))
+
+    @classmethod
+    def from_openqasm(cls, qasm: str, **kws: Any) -> "AbstractCircuit":
+        """The circuit of OpenQASM 2.0 text; ``kws`` (e.g. ``device=``) go
+        to the constructor."""
+        from ..translation import qasm2tc
+
+        return qasm2tc(qasm, circuit_class=cls, **kws)
+
+    @classmethod
+    def from_openqasm_file(cls, file: str, **kws: Any) -> "AbstractCircuit":
+        with open(file) as f:
+            return cls.from_openqasm(f.read(), **kws)
+
+    def to_json(self, simplified: bool = False, file: Optional[str] = None) -> str:
+        """The circuit as JSON text (``translation.circuit_to_json``),
+        also written to ``file`` when given."""
+        from ..translation import circuit_to_json
+
+        s = circuit_to_json(self, simplified=simplified, as_str=True)
+        if file is not None:
+            with open(file, "w") as f:
+                f.write(s)
+        return s
+
+    @classmethod
+    def from_json(cls, data: Any, **kws: Any) -> "AbstractCircuit":
+        """The circuit of :meth:`to_json`'s text (or its dict); ``kws``
+        (e.g. ``device=``) go to the constructor."""
+        from ..translation import circuit_from_json
+
+        return circuit_from_json(data, circuit_class=cls, **kws)
+
+    @classmethod
+    def from_json_file(cls, file: str, **kws: Any) -> "AbstractCircuit":
+        with open(file) as f:
+            return cls.from_json(f.read(), **kws)
+
+    def to_qiskit(self, **kws: Any) -> Any:
+        """A ``qiskit.QuantumCircuit`` by the OpenQASM text (needs qiskit)."""
+        from qiskit import QuantumCircuit  # type: ignore
+
+        return QuantumCircuit.from_qasm_str(self.to_openqasm())
+
+    @classmethod
+    def from_qiskit(cls, qc: Any, **kws: Any) -> "AbstractCircuit":
+        from ..translation import get_qiskit_qasm
+
+        return cls.from_openqasm(get_qiskit_qasm(qc), **kws)
+
+    def to_cirq(self, **kws: Any) -> Any:
+        """A ``cirq.Circuit`` (needs cirq)."""
+        from ..translation import qir2cirq
+
+        return qir2cirq(self.to_qir(), self._nqubits)
+
+    @classmethod
+    def from_cirq(cls, qc: Any, **kws: Any) -> "AbstractCircuit":
+        from ..translation import cirq2tc
+
+        return cirq2tc(qc, circuit_class=cls, **kws)
+
+    @classmethod
+    def from_qsim_file(cls, file: str, **kws: Any) -> "AbstractCircuit":
+        """The circuit of a qsim file: the width on the first line, then
+        ``cycle gate q [q2] [angles]`` a line (``rx``/``ry``/``rz``,
+        ``fs``/``fsim``, ``x_1_2``, ``y_1_2``, ``hz_1_2``/``w_1_2`` and the
+        named gates); ``kws`` (e.g. ``device=``) go to the constructor."""
+        with open(file) as f:
+            lines = [ln.strip() for ln in f if ln.strip() and not ln.startswith("#")]
+        c = cls(int(lines[0]), **kws)
+        for ln in lines[1:]:
+            parts = ln.split()
+            name = parts[1].lower()
+            rest = parts[2:]
+            if name in ("rz", "rx", "ry"):
+                getattr(c, name)(int(rest[0]), theta=float(rest[1]))
+            elif name in ("fs", "fsim"):
+                theta, phi = float(rest[2]), float(rest[3])
+                m = np.eye(4, dtype=complex)
+                m[1, 1] = m[2, 2] = np.cos(theta)
+                m[1, 2] = m[2, 1] = -1j * np.sin(theta)
+                m[3, 3] = np.exp(-1j * phi)
+                c.any(int(rest[0]), int(rest[1]), unitary=m, name="fsim")
+            elif name == "x_1_2":
+                c.rx(int(rest[0]), theta=np.pi / 2)
+            elif name == "y_1_2":
+                c.ry(int(rest[0]), theta=np.pi / 2)
+            elif name in ("hz_1_2", "w_1_2"):
+                w = np.array([[1, -np.sqrt(1j)], [np.sqrt(-1j), 1]]) / np.sqrt(2)
+                c.any(int(rest[0]), unitary=w, name="w_1_2")
+            else:
+                getattr(c, name)(*[int(x) for x in rest])
+        return c
+
+    def draw(self, output: Optional[str] = None, **kws: Any) -> Any:
+        """The qiskit drawing where qiskit is installed, else a text wire
+        diagram of the QIR, one line a qubit."""
+        try:
+            return self.to_qiskit().draw(output=output, **kws)
+        except Exception:
+            lines = [f"q{q}: -" for q in range(self._nqubits)]
+            for item in self._qir:
+                width = max(len(item.get("name") or "?"), 1)
+                touched = set(item["index"])
+                for q in range(self._nqubits):
+                    if q in touched:
+                        lines[q] += f"[{item.get('name')}]-"
+                    else:
+                        lines[q] += "-" * (width + 3)
+            return "\n".join(lines)
+
+    def vis_tex(self, **kws: Any) -> str:
+        """quantikz LaTeX of the QIR (``vis.qir2tex``)."""
+        from ..vis import qir2tex
+
+        return qir2tex(self.to_qir(), self._nqubits, **kws)
 
     def get_positional_logical_mapping(self) -> Dict[int, int]:
         """Position in a measured bitstring -> logical qubit: the identity,
@@ -450,3 +586,11 @@ class AbstractCircuit:
 
 
 AbstractCircuit._meta_apply()
+
+# the gate registry's names at module level, as the JAX package binds them
+sgates = AbstractCircuit.sgates
+vgates = AbstractCircuit.vgates
+mpogates = AbstractCircuit.mpogates
+diaggates = AbstractCircuit.diaggates
+gate_aliases = AbstractCircuit.gate_aliases
+defined_gates = list(dict.fromkeys(sgates + vgates + mpogates + diaggates + list(gate_aliases)))

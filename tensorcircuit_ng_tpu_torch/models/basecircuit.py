@@ -466,6 +466,9 @@ class BaseCircuit(AbstractCircuit):
                                            enable_lightcone=enable_lightcone)
         if self._mesh_engine is not None:
             return self._mesh_engine.expectation_ps(self.state(reuse=reuse), x, y, z)
+        dry = self._dense_debug()
+        if dry is not None:
+            return dry
         if enable_lightcone:
             psi = self._lightcone_state([int(q) for q in (*(x or ()), *(y or ()), *(z or ()))])
         else:
@@ -549,6 +552,9 @@ class BaseCircuit(AbstractCircuit):
 
             return contractor.contract_ir(self.expectation_before(*ops))
         norm_ops = self._norm_ops(ops)
+        dry = self._dense_debug()
+        if dry is not None:
+            return dry
         if enable_lightcone:
             psi = self._lightcone_state([w for _, ws in norm_ops for w in ws])
         else:
@@ -557,6 +563,32 @@ class BaseCircuit(AbstractCircuit):
         for o, wires in norm_ops:
             phi = statevec.apply_unitary(phi, o, wires, self._d)
         return torch.vdot(psi, phi)
+
+    def _dense_debug(self) -> Optional[torch.Tensor]:
+        """The contractor's debug options on the dense readouts.  With
+        ``contraction_info=True`` print the dense cost summary once a
+        circuit shape ``(n, d, number of QIR items)``: 2 d^n d^k FLOPs an
+        item on k wires, the state's d^n amplitudes and the item count (the
+        JAX package's line, to the letter).  At ``debug_level >= 2`` return
+        the zero of a dry run (shape ``()``, the configured complex dtype),
+        else None."""
+        opts = config.contractor_options()
+        if opts.get("contraction_info"):
+            from ..core import contractor
+
+            key = ("dense", self._nqubits, self._d, len(self._qir))
+            if key not in contractor._INFO_PRINTED:
+                contractor._INFO_PRINTED.add(key)
+                dim = self._d**self._nqubits
+                flops = sum(2 * dim * self._d ** (len(item.get("index", ())) or 1) for item in self._qir)
+                print(
+                    "------ contraction cost summary ------\n"
+                    f"log10[FLOPs]: {math.log10(max(flops, 1)):.3f}  "
+                    f"log2[SIZE]: {math.log2(dim):.3f}  gates: {len(self._qir)}"
+                )
+        if int(opts.get("debug_level", 0)) >= 2:
+            return torch.zeros((), dtype=config.torch_dtype(), device=self._device)
+        return None
 
     def _norm_ops(self, ops: Sequence[Tuple[Any, Any]]) -> List[Tuple[Any, List[int]]]:
         """``(operator, [wires])`` pairs with a ``Gate`` unwrapped and the

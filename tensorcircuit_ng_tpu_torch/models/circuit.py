@@ -306,11 +306,22 @@ class Circuit(DetectorMixin, BaseCircuit):
         the state at this point (computed now; ρ the reduced density matrix
         of ``index``, one pass over the state), is picked by the uniform
         ``status`` (or one drawn on the circuit's device) and applied
-        renormalized, so the state stays normalized.  Returns the branch
-        (and the branch probabilities with ``with_prob``)."""
+        renormalized, so the state stays normalized.  On a mesh circuit
+        branch i's probability is Re ⟨ψ|K_i†K_i|ψ⟩ on the shards (the
+        engine's exchanges and one ``psum`` a branch), and the chosen
+        operator is applied by the engine: the state is never gathered.
+        Returns the branch (and the branch probabilities with
+        ``with_prob``)."""
         ks = self._kraus_stack(kraus, index)
-        rho = statevec.reduced_density_matrix(self.state(), index, self._d)
-        p = torch.real(torch.einsum("kab,bc,kac->k", ks, rho, torch.conj(ks)))
+        if self._mesh_engine is not None:
+            psi = self.state()
+            p = torch.stack([
+                torch.real(self._mesh_engine.expectation(psi, [(k.conj().transpose(0, 1) @ k, index)]))
+                for k in ks
+            ]).to(self._device)
+        else:
+            rho = statevec.reduced_density_matrix(self.state(), index, self._d)
+            p = torch.real(torch.einsum("kab,bc,kac->k", ks, rho, torch.conj(ks)))
         p = p / torch.sum(p)
         new_mats = ks / torch.sqrt(p + 1e-30).to(ks.dtype)[:, None, None]
         idx = self._apply_selected_kraus(new_mats, p, index, status=status, name=name or "general_kraus",

@@ -30,7 +30,7 @@ import torch
 
 from .. import config
 from .. import quantum as qu
-from ..core.native_tableau import NativeTableau, make_tableau
+from ..core.native_tableau import NativeTableau, make_tableau, native_tableau_available  # noqa: F401
 from ..core.tableau import Tableau
 from .abstractcircuit import AbstractCircuit
 

@@ -97,6 +97,10 @@ class Gate:
     def __repr__(self) -> str:
         return f"Gate(name={self.name!r}, shape={tuple(self.tensor.shape)})"
 
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        return tuple(self.tensor.shape)
+
     def matrix(self) -> Any:
         t = self.tensor
         dim = int(math.isqrt(int(np.prod(t.shape))))

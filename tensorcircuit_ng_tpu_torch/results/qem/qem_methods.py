@@ -441,16 +441,17 @@ def apply_rc(
     iscount: bool = False,
     **kws: Any,
 ) -> Tuple[Any, List[Any]]:
-    """Randomized compiling / Pauli twirling (reference ``apply_rc``).
-    ``simplify`` needs the circuit compiler (``compiler/``), which the port
-    does not have yet: pass ``simplify=False``."""
-    if simplify:
-        raise NotImplementedError("apply_rc(simplify=True) needs compiler/, not in the port yet: "
-                                  "pass simplify=False")
+    """Randomized compiling / Pauli twirling (reference ``apply_rc``):
+    the mean of ``executor`` over ``num_to_average`` twirled circuits, each
+    simplified by ``compiler.simple_compile`` unless ``simplify=False``."""
     exp = []
     circuits = []
     for _ in range(num_to_average):
         c1 = rc_circuit(circuit)
+        if simplify:
+            from ...compiler.simple_compiler import simple_compile
+
+            c1, _ = simple_compile(c1)
         exp.append(executor(c1))
         circuits.append(c1)
     if iscount:

@@ -1,8 +1,8 @@
 """Scalable readout-error mitigation (reference ``results/readout_mitigation.py:43-790``).
 
 The port's copy of ``tensorcircuit_ng_tpu/results/readout_mitigation.py``
-(host numpy on the port's ``Circuit``); a cloud device's calibration
-(``cals_from_api``) waits for the port's ``cloud/``.
+(host numpy on the port's ``Circuit``); ``cals_from_api`` reads a cloud
+device's calibration through the port's ``cloud/``.
 
 ``ReadoutMit(execute)`` takes a user ``execute: circuits, shots -> [counts]``
 callable so mitigation is testable offline (reference ``:44-72``); supports
@@ -117,6 +117,30 @@ class ReadoutMit:
         self.single_qubit_cals = {k: np.asarray(v) for k, v in cals.items()}
         self.qubits = sorted(cals)
         self.n = len(self.qubits)
+
+    def cals_from_api(self, qubits: Any, device: Optional[Any] = None) -> None:
+        """Local calibrations of ``qubits`` (a list, or a count from 0) from
+        a cloud device's properties (``device``, a name or a ``Device``, else
+        the cloud API's default device): ``props["qubits"][str(q)]``'s
+        ``ReadoutF0``/``ReadoutF1`` (or ``readout_fidelity_0/1``), 0.99 and
+        0.98 where a qubit or its fidelities are not listed, as they are not
+        where ``qubits`` is a count (the local provider's)."""
+        from ..cloud import apis
+        from ..cloud.abstraction import Device
+
+        if isinstance(qubits, int):
+            qubits = list(range(qubits))
+        dev = Device.from_name(device) if device is not None else apis.get_device()
+        props = dev.list_properties() or {}
+        listed = props.get("qubits")
+        listed = listed if isinstance(listed, dict) else {}
+        cals: Dict[int, np.ndarray] = {}
+        for q in qubits:
+            info = listed.get(str(q), {})
+            p00 = float(info.get("ReadoutF0", info.get("readout_fidelity_0", 0.99)))
+            p11 = float(info.get("ReadoutF1", info.get("readout_fidelity_1", 0.98)))
+            cals[q] = np.array([[p00, 1 - p11], [1 - p00, p11]])
+        self.set_local_cals(cals)
 
     def local_miti_readout_circ(self) -> List[Any]:
         """|0…0⟩ and |1…1⟩ preparation circuits for local calibration (ref :170)."""

@@ -75,7 +75,11 @@ stack's on the analog circuit's digital segment): the Pauli propagation's
 coefficients twice bit for bit on the card and within 1e-5 of the CPU
 path, a free-fermion energy gradient through a chain of ``evol_hp``, the
 outcomes and the collapsed correlation matrix against the CPU path (1e-4),
-and ``chip_smoke.py``'s phase 20 at a small size.
+and ``chip_smoke.py``'s phase 20 at a small size.  F19's channels on a
+mesh of one card's shards against the dense card circuit (the same branch,
+states within 1e-5), a JSON and an OpenQASM round trip of a CUDA circuit
+(gate tensors on the card, states within 2e-6), and ``chip_smoke.py``'s
+phase 22 at a small size.
 """
 
 import numpy as np
@@ -85,7 +89,8 @@ import torch
 import tensorcircuit_ng_tpu_torch as tct
 from chip_smoke import (
     SLICE_SMALL, _slice_checks, fgs_inputs, fgs_layers, pp_circuit,
-    PAR_SMALL, _parallel_checks, par_mixed_circuit,
+    PAR_SMALL, _parallel_checks, par_mixed_circuit, PAR_CHANNELS, par_probe_circuit,
+    IO_SMALL, _io_checks,
     STAB_SMALL, _stab_checks, detector_statuses, qudit_energy, repetition_program, stab_angles, surface_code_program,
     u1_circuit, u1_energy, xy_gate, clifford_program,
     HAM_SMALL, TRANSFORM_SMALL, _tfim_coo_state, _transform_checks, transform_angles, transform_energy,
@@ -2020,3 +2025,54 @@ def test_parallel_phase_checks_on_card(cuda):
     group)."""
     counters = (krl.zzrx_fwd, krl.zzrx_bwd, kg.grand_zzrx_fwd, kg.grand_zzrx_bwd)
     _parallel_checks(tct, cuda, counters, **PAR_SMALL)
+
+
+# ----------------------------------------------------------------------
+# phase 21 (f) and phase 22: F19 on the card's shards, the circuits' I/O
+# ----------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("label", list(PAR_CHANNELS))
+def test_f19_channels_on_card_shards_match_dense(cuda, label):
+    """Each channel of phase 21 (f) at n=10 on 4 shards of the card: the
+    branch of the dense card circuit and its state within 1e-5."""
+    from tensorcircuit_ng_tpu_torch.parallel import Mesh
+
+    n = 10
+    with torch.no_grad():
+        cd = par_probe_circuit(tct, n, device=cuda)
+        bd = int(PAR_CHANNELS[label](cd))
+        cs = par_probe_circuit(tct, n, mesh=Mesh([cuda] * 4, ("sv",)))
+        bs = int(PAR_CHANNELS[label](cs))
+        psi = cs.state()
+        assert type(psi).__name__ == "ShardedState" and bs == bd
+        torch.testing.assert_close(psi.gather(), cd.state(), atol=1e-5, rtol=0)
+
+
+def test_json_and_qasm_round_trip_of_a_cuda_circuit(cuda):
+    """A CUDA circuit with fused layers and a ``unitary`` through JSON and
+    OpenQASM: the circuits built on the card, JSON's gate tensors there,
+    the JSON circuit's state within 2e-6 of the original's, the OpenQASM
+    circuit's up to a global phase (the ``unitary`` is written as a ``u``
+    gate, which drops its phase) within 2e-6 in |<a|b>|."""
+    n = 10
+    rng = np.random.default_rng(4)
+    c = tct.Circuit(n, device=cuda)
+    c.h_layer()
+    c.zzrx_layer(_ring(n), torch.tensor(rng.normal(size=n), dtype=torch.float32, device=cuda),
+                 torch.tensor(rng.normal(size=n), dtype=torch.float32, device=cuda))
+    c.unitary(3, unitary=np.linalg.qr(rng.normal(size=(2, 2)) + 1j * rng.normal(size=(2, 2)))[0])
+    c.cnot(0, n - 1)
+    cj = tct.Circuit.from_json(c.to_json(), device=cuda)
+    cq = tct.Circuit.from_openqasm(c.to_openqasm(), device=cuda)
+    tensors = [it["gate"].tensor for it in cj.to_qir() if it.get("gatef") is None]
+    assert tensors and all(t.device.type == "cuda" for t in tensors)
+    assert cj.device.type == cq.device.type == "cuda"
+    torch.testing.assert_close(cj.state(), c.state(), atol=ATOL, rtol=0)
+    assert abs(abs(torch.vdot(cq.state(), c.state()).item()) - 1) < ATOL
+
+
+def test_io_phase_checks_on_card(cuda):
+    """``chip_smoke.py``'s phase 22 at a small size."""
+    counters = (krl.zzrx_fwd, krl.zzrx_bwd, kg.grand_zzrx_fwd, kg.grand_zzrx_bwd)
+    _io_checks(tct, cuda, counters, **IO_SMALL)

@@ -1,7 +1,9 @@
 """The port's ``parallel/`` against the JAX package: the sharded statevector
 (``ShardedStatevec``, ``Circuit(mesh=...)``), term sharding,
-``DistributedContractor``, the process-group helpers, and the export of a
-traced function (with F18 of ``ROADMAP.md`` Queue 3).
+``DistributedContractor``, the process-group helpers, the export of a
+traced function (with F18 of ``ROADMAP.md`` Queue 3), and the non-unitary
+channels of a mesh circuit (F19: the same branch as the JAX dense circuit
+on the same status, states within 1e-6 at complex64).
 
 The port's meshes here are in-process CPU meshes of 2, 4 and 8 shards
 (``Mesh(["cpu"] * k)``), and one two-process gloo group.  The JAX side is
@@ -50,6 +52,7 @@ from tensorcircuit_ng_tpu_torch.parallel import (
 )
 
 import torch_parallel_worker as worker
+from chip_smoke import par_probe_circuit
 
 ROOT = Path(__file__).resolve().parents[1]
 TOL = {"complex64": 1e-5, "complex128": 1e-10}
@@ -697,3 +700,51 @@ def test_parallel_phase_checks_on_cpu():
 
     times = chip_smoke._parallel_checks(tct, "cpu", (), **chip_smoke.PAR_SMALL)
     assert any(label.startswith("(d)") for label in times)
+
+
+# ----------------------------------------------------------------------
+# F19: the non-unitary channels on a mesh circuit
+# ----------------------------------------------------------------------
+
+#: each channel kind of F19 (``ROADMAP.md`` Queue 3) with a fixed status
+_F19_KINDS = {
+    "amplitudedamping": lambda c, w: c.amplitudedamping(w, gamma=0.3, status=0.35),
+    "phasedamping": lambda c, w: c.phasedamping(w, gamma=0.2, status=0.6),
+    "reset": lambda c, w: c.reset(w, status=0.4),
+    "thermalrelaxation": lambda c, w: c.thermalrelaxation(w, t1=2.0, t2=1.0, time=0.5, status=0.6),
+    "general_kraus": lambda c, w: c.general_kraus(
+        [np.sqrt(0.7) * np.eye(2), np.sqrt(0.3) * np.diag([1.0, -1.0])], w, status=0.5),
+    "cond_measure": lambda c, w: c.cond_measure(w, status=0.3),
+}
+
+
+@pytest.mark.parametrize("kind", list(_F19_KINDS))
+@pytest.mark.parametrize("ndev", [2, 4, 8])
+def test_f19_mesh_channels_match_jax_dense(cpu, ndev, kind):
+    """F19: a mesh circuit takes each channel kind on a top wire (0) and a
+    local wire (5) of F19's probe (``chip_smoke.par_probe_circuit`` at n=6),
+    its probabilities computed on the shards: the same
+    branch as the JAX dense circuit on the same status, and the same state
+    within 1e-6 at complex64; the state stays sharded."""
+    for w in (0, 5):
+        cj = par_probe_circuit(tc, 6)
+        rj = int(_F19_KINDS[kind](cj, w))
+        cp = par_probe_circuit(tct, 6, mesh=_mesh(ndev))
+        rp = int(_F19_KINDS[kind](cp, w))
+        psi = cp.state()
+        assert type(psi).__name__ == "ShardedState" and len(psi.shards) == ndev
+        assert rp == rj
+        assert np.abs(_np(psi.gather()) - np.asarray(cj.state())).max() < 1e-6
+
+
+def test_f19_mesh_noise_conf_matches_jax_dense(cpu):
+    """F19 through a ``NoiseConf``: amplitude damping on both wires of each
+    cnot, one trajectory of fixed statuses, on 4 shards against the JAX
+    dense circuit (states within 1e-6)."""
+    status = np.array([0.35, 0.8, 0.97, 0.1])
+    ncj, ncp = tc.NoiseConf(), tct.NoiseConf()
+    ncj.add_noise("cnot", tc.channels.amplitudedampingchannel(0.3, 1.0))
+    ncp.add_noise("cnot", tct.channels.amplitudedampingchannel(0.3, 1.0))
+    cj = tc.circuit_with_noise(par_probe_circuit(tc, 6), ncj, status=status)
+    cp = tct.circuit_with_noise(par_probe_circuit(tct, 6, mesh=_mesh(4)), ncp, status=status)
+    assert np.abs(_np(cp.state().gather()) - np.asarray(cj.state())).max() < 1e-6

@@ -289,8 +289,14 @@ def test_randomized_compiling_matches_jax():
     random.seed(3)
     vj, _ = jqem.apply_rc(_workload(tc), _z0, num_to_average=3, simplify=False)
     assert abs(vp - vj) < STATE_TOL and len(circuits) == 3
-    with pytest.raises(NotImplementedError, match="compiler"):
-        pqem.apply_rc(_workload(tct), _z0)
+    # the default simplify=True runs each twirl through compiler.simple_compile
+    random.seed(7)
+    vp, circuits = pqem.apply_rc(_workload(tct), _z0, num_to_average=2)
+    random.seed(7)
+    vj, jcircuits = jqem.apply_rc(_workload(tc), _z0, num_to_average=2)
+    for cp, cj in zip(circuits, jcircuits):
+        _same_qir(cp, cj)
+    assert abs(vp - vj) < STATE_TOL and len(circuits) == 2
 
 
 def test_benchmark_circuits_match_jax():
