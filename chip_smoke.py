@@ -4998,7 +4998,7 @@ def surface_layout(d):
     return data, xm, zm
 
 
-def surface_code_program(tct, d, rounds, p, tableau=False, **kw):
+def surface_code_program(tct, d, rounds, p, tableau=False, cls=None, after_round=None, **kw):
     """The Z-memory experiment of the rotated surface code: ``rounds`` rounds
     of the X and Z checks (stim's CNOT orders), a depolarizing channel of
     total ``p`` on both qubits after every CNOT (a ``Circuit`` channel
@@ -5006,12 +5006,17 @@ def surface_code_program(tct, d, rounds, p, tableau=False, **kw):
     measure qubits, detectors between rounds, the data measured at the end,
     the Z checks closed on it and one observable (a row of data).  A
     ``Circuit`` reset is a record, a tableau one is not: each program's
-    detectors count their own records."""
+    detectors count their own records.  ``cls`` builds the program on
+    another class with the tableau's instructions (``zx.StabilizerTCircuit``);
+    ``after_round(c, r, data)`` adds gates after round r (data: the data
+    qubits' indices)."""
     data, xm, zm = surface_layout(d)
     coords = data + xm + zm
     idx = {c: k for k, c in enumerate(coords)}
     mq = [idx[m] for m in xm + zm]
-    c = tct.StabilizerCircuit(len(coords), **kw) if tableau else tct.Circuit(len(coords), **kw)
+    if cls is None:
+        cls = tct.StabilizerCircuit if tableau else tct.Circuit
+    c = cls(len(coords), **kw)
     det = c.detector if tableau else c.detector_instruction
     per_round = len(mq) * (1 if tableau else 2)
 
@@ -5050,6 +5055,8 @@ def surface_code_program(tct, d, rounds, p, tableau=False, **kw):
                 det(cur, cur - per_round)
             elif m in zm:
                 det(cur)
+        if after_round is not None:
+            after_round(c, r, [idx[q] for q in data])
     c.measure_instruction(*range(len(data)))
     nd = len(data)
     for j, m in enumerate(xm + zm):
@@ -6455,6 +6462,298 @@ def _io_phase(tct, card, counters):
     print(f"phase 22 wall time: {time.perf_counter() - t0:.1f} s, {card}")
 
 
+# ---- phase 23: the ML bridges and zx/ --------------------------------------
+
+#: phase 23's sizes: (a) the main path and its steps, (b) the hardware
+#: net's width and depth, (c) L-BFGS-B's iterations, (d) the surface code
+#: (phase 19 (a)'s) and its shots, the shots held against the CPU path,
+#: the tableau's shots, (e) the Clifford+T circuit's width and gates
+MLZX_SIZES = {"n": N, "nl": L, "steps": STEPS, "hw_n": 10, "hw_nl": 2, "lbfgs": 5,
+              "sc_d": 3, "sc_rounds": 3, "sc_p": 0.01, "sc_shots": 1024, "sc_ref": 16, "sc_tab": 4096,
+              "zx_n": 10, "zx_gates": 60}
+#: the same checks at a CPU test's size
+MLZX_SMALL = {"n": 8, "nl": 2, "steps": 2, "hw_n": 4, "hw_nl": 1, "lbfgs": 2,
+              "sc_d": 2, "sc_rounds": 2, "sc_p": 0.02, "sc_shots": 256, "sc_ref": 8, "sc_tab": 400,
+              "zx_n": 4, "zx_gates": 16}
+#: (a): the module's energies and parameters against the bare steps (the
+#: same kernels; torch.optim.SGD rounds its update as p.sub_(lr * g) may not)
+MLZX_STEP_ATOL = 1e-6
+#: (b), (c): a parameter-shift or jitted value and gradient against the
+#: eager autograd ones (phase 4's tolerance)
+MLZX_GRAD_ATOL = 1e-4
+#: (d): a shot may differ from the CPU path's only this near a threshold
+MLZX_BRACKET = 1e-6
+#: (d): rates within this many standard errors
+MLZX_SIGMAS = 5.0
+#: (e): the diagram's matrix against ``Circuit.matrix()`` up to a phase
+MLZX_MATRIX_ATOL = 1e-5
+
+
+def clifford_t_circuit(mod, n, gates, seed=23, **kw):
+    """A random Clifford+T circuit of ``gates`` gates (h, s, t, x, z, a
+    CNOT or a CZ on neighbours), for either package."""
+    rng = np.random.default_rng(seed)
+    c = mod.Circuit(n, **kw)
+    for _ in range(gates):
+        r = rng.random()
+        if r < 0.6:
+            getattr(c, ["h", "s", "t", "x", "z", "h", "t"][rng.integers(7)])(int(rng.integers(n)))
+        else:
+            q = int(rng.integers(n - 1))
+            (c.cnot if r < 0.85 else c.cz)(q, q + 1)
+    return c
+
+
+def _phase_aligned_err(a, b):
+    """max |a/|a| - e^{iφ} b/|b||, φ the best phase (complex128 on the host)."""
+    a = a.detach().cpu().numpy().astype(np.complex128).reshape(-1)
+    b = b.detach().cpu().numpy().astype(np.complex128).reshape(-1)
+    a, b = a / np.linalg.norm(a), b / np.linalg.norm(b)
+    ph = np.vdot(b, a)
+    return float(np.abs(a - ph / abs(ph) * b).max())
+
+
+def _mlzx_checks(tct, dev, counters=(), ref=None, **sizes):
+    """Phase 23's checks (a)-(e) on ``dev``: the ML bridges on the main path
+    and ``zx/``'s sampler and diagrams.  ``ref``: a callable giving phase
+    19's CPU references (the tableau's detector shots), else the tableau
+    runs here.  Returns each part's (ms, how, peak MiB or None)."""
+    import scipy.optimize
+    import torch
+    from tensorcircuit_ng_tpu_torch import interfaces, torchnn, zx
+    from tensorcircuit_ng_tpu_torch.backend import backend as K
+    from tensorcircuit_ng_tpu_torch.interfaces import tensortrans
+    from tensorcircuit_ng_tpu_torch.models import detectors as detmod
+    from tensorcircuit_ng_tpu_torch.zx import scalar_graph
+
+    s = {**MLZX_SIZES, **sizes}
+    dev = torch.device(dev)
+    card = dev.type == "cuda"
+    times = {}
+
+    def check(label, err, tol):
+        print(f"  {label}: {err:.3e} (tol {tol:g})")
+        if not err <= tol:
+            _fail(f"phase 23, {label}: {err} > {tol}")
+
+    def timed(label, fn):
+        """``fn()`` once: CUDA events and the peak memory above the start on
+        the card, the wall clock on the CPU."""
+        if card:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = fn()
+            b.record()
+            torch.cuda.synchronize()
+            times[label] = (a.elapsed_time(b), "CUDA events", (torch.cuda.max_memory_allocated() - base) / 2**20)
+        else:
+            t = time.perf_counter()
+            out = fn()
+            times[label] = ((time.perf_counter() - t) * 1e3, "wall clock", None)
+        return out
+
+    def launched():
+        got = _launched(counters)
+        _reset(counters)
+        return got
+
+    main_path = card and s["n"] == N and s["nl"] % 2 == 0
+
+    # ---- (a) QuantumNet around the main path, eager and under jit -----
+    n, nl, steps = s["n"], s["nl"], s["steps"]
+    pairs = [(i, i + 1) for i in range(n - 1)]
+    g0 = np.random.default_rng(42).normal(size=(nl, 2, n)) * 0.1  # phase 4's seed
+
+    def energy(p):
+        return tfim_circuit(tct, p, n, nl, device=dev).expectation_zzx_energy(pairs, 1.0, -1.0)
+
+    p = tct.convert.params(g0, dev).requires_grad_()
+    bare = []
+    for _ in range(steps):
+        e = energy(p)
+        (g,) = torch.autograd.grad(e, p)
+        bare.append(e.item())
+        with torch.no_grad():
+            p.sub_(LR * g)
+        bare.append(p.detach().clone())
+    bare_e, bare_p = bare[0::2], bare[1::2]
+    with tct.set_device(dev):
+        nets = {"eager": torchnn.QuantumNet(energy, (nl, 2, n), initializer=lambda shape: g0),
+                "use_jit=True": torchnn.QuantumNet(energy, (nl, 2, n), initializer=lambda shape: g0, use_jit=True)}
+    for label, net in nets.items():
+        opt = torch.optim.SGD(net.parameters(), lr=LR)
+        _reset(counters)
+
+        def train():
+            out = []
+            for _ in range(steps):
+                opt.zero_grad()
+                e = net()
+                e.backward()
+                opt.step()
+                out.append((e.detach(), net.ws[0].detach().clone()))
+            return out
+
+        got = timed(f"(a) QuantumNet {label}, {steps} SGD steps n={n} L={nl}", train)
+        lau = launched()
+        replays = net.f.fused.replays if label != "eager" else 0
+        print(f"  (a) {label}: launches {lau}; CUDA graph replays {replays}")
+        if main_path:
+            want = {"grand_zzrx_fwd": steps, "grand_zzrx_bwd": steps} if label == "eager" else \
+                {"grand_zzrx_fwd": 2, "grand_zzrx_bwd": 2}
+            if {k: lau.get(k) for k in want} != want or replays != (0 if label == "eager" else steps - 1):
+                _fail(f"phase 23 (a) {label}: K2/K4 not once a step: {lau}, {replays} replays")
+        de = max(abs(e.item() - be) for (e, _), be in zip(got, bare_e))
+        dp = max((q - bp).abs().max().item() for (_, q), bp in zip(got, bare_p))
+        check(f"(a) {label}: max |dE| against the bare steps", de, MLZX_STEP_ATOL)
+        check(f"(a) {label}: max |dparams| against the bare steps", dp, MLZX_STEP_ATOL)
+        print(f"  (a) {label}: E {got[0][0].item():.7f} -> {got[-1][0].item():.7f}")
+
+    # ---- (b) HardwareNet: the parameter-shift gradient ----------------
+    hn, hl = s["hw_n"], s["hw_nl"]
+    hpairs = [(i, i + 1) for i in range(hn - 1)]
+    h0 = np.random.default_rng(45).normal(size=(hl, 2, hn)) * 0.3
+
+    def hw_energy(w):
+        return tfim_circuit(tct, w, hn, hl, device=dev).expectation_zzx_energy(hpairs, 1.0, -1.0)
+
+    with tct.set_device(dev):
+        hw = torchnn.HardwareNet(hw_energy, (hl, 2, hn), initializer=lambda shape: h0)
+    _reset(counters)
+    timed(f"(b) HardwareNet forward and parameter-shift backward n={hn} L={hl} ({2 * h0.size} shifted energies)",
+          lambda: hw().backward())
+    print(f"  (b) launches: {launched()}")
+    w = hw.ws[0].detach().clone().requires_grad_()
+    (auto,) = torch.autograd.grad(hw_energy(w), w)
+    check("(b) max |parameter shift - autograd|", (hw.ws[0].grad - auto).abs().max().item(), MLZX_GRAD_ATOL)
+
+    # ---- (c) scipy's L-BFGS-B and numpy through the bridges ------------
+    with tct.set_device(dev):
+        fs = interfaces.scipy_optimize_interface(energy, shape=(nl, 2, n), jit=True)
+        seen = []
+
+        def objective(x):
+            v, gr = fs(x)
+            seen.append((x.copy(), v, gr))
+            return v, gr
+
+        res = timed(f"(c) scipy L-BFGS-B, {s['lbfgs']} iterations n={n} L={nl} (jitted value and grad)",
+                    lambda: scipy.optimize.minimize(objective, g0.reshape(-1), jac=True, method="L-BFGS-B",
+                                                    options={"maxiter": s["lbfgs"]}))
+        worst = 0.0
+        for x, v, gr in seen:
+            q = torch.as_tensor(x.reshape(nl, 2, n), dtype=torch.float32, device=dev).requires_grad_()
+            e = energy(q)
+            (ge,) = torch.autograd.grad(e, q)
+            worst = max(worst, abs(v - e.item()), float(np.abs(gr - ge.cpu().numpy().reshape(-1)).max()))
+        print(f"  (c) L-BFGS-B: {res.nit} iterations, {len(seen)} evaluations, E {seen[0][1]:.7f} -> {res.fun:.7f}")
+        check(f"(c) max |value or grad - the bare step's| over {len(seen)} evaluations", worst, MLZX_GRAD_ATOL)
+        if not res.fun < seen[0][1]:
+            _fail("phase 23 (c): L-BFGS-B did not lower the energy")
+        x_np = g0.astype(np.float32)
+        out = timed("(c) numpy_interface round trip of the energy",
+                    lambda: interfaces.numpy_interface(energy)(x_np))
+        with torch.no_grad():
+            e0 = energy(tct.convert.params(g0, dev)).item()
+        if not isinstance(out, np.ndarray):
+            _fail(f"phase 23 (c): numpy_interface returned {type(out)}")
+        check("(c) numpy_interface against the eager energy", abs(float(out) - e0), MLZX_STEP_ATOL)
+        t = torch.randn(4, 2**n, device=dev)
+        moved = tensortrans.general_args_to_backend(t, target_backend="torch")
+        print(f"  (c) DLPack into torch: data_ptr {moved.data_ptr():#x} (the input's {t.data_ptr():#x}), "
+              f"{moved.device}")
+        if moved.data_ptr() != t.data_ptr() or moved.device != t.device:
+            _fail("phase 23 (c): general_args_to_backend copied a tensor of the device")
+
+    # ---- (d) StabilizerTCircuit: the surface code as one batched state --
+    d_, rounds, pe, shots = s["sc_d"], s["sc_rounds"], s["sc_p"], s["sc_shots"]
+    sc = surface_code_program(tct, d_, rounds, pe, tableau=True, cls=zx.StabilizerTCircuit, seed=23, device=dev)
+    program, sampler, prepared = sc._compile()
+    nq = sc.nqubits
+    chunk = detmod.detector_chunk(shots, 2**nq, torch.complex64, dev)
+    print(f"  (d) surface code d={d_}: {nq} qubits, {rounds} rounds, {len(prepared.steps)} steps, "
+          f"{prepared.num_f} f-bits ({len(sampler.channels)} channels after simplification), "
+          f"{prepared.num_records} records, {prepared.num_detectors} detectors; {shots} shots as a "
+          f"[{shots}, 2^{nq}] state ({shots * 2**nq * 8 / 2**30:.3f} GiB), {-(-shots // chunk)} chunk(s)")
+    det = timed(f"(d) sample_detectors, {shots} shots", lambda: sc.sample_detectors(shots))
+    f = timed(f"(d) ChannelSampler.sample_jax, {shots} shots", lambda: sampler.sample_jax(shots)[0])
+    gen = torch.Generator(device=dev).manual_seed(7)
+    u = torch.rand((shots, len(prepared.visible_pos)), generator=gen, device=dev)
+    comp = program.components[0]
+    bits, margin = timed(f"(d) sample_fn on given f-bits and uniforms, {shots} shots",
+                         lambda: comp.sample_fn(f, u, with_margin=True))
+    k = s["sc_ref"]
+    cpu_comp = scalar_graph.compile_program(prepared, device="cpu").components[0]
+    cbits, cmargin = cpu_comp.sample_fn(f[:k].cpu(), u[:k].cpu(), with_margin=True)
+    differ = (bits[:k].cpu() != cbits).any(dim=1).numpy()
+    near = np.minimum(margin[:k].cpu().numpy(), cmargin.numpy())
+    for i in np.nonzero(differ)[0]:
+        print(f"  (d) shot {i} differs from the CPU path's; its nearest uniform lies {near[i]:.3e} from 1 - p1")
+    print(f"  (d) the first {k} shots: {int(differ.sum())} differ from the CPU path's, least margin "
+          f"{float(near.min()):.3e}")
+    if np.any(differ & (near > MLZX_BRACKET)):
+        _fail(f"phase 23 (d): shots {np.nonzero(differ & (near > MLZX_BRACKET))[0].tolist()} differ from the CPU "
+              "path's away from a threshold")
+    if ref is not None:
+        tab_det, tab_obs = ref()["a tableau"]
+    else:
+        tab = surface_code_program(tct, d_, rounds, pe, tableau=True, device="cpu")
+        tab_det, tab_obs = tab.sample_detectors(s["sc_tab"], seed=19)
+    tab_all = np.concatenate([tab_det, tab_obs], axis=1).astype(np.float64)
+    ra, rb = _rates_agree(f"(d) {shots} shots against {s['sc_tab']} tableau shots",
+                          det.cpu().numpy().astype(np.float64), shots, tab_all, s["sc_tab"], check)
+    print(f"  (d) rates: zx {np.array2string(ra, precision=4)}; tableau {np.array2string(rb, precision=4)}")
+
+    def t_gate(c, r, data):
+        if r == 0:
+            c.t(data[len(data) // 2])
+
+    sct = surface_code_program(tct, d_, max(rounds, 2), pe, tableau=True, cls=zx.StabilizerTCircuit, seed=29, device=dev,
+                               after_round=t_gate)
+    det_t = timed(f"(d) sample_detectors with a T gate, {shots} shots", lambda: sct.sample_detectors(shots))
+    dense = surface_code_program(tct, d_, max(rounds, 2), pe, device=dev, after_round=t_gate)
+    st, stc = detector_statuses(dense, shots, seed=23)
+    dd, do = timed(f"(d) the dense sample_detector with a T gate, {shots} shots",
+                   lambda: dense.sample_detector(shots, status=torch.as_tensor(st, device=dev),
+                                                 statusc=torch.as_tensor(stc, device=dev), with_observable=True))
+    dense_all = np.concatenate([dd.cpu().numpy(), do.cpu().numpy()], axis=1).astype(np.float64)
+    ra, rb = _rates_agree(f"(d) T gate: {shots} zx shots against {shots} dense shots",
+                          det_t.cpu().numpy().astype(np.float64), shots, dense_all, shots, check)
+    print(f"  (d) T gate rates: zx {np.array2string(ra, precision=4)}; dense {np.array2string(rb, precision=4)}")
+    if card:
+        print(f"  (d) peak memory above the start: sample_detectors {times[f'(d) sample_detectors, {shots} shots'][2]:.1f}"
+              f" MiB, sample_fn {times[f'(d) sample_fn on given f-bits and uniforms, {shots} shots'][2]:.1f} MiB")
+
+    # ---- (e) a Clifford+T circuit as a ZX diagram ---------------------
+    zn = s["zx_n"]
+    cz = clifford_t_circuit(tct, zn, s["zx_gates"], device=dev)
+    g = zx.circuit_to_zx(cz)
+    n0 = g.num_spiders()
+    removed = timed(f"(e) simplify, {zn} qubits, {s['zx_gates']} gates", lambda: zx.simplify(g))
+    m = timed(f"(e) to_matrix through the contractor, {zn} qubits", lambda: g.to_matrix(device=dev))
+    u_c = timed(f"(e) Circuit.matrix(), {zn} qubits", cz.matrix)
+    print(f"  (e) {n0} spiders, {removed} removed by simplify, {g.num_spiders()} left; t_count "
+          f"{zx.simplifier.t_count(g)}; matrix on {m.device}")
+    if m.device.type != dev.type:
+        _fail(f"phase 23 (e): the diagram's matrix is on {m.device}")
+    check("(e) max |diagram - Circuit.matrix()| up to a phase", _phase_aligned_err(m, u_c), MLZX_MATRIX_ATOL)
+    return times
+
+
+def _mlzx_phase(tct, card, counters, job):
+    """Phase 23: :func:`_mlzx_checks` on the card, (d) against phase 19's
+    tableau shots from the child process, then its times."""
+    t0 = time.perf_counter()
+    times = _mlzx_checks(tct, "cuda", counters, ref=lambda: _await_reference(job, "stab")[0])
+    for label, (ms, how, peak) in times.items():
+        mem = f", peak {peak:.1f} MiB above the start" if peak is not None else ""
+        print(f"phase 23 time, {label}: {ms:.3f} ms ({how}){mem}, {card}")
+    print(f"phase 23 wall time: {time.perf_counter() - t0:.1f} s, {card}")
+
+
 def main() -> int:
     import torch
 
@@ -7007,6 +7306,10 @@ def main() -> int:
     # ---- 22. the circuits' I/O, the compiler and the cloud layer --------
     _io_phase(tct, card, every_counter)
     print(f"phase 22 ended at {time.time() - t_start:.1f} s")
+
+    # ---- 23. the ML bridges and zx/ --------------------------------------
+    _mlzx_phase(tct, card, every_counter, ref_job)
+    print(f"phase 23 ended at {time.time() - t_start:.1f} s")
     print(f"smoke total: {time.time() - t_start:.1f} s")
     print(json.dumps(kernels_line))
     print(card)

@@ -200,8 +200,9 @@ CliffordCircuit = StabCircuit = StabilizerCircuit
 
 
 def __getattr__(name: str) -> Any:
-    """``parallel``, ``DistributedContractor``, ``results`` and ``cloud``,
-    imported at first use, as the JAX package exports them."""
+    """``parallel``, ``DistributedContractor``, ``results``, ``cloud``, the
+    ML bridges (``interfaces``, ``torchnn``, ``keras`` and their layers) and
+    ``zx``, imported at first use, as the JAX package exports them."""
     import importlib
 
     lazy = {
@@ -209,6 +210,17 @@ def __getattr__(name: str) -> Any:
         "DistributedContractor": (".parallel.distributed", "DistributedContractor"),
         "results": (".results", None),
         "cloud": (".cloud", None),
+        "zx": (".zx", None),
+        "interfaces": (".interfaces", None),
+        "keras": (".keras", None),
+        "torchnn": (".torchnn", None),
+        "QuantumNet": (".torchnn", "QuantumNet"),
+        "TorchLayer": (".torchnn", "TorchLayer"),
+        "HardwareNet": (".torchnn", "HardwareNet"),
+        "TorchHardwareLayer": (".torchnn", "TorchHardwareLayer"),
+        "KerasLayer": (".keras", "KerasLayer"),
+        "KerasHardwareLayer": (".keras", "KerasHardwareLayer"),
+        "QuantumLayer": (".keras", "QuantumLayer"),
     }
     if name not in lazy:
         raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -992,8 +992,9 @@ class Jitted:
         self.static = set(_argnums(static_argnums)) if static_argnums is not None else set()
         self.capture = capture
         self.graphs: Dict[Any, Any] = {}
-        #: the signatures captured (each captured once)
+        #: the signatures captured (each captured once) and the replays
         self.captures = 0
+        self.replays = 0
 
     def _signature(self, args: tuple, kws: dict):
         dyn = tuple(None if i in self.static else a for i, a in enumerate(args))
@@ -1026,6 +1027,7 @@ class Jitted:
         for buf, t in zip(static_in, tensors):
             buf.copy_(t)
         graph.replay()
+        self.replays += 1
         return pytree.tree_map(lambda x: x.clone() if isinstance(x, torch.Tensor) else x, static_out)
 
     def _capture(self, args: tuple, leaves: list, spec: Any):

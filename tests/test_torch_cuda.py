@@ -90,7 +90,7 @@ import tensorcircuit_ng_tpu_torch as tct
 from chip_smoke import (
     SLICE_SMALL, _slice_checks, fgs_inputs, fgs_layers, pp_circuit,
     PAR_SMALL, _parallel_checks, par_mixed_circuit, PAR_CHANNELS, par_probe_circuit,
-    IO_SMALL, _io_checks,
+    IO_SMALL, _io_checks, MLZX_SMALL, _mlzx_checks,
     STAB_SMALL, _stab_checks, detector_statuses, qudit_energy, repetition_program, stab_angles, surface_code_program,
     u1_circuit, u1_energy, xy_gate, clifford_program,
     HAM_SMALL, TRANSFORM_SMALL, _tfim_coo_state, _transform_checks, transform_angles, transform_energy,
@@ -2076,3 +2076,82 @@ def test_io_phase_checks_on_card(cuda):
     """``chip_smoke.py``'s phase 22 at a small size."""
     counters = (krl.zzrx_fwd, krl.zzrx_bwd, kg.grand_zzrx_fwd, kg.grand_zzrx_bwd)
     _io_checks(tct, cuda, counters, **IO_SMALL)
+
+
+def test_quantum_net_on_card_matches_cpu(cuda):
+    """``torchnn.QuantumNet`` on the TFIM path at n=20, L=4 (K2/K4) and n=12,
+    eager and under ``use_jit=True`` (a captured CUDA graph after the first
+    step), 3 SGD steps each against the same module on the CPU: energies
+    within 1e-4, parameters within 1e-6."""
+    from tensorcircuit_ng_tpu_torch import torchnn
+
+    for n, nl in ((20, 4), (12, 2)):
+        pairs = [(i, i + 1) for i in range(n - 1)]
+        g0 = np.random.default_rng(42).normal(size=(nl, 2, n)) * 0.1
+        runs = {}
+        for dev, jit in ((cuda, False), (cuda, True), ("cpu", False)):
+            def energy(p, dev=dev):
+                return tfim_circuit(tct, p, n, nl, device=dev).expectation_zzx_energy(pairs, 1.0, -1.0)
+
+            with tct.set_device(dev):
+                net = torchnn.QuantumNet(energy, (nl, 2, n), initializer=lambda shape: g0, use_jit=jit)
+            opt = torch.optim.SGD(net.parameters(), lr=0.01)
+            out = []
+            for _ in range(3):
+                opt.zero_grad()
+                e = net()
+                e.backward()
+                opt.step()
+                out.append((e.item(), net.ws[0].detach().cpu().clone()))
+            runs[(str(dev), jit)] = out
+        for key in ((str(cuda), False), (str(cuda), True)):
+            for (e, p), (ec, pc) in zip(runs[key], runs[("cpu", False)]):
+                assert abs(e - ec) < 1e-4
+                torch.testing.assert_close(p, pc, atol=1e-6, rtol=0)
+
+
+def test_zx_sample_fn_on_card_matches_cpu(cuda):
+    """``zx``'s compiled sampler of the d=3 surface code (17 qubits, one
+    round) on the card against the CPU path on the same f-bits and
+    uniforms: a record differs only where its uniform lies within 1e-6 of
+    its threshold; the prefix probabilities within 1e-5."""
+    from tensorcircuit_ng_tpu_torch import zx
+    from tensorcircuit_ng_tpu_torch.zx import scalar_graph
+
+    sc = surface_code_program(tct, 3, 1, 0.01, tableau=True, cls=zx.StabilizerTCircuit, seed=3, device=cuda)
+    program, sampler, prepared = sc._compile()
+    f = sampler.sample_jax(64)[0]
+    u = torch.rand((64, len(prepared.visible_pos)), generator=torch.Generator(device=cuda).manual_seed(1),
+                   device=cuda)
+    bits, margin = program.components[0].sample_fn(f, u, with_margin=True)
+    assert bits.device.type == "cuda"
+    cpu = scalar_graph.compile_program(prepared, device="cpu").components[0]
+    cbits, cmargin = cpu.sample_fn(f.cpu(), u.cpu(), with_margin=True)
+    differ = (bits.cpu() != cbits).any(dim=1)
+    assert torch.all(torch.minimum(margin.cpu(), cmargin)[differ] < 1e-6)
+    i = prepared.num_records
+    params = torch.cat([f[:16].float(), bits[:16, :i], torch.ones((16, 1), device=cuda)], dim=1)
+    torch.testing.assert_close(program.components[0].compiled_scalar_graphs[i].eval(params).cpu(),
+                               cpu.compiled_scalar_graphs[i].eval(params.cpu()), atol=1e-5, rtol=0)
+
+
+def test_dlpack_into_torch_makes_no_copy_on_card(cuda):
+    """``general_args_to_backend`` of CUDA tensors into torch through DLPack
+    keeps their memory; a dtype cast and a numpy array copy."""
+    from tensorcircuit_ng_tpu_torch.interfaces import tensortrans
+
+    t = torch.randn(3, 1024, device=cuda)
+    with tct.set_device(cuda):
+        out = tensortrans.general_args_to_backend({"a": t, "b": [t[1]]})
+        assert out["a"].data_ptr() == t.data_ptr() and out["b"][0].data_ptr() == t[1].data_ptr()
+        cast = tensortrans.general_args_to_backend(t, dtype="float64")
+        assert cast.dtype == torch.float64 and cast.device.type == "cuda"
+        arr = tensortrans.general_args_to_backend(np.ones(4, np.float32))
+        assert arr.device.type == "cuda"
+    assert tensortrans.tensor_to_backend_jittable(t) is t
+
+
+def test_mlzx_phase_checks_on_card(cuda):
+    """``chip_smoke.py``'s phase 23 at a small size."""
+    counters = (krl.zzrx_fwd, krl.zzrx_bwd, kg.grand_zzrx_fwd, kg.grand_zzrx_bwd)
+    _mlzx_checks(tct, cuda, counters, **MLZX_SMALL)
