@@ -381,6 +381,22 @@ Phases (any failure exits non-zero; nothing is caught):
      within 5 sigma of the exact values; (d) ``apply_rc(simplify=True)``
      on the GHZ circuit, each twirl's state equal to the GHZ state up to a
      global phase; each part timed by the wall clock.
+ 23. the ML bridges and ``zx/`` (:func:`_mlzx_checks`; K2/K4 once a step
+     in (a)): ``QuantumNet`` on the n=20, L=4 step eager and jitted,
+     ``HardwareNet``'s shift gradient, L-BFGS-B, DLPack, the d=3 surface
+     code by ``StabilizerTCircuit``, a Clifford+T diagram;
+ 24. ``applications/`` (:func:`_apps_checks`; no kernel of its own), each
+     against the port's CPU path from the child process: (a) VQNHE on the
+     n=14 periodic TFIM (a 2 GiB dense H), 20 steps eager and under
+     ``backend.jit``, the first 3 energies within 1e-4, every one above
+     the exact ground energy; (b) ``QUBO_QAOA`` on a 20-asset portfolio at
+     p=3, plain and CVaR 0.1: the angles after 3 steps within 1e-5, 20
+     jitted steps lowering the loss, the best of 1,024 shots no worse
+     than the start's; (c) ``qaoa_vag`` on a 3-regular 16-node graph and
+     the ``DMCircuit`` vag at 8 nodes; (d) ``DQAS_search`` at 8 qubits,
+     every sampled architecture equal; (e) MADE n=20 and PixelCNN 16x16
+     log-probs (cuDNN's TF32 off), their samplers, NMF's marginals within
+     4 sigma; each part timed by events with its peak memory.
 
 Prints the kernels JSON line, then the card's name and power limit, then
 ``{"ok": true, "device": {...}}`` as the last line.  Needs no network and
@@ -4010,7 +4026,8 @@ def _reference_child(out):
     shots, then :func:`_mps_reference` at phase 16's full sizes, then
     :func:`_hamiltonian_values` at phase 17's, then
     :func:`_transform_reference` at phase 18's, then :func:`_stab_reference`
-    at phase 19's, then :func:`_slice_reference` at phase 20's, each saved
+    at phase 19's, then :func:`_slice_reference` at phase 20's, then
+    :func:`_apps_reference` at phase 24's, each saved
     (torch.save) into
     DIR as it ends (:data:`REFERENCES`).  The Gram-against-exact drift is left to
     ``tools/mps_gram_drift.py``: three more runs of (a) on the CPU would
@@ -4041,6 +4058,7 @@ def _reference_child(out):
         save("transform", {**transform, "seconds": time.perf_counter() - t0})
         save("stab", _stab_reference(tct, **STAB_SIZES))
         save("slice", _slice_reference(tct, **SLICE_SIZES))
+        save("apps", _apps_reference(tct, **APPS_SIZES))
     return 0
 
 
@@ -4252,7 +4270,7 @@ def _qop_pairs(v):
 #: the files of the CPU references' child process, under build/
 REFERENCES = {"noise": "phase14_reference.pt", "brickwork": "phase15_brickwork.pt", "mps": "phase16_reference.pt",
               "ham": "phase17_reference.pt", "transform": "phase18_reference.pt", "stab": "phase19_reference.pt",
-              "slice": "phase20_reference.pt"}
+              "slice": "phase20_reference.pt", "apps": "phase24_reference.pt"}
 #: the longest a phase waits for one of them
 REF_TIMEOUT = 600
 
@@ -6754,6 +6772,338 @@ def _mlzx_phase(tct, card, counters, job):
     print(f"phase 23 wall time: {time.perf_counter() - t0:.1f} s, {card}")
 
 
+# ---- phase 24: applications/ -----------------------------------------------
+
+#: phase 24's sizes: (a) VQNHE's periodic TFIM chain, ansatz layers, hidden
+#: units, training steps and the steps held against the CPU path; (b) the
+#: portfolio's assets, trading days and budget, QAOA layers, Adam steps,
+#: CVaR alpha and the steps held; (c) the vag graph's nodes and the noisy
+#: (DMCircuit) graph's; (d) DQAS's qubits, slots, batch and steps; (e)
+#: MADE's spins, width and configurations, PixelCNN's side, depth, filters
+#: and configurations, NMF's side and draws
+APPS_SIZES = {"vq_n": 14, "vq_nl": 2, "vq_units": 16, "vq_steps": 20, "vq_ref": 3,
+              "qa_n": 20, "qa_days": 250, "qa_budget": 10, "qa_nl": 3, "qa_steps": 20, "qa_alpha": 0.1,
+              "qa_ref": 3, "vg_n": 16, "nz_n": 8, "dq_n": 8, "dq_slots": 4, "dq_batch": 16, "dq_steps": 10,
+              "made_n": 20, "made_hidden": 64, "made_k": 4096, "pc_side": 16, "pc_depth": 3, "pc_filters": 32,
+              "pc_k": 256, "nmf_side": 16, "nmf_draws": 8192}
+#: the same checks at a CPU test's size
+APPS_SMALL = {"vq_n": 6, "vq_nl": 2, "vq_units": 8, "vq_steps": 4, "vq_ref": 2,
+              "qa_n": 6, "qa_days": 60, "qa_budget": 2, "qa_nl": 2, "qa_steps": 4, "qa_alpha": 0.25, "qa_ref": 2,
+              "vg_n": 6, "nz_n": 4, "dq_n": 4, "dq_slots": 2, "dq_batch": 4, "dq_steps": 2,
+              "made_n": 6, "made_hidden": 16, "made_k": 64, "pc_side": 4, "pc_depth": 2, "pc_filters": 8,
+              "pc_k": 16, "nmf_side": 4, "nmf_draws": 2048}
+#: (a) energies, (c) losses and gradient matrices, (d) losses: against the
+#: CPU path (float32 sums over the state in another order)
+APPS_ATOL = 1e-4
+#: (b): the jitted run's losses at the start and after each of the first
+#: ``qa_ref`` Adam steps against the CPU path, relative to their size (a
+#: float32 sum over 2^n probabilities)
+APPS_LOSS_RTOL = 1e-5
+#: (e): log-probs against the CPU path, relative to their size (a float32
+#: sum of one term a site)
+APPS_LOGP_RTOL = 1e-5
+#: (e): sampled marginals within this many standard errors
+APPS_SIGMAS = 4.0
+
+
+def tfim_rows(n):
+    """The periodic n-site TFIM H = -Σ Z_i Z_i+1 - Σ X_i as VQNHE rows
+    ``[weight, code_1, ..., code_n]``: n ZZ rows, n X rows."""
+    rows = [[-1.0] + [3 if q in (i, (i + 1) % n) else 0 for q in range(n)] for i in range(n)]
+    return rows + [[-1.0] + [1 if q == i else 0 for q in range(n)] for i in range(n)]
+
+
+def portfolio_qubo(finance, n, days, budget, seed=0):
+    """The budgeted mean-variance QUBO (q 0.5, t 1) of ``n`` seeded random
+    walks of ``days`` daily prices."""
+    rng = np.random.default_rng(seed)
+    prices = 100.0 * np.cumprod(1.0 + rng.normal(0.0005, 0.01, size=(n, days)), axis=1)
+    sd = finance.StockData(prices)
+    return finance.QUBO_from_portfolio(sd.get_covariance(), sd.get_return(), q=0.5, B=budget, t=1.0)
+
+
+def qubo_readout(tct, Q, params, nlayers, dev, alpha=None, shots=1024, seed=71):
+    """What ``QUBO_QAOA`` minimises at ``params`` (the mean energy, or with
+    ``alpha`` its CVaR), and the lowest energy among ``shots`` shots of the
+    QAOA state (inverse-CDF draws of seeded uniforms) with its bitstring:
+    what a user reading the shots keeps."""
+    import torch
+    from tensorcircuit_ng_tpu_torch.applications import optimization
+
+    structures, weights, offset = tct.templates.conversions.QUBO_to_Ising(Q)
+    energies = optimization.ising_energy_vector(structures, weights, offset, device=dev)
+    with torch.no_grad():
+        p = tct.templates.ansatz.QAOA_ansatz_for_Ising(params, nlayers, structures, weights,
+                                                       device=dev).probability()
+        p = p / torch.sum(p)
+        objective = torch.sum(p * energies) if alpha is None else optimization.cvar_loss(p, energies, alpha)
+    status = np.random.default_rng(seed).uniform(size=shots)
+    idx = tct.backend.probability_sample(shots, p, status=status).long()
+    k = int(idx[torch.argmin(energies[idx])])
+    return objective.item(), float(energies[k]), format(k, f"0{len(Q)}b")
+
+
+def _apps_values(tct, dev, s, timed=None, full=False):
+    """What phase 24 holds across devices, computed on ``dev``: (a) VQNHE's
+    eager energies, (b) the QAOA losses at the start and after each of the
+    first ``qa_ref`` Adam steps (plain and CVaR), (c) ``qaoa_vag`` and
+    ``qaoa_noise_vag``'s losses and gradient matrices, (d) DQAS's sampled
+    architectures and losses, (e) MADE's and PixelCNN's log-probs.  With
+    ``full`` also the runs the card alone makes: (a) all ``vq_steps`` steps eager and jitted, (b) all
+    ``qa_steps`` steps, and the objective and best shot at the start and at
+    the end, (e) the samplers.  ``QUBO_QAOA`` goes through ``backend.jit``
+    in both (eager on the CPU)."""
+    import torch
+    from tensorcircuit_ng_tpu_torch.applications import (dqas, finance, graphdata, layers, optimization, vags, van,
+                                                         vqes)
+
+    timed = timed or (lambda label, fn: fn())
+    out = {}
+    # (a) VQNHE
+    n = s["vq_n"]
+    kw = dict(model_type="complex", ansatz="hea", nlayers=s["vq_nl"], units=s["vq_units"], device=dev)
+    steps = s["vq_steps"] if full else s["vq_ref"]
+    for label in ("eager", "jit") if full else ("eager",):
+        v = vqes.VQNHE(n, tfim_rows(n), **kw)
+        hist = []
+        timed(f"(a) VQNHE n={n}, {steps} training steps, {label}",
+              lambda: v.training(maxiter=steps, jit=label == "jit", history=hist))
+        out[f"a {label}"] = hist
+    # (b) QUBO-QAOA on the portfolio
+    Q = portfolio_qubo(finance, s["qa_n"], s["qa_days"], s["qa_budget"])
+    steps = s["qa_steps"] if full else s["qa_ref"] + 1
+    alphas = (("plain", None), ("cvar", s["qa_alpha"]))
+    for label, alpha in alphas:
+        losses = []
+        out[f"b {label} run"] = timed(
+            f"(b) QUBO_QAOA {s['qa_n']} assets, p={s['qa_nl']}, {steps} Adam steps, {label}",
+            lambda: optimization.QUBO_QAOA(Q, nlayers=s["qa_nl"], steps=steps, alpha=alpha, device=dev,
+                                           callback=lambda i, x: losses.append(x)))
+        out[f"b {label} losses"] = losses
+    if full:
+        out["b start"] = optimization.QUBO_QAOA(Q, nlayers=s["qa_nl"], steps=0, device=dev)
+        out["b Q"] = Q
+        for label, alpha in alphas:
+            out[f"b {label} readout"] = qubo_readout(tct, Q, out[f"b {label} run"][0], s["qa_nl"], dev, alpha)
+            out[f"b {label} start readout"] = qubo_readout(tct, Q, out["b start"][0], s["qa_nl"], dev, alpha)
+    # (c) the vag kernels
+    g = next(graphdata.regular_graph_generator(3, s["vg_n"], seed=31))
+    dqas.set_op_pool([layers.Hlayer, layers.rxlayer, layers.zzlayer, layers.rylayer])
+    nnp = torch.as_tensor(np.random.default_rng(33).uniform(size=(5, 4)), dtype=torch.float32, device=dev)
+    loss, gm = timed(f"(c) qaoa_vag, 3-regular {s['vg_n']} nodes, 5 layers",
+                     lambda: vags.qaoa_vag(g, nnp, [0, 2, 1, 2, 1]))
+    out["c vag"] = (loss.item(), gm.cpu())
+    gz = next(graphdata.regular_graph_generator(3, s["nz_n"], seed=37))
+    dqas.set_op_pool([layers.Hlayer, (layers.zzlayer_bitflip, gz, (0.01, 0.01, 0.02)),
+                      (layers.rxlayer, gz, layers.bitfliplayer, (0.03, 0.0, 0.0))])
+    loss, gm = timed(f"(c) qaoa_noise_vag by DMCircuit, 3-regular {s['nz_n']} nodes, 5 layers",
+                     lambda: vags.qaoa_noise_vag(gz, nnp[:, :3], [0, 1, 2, 1, 2]))
+    out["c noise"] = (loss.item(), gm.cpu())
+    # (d) DQAS over five layers.py ops
+    dn = s["dq_n"]
+    ring = graphdata.graph1D(dn)
+    pool = [layers.Hlayer, layers.rxlayer, layers.rylayer, layers.zzlayer, layers.xxlayer]
+    seen = []
+
+    def loss_fn(ops, params):
+        """Minus the expected cut of the ring (one readout of the state)."""
+        seen.append(list(ops))
+        c = tct.Circuit(dn, device=dev)
+        for k, op in enumerate(ops):
+            pool[op](c, params[k, 0], ring)
+        return vags.ave_func(c.state(), ring, (float, torch.neg))[0]
+
+    best, _, hist = timed(f"(d) DQAS_search, {dn} qubits, {s['dq_slots']} slots, batch {s['dq_batch']}, "
+                          f"{s['dq_steps']} steps", lambda: dqas.DQAS_search(
+                              pool, s["dq_slots"], loss_fn, batch=s["dq_batch"], steps=s["dq_steps"], seed=41,
+                              device=dev))
+    out["d"] = {"seen": seen, "history": hist, "best": best}
+    # (e) the samplers' log-probs
+    mn = s["made_n"]
+    made = van.MADE(mn, s["made_hidden"], device=dev, generator=torch.Generator().manual_seed(43))
+    xs = torch.as_tensor(np.random.default_rng(47).integers(0, 2, size=(s["made_k"], mn)), dtype=torch.float32,
+                         device=dev)
+    with torch.no_grad():
+        out["e made"] = timed(f"(e) MADE n={mn} hidden {s['made_hidden']}: log-probs of {s['made_k']} "
+                              "configurations", lambda: made.log_prob(xs)).cpu()
+    side = s["pc_side"]
+    pc = van.PixelCNN(2, s["pc_depth"], s["pc_filters"], device=dev, generator=torch.Generator().manual_seed(53))
+    ys = torch.as_tensor(np.random.default_rng(59).integers(0, 2, size=(s["pc_k"], side, side)), device=dev)
+    with torch.no_grad():
+        out["e pixelcnn"] = timed(f"(e) PixelCNN {side}x{side} depth {s['pc_depth']} filters {s['pc_filters']}: "
+                                  f"log-probs of {s['pc_k']} configurations", lambda: pc.log_prob(ys)).cpu()
+        if full:
+            gen = torch.Generator(device=dev).manual_seed(61)
+            out["e made sample"] = timed(f"(e) MADE sample({s['made_k']})", lambda: made.sample(gen, s["made_k"]))
+            out["e made logit0"] = made.logits(torch.zeros((1, mn), device=dev))[0, 0].item()
+            out["e pixelcnn sample"] = timed(f"(e) PixelCNN sample({s['pc_k']})",
+                                             lambda: pc.sample(gen, s["pc_k"], side, side))
+            nmf = van.NMF(2, (side, side), device=dev, generator=torch.Generator().manual_seed(67))
+            out["e nmf"] = (nmf, timed(f"(e) NMF {side}x{side} sample({s['nmf_draws']})",
+                                       lambda: nmf.sample(gen, s["nmf_draws"])))
+    return out
+
+
+def _apps_reference(tct, **sizes):
+    """Phase 24's CPU references: :func:`_apps_values` on the CPU."""
+    import torch
+
+    s = {**APPS_SIZES, **sizes}
+    t0 = time.perf_counter()
+    out = _apps_values(tct, torch.device("cpu"), s)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def _apps_checks(tct, dev, counters=(), ref=None, **sizes):
+    """Phase 24's checks (a)-(e) on ``dev``, the application layer at the
+    sizes its users run: (a) VQNHE on the n=14 periodic TFIM, eager and
+    jitted, (b) QUBO-QAOA on a 20-asset portfolio, plain and CVaR, (c) the
+    DQAS vag kernels, (d) ``DQAS_search``, (e) the autoregressive samplers;
+    each against the port's CPU path (``ref``: :func:`_apps_reference` or a
+    callable giving it, asked for after the work on ``dev``; computed here
+    when None) and its invariants.  Returns each part's (ms, how, peak MiB
+    or None)."""
+    import torch
+    from tensorcircuit_ng_tpu_torch.applications import physics
+
+    s = {**APPS_SIZES, **sizes}
+    dev = torch.device(dev)
+    card = dev.type == "cuda"
+    if card and (torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32):
+        _fail("phase 24: TF32 is on (the port's rule: no TF32)")
+    times = {}
+
+    def check(label, err, tol):
+        print(f"  {label}: {err:.3e} (tol {tol:g})")
+        if not err <= tol:
+            _fail(f"phase 24, {label}: {err} > {tol}")
+
+    def timed(label, fn):
+        """``fn()`` once: CUDA events and the peak memory above the start on
+        the card, the wall clock on the CPU."""
+        if card:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = fn()
+            b.record()
+            torch.cuda.synchronize()
+            times[label] = (a.elapsed_time(b), "CUDA events", (torch.cuda.max_memory_allocated() - base) / 2**20)
+        else:
+            t = time.perf_counter()
+            out = fn()
+            times[label] = ((time.perf_counter() - t) * 1e3, "wall clock", None)
+        return out
+
+    _reset(counters)
+    got = _apps_values(tct, dev, s, timed, full=True)
+    print(f"  launches of the port's kernels over the phase: {_launched(counters)}")
+    if callable(ref):
+        ref = ref()
+    if ref is None:
+        ref = _apps_values(tct, torch.device("cpu"), s)
+
+    # (a) VQNHE
+    n, k = s["vq_n"], s["vq_ref"]
+    floor = physics.TFIM1Denergy(n)
+    for label in ("eager", "jit"):
+        e = got[f"a {label}"]
+        print(f"  (a) {label}: E {e[0]:.7f} -> {e[-1]:.7f} over {len(e)} steps (exact ground {floor:.7f}, CPU "
+              f"{', '.join(f'{x:.7f}' for x in ref['a eager'])})")
+        check(f"(a) {label}: max |E - CPU| over the first {k} steps",
+              max(abs(a - b) for a, b in zip(e[:k], ref["a eager"])), APPS_ATOL)
+        check(f"(a) {label}: max (E_exact - E) over the steps (variational bound)", max(floor - x for x in e),
+              APPS_ATOL)
+        if not e[-1] < e[0]:
+            _fail(f"phase 24 (a) {label}: the last energy {e[-1]} is not below the first {e[0]}")
+    # (b) QUBO-QAOA
+    Q = got["b Q"]
+    _, e_start, bits_start = got["b start"]
+    for label, objective in (("plain", "mean energy"), ("cvar", f"CVaR {s['qa_alpha']}")):
+        losses, held = got[f"b {label} losses"], ref[f"b {label} losses"]
+        if len(held) != s["qa_ref"] + 1 or len(losses) != s["qa_steps"]:
+            _fail(f"phase 24 (b) {label}: {len(losses)} losses on {dev.type}, {len(held)} held on the CPU")
+        check(f"(b) {label}: max |loss - CPU| / max(1, |loss|) at the start and after each of the first "
+              f"{s['qa_ref']} steps of the timed run",
+              max(abs(a - b) / max(1.0, abs(b)) for a, b in zip(losses, held)), APPS_LOSS_RTOL)
+        p, e_best, bits = got[f"b {label} run"]
+        x = np.array([int(b) for b in bits], dtype=float)
+        obj, shot, shot_bits = got[f"b {label} readout"]
+        obj_start, shot_start, shot_bits_start = got[f"b {label} start readout"]
+        print(f"  (b) {label}: loss {losses[0]:.6f} -> {losses[-1]:.6f}; {objective} at the end {obj:.6f} (at the "
+              f"start {obj_start:.6f}); the most probable bitstring {bits} (x^T Q x {x @ Q @ x:.6f}, energy "
+              f"{e_best:.6f}; at the start {bits_start}, {e_start:.6f}); the best of 1,024 shots {shot_bits} "
+              f"({shot:.6f}; at the start {shot_bits_start}, {shot_start:.6f})")
+        if not losses[-1] < losses[0]:
+            _fail(f"phase 24 (b) {label}: the last loss {losses[-1]} is not below the first {losses[0]}")
+        if not obj < obj_start:
+            _fail(f"phase 24 (b) {label}: the {objective} at the end {obj} is not below the start's {obj_start}")
+        if not shot <= shot_start:
+            _fail(f"phase 24 (b) {label}: the best shot's energy {shot} is above the start's {shot_start}")
+        check(f"(b) {label}: |energy - x^T Q x| of the most probable bitstring", abs(e_best - x @ Q @ x),
+              APPS_ATOL * max(1.0, abs(e_best)))
+    # (c) the vag kernels
+    for key, name in (("c vag", "qaoa_vag"), ("c noise", "qaoa_noise_vag")):
+        (l1, g1), (l2, g2) = got[key], ref[key]
+        print(f"  (c) {name}: loss {l1:.7f} (CPU {l2:.7f}), {int((g1 != 0).sum())} gradient entries")
+        check(f"(c) {name}: |loss - CPU|", abs(l1 - l2), APPS_ATOL)
+        check(f"(c) {name}: max |gradient - CPU|", (g1 - g2).abs().max().item(), APPS_ATOL)
+    # (d) DQAS
+    d, rd = got["d"], ref["d"]
+    per = s["dq_batch"]
+    same = [d["seen"][i * per:(i + 1) * per] == rd["seen"][i * per:(i + 1) * per] for i in range(s["dq_steps"])]
+    print(f"  (d) {len(d['seen'])} architectures sampled; steps equal to the CPU path's: {sum(same)} of "
+          f"{len(same)}; mean loss {d['history'][0]:.6f} -> {d['history'][-1]:.6f}; best {d['best']}")
+    if not all(same) or len(d["seen"]) != len(rd["seen"]):
+        _fail(f"phase 24 (d): the sampled architectures differ from the CPU path's at steps "
+              f"{[i for i, x in enumerate(same) if not x]}")
+    check("(d) max |mean loss - CPU| over the steps", max(abs(a - b) for a, b in zip(d["history"], rd["history"])),
+          APPS_ATOL)
+    # (e) the samplers
+    for key, name in (("e made", "MADE"), ("e pixelcnn", "PixelCNN")):
+        a, b = got[key], ref[key]
+        check(f"(e) {name}: max |log p - CPU| / max(1, |log p|) over {a.numel()} configurations",
+              ((a - b).abs() / b.abs().clamp(min=1.0)).max().item(), APPS_LOGP_RTOL)
+    xs = got["e made sample"]
+    p0 = 1.0 / (1.0 + np.exp(-got["e made logit0"]))
+    z = abs(xs[:, 0].mean().item() - p0) / np.sqrt(p0 * (1 - p0) / xs.shape[0])
+    check(f"(e) MADE sample: site 0's marginal against sigmoid(logit 0) = {p0:.4f}, in sigma", z, APPS_SIGMAS)
+    if not set(xs.unique().tolist()) <= {0.0, 1.0} or xs.device.type != dev.type:
+        _fail(f"phase 24 (e): MADE samples {xs.unique().tolist()} on {xs.device}")
+    ps = got["e pixelcnn sample"]
+    if tuple(ps.shape) != (s["pc_k"], s["pc_side"], s["pc_side"]) or not set(ps.unique().tolist()) <= {0, 1}:
+        _fail(f"phase 24 (e): PixelCNN samples of shape {tuple(ps.shape)}, values {ps.unique().tolist()}")
+    nmf, draws = got["e nmf"]
+    with torch.no_grad():
+        p1 = torch.softmax(nmf.meanfield, dim=-1)[..., 1].double().cpu()
+    sigma = (p1 * (1 - p1) / draws.shape[0]).sqrt()
+    check(f"(e) NMF: max |marginal - exact| over {p1.numel()} sites, in sigma",
+          ((draws.double().mean(0).cpu() - p1).abs() / sigma).max().item(), APPS_SIGMAS)
+    return times
+
+
+def _apps_phase(tct, card, counters, job):
+    """Phase 24: :func:`_apps_checks` on the card against the CPU references
+    of the child process, then its times."""
+    t0 = time.perf_counter()
+    wait = {}
+
+    def reference():
+        ref, wait["s"] = _await_reference(job, "apps")
+        print(f"phase 24 CPU references (the child process): waited {wait['s']:.1f} s; {ref['seconds']:.1f} s there")
+        return ref
+
+    times = _apps_checks(tct, "cuda", counters, ref=reference)
+    for label, (ms, how, peak) in times.items():
+        mem = f", peak {peak:.1f} MiB above the start" if peak is not None else ""
+        print(f"phase 24 time, {label}: {ms:.3f} ms ({how}){mem}, {card}")
+    print(f"phase 24 wall time: {time.perf_counter() - t0:.1f} s (of which waiting {wait.get('s', 0.0):.1f} s), "
+          f"{card}")
+
+
 def main() -> int:
     import torch
 
@@ -7310,6 +7660,10 @@ def main() -> int:
     # ---- 23. the ML bridges and zx/ --------------------------------------
     _mlzx_phase(tct, card, every_counter, ref_job)
     print(f"phase 23 ended at {time.time() - t_start:.1f} s")
+
+    # ---- 24. applications/: VQNHE, QUBO-QAOA, vags, DQAS, samplers -------
+    _apps_phase(tct, card, every_counter, ref_job)
+    print(f"phase 24 ended at {time.time() - t_start:.1f} s")
     print(f"smoke total: {time.time() - t_start:.1f} s")
     print(json.dumps(kernels_line))
     print(card)

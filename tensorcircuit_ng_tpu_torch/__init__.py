@@ -201,8 +201,9 @@ CliffordCircuit = StabCircuit = StabilizerCircuit
 
 def __getattr__(name: str) -> Any:
     """``parallel``, ``DistributedContractor``, ``results``, ``cloud``, the
-    ML bridges (``interfaces``, ``torchnn``, ``keras`` and their layers) and
-    ``zx``, imported at first use, as the JAX package exports them."""
+    ML bridges (``interfaces``, ``torchnn``, ``keras`` and their layers),
+    ``zx`` and ``applications``, imported at first use, as the JAX package
+    exports them."""
     import importlib
 
     lazy = {
@@ -211,6 +212,7 @@ def __getattr__(name: str) -> Any:
         "results": (".results", None),
         "cloud": (".cloud", None),
         "zx": (".zx", None),
+        "applications": (".applications", None),
         "interfaces": (".interfaces", None),
         "keras": (".keras", None),
         "torchnn": (".torchnn", None),

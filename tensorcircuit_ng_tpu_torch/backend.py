@@ -43,6 +43,7 @@ names, so that code written against ``K = tc.backend`` ports directly.
 from __future__ import annotations
 
 import functools
+import gc
 import math
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
@@ -1037,6 +1038,11 @@ class Jitted:
         call_args = tuple(args[i] if i in self.static else a for i, a in enumerate(dyn_args))
         torch.cuda.synchronize()
         graph = torch.cuda.CUDAGraph()
+        # no garbage collection inside the capture: a collected CUDA graph
+        # or event frees itself by a CUDA call the capture forbids, which
+        # invalidates it (``torch.cuda.graph`` collects once on entry)
+        collecting = gc.isenabled()
+        gc.disable()
         try:
             with torch.cuda.graph(graph, pool=torch.cuda.graph_pool_handle()):
                 static_out = self.f(*call_args, **kws)
@@ -1045,6 +1051,9 @@ class Jitted:
                 f"jit: {getattr(self.f, '__name__', self.f)!r} cannot be captured as a CUDA graph (a host "
                 f"read such as .item(), .tolist() or .cpu(), or a draw from a generator, inside it?): {err}"
             ) from err
+        finally:
+            if collecting:
+                gc.enable()
         self.captures += 1
         return graph, static_in, static_out
 

@@ -13,7 +13,11 @@ entry point of the port, these put their tensors on the default device
 - :func:`readout_spec` — an Ising readout spec ``(diag_terms, x_terms)``
   with plain ints and floats, hashable as the port's readout caches need;
 - :func:`tebd_state` — a ``ParallelTEBD`` engine's Vidal tensors, for
-  ``ParallelTEBD.from_state``.
+  ``ParallelTEBD.from_state``;
+- :func:`param_dict` — a dict of named parameter arrays (VQNHE's model
+  dicts ``w1``, ``b1``, ... ``pw``, ``Linear``'s ``wr``/``wi``/``br``/``bi``);
+- :func:`van_params` — a flax parameter tree of ``applications.van``'s
+  ``MADE``, ``PixelCNN`` or ``NMF`` (numpy arrays) into the port's module.
 """
 
 from __future__ import annotations
@@ -25,7 +29,7 @@ import torch
 
 from .config import resolve_device
 
-__all__ = ["params", "state", "planes", "readout_spec", "tebd_state", "to_numpy"]
+__all__ = ["params", "state", "planes", "readout_spec", "tebd_state", "param_dict", "van_params", "to_numpy"]
 
 Device = Union[None, str, torch.device]
 
@@ -67,6 +71,51 @@ def tebd_state(gammas: Any, lambdas: Any, device: Device = None) -> Tuple[torch.
     g = torch.as_tensor(np.ascontiguousarray(np.asarray(gammas)), device=device)
     lam = torch.as_tensor(np.asarray(lambdas, dtype=np.float32), device=device)
     return g, lam
+
+
+def param_dict(d: Any, device: Device = None, dtype: torch.dtype = torch.float32) -> dict:
+    """``{name: array}`` as ``{name: tensor of dtype on device}``."""
+    return {k: params(v, device, dtype) for k, v in d.items()}
+
+
+def _flat_tree(tree: Any, prefix: str = "") -> dict:
+    out = {}
+    for k, v in tree.items():
+        key = f"{prefix}.{k}" if prefix else str(k)
+        out.update(_flat_tree(v, key) if isinstance(v, dict) else {key: np.asarray(v)})
+    return out
+
+
+def van_params(module: torch.nn.Module, tree: Any) -> torch.nn.Module:
+    """Load a flax parameter tree (``{"params": ...}`` or its inside, numpy
+    arrays) into ``module``, a ``MADE``, ``PixelCNN`` or ``NMF`` of the same
+    sizes, in place; returns it.
+
+    A flax Dense kernel ``(in, out)`` becomes a ``(out, in)`` weight, a
+    conv kernel HWIO an OIHW weight (the masks lie on the same axes of
+    each), ``blocks_i``/``layers_j`` the module lists' entries and
+    "meanfield-parameter" ``meanfield``.  A name or shape that does not
+    match raises."""
+    tree = tree.get("params", tree)
+    own = dict(module.named_parameters())
+    seen = set()
+    for key, a in _flat_tree(tree).items():
+        parts = []
+        for part in key.split("."):
+            head, _, idx = part.rpartition("_")
+            parts.append(f"{head}.{idx}" if head in ("blocks", "layers") and idx.isdigit() else part)
+        name = ".".join(parts).replace("meanfield-parameter", "meanfield")
+        if name.endswith(".kernel"):
+            name = name[: -len("kernel")] + "weight"
+            a = a.T if a.ndim == 2 else a.transpose(3, 2, 0, 1)
+        if name not in own or tuple(own[name].shape) != a.shape:
+            raise ValueError(f"flax parameter {key} {a.shape} has no counterpart in {type(module).__name__}")
+        with torch.no_grad():
+            own[name].copy_(torch.as_tensor(np.array(a, copy=True), dtype=own[name].dtype))
+        seen.add(name)
+    if seen != set(own):
+        raise ValueError(f"the flax tree leaves {sorted(set(own) - seen)} of {type(module).__name__} unset")
+    return module
 
 
 def to_numpy(t: Any) -> np.ndarray:

@@ -91,7 +91,7 @@ def init_state(
             s = torch.as_tensor(np.asarray(inputs), device=device).to(cdt)
         return torch.reshape(s, (-1,))
     s = torch.zeros((d**n,), dtype=cdt, device=device)
-    s[0] = 1.0
+    s[:1].fill_(1.0)  # no host-to-device copy: capturable in a CUDA graph
     return s
 
 

@@ -79,7 +79,12 @@ and ``chip_smoke.py``'s phase 20 at a small size.  F19's channels on a
 mesh of one card's shards against the dense card circuit (the same branch,
 states within 1e-5), a JSON and an OpenQASM round trip of a CUDA circuit
 (gate tensors on the card, states within 2e-6), and ``chip_smoke.py``'s
-phase 22 at a small size.
+phase 22 at a small size.  The application layer (no kernel of its own):
+a VQNHE step (energy, both gradients, 3 Adam steps) on the card against
+the CPU path within 1e-4, PixelCNN's log-probs within 1e-5 of their
+size and its gradients within 1e-4 with cuDNN's TF32 on globally (the
+module computes in float32 regardless), and ``chip_smoke.py``'s phase 24
+at a small size.
 """
 
 import numpy as np
@@ -90,7 +95,7 @@ import tensorcircuit_ng_tpu_torch as tct
 from chip_smoke import (
     SLICE_SMALL, _slice_checks, fgs_inputs, fgs_layers, pp_circuit,
     PAR_SMALL, _parallel_checks, par_mixed_circuit, PAR_CHANNELS, par_probe_circuit,
-    IO_SMALL, _io_checks, MLZX_SMALL, _mlzx_checks,
+    IO_SMALL, _io_checks, MLZX_SMALL, _mlzx_checks, APPS_SMALL, _apps_checks, tfim_rows,
     STAB_SMALL, _stab_checks, detector_statuses, qudit_energy, repetition_program, stab_angles, surface_code_program,
     u1_circuit, u1_energy, xy_gate, clifford_program,
     HAM_SMALL, TRANSFORM_SMALL, _tfim_coo_state, _transform_checks, transform_angles, transform_energy,
@@ -2155,3 +2160,68 @@ def test_mlzx_phase_checks_on_card(cuda):
     """``chip_smoke.py``'s phase 23 at a small size."""
     counters = (krl.zzrx_fwd, krl.zzrx_bwd, kg.grand_zzrx_fwd, kg.grand_zzrx_bwd)
     _mlzx_checks(tct, cuda, counters, **MLZX_SMALL)
+
+
+def test_vqnhe_step_on_card_matches_cpu(cuda):
+    """VQNHE on the n=10 periodic TFIM (complex model, hea): the energy and
+    both gradients on the card against the CPU path, then 3 joint Adam
+    steps (the card's through ``backend.jit``) energy for energy."""
+    from tensorcircuit_ng_tpu_torch.applications import vqes
+
+    out = {}
+    for dev in ("cpu", cuda):
+        v = vqes.VQNHE(10, tfim_rows(10), model_type="complex", ansatz="hea", nlayers=2, units=16, device=dev)
+        assert v.h.device.type == torch.device(dev).type
+        e, (gc, gm) = tct.backend.value_and_grad(v.energy, argnums=(0, 1))(v.circuit_params, v.model_params)
+        hist = []
+        v.training(maxiter=3, history=hist)
+        out[str(dev)] = (e.item(), gc.cpu(), {k: x.cpu() for k, x in gm.items()}, hist)
+    (e0, gc0, gm0, h0), (e1, gc1, gm1, h1) = out["cpu"], out[str(cuda)]
+    assert abs(e0 - e1) < 1e-4
+    assert (gc0 - gc1).abs().max().item() < 1e-4
+    for k in gm0:
+        assert (gm0[k] - gm1[k]).abs().max().item() < 1e-4, k
+    assert max(abs(a - b) for a, b in zip(h0, h1)) < 1e-4
+
+
+def test_pixelcnn_on_card_without_tf32_matches_cpu(cuda):
+    """PixelCNN (8x8, depth 3, 16 filters) from one generator on both
+    devices, with cuDNN's TF32 switched on around it (PyTorch's default):
+    its convolutions still compute in float32 (TF32 errs by ~1e-3), so the
+    card's log-probs stay within 1e-5 of their size of the CPU path's and
+    their parameter gradients within 1e-4 of the largest, and the global
+    setting is left as it was; a sample's shape and values."""
+    from tensorcircuit_ng_tpu_torch.applications import van
+
+    was = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        x = torch.as_tensor(np.random.default_rng(3).integers(0, 2, size=(64, 8, 8)))
+        out = {}
+        for dev in ("cpu", cuda):
+            pc = van.PixelCNN(2, 3, 16, device=dev, generator=torch.Generator().manual_seed(9))
+            lp = pc.log_prob(x.to(dev))
+            grads = torch.autograd.grad(lp.sum(), list(pc.parameters()))
+            out[str(dev)] = (lp.detach().cpu(), [g.cpu() for g in grads])
+            assert torch.backends.cudnn.allow_tf32
+        (a, ga), (b, gb) = out[str(cuda)], out["cpu"]
+        assert ((a - b).abs() / b.abs().clamp(min=1.0)).max().item() < 1e-5
+        for g1, g2 in zip(ga, gb):
+            assert (g1 - g2).abs().max().item() < 1e-4 * max(1.0, g2.abs().max().item())
+        with torch.no_grad():
+            s = pc.sample(torch.Generator(device=cuda).manual_seed(1), 16, 8, 8)
+        assert s.shape == (16, 8, 8) and s.device.type == "cuda" and set(s.unique().tolist()) <= {0, 1}
+    finally:
+        torch.backends.cudnn.allow_tf32 = was
+
+
+def test_apps_phase_checks_on_card(cuda):
+    """``chip_smoke.py``'s phase 24 at a small size."""
+    counters = (krl.zzrx_fwd, krl.zzrx_bwd, kg.grand_zzrx_fwd, kg.grand_zzrx_bwd)
+    was = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        times = _apps_checks(tct, cuda, counters, **APPS_SMALL)
+    finally:
+        torch.backends.cudnn.allow_tf32 = was
+    assert {label[:3] for label in times} == {"(a)", "(b)", "(c)", "(d)", "(e)"}
